@@ -1,0 +1,221 @@
+"""Port's MPPI controller against the JAX package's, plus its own surface.
+
+The closed-loop parity injects the same eps into both packages every
+step (the two PRNG streams differ by design) and compares actions and
+the carried sequence at f64.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mppi_tf_tpu.controller.mppi import MPPI as JMPPI
+from mppi_tf_tpu.costs import get_cost as jget_cost
+from mppi_tf_tpu.models import get_model as jget_model
+from mppi_tf_tpu_torch.controller import MPPI, get_controller, savgol_matrix
+from mppi_tf_tpu_torch.costs import get_cost
+from mppi_tf_tpu_torch.models import get_model
+
+SIGMA = np.diag([0.25, 0.3, 0.2])
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _modules(lim=None, goal=(1.0, 0.0, 0.0, 0.0, 0.0, 0.0), lam=1.2,
+             gamma=1.1, ups=2.0, mass=1.5):
+    mcfg = {"type": "point_mass", "mass": mass}
+    if lim is not None:
+        mcfg.update(limMax=lim, limMin=-lim)
+    task = {"type": "static", "goal": list(goal), "Q": np.eye(6).tolist()}
+    port = (get_model(mcfg, dt=0.1, state_dim=6, action_dim=3,
+                      dtype=torch.float64),
+            get_cost(task, lam=lam, gamma=gamma, upsilon=ups, sigma=SIGMA,
+                     dtype=torch.float64))
+    ref = (jget_model(mcfg, dt=0.1, state_dim=6, action_dim=3,
+                      dtype=jnp.float64),
+           jget_cost(task, lam=lam, gamma=gamma, upsilon=ups, sigma=SIGMA,
+                     dtype=jnp.float64))
+    return port, ref
+
+
+@pytest.mark.parametrize("opts", [
+    {}, {"normalize_cost": True}, {"clip_actions": True},
+    {"filter_seq": True},
+    {"normalize_cost": True, "clip_actions": True, "filter_seq": True}],
+    ids=["plain", "normalize", "clip", "filter", "all"])
+def test_closed_loop_parity_injected_noise(opts):
+    k, tau = 60, 10
+    (pm, pc), (jm, jc) = _modules(lim=0.6)
+    port = MPPI(pm, pc, k=k, tau=tau, lam=1.2, upsilon=2.0, sigma=SIGMA,
+                device="cpu", **opts)
+    ref = JMPPI(jm, jc, k=k, tau=tau, lam=1.2, upsilon=2.0, sigma=SIGMA,
+                **opts)
+    mp, cp = ref.model_params, ref._cparams
+    rng = np.random.default_rng(21)
+    eps = rng.normal(size=(k, tau, 3)) * 0.4
+    x_p = x_j = rng.normal(size=6)
+    useq_p = torch.zeros(tau, 3, dtype=torch.float64)
+    useq_j = jnp.zeros((tau, 3), jnp.float64)
+    for _ in range(10):
+        a_p, useq_p, info_p = port._solve_with_noise(
+            torch.as_tensor(eps), torch.as_tensor(x_p), useq_p)
+        a_j, useq_j, info_j = ref._solve_with_noise_jit(
+            jnp.asarray(eps), jnp.asarray(x_j), useq_j, mp, cp)
+        np.testing.assert_allclose(a_p.numpy(), np.asarray(a_j), rtol=1e-9,
+                                   atol=1e-12)
+        np.testing.assert_allclose(useq_p.numpy(), np.asarray(useq_j),
+                                   rtol=1e-9, atol=1e-12)
+        np.testing.assert_allclose(info_p["cost_mean"].item(),
+                                   float(info_j["cost_mean"]), rtol=1e-9)
+        x_p = pm.predict(torch.as_tensor(x_p), a_p).detach().numpy()
+        x_j = np.asarray(jm.predict(mp, jnp.asarray(x_j), a_j))
+    np.testing.assert_allclose(x_p, x_j, rtol=1e-9, atol=1e-12)
+
+
+def test_log_mode_info_matches_jax():
+    k, tau = 30, 5
+    (pm, pc), (jm, jc) = _modules()
+    port = MPPI(pm, pc, k=k, tau=tau, lam=1.2, upsilon=2.0, sigma=SIGMA,
+                device="cpu", log=True)
+    ref = JMPPI(jm, jc, k=k, tau=tau, lam=1.2, upsilon=2.0, sigma=SIGMA,
+                log=True)
+    rng = np.random.default_rng(22)
+    eps, x0 = rng.normal(size=(k, tau, 3)), rng.normal(size=6)
+    _, _, info_p = port._solve_with_noise(
+        torch.as_tensor(eps), torch.as_tensor(x0),
+        torch.zeros(tau, 3, dtype=torch.float64))
+    _, _, info_j = ref._solve_with_noise_jit(
+        jnp.asarray(eps), jnp.asarray(x0), jnp.zeros((tau, 3)),
+        ref.model_params, ref._cparams)
+    for key in ("sample_costs", "weights", "nabla", "arg", "noise"):
+        np.testing.assert_allclose(info_p[key].numpy(),
+                                   np.asarray(info_j[key]), rtol=1e-9,
+                                   atol=1e-14)
+
+
+def test_savgol_matrix_matches_jax():
+    from mppi_tf_tpu.controller.mppi import savgol_matrix as jsavgol
+
+    np.testing.assert_allclose(savgol_matrix(12, 9, 3), jsavgol(12, 9, 3),
+                               rtol=1e-12, atol=1e-14)
+
+
+def _pm_controller(**kw):
+    (pm, pc), _ = _modules(lam=0.8, gamma=0.2, ups=1.0, mass=1.0)
+    return MPPI(pm, pc, k=kw.pop("k", 500), tau=kw.pop("tau", 25), lam=0.8,
+                upsilon=1.0, sigma=SIGMA, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kernel", ["torch", "auto"])
+def test_next_reaches_goal_on_cpu(kernel):
+    """End-to-end: the plain CPU path drives the point mass to the goal
+    (as tests/test_controller.py does for the JAX package)."""
+    ctrl = _pm_controller(kernel=kernel)
+    assert ctrl.kernel_path == "torch"
+    model = ctrl._model
+    x = torch.zeros(6, dtype=torch.float64)
+    for _ in range(60):
+        u = ctrl.next(x.numpy())
+        x = model.predict(x, torch.as_tensor(u)).detach()
+    final = x.numpy()
+    assert abs(final[0] - 1.0) < 0.2, f"did not reach goal: {final}"
+    assert np.all(np.abs(final[1::2]) < 0.5), f"velocities too large: {final}"
+    assert ctrl.timing["calls"] == 60
+
+
+def test_save_load_state_resume(tmp_path):
+    ctrl = _pm_controller(k=100, tau=8)
+    ctrl.set_goal([0.5, 0.0, 0.2, 0.0, 0.1, 0.0])
+    x = np.zeros(6)
+    for _ in range(3):
+        ctrl.next(x)
+    path = str(tmp_path / "ctrl.npz")
+    ctrl.save_state(path)
+    expected = [ctrl.next(x) for _ in range(3)]
+
+    fresh = _pm_controller(k=100, tau=8)
+    fresh.load_state(path)
+    np.testing.assert_array_equal(fresh._cost.goal.numpy(),
+                                  [0.5, 0.0, 0.2, 0.0, 0.1, 0.0])
+    assert fresh.timing["calls"] == 3
+    got = [fresh.next(x) for _ in range(3)]
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(expected))
+
+    wrong = _pm_controller(k=100, tau=5)
+    with pytest.raises(ValueError):
+        wrong.load_state(path)
+
+
+def test_trace_restores_state():
+    traced, plain = _pm_controller(k=50, tau=6), _pm_controller(k=50, tau=6)
+    traced.trace()
+    x = np.full(6, 0.1)
+    np.testing.assert_array_equal(traced.next(x), plain.next(x))
+    assert traced.timing["calls"] == 1
+
+
+def test_profile_runs_on_cpu(tmp_path):
+    ctrl = _pm_controller(k=50, tau=6)
+    prof = ctrl.profile(str(tmp_path))
+    assert (tmp_path / "trace.json").exists()
+    assert len(prof.key_averages()) > 0
+
+
+def test_default_device_raises_without_gpu(monkeypatch):
+    (pm, pc), _ = _modules()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        MPPI(pm, pc, k=10, tau=4, sigma=SIGMA)
+
+
+def test_cuda_kernel_on_cpu_raises():
+    (pm, pc), _ = _modules()
+    for kernel in ("cuda", "pallas"):
+        with pytest.raises(ValueError, match="CUDA device"):
+            MPPI(pm, pc, k=10, tau=4, sigma=SIGMA, kernel=kernel,
+                 device="cpu")
+
+
+def test_constructor_rejects():
+    (pm, pc), _ = _modules()
+    with pytest.raises(ValueError):
+        MPPI(pm, pc, k=10, tau=4, sigma=SIGMA, kernel="bogus", device="cpu")
+    with pytest.raises(ValueError):
+        MPPI(pm, pc, k=10, tau=4, sigma=None, device="cpu")
+    with pytest.raises(AssertionError):
+        MPPI(pm, pc, k=10, tau=4, sigma=np.eye(2), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 7"):
+        MPPI(pm, pc, k=10, tau=4, sigma=SIGMA, device="cpu",
+             observer=object())
+    ctrl = MPPI(pm, pc, k=10, tau=4, sigma=SIGMA, kernel="xla",
+                device="cpu")
+    assert ctrl.kernel_path == "torch"
+
+
+def test_get_controller_single():
+    (pm, pc), _ = _modules()
+    cfg = {"samples": 40, "horizon": 6, "lambda": 0.9, "upsilon": 1.5,
+           "noise": SIGMA.tolist(), "init-act": [0.1, 0.2, 0.3],
+           "normalize": True}
+    ctrl = get_controller(pm, pc, cfg, device="cpu")
+    assert (ctrl._k, ctrl._tau, ctrl._lam, ctrl._upsilon) == (40, 6, 0.9,
+                                                              1.5)
+    assert ctrl._normalize_cost and ctrl.kernel_path == "torch"
+    np.testing.assert_allclose(ctrl.useq.numpy(),
+                               np.tile([0.1, 0.2, 0.3], (6, 1)))
+
+
+@pytest.mark.parametrize("cfg,kw,item", [
+    ({"fleet": 4}, {}, "item 12"),
+    ({}, {"mesh": object()}, "item 14"),
+    ({"refit-every": 10}, {}, "item 9"),
+    ({"kernel-dtype": "bfloat16"}, {}, "queue-2 item 7")])
+def test_get_controller_not_ported(cfg, kw, item):
+    (pm, pc), _ = _modules()
+    base = {"samples": 10, "horizon": 4, "noise": SIGMA.tolist()}
+    with pytest.raises(NotImplementedError, match=item):
+        get_controller(pm, pc, {**base, **cfg}, device="cpu", **kw)
