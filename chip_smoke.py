@@ -4,12 +4,19 @@
 Run from the repository root:  python3 chip_smoke.py
 
 Builds the CUDA kernels of ``mppi_tf_tpu_torch`` from the sources in the
-checkout, holds each kernel against its plain PyTorch version, checks the
-in-kernel noise stream, drives the main path (``MPPI.next`` over the
-point-mass model and static cost at K=100,000 samples, H=50, closed loop
-against the analytic plant) and times it. Each phase prints one JSON line;
-any failed check raises and the script exits non-zero. Without a CUDA
-device it exits non-zero before printing any result.
+checkout (one nvcc per source, in parallel), holds each kernel against its
+plain PyTorch version, checks the in-kernel noise stream, and drives the
+port's paths through ``MPPI.next`` closed loop against the analytic plants:
+
+- the point mass with the static cost at K=100,000 samples, H=50 (the
+  fused solve; then the two-phase normalized solve);
+- the rexrov2 AUV flagship with the static quaternion cost at K=262,144,
+  H=25: the normalized dive (the two-phase solve: auv_fused_costs, then
+  mppi_weights) and the unnormalized fused solve.
+
+It times every kernel. Each phase prints one JSON line; any failed check
+raises and the script exits non-zero. Without a CUDA device it exits
+non-zero before printing any result.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit as ``nvidia-smi`` prints them, and
@@ -45,6 +52,25 @@ PEAK_OPS = 67e12
 # Box-Muller ~15 per pair (2 uniforms of 4 ops, log, mul, sqrt, sin, cos,
 # 2 muls); every op counted at the f32 rate, so the bound is a floor
 OPS_PER_NORMAL = 98 / 4 + 15 / 2
+
+# the AUV flagship (mppi_tf_tpu/bench.py "auv_rexrov2" row): rexrov2, rk2,
+# state 13, action 6, K=262,144, H=25
+AUV_K, AUV_H = 262_144, 25
+AUV_SIGMA = 1500.0 * np.eye(6)
+AUV_LAM, AUV_GAMMA, AUV_UPSILON = 0.5, 0.2, 1.0
+# the normalized dive (tests/test_envs.py:416-455 at full width): goal
+# z = -1, 160 control steps of 0.1 s, each 5 plant substeps of 0.02 s
+DIVE_SIGMA = np.diag([2000.0] * 3 + [200.0] * 3)
+DIVE_Q = [60.0, 60.0, 60.0, 10.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0]
+DIVE_STEPS, DIVE_SUBSTEPS, DIVE_TOL = 160, 5, 0.2
+# the unnormalized flagship loop: a path for auv_fused_solve
+AUV_PLAIN_STEPS = 40
+# per-sample AUV costs of O(1e4-1e5) in f32, summed in another order:
+# rtol 1e-4; the theta term 2 acos(dot) carries ~3e-4 rad of rounding near
+# dot = 1, where acos is steep, hence a small absolute floor
+COST_RTOL, COST_ATOL = 1e-4, 1e-2
+# per-sample point-mass costs of O(10-100)
+PM_COST_RTOL, PM_COST_ATOL = 1e-4, 1e-4
 
 
 def emit(phase: str, **kw) -> None:
@@ -90,19 +116,57 @@ def nnz(a) -> int:
     return int(np.count_nonzero(a))
 
 
-def solve_ops(consts, k: int, tau: int, prng: bool) -> float:
+def solve_ops(consts, k: int, tau: int, prng: bool,
+              costs_only: bool = False) -> float:
     """Operations of one fused solve, from the nonzeros of this run's
     matrices (FMA = 2): rollout and cost per sample-step, the terminal
-    cost, the softmax, the w*z reduction, and two noise passes."""
+    cost, the softmax, the w*z reduction, and one noise pass (the function
+    needs each normal once; the kernel's regeneration in its second pass
+    is its own choice and not counted). With ``costs_only`` (phase A): no
+    softmax or w*z."""
     sdim, adim = consts.dims
     q_ops = sdim + 2 * nnz(consts.Q) + 2 * sdim
     step = (2 * nnz(consts.A) + 2 * nnz(consts.Bs) + 2 * sdim + q_ops
             + 2 * adim + 2 * nnz(consts.Mz) + 2 * adim + 2)
+    return _rollout_ops(k, tau, adim, step, q_ops, prng, costs_only)
+
+
+def _rollout_ops(k, tau, adim, step, q_ops, prng, costs_only):
     n_normals = k * tau * adim
-    ops = k * (tau * step + q_ops + 6) + 2 * n_normals
-    if prng:
-        ops += 2 * n_normals * OPS_PER_NORMAL
-    return float(ops)
+    if costs_only:
+        ops = k * (tau * step + q_ops + 1)
+    else:
+        ops = k * (tau * step + q_ops + 6) + 2 * n_normals
+    return float(ops + (n_normals * OPS_PER_NORMAL if prng else 0))
+
+
+def auv_solve_ops(consts, dyn, k: int, tau: int, prng: bool,
+                  costs_only: bool = False) -> float:
+    """Operations of one fused AUV solve, counted from auv_mppi.cu with the
+    nonzeros of this run's matrices (FMA = 2; acos, rsqrt counted as 10 and
+    1): a state_dot is the rotation (36), pose rates (18), quaternion rates
+    (24), damping (2 nnz(L) + 2 nnz(L_fwd) + 36), M nu (2 nnz(M)), three
+    cross products and their sums (36), restoring forces (24 + 2 nnz(cog)
+    + 2 nnz(cob)), the force sum (6) and M^-1 rhs (2 nnz(M^-1)); a step adds
+    the generalised force, rk stages, the quaternion norm, the 10-dim cost
+    and the action-cost terms."""
+    m_tot = dyn[:36].cpu().numpy()
+    inv_m = dyn[36:72].cpu().numpy()
+    sd = (36 + 18 + 24 + 2 * nnz(consts.lin_damp)
+          + 2 * nnz(consts.lin_damp_fwd) + 36 + 2 * nnz(m_tot) + 36
+          + 24 + 2 * nnz(consts.cog) + 2 * nnz(consts.cob) + 6
+          + 2 * nnz(inv_m))
+    stages = {1: sd + 26, 2: 2 * sd + 26 + 39, 4: 4 * sd + 3 * 52 + 39}
+    q_ops = 3 + 7 + 2 + 10 + 2 + 6 + 2 * nnz(consts.Q) + 20
+    step = (6 + 2 * nnz(consts.scale) + stages[consts.rk] + 13 + q_ops
+            + 12 + 2 * nnz(consts.Mz) + 12 + 2)
+    return _rollout_ops(k, tau, 6, step, q_ops, prng, costs_only)
+
+
+def weights_ops(k: int, n_z: int, prng: bool) -> float:
+    """Phase B: the bounded exponent (4 a sample), one noise pass and the
+    w*z reduction (2 a normal)."""
+    return float(k * 4 + k * n_z * (2 + (OPS_PER_NORMAL if prng else 0)))
 
 
 def bound_ms(n_bytes: float, ops: float):
@@ -205,7 +269,8 @@ def noise_phase(pm, seed: int, solve: int) -> dict:
     return {"max_abs_err": err, "launches": launches}
 
 
-def closed_loop(kernel: str):
+def closed_loop(kernel: str, normalize: bool = False,
+                steps: int = LOOP_STEPS):
     """K=100k, H=50 closed loop through the factories against the analytic
     plant; returns (controller, final goal error, per-step host ms)."""
     from mppi_tf_tpu_torch.controller import get_controller
@@ -214,14 +279,15 @@ def closed_loop(kernel: str):
 
     model, cost = workload("cuda")
     cfg = {"samples": K, "horizon": H, "lambda": LAM, "upsilon": UPSILON,
-           "noise": SIGMA.tolist(), "kernel": kernel}
+           "noise": SIGMA.tolist(), "kernel": kernel,
+           "normalize": normalize}
     ctrl = get_controller(model, cost, cfg)
     ctrl.trace()  # builds and warms up; restores the controller's state
     env = PointMassEnv(n_dof=3, mass=MASS, dt=DT)
     x = env.reset()
     step_ms = []
     pm.reset_launch_counts()
-    for _ in range(LOOP_STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         u = ctrl.next(x)  # returns a host array: ends in a sync
         step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -231,14 +297,16 @@ def closed_loop(kernel: str):
     return ctrl, err, step_ms, counts
 
 
-def profile_steps(ctrl, steps: int = 20) -> dict:
+def profile_steps(ctrl, steps: int = 20, x=None) -> dict:
     """Where a step's time goes: ``torch.profiler`` over ``steps`` calls of
-    MPPI.next; device busy share = summed kernel time / wall time (one
-    stream, so kernels do not overlap)."""
+    MPPI.next at state ``x`` (default zeros); device busy share = summed
+    kernel time / wall time (one stream, so kernels do not overlap);
+    synchronising CUDA runtime calls per step (the action's copy to the
+    host is one)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    x = np.zeros(6)
+    x = np.zeros(6) if x is None else x
     ctrl.next(x)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -247,18 +315,220 @@ def profile_steps(ctrl, steps: int = 20) -> dict:
         for _ in range(steps):
             ctrl.next(x)
         wall_us = (time.perf_counter() - t0) * 1e6
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+    events = prof.key_averages()
+    kern = [e for e in events if e.device_type == DeviceType.CUDA]
     dev_us = sum(e.self_device_time_total for e in kern)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    syncs = {e.key: e.count / steps for e in events
+             if e.device_type == DeviceType.CPU and "Synchronize" in e.key}
     return {
         "steps": steps, "wall_us_per_step": wall_us / steps,
         "device_us_per_step": dev_us / steps,
         "device_busy_share": dev_us / wall_us,
         "kernel_launches_per_step": sum(e.count for e in kern) / steps,
+        "syncs_per_step": syncs,
         "top_kernels_us_per_step": {
             e.key[:60]: e.self_device_time_total / steps for e in top},
     }
+
+
+def rest_state() -> np.ndarray:
+    """The AUV at rest at the surface, unit quaternion qw = 1."""
+    x = np.zeros(13)
+    x[6] = 1.0
+    return x
+
+
+def auv_modules(device, task, sigma, lam=AUV_LAM, rk=2):
+    from mppi_tf_tpu_torch import flagship
+    from mppi_tf_tpu_torch.costs import get_cost
+    from mppi_tf_tpu_torch.models import get_model
+
+    model = get_model({**flagship.auv_params(), "rk": rk}, dt=0.1,
+                      device=device)
+    cost = get_cost(task, lam=lam, gamma=AUV_GAMMA, upsilon=AUV_UPSILON,
+                    sigma=sigma, device=device)
+    return model, cost
+
+
+def auv_fused(k, tau, rk=2, sigma=AUV_SIGMA):
+    from mppi_tf_tpu_torch import flagship
+    from mppi_tf_tpu_torch.kernels import auv_mppi as auv
+
+    model, cost = auv_modules("cuda", flagship.auv_task(), sigma, rk=rk)
+    return auv.FusedAUVMPPI(model, cost, k=k, tau=tau, lam=AUV_LAM,
+                            upsilon=AUV_UPSILON, sigma=sigma)
+
+
+def auv_dyn(fused, useq_scale: float, seed: int, x0=None):
+    rng = np.random.default_rng(seed)
+    x0 = torch.as_tensor(rest_state() if x0 is None else x0,
+                         dtype=torch.float32, device="cuda")
+    useq = torch.as_tensor(useq_scale * rng.standard_normal((fused.tau, 6)),
+                           dtype=torch.float32, device="cuda")
+    with torch.no_grad():
+        return fused.pack_dyn(x0, useq)
+
+
+def check_auv(auv, pm, fused, z, label: str, useq_scale: float,
+              x0=None, end_to_end: bool = False) -> dict:
+    """AUV kernels against their plain versions on injected z: per-sample
+    costs (phase A) and their merged stats; the fused rows' merged cost
+    stats against the plain costs (every sample's rollout) and their
+    softmax (m, l, zsum / l) against block_partials of the kernel's own
+    costs (the softmax apart from the rollout); with ``end_to_end`` the
+    whole solve's wnoise, beside its first-order reading from the cost
+    errors."""
+    k, tau, c = fused.k, fused.tau, fused.consts
+    dyn = auv_dyn(fused, useq_scale, seed=11, x0=x0)
+    costs_k, rows_k = auv.auv_fused_costs(c, dyn, k, tau, z=z)
+    costs_p = auv.sample_costs_plain(c, dyn, z)
+    _, st_k = pm.pm_merge(rows_k)
+    part_k = auv.auv_fused_solve(c, dyn, k, tau, z=z)
+    part_o = pm.block_partials(costs_k, z.reshape(tau * 6, k), c.lam)
+    torch.cuda.synchronize()
+    out = {"k": k, "tau": tau, "rk": c.rk, "cost_rtol": COST_RTOL,
+           "cost_atol": COST_ATOL}
+    ok_c, err_c, ratio_c = close(costs_k, costs_p, COST_RTOL, COST_ATOL)
+    out.update(costs_ok=ok_c, costs_max_abs_err=err_c, costs_ratio=ratio_c,
+               costs_max_rel_err=((costs_k.double() - costs_p.double()).abs()
+                                  / costs_p.double().abs()).max().item())
+    ref = torch.stack([costs_p.min(), costs_p.max(), costs_p.sum()])
+    stats_rel = ((st_k[2:5] - ref).abs() / ref.abs()).max().item()
+    out.update(cost_stats_max_rel_err=stats_rel, cost_stats_rtol=1e-4)
+    zs_k, sk = pm.merge_plain(part_k)
+    zs_o, so = pm.merge_plain(part_o)
+    # the fused rows carry every sample's cost: their merged min, max and
+    # sum against the plain costs (rtol 1e-4, as phase A's); the abs error
+    # is taken over (min, max, mean)
+    f_rel = ((sk[2:5] - ref).abs() / ref.abs()).max().item()
+    f_abs = (torch.stack([sk[2], sk[3], sk[4] / k]).double()
+             - torch.stack([ref[0], ref[1], ref[2] / k]).double()
+             ).abs().max().item()
+    out.update(fused_cost_stats_max_rel_err=f_rel,
+               fused_cost_stats_max_abs_err=f_abs)
+    # the fused softmax against block_partials of the kernel's own costs:
+    # m, l and the weighted normals zsum / l in units of z (not of sigma z),
+    # rtol 1e-3 (summation order of the block sums)
+    ok_w, err_w, _ = close(zs_k / sk[1], zs_o / so[1], 1e-3, 1e-5)
+    m_rel = abs(sk[0].item() - so[0].item()) / abs(so[0].item())
+    l_rel = abs(sk[1].item() - so[1].item()) / so[1].item()
+    out.update(fused_vs_own_costs_ok=ok_w, fused_max_abs_err=err_w,
+               fused_m_rel_err=m_rel, fused_l_rel_err=l_rel,
+               fused_rtol=1e-3, fused_atol=1e-5)
+    ok = (ok_c and stats_rel <= 1e-4 and f_rel <= 1e-4 and ok_w
+          and m_rel <= 1e-6 and l_rel <= 1e-3)
+    if end_to_end:
+        # the cost error moves each exponent by up to its size / lam
+        # (~0.01 here), so each weight by ~1%: rtol 1e-2, atol 1e-3
+        zs_p, sp = pm.merge_plain(auv.fused_solve_plain(c, dyn, k, tau,
+                                                        z=z))
+        ok_e, err_e, _ = close(zs_k / sk[1], zs_p / sp[1], 1e-2, 1e-3)
+        # first-order reading: the exponent errors d = (c_kernel -
+        # c_plain) / lam move the weights p by p (mean_p(d) - d), hence
+        # wnoise by sum_k p_k (mean_p(d) - d_k) z_k; ess = 1 / sum p^2
+        p = torch.softmax(-costs_p.double() / c.lam, 0)
+        d = (costs_k.double() - costs_p.double()) / c.lam
+        pred = ((p * ((p * d).sum() - d))
+                @ z.reshape(tau * 6, k).double().T).abs().max().item()
+        out.update(wnoise_ok=ok_e, wnoise_max_abs_err=err_e,
+                   wnoise_rtol=1e-2, wnoise_atol=1e-3,
+                   wnoise_first_order=pred,
+                   exponent_err_max=d.abs().max().item(),
+                   ess=(1.0 / (p * p).sum()).item())
+        ok &= ok_e
+    emit(f"auv_kernels_vs_plain_{label}", **out)
+    if not ok:
+        raise AssertionError(f"AUV kernel disagrees with its plain version "
+                             f"({label}): {out}")
+    return out
+
+
+def check_weights(pm, fused, label: str) -> dict:
+    """mppi_weights + pm_merge against the plain version on phase-A costs
+    of this solve object (Philox noise), and the normalized wnoise of the
+    kernels' two-phase solve against the plain two-phase solve on the
+    kernels' own costs."""
+    k, tau, adim = fused.k, fused.tau, fused.adim
+    x0 = torch.as_tensor(rest_state() if adim == 6 else np.zeros(6),
+                         dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(12)
+    useq = torch.as_tensor((200.0 if adim == 6 else 0.1)
+                           * rng.standard_normal((tau, adim)),
+                           dtype=torch.float32, device="cuda")
+    with torch.no_grad():
+        dyn = fused.pack_dyn(x0, useq)
+    costs, rows = fused._costs(dyn, 21, 4, None)
+    _, st = pm.pm_merge(rows)
+    beta, cmax = st[2], st[3]
+    nrm = torch.stack([beta, 1.0 / ((cmax - beta) * fused.lam)])
+    part_k = pm.mppi_weights(nrm, costs, tau, adim, seed=21, solve=4)
+    part_p = pm.weights_plain(nrm, costs, tau, adim, seed=21, solve=4)
+    zs_k, st_k = pm.pm_merge(part_k)
+    zs_p, st_p = pm.merge_plain(part_p)
+    wn_k = fused.unfold_wnoise(zs_k) / st_k[1]
+    wn_p = fused.unfold_wnoise(zs_p) / st_p[1]
+    # the kernels' two-phase solve through the solve object, against the
+    # plain phase B over the same kernel costs
+    wn_s, info = fused.solve(x0, useq, seed=21, solve=4, normalize=True)
+    torch.cuda.synchronize()
+    scale = float(fused._scale.abs().max())
+    ok_w, err_w, ratio = close(wn_k, wn_p, 1e-4, 1e-6 * scale)
+    ok_s, err_s, _ = close(wn_s, wn_p, 1e-4, 1e-6 * scale)
+    l_rel = abs(st_k[1].item() - st_p[1].item()) / st_p[1].item()
+    out = {"k": k, "tau": tau, "adim": adim, "wnoise_ok": ok_w,
+           "wnoise_max_abs_err": err_w, "wnoise_ratio": ratio,
+           "solve_wnoise_ok": ok_s, "solve_wnoise_max_abs_err": err_s,
+           "l_rel_err": l_rel, "rtol": 1e-4, "atol": 1e-6 * scale,
+           "nabla": info["nabla"].item(), "l_bounds": [
+               k * float(np.exp(-1.0 / fused.lam)), k]}
+    emit(f"weights_vs_plain_{label}", **out)
+    if not (ok_w and ok_s and l_rel <= 1e-5):
+        raise AssertionError(f"mppi_weights disagrees with its plain "
+                             f"version ({label}): {out}")
+    return out
+
+
+def auv_loop(kernel: str, normalize: bool, steps: int, k: int = AUV_K):
+    """AUV closed loop through MPPI.next against the analytic plant (rest
+    start). Normalized: the dive to z = -1; unnormalized: the flagship
+    task (z = -5, sigma = 1500 I). Returns (controller, states, host ms
+    per step, launch counts)."""
+    from mppi_tf_tpu_torch import flagship
+    from mppi_tf_tpu_torch.controller import MPPI
+    from mppi_tf_tpu_torch.envs import AUVEnv
+    from mppi_tf_tpu_torch.kernels import pm_mppi as pm
+
+    if normalize:
+        goal = np.zeros(13)
+        goal[[2, 6]] = [-1.0, 1.0]
+        task = {"type": "static_quat", "diag": True, "goal": goal.tolist(),
+                "Q": DIVE_Q}
+        sigma = DIVE_SIGMA
+    else:
+        task, sigma = flagship.auv_task(), AUV_SIGMA
+    model, cost = auv_modules("cuda", task, sigma)
+    ctrl = MPPI(model, cost, k=k, tau=AUV_H, lam=AUV_LAM,
+                upsilon=AUV_UPSILON, sigma=sigma, seed=3,
+                normalize_cost=normalize, kernel=kernel)
+    x0 = torch.as_tensor(rest_state(), dtype=torch.float32, device="cuda")
+    if ctrl.kernel_path == "cuda":   # warm-up without touching its state
+        ctrl._fused.solve(x0, ctrl.useq, normalize=normalize)
+    else:
+        ctrl._solve(x0, ctrl.useq)
+    torch.cuda.synchronize()
+    env = AUVEnv(flagship.auv_params(), dt=0.02)
+    x = env.reset()
+    states, step_ms = [], []
+    pm.reset_launch_counts()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        u = ctrl.next(x)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        for _ in range(DIVE_SUBSTEPS):
+            x = env.step(u)
+        states.append(x.ravel())
+    return ctrl, np.asarray(states), step_ms, dict(pm.launch_counts)
 
 
 def main() -> int:
@@ -268,6 +538,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mppi_tf_tpu_torch.kernels import _build
+    from mppi_tf_tpu_torch.kernels import auv_mppi as auv
     from mppi_tf_tpu_torch.kernels import pm_mppi as pm
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -280,12 +551,21 @@ def main() -> int:
     emit("device", torch=torch.__version__, cuda=torch.version.cuda,
          name=kind, count=torch.cuda.device_count(), nvidia_smi=smi)
 
-    # ---- 2. build ----------------------------------------------------------
+    # ---- 2. build (one nvcc per source, in parallel) -------------------------
     t0 = time.perf_counter()
     _build.load_library()
     emit("build", seconds=time.perf_counter() - t0,
          library=str(_build.library_path().name),
+         sources=[p.name for p in _build.sources()],
          ptxas=_build.ptxas_report())
+
+    # ---- probe: what the card machine offers for a later slice --------------
+    try:
+        import yaml  # noqa: F401
+        has_yaml = True
+    except ImportError:
+        has_yaml = False
+    emit("probe", yaml=has_yaml, python=sys.version.split()[0])
 
     # ---- 3. kernels against plain versions on injected z --------------------
     model, cost = workload("cuda")
@@ -320,7 +600,7 @@ def main() -> int:
     if not rel <= 1e-6:
         raise AssertionError(f"Philox solve != injected dump solve: {rel}")
 
-    # ---- 6. closed loop on the main path ------------------------------------
+    # ---- 6. closed loop on the point-mass path -------------------------------
     ctrl, err, step_ms, counts = closed_loop("auto")
     emit("closed_loop", kernel="auto", kernel_path=ctrl.kernel_path, K=K,
          H=H, steps=LOOP_STEPS, goal_err=err, launches=counts,
@@ -346,8 +626,165 @@ def main() -> int:
         raise AssertionError(f"goal error {err_t} >= {GOAL_TOL} (torch path)")
     emit("profile", kernel_path=ctrl_t.kernel_path, card=smi,
          **profile_steps(ctrl_t, 5))
+    del ctrl_t
 
-    # ---- 7. times -------------------------------------------------------------
+    # ---- 7. the point mass's normalized path (pm_fused_costs, mppi_weights) --
+    ctrl_n, err_n, step_ms_n, pm_norm_counts = closed_loop(
+        "auto", normalize=True)
+    emit("closed_loop", kernel="auto", normalize=True,
+         kernel_path=ctrl_n.kernel_path, K=K, H=H, steps=LOOP_STEPS,
+         goal_err=err_n, launches=pm_norm_counts,
+         step_ms_median=float(np.median(step_ms_n)),
+         step_ms_p90=float(np.percentile(step_ms_n, 90)))
+    if not (ctrl_n.kernel_path == "cuda"
+            and pm_norm_counts["pm_fused_costs"] == LOOP_STEPS
+            and pm_norm_counts["mppi_weights"] == LOOP_STEPS
+            and pm_norm_counts["pm_merge"] == 2 * LOOP_STEPS
+            and pm_norm_counts["pm_fused_solve"] == 0):
+        raise AssertionError(f"normalized point-mass path: "
+                             f"{ctrl_n.kernel_path}, {pm_norm_counts}")
+    if not err_n < GOAL_TOL:
+        raise AssertionError(f"goal error {err_n} >= {GOAL_TOL} "
+                             f"(normalized cuda path)")
+    del ctrl_n
+
+    # ---- 8. phase B against its plain version, adim 3 and 6 ------------------
+    pm_costs_k, _ = pm.pm_fused_costs(fused.consts, fused.pack_dyn(
+        x0, torch.zeros(H, 3, device="cuda")), K, H, z=z_big)
+    pm_costs_p, _ = pm.fused_costs_plain(fused.consts, fused.pack_dyn(
+        x0, torch.zeros(H, 3, device="cuda")), K, H, z=z_big)
+    ok_pc, err_pc, ratio_pc = close(pm_costs_k, pm_costs_p, PM_COST_RTOL,
+                                    PM_COST_ATOL)
+    emit("pm_costs_vs_plain", k=K, tau=H, ok=ok_pc, max_abs_err=err_pc,
+         ratio=ratio_pc, rtol=PM_COST_RTOL, atol=PM_COST_ATOL)
+    if not ok_pc:
+        raise AssertionError(f"pm_fused_costs disagrees: {err_pc}")
+    w3 = check_weights(pm, fused, "adim3_K100000_H50")
+    flag = auv_fused(AUV_K, AUV_H)
+    w6 = check_weights(pm, flag, "adim6_K262144_H25")
+
+    # ---- 9. AUV kernels against plain versions on injected z ----------------
+    rng = np.random.default_rng(1)
+    z_auv = torch.as_tensor(rng.standard_normal((AUV_H, 6, AUV_K),
+                                                np.float32), device="cuda")
+    auv_chk = check_auv(auv, pm, flag, z_auv, "K262144_H25_rk2",
+                        useq_scale=200.0)
+    del z_auv
+    x_dive = rest_state()
+    x_dive[2] = -1.0
+    rng_b = np.random.default_rng(2)   # a second draw of z for each rk
+    for rk in (1, 2, 4):
+        sm = auv_fused(700, 7, rk=rk,
+                       sigma=np.diag([40.0] * 3 + [5.0] * 3))
+        for draw, r in (("a", rng), ("b", rng_b)):
+            z_s = torch.as_tensor(r.standard_normal((7, 6, 700), np.float32),
+                                  device="cuda")
+            check_auv(auv, pm, sm, z_s, f"K700_H7_rk{rk}_ragged_{draw}",
+                      useq_scale=5.0, x0=x_dive, end_to_end=True)
+
+    # ---- 10. the AUV Philox solve consumes pm_noise_dump(adim=6) ------------
+    dyn_f = auv_dyn(flag, 200.0, seed=5)
+    zd6 = pm.pm_noise_dump(78, 6, AUV_K, AUV_H, 6, "cuda")
+    n_cmp = 4096
+    dump6_err = (zd6[..., :n_cmp] - pm.noise_plain(
+        78, 6, n_cmp, AUV_H, 6, device="cuda")).abs().max().item()
+
+    def rel(va, vb):
+        return ((va - vb).abs().max() / vb.abs().max()).item()
+
+    def merged(part):
+        zsum, st = pm.pm_merge(part)
+        return torch.cat([zsum / st[1], st[:5]])
+
+    rels = {
+        "fused": rel(merged(auv.auv_fused_solve(flag.consts, dyn_f, AUV_K,
+                                                AUV_H, seed=78, solve=6)),
+                     merged(auv.auv_fused_solve(flag.consts, dyn_f, AUV_K,
+                                                AUV_H, z=zd6))),
+        "costs": rel(auv.auv_fused_costs(flag.consts, dyn_f, AUV_K, AUV_H,
+                                         seed=78, solve=6)[0],
+                     auv.auv_fused_costs(flag.consts, dyn_f, AUV_K, AUV_H,
+                                         z=zd6)[0])}
+    del zd6
+    emit("auv_prng_vs_dump", max_rel_err=rels, tol=1e-6,
+         dump_adim6_vs_plain_max_abs_err=dump6_err, dump_tol=1e-5)
+    if not (max(rels.values()) <= 1e-6 and dump6_err <= 1e-5):
+        raise AssertionError(f"AUV Philox solve != injected dump: {rels}, "
+                             f"dump vs plain {dump6_err}")
+
+    # ---- 11. the AUV flagship closed loop, normalized (this slice's gate) ----
+    ctrl_a, states, step_ms_a, dive_counts = auv_loop("auto", True,
+                                                      DIVE_STEPS)
+    z_final = float(states[-1, 2])
+    q_drift = float(np.abs(np.linalg.norm(states[:, 3:7], axis=1)
+                           - 1.0).max())
+    emit("auv_closed_loop", kernel="auto", normalize=True,
+         kernel_path=ctrl_a.kernel_path, K=AUV_K, H=AUV_H, steps=DIVE_STEPS,
+         z_final=z_final, z_err=abs(z_final + 1.0), q_drift=q_drift,
+         launches=dive_counts, step_ms_median=float(np.median(step_ms_a)),
+         step_ms_p90=float(np.percentile(step_ms_a, 90)),
+         z_every_20=states[::20, 2].tolist())
+    if ctrl_a.kernel_path != "cuda":
+        raise AssertionError(f"AUV kernel='auto' resolved to "
+                             f"{ctrl_a.kernel_path}")
+    if not (dive_counts["auv_fused_costs"] == DIVE_STEPS
+            and dive_counts["mppi_weights"] == DIVE_STEPS
+            and dive_counts["pm_merge"] == 2 * DIVE_STEPS
+            and dive_counts["auv_fused_solve"] == 0):
+        raise AssertionError(f"AUV dive launch counts {dive_counts}")
+    if not (abs(z_final + 1.0) < DIVE_TOL and q_drift < 1e-3):
+        raise AssertionError(f"AUV dive missed: z {z_final}, |q| drift "
+                             f"{q_drift} (cuda path)")
+    prof = profile_steps(ctrl_a, x=rest_state())
+    emit("profile", kernel_path="cuda", model="auv", normalize=True,
+         card=smi, **prof)
+    # the profiler itself makes one cudaDeviceSynchronize per window
+    syncs = prof["syncs_per_step"]
+    if not (syncs.get("cudaStreamSynchronize", 0.0) <= 1.0
+            and syncs.get("cudaDeviceSynchronize", 0.0) * prof["steps"]
+            <= 1.0):
+        raise AssertionError(f"more than the action copy syncs a step: "
+                             f"{syncs}")
+    del ctrl_a
+    t0 = time.perf_counter()
+    ctrl_p, states_p, step_ms_p, _ = auv_loop("torch", True, DIVE_STEPS)
+    z_final_p = float(states_p[-1, 2])
+    q_drift_p = float(np.abs(np.linalg.norm(states_p[:, 3:7], axis=1)
+                             - 1.0).max())
+    emit("auv_closed_loop", kernel="torch", normalize=True,
+         kernel_path=ctrl_p.kernel_path, K=AUV_K, H=AUV_H,
+         steps=DIVE_STEPS, z_final=z_final_p, z_err=abs(z_final_p + 1.0),
+         q_drift=q_drift_p, seconds=time.perf_counter() - t0,
+         step_ms_median=float(np.median(step_ms_p)),
+         step_ms_p90=float(np.percentile(step_ms_p, 90)),
+         note="plain PyTorch path on the card: no yardstick of speed")
+    if not (abs(z_final_p + 1.0) < DIVE_TOL and q_drift_p < 1e-3):
+        raise AssertionError(f"AUV dive missed: z {z_final_p}, |q| drift "
+                             f"{q_drift_p} (torch path)")
+    del ctrl_p
+
+    # ---- 12. the unnormalized flagship (the bench's auv_rexrov2 row) --------
+    ctrl_u, states_u, step_ms_u, unnorm_counts = auv_loop(
+        "auto", False, AUV_PLAIN_STEPS)
+    emit("auv_closed_loop", kernel="auto", normalize=False,
+         kernel_path=ctrl_u.kernel_path, K=AUV_K, H=AUV_H,
+         steps=AUV_PLAIN_STEPS, z_final=float(states_u[-1, 2]),
+         goal_z=-5.0, launches=unnorm_counts,
+         step_ms_median=float(np.median(step_ms_u)),
+         step_ms_p90=float(np.percentile(step_ms_u, 90)),
+         z_every_10=states_u[::10, 2].tolist())
+    if not (ctrl_u.kernel_path == "cuda"
+            and unnorm_counts["auv_fused_solve"] == AUV_PLAIN_STEPS
+            and unnorm_counts["pm_merge"] == AUV_PLAIN_STEPS
+            and np.all(np.isfinite(states_u))
+            and states_u[-1, 2] < states_u[0, 2]):
+        raise AssertionError(f"unnormalized AUV path: {ctrl_u.kernel_path}, "
+                             f"{unnorm_counts}, z {states_u[:, 2]}")
+    emit("profile", kernel_path="cuda", model="auv", normalize=False,
+         card=smi, **profile_steps(ctrl_u, x=rest_state()))
+    del ctrl_u
+
+    # ---- 13. times -------------------------------------------------------------
     consts, nb = fused.consts, -(-K // pm.BLOCK)
     n_z = H * 3
     part = pm.pm_fused_solve(consts, dyn, K, H, seed=1, solve=1)
@@ -368,37 +805,180 @@ def main() -> int:
     b_merge = bound_ms(part_bytes + 4.0 * (n_z + pm.STATS),
                        nb * (2.0 * n_z + 6))
     b_dump = bound_ms(4.0 * K * n_z, K * n_z * OPS_PER_NORMAL)
+    # phase A / phase B of the point mass
+    pm_c, _ = pm.pm_fused_costs(consts, dyn, K, H, seed=1, solve=1)
+    pm_nrm = torch.stack([pm_c.min(), 1.0 / ((pm_c.max() - pm_c.min())
+                                             * LAM)])
+    t_pmc = cuda_ms(lambda: pm.pm_fused_costs(consts, dyn, K, H, seed=1,
+                                              solve=1), 200)
+    t_w3 = cuda_ms(lambda: pm.mppi_weights(pm_nrm, pm_c, H, 3, seed=1,
+                                           solve=1), 200)
+    p_pmc = cuda_ms(lambda: pm.fused_costs_plain(consts, dyn, K, H, seed=1,
+                                                 solve=1), 5, 1)
+    p_w3 = cuda_ms(lambda: pm.weights_plain(pm_nrm, pm_c, H, 3, seed=1,
+                                            solve=1), 5, 1)
+    rows_b = 4.0 * nb * pm.STATS
+    b_pmc = bound_ms(4.0 * dyn.numel() + 4.0 * K + rows_b,
+                     solve_ops(consts, K, H, prng=True, costs_only=True))
+    b_w3 = bound_ms(4.0 * K + 8.0 + part_bytes, weights_ops(K, n_z, True))
+    # the AUV flagship
+    ac = flag.consts
+    a_nb, a_nz = -(-AUV_K // pm.BLOCK), AUV_H * 6
+    a_part = auv.auv_fused_solve(ac, dyn_f, AUV_K, AUV_H, seed=1, solve=1)
+    a_c, _ = auv.auv_fused_costs(ac, dyn_f, AUV_K, AUV_H, seed=1, solve=1)
+    a_nrm = torch.stack([a_c.min(), 1.0 / ((a_c.max() - a_c.min())
+                                           * AUV_LAM)])
+    a_wrows = pm.mppi_weights(a_nrm, a_c, AUV_H, 6, seed=1, solve=1)
+    t_apair = cuda_ms(lambda: pm.pm_merge(auv.auv_fused_solve(
+        ac, dyn_f, AUV_K, AUV_H, seed=1, solve=1)), 200)
+    t_asolve = cuda_ms(lambda: auv.auv_fused_solve(ac, dyn_f, AUV_K, AUV_H,
+                                                   seed=1, solve=1), 200)
+    t_acosts = cuda_ms(lambda: auv.auv_fused_costs(ac, dyn_f, AUV_K, AUV_H,
+                                                   seed=1, solve=1), 200)
+    t_w6 = cuda_ms(lambda: pm.mppi_weights(a_nrm, a_c, AUV_H, 6, seed=1,
+                                           solve=1), 200)
+    t_amerge = cuda_ms(lambda: pm.pm_merge(a_wrows), 200)
+    p_asolve = cuda_ms(lambda: auv.fused_solve_plain(
+        ac, dyn_f, AUV_K, AUV_H, seed=1, solve=1), 3, 1)
+    p_acosts = cuda_ms(lambda: auv.fused_costs_plain(
+        ac, dyn_f, AUV_K, AUV_H, seed=1, solve=1), 3, 1)
+    p_w6 = cuda_ms(lambda: pm.weights_plain(a_nrm, a_c, AUV_H, 6, seed=1,
+                                            solve=1), 3, 1)
+    a_part_bytes = 4.0 * a_nb * (pm.STATS + a_nz)
+    b_asolve = bound_ms(4.0 * dyn_f.numel() + a_part_bytes,
+                        auv_solve_ops(ac, dyn_f, AUV_K, AUV_H, prng=True))
+    b_acosts = bound_ms(4.0 * dyn_f.numel() + 4.0 * AUV_K
+                        + 4.0 * a_nb * pm.STATS,
+                        auv_solve_ops(ac, dyn_f, AUV_K, AUV_H, prng=True,
+                                      costs_only=True))
+    b_w6 = bound_ms(4.0 * AUV_K + 8.0 + a_part_bytes,
+                    weights_ops(AUV_K, a_nz, True))
+    del a_part
+
+    # the unnormalized solve without the fused mode: phase A, its stats
+    # merge, phase B with nrm = (cmin, 1/lam) (the same softmax, weights in
+    # (0, 1]) and its merge; timed fused, two-phase, two-phase, fused
+    def two_phase(costs_fn, tau, adim, lam):
+        inv_lam = torch.full((1,), 1.0 / lam, device="cuda")
+
+        def run():
+            c, rows = costs_fn()
+            _, st = pm.pm_merge(rows)
+            return pm.pm_merge(pm.mppi_weights(
+                torch.cat([st[2:3], inv_lam]), c, tau, adim, seed=1,
+                solve=1))
+        return run
+
+    def wn_err(a, b):   # weighted normals zsum / l, z units
+        return ((a[0] / a[1][1]) - (b[0] / b[1][1])).abs().max().item()
+
+    alt_a = two_phase(lambda: auv.auv_fused_costs(
+        ac, dyn_f, AUV_K, AUV_H, seed=1, solve=1), AUV_H, 6, AUV_LAM)
+    alt_p = two_phase(lambda: pm.pm_fused_costs(
+        consts, dyn, K, H, seed=1, solve=1), H, 3, LAM)
+    def fused_a():
+        return pm.pm_merge(auv.auv_fused_solve(ac, dyn_f, AUV_K, AUV_H,
+                                               seed=1, solve=1))
+
+    def fused_p():
+        return pm.pm_merge(pm.pm_fused_solve(consts, dyn, K, H, seed=1,
+                                             solve=1))
+
+    alt = {}
+    for name, f_fn, a_fn in (("auv", fused_a, alt_a),
+                             ("point_mass", fused_p, alt_p)):
+        t_f1, t_a1, t_a2, t_f2 = (cuda_ms(f_fn, 200), cuda_ms(a_fn, 200),
+                                  cuda_ms(a_fn, 200), cuda_ms(f_fn, 200))
+        alt[name] = {"fused_plus_merge_ms": [t_f1, t_f2],
+                     "two_phase_ms": [t_a1, t_a2],
+                     "wnoise_max_abs_err_z_units": wn_err(f_fn(), a_fn())}
+    emit("unnormalized_two_phase", card=smi, **alt,
+         note="reading for a later slice, not a gate: the fused mode "
+              "against costs + merge + mppi_weights(cmin, 1/lam) + merge; "
+              "the two round -c/lam differently, so the weights differ in "
+              "f32 rounding")
     emit("times", card=smi, K=K, H=H,
          solve_plus_merge_ms=t_pair, solve_ms=t_solve, merge_ms=t_merge,
          noise_dump_ms=t_dump,
          mppi_next_ms_median=float(np.median(step_ms)),
          plain_solve_ms=p_solve, plain_merge_ms=p_merge,
          plain_noise_ms=p_dump,
+         pm_costs_ms=t_pmc, weights_adim3_ms=t_w3, plain_pm_costs_ms=p_pmc,
+         plain_weights_adim3_ms=p_w3,
+         auv={"K": AUV_K, "H": AUV_H, "rk": ac.rk,
+              "solve_plus_merge_ms": t_apair, "solve_ms": t_asolve,
+              "costs_ms": t_acosts, "weights_adim6_ms": t_w6,
+              "merge_weights_rows_ms": t_amerge,
+              "plain_solve_ms": p_asolve, "plain_costs_ms": p_acosts,
+              "plain_weights_adim6_ms": p_w6,
+              "bound_solve": b_asolve, "bound_costs": b_acosts,
+              "bound_weights": b_w6,
+              "dive_mppi_next_ms_median": float(np.median(step_ms_a)),
+              "unnormalized_mppi_next_ms_median": float(
+                  np.median(step_ms_u))},
          plain_note="plain PyTorch versions repeat the kernels' arithmetic; "
                     "no yardstick of speed",
+         library_note="no single PyTorch call computes a fused MPPI rollout "
+                      "or its weights: library_ms is null",
          timing="CUDA events over back-to-back launches after warm-up; "
                 "MPPI.next on the host clock ending in a sync")
 
     src = "mppi_tf_tpu_torch/csrc/pm_mppi.cu"
+    asrc = "mppi_tf_tpu_torch/csrc/auv_mppi.cu"
     kernels = [
         {"name": "pm_fused_solve", "route": "cuda", "source": src,
-         "replaces": "mppi_tf_tpu/kernels/pm_mppi.py:998",
+         "replaces": "mppi_tf_tpu/kernels/pm_mppi.py:1000",
          "launches": main_counts["pm_fused_solve"],
          "max_abs_err": main_chk["solve_only_max_abs_err"],
          "ms": t_solve, "plain_ms": p_solve, "bound_ms": b_solve[0],
          "bound_by": b_solve[1], "library_ms": None},
         {"name": "pm_merge", "route": "cuda", "source": src,
-         "replaces": "mppi_tf_tpu/kernels/pm_mppi.py:998",
+         "replaces": "mppi_tf_tpu/kernels/pm_mppi.py:1000",
          "launches": main_counts["pm_merge"],
          "max_abs_err": main_chk["merge_only_max_abs_err"],
          "ms": t_merge, "plain_ms": p_merge, "bound_ms": b_merge[0],
          "bound_by": b_merge[1], "library_ms": None},
         {"name": "pm_noise_dump", "route": "cuda", "source": src,
-         "replaces": "mppi_tf_tpu/kernels/pm_mppi.py:273",
+         "replaces": "mppi_tf_tpu/kernels/pm_mppi.py:274",
          "launches": noise["launches"], "path": "noise statistics check",
          "max_abs_err": noise["max_abs_err"],
          "ms": t_dump, "plain_ms": p_dump, "bound_ms": b_dump[0],
          "bound_by": b_dump[1], "library_ms": None},
+        {"name": "pm_fused_costs", "route": "cuda", "source": src,
+         "replaces": "mppi_tf_tpu/kernels/pm_mppi.py:1073",
+         "launches": pm_norm_counts["pm_fused_costs"],
+         "path": "point-mass normalized closed loop",
+         "max_abs_err": err_pc,
+         "ms": t_pmc, "plain_ms": p_pmc, "bound_ms": b_pmc[0],
+         "bound_by": b_pmc[1], "library_ms": None},
+        {"name": "mppi_weights", "route": "cuda", "source": src,
+         "replaces": "mppi_tf_tpu/kernels/pm_mppi.py:191",
+         "launches": dive_counts["mppi_weights"],
+         "path": "AUV normalized closed loop (adim 6); adim 3 on the "
+                 "point-mass normalized loop",
+         "launches_adim3": pm_norm_counts["mppi_weights"],
+         "max_abs_err": w6["wnoise_max_abs_err"],
+         "max_abs_err_adim3": w3["wnoise_max_abs_err"],
+         "ms": t_w6, "plain_ms": p_w6, "bound_ms": b_w6[0],
+         "bound_by": b_w6[1], "ms_adim3": t_w3, "plain_ms_adim3": p_w3,
+         "bound_ms_adim3": b_w3[0], "library_ms": None},
+        {"name": "auv_fused_solve", "route": "cuda", "source": asrc,
+         "replaces": "mppi_tf_tpu/kernels/auv_mppi.py:804",
+         "launches": unnorm_counts["auv_fused_solve"],
+         "path": "AUV unnormalized closed loop",
+         "max_abs_err": auv_chk["fused_cost_stats_max_abs_err"],
+         "max_abs_err_of": "merged cost min, max, mean of the fused rows "
+                           "against the plain costs, K=262144, H=25",
+         "softmax_vs_own_costs_max_abs_err": auv_chk["fused_max_abs_err"],
+         "ms": t_asolve, "plain_ms": p_asolve, "bound_ms": b_asolve[0],
+         "bound_by": b_asolve[1], "library_ms": None},
+        {"name": "auv_fused_costs", "route": "cuda", "source": asrc,
+         "replaces": "mppi_tf_tpu/kernels/auv_mppi.py:872",
+         "launches": dive_counts["auv_fused_costs"],
+         "path": "AUV normalized closed loop",
+         "max_abs_err": auv_chk["costs_max_abs_err"],
+         "ms": t_acosts, "plain_ms": p_acosts, "bound_ms": b_acosts[0],
+         "bound_by": b_acosts[1], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -4,9 +4,11 @@ The per-step solve samples noise, rolls out K perturbed sequences, softmax-
 weights them, updates the nominal sequence and shifts it. Two paths:
 
 - ``"torch"``: plain PyTorch ops (``ops/``), on any device, every option;
-- ``"cuda"``: the fused Hopper kernels of ``kernels/pm_mppi.py`` for the
-  point-mass model with the static cost, plus the sequence update and shift
-  as torch ops on the card.
+- ``"cuda"``: the fused Hopper kernels, ``kernels/pm_mppi.py`` for the
+  point-mass model with the static cost and ``kernels/auv_mppi.py`` for the
+  AUV with the static quaternion cost (``normalize_cost`` as the two-phase
+  costs / weights solve), plus the sequence update and shift as torch ops
+  on the card.
 
 Receding-horizon carry: the reference Python controller loses its update
 (the shifted sequence is assigned to a local, controller_base.py:339-341);
@@ -132,13 +134,10 @@ class MPPI:
             self._resolve_kernel(kernel, sigma_np)
 
     def _resolve_kernel(self, kernel: str, sigma_np) -> None:
+        from ..kernels.auv_mppi import FusedAUVMPPI
         from ..kernels.pm_mppi import FusedPointMassMPPI
 
         blockers = []
-        if self._normalize_cost:
-            blockers.append("normalize_cost (ROADMAP queue-2 item 2)")
-        if self._log:
-            blockers.append("log (ROADMAP queue-2 items 2 and 3)")
         if self._antithetic:
             blockers.append("antithetic (ROADMAP queue-2 item 4)")
         if self._sched is not None:
@@ -149,13 +148,20 @@ class MPPI:
                     "kernel='cuda' does not support " + ", ".join(blockers)
                     + " yet; use kernel='torch'")
             return
-        try:
-            self._fused = FusedPointMassMPPI(
-                self._model, self._cost, k=self._k, tau=self._tau,
-                lam=self._lam, upsilon=self._upsilon, sigma=sigma_np)
-        except KernelUnsupportedError:
+        err = None
+        for cls in (FusedPointMassMPPI, FusedAUVMPPI):
+            try:
+                self._fused = cls(
+                    self._model, self._cost, k=self._k, tau=self._tau,
+                    lam=self._lam, upsilon=self._upsilon, sigma=sigma_np)
+                break
+            except KernelUnsupportedError as e:
+                err = e
+        if self._fused is None:
             if kernel == "cuda":
-                raise
+                raise KernelUnsupportedError(
+                    f"no fused kernel supports {type(self._model).__name__} "
+                    f"+ {type(self._cost).__name__}: {err}") from err
             return
         self.kernel_path = "cuda"
 
@@ -221,12 +227,28 @@ class MPPI:
     @torch.no_grad()
     def _fused_step(self, state, useq):
         """Fused-kernel solve + sequence update. The noise of solve s is
-        Philox counter block s under the controller's seed."""
-        wnoise, info = self._fused.solve(state, useq, seed=self._base_seed,
-                                         solve=self._steps)
+        Philox counter block s under the controller's seed. Log mode adds
+        the plain path's info keys (JAX controller/mppi.py:257-318): the
+        normalized solve reuses its phase-A costs, the unnormalized one runs
+        one extra costs phase, and ``noise`` is the first 512 samples of the
+        solve's own noise."""
+        fused, seed, solve = self._fused, self._base_seed, self._steps
+        wnoise, info = fused.solve(state, useq, seed=seed, solve=solve,
+                                   normalize=self._normalize_cost)
         action, shifted, new_useq = self._postprocess(useq, wnoise)
-        return action, shifted, {**info, "useq": new_useq,
-                                 "weighted_noise": wnoise}
+        info = {**info, "useq": new_useq, "weighted_noise": wnoise}
+        if self._log:
+            costs = info.get("sample_costs")
+            if costs is None:
+                costs, _ = fused.costs_phase(state, useq, seed, solve)
+            b = upd.beta(costs)
+            arg = upd.norm_arg(costs, b, normalize=self._normalize_cost)
+            e = upd.exp(upd.exp_arg(arg, self._lam))
+            n = upd.nabla(e)
+            info.update(sample_costs=costs, weights=upd.weights(e, n),
+                        nabla=n, arg=arg,
+                        noise=fused.noise_sample(seed, solve))
+        return action, shifted, info
 
     # ------------------------------------------------------------------
     # stateful wrapper: the reference's user-facing API
@@ -237,7 +259,13 @@ class MPPI:
         Reference: controller_base.py:251-297. state: [sDim] -> action [aDim].
         """
         state = torch.as_tensor(np.asarray(state, np.float64).reshape(-1),
-                                dtype=self._dtype, device=self._device)
+                                dtype=self._dtype)
+        if self._device.type == "cuda":
+            # a pageable upload syncs the host; a pinned one does not, so
+            # the action's copy below stays the step's one sync
+            state = state.pin_memory().to(self._device, non_blocking=True)
+        else:
+            state = state.to(self._device)
         start = time.perf_counter()
         if self._fused is not None:
             action, self._useq, _info = self._fused_step(state, self._useq)

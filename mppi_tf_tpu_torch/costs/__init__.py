@@ -1,14 +1,13 @@
 import torch
 
 from .base import CostBase
-from .static import StaticCost
+from .static import StaticCost, StaticQuatCost
 
-__all__ = ["CostBase", "StaticCost", "get_cost"]
+__all__ = ["CostBase", "StaticCost", "StaticQuatCost", "get_cost"]
 
 # cost families of the JAX package that this port does not carry yet,
 # with the ROADMAP item that ports each
 _NOT_PORTED = {
-    "static_quat": "ROADMAP item 10 (AUV flagship)",
     "elipse": "ROADMAP item 8 (other point-mass costs and missions)",
     "elipse3d": "ROADMAP item 10 (AUV flagship)",
     "waypoints": "ROADMAP item 8 (other point-mass costs and missions)",
@@ -20,12 +19,14 @@ def get_cost(task_dict, lam, gamma, upsilon, sigma, dtype=torch.float32,
              device=None):
     """Type-dispatch cost factory (reference: scripts/src/cost.py:51-64).
 
-    Only the ``static`` family is ported; the other families of the JAX
-    package raise ``NotImplementedError`` naming their ROADMAP item.
+    The ``static`` and ``static_quat`` families are ported; the other
+    families of the JAX package raise ``NotImplementedError`` naming their
+    ROADMAP item.
     """
     ctype = task_dict["type"]
-    if ctype == "static":
-        return StaticCost(
+    if ctype in ("static", "static_quat"):
+        cls = StaticCost if ctype == "static" else StaticQuatCost
+        return cls(
             lam, gamma, upsilon, sigma,
             goal=task_dict["goal"], Q=task_dict["Q"],
             diag=task_dict.get("diag", False), dtype=dtype, device=device,

@@ -1,147 +1,63 @@
-// Fused point-mass MPPI solve for Hopper (sm_90a), plain C interface.
+// Fused point-mass MPPI solve for Hopper (sm_90a), plain C interface, and
+// the dynamics-agnostic kernels every solve shares (phase-B weights, merge,
+// noise dump).
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-//        -Xcompiler -fPIC -o libpm_mppi.so pm_mppi.cu
-// (mppi_tf_tpu_torch/kernels/_build.py does this at first use.) Every entry
-// point launches on the given stream, does not synchronise, allocates
-// nothing and returns cudaGetLastError().
+// Build: mppi_tf_tpu_torch/kernels/_build.py compiles every .cu under csrc/
+// with nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 into one
+// shared library at first use. Every entry point launches on the given
+// stream, does not synchronise, allocates nothing and returns
+// cudaGetLastError().
 //
 // Kernels, and the TPU kernels of mppi_tf_tpu/kernels/pm_mppi.py they replace:
 //
 // pm_noise_dump_kernel -- replaces fused_noise_dump (make_noise_kernel +
-//   _fill_noise). Writes the exact normals the solve consumes, z[n][k] with
-//   n = t*adim + j. Bound by the bytes it writes (4 per normal); Philox and
-//   Box-Muller are ~32 operations per normal, below that.
+//   _fill_noise). Writes the exact normals the solves consume, z[n][k] with
+//   n = t*adim + j, for any adim (the AUV's 6 as well). Bound by the bytes
+//   it writes (4 per normal); Philox and Box-Muller are ~32 operations per
+//   normal, below that.
 //
-// pm_fused_solve_kernel<S, A> -- replaces fused_pm_call (_make_kernel in
-//   mode "fused" + _fill_noise). One thread owns one sample; the state stays
-//   in registers over the horizon, the per-solve dyn array sits in shared
-//   memory. Bound by operations: two Philox + Box-Muller passes (~32 ops a
-//   normal each) and the rollout/cost FMA chains; it reads and writes next
-//   to nothing. Design:
+// pm_fused_solve_kernel<S, A, MODE> -- MODE kFused replaces fused_pm_call
+//   (_make_kernel in mode "fused" + _fill_noise); MODE kCosts replaces
+//   fused_pm_costs (mode "costs", phase A of the normalized solve). One
+//   thread owns one sample; the state stays in registers over the horizon,
+//   the per-solve dyn array sits in shared memory. Bound by operations: the
+//   Philox + Box-Muller passes (~32 ops a normal each; two in kFused, one in
+//   kCosts) and the rollout/cost FMA chains; kCosts also writes 4 bytes a
+//   sample. Design:
 //   * the TPU grid ran its tiles in order and carried (m, l, zsum) across
 //     grid steps; GPU blocks run concurrently, so each block writes its own
-//     partial row and pm_merge_kernel combines them: no atomics, and the
-//     result is deterministic;
+//     partial row (mppi_common.cuh) and pm_merge_kernel combines them: no
+//     atomics, and the result is deterministic;
 //   * pass two regenerates z from the same Philox counters instead of
-//     holding tau*adim normals per thread, and reduces sum_k w_k z_k per
-//     normal with warp shuffles, then over the block's warps in shared memory;
+//     holding tau*adim normals per thread;
+//   * kCosts writes costs[k] and a stats-only row (m_b = l_b = 0, no zsum):
+//     pm_merge with n_z = 0 gives the cost min / max / sum that phase B
+//     normalizes with;
 //   * the TPU's sin polynomial and mantissa-stuffing uniform worked around
 //     Mosaic; here logf / sqrtf / sincospif are used directly.
 //
+// mppi_weights_kernel -- replaces make_weights_kernel (fused_pm_weights and
+//   auv_mppi._fused_auv_weights, phase B of the normalized solve, for both
+//   models). Reads costs[k] and nrm = (beta, 1/(denom*lam)) from device
+//   memory (no host sync between the phases), regenerates the normals of
+//   the same (seed, solve) (n_z = tau*adim, any adim) and writes partial
+//   rows with m_b = 0: w = exp(-(c - beta) * nrm[1]) lies in
+//   [exp(-1/lam), 1], so no max shift is needed. Bound by operations (one
+//   Philox + Box-Muller pass); it reads 4 bytes a sample.
+//
 // pm_merge_kernel -- the cross-block step: one block applies the shard-merge
 //   algebra of mppi_tf_tpu/parallel/fused.py (m = max m_b, f_b = exp(m_b - m),
-//   l = sum f_b l_b, zsum = sum f_b zsum_b, cost min/max/sum). Bound by the
-//   bytes of the partials it reads (~250 KB at K=100k, H=50): launch latency
-//   dominates it.
-//
-// Noise stream (reproduced by the plain version in kernels/pm_mppi.py):
-// normal n of sample k in solve s is lane n%4 of
-// Philox4x32-10(counter=(k, n/4, s_lo, s_hi), key=(seed_lo, seed_hi));
-// lanes (0,1) and (2,3) are Box-Muller pairs with u = ((bits>>9)+0.5)*2^-23.
+//   l = sum f_b l_b, zsum = sum f_b zsum_b, cost min/max/sum); n_z = 0 merges
+//   stats-only rows. Bound by the bytes of the partials it reads (~250 KB
+//   at K=100k, H=50): launch latency and one block's serial walk dominate it.
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
 #include <string.h>
+
+#include "mppi_common.cuh"
 
 namespace {
 
-constexpr int kBlock = 256;          // samples per block of the fused solve
-constexpr int kWarps = kBlock / 32;
-constexpr int kStats = 8;            // (m, l, cmin, cmax, csum, pad x3)
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint32_t k0,
-                                               uint32_t k1) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
-  }
-  return c;
-}
-
-// exact in f32: (b >> 9) < 2^23, so (2m + 1) * 2^-24 needs 24 bits
-__device__ __forceinline__ float bits_to_uniform(uint32_t b) {
-  return (static_cast<float>(b >> 9) + 0.5f) * 1.1920928955078125e-7f;
-}
-
-__device__ __forceinline__ void box_muller(uint32_t a, uint32_t b, float& za,
-                                           float& zb) {
-  const float r = sqrtf(-2.0f * logf(bits_to_uniform(a)));
-  float s, c;
-  sincospif(2.0f * bits_to_uniform(b), &s, &c);
-  za = r * c;
-  zb = r * s;
-}
-
-struct Seeds {
-  uint32_t seed_lo, seed_hi, s_lo, s_hi;
-};
-
-__device__ __forceinline__ void philox_normals(uint32_t sample, uint32_t blk,
-                                               const Seeds& sd, float v[4]) {
-  const uint4 w =
-      philox4x32_10(make_uint4(sample, blk, sd.s_lo, sd.s_hi), sd.seed_lo,
-                    sd.seed_hi);
-  box_muller(w.x, w.y, v[0], v[1]);
-  box_muller(w.z, w.w, v[2], v[3]);
-}
-
-// Sequential reader of one sample's normals n = 0, 1, 2, ...: the Philox
-// stream four at a time, or injected z[n][k] when z is given.
-struct NoiseStream {
-  const float* z;
-  int k_total;
-  uint32_t sample;
-  bool valid;
-  Seeds sd;
-  uint32_t blk;
-  int lane;
-  float buf[4];
-
-  __device__ __forceinline__ void reset() {
-    blk = 0;
-    lane = 4;
-  }
-  __device__ __forceinline__ float next(int n) {
-    if (z != nullptr)
-      return valid ? z[static_cast<size_t>(n) * k_total + sample] : 0.0f;
-    if (lane == 4) {
-      philox_normals(sample, blk++, sd, buf);
-      lane = 0;
-    }
-    const float v = lane == 0 ? buf[0]
-                  : lane == 1 ? buf[1]
-                  : lane == 2 ? buf[2]
-                              : buf[3];
-    ++lane;
-    return v;
-  }
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fminf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
+using namespace mppi;
 
 template <int S, int A>
 struct Consts {
@@ -171,19 +87,17 @@ __device__ __forceinline__ float state_cost(const Consts<S, A>& c,
   return out;
 }
 
-template <int S, int A>
+template <int S, int A, int MODE>
 __global__ void __launch_bounds__(kBlock)
     pm_fused_solve_kernel(const Consts<S, A> c, const float* __restrict__ dyn,
                           int dyn_size, const float* __restrict__ z,
+                          float* __restrict__ costs,
                           float* __restrict__ partials, int k_total, int tau,
                           Seeds sd) {
   extern __shared__ float smem[];
   float* s_dyn = smem;             // dyn_size
   float* s_red = smem + dyn_size;  // kWarps * n_z: pass-two warp sums
-  __shared__ float s_stat[5][kWarps];
-  __shared__ float s_m;
 
-  const int n_z = tau * A;
   for (int i = threadIdx.x; i < dyn_size; i += kBlock) s_dyn[i] = dyn[i];
   __syncthreads();
 
@@ -198,12 +112,7 @@ __global__ void __launch_bounds__(kBlock)
   const int k = blockIdx.x * kBlock + threadIdx.x;
   const bool valid = k < k_total;
   NoiseStream ns;
-  ns.z = z;
-  ns.k_total = k_total;
-  ns.sample = static_cast<uint32_t>(k);
-  ns.valid = valid;
-  ns.sd = sd;
-  ns.reset();
+  ns.init(z, k_total, k, sd);
 
   // ---- pass one: rollout + cost ------------------------------------------
   float cost = 0.0f;
@@ -245,60 +154,35 @@ __global__ void __launch_bounds__(kBlock)
     cost += u_half;
   }
 
-  // ---- block softmax of -cost/lam (padding sentinel -inf) -----------------
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float zarg = valid ? -cost / c.lam : -INFINITY;
-  const float wm = warp_max(zarg);
-  if (lane == 0) s_stat[0][warp] = wm;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float m = s_stat[0][0];
-    for (int w = 1; w < kWarps; ++w) m = fmaxf(m, s_stat[0][w]);
-    s_m = m;
+  if (MODE == kFused) {
+    float* row = partials + static_cast<size_t>(blockIdx.x) *
+                                (kStats + tau * A);
+    write_partial_row<true>(-cost / c.lam, cost, valid, ns, tau * A, s_red,
+                            row);
+  } else {
+    if (valid) costs[k] = cost;
+    write_partial_row<false>(-INFINITY, cost, valid, ns, 0, s_red,
+                             partials + static_cast<size_t>(blockIdx.x) *
+                                            kStats);
   }
-  __syncthreads();
-  const float m_b = s_m;
-  const float wgt = valid ? expf(zarg - m_b) : 0.0f;
-  const float l = warp_sum(wgt);
-  const float cmin = warp_min(valid ? cost : INFINITY);
-  const float cmax = warp_max(valid ? cost : -INFINITY);
-  const float csum = warp_sum(valid ? cost : 0.0f);
-  if (lane == 0) {
-    s_stat[1][warp] = l;
-    s_stat[2][warp] = cmin;
-    s_stat[3][warp] = cmax;
-    s_stat[4][warp] = csum;
-  }
+}
 
-  // ---- pass two: regenerate z, reduce sum_k w_k z_k per normal ------------
-  ns.reset();
-  for (int n = 0; n < n_z; ++n) {
-    const float v = warp_sum(wgt * ns.next(n));
-    if (lane == 0) s_red[warp * n_z + n] = v;
-  }
-  __syncthreads();
-
-  float* row = partials + static_cast<size_t>(blockIdx.x) * (kStats + n_z);
-  if (threadIdx.x == 0) {
-    float bl = 0.0f, bmin = INFINITY, bmax = -INFINITY, bsum = 0.0f;
-    for (int w = 0; w < kWarps; ++w) {
-      bl += s_stat[1][w];
-      bmin = fminf(bmin, s_stat[2][w]);
-      bmax = fmaxf(bmax, s_stat[3][w]);
-      bsum += s_stat[4][w];
-    }
-    row[0] = m_b;
-    row[1] = bl;
-    row[2] = bmin;
-    row[3] = bmax;
-    row[4] = bsum;
-    row[5] = row[6] = row[7] = 0.0f;
-  }
-  for (int n = threadIdx.x; n < n_z; n += kBlock) {
-    float s = 0.0f;
-    for (int w = 0; w < kWarps; ++w) s += s_red[w * n_z + n];
-    row[kStats + n] = s;
-  }
+__global__ void __launch_bounds__(kBlock)
+    mppi_weights_kernel(const float* __restrict__ nrm,
+                        const float* __restrict__ costs,
+                        const float* __restrict__ z,
+                        float* __restrict__ partials, int k_total, int n_z,
+                        Seeds sd) {
+  extern __shared__ float s_red[];  // kWarps * n_z
+  const int k = blockIdx.x * kBlock + threadIdx.x;
+  const bool valid = k < k_total;
+  NoiseStream ns;
+  ns.init(z, k_total, k, sd);
+  const float cost = valid ? costs[k] : 0.0f;
+  write_partial_row<false>(-(cost - nrm[0]) * nrm[1], cost, valid, ns, n_z,
+                           s_red,
+                           partials + static_cast<size_t>(blockIdx.x) *
+                                          (kStats + n_z));
 }
 
 __global__ void pm_noise_dump_kernel(float* __restrict__ out, int k_total,
@@ -385,9 +269,9 @@ __global__ void __launch_bounds__(kMergeThreads)
   }
 }
 
-template <int S, int A>
+template <int S, int A, int MODE>
 int launch_solve(const float* consts, const float* dyn, const float* z,
-                 float* partials, int k, int tau, Seeds sd,
+                 float* costs, float* partials, int k, int tau, Seeds sd,
                  cudaStream_t stream) {
   Consts<S, A> c;
   const float* p = consts;
@@ -403,19 +287,32 @@ int launch_solve(const float* consts, const float* dyn, const float* z,
   c.nc_half = p[1];
 
   const int dyn_size = 1 + 2 * S + tau * (S + A) + 1;
-  const size_t smem =
-      (static_cast<size_t>(dyn_size) + static_cast<size_t>(kWarps) * tau * A) *
-      sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        pm_fused_solve_kernel<S, A>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return e;
-  }
+  size_t smem = 0;
+  const cudaError_t e =
+      smem_for(pm_fused_solve_kernel<S, A, MODE>, dyn_size,
+               MODE == kFused ? tau * A : 0, &smem);
+  if (e != cudaSuccess) return e;
   const int nb = (k + kBlock - 1) / kBlock;
-  pm_fused_solve_kernel<S, A><<<nb, kBlock, smem, stream>>>(
-      c, dyn, dyn_size, z, partials, k, tau, sd);
+  pm_fused_solve_kernel<S, A, MODE><<<nb, kBlock, smem, stream>>>(
+      c, dyn, dyn_size, z, costs, partials, k, tau, sd);
   return cudaGetLastError();
+}
+
+template <int MODE>
+int dispatch_solve(int sdim, int adim, const float* consts, const float* dyn,
+                   const float* z, float* costs, float* partials, int k,
+                   int tau, Seeds sd, cudaStream_t st) {
+  if (k <= 0 || tau <= 0) return cudaErrorInvalidValue;
+  if (sdim == 6 && adim == 3)
+    return launch_solve<6, 3, MODE>(consts, dyn, z, costs, partials, k, tau,
+                                    sd, st);
+  if (sdim == 2 && adim == 1)
+    return launch_solve<2, 1, MODE>(consts, dyn, z, costs, partials, k, tau,
+                                    sd, st);
+  if (sdim == 4 && adim == 2)
+    return launch_solve<4, 2, MODE>(consts, dyn, z, costs, partials, k, tau,
+                                    sd, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -437,21 +334,39 @@ int pm_fused_solve(int sdim, int adim, const float* consts, const float* dyn,
                    const float* z, float* partials, int k, int tau,
                    uint32_t seed_lo, uint32_t seed_hi, uint32_t s_lo,
                    uint32_t s_hi, void* stream) {
-  if (k <= 0 || tau <= 0) return cudaErrorInvalidValue;
-  const Seeds sd{seed_lo, seed_hi, s_lo, s_hi};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (sdim == 6 && adim == 3)
-    return launch_solve<6, 3>(consts, dyn, z, partials, k, tau, sd, st);
-  if (sdim == 2 && adim == 1)
-    return launch_solve<2, 1>(consts, dyn, z, partials, k, tau, sd, st);
-  if (sdim == 4 && adim == 2)
-    return launch_solve<4, 2>(consts, dyn, z, partials, k, tau, sd, st);
-  return cudaErrorInvalidValue;
+  return dispatch_solve<kFused>(sdim, adim, consts, dyn, z, nullptr,
+                                partials, k, tau,
+                                Seeds{seed_lo, seed_hi, s_lo, s_hi},
+                                static_cast<cudaStream_t>(stream));
+}
+
+int pm_fused_costs(int sdim, int adim, const float* consts, const float* dyn,
+                   const float* z, float* costs, float* partials, int k,
+                   int tau, uint32_t seed_lo, uint32_t seed_hi,
+                   uint32_t s_lo, uint32_t s_hi, void* stream) {
+  return dispatch_solve<kCosts>(sdim, adim, consts, dyn, z, costs, partials,
+                                k, tau, Seeds{seed_lo, seed_hi, s_lo, s_hi},
+                                static_cast<cudaStream_t>(stream));
+}
+
+int mppi_weights(const float* nrm, const float* costs, const float* z,
+                 float* partials, int k, int n_z, uint32_t seed_lo,
+                 uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
+                 void* stream) {
+  if (k <= 0 || n_z <= 0) return cudaErrorInvalidValue;
+  size_t smem = 0;
+  const cudaError_t e = smem_for(mppi_weights_kernel, 0, n_z, &smem);
+  if (e != cudaSuccess) return e;
+  const int nb = (k + kBlock - 1) / kBlock;
+  mppi_weights_kernel<<<nb, kBlock, smem,
+                        static_cast<cudaStream_t>(stream)>>>(
+      nrm, costs, z, partials, k, n_z, Seeds{seed_lo, seed_hi, s_lo, s_hi});
+  return cudaGetLastError();
 }
 
 int pm_merge(const float* partials, int nb, int n_z, float* zsum,
              float* stats, void* stream) {
-  if (nb <= 0 || n_z <= 0) return cudaErrorInvalidValue;
+  if (nb <= 0 || n_z < 0) return cudaErrorInvalidValue;
   pm_merge_kernel<<<1, kMergeThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       partials, nb, n_z, zsum, stats);
   return cudaGetLastError();

@@ -1,3 +1,3 @@
-from .analytic import PointMassEnv
+from .analytic import AUVEnv, PointMassEnv
 
-__all__ = ["PointMassEnv"]
+__all__ = ["AUVEnv", "PointMassEnv"]

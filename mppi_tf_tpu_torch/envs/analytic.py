@@ -1,15 +1,18 @@
-"""Analytic point-mass environment (numpy; no MuJoCo dependency).
+"""Analytic plants for the closed loop (no MuJoCo dependency).
 
-An exact plant for the closed loop, independent of the model code: a
-point mass on N frictionless slide joints driven by per-axis forces, with
-the exact double-integrator update over dt (what RK4 gives for this LTI
-plant), the interleaved state [q0, v0, q1, v1, ...] and a goal site
-(reference: scripts/src/mujoco/simulation.py).
+- ``PointMassEnv`` (numpy): an exact plant independent of the model code,
+  a point mass on N frictionless slide joints driven by per-axis forces,
+  with the exact double-integrator update over dt (what RK4 gives for this
+  LTI plant), the interleaved state [q0, v0, q1, v1, ...] and a goal site
+  (reference: scripts/src/mujoco/simulation.py);
+- ``AUVEnv``: the Fossen dynamics of ``models/auv.py`` stepped at a fine
+  dt in float64 on the CPU.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 class PointMassEnv:
@@ -60,5 +63,74 @@ class PointMassEnv:
             self._q[:] = 0.0
             self._v[:] = 0.0
         else:
+            self.setState(x0)
+        return self.getState()
+
+
+class AUVEnv:
+    """Analytic AUV plant: the Fossen dynamics themselves as the simulator.
+
+    The reference has no AUV simulation in-tree (its AUV runs went through
+    external ROS / uuv_sim nodes), so the closed loop uses the port's
+    ``AUVModel`` as the plant, stepped at a finer dt than the controller,
+    in float64 on the CPU whatever device the controller uses. The 13-dim
+    state is not interleaved: [x y z | qx qy qz qw | u v w p q r].
+    """
+
+    STATE_DIM = 13
+
+    def __init__(self, model_cfg: dict, dt: float = 0.02, goal=None,
+                 x0=None, render: bool = False):
+        from ..models import get_model
+
+        self.dt = float(dt)
+        self.render = render
+        cfg = {"type": "auv", **model_cfg}
+        self._model = get_model(cfg, dt=self.dt, action_dim=6,
+                                dtype=torch.float64, device="cpu")
+        self._model.requires_grad_(False)
+        self._t = 0.0
+        if goal is None:
+            goal = np.zeros(self.STATE_DIM)
+            goal[6] = 1.0
+        self.goal = np.asarray(goal, np.float64).reshape(-1, 1)
+        self._x = self._rest()
+        if x0 is not None:
+            self.setState(x0)
+
+    def _rest(self) -> np.ndarray:
+        x = np.zeros(self.STATE_DIM)
+        x[6] = 1.0
+        return x
+
+    @torch.no_grad()
+    def step_fn(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+        """One plant step at the plant dt. x: [13], u: [6] -> [13]."""
+        return self._model.step(x[None, :], u[None, :])[0]
+
+    def getTime(self) -> float:
+        return self._t
+
+    def getGoal(self) -> np.ndarray:
+        return self.goal
+
+    def getState(self) -> np.ndarray:
+        return self._x.reshape(-1, 1).copy()
+
+    def setState(self, x) -> None:
+        self._x = np.asarray(x, np.float64).reshape(-1).copy()
+
+    def step(self, u, goal=None) -> np.ndarray:
+        """Apply a generalised force [6] for one plant step of dt."""
+        u = np.asarray(u, np.float64).reshape(-1)[:6]
+        self._x = self.step_fn(torch.from_numpy(self._x),
+                               torch.from_numpy(u)).numpy()
+        self._t += self.dt
+        return self.getState()
+
+    def reset(self, x0=None) -> np.ndarray:
+        self._t = 0.0
+        self._x = self._rest()
+        if x0 is not None:
             self.setState(x0)
         return self.getState()

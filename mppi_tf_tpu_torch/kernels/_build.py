@@ -1,10 +1,12 @@
 """Build the CUDA sources with ``nvcc`` at first use and bind them with ctypes.
 
-The shared library has a plain C interface, so the build compiles no
-PyTorch headers. It goes to ``mppi_tf_tpu_torch/_build/`` under a name
-that carries a hash of the sources and flags, so a stale build is never
-loaded. ``-Xptxas -v`` output (registers, shared memory, spills per
-kernel) is kept beside the library.
+Every ``.cu`` under ``csrc/`` is compiled to an object by its own ``nvcc``,
+all started together, and the objects are linked into one shared library
+with a plain C interface, so the build compiles no PyTorch headers. The
+library goes to ``mppi_tf_tpu_torch/_build/`` under a name that carries a
+hash of every ``.cu`` and ``.cuh`` source and the flags, so an edited
+source or header never loads a stale build. ``-Xptxas -v`` output
+(registers, shared memory, spills per kernel) is kept beside the library.
 """
 
 from __future__ import annotations
@@ -20,16 +22,21 @@ from pathlib import Path
 from .errors import KernelLaunchError
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "pm_mppi.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+_SEEDS = [_U, _U, _U, _U]
 _SIGNATURES = {
-    "pm_noise_dump": [_P, _I, _I, _U, _U, _U, _U, _P],
-    "pm_fused_solve": [_I, _I, _P, _P, _P, _P, _I, _I, _U, _U, _U, _U, _P],
+    "pm_noise_dump": [_P, _I, _I, *_SEEDS, _P],
+    "pm_fused_solve": [_I, _I, _P, _P, _P, _P, _I, _I, *_SEEDS, _P],
+    "pm_fused_costs": [_I, _I, _P, _P, _P, _P, _P, _I, _I, *_SEEDS, _P],
+    "mppi_weights": [_P, _P, _P, _P, _I, _I, *_SEEDS, _P],
     "pm_merge": [_P, _I, _I, _P, _P, _P],
+    "auv_fused_solve": [_I, _P, _P, _P, _P, _I, _I, *_SEEDS, _P],
+    "auv_fused_costs": [_I, _P, _P, _P, _P, _P, _I, _I, *_SEEDS, _P],
 }
 
 _lib = None
@@ -44,10 +51,17 @@ def _nvcc() -> str:
     return path
 
 
+def sources() -> list:
+    """The translation units of the library: every .cu under csrc/."""
+    return sorted(CSRC.glob("*.cu"))
+
+
 def library_path() -> Path:
-    h = hashlib.sha256(SOURCE.read_bytes())
+    h = hashlib.sha256()
+    for path in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libpm_mppi_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"libmppi_kernels_{h.hexdigest()[:16]}.so"
 
 
 def build() -> Path:
@@ -56,14 +70,32 @@ def build() -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
+    tag = f"{out.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    logs, failed = [], []
+    for src, proc in zip(sources(), procs):
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{err[-4000:]}")
+    if failed:
+        raise KernelLaunchError("nvcc failed: " + "\n".join(failed))
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    link = subprocess.run(
+        [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+         "-o", str(tmp), *map(str, objs)], capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link.returncode != 0:
         raise KernelLaunchError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    out.with_suffix(".ptxas.txt").write_text(proc.stderr)
+            f"nvcc link failed ({link.returncode}):\n{link.stderr[-4000:]}")
+    out.with_suffix(".ptxas.txt").write_text("".join(logs))
     os.replace(tmp, out)
     return out
 

@@ -1,0 +1,321 @@
+"""Fused AUV (Fossen 6-DoF) MPPI solve on Hopper: two CUDA kernels and their
+plain PyTorch versions, and the solve object around them.
+
+Replaces the Pallas kernels of ``mppi_tf_tpu/kernels/auv_mppi.py`` for the
+rexrov2-style ``AUVModel`` with the ``StaticQuatCost``:
+
+- ``auv_fused_solve`` replaces ``_fused_auv_call`` (``_make_kernel`` in
+  mode "fused"): one thread per sample rolls the Fossen dynamics (rk 1, 2
+  or 4) over the horizon with the 13-state in registers, sums the cost
+  sum_t [q(x_{t+1}) + rhs_z_t . z_t + nc_half z_t^T Mz z_t] + q(x_H) + u_half
+  and writes the block's softmax partial row, merged by ``pm_merge``;
+- ``auv_fused_costs`` replaces ``_fused_auv_costs`` (mode "costs", phase A
+  of the normalized solve): costs[k] and a stats-only row per block.
+
+Phase B (``_fused_auv_weights``) is ``pm_mppi.mppi_weights`` at adim 6, and
+the noise is pm_mppi's Philox stream at adim 6: ``pm_noise_dump(seed,
+solve, k, tau, 6)`` is exactly what these kernels consume. Source:
+``csrc/auv_mppi.cu``.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..ops import quaternion as quat
+from ._launch import check, launch, on_card, split64
+from .errors import KernelUnsupportedError
+from .pm_mppi import (BLOCK, STATS, TwoPhaseSolve, block_partials,
+                      cost_partials, noise_plain)
+
+GRAVITY = 9.81
+SDIM, ADIM = 13, 6
+
+
+class Dyn:
+    """Layout of the per-solve array ``dyn`` (the JAX package's ``_Dyn``
+    without its waypoint and schedule blocks), staged into shared memory."""
+
+    def __init__(self, tau: int):
+        self.m_tot = 0                 # 36: total mass matrix, row-major
+        self.inv_m = 36                # 36: its inverse
+        self.mass = 72                 # 1
+        self.goal = 73                 # 13
+        self.x0 = 86                   # 13
+        self.useq = 99                 # tau*6
+        self.rhs_z = 99 + 6 * tau      # tau*6: scale^T (gamma Sigma^-1 u_t)
+        self.u_half = 99 + 12 * tau    # 1: sum_t 0.5 gamma u^T Sigma^-1 u
+        self.size = self.u_half + 1
+
+
+@dataclass
+class AuvConsts:
+    """Solve constants (the JAX kernel's compile-time ``_mc``): dt, rk, lam,
+    nc_half = lam (1 - 1/upsilon) / 2, buoyancy rho V g, the damping
+    matrices (quad_damp as its diagonal), cog, cob, scale = upsilon sigma,
+    Mz = scale^T Sigma^-1 scale and the 10x10 cost weight Q."""
+
+    dt: float
+    rk: int
+    lam: float
+    nc_half: float
+    buoyancy: float
+    lin_damp: np.ndarray
+    lin_damp_fwd: np.ndarray
+    quad_damp: np.ndarray
+    cog: np.ndarray
+    cob: np.ndarray
+    scale: np.ndarray
+    Mz: np.ndarray
+    Q: np.ndarray
+
+    @functools.cached_property
+    def packed(self) -> np.ndarray:
+        """f32 host array in the order of ``AuvConsts`` in auv_mppi.cu."""
+        return np.ascontiguousarray(np.concatenate([
+            [self.dt, self.lam, self.nc_half, self.buoyancy],
+            self.lin_damp.ravel(), self.lin_damp_fwd.ravel(),
+            self.quad_damp.ravel(), self.cog.ravel(), self.cob.ravel(),
+            self.scale.ravel(), self.Mz.ravel(), self.Q.ravel()]).astype(
+                np.float32))
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def _state_dot(c: dict, m_tot, inv_m, fng, x, gf):
+    """The kernel's state_dot, batched: x [k, 13], gf [k, 6] -> [k, 13]."""
+    q, nu = x[:, 3:7], x[:, 7:13]
+    v, w = nu[:, :3], nu[:, 3:]
+    rot = quat.to_rotation_matrix(q)
+    pos_dot = torch.einsum("kij,kj->ki", rot, v)
+    quat_dot = torch.einsum("kij,kj->ki", quat.attitude_jacobian(q), w)
+    Dv = (-(nu @ c["lin_damp"].T) - nu[:, :1] * (nu @ c["lin_damp_fwd"].T)
+          - c["quad_damp"] * torch.abs(nu) * nu)
+    a = nu @ m_tot.T
+    cross = torch.linalg.cross
+    Cv = torch.cat([-cross(a[:, :3], w, dim=-1),
+                    -cross(a[:, :3], v, dim=-1) - cross(a[:, 3:], w, dim=-1)],
+                   dim=-1)
+    r3 = rot[:, 2, :]
+    fbg, fbb = r3 * fng, r3 * c["buoyancy"]
+    g = -torch.cat([fbg + fbb,
+                    cross(c["cog"].expand_as(fbg), fbg, dim=-1)
+                    + cross(c["cob"].expand_as(fbb), fbb, dim=-1)], dim=-1)
+    return torch.cat([pos_dot, quat_dot, (gf - Cv - Dv - g) @ inv_m.T],
+                     dim=-1)
+
+
+def _quat_cost(Q, goal, x):
+    """StaticQuatCost.state_cost (signed dot, clamped) on x [k, 13]."""
+    dot = torch.clamp(x[:, 3:7] @ goal[3:7], -1.0, 1.0)
+    d = torch.cat([x[:, :3] - goal[:3], 2.0 * torch.acos(dot)[:, None],
+                   x[:, 7:13] - goal[7:13]], dim=-1)
+    return torch.sum((d @ Q.T) * d, dim=-1)
+
+
+def sample_costs_plain(consts: AuvConsts, dyn: torch.Tensor,
+                       z: torch.Tensor) -> torch.Tensor:
+    """Per-sample rollout costs [k] in the kernel's algebra: the Fossen
+    rollout of ``AUVModel.step`` and the ``StaticQuatCost`` over
+    eps = scale @ z, with Sigma^-1 and u folded into dyn."""
+    tau, _, k = z.shape
+    lay = Dyn(tau)
+
+    def t_(a):
+        return torch.tensor(np.asarray(a, np.float64), dtype=dyn.dtype,
+                            device=dyn.device)
+
+    c = {name: t_(getattr(consts, name)) for name in (
+        "lin_damp", "lin_damp_fwd", "quad_damp", "cog", "cob")}
+    c["buoyancy"] = consts.buoyancy
+    scale, Mz, Q = t_(consts.scale), t_(consts.Mz), t_(consts.Q)
+    m_tot = dyn[lay.m_tot:lay.inv_m].reshape(6, 6)
+    inv_m = dyn[lay.inv_m:lay.mass].reshape(6, 6)
+    fng = -dyn[lay.mass] * GRAVITY
+    goal = dyn[lay.goal:lay.x0]
+    useq = dyn[lay.useq:lay.rhs_z].reshape(tau, 6)
+    rhs_z = dyn[lay.rhs_z:lay.u_half].reshape(tau, 6)
+    dt, rk = consts.dt, consts.rk
+
+    def f(x, gf):
+        return _state_dot(c, m_tot, inv_m, fng, x, gf)
+
+    x = dyn[lay.x0:lay.useq].expand(k, SDIM)
+    cost = torch.zeros(k, dtype=dyn.dtype, device=dyn.device)
+    for t in range(tau):
+        zt = z[t].T                                     # [k, 6]
+        gf = useq[t] + zt @ scale.T
+        k1 = f(x, gf)
+        if rk == 1:
+            x = x + dt * k1
+        elif rk == 2:
+            x = x + (dt / 2.0) * (k1 + f(x + dt * k1, gf))
+        else:
+            k2 = f(x + (dt / 2.0) * k1, gf)
+            k3 = f(x + (dt / 2.0) * k2, gf)
+            k4 = f(x + dt * k3, gf)
+            x = x + (dt / 6.0) * (k1 + 2.0 * k2 + 2.0 * k3 + k4)
+        qn = torch.rsqrt(torch.clamp(torch.sum(x[:, 3:7] ** 2, dim=-1,
+                                               keepdim=True), min=1e-24))
+        x = torch.cat([x[:, :3], x[:, 3:7] * qn, x[:, 7:]], dim=-1)
+        cost = (cost + _quat_cost(Q, goal, x) + zt @ rhs_z[t]
+                + consts.nc_half * torch.sum((zt @ Mz.T) * zt, dim=-1))
+    return cost + _quat_cost(Q, goal, x) + dyn[lay.u_half]
+
+
+def fused_solve_plain(consts: AuvConsts, dyn: torch.Tensor, k: int,
+                      tau: int, seed: int = 0, solve: int = 0, z=None,
+                      block: int = BLOCK) -> torch.Tensor:
+    """Plain version of ``auv_fused_solve``: block partials
+    [n_blocks, STATS + tau*6]."""
+    if z is None:
+        z = noise_plain(seed, solve, k, tau, ADIM,
+                        device=dyn.device).to(dyn.dtype)
+    costs = sample_costs_plain(consts, dyn, z)
+    return block_partials(costs, z.reshape(tau * ADIM, k), consts.lam, block)
+
+
+def fused_costs_plain(consts: AuvConsts, dyn: torch.Tensor, k: int,
+                      tau: int, seed: int = 0, solve: int = 0, z=None,
+                      block: int = BLOCK):
+    """Plain version of ``auv_fused_costs``: (costs [k], stats-only rows)."""
+    if z is None:
+        z = noise_plain(seed, solve, k, tau, ADIM,
+                        device=dyn.device).to(dyn.dtype)
+    costs = sample_costs_plain(consts, dyn, z)
+    return costs, cost_partials(costs, block)
+
+
+# ---------------------------------------------------------------------------
+# wrappers: plain version on the CPU, the CUDA kernel on the card
+# ---------------------------------------------------------------------------
+
+def _check_inputs(consts, dyn, z, k, tau):
+    if consts.rk not in (1, 2, 4):
+        raise KernelUnsupportedError(f"rk must be 1, 2 or 4, got {consts.rk}")
+    check(dyn, "dyn", (Dyn(tau).size,))
+    if z is not None:
+        check(z, "z", (tau, ADIM, k))
+
+
+def auv_fused_solve(consts: AuvConsts, dyn: torch.Tensor, k: int, tau: int,
+                    seed: int = 0, solve: int = 0, z=None) -> torch.Tensor:
+    """Fused Fossen rollout + block softmax partials
+    [n_blocks, STATS + tau*6]; ``z`` (f32 [tau, 6, k]) injects the normals
+    in place of the Philox stream of (seed, solve)."""
+    if not on_card(dyn, z):
+        return fused_solve_plain(consts, dyn, k, tau, seed, solve, z)
+    _check_inputs(consts, dyn, z, k, tau)
+    partials = torch.empty((-(-k // BLOCK), STATS + tau * ADIM),
+                           dtype=torch.float32, device=dyn.device)
+    launch("auv_fused_solve", dyn.device, consts.rk,
+           consts.packed.ctypes.data, dyn.data_ptr(),
+           None if z is None else z.data_ptr(), partials.data_ptr(), k, tau,
+           *split64(seed), *split64(solve))
+    return partials
+
+
+def auv_fused_costs(consts: AuvConsts, dyn: torch.Tensor, k: int, tau: int,
+                    seed: int = 0, solve: int = 0, z=None):
+    """Phase A: per-sample costs [k] and stats-only rows [n_blocks, STATS]."""
+    if not on_card(dyn, z):
+        return fused_costs_plain(consts, dyn, k, tau, seed, solve, z)
+    _check_inputs(consts, dyn, z, k, tau)
+    costs = torch.empty(k, dtype=torch.float32, device=dyn.device)
+    partials = torch.empty((-(-k // BLOCK), STATS), dtype=torch.float32,
+                           device=dyn.device)
+    launch("auv_fused_costs", dyn.device, consts.rk,
+           consts.packed.ctypes.data, dyn.data_ptr(),
+           None if z is None else z.data_ptr(), costs.data_ptr(),
+           partials.data_ptr(), k, tau, *split64(seed), *split64(solve))
+    return costs, partials
+
+
+# ---------------------------------------------------------------------------
+# solve object
+# ---------------------------------------------------------------------------
+
+class FusedAUVMPPI(TwoPhaseSolve):
+    """Fused solve for MPPI over AUVModel + StaticQuatCost: packs ``dyn``
+    (the live mass matrices, mass and goal), runs ``auv_fused_solve`` +
+    ``pm_merge``, or the two phases ``auv_fused_costs`` and
+    ``mppi_weights``, and un-folds the weighted normals to action units.
+
+    Counterpart of the JAX package's ``FusedAUVMPPI`` without its
+    waypoint, ellipse, schedule, antithetic and bf16 variants. The kernels
+    are float32; on the CPU the plain versions run at the model's dtype.
+    """
+
+    def __init__(self, model, cost, k: int, tau: int, lam: float,
+                 upsilon: float, sigma):
+        from ..costs.static import StaticQuatCost
+        from ..models.auv import AUVModel
+
+        if not isinstance(model, AUVModel):
+            raise KernelUnsupportedError(
+                "fused AUV kernel supports AUVModel only")
+        if type(cost) is not StaticQuatCost:
+            raise KernelUnsupportedError(
+                "fused AUV kernel supports StaticQuatCost only "
+                "(waypoints_quat and elipse3d: ROADMAP items 8 and 10)")
+        if model.device.type != "cpu" and model.dtype != torch.float32:
+            raise KernelUnsupportedError(
+                f"fused kernel is float32, model is {model.dtype}")
+        if model.get_action_dim() != ADIM:
+            raise KernelUnsupportedError(
+                f"fused AUV kernel takes a 6-dim generalised force, got "
+                f"action_dim={model.get_action_dim()}")
+        self.model, self.cost = model, cost
+        self.k, self.tau = int(k), int(tau)
+        self.sdim, self.adim = SDIM, ADIM
+        self.lam, self.upsilon = float(lam), float(upsilon)
+        self.gamma = float(cost.gamma)
+        sigma = np.asarray(sigma, np.float64)
+        scale = self.upsilon * sigma
+        inv_sigma = np.linalg.inv(sigma)
+
+        def f64(t):
+            return t.detach().cpu().numpy().astype(np.float64)
+
+        self.consts = AuvConsts(
+            dt=model.dt, rk=model.rk, lam=self.lam,
+            nc_half=0.5 * self.lam * (1.0 - 1.0 / self.upsilon),
+            buoyancy=model.buoyancy, lin_damp=f64(model.lin_damp),
+            lin_damp_fwd=f64(model.lin_damp_fwd),
+            quad_damp=np.diag(f64(model.quad_damp)).copy(), cog=f64(model.cog),
+            cob=f64(model.cob), scale=scale,
+            Mz=scale.T @ inv_sigma @ scale, Q=f64(cost.Q))
+        like = {"dtype": model.dtype, "device": model.device}
+        self._scale = torch.as_tensor(scale, **like)
+        self._inv_sigma = torch.as_tensor(inv_sigma, **like)
+
+    def pack_dyn(self, x0: torch.Tensor, useq: torch.Tensor) -> torch.Tensor:
+        """The per-solve ``dyn`` array ([Dyn.size], the model's dtype) from
+        the state, the nominal sequence, the model's mass matrices (cached
+        on the model until its parameters change) and the live goal."""
+        m_tot, inv_m = self.model.precompute()
+        dtype = self.model.dtype
+        useq = useq.to(dtype).reshape(self.tau, ADIM)
+        rhs_z = (self.gamma * (useq @ self._inv_sigma.T)) @ self._scale
+        u_half = 0.5 * self.gamma * torch.einsum(
+            "ti,ij,tj->", useq, self._inv_sigma, useq)
+        return torch.cat([
+            m_tot.detach().reshape(-1), inv_m.detach().reshape(-1),
+            self.model.mass.detach().reshape(1),
+            self.cost.goal.reshape(-1),
+            x0.to(dtype).reshape(SDIM),
+            useq.reshape(-1), rhs_z.reshape(-1), u_half.reshape(1)])
+
+    def _fused(self, dyn, seed, solve, z):
+        return auv_fused_solve(self.consts, dyn, self.k, self.tau, seed=seed,
+                               solve=solve, z=z)
+
+    def _costs(self, dyn, seed, solve, z):
+        return auv_fused_costs(self.consts, dyn, self.k, self.tau, seed=seed,
+                               solve=solve, z=z)

@@ -1,5 +1,5 @@
-"""Fused point-mass MPPI solve on Hopper: three CUDA kernels and their plain
-PyTorch versions.
+"""Fused point-mass MPPI solve on Hopper and the kernels every fused solve
+shares: five CUDA kernels and their plain PyTorch versions.
 
 Replaces the Pallas kernels of ``mppi_tf_tpu/kernels/pm_mppi.py``:
 
@@ -10,11 +10,19 @@ Replaces the Pallas kernels of ``mppi_tf_tpu/kernels/pm_mppi.py``:
   sum_t [q(x_{t+1}) + rhs_z_t . z_t + nc_half z_t^T Mz z_t] + phi(x_H) + u_half,
   then each block writes its softmax partial (m_b, l_b, cost min/max/sum,
   zsum_b = sum_k w_k z_k) to a scratch row;
-- ``pm_merge`` merges the per-block partials with the shard-merge algebra
-  of ``mppi_tf_tpu/parallel/fused.py`` (m = max m_b, f_b = exp(m_b - m),
+- ``pm_fused_costs`` replaces ``fused_pm_costs`` (mode "costs", phase A of
+  the normalized solve): the same rollout, writing costs[k] and a
+  stats-only row per block;
+- ``mppi_weights`` replaces ``make_weights_kernel`` (``fused_pm_weights``
+  and ``auv_mppi._fused_auv_weights``, phase B, for any action dim): it
+  regenerates the normals of the solve and writes rows with
+  w = exp(-(c - beta) / ((max - beta) lam)) and m_b = 0;
+- ``pm_merge`` merges the per-block rows with the shard-merge algebra of
+  ``mppi_tf_tpu/parallel/fused.py`` (m = max m_b, f_b = exp(m_b - m),
   l = sum f_b l_b, zsum = sum f_b zsum_b);
 - ``pm_noise_dump`` replaces ``fused_noise_dump``: it writes the exact
-  normals the solve consumes, for the statistics check and for tests.
+  normals the solves consume, for the statistics check, the log-mode noise
+  sample and tests.
 
 The noise is a counter-based stream fixed element by element, so the
 plain version reproduces it: normal n = t*adim + j of sample k in solve s
@@ -24,10 +32,11 @@ pair, u = ((bits >> 9) + 0.5) * 2^-23, z_a = sqrt(-2 ln u_a) cos(2 pi u_b),
 z_b = sqrt(-2 ln u_a) sin(2 pi u_b). (23 bits, not 24: with 24 bits the
 top uniforms round to 1.0 in f32; with 23 every u is exact in f32 and lies
 in [2^-24, 1 - 2^-24], so the tail is clipped at 5.77 sigma as on the TPU.)
+The AUV kernels (``kernels/auv_mppi.py``) read the same stream at adim 6.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. Each launch adds one to
-``launch_counts[name]``.
+``launch_counts[name]`` (``kernels/_launch.py``).
 """
 
 from __future__ import annotations
@@ -39,8 +48,12 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .errors import KernelLaunchError, KernelUnsupportedError
+from ._launch import (check, launch, launch_counts, on_card,
+                      reset_launch_counts, split64)
+from .errors import KernelUnsupportedError
 
+# launch_counts and reset_launch_counts are re-exported for callers of
+# this module (chip_smoke.py, the tests)
 NEG_INF = float("-inf")
 #: samples (threads) per block of the fused solve
 BLOCK = 256
@@ -48,13 +61,6 @@ BLOCK = 256
 STATS = 8
 #: (state dim, action dim) pairs the CUDA kernel is instantiated for
 SUPPORTED_DIMS = ((6, 3), (2, 1), (4, 2))
-
-launch_counts = {"pm_noise_dump": 0, "pm_fused_solve": 0, "pm_merge": 0}
-
-
-def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
 
 
 class Dyn:
@@ -143,18 +149,13 @@ def box_muller(bits: torch.Tensor) -> torch.Tensor:
     return z.reshape(bits.shape).to(torch.float32)
 
 
-def _split64(v: int):
-    v = int(v) & 0xFFFFFFFFFFFFFFFF
-    return v & _MASK32, v >> 32
-
-
 def noise_plain(seed: int, solve: int, k: int, tau: int, adim: int,
                 device=None) -> torch.Tensor:
     """The in-kernel noise stream of one solve: z f32 [tau, adim, k]."""
     n_z = tau * adim
     nb = -(-n_z // 4)
-    s_lo, s_hi = _split64(solve)
-    seed_lo, seed_hi = _split64(seed)
+    s_lo, s_hi = split64(solve)
+    seed_lo, seed_hi = split64(seed)
     kk = torch.arange(k, dtype=torch.int64, device=device)
     bb = torch.arange(nb, dtype=torch.int64, device=device)
     ctr = torch.stack(torch.broadcast_tensors(
@@ -199,23 +200,23 @@ def sample_costs_plain(consts: PmConsts, dyn: torch.Tensor,
     return cost + q(x) + dyn[lay.u_half]
 
 
-def block_partials(costs: torch.Tensor, zf: torch.Tensor, lam: float,
-                   block: int = BLOCK) -> torch.Tensor:
-    """Per-block online-softmax partials of -cost/lam.
-
-    costs [k], zf [n_z, k] -> [n_blocks, STATS + n_z] rows
-    (m_b, l_b, cmin_b, cmax_b, csum_b, 0, 0, 0, zsum_b). Padding samples
-    carry the -inf sentinel and weigh exactly 0.
-    """
+def _partial_rows(costs: torch.Tensor, zarg: torch.Tensor, zf: torch.Tensor,
+                  block: int, max_shift: bool) -> torch.Tensor:
+    """Rows (m_b, l_b, cmin_b, cmax_b, csum_b, 0, 0, 0, zsum_b) of the
+    per-block weights w = exp(zarg - m_b), zsum_b = sum_k w_k z_k; m_b is
+    the block max of zarg with ``max_shift``, else 0. Padding samples
+    carry the -inf sentinel and weigh exactly 0 (mppi_common.cuh
+    write_partial_row)."""
     n_z, k = zf.shape
     nb = -(-k // block)
     pad = nb * block - k
     valid = (torch.arange(nb * block, device=costs.device) < k).reshape(
         nb, block)
     c = torch.nn.functional.pad(costs, (0, pad)).reshape(nb, block)
-    zarg = torch.where(valid, -c / lam, NEG_INF)
-    m = zarg.max(dim=1).values
-    w = torch.where(valid, torch.exp(zarg - m[:, None]), 0.0)
+    za = torch.where(valid, torch.nn.functional.pad(zarg, (0, pad)).reshape(
+        nb, block), NEG_INF)
+    m = za.max(dim=1).values if max_shift else za.new_zeros(nb)
+    w = torch.where(valid, torch.exp(za - m[:, None]), 0.0)
     zb = torch.nn.functional.pad(zf, (0, pad)).reshape(n_z, nb, block)
     stats = torch.stack([
         m, w.sum(dim=1),
@@ -226,6 +227,31 @@ def block_partials(costs: torch.Tensor, zf: torch.Tensor, lam: float,
                       torch.einsum("bk,nbk->bn", w, zb)], dim=1)
 
 
+def block_partials(costs: torch.Tensor, zf: torch.Tensor, lam: float,
+                   block: int = BLOCK) -> torch.Tensor:
+    """Per-block online-softmax partials of -cost/lam (fused solve).
+
+    costs [k], zf [n_z, k] -> [n_blocks, STATS + n_z] rows
+    (m_b, l_b, cmin_b, cmax_b, csum_b, 0, 0, 0, zsum_b).
+    """
+    return _partial_rows(costs, -costs / lam, zf, block, max_shift=True)
+
+
+def weight_partials(costs: torch.Tensor, nrm: torch.Tensor,
+                    zf: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
+    """Phase-B rows: w = exp(-(c - beta) * inv_dl) with nrm = (beta, inv_dl),
+    bounded in [exp(-1/lam), 1], so m_b = 0."""
+    return _partial_rows(costs, -(costs - nrm[0]) * nrm[1], zf, block,
+                         max_shift=False)
+
+
+def cost_partials(costs: torch.Tensor, block: int = BLOCK) -> torch.Tensor:
+    """Phase-A rows: (0, 0, cmin_b, cmax_b, csum_b, 0, 0, 0), no zsum."""
+    return _partial_rows(costs, torch.full_like(costs, NEG_INF),
+                         costs.new_zeros(0, costs.shape[0]), block,
+                         max_shift=False)
+
+
 def fused_solve_plain(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
                       seed: int = 0, solve: int = 0, z=None,
                       block: int = BLOCK) -> torch.Tensor:
@@ -233,9 +259,34 @@ def fused_solve_plain(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
     [n_blocks, STATS + tau*adim]."""
     adim = consts.Bs.shape[1]
     if z is None:
-        z = noise_plain(seed, solve, k, tau, adim, device=dyn.device)
+        z = noise_plain(seed, solve, k, tau, adim,
+                        device=dyn.device).to(dyn.dtype)
     costs = sample_costs_plain(consts, dyn, z)
     return block_partials(costs, z.reshape(tau * adim, k), consts.lam, block)
+
+
+def fused_costs_plain(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
+                      seed: int = 0, solve: int = 0, z=None,
+                      block: int = BLOCK):
+    """Plain version of ``pm_fused_costs``: (costs [k], stats-only rows
+    [n_blocks, STATS])."""
+    if z is None:
+        z = noise_plain(seed, solve, k, tau, consts.Bs.shape[1],
+                        device=dyn.device).to(dyn.dtype)
+    costs = sample_costs_plain(consts, dyn, z)
+    return costs, cost_partials(costs, block)
+
+
+def weights_plain(nrm: torch.Tensor, costs: torch.Tensor, tau: int,
+                  adim: int, seed: int = 0, solve: int = 0, z=None,
+                  block: int = BLOCK) -> torch.Tensor:
+    """Plain version of ``mppi_weights``: rows [n_blocks, STATS + tau*adim]
+    of the normalized weights over the solve's normals."""
+    k = costs.shape[0]
+    if z is None:
+        z = noise_plain(seed, solve, k, tau, adim,
+                        device=costs.device).to(costs.dtype)
+    return weight_partials(costs, nrm, z.reshape(tau * adim, k), block)
 
 
 def merge_plain(partials: torch.Tensor):
@@ -255,41 +306,6 @@ def merge_plain(partials: torch.Tensor):
 # wrappers: plain version on the CPU, the CUDA kernel on the card
 # ---------------------------------------------------------------------------
 
-def _on_card(*tensors) -> bool:
-    """True for CUDA tensors, False for CPU ones; raises on a mix or on
-    any other device."""
-    kinds = {t.device.type for t in tensors if t is not None}
-    if kinds == {"cpu"}:
-        return False
-    if kinds == {"cuda"}:
-        if len({t.device for t in tensors if t is not None}) != 1:
-            raise ValueError("all tensors must be on the same CUDA device")
-        return True
-    raise ValueError(f"tensors must all be on the CPU or all on one CUDA "
-                     f"device, got {sorted(kinds)}")
-
-
-def _check(t: torch.Tensor, name: str, shape) -> None:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} must have shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _launch(name: str, *args) -> None:
-    from . import _build
-
-    lib = _build.load_library()
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(lib, name)(*args, stream)
-    if rc != 0:
-        raise KernelLaunchError(f"{name} failed: {_build.error_string(rc)}")
-    launch_counts[name] += 1
-
-
 def pm_noise_dump(seed: int, solve: int, k: int, tau: int, adim: int,
                   device) -> torch.Tensor:
     """The exact normals of solve ``solve`` at ``seed``: z f32 [tau, adim, k]."""
@@ -299,10 +315,20 @@ def pm_noise_dump(seed: int, solve: int, k: int, tau: int, adim: int,
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     out = torch.empty((tau, adim, k), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        _launch("pm_noise_dump", out.data_ptr(), k, tau * adim,
-                *_split64(seed), *_split64(solve))
+    launch("pm_noise_dump", device, out.data_ptr(), k, tau * adim,
+           *split64(seed), *split64(solve))
     return out
+
+
+def _check_solve_inputs(name, consts, dyn, z, k, tau):
+    sdim, adim = consts.dims
+    if (sdim, adim) not in SUPPORTED_DIMS:
+        raise KernelUnsupportedError(
+            f"{name} is built for (sdim, adim) in {SUPPORTED_DIMS}, got "
+            f"{(sdim, adim)}")
+    check(dyn, "dyn", (Dyn(tau, sdim, adim).size,))
+    if z is not None:
+        check(z, "z", (tau, adim, k))
 
 
 def pm_fused_solve(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
@@ -311,51 +337,151 @@ def pm_fused_solve(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
 
     ``z`` (f32 [tau, adim, k]) injects the normals in place of the
     in-kernel Philox stream of (seed, solve)."""
-    sdim, adim = consts.dims
-    if not _on_card(dyn, z):
+    if not on_card(dyn, z):
         return fused_solve_plain(consts, dyn, k, tau, seed, solve, z)
-    if (sdim, adim) not in SUPPORTED_DIMS:
-        raise KernelUnsupportedError(
-            f"pm_fused_solve is built for (sdim, adim) in {SUPPORTED_DIMS}, "
-            f"got {(sdim, adim)}")
-    _check(dyn, "dyn", (Dyn(tau, sdim, adim).size,))
-    if z is not None:
-        _check(z, "z", (tau, adim, k))
-    nb = -(-k // BLOCK)
-    partials = torch.empty((nb, STATS + tau * adim), dtype=torch.float32,
+    _check_solve_inputs("pm_fused_solve", consts, dyn, z, k, tau)
+    sdim, adim = consts.dims
+    partials = torch.empty((-(-k // BLOCK), STATS + tau * adim),
+                           dtype=torch.float32, device=dyn.device)
+    launch("pm_fused_solve", dyn.device, sdim, adim,
+           consts.packed.ctypes.data, dyn.data_ptr(),
+           None if z is None else z.data_ptr(), partials.data_ptr(), k, tau,
+           *split64(seed), *split64(solve))
+    return partials
+
+
+def pm_fused_costs(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
+                   seed: int = 0, solve: int = 0, z=None):
+    """Phase A: the fused rollout's per-sample costs [k] and stats-only
+    rows [n_blocks, STATS] (``pm_merge`` gives cost min / max / sum)."""
+    if not on_card(dyn, z):
+        return fused_costs_plain(consts, dyn, k, tau, seed, solve, z)
+    _check_solve_inputs("pm_fused_costs", consts, dyn, z, k, tau)
+    sdim, adim = consts.dims
+    costs = torch.empty(k, dtype=torch.float32, device=dyn.device)
+    partials = torch.empty((-(-k // BLOCK), STATS), dtype=torch.float32,
                            device=dyn.device)
-    with torch.cuda.device(dyn.device):
-        _launch("pm_fused_solve", sdim, adim, consts.packed.ctypes.data,
-                dyn.data_ptr(), None if z is None else z.data_ptr(),
-                partials.data_ptr(), k, tau, *_split64(seed),
-                *_split64(solve))
+    launch("pm_fused_costs", dyn.device, sdim, adim,
+           consts.packed.ctypes.data, dyn.data_ptr(),
+           None if z is None else z.data_ptr(), costs.data_ptr(),
+           partials.data_ptr(), k, tau, *split64(seed), *split64(solve))
+    return costs, partials
+
+
+def mppi_weights(nrm: torch.Tensor, costs: torch.Tensor, tau: int,
+                 adim: int, seed: int = 0, solve: int = 0,
+                 z=None) -> torch.Tensor:
+    """Phase B over phase-A ``costs`` [k] with nrm = (beta, 1/(denom lam))
+    (f32 [2], on the device): rows [n_blocks, STATS + tau*adim] of the
+    normalized weights over the normals of (seed, solve), or ``z``."""
+    if not on_card(nrm, costs, z):
+        return weights_plain(nrm, costs, tau, adim, seed, solve, z)
+    k = costs.shape[0]
+    check(nrm, "nrm", (2,))
+    check(costs, "costs", (k,))
+    if z is not None:
+        check(z, "z", (tau, adim, k))
+    partials = torch.empty((-(-k // BLOCK), STATS + tau * adim),
+                           dtype=torch.float32, device=costs.device)
+    launch("mppi_weights", costs.device, nrm.data_ptr(), costs.data_ptr(),
+           None if z is None else z.data_ptr(), partials.data_ptr(), k,
+           tau * adim, *split64(seed), *split64(solve))
     return partials
 
 
 def pm_merge(partials: torch.Tensor):
-    """Merge block partials -> (zsum [n_z], stats [8]); see ``merge_plain``."""
-    if not _on_card(partials):
+    """Merge block partials -> (zsum [n_z], stats [8]); see ``merge_plain``.
+    Stats-only rows (n_z = 0) give an empty zsum."""
+    if not on_card(partials):
         return merge_plain(partials)
     nb, width = partials.shape
-    _check(partials, "partials", (nb, width))
+    check(partials, "partials", (nb, width))
     n_z = width - STATS
     zsum = torch.empty(n_z, dtype=torch.float32, device=partials.device)
     stats = torch.empty(STATS, dtype=torch.float32, device=partials.device)
-    with torch.cuda.device(partials.device):
-        _launch("pm_merge", partials.data_ptr(), nb, n_z, zsum.data_ptr(),
-                stats.data_ptr())
+    launch("pm_merge", partials.device, partials.data_ptr(), nb, n_z,
+           zsum.data_ptr(), stats.data_ptr())
     return zsum, stats
 
 
 # ---------------------------------------------------------------------------
-# solve object: host glue around the kernels
+# solve objects: host glue around the kernels
 # ---------------------------------------------------------------------------
 
-class FusedPointMassMPPI:
+class TwoPhaseSolve:
+    """``solve``, ``costs_phase``, ``weights_phase``, ``unfold_wnoise`` and
+    ``noise_sample`` of a fused solve object. A subclass sets k, tau, adim,
+    lam and ``_scale`` (the noise scale, f32 on the device) and defines
+    ``pack_dyn(x0, useq)``, ``_fused(dyn, seed, solve, z)`` (block partials)
+    and ``_costs(dyn, seed, solve, z)`` ((costs, stats-only rows)).
+
+    The normalized solve (reference controller_base.py:468-474) runs as two
+    phases: A, the rollout's per-sample costs and their min / max / sum; B,
+    the weights exp(-(c - beta) / ((max - beta) lam)) over the regenerated
+    normals. The glue between them stays on the device: no host sync.
+    """
+
+    def unfold_wnoise(self, zsum: torch.Tensor) -> torch.Tensor:
+        """Weighted standard-normal sums [tau*adim] -> action units
+        [tau, adim]: wnoise_t = scale @ zsum_t."""
+        return zsum.reshape(self.tau, self.adim) @ self._scale.T
+
+    def solve(self, x0, useq, seed: int = 0, solve: int = 0, z=None,
+              normalize: bool = False):
+        """One MPPI solve -> (wnoise [tau, adim], info); ``normalize`` runs
+        the two-phase normalized variant, whose info also carries the
+        phase-A ``sample_costs``."""
+        if normalize:
+            costs, cst = self.costs_phase(x0, useq, seed, solve, z)
+            zsum, l = self.weights_phase(costs, cst["cost_min"],
+                                         cst["cost_max"], seed, solve, z)
+            info = {"cost_min": cst["cost_min"], "cost_max": cst["cost_max"],
+                    "cost_mean": cst["cost_sum"] / self.k, "nabla": l,
+                    "sample_costs": costs}
+            return self.unfold_wnoise(zsum) / l, info
+        zsum, stats = pm_merge(self._fused(self.pack_dyn(x0, useq), seed,
+                                           solve, z))
+        l = stats[1]
+        info = {"cost_min": stats[2], "cost_max": stats[3],
+                "cost_mean": stats[4] / self.k, "nabla": l}
+        return self.unfold_wnoise(zsum) / l, info
+
+    def costs_phase(self, x0, useq, seed: int = 0, solve: int = 0, z=None):
+        """Phase A: per-sample costs [k] and {cost_min, cost_max, cost_sum}."""
+        costs, rows = self._costs(self.pack_dyn(x0, useq), seed, solve, z)
+        _, stats = pm_merge(rows)
+        return costs, {"cost_min": stats[2], "cost_max": stats[3],
+                       "cost_sum": stats[4]}
+
+    def weights_phase(self, costs, beta, cmax, seed: int = 0, solve: int = 0,
+                      z=None):
+        """Phase B over phase-A costs -> (zsum [tau, adim], l). The guard
+        against all-equal costs matches ops/update.norm_arg (denom = 1 when
+        max - beta == 0)."""
+        denom = cmax - beta
+        denom = torch.where(denom > 0, denom, torch.ones_like(denom))
+        nrm = torch.stack([beta, 1.0 / (denom * self.lam)])
+        zsum, stats = pm_merge(mppi_weights(nrm, costs, self.tau, self.adim,
+                                            seed, solve, z))
+        return zsum.reshape(self.tau, self.adim), stats[1]
+
+    def noise_sample(self, seed: int, solve: int,
+                     max_samples: int = 512) -> torch.Tensor:
+        """The first min(max_samples, k) samples' noise of solve ``solve``
+        in action units, eps [n, tau, adim] (JAX fused_noise_sample)."""
+        n = min(max_samples, self.k)
+        z = pm_noise_dump(seed, solve, n, self.tau, self.adim,
+                          self._scale.device)
+        return torch.einsum("ij,tjn->nti", self._scale,
+                            z.to(self._scale.dtype))
+
+
+class FusedPointMassMPPI(TwoPhaseSolve):
     """Fused solve for MPPI over PointMassModel + StaticCost: packs the
-    per-solve ``dyn`` array, runs ``pm_fused_solve`` + ``pm_merge`` and
-    un-folds the weighted normals to action units. The host glue is torch
-    ops on the model's device, with no host sync.
+    per-solve ``dyn`` array and runs ``pm_fused_solve`` + ``pm_merge``, or
+    the two phases ``pm_fused_costs`` and ``mppi_weights``; un-folds the
+    weighted normals to action units. The host glue is torch ops on the
+    model's device, with no host sync.
 
     Counterpart of the JAX package's ``FusedPointMassMPPI`` without its
     DMD, ellipse, waypoint, schedule, antithetic and bf16 variants.
@@ -383,7 +509,7 @@ class FusedPointMassMPPI:
                 f"{SUPPORTED_DIMS}, got {dims}")
         self.model, self.cost = model, cost
         self.k, self.tau = int(k), int(tau)
-        self.sdim, self.adim = model.get_state_dim(), model.get_action_dim()
+        self.sdim, self.adim = dims
         self.lam, self.upsilon = float(lam), float(upsilon)
         self.gamma = float(cost.gamma)
         sigma = np.asarray(sigma, np.float64)
@@ -419,18 +545,10 @@ class FusedPointMassMPPI:
             self.cost.goal.to(torch.float32),
             bu.reshape(-1), rhs_z.reshape(-1), u_half.reshape(1)])
 
-    def unfold_wnoise(self, zsum: torch.Tensor) -> torch.Tensor:
-        """Weighted standard-normal sums [tau*adim] -> action units
-        [tau, adim]: wnoise_t = scale @ zsum_t."""
-        return zsum.reshape(self.tau, self.adim) @ self._scale.T
+    def _fused(self, dyn, seed, solve, z):
+        return pm_fused_solve(self.consts, dyn, self.k, self.tau, seed=seed,
+                              solve=solve, z=z)
 
-    def solve(self, x0, useq, seed: int = 0, solve: int = 0, z=None):
-        """One MPPI solve -> (wnoise [tau, adim], info)."""
-        dyn = self.pack_dyn(x0, useq)
-        partials = pm_fused_solve(self.consts, dyn, self.k, self.tau,
-                                  seed=seed, solve=solve, z=z)
-        zsum, stats = pm_merge(partials)
-        l = stats[1]
-        info = {"cost_min": stats[2], "cost_max": stats[3],
-                "cost_mean": stats[4] / self.k, "nabla": l}
-        return self.unfold_wnoise(zsum) / l, info
+    def _costs(self, dyn, seed, solve, z):
+        return pm_fused_costs(self.consts, dyn, self.k, self.tau, seed=seed,
+                              solve=solve, z=z)

@@ -219,3 +219,146 @@ def test_get_controller_not_ported(cfg, kw, item):
     base = {"samples": 10, "horizon": 4, "noise": SIGMA.tolist()}
     with pytest.raises(NotImplementedError, match=item):
         get_controller(pm, pc, {**base, **cfg}, device="cpu", **kw)
+
+
+# ---------------------------------------------------------------------------
+# the AUV flagship on the plain path, and the fused step's glue on the CPU
+# ---------------------------------------------------------------------------
+
+AUV_SIGMA = np.diag([40.0, 40.0, 40.0, 5.0, 5.0, 5.0])
+
+
+def _auv_modules(dtype=torch.float64):
+    from mppi_tf_tpu_torch import flagship
+
+    model = get_model(flagship.auv_params(), dt=0.1, dtype=dtype)
+    cost = get_cost(flagship.auv_task(), lam=0.5, gamma=0.2, upsilon=1.2,
+                    sigma=AUV_SIGMA, dtype=dtype)
+    return model, cost
+
+
+@pytest.mark.parametrize("normalize", [False, True],
+                         ids=["plain", "normalize"])
+def test_auv_closed_loop_parity_injected_noise(normalize):
+    """Ten AUV steps (rexrov2, rk2, static_quat) with the same eps on both
+    sides: actions, sequences and states agree at f64."""
+    from mppi_tf_tpu import flagship as jflagship
+
+    k, tau = 64, 6
+    pm_, pc = _auv_modules()
+    jm = jget_model(jflagship.auv_params(), dt=0.1, dtype=jnp.float64)
+    jc = jget_cost(jflagship.auv_task(), lam=0.5, gamma=0.2, upsilon=1.2,
+                   sigma=AUV_SIGMA, dtype=jnp.float64)
+    kw = dict(k=k, tau=tau, lam=0.5, upsilon=1.2, sigma=AUV_SIGMA,
+              normalize_cost=normalize)
+    port = MPPI(pm_, pc, device="cpu", **kw)
+    ref = JMPPI(jm, jc, **kw)
+    mp, cp = ref.model_params, ref._cparams
+    rng = np.random.default_rng(31)
+    x_p = np.zeros(13)
+    x_p[[2, 6]] = [-1.0, 1.0]
+    x_j = x_p
+    useq_p = torch.zeros(tau, 6, dtype=torch.float64)
+    useq_j = jnp.zeros((tau, 6), jnp.float64)
+    for _ in range(10):
+        eps = np.einsum("ij,ktj->kti", 1.2 * AUV_SIGMA,
+                        rng.normal(size=(k, tau, 6)))
+        a_p, useq_p, info_p = port._solve_with_noise(
+            torch.as_tensor(eps), torch.as_tensor(x_p), useq_p)
+        a_j, useq_j, info_j = ref._solve_with_noise_jit(
+            jnp.asarray(eps), jnp.asarray(x_j), useq_j, mp, cp)
+        scale = np.abs(np.asarray(useq_j)).max()
+        np.testing.assert_allclose(a_p.numpy(), np.asarray(a_j), rtol=1e-8,
+                                   atol=1e-10 * scale)
+        np.testing.assert_allclose(useq_p.numpy(), np.asarray(useq_j),
+                                   rtol=1e-8, atol=1e-10 * scale)
+        np.testing.assert_allclose(info_p["cost_mean"].item(),
+                                   float(info_j["cost_mean"]), rtol=1e-9)
+        with torch.no_grad():
+            x_p = pm_.predict(torch.as_tensor(x_p), a_p).numpy()
+        x_j = np.asarray(jm.predict(jm.precompute(mp), jnp.asarray(x_j),
+                                    a_j))
+    np.testing.assert_allclose(x_p, x_j, rtol=1e-8, atol=1e-10)
+
+
+def test_auv_dive_reaches_depth_on_cpu():
+    """The tests/test_envs.py:416-455 regime on the plain path: a 160-step
+    normalized dive to z = -1 with the analytic plant (5 substeps of 0.02 s
+    a step); the plant keeps |q| = 1."""
+    from mppi_tf_tpu_torch.envs import AUVEnv
+    from tests.test_auv_kernel import _auv_cfg
+
+    goal = np.zeros(13)
+    goal[[2, 6]] = [-1.0, 1.0]
+    sigma = np.diag([2000.0] * 3 + [200.0] * 3)
+    model = get_model(_auv_cfg(), dt=0.1, action_dim=6)
+    cost = get_cost({"type": "static_quat", "diag": True,
+                     "goal": goal.tolist(),
+                     "Q": [60.0, 60.0, 60.0, 10.0] + [1.0] * 6},
+                    lam=0.5, gamma=0.2, upsilon=1.0, sigma=sigma)
+    ctrl = MPPI(model, cost, k=256, tau=15, lam=0.5, upsilon=1.0,
+                sigma=sigma, seed=3, normalize_cost=True, kernel="auto",
+                device="cpu")
+    assert ctrl.kernel_path == "torch"
+    env = AUVEnv(_auv_cfg(), dt=0.02)
+    x = env.reset()
+    qn = []
+    for _ in range(160):
+        u = ctrl.next(x)
+        for _ in range(5):
+            x = env.step(u)
+        qn.append(np.linalg.norm(x[3:7]))
+    np.testing.assert_allclose(qn, 1.0, atol=1e-3)
+    assert abs(x[2, 0] - goal[2]) < 0.2, x.ravel()
+
+
+def _with_fused(ctrl, fused_cls):
+    """Attach a fused solve object to a CPU controller: its wrappers then
+    run their plain versions, which exercises the kernel path's glue."""
+    ctrl._fused = fused_cls(ctrl._model, ctrl._cost, k=ctrl._k,
+                            tau=ctrl._tau, lam=ctrl._lam,
+                            upsilon=ctrl._upsilon,
+                            sigma=ctrl._sigma.numpy())
+    return ctrl
+
+
+@pytest.mark.parametrize("normalize", [False, True],
+                         ids=["plain", "normalize"])
+@pytest.mark.parametrize("model_kind", ["point_mass", "auv"])
+def test_fused_step_log_info_matches_plain_path(model_kind, normalize):
+    """The kernel path's step (plain versions on the CPU) == the plain
+    solve on the same Philox noise: action, sequence, and the log-mode
+    keys (sample_costs, weights, nabla, arg, noise)."""
+    from mppi_tf_tpu_torch.kernels.auv_mppi import FusedAUVMPPI
+    from mppi_tf_tpu_torch.kernels.pm_mppi import (FusedPointMassMPPI,
+                                                   noise_plain)
+
+    k, tau = 300, 5
+    if model_kind == "auv":
+        (m, c), cls, sdim = _auv_modules(), FusedAUVMPPI, 13
+        x0 = np.zeros(13)
+        x0[[2, 6]] = [-1.0, 1.0]
+    else:
+        (m, c), _ = _modules()
+        cls, sdim, x0 = FusedPointMassMPPI, 6, np.full(6, 0.2)
+        m, c = m.float(), c.float()
+    kw = dict(k=k, tau=tau, lam=0.5 if model_kind == "auv" else 1.2,
+              upsilon=1.2 if model_kind == "auv" else 2.0,
+              sigma=AUV_SIGMA if model_kind == "auv" else SIGMA,
+              normalize_cost=normalize, log=True, seed=7, device="cpu")
+    fused = _with_fused(MPPI(m, c, **kw), cls)
+    plain = MPPI(m, c, **kw)
+    state = torch.as_tensor(x0, dtype=m.dtype)
+    useq = torch.zeros(tau, m.get_action_dim(), dtype=m.dtype)
+    a_f, seq_f, info_f = fused._fused_step(state, useq)
+    z = noise_plain(7, 0, k, tau, m.get_action_dim()).to(m.dtype)
+    eps = torch.einsum("ij,tjk->kti", fused._fused._scale, z)
+    a_p, seq_p, info_p = plain._solve_with_noise(eps, state, useq)
+    assert set(info_p) <= set(info_f)
+    tol = dict(rtol=1e-9, atol=1e-12) if m.dtype == torch.float64 else \
+        dict(rtol=2e-4, atol=1e-5)
+    for key in ("sample_costs", "weights", "nabla", "arg", "noise"):
+        torch.testing.assert_close(info_f[key], info_p[key], **tol)
+    torch.testing.assert_close(seq_f, seq_p, **tol)
+    torch.testing.assert_close(a_f, a_p, **tol)
+    assert sdim == m.get_state_dim()

@@ -10,9 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from mppi_tf_tpu_torch import flagship
 from mppi_tf_tpu_torch.controller import MPPI
 from mppi_tf_tpu_torch.costs import get_cost
 from mppi_tf_tpu_torch.kernels import _build
+from mppi_tf_tpu_torch.kernels import auv_mppi as auv
 from mppi_tf_tpu_torch.kernels import pm_mppi as pm
 from mppi_tf_tpu_torch.models import get_model
 
@@ -51,16 +53,21 @@ def _fused(k, tau, device, **kw):
 
 
 def test_build_reports_every_kernel(cuda_device):
-    names = " ".join(r["kernel"] for r in _build.ptxas_report())
+    rows = _build.ptxas_report()
+    names = " ".join(r["kernel"] for r in rows)
     for kernel in ("pm_fused_solve_kernel", "pm_merge_kernel",
-                   "pm_noise_dump_kernel"):
+                   "pm_noise_dump_kernel", "mppi_weights_kernel",
+                   "auv_fused_solve_kernel"):
         assert kernel in names
+    # RK 1, 2, 4 x (fused, costs)
+    assert sum("auv_fused_solve_kernel" in r["kernel"] for r in rows) == 6
 
 
-@pytest.mark.parametrize("k,tau", [(700, 7), (5000, 20)])
-def test_noise_dump_matches_plain(cuda_device, k, tau):
-    z = pm.pm_noise_dump(123, 7, k, tau, 3, cuda_device)
-    ref = pm.noise_plain(123, 7, k, tau, 3, device=cuda_device)
+@pytest.mark.parametrize("k,tau,adim", [(700, 7, 3), (5000, 20, 3),
+                                        (700, 7, 6)])
+def test_noise_dump_matches_plain(cuda_device, k, tau, adim):
+    z = pm.pm_noise_dump(123, 7, k, tau, adim, cuda_device)
+    ref = pm.noise_plain(123, 7, k, tau, adim, device=cuda_device)
     torch.testing.assert_close(z, ref, rtol=0, atol=1e-5)
 
 
@@ -122,12 +129,26 @@ def test_wrappers_count_launches_and_check_inputs(cuda_device):
 
 
 @pytest.mark.parametrize("opt,item", [
-    ({"normalize_cost": True}, "item 2"), ({"log": True}, "items 2 and 3"),
+    ({"normalize_cost": True}, None), ({"log": True}, None),
+    ({"normalize_cost": True, "log": True}, None),
     ({"antithetic": True}, "item 4"),
     ({"noise_schedule": {"type": "exp", "start": 1.0, "end": 0.25}},
      "item 4")])
 def test_cuda_path_unported_options(cuda_device, opt, item):
+    """normalize_cost and log run on the kernel path; antithetic and the
+    noise schedule still raise there and fall back under 'auto'."""
     model, cost = _modules(cuda_device)
+    if item is None:
+        ctrl = MPPI(model, cost, k=300, tau=8, sigma=SIGMA, kernel="cuda",
+                    device=cuda_device, **opt)
+        assert ctrl.kernel_path == "cuda"
+        state = torch.zeros(6, device=cuda_device)
+        _, _, info = ctrl._fused_step(state, ctrl.useq)
+        if opt.get("log"):
+            assert info["sample_costs"].shape == (300,)
+            assert info["noise"].shape == (300, 8, 3)
+        assert np.all(np.isfinite(ctrl.next(np.zeros(6))))
+        return
     with pytest.raises(NotImplementedError, match=item):
         MPPI(model, cost, k=300, tau=8, sigma=SIGMA, kernel="cuda",
              device=cuda_device, **opt)
@@ -165,3 +186,177 @@ def test_cuda_closed_loop_reaches_goal(cuda_device):
     assert pm.launch_counts["pm_fused_solve"] - before == 80
     err = (x - cost.goal).norm().item()
     assert err < 0.2, f"did not reach goal: {x.cpu().numpy()}"
+
+
+# ---------------------------------------------------------------------------
+# phase A / phase B and the AUV kernels
+# ---------------------------------------------------------------------------
+
+AUV_SIGMA = np.diag([40.0, 40.0, 40.0, 5.0, 5.0, 5.0])
+
+
+def _auv_fused(k, tau, device, rk=2, sigma=AUV_SIGMA):
+    model = get_model({**flagship.auv_params(), "rk": rk}, dt=0.1,
+                      device=device)
+    cost = get_cost(flagship.auv_task(), lam=0.5, gamma=0.2, upsilon=1.2,
+                    sigma=sigma, device=device)
+    return auv.FusedAUVMPPI(model, cost, k=k, tau=tau, lam=0.5, upsilon=1.2,
+                            sigma=sigma)
+
+
+def _auv_inputs(fused, device, seed=0):
+    rng = np.random.default_rng(seed)
+    z = torch.as_tensor(rng.standard_normal((fused.tau, 6, fused.k),
+                                            np.float32), device=device)
+    x0 = torch.zeros(13, device=device)
+    x0[2], x0[6] = -1.0, 1.0
+    useq = torch.as_tensor(5.0 * rng.standard_normal((fused.tau, 6)),
+                           dtype=torch.float32, device=device)
+    with torch.no_grad():
+        dyn = fused.pack_dyn(x0, useq)
+    return z, x0, useq, dyn
+
+
+# per-sample costs of O(1e3-1e4) in f32, summed in another order: rtol
+# 1e-4; the theta term 2 acos(dot) carries ~3e-4 rad of rounding near
+# dot = 1, where acos is steep, hence a small absolute floor
+COST_RTOL, COST_ATOL = 1e-4, 1e-2
+
+
+@pytest.mark.parametrize("rk", [1, 2, 4])
+@pytest.mark.parametrize("k,tau", [(700, 7), (4096, 25)])
+def test_auv_kernels_match_plain(cuda_device, rk, k, tau):
+    fused = _auv_fused(k, tau, cuda_device, rk)
+    z, _, _, dyn = _auv_inputs(fused, cuda_device, seed=rk)
+    c = fused.consts
+    costs_k, rows_k = auv.auv_fused_costs(c, dyn, k, tau, z=z)
+    costs_p = auv.sample_costs_plain(c, dyn, z)
+    torch.testing.assert_close(costs_k, costs_p, rtol=COST_RTOL,
+                               atol=COST_ATOL)
+    _, st = pm.merge_plain(rows_k)
+    torch.testing.assert_close(
+        st[2:5], torch.stack([costs_k.min(), costs_k.max(), costs_k.sum()]),
+        rtol=1e-5, atol=0)
+    # fused partials against block_partials of the kernel's own costs:
+    # the softmax apart from the rollout
+    part_k = auv.auv_fused_solve(c, dyn, k, tau, z=z)
+    part_p = pm.block_partials(costs_k, z.reshape(tau * 6, k), c.lam)
+    torch.testing.assert_close(part_k[:, :5], part_p[:, :5], rtol=1e-5,
+                               atol=1e-6)
+    zs_k, st_k = pm.merge_plain(part_k)
+    zs_p, st_p = pm.merge_plain(part_p)
+    torch.testing.assert_close(zs_k / st_k[1], zs_p / st_p[1], rtol=1e-3,
+                               atol=1e-5)
+    # end to end at this (test) noise scale
+    zs_e, st_e = pm.merge_plain(auv.fused_solve_plain(c, dyn, k, tau, z=z))
+    torch.testing.assert_close(zs_k / st_k[1], zs_e / st_e[1], rtol=1e-2,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("adim,k,tau", [(3, 5000, 20), (6, 4097, 25)])
+def test_mppi_weights_matches_plain(cuda_device, adim, k, tau):
+    rng = np.random.default_rng(adim)
+    costs = torch.as_tensor(rng.uniform(1e3, 6e4, size=k), dtype=torch.float32,
+                            device=cuda_device)
+    beta, cmax = costs.min(), costs.max()
+    nrm = torch.stack([beta, 1.0 / ((cmax - beta) * 0.5)])
+    for z in (None, torch.as_tensor(rng.standard_normal((tau, adim, k),
+                                                        np.float32),
+                                    device=cuda_device)):
+        part_k = pm.mppi_weights(nrm, costs, tau, adim, seed=3, solve=4, z=z)
+        part_p = pm.weights_plain(nrm, costs, tau, adim, seed=3, solve=4,
+                                  z=z)
+        torch.testing.assert_close(part_k, part_p, rtol=1e-4, atol=1e-4)
+        zs_k, st_k = pm.pm_merge(part_k)
+        zs_p, st_p = pm.merge_plain(part_p)
+        torch.testing.assert_close(zs_k / st_k[1], zs_p / st_p[1],
+                                   rtol=1e-4, atol=1e-6)
+        torch.testing.assert_close(st_k, st_p, rtol=1e-5, atol=0)
+
+
+def test_pm_fused_costs_matches_plain(cuda_device):
+    k, tau = 5000, 20
+    fused = _fused(k, tau, cuda_device)
+    rng = np.random.default_rng(8)
+    z = torch.as_tensor(rng.standard_normal((tau, 3, k), np.float32),
+                        device=cuda_device)
+    dyn = fused.pack_dyn(torch.zeros(6, device=cuda_device),
+                         torch.zeros(tau, 3, device=cuda_device))
+    costs_k, rows_k = pm.pm_fused_costs(fused.consts, dyn, k, tau, z=z)
+    costs_p, rows_p = pm.fused_costs_plain(fused.consts, dyn, k, tau, z=z)
+    torch.testing.assert_close(costs_k, costs_p, rtol=1e-4, atol=1e-4)
+    zs, st = pm.pm_merge(rows_k)
+    assert zs.numel() == 0
+    torch.testing.assert_close(st, pm.merge_plain(rows_p)[1], rtol=1e-4,
+                               atol=0)
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+def test_auv_prng_solve_consumes_dump(cuda_device, normalize):
+    k, tau = 3000, 12
+    fused = _auv_fused(k, tau, cuda_device)
+    _, x0, useq, _ = _auv_inputs(fused, cuda_device)
+    wn_a, st_a = fused.solve(x0, useq, seed=5, solve=9, normalize=normalize)
+    z = pm.pm_noise_dump(5, 9, k, tau, 6, cuda_device)
+    wn_b, st_b = fused.solve(x0, useq, z=z, normalize=normalize)
+    torch.testing.assert_close(wn_a, wn_b, rtol=1e-6, atol=0)
+    torch.testing.assert_close(st_a["cost_min"], st_b["cost_min"], rtol=1e-6,
+                               atol=0)
+
+
+def test_auv_wrappers_count_launches_and_check_inputs(cuda_device):
+    fused = _auv_fused(700, 7, cuda_device)
+    _, x0, useq, dyn = _auv_inputs(fused, cuda_device)
+    before = dict(pm.launch_counts)
+    fused.solve(x0, useq, seed=1, solve=2)
+    fused.solve(x0, useq, seed=1, solve=2, normalize=True)
+    torch.cuda.synchronize()
+    delta = {n: pm.launch_counts[n] - before[n] for n in before}
+    assert delta == {**{n: 0 for n in before}, "auv_fused_solve": 1,
+                     "auv_fused_costs": 1, "mppi_weights": 1, "pm_merge": 3}
+    c = fused.consts
+    with pytest.raises(TypeError):
+        auv.auv_fused_solve(c, dyn.double(), 700, 7)
+    with pytest.raises(ValueError):
+        auv.auv_fused_costs(c, dyn[:-1], 700, 7)
+    with pytest.raises(ValueError):
+        auv.auv_fused_solve(c, dyn, 700, 7,
+                            z=torch.zeros(7, 6, 699, device=cuda_device))
+    with pytest.raises(ValueError):
+        pm.mppi_weights(torch.zeros(3, device=cuda_device),
+                        torch.zeros(700, device=cuda_device), 7, 6)
+    with pytest.raises(ValueError):
+        pm.mppi_weights(torch.zeros(2, device=cuda_device),
+                        torch.zeros(700), 7, 6)
+
+
+def test_auv_normalized_closed_loop_on_the_kernel_path(cuda_device):
+    """A short normalized dive through MPPI.next on the kernels: one launch
+    each of auv_fused_costs and mppi_weights a step, two merges."""
+    from mppi_tf_tpu_torch.envs import AUVEnv
+
+    goal = np.zeros(13)
+    goal[[2, 6]] = [-1.0, 1.0]
+    sigma = np.diag([2000.0] * 3 + [200.0] * 3)
+    model = get_model(flagship.auv_params(), dt=0.1, device=cuda_device)
+    cost = get_cost({"type": "static_quat", "diag": True,
+                     "goal": goal.tolist(),
+                     "Q": [60.0, 60.0, 60.0, 10.0] + [1.0] * 6},
+                    lam=0.5, gamma=0.2, upsilon=1.0, sigma=sigma,
+                    device=cuda_device)
+    ctrl = MPPI(model, cost, k=8192, tau=15, lam=0.5, upsilon=1.0,
+                sigma=sigma, seed=3, normalize_cost=True, kernel="auto",
+                device=cuda_device)
+    assert ctrl.kernel_path == "cuda"
+    env = AUVEnv(flagship.auv_params(), dt=0.02)
+    x = env.reset()
+    before = dict(pm.launch_counts)
+    for _ in range(100):
+        u = ctrl.next(x)
+        for _ in range(5):
+            x = env.step(u)
+    delta = {n: pm.launch_counts[n] - before[n] for n in before}
+    assert delta["auv_fused_costs"] == delta["mppi_weights"] == 100
+    assert delta["pm_merge"] == 200 and delta["auv_fused_solve"] == 0
+    assert abs(np.linalg.norm(x[3:7]) - 1.0) < 1e-3
+    assert abs(x[2, 0] + 1.0) < 0.2, x.ravel()

@@ -28,6 +28,8 @@ def test_import_leaves_no_jax_modules():
         "import sys\n"
         "import mppi_tf_tpu_torch, mppi_tf_tpu_torch.controller, "
         "mppi_tf_tpu_torch.kernels.pm_mppi, mppi_tf_tpu_torch.kernels._build,"
+        " mppi_tf_tpu_torch.kernels.auv_mppi, mppi_tf_tpu_torch.models.auv,"
+        " mppi_tf_tpu_torch.ops.quaternion, mppi_tf_tpu_torch.flagship,"
         " mppi_tf_tpu_torch.envs, mppi_tf_tpu_torch.interop\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mppi_tf_tpu', 'triton'))\n"
@@ -54,6 +56,17 @@ def test_source_imports_no_jax(path):
             continue
         bad = [n for n in names if _forbidden(n)]
         assert not bad, f"{path.name}:{node.lineno} imports {bad}"
+
+
+def test_sources_cover_the_auv_slice():
+    names = {p.relative_to(REPO).as_posix() for p in _sources()}
+    assert {"chip_smoke.py", "mppi_tf_tpu_torch/flagship.py",
+            "mppi_tf_tpu_torch/ops/quaternion.py",
+            "mppi_tf_tpu_torch/models/auv.py",
+            "mppi_tf_tpu_torch/costs/static.py",
+            "mppi_tf_tpu_torch/envs/analytic.py",
+            "mppi_tf_tpu_torch/kernels/auv_mppi.py",
+            "mppi_tf_tpu_torch/kernels/_launch.py"} <= names
 
 
 def test_forbidden_matcher():

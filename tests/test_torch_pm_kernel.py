@@ -78,6 +78,88 @@ def test_plain_fused_solve_matches_pallas_interpret(k, tau):
                                    rtol=2e-3)
 
 
+@pytest.mark.parametrize("k,tau", [(700, 7), (512, 10)])
+def test_plain_normalized_solve_matches_pallas_interpret(k, tau):
+    """The two-phase normalized solve (pm_fused_costs -> mppi_weights ->
+    pm_merge, plain versions) == the JAX Pallas costs and weights kernels
+    in interpret mode on injected normals, f32 on both sides; phase by
+    phase as well."""
+    z_std, x0, useq = _inputs(k, tau, seed=8)
+    jf, mp, cp = _jax(k, tau)
+    zc = jnp.asarray(chunk_noise(z_std, 256))
+    wn_j, st_j = jf.solve(0, x0, useq, mp, cp, z=zc, use_prng=False,
+                          normalize=True)
+    fused, _, _ = _port(k, tau)
+    x0_t, useq_t, z_t = (torch.as_tensor(x0), torch.as_tensor(useq),
+                         torch.as_tensor(z_std))
+    wn_p, st_p = fused.solve(x0_t, useq_t, z=z_t, normalize=True)
+    # f32 sums in another order; the normalized exponent is bounded
+    np.testing.assert_allclose(wn_p.numpy(), np.asarray(wn_j), rtol=1e-3,
+                               atol=1e-5)
+    for key in ("cost_min", "cost_max", "cost_mean", "nabla"):
+        np.testing.assert_allclose(st_p[key].item(), float(st_j[key]),
+                                   rtol=1e-4)
+    costs_j, cst_j = jf.costs_phase(0, x0, useq, mp, cp, z=zc,
+                                    use_prng=False)
+    costs_p, cst_p = fused.costs_phase(x0_t, useq_t, z=z_t)
+    np.testing.assert_allclose(costs_p.numpy(),
+                               np.asarray(costs_j).reshape(-1)[:k],
+                               rtol=1e-5)
+    for key in ("cost_min", "cost_max", "cost_sum"):
+        np.testing.assert_allclose(cst_p[key].item(), float(cst_j[key]),
+                                   rtol=1e-5)
+    zsum_j, l_j = jf.weights_phase(0, costs_j, cst_j["cost_min"],
+                                   cst_j["cost_max"], z=zc, use_prng=False)
+    zsum_p, l_p = fused.weights_phase(costs_p, cst_p["cost_min"],
+                                      cst_p["cost_max"], z=z_t)
+    np.testing.assert_allclose(l_p.item(), float(l_j), rtol=1e-4)
+    np.testing.assert_allclose(zsum_p.numpy(), np.asarray(zsum_j),
+                               rtol=1e-3, atol=1e-3)
+
+
+def test_pm_normalized_matches_update_chain_f64():
+    """Two-phase plain solve at f64 == rollout_costs + the normalized
+    mppi_update over eps = scale @ z."""
+    from mppi_tf_tpu_torch.controller import MPPI
+
+    k, tau = 333, 6
+    fused, model, cost = _port(k, tau)
+    model.double()
+    cost.double()
+    z_std, x0, useq = _inputs(k, tau, seed=9)
+    z = torch.as_tensor(z_std, dtype=torch.float64)
+    x0_t = torch.as_tensor(x0)
+    useq_t = torch.as_tensor(useq, dtype=torch.float64)
+    dyn = fused.pack_dyn(x0_t, useq_t).double()
+    costs, rows = pm.fused_costs_plain(fused.consts, dyn, k, tau, z=z,
+                                       block=64)
+    _, st = pm.merge_plain(rows)
+    denom = st[3] - st[2]
+    nrm = torch.stack([st[2], 1.0 / (denom * LAM)])
+    zsum, stats = pm.merge_plain(pm.weights_plain(nrm, costs, tau, 3, z=z,
+                                                  block=64))
+    scale = torch.as_tensor(UPS * SIGMA)
+    wn = (zsum.reshape(tau, 3) @ scale.T) / stats[1]
+    ctrl = MPPI(model, cost, k=k, tau=tau, lam=LAM, upsilon=UPS, sigma=SIGMA,
+                device="cpu")
+    eps = z.permute(2, 0, 1) @ scale.T
+    ref_costs = ctrl._rollout(x0_t, useq_t, eps).detach()
+    # f32 dyn packing bounds the agreement; the algebra itself is exact
+    np.testing.assert_allclose(costs.numpy(), ref_costs.numpy(), rtol=1e-5)
+    np.testing.assert_allclose(
+        wn.numpy(), upd.mppi_update(ref_costs, eps, LAM,
+                                    normalize=True).numpy(),
+        rtol=1e-4, atol=1e-6)
+
+
+def test_pm_noise_sample_is_the_solve_noise():
+    fused, _, _ = _port(600, 4)
+    eps = fused.noise_sample(seed=2, solve=3)
+    z = pm.noise_plain(2, 3, 512, 4, 3)
+    torch.testing.assert_close(
+        eps, torch.einsum("ij,tjk->kti", fused._scale, z), rtol=0, atol=0)
+
+
 def test_pack_dyn_matches_jax():
     k, tau = 300, 9
     _, x0, useq = _inputs(k, tau, seed=4)
@@ -210,6 +292,8 @@ def test_cpu_wrappers_run_plain_and_count_nothing():
     before = dict(pm.launch_counts)
     fused, _, _ = _port(300, 5)
     fused.solve(torch.zeros(6), torch.zeros(5, 3), seed=1, solve=1)
+    fused.solve(torch.zeros(6), torch.zeros(5, 3), seed=1, solve=1,
+                normalize=True)
     pm.pm_noise_dump(1, 1, 300, 5, 3, "cpu")
     assert pm.launch_counts == before
 
@@ -228,6 +312,11 @@ def test_wrappers_reject_other_devices():
         pm.pm_merge(torch.empty(2, 23, device="meta"))
     with pytest.raises(ValueError):
         pm.pm_noise_dump(0, 0, 10, 2, 3, "meta")
+    with pytest.raises(ValueError):
+        pm.pm_fused_costs(fused.consts, dyn, 300, 5)
+    with pytest.raises(ValueError):
+        pm.mppi_weights(torch.zeros(2, device="meta"), torch.zeros(300), 5,
+                        3)
 
 
 def test_fused_rejects_ineligible():
@@ -279,5 +368,23 @@ ptxas info    : Used 40 registers, 380 bytes cmem[0]
 
 def test_library_name_carries_source_hash():
     name = _build.library_path().name
-    assert name.startswith("libpm_mppi_") and name.endswith(".so")
+    assert name.startswith("libmppi_kernels_") and name.endswith(".so")
     assert _build.library_path() == _build.library_path()
+
+
+def test_library_hash_covers_every_source_and_header(tmp_path, monkeypatch):
+    """Editing any .cu or .cuh under csrc/ renames the library, so a stale
+    build is never loaded; no nvcc runs here."""
+    for name in ("a.cu", "b.cu", "common.cuh"):
+        (tmp_path / name).write_text(f"// {name}\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    assert [p.name for p in _build.sources()] == ["a.cu", "b.cu"]
+    names = {_build.library_path()}
+    for name in ("common.cuh", "b.cu"):
+        (tmp_path / name).write_text("// edited\n")
+        names.add(_build.library_path())
+    (tmp_path / "c.cuh").write_text("// new header\n")
+    names.add(_build.library_path())
+    assert len(names) == 4
+    (tmp_path / "notes.txt").write_text("not a source")
+    assert _build.library_path() in names

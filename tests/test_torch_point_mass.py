@@ -172,7 +172,7 @@ def test_get_model_dispatch():
 
 
 @pytest.mark.parametrize("mtype,item", [
-    ("auv", "item 10"), ("neural_net", "item 11"), ("auv_nn", "item 11"),
+    ("neural_net", "item 11"), ("auv_nn", "item 11"),
     ("auv_nn_speed", "item 11"), ("dmd", "item 9")])
 def test_get_model_not_ported(mtype, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -196,7 +196,7 @@ def test_get_cost_dispatch():
 
 
 @pytest.mark.parametrize("ctype,item", [
-    ("static_quat", "item 10"), ("elipse", "item 8"), ("elipse3d", "item 10"),
+    ("elipse", "item 8"), ("elipse3d", "item 10"),
     ("waypoints", "item 8"), ("waypoints_quat", "item 10")])
 def test_get_cost_not_ported(ctype, item):
     with pytest.raises(NotImplementedError, match=item):
