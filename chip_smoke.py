@@ -12,7 +12,13 @@ port's paths through ``MPPI.next`` closed loop against the analytic plants:
   fused solve; then the two-phase normalized solve);
 - the rexrov2 AUV flagship with the static quaternion cost at K=262,144,
   H=25: the normalized dive (the two-phase solve: auv_fused_costs, then
-  mppi_weights) and the unnormalized fused solve.
+  mppi_weights) and the unnormalized fused solve;
+- the learned NNAUVModel (3x32 MLP) with the static quaternion cost at
+  K=65,536, H=25: its kernels against their plain versions, then a dive
+  through the NN kernels (kernel="cuda") and the torch route, with a
+  network built to compute a known plant, in both solve modes;
+- the config CLI (``mppi_tf_tpu_torch.cli.main``) on the card for the
+  point-mass, rexrov2 and NN configs.
 
 It times every kernel. Each phase prints one JSON line; any failed check
 raises and the script exits non-zero. Without a CUDA device it exits
@@ -30,6 +36,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -71,6 +78,50 @@ AUV_PLAIN_STEPS = 40
 COST_RTOL, COST_ATOL = 1e-4, 1e-2
 # per-sample point-mass costs of O(10-100)
 PM_COST_RTOL, PM_COST_ATOL = 1e-4, 1e-4
+
+
+# the learned-dynamics slice (mppi_tf_tpu/bench.py "auv_nn_mlp", the `nn`
+# workload): NNAUVModel 16->32->32->32->13, K=65,536, H=25, the flagship
+# sigma, lambda, gamma and task
+NN_K, NN_H = 65_536, 25
+# the known-plant closed loop: the 3x32 network computes a double
+# integrator in the body frame (mass and inertia 10, no damping); the
+# same loop at K=1,024 meets the gate on the CPU in both packages
+# (tests/test_torch_nn_controller.py)
+NN_MASS = NN_INERTIA = 10.0
+NN_LOOP_SIGMA = np.diag([5.0] * 3 + [2.0] * 3)
+NN_LOOP_Q = [60.0, 60.0, 60.0, 10.0] + [1.0] * 6
+NN_LOOP_STEPS, NN_LOOP_TOL = 80, 0.2
+NN_CLI_STEPS = 5
+
+
+def known_plant_params(dt: float = 0.1, mass: float = NN_MASS,
+                       inertia: float = NN_INERTIA) -> dict:
+    """JAX-layout params of a 3x32 ReLU network that computes a known plant
+    exactly: layer 1 emits [f, -f]^+ of the 16 features f = [q, v, w, u],
+    the two middle layers are the 32x32 identity, and the last maps
+    (h^+ - h^-) to dpos = dt v, dq = 0, dv = (dt / m) u_lin,
+    dw = (dt / I) u_ang; identity normalisers."""
+    eye = np.eye(16)
+    m = np.zeros((16, 13))
+    for j in range(3):
+        m[4 + j, j] = dt
+        m[10 + j, 7 + j] = dt / mass
+        m[13 + j, 10 + j] = dt / inertia
+    net = [{"w": np.concatenate([eye, -eye], axis=1), "b": np.zeros(32)},
+           {"w": np.eye(32), "b": np.zeros(32)},
+           {"w": np.eye(32), "b": np.zeros(32)},
+           {"w": np.concatenate([m, -m], axis=0), "b": np.zeros(13)}]
+    return {"net": net, "x_mean": np.zeros(16), "x_std": np.ones(16),
+            "y_mean": np.zeros(13), "y_std": np.ones(13)}
+
+
+def known_plant_task() -> dict:
+    """The known-plant loop's StaticQuatCost task: dive to z = -1."""
+    goal = np.zeros(13)
+    goal[[2, 6]] = [-1.0, 1.0]
+    return {"type": "static_quat", "diag": True, "goal": goal.tolist(),
+            "Q": NN_LOOP_Q}
 
 
 def emit(phase: str, **kw) -> None:
@@ -160,6 +211,23 @@ def auv_solve_ops(consts, dyn, k: int, tau: int, prng: bool,
     q_ops = 3 + 7 + 2 + 10 + 2 + 6 + 2 * nnz(consts.Q) + 20
     step = (6 + 2 * nnz(consts.scale) + stages[consts.rk] + 13 + q_ops
             + 12 + 2 * nnz(consts.Mz) + 12 + 2)
+    return _rollout_ops(k, tau, 6, step, q_ops, prng, costs_only)
+
+
+def nn_solve_ops(consts, k: int, tau: int, prng: bool,
+                 costs_only: bool = False) -> float:
+    """Operations of one fused NN solve, counted from nn_mppi.cu (FMA = 2;
+    acos, rsqrt as 10 and 1): a step is the action u = useq + scale z, the
+    MLP (2 fan_in fan_out a layer, a ReLU per hidden unit), the delta, the
+    quaternion renormalisation, the 10-dim cost and the action-cost
+    terms."""
+    sizes = consts.sizes
+    mlp = sum(2 * i * o for i, o in zip(sizes[:-1], sizes[1:])) + sum(
+        sizes[1:-1])
+    q_ops = 3 + 7 + 2 + 10 + 2 + 6 + 2 * nnz(consts.Q) + 20
+    step = (6 + 2 * nnz(consts.scale) + mlp + 13
+            + (12 if consts.renorm else 0) + q_ops + 12 + 2 * nnz(consts.Mz)
+            + 12 + 2)
     return _rollout_ops(k, tau, 6, step, q_ops, prng, costs_only)
 
 
@@ -370,24 +438,35 @@ def auv_dyn(fused, useq_scale: float, seed: int, x0=None):
         return fused.pack_dyn(x0, useq)
 
 
-def check_auv(auv, pm, fused, z, label: str, useq_scale: float,
+def quat_kernels(module, prefix: str) -> SimpleNamespace:
+    """The fused solve, its costs mode and their plain versions of a
+    13-state / 6-action kernel module (kernels/auv_mppi.py, nn_mppi.py)."""
+    return SimpleNamespace(
+        solve=getattr(module, f"{prefix}_fused_solve"),
+        costs=getattr(module, f"{prefix}_fused_costs"),
+        sample_costs_plain=module.sample_costs_plain,
+        fused_solve_plain=module.fused_solve_plain, phase=prefix)
+
+
+def check_auv(kern, pm, fused, z, label: str, useq_scale: float,
               x0=None, end_to_end: bool = False) -> dict:
-    """AUV kernels against their plain versions on injected z: per-sample
-    costs (phase A) and their merged stats; the fused rows' merged cost
-    stats against the plain costs (every sample's rollout) and their
-    softmax (m, l, zsum / l) against block_partials of the kernel's own
-    costs (the softmax apart from the rollout); with ``end_to_end`` the
-    whole solve's wnoise, beside its first-order reading from the cost
-    errors."""
+    """The AUV or NN kernels (``quat_kernels``) against their plain
+    versions on injected z: per-sample costs (phase A) and their merged
+    stats; the fused rows' merged cost stats against the plain costs (every
+    sample's rollout) and their softmax (m, l, zsum / l) against
+    block_partials of the kernel's own costs (the softmax apart from the
+    rollout); with ``end_to_end`` the whole solve's wnoise, beside its
+    first-order reading from the cost errors."""
     k, tau, c = fused.k, fused.tau, fused.consts
     dyn = auv_dyn(fused, useq_scale, seed=11, x0=x0)
-    costs_k, rows_k = auv.auv_fused_costs(c, dyn, k, tau, z=z)
-    costs_p = auv.sample_costs_plain(c, dyn, z)
+    costs_k, rows_k = kern.costs(c, dyn, k, tau, z=z)
+    costs_p = kern.sample_costs_plain(c, dyn, z)
     _, st_k = pm.pm_merge(rows_k)
-    part_k = auv.auv_fused_solve(c, dyn, k, tau, z=z)
+    part_k = kern.solve(c, dyn, k, tau, z=z)
     part_o = pm.block_partials(costs_k, z.reshape(tau * 6, k), c.lam)
     torch.cuda.synchronize()
-    out = {"k": k, "tau": tau, "rk": c.rk, "cost_rtol": COST_RTOL,
+    out = {"k": k, "tau": tau, "rk": getattr(c, "rk", None),
+           "hidden": getattr(c, "hidden", None), "cost_rtol": COST_RTOL,
            "cost_atol": COST_ATOL}
     ok_c, err_c, ratio_c = close(costs_k, costs_p, COST_RTOL, COST_ATOL)
     out.update(costs_ok=ok_c, costs_max_abs_err=err_c, costs_ratio=ratio_c,
@@ -421,8 +500,8 @@ def check_auv(auv, pm, fused, z, label: str, useq_scale: float,
     if end_to_end:
         # the cost error moves each exponent by up to its size / lam
         # (~0.01 here), so each weight by ~1%: rtol 1e-2, atol 1e-3
-        zs_p, sp = pm.merge_plain(auv.fused_solve_plain(c, dyn, k, tau,
-                                                        z=z))
+        zs_p, sp = pm.merge_plain(kern.fused_solve_plain(c, dyn, k, tau,
+                                                         z=z))
         ok_e, err_e, _ = close(zs_k / sk[1], zs_p / sp[1], 1e-2, 1e-3)
         # first-order reading: the exponent errors d = (c_kernel -
         # c_plain) / lam move the weights p by p (mean_p(d) - d), hence
@@ -437,10 +516,10 @@ def check_auv(auv, pm, fused, z, label: str, useq_scale: float,
                    exponent_err_max=d.abs().max().item(),
                    ess=(1.0 / (p * p).sum()).item())
         ok &= ok_e
-    emit(f"auv_kernels_vs_plain_{label}", **out)
+    emit(f"{kern.phase}_kernels_vs_plain_{label}", **out)
     if not ok:
-        raise AssertionError(f"AUV kernel disagrees with its plain version "
-                             f"({label}): {out}")
+        raise AssertionError(f"{kern.phase} kernel disagrees with its plain "
+                             f"version ({label}): {out}")
     return out
 
 
@@ -531,6 +610,99 @@ def auv_loop(kernel: str, normalize: bool, steps: int, k: int = AUV_K):
     return ctrl, np.asarray(states), step_ms, dict(pm.launch_counts)
 
 
+def trained_normalisers(model, sigma) -> None:
+    """Normalisers a trained model would have: the quaternion features
+    around qw = 0.9, velocities of O(0.5), the action features scaled by
+    sigma, and y_std that keeps the deltas at O(0.01-0.1)."""
+    x_mean = np.zeros(16)
+    x_mean[3] = 0.9
+    x_std = np.concatenate([[0.3] * 4, [0.5] * 6, np.diag(sigma)])
+    y_std = np.array([0.05] * 3 + [0.01] * 4 + [0.05] * 6)
+    model.set_normalization(x_mean, x_std, np.zeros(13), y_std)
+
+
+def nn_fused(k, tau, hidden=(32, 32, 32), sigma=AUV_SIGMA):
+    """FusedNNMPPI over an NNAUVModel with He weights from a seed and
+    trained normalisers, and the flagship StaticQuatCost task."""
+    from mppi_tf_tpu_torch import flagship
+    from mppi_tf_tpu_torch.costs import get_cost
+    from mppi_tf_tpu_torch.kernels.nn_mppi import FusedNNMPPI
+    from mppi_tf_tpu_torch.models.nn import NNAUVModel
+
+    model = NNAUVModel(hidden=hidden, seed=17, device="cuda")
+    trained_normalisers(model, sigma)
+    cost = get_cost(flagship.auv_task(), lam=AUV_LAM, gamma=AUV_GAMMA,
+                    upsilon=AUV_UPSILON, sigma=sigma, device="cuda")
+    return FusedNNMPPI(model, cost, k=k, tau=tau, lam=AUV_LAM,
+                       upsilon=AUV_UPSILON, sigma=sigma)
+
+
+def nn_loop(kernel: str, normalize: bool, steps: int = NN_LOOP_STEPS,
+            k: int = NN_K):
+    """The known-plant dive through MPPI.next: the controller's NNAUVModel
+    and the f64 CPU plant are the same network (``known_plant_params``).
+    Returns (controller, states, host ms per step, launch counts)."""
+    from mppi_tf_tpu_torch.controller import MPPI
+    from mppi_tf_tpu_torch.costs import get_cost
+    from mppi_tf_tpu_torch.interop import from_jax_params
+    from mppi_tf_tpu_torch.kernels import pm_mppi as pm
+    from mppi_tf_tpu_torch.models.nn import NNAUVModel
+
+    params = known_plant_params()
+    model = NNAUVModel(device="cuda")
+    plant = NNAUVModel(dtype=torch.float64)
+    for m in (model, plant):
+        from_jax_params(params, None, m)
+    cost = get_cost(known_plant_task(), lam=AUV_LAM, gamma=AUV_GAMMA,
+                    upsilon=AUV_UPSILON, sigma=NN_LOOP_SIGMA, device="cuda")
+    ctrl = MPPI(model, cost, k=k, tau=NN_H, lam=AUV_LAM, upsilon=AUV_UPSILON,
+                sigma=NN_LOOP_SIGMA, seed=3, normalize_cost=normalize,
+                kernel=kernel, device="cuda")
+    x0 = torch.as_tensor(rest_state(), dtype=torch.float32, device="cuda")
+    if ctrl.kernel_path == "cuda":   # warm-up without touching its state
+        ctrl._fused.solve(x0, ctrl.useq, normalize=normalize)
+    else:
+        ctrl._solve(x0, ctrl.useq)
+    torch.cuda.synchronize()
+    x = rest_state()
+    states, step_ms = [], []
+    pm.reset_launch_counts()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        u = ctrl.next(x)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        with torch.no_grad():
+            x = plant.predict(torch.tensor(x), torch.tensor(
+                u, dtype=torch.float64)).numpy()
+        states.append(x)
+    return ctrl, np.asarray(states), step_ms, dict(pm.launch_counts)
+
+
+def run_cli(workdir: str, name: str, env: dict, task: str, model: str,
+            steps: int):
+    """``mppi_tf_tpu_torch.cli.main`` in-process on the card (no --cpu)
+    with the env config ``env`` written to ``workdir``: (its JSON summary,
+    the launch counts of the run)."""
+    import contextlib
+    import io
+
+    from mppi_tf_tpu_torch import cli
+    from mppi_tf_tpu_torch.cfg import write_config
+    from mppi_tf_tpu_torch.kernels import pm_mppi as pm
+
+    path = write_config(env, os.path.join(workdir, f"{name}.yaml"))
+    out = io.StringIO()
+    pm.reset_launch_counts()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["--config", path, "--task", task, "--model", model,
+                       "-s", str(steps)])
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise AssertionError(f"cli {name} returned {rc}")
+    return json.loads(out.getvalue().strip().splitlines()[-1]), dict(
+        pm.launch_counts)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -539,6 +711,7 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from mppi_tf_tpu_torch.kernels import _build
     from mppi_tf_tpu_torch.kernels import auv_mppi as auv
+    from mppi_tf_tpu_torch.kernels import nn_mppi as nnk
     from mppi_tf_tpu_torch.kernels import pm_mppi as pm
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -554,18 +727,14 @@ def main() -> int:
     # ---- 2. build (one nvcc per source, in parallel) -------------------------
     t0 = time.perf_counter()
     _build.load_library()
+    ptxas = _build.ptxas_report()
     emit("build", seconds=time.perf_counter() - t0,
          library=str(_build.library_path().name),
-         sources=[p.name for p in _build.sources()],
-         ptxas=_build.ptxas_report())
-
-    # ---- probe: what the card machine offers for a later slice --------------
-    try:
-        import yaml  # noqa: F401
-        has_yaml = True
-    except ImportError:
-        has_yaml = False
-    emit("probe", yaml=has_yaml, python=sys.version.split()[0])
+         sources=[p.name for p in _build.sources()], ptxas=ptxas)
+    spills = [r["kernel"] for r in ptxas
+              if r.get("spill_stores") or r.get("spill_loads")]
+    if spills:
+        raise AssertionError(f"kernels spill registers: {spills}")
 
     # ---- 3. kernels against plain versions on injected z --------------------
     model, cost = workload("cuda")
@@ -667,7 +836,8 @@ def main() -> int:
     rng = np.random.default_rng(1)
     z_auv = torch.as_tensor(rng.standard_normal((AUV_H, 6, AUV_K),
                                                 np.float32), device="cuda")
-    auv_chk = check_auv(auv, pm, flag, z_auv, "K262144_H25_rk2",
+    auv_k = quat_kernels(auv, "auv")
+    auv_chk = check_auv(auv_k, pm, flag, z_auv, "K262144_H25_rk2",
                         useq_scale=200.0)
     del z_auv
     x_dive = rest_state()
@@ -679,7 +849,7 @@ def main() -> int:
         for draw, r in (("a", rng), ("b", rng_b)):
             z_s = torch.as_tensor(r.standard_normal((7, 6, 700), np.float32),
                                   device="cuda")
-            check_auv(auv, pm, sm, z_s, f"K700_H7_rk{rk}_ragged_{draw}",
+            check_auv(auv_k, pm, sm, z_s, f"K700_H7_rk{rk}_ragged_{draw}",
                       useq_scale=5.0, x0=x_dive, end_to_end=True)
 
     # ---- 10. the AUV Philox solve consumes pm_noise_dump(adim=6) ------------
@@ -784,7 +954,128 @@ def main() -> int:
          card=smi, **profile_steps(ctrl_u, x=rest_state()))
     del ctrl_u
 
-    # ---- 13. times -------------------------------------------------------------
+    # ---- 13. the NN kernels against plain versions (the learned slice) -------
+    nn_flag = nn_fused(NN_K, NN_H)
+    nn_k = quat_kernels(nnk, "nn")
+    rng_n = np.random.default_rng(3)
+    z_nn = torch.as_tensor(rng_n.standard_normal((NN_H, 6, NN_K),
+                                                 np.float32), device="cuda")
+    nn_chk = check_auv(nn_k, pm, nn_flag, z_nn, "K65536_H25_3x32",
+                       useq_scale=200.0)
+    del z_nn
+    for hidden in ((8, 8), (32, 32, 32)):
+        sm = nn_fused(700, 7, hidden, sigma=np.diag([40.0] * 3 + [5.0] * 3))
+        z_s = torch.as_tensor(rng_n.standard_normal((7, 6, 700), np.float32),
+                              device="cuda")
+        check_auv(nn_k, pm, sm, z_s, f"K700_H7_{len(hidden)}x"
+                  f"{hidden[0]}_ragged", useq_scale=5.0, x0=x_dive,
+                  end_to_end=True)
+    dyn_n = auv_dyn(nn_flag, 200.0, seed=6)
+    zd_n = pm.pm_noise_dump(79, 7, NN_K, NN_H, 6, "cuda")
+    nn_rels = {
+        "fused": rel(merged(nnk.nn_fused_solve(nn_flag.consts, dyn_n, NN_K,
+                                               NN_H, seed=79, solve=7)),
+                     merged(nnk.nn_fused_solve(nn_flag.consts, dyn_n, NN_K,
+                                               NN_H, z=zd_n))),
+        "costs": rel(nnk.nn_fused_costs(nn_flag.consts, dyn_n, NN_K, NN_H,
+                                        seed=79, solve=7)[0],
+                     nnk.nn_fused_costs(nn_flag.consts, dyn_n, NN_K, NN_H,
+                                        z=zd_n)[0])}
+    del zd_n
+    emit("nn_prng_vs_dump", max_rel_err=nn_rels, tol=1e-6)
+    if not max(nn_rels.values()) <= 1e-6:
+        raise AssertionError(f"NN Philox solve != injected dump: {nn_rels}")
+
+    # ---- 14. the known-plant NN closed loop: kernels, then the torch route --
+    nn_loops = {}
+    for kernel in ("cuda", "torch"):
+        for normalize in (False, True):
+            t0 = time.perf_counter()
+            ctrl_l, states_l, ms_l, counts_l = nn_loop(kernel, normalize)
+            z_end = float(states_l[-1, 2])
+            drift = float(np.abs(np.linalg.norm(states_l[:, 3:7], axis=1)
+                                 - 1.0).max())
+            nn_loops[kernel, normalize] = (ctrl_l, ms_l, counts_l)
+            emit("nn_closed_loop", kernel=kernel, normalize=normalize,
+                 kernel_path=ctrl_l.kernel_path, K=NN_K, H=NN_H,
+                 steps=NN_LOOP_STEPS, z_final=z_end, z_err=abs(z_end + 1.0),
+                 q_drift=drift, launches=counts_l,
+                 step_ms_median=float(np.median(ms_l)),
+                 step_ms_p90=float(np.percentile(ms_l, 90)),
+                 seconds=time.perf_counter() - t0,
+                 z_every_10=states_l[::10, 2].tolist())
+            if not (abs(z_end + 1.0) < NN_LOOP_TOL and drift < 1e-3
+                    and np.all(np.isfinite(states_l))):
+                raise AssertionError(f"NN dive missed ({kernel}, normalize="
+                                     f"{normalize}): z {z_end}, drift "
+                                     f"{drift}")
+            if kernel == "torch":
+                if ctrl_l.kernel_path != "torch" or any(counts_l.values()):
+                    raise AssertionError(f"torch route launched kernels: "
+                                         f"{counts_l}")
+                continue
+            want = ({"nn_fused_costs": NN_LOOP_STEPS,
+                     "mppi_weights": NN_LOOP_STEPS,
+                     "pm_merge": 2 * NN_LOOP_STEPS} if normalize else
+                    {"nn_fused_solve": NN_LOOP_STEPS,
+                     "pm_merge": NN_LOOP_STEPS})
+            want = {n: want.get(n, 0) for n in counts_l}
+            if ctrl_l.kernel_path != "cuda" or counts_l != want:
+                raise AssertionError(f"NN kernel path: {ctrl_l.kernel_path}, "
+                                     f"{counts_l} != {want}")
+    nn_unnorm_counts = nn_loops["cuda", False][2]
+    nn_norm_counts = nn_loops["cuda", True][2]
+    prof = profile_steps(nn_loops["cuda", False][0], x=rest_state())
+    emit("profile", kernel_path="cuda", model="nn", normalize=False,
+         card=smi, **prof)
+    syncs = prof["syncs_per_step"]
+    if not (syncs.get("cudaStreamSynchronize", 0.0) <= 1.0
+            and syncs.get("cudaDeviceSynchronize", 0.0) * prof["steps"]
+            <= 1.0):
+        raise AssertionError(f"more than the action copy syncs a step: "
+                             f"{syncs}")
+    emit("profile", kernel_path="torch", model="nn", normalize=False,
+         card=smi, **profile_steps(nn_loops["torch", False][0], 5,
+                                   x=rest_state()))
+
+    # ---- 15. the config CLI on the card (no --cpu) --------------------------
+    import tempfile
+
+    from mppi_tf_tpu_torch.cfg import default_config
+
+    with tempfile.TemporaryDirectory() as workdir:
+        out_pm, c_pm = run_cli(workdir, "point_mass",
+                               default_config("envs/point_mass"),
+                               "tasks/static_cost", "models/point_mass_model",
+                               100)
+        goal_pm = np.asarray(default_config("tasks/static_cost")["goal"])
+        err_pm = float(np.linalg.norm(np.asarray(out_pm["final_state"])
+                                      - goal_pm))
+        out_auv, c_auv = run_cli(workdir, "rexrov2",
+                                 default_config("envs/uuv_sim"),
+                                 "tasks/static_cost_auv", "models/rexrov2",
+                                 NN_CLI_STEPS)
+        nn_env = dict(default_config("envs/uuv_sim"), kernel="cuda",
+                      plant=default_config("models/rexrov2"))
+        out_nn, c_nn = run_cli(workdir, "nn", nn_env,
+                               "tasks/static_cost_auv",
+                               "models/auv_nn_model_quat", NN_CLI_STEPS)
+    emit("cli", point_mass=dict(out_pm, goal_err=err_pm, launches=c_pm),
+         rexrov2=dict(out_auv, launches=c_auv),
+         nn=dict(out_nn, launches=c_nn))
+    if not (out_pm["kernel_path"] == "cuda" and err_pm < 0.1
+            and c_pm["pm_fused_solve"] == 100 and c_pm["pm_merge"] == 100):
+        raise AssertionError(f"cli point mass: {out_pm}, {c_pm}")
+    if not (out_auv["kernel_path"] == "cuda"
+            and c_auv["auv_fused_solve"] == NN_CLI_STEPS
+            and abs(np.linalg.norm(out_auv["final_state"][3:7]) - 1) < 1e-3):
+        raise AssertionError(f"cli rexrov2: {out_auv}, {c_auv}")
+    if not (out_nn["kernel_path"] == "cuda"
+            and c_nn["nn_fused_solve"] == NN_CLI_STEPS
+            and np.all(np.isfinite(out_nn["final_state"]))):
+        raise AssertionError(f"cli nn: {out_nn}, {c_nn}")
+
+    # ---- 16. times -------------------------------------------------------------
     consts, nb = fused.consts, -(-K // pm.BLOCK)
     n_z = H * 3
     part = pm.pm_fused_solve(consts, dyn, K, H, seed=1, solve=1)
@@ -884,9 +1175,18 @@ def main() -> int:
         return pm.pm_merge(pm.pm_fused_solve(consts, dyn, K, H, seed=1,
                                              solve=1))
 
+    nc = nn_flag.consts
+    alt_n = two_phase(lambda: nnk.nn_fused_costs(
+        nc, dyn_n, NN_K, NN_H, seed=1, solve=1), NN_H, 6, AUV_LAM)
+
+    def fused_n():
+        return pm.pm_merge(nnk.nn_fused_solve(nc, dyn_n, NN_K, NN_H, seed=1,
+                                              solve=1))
+
     alt = {}
     for name, f_fn, a_fn in (("auv", fused_a, alt_a),
-                             ("point_mass", fused_p, alt_p)):
+                             ("point_mass", fused_p, alt_p),
+                             ("nn", fused_n, alt_n)):
         t_f1, t_a1, t_a2, t_f2 = (cuda_ms(f_fn, 200), cuda_ms(a_fn, 200),
                                   cuda_ms(a_fn, 200), cuda_ms(f_fn, 200))
         alt[name] = {"fused_plus_merge_ms": [t_f1, t_f2],
@@ -897,6 +1197,50 @@ def main() -> int:
               "against costs + merge + mppi_weights(cmin, 1/lam) + merge; "
               "the two round -c/lam differently, so the weights differ in "
               "f32 rounding")
+    # the NN kernels at K=65,536, H=25, 3x32
+    n_nb, n_nz = -(-NN_K // pm.BLOCK), NN_H * 6
+    n_c, _ = nnk.nn_fused_costs(nc, dyn_n, NN_K, NN_H, seed=1, solve=1)
+    n_nrm = torch.stack([n_c.min(), 1.0 / ((n_c.max() - n_c.min())
+                                           * AUV_LAM)])
+    t_nsolve = cuda_ms(lambda: nnk.nn_fused_solve(nc, dyn_n, NN_K, NN_H,
+                                                  seed=1, solve=1), 200)
+    t_ncosts = cuda_ms(lambda: nnk.nn_fused_costs(nc, dyn_n, NN_K, NN_H,
+                                                  seed=1, solve=1), 200)
+    t_nw6 = cuda_ms(lambda: pm.mppi_weights(n_nrm, n_c, NN_H, 6, seed=1,
+                                            solve=1), 200)
+    p_nsolve = cuda_ms(lambda: nnk.fused_solve_plain(
+        nc, dyn_n, NN_K, NN_H, seed=1, solve=1), 3, 1)
+    p_ncosts = cuda_ms(lambda: nnk.fused_costs_plain(
+        nc, dyn_n, NN_K, NN_H, seed=1, solve=1), 3, 1)
+    p_nw6 = cuda_ms(lambda: pm.weights_plain(n_nrm, n_c, NN_H, 6, seed=1,
+                                             solve=1), 3, 1)
+    n_part_bytes = 4.0 * n_nb * (pm.STATS + n_nz)
+    b_nsolve = bound_ms(4.0 * dyn_n.numel() + n_part_bytes,
+                        nn_solve_ops(nc, NN_K, NN_H, prng=True))
+    b_ncosts = bound_ms(4.0 * dyn_n.numel() + 4.0 * NN_K
+                        + 4.0 * n_nb * pm.STATS,
+                        nn_solve_ops(nc, NN_K, NN_H, prng=True,
+                                     costs_only=True))
+    b_nw6 = bound_ms(4.0 * NN_K + 8.0 + n_part_bytes,
+                     weights_ops(NN_K, n_nz, True))
+    # a reading never called by the port: the MLP's four products over the
+    # K*H rows of a horizon as torch.matmul (cuBLAS, f32, no TF32), the
+    # work the torch route does a step beside its elementwise ops
+    layers = nnk.fold_layers(nn_flag.model)
+    feats = torch.randn(NN_K * NN_H, nnk.FEATURES, device="cuda")
+
+    def mlp_matmuls():
+        h = feats
+        for w, b in layers[:-1]:
+            h = torch.relu(h @ w + b)
+        return h @ layers[-1][0] + layers[-1][1]
+
+    t_mlp = cuda_ms(mlp_matmuls, 20)
+    del feats
+    nn_next = {f"{kern}_{'normalized' if norm else 'unnormalized'}": {
+        "median_ms": float(np.median(ms)),
+        "p90_ms": float(np.percentile(ms, 90))}
+        for (kern, norm), (_, ms, _) in nn_loops.items()}
     emit("times", card=smi, K=K, H=H,
          solve_plus_merge_ms=t_pair, solve_ms=t_solve, merge_ms=t_merge,
          noise_dump_ms=t_dump,
@@ -916,6 +1260,17 @@ def main() -> int:
               "dive_mppi_next_ms_median": float(np.median(step_ms_a)),
               "unnormalized_mppi_next_ms_median": float(
                   np.median(step_ms_u))},
+         nn={"K": NN_K, "H": NN_H, "sizes": list(nc.sizes),
+             "solve_ms": t_nsolve, "costs_ms": t_ncosts,
+             "weights_adim6_ms": t_nw6, "plain_solve_ms": p_nsolve,
+             "plain_costs_ms": p_ncosts, "plain_weights_adim6_ms": p_nw6,
+             "bound_solve": b_nsolve, "bound_costs": b_ncosts,
+             "bound_weights": b_nw6, "mlp_matmuls_ms": t_mlp,
+             "mppi_next_ms": nn_next,
+             "mlp_matmuls_note": "four torch.matmul of the folded MLP over "
+                                 "K*H rows: a reading, not a yardstick of "
+                                 "the fused rollout, never called by the "
+                                 "port"},
          plain_note="plain PyTorch versions repeat the kernels' arithmetic; "
                     "no yardstick of speed",
          library_note="no single PyTorch call computes a fused MPPI rollout "
@@ -979,6 +1334,26 @@ def main() -> int:
          "max_abs_err": auv_chk["costs_max_abs_err"],
          "ms": t_acosts, "plain_ms": p_acosts, "bound_ms": b_acosts[0],
          "bound_by": b_acosts[1], "library_ms": None},
+    ]
+    nsrc = "mppi_tf_tpu_torch/csrc/nn_mppi.cu"
+    kernels += [
+        {"name": "nn_fused_solve", "route": "cuda", "source": nsrc,
+         "replaces": "mppi_tf_tpu/kernels/nn_mppi.py:631",
+         "launches": nn_unnorm_counts["nn_fused_solve"],
+         "path": "NN known-plant closed loop, unnormalized",
+         "max_abs_err": nn_chk["fused_cost_stats_max_abs_err"],
+         "max_abs_err_of": "merged cost min, max, mean of the fused rows "
+                           "against the plain costs, K=65536, H=25, 3x32",
+         "softmax_vs_own_costs_max_abs_err": nn_chk["fused_max_abs_err"],
+         "ms": t_nsolve, "plain_ms": p_nsolve, "bound_ms": b_nsolve[0],
+         "bound_by": b_nsolve[1], "library_ms": None},
+        {"name": "nn_fused_costs", "route": "cuda", "source": nsrc,
+         "replaces": "mppi_tf_tpu/kernels/nn_mppi.py:647",
+         "launches": nn_norm_counts["nn_fused_costs"],
+         "path": "NN known-plant closed loop, normalized",
+         "max_abs_err": nn_chk["costs_max_abs_err"],
+         "ms": t_ncosts, "plain_ms": p_ncosts, "bound_ms": b_ncosts[0],
+         "bound_by": b_ncosts[1], "library_ms": None},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -5,10 +5,11 @@ weights them, updates the nominal sequence and shifts it. Two paths:
 
 - ``"torch"``: plain PyTorch ops (``ops/``), on any device, every option;
 - ``"cuda"``: the fused Hopper kernels, ``kernels/pm_mppi.py`` for the
-  point-mass model with the static cost and ``kernels/auv_mppi.py`` for the
-  AUV with the static quaternion cost (``normalize_cost`` as the two-phase
-  costs / weights solve), plus the sequence update and shift as torch ops
-  on the card.
+  point-mass model with the static cost, ``kernels/auv_mppi.py`` for the
+  AUV and ``kernels/nn_mppi.py`` for the learned ``NNAUVModel`` (only when
+  asked for by name), each with the static quaternion cost
+  (``normalize_cost`` as the two-phase costs / weights solve), plus the
+  sequence update and shift as torch ops on the card.
 
 Receding-horizon carry: the reference Python controller loses its update
 (the shifted sequence is assigned to a local, controller_base.py:339-341);
@@ -53,7 +54,8 @@ class MPPI:
         device: where the solve runs. Default ``"cuda"``, which raises when
             no GPU is present; pass ``"cpu"`` for the plain CPU path.
         kernel: ``"torch"`` (plain path), ``"cuda"`` (fused kernels) or
-            ``"auto"`` (the kernels where eligible, else plain). The JAX
+            ``"auto"`` (the kernels where eligible, else plain; NN models
+            stay on the plain path, as in the JAX package). The JAX
             names ``"xla"`` and ``"pallas"`` mean ``"torch"`` and ``"cuda"``.
             The resolved path is ``kernel_path``.
     """
@@ -148,8 +150,16 @@ class MPPI:
                     "kernel='cuda' does not support " + ", ".join(blockers)
                     + " yet; use kernel='torch'")
             return
+        classes = (FusedPointMassMPPI, FusedAUVMPPI)
+        if kernel == "cuda":
+            # the NN kernel is explicit-only, as in the JAX package
+            # (controller/mppi.py:217-224): "auto" keeps NN models on the
+            # plain path, whose MLP runs as GEMMs over the K samples
+            from ..kernels.nn_mppi import FusedNNMPPI
+
+            classes += (FusedNNMPPI,)
         err = None
-        for cls in (FusedPointMassMPPI, FusedAUVMPPI):
+        for cls in classes:
             try:
                 self._fused = cls(
                     self._model, self._cost, k=self._k, tau=self._tau,

@@ -20,8 +20,8 @@
 //     quaternion renormalisation, floor 1e-24 on the squared norm
 //     cost += q(x) + rhs_z_t . z_t + nc_half z_t^T Mz z_t
 //   then + q(x_H) + u_half; q is the 10-dim StaticQuatCost with the signed
-//   dot, clamped, under the native acosf (the TPU kernel's polynomial
-//   _acos only worked around Mosaic).
+//   dot, clamped, under the native acosf (mppi_common.cuh quat_state_cost;
+//   the TPU kernel's polynomial _acos only worked around Mosaic).
 //
 //   RK is 1, 2 or 4, each integrated as models/auv.py::AUVModel.step does;
 //   the TPU kernel runs every rk != 1 as rk2, a fault not copied here.
@@ -154,30 +154,6 @@ __device__ __forceinline__ void state_dot(const AuvConsts& c,
   }
 }
 
-// StaticQuatCost.state_cost: d^T Q d, d = [p - g_p, 2 acos(clamp(q.g_q)),
-// nu - g_nu] (signed dot, costs/static.py).
-__device__ __forceinline__ float quat_state_cost(const AuvConsts& c,
-                                                 const float* x,
-                                                 const float* goal) {
-  float d[10];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) d[i] = x[i] - goal[i];
-  float dot = x[3] * goal[3] + x[4] * goal[4] + x[5] * goal[5] +
-              x[6] * goal[6];
-  d[3] = 2.0f * acosf(fminf(fmaxf(dot, -1.0f), 1.0f));
-#pragma unroll
-  for (int i = 0; i < 6; ++i) d[4 + i] = x[7 + i] - goal[7 + i];
-  float out = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 10; ++i) {
-    float qd = 0.0f;
-#pragma unroll
-    for (int j = 0; j < 10; ++j) qd = fmaf(c.q[i * 10 + j], d[j], qd);
-    out = fmaf(d[i], qd, out);
-  }
-  return out;
-}
-
 template <int RK, int MODE>
 __global__ void __launch_bounds__(kBlock)
     auv_fused_solve_kernel(const AuvConsts c, const float* __restrict__ dyn,
@@ -265,7 +241,7 @@ __global__ void __launch_bounds__(kBlock)
 #pragma unroll
     for (int i = 3; i < 7; ++i) x[i] *= inv;
 
-    cost += quat_state_cost(c, x, goal);
+    cost += quat_state_cost(c.q, x, goal);
     float quad = 0.0f;
 #pragma unroll
     for (int j = 0; j < 6; ++j) {
@@ -277,7 +253,7 @@ __global__ void __launch_bounds__(kBlock)
     }
     cost = fmaf(c.nc_half, quad, cost);
   }
-  cost += quat_state_cost(c, x, goal);
+  cost += quat_state_cost(c.q, x, goal);
   cost += u_half;
 
   if (MODE == kFused) {

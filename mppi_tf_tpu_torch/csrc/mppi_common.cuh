@@ -131,6 +131,33 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
+// StaticQuatCost.state_cost of a 13-dim AUV state (auv_mppi.cu,
+// nn_mppi.cu): d^T Q d, d = [p - g_p, 2 acos(clamp(q.g_q)), nu - g_nu] with
+// the signed dot (costs/static.py) and Q the 10x10 row-major weight. The
+// native acosf: the TPU kernels' polynomial _acos only worked around
+// Mosaic.
+__device__ __forceinline__ float quat_state_cost(const float* q,
+                                                 const float* x,
+                                                 const float* goal) {
+  float d[10];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) d[i] = x[i] - goal[i];
+  const float dot = x[3] * goal[3] + x[4] * goal[4] + x[5] * goal[5] +
+                    x[6] * goal[6];
+  d[3] = 2.0f * acosf(fminf(fmaxf(dot, -1.0f), 1.0f));
+#pragma unroll
+  for (int i = 0; i < 6; ++i) d[4 + i] = x[7 + i] - goal[7 + i];
+  float out = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 10; ++i) {
+    float qd = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 10; ++j) qd = fmaf(q[i * 10 + j], d[j], qd);
+    out = fmaf(d[i], qd, out);
+  }
+  return out;
+}
+
 // Block epilogue of every solve kernel (blockDim.x == kBlock, all threads
 // call it). Each thread brings its sample's log-weight zarg and cost;
 // padding threads (valid false) weigh exactly 0 and leave the cost stats

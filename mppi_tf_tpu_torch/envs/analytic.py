@@ -19,10 +19,11 @@ class PointMassEnv:
     """N-DoF frictionless point mass driven by per-axis forces."""
 
     def __init__(self, n_dof: int = 3, mass: float = 1.0, dt: float = 0.01,
-                 goal=None):
+                 goal=None, render: bool = False):
         self.n_dof = int(n_dof)
         self.mass = float(mass)
         self.dt = float(dt)
+        self.render = render  # accepted for API parity; nothing to draw
         self._q = np.zeros(self.n_dof)
         self._v = np.zeros(self.n_dof)
         self._t = 0.0
@@ -48,7 +49,7 @@ class PointMassEnv:
         self._q = x[0::2].copy()
         self._v = x[1::2].copy()
 
-    def step(self, u) -> np.ndarray:
+    def step(self, u, goal=None) -> np.ndarray:
         """Apply a force command [aDim] and advance one step of dt."""
         u = np.asarray(u, np.float64).reshape(-1)[: self.n_dof]
         a = u / self.mass

@@ -1,9 +1,12 @@
 """Carry parameters between the JAX package and this port (numpy only).
 
-The JAX package threads model and cost parameters as dicts
-(``model_params``, e.g. ``{"mass"}``, and the cost params, e.g.
-``{"goal"}``); this port holds them in its modules. These helpers move
-them across as numpy arrays, so that both packages compute the same thing.
+The JAX package threads model and cost parameters as pytrees
+(``model_params``, e.g. ``{"mass"}``, or an NN's
+``{"net": [{"w", "b"}, ...], "x_mean", "x_std", "y_mean", "y_std"}``, and
+the cost params, e.g. ``{"goal"}``); this port holds them in its modules
+(an NN's layer i as ``net.{i}.w`` / ``net.{i}.b``, its normalisers as the
+buffers named in ``param_buffers``). These helpers move them across as
+numpy arrays, so that both packages compute the same thing.
 """
 
 from __future__ import annotations
@@ -12,30 +15,77 @@ import numpy as np
 import torch
 
 
-def from_jax_params(mparams: dict, cparams: dict, model, cost):
+def _flatten(tree, prefix: str = "") -> dict:
+    """{"net": [{"w": a}], "x": b} -> {"net.0.w": a, "x": b}."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out = {}
+    for key, value in items:
+        out.update(_flatten(value, f"{prefix}{key}."))
+    return {k.rstrip("."): v for k, v in out.items()}
+
+
+def _unflatten(flat: dict):
+    """Inverse of ``_flatten``: digit keys become list indices."""
+    tree: dict = {}
+    for name, value in flat.items():
+        node, parts = tree, name.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(k.isdigit() for k in node):
+            return [lists(node[str(i)]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)
+
+
+def _model_tensors(model) -> dict:
+    """The model's carried tensors by name: its parameters and the buffers
+    it names in ``param_buffers``."""
+    out = dict(model.named_parameters())
+    for name in getattr(model, "param_buffers", ()):
+        out[name] = getattr(model, name)
+    return out
+
+
+def from_jax_params(mparams: dict, cparams, model, cost=None):
     """Load the JAX package's model and cost params (numpy arrays, or
-    anything ``np.asarray`` takes) into ``model`` and ``cost`` in place.
-    Returns ``(model, cost)``."""
-    names = {n for n, _ in model.named_parameters()}
-    if set(mparams) != names:
-        raise KeyError(f"model params {sorted(mparams)} != the model's "
-                       f"parameters {sorted(names)}")
-    if set(cparams) != set(cost.param_names):
+    anything ``np.asarray`` takes) into ``model`` and ``cost`` in place;
+    ``cost=None`` (with ``cparams=None``) loads the model alone. Returns
+    ``(model, cost)``."""
+    cparams = {} if cost is None else cparams
+    flat = _flatten(mparams)
+    targets = _model_tensors(model)
+    if set(flat) != set(targets):
+        raise KeyError(f"model params {sorted(flat)} != the model's "
+                       f"parameters {sorted(targets)}")
+    if cost is not None and set(cparams) != set(cost.param_names):
         raise KeyError(f"cost params {sorted(cparams)} != the cost's "
                        f"params {sorted(cost.param_names)}")
     with torch.no_grad():
-        for name, p in model.named_parameters():
-            value = np.asarray(mparams[name], np.float64).reshape(p.shape)
-            p.copy_(torch.as_tensor(value, dtype=p.dtype))
-        for name, buf in cost.params().items():
+        for name, t in targets.items():
+            value = np.asarray(flat[name], np.float64).reshape(t.shape)
+            t.copy_(torch.tensor(value, dtype=t.dtype))
+        for name, buf in ({} if cost is None else cost.params()).items():
             value = np.asarray(cparams[name], np.float64).reshape(buf.shape)
-            buf.copy_(torch.as_tensor(value, dtype=buf.dtype))
+            buf.copy_(torch.tensor(value, dtype=buf.dtype))
     return model, cost
 
 
-def to_jax_params(model, cost):
-    """The port's params as the JAX package's dicts of numpy arrays."""
-    mparams = {n: p.detach().cpu().numpy()
-               for n, p in model.named_parameters()}
-    cparams = {n: b.detach().cpu().numpy() for n, b in cost.params().items()}
+def to_jax_params(model, cost=None):
+    """The port's params as the JAX package's pytrees of numpy arrays
+    (cparams {} without a cost)."""
+    mparams = _unflatten({n: t.detach().cpu().numpy()
+                          for n, t in _model_tensors(model).items()})
+    cparams = {n: b.detach().cpu().numpy()
+               for n, b in ({} if cost is None else cost.params()).items()}
     return mparams, cparams

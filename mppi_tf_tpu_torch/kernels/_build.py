@@ -37,6 +37,9 @@ _SIGNATURES = {
     "pm_merge": [_P, _I, _I, _P, _P, _P],
     "auv_fused_solve": [_I, _P, _P, _P, _P, _I, _I, *_SEEDS, _P],
     "auv_fused_costs": [_I, _P, _P, _P, _P, _P, _I, _I, *_SEEDS, _P],
+    "nn_fused_solve": [_I, _I, _I, _P, _P, _P, _P, _I, _I, *_SEEDS, _P],
+    "nn_fused_costs": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, *_SEEDS,
+                       _P],
 }
 
 _lib = None

@@ -14,7 +14,8 @@ from .errors import KernelLaunchError
 
 launch_counts = {"pm_noise_dump": 0, "pm_fused_solve": 0, "pm_merge": 0,
                  "pm_fused_costs": 0, "mppi_weights": 0,
-                 "auv_fused_solve": 0, "auv_fused_costs": 0}
+                 "auv_fused_solve": 0, "auv_fused_costs": 0,
+                 "nn_fused_solve": 0, "nn_fused_costs": 0}
 
 
 def reset_launch_counts() -> None:

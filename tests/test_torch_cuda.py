@@ -360,3 +360,88 @@ def test_auv_normalized_closed_loop_on_the_kernel_path(cuda_device):
     assert delta["pm_merge"] == 200 and delta["auv_fused_solve"] == 0
     assert abs(np.linalg.norm(x[3:7]) - 1.0) < 1e-3
     assert abs(x[2, 0] + 1.0) < 0.2, x.ravel()
+
+
+# ---------------------------------------------------------------------------
+# the learned-dynamics (NNAUVModel) kernels
+# ---------------------------------------------------------------------------
+
+NN_SIGMA = np.diag([50.0, 50.0, 50.0, 20.0, 20.0, 20.0])
+
+
+def _nn_fused(k, tau, device, hidden):
+    from mppi_tf_tpu_torch.kernels import nn_mppi as nnk
+    from mppi_tf_tpu_torch.models.nn import NNAUVModel
+
+    model = NNAUVModel(hidden=hidden, seed=4, device=device)
+    n_in, n_out = model.input_dim(), model.output_dim()
+    model.set_normalization(0.1 * np.arange(n_in), 1.0 + 0.05 * np.arange(
+        n_in), 0.01 * np.arange(n_out), 0.05 + 0.002 * np.arange(n_out))
+    cost = get_cost(flagship.auv_task(), lam=0.5, gamma=0.2, upsilon=1.2,
+                    sigma=NN_SIGMA, device=device)
+    return nnk.FusedNNMPPI(model, cost, k=k, tau=tau, lam=0.5, upsilon=1.2,
+                           sigma=NN_SIGMA)
+
+
+@pytest.mark.parametrize("hidden", [(8, 8), (32, 32, 32)])
+@pytest.mark.parametrize("k,tau", [(700, 7), (4097, 25)])
+def test_nn_kernels_match_plain(cuda_device, hidden, k, tau):
+    from mppi_tf_tpu_torch.kernels import nn_mppi as nnk
+
+    fused = _nn_fused(k, tau, cuda_device, hidden)
+    z, _, _, dyn = _auv_inputs(fused, cuda_device, seed=len(hidden))
+    c = fused.consts
+    costs_k, rows_k = nnk.nn_fused_costs(c, dyn, k, tau, z=z)
+    costs_p = nnk.sample_costs_plain(c, dyn, z)
+    torch.testing.assert_close(costs_k, costs_p, rtol=COST_RTOL,
+                               atol=COST_ATOL)
+    _, st = pm.merge_plain(rows_k)
+    torch.testing.assert_close(
+        st[2:5], torch.stack([costs_k.min(), costs_k.max(), costs_k.sum()]),
+        rtol=1e-5, atol=0)
+    part_k = nnk.nn_fused_solve(c, dyn, k, tau, z=z)
+    part_p = pm.block_partials(costs_k, z.reshape(tau * 6, k), c.lam)
+    torch.testing.assert_close(part_k[:, :5], part_p[:, :5], rtol=1e-5,
+                               atol=1e-6)
+    zs_k, st_k = pm.merge_plain(part_k)
+    zs_p, st_p = pm.merge_plain(part_p)
+    torch.testing.assert_close(zs_k / st_k[1], zs_p / st_p[1], rtol=1e-3,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+def test_nn_prng_solve_consumes_dump(cuda_device, normalize):
+    k, tau = 3000, 12
+    fused = _nn_fused(k, tau, cuda_device, (32, 32, 32))
+    _, x0, useq, _ = _auv_inputs(fused, cuda_device)
+    wn_a, st_a = fused.solve(x0, useq, seed=5, solve=9, normalize=normalize)
+    z = pm.pm_noise_dump(5, 9, k, tau, 6, cuda_device)
+    wn_b, st_b = fused.solve(x0, useq, z=z, normalize=normalize)
+    torch.testing.assert_close(wn_a, wn_b, rtol=1e-6, atol=0)
+    torch.testing.assert_close(st_a["cost_min"], st_b["cost_min"], rtol=1e-6,
+                               atol=0)
+
+
+def test_nn_controller_resolves_the_kernel(cuda_device):
+    from mppi_tf_tpu_torch.kernels.errors import KernelUnsupportedError
+    from mppi_tf_tpu_torch.kernels.nn_mppi import FusedNNMPPI
+    from mppi_tf_tpu_torch.models.nn import NNAUVModel, NNAUVModelSpeed
+
+    cost = get_cost(flagship.auv_task(), lam=0.5, gamma=0.2, upsilon=1.0,
+                    sigma=NN_SIGMA, device=cuda_device)
+    kw = dict(k=1000, tau=6, lam=0.5, sigma=NN_SIGMA, device=cuda_device)
+    ctrl = MPPI(NNAUVModel(), cost, kernel="cuda", **kw)
+    assert ctrl.kernel_path == "cuda" and type(ctrl._fused) is FusedNNMPPI
+    before = dict(pm.launch_counts)
+    x = np.zeros(13)
+    x[6] = 1.0
+    assert np.all(np.isfinite(ctrl.next(x)))
+    assert pm.launch_counts["nn_fused_solve"] == before["nn_fused_solve"] + 1
+    assert MPPI(NNAUVModel(), cost, kernel="auto", **kw).kernel_path == \
+        "torch"
+    with pytest.raises(KernelUnsupportedError):
+        MPPI(NNAUVModelSpeed(), cost, kernel="cuda", **kw)
+    with pytest.raises(KernelUnsupportedError):
+        MPPI(NNAUVModel(hidden=(16, 16, 16)), cost, kernel="cuda", **kw)
+    with pytest.raises(NotImplementedError, match="item 4"):
+        MPPI(NNAUVModel(), cost, kernel="cuda", antithetic=True, **kw)

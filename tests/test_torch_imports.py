@@ -30,7 +30,10 @@ def test_import_leaves_no_jax_modules():
         "mppi_tf_tpu_torch.kernels.pm_mppi, mppi_tf_tpu_torch.kernels._build,"
         " mppi_tf_tpu_torch.kernels.auv_mppi, mppi_tf_tpu_torch.models.auv,"
         " mppi_tf_tpu_torch.ops.quaternion, mppi_tf_tpu_torch.flagship,"
-        " mppi_tf_tpu_torch.envs, mppi_tf_tpu_torch.interop\n"
+        " mppi_tf_tpu_torch.envs, mppi_tf_tpu_torch.interop,"
+        " mppi_tf_tpu_torch.models.nn, mppi_tf_tpu_torch.kernels.nn_mppi,"
+        " mppi_tf_tpu_torch.cfg, mppi_tf_tpu_torch.envs.runner,"
+        " mppi_tf_tpu_torch.cli\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mppi_tf_tpu', 'triton'))\n"
         "print(','.join(bad))\n")
@@ -67,6 +70,15 @@ def test_sources_cover_the_auv_slice():
             "mppi_tf_tpu_torch/envs/analytic.py",
             "mppi_tf_tpu_torch/kernels/auv_mppi.py",
             "mppi_tf_tpu_torch/kernels/_launch.py"} <= names
+
+
+def test_sources_cover_the_nn_slice():
+    names = {p.relative_to(REPO).as_posix() for p in _sources()}
+    assert {"mppi_tf_tpu_torch/models/nn.py",
+            "mppi_tf_tpu_torch/kernels/nn_mppi.py",
+            "mppi_tf_tpu_torch/cfg/config.py",
+            "mppi_tf_tpu_torch/envs/runner.py",
+            "mppi_tf_tpu_torch/cli.py"} <= names
 
 
 def test_forbidden_matcher():

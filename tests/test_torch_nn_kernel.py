@@ -1,0 +1,268 @@
+"""The fused NN solve of the port (kernels/nn_mppi.py): its plain versions
+against the JAX package's XLA path (``MPPI._solve_with_noise`` /
+``_rollout``) at f64 on the same injected normals, with non-trivial X/Y
+normalisers so that the fold of ``pack_dyn`` is exercised. The XLA path is
+the yardstick the JAX Pallas NN kernel is itself held to
+(tests/test_nn_kernel.py, whose interpret mode takes minutes). The CUDA
+kernels are held against these plain versions on the card by
+tests/test_torch_cuda.py.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mppi_tf_tpu.controller.mppi import MPPI as JMPPI
+from mppi_tf_tpu.costs import get_cost as jget_cost
+from mppi_tf_tpu.kernels.nn_mppi import FusedNNMPPI as JFusedNNMPPI
+from mppi_tf_tpu.kernels.nn_mppi import _DynNN
+from mppi_tf_tpu.models.nn import NNAUVModel as JNNAUVModel
+from mppi_tf_tpu_torch.costs import get_cost
+from mppi_tf_tpu_torch.interop import from_jax_params
+from mppi_tf_tpu_torch.kernels import nn_mppi as nnk
+from mppi_tf_tpu_torch.kernels import pm_mppi as pm
+from mppi_tf_tpu_torch.kernels.errors import KernelUnsupportedError
+from mppi_tf_tpu_torch.models import nn as pnn
+from tests.test_nn_kernel import _mp_with_stats
+
+SIGMA = np.diag([50.0, 50.0, 50.0, 20.0, 20.0, 20.0])
+LAM, GAMMA, UPS = 0.5, 0.2, 1.2
+TASK = {"type": "static_quat", "diag": True,
+        "goal": [0.0, 0.0, -2.0, 0.0, 0.0, 0.0, 1.0] + [0.0] * 6,
+        "Q": [10.0, 10.0, 10.0, 5.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0]}
+# f64 on both sides: the folded algebra against normalize -> MLP ->
+# denormalize, agreeing to rounding
+RTOL = 1e-9
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _jax(hidden, k, tau, normalize=False):
+    model = JNNAUVModel(action_dim=6, dt=0.1, hidden=hidden, seed=4,
+                        dtype=jnp.float64)
+    cost = jget_cost(TASK, lam=LAM, gamma=GAMMA, upsilon=UPS, sigma=SIGMA,
+                     dtype=jnp.float64)
+    ctrl = JMPPI(model, cost, k=k, tau=tau, lam=LAM, upsilon=UPS,
+                 sigma=SIGMA, normalize_cost=normalize)
+    ctrl.model_params = _mp_with_stats(model)
+    return ctrl
+
+
+def _port_model(ctrl, dtype=torch.float64):
+    model = pnn.NNAUVModel(hidden=ctrl._model._hidden, dtype=dtype)
+    from_jax_params(jax.tree.map(np.asarray, ctrl.model_params), None, model)
+    return model
+
+
+def _port(ctrl, dtype=torch.float64):
+    cost = get_cost(TASK, lam=LAM, gamma=GAMMA, upsilon=UPS, sigma=SIGMA,
+                    dtype=dtype)
+    return nnk.FusedNNMPPI(_port_model(ctrl, dtype), cost, k=ctrl._k,
+                           tau=ctrl._tau, lam=LAM, upsilon=UPS, sigma=SIGMA)
+
+
+def _inputs(k, tau, seed=0):
+    """z [tau, 6, k], eps = scale z as [k, tau, 6], x0 (qw = 1), useq."""
+    rng = np.random.RandomState(seed)
+    z = rng.randn(tau, 6, k)
+    eps = np.einsum("ij,tjk->kti", UPS * SIGMA, z)
+    x0 = np.zeros(13)
+    x0[6] = 1.0
+    return z, eps, x0, 0.5 * rng.randn(tau, 6)
+
+
+def _jax_solve(ctrl, eps, x0, useq):
+    mp, cp = ctrl.model_params, ctrl._cparams
+    _, _, info = ctrl._solve_with_noise_jit(
+        jnp.asarray(eps), jnp.asarray(x0), jnp.asarray(useq), mp, cp)
+    costs = ctrl._rollout(jnp.asarray(x0), jnp.asarray(useq),
+                          jnp.asarray(eps), mp, cp)
+    return np.asarray(info["weighted_noise"]), np.asarray(costs)
+
+
+def _t(a):
+    return torch.tensor(np.asarray(a, np.float64))
+
+
+HIDDEN = [(8, 8), (32, 32, 32)]
+
+
+@pytest.mark.parametrize("hidden", HIDDEN)
+@pytest.mark.parametrize("k", [80, 333])
+def test_plain_costs_match_jax_rollout(hidden, k):
+    tau = 3
+    z, eps, x0, useq = _inputs(k, tau, seed=k)
+    ctrl = _jax(hidden, k, tau)
+    _, costs_j = _jax_solve(ctrl, eps, x0, useq)
+    fused = _port(ctrl)
+    dyn = fused.pack_dyn(_t(x0), _t(useq))
+    np.testing.assert_allclose(
+        nnk.sample_costs_plain(fused.consts, dyn, _t(z)).numpy(), costs_j,
+        rtol=RTOL)
+    costs, rows = nnk.fused_costs_plain(fused.consts, dyn, k, tau, z=_t(z),
+                                        block=32)
+    _, stats = pm.merge_plain(rows)
+    assert rows.shape == (-(-k // 32), pm.STATS)
+    np.testing.assert_allclose(
+        stats[:5].numpy(), [0.0, 0.0, costs_j.min(), costs_j.max(),
+                            costs_j.sum()], rtol=RTOL)
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("hidden", HIDDEN)
+@pytest.mark.parametrize("k,block", [(80, 32), (333, 256)])
+def test_plain_solve_matches_jax_xla(hidden, normalize, k, block):
+    """FusedNNMPPI.solve == the XLA solve on the same z; k=80 over blocks
+    of 32 and k=333 over 256 leave a ragged last block."""
+    tau = 3
+    z, eps, x0, useq = _inputs(k, tau, seed=7 + k)
+    ctrl = _jax(hidden, k, tau, normalize=normalize)
+    wn_j, costs_j = _jax_solve(ctrl, eps, x0, useq)
+    fused = _port(ctrl)
+    wn, info = fused.solve(_t(x0), _t(useq), z=_t(z), normalize=normalize)
+    tol = dict(rtol=1e-7, atol=1e-9 * np.abs(wn_j).max())
+    np.testing.assert_allclose(wn.numpy(), wn_j, **tol)
+    np.testing.assert_allclose(
+        [info["cost_min"].item(), info["cost_max"].item(),
+         info["cost_mean"].item()],
+        [costs_j.min(), costs_j.max(), costs_j.mean()], rtol=RTOL)
+    if not normalize:   # the block partials at another block size
+        dyn = fused.pack_dyn(_t(x0), _t(useq))
+        zsum, st = pm.merge_plain(nnk.fused_solve_plain(
+            fused.consts, dyn, k, tau, z=_t(z), block=block))
+        np.testing.assert_allclose(
+            (fused.unfold_wnoise(zsum) / st[1]).numpy(), wn_j, **tol)
+
+
+def test_fold_matches_jax_pack_dyn():
+    """The folded weights of pack_dyn == the JAX FusedNNMPPI.pack_dyn's."""
+    k, tau = 64, 4
+    ctrl = _jax((32, 32, 32), k, tau)
+    jf = JFusedNNMPPI(ctrl._model, ctrl._cost, k=k, tau=tau, lam=LAM,
+                      upsilon=UPS, sigma=SIGMA, tile=32, interpret=True)
+    z, _, x0, useq = _inputs(k, tau)
+    jd = np.asarray(jf.pack_dyn(ctrl.model_params, ctrl._cparams, x0, useq))
+    fused = _port(ctrl)
+    dyn = fused.pack_dyn(_t(x0), _t(useq)).numpy()
+    lay = nnk.NNDyn(tau, fused.consts.sizes)
+    jlay = _DynNN(tau, list(fused.consts.sizes))
+    assert lay.size == dyn.size
+    for (w_at, b_at, fi, fo), (jw, jb) in zip(lay.layers, jlay.w_off):
+        # the JAX layout is W row-major [fan_in, fan_out], f32
+        np.testing.assert_allclose(dyn[w_at:b_at].reshape(fo, fi).T,
+                                   jd[jw:jw + fi * fo].reshape(fi, fo),
+                                   rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(dyn[b_at:b_at + fo], jd[jb:jb + fo],
+                                   rtol=1e-6, atol=1e-6)
+        assert w_at % 4 == 0
+    for name in ("x0", "goal", "useq", "rhs_z"):
+        a, b = getattr(lay, name), getattr(jlay, name)
+        n = 13 if name in ("x0", "goal") else 6 * tau
+        np.testing.assert_allclose(dyn[a:a + n], jd[b:b + n], rtol=1e-6,
+                                   atol=1e-6)
+    np.testing.assert_allclose(dyn[lay.u_half], jd[jlay.u_half], rtol=1e-6)
+
+
+def test_weight_update_is_data():
+    """A weight update in place reaches the next solve of the same
+    FusedNNMPPI: nothing is rebuilt, the result moves."""
+    k, tau = 64, 3
+    fused = _port(_jax((8, 8), k, tau))
+    z, _, x0, useq = _inputs(k, tau, seed=2)
+    wn1, i1 = fused.solve(_t(x0), _t(useq), z=_t(z))
+    consts = fused.consts
+    with torch.no_grad():
+        for layer in fused.model.net:
+            layer.w.add_(0.05)
+    wn2, i2 = fused.solve(_t(x0), _t(useq), z=_t(z))
+    assert fused.consts is consts
+    assert not torch.allclose(wn1, wn2)
+    fused.model.set_normalization(0.0, 2.0, 0.0, 1.0)
+    _, i3 = fused.solve(_t(x0), _t(useq), z=_t(z))
+    costs = [i["cost_mean"].item() for i in (i1, i2, i3)]
+    assert len(set(costs)) == 3, costs
+
+
+def test_prng_mode_equals_injected_dump_on_cpu():
+    k, tau = 300, 5
+    fused = _port(_jax((8, 8), k, tau), dtype=torch.float32)
+    _, _, x0, useq = _inputs(k, tau, seed=3)
+    x0, useq = _t(x0).float(), _t(useq).float()
+    z = pm.pm_noise_dump(9, 4, k, tau, 6, "cpu")
+    for normalize in (False, True):
+        wn_a, st_a = fused.solve(x0, useq, seed=9, solve=4,
+                                 normalize=normalize)
+        wn_b, st_b = fused.solve(x0, useq, z=z, normalize=normalize)
+        torch.testing.assert_close(wn_a, wn_b, rtol=0, atol=0)
+        torch.testing.assert_close(st_a["nabla"], st_b["nabla"], rtol=0,
+                                   atol=0)
+
+
+def test_cpu_wrappers_run_plain_and_count_nothing():
+    before = dict(pm.launch_counts)
+    fused = _port(_jax((32, 32, 32), 300, 5), dtype=torch.float32)
+    x0 = torch.zeros(13)
+    x0[6] = 1.0
+    fused.solve(x0, torch.zeros(5, 6), seed=1, solve=1)
+    fused.solve(x0, torch.zeros(5, 6), seed=1, solve=1, normalize=True)
+    assert pm.launch_counts == before
+
+
+def test_wrappers_reject_other_devices_and_topologies():
+    fused = _port(_jax((8, 8), 300, 5), dtype=torch.float32)
+    c = fused.consts
+    dyn = torch.empty(nnk.NNDyn(5, c.sizes).size, device="meta")
+    with pytest.raises(ValueError):
+        nnk.nn_fused_solve(c, dyn, 300, 5)
+    with pytest.raises(ValueError):
+        nnk.nn_fused_costs(c, dyn, 300, 5)
+    with pytest.raises(KernelUnsupportedError):
+        nnk._hidden_args(nnk.NnConsts(
+            sizes=(16, 16, 16, 16, 13), lam=LAM, nc_half=0.0, renorm=True,
+            scale=SIGMA, Mz=SIGMA, Q=np.eye(10)))
+    assert nnk._hidden_args(c) == (8, 8, 0)
+
+
+def test_eligibility():
+    model = pnn.NNAUVModel(hidden=(8, 8))
+    cost = get_cost(TASK, lam=LAM, gamma=GAMMA, upsilon=UPS, sigma=SIGMA)
+    kw = dict(k=64, tau=2, lam=LAM, upsilon=UPS, sigma=SIGMA)
+    assert nnk.FusedNNMPPI(model, cost, **kw).consts.hidden == (8, 8)
+    with pytest.raises(KernelUnsupportedError, match="NNAUVModel only"):
+        nnk.FusedNNMPPI(pnn.NNAUVModelSpeed(hidden=(8, 8)), cost, **kw)
+    with pytest.raises(KernelUnsupportedError, match="NNAUVModel only"):
+        nnk.FusedNNMPPI(pnn.NNModel(state_dim=13, action_dim=6), cost, **kw)
+    pm_cost = get_cost({"type": "static", "diag": True, "goal": [0.0] * 13,
+                        "Q": [1.0] * 13}, lam=LAM, gamma=GAMMA, upsilon=UPS,
+                       sigma=SIGMA)
+    with pytest.raises(KernelUnsupportedError, match="StaticQuatCost"):
+        nnk.FusedNNMPPI(model, pm_cost, **kw)
+    with pytest.raises(KernelUnsupportedError, match="built for"):
+        nnk.FusedNNMPPI(pnn.NNAUVModel(hidden=(16, 16, 16)), cost, **kw)
+    with pytest.raises(KernelUnsupportedError, match="item 7"):
+        nnk.FusedNNMPPI(pnn.NNAUVModel(hidden=(8, 8),
+                                       compute_dtype=torch.bfloat16),
+                        cost, **kw)
+    # the other solve objects refuse the NN model
+    from mppi_tf_tpu_torch.kernels.auv_mppi import FusedAUVMPPI
+
+    with pytest.raises(KernelUnsupportedError):
+        FusedAUVMPPI(model, cost, **kw)
+    with pytest.raises(KernelUnsupportedError):
+        pm.FusedPointMassMPPI(model, cost, **kw)
+
+
+def test_consts_packing_order():
+    fused = _port(_jax((8, 8), 10, 3), dtype=torch.float32)
+    p = fused.consts.packed
+    assert p.dtype == np.float32 and p.shape == (176,)
+    np.testing.assert_allclose(p[:4], [LAM, 0.5 * LAM * (1 - 1 / UPS), 1.0,
+                                       0.0], rtol=1e-7)
+    np.testing.assert_allclose(p[4:40], (UPS * SIGMA).ravel(), rtol=1e-7)
+    np.testing.assert_allclose(p[-100:], np.diag(TASK["Q"]).ravel())
+    assert fused.consts.sizes == (16, 8, 8, 13)

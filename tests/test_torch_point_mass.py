@@ -171,9 +171,7 @@ def test_get_model_dispatch():
     assert m.dt == 0.05
 
 
-@pytest.mark.parametrize("mtype,item", [
-    ("neural_net", "item 11"), ("auv_nn", "item 11"),
-    ("auv_nn_speed", "item 11"), ("dmd", "item 9")])
+@pytest.mark.parametrize("mtype,item", [("dmd", "item 9")])
 def test_get_model_not_ported(mtype, item):
     with pytest.raises(NotImplementedError, match=item):
         get_model({"type": mtype})
