@@ -17,8 +17,15 @@ port's paths through ``MPPI.next`` closed loop against the analytic plants:
   K=65,536, H=25: its kernels against their plain versions, then a dive
   through the NN kernels (kernel="cuda") and the torch route, with a
   network built to compute a known plant, in both solve modes;
+- the tracking slice: the point-mass waypoint and 2D ellipse costs and the
+  AUV quaternion-waypoint and 3D ellipse costs, each kernel variant against
+  its plain version; the 3-leg point-mass mission through
+  ``run_experiment`` (K=100,000, H=50), the 2-DoF ellipse loop on the
+  kernels and the plain path, the rexrov2 waypoint mission (K=262,144,
+  H=25) and the 3D ellipse on envs/bluerov, mission loops held to one host
+  sync a step;
 - the config CLI (``mppi_tf_tpu_torch.cli.main``) on the card for the
-  point-mass, rexrov2 and NN configs.
+  point-mass, rexrov2 and NN configs and the four tracking tasks.
 
 It times every kernel. Each phase prints one JSON line; any failed check
 raises and the script exits non-zero. Without a CUDA device it exits
@@ -94,6 +101,28 @@ NN_LOOP_Q = [60.0, 60.0, 60.0, 10.0] + [1.0] * 6
 NN_LOOP_STEPS, NN_LOOP_TOL = 80, 0.2
 NN_CLI_STEPS = 5
 
+# the tracking slice. Point-mass mission: the bundled envs/point_mass (lambda
+# 1, gamma 1, sigma 0.25 I) and tasks/waypoints_task (3 legs, radius 0.3) at
+# K, H; 150 steps end within 0.025 of the last leg at K=4,000 on the CPU,
+# the gate is the JAX serve drive's 0.25
+PM_WP_STEPS, PM_WP_TOL = 150, 0.25
+# the ellipse: tasks/elipse_task (a 4, b 2, speed 5) on a 2-DoF point mass
+# from (4, 0, 0, 0); gate over the last 100 of 300 steps, set from the CPU
+# rehearsal in both packages (tests/test_torch_tracking_costs.py::
+# test_elipse_loop_tracks_in_both: radial 0.26 / 0.25, speed error 4.27 /
+# 4.28, a lap); the normalized loop is a path for pm_fused_costs
+EL_PATCH = {"state-dim": 4, "action-dim": 2, "init-act": [0.0, 0.0],
+            "max-a": [1.0, 1.0], "noise": [[0.25, 0.0], [0.0, 0.25]]}
+EL_X0 = [4.0, 0.0, 0.0, 0.0]
+EL_STEPS, EL_NORM_STEPS, EL_RAD_TOL, EL_SPEED_TOL = 300, 100, 0.4, 4.5
+# the rexrov2 mission (tests/test_missions.py:141-187 at full width): the
+# dive's sigma and Q, legs at z = -1 and -2, radius 0.5; 240 steps (the
+# CPU rehearsal at K=2,048 overshoots to z = -2.22 near step 160 and is
+# back at -2.10 by step 200)
+AUV_WP_STEPS, AUV_WP_RADIUS, AUV_WP_TOL = 240, 0.5, 0.2
+# the 3D ellipse on envs/bluerov with the rexrov2 vehicle
+E3_STEPS = 40
+
 
 def known_plant_params(dt: float = 0.1, mass: float = NN_MASS,
                        inertia: float = NN_INERTIA) -> dict:
@@ -167,6 +196,18 @@ def nnz(a) -> int:
     return int(np.count_nonzero(a))
 
 
+#: operations of one 2D ellipse cost (pm_mppi.cu state_cost<kElipse>): two
+#: centred, scaled coordinates (4), their squares summed (3), |. - 1| (2),
+#: the speed (3 + sqrt 1), its error squared (2), the weighted sum (3)
+ELIPSE_OPS = 18
+#: operations of one 3D ellipse cost (auv_mppi.cu elipse3d_cost, FMA = 2,
+#: acos 10, rsqrt 1): centring (3), R_plane (18), the scaled squares and
+#: |. - 1| (11), q_plane (x) q (28), the tangent and its norm (13),
+#: between_two_vectors and its norm (12), the dot, |.| and acos (19), the
+#: speed error (7), the weighted sum (4)
+ELIPSE3D_OPS = 115
+
+
 def solve_ops(consts, k: int, tau: int, prng: bool,
               costs_only: bool = False) -> float:
     """Operations of one fused solve, from the nonzeros of this run's
@@ -174,9 +215,11 @@ def solve_ops(consts, k: int, tau: int, prng: bool,
     cost, the softmax, the w*z reduction, and one noise pass (the function
     needs each normal once; the kernel's regeneration in its second pass
     is its own choice and not counted). With ``costs_only`` (phase A): no
-    softmax or w*z."""
+    softmax or w*z. The state cost is the quadratic around dyn's goal or,
+    for the "elipse" kind, ``ELIPSE_OPS``."""
     sdim, adim = consts.dims
-    q_ops = sdim + 2 * nnz(consts.Q) + 2 * sdim
+    q_ops = (ELIPSE_OPS if consts.cost_kind == "elipse"
+             else sdim + 2 * nnz(consts.Q) + 2 * sdim)
     step = (2 * nnz(consts.A) + 2 * nnz(consts.Bs) + 2 * sdim + q_ops
             + 2 * adim + 2 * nnz(consts.Mz) + 2 * adim + 2)
     return _rollout_ops(k, tau, adim, step, q_ops, prng, costs_only)
@@ -199,8 +242,9 @@ def auv_solve_ops(consts, dyn, k: int, tau: int, prng: bool,
     (24), damping (2 nnz(L) + 2 nnz(L_fwd) + 36), M nu (2 nnz(M)), three
     cross products and their sums (36), restoring forces (24 + 2 nnz(cog)
     + 2 nnz(cob)), the force sum (6) and M^-1 rhs (2 nnz(M^-1)); a step adds
-    the generalised force, rk stages, the quaternion norm, the 10-dim cost
-    and the action-cost terms."""
+    the generalised force, rk stages, the quaternion norm, the state cost
+    (the 10-dim quadratic; twice for "waypoints_quat", with |dot| and the
+    blend; ``ELIPSE3D_OPS`` for "elipse3d") and the action-cost terms."""
     m_tot = dyn[:36].cpu().numpy()
     inv_m = dyn[36:72].cpu().numpy()
     sd = (36 + 18 + 24 + 2 * nnz(consts.lin_damp)
@@ -208,7 +252,10 @@ def auv_solve_ops(consts, dyn, k: int, tau: int, prng: bool,
           + 24 + 2 * nnz(consts.cog) + 2 * nnz(consts.cob) + 6
           + 2 * nnz(inv_m))
     stages = {1: sd + 26, 2: 2 * sd + 26 + 39, 4: 4 * sd + 3 * 52 + 39}
-    q_ops = 3 + 7 + 2 + 10 + 2 + 6 + 2 * nnz(consts.Q) + 20
+    q_ops = {"static_quat": 3 + 7 + 2 + 10 + 2 + 6 + 2 * nnz(consts.Q) + 20,
+             "waypoints_quat": 2 * (3 + 7 + 3 + 10 + 2 + 6
+                                    + 2 * nnz(consts.Q) + 20) + 3,
+             "elipse3d": ELIPSE3D_OPS}[consts.cost_kind]
     step = (6 + 2 * nnz(consts.scale) + stages[consts.rk] + 13 + q_ops
             + 12 + 2 * nnz(consts.Mz) + 12 + 2)
     return _rollout_ops(k, tau, 6, step, q_ops, prng, costs_only)
@@ -365,23 +412,27 @@ def closed_loop(kernel: str, normalize: bool = False,
     return ctrl, err, step_ms, counts
 
 
-def profile_steps(ctrl, steps: int = 20, x=None) -> dict:
+def profile_steps(ctrl, steps: int = 20, x=None, radius=None) -> dict:
     """Where a step's time goes: ``torch.profiler`` over ``steps`` calls of
-    MPPI.next at state ``x`` (default zeros); device busy share = summed
-    kernel time / wall time (one stream, so kernels do not overlap);
-    synchronising CUDA runtime calls per step (the action's copy to the
-    host is one)."""
+    MPPI.next at state ``x`` (default zeros), each followed by
+    ``advance_waypoints(x, radius)`` when a radius is given; device busy
+    share = summed kernel time / wall time (one stream, so kernels do not
+    overlap); synchronising CUDA runtime calls per step (the action's copy
+    to the host is one)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     x = np.zeros(6) if x is None else x
     ctrl.next(x)
     torch.cuda.synchronize()
+    pops = 0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             ctrl.next(x)
+            if radius is not None:
+                pops += ctrl.advance_waypoints(x, radius)
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
     kern = [e for e in events if e.device_type == DeviceType.CUDA]
@@ -390,7 +441,7 @@ def profile_steps(ctrl, steps: int = 20, x=None) -> dict:
     syncs = {e.key: e.count / steps for e in events
              if e.device_type == DeviceType.CPU and "Synchronize" in e.key}
     return {
-        "steps": steps, "wall_us_per_step": wall_us / steps,
+        "steps": steps, "wall_us_per_step": wall_us / steps, "pops": pops,
         "device_us_per_step": dev_us / steps,
         "device_busy_share": dev_us / wall_us,
         "kernel_launches_per_step": sum(e.count for e in kern) / steps,
@@ -701,6 +752,198 @@ def run_cli(workdir: str, name: str, env: dict, task: str, model: str,
         raise AssertionError(f"cli {name} returned {rc}")
     return json.loads(out.getvalue().strip().splitlines()[-1]), dict(
         pm.launch_counts)
+
+
+def check_syncs(prof: dict) -> None:
+    """One synchronising copy a step (the action's); the profiler itself
+    makes one cudaDeviceSynchronize per window."""
+    syncs = prof["syncs_per_step"]
+    if not (syncs.get("cudaStreamSynchronize", 0.0) <= 1.0
+            and syncs.get("cudaDeviceSynchronize", 0.0) * prof["steps"]
+            <= 1.0):
+        raise AssertionError(f"more than the action copy syncs a step: "
+                             f"{syncs}")
+
+
+def mission_profile(ctrl, x, label: str, smi: str) -> dict:
+    """The step profile of a mission in flight: a queue of 22 copies of the
+    state ``x`` pops on each of the 21 steps (warm-up included), so every
+    step uploads a new queue; held to one sync a step."""
+    ctrl.set_waypoints([np.ravel(x)] * 22)
+    prof = profile_steps(ctrl, x=x, radius=0.1)
+    emit("profile", kernel_path=ctrl.kernel_path, model=label,
+         mission=True, card=smi, **prof)
+    check_syncs(prof)
+    if prof["pops"] != prof["steps"]:
+        raise AssertionError(f"mission profile popped {prof['pops']} times")
+    return prof
+
+
+def pm_env(sdim: int = 6, **over) -> dict:
+    """envs/point_mass at K, H (2-DoF for the ellipse)."""
+    from mppi_tf_tpu_torch.cfg import default_config
+
+    env = dict(default_config("envs/point_mass"), samples=K, horizon=H)
+    if sdim == 4:
+        env.update(EL_PATCH)
+    return dict(env, **over)
+
+
+def tracking_fused(env: dict, task, model_name: str, k: int, tau: int):
+    """(model, cost, fused solve object) of a config triple on the card;
+    ``task`` is a bundled name or a dict."""
+    from mppi_tf_tpu_torch.cfg import default_config
+    from mppi_tf_tpu_torch.envs.runner import build_model_and_cost
+    from mppi_tf_tpu_torch.kernels.auv_mppi import FusedAUVMPPI
+    from mppi_tf_tpu_torch.kernels.pm_mppi import FusedPointMassMPPI
+
+    task = default_config(task) if isinstance(task, str) else task
+    model, cost, sigma = build_model_and_cost(
+        env, task, default_config(model_name), device="cuda")
+    cls = FusedAUVMPPI if model.get_state_dim() == 13 else FusedPointMassMPPI
+    return model, cost, cls(model, cost, k=k, tau=tau, lam=env["lambda"],
+                            upsilon=env["upsilon"], sigma=sigma)
+
+
+def check_pm_tracking(pm, fused, z, x0, label: str) -> dict:
+    """A point-mass tracking variant against its plain version on injected
+    z: per-sample costs (pm_fused_costs), the fused solve through the
+    solve object (pm_fused_solve + pm_merge, stats with the waypoint offset
+    added back) against the plain solve plus the same offset, and the
+    normalized two-phase solve (pm_fused_costs, mppi_weights, merges)
+    against the plain phases."""
+    k, tau, adim, c = fused.k, fused.tau, fused.adim, fused.consts
+    rng = np.random.default_rng(7)
+    x0 = torch.as_tensor(x0, dtype=torch.float32, device="cuda")
+    useq = torch.as_tensor(0.1 * rng.standard_normal((tau, adim)),
+                           dtype=torch.float32, device="cuda")
+    dyn = fused.pack_dyn(x0, useq)
+    costs_k, _ = pm.pm_fused_costs(c, dyn, k, tau, z=z)
+    costs_p = pm.sample_costs_plain(c, dyn, z)
+    wn_k, info_k = fused.solve(x0, useq, z=z)
+    zs_p, st_p = pm.merge_plain(pm.fused_solve_plain(c, dyn, k, tau, z=z))
+    cst_p = fused._with_offset(st_p)
+    wn_p = fused.unfold_wnoise(zs_p) / st_p[1]
+    wn_kn, info_kn = fused.solve(x0, useq, z=z, normalize=True)
+    cp_off, cst_pn = fused._with_offset(pm.merge_plain(
+        pm.cost_partials(costs_p))[1], costs_p)
+    nrm = torch.stack([cst_pn["cost_min"], 1.0 / (
+        (cst_pn["cost_max"] - cst_pn["cost_min"]) * fused.lam)])
+    zs_pn, st_pn = pm.merge_plain(pm.weights_plain(nrm, cp_off, tau, adim,
+                                                   z=z))
+    wn_pn = fused.unfold_wnoise(zs_pn) / st_pn[1]
+    torch.cuda.synchronize()
+    off = fused._cost_offset()
+    out = {"k": k, "tau": tau, "cost_kind": c.cost_kind,
+           "offset": None if off is None else off.item(),
+           "cost_rtol": PM_COST_RTOL, "cost_atol": PM_COST_ATOL}
+    ok_c, err_c, _ = close(costs_k, costs_p, PM_COST_RTOL, PM_COST_ATOL)
+    ok_w, err_w, _ = close(wn_k, wn_p, 1e-3, 1e-5)
+    scale = float(fused._scale.abs().max())
+    ok_n, err_n, _ = close(wn_kn, wn_pn, 1e-4, 1e-6 * scale)
+    rel = 0.0
+    for info, cst, n in ((info_k, cst_p, k), (info_kn, cst_pn, k)):
+        for key, ref in (("cost_min", cst["cost_min"]),
+                         ("cost_max", cst["cost_max"]),
+                         ("cost_mean", cst["cost_sum"] / n)):
+            rel = max(rel, abs(info[key].item() - ref.item())
+                      / max(abs(ref.item()), 1e-30))
+    out.update(costs_ok=ok_c, costs_max_abs_err=err_c, wnoise_ok=ok_w,
+               wnoise_max_abs_err=err_w, wnoise_rtol=1e-3, wnoise_atol=1e-5,
+               normalized_wnoise_ok=ok_n, normalized_max_abs_err=err_n,
+               normalized_rtol=1e-4, normalized_atol=1e-6 * scale,
+               stats_max_rel_err=rel, stats_rtol=1e-4)
+    emit(f"pm_tracking_vs_plain_{label}", **out)
+    if not (ok_c and ok_w and ok_n and rel <= 1e-4):
+        raise AssertionError(f"point-mass tracking kernel disagrees with "
+                             f"its plain version ({label}): {out}")
+    return out
+
+
+def elipse_errors(states) -> dict:
+    """Mean radial error |(x/a)^2 + (y/b)^2 - 1| and speed error ||v| - 5|
+    over the last 100 states of tasks/elipse_task (a 4, b 2), and the
+    angle travelled around the ellipse."""
+    tail = states[-100:]
+    rad = np.abs((tail[:, 0] / 4.0) ** 2 + (tail[:, 2] / 2.0) ** 2 - 1.0)
+    speed = np.abs(np.hypot(tail[:, 1], tail[:, 3]) - 5.0)
+    ang = np.unwrap(np.arctan2(states[:, 2] / 2.0, states[:, 0] / 4.0))
+    return {"radial_err": float(rad.mean()), "speed_err": float(speed.mean()),
+            "angle": float(abs(ang[-1] - ang[0]))}
+
+
+def elipse_loop(kernel: str, normalize: bool, steps: int):
+    """The 2-DoF point mass on tasks/elipse_task from EL_X0 through
+    MPPI.next at K, H. Returns (controller, states, host ms, counts)."""
+    from mppi_tf_tpu_torch.controller import get_controller
+    from mppi_tf_tpu_torch.envs import PointMassEnv
+    from mppi_tf_tpu_torch.kernels import pm_mppi as pm
+
+    env = pm_env(4, kernel=kernel, normalize=normalize)
+    model, cost, _ = tracking_fused(env, "tasks/elipse_task",
+                                    "models/point_mass_model", 8, 2)
+    ctrl = get_controller(model, cost, env, seed=0)
+    x0 = torch.as_tensor(EL_X0, dtype=torch.float32, device="cuda")
+    if ctrl.kernel_path == "cuda":   # warm-up without touching its state
+        ctrl._fused.solve(x0, ctrl.useq, normalize=normalize)
+    else:
+        ctrl._solve(x0, ctrl.useq)
+    torch.cuda.synchronize()
+    penv = PointMassEnv(n_dof=2, dt=DT)
+    x = penv.reset(np.asarray(EL_X0))
+    states, step_ms = [], []
+    pm.reset_launch_counts()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        u = ctrl.next(x)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        x = penv.step(u)
+        states.append(np.ravel(x))
+    return ctrl, np.asarray(states), step_ms, dict(pm.launch_counts)
+
+
+def auv_mission_loop(steps: int = AUV_WP_STEPS):
+    """The rexrov2 two-leg mission (z = -1, then z = -2) through MPPI.next
+    and advance_waypoints on the normalized kernels, 5 AUVEnv substeps a
+    step. Returns (controller, states, pop steps, host ms, counts)."""
+    from mppi_tf_tpu_torch import flagship
+    from mppi_tf_tpu_torch.controller import MPPI
+    from mppi_tf_tpu_torch.envs import AUVEnv
+    from mppi_tf_tpu_torch.kernels import pm_mppi as pm
+
+    wps = [rest_state(), rest_state()]
+    wps[0][2], wps[1][2] = -1.0, -2.0
+    task = {"type": "waypoints_quat", "diag": True, "Q": DIVE_Q,
+            "waypoints": [wps[0].tolist()], "alpha": 0.2}
+    model, cost = auv_modules("cuda", task, DIVE_SIGMA)
+    ctrl = MPPI(model, cost, k=AUV_K, tau=AUV_H, lam=AUV_LAM,
+                upsilon=AUV_UPSILON, sigma=DIVE_SIGMA, seed=3,
+                normalize_cost=True, kernel="auto")
+    ctrl.set_waypoints(wps)
+    x0 = torch.as_tensor(rest_state(), dtype=torch.float32, device="cuda")
+    if ctrl.kernel_path == "cuda":   # warm-up without touching its state
+        ctrl._fused.solve(x0, ctrl.useq, normalize=True)
+    torch.cuda.synchronize()
+    env = AUVEnv(flagship.auv_params(), dt=0.02)
+    x = env.reset()
+    states, pops, step_ms = [], [], []
+    pm.reset_launch_counts()
+    for step in range(steps):
+        t0 = time.perf_counter()
+        u = ctrl.next(x)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        for _ in range(DIVE_SUBSTEPS):
+            x = env.step(u)
+        if ctrl.advance_waypoints(x, AUV_WP_RADIUS):
+            pops.append(step)
+        states.append(x.ravel())
+    return ctrl, np.asarray(states), pops, step_ms, dict(pm.launch_counts)
+
+
+def kernel_time(fn, plain_fn, reps: int = 200) -> dict:
+    """ms of a kernel launch (CUDA events over ``reps``) and of its plain
+    version (3 calls after a warm-up)."""
+    return {"ms": cuda_ms(fn, reps), "plain_ms": cuda_ms(plain_fn, 3, 1)}
 
 
 def main() -> int:
@@ -1038,10 +1281,178 @@ def main() -> int:
          card=smi, **profile_steps(nn_loops["torch", False][0], 5,
                                    x=rest_state()))
 
-    # ---- 15. the config CLI on the card (no --cpu) --------------------------
-    import tempfile
-
+    # ---- 15. the tracking kernels against their plain versions --------------
     from mppi_tf_tpu_torch.cfg import default_config
+    from mppi_tf_tpu_torch.controller.missions import mission_params
+    from mppi_tf_tpu_torch.envs import run_experiment
+
+    rng_t = np.random.default_rng(4)
+    z_pm = torch.as_tensor(rng_t.standard_normal((H, 3, K), np.float32),
+                           device="cuda")
+    wp_chk = {}
+    for n in (1, 3):
+        task = dict(default_config("tasks/waypoints_task"))
+        task["waypoints"] = task["waypoints"][:n]
+        _, wp_cost, wp_fused = tracking_fused(
+            pm_env(), task, "models/point_mass_model", K, H)
+        wp_chk[n] = check_pm_tracking(pm, wp_fused, z_pm, np.zeros(6),
+                                      f"waypoints{n}_K100000_H50")
+    wp_cost.pop()
+    wp_chk["popped"] = check_pm_tracking(pm, wp_fused, z_pm, np.zeros(6),
+                                         "waypoints3_popped_K100000_H50")
+    del z_pm
+    z_el = torch.as_tensor(rng_t.standard_normal((H, 2, K), np.float32),
+                           device="cuda")
+    _, _, el_fused = tracking_fused(pm_env(4), "tasks/elipse_task",
+                                    "models/point_mass_model", K, H)
+    el_chk = check_pm_tracking(pm, el_fused, z_el, EL_X0,
+                               "elipse_K100000_H50")
+    del z_el
+    # the JAX bench's AUV mission (mppi_tf_tpu/bench.py:141-163), then
+    # after a pop
+    wq_legs = [rest_state(), rest_state()]
+    wq_legs[0][2] = -5.0
+    wq_legs[1][[0, 2, 3, 6]] = [4.0, -8.0, np.sin(0.4), np.cos(0.4)]
+    wq_model, wq_cost = auv_modules(
+        "cuda", {"type": "waypoints_quat", "diag": True, "alpha": 0.2,
+                 "waypoints": [w.tolist() for w in wq_legs],
+                 "Q": [100.0, 100.0, 100.0, 10.0] + [1.0] * 6}, AUV_SIGMA)
+    wq_fused = auv.FusedAUVMPPI(wq_model, wq_cost, k=AUV_K, tau=AUV_H,
+                                lam=AUV_LAM, upsilon=AUV_UPSILON,
+                                sigma=AUV_SIGMA)
+    z_auv = torch.as_tensor(rng_t.standard_normal((AUV_H, 6, AUV_K),
+                                                  np.float32), device="cuda")
+    wq_chk = check_auv(auv_k, pm, wq_fused, z_auv,
+                       "waypoints_quat_K262144_H25_rk2", useq_scale=200.0)
+    wq_cost.pop()
+    check_auv(auv_k, pm, wq_fused, z_auv,
+              "waypoints_quat_popped_K262144_H25_rk2", useq_scale=200.0)
+    mission_params(wq_cost, wq_legs)
+    # the 3D ellipse: envs/bluerov, tasks/elipse3d_task, models/rexrov2,
+    # from a point of the ellipse (4, 0, -3), heading +x
+    e3_env = dict(default_config("envs/bluerov"), samples=AUV_K,
+                  horizon=AUV_H)
+    _, _, e3_fused = tracking_fused(e3_env, "tasks/elipse3d_task",
+                                    "models/rexrov2", AUV_K, AUV_H)
+    x_e3 = rest_state()
+    x_e3[[0, 2]] = [4.0, -3.0]
+    e3_chk = check_auv(auv_k, pm, e3_fused, z_auv,
+                       f"elipse3d_K262144_H25_rk{e3_fused.consts.rk}",
+                       useq_scale=20.0, x0=x_e3)
+    del z_auv
+
+    # ---- 16. the point-mass mission through run_experiment -------------------
+    wp_task = default_config("tasks/waypoints_task")
+    legs = np.asarray(wp_task["waypoints"])
+    pm.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_experiment(pm_env(), wp_task,
+                         default_config("models/point_mass_model"),
+                         steps=PM_WP_STEPS, seed=0)
+    wp_counts = dict(pm.launch_counts)
+    ctrl_w, st_w = res["controller"], res["states"]
+    wp_err = float(np.linalg.norm(st_w[-1] - legs[-1]))
+    pops_w = len(legs) - ctrl_w.waypoints_remaining()
+    emit("pm_mission", kernel_path=ctrl_w.kernel_path, K=K, H=H,
+         steps=PM_WP_STEPS, pops=pops_w, final_err=wp_err, tol=PM_WP_TOL,
+         closest_to_legs=[float(np.linalg.norm(st_w - w, axis=1).min())
+                          for w in legs], launches=wp_counts,
+         seconds=time.perf_counter() - t0,
+         avg_solve_ms=1e3 * ctrl_w.timing["total"] / ctrl_w.timing["calls"])
+    want = {n: 0 for n in wp_counts}
+    want.update(pm_fused_solve=PM_WP_STEPS, pm_merge=PM_WP_STEPS)
+    if not (ctrl_w.kernel_path == "cuda" and wp_counts == want
+            and pops_w == 2 and wp_err < PM_WP_TOL):
+        raise AssertionError(f"point-mass mission: {ctrl_w.kernel_path}, "
+                             f"{wp_counts}, pops {pops_w}, err {wp_err}")
+    mission_profile(ctrl_w, np.zeros(6), "point_mass_waypoints", smi)
+    del ctrl_w, res
+
+    # ---- 17. the ellipse loop: kernels, the plain path, normalized kernels ---
+    el_loops = {}
+    for kernel, normalize, steps in (("auto", False, EL_STEPS),
+                                     ("torch", False, EL_STEPS),
+                                     ("auto", True, EL_NORM_STEPS)):
+        t0 = time.perf_counter()
+        ctrl_e, st_e, ms_e, counts_e = elipse_loop(kernel, normalize, steps)
+        errs = elipse_errors(st_e)
+        el_loops[kernel, normalize] = (ms_e, counts_e)
+        emit("elipse_closed_loop", kernel=kernel, normalize=normalize,
+             kernel_path=ctrl_e.kernel_path, K=K, H=H, steps=steps, **errs,
+             gate={"radial_err": EL_RAD_TOL, "speed_err": EL_SPEED_TOL,
+                   "angle": np.pi} if not normalize else None,
+             launches=counts_e, step_ms_median=float(np.median(ms_e)),
+             step_ms_p90=float(np.percentile(ms_e, 90)),
+             seconds=time.perf_counter() - t0)
+        want = {n: 0 for n in counts_e}
+        if kernel == "auto":
+            want.update({"pm_fused_costs": steps, "mppi_weights": steps,
+                         "pm_merge": 2 * steps} if normalize else
+                        {"pm_fused_solve": steps, "pm_merge": steps})
+        if not (np.all(np.isfinite(st_e)) and counts_e == want
+                and ctrl_e.kernel_path == ("torch" if kernel == "torch"
+                                           else "cuda")):
+            raise AssertionError(f"ellipse loop ({kernel}, {normalize}): "
+                                 f"{ctrl_e.kernel_path}, {counts_e}")
+        if not normalize and not (errs["radial_err"] < EL_RAD_TOL
+                                  and errs["speed_err"] < EL_SPEED_TOL
+                                  and errs["angle"] > np.pi):
+            raise AssertionError(f"ellipse loop missed its gate ({kernel}):"
+                                 f" {errs}")
+        del ctrl_e
+
+    # ---- 18. the rexrov2 waypoint mission on the normalized kernels ----------
+    t0 = time.perf_counter()
+    ctrl_m, st_m, pops_m, ms_m, counts_m = auv_mission_loop()
+    z_m = float(st_m[-1, 2])
+    drift_m = float(np.abs(np.linalg.norm(st_m[:, 3:7], axis=1) - 1.0).max())
+    emit("auv_mission", kernel_path=ctrl_m.kernel_path, K=AUV_K, H=AUV_H,
+         steps=AUV_WP_STEPS, pops=pops_m, z_final=z_m, z_err=abs(z_m + 2.0),
+         q_drift=drift_m, launches=counts_m,
+         step_ms_median=float(np.median(ms_m)),
+         step_ms_p90=float(np.percentile(ms_m, 90)),
+         seconds=time.perf_counter() - t0,
+         z_every_20=st_m[::20, 2].tolist())
+    want = {n: 0 for n in counts_m}
+    want.update(auv_fused_costs=AUV_WP_STEPS, mppi_weights=AUV_WP_STEPS,
+                pm_merge=2 * AUV_WP_STEPS)
+    if not (ctrl_m.kernel_path == "cuda" and counts_m == want
+            and len(pops_m) == 1 and ctrl_m.waypoints_remaining() == 1
+            and abs(z_m + 2.0) < AUV_WP_TOL and drift_m < 1e-3):
+        raise AssertionError(f"AUV mission: {ctrl_m.kernel_path}, "
+                             f"{counts_m}, pops {pops_m}, z {z_m}, drift "
+                             f"{drift_m}")
+    mission_profile(ctrl_m, rest_state(), "auv_waypoints_quat", smi)
+    del ctrl_m
+
+    # ---- 19. the 3D ellipse on envs/bluerov, both modes, on the kernels ------
+    e3_counts = {}
+    for normalize in (False, True):
+        pm.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_experiment(dict(e3_env, normalize=normalize),
+                             default_config("tasks/elipse3d_task"),
+                             default_config("models/rexrov2"),
+                             steps=E3_STEPS, seed=0)
+        counts = e3_counts[normalize] = dict(pm.launch_counts)
+        st = res["states"]
+        drift = float(np.abs(np.linalg.norm(st[:, 3:7], axis=1) - 1).max())
+        emit("elipse3d_closed_loop", normalize=normalize,
+             kernel_path=res["controller"].kernel_path, K=AUV_K, H=AUV_H,
+             steps=E3_STEPS, q_drift=drift, final_state=st[-1].tolist(),
+             launches=counts, seconds=time.perf_counter() - t0)
+        want = {n: 0 for n in counts}
+        want.update({"auv_fused_costs": E3_STEPS, "mppi_weights": E3_STEPS,
+                     "pm_merge": 2 * E3_STEPS} if normalize else
+                    {"auv_fused_solve": E3_STEPS, "pm_merge": E3_STEPS})
+        if not (res["controller"].kernel_path == "cuda" and counts == want
+                and np.all(np.isfinite(st)) and drift < 1e-3):
+            raise AssertionError(f"3D ellipse loop (normalize={normalize}):"
+                                 f" {counts}, drift {drift}")
+        del res
+
+    # ---- 20. the config CLI on the card (no --cpu) --------------------------
+    import tempfile
 
     with tempfile.TemporaryDirectory() as workdir:
         out_pm, c_pm = run_cli(workdir, "point_mass",
@@ -1060,9 +1471,35 @@ def main() -> int:
         out_nn, c_nn = run_cli(workdir, "nn", nn_env,
                                "tasks/static_cost_auv",
                                "models/auv_nn_model_quat", NN_CLI_STEPS)
+        cli_tasks = {
+            "waypoints": ("envs/point_mass", {}, "models/point_mass_model",
+                          "pm_fused_solve"),
+            "elipse": ("envs/point_mass", EL_PATCH, "models/point_mass_model",
+                       "pm_fused_solve"),
+            "waypoints_quat": ("envs/uuv_sim", {}, "models/rexrov2",
+                               "auv_fused_solve"),
+            "elipse3d": ("envs/bluerov", {}, "models/rexrov2",
+                         "auv_fused_solve")}
+        cli_out = {}
+        for name, (env_name, patch, model_name, kern) in cli_tasks.items():
+            cli_out[name] = run_cli(
+                workdir, name, dict(default_config(env_name), **patch),
+                f"tasks/{name}_task", model_name, NN_CLI_STEPS)
     emit("cli", point_mass=dict(out_pm, goal_err=err_pm, launches=c_pm),
          rexrov2=dict(out_auv, launches=c_auv),
-         nn=dict(out_nn, launches=c_nn))
+         nn=dict(out_nn, launches=c_nn),
+         **{name: dict(out, launches=counts)
+            for name, (out, counts) in cli_out.items()})
+    for name, (out, counts) in cli_out.items():
+        kern = cli_tasks[name][3]
+        x = np.asarray(out["final_state"])
+        want = {n: 0 for n in counts}
+        want.update({kern: NN_CLI_STEPS, "pm_merge": NN_CLI_STEPS})
+        if not (out["kernel_path"] == "cuda" and counts == want
+                and np.all(np.isfinite(x))
+                and (x.size != 13
+                     or abs(np.linalg.norm(x[3:7]) - 1.0) < 1e-3)):
+            raise AssertionError(f"cli {name}: {out}, {counts}")
     if not (out_pm["kernel_path"] == "cuda" and err_pm < 0.1
             and c_pm["pm_fused_solve"] == 100 and c_pm["pm_merge"] == 100):
         raise AssertionError(f"cli point mass: {out_pm}, {c_pm}")
@@ -1075,7 +1512,7 @@ def main() -> int:
             and np.all(np.isfinite(out_nn["final_state"]))):
         raise AssertionError(f"cli nn: {out_nn}, {c_nn}")
 
-    # ---- 16. times -------------------------------------------------------------
+    # ---- 21. times -------------------------------------------------------------
     consts, nb = fused.consts, -(-K // pm.BLOCK)
     n_z = H * 3
     part = pm.pm_fused_solve(consts, dyn, K, H, seed=1, solve=1)
@@ -1237,6 +1674,58 @@ def main() -> int:
 
     t_mlp = cuda_ms(mlp_matmuls, 20)
     del feats
+    # the tracking variants: the new instantiations, and the waypoint solve
+    # through its solve object (effective goal and offset on the device)
+    # beside the static one at the same shapes
+    trk = {}
+    el_dyn = el_fused.pack_dyn(torch.as_tensor(EL_X0, device="cuda"),
+                               torch.zeros(H, 2, device="cuda"))
+    ec = el_fused.consts
+    el_part_bytes = 4.0 * nb * (pm.STATS + H * 2)
+    trk["pm_elipse_solve"] = dict(
+        kernel_time(lambda: pm.pm_fused_solve(ec, el_dyn, K, H, seed=1,
+                                              solve=1),
+                    lambda: pm.fused_solve_plain(ec, el_dyn, K, H, seed=1,
+                                                 solve=1)),
+        bound=bound_ms(4.0 * el_dyn.numel() + el_part_bytes,
+                       solve_ops(ec, K, H, prng=True)))
+    trk["pm_elipse_costs"] = dict(
+        kernel_time(lambda: pm.pm_fused_costs(ec, el_dyn, K, H, seed=1,
+                                              solve=1),
+                    lambda: pm.fused_costs_plain(ec, el_dyn, K, H, seed=1,
+                                                 solve=1)),
+        bound=bound_ms(4.0 * el_dyn.numel() + 4.0 * K + rows_b,
+                       solve_ops(ec, K, H, prng=True, costs_only=True)))
+    x_pm, u_pm = torch.zeros(6, device="cuda"), torch.zeros(H, 3,
+                                                            device="cuda")
+    t_s1, t_w1, t_w2, t_s2 = (
+        cuda_ms(lambda: fused.solve(x_pm, u_pm, seed=1, solve=1), 200),
+        cuda_ms(lambda: wp_fused.solve(x_pm, u_pm, seed=1, solve=1), 200),
+        cuda_ms(lambda: wp_fused.solve(x_pm, u_pm, seed=1, solve=1), 200),
+        cuda_ms(lambda: fused.solve(x_pm, u_pm, seed=1, solve=1), 200))
+    trk["pm_solve_object_ms"] = {"static": [t_s1, t_s2],
+                                 "waypoints": [t_w1, t_w2]}
+    for name, fz, x0_t, u_scale in (("waypoints_quat", wq_fused, None,
+                                     200.0),
+                                    ("elipse3d", e3_fused, x_e3, 20.0)):
+        tc = fz.consts
+        tdyn = auv_dyn(fz, u_scale, seed=5, x0=x0_t)
+        trk[f"auv_{name}_solve"] = dict(
+            kernel_time(lambda: auv.auv_fused_solve(tc, tdyn, AUV_K, AUV_H,
+                                                    seed=1, solve=1),
+                        lambda: auv.fused_solve_plain(tc, tdyn, AUV_K, AUV_H,
+                                                      seed=1, solve=1)),
+            bound=bound_ms(4.0 * tdyn.numel() + a_part_bytes,
+                           auv_solve_ops(tc, tdyn, AUV_K, AUV_H, prng=True)))
+        trk[f"auv_{name}_costs"] = dict(
+            kernel_time(lambda: auv.auv_fused_costs(tc, tdyn, AUV_K, AUV_H,
+                                                    seed=1, solve=1),
+                        lambda: auv.fused_costs_plain(tc, tdyn, AUV_K, AUV_H,
+                                                      seed=1, solve=1)),
+            bound=bound_ms(4.0 * tdyn.numel() + 4.0 * AUV_K
+                           + 4.0 * a_nb * pm.STATS,
+                           auv_solve_ops(tc, tdyn, AUV_K, AUV_H, prng=True,
+                                         costs_only=True)))
     nn_next = {f"{kern}_{'normalized' if norm else 'unnormalized'}": {
         "median_ms": float(np.median(ms)),
         "p90_ms": float(np.percentile(ms, 90))}
@@ -1271,6 +1760,10 @@ def main() -> int:
                                  "K*H rows: a reading, not a yardstick of "
                                  "the fused rollout, never called by the "
                                  "port"},
+         tracking={**trk, "elipse_mppi_next_ms_median": {
+             f"{k}_{'normalized' if n else 'unnormalized'}": float(
+                 np.median(v[0])) for (k, n), v in el_loops.items()},
+             "auv_mission_mppi_next_ms_median": float(np.median(ms_m))},
          plain_note="plain PyTorch versions repeat the kernels' arithmetic; "
                     "no yardstick of speed",
          library_note="no single PyTorch call computes a fused MPPI rollout "
@@ -1355,6 +1848,50 @@ def main() -> int:
          "ms": t_ncosts, "plain_ms": p_ncosts, "bound_ms": b_ncosts[0],
          "bound_by": b_ncosts[1], "library_ms": None},
     ]
+    tracking_rows = (
+        ("pm_fused_solve[elipse]", src, "mppi_tf_tpu/kernels/pm_mppi.py:1000",
+         "pm_elipse_solve", el_loops["auto", False][1]["pm_fused_solve"],
+         "ellipse closed loop, unnormalized", el_chk["wnoise_max_abs_err"],
+         "end-to-end weighted noise (action units) against the plain solve, "
+         "K=100000, H=50"),
+        ("pm_fused_costs[elipse]", src, "mppi_tf_tpu/kernels/pm_mppi.py:1073",
+         "pm_elipse_costs", el_loops["auto", True][1]["pm_fused_costs"],
+         "ellipse closed loop, normalized", el_chk["costs_max_abs_err"],
+         "per-sample costs against the plain version, K=100000, H=50"),
+        ("auv_fused_solve[waypoints_quat]", asrc,
+         "mppi_tf_tpu/kernels/auv_mppi.py:804", "auv_waypoints_quat_solve",
+         cli_out["waypoints_quat"][1]["auv_fused_solve"],
+         "CLI tasks/waypoints_quat_task on envs/uuv_sim",
+         wq_chk["fused_cost_stats_max_abs_err"],
+         "merged cost min, max, mean of the fused rows against the plain "
+         "costs, K=262144, H=25"),
+        ("auv_fused_costs[waypoints_quat]", asrc,
+         "mppi_tf_tpu/kernels/auv_mppi.py:872", "auv_waypoints_quat_costs",
+         counts_m["auv_fused_costs"], "rexrov2 waypoint mission, normalized",
+         wq_chk["costs_max_abs_err"],
+         "per-sample costs against the plain version, K=262144, H=25"),
+        ("auv_fused_solve[elipse3d]", asrc,
+         "mppi_tf_tpu/kernels/auv_mppi.py:804", "auv_elipse3d_solve",
+         e3_counts[False]["auv_fused_solve"],
+         "3D ellipse loop on envs/bluerov, unnormalized",
+         e3_chk["fused_cost_stats_max_abs_err"],
+         "merged cost min, max, mean of the fused rows against the plain "
+         "costs, K=262144, H=25"),
+        ("auv_fused_costs[elipse3d]", asrc,
+         "mppi_tf_tpu/kernels/auv_mppi.py:872", "auv_elipse3d_costs",
+         e3_counts[True]["auv_fused_costs"],
+         "3D ellipse loop on envs/bluerov, normalized",
+         e3_chk["costs_max_abs_err"],
+         "per-sample costs against the plain version, K=262144, H=25"))
+    for name, source, replaces, key, launches, path, err, err_of in \
+            tracking_rows:
+        t = trk[key]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "path": path,
+            "max_abs_err": err, "max_abs_err_of": err_of, "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,11 +5,16 @@ weights them, updates the nominal sequence and shifts it. Two paths:
 
 - ``"torch"``: plain PyTorch ops (``ops/``), on any device, every option;
 - ``"cuda"``: the fused Hopper kernels, ``kernels/pm_mppi.py`` for the
-  point-mass model with the static cost, ``kernels/auv_mppi.py`` for the
-  AUV and ``kernels/nn_mppi.py`` for the learned ``NNAUVModel`` (only when
-  asked for by name), each with the static quaternion cost
-  (``normalize_cost`` as the two-phase costs / weights solve), plus the
-  sequence update and shift as torch ops on the card.
+  point-mass model with the static, waypoint or (4-dim) ellipse cost,
+  ``kernels/auv_mppi.py`` for the AUV with the static quaternion,
+  quaternion waypoint or 3D ellipse cost, and ``kernels/nn_mppi.py`` for
+  the learned ``NNAUVModel`` with the static quaternion cost (only when
+  asked for by name); ``normalize_cost`` runs as the two-phase costs /
+  weights solve, and the sequence update and shift as torch ops on the
+  card.
+
+Waypoint missions (``set_waypoints``, ``advance_waypoints``,
+``waypoints_remaining``) come from ``controller/missions.py``.
 
 Receding-horizon carry: the reference Python controller loses its update
 (the shifted sequence is assigned to a local, controller_base.py:339-341);
@@ -30,6 +35,7 @@ from ..kernels.errors import KernelUnsupportedError
 from ..ops import noise as noise_ops
 from ..ops import update as upd
 from ..ops.rollout import rollout_costs
+from .missions import MissionMixin
 from .state_io import cparams_entries, load_cparams
 
 #: the JAX package's kernel names, mapped onto the port's two paths
@@ -46,7 +52,7 @@ def savgol_matrix(tau: int, window: int, polyorder: int) -> np.ndarray:
                          axis=0)
 
 
-class MPPI:
+class MPPI(MissionMixin):
     """Information-theoretic MPPI controller.
 
     Args mirror the JAX package's ``MPPI`` (reference constructor
@@ -346,6 +352,7 @@ class MPPI:
         self._timing = {"total": float(d["timing_total"]),
                         "calls": int(d["timing_calls"])}
         load_cparams(d, self._cost.params())
+        self._cost.sync_host()
 
     @property
     def useq(self) -> torch.Tensor:

@@ -79,6 +79,11 @@ class CostBase(nn.Module):
         """Update the goal in place."""
         raise NotImplementedError
 
+    def sync_host(self) -> None:
+        """Bring any host-side copy of the params up to date after their
+        buffers were written directly (a checkpoint, interop); the static
+        costs keep none."""
+
     @property
     def dtype(self) -> torch.dtype:
         return self.inv_sigma.dtype

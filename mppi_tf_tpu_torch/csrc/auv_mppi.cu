@@ -1,11 +1,13 @@
 // Fused AUV (Fossen 6-DoF) MPPI solve for Hopper (sm_90a), plain C
 // interface; built with pm_mppi.cu into one library by kernels/_build.py.
 //
-// auv_fused_solve_kernel<RK, MODE> -- MODE kFused replaces
+// auv_fused_solve_kernel<RK, MODE, COST> -- MODE kFused replaces
 //   mppi_tf_tpu/kernels/auv_mppi.py::_fused_auv_call (_make_kernel mode
-//   "fused", cost "static_quat"); MODE kCosts replaces _fused_auv_costs
-//   (mode "costs", phase A of the normalized solve). Phase B is
-//   mppi_weights in pm_mppi.cu, shared with the point mass.
+//   "fused"); MODE kCosts replaces _fused_auv_costs (mode "costs", phase A
+//   of the normalized solve). Phase B is mppi_weights in pm_mppi.cu,
+//   shared with the point mass. COST is _make_kernel's cost_kind:
+//   kStaticQuat (:321-359), kWaypointsQuat (:360-368) and kElipse3D
+//   (:369-431).
 //
 //   One thread owns one sample and keeps its 13-state in registers over the
 //   horizon; the per-solve dyn array (mass matrix and inverse, mass, goal,
@@ -19,9 +21,21 @@
 //       matrix free as the JAX XLA path computes it)
 //     quaternion renormalisation, floor 1e-24 on the squared norm
 //     cost += q(x) + rhs_z_t . z_t + nc_half z_t^T Mz z_t
-//   then + q(x_H) + u_half; q is the 10-dim StaticQuatCost with the signed
-//   dot, clamped, under the native acosf (mppi_common.cuh quat_state_cost;
-//   the TPU kernel's polynomial _acos only worked around Mosaic).
+//   then + q(x_H) + u_half, where q is
+//   * kStaticQuat: the 10-dim StaticQuatCost with the signed dot, clamped,
+//     under the native acosf (mppi_common.cuh quat_state_cost; the TPU
+//     kernel's polynomial _acos only worked around Mosaic);
+//   * kWaypointsQuat: wblend[0] q(x; goal) + wblend[1] q(x; goal2), both
+//     with the |dot| geodesic of WayPointsQuatCost. Two exact evaluations,
+//     not one effective goal, because the angle is not linear in the goal;
+//     they run one after the other through one 10-vector (an unroll-1
+//     loop) with both goals and the runtime blend in shared memory, so a
+//     pop is new data and the second quadratic costs no registers;
+//   * kElipse3D: ElipseCost3D (costs/elipse.py): the pose taken into the
+//     plane frame (R_plane, q_plane (x) q), the algebraic ellipse distance,
+//     the angle to the ellipse tangent (between_two_vectors of the x-axis,
+//     with its antiparallel branch) and the speed error, under native
+//     acosf / rsqrtf; the constants share AuvConsts' 100 floats of Q.
 //
 //   RK is 1, 2 or 4, each integrated as models/auv.py::AUVModel.step does;
 //   the TPU kernel runs every rk != 1 as rk2, a fault not copied here.
@@ -45,6 +59,21 @@ using namespace mppi;
 
 constexpr float kGravity = 9.81f;
 
+// State costs (kernels/auv_mppi.py COST_KINDS).
+enum AuvCost { kStaticQuat = 0, kWaypointsQuat = 1, kElipse3D = 2 };
+
+// kElipse3D constants (kernels/auv_mppi.py AuvConsts.packed), 25 floats.
+struct Elipse3D {
+  float r_plane[9];  // inertial -> plane rotation, row-major
+  float q_plane[4];  // the same rotation as a quaternion (xyzw)
+  float center[3];
+  float axis[3];     // (a, b, 1)
+  float mapping[3];  // tangent map (-a/b, b/a, 0)
+  float gv;          // target speed
+  float ms;          // state weight
+  float mv;          // speed weight
+};
+
 // Solve constants, in the order of kernels/auv_mppi.py AuvConsts.packed.
 struct AuvConsts {
   float dt;
@@ -58,13 +87,31 @@ struct AuvConsts {
   float cob[3];
   float scale[36];         // upsilon sigma
   float mz[36];            // scale^T Sigma^-1 scale
-  float q[100];            // 10x10 cost weight
+  union {
+    float q[100];          // 10x10 cost weight (the quaternion costs)
+    Elipse3D el;           // kElipse3D
+  };
 };
+static_assert(sizeof(Elipse3D) == 25 * sizeof(float), "Elipse3D layout");
 static_assert(sizeof(AuvConsts) == 260 * sizeof(float), "AuvConsts layout");
 
-// dyn layout (kernels/auv_mppi.py Dyn)
+// dyn layout (kernels/auv_mppi.py Dyn, held equal to auv_dyn_size below):
+// the mass matrices, mass, goal, x0, useq and rhs_z (tau*6 each), u_half,
+// then the waypoint blocks goal2 (13) and wblend (2).
 constexpr int kMTot = 0, kInvM = 36, kMass = 72, kGoal = 73, kX0 = 86,
               kUseq = 99;
+__host__ __device__ constexpr int dyn_u_half(int tau) {
+  return kUseq + 12 * tau;
+}
+__host__ __device__ constexpr int dyn_goal2(int tau) {
+  return dyn_u_half(tau) + 1;
+}
+__host__ __device__ constexpr int dyn_wblend(int tau) {
+  return dyn_goal2(tau) + 13;
+}
+__host__ __device__ constexpr int dyn_size(int tau) {
+  return dyn_wblend(tau) + 2;
+}
 
 __device__ __forceinline__ void cross3(const float* u, const float* v,
                                        float* out) {
@@ -154,24 +201,93 @@ __device__ __forceinline__ void state_dot(const AuvConsts& c,
   }
 }
 
-template <int RK, int MODE>
+// ElipseCost3D.state_cost of one 13-state.
+__device__ __forceinline__ float elipse3d_cost(const Elipse3D& e,
+                                               const float* x) {
+  const float pc[3] = {x[0] - e.center[0], x[1] - e.center[1],
+                       x[2] - e.center[2]};
+  float pf[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    pf[i] = e.r_plane[i * 3] * pc[0] + e.r_plane[i * 3 + 1] * pc[1] +
+            e.r_plane[i * 3 + 2] * pc[2];
+  // position: |sum((p / axis)^2) - 1|
+  const float a0 = pf[0] / e.axis[0], a1 = pf[1] / e.axis[1],
+              a2 = pf[2] / e.axis[2];
+  const float p_err = fabsf(a0 * a0 + a1 * a1 + a2 * a2 - 1.0f);
+  // plane-frame attitude q_pf = q_plane (x) q (Hamilton product)
+  const float px = e.q_plane[0], py = e.q_plane[1], pz = e.q_plane[2],
+              pw = e.q_plane[3];
+  const float qx = x[3], qy = x[4], qz = x[5], qw = x[6];
+  const float fx = px * qw + py * qz - pz * qy + pw * qx;
+  const float fy = -px * qz + py * qw + pz * qx + pw * qy;
+  const float fz = px * qy - py * qx + pz * qw + pw * qz;
+  const float fw = -px * qx - py * qy - pz * qz + pw * qw;
+  // unit tangent at the plane-frame position
+  float tx = pf[1] * e.mapping[0], ty = pf[0] * e.mapping[1],
+        tz = pf[2] * e.mapping[2];
+  const float t2 = tx * tx + ty * ty + tz * tz;
+  const float tn = rsqrtf(fmaxf(t2, 1e-24f));
+  tx *= tn;
+  ty *= tn;
+  tz *= tn;
+  // between_two_vectors(x-axis, t) = (0, -tz, ty, 1 + tx), normalized;
+  // antiparallel (1 + tx < 1e-10): a half turn about z, (0, 0, 1, 0)
+  const float wt = 1.0f + tx;
+  const bool deg = wt < 1e-10f;
+  const float by = deg ? 0.0f : -tz, bz = deg ? 1.0f : ty,
+              bw = deg ? 0.0f : wt;
+  const float bn = rsqrtf(fmaxf(by * by + bz * bz + bw * bw, 1e-24f));
+  const float dot = (by * fy + bz * fz + bw * fw) * bn;
+  // a zero tangent (the position on the plane normal through the center)
+  // makes between_two_vectors the zero quaternion, whose relative angle is
+  // pi in ElipseCost3D; the TPU kernel's w = 1 + tx scores the identity
+  // there instead, a disagreement with its XLA path not copied
+  const float o_err = t2 > 0.0f ? 2.0f * acosf(fminf(fabsf(dot), 1.0f))
+                                : 3.14159265358979f;
+  // speed: ||v|^2 - gv^2|
+  const float v2 = x[7] * x[7] + x[8] * x[8] + x[9] * x[9];
+  const float v_err = fabsf(v2 - e.gv * e.gv);
+  return e.ms * p_err + e.ms * o_err + e.mv * v_err;
+}
+
+template <int COST>
+__device__ __forceinline__ float auv_state_cost(const AuvConsts& c,
+                                                const float* s_dyn, int tau,
+                                                const float* x) {
+  if constexpr (COST == kStaticQuat) {
+    return quat_state_cost(c.q, x, s_dyn + kGoal);
+  } else if constexpr (COST == kWaypointsQuat) {
+    const float* wb = s_dyn + dyn_wblend(tau);
+    float out = 0.0f;
+#pragma unroll 1
+    for (int g = 0; g < 2; ++g) {
+      const float* goal = s_dyn + (g == 0 ? kGoal : dyn_goal2(tau));
+      out = fmaf(wb[g], quat_state_cost<true>(c.q, x, goal), out);
+    }
+    return out;
+  } else {
+    return elipse3d_cost(c.el, x);
+  }
+}
+
+template <int RK, int MODE, int COST>
 __global__ void __launch_bounds__(kBlock)
     auv_fused_solve_kernel(const AuvConsts c, const float* __restrict__ dyn,
-                           int dyn_size, const float* __restrict__ z,
+                           int n_dyn, const float* __restrict__ z,
                            float* __restrict__ costs,
                            float* __restrict__ partials, int k_total,
                            int tau, Seeds sd) {
   extern __shared__ float smem[];
-  float* s_dyn = smem;             // dyn_size
-  float* s_red = smem + dyn_size;  // kWarps * n_z: pass-two warp sums
+  float* s_dyn = smem;          // n_dyn = dyn_size(tau)
+  float* s_red = smem + n_dyn;  // kWarps * n_z: pass-two warp sums
 
-  for (int i = threadIdx.x; i < dyn_size; i += kBlock) s_dyn[i] = dyn[i];
+  for (int i = threadIdx.x; i < n_dyn; i += kBlock) s_dyn[i] = dyn[i];
   __syncthreads();
 
-  const float* goal = s_dyn + kGoal;
   const float* useq = s_dyn + kUseq;
   const float* rhs_z = useq + 6 * tau;
-  const float u_half = rhs_z[6 * tau];
+  const float u_half = s_dyn[dyn_u_half(tau)];
   const float fng = -s_dyn[kMass] * kGravity;
 
   const int k = blockIdx.x * kBlock + threadIdx.x;
@@ -241,7 +357,7 @@ __global__ void __launch_bounds__(kBlock)
 #pragma unroll
     for (int i = 3; i < 7; ++i) x[i] *= inv;
 
-    cost += quat_state_cost(c.q, x, goal);
+    cost += auv_state_cost<COST>(c, s_dyn, tau, x);
     float quad = 0.0f;
 #pragma unroll
     for (int j = 0; j < 6; ++j) {
@@ -253,7 +369,7 @@ __global__ void __launch_bounds__(kBlock)
     }
     cost = fmaf(c.nc_half, quad, cost);
   }
-  cost += quat_state_cost(c.q, x, goal);
+  cost += auv_state_cost<COST>(c, s_dyn, tau, x);
   cost += u_half;
 
   if (MODE == kFused) {
@@ -269,34 +385,54 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
-template <int RK, int MODE>
+template <int RK, int MODE, int COST>
 int launch_auv(const AuvConsts& c, const float* dyn, const float* z,
                float* costs, float* partials, int k, int tau, Seeds sd,
                cudaStream_t stream) {
-  const int dyn_size = kUseq + 12 * tau + 1;
+  const int n_dyn = dyn_size(tau);
   size_t smem = 0;
-  const cudaError_t e = smem_for(auv_fused_solve_kernel<RK, MODE>, dyn_size,
-                                 MODE == kFused ? tau * 6 : 0, &smem);
+  const cudaError_t e =
+      smem_for(auv_fused_solve_kernel<RK, MODE, COST>, n_dyn,
+               MODE == kFused ? tau * 6 : 0, &smem);
   if (e != cudaSuccess) return e;
   const int nb = (k + kBlock - 1) / kBlock;
-  auv_fused_solve_kernel<RK, MODE><<<nb, kBlock, smem, stream>>>(
-      c, dyn, dyn_size, z, costs, partials, k, tau, sd);
+  auv_fused_solve_kernel<RK, MODE, COST><<<nb, kBlock, smem, stream>>>(
+      c, dyn, n_dyn, z, costs, partials, k, tau, sd);
   return cudaGetLastError();
 }
 
+template <int MODE, int COST>
+int dispatch_rk(int rk, const AuvConsts& c, const float* dyn, const float* z,
+                float* costs, float* partials, int k, int tau, Seeds sd,
+                cudaStream_t st) {
+  if (rk == 1)
+    return launch_auv<1, MODE, COST>(c, dyn, z, costs, partials, k, tau, sd,
+                                     st);
+  if (rk == 2)
+    return launch_auv<2, MODE, COST>(c, dyn, z, costs, partials, k, tau, sd,
+                                     st);
+  if (rk == 4)
+    return launch_auv<4, MODE, COST>(c, dyn, z, costs, partials, k, tau, sd,
+                                     st);
+  return cudaErrorInvalidValue;
+}
+
 template <int MODE>
-int dispatch_auv(int rk, const float* consts, const float* dyn,
+int dispatch_auv(int rk, int cost, const float* consts, const float* dyn,
                  const float* z, float* costs, float* partials, int k,
                  int tau, Seeds sd, cudaStream_t st) {
   if (k <= 0 || tau <= 0) return cudaErrorInvalidValue;
   AuvConsts c;
   memcpy(&c, consts, sizeof(c));
-  if (rk == 1)
-    return launch_auv<1, MODE>(c, dyn, z, costs, partials, k, tau, sd, st);
-  if (rk == 2)
-    return launch_auv<2, MODE>(c, dyn, z, costs, partials, k, tau, sd, st);
-  if (rk == 4)
-    return launch_auv<4, MODE>(c, dyn, z, costs, partials, k, tau, sd, st);
+  if (cost == kStaticQuat)
+    return dispatch_rk<MODE, kStaticQuat>(rk, c, dyn, z, costs, partials, k,
+                                          tau, sd, st);
+  if (cost == kWaypointsQuat)
+    return dispatch_rk<MODE, kWaypointsQuat>(rk, c, dyn, z, costs, partials,
+                                             k, tau, sd, st);
+  if (cost == kElipse3D)
+    return dispatch_rk<MODE, kElipse3D>(rk, c, dyn, z, costs, partials, k,
+                                        tau, sd, st);
   return cudaErrorInvalidValue;
 }
 
@@ -304,22 +440,28 @@ int dispatch_auv(int rk, const float* consts, const float* dyn,
 
 extern "C" {
 
-int auv_fused_solve(int rk, const float* consts, const float* dyn,
+// consts: AuvConsts.packed (260 floats); cost: AuvCost; dyn: dyn_size(tau)
+// floats.
+int auv_fused_solve(int rk, int cost, const float* consts, const float* dyn,
                     const float* z, float* partials, int k, int tau,
                     uint32_t seed_lo, uint32_t seed_hi, uint32_t s_lo,
                     uint32_t s_hi, void* stream) {
-  return dispatch_auv<kFused>(rk, consts, dyn, z, nullptr, partials, k, tau,
-                              Seeds{seed_lo, seed_hi, s_lo, s_hi},
+  return dispatch_auv<kFused>(rk, cost, consts, dyn, z, nullptr, partials, k,
+                              tau, Seeds{seed_lo, seed_hi, s_lo, s_hi},
                               static_cast<cudaStream_t>(stream));
 }
 
-int auv_fused_costs(int rk, const float* consts, const float* dyn,
+int auv_fused_costs(int rk, int cost, const float* consts, const float* dyn,
                     const float* z, float* costs, float* partials, int k,
                     int tau, uint32_t seed_lo, uint32_t seed_hi,
                     uint32_t s_lo, uint32_t s_hi, void* stream) {
-  return dispatch_auv<kCosts>(rk, consts, dyn, z, costs, partials, k, tau,
-                              Seeds{seed_lo, seed_hi, s_lo, s_hi},
+  return dispatch_auv<kCosts>(rk, cost, consts, dyn, z, costs, partials, k,
+                              tau, Seeds{seed_lo, seed_hi, s_lo, s_hi},
                               static_cast<cudaStream_t>(stream));
 }
+
+// The dyn length the kernels stage for horizon tau: the wrappers hold
+// kernels/auv_mppi.py Dyn(tau).size against it before a launch.
+int auv_dyn_size(int tau) { return dyn_size(tau); }
 
 }  // extern "C"

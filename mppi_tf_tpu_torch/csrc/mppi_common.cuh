@@ -133,17 +133,20 @@ __device__ __forceinline__ float warp_min(float v) {
 
 // StaticQuatCost.state_cost of a 13-dim AUV state (auv_mppi.cu,
 // nn_mppi.cu): d^T Q d, d = [p - g_p, 2 acos(clamp(q.g_q)), nu - g_nu] with
-// the signed dot (costs/static.py) and Q the 10x10 row-major weight. The
-// native acosf: the TPU kernels' polynomial _acos only worked around
+// the signed dot (costs/static.py) and Q the 10x10 row-major weight; with
+// kAbsDot the geodesic |q.g_q| of WayPointsQuatCost (costs/waypoints.py).
+// The native acosf: the TPU kernels' polynomial _acos only worked around
 // Mosaic.
+template <bool kAbsDot = false>
 __device__ __forceinline__ float quat_state_cost(const float* q,
                                                  const float* x,
                                                  const float* goal) {
   float d[10];
 #pragma unroll
   for (int i = 0; i < 3; ++i) d[i] = x[i] - goal[i];
-  const float dot = x[3] * goal[3] + x[4] * goal[4] + x[5] * goal[5] +
-                    x[6] * goal[6];
+  float dot = x[3] * goal[3] + x[4] * goal[4] + x[5] * goal[5] +
+              x[6] * goal[6];
+  if (kAbsDot) dot = fabsf(dot);
   d[3] = 2.0f * acosf(fminf(fmaxf(dot, -1.0f), 1.0f));
 #pragma unroll
   for (int i = 0; i < 6; ++i) d[4 + i] = x[7 + i] - goal[7 + i];

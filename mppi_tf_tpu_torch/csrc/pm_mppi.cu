@@ -16,9 +16,15 @@
 //   it writes (4 per normal); Philox and Box-Muller are ~32 operations per
 //   normal, below that.
 //
-// pm_fused_solve_kernel<S, A, MODE> -- MODE kFused replaces fused_pm_call
-//   (_make_kernel in mode "fused" + _fill_noise); MODE kCosts replaces
-//   fused_pm_costs (mode "costs", phase A of the normalized solve). One
+// pm_fused_solve_kernel<S, A, MODE, COST> -- MODE kFused replaces
+//   fused_pm_call (_make_kernel in mode "fused" + _fill_noise); MODE kCosts
+//   replaces fused_pm_costs (mode "costs", phase A of the normalized
+//   solve). COST is the state cost of _make_kernel's cost_kind:
+//   kQuadratic, (x - g)^T Q (x - g) around the goal in dyn (StaticCost, and
+//   WayPointsCost as its effective goal: the host adds the dropped
+//   constant back, kernels/pm_mppi.py); kElipse, the 2D ellipse cost over
+//   [x, vx, y, vy] (cost_kind "elipse", :474-485), built for (S, A) = (4, 2)
+//   only, with native sqrtf in place of the TPU's vector sqrt. One
 //   thread owns one sample; the state stays in registers over the horizon,
 //   the per-solve dyn array sits in shared memory. Bound by operations: the
 //   Philox + Box-Muller passes (~32 ops a normal each; two in kFused, one in
@@ -59,35 +65,49 @@ namespace {
 
 using namespace mppi;
 
+// State costs (kernels/pm_mppi.py COST_KINDS).
+enum PmCost { kQuadratic = 0, kElipse = 1 };
+
+// Solve constants, in the order of kernels/pm_mppi.py PmConsts.packed.
 template <int S, int A>
 struct Consts {
   float a[S * S];   // A
   float bs[S * A];  // B @ scale (mass free)
-  float q[S * S];   // Q
+  float q[S * S];   // Q (zero for kElipse)
   float mz[A * A];  // scale^T Sigma^-1 scale
   float lam;
   float nc_half;
+  float el[7];      // kElipse: a, b, cx, cy, gv, m_state, m_vel
 };
 
-template <int S, int A>
+template <int S, int A, int COST>
 __device__ __forceinline__ float state_cost(const Consts<S, A>& c,
                                             const float* x,
                                             const float* goal) {
-  float d[S];
+  if constexpr (COST == kElipse) {
+    static_assert(S == 4 && A == 2, "the ellipse cost is 2D: [x, vx, y, vy]");
+    // m_state |((x-cx)/a)^2 + ((y-cy)/b)^2 - 1| + m_vel (|v| - gv)^2
+    const float ex = (x[0] - c.el[2]) / c.el[0];
+    const float ey = (x[2] - c.el[3]) / c.el[1];
+    const float dv = sqrtf(x[1] * x[1] + x[3] * x[3]) - c.el[4];
+    return c.el[5] * fabsf(ex * ex + ey * ey - 1.0f) + c.el[6] * dv * dv;
+  } else {
+    float d[S];
 #pragma unroll
-  for (int i = 0; i < S; ++i) d[i] = x[i] - goal[i];
-  float out = 0.0f;
+    for (int i = 0; i < S; ++i) d[i] = x[i] - goal[i];
+    float out = 0.0f;
 #pragma unroll
-  for (int i = 0; i < S; ++i) {
-    float qd = 0.0f;
+    for (int i = 0; i < S; ++i) {
+      float qd = 0.0f;
 #pragma unroll
-    for (int j = 0; j < S; ++j) qd = fmaf(c.q[i * S + j], d[j], qd);
-    out = fmaf(d[i], qd, out);
+      for (int j = 0; j < S; ++j) qd = fmaf(c.q[i * S + j], d[j], qd);
+      out = fmaf(d[i], qd, out);
+    }
+    return out;
   }
-  return out;
 }
 
-template <int S, int A, int MODE>
+template <int S, int A, int MODE, int COST>
 __global__ void __launch_bounds__(kBlock)
     pm_fused_solve_kernel(const Consts<S, A> c, const float* __restrict__ dyn,
                           int dyn_size, const float* __restrict__ z,
@@ -138,7 +158,7 @@ __global__ void __launch_bounds__(kBlock)
       }
 #pragma unroll
       for (int i = 0; i < S; ++i) x[i] = xn[i];
-      cost += state_cost<S, A>(c, x, goal);
+      cost += state_cost<S, A, COST>(c, x, goal);
       float quad = 0.0f;
 #pragma unroll
       for (int j = 0; j < A; ++j) {
@@ -150,7 +170,7 @@ __global__ void __launch_bounds__(kBlock)
       }
       cost = fmaf(c.nc_half, quad, cost);
     }
-    cost += state_cost<S, A>(c, x, goal);
+    cost += state_cost<S, A, COST>(c, x, goal);
     cost += u_half;
   }
 
@@ -269,49 +289,46 @@ __global__ void __launch_bounds__(kMergeThreads)
   }
 }
 
-template <int S, int A, int MODE>
+template <int S, int A, int MODE, int COST>
 int launch_solve(const float* consts, const float* dyn, const float* z,
                  float* costs, float* partials, int k, int tau, Seeds sd,
                  cudaStream_t stream) {
   Consts<S, A> c;
-  const float* p = consts;
-  memcpy(c.a, p, sizeof(c.a));
-  p += S * S;
-  memcpy(c.bs, p, sizeof(c.bs));
-  p += S * A;
-  memcpy(c.q, p, sizeof(c.q));
-  p += S * S;
-  memcpy(c.mz, p, sizeof(c.mz));
-  p += A * A;
-  c.lam = p[0];
-  c.nc_half = p[1];
-
+  memcpy(&c, consts, sizeof(c));
   const int dyn_size = 1 + 2 * S + tau * (S + A) + 1;
   size_t smem = 0;
   const cudaError_t e =
-      smem_for(pm_fused_solve_kernel<S, A, MODE>, dyn_size,
+      smem_for(pm_fused_solve_kernel<S, A, MODE, COST>, dyn_size,
                MODE == kFused ? tau * A : 0, &smem);
   if (e != cudaSuccess) return e;
   const int nb = (k + kBlock - 1) / kBlock;
-  pm_fused_solve_kernel<S, A, MODE><<<nb, kBlock, smem, stream>>>(
+  pm_fused_solve_kernel<S, A, MODE, COST><<<nb, kBlock, smem, stream>>>(
       c, dyn, dyn_size, z, costs, partials, k, tau, sd);
   return cudaGetLastError();
 }
 
 template <int MODE>
-int dispatch_solve(int sdim, int adim, const float* consts, const float* dyn,
-                   const float* z, float* costs, float* partials, int k,
-                   int tau, Seeds sd, cudaStream_t st) {
+int dispatch_solve(int sdim, int adim, int cost, const float* consts,
+                   const float* dyn, const float* z, float* costs,
+                   float* partials, int k, int tau, Seeds sd,
+                   cudaStream_t st) {
   if (k <= 0 || tau <= 0) return cudaErrorInvalidValue;
+  if (cost == kElipse) {
+    if (sdim == 4 && adim == 2)
+      return launch_solve<4, 2, MODE, kElipse>(consts, dyn, z, costs,
+                                               partials, k, tau, sd, st);
+    return cudaErrorInvalidValue;
+  }
+  if (cost != kQuadratic) return cudaErrorInvalidValue;
   if (sdim == 6 && adim == 3)
-    return launch_solve<6, 3, MODE>(consts, dyn, z, costs, partials, k, tau,
-                                    sd, st);
+    return launch_solve<6, 3, MODE, kQuadratic>(consts, dyn, z, costs,
+                                                partials, k, tau, sd, st);
   if (sdim == 2 && adim == 1)
-    return launch_solve<2, 1, MODE>(consts, dyn, z, costs, partials, k, tau,
-                                    sd, st);
+    return launch_solve<2, 1, MODE, kQuadratic>(consts, dyn, z, costs,
+                                                partials, k, tau, sd, st);
   if (sdim == 4 && adim == 2)
-    return launch_solve<4, 2, MODE>(consts, dyn, z, costs, partials, k, tau,
-                                    sd, st);
+    return launch_solve<4, 2, MODE, kQuadratic>(consts, dyn, z, costs,
+                                                partials, k, tau, sd, st);
   return cudaErrorInvalidValue;
 }
 
@@ -330,22 +347,25 @@ int pm_noise_dump(float* out, int k, int n_z, uint32_t seed_lo,
   return cudaGetLastError();
 }
 
-int pm_fused_solve(int sdim, int adim, const float* consts, const float* dyn,
-                   const float* z, float* partials, int k, int tau,
-                   uint32_t seed_lo, uint32_t seed_hi, uint32_t s_lo,
-                   uint32_t s_hi, void* stream) {
-  return dispatch_solve<kFused>(sdim, adim, consts, dyn, z, nullptr,
+// consts: PmConsts.packed, sizeof(Consts<sdim, adim>) bytes; cost: PmCost.
+int pm_fused_solve(int sdim, int adim, int cost, const float* consts,
+                   const float* dyn, const float* z, float* partials, int k,
+                   int tau, uint32_t seed_lo, uint32_t seed_hi,
+                   uint32_t s_lo, uint32_t s_hi, void* stream) {
+  return dispatch_solve<kFused>(sdim, adim, cost, consts, dyn, z, nullptr,
                                 partials, k, tau,
                                 Seeds{seed_lo, seed_hi, s_lo, s_hi},
                                 static_cast<cudaStream_t>(stream));
 }
 
-int pm_fused_costs(int sdim, int adim, const float* consts, const float* dyn,
-                   const float* z, float* costs, float* partials, int k,
-                   int tau, uint32_t seed_lo, uint32_t seed_hi,
-                   uint32_t s_lo, uint32_t s_hi, void* stream) {
-  return dispatch_solve<kCosts>(sdim, adim, consts, dyn, z, costs, partials,
-                                k, tau, Seeds{seed_lo, seed_hi, s_lo, s_hi},
+int pm_fused_costs(int sdim, int adim, int cost, const float* consts,
+                   const float* dyn, const float* z, float* costs,
+                   float* partials, int k, int tau, uint32_t seed_lo,
+                   uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
+                   void* stream) {
+  return dispatch_solve<kCosts>(sdim, adim, cost, consts, dyn, z, costs,
+                                partials, k, tau,
+                                Seeds{seed_lo, seed_hi, s_lo, s_hi},
                                 static_cast<cudaStream_t>(stream));
 }
 

@@ -21,10 +21,9 @@ class ClosedLoopRunner:
         self.env = env
         self.controller = controller
         self.control_dt = float(control_dt)
-        # > 0 pops the leading waypoint of a waypoint cost once the plant is
-        # within this distance of it. Inert in the port until the waypoint
-        # costs and the mission surface are ported (ROADMAP item 8): no
-        # controller here has ``advance_waypoints`` yet.
+        # > 0 pops the leading waypoint of a WayPointsCost once the plant
+        # is within this distance of it (controller/missions.py; the wiring
+        # the reference's waypoint draft never got, cost_base.py:210-284)
         self.waypoint_radius = float(waypoint_radius)
 
     def run(self, steps: int, x0=None):
@@ -51,9 +50,16 @@ class ClosedLoopRunner:
         return np.asarray(states), np.asarray(actions)
 
     def _advance_waypoints(self, x):
-        advance = getattr(self.controller, "advance_waypoints", None)
-        if advance is not None:
-            advance(np.reshape(x, (-1,)), self.waypoint_radius)
+        """Pop the leading waypoint once the plant state is inside
+        ``waypoint_radius`` of it (Euclidean over the cost's dist vector),
+        through the controller's mission surface; decided on the host from
+        the plant state, so it adds no device sync."""
+        from ..costs.waypoints import WayPointsCost
+
+        if isinstance(getattr(self.controller, "_cost", None),
+                      WayPointsCost):
+            self.controller.advance_waypoints(np.reshape(x, (-1,)),
+                                              self.waypoint_radius)
 
 
 def build_model_and_cost(env_cfg, task_cfg, model_cfg, dtype=torch.float32,

@@ -3,7 +3,8 @@
 The JAX package threads model and cost parameters as pytrees
 (``model_params``, e.g. ``{"mass"}``, or an NN's
 ``{"net": [{"w", "b"}, ...], "x_mean", "x_std", "y_mean", "y_std"}``, and
-the cost params, e.g. ``{"goal"}``); this port holds them in its modules
+the cost params, e.g. ``{"goal"}`` or a waypoint queue's
+``{"count", "waypoints"}``); this port holds them in its modules
 (an NN's layer i as ``net.{i}.w`` / ``net.{i}.b``, its normalisers as the
 buffers named in ``param_buffers``). These helpers move them across as
 numpy arrays, so that both packages compute the same thing.
@@ -78,6 +79,8 @@ def from_jax_params(mparams: dict, cparams, model, cost=None):
         for name, buf in ({} if cost is None else cost.params()).items():
             value = np.asarray(cparams[name], np.float64).reshape(buf.shape)
             buf.copy_(torch.tensor(value, dtype=buf.dtype))
+    if cost is not None:
+        cost.sync_host()
     return model, cost
 
 

@@ -2,7 +2,10 @@
 plain PyTorch versions, and the solve object around them.
 
 Replaces the Pallas kernels of ``mppi_tf_tpu/kernels/auv_mppi.py`` for the
-rexrov2-style ``AUVModel`` with the ``StaticQuatCost``:
+rexrov2-style ``AUVModel`` with the ``StaticQuatCost``, the
+``WayPointsQuatCost`` (two exact quadratics with the |dot| geodesic, both
+goals and the blend weights in ``dyn``, so a pop is new data) or the
+``ElipseCost3D`` (cost kinds ``COST_KINDS``):
 
 - ``auv_fused_solve`` replaces ``_fused_auv_call`` (``_make_kernel`` in
   mode "fused"): one thread per sample rolls the Fossen dynamics (rk 1, 2
@@ -21,12 +24,13 @@ solve, k, tau, 6)`` is exactly what these kernels consume. Source:
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ..ops import quaternion as quat
+from . import _build
 from ._launch import check, launch, on_card, split64
 from .errors import KernelUnsupportedError
 from .pm_mppi import (BLOCK, STATS, TwoPhaseSolve, block_partials,
@@ -34,22 +38,28 @@ from .pm_mppi import (BLOCK, STATS, TwoPhaseSolve, block_partials,
 
 GRAVITY = 9.81
 SDIM, ADIM = 13, 6
+#: state costs of the kernel (``AuvCost`` in auv_mppi.cu)
+COST_KINDS = {"static_quat": 0, "waypoints_quat": 1, "elipse3d": 2}
 
 
 class Dyn:
     """Layout of the per-solve array ``dyn`` (the JAX package's ``_Dyn``
-    without its waypoint and schedule blocks), staged into shared memory."""
+    without its schedule block), staged into shared memory; the same
+    layout as the ``dyn_*`` offsets of auv_mppi.cu, whose ``auv_dyn_size``
+    the wrappers check against ``size``."""
 
     def __init__(self, tau: int):
         self.m_tot = 0                 # 36: total mass matrix, row-major
         self.inv_m = 36                # 36: its inverse
         self.mass = 72                 # 1
-        self.goal = 73                 # 13
+        self.goal = 73                 # 13 (waypoints: w0)
         self.x0 = 86                   # 13
         self.useq = 99                 # tau*6
         self.rhs_z = 99 + 6 * tau      # tau*6: scale^T (gamma Sigma^-1 u_t)
         self.u_half = 99 + 12 * tau    # 1: sum_t 0.5 gamma u^T Sigma^-1 u
-        self.size = self.u_half + 1
+        self.goal2 = self.u_half + 1   # 13: waypoints: w1
+        self.wblend = self.goal2 + 13  # 2: waypoints: (1-a, a), or (1, 0)
+        self.size = self.wblend + 2
 
 
 @dataclass
@@ -57,7 +67,9 @@ class AuvConsts:
     """Solve constants (the JAX kernel's compile-time ``_mc``): dt, rk, lam,
     nc_half = lam (1 - 1/upsilon) / 2, buoyancy rho V g, the damping
     matrices (quad_damp as its diagonal), cog, cob, scale = upsilon sigma,
-    Mz = scale^T Sigma^-1 scale and the 10x10 cost weight Q."""
+    Mz = scale^T Sigma^-1 scale, the 10x10 cost weight Q (the quaternion
+    costs), the cost kind and, for "elipse3d", the ellipse's R_plane,
+    q_plane, center, axis3, mapping, gv, mS and mV."""
 
     dt: float
     rk: int
@@ -72,16 +84,29 @@ class AuvConsts:
     scale: np.ndarray
     Mz: np.ndarray
     Q: np.ndarray
+    cost_kind: str = "static_quat"
+    elipse3d: dict = field(default_factory=dict)
+
+    #: the ellipse constants, in the order of ``Elipse3D`` in auv_mppi.cu
+    ELIPSE3D = ("R_plane", "q_plane", "center", "axis3", "mapping", "gv",
+                "mS", "mV")
 
     @functools.cached_property
     def packed(self) -> np.ndarray:
-        """f32 host array in the order of ``AuvConsts`` in auv_mppi.cu."""
+        """f32 host array in the order of ``AuvConsts`` in auv_mppi.cu; its
+        last 100 floats are Q, or the 25 ellipse constants padded."""
+        if self.cost_kind == "elipse3d":
+            tail = np.zeros(100)
+            el = np.concatenate([np.ravel(self.elipse3d[n])
+                                 for n in self.ELIPSE3D])
+            tail[:el.size] = el
+        else:
+            tail = self.Q.ravel()
         return np.ascontiguousarray(np.concatenate([
             [self.dt, self.lam, self.nc_half, self.buoyancy],
             self.lin_damp.ravel(), self.lin_damp_fwd.ravel(),
             self.quad_damp.ravel(), self.cog.ravel(), self.cob.ravel(),
-            self.scale.ravel(), self.Mz.ravel(), self.Q.ravel()]).astype(
-                np.float32))
+            self.scale.ravel(), self.Mz.ravel(), tail]).astype(np.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -111,19 +136,56 @@ def _state_dot(c: dict, m_tot, inv_m, fng, x, gf):
                      dim=-1)
 
 
-def _quat_cost(Q, goal, x):
-    """StaticQuatCost.state_cost (signed dot, clamped) on x [k, 13]."""
-    dot = torch.clamp(x[:, 3:7] @ goal[3:7], -1.0, 1.0)
+def _quat_cost(Q, goal, x, abs_dot: bool = False):
+    """StaticQuatCost.state_cost (signed dot, clamped) on x [k, 13]; with
+    ``abs_dot`` WayPointsQuatCost's geodesic |dot|."""
+    dot = x[:, 3:7] @ goal[3:7]
+    if abs_dot:
+        dot = torch.abs(dot)
+    dot = torch.clamp(dot, -1.0, 1.0)
     d = torch.cat([x[:, :3] - goal[:3], 2.0 * torch.acos(dot)[:, None],
                    x[:, 7:13] - goal[7:13]], dim=-1)
     return torch.sum((d @ Q.T) * d, dim=-1)
 
 
+def _elipse3d_cost(e: dict, x):
+    """ElipseCost3D.state_cost on x [k, 13] from the packed constants
+    ``e`` (tensors): the position through R_plane, as the kernel takes it."""
+    pf = (x[:, :3] - e["center"]) @ e["R_plane"].T
+    qf = quat.multiply(e["q_plane"].expand(x.shape[0], 4), x[:, 3:7])
+    p_err = torch.abs(torch.sum((pf / e["axis3"]) ** 2, dim=-1) - 1.0)
+    tg = pf[:, [1, 0, 2]] * e["mapping"]
+    tg = tg / torch.clamp(torch.linalg.vector_norm(tg, dim=-1, keepdim=True),
+                          min=1e-12)
+    x_axis = tg.new_tensor([1.0, 0.0, 0.0]).expand_as(tg)
+    o_err = quat.relative_angle(quat.between_two_vectors(x_axis, tg), qf)
+    v_err = torch.abs(torch.sum(x[:, 7:10] ** 2, dim=-1) - e["gv"] ** 2)
+    return e["mS"] * (p_err + o_err) + e["mV"] * v_err
+
+
+def _state_cost_fn(consts: "AuvConsts", dyn: torch.Tensor, lay: Dyn):
+    """The kernel's state cost q(x) of ``consts.cost_kind``, reading the
+    goals and blend weights from ``dyn``."""
+    if consts.cost_kind == "elipse3d":
+        e = {n: torch.tensor(np.asarray(v, np.float64), dtype=dyn.dtype,
+                             device=dyn.device)
+             for n, v in consts.elipse3d.items()}
+        return lambda x: _elipse3d_cost(e, x)
+    Q = torch.tensor(consts.Q, dtype=dyn.dtype, device=dyn.device)
+    goal = dyn[lay.goal:lay.x0]
+    if consts.cost_kind == "static_quat":
+        return lambda x: _quat_cost(Q, goal, x)
+    goal2 = dyn[lay.goal2:lay.wblend]
+    wb = dyn[lay.wblend:lay.size]
+    return lambda x: (wb[0] * _quat_cost(Q, goal, x, abs_dot=True)
+                      + wb[1] * _quat_cost(Q, goal2, x, abs_dot=True))
+
+
 def sample_costs_plain(consts: AuvConsts, dyn: torch.Tensor,
                        z: torch.Tensor) -> torch.Tensor:
     """Per-sample rollout costs [k] in the kernel's algebra: the Fossen
-    rollout of ``AUVModel.step`` and the ``StaticQuatCost`` over
-    eps = scale @ z, with Sigma^-1 and u folded into dyn."""
+    rollout of ``AUVModel.step`` and the state cost of ``consts.cost_kind``
+    over eps = scale @ z, with Sigma^-1 and u folded into dyn."""
     tau, _, k = z.shape
     lay = Dyn(tau)
 
@@ -134,11 +196,11 @@ def sample_costs_plain(consts: AuvConsts, dyn: torch.Tensor,
     c = {name: t_(getattr(consts, name)) for name in (
         "lin_damp", "lin_damp_fwd", "quad_damp", "cog", "cob")}
     c["buoyancy"] = consts.buoyancy
-    scale, Mz, Q = t_(consts.scale), t_(consts.Mz), t_(consts.Q)
+    scale, Mz = t_(consts.scale), t_(consts.Mz)
+    q = _state_cost_fn(consts, dyn, lay)
     m_tot = dyn[lay.m_tot:lay.inv_m].reshape(6, 6)
     inv_m = dyn[lay.inv_m:lay.mass].reshape(6, 6)
     fng = -dyn[lay.mass] * GRAVITY
-    goal = dyn[lay.goal:lay.x0]
     useq = dyn[lay.useq:lay.rhs_z].reshape(tau, 6)
     rhs_z = dyn[lay.rhs_z:lay.u_half].reshape(tau, 6)
     dt, rk = consts.dt, consts.rk
@@ -164,9 +226,9 @@ def sample_costs_plain(consts: AuvConsts, dyn: torch.Tensor,
         qn = torch.rsqrt(torch.clamp(torch.sum(x[:, 3:7] ** 2, dim=-1,
                                                keepdim=True), min=1e-24))
         x = torch.cat([x[:, :3], x[:, 3:7] * qn, x[:, 7:]], dim=-1)
-        cost = (cost + _quat_cost(Q, goal, x) + zt @ rhs_z[t]
+        cost = (cost + q(x) + zt @ rhs_z[t]
                 + consts.nc_half * torch.sum((zt @ Mz.T) * zt, dim=-1))
-    return cost + _quat_cost(Q, goal, x) + dyn[lay.u_half]
+    return cost + q(x) + dyn[lay.u_half]
 
 
 def fused_solve_plain(consts: AuvConsts, dyn: torch.Tensor, k: int,
@@ -196,9 +258,20 @@ def fused_costs_plain(consts: AuvConsts, dyn: torch.Tensor, k: int,
 # wrappers: plain version on the CPU, the CUDA kernel on the card
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def kernel_dyn_size(tau: int) -> int:
+    """The dyn length the CUDA kernels stage for horizon ``tau``
+    (``auv_dyn_size`` of the built library)."""
+    return _build.load_library().auv_dyn_size(tau)
+
+
 def _check_inputs(consts, dyn, z, k, tau):
     if consts.rk not in (1, 2, 4):
         raise KernelUnsupportedError(f"rk must be 1, 2 or 4, got {consts.rk}")
+    if kernel_dyn_size(tau) != Dyn(tau).size:
+        raise RuntimeError(
+            f"dyn layout mismatch: the kernels stage {kernel_dyn_size(tau)} "
+            f"floats at tau={tau}, Dyn packs {Dyn(tau).size}")
     check(dyn, "dyn", (Dyn(tau).size,))
     if z is not None:
         check(z, "z", (tau, ADIM, k))
@@ -215,7 +288,7 @@ def auv_fused_solve(consts: AuvConsts, dyn: torch.Tensor, k: int, tau: int,
     partials = torch.empty((-(-k // BLOCK), STATS + tau * ADIM),
                            dtype=torch.float32, device=dyn.device)
     launch("auv_fused_solve", dyn.device, consts.rk,
-           consts.packed.ctypes.data, dyn.data_ptr(),
+           COST_KINDS[consts.cost_kind], consts.packed.ctypes.data, dyn.data_ptr(),
            None if z is None else z.data_ptr(), partials.data_ptr(), k, tau,
            *split64(seed), *split64(solve))
     return partials
@@ -231,7 +304,7 @@ def auv_fused_costs(consts: AuvConsts, dyn: torch.Tensor, k: int, tau: int,
     partials = torch.empty((-(-k // BLOCK), STATS), dtype=torch.float32,
                            device=dyn.device)
     launch("auv_fused_costs", dyn.device, consts.rk,
-           consts.packed.ctypes.data, dyn.data_ptr(),
+           COST_KINDS[consts.cost_kind], consts.packed.ctypes.data, dyn.data_ptr(),
            None if z is None else z.data_ptr(), costs.data_ptr(),
            partials.data_ptr(), k, tau, *split64(seed), *split64(solve))
     return costs, partials
@@ -242,28 +315,35 @@ def auv_fused_costs(consts: AuvConsts, dyn: torch.Tensor, k: int, tau: int,
 # ---------------------------------------------------------------------------
 
 class FusedAUVMPPI(TwoPhaseSolve):
-    """Fused solve for MPPI over AUVModel + StaticQuatCost: packs ``dyn``
-    (the live mass matrices, mass and goal), runs ``auv_fused_solve`` +
-    ``pm_merge``, or the two phases ``auv_fused_costs`` and
-    ``mppi_weights``, and un-folds the weighted normals to action units.
+    """Fused solve for MPPI over AUVModel + {StaticQuatCost,
+    WayPointsQuatCost, ElipseCost3D}: packs ``dyn`` (the live mass
+    matrices, mass, goal or the waypoint queue's two leading waypoints and
+    blend weights), runs ``auv_fused_solve`` + ``pm_merge``, or the two
+    phases ``auv_fused_costs`` and ``mppi_weights``, and un-folds the
+    weighted normals to action units.
 
-    Counterpart of the JAX package's ``FusedAUVMPPI`` without its
-    waypoint, ellipse, schedule, antithetic and bf16 variants. The kernels
-    are float32; on the CPU the plain versions run at the model's dtype.
+    Counterpart of the JAX package's ``FusedAUVMPPI`` without its schedule,
+    antithetic and bf16 variants. The kernels are float32; on the CPU the
+    plain versions run at the model's dtype.
     """
 
     def __init__(self, model, cost, k: int, tau: int, lam: float,
                  upsilon: float, sigma):
+        from ..costs.elipse import ElipseCost3D
         from ..costs.static import StaticQuatCost
+        from ..costs.waypoints import WayPointsQuatCost
         from ..models.auv import AUVModel
 
         if not isinstance(model, AUVModel):
             raise KernelUnsupportedError(
                 "fused AUV kernel supports AUVModel only")
-        if type(cost) is not StaticQuatCost:
+        kinds = {StaticQuatCost: "static_quat",
+                 WayPointsQuatCost: "waypoints_quat",
+                 ElipseCost3D: "elipse3d"}
+        if type(cost) not in kinds:
             raise KernelUnsupportedError(
-                "fused AUV kernel supports StaticQuatCost only "
-                "(waypoints_quat and elipse3d: ROADMAP items 8 and 10)")
+                "fused AUV kernel supports StaticQuatCost, "
+                "WayPointsQuatCost or ElipseCost3D only")
         if model.device.type != "cpu" and model.dtype != torch.float32:
             raise KernelUnsupportedError(
                 f"fused kernel is float32, model is {model.dtype}")
@@ -276,6 +356,7 @@ class FusedAUVMPPI(TwoPhaseSolve):
         self.sdim, self.adim = SDIM, ADIM
         self.lam, self.upsilon = float(lam), float(upsilon)
         self.gamma = float(cost.gamma)
+        cost_kind = kinds[type(cost)]
         sigma = np.asarray(sigma, np.float64)
         scale = self.upsilon * sigma
         inv_sigma = np.linalg.inv(sigma)
@@ -283,6 +364,14 @@ class FusedAUVMPPI(TwoPhaseSolve):
         def f64(t):
             return t.detach().cpu().numpy().astype(np.float64)
 
+        elipse3d = {}
+        if cost_kind == "elipse3d":
+            q_plane = cost.q_plane.detach().cpu().double()
+            elipse3d = {
+                "R_plane": quat.to_rotation_matrix(q_plane).numpy(),
+                "q_plane": q_plane.numpy(), "center": f64(cost.center),
+                "axis3": f64(cost.axis), "mapping": f64(cost.mapping),
+                "gv": cost.gv, "mS": cost.mS, "mV": cost.mV}
         self.consts = AuvConsts(
             dt=model.dt, rk=model.rk, lam=self.lam,
             nc_half=0.5 * self.lam * (1.0 - 1.0 / self.upsilon),
@@ -290,27 +379,45 @@ class FusedAUVMPPI(TwoPhaseSolve):
             lin_damp_fwd=f64(model.lin_damp_fwd),
             quad_damp=np.diag(f64(model.quad_damp)).copy(), cog=f64(model.cog),
             cob=f64(model.cob), scale=scale,
-            Mz=scale.T @ inv_sigma @ scale, Q=f64(cost.Q))
+            Mz=scale.T @ inv_sigma @ scale,
+            Q=np.zeros((10, 10)) if cost_kind == "elipse3d" else f64(cost.Q),
+            cost_kind=cost_kind, elipse3d=elipse3d)
         like = {"dtype": model.dtype, "device": model.device}
         self._scale = torch.as_tensor(scale, **like)
         self._inv_sigma = torch.as_tensor(inv_sigma, **like)
 
+    def _goals(self, dtype) -> torch.Tensor:
+        """dyn's goal (13), then goal2 (13) and wblend (2) of the waypoint
+        blend: the static goal and zeros; the queue's w0, w1 and (1-a, a),
+        or (1, 0) while one waypoint remains (chosen on the device); zeros
+        for the ellipse, which reads none of them."""
+        kind = self.consts.cost_kind
+        if kind == "waypoints_quat":
+            wps = self.cost.waypoints.to(dtype)
+            a = (self.cost.count >= 2).to(dtype) * self.cost.alpha
+            return torch.cat([wps[0], wps[1], torch.stack([1.0 - a, a])])
+        out = torch.zeros(28, dtype=dtype, device=self.model.device)
+        if kind == "static_quat":
+            out[:13] = self.cost.goal.to(dtype)
+        return out
+
     def pack_dyn(self, x0: torch.Tensor, useq: torch.Tensor) -> torch.Tensor:
         """The per-solve ``dyn`` array ([Dyn.size], the model's dtype) from
         the state, the nominal sequence, the model's mass matrices (cached
-        on the model until its parameters change) and the live goal."""
+        on the model until its parameters change) and the live goals."""
         m_tot, inv_m = self.model.precompute()
         dtype = self.model.dtype
         useq = useq.to(dtype).reshape(self.tau, ADIM)
         rhs_z = (self.gamma * (useq @ self._inv_sigma.T)) @ self._scale
         u_half = 0.5 * self.gamma * torch.einsum(
             "ti,ij,tj->", useq, self._inv_sigma, useq)
+        goals = self._goals(dtype)
         return torch.cat([
             m_tot.detach().reshape(-1), inv_m.detach().reshape(-1),
-            self.model.mass.detach().reshape(1),
-            self.cost.goal.reshape(-1),
+            self.model.mass.detach().reshape(1), goals[:13],
             x0.to(dtype).reshape(SDIM),
-            useq.reshape(-1), rhs_z.reshape(-1), u_half.reshape(1)])
+            useq.reshape(-1), rhs_z.reshape(-1), u_half.reshape(1),
+            goals[13:]])
 
     def _fused(self, dyn, seed, solve, z):
         return auv_fused_solve(self.consts, dyn, self.k, self.tau, seed=seed,

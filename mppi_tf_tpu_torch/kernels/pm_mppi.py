@@ -9,7 +9,10 @@ Replaces the Pallas kernels of ``mppi_tf_tpu/kernels/pm_mppi.py``:
   the state in registers, sums the cost
   sum_t [q(x_{t+1}) + rhs_z_t . z_t + nc_half z_t^T Mz z_t] + phi(x_H) + u_half,
   then each block writes its softmax partial (m_b, l_b, cost min/max/sum,
-  zsum_b = sum_k w_k z_k) to a scratch row;
+  zsum_b = sum_k w_k z_k) to a scratch row. q is the quadratic around the
+  goal in ``dyn`` (the static cost, or the waypoint blend's effective goal
+  with its dropped constant added back on the host) or the 2D ellipse cost
+  (cost_kind "elipse" of ``_make_kernel``, state [x, vx, y, vy] only);
 - ``pm_fused_costs`` replaces ``fused_pm_costs`` (mode "costs", phase A of
   the normalized solve): the same rollout, writing costs[k] and a
   stats-only row per block;
@@ -61,6 +64,9 @@ BLOCK = 256
 STATS = 8
 #: (state dim, action dim) pairs the CUDA kernel is instantiated for
 SUPPORTED_DIMS = ((6, 3), (2, 1), (4, 2))
+#: state costs of the kernel (``PmCost`` in pm_mppi.cu); "elipse" is built
+#: for (4, 2) only
+COST_KINDS = {"quadratic": 0, "elipse": 1}
 
 
 class Dyn:
@@ -81,8 +87,10 @@ class Dyn:
 @dataclass
 class PmConsts:
     """Solve constants: A (sdim x sdim), Bs = B @ scale (sdim x adim, mass
-    free), Q (sdim x sdim), Mz = scale^T Sigma^-1 scale (adim x adim), lam,
-    nc_half = lam (1 - 1/upsilon) / 2."""
+    free), Q (sdim x sdim; zero for the ellipse), Mz = scale^T Sigma^-1
+    scale (adim x adim), lam, nc_half = lam (1 - 1/upsilon) / 2, the cost
+    kind (``COST_KINDS``) and the ellipse's (a, b, cx, cy, gv, m_state,
+    m_vel)."""
 
     A: np.ndarray
     Bs: np.ndarray
@@ -90,6 +98,8 @@ class PmConsts:
     Mz: np.ndarray
     lam: float
     nc_half: float
+    cost_kind: str = "quadratic"
+    elipse: tuple = (0.0,) * 7
 
     @property
     def dims(self):
@@ -97,10 +107,11 @@ class PmConsts:
 
     @functools.cached_property
     def packed(self) -> np.ndarray:
-        """f32 host array in the C struct's order: A, Bs, Q, Mz, lam, nc_half."""
+        """f32 host array in the order of ``Consts`` in pm_mppi.cu: A, Bs,
+        Q, Mz, lam, nc_half, the seven ellipse constants."""
         return np.ascontiguousarray(np.concatenate([
             self.A.ravel(), self.Bs.ravel(), self.Q.ravel(), self.Mz.ravel(),
-            [self.lam, self.nc_half]]).astype(np.float32))
+            [self.lam, self.nc_half], self.elipse]).astype(np.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -171,8 +182,9 @@ def noise_plain(seed: int, solve: int, k: int, tau: int, adim: int,
 def sample_costs_plain(consts: PmConsts, dyn: torch.Tensor,
                        z: torch.Tensor) -> torch.Tensor:
     """Per-sample rollout costs [k] in the kernel's folded algebra: the
-    rollout_costs of the point-mass model and static cost over
-    eps = scale @ z, with B scale, Sigma^-1 and u folded into dyn."""
+    rollout_costs of the point-mass model and its state cost (the
+    quadratic around dyn's goal, or the ellipse) over eps = scale @ z, with
+    B scale, Sigma^-1 and u folded into dyn."""
     tau, adim, k = z.shape
     sdim = consts.A.shape[0]
     lay = Dyn(tau, sdim, adim)
@@ -186,9 +198,17 @@ def sample_costs_plain(consts: PmConsts, dyn: torch.Tensor,
     bu = dyn[lay.bu:lay.rhs_z].reshape(tau, sdim)
     rhs_z = dyn[lay.rhs_z:lay.u_half].reshape(tau, adim)
 
-    def q(x):
-        d = x - goal
-        return torch.sum((d @ Q.T) * d, dim=-1)
+    if consts.cost_kind == "elipse":
+        a, b, cx, cy, gv, mx, mv = consts.elipse
+
+        def q(x):   # reference elipse_cost.py:46-79 over [x, vx, y, vy]
+            ex, ey = (x[:, 0] - cx) / a, (x[:, 2] - cy) / b
+            dv = torch.sqrt(x[:, 1] ** 2 + x[:, 3] ** 2) - gv
+            return mx * torch.abs(ex * ex + ey * ey - 1.0) + mv * dv * dv
+    else:
+        def q(x):
+            d = x - goal
+            return torch.sum((d @ Q.T) * d, dim=-1)
 
     x = dyn[lay.x0:lay.x0 + sdim].expand(k, sdim)
     cost = torch.zeros(k, dtype=dyn.dtype, device=dyn.device)
@@ -326,6 +346,10 @@ def _check_solve_inputs(name, consts, dyn, z, k, tau):
         raise KernelUnsupportedError(
             f"{name} is built for (sdim, adim) in {SUPPORTED_DIMS}, got "
             f"{(sdim, adim)}")
+    if consts.cost_kind == "elipse" and (sdim, adim) != (4, 2):
+        raise KernelUnsupportedError(
+            f"{name}: the ellipse cost is built for (4, 2), got "
+            f"{(sdim, adim)}")
     check(dyn, "dyn", (Dyn(tau, sdim, adim).size,))
     if z is not None:
         check(z, "z", (tau, adim, k))
@@ -344,7 +368,7 @@ def pm_fused_solve(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
     partials = torch.empty((-(-k // BLOCK), STATS + tau * adim),
                            dtype=torch.float32, device=dyn.device)
     launch("pm_fused_solve", dyn.device, sdim, adim,
-           consts.packed.ctypes.data, dyn.data_ptr(),
+           COST_KINDS[consts.cost_kind], consts.packed.ctypes.data, dyn.data_ptr(),
            None if z is None else z.data_ptr(), partials.data_ptr(), k, tau,
            *split64(seed), *split64(solve))
     return partials
@@ -362,7 +386,7 @@ def pm_fused_costs(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
     partials = torch.empty((-(-k // BLOCK), STATS), dtype=torch.float32,
                            device=dyn.device)
     launch("pm_fused_costs", dyn.device, sdim, adim,
-           consts.packed.ctypes.data, dyn.data_ptr(),
+           COST_KINDS[consts.cost_kind], consts.packed.ctypes.data, dyn.data_ptr(),
            None if z is None else z.data_ptr(), costs.data_ptr(),
            partials.data_ptr(), k, tau, *split64(seed), *split64(solve))
     return costs, partials
@@ -419,7 +443,16 @@ class TwoPhaseSolve:
     phases: A, the rollout's per-sample costs and their min / max / sum; B,
     the weights exp(-(c - beta) / ((max - beta) lam)) over the regenerated
     normals. The glue between them stays on the device: no host sync.
+
+    A subclass whose kernel drops a per-sample constant from the cost
+    returns it from ``_cost_offset()`` (a device scalar); the costs and
+    their stats get it back, while the weights, invariant to a constant
+    shift, stay as computed.
     """
+
+    def _cost_offset(self):
+        """The constant the kernel's costs lack, or None."""
+        return None
 
     def unfold_wnoise(self, zsum: torch.Tensor) -> torch.Tensor:
         """Weighted standard-normal sums [tau*adim] -> action units
@@ -442,16 +475,29 @@ class TwoPhaseSolve:
         zsum, stats = pm_merge(self._fused(self.pack_dyn(x0, useq), seed,
                                            solve, z))
         l = stats[1]
-        info = {"cost_min": stats[2], "cost_max": stats[3],
-                "cost_mean": stats[4] / self.k, "nabla": l}
+        cst = self._with_offset(stats)
+        info = {"cost_min": cst["cost_min"], "cost_max": cst["cost_max"],
+                "cost_mean": cst["cost_sum"] / self.k, "nabla": l}
         return self.unfold_wnoise(zsum) / l, info
+
+    def _with_offset(self, stats, costs=None):
+        """{cost_min, cost_max, cost_sum} of merged ``stats`` (and the
+        per-sample ``costs``) with ``_cost_offset()`` added back."""
+        cst = {"cost_min": stats[2], "cost_max": stats[3],
+               "cost_sum": stats[4]}
+        off = self._cost_offset()
+        if off is None:
+            return cst if costs is None else (costs, cst)
+        cst = {"cost_min": cst["cost_min"] + off,
+               "cost_max": cst["cost_max"] + off,
+               "cost_sum": cst["cost_sum"] + self.k * off}
+        return cst if costs is None else (costs + off, cst)
 
     def costs_phase(self, x0, useq, seed: int = 0, solve: int = 0, z=None):
         """Phase A: per-sample costs [k] and {cost_min, cost_max, cost_sum}."""
         costs, rows = self._costs(self.pack_dyn(x0, useq), seed, solve, z)
         _, stats = pm_merge(rows)
-        return costs, {"cost_min": stats[2], "cost_max": stats[3],
-                       "cost_sum": stats[4]}
+        return self._with_offset(stats, costs)
 
     def weights_phase(self, costs, beta, cmax, seed: int = 0, solve: int = 0,
                       z=None):
@@ -477,32 +523,49 @@ class TwoPhaseSolve:
 
 
 class FusedPointMassMPPI(TwoPhaseSolve):
-    """Fused solve for MPPI over PointMassModel + StaticCost: packs the
-    per-solve ``dyn`` array and runs ``pm_fused_solve`` + ``pm_merge``, or
-    the two phases ``pm_fused_costs`` and ``mppi_weights``; un-folds the
-    weighted normals to action units. The host glue is torch ops on the
-    model's device, with no host sync.
+    """Fused solve for MPPI over PointMassModel + {StaticCost,
+    WayPointsCost, ElipseCost}: packs the per-solve ``dyn`` array and runs
+    ``pm_fused_solve`` + ``pm_merge``, or the two phases ``pm_fused_costs``
+    and ``mppi_weights``; un-folds the weighted normals to action units.
+    The host glue is torch ops on the model's device, with no host sync.
+
+    The waypoint blend (1-a) q(x; w0) + a q(x; w1) with one Q is a single
+    quadratic around the effective goal g = (1-a) w0 + a w1 plus a
+    constant: the kernel runs the quadratic around g (w0 alone while one
+    waypoint remains), packed into ``dyn`` every solve so that a pop is new
+    data, and ``_cost_offset`` adds the constant back to the costs and
+    their stats (the weights do not depend on it).
 
     Counterpart of the JAX package's ``FusedPointMassMPPI`` without its
-    DMD, ellipse, waypoint, schedule, antithetic and bf16 variants.
+    DMD, schedule, antithetic and bf16 variants.
     """
 
     def __init__(self, model, cost, k: int, tau: int, lam: float,
                  upsilon: float, sigma):
+        from ..costs.elipse import ElipseCost
         from ..costs.static import StaticCost
+        from ..costs.waypoints import WayPointsCost
         from ..models.point_mass import PointMassModel
 
         if not isinstance(model, PointMassModel):
             raise KernelUnsupportedError(
                 "fused kernel supports PointMassModel only")
-        if type(cost) is not StaticCost:
+        dims = (model.get_state_dim(), model.get_action_dim())
+        if type(cost) in (StaticCost, WayPointsCost):
+            cost_kind = "quadratic"
+        elif type(cost) is ElipseCost:
+            if dims != (4, 2):
+                raise KernelUnsupportedError(
+                    "the ellipse cost needs the 4-dim [x, vx, y, vy] "
+                    f"point-mass state, got (sdim, adim) = {dims}")
+            cost_kind = "elipse"
+        else:
             raise KernelUnsupportedError(
-                "fused kernel supports StaticCost only (other costs: "
-                "ROADMAP queue-2 item 4)")
+                "fused kernel supports StaticCost, WayPointsCost or "
+                "ElipseCost only")
         if model.dtype != torch.float32:
             raise KernelUnsupportedError(
                 f"fused kernel is float32, model is {model.dtype}")
-        dims = (model.get_state_dim(), model.get_action_dim())
         if model.device.type == "cuda" and dims not in SUPPORTED_DIMS:
             raise KernelUnsupportedError(
                 f"the CUDA kernel is built for (sdim, adim) in "
@@ -512,17 +575,23 @@ class FusedPointMassMPPI(TwoPhaseSolve):
         self.sdim, self.adim = dims
         self.lam, self.upsilon = float(lam), float(upsilon)
         self.gamma = float(cost.gamma)
+        self._waypoints = type(cost) is WayPointsCost
         sigma = np.asarray(sigma, np.float64)
         scale = self.upsilon * sigma
         inv_sigma = np.linalg.inv(sigma)
         B = model.B.detach().cpu().numpy().astype(np.float64)
+        if cost_kind == "elipse":
+            Q = np.zeros((self.sdim, self.sdim))
+            elipse = (cost.a, cost.b, cost.cx, cost.cy, cost.gv, cost.mx,
+                      cost.mv)
+        else:
+            Q = cost.Q.detach().cpu().numpy().astype(np.float64)
+            elipse = (0.0,) * 7
         self.consts = PmConsts(
             A=model.A.detach().cpu().numpy().astype(np.float64),
-            Bs=B @ scale,
-            Q=cost.Q.detach().cpu().numpy().astype(np.float64),
-            Mz=scale.T @ inv_sigma @ scale,
-            lam=self.lam,
-            nc_half=0.5 * self.lam * (1.0 - 1.0 / self.upsilon))
+            Bs=B @ scale, Q=Q, Mz=scale.T @ inv_sigma @ scale, lam=self.lam,
+            nc_half=0.5 * self.lam * (1.0 - 1.0 / self.upsilon),
+            cost_kind=cost_kind, elipse=elipse)
         dev = model.device
 
         def f32(a):
@@ -530,6 +599,49 @@ class FusedPointMassMPPI(TwoPhaseSolve):
 
         self._B, self._scale, self._inv_sigma = f32(B), f32(scale), f32(
             inv_sigma)
+        self._Q = f32(Q)
+        self._wp_key, self._wp_terms = None, None
+
+    def _waypoint_terms(self):
+        """(dyn's goal, the cost offset) of the waypoint queue, computed on
+        the device with ``torch.where`` on the count (no host sync), and
+        again only when the queue's buffers change (a pop, a new mission).
+
+        The goal is g = (1-a) w0 + a w1, or w0 while one waypoint remains.
+        The offset is the constant the quadratic around g drops from each
+        sample's cost: (tau+1) evaluations (tau steps and the terminal) of
+        (1-a) w0'Qw0 + a w1'Qw1 - g'Qg (>= 0 by convexity), zero while one
+        waypoint remains."""
+        key = self.cost.queue_key()
+        if key != self._wp_key:
+            wps = self.cost.waypoints.to(torch.float32)
+            w0, w1, a = wps[0], wps[1], self.cost.alpha
+            g = (1.0 - a) * w0 + a * w1
+
+            def q(w):
+                return torch.sum((w @ self._Q.T) * w)
+
+            c = (1.0 - a) * q(w0) + a * q(w1) - q(g)
+            one = self.cost.count < 2
+            self._wp_terms = (torch.where(one, w0, g),
+                              torch.where(one, torch.zeros_like(c),
+                                          (self.tau + 1) * c))
+            self._wp_key = key
+        return self._wp_terms
+
+    def _goal(self) -> torch.Tensor:
+        """dyn's goal: the static goal, the waypoint queue's effective goal,
+        or zeros for the ellipse, which reads no goal."""
+        if self._waypoints:
+            return self._waypoint_terms()[0]
+        if self.consts.cost_kind == "elipse":
+            return torch.zeros(self.sdim, dtype=torch.float32,
+                               device=self._B.device)
+        return self.cost.goal.to(torch.float32)
+
+    def _cost_offset(self):
+        """The waypoint cost's offset (``_waypoint_terms``), else None."""
+        return self._waypoint_terms()[1] if self._waypoints else None
 
     def pack_dyn(self, x0: torch.Tensor, useq: torch.Tensor) -> torch.Tensor:
         """The per-solve ``dyn`` array (f32 [Dyn.size]) from the state, the
@@ -541,8 +653,7 @@ class FusedPointMassMPPI(TwoPhaseSolve):
             "ti,ij,tj->", useq, self._inv_sigma, useq)
         return torch.cat([
             (1.0 / self.model.mass.detach()).to(torch.float32).reshape(1),
-            x0.to(torch.float32).reshape(self.sdim),
-            self.cost.goal.to(torch.float32),
+            x0.to(torch.float32).reshape(self.sdim), self._goal(),
             bu.reshape(-1), rhs_z.reshape(-1), u_half.reshape(1)])
 
     def _fused(self, dyn, seed, solve, z):

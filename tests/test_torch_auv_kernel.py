@@ -202,7 +202,10 @@ def test_pack_dyn_layout():
     lay = auv.Dyn(tau)
     _, _, x0, useq = _inputs(k, tau)
     dyn = fused.pack_dyn(_t(x0), _t(useq))
-    assert dyn.shape == (lay.size,) == (100 + 12 * tau,)
+    # ... then the waypoint blocks goal2 (13) and wblend (2), zero for the
+    # static cost
+    assert dyn.shape == (lay.size,) == (115 + 12 * tau,)
+    np.testing.assert_array_equal(dyn[lay.goal2:].numpy(), np.zeros(15))
     with torch.no_grad():
         m_tot, inv_m = fused.model.precompute()
     np.testing.assert_array_equal(dyn[:36].numpy(), m_tot.reshape(-1))

@@ -256,3 +256,44 @@ def test_run_experiment_on_cpu_returns_histories():
     assert out["states"].shape == (4, 6) and out["actions"].shape == (3, 3)
     assert out["controller"].timing["calls"] == 3
     assert out["observer"] is None and out["learner"] is None
+
+
+#: the four tracking tasks of the bundled configs: env, task, model and the
+#: env patch the combination needs (the ellipse is 2D: a 2-DoF point mass)
+TRACKING = [
+    ("envs/point_mass", "tasks/waypoints_task", "models/point_mass_model",
+     {}),
+    ("envs/point_mass", "tasks/elipse_task", "models/point_mass_model",
+     {"state-dim": 4, "action-dim": 2, "init-act": [0.0, 0.0],
+      "max-a": [1.0, 1.0], "noise": [[0.25, 0.0], [0.0, 0.25]]}),
+    ("envs/uuv_sim", "tasks/waypoints_quat_task", "models/rexrov2", {}),
+    ("envs/bluerov", "tasks/elipse3d_task", "models/rexrov2", {}),
+]
+
+
+@pytest.mark.parametrize("env,task,model,patch", TRACKING,
+                         ids=[t[1].split("/")[1] for t in TRACKING])
+def test_cli_tracking_tasks_run_on_cpu(tmp_path, capsys, env, task, model,
+                                       patch):
+    """Each tracking task runs through the port's CLI (``--cpu``, K=64,
+    H=8, 5 steps): finite states of the env's size, a unit quaternion for
+    the AUV; the model and cost the config builds are the JAX package's."""
+    env_cfg = dict(config.default_config(env), samples=64, horizon=8,
+                   **patch)
+    path = config.write_config(env_cfg, str(tmp_path / "env.yaml"))
+    out = _run(cli.main, ["--config", path, "--task", task, "--model", model,
+                          "-s", "5", "--cpu"], capsys)
+    x = np.asarray(out["final_state"])
+    assert out["kernel_path"] == "torch" and out["steps"] == 5
+    assert x.shape == (env_cfg["state-dim"],) and np.all(np.isfinite(x))
+    if x.shape == (13,):
+        assert abs(np.linalg.norm(x[3:7]) - 1.0) < 1e-3
+    cfgs = [env_cfg] + [config.default_config(n) for n in (task, model)]
+    _, pc, _ = build_model_and_cost(*cfgs, dtype=torch.float64, device="cpu")
+    _, jc, _ = jbuild(*cfgs, dtype=jnp.float64)
+    assert type(pc).__name__ == type(jc).__name__
+    cp = {n: b.numpy() for n, b in pc.params().items()}
+    jcp = jc.init_params()
+    assert sorted(cp) == sorted(jcp)
+    for key in cp:
+        np.testing.assert_array_equal(cp[key], np.asarray(jcp[key]))

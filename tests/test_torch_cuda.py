@@ -59,8 +59,12 @@ def test_build_reports_every_kernel(cuda_device):
                    "pm_noise_dump_kernel", "mppi_weights_kernel",
                    "auv_fused_solve_kernel"):
         assert kernel in names
-    # RK 1, 2, 4 x (fused, costs)
-    assert sum("auv_fused_solve_kernel" in r["kernel"] for r in rows) == 6
+    # RK 1, 2, 4 x (fused, costs) x (static_quat, waypoints_quat, elipse3d)
+    assert sum("auv_fused_solve_kernel" in r["kernel"] for r in rows) == 18
+    # (fused, costs) x (three quadratic dims + the (4, 2) ellipse)
+    assert sum("pm_fused_solve_kernel" in r["kernel"] for r in rows) == 8
+    assert not [r for r in rows if r.get("spill_stores")
+                or r.get("spill_loads")]
 
 
 @pytest.mark.parametrize("k,tau,adim", [(700, 7, 3), (5000, 20, 3),
@@ -445,3 +449,173 @@ def test_nn_controller_resolves_the_kernel(cuda_device):
         MPPI(NNAUVModel(hidden=(16, 16, 16)), cost, kernel="cuda", **kw)
     with pytest.raises(NotImplementedError, match="item 4"):
         MPPI(NNAUVModel(), cost, kernel="cuda", antithetic=True, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the tracking costs: point-mass waypoints and ellipse, AUV waypoints_quat
+# and elipse3d
+# ---------------------------------------------------------------------------
+
+PM_WAYPOINTS = {"type": "waypoints", "diag": True,
+                "Q": [6.0, 0.6, 6.0, 0.6, 6.0, 0.6], "alpha": 0.2,
+                "waypoints": [[0.8, 0, 0, 0, 0, 0], [0.8, 0, -0.7, 0, 0, 0],
+                              [0.0, 0, -0.7, 0, 0.4, 0]]}
+PM_ELIPSE = {"type": "elipse", "a": 4.0, "b": 2.0, "center_x": 0.0,
+             "center_y": 0.0, "speed": 5.0, "m_state": 1.0, "m_vel": 0.1}
+
+
+def _auv_tracking_task(kind):
+    if kind == "elipse3d":
+        return {"type": "elipse3d", "normal": [0.0, 0.0, 1.0],
+                "aVec": [1.0, 0.0, 0.0], "axis": [4.0, 2.0],
+                "center": [0.0, 0.0, -3.0], "speed": 0.5, "m_state": 1.0,
+                "m_vel": 0.1}
+    w0, w1 = np.zeros(13), np.zeros(13)
+    w0[2], w0[6] = -1.0, 1.0
+    w1[0], w1[2] = 1.0, -2.0
+    w1[3], w1[6] = np.sin(0.3), np.cos(0.3)
+    return {"type": "waypoints_quat", "diag": True,
+            "Q": [60.0, 60.0, 60.0, 10.0] + [1.0] * 6, "alpha": 0.3,
+            "waypoints": [w0.tolist(), w1.tolist()]}
+
+
+@pytest.mark.parametrize("kind", ["waypoints", "elipse"])
+@pytest.mark.parametrize("k,tau", [(700, 7), (5000, 20)])
+def test_pm_tracking_kernels_match_plain(cuda_device, kind, k, tau):
+    sdim, task = (6, PM_WAYPOINTS) if kind == "waypoints" else (4, PM_ELIPSE)
+    adim = sdim // 2
+    model = get_model({"type": "point_mass"}, dt=0.1, state_dim=sdim,
+                      action_dim=adim, device=cuda_device)
+    sigma = SIGMA[:adim, :adim]
+    cost = get_cost(task, lam=LAM, gamma=GAMMA, upsilon=UPS, sigma=sigma,
+                    device=cuda_device)
+    fused = pm.FusedPointMassMPPI(model, cost, k=k, tau=tau, lam=LAM,
+                                  upsilon=UPS, sigma=sigma)
+    rng = np.random.default_rng(9)
+    z = torch.as_tensor(rng.standard_normal((tau, adim, k), np.float32),
+                        device=cuda_device)
+    x0 = torch.as_tensor(rng.normal(size=sdim) * 0.5 + ([3.0, 1.0, 0.5, 1.0]
+                         if kind == "elipse" else 0.0), dtype=torch.float32,
+                         device=cuda_device)
+    useq = torch.as_tensor(rng.normal(size=(tau, adim)) * 0.1,
+                           dtype=torch.float32, device=cuda_device)
+    for _ in range(2):            # then after a pop (waypoints)
+        dyn = fused.pack_dyn(x0, useq)
+        costs_k, rows = pm.pm_fused_costs(fused.consts, dyn, k, tau, z=z)
+        costs_p = pm.sample_costs_plain(fused.consts, dyn, z)
+        torch.testing.assert_close(costs_k, costs_p, rtol=1e-4, atol=1e-4)
+        part_k = pm.pm_fused_solve(fused.consts, dyn, k, tau, z=z)
+        part_p = pm.block_partials(costs_k, z.reshape(tau * adim, k), LAM)
+        torch.testing.assert_close(part_k[:, :5], part_p[:, :5], rtol=1e-5,
+                                   atol=1e-6)
+        wn_k, st_k = fused.solve(x0, useq, z=z)
+        wn_p, st_p = pm.merge_plain(pm.fused_solve_plain(
+            fused.consts, dyn, k, tau, z=z))
+        off = fused._cost_offset()
+        off = 0.0 if off is None else off
+        torch.testing.assert_close(st_k["cost_min"], st_p[2] + off,
+                                   rtol=1e-4, atol=0)
+        torch.testing.assert_close(st_k["cost_mean"], st_p[4] / k + off,
+                                   rtol=1e-4, atol=0)
+        if kind == "waypoints":
+            cost.pop()
+
+
+@pytest.mark.parametrize("kind", ["waypoints_quat", "elipse3d"])
+@pytest.mark.parametrize("rk", [1, 2, 4])
+def test_auv_tracking_kernels_match_plain(cuda_device, kind, rk):
+    k, tau = 4096, 25
+    model = get_model({**flagship.auv_params(), "rk": rk}, dt=0.1,
+                      device=cuda_device)
+    cost = get_cost(_auv_tracking_task(kind), lam=0.5, gamma=0.2,
+                    upsilon=1.2, sigma=AUV_SIGMA, device=cuda_device)
+    fused = auv.FusedAUVMPPI(model, cost, k=k, tau=tau, lam=0.5, upsilon=1.2,
+                             sigma=AUV_SIGMA)
+    z, x0, useq, dyn = _auv_inputs(fused, cuda_device, seed=rk)
+    if kind == "elipse3d":
+        # start on the ellipse: near the plane normal through its center
+        # the tangent's direction, and so the orientation error, turns on
+        # the last bits of the position
+        x0[[0, 2]] = torch.tensor([4.0, -3.0], device=cuda_device)
+        with torch.no_grad():
+            dyn = fused.pack_dyn(x0, useq)
+    c = fused.consts
+    for _ in range(2):            # then after a pop (waypoints_quat)
+        costs_k, rows_k = auv.auv_fused_costs(c, dyn, k, tau, z=z)
+        costs_p = auv.sample_costs_plain(c, dyn, z)
+        torch.testing.assert_close(costs_k, costs_p, rtol=COST_RTOL,
+                                   atol=COST_ATOL)
+        part_k = auv.auv_fused_solve(c, dyn, k, tau, z=z)
+        part_p = pm.block_partials(costs_k, z.reshape(tau * 6, k), c.lam)
+        torch.testing.assert_close(part_k[:, :5], part_p[:, :5], rtol=1e-5,
+                                   atol=1e-6)
+        if kind == "elipse3d":
+            break
+        cost.pop()
+        _, _, _, dyn = _auv_inputs(fused, cuda_device, seed=rk)
+
+
+def test_auv_dyn_size_is_the_kernels(cuda_device):
+    for tau in (1, 7, 25, 50):
+        assert auv.kernel_dyn_size(tau) == auv.Dyn(tau).size
+
+
+@pytest.mark.parametrize("kind", ["waypoints", "elipse", "waypoints_quat",
+                                  "elipse3d"])
+def test_tracking_costs_resolve_the_kernels(cuda_device, kind):
+    """kernel='cuda' runs each tracking cost on its kernel; an ellipse on
+    a 6-dim point mass raises under 'cuda' and stays plain under 'auto'."""
+    from mppi_tf_tpu_torch.kernels.errors import KernelUnsupportedError
+
+    if kind in ("waypoints", "elipse"):
+        sdim = 6 if kind == "waypoints" else 4
+        task = PM_WAYPOINTS if kind == "waypoints" else PM_ELIPSE
+        model = get_model({"type": "point_mass"}, dt=0.1, state_dim=sdim,
+                          action_dim=sdim // 2, device=cuda_device)
+        sigma = SIGMA[:sdim // 2, :sdim // 2]
+        x, want = np.zeros(sdim), "pm_fused_solve"
+    else:
+        model = get_model(flagship.auv_params(), dt=0.1, device=cuda_device)
+        task, sigma = _auv_tracking_task(kind), AUV_SIGMA
+        x, want = np.zeros(13), "auv_fused_solve"
+        x[6] = 1.0
+    cost = get_cost(task, lam=0.5, gamma=0.2, upsilon=1.0, sigma=sigma,
+                    device=cuda_device)
+    ctrl = MPPI(model, cost, k=1000, tau=6, lam=0.5, sigma=sigma,
+                kernel="cuda", device=cuda_device)
+    assert ctrl.kernel_path == "cuda"
+    before = pm.launch_counts[want]
+    assert np.all(np.isfinite(ctrl.next(x)))
+    assert pm.launch_counts[want] == before + 1
+    if kind == "elipse":
+        six = get_model({"type": "point_mass"}, dt=0.1, state_dim=6,
+                        action_dim=3, device=cuda_device)
+        with pytest.raises(KernelUnsupportedError):
+            MPPI(six, cost, k=100, tau=4, sigma=SIGMA, kernel="cuda",
+                 device=cuda_device)
+        assert MPPI(six, cost, k=100, tau=4, sigma=SIGMA, kernel="auto",
+                    device=cuda_device).kernel_path == "torch"
+
+
+def test_pm_mission_flies_on_the_kernels(cuda_device):
+    """A 3-leg point-mass mission through MPPI.next on the kernels: two
+    pops, then the last leg."""
+    model = get_model({"type": "point_mass"}, dt=0.1, state_dim=6,
+                      action_dim=3, device=cuda_device)
+    sigma = np.diag([0.25] * 3)
+    cost = get_cost(PM_WAYPOINTS, lam=0.8, gamma=0.2, upsilon=1.0,
+                    sigma=sigma, device=cuda_device)
+    ctrl = MPPI(model, cost, k=8192, tau=30, lam=0.8, sigma=sigma,
+                kernel="auto", device=cuda_device)
+    assert ctrl.kernel_path == "cuda"
+    from mppi_tf_tpu_torch.envs import PointMassEnv
+
+    env = PointMassEnv(n_dof=3, dt=0.1)
+    x = env.reset()
+    pops = 0
+    for _ in range(200):
+        x = env.step(ctrl.next(x))
+        pops += ctrl.advance_waypoints(x, 0.3)
+    assert pops == 2
+    assert np.linalg.norm(x.ravel() - np.asarray(
+        PM_WAYPOINTS["waypoints"][2])) < 0.25

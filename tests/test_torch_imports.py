@@ -33,7 +33,9 @@ def test_import_leaves_no_jax_modules():
         " mppi_tf_tpu_torch.envs, mppi_tf_tpu_torch.interop,"
         " mppi_tf_tpu_torch.models.nn, mppi_tf_tpu_torch.kernels.nn_mppi,"
         " mppi_tf_tpu_torch.cfg, mppi_tf_tpu_torch.envs.runner,"
-        " mppi_tf_tpu_torch.cli\n"
+        " mppi_tf_tpu_torch.cli, mppi_tf_tpu_torch.costs.elipse,"
+        " mppi_tf_tpu_torch.costs.waypoints,"
+        " mppi_tf_tpu_torch.controller.missions\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mppi_tf_tpu', 'triton'))\n"
         "print(','.join(bad))\n")
@@ -79,6 +81,13 @@ def test_sources_cover_the_nn_slice():
             "mppi_tf_tpu_torch/cfg/config.py",
             "mppi_tf_tpu_torch/envs/runner.py",
             "mppi_tf_tpu_torch/cli.py"} <= names
+
+
+def test_sources_cover_the_tracking_slice():
+    names = {p.relative_to(REPO).as_posix() for p in _sources()}
+    assert {"mppi_tf_tpu_torch/costs/elipse.py",
+            "mppi_tf_tpu_torch/costs/waypoints.py",
+            "mppi_tf_tpu_torch/controller/missions.py"} <= names
 
 
 def test_forbidden_matcher():

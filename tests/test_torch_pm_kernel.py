@@ -338,12 +338,15 @@ def test_consts_packing_order():
     fused, _, _ = _port(10, 3)
     c = fused.consts
     packed = c.packed
+    # A, Bs, Q, Mz, lam, nc_half, then the seven ellipse constants (zero
+    # for the quadratic cost)
     assert packed.dtype == np.float32 and packed.shape == (36 + 18 + 36
-                                                           + 9 + 2,)
+                                                           + 9 + 2 + 7,)
     np.testing.assert_allclose(packed[:36], c.A.ravel())
     np.testing.assert_allclose(packed[54:90], c.Q.ravel())
-    np.testing.assert_allclose(packed[-2:], [LAM, 0.5 * LAM * (1 - 1 / UPS)],
-                               rtol=1e-7)
+    np.testing.assert_allclose(packed[-9:-7],
+                               [LAM, 0.5 * LAM * (1 - 1 / UPS)], rtol=1e-7)
+    np.testing.assert_array_equal(packed[-7:], np.zeros(7))
 
 
 def test_parse_ptxas():
