@@ -25,9 +25,20 @@ port's paths through ``MPPI.next`` closed loop against the analytic plants:
   H=25) and the 3D ellipse on envs/bluerov, mission loops held to one host
   sync a step;
 - the config CLI (``mppi_tf_tpu_torch.cli.main``) on the card for the
-  point-mass, rexrov2 and NN configs and the four tracking tasks.
+  point-mass, rexrov2 and NN configs and the four tracking tasks;
+- the noise variants: ``point_mass_h100`` (H=100, exp noise schedule) with
+  the scheduled solve and costs against their plain versions and 300-step
+  loops in both modes, c_t = 1 set at run time against no schedule; the
+  antithetic dump (pairs sum to exactly 0), solve, costs and weights
+  (adim 3 and 6) and 300-step loops; the rexrov2 AUV and the NN with both
+  options, their kernels against the plain versions and their dives;
+- log mode: the CLI with ``-l`` and ``MPPI(observer=...)`` at
+  ``point_mass_h100``, held to the JAX observer's JSONL tags.
 
-It times every kernel. Each phase prints one JSON line; any failed check
+The build phase reports each instantiation's registers beside those it
+had before the noise variants (PERF.md). It
+times every kernel, and each noise variant beside the same kernel without
+it. Each phase prints one JSON line; any failed check
 raises and the script exits non-zero. Without a CUDA device it exits
 non-zero before printing any result.
 
@@ -123,6 +134,44 @@ AUV_WP_STEPS, AUV_WP_RADIUS, AUV_WP_TOL = 240, 0.5, 0.2
 # the 3D ellipse on envs/bluerov with the rexrov2 vehicle
 E3_STEPS = 40
 
+# the long-horizon row of the JAX bench suite, "point_mass_h100"
+# (mppi_tf_tpu/bench.py:83-87, :183, BASELINE.json configs[3]): the point
+# mass above at K, H=100 with the per-step noise schedule exp 1 -> 0.25
+H100 = 100
+SCHED = {"type": "exp", "start": 1.0, "end": 0.25}
+# its gates: the normalized loop ends within GOAL_TOL; the unnormalized one
+# does not settle that close in either package (the softmax over H=100
+# costs is near one-hot), so it is held to the goal error's mean over the
+# last SCHED_WINDOW steps. That mean falls with K: 0.28-0.36 at K=1,000
+# in both packages (tests/test_torch_noise_variants.py::
+# test_point_mass_h100_loops_in_both_packages)
+SCHED_WINDOW, SCHED_MEAN_TOL = 100, 0.2
+# registers a thread of each instantiation before the noise variants were
+# added (PERF.md, the tracking slice's Findings): exact for the AUV's
+# <RK, MODE, COST>, a range where PERF.md recorded one
+BASE_REGISTERS = {
+    **{("auv_fused_solve_kernel", (rk, mode, cost)): r
+       for mode, by_cost in ((0, ((161, 204, 210), (128, 205, 198),
+                                  (141, 202, 198))),
+                             (1, ((168, 208, 220), (128, 205, 207),
+                                  (148, 202, 207))))
+       for cost, regs in enumerate(by_cost)
+       for rk, r in zip((1, 2, 4), regs)},
+    "pm_fused_solve_kernel": [32, 48],
+    ("nn_fused_solve_kernel", (8, 8, 0, 0)): 80,
+    ("nn_fused_solve_kernel", (8, 8, 0, 1)): 80,
+    "nn_fused_solve_kernel": [172, 178],
+}
+# both noise options, as MPPI keywords (the AUV dive, the NN dive) and as
+# solve-object keywords
+BOTH = {"noise_schedule": SCHED, "antithetic": True}
+FUSED_BOTH = {"schedule": SCHED, "antithetic": True}
+# the steps logged through MPPI(observer=...) at point_mass_h100, and the
+# CLI's logged point-mass run
+LOG_STEPS, LOG_CLI_STEPS = 5, 20
+# the tag families of the JAX observer's JSONL (observer_base.py:101-187)
+LOG_FAMILIES = ("Cost/", "Controller/", "Input/axis_", "State/state")
+
 
 def known_plant_params(dt: float = 0.1, mass: float = NN_MASS,
                        inertia: float = NN_INERTIA) -> dict:
@@ -157,6 +206,24 @@ def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
+def registers_vs_base(ptxas: list) -> list:
+    """Each instantiation's registers beside ``BASE_REGISTERS`` (null
+    where none was recorded), by kernel name and template arguments read
+    from the mangled name."""
+    import re
+
+    rows = []
+    for r in ptxas:
+        m = re.search(r"([a-z_]+_kernel)(?:I((?:Li-?\d+E)+)E)?", r["kernel"])
+        name = m.group(1)
+        args = tuple(int(a) for a in re.findall(r"Li(-?\d+)E",
+                                                m.group(2) or ""))
+        base = BASE_REGISTERS.get((name, args), BASE_REGISTERS.get(name))
+        rows.append({"kernel": name, "template": list(args),
+                     "registers": r.get("registers"), "base": base})
+    return rows
+
+
 def workload(device):
     from mppi_tf_tpu_torch.costs import get_cost
     from mppi_tf_tpu_torch.models import get_model
@@ -183,6 +250,28 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = 50) -> float:
+    """The device time of one launch of ``fn``'s kernel (``fn`` launches
+    one), from ``torch.profiler`` over ``reps`` calls: without the host's
+    launch cost, which back-to-back CUDA-event timing includes where a
+    kernel is shorter than its launch. The mean is over the launches the
+    profiler recorded, which may be fewer than ``reps``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in kern)
+            / max(sum(e.count for e in kern), 1) / 1e3)
 
 
 def close(a: torch.Tensor, b: torch.Tensor, rtol: float, atol: float):
@@ -384,19 +473,30 @@ def noise_phase(pm, seed: int, solve: int) -> dict:
     return {"max_abs_err": err, "launches": launches}
 
 
-def closed_loop(kernel: str, normalize: bool = False,
-                steps: int = LOOP_STEPS):
-    """K=100k, H=50 closed loop through the factories against the analytic
-    plant; returns (controller, final goal error, per-step host ms)."""
+def pm_controller(kernel: str = "auto", normalize: bool = False,
+                  tau: int = H, **extra):
+    """The point-mass workload's controller through get_controller at K and
+    horizon ``tau``, with env-config keys ``extra``."""
     from mppi_tf_tpu_torch.controller import get_controller
+
+    model, cost = workload("cuda")
+    cfg = {"samples": K, "horizon": tau, "lambda": LAM, "upsilon": UPSILON,
+           "noise": SIGMA.tolist(), "kernel": kernel,
+           "normalize": normalize, **extra}
+    return get_controller(model, cost, cfg)
+
+
+def closed_loop(kernel: str, normalize: bool = False,
+                steps: int = LOOP_STEPS, tau: int = H, errs=None, **extra):
+    """K=100k closed loop (H=50, or ``tau``) through the factories against
+    the analytic plant, with env-config keys ``extra`` ("noise-schedule",
+    "antithetic"); returns (controller, final goal error, per-step host
+    ms, launch counts), and appends each step's goal error to ``errs``
+    when given."""
     from mppi_tf_tpu_torch.envs import PointMassEnv
     from mppi_tf_tpu_torch.kernels import pm_mppi as pm
 
-    model, cost = workload("cuda")
-    cfg = {"samples": K, "horizon": H, "lambda": LAM, "upsilon": UPSILON,
-           "noise": SIGMA.tolist(), "kernel": kernel,
-           "normalize": normalize}
-    ctrl = get_controller(model, cost, cfg)
+    ctrl = pm_controller(kernel, normalize, tau, **extra)
     ctrl.trace()  # builds and warms up; restores the controller's state
     env = PointMassEnv(n_dof=3, mass=MASS, dt=DT)
     x = env.reset()
@@ -407,6 +507,8 @@ def closed_loop(kernel: str, normalize: bool = False,
         u = ctrl.next(x)  # returns a host array: ends in a sync
         step_ms.append((time.perf_counter() - t0) * 1e3)
         x = env.step(u)
+        if errs is not None:
+            errs.append(float(np.linalg.norm(x.ravel() - np.asarray(GOAL))))
     counts = dict(pm.launch_counts)
     err = float(np.linalg.norm(x.ravel() - np.asarray(GOAL)))
     return ctrl, err, step_ms, counts
@@ -470,13 +572,13 @@ def auv_modules(device, task, sigma, lam=AUV_LAM, rk=2):
     return model, cost
 
 
-def auv_fused(k, tau, rk=2, sigma=AUV_SIGMA):
+def auv_fused(k, tau, rk=2, sigma=AUV_SIGMA, **opts):
     from mppi_tf_tpu_torch import flagship
     from mppi_tf_tpu_torch.kernels import auv_mppi as auv
 
     model, cost = auv_modules("cuda", flagship.auv_task(), sigma, rk=rk)
     return auv.FusedAUVMPPI(model, cost, k=k, tau=tau, lam=AUV_LAM,
-                            upsilon=AUV_UPSILON, sigma=sigma)
+                            upsilon=AUV_UPSILON, sigma=sigma, **opts)
 
 
 def auv_dyn(fused, useq_scale: float, seed: int, x0=None):
@@ -496,7 +598,8 @@ def quat_kernels(module, prefix: str) -> SimpleNamespace:
         solve=getattr(module, f"{prefix}_fused_solve"),
         costs=getattr(module, f"{prefix}_fused_costs"),
         sample_costs_plain=module.sample_costs_plain,
-        fused_solve_plain=module.fused_solve_plain, phase=prefix)
+        fused_solve_plain=module.fused_solve_plain,
+        fused_costs_plain=module.fused_costs_plain, phase=prefix)
 
 
 def check_auv(kern, pm, fused, z, label: str, useq_scale: float,
@@ -592,8 +695,11 @@ def check_weights(pm, fused, label: str) -> dict:
     _, st = pm.pm_merge(rows)
     beta, cmax = st[2], st[3]
     nrm = torch.stack([beta, 1.0 / ((cmax - beta) * fused.lam)])
-    part_k = pm.mppi_weights(nrm, costs, tau, adim, seed=21, solve=4)
-    part_p = pm.weights_plain(nrm, costs, tau, adim, seed=21, solve=4)
+    anti = fused.antithetic
+    part_k = pm.mppi_weights(nrm, costs, tau, adim, seed=21, solve=4,
+                             antithetic=anti)
+    part_p = pm.weights_plain(nrm, costs, tau, adim, seed=21, solve=4,
+                              antithetic=anti)
     zs_k, st_k = pm.pm_merge(part_k)
     zs_p, st_p = pm.merge_plain(part_p)
     wn_k = fused.unfold_wnoise(zs_k) / st_k[1]
@@ -606,7 +712,8 @@ def check_weights(pm, fused, label: str) -> dict:
     ok_w, err_w, ratio = close(wn_k, wn_p, 1e-4, 1e-6 * scale)
     ok_s, err_s, _ = close(wn_s, wn_p, 1e-4, 1e-6 * scale)
     l_rel = abs(st_k[1].item() - st_p[1].item()) / st_p[1].item()
-    out = {"k": k, "tau": tau, "adim": adim, "wnoise_ok": ok_w,
+    out = {"k": k, "tau": tau, "adim": adim, "antithetic": anti,
+           "wnoise_ok": ok_w,
            "wnoise_max_abs_err": err_w, "wnoise_ratio": ratio,
            "solve_wnoise_ok": ok_s, "solve_wnoise_max_abs_err": err_s,
            "l_rel_err": l_rel, "rtol": 1e-4, "atol": 1e-6 * scale,
@@ -619,11 +726,12 @@ def check_weights(pm, fused, label: str) -> dict:
     return out
 
 
-def auv_loop(kernel: str, normalize: bool, steps: int, k: int = AUV_K):
+def auv_loop(kernel: str, normalize: bool, steps: int, k: int = AUV_K,
+             **opts):
     """AUV closed loop through MPPI.next against the analytic plant (rest
-    start). Normalized: the dive to z = -1; unnormalized: the flagship
-    task (z = -5, sigma = 1500 I). Returns (controller, states, host ms
-    per step, launch counts)."""
+    start), with MPPI keywords ``opts``. Normalized: the dive to z = -1;
+    unnormalized: the flagship task (z = -5, sigma = 1500 I). Returns
+    (controller, states, host ms per step, launch counts)."""
     from mppi_tf_tpu_torch import flagship
     from mppi_tf_tpu_torch.controller import MPPI
     from mppi_tf_tpu_torch.envs import AUVEnv
@@ -640,7 +748,7 @@ def auv_loop(kernel: str, normalize: bool, steps: int, k: int = AUV_K):
     model, cost = auv_modules("cuda", task, sigma)
     ctrl = MPPI(model, cost, k=k, tau=AUV_H, lam=AUV_LAM,
                 upsilon=AUV_UPSILON, sigma=sigma, seed=3,
-                normalize_cost=normalize, kernel=kernel)
+                normalize_cost=normalize, kernel=kernel, **opts)
     x0 = torch.as_tensor(rest_state(), dtype=torch.float32, device="cuda")
     if ctrl.kernel_path == "cuda":   # warm-up without touching its state
         ctrl._fused.solve(x0, ctrl.useq, normalize=normalize)
@@ -672,7 +780,7 @@ def trained_normalisers(model, sigma) -> None:
     model.set_normalization(x_mean, x_std, np.zeros(13), y_std)
 
 
-def nn_fused(k, tau, hidden=(32, 32, 32), sigma=AUV_SIGMA):
+def nn_fused(k, tau, hidden=(32, 32, 32), sigma=AUV_SIGMA, **opts):
     """FusedNNMPPI over an NNAUVModel with He weights from a seed and
     trained normalisers, and the flagship StaticQuatCost task."""
     from mppi_tf_tpu_torch import flagship
@@ -685,14 +793,15 @@ def nn_fused(k, tau, hidden=(32, 32, 32), sigma=AUV_SIGMA):
     cost = get_cost(flagship.auv_task(), lam=AUV_LAM, gamma=AUV_GAMMA,
                     upsilon=AUV_UPSILON, sigma=sigma, device="cuda")
     return FusedNNMPPI(model, cost, k=k, tau=tau, lam=AUV_LAM,
-                       upsilon=AUV_UPSILON, sigma=sigma)
+                       upsilon=AUV_UPSILON, sigma=sigma, **opts)
 
 
 def nn_loop(kernel: str, normalize: bool, steps: int = NN_LOOP_STEPS,
-            k: int = NN_K):
-    """The known-plant dive through MPPI.next: the controller's NNAUVModel
-    and the f64 CPU plant are the same network (``known_plant_params``).
-    Returns (controller, states, host ms per step, launch counts)."""
+            k: int = NN_K, **opts):
+    """The known-plant dive through MPPI.next, with MPPI keywords
+    ``opts``: the controller's NNAUVModel and the f64 CPU plant are the
+    same network (``known_plant_params``). Returns (controller, states,
+    host ms per step, launch counts)."""
     from mppi_tf_tpu_torch.controller import MPPI
     from mppi_tf_tpu_torch.costs import get_cost
     from mppi_tf_tpu_torch.interop import from_jax_params
@@ -708,7 +817,7 @@ def nn_loop(kernel: str, normalize: bool, steps: int = NN_LOOP_STEPS,
                     upsilon=AUV_UPSILON, sigma=NN_LOOP_SIGMA, device="cuda")
     ctrl = MPPI(model, cost, k=k, tau=NN_H, lam=AUV_LAM, upsilon=AUV_UPSILON,
                 sigma=NN_LOOP_SIGMA, seed=3, normalize_cost=normalize,
-                kernel=kernel, device="cuda")
+                kernel=kernel, device="cuda", **opts)
     x0 = torch.as_tensor(rest_state(), dtype=torch.float32, device="cuda")
     if ctrl.kernel_path == "cuda":   # warm-up without touching its state
         ctrl._fused.solve(x0, ctrl.useq, normalize=normalize)
@@ -730,10 +839,10 @@ def nn_loop(kernel: str, normalize: bool, steps: int = NN_LOOP_STEPS,
 
 
 def run_cli(workdir: str, name: str, env: dict, task: str, model: str,
-            steps: int):
+            steps: int, *flags):
     """``mppi_tf_tpu_torch.cli.main`` in-process on the card (no --cpu)
-    with the env config ``env`` written to ``workdir``: (its JSON summary,
-    the launch counts of the run)."""
+    with the env config ``env`` written to ``workdir`` and the extra
+    ``flags``: (its JSON summary, the launch counts of the run)."""
     import contextlib
     import io
 
@@ -746,7 +855,7 @@ def run_cli(workdir: str, name: str, env: dict, task: str, model: str,
     pm.reset_launch_counts()
     with contextlib.redirect_stdout(out):
         rc = cli.main(["--config", path, "--task", task, "--model", model,
-                       "-s", str(steps)])
+                       "-s", str(steps), *flags])
     torch.cuda.synchronize()
     if rc != 0:
         raise AssertionError(f"cli {name} returned {rc}")
@@ -940,10 +1049,371 @@ def auv_mission_loop(steps: int = AUV_WP_STEPS):
     return ctrl, np.asarray(states), pops, step_ms, dict(pm.launch_counts)
 
 
+def rel_err(va, vb) -> float:
+    return ((va - vb).abs().max() / vb.abs().max()).item()
+
+
+def merged(pm, part) -> torch.Tensor:
+    """(zsum / l, m, l, cost min, max, sum) of block rows, by pm_merge."""
+    zsum, st = pm.pm_merge(part)
+    return torch.cat([zsum / st[1], st[:5]])
+
+
+def check_pm_variant(pm, fused, z, label: str) -> dict:
+    """A point-mass solve object's variant (scheduled and / or
+    antithetic) of pm_fused_solve and pm_fused_costs against their plain
+    versions on injected z and on the Philox stream, with the tolerances
+    of row 1: per-sample costs (PM_COST_RTOL, PM_COST_ATOL), the merged
+    cost stats (rel 1e-4) and the weighted noise in action units, c_t
+    applied (rtol 1e-3, atol 1e-5)."""
+    k, tau, c = fused.k, fused.tau, fused.consts
+    rng = np.random.default_rng(7)
+    useq = torch.as_tensor(0.1 * rng.standard_normal((tau, 3)),
+                           dtype=torch.float32, device="cuda")
+    dyn = fused.pack_dyn(torch.zeros(6, device="cuda"), useq)
+    out = {"k": k, "tau": tau, "scheduled": c.scheduled,
+           "antithetic": c.antithetic, "cost_rtol": PM_COST_RTOL,
+           "cost_atol": PM_COST_ATOL, "wnoise_rtol": 1e-3,
+           "wnoise_atol": 1e-5, "stats_rtol": 1e-4}
+    ok = True
+    for src, kw in (("injected", {"z": z}), ("philox", {"seed": 9,
+                                                        "solve": 2})):
+        costs_k, _ = pm.pm_fused_costs(c, dyn, k, tau, **kw)
+        costs_p, _ = pm.fused_costs_plain(c, dyn, k, tau, **kw)
+        zs_k, st_k = pm.pm_merge(pm.pm_fused_solve(c, dyn, k, tau, **kw))
+        zs_p, st_p = pm.merge_plain(pm.fused_solve_plain(c, dyn, k, tau,
+                                                         **kw))
+        torch.cuda.synchronize()
+        ok_c, err_c, _ = close(costs_k, costs_p, PM_COST_RTOL, PM_COST_ATOL)
+        ok_w, err_w, _ = close(fused.unfold_wnoise(zs_k) / st_k[1],
+                               fused.unfold_wnoise(zs_p) / st_p[1], 1e-3,
+                               1e-5)
+        rel = ((st_k[2:5] - st_p[2:5]).abs() / st_p[2:5].abs()).max().item()
+        out[src] = {"costs_ok": ok_c, "costs_max_abs_err": err_c,
+                    "wnoise_ok": ok_w, "wnoise_max_abs_err": err_w,
+                    "stats_max_rel_err": rel}
+        ok &= ok_c and ok_w and rel <= 1e-4
+    emit(f"pm_variant_vs_plain_{label}", ok=ok, **out)
+    if not ok:
+        raise AssertionError(f"point-mass variant disagrees with its plain "
+                             f"version ({label}): {out}")
+    return out
+
+
+def antithetic_noise(pm, seed: int, solve: int) -> dict:
+    """The antithetic dump at K, H (adim 3): every mirrored pair sums to
+    exactly 0, the dump equals the plain mirrored stream, and the first
+    half passes the noise phase's moment bounds."""
+    pm.reset_launch_counts()
+    half = pm.antithetic_half(K)
+    z = pm.pm_noise_dump(seed, solve, K, H, 3, "cuda", half=half)
+    launches = pm.launch_counts["pm_noise_dump"]
+    pair_err = (z[..., half:] + z[..., :K - half]).abs().max().item()
+    err = (z - pm.noise_plain(seed, solve, K, H, 3, device="cuda",
+                              half=half)).abs().max().item()
+    zd = z[..., :half].double()
+    n = zd.numel()
+    s = {"mean": zd.mean().item(), "var": zd.var().item(),
+         "m4": (zd ** 4).mean().item(),
+         "tail_3sigma": (zd.abs() > 3.0).double().mean().item()}
+    checks = {
+        "pair_sum_exactly_zero": pair_err == 0.0,
+        "dump_vs_plain": err <= 1e-5,
+        "mean": abs(s["mean"]) < 6 * n ** -0.5,
+        "var": abs(s["var"] - 1.0) < 6 * (2.0 / n) ** 0.5,
+        "m4": abs(s["m4"] - 3.0) < 6 * (96.0 / n) ** 0.5,
+        "tail_3sigma": abs(s["tail_3sigma"] - 0.0027) < 6e-4}
+    failed = sorted(c for c, v in checks.items() if not v)
+    emit("antithetic_noise", k=K, tau=H, half=half, n_first_half=n,
+         pair_max_abs_sum=pair_err, dump_vs_plain_max_abs_err=err,
+         launches=launches, failed=failed, **s)
+    if failed:
+        raise AssertionError(f"antithetic noise check failed: {failed}")
+    return {"max_abs_err": err, "launches": launches, "pair": pair_err}
+
+
+def check_quat_prng(kern, pm, fused, label: str) -> dict:
+    """An AUV or NN solve object's kernels with its options on the Philox
+    stream: per-sample costs against the plain versions (COST_RTOL,
+    COST_ATOL), and both kernels against themselves on the dumped
+    (mirrored) stream, rel 1e-6."""
+    k, tau, c = fused.k, fused.tau, fused.consts
+    dyn = auv_dyn(fused, 200.0, seed=8)
+    costs_k, _ = kern.costs(c, dyn, k, tau, seed=31, solve=5)
+    costs_p, _ = kern.fused_costs_plain(c, dyn, k, tau, seed=31, solve=5)
+    zd = pm.pm_noise_dump(31, 5, k, tau, 6, "cuda",
+                          half=pm.antithetic_half(k, fused.antithetic))
+    rels = {"costs": rel_err(costs_k, kern.costs(c, dyn, k, tau, z=zd)[0]),
+            "fused": rel_err(merged(pm, kern.solve(c, dyn, k, tau, seed=31,
+                                                   solve=5)),
+                             merged(pm, kern.solve(c, dyn, k, tau, z=zd)))}
+    torch.cuda.synchronize()
+    ok_c, err_c, _ = close(costs_k, costs_p, COST_RTOL, COST_ATOL)
+    out = {"k": k, "tau": tau, "scheduled": c.scheduled,
+           "antithetic": c.antithetic, "costs_ok": ok_c,
+           "costs_max_abs_err": err_c, "cost_rtol": COST_RTOL,
+           "cost_atol": COST_ATOL, "prng_vs_dump_max_rel_err": rels,
+           "prng_vs_dump_tol": 1e-6}
+    emit(f"{kern.phase}_prng_vs_plain_{label}", **out)
+    if not (ok_c and max(rels.values()) <= 1e-6):
+        raise AssertionError(f"{kern.phase} Philox variant disagrees "
+                             f"({label}): {out}")
+    return out
+
+
+def jsonl_tags(logdir: str) -> set:
+    with open(os.path.join(logdir, "metrics.jsonl")) as f:
+        return {key for line in f for key in json.loads(line)
+                if key != "step"}
+
+
+def log_phase(pm, workdir: str) -> dict:
+    """Log mode on the card: the CLI with -l on the bundled point-mass
+    config, then LOG_STEPS point_mass_h100 steps through MPPI(observer=)
+    with save(x, u, x_next) and the solve's program (dump_hlo) saved; both
+    JSONL records hold the JAX observer's tag families (State/state is a
+    histogram: in the JSONL where tensorboard is missing)."""
+    from mppi_tf_tpu_torch.cfg import default_config
+    from mppi_tf_tpu_torch.controller import MPPI
+    from mppi_tf_tpu_torch.envs import PointMassEnv
+    from mppi_tf_tpu_torch.observer import Observer
+    from mppi_tf_tpu_torch.observer.observer import _summary_writer
+
+    have_tb = _summary_writer() is not None
+    out_cli, c_cli = run_cli(workdir, "point_mass_log",
+                             default_config("envs/point_mass"),
+                             "tasks/static_cost", "models/point_mass_model",
+                             LOG_CLI_STEPS, "-l", "--log-dir",
+                             os.path.join(workdir, "cli"))
+    cli_tags = jsonl_tags(out_cli["logdir"])
+    model, cost = workload("cuda")
+    obs = Observer(os.path.join(workdir, "mppi"), use_tensorboard=False)
+    ctrl = MPPI(model, cost, k=K, tau=H100, lam=LAM, upsilon=UPSILON,
+                sigma=SIGMA, noise_schedule=SCHED, observer=obs, log=True,
+                kernel="auto")
+    env = PointMassEnv(n_dof=3, mass=MASS, dt=DT)
+    x = env.reset()
+    pm.reset_launch_counts()
+    for _ in range(LOG_STEPS):
+        u = ctrl.next(x)
+        x_next = env.step(u)
+        ctrl.save(x, u, x_next)
+        x = x_next
+    counts = dict(pm.launch_counts)
+    hlo = ctrl.dump_hlo()
+    obs.save_graph(hlo)
+    obs.close()
+    tags = jsonl_tags(obs.get_logdir())
+    families = LOG_FAMILIES if not have_tb else LOG_FAMILIES[:3]
+    missing = {
+        "cli": [f for f in families if not any(t.startswith(f)
+                                               for t in cli_tags)],
+        "mppi": [f for f in LOG_FAMILIES + ("Predict/error",)
+                 if not any(t.startswith(f) for t in tags)]}
+    want_cli = {n: 0 for n in c_cli}
+    want_cli.update(pm_fused_solve=LOG_CLI_STEPS, pm_fused_costs=LOG_CLI_STEPS,
+                    pm_noise_dump=LOG_CLI_STEPS, pm_merge=2 * LOG_CLI_STEPS)
+    want = {n: 0 for n in counts}
+    want.update(pm_fused_solve=LOG_STEPS, pm_fused_costs=LOG_STEPS,
+                pm_noise_dump=LOG_STEPS, pm_merge=2 * LOG_STEPS)
+    out = {"have_tensorboard": have_tb, "cli": dict(out_cli, launches=c_cli),
+           "cli_tags": sorted(cli_tags), "mppi_tags": sorted(tags),
+           "mppi_launches": counts, "mppi_steps": LOG_STEPS,
+           "observer_steps": obs.step, "missing": missing,
+           "solve_hlo": hlo.splitlines()}
+    emit("log", **out)
+    if not (out_cli["kernel_path"] == "cuda" and c_cli == want_cli
+            and ctrl.kernel_path == "cuda" and counts == want
+            and obs.step == LOG_STEPS
+            and not missing["cli"] and not missing["mppi"]
+            and "pm_fused_solve x1" in hlo and "registers" in hlo):
+        raise AssertionError(f"log mode: {out}")
+    return out
+
+
+def variant_times(base_fn, var_fn, plain_fn, reps: int = 200) -> dict:
+    """ms per launch of a variant and of its unscheduled, non-antithetic
+    counterpart, timed in turns (base, variant, variant, base) with CUDA
+    events and then as the kernels' device time, and its plain version's
+    ms."""
+    b1, v1, v2, b2 = (cuda_ms(base_fn, reps), cuda_ms(var_fn, reps),
+                      cuda_ms(var_fn, reps), cuda_ms(base_fn, reps))
+    db1, dv1, dv2, db2 = (device_ms(base_fn), device_ms(var_fn),
+                          device_ms(var_fn), device_ms(base_fn))
+    return {"ms": 0.5 * (v1 + v2), "ms_runs": [v1, v2],
+            "unvaried_ms": 0.5 * (b1 + b2), "unvaried_ms_runs": [b1, b2],
+            "device_ms": 0.5 * (dv1 + dv2),
+            "unvaried_device_ms": 0.5 * (db1 + db2),
+            "plain_ms": cuda_ms(plain_fn, 3, 1)}
+
+
+def mirror_saving(k: int, n_z: int) -> float:
+    """The normals an antithetic solve of k samples need not draw: the
+    mirrored k - ceil(k/2) samples' n_z each, at OPS_PER_NORMAL."""
+    return (k - (k + 1) // 2) * n_z * OPS_PER_NORMAL
+
+
+def sched_ops(k: int, tau: int, dims: int) -> float:
+    """What the schedule adds to a solve: c_t times the noise drive of
+    ``dims`` dimensions and times the z-quadratic, a sample and a step."""
+    return float(k * tau * (dims + 1))
+
+
+def pm_loop_phase(phase: str, normalize: bool, tau: int, tol=GOAL_TOL,
+                  mean_tol=None, **extra) -> tuple:
+    """A LOOP_STEPS point-mass loop on the kernels with env-config keys
+    ``extra``, held to its launches and gated on its final goal error
+    (``tol``) or on the error's mean over the last SCHED_WINDOW steps
+    (``mean_tol``): (controller, step ms, launch counts)."""
+    t0 = time.perf_counter()
+    errs = []
+    ctrl, err, ms, counts = closed_loop("auto", normalize, tau=tau,
+                                        errs=errs, **extra)
+    window = np.asarray(errs[-SCHED_WINDOW:])
+    emit(phase, normalize=normalize, kernel_path=ctrl.kernel_path, K=K,
+         H=tau, steps=LOOP_STEPS, goal_err=err, tol=tol,
+         window_mean_err=float(window.mean()),
+         window_max_err=float(window.max()), window=SCHED_WINDOW,
+         mean_tol=mean_tol, err_every_25=errs[24::25], launches=counts,
+         step_ms_median=float(np.median(ms)),
+         step_ms_p90=float(np.percentile(ms, 90)),
+         seconds=time.perf_counter() - t0)
+    want = {n: 0 for n in counts}
+    want.update({"pm_fused_costs": LOOP_STEPS, "mppi_weights": LOOP_STEPS,
+                 "pm_merge": 2 * LOOP_STEPS} if normalize else
+                {"pm_fused_solve": LOOP_STEPS, "pm_merge": LOOP_STEPS})
+    gate = (err < tol) if mean_tol is None else window.mean() < mean_tol
+    if not (ctrl.kernel_path == "cuda" and counts == want and gate):
+        raise AssertionError(f"{phase} (normalize={normalize}): "
+                             f"{ctrl.kernel_path}, {counts}, err {err}, "
+                             f"window mean {window.mean()}")
+    return ctrl, ms, counts
+
+
+def pm_sched_phase(pm, model, cost, smi: str) -> dict:
+    """point_mass_h100 on the kernels: the scheduled pm_fused_solve and
+    pm_fused_costs against their plain versions (injected z and Philox),
+    a LOOP_STEPS loop in each mode, one sync a step, and c_t = 1 set at
+    run time against an unscheduled controller."""
+    fz = pm.FusedPointMassMPPI(model, cost, k=K, tau=H100, lam=LAM,
+                               upsilon=UPSILON, sigma=SIGMA, schedule=SCHED)
+    z = torch.as_tensor(np.random.default_rng(5).standard_normal(
+        (H100, 3, K), np.float32), device="cuda")
+    chk = check_pm_variant(pm, fz, z, "sched_K100000_H100")
+    del z
+    loops = {}
+    for normalize in (False, True):
+        ctrl, ms, counts = pm_loop_phase(
+            "pm_sched_closed_loop", normalize, H100,
+            mean_tol=None if normalize else SCHED_MEAN_TOL,
+            **{"noise-schedule": SCHED})
+        loops[normalize] = (ms, counts)
+        if not normalize:
+            prof = profile_steps(ctrl)
+            emit("profile", kernel_path=ctrl.kernel_path, model="point_mass",
+                 H=H100, scheduled=True, card=smi, **prof)
+            check_syncs(prof)
+        del ctrl
+    # c_t = 1 set at run time against no schedule: same seed, solve 0; the
+    # u_half packing sums in another order, hence a tolerance
+    ones = pm_controller("auto", False, H100, **{"noise-schedule": SCHED})
+    ones.set_noise_schedule({"type": "constant", "value": 1})
+    flat = pm_controller("auto", False, H100)
+    x = np.full(6, 0.2)
+    a_1, a_0 = ones.next(x), flat.next(x)
+    ok, err, _ = close(torch.as_tensor(a_1), torch.as_tensor(a_0), 1e-4,
+                       1e-6)
+    emit("pm_sched_constant_one", action=a_1.tolist(),
+         unscheduled_action=a_0.tolist(), max_abs_err=err, rtol=1e-4,
+         atol=1e-6, kernel_paths=[ones.kernel_path, flat.kernel_path])
+    if not (ok and ones.kernel_path == flat.kernel_path == "cuda"):
+        raise AssertionError(f"c_t = 1 differs from no schedule: {err}")
+    return {"fused": fz, "check": chk, "loops": loops}
+
+
+def antithetic_phase(pm, model, cost, z) -> dict:
+    """The antithetic variants at K, H=50: the dump's pairs, the solve
+    and costs against their plain versions, mppi_weights at adim 3 and 6,
+    and a LOOP_STEPS point-mass loop in each mode."""
+    noise = antithetic_noise(pm, seed=4321, solve=6)
+    fz = pm.FusedPointMassMPPI(model, cost, k=K, tau=H, lam=LAM,
+                               upsilon=UPSILON, sigma=SIGMA, antithetic=True)
+    chk = check_pm_variant(pm, fz, z, "antithetic_K100000_H50")
+    w3 = check_weights(pm, fz, "antithetic_adim3_K100000_H50")
+    w6 = check_weights(pm, auv_fused(AUV_K, AUV_H, antithetic=True),
+                       "antithetic_adim6_K262144_H25")
+    loops = {}
+    for normalize in (False, True):
+        ctrl, ms, counts = pm_loop_phase(
+            "antithetic_closed_loop", normalize, H, antithetic=True)
+        loops[normalize] = (ms, counts)
+        del ctrl
+    return {"fused": fz, "noise": noise, "check": chk, "w3": w3, "w6": w6,
+            "loops": loops}
+
+
+def quat_sched_anti_phase(pm, kern, fused, z, label: str, loop, modes,
+                          gate) -> dict:
+    """An AUV or NN solve object with both options: its kernels against
+    the plain versions on injected z (``check_auv``) and on the mirrored
+    Philox stream (``check_quat_prng``), then ``loop`` (auv_loop, nn_loop)
+    with both options in each of ``modes``, each ``gate``d on its
+    states."""
+    chk = check_auv(kern, pm, fused, z, f"sched_anti_{label}",
+                    useq_scale=200.0)
+    prng = check_quat_prng(kern, pm, fused, f"sched_anti_{label}")
+    costs_name, solve_name = f"{kern.phase}_fused_costs", \
+        f"{kern.phase}_fused_solve"
+    loops = {}
+    for normalize, n_steps in modes:
+        t0 = time.perf_counter()
+        ctrl, states, ms, counts = loop(normalize, n_steps)
+        ok_gate, reading = gate(normalize, states)
+        emit(f"{kern.phase}_sched_anti_closed_loop", normalize=normalize,
+             kernel_path=ctrl.kernel_path, K=fused.k, H=fused.tau,
+             steps=n_steps, launches=counts, **reading,
+             step_ms_median=float(np.median(ms)),
+             step_ms_p90=float(np.percentile(ms, 90)),
+             seconds=time.perf_counter() - t0)
+        want = {n: 0 for n in counts}
+        want.update({costs_name: n_steps, "mppi_weights": n_steps,
+                     "pm_merge": 2 * n_steps} if normalize else
+                    {solve_name: n_steps, "pm_merge": n_steps})
+        if not (ctrl.kernel_path == "cuda" and counts == want and ok_gate):
+            raise AssertionError(f"{kern.phase} loop with both options "
+                                 f"(normalize={normalize}): {counts}, "
+                                 f"{reading}")
+        loops[normalize] = (ms, counts)
+        del ctrl
+    return {"check": chk, "prng": prng, "loops": loops}
+
+
+def dive_gate(normalize: bool, states) -> tuple:
+    """The dive's gate (|z + 1| < DIVE_TOL, |q| drift < 1e-3) when
+    normalized; the unnormalized flagship task: finite, sinking."""
+    z_end = float(states[-1, 2])
+    drift = float(np.abs(np.linalg.norm(states[:, 3:7], axis=1) - 1).max())
+    reading = {"z_final": z_end, "q_drift": drift,
+               "z_every_20": states[::20, 2].tolist()}
+    if normalize:
+        return abs(z_end + 1.0) < DIVE_TOL and drift < 1e-3, reading
+    return bool(np.all(np.isfinite(states))
+                and states[-1, 2] < states[0, 2] and drift < 1e-3), reading
+
+
+def nn_dive_gate(normalize: bool, states) -> tuple:
+    z_end = float(states[-1, 2])
+    drift = float(np.abs(np.linalg.norm(states[:, 3:7], axis=1) - 1).max())
+    return (abs(z_end + 1.0) < NN_LOOP_TOL and drift < 1e-3
+            and bool(np.all(np.isfinite(states)))), {
+        "z_final": z_end, "z_err": abs(z_end + 1.0), "q_drift": drift}
+
+
 def kernel_time(fn, plain_fn, reps: int = 200) -> dict:
-    """ms of a kernel launch (CUDA events over ``reps``) and of its plain
-    version (3 calls after a warm-up)."""
-    return {"ms": cuda_ms(fn, reps), "plain_ms": cuda_ms(plain_fn, 3, 1)}
+    """ms of a kernel launch (CUDA events over ``reps``, and the kernels'
+    own device time) and of its plain version (3 calls after a warm-up)."""
+    return {"ms": cuda_ms(fn, reps), "device_ms": device_ms(fn),
+            "plain_ms": cuda_ms(plain_fn, 3, 1)}
 
 
 def main() -> int:
@@ -974,6 +1444,7 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          library=str(_build.library_path().name),
          sources=[p.name for p in _build.sources()], ptxas=ptxas)
+    emit("registers_vs_base", rows=registers_vs_base(ptxas))
     spills = [r["kernel"] for r in ptxas
               if r.get("spill_stores") or r.get("spill_loads")]
     if spills:
@@ -1102,22 +1573,16 @@ def main() -> int:
     dump6_err = (zd6[..., :n_cmp] - pm.noise_plain(
         78, 6, n_cmp, AUV_H, 6, device="cuda")).abs().max().item()
 
-    def rel(va, vb):
-        return ((va - vb).abs().max() / vb.abs().max()).item()
-
-    def merged(part):
-        zsum, st = pm.pm_merge(part)
-        return torch.cat([zsum / st[1], st[:5]])
-
+    fc = flag.consts
     rels = {
-        "fused": rel(merged(auv.auv_fused_solve(flag.consts, dyn_f, AUV_K,
-                                                AUV_H, seed=78, solve=6)),
-                     merged(auv.auv_fused_solve(flag.consts, dyn_f, AUV_K,
-                                                AUV_H, z=zd6))),
-        "costs": rel(auv.auv_fused_costs(flag.consts, dyn_f, AUV_K, AUV_H,
-                                         seed=78, solve=6)[0],
-                     auv.auv_fused_costs(flag.consts, dyn_f, AUV_K, AUV_H,
-                                         z=zd6)[0])}
+        "fused": rel_err(
+            merged(pm, auv.auv_fused_solve(fc, dyn_f, AUV_K, AUV_H, seed=78,
+                                           solve=6)),
+            merged(pm, auv.auv_fused_solve(fc, dyn_f, AUV_K, AUV_H, z=zd6))),
+        "costs": rel_err(
+            auv.auv_fused_costs(fc, dyn_f, AUV_K, AUV_H, seed=78,
+                                solve=6)[0],
+            auv.auv_fused_costs(fc, dyn_f, AUV_K, AUV_H, z=zd6)[0])}
     del zd6
     emit("auv_prng_vs_dump", max_rel_err=rels, tol=1e-6,
          dump_adim6_vs_plain_max_abs_err=dump6_err, dump_tol=1e-5)
@@ -1216,14 +1681,16 @@ def main() -> int:
     dyn_n = auv_dyn(nn_flag, 200.0, seed=6)
     zd_n = pm.pm_noise_dump(79, 7, NN_K, NN_H, 6, "cuda")
     nn_rels = {
-        "fused": rel(merged(nnk.nn_fused_solve(nn_flag.consts, dyn_n, NN_K,
-                                               NN_H, seed=79, solve=7)),
-                     merged(nnk.nn_fused_solve(nn_flag.consts, dyn_n, NN_K,
-                                               NN_H, z=zd_n))),
-        "costs": rel(nnk.nn_fused_costs(nn_flag.consts, dyn_n, NN_K, NN_H,
-                                        seed=79, solve=7)[0],
-                     nnk.nn_fused_costs(nn_flag.consts, dyn_n, NN_K, NN_H,
-                                        z=zd_n)[0])}
+        "fused": rel_err(
+            merged(pm, nnk.nn_fused_solve(nn_flag.consts, dyn_n, NN_K, NN_H,
+                                          seed=79, solve=7)),
+            merged(pm, nnk.nn_fused_solve(nn_flag.consts, dyn_n, NN_K, NN_H,
+                                          z=zd_n))),
+        "costs": rel_err(
+            nnk.nn_fused_costs(nn_flag.consts, dyn_n, NN_K, NN_H, seed=79,
+                               solve=7)[0],
+            nnk.nn_fused_costs(nn_flag.consts, dyn_n, NN_K, NN_H,
+                               z=zd_n)[0])}
     del zd_n
     emit("nn_prng_vs_dump", max_rel_err=nn_rels, tol=1e-6)
     if not max(nn_rels.values()) <= 1e-6:
@@ -1512,7 +1979,38 @@ def main() -> int:
             and np.all(np.isfinite(out_nn["final_state"]))):
         raise AssertionError(f"cli nn: {out_nn}, {c_nn}")
 
-    # ---- 21. times -------------------------------------------------------------
+    # ---- 21. point_mass_h100: the scheduled solve at H=100 -------------------
+    sched = pm_sched_phase(pm, model, cost, smi)
+
+    # ---- 22. the antithetic variants at K, H=50 ------------------------------
+    anti = antithetic_phase(pm, model, cost, z_big)
+    del z_big
+
+    # ---- 23. the AUV flagship with both options (rk2, K=262,144, H=25) -------
+    flag_sa = auv_fused(AUV_K, AUV_H, **FUSED_BOTH)
+    z_auv = torch.as_tensor(np.random.default_rng(6).standard_normal(
+        (AUV_H, 6, AUV_K), np.float32), device="cuda")
+    auv_sa = quat_sched_anti_phase(
+        pm, auv_k, flag_sa, z_auv, "K262144_H25_rk2",
+        lambda norm, n: auv_loop("auto", norm, n, **BOTH),
+        ((True, DIVE_STEPS), (False, AUV_PLAIN_STEPS)), dive_gate)
+    del z_auv
+
+    # ---- 24. the NN (3x32, K=65,536, H=25) with both options -----------------
+    nn_sa = nn_fused(NN_K, NN_H, **FUSED_BOTH)
+    z_nn = torch.as_tensor(np.random.default_rng(7).standard_normal(
+        (NN_H, 6, NN_K), np.float32), device="cuda")
+    nn_sa_out = quat_sched_anti_phase(
+        pm, nn_k, nn_sa, z_nn, "K65536_H25_3x32",
+        lambda norm, n: nn_loop("cuda", norm, n, **BOTH),
+        ((False, NN_LOOP_STEPS), (True, NN_LOOP_STEPS)), nn_dive_gate)
+    del z_nn
+
+    # ---- 25. log mode: the CLI with -l, MPPI(observer=) at point_mass_h100 ---
+    with tempfile.TemporaryDirectory() as workdir:
+        log_phase(pm, workdir)
+
+    # ---- 26. times -------------------------------------------------------------
     consts, nb = fused.consts, -(-K // pm.BLOCK)
     n_z = H * 3
     part = pm.pm_fused_solve(consts, dyn, K, H, seed=1, solve=1)
@@ -1521,6 +2019,8 @@ def main() -> int:
     t_solve = cuda_ms(lambda: pm.pm_fused_solve(consts, dyn, K, H, seed=1,
                                                 solve=1), 200)
     t_merge = cuda_ms(lambda: pm.pm_merge(part), 200)
+    d_merge = device_ms(lambda: pm.pm_merge(part))
+    d_dump = device_ms(lambda: pm.pm_noise_dump(1, 1, K, H, 3, "cuda"))
     t_dump = cuda_ms(lambda: pm.pm_noise_dump(1, 1, K, H, 3, "cuda"), 200)
     p_solve = cuda_ms(lambda: pm.fused_solve_plain(consts, dyn, K, H,
                                                    seed=1, solve=1), 5, 1)
@@ -1703,8 +2203,12 @@ def main() -> int:
         cuda_ms(lambda: wp_fused.solve(x_pm, u_pm, seed=1, solve=1), 200),
         cuda_ms(lambda: wp_fused.solve(x_pm, u_pm, seed=1, solve=1), 200),
         cuda_ms(lambda: fused.solve(x_pm, u_pm, seed=1, solve=1), 200))
-    trk["pm_solve_object_ms"] = {"static": [t_s1, t_s2],
-                                 "waypoints": [t_w1, t_w2]}
+    wp_dyn = wp_fused.pack_dyn(x_pm, u_pm)
+    trk["pm_solve_object_ms"] = {
+        "static": [t_s1, t_s2], "waypoints": [t_w1, t_w2],
+        "waypoints_plain": cuda_ms(lambda: pm.merge_plain(
+            pm.fused_solve_plain(wp_fused.consts, wp_dyn, K, H, seed=1,
+                                 solve=1)), 3, 1)}
     for name, fz, x0_t, u_scale in (("waypoints_quat", wq_fused, None,
                                      200.0),
                                     ("elipse3d", e3_fused, x_e3, 20.0)):
@@ -1732,7 +2236,8 @@ def main() -> int:
         for (kern, norm), (_, ms, _) in nn_loops.items()}
     emit("times", card=smi, K=K, H=H,
          solve_plus_merge_ms=t_pair, solve_ms=t_solve, merge_ms=t_merge,
-         noise_dump_ms=t_dump,
+         noise_dump_ms=t_dump, merge_device_ms=d_merge,
+         noise_dump_device_ms=d_dump,
          mppi_next_ms_median=float(np.median(step_ms)),
          plain_solve_ms=p_solve, plain_merge_ms=p_merge,
          plain_noise_ms=p_dump,
@@ -1770,6 +2275,119 @@ def main() -> int:
                       "or its weights: library_ms is null",
          timing="CUDA events over back-to-back launches after warm-up; "
                 "MPPI.next on the host clock ending in a sync")
+
+    # the noise variants beside their unvaried counterparts at the same
+    # shapes, timed in turns; bounds add one FMUL a driven dimension and a
+    # step (and one for the z-quadratic) for the schedule, and drop the
+    # mirrored half's normals for antithetic
+    vt = {}
+    fs, fa = sched["fused"], anti["fused"]
+    flat100 = pm.FusedPointMassMPPI(model, cost, k=K, tau=H100, lam=LAM,
+                                    upsilon=UPSILON, sigma=SIGMA)
+    u100 = torch.zeros(H100, 3, device="cuda")
+    dyn_s, dyn_100 = fs.pack_dyn(x0, u100), flat100.pack_dyn(x0, u100)
+    dyn_a = fa.pack_dyn(x0, useq)
+    nz100 = H100 * 3
+    pb100 = 4.0 * nb * (pm.STATS + nz100)
+    vt["pm_fused_solve[sched]"] = dict(variant_times(
+        lambda: pm.pm_fused_solve(flat100.consts, dyn_100, K, H100, seed=1,
+                                  solve=1),
+        lambda: pm.pm_fused_solve(fs.consts, dyn_s, K, H100, seed=1,
+                                  solve=1),
+        lambda: pm.fused_solve_plain(fs.consts, dyn_s, K, H100, seed=1,
+                                     solve=1)),
+        bound=bound_ms(4.0 * dyn_s.numel() + pb100,
+                       solve_ops(fs.consts, K, H100, prng=True)
+                       + sched_ops(K, H100, 6)))
+    vt["pm_fused_costs[sched]"] = dict(variant_times(
+        lambda: pm.pm_fused_costs(flat100.consts, dyn_100, K, H100, seed=1,
+                                  solve=1),
+        lambda: pm.pm_fused_costs(fs.consts, dyn_s, K, H100, seed=1,
+                                  solve=1),
+        lambda: pm.fused_costs_plain(fs.consts, dyn_s, K, H100, seed=1,
+                                     solve=1)),
+        bound=bound_ms(4.0 * dyn_s.numel() + 4.0 * K + rows_b,
+                       solve_ops(fs.consts, K, H100, prng=True,
+                                 costs_only=True) + sched_ops(K, H100, 6)))
+    del flat100, dyn_100
+    vt["pm_fused_solve[antithetic]"] = dict(variant_times(
+        lambda: pm.pm_fused_solve(consts, dyn_a, K, H, seed=1, solve=1),
+        lambda: pm.pm_fused_solve(fa.consts, dyn_a, K, H, seed=1, solve=1),
+        lambda: pm.fused_solve_plain(fa.consts, dyn_a, K, H, seed=1,
+                                     solve=1)),
+        bound=bound_ms(4.0 * dyn_a.numel() + part_bytes,
+                       solve_ops(fa.consts, K, H, prng=True)
+                       - mirror_saving(K, n_z)))
+    vt["pm_fused_costs[antithetic]"] = dict(variant_times(
+        lambda: pm.pm_fused_costs(consts, dyn_a, K, H, seed=1, solve=1),
+        lambda: pm.pm_fused_costs(fa.consts, dyn_a, K, H, seed=1, solve=1),
+        lambda: pm.fused_costs_plain(fa.consts, dyn_a, K, H, seed=1,
+                                     solve=1)),
+        bound=bound_ms(4.0 * dyn_a.numel() + 4.0 * K + rows_b,
+                       solve_ops(fa.consts, K, H, prng=True, costs_only=True)
+                       - mirror_saving(K, n_z)))
+    vt["pm_noise_dump[antithetic]"] = dict(variant_times(
+        lambda: pm.pm_noise_dump(1, 1, K, H, 3, "cuda"),
+        lambda: pm.pm_noise_dump(1, 1, K, H, 3, "cuda",
+                                 half=pm.antithetic_half(K)),
+        lambda: pm.noise_plain(1, 1, K, H, 3, device="cuda",
+                               half=pm.antithetic_half(K))),
+        bound=bound_ms(4.0 * K * n_z, K * n_z * OPS_PER_NORMAL
+                       - mirror_saving(K, n_z)))
+    vt["mppi_weights[antithetic]"] = dict(variant_times(
+        lambda: pm.mppi_weights(pm_nrm, pm_c, H, 3, seed=1, solve=1),
+        lambda: pm.mppi_weights(pm_nrm, pm_c, H, 3, seed=1, solve=1,
+                                antithetic=True),
+        lambda: pm.weights_plain(pm_nrm, pm_c, H, 3, seed=1, solve=1,
+                                 antithetic=True)),
+        bound=bound_ms(4.0 * K + 8.0 + part_bytes,
+                       weights_ops(K, n_z, True) - mirror_saving(K, n_z)))
+    vt["mppi_weights[antithetic, adim 6]"] = dict(variant_times(
+        lambda: pm.mppi_weights(a_nrm, a_c, AUV_H, 6, seed=1, solve=1),
+        lambda: pm.mppi_weights(a_nrm, a_c, AUV_H, 6, seed=1, solve=1,
+                                antithetic=True),
+        lambda: pm.weights_plain(a_nrm, a_c, AUV_H, 6, seed=1, solve=1,
+                                 antithetic=True)),
+        bound=bound_ms(4.0 * AUV_K + 8.0 + a_part_bytes,
+                       weights_ops(AUV_K, a_nz, True)
+                       - mirror_saving(AUV_K, a_nz)))
+    for key, fz, base, kmod, ops_fn, k_, h_, dyn_b in (
+            ("auv", flag_sa, flag, auv, auv_solve_ops, AUV_K, AUV_H, dyn_f),
+            ("nn", nn_sa, nn_flag, nnk, nn_solve_ops, NN_K, NN_H, dyn_n)):
+        vc, dyn_v = fz.consts, auv_dyn(fz, 200.0, seed=5 if key == "auv"
+                                       else 6)
+        nz_, nb_ = h_ * 6, -(-k_ // pm.BLOCK)
+        extra = sched_ops(k_, h_, 6) - mirror_saving(k_, nz_)
+        if key == "auv":
+            ops_s = auv_solve_ops(vc, dyn_v, k_, h_, prng=True)
+            ops_c = auv_solve_ops(vc, dyn_v, k_, h_, prng=True,
+                                  costs_only=True)
+        else:
+            ops_s = nn_solve_ops(vc, k_, h_, prng=True)
+            ops_c = nn_solve_ops(vc, k_, h_, prng=True, costs_only=True)
+        solve_k = getattr(kmod, f"{key}_fused_solve")
+        costs_k = getattr(kmod, f"{key}_fused_costs")
+        bc = base.consts
+        vt[f"{key}_fused_solve[sched, antithetic]"] = dict(variant_times(
+            lambda: solve_k(bc, dyn_b, k_, h_, seed=1, solve=1),
+            lambda: solve_k(vc, dyn_v, k_, h_, seed=1, solve=1),
+            lambda: kmod.fused_solve_plain(vc, dyn_v, k_, h_, seed=1,
+                                           solve=1)),
+            bound=bound_ms(4.0 * dyn_v.numel() + 4.0 * nb_ * (pm.STATS + nz_),
+                           ops_s + extra))
+        vt[f"{key}_fused_costs[sched, antithetic]"] = dict(variant_times(
+            lambda: costs_k(bc, dyn_b, k_, h_, seed=1, solve=1),
+            lambda: costs_k(vc, dyn_v, k_, h_, seed=1, solve=1),
+            lambda: kmod.fused_costs_plain(vc, dyn_v, k_, h_, seed=1,
+                                           solve=1)),
+            bound=bound_ms(4.0 * dyn_v.numel() + 4.0 * k_
+                           + 4.0 * nb_ * pm.STATS, ops_c + extra))
+    emit("variant_times", card=smi, **vt,
+         note="ms: the variant; unvaried_ms: the same kernel without the "
+              "schedule or antithetic at the same shapes and inputs, timed "
+              "in turns (unvaried, variant, variant, unvaried); point mass "
+              "sched at K=100000, H=100, antithetic at H=50; AUV rk2 "
+              "K=262144, H=25; NN 3x32 K=65536, H=25")
 
     src = "mppi_tf_tpu_torch/csrc/pm_mppi.cu"
     asrc = "mppi_tf_tpu_torch/csrc/auv_mppi.cu"
@@ -1890,8 +2508,89 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches, "path": path,
             "max_abs_err": err, "max_abs_err_of": err_of, "ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-            "bound_by": t["bound"][1], "library_ms": None})
+            "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": None})
+    # the noise variants, with the launches of the loops run with them
+    sl, al = sched["loops"], anti["loops"]
+    asl, nsl = auv_sa["loops"], nn_sa_out["loops"]
+
+    def worst(chk, key):   # over injected z and the Philox stream
+        return max(chk[s][key] for s in ("injected", "philox"))
+
+    pm_py, auv_py = "mppi_tf_tpu/kernels/pm_mppi.py", \
+        "mppi_tf_tpu/kernels/auv_mppi.py"
+    wn_of, c_of = ("weighted noise (action units) against the plain solve, "
+                   "injected z and Philox, K=100000, H={}"), \
+        "per-sample costs against the plain version, injected z and " \
+        "Philox, K=100000, H={}"
+    stats_of = ("merged cost min, max, mean of the fused rows against the "
+                "plain costs, injected z, K={}, H=25")
+    variant_rows = (
+        ("pm_fused_solve[sched]", src, f"{pm_py}:1000",
+         sl[False][1]["pm_fused_solve"],
+         "point_mass_h100 closed loop, unnormalized",
+         worst(sched["check"], "wnoise_max_abs_err"), wn_of.format(H100)),
+        ("pm_fused_costs[sched]", src, f"{pm_py}:1073",
+         sl[True][1]["pm_fused_costs"],
+         "point_mass_h100 closed loop, normalized",
+         worst(sched["check"], "costs_max_abs_err"), c_of.format(H100)),
+        ("pm_fused_solve[antithetic]", src, f"{pm_py}:1000",
+         al[False][1]["pm_fused_solve"],
+         "antithetic point-mass loop, unnormalized",
+         worst(anti["check"], "wnoise_max_abs_err"), wn_of.format(H)),
+        ("pm_fused_costs[antithetic]", src, f"{pm_py}:1073",
+         al[True][1]["pm_fused_costs"],
+         "antithetic point-mass loop, normalized",
+         worst(anti["check"], "costs_max_abs_err"), c_of.format(H)),
+        ("pm_noise_dump[antithetic]", src, f"{pm_py}:274",
+         anti["noise"]["launches"], "antithetic noise check",
+         anti["noise"]["max_abs_err"],
+         "the dump against the plain mirrored stream, K=100000, H=50"),
+        ("mppi_weights[antithetic]", src, f"{pm_py}:191",
+         al[True][1]["mppi_weights"],
+         "antithetic point-mass loop, normalized (adim 3)",
+         anti["w3"]["wnoise_max_abs_err"],
+         "weighted noise (action units) against the plain version, "
+         "K=100000, H=50"),
+        ("mppi_weights[antithetic, adim 6]", src, f"{auv_py}:925",
+         asl[True][1]["mppi_weights"],
+         "AUV dive with the schedule and antithetic noise",
+         anti["w6"]["wnoise_max_abs_err"],
+         "weighted noise (action units) against the plain version, "
+         "K=262144, H=25"),
+        ("auv_fused_solve[sched, antithetic]", asrc, f"{auv_py}:804",
+         asl[False][1]["auv_fused_solve"],
+         "AUV unnormalized loop with both options",
+         auv_sa["check"]["fused_cost_stats_max_abs_err"],
+         stats_of.format(AUV_K)),
+        ("auv_fused_costs[sched, antithetic]", asrc, f"{auv_py}:872",
+         asl[True][1]["auv_fused_costs"],
+         "AUV dive with both options", auv_sa["check"]["costs_max_abs_err"],
+         "per-sample costs against the plain version, K=262144, H=25"),
+        ("nn_fused_solve[sched, antithetic]", nsrc,
+         "mppi_tf_tpu/kernels/nn_mppi.py:631",
+         nsl[False][1]["nn_fused_solve"],
+         "NN known-plant dive with both options, unnormalized",
+         nn_sa_out["check"]["fused_cost_stats_max_abs_err"],
+         stats_of.format(NN_K)),
+        ("nn_fused_costs[sched, antithetic]", nsrc,
+         "mppi_tf_tpu/kernels/nn_mppi.py:647",
+         nsl[True][1]["nn_fused_costs"],
+         "NN known-plant dive with both options, normalized",
+         nn_sa_out["check"]["costs_max_abs_err"],
+         "per-sample costs against the plain version, K=65536, H=25"))
+    for name, source, replaces, launches, path, err, err_of in variant_rows:
+        t = vt[name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "path": path,
+            "max_abs_err": err, "max_abs_err_of": err_of, "ms": t["ms"],
+            "unvaried_ms": t["unvaried_ms"], "device_ms": t["device_ms"],
+            "unvaried_device_ms": t["unvaried_device_ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

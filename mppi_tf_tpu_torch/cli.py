@@ -3,10 +3,11 @@
 Reference: scripts/main.py (the intended flow): run a configured MPPI
 experiment (``--config`` / ``--task`` / ``--model``), or replay one from the
 config snapshots of a directory (``--replay --log-dir``). It runs on the
-card unless ``--cpu`` (or ``--f64``, float64 on the CPU) is given. Logging
-(``-l``), GIFs (``-g``), training (``-t``) and the on-device loop
-(``--on-device``) are not ported yet and raise ``NotImplementedError``
-naming their ROADMAP items.
+card unless ``--cpu`` (or ``--f64``, float64 on the CPU) is given. ``-l``
+writes metrics and config snapshots into a stamped directory under
+``--log-dir`` (observer/). GIFs (``-g``), training (``-t``) and the
+on-device loop (``--on-device``) are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP items.
 
 Usage:
     python -m mppi_tf_tpu_torch.cli --config envs/point_mass \\
@@ -25,7 +26,6 @@ import sys
 
 #: flags of the JAX CLI whose machinery is not ported yet
 _NOT_PORTED = (
-    ("log", "-l/--log: observers are not ported yet: ROADMAP item 7"),
     ("gif", "-g/--gif: GIF plotting is not ported yet: ROADMAP item 15"),
     ("train", "-t/--train: the learner is not ported yet: ROADMAP item 11"),
     ("on_device", "--on-device: the on-device closed loop is not ported "
@@ -42,13 +42,14 @@ def parse_args(argv=None):
     p.add_argument("--replay", action="store_true",
                    help="re-run an experiment from a directory's snapshots")
     p.add_argument("--log-dir", default="logs",
-                   help="replay source with --replay")
+                   help="log output dir (or replay source with --replay)")
     p.add_argument("-s", "--steps", type=int, default=100,
                    help="number of control steps")
     p.add_argument("-t", "--train", type=int, default=0,
                    help="train the model every N steps (not ported yet)")
     p.add_argument("-l", "--log", action="store_true",
-                   help="write metrics and config snapshots (not ported yet)")
+                   help="write TensorBoard/JSONL metrics and config "
+                        "snapshots")
     p.add_argument("-r", "--render", action="store_true",
                    help="render the simulation (the analytic plants draw "
                         "nothing)")
@@ -93,16 +94,19 @@ def main(argv=None):
         env_cfg = dict(env_cfg, filter=True)
 
     result = run_experiment(
-        env_cfg, task_cfg, model_cfg, steps=args.steps, render=args.render,
+        env_cfg, task_cfg, model_cfg, steps=args.steps, log=args.log,
+        log_path=None if args.replay else args.log_dir, render=args.render,
         seed=args.seed,
         dtype=torch.float64 if args.f64 else torch.float32,
         device="cpu" if (args.cpu or args.f64) else "cuda")
-    ctrl = result["controller"]
+    ctrl, observer = result["controller"], result["observer"]
     timing = ctrl.timing
+    if observer is not None:
+        observer.close()
     print(json.dumps({
         "steps": int(args.steps),
         "final_state": [round(float(v), 4) for v in result["states"][-1]],
-        "logdir": None,
+        "logdir": observer.get_logdir() if observer is not None else None,
         "avg_solve_ms": round(1e3 * timing["total"]
                               / max(timing["calls"], 1), 3),
         "kernel_path": ctrl.kernel_path,

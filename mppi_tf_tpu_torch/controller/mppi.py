@@ -10,8 +10,13 @@ weights them, updates the nominal sequence and shifts it. Two paths:
   quaternion waypoint or 3D ellipse cost, and ``kernels/nn_mppi.py`` for
   the learned ``NNAUVModel`` with the static quaternion cost (only when
   asked for by name); ``normalize_cost`` runs as the two-phase costs /
-  weights solve, and the sequence update and shift as torch ops on the
-  card.
+  weights solve, ``antithetic`` and ``noise_schedule`` as runtime
+  variants of the same kernels, and the sequence update and shift as
+  torch ops on the card.
+
+An observer (``observer/``) gets every solve's info through
+``write_control`` and, from ``save(x, u, x_next)``, the one-step
+prediction error.
 
 Waypoint missions (``set_waypoints``, ``advance_waypoints``,
 ``waypoints_remaining``) come from ``controller/missions.py``.
@@ -80,9 +85,6 @@ class MPPI(MissionMixin):
             raise RuntimeError(
                 "MPPI(device='cuda'): no GPU is present; pass device='cpu' "
                 "for the plain CPU path")
-        if observer is not None:
-            raise NotImplementedError(
-                "observers are not ported yet: ROADMAP item 7")
         if kernel_dtype != "float32":
             raise NotImplementedError(
                 f"kernel_dtype={kernel_dtype!r} is not ported yet: ROADMAP "
@@ -103,6 +105,7 @@ class MPPI(MissionMixin):
         self._normalize_cost = bool(normalize_cost)
         self._clip_actions = bool(clip_actions)
         self._antithetic = bool(antithetic)
+        self._observer = observer
         self._log = bool(log)
         dtype = model.dtype
         self._dtype = dtype
@@ -139,23 +142,15 @@ class MPPI(MissionMixin):
             raise ValueError(
                 f"kernel='cuda' needs a CUDA device, got device={device}")
         if kernel == "cuda" or (kernel == "auto" and device.type == "cuda"):
-            self._resolve_kernel(kernel, sigma_np)
+            self._resolve_kernel(kernel, sigma_np, sched_np)
 
-    def _resolve_kernel(self, kernel: str, sigma_np) -> None:
+    def _resolve_kernel(self, kernel: str, sigma_np, sched_np) -> None:
+        """The fused solve object, with the antithetic and schedule
+        options passed on as the JAX package does
+        (controller/mppi.py:226-236)."""
         from ..kernels.auv_mppi import FusedAUVMPPI
         from ..kernels.pm_mppi import FusedPointMassMPPI
 
-        blockers = []
-        if self._antithetic:
-            blockers.append("antithetic (ROADMAP queue-2 item 4)")
-        if self._sched is not None:
-            blockers.append("noise_schedule (ROADMAP queue-2 item 4)")
-        if blockers:
-            if kernel == "cuda":
-                raise NotImplementedError(
-                    "kernel='cuda' does not support " + ", ".join(blockers)
-                    + " yet; use kernel='torch'")
-            return
         classes = (FusedPointMassMPPI, FusedAUVMPPI)
         if kernel == "cuda":
             # the NN kernel is explicit-only, as in the JAX package
@@ -169,7 +164,8 @@ class MPPI(MissionMixin):
             try:
                 self._fused = cls(
                     self._model, self._cost, k=self._k, tau=self._tau,
-                    lam=self._lam, upsilon=self._upsilon, sigma=sigma_np)
+                    lam=self._lam, upsilon=self._upsilon, sigma=sigma_np,
+                    antithetic=self._antithetic, schedule=sched_np)
                 break
             except KernelUnsupportedError as e:
                 err = e
@@ -291,39 +287,132 @@ class MPPI(MissionMixin):
         action_np = action.cpu().numpy()
         self._timing["total"] += time.perf_counter() - start
         self._timing["calls"] += 1
+        if self._observer is not None:
+            self._observer.write_control(state=state, action=action_np,
+                                         info=_info)
         self._steps += 1
         return action_np
+
+    @torch.no_grad()
+    def save(self, x, u, x_next) -> None:
+        """Log the one-step prediction error of the applied transition to
+        the observer, and advance its step. Reference:
+        controller_base.py:147-210 (JAX controller/mppi.py:448-462)."""
+        if self._observer is None:
+            return
+
+        def t_(a):
+            return torch.as_tensor(np.asarray(a, np.float64).reshape(-1),
+                                   dtype=self._dtype, device=self._device)
+
+        x, u, x_next = t_(x), t_(u), t_(x_next)
+        pred = self._model.predict(x, u)
+        self._observer.write_predict(x=x, u=u, x_next=x_next, pred=pred,
+                                     cost=self._cost)
+        self._observer.advance()
+
+    def set_noise_schedule(self, spec) -> None:
+        """Swap the per-step noise schedule: data only, on the plain path
+        and in the kernels' dyn alike (JAX controller/mppi.py:521-535).
+        Only a controller built with a ``noise_schedule`` has one."""
+        if self._sched is None:
+            raise ValueError(
+                "controller was built without a noise_schedule; pass one "
+                "at construction to enable scheduling")
+        sched_np = noise_ops.resolve_noise_schedule(spec, self._tau)
+        self._sched = torch.as_tensor(sched_np, dtype=self._dtype,
+                                      device=self._device)
+        if self._fused is not None:
+            self._fused.set_schedule(sched_np)
 
     def set_goal(self, goal) -> None:
         """Update the cost goal in place. Reference: controller_base.py:597-598."""
         self._cost.set_goal(goal)
+
+    def _fake_state(self) -> np.ndarray:
+        """The warm-up state of ``trace`` and ``profile``: zeros, with a
+        unit quaternion (qw = 1) for AUV-style states (JAX
+        controller/mppi.py:470-472)."""
+        fake = np.zeros(self._sdim)
+        if self._sdim >= 7:
+            fake[6] = 1.0
+        return fake
 
     def trace(self) -> None:
         """Warm up the solve (kernel build included) with a fake state, then
         restore the controller's state. Reference: controller_base.py:562-585."""
         gen_state = self._gen.get_state()
         useq = self._useq.clone()
-        self.next(np.zeros(self._sdim))
+        self.next(self._fake_state())
         self._gen.set_state(gen_state)
         self._useq = useq
         self._steps = 0
         self._timing = {"total": 0.0, "calls": 0}
 
     def profile(self, logdir: Optional[str] = None):
-        """Run one solve under ``torch.profiler``; with ``logdir``, write a
-        Chrome trace there. Returns the profiler.
+        """Run one solve under ``torch.profiler``; with ``logdir`` (default:
+        the observer's), write a Chrome trace there. Returns the profiler.
         Reference: controller_base.py:587-595."""
+        if logdir is None and self._observer is not None:
+            logdir = self._observer.get_logdir()
+        with self._profiler() as prof:
+            self.next(self._fake_state())
+        if logdir is not None:
+            os.makedirs(logdir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
+        return prof
+
+    def _profiler(self):
         from torch.profiler import ProfilerActivity, profile
 
         acts = [ProfilerActivity.CPU]
         if self._device.type == "cuda":
             acts.append(ProfilerActivity.CUDA)
-        with profile(activities=acts) as prof:
-            self.next(np.zeros(self._sdim))
-        if logdir is not None:
-            os.makedirs(logdir, exist_ok=True)
-            prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-        return prof
+        return profile(activities=acts)
+
+    def dump_hlo(self) -> str:
+        """The text of the program a solve runs, the counterpart of the JAX
+        package's compiled-HLO dump (controller/mppi.py:501-519) that the
+        observer's ``save_graph`` takes. On the kernel path: the kernels
+        one solve launches, with their instantiations' ptxas registers,
+        shared memory and spills. On the plain path: the profiler's op
+        table of one solve. Neither changes the controller's state."""
+        from ..kernels import _launch
+
+        state = torch.as_tensor(self._fake_state(), dtype=self._dtype,
+                                device=self._device)
+        useq = self._useq.clone()
+        if self._fused is None:
+            gen_state = self._gen.get_state()
+            with self._profiler() as prof:
+                self._solve(state, useq, self._sched)
+            self._gen.set_state(gen_state)
+            return prof.key_averages().table(sort_by="self_cpu_time_total",
+                                             row_limit=40)
+        from ..kernels import _build
+
+        before = dict(_launch.launch_counts)
+        log = self._log
+        self._log = False
+        try:
+            self._fused_step(state, useq)
+        finally:
+            self._log = log
+        launched = {n: c - before[n] for n, c in _launch.launch_counts.items()
+                    if c > before[n]}
+        for name, count in launched.items():
+            _launch.launch_counts[name] -= count
+        c = self._fused.consts
+        lines = [f"{type(self._fused).__name__}: k={self._k}, "
+                 f"tau={self._tau}, cost {getattr(c, 'cost_kind', '')}, "
+                 f"scheduled={c.scheduled}, antithetic={c.antithetic}, "
+                 f"normalize={self._normalize_cost}"]
+        rows = _build.ptxas_report() if launched else []
+        for name, count in launched.items():
+            sym = _launch.kernel_symbol(name, self._fused.template_args(name))
+            lines.append(f"{name} x{count}: {sym}")
+            lines += [f"  {r}" for r in rows if sym in r["kernel"]]
+        return "\n".join(lines)
 
     def save_state(self, path: str) -> None:
         """Checkpoint the mutable state (nominal sequence, generator state,

@@ -14,13 +14,17 @@
 //   x0, the nominal sequence and its folded action-cost terms, ~400 floats
 //   at H=25) sits in shared memory; the solve constants (damping, cog/cob,
 //   buoyancy, noise scale, Mz, Q: 260 floats) come as a kernel parameter,
-//   read from the constant bank. Per step t, with the normals z_t (6):
-//     gen_force = u_t + scale z_t
+//   read from the constant bank. Per step t, with the normals z_t (6) and
+//   the schedule's factor c_t (1 unscheduled; :447-463 and :493-497):
+//     gen_force = u_t + scale (c_t z_t)
 //     rk step of state_dot: rotation, quaternion rates, D nu, C nu from
 //       M nu, restoring forces, nu_dot = M^-1 rhs (models/auv.py:254-295,
 //       matrix free as the JAX XLA path computes it)
 //     quaternion renormalisation, floor 1e-24 on the squared norm
-//     cost += q(x) + rhs_z_t . z_t + nc_half z_t^T Mz z_t
+//     cost += q(x) + rhs_z_t . z_t + nc_half c_t z_t^T Mz z_t
+//   The schedule and the antithetic mirror are runtime arguments (the c_t
+//   at the end of dyn, `half` in Seeds; mppi_common.cuh), not more
+//   instantiations of the 18.
 //   then + q(x_H) + u_half, where q is
 //   * kStaticQuat: the 10-dim StaticQuatCost with the signed dot, clamped,
 //     under the native acosf (mppi_common.cuh quat_state_cost; the TPU
@@ -274,12 +278,13 @@ __device__ __forceinline__ float auv_state_cost(const AuvConsts& c,
 template <int RK, int MODE, int COST>
 __global__ void __launch_bounds__(kBlock)
     auv_fused_solve_kernel(const AuvConsts c, const float* __restrict__ dyn,
-                           int n_dyn, const float* __restrict__ z,
+                           int n_dyn, int sched_off,
+                           const float* __restrict__ z,
                            float* __restrict__ costs,
                            float* __restrict__ partials, int k_total,
                            int tau, Seeds sd) {
   extern __shared__ float smem[];
-  float* s_dyn = smem;          // n_dyn = dyn_size(tau)
+  float* s_dyn = smem;          // n_dyn = dyn_size(tau) (+ tau scheduled)
   float* s_red = smem + n_dyn;  // kWarps * n_z: pass-two warp sums
 
   for (int i = threadIdx.x; i < n_dyn; i += kBlock) s_dyn[i] = dyn[i];
@@ -301,14 +306,17 @@ __global__ void __launch_bounds__(kBlock)
   for (int i = 0; i < 13; ++i) x[i] = s_dyn[kX0 + i];
   int n = 0;
   for (int t = 0; t < tau; ++t) {
+    const float ct = sched_factor(s_dyn, sched_off, t);
     float zt[6], gf[6];
 #pragma unroll
     for (int j = 0; j < 6; ++j) zt[j] = ns.next(n++);
+    // gen_force = u_t + scale (c_t z_t)
 #pragma unroll
     for (int i = 0; i < 6; ++i) {
       float s = useq[t * 6 + i];
 #pragma unroll
-      for (int j = 0; j < 6; ++j) s = fmaf(c.scale[i * 6 + j], zt[j], s);
+      for (int j = 0; j < 6; ++j)
+        s = fmaf(c.scale[i * 6 + j], ct * zt[j], s);
       gf[i] = s;
     }
 
@@ -367,7 +375,7 @@ __global__ void __launch_bounds__(kBlock)
       for (int i = 0; i < 6; ++i) mz = fmaf(c.mz[j * 6 + i], zt[i], mz);
       quad = fmaf(zt[j], mz, quad);
     }
-    cost = fmaf(c.nc_half, quad, cost);
+    cost = fmaf(c.nc_half * sched_factor(s_dyn, sched_off, t), quad, cost);
   }
   cost += auv_state_cost<COST>(c, s_dyn, tau, x);
   cost += u_half;
@@ -385,54 +393,51 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
+// The launch of one solve: k samples over horizon tau; scheduled (0 / 1)
+// appends the tau factors c_t to dyn.
+struct AuvLaunch {
+  const float* dyn;
+  const float* z;
+  float* costs;
+  float* partials;
+  int k, tau, scheduled;
+  Seeds sd;
+  cudaStream_t stream;
+};
+
 template <int RK, int MODE, int COST>
-int launch_auv(const AuvConsts& c, const float* dyn, const float* z,
-               float* costs, float* partials, int k, int tau, Seeds sd,
-               cudaStream_t stream) {
-  const int n_dyn = dyn_size(tau);
+int launch_auv(const AuvConsts& c, const AuvLaunch& a) {
+  const int n_dyn = dyn_size(a.tau) + (a.scheduled ? a.tau : 0);
+  const int sched_off = a.scheduled ? dyn_size(a.tau) : -1;
   size_t smem = 0;
   const cudaError_t e =
       smem_for(auv_fused_solve_kernel<RK, MODE, COST>, n_dyn,
-               MODE == kFused ? tau * 6 : 0, &smem);
+               MODE == kFused ? a.tau * 6 : 0, &smem);
   if (e != cudaSuccess) return e;
-  const int nb = (k + kBlock - 1) / kBlock;
-  auv_fused_solve_kernel<RK, MODE, COST><<<nb, kBlock, smem, stream>>>(
-      c, dyn, n_dyn, z, costs, partials, k, tau, sd);
+  const int nb = (a.k + kBlock - 1) / kBlock;
+  auv_fused_solve_kernel<RK, MODE, COST><<<nb, kBlock, smem, a.stream>>>(
+      c, a.dyn, n_dyn, sched_off, a.z, a.costs, a.partials, a.k, a.tau,
+      a.sd);
   return cudaGetLastError();
 }
 
 template <int MODE, int COST>
-int dispatch_rk(int rk, const AuvConsts& c, const float* dyn, const float* z,
-                float* costs, float* partials, int k, int tau, Seeds sd,
-                cudaStream_t st) {
-  if (rk == 1)
-    return launch_auv<1, MODE, COST>(c, dyn, z, costs, partials, k, tau, sd,
-                                     st);
-  if (rk == 2)
-    return launch_auv<2, MODE, COST>(c, dyn, z, costs, partials, k, tau, sd,
-                                     st);
-  if (rk == 4)
-    return launch_auv<4, MODE, COST>(c, dyn, z, costs, partials, k, tau, sd,
-                                     st);
+int dispatch_rk(int rk, const AuvConsts& c, const AuvLaunch& a) {
+  if (rk == 1) return launch_auv<1, MODE, COST>(c, a);
+  if (rk == 2) return launch_auv<2, MODE, COST>(c, a);
+  if (rk == 4) return launch_auv<4, MODE, COST>(c, a);
   return cudaErrorInvalidValue;
 }
 
 template <int MODE>
-int dispatch_auv(int rk, int cost, const float* consts, const float* dyn,
-                 const float* z, float* costs, float* partials, int k,
-                 int tau, Seeds sd, cudaStream_t st) {
-  if (k <= 0 || tau <= 0) return cudaErrorInvalidValue;
+int dispatch_auv(int rk, int cost, const float* consts, const AuvLaunch& a) {
+  if (a.k <= 0 || a.tau <= 0) return cudaErrorInvalidValue;
   AuvConsts c;
   memcpy(&c, consts, sizeof(c));
-  if (cost == kStaticQuat)
-    return dispatch_rk<MODE, kStaticQuat>(rk, c, dyn, z, costs, partials, k,
-                                          tau, sd, st);
+  if (cost == kStaticQuat) return dispatch_rk<MODE, kStaticQuat>(rk, c, a);
   if (cost == kWaypointsQuat)
-    return dispatch_rk<MODE, kWaypointsQuat>(rk, c, dyn, z, costs, partials,
-                                             k, tau, sd, st);
-  if (cost == kElipse3D)
-    return dispatch_rk<MODE, kElipse3D>(rk, c, dyn, z, costs, partials, k,
-                                        tau, sd, st);
+    return dispatch_rk<MODE, kWaypointsQuat>(rk, c, a);
+  if (cost == kElipse3D) return dispatch_rk<MODE, kElipse3D>(rk, c, a);
   return cudaErrorInvalidValue;
 }
 
@@ -441,23 +446,30 @@ int dispatch_auv(int rk, int cost, const float* consts, const float* dyn,
 extern "C" {
 
 // consts: AuvConsts.packed (260 floats); cost: AuvCost; dyn: dyn_size(tau)
-// floats.
+// floats, then tau factors c_t when scheduled; half: the antithetic
+// solve's first mirrored sample, 0 for none (mppi_common.cuh).
 int auv_fused_solve(int rk, int cost, const float* consts, const float* dyn,
                     const float* z, float* partials, int k, int tau,
-                    uint32_t seed_lo, uint32_t seed_hi, uint32_t s_lo,
-                    uint32_t s_hi, void* stream) {
-  return dispatch_auv<kFused>(rk, cost, consts, dyn, z, nullptr, partials, k,
-                              tau, Seeds{seed_lo, seed_hi, s_lo, s_hi},
-                              static_cast<cudaStream_t>(stream));
+                    int scheduled, uint32_t half, uint32_t seed_lo,
+                    uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
+                    void* stream) {
+  return dispatch_auv<kFused>(
+      rk, cost, consts,
+      AuvLaunch{dyn, z, nullptr, partials, k, tau, scheduled,
+                Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
+                static_cast<cudaStream_t>(stream)});
 }
 
 int auv_fused_costs(int rk, int cost, const float* consts, const float* dyn,
                     const float* z, float* costs, float* partials, int k,
-                    int tau, uint32_t seed_lo, uint32_t seed_hi,
-                    uint32_t s_lo, uint32_t s_hi, void* stream) {
-  return dispatch_auv<kCosts>(rk, cost, consts, dyn, z, costs, partials, k,
-                              tau, Seeds{seed_lo, seed_hi, s_lo, s_hi},
-                              static_cast<cudaStream_t>(stream));
+                    int tau, int scheduled, uint32_t half, uint32_t seed_lo,
+                    uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
+                    void* stream) {
+  return dispatch_auv<kCosts>(
+      rk, cost, consts,
+      AuvLaunch{dyn, z, costs, partials, k, tau, scheduled,
+                Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
+                static_cast<cudaStream_t>(stream)});
 }
 
 // The dyn length the kernels stage for horizon tau: the wrappers hold

@@ -10,6 +10,17 @@
 // place in a Philox block: a step of 6 normals straddles two blocks and
 // NoiseStream reads straight on.
 //
+// Antithetic noise (the XLA layout of ops/noise.py, not the TPU kernel's
+// in-tile lane pairs): with half = ceil(K/2) > 0, sample k >= half reads
+// the counters of sample k - half and negates every normal, so
+// z[half + i] = -z[i] for i < K - half (for odd K sample half - 1 has no
+// mirror). half = 0 turns it off. Injected z is data and is never mirrored.
+//
+// Noise schedule: the per-step factors c_t ride at the end of each solve's
+// dyn array (sched_off >= 0, else c_t = 1); the kernels scale the noise
+// drive and the z-quadratic by c_t so that c_t = 1 is the unscheduled
+// arithmetic bit for bit (1 * v == v).
+//
 // Partial row of one block (kStats + n_z floats), merged by pm_merge:
 //   (m_b, l_b, cost min, cost max, cost sum, 0, 0, 0, zsum_b[n_z])
 // with w_k = exp(zarg_k - m_b), l_b = sum_k w_k, zsum_b = sum_k w_k z_k.
@@ -50,9 +61,10 @@ __device__ __forceinline__ float bits_to_uniform(uint32_t b) {
   return (static_cast<float>(b >> 9) + 0.5f) * 1.1920928955078125e-7f;
 }
 
-__device__ __forceinline__ void box_muller(uint32_t a, uint32_t b, float& za,
-                                           float& zb) {
-  const float r = sqrtf(-2.0f * logf(bits_to_uniform(a)));
+// sign = -1 mirrors the pair: (-r) c == -(r c) bit for bit.
+__device__ __forceinline__ void box_muller(uint32_t a, uint32_t b, float sign,
+                                           float& za, float& zb) {
+  const float r = sign * sqrtf(-2.0f * logf(bits_to_uniform(a)));
   float s, c;
   sincospif(2.0f * bits_to_uniform(b), &s, &c);
   za = r * c;
@@ -61,24 +73,43 @@ __device__ __forceinline__ void box_muller(uint32_t a, uint32_t b, float& za,
 
 struct Seeds {
   uint32_t seed_lo, seed_hi, s_lo, s_hi;
+  uint32_t half;  // first mirrored sample of an antithetic solve, 0: none
 };
 
+// The Philox sample whose normals sample k reads, and their sign.
+__device__ __forceinline__ uint32_t noise_source(uint32_t k, const Seeds& sd,
+                                                 float* sign) {
+  const bool mirrored = sd.half != 0u && k >= sd.half;
+  *sign = mirrored ? -1.0f : 1.0f;
+  return mirrored ? k - sd.half : k;
+}
+
+// c_t of step t: the schedule block of the staged dyn array, or 1.
+__device__ __forceinline__ float sched_factor(const float* s_dyn,
+                                              int sched_off, int t) {
+  return sched_off >= 0 ? s_dyn[sched_off + t] : 1.0f;
+}
+
 __device__ __forceinline__ void philox_normals(uint32_t sample, uint32_t blk,
-                                               const Seeds& sd, float v[4]) {
+                                               const Seeds& sd, float sign,
+                                               float v[4]) {
   const uint4 w =
       philox4x32_10(make_uint4(sample, blk, sd.s_lo, sd.s_hi), sd.seed_lo,
                     sd.seed_hi);
-  box_muller(w.x, w.y, v[0], v[1]);
-  box_muller(w.z, w.w, v[2], v[3]);
+  box_muller(w.x, w.y, sign, v[0], v[1]);
+  box_muller(w.z, w.w, sign, v[2], v[3]);
 }
 
 // Sequential reader of one sample's normals n = 0, 1, 2, ...: the Philox
-// stream four at a time, or injected z[n][k] when z is given.
+// stream four at a time (of the mirrored sample, negated, in the second
+// half of an antithetic solve), or injected z[n][k] when z is given.
 struct NoiseStream {
   const float* z;
   int k_total;
-  uint32_t sample;
+  uint32_t sample;  // the sample's own column of injected z
+  uint32_t source;  // the Philox sample it reads
   bool valid;
+  float sign;  // -1 for a mirrored sample
   Seeds sd;
   uint32_t blk;
   int lane;
@@ -91,6 +122,7 @@ struct NoiseStream {
     sample = static_cast<uint32_t>(k);
     valid = k < k_total_;
     sd = sd_;
+    source = noise_source(sample, sd_, &sign);
     reset();
   }
   __device__ __forceinline__ void reset() {
@@ -101,7 +133,7 @@ struct NoiseStream {
     if (z != nullptr)
       return valid ? z[static_cast<size_t>(n) * k_total + sample] : 0.0f;
     if (lane == 4) {
-      philox_normals(sample, blk++, sd, buf);
+      philox_normals(source, blk++, sd, sign, buf);
       lane = 0;
     }
     const float v = lane == 0 ? buf[0]

@@ -13,11 +13,15 @@
 //   the horizon is a loop (not unrolled: the MLP body is ~3k FMAs). Per step
 //   t, with the normals z_t (6) of the port's one Philox stream
 //   (mppi_common.cuh NoiseStream, normal n = t*6 + j):
-//     u = useq_t + scale z_t
+//     u = useq_t + scale (c_t z_t)     (c_t: the schedule, 1 unscheduled)
 //     h = [x[3:13], u] (16 features, position dropped)
 //     h = relu(W1' h + b1'), ..., delta = W_L' h + b_L'   (ReLU hidden, linear out)
 //     x += delta; quaternion renormalised (rsqrt, floor 1e-24 on |q|^2)
-//     cost += q(x) + rhs_z_t . z_t + nc_half z_t^T Mz z_t
+//     cost += q(x) + rhs_z_t . z_t + nc_half c_t z_t^T Mz z_t
+//   (the TPU kernel's :255-275 and :323). The schedule (c_t at the end of
+//   dyn) and the antithetic mirror (`half` in Seeds, the XLA layout of
+//   mppi_common.cuh, not _fill_noise_steps' :110-114) are runtime
+//   arguments, not instantiations.
 //   then + q(x_H) + u_half, with q the StaticQuatCost (mppi_common.cuh).
 //
 //   Weights are runtime data. kernels/nn_mppi.py FusedNNMPPI.pack_dyn folds
@@ -134,7 +138,8 @@ __device__ __forceinline__ void mlp(const float* __restrict__ s_w,
 template <int N1, int N2, int N3, int MODE>
 __global__ void __launch_bounds__(kBlock)
     nn_fused_solve_kernel(const NnConsts c, const float* __restrict__ dyn,
-                          int dyn_size, const float* __restrict__ z,
+                          int dyn_size, int sched_off,
+                          const float* __restrict__ z,
                           float* __restrict__ costs,
                           float* __restrict__ partials, int k_total,
                           int tau, Seeds sd) {
@@ -147,7 +152,7 @@ __global__ void __launch_bounds__(kBlock)
   __syncthreads();
 
   // dyn layout (kernels/nn_mppi.py NNDyn): layers, x0, goal, useq, rhs_z,
-  // u_half
+  // u_half, then the schedule's c_t at sched_off when scheduled
   const float* x0 = s_dyn + T::size;
   const float* goal = x0 + kSdim;
   const float* useq = goal + kSdim;
@@ -171,16 +176,19 @@ __global__ void __launch_bounds__(kBlock)
     // horizon loop into registers and spills (255 registers, a 440-byte
     // stack); each step reloads them from shared memory instead
     asm volatile("" ::: "memory");
+    const float ct = sched_factor(s_dyn, sched_off, t);
     float zt[kAdim], feats[kFeatures];
 #pragma unroll
     for (int j = 0; j < kAdim; ++j) zt[j] = ns.next(n++);
 #pragma unroll
     for (int i = 0; i < kSdim - 3; ++i) feats[i] = x[3 + i];
+    // u = useq_t + scale (c_t z_t)
 #pragma unroll
     for (int i = 0; i < kAdim; ++i) {
       float s = useq[t * kAdim + i];
 #pragma unroll
-      for (int j = 0; j < kAdim; ++j) s = fmaf(c.scale[i * kAdim + j], zt[j], s);
+      for (int j = 0; j < kAdim; ++j)
+        s = fmaf(c.scale[i * kAdim + j], ct * zt[j], s);
       feats[kSdim - 3 + i] = s;
     }
     float delta[kSdim];
@@ -204,7 +212,7 @@ __global__ void __launch_bounds__(kBlock)
       for (int i = 0; i < kAdim; ++i) mz = fmaf(c.mz[j * kAdim + i], zt[i], mz);
       quad = fmaf(zt[j], mz, quad);
     }
-    cost = fmaf(c.nc_half, quad, cost);
+    cost = fmaf(c.nc_half * ct, quad, cost);
   }
   cost += quat_state_cost(c.q, x, goal);
   cost += u_half;
@@ -224,10 +232,10 @@ __global__ void __launch_bounds__(kBlock)
 
 template <int N1, int N2, int N3, int MODE>
 int launch_nn(const NnConsts& c, const float* dyn, const float* z,
-              float* costs, float* partials, int k, int tau, Seeds sd,
-              cudaStream_t stream) {
-  const int dyn_size = Topo<N1, N2, N3>::size + 2 * kSdim + 2 * kAdim * tau
-                       + 1;
+              float* costs, float* partials, int k, int tau, int scheduled,
+              Seeds sd, cudaStream_t stream) {
+  const int base = Topo<N1, N2, N3>::size + 2 * kSdim + 2 * kAdim * tau + 1;
+  const int dyn_size = scheduled ? base + tau : base;
   size_t smem = 0;
   const cudaError_t e =
       smem_for(nn_fused_solve_kernel<N1, N2, N3, MODE>, round4(dyn_size),
@@ -235,24 +243,25 @@ int launch_nn(const NnConsts& c, const float* dyn, const float* z,
   if (e != cudaSuccess) return e;
   const int nb = (k + kBlock - 1) / kBlock;
   nn_fused_solve_kernel<N1, N2, N3, MODE><<<nb, kBlock, smem, stream>>>(
-      c, dyn, dyn_size, z, costs, partials, k, tau, sd);
+      c, dyn, dyn_size, scheduled ? base : -1, z, costs, partials, k, tau,
+      sd);
   return cudaGetLastError();
 }
 
 template <int MODE>
 int dispatch_nn(int n1, int n2, int n3, const float* consts,
                 const float* dyn, const float* z, float* costs,
-                float* partials, int k, int tau, Seeds sd,
+                float* partials, int k, int tau, int sch, Seeds sd,
                 cudaStream_t st) {
   if (k <= 0 || tau <= 0) return cudaErrorInvalidValue;
   NnConsts c;
   memcpy(&c, consts, sizeof(c));
   if (n1 == 32 && n2 == 32 && n3 == 32)
     return launch_nn<32, 32, 32, MODE>(c, dyn, z, costs, partials, k, tau,
-                                       sd, st);
+                                       sch, sd, st);
   if (n1 == 8 && n2 == 8 && n3 == 0)
-    return launch_nn<8, 8, 0, MODE>(c, dyn, z, costs, partials, k, tau, sd,
-                                    st);
+    return launch_nn<8, 8, 0, MODE>(c, dyn, z, costs, partials, k, tau, sch,
+                                    sd, st);
   return cudaErrorInvalidValue;
 }
 
@@ -260,22 +269,27 @@ int dispatch_nn(int n1, int n2, int n3, const float* consts,
 
 extern "C" {
 
+// scheduled: dyn ends in the tau factors c_t; half: the antithetic solve's
+// first mirrored sample, 0 for none (mppi_common.cuh).
 int nn_fused_solve(int n1, int n2, int n3, const float* consts,
                    const float* dyn, const float* z, float* partials, int k,
-                   int tau, uint32_t seed_lo, uint32_t seed_hi,
-                   uint32_t s_lo, uint32_t s_hi, void* stream) {
+                   int tau, int scheduled, uint32_t half, uint32_t seed_lo,
+                   uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
+                   void* stream) {
   return dispatch_nn<kFused>(n1, n2, n3, consts, dyn, z, nullptr, partials,
-                             k, tau, Seeds{seed_lo, seed_hi, s_lo, s_hi},
+                             k, tau, scheduled,
+                             Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
                              static_cast<cudaStream_t>(stream));
 }
 
 int nn_fused_costs(int n1, int n2, int n3, const float* consts,
                    const float* dyn, const float* z, float* costs,
-                   float* partials, int k, int tau, uint32_t seed_lo,
-                   uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
-                   void* stream) {
+                   float* partials, int k, int tau, int scheduled,
+                   uint32_t half, uint32_t seed_lo, uint32_t seed_hi,
+                   uint32_t s_lo, uint32_t s_hi, void* stream) {
   return dispatch_nn<kCosts>(n1, n2, n3, consts, dyn, z, costs, partials, k,
-                             tau, Seeds{seed_lo, seed_hi, s_lo, s_hi},
+                             tau, scheduled,
+                             Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
                              static_cast<cudaStream_t>(stream));
 }
 

@@ -12,7 +12,8 @@
 //
 // pm_noise_dump_kernel -- replaces fused_noise_dump (make_noise_kernel +
 //   _fill_noise). Writes the exact normals the solves consume, z[n][k] with
-//   n = t*adim + j, for any adim (the AUV's 6 as well). Bound by the bytes
+//   n = t*adim + j, for any adim (the AUV's 6 as well), mirrored past
+//   `half` as an antithetic solve reads them. Bound by the bytes
 //   it writes (4 per normal); Philox and Box-Muller are ~32 operations per
 //   normal, below that.
 //
@@ -39,6 +40,15 @@
 //   * kCosts writes costs[k] and a stats-only row (m_b = l_b = 0, no zsum):
 //     pm_merge with n_z = 0 gives the cost min / max / sum that phase B
 //     normalizes with;
+//   * the `scheduled` (per-step c_t, _Dyn.sched of :144-148, the algebra
+//     of :490-553) and `antithetic` (:184-187) variants are runtime
+//     arguments, not instantiations: c_t sits at the end of dyn in shared
+//     memory and scales the noise drive, x' = A x + inv_m (B u_t + c_t B
+//     scale z_t), and the z-quadratic, nc_half c_t z^T Mz z (rhs_z is
+//     schedule-invariant; the host packs u_half as sum_t u_half_t / c_t
+//     and unfolds wnoise_t = c_t scale zsum_t); an antithetic solve
+//     mirrors Philox samples as mppi_common.cuh says, uniformly over the
+//     grid's second half;
 //   * the TPU's sin polynomial and mantissa-stuffing uniform worked around
 //     Mosaic; here logf / sqrtf / sincospif are used directly.
 //
@@ -46,7 +56,8 @@
 //   auv_mppi._fused_auv_weights, phase B of the normalized solve, for both
 //   models). Reads costs[k] and nrm = (beta, 1/(denom*lam)) from device
 //   memory (no host sync between the phases), regenerates the normals of
-//   the same (seed, solve) (n_z = tau*adim, any adim) and writes partial
+//   the same (seed, solve) (n_z = tau*adim, any adim; mirrored when
+//   antithetic, :222 of the TPU kernel) and writes partial
 //   rows with m_b = 0: w = exp(-(c - beta) * nrm[1]) lies in
 //   [exp(-1/lam), 1], so no max shift is needed. Bound by operations (one
 //   Philox + Box-Muller pass); it reads 4 bytes a sample.
@@ -110,7 +121,8 @@ __device__ __forceinline__ float state_cost(const Consts<S, A>& c,
 template <int S, int A, int MODE, int COST>
 __global__ void __launch_bounds__(kBlock)
     pm_fused_solve_kernel(const Consts<S, A> c, const float* __restrict__ dyn,
-                          int dyn_size, const float* __restrict__ z,
+                          int dyn_size, int sched_off,
+                          const float* __restrict__ z,
                           float* __restrict__ costs,
                           float* __restrict__ partials, int k_total, int tau,
                           Seeds sd) {
@@ -121,7 +133,8 @@ __global__ void __launch_bounds__(kBlock)
   for (int i = threadIdx.x; i < dyn_size; i += kBlock) s_dyn[i] = dyn[i];
   __syncthreads();
 
-  // dyn layout (kernels/pm_mppi.py Dyn): inv_mass, x0, goal, bu, rhs_z, u_half
+  // dyn layout (kernels/pm_mppi.py Dyn): inv_mass, x0, goal, bu, rhs_z,
+  // u_half, then the schedule's c_t at sched_off when scheduled
   const float* x0 = s_dyn + 1;
   const float* goal = s_dyn + 1 + S;
   const float* bu = s_dyn + 1 + 2 * S;
@@ -142,6 +155,7 @@ __global__ void __launch_bounds__(kBlock)
     for (int i = 0; i < S; ++i) x[i] = x0[i];
     int n = 0;
     for (int t = 0; t < tau; ++t) {
+      const float ct = sched_factor(s_dyn, sched_off, t);
       float zt[A];
 #pragma unroll
       for (int j = 0; j < A; ++j) zt[j] = ns.next(n++);
@@ -154,7 +168,8 @@ __global__ void __launch_bounds__(kBlock)
         float bz = 0.0f;
 #pragma unroll
         for (int j = 0; j < A; ++j) bz = fmaf(c.bs[i * A + j], zt[j], bz);
-        xn[i] = fmaf(inv_m, bu[t * S + i] + bz, ax);
+        // x' = A x + inv_m (B u_t + c_t B scale z_t)
+        xn[i] = fmaf(inv_m, bu[t * S + i] + ct * bz, ax);
       }
 #pragma unroll
       for (int i = 0; i < S; ++i) x[i] = xn[i];
@@ -168,7 +183,8 @@ __global__ void __launch_bounds__(kBlock)
         for (int i = 0; i < A; ++i) mz = fmaf(c.mz[j * A + i], zt[i], mz);
         quad = fmaf(zt[j], mz, quad);
       }
-      cost = fmaf(c.nc_half, quad, cost);
+      // eps^T Sigma_t^-1 eps = c_t z^T Mz z
+      cost = fmaf(c.nc_half * ct, quad, cost);
     }
     cost += state_cost<S, A, COST>(c, x, goal);
     cost += u_half;
@@ -210,8 +226,10 @@ __global__ void pm_noise_dump_kernel(float* __restrict__ out, int k_total,
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= k_total) return;
   const int blk = blockIdx.y;
+  float sign;
+  const uint32_t src = noise_source(static_cast<uint32_t>(k), sd, &sign);
   float v[4];
-  philox_normals(static_cast<uint32_t>(k), static_cast<uint32_t>(blk), sd, v);
+  philox_normals(src, static_cast<uint32_t>(blk), sd, sign, v);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int n = blk * 4 + i;
@@ -291,11 +309,13 @@ __global__ void __launch_bounds__(kMergeThreads)
 
 template <int S, int A, int MODE, int COST>
 int launch_solve(const float* consts, const float* dyn, const float* z,
-                 float* costs, float* partials, int k, int tau, Seeds sd,
-                 cudaStream_t stream) {
+                 float* costs, float* partials, int k, int tau,
+                 int scheduled, Seeds sd, cudaStream_t stream) {
   Consts<S, A> c;
   memcpy(&c, consts, sizeof(c));
-  const int dyn_size = 1 + 2 * S + tau * (S + A) + 1;
+  const int base = 1 + 2 * S + tau * (S + A) + 1;
+  const int sched_off = scheduled ? base : -1;
+  const int dyn_size = scheduled ? base + tau : base;
   size_t smem = 0;
   const cudaError_t e =
       smem_for(pm_fused_solve_kernel<S, A, MODE, COST>, dyn_size,
@@ -303,32 +323,32 @@ int launch_solve(const float* consts, const float* dyn, const float* z,
   if (e != cudaSuccess) return e;
   const int nb = (k + kBlock - 1) / kBlock;
   pm_fused_solve_kernel<S, A, MODE, COST><<<nb, kBlock, smem, stream>>>(
-      c, dyn, dyn_size, z, costs, partials, k, tau, sd);
+      c, dyn, dyn_size, sched_off, z, costs, partials, k, tau, sd);
   return cudaGetLastError();
 }
 
 template <int MODE>
 int dispatch_solve(int sdim, int adim, int cost, const float* consts,
                    const float* dyn, const float* z, float* costs,
-                   float* partials, int k, int tau, Seeds sd,
+                   float* partials, int k, int tau, int sch, Seeds sd,
                    cudaStream_t st) {
   if (k <= 0 || tau <= 0) return cudaErrorInvalidValue;
   if (cost == kElipse) {
     if (sdim == 4 && adim == 2)
       return launch_solve<4, 2, MODE, kElipse>(consts, dyn, z, costs,
-                                               partials, k, tau, sd, st);
+                                               partials, k, tau, sch, sd, st);
     return cudaErrorInvalidValue;
   }
   if (cost != kQuadratic) return cudaErrorInvalidValue;
   if (sdim == 6 && adim == 3)
-    return launch_solve<6, 3, MODE, kQuadratic>(consts, dyn, z, costs,
-                                                partials, k, tau, sd, st);
+    return launch_solve<6, 3, MODE, kQuadratic>(
+        consts, dyn, z, costs, partials, k, tau, sch, sd, st);
   if (sdim == 2 && adim == 1)
-    return launch_solve<2, 1, MODE, kQuadratic>(consts, dyn, z, costs,
-                                                partials, k, tau, sd, st);
+    return launch_solve<2, 1, MODE, kQuadratic>(
+        consts, dyn, z, costs, partials, k, tau, sch, sd, st);
   if (sdim == 4 && adim == 2)
-    return launch_solve<4, 2, MODE, kQuadratic>(consts, dyn, z, costs,
-                                                partials, k, tau, sd, st);
+    return launch_solve<4, 2, MODE, kQuadratic>(
+        consts, dyn, z, costs, partials, k, tau, sch, sd, st);
   return cudaErrorInvalidValue;
 }
 
@@ -336,11 +356,14 @@ int dispatch_solve(int sdim, int adim, int cost, const float* consts,
 
 extern "C" {
 
-int pm_noise_dump(float* out, int k, int n_z, uint32_t seed_lo,
-                  uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
-                  void* stream) {
+// Every entry point that reads the noise takes `half`, the first mirrored
+// sample of an antithetic solve (0: none; mppi_common.cuh), and the solves
+// take `scheduled` (1: dyn ends in the tau factors c_t).
+int pm_noise_dump(float* out, int k, int n_z, uint32_t half,
+                  uint32_t seed_lo, uint32_t seed_hi, uint32_t s_lo,
+                  uint32_t s_hi, void* stream) {
   if (k <= 0 || n_z <= 0) return cudaErrorInvalidValue;
-  const Seeds sd{seed_lo, seed_hi, s_lo, s_hi};
+  const Seeds sd{seed_lo, seed_hi, s_lo, s_hi, half};
   const dim3 grid((k + 255) / 256, (n_z + 3) / 4);
   pm_noise_dump_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       out, k, n_z, sd);
@@ -350,29 +373,30 @@ int pm_noise_dump(float* out, int k, int n_z, uint32_t seed_lo,
 // consts: PmConsts.packed, sizeof(Consts<sdim, adim>) bytes; cost: PmCost.
 int pm_fused_solve(int sdim, int adim, int cost, const float* consts,
                    const float* dyn, const float* z, float* partials, int k,
-                   int tau, uint32_t seed_lo, uint32_t seed_hi,
-                   uint32_t s_lo, uint32_t s_hi, void* stream) {
+                   int tau, int scheduled, uint32_t half, uint32_t seed_lo,
+                   uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
+                   void* stream) {
   return dispatch_solve<kFused>(sdim, adim, cost, consts, dyn, z, nullptr,
-                                partials, k, tau,
-                                Seeds{seed_lo, seed_hi, s_lo, s_hi},
+                                partials, k, tau, scheduled,
+                                Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
                                 static_cast<cudaStream_t>(stream));
 }
 
 int pm_fused_costs(int sdim, int adim, int cost, const float* consts,
                    const float* dyn, const float* z, float* costs,
-                   float* partials, int k, int tau, uint32_t seed_lo,
-                   uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
-                   void* stream) {
+                   float* partials, int k, int tau, int scheduled,
+                   uint32_t half, uint32_t seed_lo, uint32_t seed_hi,
+                   uint32_t s_lo, uint32_t s_hi, void* stream) {
   return dispatch_solve<kCosts>(sdim, adim, cost, consts, dyn, z, costs,
-                                partials, k, tau,
-                                Seeds{seed_lo, seed_hi, s_lo, s_hi},
+                                partials, k, tau, scheduled,
+                                Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
                                 static_cast<cudaStream_t>(stream));
 }
 
 int mppi_weights(const float* nrm, const float* costs, const float* z,
-                 float* partials, int k, int n_z, uint32_t seed_lo,
-                 uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
-                 void* stream) {
+                 float* partials, int k, int n_z, uint32_t half,
+                 uint32_t seed_lo, uint32_t seed_hi, uint32_t s_lo,
+                 uint32_t s_hi, void* stream) {
   if (k <= 0 || n_z <= 0) return cudaErrorInvalidValue;
   size_t smem = 0;
   const cudaError_t e = smem_for(mppi_weights_kernel, 0, n_z, &smem);
@@ -380,7 +404,8 @@ int mppi_weights(const float* nrm, const float* costs, const float* z,
   const int nb = (k + kBlock - 1) / kBlock;
   mppi_weights_kernel<<<nb, kBlock, smem,
                         static_cast<cudaStream_t>(stream)>>>(
-      nrm, costs, z, partials, k, n_z, Seeds{seed_lo, seed_hi, s_lo, s_hi});
+      nrm, costs, z, partials, k, n_z,
+      Seeds{seed_lo, seed_hi, s_lo, s_hi, half});
   return cudaGetLastError();
 }
 

@@ -2,19 +2,23 @@
 
 Reference: scripts/main.py:94-106 (the intended flow): each control step
 reads the state, solves MPPI, then steps the plant at its own (finer)
-physics dt until one controller dt has elapsed. The JAX package's learner
-hook (``train_every``), observer logging and on-device loop are not ported
-yet and raise ``NotImplementedError`` naming their ROADMAP items.
+physics dt until one controller dt has elapsed, and logs the transition
+to the controller's observer. The JAX package's learner hook
+(``train_every``) and on-device loop are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP items.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
 
 
 class ClosedLoopRunner:
-    """Drives a controller against an env at the control dt."""
+    """Drives a controller against an env at the control dt; the
+    controller's ``save`` logs each transition to its observer."""
 
     def __init__(self, env, controller, control_dt: float,
                  waypoint_radius: float = 0.0):
@@ -41,6 +45,8 @@ class ClosedLoopRunner:
             while self.env.getTime() - prev < self.control_dt - 1e-12:
                 x_next = self.env.step(np.reshape(u, (1, -1)),
                                        goal=self.env.getGoal())
+            if hasattr(self.controller, "save"):
+                self.controller.save(x, np.reshape(u, (-1, 1)), x_next)
             states.append(np.reshape(x, (-1,)).copy())
             actions.append(np.reshape(u, (-1,)).copy())
             x = x_next
@@ -83,15 +89,19 @@ def build_model_and_cost(env_cfg, task_cfg, model_cfg, dtype=torch.float32,
 
 
 def run_experiment(env_cfg, task_cfg, model_cfg, steps: int = 100,
-                   log: bool = False, render: bool = False, seed: int = 0,
+                   log: bool = False, log_path: Optional[str] = None,
+                   render: bool = False, seed: int = 0,
                    train_every: int = 0, dtype=torch.float32,
                    on_device: bool = False, device="cuda"):
     """Config-driven experiment: build env, model, cost and controller from
     the three YAML-family dicts and run the closed loop on ``device``
-    (default the card; raises without a GPU, as ``MPPI`` does).
+    (default the card; raises without a GPU, as ``MPPI`` does). ``log``
+    attaches an ``Observer`` writing under ``log_path`` (default "logs"):
+    config snapshots, per-solve metrics and one-step prediction errors.
 
     Returns {"states", "actions", "controller", "env", "observer",
-    "learner"} (observer and learner None).
+    "learner"} (learner None; observer None without ``log``). The caller
+    closes the observer.
     """
     from ..controller import get_controller
     from . import get_env
@@ -103,9 +113,6 @@ def run_experiment(env_cfg, task_cfg, model_cfg, steps: int = 100,
         raise NotImplementedError(
             "on_device: the on-device closed loop is not ported yet: "
             "ROADMAP item 13")
-    if log:
-        raise NotImplementedError(
-            "log: observers are not ported yet: ROADMAP item 7")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -114,11 +121,17 @@ def run_experiment(env_cfg, task_cfg, model_cfg, steps: int = 100,
     env = get_env(env_cfg, render=render, model_cfg=model_cfg)
     model, cost, _sigma = build_model_and_cost(
         env_cfg, task_cfg, model_cfg, dtype=dtype, device=device)
-    controller = get_controller(model, cost, env_cfg, seed=seed,
-                                device=device)
+    observer = None
+    if log:
+        from ..observer import Observer
+
+        observer = Observer(log_path=log_path, env_cfg=env_cfg,
+                            task_cfg=task_cfg, model_cfg=model_cfg)
+    controller = get_controller(model, cost, env_cfg, observer=observer,
+                                seed=seed, device=device)
     runner = ClosedLoopRunner(env, controller,
                               control_dt=env_cfg.get("dt", 0.1),
                               waypoint_radius=task_cfg.get("radius", 0.0))
     states, actions = runner.run(steps)
     return {"states": states, "actions": actions, "controller": controller,
-            "env": env, "observer": None, "learner": None}
+            "env": env, "observer": observer, "learner": None}

@@ -28,19 +28,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-_SEEDS = [_U, _U, _U, _U]
+# the antithetic half, then (seed, solve) as 32-bit words
+_SEEDS = [_U, _U, _U, _U, _U]
+# k, tau, scheduled
+_SOLVE = [_I, _I, _I]
 _SIGNATURES = {
     "pm_noise_dump": [_P, _I, _I, *_SEEDS, _P],
-    "pm_fused_solve": [_I, _I, _I, _P, _P, _P, _P, _I, _I, *_SEEDS, _P],
-    "pm_fused_costs": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, *_SEEDS,
+    "pm_fused_solve": [_I, _I, _I, _P, _P, _P, _P, *_SOLVE, *_SEEDS, _P],
+    "pm_fused_costs": [_I, _I, _I, _P, _P, _P, _P, _P, *_SOLVE, *_SEEDS,
                        _P],
     "mppi_weights": [_P, _P, _P, _P, _I, _I, *_SEEDS, _P],
     "pm_merge": [_P, _I, _I, _P, _P, _P],
-    "auv_fused_solve": [_I, _I, _P, _P, _P, _P, _I, _I, *_SEEDS, _P],
-    "auv_fused_costs": [_I, _I, _P, _P, _P, _P, _P, _I, _I, *_SEEDS, _P],
+    "auv_fused_solve": [_I, _I, _P, _P, _P, _P, *_SOLVE, *_SEEDS, _P],
+    "auv_fused_costs": [_I, _I, _P, _P, _P, _P, _P, *_SOLVE, *_SEEDS, _P],
     "auv_dyn_size": [_I],
-    "nn_fused_solve": [_I, _I, _I, _P, _P, _P, _P, _I, _I, *_SEEDS, _P],
-    "nn_fused_costs": [_I, _I, _I, _P, _P, _P, _P, _P, _I, _I, *_SEEDS,
+    "nn_fused_solve": [_I, _I, _I, _P, _P, _P, _P, *_SOLVE, *_SEEDS, _P],
+    "nn_fused_costs": [_I, _I, _I, _P, _P, _P, _P, _P, *_SOLVE, *_SEEDS,
                        _P],
 }
 

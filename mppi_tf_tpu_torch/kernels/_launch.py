@@ -18,6 +18,27 @@ launch_counts = {"pm_noise_dump": 0, "pm_fused_solve": 0, "pm_merge": 0,
                  "nn_fused_solve": 0, "nn_fused_costs": 0}
 
 
+#: the __global__ function each entry point launches (the solves' costs
+#: mode is the MODE template argument of the same kernel)
+KERNELS = {"pm_noise_dump": "pm_noise_dump_kernel",
+           "pm_fused_solve": "pm_fused_solve_kernel",
+           "pm_fused_costs": "pm_fused_solve_kernel",
+           "pm_merge": "pm_merge_kernel",
+           "mppi_weights": "mppi_weights_kernel",
+           "auv_fused_solve": "auv_fused_solve_kernel",
+           "auv_fused_costs": "auv_fused_solve_kernel",
+           "nn_fused_solve": "nn_fused_solve_kernel",
+           "nn_fused_costs": "nn_fused_solve_kernel"}
+
+
+def kernel_symbol(entry: str, args=()) -> str:
+    """The part of the mangled (Itanium) name that ptxas reports for the
+    instantiation of ``entry``'s kernel at integer template ``args``:
+    ``pm_fused_solve_kernelILi6ELi3ELi0ELi0E`` for <6, 3, 0, 0>."""
+    sym = KERNELS[entry]
+    return sym + "I" + "".join(f"Li{int(a)}E" for a in args) if args else sym
+
+
 def reset_launch_counts() -> None:
     for name in launch_counts:
         launch_counts[name] = 0

@@ -33,8 +33,9 @@ from ..ops import quaternion as quat
 from . import _build
 from ._launch import check, launch, on_card, split64
 from .errors import KernelUnsupportedError
-from .pm_mppi import (BLOCK, STATS, TwoPhaseSolve, block_partials,
-                      cost_partials, noise_plain)
+from .pm_mppi import (BLOCK, STATS, TwoPhaseSolve, _sched_block,
+                      antithetic_half, block_partials, cost_partials,
+                      noise_plain, sched_factors, variant_args)
 
 GRAVITY = 9.81
 SDIM, ADIM = 13, 6
@@ -43,12 +44,12 @@ COST_KINDS = {"static_quat": 0, "waypoints_quat": 1, "elipse3d": 2}
 
 
 class Dyn:
-    """Layout of the per-solve array ``dyn`` (the JAX package's ``_Dyn``
-    without its schedule block), staged into shared memory; the same
-    layout as the ``dyn_*`` offsets of auv_mppi.cu, whose ``auv_dyn_size``
-    the wrappers check against ``size``."""
+    """Layout of the per-solve array ``dyn`` (the JAX package's ``_Dyn``),
+    staged into shared memory; the same layout as the ``dyn_*`` offsets of
+    auv_mppi.cu, whose ``auv_dyn_size`` the wrappers check against the
+    unscheduled ``size``. A scheduled solve appends the tau factors c_t."""
 
-    def __init__(self, tau: int):
+    def __init__(self, tau: int, scheduled: bool = False):
         self.m_tot = 0                 # 36: total mass matrix, row-major
         self.inv_m = 36                # 36: its inverse
         self.mass = 72                 # 1
@@ -60,6 +61,7 @@ class Dyn:
         self.goal2 = self.u_half + 1   # 13: waypoints: w1
         self.wblend = self.goal2 + 13  # 2: waypoints: (1-a, a), or (1, 0)
         self.size = self.wblend + 2
+        self.sched = _sched_block(self, tau, scheduled)
 
 
 @dataclass
@@ -69,7 +71,8 @@ class AuvConsts:
     matrices (quad_damp as its diagonal), cog, cob, scale = upsilon sigma,
     Mz = scale^T Sigma^-1 scale, the 10x10 cost weight Q (the quaternion
     costs), the cost kind and, for "elipse3d", the ellipse's R_plane,
-    q_plane, center, axis3, mapping, gv, mS and mV."""
+    q_plane, center, axis3, mapping, gv, mS and mV; ``scheduled`` and
+    ``antithetic`` are the runtime variants (launch arguments)."""
 
     dt: float
     rk: int
@@ -86,6 +89,8 @@ class AuvConsts:
     Q: np.ndarray
     cost_kind: str = "static_quat"
     elipse3d: dict = field(default_factory=dict)
+    scheduled: bool = False
+    antithetic: bool = False
 
     #: the ellipse constants, in the order of ``Elipse3D`` in auv_mppi.cu
     ELIPSE3D = ("R_plane", "q_plane", "center", "axis3", "mapping", "gv",
@@ -185,9 +190,11 @@ def sample_costs_plain(consts: AuvConsts, dyn: torch.Tensor,
                        z: torch.Tensor) -> torch.Tensor:
     """Per-sample rollout costs [k] in the kernel's algebra: the Fossen
     rollout of ``AUVModel.step`` and the state cost of ``consts.cost_kind``
-    over eps = scale @ z, with Sigma^-1 and u folded into dyn."""
+    over eps = c_t scale @ z, with Sigma^-1, u and the schedule folded into
+    dyn."""
     tau, _, k = z.shape
-    lay = Dyn(tau)
+    lay = Dyn(tau, consts.scheduled)
+    ct = sched_factors(dyn, lay, tau)
 
     def t_(a):
         return torch.tensor(np.asarray(a, np.float64), dtype=dyn.dtype,
@@ -212,7 +219,7 @@ def sample_costs_plain(consts: AuvConsts, dyn: torch.Tensor,
     cost = torch.zeros(k, dtype=dyn.dtype, device=dyn.device)
     for t in range(tau):
         zt = z[t].T                                     # [k, 6]
-        gf = useq[t] + zt @ scale.T
+        gf = useq[t] + (ct[t] * zt) @ scale.T
         k1 = f(x, gf)
         if rk == 1:
             x = x + dt * k1
@@ -226,8 +233,8 @@ def sample_costs_plain(consts: AuvConsts, dyn: torch.Tensor,
         qn = torch.rsqrt(torch.clamp(torch.sum(x[:, 3:7] ** 2, dim=-1,
                                                keepdim=True), min=1e-24))
         x = torch.cat([x[:, :3], x[:, 3:7] * qn, x[:, 7:]], dim=-1)
-        cost = (cost + q(x) + zt @ rhs_z[t]
-                + consts.nc_half * torch.sum((zt @ Mz.T) * zt, dim=-1))
+        cost = (cost + q(x) + zt @ rhs_z[t] + consts.nc_half * ct[t]
+                * torch.sum((zt @ Mz.T) * zt, dim=-1))
     return cost + q(x) + dyn[lay.u_half]
 
 
@@ -237,8 +244,8 @@ def fused_solve_plain(consts: AuvConsts, dyn: torch.Tensor, k: int,
     """Plain version of ``auv_fused_solve``: block partials
     [n_blocks, STATS + tau*6]."""
     if z is None:
-        z = noise_plain(seed, solve, k, tau, ADIM,
-                        device=dyn.device).to(dyn.dtype)
+        z = noise_plain(seed, solve, k, tau, ADIM, device=dyn.device,
+                        half=antithetic_half(k, consts.antithetic)).to(dyn.dtype)
     costs = sample_costs_plain(consts, dyn, z)
     return block_partials(costs, z.reshape(tau * ADIM, k), consts.lam, block)
 
@@ -248,8 +255,8 @@ def fused_costs_plain(consts: AuvConsts, dyn: torch.Tensor, k: int,
                       block: int = BLOCK):
     """Plain version of ``auv_fused_costs``: (costs [k], stats-only rows)."""
     if z is None:
-        z = noise_plain(seed, solve, k, tau, ADIM,
-                        device=dyn.device).to(dyn.dtype)
+        z = noise_plain(seed, solve, k, tau, ADIM, device=dyn.device,
+                        half=antithetic_half(k, consts.antithetic)).to(dyn.dtype)
     costs = sample_costs_plain(consts, dyn, z)
     return costs, cost_partials(costs, block)
 
@@ -272,7 +279,7 @@ def _check_inputs(consts, dyn, z, k, tau):
         raise RuntimeError(
             f"dyn layout mismatch: the kernels stage {kernel_dyn_size(tau)} "
             f"floats at tau={tau}, Dyn packs {Dyn(tau).size}")
-    check(dyn, "dyn", (Dyn(tau).size,))
+    check(dyn, "dyn", (Dyn(tau, consts.scheduled).size,))
     if z is not None:
         check(z, "z", (tau, ADIM, k))
 
@@ -290,7 +297,7 @@ def auv_fused_solve(consts: AuvConsts, dyn: torch.Tensor, k: int, tau: int,
     launch("auv_fused_solve", dyn.device, consts.rk,
            COST_KINDS[consts.cost_kind], consts.packed.ctypes.data, dyn.data_ptr(),
            None if z is None else z.data_ptr(), partials.data_ptr(), k, tau,
-           *split64(seed), *split64(solve))
+           *variant_args(consts, k), *split64(seed), *split64(solve))
     return partials
 
 
@@ -306,7 +313,8 @@ def auv_fused_costs(consts: AuvConsts, dyn: torch.Tensor, k: int, tau: int,
     launch("auv_fused_costs", dyn.device, consts.rk,
            COST_KINDS[consts.cost_kind], consts.packed.ctypes.data, dyn.data_ptr(),
            None if z is None else z.data_ptr(), costs.data_ptr(),
-           partials.data_ptr(), k, tau, *split64(seed), *split64(solve))
+           partials.data_ptr(), k, tau, *variant_args(consts, k),
+           *split64(seed), *split64(solve))
     return costs, partials
 
 
@@ -322,13 +330,15 @@ class FusedAUVMPPI(TwoPhaseSolve):
     phases ``auv_fused_costs`` and ``mppi_weights``, and un-folds the
     weighted normals to action units.
 
-    Counterpart of the JAX package's ``FusedAUVMPPI`` without its schedule,
-    antithetic and bf16 variants. The kernels are float32; on the CPU the
-    plain versions run at the model's dtype.
+    Counterpart of the JAX package's ``FusedAUVMPPI`` without its bf16
+    variant; ``antithetic`` and ``schedule`` are its runtime variants. The
+    kernels are float32; on the CPU the plain versions run at the model's
+    dtype.
     """
 
     def __init__(self, model, cost, k: int, tau: int, lam: float,
-                 upsilon: float, sigma):
+                 upsilon: float, sigma, antithetic: bool = False,
+                 schedule=None):
         from ..costs.elipse import ElipseCost3D
         from ..costs.static import StaticQuatCost
         from ..costs.waypoints import WayPointsQuatCost
@@ -372,6 +382,8 @@ class FusedAUVMPPI(TwoPhaseSolve):
                 "q_plane": q_plane.numpy(), "center": f64(cost.center),
                 "axis3": f64(cost.axis), "mapping": f64(cost.mapping),
                 "gv": cost.gv, "mS": cost.mS, "mV": cost.mV}
+        like = {"dtype": model.dtype, "device": model.device}
+        self._noise_options(antithetic, schedule, like)
         self.consts = AuvConsts(
             dt=model.dt, rk=model.rk, lam=self.lam,
             nc_half=0.5 * self.lam * (1.0 - 1.0 / self.upsilon),
@@ -381,8 +393,8 @@ class FusedAUVMPPI(TwoPhaseSolve):
             cob=f64(model.cob), scale=scale,
             Mz=scale.T @ inv_sigma @ scale,
             Q=np.zeros((10, 10)) if cost_kind == "elipse3d" else f64(cost.Q),
-            cost_kind=cost_kind, elipse3d=elipse3d)
-        like = {"dtype": model.dtype, "device": model.device}
+            cost_kind=cost_kind, elipse3d=elipse3d, scheduled=self.scheduled,
+            antithetic=self.antithetic)
         self._scale = torch.as_tensor(scale, **like)
         self._inv_sigma = torch.as_tensor(inv_sigma, **like)
 
@@ -404,20 +416,23 @@ class FusedAUVMPPI(TwoPhaseSolve):
     def pack_dyn(self, x0: torch.Tensor, useq: torch.Tensor) -> torch.Tensor:
         """The per-solve ``dyn`` array ([Dyn.size], the model's dtype) from
         the state, the nominal sequence, the model's mass matrices (cached
-        on the model until its parameters change) and the live goals."""
+        on the model until its parameters change), the live goals and the
+        schedule."""
         m_tot, inv_m = self.model.precompute()
         dtype = self.model.dtype
         useq = useq.to(dtype).reshape(self.tau, ADIM)
-        rhs_z = (self.gamma * (useq @ self._inv_sigma.T)) @ self._scale
-        u_half = 0.5 * self.gamma * torch.einsum(
-            "ti,ij,tj->", useq, self._inv_sigma, useq)
+        rhs_z, u_half = self._action_terms(useq)
         goals = self._goals(dtype)
         return torch.cat([
             m_tot.detach().reshape(-1), inv_m.detach().reshape(-1),
             self.model.mass.detach().reshape(1), goals[:13],
             x0.to(dtype).reshape(SDIM),
             useq.reshape(-1), rhs_z.reshape(-1), u_half.reshape(1),
-            goals[13:]])
+            goals[13:], *self._sched_tail()])
+
+    def _template_args(self, mode: int) -> tuple:
+        """<RK, MODE, COST> of auv_fused_solve_kernel."""
+        return (self.consts.rk, mode, COST_KINDS[self.consts.cost_kind])
 
     def _fused(self, dyn, seed, solve, z):
         return auv_fused_solve(self.consts, dyn, self.k, self.tau, seed=seed,

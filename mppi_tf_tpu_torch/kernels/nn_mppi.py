@@ -33,8 +33,9 @@ import torch
 from ._launch import check, launch, on_card, split64
 from .auv_mppi import _quat_cost
 from .errors import KernelUnsupportedError
-from .pm_mppi import (BLOCK, STATS, TwoPhaseSolve, block_partials,
-                      cost_partials, noise_plain)
+from .pm_mppi import (BLOCK, STATS, TwoPhaseSolve, _sched_block,
+                      antithetic_half, block_partials, cost_partials,
+                      noise_plain, sched_factors, variant_args)
 
 SDIM, ADIM = 13, 6
 #: network input: the 10 state features x[3:13] and the 6 actions
@@ -51,9 +52,10 @@ class NNDyn:
     """Layout of the per-solve array ``dyn`` (csrc/nn_mppi.cu ``Topo``):
     each layer as W^T rows [fan_out, fan_in] and its biases, the block
     padded to a multiple of 4 floats (16-byte aligned for the kernel's
-    float4 loads), then x0, goal, useq, rhs_z and u_half."""
+    float4 loads), then x0, goal, useq, rhs_z and u_half; a scheduled
+    solve appends the tau factors c_t."""
 
-    def __init__(self, tau: int, sizes):
+    def __init__(self, tau: int, sizes, scheduled: bool = False):
         self.sizes = tuple(int(s) for s in sizes)
         self.layers = []                 # (w_at, b_at, fan_in, fan_out)
         off = 0
@@ -67,6 +69,7 @@ class NNDyn:
         self.rhs_z = self.useq + ADIM * tau
         self.u_half = self.rhs_z + ADIM * tau
         self.size = self.u_half + 1
+        self.sched = _sched_block(self, tau, scheduled)
 
 
 @dataclass
@@ -74,7 +77,8 @@ class NnConsts:
     """Solve constants (the JAX kernel's compile-time ``mc``): the layer
     sizes, lam, nc_half = lam (1 - 1/upsilon) / 2, whether the quaternion
     is renormalised, scale = upsilon sigma, Mz = scale^T Sigma^-1 scale and
-    the 10x10 cost weight Q."""
+    the 10x10 cost weight Q; ``scheduled`` and ``antithetic`` are the
+    runtime variants (launch arguments)."""
 
     sizes: tuple
     lam: float
@@ -83,6 +87,8 @@ class NnConsts:
     scale: np.ndarray
     Mz: np.ndarray
     Q: np.ndarray
+    scheduled: bool = False
+    antithetic: bool = False
 
     @property
     def hidden(self) -> tuple:
@@ -104,10 +110,12 @@ class NnConsts:
 def sample_costs_plain(consts: NnConsts, dyn: torch.Tensor,
                        z: torch.Tensor) -> torch.Tensor:
     """Per-sample rollout costs [k] in the kernel's algebra: the folded MLP
-    of ``NNAUVModel.step`` and the ``StaticQuatCost`` over eps = scale @ z,
-    with Sigma^-1 and u folded into dyn."""
+    of ``NNAUVModel.step`` and the ``StaticQuatCost`` over
+    eps = c_t scale @ z, with Sigma^-1, u and the schedule folded into
+    dyn."""
     tau, _, k = z.shape
-    lay = NNDyn(tau, consts.sizes)
+    lay = NNDyn(tau, consts.sizes, consts.scheduled)
+    ct = sched_factors(dyn, lay, tau)
 
     def t_(a):
         return torch.as_tensor(np.asarray(a, np.float64), dtype=dyn.dtype,
@@ -124,7 +132,7 @@ def sample_costs_plain(consts: NnConsts, dyn: torch.Tensor,
     cost = torch.zeros(k, dtype=dyn.dtype, device=dyn.device)
     for t in range(tau):
         zt = z[t].T                                     # [k, 6]
-        h = torch.cat([x[:, 3:], useq[t] + zt @ scale.T], dim=-1)
+        h = torch.cat([x[:, 3:], useq[t] + (ct[t] * zt) @ scale.T], dim=-1)
         for w, b in layers[:-1]:
             h = torch.relu(h @ w + b)
         x = x + (h @ layers[-1][0] + layers[-1][1])
@@ -133,7 +141,8 @@ def sample_costs_plain(consts: NnConsts, dyn: torch.Tensor,
                 x[:, 3:7] ** 2, dim=-1, keepdim=True), min=1e-24))
             x = torch.cat([x[:, :3], x[:, 3:7] * qn, x[:, 7:]], dim=-1)
         cost = (cost + _quat_cost(Q, goal, x) + zt @ rhs_z[t]
-                + consts.nc_half * torch.sum((zt @ Mz.T) * zt, dim=-1))
+                + consts.nc_half * ct[t]
+                * torch.sum((zt @ Mz.T) * zt, dim=-1))
     return cost + _quat_cost(Q, goal, x) + dyn[lay.u_half]
 
 
@@ -143,8 +152,8 @@ def fused_solve_plain(consts: NnConsts, dyn: torch.Tensor, k: int, tau: int,
     """Plain version of ``nn_fused_solve``: block partials
     [n_blocks, STATS + tau*6]."""
     if z is None:
-        z = noise_plain(seed, solve, k, tau, ADIM,
-                        device=dyn.device).to(dyn.dtype)
+        z = noise_plain(seed, solve, k, tau, ADIM, device=dyn.device,
+                        half=antithetic_half(k, consts.antithetic)).to(dyn.dtype)
     costs = sample_costs_plain(consts, dyn, z)
     return block_partials(costs, z.reshape(tau * ADIM, k), consts.lam, block)
 
@@ -154,8 +163,8 @@ def fused_costs_plain(consts: NnConsts, dyn: torch.Tensor, k: int, tau: int,
                       block: int = BLOCK):
     """Plain version of ``nn_fused_costs``: (costs [k], stats-only rows)."""
     if z is None:
-        z = noise_plain(seed, solve, k, tau, ADIM,
-                        device=dyn.device).to(dyn.dtype)
+        z = noise_plain(seed, solve, k, tau, ADIM, device=dyn.device,
+                        half=antithetic_half(k, consts.antithetic)).to(dyn.dtype)
     costs = sample_costs_plain(consts, dyn, z)
     return costs, cost_partials(costs, block)
 
@@ -177,7 +186,7 @@ def _hidden_args(consts: NnConsts):
 
 def _check_inputs(consts, dyn, z, k, tau):
     args = _hidden_args(consts)
-    check(dyn, "dyn", (NNDyn(tau, consts.sizes).size,))
+    check(dyn, "dyn", (NNDyn(tau, consts.sizes, consts.scheduled).size,))
     if z is not None:
         check(z, "z", (tau, ADIM, k))
     return args
@@ -195,7 +204,8 @@ def nn_fused_solve(consts: NnConsts, dyn: torch.Tensor, k: int, tau: int,
                            dtype=torch.float32, device=dyn.device)
     launch("nn_fused_solve", dyn.device, *widths, consts.packed.ctypes.data,
            dyn.data_ptr(), None if z is None else z.data_ptr(),
-           partials.data_ptr(), k, tau, *split64(seed), *split64(solve))
+           partials.data_ptr(), k, tau, *variant_args(consts, k),
+           *split64(seed), *split64(solve))
     return partials
 
 
@@ -210,8 +220,8 @@ def nn_fused_costs(consts: NnConsts, dyn: torch.Tensor, k: int, tau: int,
                            device=dyn.device)
     launch("nn_fused_costs", dyn.device, *widths, consts.packed.ctypes.data,
            dyn.data_ptr(), None if z is None else z.data_ptr(),
-           costs.data_ptr(), partials.data_ptr(), k, tau, *split64(seed),
-           *split64(solve))
+           costs.data_ptr(), partials.data_ptr(), k, tau,
+           *variant_args(consts, k), *split64(seed), *split64(solve))
     return costs, partials
 
 
@@ -246,14 +256,16 @@ class FusedNNMPPI(TwoPhaseSolve):
     or the two phases ``nn_fused_costs`` and ``mppi_weights``, and un-folds
     the weighted normals to action units.
 
-    Counterpart of the JAX package's ``FusedNNMPPI`` without its schedule,
-    antithetic and bf16 variants. The kernels are float32 and built for
-    the hidden widths in ``SUPPORTED_HIDDEN``; on the CPU the plain
-    versions run at the model's dtype.
+    Counterpart of the JAX package's ``FusedNNMPPI`` without its bf16
+    variant; ``antithetic`` and ``schedule`` are its runtime variants. The
+    kernels are float32 and built for the hidden widths in
+    ``SUPPORTED_HIDDEN``; on the CPU the plain versions run at the model's
+    dtype.
     """
 
     def __init__(self, model, cost, k: int, tau: int, lam: float,
-                 upsilon: float, sigma):
+                 upsilon: float, sigma, antithetic: bool = False,
+                 schedule=None):
         from ..costs.static import StaticQuatCost
         from ..models.nn import NNAUVModel, NNAUVModelSpeed
 
@@ -283,26 +295,27 @@ class FusedNNMPPI(TwoPhaseSolve):
         sigma = np.asarray(sigma, np.float64)
         scale = self.upsilon * sigma
         inv_sigma = np.linalg.inv(sigma)
+        like = {"dtype": model.dtype, "device": model.device}
+        self._noise_options(antithetic, schedule, like)
         self.consts = NnConsts(
             sizes=tuple(model.sizes()), lam=self.lam,
             nc_half=0.5 * self.lam * (1.0 - 1.0 / self.upsilon),
             renorm=bool(model.renormalize_quat), scale=scale,
             Mz=scale.T @ inv_sigma @ scale,
-            Q=cost.Q.detach().cpu().numpy().astype(np.float64))
+            Q=cost.Q.detach().cpu().numpy().astype(np.float64),
+            scheduled=self.scheduled, antithetic=self.antithetic)
         _hidden_args(self.consts)
-        like = {"dtype": model.dtype, "device": model.device}
         self._scale = torch.as_tensor(scale, **like)
         self._inv_sigma = torch.as_tensor(inv_sigma, **like)
 
     def pack_dyn(self, x0: torch.Tensor, useq: torch.Tensor) -> torch.Tensor:
         """The per-solve ``dyn`` array ([NNDyn.size], the model's dtype):
         the live weights folded with the normalisers (``fold_layers``),
-        then the state, goal, nominal sequence and its action-cost terms."""
+        then the state, goal, nominal sequence, its action-cost terms and
+        the schedule."""
         dtype = self.model.dtype
         useq = useq.to(dtype).reshape(self.tau, ADIM)
-        rhs_z = (self.gamma * (useq @ self._inv_sigma.T)) @ self._scale
-        u_half = 0.5 * self.gamma * torch.einsum(
-            "ti,ij,tj->", useq, self._inv_sigma, useq)
+        rhs_z, u_half = self._action_terms(useq)
         parts = []
         for w, b in fold_layers(self.model):
             n = w.numel() + b.numel()
@@ -310,7 +323,12 @@ class FusedNNMPPI(TwoPhaseSolve):
                       w.new_zeros(_round4(n) - n)]
         return torch.cat(parts + [
             x0.to(dtype).reshape(SDIM), self.cost.goal.reshape(-1),
-            useq.reshape(-1), rhs_z.reshape(-1), u_half.reshape(1)])
+            useq.reshape(-1), rhs_z.reshape(-1), u_half.reshape(1),
+            *self._sched_tail()])
+
+    def _template_args(self, mode: int) -> tuple:
+        """<N1, N2, N3, MODE> of nn_fused_solve_kernel."""
+        return (*_hidden_args(self.consts), mode)
 
     def _fused(self, dyn, seed, solve, z):
         return nn_fused_solve(self.consts, dyn, self.k, self.tau, seed=seed,

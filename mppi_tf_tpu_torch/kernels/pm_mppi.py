@@ -37,6 +37,17 @@ top uniforms round to 1.0 in f32; with 23 every u is exact in f32 and lies
 in [2^-24, 1 - 2^-24], so the tail is clipped at 5.77 sigma as on the TPU.)
 The AUV kernels (``kernels/auv_mppi.py``) read the same stream at adim 6.
 
+Two runtime variants of every kernel that reads the noise (no more
+instantiations): **antithetic**, in the XLA layout of ``ops/noise.py``
+(half = ceil(K/2); sample k >= half reads the Philox counters of sample
+k - half and negates them, so z[half + i] = -z[i]; injected z is data and
+is never mirrored); and **scheduled**, the per-step factors c_t at the end
+of ``dyn`` (``Dyn.sched``): x' = A x + inv_m (B u_t + c_t B scale z_t), the
+z-quadratic nc_half c_t z^T Mz z, u_half packed as sum_t u_half_t / c_t and
+wnoise_t = c_t scale zsum_t unfolded on the host, once
+(``TwoPhaseSolve.unfold_wnoise``). c_t = 1 is the unscheduled arithmetic
+bit for bit.
+
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. Each launch adds one to
 ``launch_counts[name]`` (``kernels/_launch.py``).
@@ -71,10 +82,11 @@ COST_KINDS = {"quadratic": 0, "elipse": 1}
 
 class Dyn:
     """Layout of the per-solve parameter array ``dyn`` (the JAX package's
-    ``_Dyn`` without its DMD and schedule blocks), staged into shared memory
-    by the kernel."""
+    ``_Dyn`` without its DMD block), staged into shared memory by the
+    kernel; a scheduled solve appends the tau factors c_t."""
 
-    def __init__(self, tau: int, sdim: int, adim: int):
+    def __init__(self, tau: int, sdim: int, adim: int,
+                 scheduled: bool = False):
         self.inv_mass = 0                      # 1
         self.x0 = 1                            # sdim
         self.goal = 1 + sdim                   # sdim
@@ -82,6 +94,22 @@ class Dyn:
         self.rhs_z = self.bu + tau * sdim      # tau*adim
         self.u_half = self.rhs_z + tau * adim  # 1: summed pure-action cost
         self.size = self.u_half + 1
+        self.sched = _sched_block(self, tau, scheduled)
+
+
+def _sched_block(lay, tau: int, scheduled: bool):
+    """Append the tau schedule factors to layout ``lay``; their offset, or
+    None unscheduled."""
+    if not scheduled:
+        return None
+    off, lay.size = lay.size, lay.size + tau
+    return off
+
+
+def antithetic_half(k: int, antithetic: bool = True) -> int:
+    """The first mirrored sample of an antithetic K-sample solve,
+    ceil(K/2) (ops/noise.sample_noise_antithetic), or 0 for none."""
+    return (int(k) + 1) // 2 if antithetic else 0
 
 
 @dataclass
@@ -90,7 +118,8 @@ class PmConsts:
     free), Q (sdim x sdim; zero for the ellipse), Mz = scale^T Sigma^-1
     scale (adim x adim), lam, nc_half = lam (1 - 1/upsilon) / 2, the cost
     kind (``COST_KINDS``) and the ellipse's (a, b, cx, cy, gv, m_state,
-    m_vel)."""
+    m_vel); ``scheduled`` and ``antithetic`` are the runtime variants (not
+    packed: launch arguments)."""
 
     A: np.ndarray
     Bs: np.ndarray
@@ -100,6 +129,8 @@ class PmConsts:
     nc_half: float
     cost_kind: str = "quadratic"
     elipse: tuple = (0.0,) * 7
+    scheduled: bool = False
+    antithetic: bool = False
 
     @property
     def dims(self):
@@ -161,21 +192,26 @@ def box_muller(bits: torch.Tensor) -> torch.Tensor:
 
 
 def noise_plain(seed: int, solve: int, k: int, tau: int, adim: int,
-                device=None) -> torch.Tensor:
-    """The in-kernel noise stream of one solve: z f32 [tau, adim, k]."""
+                device=None, half: int = 0) -> torch.Tensor:
+    """The in-kernel noise stream of one solve: z f32 [tau, adim, k],
+    mirrored from sample ``half`` on (an antithetic solve's
+    ``antithetic_half``; 0: none)."""
     n_z = tau * adim
     nb = -(-n_z // 4)
     s_lo, s_hi = split64(solve)
     seed_lo, seed_hi = split64(seed)
     kk = torch.arange(k, dtype=torch.int64, device=device)
+    mirrored = (kk >= half) & (half > 0)
+    src = torch.where(mirrored, kk - half, kk)
     bb = torch.arange(nb, dtype=torch.int64, device=device)
     ctr = torch.stack(torch.broadcast_tensors(
-        kk[None, :], bb[:, None],
+        src[None, :], bb[:, None],
         torch.tensor(s_lo, device=device), torch.tensor(s_hi, device=device)),
         dim=-1)                                         # [nb, k, 4]
     key = torch.tensor([seed_lo, seed_hi], dtype=torch.int64, device=device)
     z = box_muller(philox4x32_10(ctr, key))             # [nb, k, 4]
     z = z.permute(0, 2, 1).reshape(nb * 4, k)[:n_z]
+    z = torch.where(mirrored, -z, z)
     return z.reshape(tau, adim, k).contiguous()
 
 
@@ -183,11 +219,12 @@ def sample_costs_plain(consts: PmConsts, dyn: torch.Tensor,
                        z: torch.Tensor) -> torch.Tensor:
     """Per-sample rollout costs [k] in the kernel's folded algebra: the
     rollout_costs of the point-mass model and its state cost (the
-    quadratic around dyn's goal, or the ellipse) over eps = scale @ z, with
-    B scale, Sigma^-1 and u folded into dyn."""
+    quadratic around dyn's goal, or the ellipse) over eps = c_t scale @ z,
+    with B scale, Sigma^-1, u and the schedule folded into dyn."""
     tau, adim, k = z.shape
     sdim = consts.A.shape[0]
-    lay = Dyn(tau, sdim, adim)
+    lay = Dyn(tau, sdim, adim, consts.scheduled)
+    ct = sched_factors(dyn, lay, tau)
 
     def t_(a):
         return torch.as_tensor(a, dtype=dyn.dtype, device=dyn.device)
@@ -214,10 +251,17 @@ def sample_costs_plain(consts: PmConsts, dyn: torch.Tensor,
     cost = torch.zeros(k, dtype=dyn.dtype, device=dyn.device)
     for t in range(tau):
         zt = z[t].T                                     # [k, adim]
-        x = x @ A.T + inv_m * (bu[t] + zt @ Bs.T)
-        cost = (cost + q(x) + zt @ rhs_z[t]
-                + consts.nc_half * torch.sum((zt @ Mz.T) * zt, dim=-1))
+        x = x @ A.T + inv_m * (bu[t] + ct[t] * (zt @ Bs.T))
+        cost = (cost + q(x) + zt @ rhs_z[t] + consts.nc_half * ct[t]
+                * torch.sum((zt @ Mz.T) * zt, dim=-1))
     return cost + q(x) + dyn[lay.u_half]
+
+
+def sched_factors(dyn: torch.Tensor, lay, tau: int) -> list:
+    """The c_t a kernel reads from ``dyn`` (layout ``lay``), or 1.0."""
+    if lay.sched is None:
+        return [1.0] * tau
+    return list(dyn[lay.sched:lay.sched + tau].unbind())
 
 
 def _partial_rows(costs: torch.Tensor, zarg: torch.Tensor, zf: torch.Tensor,
@@ -279,8 +323,8 @@ def fused_solve_plain(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
     [n_blocks, STATS + tau*adim]."""
     adim = consts.Bs.shape[1]
     if z is None:
-        z = noise_plain(seed, solve, k, tau, adim,
-                        device=dyn.device).to(dyn.dtype)
+        z = noise_plain(seed, solve, k, tau, adim, device=dyn.device,
+                        half=antithetic_half(k, consts.antithetic)).to(dyn.dtype)
     costs = sample_costs_plain(consts, dyn, z)
     return block_partials(costs, z.reshape(tau * adim, k), consts.lam, block)
 
@@ -292,20 +336,22 @@ def fused_costs_plain(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
     [n_blocks, STATS])."""
     if z is None:
         z = noise_plain(seed, solve, k, tau, consts.Bs.shape[1],
-                        device=dyn.device).to(dyn.dtype)
+                        device=dyn.device,
+                        half=antithetic_half(k, consts.antithetic)).to(dyn.dtype)
     costs = sample_costs_plain(consts, dyn, z)
     return costs, cost_partials(costs, block)
 
 
 def weights_plain(nrm: torch.Tensor, costs: torch.Tensor, tau: int,
                   adim: int, seed: int = 0, solve: int = 0, z=None,
-                  block: int = BLOCK) -> torch.Tensor:
+                  block: int = BLOCK,
+                  antithetic: bool = False) -> torch.Tensor:
     """Plain version of ``mppi_weights``: rows [n_blocks, STATS + tau*adim]
     of the normalized weights over the solve's normals."""
     k = costs.shape[0]
     if z is None:
-        z = noise_plain(seed, solve, k, tau, adim,
-                        device=costs.device).to(costs.dtype)
+        z = noise_plain(seed, solve, k, tau, adim, device=costs.device,
+                        half=antithetic_half(k, antithetic)).to(costs.dtype)
     return weight_partials(costs, nrm, z.reshape(tau * adim, k), block)
 
 
@@ -327,15 +373,16 @@ def merge_plain(partials: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 def pm_noise_dump(seed: int, solve: int, k: int, tau: int, adim: int,
-                  device) -> torch.Tensor:
-    """The exact normals of solve ``solve`` at ``seed``: z f32 [tau, adim, k]."""
+                  device, half: int = 0) -> torch.Tensor:
+    """The exact normals of solve ``solve`` at ``seed``: z f32 [tau, adim, k],
+    mirrored from sample ``half`` on as in ``noise_plain``."""
     device = torch.device(device)
     if device.type == "cpu":
-        return noise_plain(seed, solve, k, tau, adim)
+        return noise_plain(seed, solve, k, tau, adim, half=half)
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     out = torch.empty((tau, adim, k), dtype=torch.float32, device=device)
-    launch("pm_noise_dump", device, out.data_ptr(), k, tau * adim,
+    launch("pm_noise_dump", device, out.data_ptr(), k, tau * adim, half,
            *split64(seed), *split64(solve))
     return out
 
@@ -350,9 +397,15 @@ def _check_solve_inputs(name, consts, dyn, z, k, tau):
         raise KernelUnsupportedError(
             f"{name}: the ellipse cost is built for (4, 2), got "
             f"{(sdim, adim)}")
-    check(dyn, "dyn", (Dyn(tau, sdim, adim).size,))
+    check(dyn, "dyn", (Dyn(tau, sdim, adim, consts.scheduled).size,))
     if z is not None:
         check(z, "z", (tau, adim, k))
+
+
+def variant_args(consts, k: int):
+    """(scheduled, half): the launch arguments of a solve's runtime
+    variants."""
+    return int(consts.scheduled), antithetic_half(k, consts.antithetic)
 
 
 def pm_fused_solve(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
@@ -370,7 +423,7 @@ def pm_fused_solve(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
     launch("pm_fused_solve", dyn.device, sdim, adim,
            COST_KINDS[consts.cost_kind], consts.packed.ctypes.data, dyn.data_ptr(),
            None if z is None else z.data_ptr(), partials.data_ptr(), k, tau,
-           *split64(seed), *split64(solve))
+           *variant_args(consts, k), *split64(seed), *split64(solve))
     return partials
 
 
@@ -388,18 +441,21 @@ def pm_fused_costs(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
     launch("pm_fused_costs", dyn.device, sdim, adim,
            COST_KINDS[consts.cost_kind], consts.packed.ctypes.data, dyn.data_ptr(),
            None if z is None else z.data_ptr(), costs.data_ptr(),
-           partials.data_ptr(), k, tau, *split64(seed), *split64(solve))
+           partials.data_ptr(), k, tau, *variant_args(consts, k),
+           *split64(seed), *split64(solve))
     return costs, partials
 
 
 def mppi_weights(nrm: torch.Tensor, costs: torch.Tensor, tau: int,
-                 adim: int, seed: int = 0, solve: int = 0,
-                 z=None) -> torch.Tensor:
+                 adim: int, seed: int = 0, solve: int = 0, z=None,
+                 antithetic: bool = False) -> torch.Tensor:
     """Phase B over phase-A ``costs`` [k] with nrm = (beta, 1/(denom lam))
     (f32 [2], on the device): rows [n_blocks, STATS + tau*adim] of the
-    normalized weights over the normals of (seed, solve), or ``z``."""
+    normalized weights over the normals of (seed, solve), mirrored when
+    ``antithetic``, or ``z``."""
     if not on_card(nrm, costs, z):
-        return weights_plain(nrm, costs, tau, adim, seed, solve, z)
+        return weights_plain(nrm, costs, tau, adim, seed, solve, z,
+                             antithetic=antithetic)
     k = costs.shape[0]
     check(nrm, "nrm", (2,))
     check(costs, "costs", (k,))
@@ -409,7 +465,8 @@ def mppi_weights(nrm: torch.Tensor, costs: torch.Tensor, tau: int,
                            dtype=torch.float32, device=costs.device)
     launch("mppi_weights", costs.device, nrm.data_ptr(), costs.data_ptr(),
            None if z is None else z.data_ptr(), partials.data_ptr(), k,
-           tau * adim, *split64(seed), *split64(solve))
+           tau * adim, antithetic_half(k, antithetic), *split64(seed),
+           *split64(solve))
     return partials
 
 
@@ -448,16 +505,70 @@ class TwoPhaseSolve:
     returns it from ``_cost_offset()`` (a device scalar); the costs and
     their stats get it back, while the weights, invariant to a constant
     shift, stay as computed.
+
+    The runtime variants (``_noise_options``): ``antithetic`` mirrors the
+    Philox samples past ceil(K/2); ``sched`` holds the schedule's c_t
+    ([tau], appended to ``dyn``), which ``set_schedule`` replaces as data.
     """
+
+    def _noise_options(self, antithetic: bool, schedule, like: dict) -> None:
+        """Set ``antithetic`` and ``sched`` (a spec of
+        ``ops/noise.resolve_noise_schedule``, as a tensor ``like`` the
+        solve's dtype and device)."""
+        from ..ops.noise import resolve_noise_schedule
+
+        self.antithetic = bool(antithetic)
+        c = resolve_noise_schedule(schedule, self.tau)
+        self.sched = None if c is None else torch.as_tensor(c, **like)
+
+    @property
+    def scheduled(self) -> bool:
+        return self.sched is not None
+
+    def set_schedule(self, schedule) -> None:
+        """New c_t for a scheduled solve: repacked data, no rebuild."""
+        from ..ops.noise import resolve_noise_schedule
+
+        if self.sched is None:
+            raise ValueError("this solve was built without a noise schedule")
+        self.sched = torch.as_tensor(
+            resolve_noise_schedule(schedule, self.tau),
+            dtype=self.sched.dtype, device=self.sched.device)
+
+    def _action_terms(self, useq: torch.Tensor):
+        """(rhs_z [tau, adim], u_half) of the nominal sequence folded into
+        dyn: rhs_z_t = scale^T gamma Sigma^-1 u_t (schedule-invariant) and
+        u_half = sum_t 0.5 gamma u_t^T Sigma^-1 u_t / c_t."""
+        rhs_z = (self.gamma * (useq @ self._inv_sigma.T)) @ self._scale
+        if self.sched is None:
+            u_half = 0.5 * self.gamma * torch.einsum(
+                "ti,ij,tj->", useq, self._inv_sigma, useq)
+        else:
+            u_half = (0.5 * self.gamma * torch.einsum(
+                "ti,ij,tj->t", useq, self._inv_sigma, useq)
+                / self.sched).sum()
+        return rhs_z, u_half
+
+    def _sched_tail(self) -> list:
+        """dyn's trailing schedule block: [c_t] when scheduled."""
+        return [] if self.sched is None else [self.sched]
 
     def _cost_offset(self):
         """The constant the kernel's costs lack, or None."""
         return None
 
+    def template_args(self, entry: str) -> tuple:
+        """The integer template arguments of the kernel that entry point
+        ``entry`` launches for this solve; () for the shared kernels."""
+        if entry in ("mppi_weights", "pm_merge", "pm_noise_dump"):
+            return ()
+        return self._template_args(1 if entry.endswith("_costs") else 0)
+
     def unfold_wnoise(self, zsum: torch.Tensor) -> torch.Tensor:
         """Weighted standard-normal sums [tau*adim] -> action units
-        [tau, adim]: wnoise_t = scale @ zsum_t."""
-        return zsum.reshape(self.tau, self.adim) @ self._scale.T
+        [tau, adim]: wnoise_t = c_t scale @ zsum_t."""
+        w = zsum.reshape(self.tau, self.adim) @ self._scale.T
+        return w if self.sched is None else w * self.sched[:, None]
 
     def solve(self, x0, useq, seed: int = 0, solve: int = 0, z=None,
               normalize: bool = False):
@@ -508,18 +619,22 @@ class TwoPhaseSolve:
         denom = torch.where(denom > 0, denom, torch.ones_like(denom))
         nrm = torch.stack([beta, 1.0 / (denom * self.lam)])
         zsum, stats = pm_merge(mppi_weights(nrm, costs, self.tau, self.adim,
-                                            seed, solve, z))
+                                            seed, solve, z,
+                                            antithetic=self.antithetic))
         return zsum.reshape(self.tau, self.adim), stats[1]
 
     def noise_sample(self, seed: int, solve: int,
                      max_samples: int = 512) -> torch.Tensor:
         """The first min(max_samples, k) samples' noise of solve ``solve``
-        in action units, eps [n, tau, adim] (JAX fused_noise_sample)."""
+        in action units, eps [n, tau, adim] with eps_t = c_t scale z_t (JAX
+        fused_noise_sample)."""
         n = min(max_samples, self.k)
         z = pm_noise_dump(seed, solve, n, self.tau, self.adim,
-                          self._scale.device)
-        return torch.einsum("ij,tjn->nti", self._scale,
-                            z.to(self._scale.dtype))
+                          self._scale.device,
+                          half=antithetic_half(self.k, self.antithetic))
+        eps = torch.einsum("ij,tjn->nti", self._scale,
+                           z.to(self._scale.dtype))
+        return eps if self.sched is None else eps * self.sched[None, :, None]
 
 
 class FusedPointMassMPPI(TwoPhaseSolve):
@@ -537,11 +652,13 @@ class FusedPointMassMPPI(TwoPhaseSolve):
     their stats (the weights do not depend on it).
 
     Counterpart of the JAX package's ``FusedPointMassMPPI`` without its
-    DMD, schedule, antithetic and bf16 variants.
+    DMD and bf16 variants; ``antithetic`` and ``schedule`` (a noise
+    schedule spec) are its runtime variants.
     """
 
     def __init__(self, model, cost, k: int, tau: int, lam: float,
-                 upsilon: float, sigma):
+                 upsilon: float, sigma, antithetic: bool = False,
+                 schedule=None):
         from ..costs.elipse import ElipseCost
         from ..costs.static import StaticCost
         from ..costs.waypoints import WayPointsCost
@@ -587,15 +704,17 @@ class FusedPointMassMPPI(TwoPhaseSolve):
         else:
             Q = cost.Q.detach().cpu().numpy().astype(np.float64)
             elipse = (0.0,) * 7
+        like = {"dtype": torch.float32, "device": model.device}
+        self._noise_options(antithetic, schedule, like)
         self.consts = PmConsts(
             A=model.A.detach().cpu().numpy().astype(np.float64),
             Bs=B @ scale, Q=Q, Mz=scale.T @ inv_sigma @ scale, lam=self.lam,
             nc_half=0.5 * self.lam * (1.0 - 1.0 / self.upsilon),
-            cost_kind=cost_kind, elipse=elipse)
-        dev = model.device
+            cost_kind=cost_kind, elipse=elipse, scheduled=self.scheduled,
+            antithetic=self.antithetic)
 
         def f32(a):
-            return torch.as_tensor(a, dtype=torch.float32, device=dev)
+            return torch.as_tensor(a, **like)
 
         self._B, self._scale, self._inv_sigma = f32(B), f32(scale), f32(
             inv_sigma)
@@ -645,16 +764,19 @@ class FusedPointMassMPPI(TwoPhaseSolve):
 
     def pack_dyn(self, x0: torch.Tensor, useq: torch.Tensor) -> torch.Tensor:
         """The per-solve ``dyn`` array (f32 [Dyn.size]) from the state, the
-        nominal sequence and the live mass and goal."""
+        nominal sequence, the live mass and goal, and the schedule."""
         useq = useq.to(torch.float32).reshape(self.tau, self.adim)
         bu = useq @ self._B.T
-        rhs_z = (self.gamma * (useq @ self._inv_sigma.T)) @ self._scale
-        u_half = 0.5 * self.gamma * torch.einsum(
-            "ti,ij,tj->", useq, self._inv_sigma, useq)
+        rhs_z, u_half = self._action_terms(useq)
         return torch.cat([
             (1.0 / self.model.mass.detach()).to(torch.float32).reshape(1),
             x0.to(torch.float32).reshape(self.sdim), self._goal(),
-            bu.reshape(-1), rhs_z.reshape(-1), u_half.reshape(1)])
+            bu.reshape(-1), rhs_z.reshape(-1), u_half.reshape(1),
+            *self._sched_tail()])
+
+    def _template_args(self, mode: int) -> tuple:
+        """<S, A, MODE, COST> of pm_fused_solve_kernel."""
+        return (self.sdim, self.adim, mode, COST_KINDS[self.consts.cost_kind])
 
     def _fused(self, dyn, seed, solve, z):
         return pm_fused_solve(self.consts, dyn, self.k, self.tau, seed=seed,

@@ -188,9 +188,9 @@ def test_constructor_rejects():
         MPPI(pm, pc, k=10, tau=4, sigma=None, device="cpu")
     with pytest.raises(AssertionError):
         MPPI(pm, pc, k=10, tau=4, sigma=np.eye(2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="queue-2 item 7"):
         MPPI(pm, pc, k=10, tau=4, sigma=SIGMA, device="cpu",
-             observer=object())
+             kernel_dtype="bfloat16")
     ctrl = MPPI(pm, pc, k=10, tau=4, sigma=SIGMA, kernel="xla",
                 device="cpu")
     assert ctrl.kernel_path == "torch"

@@ -135,12 +135,13 @@ def test_wrappers_count_launches_and_check_inputs(cuda_device):
 @pytest.mark.parametrize("opt,item", [
     ({"normalize_cost": True}, None), ({"log": True}, None),
     ({"normalize_cost": True, "log": True}, None),
-    ({"antithetic": True}, "item 4"),
+    ({"antithetic": True}, None),
     ({"noise_schedule": {"type": "exp", "start": 1.0, "end": 0.25}},
-     "item 4")])
+     None),
+    ({"kernel_dtype": "bfloat16"}, "queue-2 item 7")])
 def test_cuda_path_unported_options(cuda_device, opt, item):
-    """normalize_cost and log run on the kernel path; antithetic and the
-    noise schedule still raise there and fall back under 'auto'."""
+    """normalize_cost, log, antithetic and the noise schedule run on the
+    kernel path; bf16 blocks still raise."""
     model, cost = _modules(cuda_device)
     if item is None:
         ctrl = MPPI(model, cost, k=300, tau=8, sigma=SIGMA, kernel="cuda",
@@ -153,12 +154,10 @@ def test_cuda_path_unported_options(cuda_device, opt, item):
             assert info["noise"].shape == (300, 8, 3)
         assert np.all(np.isfinite(ctrl.next(np.zeros(6))))
         return
-    with pytest.raises(NotImplementedError, match=item):
-        MPPI(model, cost, k=300, tau=8, sigma=SIGMA, kernel="cuda",
-             device=cuda_device, **opt)
-    ctrl = MPPI(model, cost, k=300, tau=8, sigma=SIGMA, kernel="auto",
-                device=cuda_device, **opt)
-    assert ctrl.kernel_path == "torch"
+    for kernel in ("cuda", "auto"):
+        with pytest.raises(NotImplementedError, match=item):
+            MPPI(model, cost, k=300, tau=8, sigma=SIGMA, kernel=kernel,
+                 device=cuda_device, **opt)
 
 
 def test_cuda_path_unbuilt_dims(cuda_device):
@@ -447,8 +446,10 @@ def test_nn_controller_resolves_the_kernel(cuda_device):
         MPPI(NNAUVModelSpeed(), cost, kernel="cuda", **kw)
     with pytest.raises(KernelUnsupportedError):
         MPPI(NNAUVModel(hidden=(16, 16, 16)), cost, kernel="cuda", **kw)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        MPPI(NNAUVModel(), cost, kernel="cuda", antithetic=True, **kw)
+    ctrl = MPPI(NNAUVModel(), cost, kernel="cuda", antithetic=True,
+                noise_schedule={"type": "exp", "start": 1.0, "end": 0.25},
+                **kw)
+    assert ctrl.kernel_path == "cuda" and ctrl._fused.consts.antithetic
 
 
 # ---------------------------------------------------------------------------
@@ -619,3 +620,132 @@ def test_pm_mission_flies_on_the_kernels(cuda_device):
     assert pops == 2
     assert np.linalg.norm(x.ravel() - np.asarray(
         PM_WAYPOINTS["waypoints"][2])) < 0.25
+
+
+# ---------------------------------------------------------------------------
+# the scheduled and antithetic variants
+# ---------------------------------------------------------------------------
+
+SCHED = {"type": "exp", "start": 1.0, "end": 0.25}
+
+
+@pytest.mark.parametrize("k", [5000, 5001])
+def test_antithetic_dump_mirrors_exactly(cuda_device, k):
+    half = pm.antithetic_half(k)
+    z = pm.pm_noise_dump(3, 2, k, 9, 3, cuda_device, half=half)
+    assert torch.equal(z[..., half:], -z[..., :k - half])
+    torch.testing.assert_close(
+        z, pm.noise_plain(3, 2, k, 9, 3, device=cuda_device, half=half),
+        rtol=0, atol=1e-5)
+    # the first samples of a larger antithetic solve: its own half
+    head = pm.pm_noise_dump(3, 2, 512, 9, 3, cuda_device, half=half)
+    assert torch.equal(head, z[..., :512])
+
+
+@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("scheduled", [False, True])
+@pytest.mark.parametrize("k,tau", [(701, 7), (4096, 25)])
+def test_pm_variants_match_plain(cuda_device, k, tau, scheduled, antithetic):
+    model, cost = _modules(cuda_device)
+    fused = pm.FusedPointMassMPPI(model, cost, k=k, tau=tau, lam=LAM,
+                                  upsilon=UPS, sigma=SIGMA,
+                                  antithetic=antithetic,
+                                  schedule=SCHED if scheduled else None)
+    rng = np.random.default_rng(k)
+    x0 = torch.as_tensor(rng.normal(size=6) * 0.2, dtype=torch.float32,
+                         device=cuda_device)
+    useq = torch.as_tensor(rng.normal(size=(tau, 3)) * 0.1,
+                           dtype=torch.float32, device=cuda_device)
+    dyn = fused.pack_dyn(x0, useq)
+    c = fused.consts
+    costs_k, _ = pm.pm_fused_costs(c, dyn, k, tau, seed=4, solve=3)
+    costs_p, _ = pm.fused_costs_plain(c, dyn, k, tau, seed=4, solve=3)
+    torch.testing.assert_close(costs_k, costs_p, rtol=1e-4, atol=1e-4)
+    zs_k, st_k = pm.merge_plain(pm.pm_fused_solve(c, dyn, k, tau, seed=4,
+                                                  solve=3))
+    zs_p, st_p = pm.merge_plain(pm.fused_solve_plain(c, dyn, k, tau, seed=4,
+                                                     solve=3))
+    torch.testing.assert_close(zs_k / st_k[1], zs_p / st_p[1], rtol=1e-3,
+                               atol=1e-5)
+    wn_k, _ = fused.solve(x0, useq, seed=4, solve=3, normalize=True)
+    nrm = torch.stack([costs_k.min(), 1.0 / ((costs_k.max() - costs_k.min())
+                                             * LAM)])
+    zs_w, st_w = pm.merge_plain(pm.weights_plain(
+        nrm, costs_k, tau, 3, seed=4, solve=3, antithetic=antithetic))
+    torch.testing.assert_close(wn_k, fused.unfold_wnoise(zs_w) / st_w[1],
+                               rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("rk", [1, 2, 4])
+def test_auv_variants_match_plain(cuda_device, rk):
+    k, tau = 1001, 9
+    model = get_model({**flagship.auv_params(), "rk": rk}, dt=0.1,
+                      device=cuda_device)
+    cost = get_cost(flagship.auv_task(), lam=0.5, gamma=0.2, upsilon=1.2,
+                    sigma=AUV_SIGMA, device=cuda_device)
+    fused = auv.FusedAUVMPPI(model, cost, k=k, tau=tau, lam=0.5, upsilon=1.2,
+                             sigma=AUV_SIGMA, antithetic=True,
+                             schedule=SCHED)
+    _, x0, useq, dyn = _auv_inputs(fused, cuda_device, seed=rk)
+    c = fused.consts
+    costs_k, _ = auv.auv_fused_costs(c, dyn, k, tau, seed=2, solve=1)
+    costs_p, _ = auv.fused_costs_plain(c, dyn, k, tau, seed=2, solve=1)
+    torch.testing.assert_close(costs_k, costs_p, rtol=COST_RTOL,
+                               atol=COST_ATOL)
+    part_k = auv.auv_fused_solve(c, dyn, k, tau, seed=2, solve=1)
+    z = pm.pm_noise_dump(2, 1, k, tau, 6, cuda_device,
+                         half=pm.antithetic_half(k))
+    part_o = pm.block_partials(costs_k, z.reshape(tau * 6, k), c.lam)
+    torch.testing.assert_close(part_k[:, :5], part_o[:, :5], rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_nn_variants_match_plain(cuda_device):
+    from mppi_tf_tpu_torch.kernels import nn_mppi as nnk
+
+    k, tau = 1001, 9
+    base = _nn_fused(k, tau, cuda_device, (32, 32, 32))
+    fused = nnk.FusedNNMPPI(base.model, base.cost, k=k, tau=tau, lam=0.5,
+                            upsilon=1.2, sigma=NN_SIGMA, antithetic=True,
+                            schedule=SCHED)
+    _, x0, useq, dyn = _auv_inputs(fused, cuda_device, seed=5)
+    c = fused.consts
+    costs_k, _ = nnk.nn_fused_costs(c, dyn, k, tau, seed=2, solve=1)
+    costs_p, _ = nnk.fused_costs_plain(c, dyn, k, tau, seed=2, solve=1)
+    torch.testing.assert_close(costs_k, costs_p, rtol=COST_RTOL,
+                               atol=COST_ATOL)
+    part_k = nnk.nn_fused_solve(c, dyn, k, tau, seed=2, solve=1)
+    z = pm.pm_noise_dump(2, 1, k, tau, 6, cuda_device,
+                         half=pm.antithetic_half(k))
+    part_o = pm.block_partials(costs_k, z.reshape(tau * 6, k), c.lam)
+    torch.testing.assert_close(part_k[:, :5], part_o[:, :5], rtol=1e-5,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("model_kind", ["point_mass", "auv1", "auv2",
+                                        "auv4", "nn"])
+def test_variants_resolve_the_kernels(cuda_device, model_kind):
+    """MPPI(kernel='cuda'|'auto', antithetic=True, noise_schedule=...)
+    runs on the kernels (NN under 'cuda' only) and steps finitely."""
+    from mppi_tf_tpu_torch.models.nn import NNAUVModel
+
+    if model_kind == "point_mass":
+        model, cost = _modules(cuda_device)
+        sigma, x = SIGMA, np.zeros(6)
+    else:
+        model = (NNAUVModel(device=cuda_device) if model_kind == "nn" else
+                 get_model({**flagship.auv_params(), "rk": int(
+                     model_kind[-1])}, dt=0.1, device=cuda_device))
+        cost = get_cost(flagship.auv_task(), lam=0.5, gamma=0.2, upsilon=1.0,
+                        sigma=AUV_SIGMA, device=cuda_device)
+        sigma, x = AUV_SIGMA, np.zeros(13)
+        x[6] = 1.0
+    for kernel in ("cuda", "auto"):
+        ctrl = MPPI(model, cost, k=1000, tau=6, lam=0.5, sigma=sigma,
+                    kernel=kernel, antithetic=True, noise_schedule=SCHED,
+                    device=cuda_device)
+        want = "torch" if (model_kind, kernel) == ("nn", "auto") else "cuda"
+        assert ctrl.kernel_path == want
+        assert np.all(np.isfinite(ctrl.next(x)))
+        ctrl.set_noise_schedule({"type": "linear", "start": 1.0, "end": 0.5})
+        assert np.all(np.isfinite(ctrl.next(x)))

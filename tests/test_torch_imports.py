@@ -35,7 +35,8 @@ def test_import_leaves_no_jax_modules():
         " mppi_tf_tpu_torch.cfg, mppi_tf_tpu_torch.envs.runner,"
         " mppi_tf_tpu_torch.cli, mppi_tf_tpu_torch.costs.elipse,"
         " mppi_tf_tpu_torch.costs.waypoints,"
-        " mppi_tf_tpu_torch.controller.missions\n"
+        " mppi_tf_tpu_torch.controller.missions,"
+        " mppi_tf_tpu_torch.observer, mppi_tf_tpu_torch.observer.observer\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mppi_tf_tpu', 'triton'))\n"
         "print(','.join(bad))\n")
@@ -88,6 +89,27 @@ def test_sources_cover_the_tracking_slice():
     assert {"mppi_tf_tpu_torch/costs/elipse.py",
             "mppi_tf_tpu_torch/costs/waypoints.py",
             "mppi_tf_tpu_torch/controller/missions.py"} <= names
+
+
+def test_sources_cover_the_observer():
+    names = {p.relative_to(REPO).as_posix() for p in _sources()}
+    assert {"mppi_tf_tpu_torch/observer/__init__.py",
+            "mppi_tf_tpu_torch/observer/observer.py"} <= names
+
+
+def test_observer_imports_no_tensorboard():
+    """Importing the observer needs no tensorboard package: it is imported
+    when an observer is built, and the JSONL record stands without it."""
+    code = ("import sys\n"
+            "import mppi_tf_tpu_torch.observer\n"
+            "print(any(m.startswith(('torch.utils.tensorboard', "
+            "'tensorboard')) for m in sys.modules))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(REPO), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
 
 
 def test_forbidden_matcher():
