@@ -33,12 +33,21 @@ port's paths through ``MPPI.next`` closed loop against the analytic plants:
   (adim 3 and 6) and 300-step loops; the rexrov2 AUV and the NN with both
   options, their kernels against the plain versions and their dives;
 - log mode: the CLI with ``-l`` and ``MPPI(observer=...)`` at
-  ``point_mass_h100``, held to the JAX observer's JSONL tags.
+  ``point_mass_h100``, held to the JAX observer's JSONL tags;
+- the DMD slice: the dynamic_ab solve and costs (runtime A and B scale in
+  ``dyn``) against their plain versions at K=100,000, H=50 (seeded,
+  dense random and refit (A, B), injected z and Philox) and at K=700, H=7
+  for (4, 2) quadratic and ellipse, and against the point mass's kernel
+  on the same map; the JAX bench's dmd row, 300 ``DMDMPPI`` steps a mode
+  on the kernels; the adaptive loop (mass-1 prior, mass-3 plant, refits
+  from ``save`` through ``ClosedLoopRunner``) held to its identification,
+  its goal, one sync a step and no rebuild; the CLI with
+  ``--model models/dmd_model``.
 
 The build phase reports each instantiation's registers beside those it
 had before the noise variants (PERF.md). It
-times every kernel, and each noise variant beside the same kernel without
-it. Each phase prints one JSON line; any failed check
+times every kernel, each noise variant beside the same kernel without
+it, and the dynamic_ab variant beside the constant-(A, B) kernel. Each phase prints one JSON line; any failed check
 raises and the script exits non-zero. Without a CUDA device it exits
 non-zero before printing any result.
 
@@ -169,6 +178,24 @@ FUSED_BOTH = {"schedule": SCHED, "antithetic": True}
 # the steps logged through MPPI(observer=...) at point_mass_h100, and the
 # CLI's logged point-mass run
 LOG_STEPS, LOG_CLI_STEPS = 5, 20
+# the DMD slice: the JAX bench's "dmd" row (mppi_tf_tpu/bench.py:107-116),
+# DMDModel(6, 3) seeded with the point mass's (A, B) at mass 1, the static
+# cost above, at K, H (dmd_kernels, dmd_loop); its adaptive companion
+# (bench.py:722-763, dmd_adaptive): a mass-1 prior against a mass-3
+# PointMassEnv at dt 0.01 under ClosedLoopRunner at control dt 0.1, refit
+# every 10 saves, reg 1e-8, 200 steps. Its gates: both packages end that
+# loop within ~3e-3 of the goal with max |B - B_true/3| ~ 6e-7 at K=2,000,
+# H=20 on the CPU (tests/test_torch_dmd.py::
+# test_adaptive_loop_in_both_packages)
+DMD_PLANT_MASS, DMD_REFIT, DMD_REG = 3.0, 10, 1e-8
+DMD_ADAPT_STEPS, DMD_GOAL_TOL, DMD_B_TOL = 200, 0.05, 1e-4
+# the adaptive profile's window: steps 151-170 span the refits at saves
+# 160 and 170
+DMD_PROFILE_FROM, DMD_PROFILE_STEPS = 150, 20
+# the CLI with --model models/dmd_model on the bundled envs/point_mass
+# (K=3,000, H=50): 100 steps end 0.10 (port) and 0.11 (JAX) from the goal
+# on the CPU (tests/test_torch_dmd.py::test_cli_dmd_model_in_both_packages)
+DMD_CLI_STEPS, DMD_CLI_TOL = 100, 0.3
 # the tag families of the JAX observer's JSONL (observer_base.py:101-187)
 LOG_FAMILIES = ("Cost/", "Controller/", "Input/axis_", "State/state")
 
@@ -224,12 +251,18 @@ def registers_vs_base(ptxas: list) -> list:
     return rows
 
 
-def workload(device):
+def workload(device, dmd: bool = False):
+    """The point-mass workload's model and cost; with ``dmd``, the JAX
+    bench's dmd row: a DMDModel seeded with the point mass's (A, B)."""
     from mppi_tf_tpu_torch.costs import get_cost
     from mppi_tf_tpu_torch.models import get_model
+    from mppi_tf_tpu_torch.models.dmd import DMDModel
 
     model = get_model({"type": "point_mass", "mass": MASS}, dt=DT,
                       state_dim=6, action_dim=3, device=device)
+    if dmd:
+        model = DMDModel(6, 3, dt=DT, init_A=model.A.cpu().numpy(),
+                         init_B=model.B.cpu().numpy() / MASS, device=device)
     cost = get_cost({"type": "static", "diag": True, "goal": GOAL, "Q": Q},
                     lam=LAM, gamma=GAMMA, upsilon=UPSILON, sigma=SIGMA,
                     device=device)
@@ -305,11 +338,15 @@ def solve_ops(consts, k: int, tau: int, prng: bool,
     needs each normal once; the kernel's regeneration in its second pass
     is its own choice and not counted). With ``costs_only`` (phase A): no
     softmax or w*z. The state cost is the quadratic around dyn's goal or,
-    for the "elipse" kind, ``ELIPSE_OPS``."""
+    for the "elipse" kind, ``ELIPSE_OPS``. A dynamic_ab solve's A and B
+    scale are runtime data: counted dense, as JAX roofline.py:231-232
+    counts them."""
     sdim, adim = consts.dims
     q_ops = (ELIPSE_OPS if consts.cost_kind == "elipse"
              else sdim + 2 * nnz(consts.Q) + 2 * sdim)
-    step = (2 * nnz(consts.A) + 2 * nnz(consts.Bs) + 2 * sdim + q_ops
+    ab = (sdim * (sdim + adim) if consts.dynamic_ab
+          else nnz(consts.A) + nnz(consts.Bs))
+    step = (2 * ab + 2 * sdim + q_ops
             + 2 * adim + 2 * nnz(consts.Mz) + 2 * adim + 2)
     return _rollout_ops(k, tau, adim, step, q_ops, prng, costs_only)
 
@@ -474,12 +511,13 @@ def noise_phase(pm, seed: int, solve: int) -> dict:
 
 
 def pm_controller(kernel: str = "auto", normalize: bool = False,
-                  tau: int = H, **extra):
-    """The point-mass workload's controller through get_controller at K and
-    horizon ``tau``, with env-config keys ``extra``."""
+                  tau: int = H, dmd: bool = False, **extra):
+    """The point-mass workload's controller (``dmd``: the DMD row's, a
+    DMDMPPI) through get_controller at K and horizon ``tau``, with
+    env-config keys ``extra``."""
     from mppi_tf_tpu_torch.controller import get_controller
 
-    model, cost = workload("cuda")
+    model, cost = workload("cuda", dmd)
     cfg = {"samples": K, "horizon": tau, "lambda": LAM, "upsilon": UPSILON,
            "noise": SIGMA.tolist(), "kernel": kernel,
            "normalize": normalize, **extra}
@@ -487,7 +525,8 @@ def pm_controller(kernel: str = "auto", normalize: bool = False,
 
 
 def closed_loop(kernel: str, normalize: bool = False,
-                steps: int = LOOP_STEPS, tau: int = H, errs=None, **extra):
+                steps: int = LOOP_STEPS, tau: int = H, errs=None,
+                dmd: bool = False, **extra):
     """K=100k closed loop (H=50, or ``tau``) through the factories against
     the analytic plant, with env-config keys ``extra`` ("noise-schedule",
     "antithetic"); returns (controller, final goal error, per-step host
@@ -496,7 +535,7 @@ def closed_loop(kernel: str, normalize: bool = False,
     from mppi_tf_tpu_torch.envs import PointMassEnv
     from mppi_tf_tpu_torch.kernels import pm_mppi as pm
 
-    ctrl = pm_controller(kernel, normalize, tau, **extra)
+    ctrl = pm_controller(kernel, normalize, tau, dmd, **extra)
     ctrl.trace()  # builds and warms up; restores the controller's state
     env = PointMassEnv(n_dof=3, mass=MASS, dt=DT)
     x = env.reset()
@@ -515,26 +554,35 @@ def closed_loop(kernel: str, normalize: bool = False,
 
 
 def profile_steps(ctrl, steps: int = 20, x=None, radius=None) -> dict:
-    """Where a step's time goes: ``torch.profiler`` over ``steps`` calls of
+    """Where a step's time goes: ``profile_run`` over ``steps`` calls of
     MPPI.next at state ``x`` (default zeros), each followed by
-    ``advance_waypoints(x, radius)`` when a radius is given; device busy
-    share = summed kernel time / wall time (one stream, so kernels do not
-    overlap); synchronising CUDA runtime calls per step (the action's copy
-    to the host is one)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    ``advance_waypoints(x, radius)`` when a radius is given."""
     x = np.zeros(6) if x is None else x
     ctrl.next(x)
     torch.cuda.synchronize()
-    pops = 0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    pops = []
+
+    def run():
         for _ in range(steps):
             ctrl.next(x)
             if radius is not None:
-                pops += ctrl.advance_waypoints(x, radius)
+                pops.append(ctrl.advance_waypoints(x, radius))
+
+    return dict(profile_run(run, steps), pops=sum(pops))
+
+
+def profile_run(run, steps: int) -> dict:
+    """``torch.profiler`` over ``run()``, ``steps`` control steps: device
+    busy share = summed kernel time / wall time (one stream, so kernels do
+    not overlap); synchronising CUDA runtime calls per step (the action's
+    copy to the host is one)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
     kern = [e for e in events if e.device_type == DeviceType.CUDA]
@@ -543,7 +591,7 @@ def profile_steps(ctrl, steps: int = 20, x=None, radius=None) -> dict:
     syncs = {e.key: e.count / steps for e in events
              if e.device_type == DeviceType.CPU and "Synchronize" in e.key}
     return {
-        "steps": steps, "wall_us_per_step": wall_us / steps, "pops": pops,
+        "steps": steps, "wall_us_per_step": wall_us / steps,
         "device_us_per_step": dev_us / steps,
         "device_busy_share": dev_us / wall_us,
         "kernel_launches_per_step": sum(e.count for e in kern) / steps,
@@ -1059,20 +1107,23 @@ def merged(pm, part) -> torch.Tensor:
     return torch.cat([zsum / st[1], st[:5]])
 
 
-def check_pm_variant(pm, fused, z, label: str) -> dict:
-    """A point-mass solve object's variant (scheduled and / or
-    antithetic) of pm_fused_solve and pm_fused_costs against their plain
-    versions on injected z and on the Philox stream, with the tolerances
-    of row 1: per-sample costs (PM_COST_RTOL, PM_COST_ATOL), the merged
-    cost stats (rel 1e-4) and the weighted noise in action units, c_t
-    applied (rtol 1e-3, atol 1e-5)."""
+def check_pm_variant(pm, fused, z, label: str, x0=None) -> dict:
+    """A point-mass solve object's variant (scheduled, antithetic and / or
+    dynamic_ab) of pm_fused_solve and pm_fused_costs against their plain
+    versions on injected z and on the Philox stream from state ``x0``
+    (default zeros), with the tolerances of row 1: per-sample costs
+    (PM_COST_RTOL, PM_COST_ATOL), the merged cost stats (rel 1e-4) and the
+    weighted noise in action units, c_t applied (rtol 1e-3, atol 1e-5)."""
     k, tau, c = fused.k, fused.tau, fused.consts
     rng = np.random.default_rng(7)
-    useq = torch.as_tensor(0.1 * rng.standard_normal((tau, 3)),
+    useq = torch.as_tensor(0.1 * rng.standard_normal((tau, fused.adim)),
                            dtype=torch.float32, device="cuda")
-    dyn = fused.pack_dyn(torch.zeros(6, device="cuda"), useq)
-    out = {"k": k, "tau": tau, "scheduled": c.scheduled,
-           "antithetic": c.antithetic, "cost_rtol": PM_COST_RTOL,
+    x0 = torch.as_tensor(np.zeros(fused.sdim) if x0 is None else x0,
+                         dtype=torch.float32, device="cuda")
+    dyn = fused.pack_dyn(x0, useq)
+    out = {"k": k, "tau": tau, "cost_kind": c.cost_kind,
+           "scheduled": c.scheduled, "antithetic": c.antithetic,
+           "dynamic_ab": c.dynamic_ab, "cost_rtol": PM_COST_RTOL,
            "cost_atol": PM_COST_ATOL, "wnoise_rtol": 1e-3,
            "wnoise_atol": 1e-5, "stats_rtol": 1e-4}
     ok = True
@@ -1260,15 +1311,16 @@ def sched_ops(k: int, tau: int, dims: int) -> float:
 
 
 def pm_loop_phase(phase: str, normalize: bool, tau: int, tol=GOAL_TOL,
-                  mean_tol=None, **extra) -> tuple:
-    """A LOOP_STEPS point-mass loop on the kernels with env-config keys
-    ``extra``, held to its launches and gated on its final goal error
-    (``tol``) or on the error's mean over the last SCHED_WINDOW steps
-    (``mean_tol``): (controller, step ms, launch counts)."""
+                  mean_tol=None, dmd: bool = False, **extra) -> tuple:
+    """A LOOP_STEPS point-mass loop (``dmd``: the DMD row's) on the
+    kernels with env-config keys ``extra``, held to its launches and gated
+    on its final goal error (``tol``) or on the error's mean over the last
+    SCHED_WINDOW steps (``mean_tol``): (controller, step ms, launch
+    counts)."""
     t0 = time.perf_counter()
     errs = []
     ctrl, err, ms, counts = closed_loop("auto", normalize, tau=tau,
-                                        errs=errs, **extra)
+                                        errs=errs, dmd=dmd, **extra)
     window = np.asarray(errs[-SCHED_WINDOW:])
     emit(phase, normalize=normalize, kernel_path=ctrl.kernel_path, K=K,
          H=tau, steps=LOOP_STEPS, goal_err=err, tol=tol,
@@ -1350,6 +1402,174 @@ def antithetic_phase(pm, model, cost, z) -> dict:
         del ctrl
     return {"fused": fz, "noise": noise, "check": chk, "w3": w3, "w6": w6,
             "loops": loops}
+
+
+def dmd_kernels_phase(pm, z_big) -> dict:
+    """The dynamic_ab pm_fused_solve and pm_fused_costs against their
+    plain versions (``check_pm_variant``: injected z and Philox) at K, H
+    through a DMDMPPI's solve object: the bench's point-mass-seeded
+    DMDModel(6, 3), then a dense random (A, B) and a refit, each written
+    through ``model_params`` into the same solve object; at K=700, H=7 the
+    (4, 2) quadratic and ellipse kinds, each before and after a refit; and
+    the seeded model's costs and weights against pm_fused_solve /
+    pm_fused_costs of the point mass at mass 1, the same map."""
+    from mppi_tf_tpu_torch.cfg import default_config
+    from mppi_tf_tpu_torch.controller.dmd import DMDMPPI
+    from mppi_tf_tpu_torch.costs import get_cost
+    from mppi_tf_tpu_torch.models.dmd import DMDModel
+
+    model, cost = workload("cuda", dmd=True)
+    seeded = {name: t.detach().cpu().clone()
+              for name, t in (("A", model.A), ("B", model.B))}
+    ctrl = DMDMPPI(model, cost, k=K, tau=H, lam=LAM, upsilon=UPSILON,
+                   sigma=SIGMA, kernel="cuda")
+    fz = ctrl._fused
+    rng = np.random.RandomState(5)
+    chk = {"seeded": check_pm_variant(pm, fz, z_big, "dmd_seeded_K100000_H50")}
+    for name, A, B in (
+            ("dense", np.eye(6) + 0.05 * rng.randn(6, 6), 0.1 * rng.randn(6, 3)),
+            ("refit", np.eye(6) + 0.02 * rng.randn(6, 6),
+             0.15 * rng.randn(6, 3))):
+        ctrl.model_params = {"A": A, "B": B}
+        chk[name] = check_pm_variant(pm, fz, z_big,
+                                     f"dmd_{name}_K100000_H50")
+    sig2 = np.diag([0.25, 0.25])
+    for kind, task, x0 in (
+            ("quadratic", {"type": "static", "diag": True,
+                           "goal": [0.5, 0.0, -0.5, 0.0],
+                           "Q": [5.0, 1.0, 5.0, 1.0]}, None),
+            ("elipse", default_config("tasks/elipse_task"), EL_X0)):
+        m2 = DMDModel(4, 2, dt=DT, init_A=np.eye(4) + 0.05 * rng.randn(4, 4),
+                      init_B=0.1 * rng.randn(4, 2), device="cuda")
+        c2 = get_cost(task, lam=LAM, gamma=GAMMA, upsilon=UPSILON, sigma=sig2,
+                      device="cuda")
+        small = DMDMPPI(m2, c2, k=700, tau=7, lam=LAM, upsilon=UPSILON,
+                        sigma=sig2, kernel="cuda")
+        z_s = torch.as_tensor(rng.randn(7, 2, 700).astype(np.float32),
+                              device="cuda")
+        chk[kind] = check_pm_variant(pm, small._fused, z_s,
+                                     f"dmd_{kind}_K700_H7", x0=x0)
+        small.model_params = {"A": np.eye(4) + 0.02 * rng.randn(4, 4),
+                              "B": 0.15 * rng.randn(4, 2)}
+        chk[f"{kind}_refit"] = check_pm_variant(
+            pm, small._fused, z_s, f"dmd_{kind}_refit_K700_H7", x0=x0)
+    # the seeded DMD against the point mass at mass 1: the same map, read
+    # from shared memory instead of the constants
+    ctrl.model_params = seeded
+    pm_fz = pm.FusedPointMassMPPI(*workload("cuda"), k=K, tau=H, lam=LAM,
+                                  upsilon=UPSILON, sigma=SIGMA)
+    useq = torch.as_tensor(0.1 * np.random.default_rng(7).standard_normal(
+        (H, 3)), dtype=torch.float32, device="cuda")
+    x0 = torch.zeros(6, device="cuda")
+    dyn_l, dyn_c = fz.pack_dyn(x0, useq), pm_fz.pack_dyn(x0, useq)
+    c_l, _ = pm.pm_fused_costs(fz.consts, dyn_l, K, H, z=z_big)
+    c_c, _ = pm.pm_fused_costs(pm_fz.consts, dyn_c, K, H, z=z_big)
+    zs_l, st_l = pm.pm_merge(pm.pm_fused_solve(fz.consts, dyn_l, K, H,
+                                               z=z_big))
+    zs_c, st_c = pm.pm_merge(pm.pm_fused_solve(pm_fz.consts, dyn_c, K, H,
+                                               z=z_big))
+    torch.cuda.synchronize()
+    ok_c, err_c, _ = close(c_l, c_c, PM_COST_RTOL, PM_COST_ATOL)
+    ok_w, err_w, _ = close(zs_l / st_l[1], zs_c / st_c[1], 1e-3, 1e-5)
+    same = {"costs_max_abs_diff": err_c, "weighted_z_max_abs_diff": err_w,
+            "costs_bit_identical": bool(torch.equal(c_l, c_c)),
+            "dyn_sizes": [dyn_l.numel(), dyn_c.numel()]}
+    emit("dmd_vs_point_mass_K100000_H50", ok=ok_c and ok_w,
+         cost_rtol=PM_COST_RTOL, cost_atol=PM_COST_ATOL, **same)
+    if not (ok_c and ok_w):
+        raise AssertionError(f"seeded DMD kernel differs from the point "
+                             f"mass's: {same}")
+    return {"ctrl": ctrl, "fused": fz, "pm_fused": pm_fz, "check": chk,
+            "dyn": dyn_l, "pm_dyn": dyn_c, "same_map": same}
+
+
+def dmd_loop_phase(pm, smi: str) -> dict:
+    """The bench's dmd row on the kernels: LOOP_STEPS of MPPI.next from
+    state 0 in each mode, against the point-mass plant at mass 1 (no save,
+    no refit), gated at GOAL_TOL; 20 steps profiled, one sync a step."""
+    from mppi_tf_tpu_torch.controller.dmd import DMDMPPI
+    from mppi_tf_tpu_torch.kernels.pm_mppi import FusedLTIMPPI
+
+    loops = {}
+    for normalize in (False, True):
+        ctrl, ms, counts = pm_loop_phase("dmd_closed_loop", normalize, H,
+                                         dmd=True)
+        if not (type(ctrl) is DMDMPPI and type(ctrl._fused) is FusedLTIMPPI
+                and ctrl.n_fits == 0):
+            raise AssertionError(f"dmd loop ran {type(ctrl).__name__} on "
+                                 f"{type(ctrl._fused).__name__}")
+        loops[normalize] = (ms, counts)
+        if not normalize:
+            prof = profile_steps(ctrl)
+            emit("profile", kernel_path=ctrl.kernel_path, model="dmd",
+                 card=smi, **prof)
+            check_syncs(prof)
+        del ctrl
+    return loops
+
+
+def dmd_adaptive_phase(pm, smi: str) -> dict:
+    """The host-driven counterpart of the bench's adaptive DMD loop at K,
+    H: a mass-1 prior against a mass-3 plant through ClosedLoopRunner,
+    refits from the runner's save(). Gated on the refits due, the goal
+    error and the identified B (DMD_GOAL_TOL, DMD_B_TOL), one sync a step
+    over a 20-step profile spanning two refits, and no kernel build after
+    the first step."""
+    from mppi_tf_tpu_torch.controller.dmd import DMDMPPI
+    from mppi_tf_tpu_torch.envs import PointMassEnv
+    from mppi_tf_tpu_torch.envs.runner import ClosedLoopRunner
+    from mppi_tf_tpu_torch.kernels import _build
+    from mppi_tf_tpu_torch.models.dmd import DMDModel
+
+    prior, cost = workload("cuda")
+    A1, B1 = prior.A.cpu().numpy(), prior.B.cpu().numpy()
+    model = DMDModel(6, 3, dt=DT, init_A=A1, init_B=B1, reg=DMD_REG,
+                     device="cuda")
+    ctrl = DMDMPPI(model, cost, k=K, tau=H, lam=LAM, upsilon=UPSILON,
+                   sigma=SIGMA, kernel="auto", refit_every=DMD_REFIT)
+    env = PointMassEnv(n_dof=3, mass=DMD_PLANT_MASS, dt=0.01)
+    runner = ClosedLoopRunner(env, ctrl, control_dt=DT)
+    pm.reset_launch_counts()
+    t0 = time.perf_counter()
+    runner.run(1)
+    lib, built = _build.load_library(), sorted(os.listdir(_build.BUILD_DIR))
+    runner.run(DMD_PROFILE_FROM - 1)
+    fits_before = ctrl.n_fits
+    prof = profile_run(lambda: runner.run(DMD_PROFILE_STEPS),
+                       DMD_PROFILE_STEPS)
+    prof["refits"] = ctrl.n_fits - fits_before
+    runner.run(DMD_ADAPT_STEPS - DMD_PROFILE_FROM - DMD_PROFILE_STEPS)
+    counts = dict(pm.launch_counts)
+    seconds = time.perf_counter() - t0
+    x = env.getState().ravel()
+    B = ctrl.model_params["B"].cpu().numpy()
+    goal_err = float(np.linalg.norm(x - np.asarray(GOAL)))
+    pos_err = float(np.linalg.norm(x[0::2] - np.asarray(GOAL)[0::2]))
+    b_err = float(np.abs(B - B1 / DMD_PLANT_MASS).max())
+    fits_due = (DMD_ADAPT_STEPS - ctrl._min_samples) // DMD_REFIT + 1
+    rebuilt = (_build.load_library() is not lib
+               or sorted(os.listdir(_build.BUILD_DIR)) != built)
+    emit("profile", kernel_path=ctrl.kernel_path, model="dmd_adaptive",
+         card=smi, **prof)
+    out = {"kernel_path": ctrl.kernel_path, "K": K, "H": H,
+           "steps": DMD_ADAPT_STEPS, "plant_mass": DMD_PLANT_MASS,
+           "n_fits": ctrl.n_fits, "fits_due": fits_due, "goal_err": goal_err,
+           "position_err": pos_err, "goal_tol": DMD_GOAL_TOL,
+           "B_max_abs_err": b_err, "B_tol": DMD_B_TOL, "launches": counts,
+           "rebuilt": rebuilt, "seconds": seconds,
+           "ms_per_step_with_plant_and_refits": 1e3 * seconds
+           / DMD_ADAPT_STEPS}
+    emit("dmd_adaptive", **out)
+    want = {n: 0 for n in counts}
+    want.update(pm_fused_solve=DMD_ADAPT_STEPS, pm_merge=DMD_ADAPT_STEPS)
+    check_syncs(prof)
+    if not (ctrl.kernel_path == "cuda" and counts == want
+            and ctrl.n_fits == fits_due and prof["refits"] == 2
+            and goal_err < DMD_GOAL_TOL and b_err < DMD_B_TOL
+            and not rebuilt):
+        raise AssertionError(f"adaptive DMD loop: {out}, profile refits "
+                             f"{prof['refits']}")
+    return out
 
 
 def quat_sched_anti_phase(pm, kern, fused, z, label: str, loop, modes,
@@ -1938,6 +2158,12 @@ def main() -> int:
         out_nn, c_nn = run_cli(workdir, "nn", nn_env,
                                "tasks/static_cost_auv",
                                "models/auv_nn_model_quat", NN_CLI_STEPS)
+        out_dmd, c_dmd = run_cli(workdir, "dmd",
+                                 default_config("envs/point_mass"),
+                                 "tasks/static_cost", "models/dmd_model",
+                                 DMD_CLI_STEPS)
+        err_dmd = float(np.linalg.norm(np.asarray(out_dmd["final_state"])
+                                       - goal_pm))
         cli_tasks = {
             "waypoints": ("envs/point_mass", {}, "models/point_mass_model",
                           "pm_fused_solve"),
@@ -1955,6 +2181,8 @@ def main() -> int:
     emit("cli", point_mass=dict(out_pm, goal_err=err_pm, launches=c_pm),
          rexrov2=dict(out_auv, launches=c_auv),
          nn=dict(out_nn, launches=c_nn),
+         dmd=dict(out_dmd, goal_err=err_dmd, tol=DMD_CLI_TOL,
+                  launches=c_dmd),
          **{name: dict(out, launches=counts)
             for name, (out, counts) in cli_out.items()})
     for name, (out, counts) in cli_out.items():
@@ -1978,6 +2206,11 @@ def main() -> int:
             and c_nn["nn_fused_solve"] == NN_CLI_STEPS
             and np.all(np.isfinite(out_nn["final_state"]))):
         raise AssertionError(f"cli nn: {out_nn}, {c_nn}")
+    want = {n: 0 for n in c_dmd}
+    want.update(pm_fused_solve=DMD_CLI_STEPS, pm_merge=DMD_CLI_STEPS)
+    if not (out_dmd["kernel_path"] == "cuda" and out_dmd["n_fits"] >= 1
+            and c_dmd == want and err_dmd < DMD_CLI_TOL):
+        raise AssertionError(f"cli dmd: {out_dmd}, {c_dmd}, err {err_dmd}")
 
     # ---- 21. point_mass_h100: the scheduled solve at H=100 -------------------
     sched = pm_sched_phase(pm, model, cost, smi)
@@ -2010,7 +2243,16 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as workdir:
         log_phase(pm, workdir)
 
-    # ---- 26. times -------------------------------------------------------------
+    # ---- 26. the DMD slice: the dynamic_ab kernels, the dmd row's loops, ----
+    # ---- the adaptive loop with refits ----------------------------------------
+    z_dmd = torch.as_tensor(np.random.default_rng(8).standard_normal(
+        (H, 3, K), np.float32), device="cuda")
+    dmd = dmd_kernels_phase(pm, z_dmd)
+    del z_dmd
+    dmd_loops = dmd_loop_phase(pm, smi)
+    dmd_adaptive_phase(pm, smi)
+
+    # ---- 27. times -------------------------------------------------------------
     consts, nb = fused.consts, -(-K // pm.BLOCK)
     n_z = H * 3
     part = pm.pm_fused_solve(consts, dyn, K, H, seed=1, solve=1)
@@ -2382,12 +2624,33 @@ def main() -> int:
                                            solve=1)),
             bound=bound_ms(4.0 * dyn_v.numel() + 4.0 * k_
                            + 4.0 * nb_ * pm.STATS, ops_c + extra))
+    # dynamic_ab beside the constant-(A, B) kernel on the same map (the
+    # seeded DMD and the point mass at mass 1): the cost of runtime
+    # dynamics on this card; the bounds count dense A and B scale
+    dc, pc, dyn_l, dyn_c = (dmd["fused"].consts, dmd["pm_fused"].consts,
+                            dmd["dyn"], dmd["pm_dyn"])
+    vt["pm_fused_solve[dynamic_ab]"] = dict(variant_times(
+        lambda: pm.pm_fused_solve(pc, dyn_c, K, H, seed=1, solve=1),
+        lambda: pm.pm_fused_solve(dc, dyn_l, K, H, seed=1, solve=1),
+        lambda: pm.fused_solve_plain(dc, dyn_l, K, H, seed=1, solve=1)),
+        bound=bound_ms(4.0 * dyn_l.numel() + part_bytes,
+                       solve_ops(dc, K, H, prng=True)))
+    vt["pm_fused_costs[dynamic_ab]"] = dict(variant_times(
+        lambda: pm.pm_fused_costs(pc, dyn_c, K, H, seed=1, solve=1),
+        lambda: pm.pm_fused_costs(dc, dyn_l, K, H, seed=1, solve=1),
+        lambda: pm.fused_costs_plain(dc, dyn_l, K, H, seed=1, solve=1)),
+        bound=bound_ms(4.0 * dyn_l.numel() + 4.0 * K + rows_b,
+                       solve_ops(dc, K, H, prng=True, costs_only=True)))
+    vt["dmd_mppi_next_ms_median"] = {
+        "unnormalized": float(np.median(dmd_loops[False][0])),
+        "normalized": float(np.median(dmd_loops[True][0]))}
     emit("variant_times", card=smi, **vt,
          note="ms: the variant; unvaried_ms: the same kernel without the "
-              "schedule or antithetic at the same shapes and inputs, timed "
-              "in turns (unvaried, variant, variant, unvaried); point mass "
-              "sched at K=100000, H=100, antithetic at H=50; AUV rk2 "
-              "K=262144, H=25; NN 3x32 K=65536, H=25")
+              "schedule or antithetic at the same shapes and inputs, or "
+              "for dynamic_ab with the constant (A, B) of the same map, "
+              "timed in turns (unvaried, variant, variant, unvaried); point "
+              "mass sched at K=100000, H=100, antithetic and dynamic_ab at "
+              "H=50; AUV rk2 K=262144, H=25; NN 3x32 K=65536, H=25")
 
     src = "mppi_tf_tpu_torch/csrc/pm_mppi.cu"
     asrc = "mppi_tf_tpu_torch/csrc/auv_mppi.cu"
@@ -2579,7 +2842,22 @@ def main() -> int:
          nsl[True][1]["nn_fused_costs"],
          "NN known-plant dive with both options, normalized",
          nn_sa_out["check"]["costs_max_abs_err"],
-         "per-sample costs against the plain version, K=65536, H=25"))
+         "per-sample costs against the plain version, K=65536, H=25"),
+        ("pm_fused_solve[dynamic_ab]", src, f"{pm_py}:1042",
+         dmd_loops[False][1]["pm_fused_solve"],
+         "the dmd row's closed loop, unnormalized (DMDMPPI)",
+         max(worst(dmd["check"][n], "wnoise_max_abs_err")
+             for n in ("seeded", "dense", "refit")),
+         "weighted noise (action units) against the plain solve, injected "
+         "z and Philox, seeded, dense random and refit (A, B), K=100000, "
+         "H=50"),
+        ("pm_fused_costs[dynamic_ab]", src, f"{pm_py}:1111",
+         dmd_loops[True][1]["pm_fused_costs"],
+         "the dmd row's closed loop, normalized (DMDMPPI)",
+         max(worst(dmd["check"][n], "costs_max_abs_err")
+             for n in ("seeded", "dense", "refit")),
+         "per-sample costs against the plain version, injected z and "
+         "Philox, seeded, dense random and refit (A, B), K=100000, H=50"))
     for name, source, replaces, launches, path, err, err_of in variant_rows:
         t = vt[name]
         kernels.append({

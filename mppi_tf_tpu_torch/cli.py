@@ -14,8 +14,9 @@ Usage:
         --task tasks/static_cost --model models/point_mass_model -s 100
     python -m mppi_tf_tpu_torch.cli --replay --log-dir <dir with config.yaml>
 
-Prints one JSON line: steps, final_state, logdir, avg_solve_ms and the
-kernel path the controller resolved to.
+Prints one JSON line: steps, final_state, logdir, avg_solve_ms, the
+kernel path the controller resolved to and, for the adaptive DMD
+controller (``--model models/dmd_model``), its refit count n_fits.
 """
 
 from __future__ import annotations
@@ -110,6 +111,7 @@ def main(argv=None):
         "avg_solve_ms": round(1e3 * timing["total"]
                               / max(timing["calls"], 1), 3),
         "kernel_path": ctrl.kernel_path,
+        **({"n_fits": ctrl.n_fits} if hasattr(ctrl, "n_fits") else {}),
     }))
     return 0
 

@@ -1,8 +1,12 @@
+from ..models.dmd import DMDModel
+from .dmd import DMDMPPI
 from .mppi import MPPI, savgol_matrix
 
-__all__ = ["MPPI", "savgol_matrix", "get_controller"]
+__all__ = ["DMDMPPI", "MPPI", "savgol_matrix", "get_controller"]
 
-_DMD_KEYS = ("refit-every", "min-samples", "buffer-capacity")
+#: env-config keys of the adaptive DMD family and their keywords
+_DMD_KEYS = (("refit-every", "refit_every"), ("min-samples", "min_samples"),
+             ("buffer-capacity", "buffer_capacity"))
 
 
 def get_controller(model, cost, config_dict, observer=None, mesh=None,
@@ -12,8 +16,11 @@ def get_controller(model, cost, config_dict, observer=None, mesh=None,
     Reference: scripts/src/controller.py:3-38. Keys follow the reference's
     env-config YAML family: samples, horizon, lambda, noise, upsilon,
     init-act, normalize, filter, kernel, antithetic, noise-schedule,
-    kernel-dtype. Fleets, meshes and the adaptive DMD family are not ported
-    yet and raise ``NotImplementedError`` naming their ROADMAP item.
+    kernel-dtype. A ``DMDModel`` gets the adaptive ``DMDMPPI`` with
+    refit-every, min-samples and buffer-capacity (explicit ``overrides``
+    win); other models ignore those keys, as in the JAX package. Fleets
+    and meshes are not ported yet and raise ``NotImplementedError``
+    naming their ROADMAP item.
     """
     import numpy as np
 
@@ -23,9 +30,6 @@ def get_controller(model, cost, config_dict, observer=None, mesh=None,
     if mesh is not None:
         raise NotImplementedError(
             "mesh-sharded controllers are not ported yet: ROADMAP item 14")
-    if any(key in config_dict for key in _DMD_KEYS):
-        raise NotImplementedError(
-            "the adaptive DMD family is not ported yet: ROADMAP item 9")
     kwargs = dict(
         k=config_dict.get("samples", 1),
         tau=config_dict.get("horizon", 1),
@@ -44,4 +48,9 @@ def get_controller(model, cost, config_dict, observer=None, mesh=None,
         kwargs["init_seq"] = np.tile(ia, (kwargs["tau"], 1))
     kwargs["log"] = observer is not None
     kwargs.update(overrides)
+    if isinstance(model, DMDModel):
+        for key, kw in _DMD_KEYS:
+            if key in config_dict:
+                kwargs.setdefault(kw, config_dict[key])
+        return DMDMPPI(model, cost, observer=observer, **kwargs)
     return MPPI(model, cost, observer=observer, **kwargs)

@@ -5,7 +5,8 @@ weights them, updates the nominal sequence and shifts it. Two paths:
 
 - ``"torch"``: plain PyTorch ops (``ops/``), on any device, every option;
 - ``"cuda"``: the fused Hopper kernels, ``kernels/pm_mppi.py`` for the
-  point-mass model with the static, waypoint or (4-dim) ellipse cost,
+  point-mass model and the identified linear ``DMDModel`` (runtime (A, B),
+  ``FusedLTIMPPI``) with the static, waypoint or (4-dim) ellipse cost,
   ``kernels/auv_mppi.py`` for the AUV with the static quaternion,
   quaternion waypoint or 3D ellipse cost, and ``kernels/nn_mppi.py`` for
   the learned ``NNAUVModel`` with the static quaternion cost (only when
@@ -135,6 +136,8 @@ class MPPI(MissionMixin):
         self._gen.manual_seed(self._base_seed)
         self._steps = 0
         self._timing = {"total": 0.0, "calls": 0}
+        # pinned host sources of model_params uploads still in flight
+        self._staged = []
 
         self._fused = None
         self.kernel_path = "torch"
@@ -145,13 +148,13 @@ class MPPI(MissionMixin):
             self._resolve_kernel(kernel, sigma_np, sched_np)
 
     def _resolve_kernel(self, kernel: str, sigma_np, sched_np) -> None:
-        """The fused solve object, with the antithetic and schedule
-        options passed on as the JAX package does
-        (controller/mppi.py:226-236)."""
+        """The fused solve object, tried in the JAX package's order
+        (controller/mppi.py:222), with the antithetic and schedule options
+        passed on as it does (:226-236)."""
         from ..kernels.auv_mppi import FusedAUVMPPI
-        from ..kernels.pm_mppi import FusedPointMassMPPI
+        from ..kernels.pm_mppi import FusedLTIMPPI, FusedPointMassMPPI
 
-        classes = (FusedPointMassMPPI, FusedAUVMPPI)
+        classes = (FusedPointMassMPPI, FusedLTIMPPI, FusedAUVMPPI)
         if kernel == "cuda":
             # the NN kernel is explicit-only, as in the JAX package
             # (controller/mppi.py:217-224): "auto" keeps NN models on the
@@ -446,6 +449,43 @@ class MPPI(MissionMixin):
     @property
     def useq(self) -> torch.Tensor:
         return self._useq
+
+    @property
+    def model_params(self) -> dict:
+        """The model's carried tensors in the layout of the JAX package's
+        params (``interop.to_jax_params``: ``{"mass"}``, ``{"A", "B"}``,
+        an NN's nested dict), as detached copies on the controller's
+        device."""
+        from ..interop import _model_tensors, _unflatten
+
+        return _unflatten({n: t.detach().clone()
+                           for n, t in _model_tensors(self._model).items()})
+
+    @model_params.setter
+    def model_params(self, params) -> None:
+        """Copy ``params`` (arrays or tensors, the getter's layout) in place
+        into the model's tensors, so that a fused solve object holding the
+        model reads them in its next solve. Host values go to the card from
+        pinned memory without blocking: no host sync. Each pinned source
+        stays referenced here until the next call, past its copy."""
+        from ..interop import _flatten, _model_tensors
+
+        flat, targets = _flatten(params), _model_tensors(self._model)
+        if set(flat) != set(targets):
+            raise KeyError(f"model params {sorted(flat)} != the model's "
+                           f"parameters {sorted(targets)}")
+        staged = []
+        with torch.no_grad():
+            for name, t in targets.items():
+                v = flat[name]
+                src = (v.detach() if isinstance(v, torch.Tensor) else
+                       torch.as_tensor(np.array(v)))
+                src = src.to(t.dtype).reshape(t.shape)
+                if t.device.type == "cuda" and src.device.type == "cpu":
+                    src = src.pin_memory()
+                    staged.append(src)
+                t.copy_(src, non_blocking=True)
+        self._staged = staged
 
     @property
     def timing(self) -> dict:

@@ -17,7 +17,7 @@
 //   it writes (4 per normal); Philox and Box-Muller are ~32 operations per
 //   normal, below that.
 //
-// pm_fused_solve_kernel<S, A, MODE, COST> -- MODE kFused replaces
+// pm_fused_solve_kernel<S, A, MODE, COST, AB> -- MODE kFused replaces
 //   fused_pm_call (_make_kernel in mode "fused" + _fill_noise); MODE kCosts
 //   replaces fused_pm_costs (mode "costs", phase A of the normalized
 //   solve). COST is the state cost of _make_kernel's cost_kind:
@@ -49,6 +49,17 @@
 //     and unfolds wnoise_t = c_t scale zsum_t); an antithetic solve
 //     mirrors Philox samples as mppi_common.cuh says, uniformly over the
 //     grid's second half;
+//   * AB kDynAB replaces _make_kernel's `dynamic_ab` variant (the _Dyn A /
+//     Bs blocks of :140-143, smem_dot of :444-456, the step of :497-508):
+//     A and B scale come from the dyn array staged in shared memory
+//     (kernels/pm_mppi.py Dyn.A, Dyn.Bs, after u_half) instead of the
+//     by-value constants, so an identified linear model (FusedLTIMPPI)
+//     changes them as data, with no rebuild and no host repack. The host
+//     packs inv_mass = 1 and bu = the true B u_t, so the step
+//     fmaf(1, bu + c_t bz, ax) is the TPU's ax + (bu + c_t bz). Every
+//     thread reads the same address: broadcast loads, no bank conflicts.
+//     Both variants run dense FMA chains over runtime operands (constant
+//     bank or shared memory); neither elides zeros;
 //   * the TPU's sin polynomial and mantissa-stuffing uniform worked around
 //     Mosaic; here logf / sqrtf / sincospif are used directly.
 //
@@ -79,6 +90,9 @@ using namespace mppi;
 // State costs (kernels/pm_mppi.py COST_KINDS).
 enum PmCost { kQuadratic = 0, kElipse = 1 };
 
+// Where the solve reads A and B scale: the by-value constants, or dyn.
+enum PmAB { kConstAB = 0, kDynAB = 1 };
+
 // Solve constants, in the order of kernels/pm_mppi.py PmConsts.packed.
 template <int S, int A>
 struct Consts {
@@ -90,6 +104,22 @@ struct Consts {
   float nc_half;
   float el[7];      // kElipse: a, b, cx, cy, gv, m_state, m_vel
 };
+
+// Entry i of A (row-major) and of B scale, from the constants or, with
+// kDynAB, from dyn's blocks in shared memory (ab: A, then B scale).
+template <int S, int A, int AB>
+__device__ __forceinline__ float mat_a(const Consts<S, A>& c,
+                                       const float* ab, int i) {
+  if constexpr (AB == kDynAB) return ab[i];
+  else return c.a[i];
+}
+
+template <int S, int A, int AB>
+__device__ __forceinline__ float mat_bs(const Consts<S, A>& c,
+                                        const float* ab, int i) {
+  if constexpr (AB == kDynAB) return ab[S * S + i];
+  else return c.bs[i];
+}
 
 template <int S, int A, int COST>
 __device__ __forceinline__ float state_cost(const Consts<S, A>& c,
@@ -118,7 +148,7 @@ __device__ __forceinline__ float state_cost(const Consts<S, A>& c,
   }
 }
 
-template <int S, int A, int MODE, int COST>
+template <int S, int A, int MODE, int COST, int AB>
 __global__ void __launch_bounds__(kBlock)
     pm_fused_solve_kernel(const Consts<S, A> c, const float* __restrict__ dyn,
                           int dyn_size, int sched_off,
@@ -134,12 +164,14 @@ __global__ void __launch_bounds__(kBlock)
   __syncthreads();
 
   // dyn layout (kernels/pm_mppi.py Dyn): inv_mass, x0, goal, bu, rhs_z,
-  // u_half, then the schedule's c_t at sched_off when scheduled
+  // u_half, with kDynAB A and B scale, then the schedule's c_t at
+  // sched_off when scheduled
   const float* x0 = s_dyn + 1;
   const float* goal = s_dyn + 1 + S;
   const float* bu = s_dyn + 1 + 2 * S;
   const float* rhs_z = bu + tau * S;
   const float u_half = rhs_z[tau * A];
+  const float* ab = rhs_z + tau * A + 1;
   const float inv_m = s_dyn[0];
 
   const int k = blockIdx.x * kBlock + threadIdx.x;
@@ -164,10 +196,12 @@ __global__ void __launch_bounds__(kBlock)
       for (int i = 0; i < S; ++i) {
         float ax = 0.0f;
 #pragma unroll
-        for (int j = 0; j < S; ++j) ax = fmaf(c.a[i * S + j], x[j], ax);
+        for (int j = 0; j < S; ++j)
+          ax = fmaf(mat_a<S, A, AB>(c, ab, i * S + j), x[j], ax);
         float bz = 0.0f;
 #pragma unroll
-        for (int j = 0; j < A; ++j) bz = fmaf(c.bs[i * A + j], zt[j], bz);
+        for (int j = 0; j < A; ++j)
+          bz = fmaf(mat_bs<S, A, AB>(c, ab, i * A + j), zt[j], bz);
         // x' = A x + inv_m (B u_t + c_t B scale z_t)
         xn[i] = fmaf(inv_m, bu[t * S + i] + ct * bz, ax);
       }
@@ -307,49 +341,62 @@ __global__ void __launch_bounds__(kMergeThreads)
   }
 }
 
-template <int S, int A, int MODE, int COST>
+template <int S, int A, int MODE, int COST, int AB>
 int launch_solve(const float* consts, const float* dyn, const float* z,
                  float* costs, float* partials, int k, int tau,
                  int scheduled, Seeds sd, cudaStream_t stream) {
   Consts<S, A> c;
   memcpy(&c, consts, sizeof(c));
-  const int base = 1 + 2 * S + tau * (S + A) + 1;
+  const int base = 1 + 2 * S + tau * (S + A) + 1 +
+                   (AB == kDynAB ? S * S + S * A : 0);
   const int sched_off = scheduled ? base : -1;
   const int dyn_size = scheduled ? base + tau : base;
   size_t smem = 0;
   const cudaError_t e =
-      smem_for(pm_fused_solve_kernel<S, A, MODE, COST>, dyn_size,
+      smem_for(pm_fused_solve_kernel<S, A, MODE, COST, AB>, dyn_size,
                MODE == kFused ? tau * A : 0, &smem);
   if (e != cudaSuccess) return e;
   const int nb = (k + kBlock - 1) / kBlock;
-  pm_fused_solve_kernel<S, A, MODE, COST><<<nb, kBlock, smem, stream>>>(
+  pm_fused_solve_kernel<S, A, MODE, COST, AB><<<nb, kBlock, smem, stream>>>(
       c, dyn, dyn_size, sched_off, z, costs, partials, k, tau, sd);
   return cudaGetLastError();
+}
+
+template <int MODE, int AB>
+int dispatch_dims(int sdim, int adim, int cost, const float* consts,
+                  const float* dyn, const float* z, float* costs,
+                  float* partials, int k, int tau, int sch, Seeds sd,
+                  cudaStream_t st) {
+  if (cost == kElipse) {
+    if (sdim == 4 && adim == 2)
+      return launch_solve<4, 2, MODE, kElipse, AB>(
+          consts, dyn, z, costs, partials, k, tau, sch, sd, st);
+    return cudaErrorInvalidValue;
+  }
+  if (cost != kQuadratic) return cudaErrorInvalidValue;
+  if (sdim == 6 && adim == 3)
+    return launch_solve<6, 3, MODE, kQuadratic, AB>(
+        consts, dyn, z, costs, partials, k, tau, sch, sd, st);
+  if (sdim == 2 && adim == 1)
+    return launch_solve<2, 1, MODE, kQuadratic, AB>(
+        consts, dyn, z, costs, partials, k, tau, sch, sd, st);
+  if (sdim == 4 && adim == 2)
+    return launch_solve<4, 2, MODE, kQuadratic, AB>(
+        consts, dyn, z, costs, partials, k, tau, sch, sd, st);
+  return cudaErrorInvalidValue;
 }
 
 template <int MODE>
 int dispatch_solve(int sdim, int adim, int cost, const float* consts,
                    const float* dyn, const float* z, float* costs,
-                   float* partials, int k, int tau, int sch, Seeds sd,
-                   cudaStream_t st) {
+                   float* partials, int k, int tau, int sch, int dyn_ab,
+                   Seeds sd, cudaStream_t st) {
   if (k <= 0 || tau <= 0) return cudaErrorInvalidValue;
-  if (cost == kElipse) {
-    if (sdim == 4 && adim == 2)
-      return launch_solve<4, 2, MODE, kElipse>(consts, dyn, z, costs,
-                                               partials, k, tau, sch, sd, st);
-    return cudaErrorInvalidValue;
-  }
-  if (cost != kQuadratic) return cudaErrorInvalidValue;
-  if (sdim == 6 && adim == 3)
-    return launch_solve<6, 3, MODE, kQuadratic>(
-        consts, dyn, z, costs, partials, k, tau, sch, sd, st);
-  if (sdim == 2 && adim == 1)
-    return launch_solve<2, 1, MODE, kQuadratic>(
-        consts, dyn, z, costs, partials, k, tau, sch, sd, st);
-  if (sdim == 4 && adim == 2)
-    return launch_solve<4, 2, MODE, kQuadratic>(
-        consts, dyn, z, costs, partials, k, tau, sch, sd, st);
-  return cudaErrorInvalidValue;
+  if (dyn_ab)
+    return dispatch_dims<MODE, kDynAB>(sdim, adim, cost, consts, dyn, z,
+                                       costs, partials, k, tau, sch, sd, st);
+  return dispatch_dims<MODE, kConstAB>(sdim, adim, cost, consts, dyn, z,
+                                       costs, partials, k, tau, sch, sd, st);
 }
 
 }  // namespace
@@ -358,7 +405,8 @@ extern "C" {
 
 // Every entry point that reads the noise takes `half`, the first mirrored
 // sample of an antithetic solve (0: none; mppi_common.cuh), and the solves
-// take `scheduled` (1: dyn ends in the tau factors c_t).
+// take `scheduled` (1: dyn ends in the tau factors c_t) and `dynamic_ab`
+// (1: A and B scale are read from dyn, PmAB kDynAB).
 int pm_noise_dump(float* out, int k, int n_z, uint32_t half,
                   uint32_t seed_lo, uint32_t seed_hi, uint32_t s_lo,
                   uint32_t s_hi, void* stream) {
@@ -373,11 +421,11 @@ int pm_noise_dump(float* out, int k, int n_z, uint32_t half,
 // consts: PmConsts.packed, sizeof(Consts<sdim, adim>) bytes; cost: PmCost.
 int pm_fused_solve(int sdim, int adim, int cost, const float* consts,
                    const float* dyn, const float* z, float* partials, int k,
-                   int tau, int scheduled, uint32_t half, uint32_t seed_lo,
-                   uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
-                   void* stream) {
+                   int tau, int scheduled, int dynamic_ab, uint32_t half,
+                   uint32_t seed_lo, uint32_t seed_hi, uint32_t s_lo,
+                   uint32_t s_hi, void* stream) {
   return dispatch_solve<kFused>(sdim, adim, cost, consts, dyn, z, nullptr,
-                                partials, k, tau, scheduled,
+                                partials, k, tau, scheduled, dynamic_ab,
                                 Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
                                 static_cast<cudaStream_t>(stream));
 }
@@ -385,10 +433,11 @@ int pm_fused_solve(int sdim, int adim, int cost, const float* consts,
 int pm_fused_costs(int sdim, int adim, int cost, const float* consts,
                    const float* dyn, const float* z, float* costs,
                    float* partials, int k, int tau, int scheduled,
-                   uint32_t half, uint32_t seed_lo, uint32_t seed_hi,
-                   uint32_t s_lo, uint32_t s_hi, void* stream) {
+                   int dynamic_ab, uint32_t half, uint32_t seed_lo,
+                   uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
+                   void* stream) {
   return dispatch_solve<kCosts>(sdim, adim, cost, consts, dyn, z, costs,
-                                partials, k, tau, scheduled,
+                                partials, k, tau, scheduled, dynamic_ab,
                                 Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
                                 static_cast<cudaStream_t>(stream));
 }

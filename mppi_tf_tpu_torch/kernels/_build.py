@@ -34,9 +34,11 @@ _SEEDS = [_U, _U, _U, _U, _U]
 _SOLVE = [_I, _I, _I]
 _SIGNATURES = {
     "pm_noise_dump": [_P, _I, _I, *_SEEDS, _P],
-    "pm_fused_solve": [_I, _I, _I, _P, _P, _P, _P, *_SOLVE, *_SEEDS, _P],
-    "pm_fused_costs": [_I, _I, _I, _P, _P, _P, _P, _P, *_SOLVE, *_SEEDS,
+    # the point-mass solves add dynamic_ab after scheduled
+    "pm_fused_solve": [_I, _I, _I, _P, _P, _P, _P, *_SOLVE, _I, *_SEEDS,
                        _P],
+    "pm_fused_costs": [_I, _I, _I, _P, _P, _P, _P, _P, *_SOLVE, _I,
+                       *_SEEDS, _P],
     "mppi_weights": [_P, _P, _P, _P, _I, _I, *_SEEDS, _P],
     "pm_merge": [_P, _I, _I, _P, _P, _P],
     "auv_fused_solve": [_I, _I, _P, _P, _P, _P, *_SOLVE, *_SEEDS, _P],

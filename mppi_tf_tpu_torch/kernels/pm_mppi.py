@@ -48,6 +48,12 @@ wnoise_t = c_t scale zsum_t unfolded on the host, once
 (``TwoPhaseSolve.unfold_wnoise``). c_t = 1 is the unscheduled arithmetic
 bit for bit.
 
+One compile-time variant of the two solves, **dynamic_ab** (template
+argument AB = kDynAB in pm_mppi.cu): A and B scale are read from ``dyn``
+(``Dyn.A``, ``Dyn.Bs``) instead of the constants, with inv_mass = 1 and
+bu the true B u_t, so that an identified linear model
+(``FusedLTIMPPI``) changes them as data.
+
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. Each launch adds one to
 ``launch_counts[name]`` (``kernels/_launch.py``).
@@ -82,11 +88,13 @@ COST_KINDS = {"quadratic": 0, "elipse": 1}
 
 class Dyn:
     """Layout of the per-solve parameter array ``dyn`` (the JAX package's
-    ``_Dyn`` without its DMD block), staged into shared memory by the
-    kernel; a scheduled solve appends the tau factors c_t."""
+    ``_Dyn``), staged into shared memory by the kernel. A ``dynamic_ab``
+    solve (``FusedLTIMPPI``) appends A (sdim*sdim, row-major) and B scale
+    (sdim*adim), read by the kernel in place of the constants; a scheduled
+    solve then appends the tau factors c_t."""
 
     def __init__(self, tau: int, sdim: int, adim: int,
-                 scheduled: bool = False):
+                 dynamic_ab: bool = False, scheduled: bool = False):
         self.inv_mass = 0                      # 1
         self.x0 = 1                            # sdim
         self.goal = 1 + sdim                   # sdim
@@ -94,6 +102,11 @@ class Dyn:
         self.rhs_z = self.bu + tau * sdim      # tau*adim
         self.u_half = self.rhs_z + tau * adim  # 1: summed pure-action cost
         self.size = self.u_half + 1
+        self.A = self.Bs = None
+        if dynamic_ab:
+            self.A = self.size                 # sdim*sdim
+            self.Bs = self.A + sdim * sdim     # sdim*adim: B @ scale
+            self.size = self.Bs + sdim * adim
         self.sched = _sched_block(self, tau, scheduled)
 
 
@@ -119,7 +132,9 @@ class PmConsts:
     scale (adim x adim), lam, nc_half = lam (1 - 1/upsilon) / 2, the cost
     kind (``COST_KINDS``) and the ellipse's (a, b, cx, cy, gv, m_state,
     m_vel); ``scheduled`` and ``antithetic`` are the runtime variants (not
-    packed: launch arguments)."""
+    packed: launch arguments). With ``dynamic_ab`` the kernel reads A and
+    Bs from ``dyn`` (``Dyn.A``, ``Dyn.Bs``) and the packed A and Bs are
+    zeros that it never reads."""
 
     A: np.ndarray
     Bs: np.ndarray
@@ -131,6 +146,7 @@ class PmConsts:
     elipse: tuple = (0.0,) * 7
     scheduled: bool = False
     antithetic: bool = False
+    dynamic_ab: bool = False
 
     @property
     def dims(self):
@@ -223,13 +239,18 @@ def sample_costs_plain(consts: PmConsts, dyn: torch.Tensor,
     with B scale, Sigma^-1, u and the schedule folded into dyn."""
     tau, adim, k = z.shape
     sdim = consts.A.shape[0]
-    lay = Dyn(tau, sdim, adim, consts.scheduled)
+    lay = Dyn(tau, sdim, adim, consts.dynamic_ab, consts.scheduled)
     ct = sched_factors(dyn, lay, tau)
 
     def t_(a):
         return torch.as_tensor(a, dtype=dyn.dtype, device=dyn.device)
 
-    A, Bs, Q, Mz = t_(consts.A), t_(consts.Bs), t_(consts.Q), t_(consts.Mz)
+    Q, Mz = t_(consts.Q), t_(consts.Mz)
+    if consts.dynamic_ab:
+        A = dyn[lay.A:lay.Bs].reshape(sdim, sdim)
+        Bs = dyn[lay.Bs:lay.Bs + sdim * adim].reshape(sdim, adim)
+    else:
+        A, Bs = t_(consts.A), t_(consts.Bs)
     inv_m = dyn[lay.inv_mass]
     goal = dyn[lay.goal:lay.goal + sdim]
     bu = dyn[lay.bu:lay.rhs_z].reshape(tau, sdim)
@@ -397,7 +418,8 @@ def _check_solve_inputs(name, consts, dyn, z, k, tau):
         raise KernelUnsupportedError(
             f"{name}: the ellipse cost is built for (4, 2), got "
             f"{(sdim, adim)}")
-    check(dyn, "dyn", (Dyn(tau, sdim, adim, consts.scheduled).size,))
+    check(dyn, "dyn", (Dyn(tau, sdim, adim, consts.dynamic_ab,
+                           consts.scheduled).size,))
     if z is not None:
         check(z, "z", (tau, adim, k))
 
@@ -406,6 +428,14 @@ def variant_args(consts, k: int):
     """(scheduled, half): the launch arguments of a solve's runtime
     variants."""
     return int(consts.scheduled), antithetic_half(k, consts.antithetic)
+
+
+def _pm_launch_args(consts, k: int, seed: int, solve: int) -> tuple:
+    """scheduled, dynamic_ab, half, seed and solve words of a point-mass
+    solve's launch."""
+    scheduled, half = variant_args(consts, k)
+    return (scheduled, int(consts.dynamic_ab), half, *split64(seed),
+            *split64(solve))
 
 
 def pm_fused_solve(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
@@ -423,7 +453,7 @@ def pm_fused_solve(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
     launch("pm_fused_solve", dyn.device, sdim, adim,
            COST_KINDS[consts.cost_kind], consts.packed.ctypes.data, dyn.data_ptr(),
            None if z is None else z.data_ptr(), partials.data_ptr(), k, tau,
-           *variant_args(consts, k), *split64(seed), *split64(solve))
+           *_pm_launch_args(consts, k, seed, solve))
     return partials
 
 
@@ -441,8 +471,8 @@ def pm_fused_costs(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
     launch("pm_fused_costs", dyn.device, sdim, adim,
            COST_KINDS[consts.cost_kind], consts.packed.ctypes.data, dyn.data_ptr(),
            None if z is None else z.data_ptr(), costs.data_ptr(),
-           partials.data_ptr(), k, tau, *variant_args(consts, k),
-           *split64(seed), *split64(solve))
+           partials.data_ptr(), k, tau,
+           *_pm_launch_args(consts, k, seed, solve))
     return costs, partials
 
 
@@ -652,9 +682,21 @@ class FusedPointMassMPPI(TwoPhaseSolve):
     their stats (the weights do not depend on it).
 
     Counterpart of the JAX package's ``FusedPointMassMPPI`` without its
-    DMD and bf16 variants; ``antithetic`` and ``schedule`` (a noise
-    schedule spec) are its runtime variants.
+    bf16 variant; ``antithetic`` and ``schedule`` (a noise schedule spec)
+    are its runtime variants, and ``FusedLTIMPPI`` its runtime-(A, B)
+    subclass.
     """
+
+    #: True where the kernel reads (A, B scale) from ``dyn``
+    #: (``FusedLTIMPPI``) instead of the solve's constants
+    dynamic_ab = False
+
+    def _check_model(self, model) -> None:
+        from ..models.point_mass import PointMassModel
+
+        if not isinstance(model, PointMassModel):
+            raise KernelUnsupportedError(
+                "fused kernel supports PointMassModel only")
 
     def __init__(self, model, cost, k: int, tau: int, lam: float,
                  upsilon: float, sigma, antithetic: bool = False,
@@ -662,11 +704,8 @@ class FusedPointMassMPPI(TwoPhaseSolve):
         from ..costs.elipse import ElipseCost
         from ..costs.static import StaticCost
         from ..costs.waypoints import WayPointsCost
-        from ..models.point_mass import PointMassModel
 
-        if not isinstance(model, PointMassModel):
-            raise KernelUnsupportedError(
-                "fused kernel supports PointMassModel only")
+        self._check_model(model)
         dims = (model.get_state_dim(), model.get_action_dim())
         if type(cost) in (StaticCost, WayPointsCost):
             cost_kind = "quadratic"
@@ -696,7 +735,12 @@ class FusedPointMassMPPI(TwoPhaseSolve):
         sigma = np.asarray(sigma, np.float64)
         scale = self.upsilon * sigma
         inv_sigma = np.linalg.inv(sigma)
-        B = model.B.detach().cpu().numpy().astype(np.float64)
+        if self.dynamic_ab:   # read from the live model in every pack_dyn
+            A = np.zeros((self.sdim, self.sdim))
+            B = np.zeros((self.sdim, self.adim))
+        else:
+            A = model.A.detach().cpu().numpy().astype(np.float64)
+            B = model.B.detach().cpu().numpy().astype(np.float64)
         if cost_kind == "elipse":
             Q = np.zeros((self.sdim, self.sdim))
             elipse = (cost.a, cost.b, cost.cx, cost.cy, cost.gv, cost.mx,
@@ -707,17 +751,16 @@ class FusedPointMassMPPI(TwoPhaseSolve):
         like = {"dtype": torch.float32, "device": model.device}
         self._noise_options(antithetic, schedule, like)
         self.consts = PmConsts(
-            A=model.A.detach().cpu().numpy().astype(np.float64),
-            Bs=B @ scale, Q=Q, Mz=scale.T @ inv_sigma @ scale, lam=self.lam,
-            nc_half=0.5 * self.lam * (1.0 - 1.0 / self.upsilon),
+            A=A, Bs=B @ scale, Q=Q, Mz=scale.T @ inv_sigma @ scale,
+            lam=self.lam, nc_half=0.5 * self.lam * (1.0 - 1.0 / self.upsilon),
             cost_kind=cost_kind, elipse=elipse, scheduled=self.scheduled,
-            antithetic=self.antithetic)
+            antithetic=self.antithetic, dynamic_ab=self.dynamic_ab)
 
         def f32(a):
             return torch.as_tensor(a, **like)
 
-        self._B, self._scale, self._inv_sigma = f32(B), f32(scale), f32(
-            inv_sigma)
+        self._B = None if self.dynamic_ab else f32(B)
+        self._scale, self._inv_sigma = f32(scale), f32(inv_sigma)
         self._Q = f32(Q)
         self._wp_key, self._wp_terms = None, None
 
@@ -755,7 +798,7 @@ class FusedPointMassMPPI(TwoPhaseSolve):
             return self._waypoint_terms()[0]
         if self.consts.cost_kind == "elipse":
             return torch.zeros(self.sdim, dtype=torch.float32,
-                               device=self._B.device)
+                               device=self._scale.device)
         return self.cost.goal.to(torch.float32)
 
     def _cost_offset(self):
@@ -765,18 +808,26 @@ class FusedPointMassMPPI(TwoPhaseSolve):
     def pack_dyn(self, x0: torch.Tensor, useq: torch.Tensor) -> torch.Tensor:
         """The per-solve ``dyn`` array (f32 [Dyn.size]) from the state, the
         nominal sequence, the live mass and goal, and the schedule."""
+        return self._pack(
+            x0, useq,
+            (1.0 / self.model.mass.detach()).to(torch.float32).reshape(1),
+            self._B, [])
+
+    def _pack(self, x0, useq, inv_mass, B, ab: list) -> torch.Tensor:
+        """``dyn`` in the order of ``Dyn``: inv_mass, x0, goal, bu = u_t
+        B^T, rhs_z, u_half, the (A, B scale) blocks ``ab`` of a
+        dynamic_ab solve, then the schedule."""
         useq = useq.to(torch.float32).reshape(self.tau, self.adim)
-        bu = useq @ self._B.T
         rhs_z, u_half = self._action_terms(useq)
         return torch.cat([
-            (1.0 / self.model.mass.detach()).to(torch.float32).reshape(1),
-            x0.to(torch.float32).reshape(self.sdim), self._goal(),
-            bu.reshape(-1), rhs_z.reshape(-1), u_half.reshape(1),
-            *self._sched_tail()])
+            inv_mass, x0.to(torch.float32).reshape(self.sdim), self._goal(),
+            (useq @ B.T).reshape(-1), rhs_z.reshape(-1), u_half.reshape(1),
+            *ab, *self._sched_tail()])
 
     def _template_args(self, mode: int) -> tuple:
-        """<S, A, MODE, COST> of pm_fused_solve_kernel."""
-        return (self.sdim, self.adim, mode, COST_KINDS[self.consts.cost_kind])
+        """<S, A, MODE, COST, AB> of pm_fused_solve_kernel."""
+        return (self.sdim, self.adim, mode, COST_KINDS[self.consts.cost_kind],
+                int(self.dynamic_ab))
 
     def _fused(self, dyn, seed, solve, z):
         return pm_fused_solve(self.consts, dyn, self.k, self.tau, seed=seed,
@@ -785,3 +836,35 @@ class FusedPointMassMPPI(TwoPhaseSolve):
     def _costs(self, dyn, seed, solve, z):
         return pm_fused_costs(self.consts, dyn, self.k, self.tau, seed=seed,
                               solve=solve, z=z)
+
+
+class FusedLTIMPPI(FusedPointMassMPPI):
+    """Fused solve for the identified linear model x' = A x + B u
+    (``models/dmd.DMDModel``) with runtime (A, B): ``pack_dyn`` writes A
+    and B scale into ``dyn`` from the model's live tensors on the device
+    in every solve, and the kernel's ``kDynAB`` instantiation reads them
+    from shared memory. A refit (``controller/dmd.py``, in place through
+    ``MPPI.model_params``) is new data for the same kernel: no rebuild, no
+    host sync, nothing cached from the (A, B) of construction time.
+
+    Same cost domain and runtime variants as ``FusedPointMassMPPI``.
+    Counterpart of the JAX package's ``FusedLTIMPPI``.
+    """
+
+    dynamic_ab = True
+
+    def _check_model(self, model) -> None:
+        from ..models.dmd import DMDModel
+
+        if not isinstance(model, DMDModel):
+            raise KernelUnsupportedError(
+                "fused LTI kernel supports DMDModel only (PointMassModel "
+                "uses FusedPointMassMPPI)")
+
+    def pack_dyn(self, x0: torch.Tensor, useq: torch.Tensor) -> torch.Tensor:
+        """``dyn`` with inv_mass = 1, bu = u_t B^T (the true B u_t) and the
+        A and B scale blocks, all from the model's live (A, B)."""
+        A = self.model.A.detach().to(torch.float32)
+        B = self.model.B.detach().to(torch.float32)
+        return self._pack(x0, useq, torch.ones_like(A[0, :1]), B,
+                          [A.reshape(-1), (B @ self._scale).reshape(-1)])

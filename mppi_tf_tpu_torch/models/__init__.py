@@ -4,17 +4,13 @@ import torch
 
 from .auv import AUVModel
 from .base import ModelBase
+from .dmd import DMDModel
 from .nn import NNAUVModel, NNAUVModelSpeed, NNModel
 from .point_mass import PointMassModel
 
-__all__ = ["AUVModel", "ModelBase", "NNAUVModel", "NNAUVModelSpeed",
-           "NNModel", "PointMassModel", "copy_model", "get_model"]
-
-# model families of the JAX package that this port does not carry yet,
-# with the ROADMAP item that ports each
-_NOT_PORTED = {
-    "dmd": "ROADMAP item 9 (DMD adaptive control)",
-}
+__all__ = ["AUVModel", "DMDModel", "ModelBase", "NNAUVModel",
+           "NNAUVModelSpeed", "NNModel", "PointMassModel", "copy_model",
+           "get_model"]
 
 _NN_FAMILIES = {
     "neural_net": (NNModel, 1, "nn_model"),
@@ -27,11 +23,10 @@ def get_model(model_dict, dt=0.1, state_dim=2, action_dim=None, name=None,
               dtype=torch.float32, device=None, **kwargs):
     """Type-dispatch model factory (reference: scripts/src/model.py:53-67).
 
-    The ``point_mass``, ``auv``, ``neural_net``, ``auv_nn`` and
-    ``auv_nn_speed`` families are ported; ``dmd`` raises
-    ``NotImplementedError`` naming its ROADMAP item. ``action_dim=None``
-    keeps each family's default (1 for the point mass and the generic NN,
-    6 for the AUV families). ``kwargs`` (``hidden``, ``seed``,
+    Families: ``point_mass``, ``auv``, ``neural_net``, ``auv_nn``,
+    ``auv_nn_speed`` and ``dmd`` (``rank``, ``reg``). ``action_dim=None``
+    keeps each family's default (1 for the point mass, the generic NN and
+    DMD, 6 for the AUV families). ``kwargs`` (``hidden``, ``seed``,
     ``compute_dtype``) go to the NN families.
     """
     mtype = model_dict.get("type", "point_mass")
@@ -65,9 +60,18 @@ def get_model(model_dict, dt=0.1, state_dim=2, action_dim=None, name=None,
         return cls(action_dim=action_dim if action_dim else default_adim,
                    dt=dt, name=name or default_name, dtype=dtype,
                    device=device, **limits, **kwargs)
-    if mtype in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model type {mtype!r} is not ported yet: {_NOT_PORTED[mtype]}")
+    if mtype == "dmd":
+        return DMDModel(
+            state_dim=state_dim,
+            action_dim=action_dim if action_dim else 1,
+            dt=dt,
+            rank=model_dict.get("rank"),
+            reg=model_dict.get("reg", 1e-9),
+            name=name or "dmd_model",
+            dtype=dtype,
+            device=device,
+            **limits,
+        )
     raise ValueError(f"unknown model type: {mtype!r}")
 
 

@@ -212,7 +212,6 @@ def test_get_controller_single():
 @pytest.mark.parametrize("cfg,kw,item", [
     ({"fleet": 4}, {}, "item 12"),
     ({}, {"mesh": object()}, "item 14"),
-    ({"refit-every": 10}, {}, "item 9"),
     ({"kernel-dtype": "bfloat16"}, {}, "queue-2 item 7")])
 def test_get_controller_not_ported(cfg, kw, item):
     (pm, pc), _ = _modules()

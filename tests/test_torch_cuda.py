@@ -61,8 +61,9 @@ def test_build_reports_every_kernel(cuda_device):
         assert kernel in names
     # RK 1, 2, 4 x (fused, costs) x (static_quat, waypoints_quat, elipse3d)
     assert sum("auv_fused_solve_kernel" in r["kernel"] for r in rows) == 18
-    # (fused, costs) x (three quadratic dims + the (4, 2) ellipse)
-    assert sum("pm_fused_solve_kernel" in r["kernel"] for r in rows) == 8
+    # (fused, costs) x (three quadratic dims + the (4, 2) ellipse) x
+    # (constant, dynamic (A, B))
+    assert sum("pm_fused_solve_kernel" in r["kernel"] for r in rows) == 16
     assert not [r for r in rows if r.get("spill_stores")
                 or r.get("spill_loads")]
 
@@ -749,3 +750,116 @@ def test_variants_resolve_the_kernels(cuda_device, model_kind):
         assert np.all(np.isfinite(ctrl.next(x)))
         ctrl.set_noise_schedule({"type": "linear", "start": 1.0, "end": 0.5})
         assert np.all(np.isfinite(ctrl.next(x)))
+
+
+# ---------------------------------------------------------------------------
+# the dynamic_ab variant (FusedLTIMPPI, the DMD family)
+# ---------------------------------------------------------------------------
+
+def _lti(k, tau, device, dims=(6, 3), elipse=False, seed=5):
+    """FusedLTIMPPI over a dense random (A, B) DMD model (the JAX
+    package's _setup_lti), with the static or the 2D ellipse cost."""
+    from mppi_tf_tpu_torch.models.dmd import DMDModel
+
+    sdim, adim = dims
+    rng = np.random.RandomState(seed)
+    model = DMDModel(sdim, adim, init_A=np.eye(sdim) + 0.05 * rng.randn(
+        sdim, sdim), init_B=0.1 * rng.randn(sdim, adim), device=device)
+    task = PM_ELIPSE if elipse else (TASK if sdim == 6 else {
+        "type": "static", "goal": [0.5] * sdim, "Q": [1.0] * sdim,
+        "diag": True})
+    sigma = SIGMA[:adim, :adim]
+    cost = get_cost(task, lam=LAM, gamma=GAMMA, upsilon=UPS, sigma=sigma,
+                    device=device)
+    return pm.FusedLTIMPPI(model, cost, k=k, tau=tau, lam=LAM, upsilon=UPS,
+                           sigma=sigma), model
+
+
+@pytest.mark.parametrize("dims,elipse", [((6, 3), False), ((4, 2), False),
+                                         ((4, 2), True)])
+def test_lti_kernels_match_plain(cuda_device, dims, elipse):
+    """pm_fused_solve and pm_fused_costs with dynamic (A, B) against their
+    plain versions on injected z and on the Philox stream, before and
+    after new (A, B) are written into the model."""
+    from mppi_tf_tpu_torch.interop import from_jax_params
+
+    k, tau = 4097, 20
+    fused, model = _lti(k, tau, cuda_device, dims, elipse)
+    sdim, adim = dims
+    rng = np.random.default_rng(8)
+    z = torch.as_tensor(rng.standard_normal((tau, adim, k), np.float32),
+                        device=cuda_device)
+    x0 = torch.as_tensor(rng.normal(size=sdim) * 0.3 + (
+        [3.0, 1.0, 0.5, 1.0] if elipse else 0.0), dtype=torch.float32,
+        device=cuda_device)
+    useq = torch.as_tensor(rng.normal(size=(tau, adim)) * 0.1,
+                           dtype=torch.float32, device=cuda_device)
+    c = fused.consts
+    for refit in (False, True):
+        if refit:
+            from_jax_params({"A": np.eye(sdim) + 0.02 * rng.normal(
+                size=(sdim, sdim)), "B": 0.15 * rng.normal(
+                size=(sdim, adim))}, None, model)
+        dyn = fused.pack_dyn(x0, useq)
+        for kw in ({"z": z}, {"seed": 4, "solve": 3}):
+            costs_k, _ = pm.pm_fused_costs(c, dyn, k, tau, **kw)
+            costs_p, _ = pm.fused_costs_plain(c, dyn, k, tau, **kw)
+            torch.testing.assert_close(costs_k, costs_p, rtol=1e-4,
+                                       atol=1e-4)
+            zs_k, st_k = pm.merge_plain(pm.pm_fused_solve(c, dyn, k, tau,
+                                                          **kw))
+            zs_p, st_p = pm.merge_plain(pm.fused_solve_plain(c, dyn, k, tau,
+                                                             **kw))
+            torch.testing.assert_close(zs_k / st_k[1], zs_p / st_p[1],
+                                       rtol=1e-3, atol=1e-5)
+            torch.testing.assert_close(st_k[2:5], st_p[2:5], rtol=1e-4,
+                                       atol=0)
+
+
+def test_lti_refit_builds_nothing_and_launches_the_same_symbol(
+        cuda_device):
+    """DMDMPPI(kernel='auto') resolves to FusedLTIMPPI; a refit changes the
+    next solve's result, loads no new library and launches the same kDynAB
+    instantiation (dump_hlo names it)."""
+    from mppi_tf_tpu_torch.controller.dmd import DMDMPPI
+    from mppi_tf_tpu_torch.kernels import _launch
+    from mppi_tf_tpu_torch.models.dmd import DMDModel
+
+    pmod = get_model({"type": "point_mass", "mass": 1.0}, dt=0.1,
+                     state_dim=6, action_dim=3)
+    model = DMDModel(6, 3, init_A=pmod.A.numpy(), init_B=pmod.B.numpy(),
+                     reg=1e-8)
+    cost = get_cost(TASK, lam=LAM, gamma=GAMMA, upsilon=1.0,
+                    sigma=SIGMA, device=cuda_device)
+    ctrl = DMDMPPI(model, cost, k=4096, tau=20, lam=LAM, sigma=SIGMA,
+                   kernel="auto", refit_every=5, device=cuda_device)
+    assert ctrl.kernel_path == "cuda"
+    assert type(ctrl._fused) is pm.FusedLTIMPPI
+    sym = _launch.kernel_symbol("pm_fused_solve",
+                                ctrl._fused.template_args("pm_fused_solve"))
+    assert sym == "pm_fused_solve_kernelILi6ELi3ELi0ELi0ELi1E"
+    hlo = ctrl.dump_hlo()
+    assert f"pm_fused_solve x1: {sym}" in hlo and "registers" in hlo
+    lib = _build.load_library()
+    x = np.full(6, 0.1)
+    state = torch.as_tensor(x, dtype=torch.float32, device=cuda_device)
+    wn0, _ = ctrl._fused.solve(state, ctrl.useq, seed=1, solve=1)
+    A, B = pmod.A.numpy(), pmod.B.numpy() / 3.0
+    rng = np.random.default_rng(0)
+    xs = np.zeros(6)
+    before = pm.launch_counts["pm_fused_solve"]
+    for _ in range(20):
+        u = rng.uniform(-1.0, 1.0, 3)
+        ctrl.save(xs, u, A @ xs + B @ u)
+        xs = A @ xs + B @ u
+    assert ctrl.n_fits >= 1
+    wn1, _ = ctrl._fused.solve(state, ctrl.useq, seed=1, solve=1)
+    torch.cuda.synchronize()
+    assert pm.launch_counts["pm_fused_solve"] == before + 1
+    assert _build.load_library() is lib
+    assert (wn1 - wn0).abs().max().item() > 1e-4
+    torch.testing.assert_close(ctrl.model_params["B"].cpu(),
+                               torch.as_tensor(B, dtype=torch.float32),
+                               rtol=0, atol=1e-4)
+    assert f"pm_fused_solve x1: {sym}" in ctrl.dump_hlo()
+    assert np.all(np.isfinite(ctrl.next(x)))

@@ -36,7 +36,9 @@ def test_import_leaves_no_jax_modules():
         " mppi_tf_tpu_torch.cli, mppi_tf_tpu_torch.costs.elipse,"
         " mppi_tf_tpu_torch.costs.waypoints,"
         " mppi_tf_tpu_torch.controller.missions,"
-        " mppi_tf_tpu_torch.observer, mppi_tf_tpu_torch.observer.observer\n"
+        " mppi_tf_tpu_torch.observer, mppi_tf_tpu_torch.observer.observer,"
+        " mppi_tf_tpu_torch.learning, mppi_tf_tpu_torch.learning.replay,"
+        " mppi_tf_tpu_torch.models.dmd, mppi_tf_tpu_torch.controller.dmd\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mppi_tf_tpu', 'triton'))\n"
         "print(','.join(bad))\n")
@@ -95,6 +97,29 @@ def test_sources_cover_the_observer():
     names = {p.relative_to(REPO).as_posix() for p in _sources()}
     assert {"mppi_tf_tpu_torch/observer/__init__.py",
             "mppi_tf_tpu_torch/observer/observer.py"} <= names
+
+
+def test_sources_cover_the_dmd_slice():
+    names = {p.relative_to(REPO).as_posix() for p in _sources()}
+    assert {"mppi_tf_tpu_torch/learning/__init__.py",
+            "mppi_tf_tpu_torch/learning/replay.py",
+            "mppi_tf_tpu_torch/models/dmd.py",
+            "mppi_tf_tpu_torch/controller/dmd.py"} <= names
+
+
+def test_replay_buffer_imports_no_torch():
+    """The replay buffer is host numpy, as in the JAX package: importing
+    it alone loads no torch."""
+    path = PORT / "learning" / "replay.py"
+    code = ("import runpy, sys\n"
+            f"ns = runpy.run_path({str(path)!r})\n"
+            "ns['ReplayBuffer'](4, 2, 1).add([0, 1], [2], [3, 4])\n"
+            "print('torch' in sys.modules)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=str(REPO), timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "False"
 
 
 def test_observer_imports_no_tensorboard():

@@ -171,10 +171,17 @@ def test_get_model_dispatch():
     assert m.dt == 0.05
 
 
-@pytest.mark.parametrize("mtype,item", [("dmd", "item 9")])
-def test_get_model_not_ported(mtype, item):
-    with pytest.raises(NotImplementedError, match=item):
-        get_model({"type": mtype})
+def test_get_model_dmd():
+    """The dmd family with rank and reg, and the identity-A / zero-B prior
+    before the first fit (JAX tests/test_dmd.py:73-80)."""
+    from mppi_tf_tpu_torch.models import DMDModel
+
+    m = get_model({"type": "dmd", "rank": 3, "reg": 1e-6}, state_dim=4,
+                  action_dim=2)
+    assert isinstance(m, DMDModel) and m.get_name() == "dmd_model"
+    assert (m._rank, m._reg) == (3, 1e-6)
+    np.testing.assert_array_equal(m.A.detach().numpy(), np.eye(4))
+    np.testing.assert_array_equal(m.B.detach().numpy(), np.zeros((4, 2)))
 
 
 def test_get_model_unknown():
