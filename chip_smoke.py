@@ -42,14 +42,27 @@ port's paths through ``MPPI.next`` closed loop against the analytic plants:
   on the kernels; the adaptive loop (mass-1 prior, mass-3 plant, refits
   from ``save`` through ``ClosedLoopRunner``) held to its identification,
   its goal, one sync a step and no rebuild; the CLI with
-  ``--model models/dmd_model``.
+  ``--model models/dmd_model``;
+- the bf16 block compute (``kernel_dtype="bfloat16"``): every bf16 kernel
+  against its plain bf16 version on injected z and the Philox stream
+  (point mass K=100,000, H=50 with constant and dynamic (A, B), the (4, 2)
+  ellipse at K=700, H=7, the AUV rk2 at K=262,144, H=25 and rk4 at K=700,
+  H=7, the NN 3x32 at K=65,536, H=25, and the NN's bf16-products build for
+  a bf16-compute model), held to a hundredth of its f32 build's gap from
+  that plain version, and every other bf16 instantiation at K=700, H=7;
+  phase B at bf16; the bf16 noise dump against the rounded
+  f32 dump, bit for bit; point_mass_bf16, DMDMPPI, the AUV dive and
+  unnormalized steps and the NN dives at bf16 (and with a bf16-compute
+  model) on the kernels, each at its f32 twin's gate, one sync a step.
 
-The build phase reports each instantiation's registers beside those it
-had before the noise variants (PERF.md). It
+The build phase reports each instantiation's registers beside the count
+the f32 ones had before the bf16 builds were added (PERF.md) and fails
+on a spill. It
 times every kernel, each noise variant beside the same kernel without
-it, and the dynamic_ab variant beside the constant-(A, B) kernel. Each phase prints one JSON line; any failed check
-raises and the script exits non-zero. Without a CUDA device it exits
-non-zero before printing any result.
+it, the dynamic_ab variant beside the constant-(A, B) kernel and each
+bf16 build beside its f32 build. Each phase prints one JSON line; any
+failed check raises and the script exits non-zero. Without a CUDA device
+it exits non-zero before printing any result.
 
 The last lines are the ``kernels`` JSON line, the card's name and power
 limit as ``nvidia-smi`` prints them, and
@@ -155,21 +168,35 @@ SCHED = {"type": "exp", "start": 1.0, "end": 0.25}
 # in both packages (tests/test_torch_noise_variants.py::
 # test_point_mass_h100_loops_in_both_packages)
 SCHED_WINDOW, SCHED_MEAN_TOL = 100, 0.2
-# registers a thread of each instantiation before the noise variants were
-# added (PERF.md, the tracking slice's Findings): exact for the AUV's
-# <RK, MODE, COST>, a range where PERF.md recorded one
+# registers a thread of every f32 instantiation before the bf16 builds
+# were added (that tree's _build.ptxas_report() on the H100, PERF.md),
+# reported beside this build's (f32_moved). Not a gate: ptxas's count for
+# an instantiation moves with the rest of its translation unit (the
+# earlier auv_mppi.cu itself, compiled from another directory, reads
+# another count for the instantiation that moves here; PERF.md), so a
+# spill is the gate and the f32 kernels' checks against their plain
+# versions hold their arithmetic
 BASE_REGISTERS = {
-    **{("auv_fused_solve_kernel", (rk, mode, cost)): r
-       for mode, by_cost in ((0, ((161, 204, 210), (128, 205, 198),
-                                  (141, 202, 198))),
-                             (1, ((168, 208, 220), (128, 205, 207),
-                                  (148, 202, 207))))
-       for cost, regs in enumerate(by_cost)
-       for rk, r in zip((1, 2, 4), regs)},
-    "pm_fused_solve_kernel": [32, 48],
-    ("nn_fused_solve_kernel", (8, 8, 0, 0)): 80,
-    ("nn_fused_solve_kernel", (8, 8, 0, 1)): 80,
-    "nn_fused_solve_kernel": [172, 178],
+    **{("auv_fused_solve_kernel", a): r for a, r in (
+        ((1, 0, 0), 170), ((1, 0, 1), 163), ((1, 0, 2), 164),
+        ((1, 1, 0), 171), ((1, 1, 1), 163), ((1, 1, 2), 162),
+        ((2, 0, 0), 195), ((2, 0, 1), 205), ((2, 0, 2), 203),
+        ((2, 1, 0), 217), ((2, 1, 1), 206), ((2, 1, 2), 201),
+        ((4, 0, 0), 210), ((4, 0, 1), 199), ((4, 0, 2), 199),
+        ((4, 1, 0), 223), ((4, 1, 1), 209), ((4, 1, 2), 211))},
+    ("mppi_weights_kernel", ()): 32,
+    **{("nn_fused_solve_kernel", a): r for a, r in (
+        ((8, 8, 0, 0), 78), ((8, 8, 0, 1), 80), ((32, 32, 32, 0), 174),
+        ((32, 32, 32, 1), 180))},
+    **{("pm_fused_solve_kernel", a): r for a, r in (
+        ((2, 1, 0, 0, 0), 32), ((2, 1, 0, 0, 1), 40), ((2, 1, 1, 0, 0), 32),
+        ((2, 1, 1, 0, 1), 40), ((4, 2, 0, 0, 0), 40), ((4, 2, 0, 0, 1), 63),
+        ((4, 2, 0, 1, 0), 40), ((4, 2, 0, 1, 1), 60), ((4, 2, 1, 0, 0), 40),
+        ((4, 2, 1, 0, 1), 64), ((4, 2, 1, 1, 0), 40), ((4, 2, 1, 1, 1), 63),
+        ((6, 3, 0, 0, 0), 48), ((6, 3, 0, 0, 1), 99), ((6, 3, 1, 0, 0), 48),
+        ((6, 3, 1, 0, 1), 98))},
+    ("pm_merge_kernel", ()): 35,
+    ("pm_noise_dump_kernel", ()): 26,
 }
 # both noise options, as MPPI keywords (the AUV dive, the NN dive) and as
 # solve-object keywords
@@ -234,20 +261,22 @@ def emit(phase: str, **kw) -> None:
 
 
 def registers_vs_base(ptxas: list) -> list:
-    """Each instantiation's registers beside ``BASE_REGISTERS`` (null
-    where none was recorded), by kernel name and template arguments read
-    from the mangled name."""
+    """Each instantiation's registers beside ``BASE_REGISTERS`` (null for
+    the bf16 builds, new here), by kernel name and template arguments read
+    from the mangled name (the name after its length, e.g.
+    ``26pm_fused_solve_bf16_kernelILi6E...``)."""
     import re
 
     rows = []
     for r in ptxas:
-        m = re.search(r"([a-z_]+_kernel)(?:I((?:Li-?\d+E)+)E)?", r["kernel"])
+        m = re.search(r"\d((?:pm|auv|nn|mppi)_[a-z0-9_]*?_kernel)(?=I|E)"
+                      r"(?:I((?:Li-?\d+E)+)E)?", r["kernel"])
         name = m.group(1)
         args = tuple(int(a) for a in re.findall(r"Li(-?\d+)E",
                                                 m.group(2) or ""))
-        base = BASE_REGISTERS.get((name, args), BASE_REGISTERS.get(name))
         rows.append({"kernel": name, "template": list(args),
-                     "registers": r.get("registers"), "base": base})
+                     "registers": r.get("registers"),
+                     "base": BASE_REGISTERS.get((name, args))})
     return rows
 
 
@@ -828,15 +857,18 @@ def trained_normalisers(model, sigma) -> None:
     model.set_normalization(x_mean, x_std, np.zeros(13), y_std)
 
 
-def nn_fused(k, tau, hidden=(32, 32, 32), sigma=AUV_SIGMA, **opts):
+def nn_fused(k, tau, hidden=(32, 32, 32), sigma=AUV_SIGMA,
+             model_compute_dtype=None, **opts):
     """FusedNNMPPI over an NNAUVModel with He weights from a seed and
-    trained normalisers, and the flagship StaticQuatCost task."""
+    trained normalisers (products at ``model_compute_dtype``), and the
+    flagship StaticQuatCost task."""
     from mppi_tf_tpu_torch import flagship
     from mppi_tf_tpu_torch.costs import get_cost
     from mppi_tf_tpu_torch.kernels.nn_mppi import FusedNNMPPI
     from mppi_tf_tpu_torch.models.nn import NNAUVModel
 
-    model = NNAUVModel(hidden=hidden, seed=17, device="cuda")
+    model = NNAUVModel(hidden=hidden, seed=17, device="cuda",
+                       compute_dtype=model_compute_dtype)
     trained_normalisers(model, sigma)
     cost = get_cost(flagship.auv_task(), lam=AUV_LAM, gamma=AUV_GAMMA,
                     upsilon=AUV_UPSILON, sigma=sigma, device="cuda")
@@ -845,11 +877,12 @@ def nn_fused(k, tau, hidden=(32, 32, 32), sigma=AUV_SIGMA, **opts):
 
 
 def nn_loop(kernel: str, normalize: bool, steps: int = NN_LOOP_STEPS,
-            k: int = NN_K, **opts):
+            k: int = NN_K, model_compute_dtype=None, **opts):
     """The known-plant dive through MPPI.next, with MPPI keywords
-    ``opts``: the controller's NNAUVModel and the f64 CPU plant are the
-    same network (``known_plant_params``). Returns (controller, states,
-    host ms per step, launch counts)."""
+    ``opts``: the controller's NNAUVModel (products at
+    ``model_compute_dtype``) and the f64 CPU plant are the same network
+    (``known_plant_params``). Returns (controller, states, host ms per
+    step, launch counts)."""
     from mppi_tf_tpu_torch.controller import MPPI
     from mppi_tf_tpu_torch.costs import get_cost
     from mppi_tf_tpu_torch.interop import from_jax_params
@@ -857,7 +890,7 @@ def nn_loop(kernel: str, normalize: bool, steps: int = NN_LOOP_STEPS,
     from mppi_tf_tpu_torch.models.nn import NNAUVModel
 
     params = known_plant_params()
-    model = NNAUVModel(device="cuda")
+    model = NNAUVModel(device="cuda", compute_dtype=model_compute_dtype)
     plant = NNAUVModel(dtype=torch.float64)
     for m in (model, plant):
         from_jax_params(params, None, m)
@@ -1311,10 +1344,12 @@ def sched_ops(k: int, tau: int, dims: int) -> float:
 
 
 def pm_loop_phase(phase: str, normalize: bool, tau: int, tol=GOAL_TOL,
-                  mean_tol=None, dmd: bool = False, **extra) -> tuple:
+                  mean_tol=None, dmd: bool = False, suffix: str = "",
+                  **extra) -> tuple:
     """A LOOP_STEPS point-mass loop (``dmd``: the DMD row's) on the
-    kernels with env-config keys ``extra``, held to its launches and gated
-    on its final goal error (``tol``) or on the error's mean over the last
+    kernels with env-config keys ``extra``, held to its launches (of the
+    solves' build ``suffix``, "_bf16" at bf16) and gated on its final
+    goal error (``tol``) or on the error's mean over the last
     SCHED_WINDOW steps (``mean_tol``): (controller, step ms, launch
     counts)."""
     t0 = time.perf_counter()
@@ -1331,9 +1366,11 @@ def pm_loop_phase(phase: str, normalize: bool, tau: int, tol=GOAL_TOL,
          step_ms_p90=float(np.percentile(ms, 90)),
          seconds=time.perf_counter() - t0)
     want = {n: 0 for n in counts}
-    want.update({"pm_fused_costs": LOOP_STEPS, "mppi_weights": LOOP_STEPS,
+    want.update({f"pm_fused_costs{suffix}": LOOP_STEPS,
+                 f"mppi_weights{suffix}": LOOP_STEPS,
                  "pm_merge": 2 * LOOP_STEPS} if normalize else
-                {"pm_fused_solve": LOOP_STEPS, "pm_merge": LOOP_STEPS})
+                {f"pm_fused_solve{suffix}": LOOP_STEPS,
+                 "pm_merge": LOOP_STEPS})
     gate = (err < tol) if mean_tol is None else window.mean() < mean_tol
     if not (ctrl.kernel_path == "cuda" and counts == want and gate):
         raise AssertionError(f"{phase} (normalize={normalize}): "
@@ -1636,6 +1673,446 @@ def kernel_time(fn, plain_fn, reps: int = 200) -> dict:
             "plain_ms": cuda_ms(plain_fn, 3, 1)}
 
 
+# ---- the bf16 block compute (compute_dtype="bfloat16") --------------------
+
+#: the H100 SXM's peak bf16 rate outside the tensor cores, twice f32's
+#: (NVIDIA H100 white paper): the rate of a bf16 rollout op in the bounds
+PEAK_OPS_BF16 = 134e12
+#: a bf16 kernel against its plain bf16 version: mean |kernel - plain| over
+#: the per-sample costs at most this share of the same kernel's f32 build
+#: against that plain version (the kernel computes the bf16 arithmetic,
+#: not f32 relabelled); the same share bounds the weighted noise against
+#: the effect of rounding its normals (bf16_wnoise) and phase B's block
+#: rows (bf16_weights_check). The H100's readings are in PERF.md
+BF16_GAP_SHARE = 1e-2
+#: the weighted noise (z units) of a bf16 kernel against the softmax of
+#: its own costs: the tolerance of the f32 kernels' (check_solve)
+BF16_WNOISE_RTOL, BF16_WNOISE_ATOL = 1e-3, 1e-5
+
+
+def bf16_bound(n_bytes: float, ops: float, ops_bf16: float):
+    """bound_ms with ``ops_bf16`` of the ``ops`` at the bf16 rate and the
+    rest at the f32 rate."""
+    t_b = n_bytes / PEAK_BYTES
+    t_o = ops_bf16 / PEAK_OPS_BF16 + (ops - ops_bf16) / PEAK_OPS
+    return (max(t_b, t_o) * 1e3,
+            "bytes" if t_b >= t_o else
+            "operations (bf16 rollout at 134 TFLOP/s, f32 at 67)")
+
+
+def bf16_rollout_ops(consts, k: int, tau: int, dyn=None) -> float:
+    """The bf16 share of a solve's operations, from the step formulas of
+    solve_ops, auv_solve_ops and nn_solve_ops: the dynamics, the
+    z-quadratic and the rhs_z products of every sample-step, and the point
+    mass's state cost (bf16 there); the noise, the cost sums, the softmax
+    and the AUV's and NN's f32 state costs are the f32 rest."""
+    adim = consts.Mz.shape[0]
+    zq = 2 * nnz(consts.Mz) + 2 * adim + adim
+    if hasattr(consts, "dims"):                       # the point mass
+        sdim = consts.dims[0]
+        q_ops = (ELIPSE_OPS if consts.cost_kind == "elipse"
+                 else sdim + 2 * nnz(consts.Q) + 2 * sdim)
+        ab = (sdim * (sdim + adim) if consts.dynamic_ab
+              else nnz(consts.A) + nnz(consts.Bs))
+        return float(k * (tau * (2 * ab + 2 * sdim + q_ops + zq) + q_ops))
+    if hasattr(consts, "rk"):                         # the AUV
+        full = auv_solve_ops(consts, dyn, 1, 1, prng=False, costs_only=True)
+        q_ops = 3 + 7 + 2 + 10 + 2 + 6 + 2 * nnz(consts.Q) + 20
+        return float(k * tau * (full - 2 * q_ops - 1 - 2 - 12 + zq))
+    sizes = consts.sizes                              # the NN
+    mlp = sum(2 * i * o for i, o in zip(sizes[:-1], sizes[1:])) + sum(
+        sizes[1:-1])
+    return float(k * tau * (6 + 2 * nnz(consts.scale) + mlp + 13
+                            + (12 if consts.renorm else 0) + zq))
+
+
+def bf16_wnoise(pm, b16, rows_k, costs_k, z, plain_rows) -> dict:
+    """The merged weighted noise (z units, zsum / l) of a bf16 solve
+    kernel's rows ``rows_k``: against the softmax of its own per-sample
+    costs ``costs_k`` over the normals ``z`` it read, rounded to bf16 as
+    the kernel regenerates them (pm.block_partials), under the f32
+    kernels' softmax tolerance and, where the kernel rounds its normals
+    (not the bf16-products build), under BF16_GAP_SHARE of that softmax
+    over the unrounded normals; and end to end against the plain bf16
+    solve's rows under the f32 end-to-end tolerance of its model (the
+    point mass 1e-3 / 1e-5, the AUV and NN 1e-2 / 1e-3, check_auv)."""
+    k = costs_k.shape[0]
+    lam = b16.consts.lam
+    rounds = b16.consts.compute_dtype == "bfloat16"
+    zf = z.reshape(-1, k)
+    wk = merged(pm, rows_k)[:-5]
+    ws = merged(pm, pm.block_partials(
+        costs_k, pm.round_bf16(zf) if rounds else zf, lam))[:-5]
+    ok_s, err_s, tol_s = close(wk, ws, BF16_WNOISE_RTOL, BF16_WNOISE_ATOL)
+    out = {"wnoise_max_abs_err": err_s, "wnoise_tol_ratio": tol_s}
+    if rounds:
+        wu = merged(pm, pm.block_partials(costs_k, zf, lam))[:-5]
+        gap = (wu.double() - ws.double()).abs().max().item()
+        ok_s &= err_s <= BF16_GAP_SHARE * gap
+        out.update(wnoise_unrounded_gap_max=gap,
+                   wnoise_ratio=err_s / gap if gap else None)
+    rtol, atol = (1e-3, 1e-5) if hasattr(b16.consts, "dims") else (1e-2, 1e-3)
+    ok_e, err_e, tol_e = close(wk, merged(pm, plain_rows)[:-5], rtol, atol)
+    out.update(wnoise_ok=ok_s and ok_e, wnoise_e2e_max_abs_err=err_e,
+               wnoise_e2e_tol_ratio=tol_e, wnoise_e2e_rtol=rtol,
+               wnoise_e2e_atol=atol)
+    return out
+
+
+def philox_pair(pm, seed: int, solve: int, k: int, tau: int, adim: int,
+                half: int = 0):
+    """The keywords of a kernel on the Philox stream of (seed, solve), and
+    of its plain version fed that stream's f32 normals as the kernel
+    draws them (pm_noise_dump, mirrored from ``half``). The plain
+    Box-Muller differs from the kernel's in the last bit (atol 1e-5,
+    noise_phase), and rounding to bf16 turns such a bit into a rare
+    one-step flip of a normal; so the bf16 arithmetic is held on the
+    kernel's own normals, which bf16_noise holds to the bf16 dump bit for
+    bit."""
+    return ({"seed": seed, "solve": solve},
+            {"z": pm.pm_noise_dump(seed, solve, k, tau, adim, "cuda",
+                                   half=half)})
+
+
+def bf16_check(pm, label: str, f32, b16, dyn32, dyn16, kern, z) -> dict:
+    """A bf16 solve object's kernels (``kern``: solve, costs and their
+    plain versions) on injected ``z`` and on the Philox stream
+    (``philox_pair``): the per-sample costs against the plain bf16
+    version under BF16_GAP_SHARE of the f32 build's gap, and the merged
+    weighted noise (``bf16_wnoise``)."""
+    k, tau = b16.k, b16.tau
+    out = {"k": k, "tau": tau, "gap_share": BF16_GAP_SHARE}
+    ok = True
+    for src, (kw, kw_p) in (
+            ("injected", ({"z": z}, {"z": z})),
+            ("philox", philox_pair(pm, 9, 2, k, tau, b16.adim,
+                                   pm.antithetic_half(
+                                       k, b16.consts.antithetic)))):
+        ck, _ = kern.costs(b16.consts, dyn16, k, tau, **kw)
+        cp, _ = kern.fused_costs_plain(b16.consts, dyn16, k, tau, **kw_p)
+        cf, _ = kern.costs(f32.consts, dyn32, k, tau, **kw)
+        wn = bf16_wnoise(
+            pm, b16, kern.solve(b16.consts, dyn16, k, tau, **kw), ck,
+            kw_p["z"], kern.fused_solve_plain(b16.consts, dyn16, k, tau,
+                                              **kw_p))
+        torch.cuda.synchronize()
+        err = (ck.double() - cp.double()).abs()
+        gap = (cf.double() - cp.double()).abs().mean().item()
+        out[src] = {"costs_mean_abs_err": err.mean().item(),
+                    "costs_max_abs_err": err.max().item(),
+                    "f32_gap_mean": gap,
+                    "ratio": err.mean().item() / gap if gap else None,
+                    "cost_scale": cp.abs().mean().item(), **wn}
+        ok &= (gap > 0 and err.mean().item() <= BF16_GAP_SHARE * gap
+               and wn["wnoise_ok"])
+    emit(f"bf16_kernels_{label}", ok=ok, **out)
+    if not ok:
+        raise AssertionError(f"bf16 kernel {label} disagrees with its plain "
+                             f"version: {out}")
+    return out
+
+
+def bf16_kernels_phase(pm, auv, nnk, model, cost, z_big) -> dict:
+    """Every bf16 kernel against its plain bf16 version on the card, in
+    the working type, at full width: the point mass at (6, 3) K=100,000,
+    H=50 with constant and dynamic (A, B) (the seeded DMD), the (4, 2)
+    ellipse at K=700, H=7, the AUV rk2 at K=262,144, H=25 and rk4 at
+    K=700, H=7, the NN 3x32 at K=65,536, H=25 and its bf16-products build
+    (a model whose compute_dtype is bf16, on the f32 kernel, against the
+    f32 products); the other instantiations at K=700, H=7
+    (``bf16_variants_phase``); phase B at adim 3 and 6 on injected z and
+    the Philox stream (``bf16_weights_check``)."""
+    from mppi_tf_tpu_torch.models.dmd import DMDModel
+
+    kp = SimpleNamespace(costs=pm.pm_fused_costs, solve=pm.pm_fused_solve,
+                         fused_costs_plain=pm.fused_costs_plain,
+                         fused_solve_plain=pm.fused_solve_plain)
+    out, objs = {}, {}
+    rng = np.random.default_rng(11)
+    useq = torch.as_tensor(0.1 * rng.standard_normal((H, 3)),
+                           dtype=torch.float32, device="cuda")
+    x0 = torch.zeros(6, device="cuda")
+
+    def pm_pair(cls, m, c, k, tau, sigma):
+        return [cls(m, c, k=k, tau=tau, lam=LAM, upsilon=UPSILON,
+                    sigma=sigma, compute_dtype=cd)
+                for cd in ("float32", "bfloat16")]
+
+    f32, b16 = pm_pair(pm.FusedPointMassMPPI, model, cost, K, H, SIGMA)
+    dyn = b16.pack_dyn(x0, useq)
+    out["pm"] = bf16_check(pm, "pm_K100000_H50", f32, b16, dyn, dyn, kp, z_big)
+    objs["pm"] = (f32, b16, dyn)
+    dmd = DMDModel(6, 3, dt=DT, init_A=model.A.cpu().numpy(),
+                   init_B=model.B.cpu().numpy() / MASS, device="cuda")
+    f32l, b16l = pm_pair(pm.FusedLTIMPPI, dmd, cost, K, H, SIGMA)
+    dynl = b16l.pack_dyn(x0, useq)
+    out["dynamic_ab"] = bf16_check(pm, "pm_dynamic_ab", f32l, b16l, dynl, dynl,
+                                   kp, z_big)
+    objs["dynamic_ab"] = (f32l, b16l, dynl)
+    env = pm_env(4)
+    el_model, el_cost, _ = tracking_fused(env, "tasks/elipse_task",
+                                          "models/point_mass_model", 700, 7)
+    f32e, b16e = [pm.FusedPointMassMPPI(
+        el_model, el_cost, k=700, tau=7, lam=env["lambda"],
+        upsilon=env["upsilon"], sigma=np.asarray(env["noise"]),
+        compute_dtype=cd) for cd in ("float32", "bfloat16")]
+    dyne = b16e.pack_dyn(torch.tensor(EL_X0, device="cuda"),
+                         torch.zeros(7, 2, device="cuda"))
+    z_el = torch.as_tensor(rng.standard_normal((7, 2, 700), np.float32),
+                           device="cuda")
+    out["elipse"] = bf16_check(pm, "pm_elipse_K700_H7", f32e, b16e, dyne, dyne,
+                               kp, z_el)
+    ka = quat_kernels(auv, "auv")
+    for rk, k, tau in ((2, AUV_K, AUV_H), (4, 700, 7)):
+        f32a = auv_fused(k, tau, rk=rk)
+        b16a = auv_fused(k, tau, rk=rk, compute_dtype="bfloat16")
+        dyna = auv_dyn(b16a, 200.0, seed=4)
+        z_a = torch.as_tensor(rng.standard_normal((tau, 6, k), np.float32),
+                              device="cuda")
+        out[f"auv_rk{rk}"] = bf16_check(pm, f"auv_rk{rk}_K{k}_H{tau}", f32a,
+                                        b16a, dyna, dyna, ka, z_a)
+        objs[f"auv_rk{rk}"] = (f32a, b16a, dyna)
+        del z_a
+    kn = quat_kernels(nnk, "nn")
+    f32n = nn_fused(NN_K, NN_H)
+    b16n = nn_fused(NN_K, NN_H, compute_dtype="bfloat16")
+    dynn = auv_dyn(b16n, 200.0, seed=6)
+    z_n = torch.as_tensor(rng.standard_normal((NN_H, 6, NN_K), np.float32),
+                          device="cuda")
+    out["nn"] = bf16_check(pm, "nn_K65536_H25", f32n, b16n, dynn, dynn, kn, z_n)
+    objs["nn"] = (f32n, b16n, dynn)
+    bfp = nn_fused(NN_K, NN_H, model_compute_dtype=torch.bfloat16)
+    bfp.model.load_state_dict(f32n.model.state_dict())
+    dynp = auv_dyn(bfp, 200.0, seed=6)
+    out["nn_bf16_products"] = bf16_check(pm, "nn_bf16_products", f32n, bfp,
+                                         dynn, dynp, kn, z_n)
+    objs["nn_bf16_products"] = (f32n, bfp, dynp)
+    out.update(bf16_variants_phase(pm, auv, nnk, kp, ka, kn, rng))
+    # phase B at bf16 over the phase-A costs of the point mass and the AUV
+    z6 = torch.as_tensor(rng.standard_normal((AUV_H, 6, AUV_K), np.float32),
+                         device="cuda")
+    ok = True
+    for adim, (f32o, b16o, dyn_o), z_w in ((3, objs["pm"], z_big),
+                                           (6, objs["auv_rk2"], z6)):
+        k, tau = b16o.k, b16o.tau
+        costs, _ = (pm.pm_fused_costs if adim == 3 else auv.auv_fused_costs)(
+            b16o.consts, dyn_o, k, tau, seed=9, solve=2)
+        nrm = torch.stack([costs.min(), 1.0 / ((costs.max() - costs.min())
+                                               * b16o.lam)])
+        res = {}
+        for src, kws in (("injected", ({"z": z_w}, {"z": z_w})),
+                         ("philox", philox_pair(pm, 9, 2, k, tau, adim))):
+            res[src] = bf16_weights_check(pm, nrm, costs, tau, adim, *kws)
+            ok &= res[src]["ok"]
+        res["wnoise_max_abs_err"] = max(r["wnoise_max_abs_err"]
+                                        for r in res.values())
+        out[f"weights_adim{adim}"] = res
+    del z6
+    emit("bf16_weights", ok=ok, **{n: out[n] for n in ("weights_adim3",
+                                                        "weights_adim6")})
+    if not ok:
+        raise AssertionError("bf16 phase B disagrees with its plain version: "
+                             f"{out['weights_adim3']}, {out['weights_adim6']}")
+    return {"check": out, "objs": objs}
+
+
+def bf16_weights_check(pm, nrm, costs, tau: int, adim: int, kw,
+                       kw_p) -> dict:
+    """mppi_weights at bf16 (keywords ``kw``) against weights_plain at
+    bf16 (``kw_p``: the same normals, ``philox_pair``) on the same
+    phase-A costs: the merged weighted noise (z units) under the f32
+    tolerance; the block rows' zsum, where each block's roundings are not
+    yet averaged away by the merge, under BF16_GAP_SHARE of the f32
+    kernel's distance from the plain bf16 version."""
+    rows = {cd: pm.mppi_weights(nrm, costs, tau, adim, compute_dtype=cd, **kw)
+            for cd in ("bfloat16", "float32")}
+    plain = pm.weights_plain(nrm, costs, tau, adim, compute_dtype="bfloat16",
+                             **kw_p)
+    zk, sk = pm.pm_merge(rows["bfloat16"])
+    zp, sp = pm.merge_plain(plain)
+    ok_m, err_m, tol_ratio = close(zk / sk[1], zp / sp[1], BF16_WNOISE_RTOL,
+                                   BF16_WNOISE_ATOL)
+    zs = pm.STATS
+    err_r = (rows["bfloat16"][:, zs:].double()
+             - plain[:, zs:].double()).abs().max().item()
+    gap_r = (rows["float32"][:, zs:].double()
+             - plain[:, zs:].double()).abs().max().item()
+    return {"ok": ok_m and gap_r > 0 and err_r <= BF16_GAP_SHARE * gap_r,
+            "wnoise_max_abs_err": err_m, "wnoise_tol_ratio": tol_ratio,
+            "rows_max_abs_err": err_r, "rows_f32_gap_max": gap_r,
+            "rows_ratio": err_r / gap_r if gap_r else None}
+
+
+def bf16_variants_phase(pm, auv, nnk, kp, ka, kn, rng) -> dict:
+    """The bf16 instantiations the full-width checks do not reach, each
+    against its plain bf16 version (``bf16_check``) at K=700, H=7: the
+    point mass's (2, 1) and (4, 2) quadratic, the AUV's waypoints_quat
+    mission and elipse3d (rk2), and scheduled + antithetic solves of the
+    point mass, the AUV and the NN."""
+    from mppi_tf_tpu_torch.cfg import default_config
+    from mppi_tf_tpu_torch.envs.runner import build_model_and_cost
+
+    k, tau = 700, 7
+    out = {}
+
+    def z_of(adim):
+        return torch.as_tensor(rng.standard_normal((tau, adim, k),
+                                                   np.float32), device="cuda")
+
+    def pair(env, task, model_name, **opts):
+        model, cost, sigma = build_model_and_cost(
+            env, task, default_config(model_name), device="cuda")
+        cls = (auv.FusedAUVMPPI if model.get_state_dim() == 13
+               else pm.FusedPointMassMPPI)
+        return [cls(model, cost, k=k, tau=tau, lam=env["lambda"],
+                    upsilon=env["upsilon"], sigma=sigma, compute_dtype=cd,
+                    **opts) for cd in ("float32", "bfloat16")]
+
+    for sdim, adim in ((2, 1), (4, 2)):
+        env = pm_env(**{"state-dim": sdim, "action-dim": adim,
+                        "noise": (0.25 * np.eye(adim)).tolist()})
+        f32p, b16p = pair(env, {"type": "static", "diag": True,
+                                "goal": [0.5] * sdim, "Q": [1.0] * sdim},
+                          "models/point_mass_model")
+        dyn = b16p.pack_dyn(
+            torch.as_tensor(0.3 * rng.standard_normal(sdim),
+                            dtype=torch.float32, device="cuda"),
+            torch.as_tensor(0.1 * rng.standard_normal((tau, adim)),
+                            dtype=torch.float32, device="cuda"))
+        out[f"pm_{sdim}x{adim}"] = bf16_check(
+            pm, f"pm_{sdim}x{adim}_K{k}_H{tau}", f32p, b16p, dyn, dyn, kp,
+            z_of(adim))
+    # the JAX bench's AUV mission on envs/uuv_sim, the 3D ellipse on
+    # envs/bluerov from a point of the ellipse (4, 0, -3)
+    wq_legs = [rest_state(), rest_state()]
+    wq_legs[0][2] = -5.0
+    wq_legs[1][[0, 2, 3, 6]] = [4.0, -8.0, np.sin(0.4), np.cos(0.4)]
+    x_e3 = rest_state()
+    x_e3[[0, 2]] = [4.0, -3.0]
+    for name, env, task, x0, scale in (
+            ("waypoints_quat", "envs/uuv_sim",
+             {"type": "waypoints_quat", "diag": True, "alpha": 0.2,
+              "waypoints": [w.tolist() for w in wq_legs],
+              "Q": [100.0, 100.0, 100.0, 10.0] + [1.0] * 6}, None, 200.0),
+            ("elipse3d", "envs/bluerov", default_config("tasks/elipse3d_task"),
+             x_e3, 20.0)):
+        f32a, b16a = pair(default_config(env), task, "models/rexrov2")
+        if not (b16a.consts.rk == 2 and b16a.consts.cost_kind == name):
+            raise AssertionError(f"bf16 {name}: rk {b16a.consts.rk}, "
+                                 f"{b16a.consts.cost_kind}")
+        dyn = auv_dyn(b16a, scale, seed=8, x0=x0)
+        out[f"auv_{name}"] = bf16_check(pm, f"auv_{name}_rk2_K{k}_H{tau}",
+                                        f32a, b16a, dyn, dyn, ka, z_of(6))
+    model, cost = workload("cuda")
+    f32s, b16s = [pm.FusedPointMassMPPI(
+        model, cost, k=k, tau=tau, lam=LAM, upsilon=UPSILON, sigma=SIGMA,
+        compute_dtype=cd, **FUSED_BOTH) for cd in ("float32", "bfloat16")]
+    dyn = b16s.pack_dyn(torch.zeros(6, device="cuda"),
+                        torch.zeros(tau, 3, device="cuda"))
+    out["pm_sched_anti"] = bf16_check(pm, f"pm_sched_anti_K{k}_H{tau}", f32s,
+                                      b16s, dyn, dyn, kp, z_of(3))
+    for name, make, kern in (("auv", auv_fused, ka), ("nn", nn_fused, kn)):
+        f32q = make(k, tau, **FUSED_BOTH)
+        b16q = make(k, tau, compute_dtype="bfloat16", **FUSED_BOTH)
+        b16q.model.load_state_dict(f32q.model.state_dict())
+        dyn = auv_dyn(b16q, 200.0, seed=9)
+        out[f"{name}_sched_anti"] = bf16_check(
+            pm, f"{name}_sched_anti_K{k}_H{tau}", f32q, b16q, dyn, dyn, kern,
+            z_of(6))
+    return out
+
+
+def bf16_noise_phase(pm) -> dict:
+    """pm_noise_dump at bf16 against the f32 dump of the same seed rounded
+    to bf16, bit for bit, at K=100,000, H=50, adim 3 and 6; the antithetic
+    dump's pairs sum to exactly 0."""
+    out = {}
+    pm.reset_launch_counts()
+    for adim in (3, 6):
+        z16 = pm.pm_noise_dump(5, 3, K, H, adim, "cuda",
+                               compute_dtype="bfloat16")
+        z32 = pm.pm_noise_dump(5, 3, K, H, adim, "cuda")
+        out[f"adim{adim}_equal"] = bool(torch.equal(
+            z16, z32.to(torch.bfloat16).float()))
+        del z16, z32
+    half = pm.antithetic_half(K)
+    za = pm.pm_noise_dump(5, 3, K, H, 3, "cuda", half=half,
+                          compute_dtype="bfloat16")
+    out["antithetic_pair_sum_max"] = (
+        za[..., half:] + za[..., :K - half]).abs().max().item()
+    out["launches"] = pm.launch_counts["pm_noise_dump_bf16"]
+    emit("bf16_noise", K=K, H=H, **out)
+    if not (out["adim3_equal"] and out["adim6_equal"]
+            and out["antithetic_pair_sum_max"] == 0.0):
+        raise AssertionError(f"bf16 noise: {out}")
+    return out
+
+
+def bf16_loops_phase(pm, smi: str) -> dict:
+    """The bf16 closed loops, each with the gate of its f32 twin and one
+    sync a step: point_mass_bf16 (LOOP_STEPS a mode), the AUV's normalized
+    dive and unnormalized steps, the NN dive on the kernels in both modes
+    and with a bf16-products model, and DMDMPPI (LOOP_STEPS a mode)."""
+    loops = {}
+    bf = {"kernel-dtype": "bfloat16"}
+    for dmd in (False, True):
+        for normalize in (False, True):
+            phase = "bf16_dmd_closed_loop" if dmd else "point_mass_bf16"
+            ctrl, ms, counts = pm_loop_phase(phase, normalize, H, dmd=dmd,
+                                             suffix="_bf16", **bf)
+            loops["dmd" if dmd else "pm", normalize] = (ms, counts)
+            if not (dmd or normalize):
+                prof = profile_steps(ctrl)
+                emit("profile", kernel_path=ctrl.kernel_path,
+                     model="point_mass", kernel_dtype="bfloat16", card=smi,
+                     **prof)
+                check_syncs(prof)
+            del ctrl
+    for normalize, steps in ((True, DIVE_STEPS), (False, AUV_PLAIN_STEPS)):
+        ctrl, states, ms, counts = auv_loop("cuda", normalize, steps,
+                                            kernel_dtype="bfloat16")
+        ok, reading = dive_gate(normalize, states)
+        want = ({"auv_fused_costs_bf16": steps, "mppi_weights_bf16": steps,
+                 "pm_merge": 2 * steps} if normalize else
+                {"auv_fused_solve_bf16": steps, "pm_merge": steps})
+        got = {n: c for n, c in counts.items() if c}
+        emit("bf16_auv_closed_loop", normalize=normalize, steps=steps,
+             launches=got, step_ms_median=float(np.median(ms)), **reading)
+        if not (ok and got == want):
+            raise AssertionError(f"bf16 AUV loop (normalize={normalize}): "
+                                 f"{reading}, {got}")
+        loops["auv", normalize] = (ms, counts)
+        if normalize:
+            prof = profile_steps(ctrl, x=rest_state())
+            emit("profile", kernel_path="cuda", model="auv",
+                 kernel_dtype="bfloat16", card=smi, **prof)
+            check_syncs(prof)
+        del ctrl
+    for name, opts in (("nn", {"kernel_dtype": "bfloat16"}),
+                       ("nn_bf16_products",
+                        {"model_compute_dtype": torch.bfloat16})):
+        for normalize in (False, True):
+            ctrl, states, ms, counts = nn_loop("cuda", normalize, **opts)
+            ok, reading = nn_dive_gate(normalize, states)
+            sfx = "_bfp" if "model_compute_dtype" in opts else "_bf16"
+            want = ({f"nn_fused_costs{sfx}": NN_LOOP_STEPS,
+                     f"mppi_weights{'_bf16' if sfx == '_bf16' else ''}":
+                         NN_LOOP_STEPS, "pm_merge": 2 * NN_LOOP_STEPS}
+                    if normalize else
+                    {f"nn_fused_solve{sfx}": NN_LOOP_STEPS,
+                     "pm_merge": NN_LOOP_STEPS})
+            got = {n: c for n, c in counts.items() if c}
+            emit(f"bf16_{name}_closed_loop", normalize=normalize,
+                 steps=NN_LOOP_STEPS, launches=got,
+                 step_ms_median=float(np.median(ms)), **reading)
+            if not (ok and got == want):
+                raise AssertionError(f"{name} loop (normalize={normalize}): "
+                                     f"{reading}, {got}")
+            loops[name, normalize] = (ms, counts)
+            del ctrl
+    return loops
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -1664,11 +2141,22 @@ def main() -> int:
     emit("build", seconds=time.perf_counter() - t0,
          library=str(_build.library_path().name),
          sources=[p.name for p in _build.sources()], ptxas=ptxas)
-    emit("registers_vs_base", rows=registers_vs_base(ptxas))
+    reg_rows = registers_vs_base(ptxas)
+    moved = [r for r in reg_rows
+             if r["base"] is not None and r["registers"] != r["base"]]
+    f32 = sum(r["base"] is not None for r in reg_rows)
+    emit("registers_vs_base", rows=reg_rows, f32_instantiations=f32,
+         f32_moved=moved,
+         bf16_instantiations=sum("_bf16_" in r["kernel"] for r in reg_rows),
+         bf16_products_instantiations=sum("_bfp_" in r["kernel"]
+                                          for r in reg_rows))
     spills = [r["kernel"] for r in ptxas
               if r.get("spill_stores") or r.get("spill_loads")]
     if spills:
         raise AssertionError(f"kernels spill registers: {spills}")
+    if f32 != len(BASE_REGISTERS):
+        raise AssertionError(f"{f32} of {len(BASE_REGISTERS)} f32 "
+                             f"instantiations built")
 
     # ---- 3. kernels against plain versions on injected z --------------------
     model, cost = workload("cuda")
@@ -2252,7 +2740,16 @@ def main() -> int:
     dmd_loops = dmd_loop_phase(pm, smi)
     dmd_adaptive_phase(pm, smi)
 
-    # ---- 27. times -------------------------------------------------------------
+    # ---- 27. the bf16 block compute: kernels against plain bf16, the ------
+    # ---- bf16 noise, the bf16 loops ---------------------------------------
+    z_bf = torch.as_tensor(np.random.default_rng(12).standard_normal(
+        (H, 3, K), np.float32), device="cuda")
+    bf16 = bf16_kernels_phase(pm, auv, nnk, model, cost, z_bf)
+    del z_bf
+    bf16_noise = bf16_noise_phase(pm)
+    bf16_loops = bf16_loops_phase(pm, smi)
+
+    # ---- 28. times -------------------------------------------------------------
     consts, nb = fused.consts, -(-K // pm.BLOCK)
     n_z = H * 3
     part = pm.pm_fused_solve(consts, dyn, K, H, seed=1, solve=1)
@@ -2644,13 +3141,74 @@ def main() -> int:
     vt["dmd_mppi_next_ms_median"] = {
         "unnormalized": float(np.median(dmd_loops[False][0])),
         "normalized": float(np.median(dmd_loops[True][0]))}
+    # the bf16 builds beside their f32 builds on the same inputs; bounds
+    # count the rollout's bf16 ops at PEAK_OPS_BF16, the rest at PEAK_OPS
+    bo = bf16["objs"]
+    for key, kmod, pre, k_, h_ in (("pm", pm, "pm", K, H),
+                                   ("auv_rk2", auv, "auv", AUV_K, AUV_H),
+                                   ("nn", nnk, "nn", NN_K, NN_H),
+                                   ("nn_bf16_products", nnk, "nn", NN_K,
+                                    NN_H)):
+        f32o, b16o, dyn_o = bo[key]
+        dyn_32 = bo["nn"][2] if key == "nn_bf16_products" else dyn_o
+        solve_k = getattr(kmod, f"{pre}_fused_solve")
+        costs_k = getattr(kmod, f"{pre}_fused_costs")
+        ops_fn = {"pm": lambda c, **kw: solve_ops(c, K, H, prng=True, **kw),
+                  "auv": lambda c, **kw: auv_solve_ops(c, dyn_o, k_, h_,
+                                                       prng=True, **kw),
+                  "nn": lambda c, **kw: nn_solve_ops(c, k_, h_, prng=True,
+                                                     **kw)}[pre]
+        b16c, f32c = b16o.consts, f32o.consts
+        nz_, nb_ = h_ * b16o.adim, -(-k_ // pm.BLOCK)
+        ops16 = (0.0 if key == "nn_bf16_products"
+                 else bf16_rollout_ops(b16c, k_, h_, dyn_o))
+        tag = "bf16 products" if key == "nn_bf16_products" else "bf16"
+        vt[f"{pre}_fused_solve[{tag}]"] = dict(variant_times(
+            lambda: solve_k(f32c, dyn_32, k_, h_, seed=1, solve=1),
+            lambda: solve_k(b16c, dyn_o, k_, h_, seed=1, solve=1),
+            lambda: kmod.fused_solve_plain(b16c, dyn_o, k_, h_, seed=1,
+                                           solve=1)),
+            bound=bf16_bound(4.0 * dyn_o.numel()
+                             + 4.0 * nb_ * (pm.STATS + nz_),
+                             ops_fn(b16c), ops16))
+        vt[f"{pre}_fused_costs[{tag}]"] = dict(variant_times(
+            lambda: costs_k(f32c, dyn_32, k_, h_, seed=1, solve=1),
+            lambda: costs_k(b16c, dyn_o, k_, h_, seed=1, solve=1),
+            lambda: kmod.fused_costs_plain(b16c, dyn_o, k_, h_, seed=1,
+                                           solve=1)),
+            bound=bf16_bound(4.0 * dyn_o.numel() + 4.0 * k_
+                             + 4.0 * nb_ * pm.STATS,
+                             ops_fn(b16c, costs_only=True), ops16))
+    bf = "bfloat16"
+    vt["pm_noise_dump[bf16]"] = dict(variant_times(
+        lambda: pm.pm_noise_dump(1, 1, K, H, 3, "cuda"),
+        lambda: pm.pm_noise_dump(1, 1, K, H, 3, "cuda", compute_dtype=bf),
+        lambda: pm.round_bf16(pm.noise_plain(1, 1, K, H, 3, device="cuda"))),
+        bound=b_dump)
+    vt["mppi_weights[bf16]"] = dict(variant_times(
+        lambda: pm.mppi_weights(pm_nrm, pm_c, H, 3, seed=1, solve=1),
+        lambda: pm.mppi_weights(pm_nrm, pm_c, H, 3, seed=1, solve=1,
+                                compute_dtype=bf),
+        lambda: pm.weights_plain(pm_nrm, pm_c, H, 3, seed=1, solve=1,
+                                 compute_dtype=bf)), bound=b_w3)
+    vt["mppi_weights[bf16, adim 6]"] = dict(variant_times(
+        lambda: pm.mppi_weights(a_nrm, a_c, AUV_H, 6, seed=1, solve=1),
+        lambda: pm.mppi_weights(a_nrm, a_c, AUV_H, 6, seed=1, solve=1,
+                                compute_dtype=bf),
+        lambda: pm.weights_plain(a_nrm, a_c, AUV_H, 6, seed=1, solve=1,
+                                 compute_dtype=bf)), bound=b_w6)
+    vt["bf16_mppi_next_ms_median"] = {
+        f"{name}_{'normalized' if n else 'unnormalized'}": float(
+            np.median(ms)) for (name, n), (ms, _) in bf16_loops.items()}
     emit("variant_times", card=smi, **vt,
          note="ms: the variant; unvaried_ms: the same kernel without the "
-              "schedule or antithetic at the same shapes and inputs, or "
-              "for dynamic_ab with the constant (A, B) of the same map, "
-              "timed in turns (unvaried, variant, variant, unvaried); point "
-              "mass sched at K=100000, H=100, antithetic and dynamic_ab at "
-              "H=50; AUV rk2 K=262144, H=25; NN 3x32 K=65536, H=25")
+              "schedule or antithetic at the same shapes and inputs, for "
+              "dynamic_ab with the constant (A, B) of the same map, for "
+              "bf16 its f32 build (bf16 products: the f32-products kernel "
+              "on the same weights), timed in turns (unvaried, variant, "
+              "variant, unvaried); point mass sched at K=100000, H=100, "
+              "antithetic, dynamic_ab and bf16 at H=50; AUV rk2 K=262144, "
+              "H=25; NN 3x32 K=65536, H=25")
 
     src = "mppi_tf_tpu_torch/csrc/pm_mppi.cu"
     asrc = "mppi_tf_tpu_torch/csrc/auv_mppi.cu"
@@ -2858,6 +3416,68 @@ def main() -> int:
              for n in ("seeded", "dense", "refit")),
          "per-sample costs against the plain version, injected z and "
          "Philox, seeded, dense random and refit (A, B), K=100000, H=50"))
+    bc = bf16["check"]
+
+    def worst16(name, key):   # over injected z and the Philox stream
+        return max(bc[name][s][key] for s in ("injected", "philox"))
+
+    bl = bf16_loops
+    c16 = ("per-sample costs against the plain bf16 version, injected z "
+           "and Philox, K={}, H={}")
+    w16 = ("weighted noise (z units) of the merged solve against the plain "
+           "bf16 solve, injected z and Philox, K={}, H={}")
+    nn_py = "mppi_tf_tpu/kernels/nn_mppi.py"
+    variant_rows += (
+        ("pm_fused_solve[bf16]", src, f"{pm_py}:1042",
+         bl["pm", False][1]["pm_fused_solve_bf16"],
+         "point_mass_bf16 closed loop, unnormalized",
+         worst16("pm", "wnoise_e2e_max_abs_err"), w16.format(K, H)),
+        ("pm_fused_costs[bf16]", src, f"{pm_py}:1111",
+         bl["pm", True][1]["pm_fused_costs_bf16"],
+         "point_mass_bf16 closed loop, normalized",
+         worst16("pm", "costs_max_abs_err"), c16.format(K, H)),
+        ("pm_noise_dump[bf16]", src, f"{pm_py}:289",
+         bf16_noise["launches"], "bf16 noise check",
+         0.0, "the bf16 dump against the f32 dump rounded to bf16, bit for "
+              "bit, adim 3 and 6, K=100000, H=50"),
+        ("mppi_weights[bf16]", src, f"{pm_py}:1169",
+         bl["pm", True][1]["mppi_weights_bf16"],
+         "point_mass_bf16 closed loop, normalized (adim 3)",
+         bc["weights_adim3"]["wnoise_max_abs_err"],
+         "weighted noise (z units) against the plain bf16 version, "
+         "injected z and Philox, K=100000, H=50"),
+        ("mppi_weights[bf16, adim 6]", src, f"{auv_py}:967",
+         bl["auv", True][1]["mppi_weights_bf16"],
+         "AUV dive at bf16 (adim 6)",
+         bc["weights_adim6"]["wnoise_max_abs_err"],
+         "weighted noise (z units) against the plain bf16 version, "
+         "injected z and Philox, K=262144, H=25"),
+        ("auv_fused_solve[bf16]", asrc, f"{auv_py}:841",
+         bl["auv", False][1]["auv_fused_solve_bf16"],
+         "AUV unnormalized loop at bf16",
+         worst16("auv_rk2", "wnoise_e2e_max_abs_err"),
+         w16.format(AUV_K, AUV_H)),
+        ("auv_fused_costs[bf16]", asrc, f"{auv_py}:910",
+         bl["auv", True][1]["auv_fused_costs_bf16"], "AUV dive at bf16",
+         worst16("auv_rk2", "costs_max_abs_err"), c16.format(AUV_K, AUV_H)),
+        ("nn_fused_solve[bf16]", nsrc, f"{nn_py}:615",
+         bl["nn", False][1]["nn_fused_solve_bf16"],
+         "NN known-plant dive at bf16, unnormalized",
+         worst16("nn", "wnoise_e2e_max_abs_err"), w16.format(NN_K, NN_H)),
+        ("nn_fused_costs[bf16]", nsrc, f"{nn_py}:615",
+         bl["nn", True][1]["nn_fused_costs_bf16"],
+         "NN known-plant dive at bf16, normalized",
+         worst16("nn", "costs_max_abs_err"), c16.format(NN_K, NN_H)),
+        ("nn_fused_solve[bf16 products]", nsrc, f"{nn_py}:615",
+         bl["nn_bf16_products", False][1]["nn_fused_solve_bfp"],
+         "NN known-plant dive with a bf16-compute model, unnormalized",
+         worst16("nn_bf16_products", "wnoise_e2e_max_abs_err"),
+         w16.format(NN_K, NN_H)),
+        ("nn_fused_costs[bf16 products]", nsrc, f"{nn_py}:615",
+         bl["nn_bf16_products", True][1]["nn_fused_costs_bfp"],
+         "NN known-plant dive with a bf16-compute model, normalized",
+         worst16("nn_bf16_products", "costs_max_abs_err"),
+         c16.format(NN_K, NN_H)))
     for name, source, replaces, launches, path, err, err_of in variant_rows:
         t = vt[name]
         kernels.append({

@@ -12,8 +12,9 @@ weights them, updates the nominal sequence and shifts it. Two paths:
   the learned ``NNAUVModel`` with the static quaternion cost (only when
   asked for by name); ``normalize_cost`` runs as the two-phase costs /
   weights solve, ``antithetic`` and ``noise_schedule`` as runtime
-  variants of the same kernels, and the sequence update and shift as
-  torch ops on the card.
+  variants of the same kernels, ``kernel_dtype="bfloat16"`` as their bf16
+  block-compute build, and the sequence update and shift as torch ops on
+  the card.
 
 An observer (``observer/``) gets every solve's info through
 ``write_control`` and, from ``save(x, u, x_next)``, the one-step
@@ -70,6 +71,13 @@ class MPPI(MissionMixin):
             stay on the plain path, as in the JAX package). The JAX
             names ``"xla"`` and ``"pallas"`` mean ``"torch"`` and ``"cuda"``.
             The resolved path is ``kernel_path``.
+        kernel_dtype: ``"float32"`` or ``"bfloat16"``, the fused kernels'
+            block compute type (the JAX package's): at bf16 the rollout
+            state and its FMA chains round to bf16 after every op and the
+            kernels read bf16-rounded normals; the cost accumulator, the
+            softmax, the stats and Box-Muller stay f32. Kernel path only:
+            a controller on the torch path raises ``ValueError``, as one
+            with any other value does. The model stays float32.
     """
 
     def __init__(self, model, cost, k: int = 1, tau: int = 1,
@@ -86,10 +94,10 @@ class MPPI(MissionMixin):
             raise RuntimeError(
                 "MPPI(device='cuda'): no GPU is present; pass device='cpu' "
                 "for the plain CPU path")
-        if kernel_dtype != "float32":
-            raise NotImplementedError(
-                f"kernel_dtype={kernel_dtype!r} is not ported yet: ROADMAP "
-                "queue-2 item 7")
+        if kernel_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"kernel_dtype must be 'float32' or "
+                             f"'bfloat16', got {kernel_dtype!r}")
+        self._kernel_dtype = kernel_dtype
         kernel = _KERNEL_ALIASES.get(kernel, kernel)
         if kernel not in ("torch", "cuda", "auto"):
             raise ValueError(f"unknown kernel {kernel!r}")
@@ -146,11 +154,16 @@ class MPPI(MissionMixin):
                 f"kernel='cuda' needs a CUDA device, got device={device}")
         if kernel == "cuda" or (kernel == "auto" and device.type == "cuda"):
             self._resolve_kernel(kernel, sigma_np, sched_np)
+        if kernel_dtype != "float32" and self._fused is None:
+            raise ValueError(
+                f"kernel_dtype={kernel_dtype!r} applies to the fused kernel "
+                "path only; this controller resolved to the torch path (as "
+                "the JAX package's controller/mppi.py:244-249)")
 
     def _resolve_kernel(self, kernel: str, sigma_np, sched_np) -> None:
         """The fused solve object, tried in the JAX package's order
-        (controller/mppi.py:222), with the antithetic and schedule options
-        passed on as it does (:226-236)."""
+        (controller/mppi.py:222), with the antithetic, schedule and
+        compute-dtype options passed on as it does (:226-236)."""
         from ..kernels.auv_mppi import FusedAUVMPPI
         from ..kernels.pm_mppi import FusedLTIMPPI, FusedPointMassMPPI
 
@@ -168,7 +181,8 @@ class MPPI(MissionMixin):
                 self._fused = cls(
                     self._model, self._cost, k=self._k, tau=self._tau,
                     lam=self._lam, upsilon=self._upsilon, sigma=sigma_np,
-                    antithetic=self._antithetic, schedule=sched_np)
+                    antithetic=self._antithetic, schedule=sched_np,
+                    compute_dtype=self._kernel_dtype)
                 break
             except KernelUnsupportedError as e:
                 err = e

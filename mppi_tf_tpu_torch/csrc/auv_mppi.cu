@@ -52,6 +52,19 @@
 //   block partial rows are those of pm_mppi.cu (mppi_common.cuh), so
 //   pm_merge merges them unchanged; the TPU grid's pid == 0 initialisation
 //   and read-modify-write carry are not copied.
+//
+//   The bf16 block compute (compute_dtype "bfloat16", :132-133, :189-199,
+//   :433-443) is this source at Val = bf16r through auv_mppi_bf16.cu
+//   (mppi_common.cuh): the 13-state, the force u_t + c_t (scale z_t) in
+//   the TPU kernel's order, every op of state_dot, the rk stages and the
+//   renormalisation round to bf16, with the dyn reads the TPU kernel
+//   casts (mass matrices, x0, useq, goals, blend weights) rounded and
+//   -m g formed in f32 and rounded once; state_dot keeps this source's
+//   own algebra (M nu, the cross products, the cached M^-1), which the
+//   plain bf16 version in kernels/auv_mppi.py follows op for op. The
+//   renormalisation's rsqrt and the state cost run in f32 on the widened
+//   state (the TPU kernel's :312-313 and :433-443); the z terms are bf16
+//   values added to the f32 cost.
 
 #include <string.h>
 
@@ -62,6 +75,15 @@ namespace {
 using namespace mppi;
 
 constexpr float kGravity = 9.81f;
+
+// The bf16 build runs the 6x6 products M nu and M^-1 rhs one row at a
+// time (their outputs in local memory): fully unrolled they hold the
+// kernel at 255 registers and spill; the f32 build keeps them unrolled.
+#ifdef MPPI_BF16
+#define MPPI_ROWS_UNROLL _Pragma("unroll 1")
+#else
+#define MPPI_ROWS_UNROLL _Pragma("unroll")
+#endif
 
 // State costs (kernels/auv_mppi.py COST_KINDS).
 enum AuvCost { kStaticQuat = 0, kWaypointsQuat = 1, kElipse3D = 2 };
@@ -117,32 +139,38 @@ __host__ __device__ constexpr int dyn_size(int tau) {
   return dyn_wblend(tau) + 2;
 }
 
-__device__ __forceinline__ void cross3(const float* u, const float* v,
-                                       float* out) {
-  out[0] = u[1] * v[2] - u[2] * v[1];
-  out[1] = u[2] * v[0] - u[0] * v[2];
-  out[2] = u[0] * v[1] - u[1] * v[0];
+// u: Vals, or solve constants (packed rounded at bf16)
+template <typename U>
+__device__ __forceinline__ void cross3(const U* u, const Val* v, Val* out) {
+  out[0] = exact_val(u[1]) * v[2] - exact_val(u[2]) * v[1];
+  out[1] = exact_val(u[2]) * v[0] - exact_val(u[0]) * v[2];
+  out[2] = exact_val(u[0]) * v[1] - exact_val(u[1]) * v[0];
 }
 
 // x_dot = f(x, gen_force) of models/auv.py::AUVModel.state_dot.
 __device__ __forceinline__ void state_dot(const AuvConsts& c,
-                                          const float* s_dyn, float fng,
-                                          const float* x, const float* gf,
-                                          float* xd) {
-  const float qx = x[3], qy = x[4], qz = x[5], qw = x[6];
-  const float* nu = x + 7;
-  const float* v = x + 7;
-  const float* w = x + 10;
+                                          const float* s_dyn, Val fng,
+                                          const Val* x, const Val* gf,
+                                          Val* xd) {
+#ifdef MPPI_BF16
+  // M and M^-1 are reloaded from shared memory at every stage, not held
+  // in registers across the rk stages (a spill otherwise)
+  asm volatile("" ::: "memory");
+#endif
+  const Val qx = x[3], qy = x[4], qz = x[5], qw = x[6];
+  const Val* nu = x + 7;
+  const Val* v = x + 7;
+  const Val* w = x + 10;
   // rotation body -> inertial (quaternion.to_rotation_matrix)
-  const float r11 = 1.0f - 2.0f * (qy * qy + qz * qz);
-  const float r12 = 2.0f * (qx * qy - qz * qw);
-  const float r13 = 2.0f * (qx * qz + qy * qw);
-  const float r21 = 2.0f * (qx * qy + qz * qw);
-  const float r22 = 1.0f - 2.0f * (qx * qx + qz * qz);
-  const float r23 = 2.0f * (qy * qz - qx * qw);
-  const float r31 = 2.0f * (qx * qz - qy * qw);
-  const float r32 = 2.0f * (qy * qz + qx * qw);
-  const float r33 = 1.0f - 2.0f * (qx * qx + qy * qy);
+  const Val r11 = 1.0f - 2.0f * (qy * qy + qz * qz);
+  const Val r12 = 2.0f * (qx * qy - qz * qw);
+  const Val r13 = 2.0f * (qx * qz + qy * qw);
+  const Val r21 = 2.0f * (qx * qy + qz * qw);
+  const Val r22 = 1.0f - 2.0f * (qx * qx + qz * qz);
+  const Val r23 = 2.0f * (qy * qz - qx * qw);
+  const Val r31 = 2.0f * (qx * qz - qy * qw);
+  const Val r32 = 2.0f * (qy * qz + qx * qw);
+  const Val r33 = 1.0f - 2.0f * (qx * qx + qy * qy);
   xd[0] = r11 * v[0] + r12 * v[1] + r13 * v[2];
   xd[1] = r21 * v[0] + r22 * v[1] + r23 * v[2];
   xd[2] = r31 * v[0] + r32 * v[1] + r33 * v[2];
@@ -152,29 +180,31 @@ __device__ __forceinline__ void state_dot(const AuvConsts& c,
   xd[5] = 0.5f * (-qy * w[0] + qx * w[1] + qw * w[2]);
   xd[6] = 0.5f * (-qx * w[0] - qy * w[1] - qz * w[2]);
 
-  float rhs[6];
+  Val rhs[6];
   // D nu = -L nu - u (L_fwd nu) - Q_d (|nu| . nu)
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
-    float ld = 0.0f, lf = 0.0f;
+    Val ld = 0.0f, lf = 0.0f;
 #pragma unroll
     for (int j = 0; j < 6; ++j) {
-      ld = fmaf(c.lin_damp[i * 6 + j], nu[j], ld);
-      lf = fmaf(c.lin_damp_fwd[i * 6 + j], nu[j], lf);
+      ld = fma_r(exact_val(c.lin_damp[i * 6 + j]), nu[j], ld);
+      lf = fma_r(exact_val(c.lin_damp_fwd[i * 6 + j]), nu[j], lf);
     }
-    const float dv = -ld - nu[0] * lf - c.quad_damp[i] * (fabsf(nu[i]) * nu[i]);
+    const Val dv = -ld - nu[0] * lf -
+                   exact_val(c.quad_damp[i]) * (abs_r(nu[i]) * nu[i]);
     rhs[i] = gf[i] - dv;
   }
   // C nu = [-a1 x w ; -a1 x v - a2 x w], [a1; a2] = M nu
-  float a[6];
-#pragma unroll
+  Val a[6];
+  MPPI_ROWS_UNROLL
   for (int i = 0; i < 6; ++i) {
-    float s = 0.0f;
+    Val s = 0.0f;
 #pragma unroll
-    for (int j = 0; j < 6; ++j) s = fmaf(s_dyn[kMTot + i * 6 + j], nu[j], s);
+    for (int j = 0; j < 6; ++j)
+      s = fma_r(exact_val(s_dyn[kMTot + i * 6 + j]), nu[j], s);
     a[i] = s;
   }
-  float c1[3], c2[3], c3[3];
+  Val c1[3], c2[3], c3[3];
   cross3(a, w, c1);
   cross3(a, v, c2);
   cross3(a + 3, w, c3);
@@ -184,10 +214,10 @@ __device__ __forceinline__ void state_dot(const AuvConsts& c,
     rhs[3 + i] += c2[i] + c3[i];
   }
   // restoring g = -[fbg + fbb ; cog x fbg + cob x fbb], f = R^T (0, 0, f_z)
-  const float fbg[3] = {r31 * fng, r32 * fng, r33 * fng};
-  const float fbb[3] = {r31 * c.buoyancy, r32 * c.buoyancy,
-                        r33 * c.buoyancy};
-  float mbg[3], mbb[3];
+  const Val fbg[3] = {r31 * fng, r32 * fng, r33 * fng};
+  const Val buoy = exact_val(c.buoyancy);
+  const Val fbb[3] = {r31 * buoy, r32 * buoy, r33 * buoy};
+  Val mbg[3], mbb[3];
   cross3(c.cog, fbg, mbg);
   cross3(c.cob, fbb, mbb);
 #pragma unroll
@@ -196,11 +226,12 @@ __device__ __forceinline__ void state_dot(const AuvConsts& c,
     rhs[3 + i] += mbg[i] + mbb[i];
   }
   // nu_dot = M^-1 rhs
-#pragma unroll
+  MPPI_ROWS_UNROLL
   for (int i = 0; i < 6; ++i) {
-    float s = 0.0f;
+    Val s = 0.0f;
 #pragma unroll
-    for (int j = 0; j < 6; ++j) s = fmaf(s_dyn[kInvM + i * 6 + j], rhs[j], s);
+    for (int j = 0; j < 6; ++j)
+      s = fma_r(exact_val(s_dyn[kInvM + i * 6 + j]), rhs[j], s);
     xd[7 + i] = s;
   }
 }
@@ -275,25 +306,65 @@ __device__ __forceinline__ float auv_state_cost(const AuvConsts& c,
   }
 }
 
+// The state cost of a rollout state: at bf16 on the state widened to f32
+// (the TPU kernel's :433-443), with the goals and blend weights rounded
+// at staging.
+template <int COST>
+__device__ __forceinline__ float rollout_state_cost(const AuvConsts& c,
+                                                   const float* s_dyn,
+                                                   int tau, const Val* x) {
+#ifdef MPPI_BF16
+  float xf[13];
+#pragma unroll
+  for (int i = 0; i < 13; ++i) xf[i] = widen(x[i]);
+  return auv_state_cost<COST>(c, s_dyn, tau, xf);
+#else
+  return auv_state_cost<COST>(c, s_dyn, tau, x);
+#endif
+}
+
+#ifdef MPPI_BF16
+// dyn entries a bf16 kernel rounds as it stages them (the TPU kernel's
+// d_() reads): the mass matrices, the goals and the waypoint blend
+__device__ __forceinline__ bool staged_bf16(int i, int tau) {
+  return i < kMass || (i >= kGoal && i < kGoal + 13) ||
+         (i >= dyn_goal2(tau) && i < dyn_size(tau));
+}
+#endif
+
+// The bf16 build gives ptxas a floor of one block an SM: left to itself
+// it caps some instantiations at 128 registers and spills.
+#ifdef MPPI_BF16
+#define AUV_LAUNCH_BOUNDS __launch_bounds__(kBlock, 1)
+#else
+#define AUV_LAUNCH_BOUNDS __launch_bounds__(kBlock)
+#endif
+
 template <int RK, int MODE, int COST>
-__global__ void __launch_bounds__(kBlock)
-    auv_fused_solve_kernel(const AuvConsts c, const float* __restrict__ dyn,
-                           int n_dyn, int sched_off,
-                           const float* __restrict__ z,
-                           float* __restrict__ costs,
-                           float* __restrict__ partials, int k_total,
-                           int tau, Seeds sd) {
+__global__ void AUV_LAUNCH_BOUNDS
+    MPPI_KERNEL(auv_fused_solve)(const AuvConsts c,
+                                 const float* __restrict__ dyn, int n_dyn,
+                                 int sched_off, const float* __restrict__ z,
+                                 float* __restrict__ costs,
+                                 float* __restrict__ partials, int k_total,
+                                 int tau, Seeds sd) {
   extern __shared__ float smem[];
   float* s_dyn = smem;          // n_dyn = dyn_size(tau) (+ tau scheduled)
   float* s_red = smem + n_dyn;  // kWarps * n_z: pass-two warp sums
 
-  for (int i = threadIdx.x; i < n_dyn; i += kBlock) s_dyn[i] = dyn[i];
+  for (int i = threadIdx.x; i < n_dyn; i += kBlock) {
+#ifdef MPPI_BF16
+    s_dyn[i] = staged_bf16(i, tau) ? round_bf16(dyn[i]) : dyn[i];
+#else
+    s_dyn[i] = dyn[i];
+#endif
+  }
   __syncthreads();
 
   const float* useq = s_dyn + kUseq;
   const float* rhs_z = useq + 6 * tau;
   const float u_half = s_dyn[dyn_u_half(tau)];
-  const float fng = -s_dyn[kMass] * kGravity;
+  const Val fng = -s_dyn[kMass] * kGravity;
 
   const int k = blockIdx.x * kBlock + threadIdx.x;
   const bool valid = k < k_total;
@@ -301,83 +372,105 @@ __global__ void __launch_bounds__(kBlock)
   ns.init(z, k_total, k, sd);
 
   float cost = 0.0f;
-  float x[13];
+  Val x[13];
 #pragma unroll
   for (int i = 0; i < 13; ++i) x[i] = s_dyn[kX0 + i];
   int n = 0;
   for (int t = 0; t < tau; ++t) {
+#ifdef MPPI_BF16
+    // the mass matrices are reloaded from shared memory every step, not
+    // hoisted into registers over the horizon (a spill otherwise)
+    asm volatile("" ::: "memory");
+#endif
     const float ct = sched_factor(s_dyn, sched_off, t);
-    float zt[6], gf[6];
+    Val zt[6], gf[6];
 #pragma unroll
-    for (int j = 0; j < 6; ++j) zt[j] = ns.next(n++);
-    // gen_force = u_t + scale (c_t z_t)
+    for (int j = 0; j < 6; ++j) zt[j] = exact_val(ns.next(n++));
+    // gen_force = u_t + scale (c_t z_t); at bf16 u_t + c_t (scale z_t),
+    // the TPU kernel's order (:447-463)
 #pragma unroll
     for (int i = 0; i < 6; ++i) {
-      float s = useq[t * 6 + i];
+#ifdef MPPI_BF16
+      Val sz = 0.0f;
 #pragma unroll
       for (int j = 0; j < 6; ++j)
-        s = fmaf(c.scale[i * 6 + j], ct * zt[j], s);
+        sz = fma_r(exact_val(c.scale[i * 6 + j]), zt[j], sz);
+      gf[i] = Val(useq[t * 6 + i]) + Val(ct) * sz;
+#else
+      float s = useq[t * 6 + i];
+#pragma unroll
+      for (int j = 0; j < 6; ++j) s = fmaf(c.scale[i * 6 + j], ct * zt[j], s);
       gf[i] = s;
+#endif
     }
 
-    float k1[13], xs[13];
+    Val k1[13], xs[13];
     state_dot(c, s_dyn, fng, x, gf, k1);
     if (RK == 1) {
 #pragma unroll
-      for (int i = 0; i < 13; ++i) x[i] = fmaf(c.dt, k1[i], x[i]);
+      for (int i = 0; i < 13; ++i) x[i] = fma_r(c.dt, k1[i], x[i]);
     } else if (RK == 2) {
-      float k2[13];
+      Val k2[13];
 #pragma unroll
-      for (int i = 0; i < 13; ++i) xs[i] = fmaf(c.dt, k1[i], x[i]);
+      for (int i = 0; i < 13; ++i) xs[i] = fma_r(c.dt, k1[i], x[i]);
       state_dot(c, s_dyn, fng, xs, gf, k2);
       const float h = 0.5f * c.dt;
 #pragma unroll
-      for (int i = 0; i < 13; ++i) x[i] = fmaf(h, k1[i] + k2[i], x[i]);
+      for (int i = 0; i < 13; ++i) x[i] = fma_r(h, k1[i] + k2[i], x[i]);
     } else {
       // acc = k1 + 2 k2 + 2 k3 + k4, x += dt/6 acc (models/auv.py:316-320)
-      float acc[13], kk[13];
+      Val acc[13], kk[13];
       const float h = 0.5f * c.dt;
 #pragma unroll
       for (int i = 0; i < 13; ++i) {
         acc[i] = k1[i];
-        xs[i] = fmaf(h, k1[i], x[i]);
+        xs[i] = fma_r(h, k1[i], x[i]);
       }
       state_dot(c, s_dyn, fng, xs, gf, kk);
 #pragma unroll
       for (int i = 0; i < 13; ++i) {
-        acc[i] = fmaf(2.0f, kk[i], acc[i]);
-        xs[i] = fmaf(h, kk[i], x[i]);
+        acc[i] = fma_r(2.0f, kk[i], acc[i]);
+        xs[i] = fma_r(h, kk[i], x[i]);
       }
       state_dot(c, s_dyn, fng, xs, gf, kk);
 #pragma unroll
       for (int i = 0; i < 13; ++i) {
-        acc[i] = fmaf(2.0f, kk[i], acc[i]);
-        xs[i] = fmaf(c.dt, kk[i], x[i]);
+        acc[i] = fma_r(2.0f, kk[i], acc[i]);
+        xs[i] = fma_r(c.dt, kk[i], x[i]);
       }
       state_dot(c, s_dyn, fng, xs, gf, kk);
       const float h6 = c.dt / 6.0f;
 #pragma unroll
-      for (int i = 0; i < 13; ++i) x[i] = fmaf(h6, acc[i] + kk[i], x[i]);
+      for (int i = 0; i < 13; ++i) x[i] = fma_r(h6, acc[i] + kk[i], x[i]);
     }
-    // quaternion renormalisation
-    const float s2 = x[3] * x[3] + x[4] * x[4] + x[5] * x[5] + x[6] * x[6];
-    const float inv = rsqrtf(fmaxf(s2, 1e-24f));
+    // quaternion renormalisation (the rsqrt in f32)
+    const Val s2 = x[3] * x[3] + x[4] * x[4] + x[5] * x[5] + x[6] * x[6];
+    const Val inv = rsqrtf(fmaxf(widen(s2), 1e-24f));
 #pragma unroll
     for (int i = 3; i < 7; ++i) x[i] *= inv;
 
-    cost += auv_state_cost<COST>(c, s_dyn, tau, x);
-    float quad = 0.0f;
+    cost += rollout_state_cost<COST>(c, s_dyn, tau, x);
+    Val quad = 0.0f;
 #pragma unroll
     for (int j = 0; j < 6; ++j) {
+#ifdef MPPI_BF16
+      cost += widen(Val(rhs_z[t * 6 + j]) * zt[j]);
+#else
       cost = fmaf(rhs_z[t * 6 + j], zt[j], cost);
-      float mz = 0.0f;
+#endif
+      Val mz = 0.0f;
 #pragma unroll
-      for (int i = 0; i < 6; ++i) mz = fmaf(c.mz[j * 6 + i], zt[i], mz);
-      quad = fmaf(zt[j], mz, quad);
+      for (int i = 0; i < 6; ++i)
+        mz = fma_r(exact_val(c.mz[j * 6 + i]), zt[i], mz);
+      quad = fma_r(zt[j], mz, quad);
     }
+#ifdef MPPI_BF16
+    cost += widen(Val(c.nc_half * ct) * quad);
+#else
     cost = fmaf(c.nc_half * sched_factor(s_dyn, sched_off, t), quad, cost);
+#endif
   }
-  cost += auv_state_cost<COST>(c, s_dyn, tau, x);
+  cost += rollout_state_cost<COST>(c, s_dyn, tau, x);
   cost += u_half;
 
   if (MODE == kFused) {
@@ -411,11 +504,11 @@ int launch_auv(const AuvConsts& c, const AuvLaunch& a) {
   const int sched_off = a.scheduled ? dyn_size(a.tau) : -1;
   size_t smem = 0;
   const cudaError_t e =
-      smem_for(auv_fused_solve_kernel<RK, MODE, COST>, n_dyn,
+      smem_for(MPPI_KERNEL(auv_fused_solve)<RK, MODE, COST>, n_dyn,
                MODE == kFused ? a.tau * 6 : 0, &smem);
   if (e != cudaSuccess) return e;
   const int nb = (a.k + kBlock - 1) / kBlock;
-  auv_fused_solve_kernel<RK, MODE, COST><<<nb, kBlock, smem, a.stream>>>(
+  MPPI_KERNEL(auv_fused_solve)<RK, MODE, COST><<<nb, kBlock, smem, a.stream>>>(
       c, a.dyn, n_dyn, sched_off, a.z, a.costs, a.partials, a.k, a.tau,
       a.sd);
   return cudaGetLastError();
@@ -448,7 +541,9 @@ extern "C" {
 // consts: AuvConsts.packed (260 floats); cost: AuvCost; dyn: dyn_size(tau)
 // floats, then tau factors c_t when scheduled; half: the antithetic
 // solve's first mirrored sample, 0 for none (mppi_common.cuh).
-int auv_fused_solve(int rk, int cost, const float* consts, const float* dyn,
+// auv_mppi_bf16.cu defines both solves with a _bf16 suffix.
+int MPPI_ENTRY(auv_fused_solve)(int rk, int cost, const float* consts,
+                                const float* dyn,
                     const float* z, float* partials, int k, int tau,
                     int scheduled, uint32_t half, uint32_t seed_lo,
                     uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
@@ -460,7 +555,8 @@ int auv_fused_solve(int rk, int cost, const float* consts, const float* dyn,
                 static_cast<cudaStream_t>(stream)});
 }
 
-int auv_fused_costs(int rk, int cost, const float* consts, const float* dyn,
+int MPPI_ENTRY(auv_fused_costs)(int rk, int cost, const float* consts,
+                                const float* dyn,
                     const float* z, float* costs, float* partials, int k,
                     int tau, int scheduled, uint32_t half, uint32_t seed_lo,
                     uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
@@ -472,8 +568,10 @@ int auv_fused_costs(int rk, int cost, const float* consts, const float* dyn,
                 static_cast<cudaStream_t>(stream)});
 }
 
+#ifndef MPPI_BF16
 // The dyn length the kernels stage for horizon tau: the wrappers hold
 // kernels/auv_mppi.py Dyn(tau).size against it before a launch.
 int auv_dyn_size(int tau) { return dyn_size(tau); }
+#endif
 
 }  // extern "C"

@@ -24,6 +24,17 @@
 // Partial row of one block (kStats + n_z floats), merged by pm_merge:
 //   (m_b, l_b, cost min, cost max, cost sum, 0, 0, 0, zsum_b[n_z])
 // with w_k = exp(zarg_k - m_b), l_b = sum_k w_k, zsum_b = sum_k w_k z_k.
+//
+// Block compute type. Each kernel source is compiled twice: as itself
+// (Val = float, the f32 kernels) and through its *_bf16.cu wrapper, which
+// defines MPPI_BF16 and MPPI_SUFFIX before including it (Val = bf16r, the
+// bf16 block compute of the TPU kernels' compute_dtype="bfloat16": every
+// rollout op rounds to bf16, the cost accumulator, softmax, stats and
+// Box-Muller stay f32). MPPI_KERNEL / MPPI_ENTRY name a source's kernels
+// and C entry points with the suffix (pm_fused_solve_bf16_kernel,
+// pm_fused_solve_bf16), so the f32 kernels keep their names and code.
+// Every normal a bf16 kernel consumes, injected or Philox, is the f32
+// normal rounded to bf16 (NoiseStream::next), in every phase.
 
 #pragma once
 
@@ -31,7 +42,98 @@
 #include <math.h>
 #include <stdint.h>
 
+#ifndef MPPI_SUFFIX
+#define MPPI_SUFFIX
+#endif
+#define MPPI_CAT2(a, b) a##b
+#define MPPI_CAT(a, b) MPPI_CAT2(a, b)
+#define MPPI_ENTRY(base) MPPI_CAT(base, MPPI_SUFFIX)
+#define MPPI_KERNEL(base) MPPI_CAT(MPPI_ENTRY(base), _kernel)
+
+// The bf16 builds alone hold bf16 code (#if on MPPI_BF16, and
+// MPPI_NN_BF16_PRODUCTS for nn_mppi_bfp.cu): the f32 translation units
+// neither include cuda_bf16.h nor see round_bf16, bf16r or a bf16 branch.
+#if defined(MPPI_BF16) || defined(MPPI_NN_BF16_PRODUCTS)
+#include <cuda_bf16.h>
+#endif
+
 namespace mppi {
+
+// The generic forms the kernels write their chains in: at f32 the FMA and
+// intrinsics they always used, at bf16 the rounded ops below.
+__device__ __forceinline__ float fma_r(float a, float b, float c) {
+  return fmaf(a, b, c);
+}
+__device__ __forceinline__ float abs_r(float a) { return fabsf(a); }
+__device__ __forceinline__ float relu_r(float a) { return fmaxf(a, 0.0f); }
+__device__ __forceinline__ float widen(float a) { return a; }
+
+#if defined(MPPI_BF16) || defined(MPPI_NN_BF16_PRODUCTS)
+// f rounded to the nearest bf16 (ties to even), held in f32.
+__device__ __forceinline__ float round_bf16(float f) {
+  return __bfloat162float(__float2bfloat16_rn(f));
+}
+#endif
+
+#ifdef MPPI_BF16
+// A bf16 value in an f32 register. Every operation computes in f32 from
+// bf16 operands and rounds once to bf16, as PyTorch's bf16 elementwise ops
+// do (the product of two bf16 values is exact in f32); a multiply and an
+// add round twice, never fused. A float converts implicitly and rounds:
+// the JAX kernels' weakly typed constants and d_() reads of dyn.
+struct bf16r {
+  float v;
+  bf16r() = default;
+  __device__ __forceinline__ bf16r(float f) : v(round_bf16(f)) {}
+  // f already holds a bf16 value: no rounding
+  static __device__ __forceinline__ bf16r exact(float f) {
+    bf16r r;
+    r.v = f;
+    return r;
+  }
+};
+__device__ __forceinline__ bf16r operator+(bf16r a, bf16r b) {
+  return bf16r(a.v + b.v);
+}
+__device__ __forceinline__ bf16r operator-(bf16r a, bf16r b) {
+  return bf16r(a.v - b.v);
+}
+__device__ __forceinline__ bf16r operator*(bf16r a, bf16r b) {
+  return bf16r(a.v * b.v);
+}
+__device__ __forceinline__ bf16r operator-(bf16r a) {
+  return bf16r::exact(-a.v);
+}
+__device__ __forceinline__ bf16r& operator+=(bf16r& a, bf16r b) {
+  return a = a + b;
+}
+__device__ __forceinline__ bf16r& operator*=(bf16r& a, bf16r b) {
+  return a = a * b;
+}
+__device__ __forceinline__ bf16r fma_r(bf16r a, bf16r b, bf16r c) {
+  return c + a * b;
+}
+__device__ __forceinline__ bf16r abs_r(bf16r a) {
+  return bf16r::exact(fabsf(a.v));
+}
+__device__ __forceinline__ bf16r relu_r(bf16r a) {
+  return bf16r::exact(fmaxf(a.v, 0.0f));
+}
+__device__ __forceinline__ float widen(bf16r a) { return a.v; }
+#endif
+
+// A float that already holds a Val (a rounded normal, a staged weight, a
+// solve constant the host packed rounded to bf16) as a Val, without
+// rounding again: a constant stays an operand of the multiply, not a
+// converted value the compiler hoists into a register.
+#ifdef MPPI_BF16
+using Val = bf16r;
+__device__ __forceinline__ Val exact_val(float f) { return bf16r::exact(f); }
+__device__ __forceinline__ Val exact_val(bf16r v) { return v; }
+#else
+using Val = float;
+__device__ __forceinline__ Val exact_val(float f) { return f; }
+#endif
 
 constexpr int kBlock = 256;          // samples (threads) per solve block
 constexpr int kWarps = kBlock / 32;
@@ -102,7 +204,8 @@ __device__ __forceinline__ void philox_normals(uint32_t sample, uint32_t blk,
 
 // Sequential reader of one sample's normals n = 0, 1, 2, ...: the Philox
 // stream four at a time (of the mirrored sample, negated, in the second
-// half of an antithetic solve), or injected z[n][k] when z is given.
+// half of an antithetic solve), or injected z[n][k] when z is given; in
+// the bf16 builds each normal, injected or drawn, rounded to bf16.
 struct NoiseStream {
   const float* z;
   int k_total;
@@ -129,7 +232,14 @@ struct NoiseStream {
     blk = 0;
     lane = 4;
   }
+#ifdef MPPI_BF16
   __device__ __forceinline__ float next(int n) {
+    return round_bf16(next_f32(n));
+  }
+  __device__ __forceinline__ float next_f32(int n) {
+#else
+  __device__ __forceinline__ float next(int n) {
+#endif
     if (z != nullptr)
       return valid ? z[static_cast<size_t>(n) * k_total + sample] : 0.0f;
     if (lane == 4) {

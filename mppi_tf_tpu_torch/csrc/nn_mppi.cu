@@ -51,6 +51,25 @@
 //   pid == 0 initialisation and its read-modify-write carry across the grid
 //   are not copied: each block writes its partial row (mppi_common.cuh),
 //   merged by pm_merge as for the other models.
+//
+// Two more builds of this source, each a translation unit of its own:
+// * nn_mppi_bf16.cu, the bf16 block compute (compute_dtype "bfloat16",
+//   :148-149, :191-325): Val = bf16r (mppi_common.cuh), kernels and entry
+//   points suffixed _bf16. The folded weights and biases are rounded to
+//   bf16 as they are staged, x0, useq and the noise as they are read; the
+//   force u_t + c_t (scale z_t) in the TPU kernel's order, every MLP chain
+//   acc + w h (each product and sum rounded), the ReLU and the state update
+//   are bf16; the renormalisation's rsqrt, the StaticQuatCost (against the
+//   unrounded goal) and the cost sum are f32, the z terms bf16 values
+//   added to it (:296-325).
+// * nn_mppi_bfp.cu, the f32 kernel for a model whose compute_dtype is
+//   bf16 (suffix _bfp): the JAX XLA path's bf16 products with f32
+//   accumulation (models/nn.py mlp_apply), not the TPU kernel, which
+//   ignores the model's compute_dtype. The normalisers are not folded:
+//   they sit after the layers in dyn (x_mean, x_std, y_mean, y_std), the
+//   features are normalised in f32 and rounded, the weights come rounded
+//   from the host, each hidden layer's output is rounded as the next
+//   layer's input, the biases and the output's denormalisation stay f32.
 
 #include <string.h>
 
@@ -83,6 +102,14 @@ __host__ __device__ constexpr int layer_floats(int i, int o) {
   return round4(o * i + o);
 }
 
+// The bf16-products build puts the normalisers (x mean, x std, y mean,
+// y std) after the layers.
+#ifdef MPPI_NN_BF16_PRODUCTS
+constexpr int kNormFloats = round4(2 * kFeatures + 2 * kSdim);
+#else
+constexpr int kNormFloats = 0;
+#endif
+
 // Offsets of the folded layers in dyn for hidden widths (N1, N2, N3);
 // N3 == 0: two hidden layers. kernels/nn_mppi.py NNDyn is the same layout.
 template <int N1, int N2, int N3>
@@ -93,41 +120,49 @@ struct Topo {
   static constexpr int w3 = w2 + layer_floats(N1, N2);
   static constexpr int wl = w3 + (N3 ? layer_floats(N2, N3) : 0);
   static constexpr int size = wl + layer_floats(kLast, kSdim);
+  static constexpr int norm = size;
+  static constexpr int end = size + kNormFloats;
 };
 
 // out = act(W^T in + b) over one block of dyn in shared memory (16-byte
-// aligned): row j of W^T is read as I / 4 broadcast float4 loads.
+// aligned): row j of W^T is read as I / 4 broadcast float4 loads. The
+// staged weights already hold Vals; the bf16-products build rounds each
+// hidden output, the next layer's input.
 template <int I, int O, bool kRelu>
 __device__ __forceinline__ void dense(const float* __restrict__ w,
-                                      const float* in, float* out) {
+                                      const Val* in, Val* out) {
   static_assert(I % 4 == 0, "fan_in must be a multiple of 4");
   const float4* rows = reinterpret_cast<const float4*>(w);
 #pragma unroll
   for (int j = 0; j < O; ++j) {
-    float acc = w[O * I + j];
+    Val acc = exact_val(w[O * I + j]);
 #pragma unroll
     for (int i = 0; i < I / 4; ++i) {
       const float4 v = rows[j * (I / 4) + i];
-      acc = fmaf(v.x, in[4 * i], acc);
-      acc = fmaf(v.y, in[4 * i + 1], acc);
-      acc = fmaf(v.z, in[4 * i + 2], acc);
-      acc = fmaf(v.w, in[4 * i + 3], acc);
+      acc = fma_r(exact_val(v.x), in[4 * i], acc);
+      acc = fma_r(exact_val(v.y), in[4 * i + 1], acc);
+      acc = fma_r(exact_val(v.z), in[4 * i + 2], acc);
+      acc = fma_r(exact_val(v.w), in[4 * i + 3], acc);
     }
-    out[j] = kRelu ? fmaxf(acc, 0.0f) : acc;
+#ifdef MPPI_NN_BF16_PRODUCTS
+    out[j] = kRelu ? round_bf16(relu_r(acc)) : acc;
+#else
+    out[j] = kRelu ? relu_r(acc) : acc;
+#endif
   }
 }
 
 // delta = MLP(features) over the folded weights at s_w.
 template <int N1, int N2, int N3>
 __device__ __forceinline__ void mlp(const float* __restrict__ s_w,
-                                    const float* feats, float* delta) {
+                                    const Val* feats, Val* delta) {
   using T = Topo<N1, N2, N3>;
-  float h1[N1];
+  Val h1[N1];
   dense<kFeatures, N1, true>(s_w + T::w1, feats, h1);
-  float h2[N2];
+  Val h2[N2];
   dense<N1, N2, true>(s_w + T::w2, h1, h2);
   if constexpr (N3 != 0) {
-    float h3[N3];
+    Val h3[N3];
     dense<N2, N3, true>(s_w + T::w3, h2, h3);
     dense<N3, kSdim, false>(s_w + T::wl, h3, delta);
   } else {
@@ -135,25 +170,56 @@ __device__ __forceinline__ void mlp(const float* __restrict__ s_w,
   }
 }
 
+// StaticQuatCost of a rollout state, at bf16 on the state widened to f32
+// (the f32 builds call quat_state_cost on the state itself).
+#ifdef MPPI_BF16
+__device__ __forceinline__ float rollout_state_cost(const float* q,
+                                                   const Val* x,
+                                                   const float* goal) {
+  float xf[kSdim];
+#pragma unroll
+  for (int i = 0; i < kSdim; ++i) xf[i] = widen(x[i]);
+  return quat_state_cost(q, xf, goal);
+}
+#else
+#define rollout_state_cost quat_state_cost
+#endif
+
+// The bf16 build of the two-layer (8, 8) network gives ptxas a floor of
+// one block an SM: left to itself it holds 80 registers and spills.
+#ifdef MPPI_BF16
+#define NN_LAUNCH_BOUNDS __launch_bounds__(kBlock, N3 == 0 ? 1 : 0)
+#else
+#define NN_LAUNCH_BOUNDS __launch_bounds__(kBlock)
+#endif
+
 template <int N1, int N2, int N3, int MODE>
-__global__ void __launch_bounds__(kBlock)
-    nn_fused_solve_kernel(const NnConsts c, const float* __restrict__ dyn,
-                          int dyn_size, int sched_off,
-                          const float* __restrict__ z,
-                          float* __restrict__ costs,
-                          float* __restrict__ partials, int k_total,
-                          int tau, Seeds sd) {
+__global__ void NN_LAUNCH_BOUNDS
+    MPPI_KERNEL(nn_fused_solve)(const NnConsts c,
+                                const float* __restrict__ dyn, int dyn_size,
+                                int sched_off, const float* __restrict__ z,
+                                float* __restrict__ costs,
+                                float* __restrict__ partials, int k_total,
+                                int tau, Seeds sd) {
   using T = Topo<N1, N2, N3>;
   extern __shared__ __align__(16) float smem[];
   float* s_dyn = smem;                     // dyn_size
   float* s_red = smem + round4(dyn_size);  // kWarps * n_z: pass-two sums
 
-  for (int i = threadIdx.x; i < dyn_size; i += kBlock) s_dyn[i] = dyn[i];
+  for (int i = threadIdx.x; i < dyn_size; i += kBlock) {
+#ifdef MPPI_BF16
+    s_dyn[i] = i < T::size ? round_bf16(dyn[i]) : dyn[i];
+#else
+    s_dyn[i] = dyn[i];
+#endif
+  }
   __syncthreads();
 
-  // dyn layout (kernels/nn_mppi.py NNDyn): layers, x0, goal, useq, rhs_z,
-  // u_half, then the schedule's c_t at sched_off when scheduled
-  const float* x0 = s_dyn + T::size;
+  // dyn layout (kernels/nn_mppi.py NNDyn): layers (and the normalisers of
+  // the bf16-products build), x0, goal, useq, rhs_z, u_half, then the
+  // schedule's c_t at sched_off when scheduled
+  const float* norm = s_dyn + T::norm;
+  const float* x0 = s_dyn + T::end;
   const float* goal = x0 + kSdim;
   const float* useq = goal + kSdim;
   const float* rhs_z = useq + kAdim * tau;
@@ -165,7 +231,7 @@ __global__ void __launch_bounds__(kBlock)
   ns.init(z, k_total, k, sd);
 
   float cost = 0.0f;
-  float x[kSdim];
+  Val x[kSdim];
 #pragma unroll
   for (int i = 0; i < kSdim; ++i) x[i] = x0[i];
   int n = 0;
@@ -177,44 +243,75 @@ __global__ void __launch_bounds__(kBlock)
     // stack); each step reloads them from shared memory instead
     asm volatile("" ::: "memory");
     const float ct = sched_factor(s_dyn, sched_off, t);
-    float zt[kAdim], feats[kFeatures];
+    Val zt[kAdim], feats[kFeatures];
 #pragma unroll
-    for (int j = 0; j < kAdim; ++j) zt[j] = ns.next(n++);
+    for (int j = 0; j < kAdim; ++j) zt[j] = exact_val(ns.next(n++));
 #pragma unroll
     for (int i = 0; i < kSdim - 3; ++i) feats[i] = x[3 + i];
-    // u = useq_t + scale (c_t z_t)
+    // u = useq_t + scale (c_t z_t); at bf16 u_t + c_t (scale z_t), the TPU
+    // kernel's order (:255-275)
 #pragma unroll
     for (int i = 0; i < kAdim; ++i) {
+#ifdef MPPI_BF16
+      Val sz = 0.0f;
+#pragma unroll
+      for (int j = 0; j < kAdim; ++j)
+        sz = fma_r(exact_val(c.scale[i * kAdim + j]), zt[j], sz);
+      feats[kSdim - 3 + i] = Val(useq[t * kAdim + i]) + Val(ct) * sz;
+#else
       float s = useq[t * kAdim + i];
 #pragma unroll
       for (int j = 0; j < kAdim; ++j)
         s = fmaf(c.scale[i * kAdim + j], ct * zt[j], s);
       feats[kSdim - 3 + i] = s;
+#endif
     }
-    float delta[kSdim];
+#ifdef MPPI_NN_BF16_PRODUCTS
+    // models/nn.py normalize_x, then the products' bf16 operand
+#pragma unroll
+    for (int i = 0; i < kFeatures; ++i)
+      feats[i] = round_bf16((feats[i] - norm[i]) / norm[kFeatures + i]);
+#endif
+    Val delta[kSdim];
     mlp<N1, N2, N3>(s_dyn, feats, delta);
+#ifdef MPPI_NN_BF16_PRODUCTS
+    // denormalize_y: y y_std + y_mean
+#pragma unroll
+    for (int i = 0; i < kSdim; ++i)
+      delta[i] = delta[i] * norm[2 * kFeatures + kSdim + i] +
+                 norm[2 * kFeatures + i];
+#endif
 #pragma unroll
     for (int i = 0; i < kSdim; ++i) x[i] += delta[i];
     if (c.renorm != 0.0f) {
-      const float s2 = x[3] * x[3] + x[4] * x[4] + x[5] * x[5] + x[6] * x[6];
-      const float inv = rsqrtf(fmaxf(s2, 1e-24f));
+      const Val s2 = x[3] * x[3] + x[4] * x[4] + x[5] * x[5] + x[6] * x[6];
+      const Val inv = rsqrtf(fmaxf(widen(s2), 1e-24f));
 #pragma unroll
       for (int i = 3; i < 7; ++i) x[i] *= inv;
     }
 
-    cost += quat_state_cost(c.q, x, goal);
-    float quad = 0.0f;
+    cost += rollout_state_cost(c.q, x, goal);
+    Val quad = 0.0f;
 #pragma unroll
     for (int j = 0; j < kAdim; ++j) {
+#ifdef MPPI_BF16
+      cost += widen(Val(rhs_z[t * kAdim + j]) * zt[j]);
+#else
       cost = fmaf(rhs_z[t * kAdim + j], zt[j], cost);
-      float mz = 0.0f;
+#endif
+      Val mz = 0.0f;
 #pragma unroll
-      for (int i = 0; i < kAdim; ++i) mz = fmaf(c.mz[j * kAdim + i], zt[i], mz);
-      quad = fmaf(zt[j], mz, quad);
+      for (int i = 0; i < kAdim; ++i)
+        mz = fma_r(exact_val(c.mz[j * kAdim + i]), zt[i], mz);
+      quad = fma_r(zt[j], mz, quad);
     }
+#ifdef MPPI_BF16
+    cost += widen(Val(c.nc_half * ct) * quad);
+#else
     cost = fmaf(c.nc_half * ct, quad, cost);
+#endif
   }
-  cost += quat_state_cost(c.q, x, goal);
+  cost += rollout_state_cost(c.q, x, goal);
   cost += u_half;
 
   if (MODE == kFused) {
@@ -234,15 +331,16 @@ template <int N1, int N2, int N3, int MODE>
 int launch_nn(const NnConsts& c, const float* dyn, const float* z,
               float* costs, float* partials, int k, int tau, int scheduled,
               Seeds sd, cudaStream_t stream) {
-  const int base = Topo<N1, N2, N3>::size + 2 * kSdim + 2 * kAdim * tau + 1;
+  const int base = Topo<N1, N2, N3>::end + 2 * kSdim + 2 * kAdim * tau + 1;
   const int dyn_size = scheduled ? base + tau : base;
   size_t smem = 0;
   const cudaError_t e =
-      smem_for(nn_fused_solve_kernel<N1, N2, N3, MODE>, round4(dyn_size),
-               MODE == kFused ? tau * kAdim : 0, &smem);
+      smem_for(MPPI_KERNEL(nn_fused_solve)<N1, N2, N3, MODE>,
+               round4(dyn_size), MODE == kFused ? tau * kAdim : 0, &smem);
   if (e != cudaSuccess) return e;
   const int nb = (k + kBlock - 1) / kBlock;
-  nn_fused_solve_kernel<N1, N2, N3, MODE><<<nb, kBlock, smem, stream>>>(
+  MPPI_KERNEL(nn_fused_solve)<N1, N2, N3, MODE>
+      <<<nb, kBlock, smem, stream>>>(
       c, dyn, dyn_size, scheduled ? base : -1, z, costs, partials, k, tau,
       sd);
   return cudaGetLastError();
@@ -270,8 +368,9 @@ int dispatch_nn(int n1, int n2, int n3, const float* consts,
 extern "C" {
 
 // scheduled: dyn ends in the tau factors c_t; half: the antithetic solve's
-// first mirrored sample, 0 for none (mppi_common.cuh).
-int nn_fused_solve(int n1, int n2, int n3, const float* consts,
+// first mirrored sample, 0 for none (mppi_common.cuh). nn_mppi_bf16.cu and
+// nn_mppi_bfp.cu define both solves with their suffixes.
+int MPPI_ENTRY(nn_fused_solve)(int n1, int n2, int n3, const float* consts,
                    const float* dyn, const float* z, float* partials, int k,
                    int tau, int scheduled, uint32_t half, uint32_t seed_lo,
                    uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
@@ -282,7 +381,7 @@ int nn_fused_solve(int n1, int n2, int n3, const float* consts,
                              static_cast<cudaStream_t>(stream));
 }
 
-int nn_fused_costs(int n1, int n2, int n3, const float* consts,
+int MPPI_ENTRY(nn_fused_costs)(int n1, int n2, int n3, const float* consts,
                    const float* dyn, const float* z, float* costs,
                    float* partials, int k, int tau, int scheduled,
                    uint32_t half, uint32_t seed_lo, uint32_t seed_hi,

@@ -61,7 +61,19 @@
 //     Both variants run dense FMA chains over runtime operands (constant
 //     bank or shared memory); neither elides zeros;
 //   * the TPU's sin polynomial and mantissa-stuffing uniform worked around
-//     Mosaic; here logf / sqrtf / sincospif are used directly.
+//     Mosaic; here logf / sqrtf / sincospif are used directly;
+//   * the bf16 block compute (compute_dtype "bfloat16", :363-368 and the
+//     casts of :417-428, :459-560) is this source compiled at Val = bf16r
+//     through pm_mppi_bf16.cu (mppi_common.cuh): the state, x0, goal, the
+//     rollout and cost chains round at every op in the TPU kernel's order
+//     (the dense chains here equal its sparse_dot, whose skipped zeros and
+//     unmultiplied ones are exact), x' = ax + inv_m (bu + bz), or with a
+//     schedule ax + (r(inv_m bu) + r(inv_m c_t) bz) with the scalar
+//     products formed in f32 and rounded once (:497-531); each step cost,
+//     rhs_z . z and nc_half z^T Mz z term is a bf16 value added to the f32
+//     cost; the softmax, stats and Box-Muller stay f32. Its kernels and
+//     entry points carry a _bf16 suffix and read bf16-rounded normals in
+//     every phase, the weights and noise dump included.
 //
 // mppi_weights_kernel -- replaces make_weights_kernel (fused_pm_weights and
 //   auv_mppi._fused_auv_weights, phase B of the normalized solve, for both
@@ -106,43 +118,55 @@ struct Consts {
 };
 
 // Entry i of A (row-major) and of B scale, from the constants or, with
-// kDynAB, from dyn's blocks in shared memory (ab: A, then B scale).
+// kDynAB, from dyn's blocks in shared memory (ab: A, then B scale). The
+// bf16 build's constants come rounded from the host (PmConsts.packed);
+// the runtime blocks round here.
 template <int S, int A, int AB>
-__device__ __forceinline__ float mat_a(const Consts<S, A>& c,
-                                       const float* ab, int i) {
-  if constexpr (AB == kDynAB) return ab[i];
-  else return c.a[i];
+__device__ __forceinline__ Val mat_a(const Consts<S, A>& c, const float* ab,
+                                     int i) {
+  if constexpr (AB == kDynAB) return Val(ab[i]);
+  else return exact_val(c.a[i]);
 }
 
 template <int S, int A, int AB>
-__device__ __forceinline__ float mat_bs(const Consts<S, A>& c,
-                                        const float* ab, int i) {
-  if constexpr (AB == kDynAB) return ab[S * S + i];
-  else return c.bs[i];
+__device__ __forceinline__ Val mat_bs(const Consts<S, A>& c, const float* ab,
+                                      int i) {
+  if constexpr (AB == kDynAB) return Val(ab[S * S + i]);
+  else return exact_val(c.bs[i]);
 }
 
 template <int S, int A, int COST>
-__device__ __forceinline__ float state_cost(const Consts<S, A>& c,
-                                            const float* x,
-                                            const float* goal) {
+__device__ __forceinline__ Val state_cost(const Consts<S, A>& c,
+                                          const Val* x, const float* goal) {
   if constexpr (COST == kElipse) {
     static_assert(S == 4 && A == 2, "the ellipse cost is 2D: [x, vx, y, vy]");
     // m_state |((x-cx)/a)^2 + ((y-cy)/b)^2 - 1| + m_vel (|v| - gv)^2
+#ifdef MPPI_BF16
+    // the TPU kernel's bf16 form (:474-485): scaled by 1/a, a bf16 sqrt
+    const Val ex = (x[0] - Val(c.el[2])) * Val(1.0f / c.el[0]);
+    const Val ey = (x[2] - Val(c.el[3])) * Val(1.0f / c.el[1]);
+    const Val d = abs_r(ex * ex + ey * ey - Val(1.0f));
+    const Val dv = Val(sqrtf(widen(x[1] * x[1] + x[3] * x[3]))) -
+                   Val(c.el[4]);
+    return Val(c.el[5]) * d + Val(c.el[6]) * (dv * dv);
+#else
     const float ex = (x[0] - c.el[2]) / c.el[0];
     const float ey = (x[2] - c.el[3]) / c.el[1];
     const float dv = sqrtf(x[1] * x[1] + x[3] * x[3]) - c.el[4];
     return c.el[5] * fabsf(ex * ex + ey * ey - 1.0f) + c.el[6] * dv * dv;
+#endif
   } else {
-    float d[S];
+    Val d[S];
 #pragma unroll
-    for (int i = 0; i < S; ++i) d[i] = x[i] - goal[i];
-    float out = 0.0f;
+    for (int i = 0; i < S; ++i) d[i] = x[i] - Val(goal[i]);
+    Val out = 0.0f;
 #pragma unroll
     for (int i = 0; i < S; ++i) {
-      float qd = 0.0f;
+      Val qd = 0.0f;
 #pragma unroll
-      for (int j = 0; j < S; ++j) qd = fmaf(c.q[i * S + j], d[j], qd);
-      out = fmaf(d[i], qd, out);
+      for (int j = 0; j < S; ++j)
+        qd = fma_r(exact_val(c.q[i * S + j]), d[j], qd);
+      out = fma_r(d[i], qd, out);
     }
     return out;
   }
@@ -150,12 +174,12 @@ __device__ __forceinline__ float state_cost(const Consts<S, A>& c,
 
 template <int S, int A, int MODE, int COST, int AB>
 __global__ void __launch_bounds__(kBlock)
-    pm_fused_solve_kernel(const Consts<S, A> c, const float* __restrict__ dyn,
-                          int dyn_size, int sched_off,
-                          const float* __restrict__ z,
-                          float* __restrict__ costs,
-                          float* __restrict__ partials, int k_total, int tau,
-                          Seeds sd) {
+    MPPI_KERNEL(pm_fused_solve)(const Consts<S, A> c,
+                                const float* __restrict__ dyn, int dyn_size,
+                                int sched_off, const float* __restrict__ z,
+                                float* __restrict__ costs,
+                                float* __restrict__ partials, int k_total,
+                                int tau, Seeds sd) {
   extern __shared__ float smem[];
   float* s_dyn = smem;             // dyn_size
   float* s_red = smem + dyn_size;  // kWarps * n_z: pass-two warp sums
@@ -182,45 +206,61 @@ __global__ void __launch_bounds__(kBlock)
   // ---- pass one: rollout + cost ------------------------------------------
   float cost = 0.0f;
   {
-    float x[S];
+    Val x[S];
 #pragma unroll
     for (int i = 0; i < S; ++i) x[i] = x0[i];
     int n = 0;
     for (int t = 0; t < tau; ++t) {
       const float ct = sched_factor(s_dyn, sched_off, t);
-      float zt[A];
+      Val zt[A];
 #pragma unroll
-      for (int j = 0; j < A; ++j) zt[j] = ns.next(n++);
-      float xn[S];
+      for (int j = 0; j < A; ++j) zt[j] = exact_val(ns.next(n++));
+      Val xn[S];
 #pragma unroll
       for (int i = 0; i < S; ++i) {
-        float ax = 0.0f;
+        Val ax = 0.0f;
 #pragma unroll
         for (int j = 0; j < S; ++j)
-          ax = fmaf(mat_a<S, A, AB>(c, ab, i * S + j), x[j], ax);
-        float bz = 0.0f;
+          ax = fma_r(mat_a<S, A, AB>(c, ab, i * S + j), x[j], ax);
+        Val bz = 0.0f;
 #pragma unroll
         for (int j = 0; j < A; ++j)
-          bz = fmaf(mat_bs<S, A, AB>(c, ab, i * A + j), zt[j], bz);
+          bz = fma_r(mat_bs<S, A, AB>(c, ab, i * A + j), zt[j], bz);
         // x' = A x + inv_m (B u_t + c_t B scale z_t)
+#ifdef MPPI_BF16
+        if (sched_off >= 0)
+          xn[i] = ax + (Val(inv_m * bu[t * S + i]) + Val(inv_m * ct) * bz);
+        else
+          xn[i] = ax + Val(inv_m) * (Val(bu[t * S + i]) + bz);
+#else
         xn[i] = fmaf(inv_m, bu[t * S + i] + ct * bz, ax);
+#endif
       }
 #pragma unroll
       for (int i = 0; i < S; ++i) x[i] = xn[i];
-      cost += state_cost<S, A, COST>(c, x, goal);
-      float quad = 0.0f;
+      cost += widen(state_cost<S, A, COST>(c, x, goal));
+      Val quad = 0.0f;
 #pragma unroll
       for (int j = 0; j < A; ++j) {
+#ifdef MPPI_BF16
+        cost += widen(Val(rhs_z[t * A + j]) * zt[j]);
+#else
         cost = fmaf(rhs_z[t * A + j], zt[j], cost);
-        float mz = 0.0f;
+#endif
+        Val mz = 0.0f;
 #pragma unroll
-        for (int i = 0; i < A; ++i) mz = fmaf(c.mz[j * A + i], zt[i], mz);
-        quad = fmaf(zt[j], mz, quad);
+        for (int i = 0; i < A; ++i)
+          mz = fma_r(exact_val(c.mz[j * A + i]), zt[i], mz);
+        quad = fma_r(zt[j], mz, quad);
       }
       // eps^T Sigma_t^-1 eps = c_t z^T Mz z
+#ifdef MPPI_BF16
+      cost += widen(Val(c.nc_half * ct) * quad);
+#else
       cost = fmaf(c.nc_half * ct, quad, cost);
+#endif
     }
-    cost += state_cost<S, A, COST>(c, x, goal);
+    cost += widen(state_cost<S, A, COST>(c, x, goal));
     cost += u_half;
   }
 
@@ -238,11 +278,11 @@ __global__ void __launch_bounds__(kBlock)
 }
 
 __global__ void __launch_bounds__(kBlock)
-    mppi_weights_kernel(const float* __restrict__ nrm,
-                        const float* __restrict__ costs,
-                        const float* __restrict__ z,
-                        float* __restrict__ partials, int k_total, int n_z,
-                        Seeds sd) {
+    MPPI_KERNEL(mppi_weights)(const float* __restrict__ nrm,
+                              const float* __restrict__ costs,
+                              const float* __restrict__ z,
+                              float* __restrict__ partials, int k_total,
+                              int n_z, Seeds sd) {
   extern __shared__ float s_red[];  // kWarps * n_z
   const int k = blockIdx.x * kBlock + threadIdx.x;
   const bool valid = k < k_total;
@@ -255,8 +295,8 @@ __global__ void __launch_bounds__(kBlock)
                                           (kStats + n_z));
 }
 
-__global__ void pm_noise_dump_kernel(float* __restrict__ out, int k_total,
-                                     int n_z, Seeds sd) {
+__global__ void MPPI_KERNEL(pm_noise_dump)(float* __restrict__ out,
+                                          int k_total, int n_z, Seeds sd) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= k_total) return;
   const int blk = blockIdx.y;
@@ -267,10 +307,18 @@ __global__ void pm_noise_dump_kernel(float* __restrict__ out, int k_total,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int n = blk * 4 + i;
-    if (n < n_z) out[static_cast<size_t>(n) * k_total + k] = v[i];
+    if (n < n_z) {
+      float* o = out + static_cast<size_t>(n) * k_total + k;
+#ifdef MPPI_BF16
+      *o = round_bf16(v[i]);
+#else
+      *o = v[i];
+#endif
+    }
   }
 }
 
+#ifndef MPPI_BF16
 constexpr int kMergeThreads = 256;
 
 __global__ void __launch_bounds__(kMergeThreads)
@@ -340,6 +388,7 @@ __global__ void __launch_bounds__(kMergeThreads)
     zsum[n] = s;
   }
 }
+#endif  // MPPI_BF16: pm_merge reads f32 partial rows only
 
 template <int S, int A, int MODE, int COST, int AB>
 int launch_solve(const float* consts, const float* dyn, const float* z,
@@ -353,12 +402,13 @@ int launch_solve(const float* consts, const float* dyn, const float* z,
   const int dyn_size = scheduled ? base + tau : base;
   size_t smem = 0;
   const cudaError_t e =
-      smem_for(pm_fused_solve_kernel<S, A, MODE, COST, AB>, dyn_size,
+      smem_for(MPPI_KERNEL(pm_fused_solve)<S, A, MODE, COST, AB>, dyn_size,
                MODE == kFused ? tau * A : 0, &smem);
   if (e != cudaSuccess) return e;
   const int nb = (k + kBlock - 1) / kBlock;
-  pm_fused_solve_kernel<S, A, MODE, COST, AB><<<nb, kBlock, smem, stream>>>(
-      c, dyn, dyn_size, sched_off, z, costs, partials, k, tau, sd);
+  MPPI_KERNEL(pm_fused_solve)<S, A, MODE, COST, AB>
+      <<<nb, kBlock, smem, stream>>>(c, dyn, dyn_size, sched_off, z, costs,
+                                     partials, k, tau, sd);
   return cudaGetLastError();
 }
 
@@ -406,20 +456,23 @@ extern "C" {
 // Every entry point that reads the noise takes `half`, the first mirrored
 // sample of an antithetic solve (0: none; mppi_common.cuh), and the solves
 // take `scheduled` (1: dyn ends in the tau factors c_t) and `dynamic_ab`
-// (1: A and B scale are read from dyn, PmAB kDynAB).
-int pm_noise_dump(float* out, int k, int n_z, uint32_t half,
+// (1: A and B scale are read from dyn, PmAB kDynAB). pm_mppi_bf16.cu
+// defines the same entry points with a _bf16 suffix (not pm_merge).
+int MPPI_ENTRY(pm_noise_dump)(float* out, int k, int n_z, uint32_t half,
                   uint32_t seed_lo, uint32_t seed_hi, uint32_t s_lo,
                   uint32_t s_hi, void* stream) {
   if (k <= 0 || n_z <= 0) return cudaErrorInvalidValue;
   const Seeds sd{seed_lo, seed_hi, s_lo, s_hi, half};
   const dim3 grid((k + 255) / 256, (n_z + 3) / 4);
-  pm_noise_dump_kernel<<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  MPPI_KERNEL(pm_noise_dump)<<<grid, 256, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
       out, k, n_z, sd);
   return cudaGetLastError();
 }
 
 // consts: PmConsts.packed, sizeof(Consts<sdim, adim>) bytes; cost: PmCost.
-int pm_fused_solve(int sdim, int adim, int cost, const float* consts,
+int MPPI_ENTRY(pm_fused_solve)(int sdim, int adim, int cost,
+                               const float* consts,
                    const float* dyn, const float* z, float* partials, int k,
                    int tau, int scheduled, int dynamic_ab, uint32_t half,
                    uint32_t seed_lo, uint32_t seed_hi, uint32_t s_lo,
@@ -430,7 +483,8 @@ int pm_fused_solve(int sdim, int adim, int cost, const float* consts,
                                 static_cast<cudaStream_t>(stream));
 }
 
-int pm_fused_costs(int sdim, int adim, int cost, const float* consts,
+int MPPI_ENTRY(pm_fused_costs)(int sdim, int adim, int cost,
+                               const float* consts,
                    const float* dyn, const float* z, float* costs,
                    float* partials, int k, int tau, int scheduled,
                    int dynamic_ab, uint32_t half, uint32_t seed_lo,
@@ -442,22 +496,25 @@ int pm_fused_costs(int sdim, int adim, int cost, const float* consts,
                                 static_cast<cudaStream_t>(stream));
 }
 
-int mppi_weights(const float* nrm, const float* costs, const float* z,
+int MPPI_ENTRY(mppi_weights)(const float* nrm, const float* costs,
+                             const float* z,
                  float* partials, int k, int n_z, uint32_t half,
                  uint32_t seed_lo, uint32_t seed_hi, uint32_t s_lo,
                  uint32_t s_hi, void* stream) {
   if (k <= 0 || n_z <= 0) return cudaErrorInvalidValue;
   size_t smem = 0;
-  const cudaError_t e = smem_for(mppi_weights_kernel, 0, n_z, &smem);
+  const cudaError_t e =
+      smem_for(MPPI_KERNEL(mppi_weights), 0, n_z, &smem);
   if (e != cudaSuccess) return e;
   const int nb = (k + kBlock - 1) / kBlock;
-  mppi_weights_kernel<<<nb, kBlock, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
+  MPPI_KERNEL(mppi_weights)<<<nb, kBlock, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
       nrm, costs, z, partials, k, n_z,
       Seeds{seed_lo, seed_hi, s_lo, s_hi, half});
   return cudaGetLastError();
 }
 
+#ifndef MPPI_BF16
 int pm_merge(const float* partials, int nb, int n_z, float* zsum,
              float* stats, void* stream) {
   if (nb <= 0 || n_z < 0) return cudaErrorInvalidValue;
@@ -469,5 +526,6 @@ int pm_merge(const float* partials, int nb, int n_z, float* zsum,
 const char* pm_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+#endif  // MPPI_BF16
 
 }  // extern "C"

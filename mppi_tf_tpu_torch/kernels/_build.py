@@ -1,7 +1,8 @@
 """Build the CUDA sources with ``nvcc`` at first use and bind them with ctypes.
 
 Every ``.cu`` under ``csrc/`` is compiled to an object by its own ``nvcc``,
-all started together, and the objects are linked into one shared library
+all started together (the ``*_bf16.cu`` and ``*_bfp.cu`` units rebuild a
+source at another block compute type, see ``mppi_common.cuh``), and the objects are linked into one shared library
 with a plain C interface, so the build compiles no PyTorch headers. The
 library goes to ``mppi_tf_tpu_torch/_build/`` under a name that carries a
 hash of every ``.cu`` and ``.cuh`` source and the flags, so an edited
@@ -48,6 +49,16 @@ _SIGNATURES = {
     "nn_fused_costs": [_I, _I, _I, _P, _P, _P, _P, _P, *_SOLVE, *_SEEDS,
                        _P],
 }
+# the bf16 builds of the sources (suffix _bf16, every kernel but pm_merge)
+# and the NN kernel's bf16-products build (suffix _bfp) take the same
+# arguments as their f32 entry points
+_SIGNATURES.update(
+    {f"{name}_bf16": _SIGNATURES[name] for name in (
+        "pm_noise_dump", "pm_fused_solve", "pm_fused_costs", "mppi_weights",
+        "auv_fused_solve", "auv_fused_costs", "nn_fused_solve",
+        "nn_fused_costs")}
+    | {f"{name}_bfp": _SIGNATURES[name]
+       for name in ("nn_fused_solve", "nn_fused_costs")})
 
 _lib = None
 

@@ -12,12 +12,6 @@ import torch
 
 from .errors import KernelLaunchError
 
-launch_counts = {"pm_noise_dump": 0, "pm_fused_solve": 0, "pm_merge": 0,
-                 "pm_fused_costs": 0, "mppi_weights": 0,
-                 "auv_fused_solve": 0, "auv_fused_costs": 0,
-                 "nn_fused_solve": 0, "nn_fused_costs": 0}
-
-
 #: the __global__ function each entry point launches (the solves' costs
 #: mode is the MODE template argument of the same kernel)
 KERNELS = {"pm_noise_dump": "pm_noise_dump_kernel",
@@ -29,6 +23,15 @@ KERNELS = {"pm_noise_dump": "pm_noise_dump_kernel",
            "auv_fused_costs": "auv_fused_solve_kernel",
            "nn_fused_solve": "nn_fused_solve_kernel",
            "nn_fused_costs": "nn_fused_solve_kernel"}
+#: the bf16 block-compute builds (suffix _bf16: every entry point but
+#: pm_merge) and the NN kernel's bf16-products build (suffix _bfp)
+KERNELS.update(
+    {f"{e}_bf16": k.replace("_kernel", "_bf16_kernel")
+     for e, k in KERNELS.items() if e != "pm_merge"}
+    | {f"{e}_bfp": k.replace("_kernel", "_bfp_kernel")
+       for e, k in KERNELS.items() if e.startswith("nn_")})
+
+launch_counts = dict.fromkeys(KERNELS, 0)
 
 
 def kernel_symbol(entry: str, args=()) -> str:

@@ -19,6 +19,17 @@ Phase B (``_fused_auv_weights``) is ``pm_mppi.mppi_weights`` at adim 6, and
 the noise is pm_mppi's Philox stream at adim 6: ``pm_noise_dump(seed,
 solve, k, tau, 6)`` is exactly what these kernels consume. Source:
 ``csrc/auv_mppi.cu``.
+
+At ``compute_dtype="bfloat16"`` the ``*_bf16`` kernels (auv_mppi.cu at
+the block type bf16, ``csrc/auv_mppi_bf16.cu``) round the 13-state and
+every op of the force, the Fossen state derivative, the rk stages and the
+renormalisation to bf16, in the order of auv_mppi.cu's own algebra (M nu,
+the cross products, the cached M^-1; not the JAX kernel's, which is
+shaped differently), with the force in the JAX kernel's order u_t + c_t
+(scale z_t). The renormalisation's rsqrt and the state cost run in f32 on
+the widened state (goals and blend weights rounded, as the JAX kernel
+reads them); the z terms are bf16 values added to the f32 cost.
+``_sample_costs_bf16`` is the plain version, op for op.
 """
 
 from __future__ import annotations
@@ -34,8 +45,10 @@ from . import _build
 from ._launch import check, launch, on_card, split64
 from .errors import KernelUnsupportedError
 from .pm_mppi import (BLOCK, STATS, TwoPhaseSolve, _sched_block,
-                      antithetic_half, block_partials, cost_partials,
-                      noise_plain, sched_factors, variant_args)
+                      bf16_const, bf16_dot, block_partials,
+                      check_compute_dtype, cost_partials, entry,
+                      round_bf16_np, sched_factors, solve_noise,
+                      variant_args)
 
 GRAVITY = 9.81
 SDIM, ADIM = 13, 6
@@ -91,6 +104,12 @@ class AuvConsts:
     elipse3d: dict = field(default_factory=dict)
     scheduled: bool = False
     antithetic: bool = False
+    compute_dtype: str = "float32"
+
+    #: the constants the bf16 kernels read as bf16 (packed rounded); dt,
+    #: lam, nc_half and the f32 state cost's Q or ellipse stay f32
+    BF16_FIELDS = ("buoyancy", "lin_damp", "lin_damp_fwd", "quad_damp",
+                   "cog", "cob", "scale", "Mz")
 
     #: the ellipse constants, in the order of ``Elipse3D`` in auv_mppi.cu
     ELIPSE3D = ("R_plane", "q_plane", "center", "axis3", "mapping", "gv",
@@ -99,7 +118,8 @@ class AuvConsts:
     @functools.cached_property
     def packed(self) -> np.ndarray:
         """f32 host array in the order of ``AuvConsts`` in auv_mppi.cu; its
-        last 100 floats are Q, or the 25 ellipse constants padded."""
+        last 100 floats are Q, or the 25 ellipse constants padded. At bf16
+        the ``BF16_FIELDS`` are rounded to bf16."""
         if self.cost_kind == "elipse3d":
             tail = np.zeros(100)
             el = np.concatenate([np.ravel(self.elipse3d[n])
@@ -107,11 +127,13 @@ class AuvConsts:
             tail[:el.size] = el
         else:
             tail = self.Q.ravel()
+        f = {n: np.ravel(getattr(self, n)) for n in self.BF16_FIELDS}
+        if self.compute_dtype == "bfloat16":
+            f = {n: round_bf16_np(v) for n, v in f.items()}
         return np.ascontiguousarray(np.concatenate([
-            [self.dt, self.lam, self.nc_half, self.buoyancy],
-            self.lin_damp.ravel(), self.lin_damp_fwd.ravel(),
-            self.quad_damp.ravel(), self.cog.ravel(), self.cob.ravel(),
-            self.scale.ravel(), self.Mz.ravel(), tail]).astype(np.float32))
+            [self.dt, self.lam, self.nc_half], f["buoyancy"],
+            f["lin_damp"], f["lin_damp_fwd"], f["quad_damp"], f["cog"],
+            f["cob"], f["scale"], f["Mz"], tail]).astype(np.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +213,9 @@ def sample_costs_plain(consts: AuvConsts, dyn: torch.Tensor,
     """Per-sample rollout costs [k] in the kernel's algebra: the Fossen
     rollout of ``AUVModel.step`` and the state cost of ``consts.cost_kind``
     over eps = c_t scale @ z, with Sigma^-1, u and the schedule folded into
-    dyn."""
+    dyn; at bf16 ``_sample_costs_bf16``."""
+    if consts.compute_dtype == "bfloat16":
+        return _sample_costs_bf16(consts, dyn, z)
     tau, _, k = z.shape
     lay = Dyn(tau, consts.scheduled)
     ct = sched_factors(dyn, lay, tau)
@@ -238,14 +262,150 @@ def sample_costs_plain(consts: AuvConsts, dyn: torch.Tensor,
     return cost + q(x) + dyn[lay.u_half]
 
 
+def _cross(u, v):
+    return [u[1] * v[2] - u[2] * v[1], u[2] * v[0] - u[0] * v[2],
+            u[0] * v[1] - u[1] * v[0]]
+
+
+def _state_dot_bf16(cb: dict, fng, x: list, gf: list) -> list:
+    """auv_mppi.cu's state_dot at bf16, op for op: x (13) and gf (6) are
+    bf16 columns [k], ``cb`` the constants and staged mass matrices as
+    bf16 (host floats for the matrix rows, 0-dim tensors otherwise)."""
+    qx, qy, qz, qw = x[3:7]
+    nu = x[7:13]
+    v, w = nu[:3], nu[3:]
+    one, two, half = cb["1"], cb["2"], cb["0.5"]
+    r11 = one - two * (qy * qy + qz * qz)
+    r12 = two * (qx * qy - qz * qw)
+    r13 = two * (qx * qz + qy * qw)
+    r21 = two * (qx * qy + qz * qw)
+    r22 = one - two * (qx * qx + qz * qz)
+    r23 = two * (qy * qz - qx * qw)
+    r31 = two * (qx * qz - qy * qw)
+    r32 = two * (qy * qz + qx * qw)
+    r33 = one - two * (qx * qx + qy * qy)
+    xd = [r11 * v[0] + r12 * v[1] + r13 * v[2],
+          r21 * v[0] + r22 * v[1] + r23 * v[2],
+          r31 * v[0] + r32 * v[1] + r33 * v[2],
+          half * (qw * w[0] - qz * w[1] + qy * w[2]),
+          half * (qz * w[0] + qw * w[1] - qx * w[2]),
+          half * (-qy * w[0] + qx * w[1] + qw * w[2]),
+          half * (-qx * w[0] - qy * w[1] - qz * w[2])]
+    rhs = []
+    for i in range(6):
+        ld = bf16_dot(cb["lin_damp"][i], nu)
+        lf = bf16_dot(cb["lin_damp_fwd"][i], nu)
+        dv = (-ld - nu[0] * lf
+              - cb["quad_damp"][i] * (torch.abs(nu[i]) * nu[i]))
+        rhs.append(gf[i] - dv)
+    a = [bf16_dot(row, nu) for row in cb["m_tot"]]
+    c1, c2, c3 = _cross(a[:3], w), _cross(a[:3], v), _cross(a[3:], w)
+    for i in range(3):
+        rhs[i] = rhs[i] + c1[i]
+        rhs[3 + i] = rhs[3 + i] + (c2[i] + c3[i])
+    buoy = cb["buoyancy"]
+    fbg = [r31 * fng, r32 * fng, r33 * fng]
+    fbb = [r31 * buoy, r32 * buoy, r33 * buoy]
+    mbg, mbb = _cross(cb["cog"], fbg), _cross(cb["cob"], fbb)
+    for i in range(3):
+        rhs[i] = rhs[i] + (fbg[i] + fbb[i])
+        rhs[3 + i] = rhs[3 + i] + (mbg[i] + mbb[i])
+    return xd + [bf16_dot(row, rhs) for row in cb["inv_m"]]
+
+
+def _sample_costs_bf16(consts: AuvConsts, dyn: torch.Tensor,
+                       z: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernel's per-sample costs [k], op for op (auv_mppi.cu at
+    Val = bf16r): bf16 state columns, the rk step of ``consts.rk``, the f32
+    rsqrt and state cost on the widened state, the z terms as bf16
+    values summed in f32."""
+    tau, _, k = z.shape
+    lay = Dyn(tau, consts.scheduled)
+    d = dyn.to(torch.float32)
+    dev = d.device
+
+    def r(v):
+        return v.to(torch.bfloat16)
+
+    def c(v):
+        return bf16_const(v, dev)
+
+    def rows(m):
+        return np.float32(m).astype(float).tolist()
+
+    def mat(lo, hi):   # a staged (rounded) 6x6 block of dyn, dense rows
+        return [list(row.unbind()) for row in r(d[lo:hi]).reshape(6, 6)]
+
+    cb = {"1": c(1.0), "2": c(2.0), "0.5": c(0.5),
+          "lin_damp": rows(consts.lin_damp),
+          "lin_damp_fwd": rows(consts.lin_damp_fwd),
+          "quad_damp": [c(v) for v in np.ravel(consts.quad_damp)],
+          "cog": [c(v) for v in np.ravel(consts.cog)],
+          "cob": [c(v) for v in np.ravel(consts.cob)],
+          "buoyancy": c(consts.buoyancy),
+          "m_tot": mat(lay.m_tot, lay.inv_m),
+          "inv_m": mat(lay.inv_m, lay.mass)}
+    scale, Mz = rows(consts.scale), rows(consts.Mz)
+    # the state cost reads the goals and blend weights rounded (d_())
+    dq = d.clone()
+    for lo, hi in ((lay.goal, lay.x0), (lay.goal2, lay.wblend + 2)):
+        dq[lo:hi] = r(d[lo:hi]).float()
+    q = _state_cost_fn(consts, dq, lay)
+    fng = r(-d[lay.mass] * GRAVITY)
+    useq = r(d[lay.useq:lay.rhs_z]).reshape(tau, 6)
+    rhs_z = r(d[lay.rhs_z:lay.u_half]).reshape(tau, 6)
+    ct = sched_factors(d, lay, tau)
+    dt32 = np.float32(consts.dt)
+    dt, h, h6 = c(dt32), c(np.float32(0.5) * dt32), c(dt32 / np.float32(6))
+    nc_half = torch.as_tensor(np.float32(consts.nc_half), device=dev)
+
+    def f(x, gf):
+        return _state_dot_bf16(cb, fng, x, gf)
+
+    def axpy(x, s, kk):
+        return [xi + s * ki for xi, ki in zip(x, kk)]
+
+    zb = r(z.to(torch.float32))
+    x = [r(v).expand(k) for v in d[lay.x0:lay.useq].unbind()]
+    cost = torch.zeros(k, dtype=torch.float32, device=dev)
+    for t in range(tau):
+        zt = list(zb[t].unbind())
+        c_t = r(torch.as_tensor(ct[t], dtype=torch.float32, device=dev))
+        gf = [useq[t, i] + c_t * bf16_dot(scale[i], zt) for i in range(6)]
+        k1 = f(x, gf)
+        if consts.rk == 1:
+            x = axpy(x, dt, k1)
+        elif consts.rk == 2:
+            k2 = f(axpy(x, dt, k1), gf)
+            x = axpy(x, h, [a + b for a, b in zip(k1, k2)])
+        else:
+            kk = f(axpy(x, h, k1), gf)
+            acc = axpy(k1, cb["2"], kk)
+            kk = f(axpy(x, h, kk), gf)
+            acc = axpy(acc, cb["2"], kk)
+            kk = f(axpy(x, dt, kk), gf)
+            x = axpy(x, h6, [a + b for a, b in zip(acc, kk)])
+        s2 = x[3] * x[3] + x[4] * x[4] + x[5] * x[5] + x[6] * x[6]
+        inv = r(torch.rsqrt(torch.clamp(s2.float(), min=1e-24)))
+        x = x[:3] + [xi * inv for xi in x[3:7]] + x[7:]
+        cost = cost + q(torch.stack(x, dim=-1).float())
+        quad = None
+        for j in range(6):
+            cost = cost + (rhs_z[t, j] * zt[j]).float()
+            term = zt[j] * bf16_dot(Mz[j], zt)
+            quad = term if quad is None else quad + term
+        cost = cost + (r(nc_half * ct[t]) * quad).float()
+    cost = cost + q(torch.stack(x, dim=-1).float()) + d[lay.u_half]
+    return cost.to(dyn.dtype)
+
+
 def fused_solve_plain(consts: AuvConsts, dyn: torch.Tensor, k: int,
                       tau: int, seed: int = 0, solve: int = 0, z=None,
                       block: int = BLOCK) -> torch.Tensor:
     """Plain version of ``auv_fused_solve``: block partials
     [n_blocks, STATS + tau*6]."""
-    if z is None:
-        z = noise_plain(seed, solve, k, tau, ADIM, device=dyn.device,
-                        half=antithetic_half(k, consts.antithetic)).to(dyn.dtype)
+    z = solve_noise(seed, solve, k, tau, ADIM, dyn, z,
+                    consts.antithetic, consts.compute_dtype)
     costs = sample_costs_plain(consts, dyn, z)
     return block_partials(costs, z.reshape(tau * ADIM, k), consts.lam, block)
 
@@ -254,9 +414,8 @@ def fused_costs_plain(consts: AuvConsts, dyn: torch.Tensor, k: int,
                       tau: int, seed: int = 0, solve: int = 0, z=None,
                       block: int = BLOCK):
     """Plain version of ``auv_fused_costs``: (costs [k], stats-only rows)."""
-    if z is None:
-        z = noise_plain(seed, solve, k, tau, ADIM, device=dyn.device,
-                        half=antithetic_half(k, consts.antithetic)).to(dyn.dtype)
+    z = solve_noise(seed, solve, k, tau, ADIM, dyn, z,
+                    consts.antithetic, consts.compute_dtype)
     costs = sample_costs_plain(consts, dyn, z)
     return costs, cost_partials(costs, block)
 
@@ -294,7 +453,8 @@ def auv_fused_solve(consts: AuvConsts, dyn: torch.Tensor, k: int, tau: int,
     _check_inputs(consts, dyn, z, k, tau)
     partials = torch.empty((-(-k // BLOCK), STATS + tau * ADIM),
                            dtype=torch.float32, device=dyn.device)
-    launch("auv_fused_solve", dyn.device, consts.rk,
+    launch(entry("auv_fused_solve", consts.compute_dtype), dyn.device,
+           consts.rk,
            COST_KINDS[consts.cost_kind], consts.packed.ctypes.data, dyn.data_ptr(),
            None if z is None else z.data_ptr(), partials.data_ptr(), k, tau,
            *variant_args(consts, k), *split64(seed), *split64(solve))
@@ -310,7 +470,8 @@ def auv_fused_costs(consts: AuvConsts, dyn: torch.Tensor, k: int, tau: int,
     costs = torch.empty(k, dtype=torch.float32, device=dyn.device)
     partials = torch.empty((-(-k // BLOCK), STATS), dtype=torch.float32,
                            device=dyn.device)
-    launch("auv_fused_costs", dyn.device, consts.rk,
+    launch(entry("auv_fused_costs", consts.compute_dtype), dyn.device,
+           consts.rk,
            COST_KINDS[consts.cost_kind], consts.packed.ctypes.data, dyn.data_ptr(),
            None if z is None else z.data_ptr(), costs.data_ptr(),
            partials.data_ptr(), k, tau, *variant_args(consts, k),
@@ -330,20 +491,22 @@ class FusedAUVMPPI(TwoPhaseSolve):
     phases ``auv_fused_costs`` and ``mppi_weights``, and un-folds the
     weighted normals to action units.
 
-    Counterpart of the JAX package's ``FusedAUVMPPI`` without its bf16
-    variant; ``antithetic`` and ``schedule`` are its runtime variants. The
-    kernels are float32; on the CPU the plain versions run at the model's
+    Counterpart of the JAX package's ``FusedAUVMPPI``; ``antithetic`` and
+    ``schedule`` are its runtime variants, ``compute_dtype`` ("float32" or
+    "bfloat16", the block compute type) its build. The model is float32
+    on the card; on the CPU the f32 plain versions run at the model's
     dtype.
     """
 
     def __init__(self, model, cost, k: int, tau: int, lam: float,
                  upsilon: float, sigma, antithetic: bool = False,
-                 schedule=None):
+                 schedule=None, compute_dtype: str = "float32"):
         from ..costs.elipse import ElipseCost3D
         from ..costs.static import StaticQuatCost
         from ..costs.waypoints import WayPointsQuatCost
         from ..models.auv import AUVModel
 
+        self.compute_dtype = check_compute_dtype(compute_dtype)
         if not isinstance(model, AUVModel):
             raise KernelUnsupportedError(
                 "fused AUV kernel supports AUVModel only")
@@ -394,7 +557,7 @@ class FusedAUVMPPI(TwoPhaseSolve):
             Mz=scale.T @ inv_sigma @ scale,
             Q=np.zeros((10, 10)) if cost_kind == "elipse3d" else f64(cost.Q),
             cost_kind=cost_kind, elipse3d=elipse3d, scheduled=self.scheduled,
-            antithetic=self.antithetic)
+            antithetic=self.antithetic, compute_dtype=self.compute_dtype)
         self._scale = torch.as_tensor(scale, **like)
         self._inv_sigma = torch.as_tensor(inv_sigma, **like)
 

@@ -54,6 +54,20 @@ argument AB = kDynAB in pm_mppi.cu): A and B scale are read from ``dyn``
 bu the true B u_t, so that an identified linear model
 (``FusedLTIMPPI``) changes them as data.
 
+The bf16 block compute (``compute_dtype="bfloat16"``, the JAX kernels'
+``compute_dtype``): the ``*_bf16`` kernels, pm_mppi.cu compiled at the
+block type bf16 (``csrc/pm_mppi_bf16.cu``). The state, x0, goal and every
+rollout and cost op round to bf16 (round to nearest even) after each op,
+in the JAX kernel's order: x' = ax + inv_m (bu + bz), or with a schedule
+ax + (r(inv_m bu) + r(inv_m c_t) bz) with the scalar products formed in f32
+and rounded once; each step's state cost, rhs_z . z and nc_half z^T Mz z
+is a bf16 value added to the f32 cost. The softmax, the partial rows,
+``pm_merge``, the stats, u_half and Box-Muller stay f32. Every normal a
+bf16 kernel consumes, injected or drawn, and every normal its noise dump
+writes is the f32 normal rounded to bf16. The plain bf16 versions run the
+same ops on ``torch.bfloat16`` tensors (PyTorch computes a bf16 op in f32
+and rounds once, as the kernels do).
+
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. Each launch adds one to
 ``launch_counts[name]`` (``kernels/_launch.py``).
@@ -84,6 +98,60 @@ SUPPORTED_DIMS = ((6, 3), (2, 1), (4, 2))
 #: state costs of the kernel (``PmCost`` in pm_mppi.cu); "elipse" is built
 #: for (4, 2) only
 COST_KINDS = {"quadratic": 0, "elipse": 1}
+#: block compute types of the kernels (the JAX kernels' ``compute_dtype``)
+COMPUTE_DTYPES = ("float32", "bfloat16")
+
+
+def check_compute_dtype(compute_dtype: str) -> str:
+    """``compute_dtype`` if the kernels are built for it; else ValueError,
+    as the JAX solve objects raise (pm_mppi.py:674-677)."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype must be 'float32' or 'bfloat16', "
+                         f"got {compute_dtype!r}")
+    return compute_dtype
+
+
+def entry(name: str, compute_dtype: str) -> str:
+    """The C entry point of kernel ``name`` at ``compute_dtype``: the bf16
+    build carries a ``_bf16`` suffix."""
+    return name + "_bf16" if check_compute_dtype(
+        compute_dtype) == "bfloat16" else name
+
+
+def round_bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (nearest, ties to even), in t's dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def round_bf16_np(a) -> np.ndarray:
+    """Host array ``a`` rounded to f32, then to bf16, as f64: the solve
+    constants the bf16 kernels read (packed rounded, so that the kernels
+    multiply by them as they are)."""
+    t = torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    return t.to(torch.bfloat16).double().numpy()
+
+
+def bf16_const(v, device) -> torch.Tensor:
+    """A host constant as the bf16 kernels read it: rounded to f32 (the
+    packed constants), then to bf16; a 0-dim bf16 tensor."""
+    return torch.tensor(np.float32(v), device=device).to(torch.bfloat16)
+
+
+def bf16_dot(row, vec):
+    """sum_j row[j] vec[j] with a bf16 round after every product and sum, j
+    in order: a kernel's fma_r chain. ``row`` holds host floats (a zero is
+    skipped and a one not multiplied, as the JAX kernel's sparse_dot does;
+    both are exact) or 0-dim bf16 tensors (dense); ``vec`` bf16 tensors."""
+    acc = None
+    for m, v in zip(row, vec):
+        if isinstance(m, float):
+            if m == 0.0:
+                continue
+            term = v if m == 1.0 else bf16_const(m, v.device) * v
+        else:
+            term = m * v
+        acc = term if acc is None else acc + term
+    return acc if acc is not None else torch.zeros_like(vec[0])
 
 
 class Dyn:
@@ -134,7 +202,8 @@ class PmConsts:
     m_vel); ``scheduled`` and ``antithetic`` are the runtime variants (not
     packed: launch arguments). With ``dynamic_ab`` the kernel reads A and
     Bs from ``dyn`` (``Dyn.A``, ``Dyn.Bs``) and the packed A and Bs are
-    zeros that it never reads."""
+    zeros that it never reads. ``compute_dtype`` picks the f32 or the bf16
+    build of the kernels."""
 
     A: np.ndarray
     Bs: np.ndarray
@@ -147,6 +216,7 @@ class PmConsts:
     scheduled: bool = False
     antithetic: bool = False
     dynamic_ab: bool = False
+    compute_dtype: str = "float32"
 
     @property
     def dims(self):
@@ -155,10 +225,14 @@ class PmConsts:
     @functools.cached_property
     def packed(self) -> np.ndarray:
         """f32 host array in the order of ``Consts`` in pm_mppi.cu: A, Bs,
-        Q, Mz, lam, nc_half, the seven ellipse constants."""
-        return np.ascontiguousarray(np.concatenate([
-            self.A.ravel(), self.Bs.ravel(), self.Q.ravel(), self.Mz.ravel(),
-            [self.lam, self.nc_half], self.elipse]).astype(np.float32))
+        Q, Mz, lam, nc_half, the seven ellipse constants; at bf16 with A,
+        Bs, Q and Mz rounded to bf16 (the f32 scalars stay f32)."""
+        mats = [self.A, self.Bs, self.Q, self.Mz]
+        if self.compute_dtype == "bfloat16":
+            mats = [round_bf16_np(m) for m in mats]
+        return np.ascontiguousarray(np.concatenate(
+            [m.ravel() for m in mats]
+            + [[self.lam, self.nc_half], self.elipse]).astype(np.float32))
 
 
 # ---------------------------------------------------------------------------
@@ -236,7 +310,10 @@ def sample_costs_plain(consts: PmConsts, dyn: torch.Tensor,
     """Per-sample rollout costs [k] in the kernel's folded algebra: the
     rollout_costs of the point-mass model and its state cost (the
     quadratic around dyn's goal, or the ellipse) over eps = c_t scale @ z,
-    with B scale, Sigma^-1, u and the schedule folded into dyn."""
+    with B scale, Sigma^-1, u and the schedule folded into dyn; at bf16
+    ``_sample_costs_bf16``."""
+    if consts.compute_dtype == "bfloat16":
+        return _sample_costs_bf16(consts, dyn, z)
     tau, adim, k = z.shape
     sdim = consts.A.shape[0]
     lay = Dyn(tau, sdim, adim, consts.dynamic_ab, consts.scheduled)
@@ -276,6 +353,86 @@ def sample_costs_plain(consts: PmConsts, dyn: torch.Tensor,
         cost = (cost + q(x) + zt @ rhs_z[t] + consts.nc_half * ct[t]
                 * torch.sum((zt @ Mz.T) * zt, dim=-1))
     return cost + q(x) + dyn[lay.u_half]
+
+
+def _sample_costs_bf16(consts: PmConsts, dyn: torch.Tensor,
+                       z: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernel's per-sample costs [k], op for op (pm_mppi.cu at
+    Val = bf16r): the state as bf16 columns, each op rounded, in the JAX
+    kernel's order; the state cost and the z terms bf16 values summed in
+    f32. Not the f32 path's matrix products, which round once."""
+    tau, adim, k = z.shape
+    sdim = consts.A.shape[0]
+    lay = Dyn(tau, sdim, adim, consts.dynamic_ab, consts.scheduled)
+    d = dyn.to(torch.float32)
+    dev = d.device
+
+    def r(v):
+        return v.to(torch.bfloat16)
+
+    def c(v):
+        return bf16_const(v, dev)
+
+    if consts.dynamic_ab:     # dense smem_dot rows over runtime (A, B scale)
+        A = r(d[lay.A:lay.Bs]).reshape(sdim, sdim)
+        Bs = r(d[lay.Bs:lay.Bs + sdim * adim]).reshape(sdim, adim)
+        A = [list(row.unbind()) for row in A]
+        Bs = [list(row.unbind()) for row in Bs]
+    else:                     # sparse_dot rows over the constants
+        A = np.float32(consts.A).astype(float).tolist()
+        Bs = np.float32(consts.Bs).astype(float).tolist()
+    Q = np.float32(consts.Q).astype(float).tolist()
+    Mz = np.float32(consts.Mz).astype(float).tolist()
+    inv_m = d[lay.inv_mass]
+    goal = [r(g) for g in d[lay.goal:lay.goal + sdim].unbind()]
+    bu = d[lay.bu:lay.rhs_z].reshape(tau, sdim)
+    rhs_z = r(d[lay.rhs_z:lay.u_half]).reshape(tau, adim)
+    ct = sched_factors(d, lay, tau)
+    nc_half = np.float32(consts.nc_half)
+
+    if consts.cost_kind == "elipse":
+        a, b, cx, cy, gv, mx, mv = (np.float32(v) for v in consts.elipse)
+        inv_a, inv_b = np.float32(1.0) / a, np.float32(1.0) / b
+
+        def q(x):   # the JAX kernel's bf16 ellipse (:474-485)
+            ex = (x[0] - c(cx)) * c(inv_a)
+            ey = (x[2] - c(cy)) * c(inv_b)
+            dd = torch.abs(ex * ex + ey * ey - c(1.0))
+            dv = r(torch.sqrt((x[1] * x[1] + x[3] * x[3]).float())) - c(gv)
+            return c(mx) * dd + c(mv) * (dv * dv)
+    else:
+        def q(x):
+            dvec = [xi - gi for xi, gi in zip(x, goal)]
+            out = None
+            for i in range(sdim):
+                if not any(Q[i]):
+                    continue
+                term = dvec[i] * bf16_dot(Q[i], dvec)
+                out = term if out is None else out + term
+            return out if out is not None else torch.zeros_like(x[0])
+
+    zb = r(z.to(torch.float32))
+    x = [r(v).expand(k) for v in d[lay.x0:lay.x0 + sdim].unbind()]
+    cost = torch.zeros(k, dtype=torch.float32, device=dev)
+    for t in range(tau):
+        zt = list(zb[t].unbind())
+        xn = []
+        for i in range(sdim):
+            ax, bz = bf16_dot(A[i], x), bf16_dot(Bs[i], zt)
+            if lay.sched is not None:
+                xn.append(ax + (r(inv_m * bu[t, i]) + r(inv_m * ct[t]) * bz))
+            else:
+                xn.append(ax + r(inv_m) * (r(bu[t, i]) + bz))
+        x = xn
+        cost = cost + q(x).float()
+        quad = None
+        for j in range(adim):
+            cost = cost + (rhs_z[t, j] * zt[j]).float()
+            term = zt[j] * bf16_dot(Mz[j], zt)
+            quad = term if quad is None else quad + term
+        cost = cost + (r(torch.as_tensor(nc_half, device=dev) * ct[t])
+                       * quad).float()
+    return (cost + q(x).float() + d[lay.u_half]).to(dyn.dtype)
 
 
 def sched_factors(dyn: torch.Tensor, lay, tau: int) -> list:
@@ -343,11 +500,23 @@ def fused_solve_plain(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
     """Plain version of ``pm_fused_solve``: per-block partials
     [n_blocks, STATS + tau*adim]."""
     adim = consts.Bs.shape[1]
-    if z is None:
-        z = noise_plain(seed, solve, k, tau, adim, device=dyn.device,
-                        half=antithetic_half(k, consts.antithetic)).to(dyn.dtype)
+    z = solve_noise(seed, solve, k, tau, adim, dyn, z,
+                    consts.antithetic, consts.compute_dtype)
     costs = sample_costs_plain(consts, dyn, z)
     return block_partials(costs, z.reshape(tau * adim, k), consts.lam, block)
+
+
+def solve_noise(seed: int, solve: int, k: int, tau: int, adim: int,
+                like: torch.Tensor, z=None, antithetic: bool = False,
+                compute_dtype: str = "float32") -> torch.Tensor:
+    """The normals [tau, adim, k] a solve consumes, in ``like``'s dtype and
+    device: injected ``z`` or the Philox stream of (seed, solve), mirrored
+    when ``antithetic``, rounded to bf16 at ``compute_dtype`` bf16."""
+    if z is None:
+        z = noise_plain(seed, solve, k, tau, adim, device=like.device,
+                        half=antithetic_half(k, antithetic))
+    z = z.to(like.dtype)
+    return round_bf16(z) if compute_dtype == "bfloat16" else z
 
 
 def fused_costs_plain(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
@@ -355,24 +524,22 @@ def fused_costs_plain(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
                       block: int = BLOCK):
     """Plain version of ``pm_fused_costs``: (costs [k], stats-only rows
     [n_blocks, STATS])."""
-    if z is None:
-        z = noise_plain(seed, solve, k, tau, consts.Bs.shape[1],
-                        device=dyn.device,
-                        half=antithetic_half(k, consts.antithetic)).to(dyn.dtype)
+    z = solve_noise(seed, solve, k, tau, consts.Bs.shape[1], dyn, z,
+                    consts.antithetic, consts.compute_dtype)
     costs = sample_costs_plain(consts, dyn, z)
     return costs, cost_partials(costs, block)
 
 
 def weights_plain(nrm: torch.Tensor, costs: torch.Tensor, tau: int,
                   adim: int, seed: int = 0, solve: int = 0, z=None,
-                  block: int = BLOCK,
-                  antithetic: bool = False) -> torch.Tensor:
+                  block: int = BLOCK, antithetic: bool = False,
+                  compute_dtype: str = "float32") -> torch.Tensor:
     """Plain version of ``mppi_weights``: rows [n_blocks, STATS + tau*adim]
-    of the normalized weights over the solve's normals."""
+    of the normalized weights over the solve's normals (rounded to bf16 at
+    ``compute_dtype`` bf16)."""
     k = costs.shape[0]
-    if z is None:
-        z = noise_plain(seed, solve, k, tau, adim, device=costs.device,
-                        half=antithetic_half(k, antithetic)).to(costs.dtype)
+    z = solve_noise(seed, solve, k, tau, adim, costs, z, antithetic,
+                    compute_dtype)
     return weight_partials(costs, nrm, z.reshape(tau * adim, k), block)
 
 
@@ -394,16 +561,21 @@ def merge_plain(partials: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 def pm_noise_dump(seed: int, solve: int, k: int, tau: int, adim: int,
-                  device, half: int = 0) -> torch.Tensor:
+                  device, half: int = 0,
+                  compute_dtype: str = "float32") -> torch.Tensor:
     """The exact normals of solve ``solve`` at ``seed``: z f32 [tau, adim, k],
-    mirrored from sample ``half`` on as in ``noise_plain``."""
+    mirrored from sample ``half`` on as in ``noise_plain``; at
+    ``compute_dtype`` bf16 each rounded to bf16, as the bf16 kernels read
+    them."""
     device = torch.device(device)
+    name = entry("pm_noise_dump", compute_dtype)
     if device.type == "cpu":
-        return noise_plain(seed, solve, k, tau, adim, half=half)
+        z = noise_plain(seed, solve, k, tau, adim, half=half)
+        return round_bf16(z) if compute_dtype == "bfloat16" else z
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
     out = torch.empty((tau, adim, k), dtype=torch.float32, device=device)
-    launch("pm_noise_dump", device, out.data_ptr(), k, tau * adim, half,
+    launch(name, device, out.data_ptr(), k, tau * adim, half,
            *split64(seed), *split64(solve))
     return out
 
@@ -450,7 +622,8 @@ def pm_fused_solve(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
     sdim, adim = consts.dims
     partials = torch.empty((-(-k // BLOCK), STATS + tau * adim),
                            dtype=torch.float32, device=dyn.device)
-    launch("pm_fused_solve", dyn.device, sdim, adim,
+    launch(entry("pm_fused_solve", consts.compute_dtype), dyn.device, sdim,
+           adim,
            COST_KINDS[consts.cost_kind], consts.packed.ctypes.data, dyn.data_ptr(),
            None if z is None else z.data_ptr(), partials.data_ptr(), k, tau,
            *_pm_launch_args(consts, k, seed, solve))
@@ -468,7 +641,8 @@ def pm_fused_costs(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
     costs = torch.empty(k, dtype=torch.float32, device=dyn.device)
     partials = torch.empty((-(-k // BLOCK), STATS), dtype=torch.float32,
                            device=dyn.device)
-    launch("pm_fused_costs", dyn.device, sdim, adim,
+    launch(entry("pm_fused_costs", consts.compute_dtype), dyn.device, sdim,
+           adim,
            COST_KINDS[consts.cost_kind], consts.packed.ctypes.data, dyn.data_ptr(),
            None if z is None else z.data_ptr(), costs.data_ptr(),
            partials.data_ptr(), k, tau,
@@ -478,14 +652,17 @@ def pm_fused_costs(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
 
 def mppi_weights(nrm: torch.Tensor, costs: torch.Tensor, tau: int,
                  adim: int, seed: int = 0, solve: int = 0, z=None,
-                 antithetic: bool = False) -> torch.Tensor:
+                 antithetic: bool = False,
+                 compute_dtype: str = "float32") -> torch.Tensor:
     """Phase B over phase-A ``costs`` [k] with nrm = (beta, 1/(denom lam))
     (f32 [2], on the device): rows [n_blocks, STATS + tau*adim] of the
     normalized weights over the normals of (seed, solve), mirrored when
-    ``antithetic``, or ``z``."""
+    ``antithetic``, or ``z``; rounded to bf16 at ``compute_dtype`` bf16."""
+    name = entry("mppi_weights", compute_dtype)
     if not on_card(nrm, costs, z):
         return weights_plain(nrm, costs, tau, adim, seed, solve, z,
-                             antithetic=antithetic)
+                             antithetic=antithetic,
+                             compute_dtype=compute_dtype)
     k = costs.shape[0]
     check(nrm, "nrm", (2,))
     check(costs, "costs", (k,))
@@ -493,7 +670,7 @@ def mppi_weights(nrm: torch.Tensor, costs: torch.Tensor, tau: int,
         check(z, "z", (tau, adim, k))
     partials = torch.empty((-(-k // BLOCK), STATS + tau * adim),
                            dtype=torch.float32, device=costs.device)
-    launch("mppi_weights", costs.device, nrm.data_ptr(), costs.data_ptr(),
+    launch(name, costs.device, nrm.data_ptr(), costs.data_ptr(),
            None if z is None else z.data_ptr(), partials.data_ptr(), k,
            tau * adim, antithetic_half(k, antithetic), *split64(seed),
            *split64(solve))
@@ -539,7 +716,11 @@ class TwoPhaseSolve:
     The runtime variants (``_noise_options``): ``antithetic`` mirrors the
     Philox samples past ceil(K/2); ``sched`` holds the schedule's c_t
     ([tau], appended to ``dyn``), which ``set_schedule`` replaces as data.
+    ``compute_dtype`` ("float32" or "bfloat16") picks the kernels' build
+    in every phase, the weights and the noise sample included.
     """
+
+    compute_dtype = "float32"
 
     def _noise_options(self, antithetic: bool, schedule, like: dict) -> None:
         """Set ``antithetic`` and ``sched`` (a spec of
@@ -590,9 +771,10 @@ class TwoPhaseSolve:
     def template_args(self, entry: str) -> tuple:
         """The integer template arguments of the kernel that entry point
         ``entry`` launches for this solve; () for the shared kernels."""
-        if entry in ("mppi_weights", "pm_merge", "pm_noise_dump"):
+        base = entry.removesuffix("_bf16").removesuffix("_bfp")
+        if base in ("mppi_weights", "pm_merge", "pm_noise_dump"):
             return ()
-        return self._template_args(1 if entry.endswith("_costs") else 0)
+        return self._template_args(1 if base.endswith("_costs") else 0)
 
     def unfold_wnoise(self, zsum: torch.Tensor) -> torch.Tensor:
         """Weighted standard-normal sums [tau*adim] -> action units
@@ -650,18 +832,20 @@ class TwoPhaseSolve:
         nrm = torch.stack([beta, 1.0 / (denom * self.lam)])
         zsum, stats = pm_merge(mppi_weights(nrm, costs, self.tau, self.adim,
                                             seed, solve, z,
-                                            antithetic=self.antithetic))
+                                            antithetic=self.antithetic,
+                                            compute_dtype=self.compute_dtype))
         return zsum.reshape(self.tau, self.adim), stats[1]
 
     def noise_sample(self, seed: int, solve: int,
                      max_samples: int = 512) -> torch.Tensor:
         """The first min(max_samples, k) samples' noise of solve ``solve``
         in action units, eps [n, tau, adim] with eps_t = c_t scale z_t (JAX
-        fused_noise_sample)."""
+        fused_noise_sample; bf16-rounded normals at bf16)."""
         n = min(max_samples, self.k)
         z = pm_noise_dump(seed, solve, n, self.tau, self.adim,
                           self._scale.device,
-                          half=antithetic_half(self.k, self.antithetic))
+                          half=antithetic_half(self.k, self.antithetic),
+                          compute_dtype=self.compute_dtype)
         eps = torch.einsum("ij,tjn->nti", self._scale,
                            z.to(self._scale.dtype))
         return eps if self.sched is None else eps * self.sched[None, :, None]
@@ -681,10 +865,10 @@ class FusedPointMassMPPI(TwoPhaseSolve):
     data, and ``_cost_offset`` adds the constant back to the costs and
     their stats (the weights do not depend on it).
 
-    Counterpart of the JAX package's ``FusedPointMassMPPI`` without its
-    bf16 variant; ``antithetic`` and ``schedule`` (a noise schedule spec)
-    are its runtime variants, and ``FusedLTIMPPI`` its runtime-(A, B)
-    subclass.
+    Counterpart of the JAX package's ``FusedPointMassMPPI``; ``antithetic``
+    and ``schedule`` (a noise schedule spec) are its runtime variants,
+    ``compute_dtype`` ("float32" or "bfloat16", the block compute type)
+    its build, and ``FusedLTIMPPI`` its runtime-(A, B) subclass.
     """
 
     #: True where the kernel reads (A, B scale) from ``dyn``
@@ -700,11 +884,12 @@ class FusedPointMassMPPI(TwoPhaseSolve):
 
     def __init__(self, model, cost, k: int, tau: int, lam: float,
                  upsilon: float, sigma, antithetic: bool = False,
-                 schedule=None):
+                 schedule=None, compute_dtype: str = "float32"):
         from ..costs.elipse import ElipseCost
         from ..costs.static import StaticCost
         from ..costs.waypoints import WayPointsCost
 
+        self.compute_dtype = check_compute_dtype(compute_dtype)
         self._check_model(model)
         dims = (model.get_state_dim(), model.get_action_dim())
         if type(cost) in (StaticCost, WayPointsCost):
@@ -754,7 +939,8 @@ class FusedPointMassMPPI(TwoPhaseSolve):
             A=A, Bs=B @ scale, Q=Q, Mz=scale.T @ inv_sigma @ scale,
             lam=self.lam, nc_half=0.5 * self.lam * (1.0 - 1.0 / self.upsilon),
             cost_kind=cost_kind, elipse=elipse, scheduled=self.scheduled,
-            antithetic=self.antithetic, dynamic_ab=self.dynamic_ab)
+            antithetic=self.antithetic, dynamic_ab=self.dynamic_ab,
+            compute_dtype=self.compute_dtype)
 
         def f32(a):
             return torch.as_tensor(a, **like)

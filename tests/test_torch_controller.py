@@ -188,7 +188,8 @@ def test_constructor_rejects():
         MPPI(pm, pc, k=10, tau=4, sigma=None, device="cpu")
     with pytest.raises(AssertionError):
         MPPI(pm, pc, k=10, tau=4, sigma=np.eye(2), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue-2 item 7"):
+    # bf16 blocks are a kernel-path option: the torch path refuses them
+    with pytest.raises(ValueError, match="fused kernel path only"):
         MPPI(pm, pc, k=10, tau=4, sigma=SIGMA, device="cpu",
              kernel_dtype="bfloat16")
     ctrl = MPPI(pm, pc, k=10, tau=4, sigma=SIGMA, kernel="xla",
@@ -212,11 +213,14 @@ def test_get_controller_single():
 @pytest.mark.parametrize("cfg,kw,item", [
     ({"fleet": 4}, {}, "item 12"),
     ({}, {"mesh": object()}, "item 14"),
-    ({"kernel-dtype": "bfloat16"}, {}, "queue-2 item 7")])
+    ({"kernel-dtype": "bfloat16"}, {}, "fused kernel path only")])
 def test_get_controller_not_ported(cfg, kw, item):
+    """Fleets and meshes are not ported; kernel-dtype is, and reaches the
+    controller, which refuses bf16 on the torch path as JAX does."""
     (pm, pc), _ = _modules()
     base = {"samples": 10, "horizon": 4, "noise": SIGMA.tolist()}
-    with pytest.raises(NotImplementedError, match=item):
+    err = ValueError if "kernel-dtype" in cfg else NotImplementedError
+    with pytest.raises(err, match=item):
         get_controller(pm, pc, {**base, **cfg}, device="cpu", **kw)
 
 

@@ -139,26 +139,22 @@ def test_wrappers_count_launches_and_check_inputs(cuda_device):
     ({"antithetic": True}, None),
     ({"noise_schedule": {"type": "exp", "start": 1.0, "end": 0.25}},
      None),
-    ({"kernel_dtype": "bfloat16"}, "queue-2 item 7")])
+    ({"kernel_dtype": "bfloat16"}, None)])
 def test_cuda_path_unported_options(cuda_device, opt, item):
-    """normalize_cost, log, antithetic and the noise schedule run on the
-    kernel path; bf16 blocks still raise."""
+    """normalize_cost, log, antithetic, the noise schedule and bf16 blocks
+    run on the kernel path."""
+    assert item is None
     model, cost = _modules(cuda_device)
-    if item is None:
-        ctrl = MPPI(model, cost, k=300, tau=8, sigma=SIGMA, kernel="cuda",
-                    device=cuda_device, **opt)
-        assert ctrl.kernel_path == "cuda"
-        state = torch.zeros(6, device=cuda_device)
-        _, _, info = ctrl._fused_step(state, ctrl.useq)
-        if opt.get("log"):
-            assert info["sample_costs"].shape == (300,)
-            assert info["noise"].shape == (300, 8, 3)
-        assert np.all(np.isfinite(ctrl.next(np.zeros(6))))
-        return
-    for kernel in ("cuda", "auto"):
-        with pytest.raises(NotImplementedError, match=item):
-            MPPI(model, cost, k=300, tau=8, sigma=SIGMA, kernel=kernel,
-                 device=cuda_device, **opt)
+    ctrl = MPPI(model, cost, k=300, tau=8, sigma=SIGMA, kernel="cuda",
+                device=cuda_device, **opt)
+    assert ctrl.kernel_path == "cuda"
+    assert ctrl._fused.compute_dtype == opt.get("kernel_dtype", "float32")
+    state = torch.zeros(6, device=cuda_device)
+    _, _, info = ctrl._fused_step(state, ctrl.useq)
+    if opt.get("log"):
+        assert info["sample_costs"].shape == (300,)
+        assert info["noise"].shape == (300, 8, 3)
+    assert np.all(np.isfinite(ctrl.next(np.zeros(6))))
 
 
 def test_cuda_path_unbuilt_dims(cuda_device):
@@ -863,3 +859,255 @@ def test_lti_refit_builds_nothing_and_launches_the_same_symbol(
                                rtol=0, atol=1e-4)
     assert f"pm_fused_solve x1: {sym}" in ctrl.dump_hlo()
     assert np.all(np.isfinite(ctrl.next(x)))
+
+
+# ---- the bf16 block compute (compute_dtype="bfloat16") --------------------
+
+# a bf16 kernel against its plain bf16 version: mean |kernel - plain| over
+# the per-sample costs at most this share of the f32 build's distance from
+# that plain version (the kernel is the bf16 arithmetic, not f32
+# relabelled); the same share bounds the weighted noise against the effect
+# of rounding the normals, and phase B's block rows
+BF16_GAP_SHARE = 1e-2
+WNOISE_RTOL, WNOISE_ATOL = 1e-3, 1e-5
+
+BF16_KINDS = ["pm", "pm21", "pm42", "pm_elipse", "pm_sched_anti", "lti",
+              "auv1", "auv2", "auv4", "auv_waypoints_quat", "auv_elipse3d",
+              "auv_sched_anti", "nn8", "nn32", "nn_sched_anti", "nn_bfp"]
+
+
+def _bf16_pair(kind, k, tau, device):
+    """(f32 solve object, its dyn, bf16 solve object, its dyn, the module
+    of its wrappers) of one kind; for nn_bfp the f32 object runs the same
+    weights with f32 products."""
+    from mppi_tf_tpu_torch.kernels import nn_mppi as nnk
+
+    rng = np.random.default_rng(len(kind))
+    both = ({"schedule": SCHED, "antithetic": True}
+            if kind.endswith("sched_anti") else {})
+    if kind.startswith(("pm", "lti")):
+        if kind == "lti":
+            f32 = _lti(k, tau, device)[0]
+            make = (lambda cd: pm.FusedLTIMPPI(
+                f32.model, f32.cost, k=k, tau=tau, lam=LAM, upsilon=UPS,
+                sigma=SIGMA, compute_dtype=cd))
+        else:
+            dims = {"pm21": (2, 1), "pm42": (4, 2),
+                    "pm_elipse": (4, 2)}.get(kind, (6, 3))
+            model, cost = _modules(device, sdim=dims[0], adim=dims[1])
+            if kind == "pm_elipse":
+                cost = get_cost(PM_ELIPSE, lam=LAM, gamma=GAMMA, upsilon=UPS,
+                                sigma=SIGMA[:2, :2], device=device)
+            make = (lambda cd: pm.FusedPointMassMPPI(
+                model, cost, k=k, tau=tau, lam=LAM, upsilon=UPS,
+                sigma=SIGMA[:dims[1], :dims[1]], compute_dtype=cd, **both))
+        f32, b16 = make("float32"), make("bfloat16")
+        x0 = torch.as_tensor(rng.normal(size=f32.sdim) * 0.3 + (
+            3.0 if kind == "pm_elipse" else 0.0), dtype=torch.float32,
+            device=device)
+        useq = torch.as_tensor(rng.normal(size=(tau, f32.adim)) * 0.1,
+                               dtype=torch.float32, device=device)
+        mod = pm
+    elif kind.startswith("auv"):
+        rk = int(kind[3:]) if kind[3:].isdigit() else 2
+        model = get_model({**flagship.auv_params(), "rk": rk}, dt=0.1,
+                          device=device)
+        task = (_auv_tracking_task(kind[4:]) if kind in (
+            "auv_waypoints_quat", "auv_elipse3d") else flagship.auv_task())
+        cost = get_cost(task, lam=0.5, gamma=0.2, upsilon=1.2,
+                        sigma=AUV_SIGMA, device=device)
+        f32, b16 = [auv.FusedAUVMPPI(model, cost, k=k, tau=tau, lam=0.5,
+                                     upsilon=1.2, sigma=AUV_SIGMA,
+                                     compute_dtype=cd, **both)
+                    for cd in ("float32", "bfloat16")]
+        _, x0, useq, _ = _auv_inputs(f32, device)
+        if kind == "auv_elipse3d":
+            # from a point of the ellipse, heading +x: at its center the
+            # tangent is ~1e-6 long and the orientation term 2 acos(dot)
+            # sits at dot ~ 1, where the kernel's closed form and the
+            # plain version's quaternion ops, both f32, part on bf16
+            # states (PERF.md)
+            x0 = torch.zeros(13, device=device)
+            x0[0], x0[2], x0[6] = 4.0, -3.0, 1.0
+            useq = torch.as_tensor(20.0 * rng.standard_normal((tau, 6)),
+                                   dtype=torch.float32, device=device)
+        mod = auv
+    else:
+        f32 = _nn_fused(k, tau, device, (8, 8) if kind == "nn8" else
+                        (32, 32, 32))
+        if kind == "nn_bfp":
+            model = type(f32.model)(hidden=(32, 32, 32), seed=4,
+                                    device=device,
+                                    compute_dtype=torch.bfloat16)
+            model.load_state_dict(f32.model.state_dict())
+            b16 = nnk.FusedNNMPPI(model, f32.cost, k=k, tau=tau, lam=0.5,
+                                  upsilon=1.2, sigma=NN_SIGMA)
+        else:
+            f32, b16 = [nnk.FusedNNMPPI(f32.model, f32.cost, k=k, tau=tau,
+                                        lam=0.5, upsilon=1.2, sigma=NN_SIGMA,
+                                        compute_dtype=cd, **both)
+                        for cd in ("float32", "bfloat16")]
+        _, x0, useq, _ = _auv_inputs(f32, device)
+        mod = nnk
+    with torch.no_grad():
+        return f32, f32.pack_dyn(x0, useq), b16, b16.pack_dyn(x0, useq), mod
+
+
+def _wnoise(rows, merge):
+    zsum, st = merge(rows)
+    return zsum / st[1]
+
+
+def _philox_pair(seed, solve, k, tau, adim, device, half=0):
+    """Keywords of a kernel on the Philox stream of (seed, solve) and of
+    its plain version fed the f32 normals the kernel draws (the noise
+    dump): the plain Box-Muller differs in the last bit, which rounding
+    to bf16 turns into a rare one-step flip of a normal."""
+    return ({"seed": seed, "solve": solve},
+            {"z": pm.pm_noise_dump(seed, solve, k, tau, adim, device,
+                                   half=half)})
+
+
+@pytest.mark.parametrize("kind", BF16_KINDS)
+def test_bf16_kernels_match_plain(cuda_device, kind):
+    """Each bf16 kernel against its plain bf16 version on injected z and
+    on the Philox stream (the plain version fed the kernel's own normals,
+    _philox_pair): the per-sample costs (costs mode) within BF16_GAP_SHARE
+    of the same kernel's f32 build's distance from that plain version;
+    the fused mode's merged weighted noise against the softmax of the
+    kernel's own costs over the normals rounded to bf16 (the f32 kernels'
+    softmax tolerance; BF16_GAP_SHARE of the rounding's effect) and end to
+    end against the plain bf16 solve (the f32 end-to-end tolerance of the
+    model); the f32 build still matches its own plain version."""
+    k, tau = 4097, 20
+    f32, d32, b16, d16, mod = _bf16_pair(kind, k, tau, cuda_device)
+    prefix = {pm: "pm", auv: "auv"}.get(mod, "nn")
+    kern = getattr(mod, f"{prefix}_fused_costs")
+    solve = getattr(mod, f"{prefix}_fused_solve")
+    assert b16.consts.compute_dtype == (
+        "float32" if kind == "nn_bfp" else "bfloat16")
+    z = torch.randn(tau, f32.adim, k, device=cuda_device,
+                    generator=torch.Generator(cuda_device).manual_seed(3))
+    half = pm.antithetic_half(k, b16.consts.antithetic)
+    for kw, kw_p in (({"z": z}, {"z": z}),
+                     _philox_pair(4, 2, k, tau, f32.adim, cuda_device, half)):
+        ck, rows = kern(b16.consts, d16, k, tau, **kw)
+        cp, _ = mod.fused_costs_plain(b16.consts, d16, k, tau, **kw_p)
+        cf, _ = kern(f32.consts, d32, k, tau, **kw)
+        err = (ck - cp).abs().mean().item()
+        gap = (cf - cp).abs().mean().item()
+        assert gap > 0 and err <= BF16_GAP_SHARE * gap, (err, gap)
+        _, st = pm.merge_plain(rows)
+        torch.testing.assert_close(st[2], ck.min(), rtol=0, atol=0)
+        wk = _wnoise(solve(b16.consts, d16, k, tau, **kw), pm.pm_merge)
+        zf = kw_p["z"].reshape(-1, k)
+        zr = zf if kind == "nn_bfp" else pm.round_bf16(zf)
+        ws = _wnoise(pm.block_partials(ck, zr, b16.consts.lam),
+                     pm.merge_plain)
+        torch.testing.assert_close(wk, ws, rtol=WNOISE_RTOL,
+                                   atol=WNOISE_ATOL)
+        if kind != "nn_bfp":   # its normals are not rounded: f32 kernel
+            wu = _wnoise(pm.block_partials(ck, zf, b16.consts.lam),
+                         pm.merge_plain)
+            err_w = (wk - ws).abs().max().item()
+            gap_w = (wu - ws).abs().max().item()
+            assert err_w <= BF16_GAP_SHARE * gap_w, (err_w, gap_w)
+        wp = _wnoise(mod.fused_solve_plain(b16.consts, d16, k, tau, **kw_p),
+                     pm.merge_plain)
+        torch.testing.assert_close(wk, wp, **(
+            {"rtol": 1e-3, "atol": 1e-5} if mod is pm else
+            {"rtol": 1e-2, "atol": 1e-3}))
+    cf_plain, _ = mod.fused_costs_plain(f32.consts, d32, k, tau, 4, 2, z)
+    torch.testing.assert_close(kern(f32.consts, d32, k, tau, z=z)[0],
+                               cf_plain, rtol=COST_RTOL, atol=COST_ATOL)
+
+
+@pytest.mark.parametrize("adim,half", [(3, 0), (6, 0), (6, 50_000)])
+def test_bf16_noise_dump_is_the_rounded_f32_dump(cuda_device, adim, half):
+    """Bit for bit, on the card: the bf16 dump is the f32 dump rounded;
+    the mirrored half negates exactly; phase B at bf16 weighs those
+    normals."""
+    k, tau = 100_000, 20
+    z32 = pm.pm_noise_dump(9, 4, k, tau, adim, cuda_device, half=half)
+    z16 = pm.pm_noise_dump(9, 4, k, tau, adim, cuda_device, half=half,
+                           compute_dtype="bfloat16")
+    assert torch.equal(z16, z32.to(torch.bfloat16).float())
+    if half:
+        assert torch.equal(z16[..., half:], -z16[..., :k - half])
+    costs = torch.rand(k, device=cuda_device) * 10.0
+    nrm = torch.tensor([0.0, 0.1], device=cuda_device)
+    wk = pm.mppi_weights(nrm, costs, tau, adim, z=z16,
+                         compute_dtype="bfloat16")
+    wz = pm.mppi_weights(nrm, costs, tau, adim, z=z32,
+                         compute_dtype="bfloat16")
+    torch.testing.assert_close(wk, wz, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("adim,antithetic", [(3, False), (6, False),
+                                             (6, True)])
+def test_bf16_weights_match_plain(cuda_device, adim, antithetic):
+    """Phase B at bf16 against weights_plain at bf16 on the same costs, on
+    the Philox stream (_philox_pair) and on injected z: the merged
+    weighted noise within the f32 tolerance, and each block's row (before
+    the merge averages the roundings away) within BF16_GAP_SHARE of the
+    f32 kernel's distance from the plain bf16 version."""
+    k, tau = 50_000, 20
+    gen = torch.Generator(cuda_device).manual_seed(adim)
+    costs = torch.rand(k, device=cuda_device, generator=gen) * 50.0
+    nrm = torch.stack([costs.min(), 1.0 / ((costs.max() - costs.min())
+                                           * 0.5)])
+    z = torch.randn(tau, adim, k, device=cuda_device, generator=gen)
+    half = pm.antithetic_half(k, antithetic)
+    for kw, kw_p in (({"z": z}, {"z": z}),
+                     _philox_pair(6, 1, k, tau, adim, cuda_device, half)):
+        rows = {cd: pm.mppi_weights(nrm, costs, tau, adim, compute_dtype=cd,
+                                    antithetic=antithetic, **kw)
+                for cd in ("bfloat16", "float32")}
+        plain = pm.weights_plain(nrm, costs, tau, adim,
+                                 compute_dtype="bfloat16", **kw_p)
+        torch.testing.assert_close(_wnoise(rows["bfloat16"], pm.pm_merge),
+                                   _wnoise(plain, pm.merge_plain),
+                                   rtol=WNOISE_RTOL, atol=WNOISE_ATOL)
+        zs = pm.STATS
+        err = (rows["bfloat16"][:, zs:] - plain[:, zs:]).abs().max().item()
+        gap = (rows["float32"][:, zs:] - plain[:, zs:]).abs().max().item()
+        assert gap > 0 and err <= BF16_GAP_SHARE * gap, (err, gap)
+
+
+@pytest.mark.parametrize("kind", ["point_mass", "dmd", "auv", "nn"])
+def test_bf16_controllers_run_the_bf16_kernels(cuda_device, kind):
+    """MPPI(kernel_dtype="bfloat16") on the kernel path launches the
+    *_bf16 kernels and no f32 solve; the torch path refuses it."""
+    from mppi_tf_tpu_torch.controller import DMDMPPI
+    from mppi_tf_tpu_torch.models.dmd import DMDModel
+    from mppi_tf_tpu_torch.models.nn import NNAUVModel
+
+    if kind in ("point_mass", "dmd"):
+        model, cost = _modules(cuda_device)
+        sigma, x, cls = SIGMA, np.zeros(6), MPPI
+        if kind == "dmd":
+            model = DMDModel(6, 3, init_A=model.A.cpu().numpy(),
+                             init_B=model.B.cpu().numpy(),
+                             device=cuda_device)
+            cls = DMDMPPI
+    else:
+        sigma, cls = (AUV_SIGMA if kind == "auv" else NN_SIGMA), MPPI
+        model = (get_model(flagship.auv_params(), dt=0.1, device=cuda_device)
+                 if kind == "auv" else NNAUVModel(device=cuda_device))
+        cost = get_cost(flagship.auv_task(), lam=0.5, gamma=0.2,
+                        upsilon=1.0, sigma=sigma, device=cuda_device)
+        x = np.zeros(13)
+        x[6] = 1.0
+    pm.reset_launch_counts()
+    for normalize in (False, True):
+        ctrl = cls(model, cost, k=1000, tau=6, lam=0.5, sigma=sigma,
+                   kernel="cuda", kernel_dtype="bfloat16",
+                   normalize_cost=normalize, device=cuda_device)
+        assert ctrl._fused.compute_dtype == "bfloat16"
+        assert np.all(np.isfinite(ctrl.next(x)))
+    counts = {n: c for n, c in pm.launch_counts.items() if c}
+    assert counts and all(n.endswith("_bf16") or n == "pm_merge"
+                          for n in counts), counts
+    with pytest.raises(ValueError, match="fused kernel path only"):
+        cls(model, cost, k=100, tau=6, sigma=sigma, kernel="torch",
+            kernel_dtype="bfloat16", device=cuda_device)

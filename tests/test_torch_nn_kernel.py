@@ -244,10 +244,11 @@ def test_eligibility():
         nnk.FusedNNMPPI(model, pm_cost, **kw)
     with pytest.raises(KernelUnsupportedError, match="built for"):
         nnk.FusedNNMPPI(pnn.NNAUVModel(hidden=(16, 16, 16)), cost, **kw)
-    with pytest.raises(KernelUnsupportedError, match="item 7"):
-        nnk.FusedNNMPPI(pnn.NNAUVModel(hidden=(8, 8),
-                                       compute_dtype=torch.bfloat16),
-                        cost, **kw)
+    # a bf16-compute model runs the bf16-products build at float32
+    bfp = nnk.FusedNNMPPI(pnn.NNAUVModel(hidden=(8, 8),
+                                         compute_dtype=torch.bfloat16),
+                          cost, **kw)
+    assert bfp.consts.bf16_products and bfp.compute_dtype == "float32"
     # the other solve objects refuse the NN model
     from mppi_tf_tpu_torch.kernels.auv_mppi import FusedAUVMPPI
 
