@@ -56,8 +56,14 @@ port's paths through ``MPPI.next`` closed loop against the analytic plants:
   model) on the kernels, each at its f32 twin's gate, one sync a step.
 
 The build phase reports each instantiation's registers beside the count
-the f32 ones had before the bf16 builds were added (PERF.md) and fails
-on a spill. It
+the f32 ones had before the bf16 builds were added (PERF.md), the static
+SASS counts of the AUV, NN and point-mass kernels (``sass``: conversions,
+bf16x2 ops, f32 ops, loads) and every AUV / NN instantiation's blocks an
+SM and waves at the flagship shapes (``occupancy``), and fails on a
+spill. With ``--parent DIR`` (a checkout of the parent commit) it also
+builds that tree's library and holds the bf16 AUV and NN kernels, the
+point mass's bf16 build and the f32 builds against it bit for bit
+(``parent_bits``) and in turns (``parent_times``). It
 times every kernel, each noise variant beside the same kernel without
 it, the dynamic_ab variant beside the constant-(A, B) kernel and each
 bf16 build beside its f32 build. Each phase prints one JSON line; any
@@ -260,20 +266,27 @@ def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}), flush=True)
 
 
-def registers_vs_base(ptxas: list) -> list:
-    """Each instantiation's registers beside ``BASE_REGISTERS`` (null for
-    the bf16 builds, new here), by kernel name and template arguments read
-    from the mangled name (the name after its length, e.g.
-    ``26pm_fused_solve_bf16_kernelILi6E...``)."""
+def kernel_key(mangled: str):
+    """(kernel name, template arguments) of a mangled kernel name, e.g.
+    ``26pm_fused_solve_bf16_kernelILi6E...`` -> ("pm_fused_solve_bf16_kernel",
+    (6, ...))."""
     import re
 
+    m = re.search(r"\d((?:pm|auv|nn|mppi)_[a-z0-9_]*?_kernel)(?=I|E)"
+                  r"(?:I((?:Li-?\d+E)+)E)?", mangled)
+    if m is None:
+        return None
+    return m.group(1), tuple(int(a) for a in re.findall(
+        r"Li(-?\d+)E", m.group(2) or ""))
+
+
+def registers_vs_base(ptxas: list) -> list:
+    """Each instantiation's registers beside ``BASE_REGISTERS`` (null for
+    the bf16 builds, new here), by kernel name and template arguments
+    (``kernel_key``)."""
     rows = []
     for r in ptxas:
-        m = re.search(r"\d((?:pm|auv|nn|mppi)_[a-z0-9_]*?_kernel)(?=I|E)"
-                      r"(?:I((?:Li-?\d+E)+)E)?", r["kernel"])
-        name = m.group(1)
-        args = tuple(int(a) for a in re.findall(r"Li(-?\d+)E",
-                                                m.group(2) or ""))
+        name, args = kernel_key(r["kernel"])
         rows.append({"kernel": name, "template": list(args),
                      "registers": r.get("registers"),
                      "base": BASE_REGISTERS.get((name, args))})
@@ -1675,9 +1688,11 @@ def kernel_time(fn, plain_fn, reps: int = 200) -> dict:
 
 # ---- the bf16 block compute (compute_dtype="bfloat16") --------------------
 
-#: the H100 SXM's peak bf16 rate outside the tensor cores, twice f32's
-#: (NVIDIA H100 white paper): the rate of a bf16 rollout op in the bounds
-PEAK_OPS_BF16 = 134e12
+#: the rate of a bf16 rollout op in the bounds: the kernels' bf16 order
+#: rounds every multiply and every add (never fused), so each mul.rn or
+#: add.rn.bf16x2 does one op in each of its two lanes, the 2 ops an
+#: instruction of an FFMA: the f32 rate, not the packed-FMA 134 TFLOP/s
+PEAK_OPS_BF16 = PEAK_OPS
 #: a bf16 kernel against its plain bf16 version: mean |kernel - plain| over
 #: the per-sample costs at most this share of the same kernel's f32 build
 #: against that plain version (the kernel computes the bf16 arithmetic,
@@ -1697,7 +1712,7 @@ def bf16_bound(n_bytes: float, ops: float, ops_bf16: float):
     t_o = ops_bf16 / PEAK_OPS_BF16 + (ops - ops_bf16) / PEAK_OPS
     return (max(t_b, t_o) * 1e3,
             "bytes" if t_b >= t_o else
-            "operations (bf16 rollout at 134 TFLOP/s, f32 at 67)")
+            "operations (unfused bf16 rollout and f32 both at 67 TFLOP/s)")
 
 
 def bf16_rollout_ops(consts, k: int, tau: int, dyn=None) -> float:
@@ -1724,6 +1739,269 @@ def bf16_rollout_ops(consts, k: int, tau: int, dyn=None) -> float:
         sizes[1:-1])
     return float(k * tau * (6 + 2 * nnz(consts.scale) + mlp + 13
                             + (12 if consts.renorm else 0) + zq))
+
+
+#: the instantiations the sass phase reads: <RK, MODE, COST> of the AUV
+#: (rk2, static_quat) and <N1, N2, N3, MODE> of the NN (3x32), both modes,
+#: f32 and bf16 builds; the point mass's bf16 control (6, 3) beside them
+SASS_KERNELS = (
+    *[(f"auv_fused_solve{b}_kernel", (2, m, 0)) for b in ("", "_bf16")
+      for m in (0, 1)],
+    *[(f"nn_fused_solve{b}_kernel", (32, 32, 32, m)) for b in ("", "_bf16")
+      for m in (0, 1)],
+    *[(f"pm_fused_solve{b}_kernel", (6, 3, 0, 0, m)) for b in ("", "_bf16")
+      for m in (0, 1)])
+#: the opcode families the sass phase counts
+SASS_FAMILIES = ("F2FP", "F2F", "HADD2", "HMUL2", "HFMA2", "FFMA", "FMUL",
+                 "FADD", "LDS", "LDC", "LDL", "STL")
+
+
+def sass_table(counts) -> dict:
+    """The SASS_FAMILIES counts (static instructions in the binary) of the
+    SASS_KERNELS in ``_build.sass_counts`` output; ``bf16x2`` counts every
+    opcode with a BF16_V2 modifier (HADD2, HMUL2, HFMA2)."""
+    out = {}
+    for mangled, ops in counts.items():
+        key = kernel_key(mangled)
+        if key not in SASS_KERNELS:
+            continue
+        fam = {f: sum(n for op, n in ops.items() if op.split(".")[0] == f)
+               for f in SASS_FAMILIES}
+        fam["bf16x2"] = sum(n for op, n in ops.items() if "BF16_V2" in op)
+        fam["total"] = sum(ops.values())
+        out[f"{key[0]}<{', '.join(map(str, key[1]))}>"] = fam
+    return out
+
+
+def sass_phase(_build, parent_lib=None) -> None:
+    """Static SASS counts of the SASS_KERNELS (``cuobjdump -sass``), and of
+    the parent's library where one is given: a diagnostic, not a gate."""
+    counts = _build.sass_counts()
+    if counts is None:
+        emit("sass", cuobjdump=None, note="cuobjdump is missing: no counts")
+        return
+    out = {"this": sass_table(counts)}
+    if parent_lib is not None:
+        out["parent"] = sass_table(_build.sass_counts(parent_lib))
+    emit("sass", **out, note="static instructions in the library; F2FP / "
+         "F2F are conversions, bf16x2 the BF16_V2 ops")
+
+
+def occupancy_phase(lib, reg_rows, n_sm: int) -> None:
+    """Registers, blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    at H=25) and waves at the flagship shapes (AUV K=262,144, NN K=65,536)
+    of every AUV and NN solve instantiation, f32 and bf16."""
+    import ctypes
+
+    regs = {(r["kernel"], tuple(r["template"])): r["registers"]
+            for r in reg_rows}
+    rows = []
+    for sfx in ("", "_bf16"):
+        cases = [("auv", (rk, mode, cost), AUV_K)
+                 for rk in (1, 2, 4) for mode in (0, 1) for cost in (0, 1, 2)]
+        cases += [("nn", (*hid, mode), NN_K)
+                  for hid in ((32, 32, 32), (8, 8, 0)) for mode in (0, 1)]
+        for model, args, k in cases:
+            out = (ctypes.c_int * 2)()
+            if model == "auv":
+                rk, mode, cost = args
+                rc = getattr(lib, f"auv_occupancy{sfx}")(rk, cost, mode,
+                                                          AUV_H, out)
+            else:
+                rc = getattr(lib, f"nn_occupancy{sfx}")(*args, AUV_H, out)
+            if rc != 0:
+                raise AssertionError(f"occupancy {model}{sfx}{args}: {rc}")
+            blocks = -(-k // 256)   # one partial row of 256 samples a block
+            rows.append({
+                "kernel": f"{model}_fused_solve{sfx}_kernel", "template":
+                list(args), "registers": regs.get(
+                    (f"{model}_fused_solve{sfx}_kernel", args)),
+                "samples_a_thread": out[1], "threads_a_block": 256 // out[1],
+                "blocks_an_sm": out[0], "k": k, "grid": blocks,
+                "waves": blocks / (out[0] * n_sm) if out[0] else None})
+    emit("occupancy", sms=n_sm, rows=rows)
+
+
+def build_parent(parent: str) -> subprocess.Popen:
+    """Start building the kernels' library of the checkout at ``parent``
+    (its own kernels/_build.py, in a process of its own)."""
+    return subprocess.Popen(
+        [sys.executable, "-c", "from mppi_tf_tpu_torch.kernels import "
+         "_build; print(_build.build())"], cwd=parent,
+        env={**os.environ, "PYTHONPATH": os.path.abspath(parent)},
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def load_parent(proc: subprocess.Popen, _build):
+    """The library ``build_parent`` built, bound with this tree's
+    signatures (the entry points it has)."""
+    import ctypes
+
+    out, err = proc.communicate()
+    if proc.returncode != 0:
+        raise AssertionError(f"parent build failed: {err[-4000:]}")
+    path = out.strip().splitlines()[-1]
+    lib = ctypes.CDLL(path)
+    for name, argtypes in _build._SIGNATURES.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
+    lib.pm_error_string.argtypes = [ctypes.c_int]
+    lib.pm_error_string.restype = ctypes.c_char_p
+    return lib, path
+
+
+def with_library(_build, lib, fn):
+    """fn() with the wrappers launching from ``lib``."""
+    saved = _build._lib
+    _build._lib = lib
+    try:
+        return fn()
+    finally:
+        _build._lib = saved
+
+
+def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
+    """``--parent``: this tree's kernels against the parent's library on the
+    same inputs. The bf16 AUV and NN kernels (every rk and cost kind, both
+    networks, both modes, K=700 and 4,097 at H=7 and the flagship shapes,
+    injected z and Philox, and both noise options) and, as controls, the
+    point mass at bf16 and the f32 builds: per-sample costs and partial
+    rows bit for bit, each differing output counted; then the four
+    redesigned kernels and the point mass's bf16 control timed in turns
+    (parent, this, this, parent) beside their f32 builds."""
+    from mppi_tf_tpu_torch.cfg import default_config
+    from mppi_tf_tpu_torch.envs.runner import build_model_and_cost
+
+    rng = np.random.default_rng(21)
+    ka, kn = quat_kernels(auv, "auv"), quat_kernels(nnk, "nn")
+    kp = SimpleNamespace(costs=pm.pm_fused_costs, solve=pm.pm_fused_solve)
+    cases = []
+
+    def auv_task(name, k, tau, rk, cd, **opts):
+        if name == "static_quat":
+            return auv_fused(k, tau, rk=rk, compute_dtype=cd, **opts)
+        env = default_config("envs/uuv_sim" if name == "waypoints_quat"
+                             else "envs/bluerov")
+        task = default_config("tasks/waypoints_quat_task"
+                              if name == "waypoints_quat"
+                              else "tasks/elipse3d_task")
+        model, cost, sigma = build_model_and_cost(
+            env, task, {**default_config("models/rexrov2"), "rk": rk},
+            device="cuda")
+        return auv.FusedAUVMPPI(model, cost, k=k, tau=tau, lam=env["lambda"],
+                                upsilon=env["upsilon"], sigma=sigma,
+                                compute_dtype=cd, **opts)
+
+    for k in (700, 4097):
+        for rk in (1, 2, 4):
+            for name in ("static_quat", "waypoints_quat", "elipse3d"):
+                f = auv_task(name, k, 7, rk, "bfloat16")
+                if (f.consts.rk, f.consts.cost_kind) != (rk, name):
+                    raise AssertionError(f"parent case {name} rk{rk}")
+                cases.append((f"auv_bf16_{name}_rk{rk}_K{k}", f, ka))
+        for hid in ((32, 32, 32), (8, 8)):
+            cases.append((f"nn_bf16_{'x'.join(map(str, hid))}_K{k}",
+                          nn_fused(k, 7, hidden=hid,
+                                   compute_dtype="bfloat16"), kn))
+    cases += [
+        ("auv_bf16_sched_anti_K700", auv_fused(700, 7, compute_dtype=
+                                               "bfloat16", **FUSED_BOTH), ka),
+        ("nn_bf16_sched_anti_K700", nn_fused(700, 7, compute_dtype=
+                                             "bfloat16", **FUSED_BOTH), kn),
+        ("auv_bf16_flagship", auv_fused(AUV_K, AUV_H,
+                                        compute_dtype="bfloat16"), ka),
+        ("nn_bf16_flagship", nn_fused(NN_K, NN_H, compute_dtype="bfloat16"),
+         kn),
+        ("auv_f32_flagship", auv_fused(AUV_K, AUV_H), ka),
+        ("nn_f32_flagship", nn_fused(NN_K, NN_H), kn)]
+    model, cost = workload("cuda")
+    for cd in ("bfloat16", "float32"):
+        cases.append((f"pm_{'bf16' if cd == 'bfloat16' else 'f32'}_K100000",
+                      pm.FusedPointMassMPPI(model, cost, k=K, tau=H, lam=LAM,
+                                            upsilon=UPSILON, sigma=SIGMA,
+                                            compute_dtype=cd), kp))
+    res, dyns = {}, {}
+    for label, f, kern in cases:
+        if kern is kp:
+            dyn = f.pack_dyn(torch.zeros(6, device="cuda"),
+                             torch.as_tensor(0.1 * rng.standard_normal(
+                                 (f.tau, 3)), dtype=torch.float32,
+                                 device="cuda"))
+        else:
+            dyn = auv_dyn(f, 20.0 if "elipse3d" in label else 200.0,
+                          seed=len(label))
+        dyns[label] = dyn
+        z = torch.as_tensor(rng.standard_normal((f.tau, f.adim, f.k),
+                                                np.float32), device="cuda")
+        out = {}
+        for src, kw in (("injected", {"z": z}), ("philox", {"seed": 9,
+                                                           "solve": 2})):
+            def run():
+                c, srows = kern.costs(f.consts, dyn, f.k, f.tau, **kw)
+                rows = kern.solve(f.consts, dyn, f.k, f.tau, **kw)
+                torch.cuda.synchronize()
+                return c, srows, rows
+            got = run()
+            want = with_library(_build, plib, run)
+            for name, a, b in zip(("costs", "stats_rows", "rows"), got, want):
+                same = torch.equal(a, b)
+                out[f"{src}_{name}"] = True if same else {
+                    "differing": int((a != b).sum().item()),
+                    "of": a.numel(), "max_abs_diff":
+                    (a.double() - b.double()).abs().max().item()}
+        res[label] = out
+        del z
+    differing = {label: {o: v for o, v in out.items() if v is not True}
+                 for label, out in res.items()}
+    differing = {label: d for label, d in differing.items() if d}
+    costs_equal = all(v is True for out in res.values()
+                      for o, v in out.items() if o.endswith("_costs"))
+    others_equal = not any(label.startswith(("pm_", "auv_f32", "nn_f32"))
+                           for label in differing)
+    emit("parent_bits", cases=sorted(res), outputs_compared=sum(
+        len(o) for o in res.values()), all_equal=not differing,
+         costs_all_equal=costs_equal, f32_and_pm_all_equal=others_equal,
+         differing=differing, note="this tree's kernels against the parent "
+         "commit's library on the same inputs, torch.equal; the bf16 AUV / "
+         "NN partial rows sum a thread's two lanes before the warp, another "
+         "order than one sample a thread")
+    # times in turns, parent and this tree, beside the f32 build
+    times = {}
+    for label, kern_fn, f32_label in (
+            ("auv_bf16_flagship", "costs", "auv_f32_flagship"),
+            ("auv_bf16_flagship", "solve", "auv_f32_flagship"),
+            ("nn_bf16_flagship", "costs", "nn_f32_flagship"),
+            ("nn_bf16_flagship", "solve", "nn_f32_flagship"),
+            ("pm_bf16_K100000", "costs", "pm_f32_K100000"),
+            ("pm_bf16_K100000", "solve", "pm_f32_K100000"),
+            ("auv_f32_flagship", "costs", "auv_f32_flagship"),
+            ("nn_f32_flagship", "costs", "nn_f32_flagship")):
+        f = next(c[1] for c in cases if c[0] == label)
+        kern = next(c[2] for c in cases if c[0] == label)
+        f32 = next(c[1] for c in cases if c[0] == f32_label)
+        fn = getattr(kern, kern_fn)
+        dyn, dyn32 = dyns[label], dyns[f32_label]
+
+        def this():
+            return fn(f.consts, dyn, f.k, f.tau, seed=1, solve=1)
+
+        def parent():
+            return with_library(_build, plib, this)
+
+        t = [cuda_ms(parent, 100), cuda_ms(this, 100), cuda_ms(this, 100),
+             cuda_ms(parent, 100)]
+        d = [with_library(_build, plib, lambda: device_ms(this)),
+             device_ms(this)]
+        times[f"{label}_{kern_fn}"] = {
+            "parent_ms": [t[0], t[3]], "ms": [t[1], t[2]],
+            "parent_device_ms": d[0], "device_ms": d[1],
+            "f32_device_ms": device_ms(lambda: fn(
+                f32.consts, dyn32, f32.k, f32.tau, seed=1, solve=1))}
+    emit("parent_times", card=smi, **times,
+         note="CUDA events over 100 launches in turns (parent, this, this, "
+              "parent) and profiler device time; f32_device_ms: the f32 "
+              "build of the same kernel on its own dyn")
 
 
 def bf16_wnoise(pm, b16, rows_k, costs_k, z, plain_rows) -> dict:
@@ -2109,16 +2387,30 @@ def bf16_loops_phase(pm, smi: str) -> dict:
                 raise AssertionError(f"{name} loop (normalize={normalize}): "
                                      f"{reading}, {got}")
             loops[name, normalize] = (ms, counts)
+            if name == "nn" and not normalize:
+                prof = profile_steps(ctrl, x=rest_state())
+                emit("profile", kernel_path="cuda", model="nn",
+                     normalize=False, kernel_dtype="bfloat16", card=smi,
+                     **prof)
+                check_syncs(prof)
             del ctrl
     return loops
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", help="a checkout of the parent commit: build "
+                    "its library too and hold this tree's kernels against it "
+                    "(parent_bits, parent_times, the parent's sass counts)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test needs an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    parent_build = build_parent(args.parent) if args.parent else None
     from mppi_tf_tpu_torch.kernels import _build
     from mppi_tf_tpu_torch.kernels import auv_mppi as auv
     from mppi_tf_tpu_torch.kernels import nn_mppi as nnk
@@ -2150,6 +2442,12 @@ def main() -> int:
          bf16_instantiations=sum("_bf16_" in r["kernel"] for r in reg_rows),
          bf16_products_instantiations=sum("_bfp_" in r["kernel"]
                                           for r in reg_rows))
+    parent_lib = parent_path = None
+    if parent_build is not None:
+        parent_lib, parent_path = load_parent(parent_build, _build)
+    sass_phase(_build, parent_path)
+    occupancy_phase(_build.load_library(), reg_rows,
+                    torch.cuda.get_device_properties(0).multi_processor_count)
     spills = [r["kernel"] for r in ptxas
               if r.get("spill_stores") or r.get("spill_loads")]
     if spills:
@@ -2157,6 +2455,8 @@ def main() -> int:
     if f32 != len(BASE_REGISTERS):
         raise AssertionError(f"{f32} of {len(BASE_REGISTERS)} f32 "
                              f"instantiations built")
+    if parent_lib is not None:
+        parent_phase(_build, parent_lib, pm, auv, nnk, smi)
 
     # ---- 3. kernels against plain versions on injected z --------------------
     model, cost = workload("cuda")

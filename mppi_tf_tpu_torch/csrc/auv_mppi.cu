@@ -54,17 +54,27 @@
 //   and read-modify-write carry are not copied.
 //
 //   The bf16 block compute (compute_dtype "bfloat16", :132-133, :189-199,
-//   :433-443) is this source at Val = bf16r through auv_mppi_bf16.cu
-//   (mppi_common.cuh): the 13-state, the force u_t + c_t (scale z_t) in
-//   the TPU kernel's order, every op of state_dot, the rk stages and the
-//   renormalisation round to bf16, with the dyn reads the TPU kernel
-//   casts (mass matrices, x0, useq, goals, blend weights) rounded and
-//   -m g formed in f32 and rounded once; state_dot keeps this source's
-//   own algebra (M nu, the cross products, the cached M^-1), which the
-//   plain bf16 version in kernels/auv_mppi.py follows op for op. The
-//   renormalisation's rsqrt and the state cost run in f32 on the widened
-//   state (the TPU kernel's :312-313 and :433-443); the z terms are bf16
-//   values added to the f32 cost.
+//   :433-443) is this source at Val = bf16x2 through auv_mppi_bf16.cu
+//   (mppi_common.cuh, MPPI_BF16_PAIRS): two samples a thread, 128 threads
+//   a block for one partial row, each rollout op one native bf16x2
+//   instruction for both samples. The 13-state, the force u_t + c_t
+//   (scale z_t) in the TPU kernel's order, every op of state_dot,
+//   the rk stages and the renormalisation round to bf16, with the dyn
+//   reads the TPU kernel casts (mass matrices, x0, useq, goals, blend
+//   weights) rounded and -m g formed in f32 and rounded once; state_dot
+//   keeps this source's own algebra (M nu, the cross products, the cached
+//   M^-1), which the plain bf16 version in kernels/auv_mppi.py follows op
+//   for op. The renormalisation's rsqrt and the state cost run per lane in
+//   f32 on the widened state (the TPU kernel's :312-313 and :433-443); the
+//   z terms are bf16 values added to each lane's f32 cost. The solve
+//   constants reach the kernel as duplicated bf16x2 words (AuvConstsT,
+//   packed by the entry point) in the constant bank, loaded with LDC (a
+//   bf16x2 op takes no constant-bank operand, an FFMA does); the mass
+//   matrices are staged as padded bf16x2 rows in shared memory, x0, useq
+//   and rhs_z as words in place; the dt factors and the literals are
+//   converted once. No conversion a rollout op is left: the cvts are the
+//   noise packing (one a normal pair), the renormalisation's factor and
+//   the per-step scalars c_t and nc_half c_t.
 
 #include <string.h>
 
@@ -75,15 +85,6 @@ namespace {
 using namespace mppi;
 
 constexpr float kGravity = 9.81f;
-
-// The bf16 build runs the 6x6 products M nu and M^-1 rhs one row at a
-// time (their outputs in local memory): fully unrolled they hold the
-// kernel at 255 registers and spill; the f32 build keeps them unrolled.
-#ifdef MPPI_BF16
-#define MPPI_ROWS_UNROLL _Pragma("unroll 1")
-#else
-#define MPPI_ROWS_UNROLL _Pragma("unroll")
-#endif
 
 // State costs (kernels/auv_mppi.py COST_KINDS).
 enum AuvCost { kStaticQuat = 0, kWaypointsQuat = 1, kElipse3D = 2 };
@@ -100,24 +101,45 @@ struct Elipse3D {
   float mv;          // speed weight
 };
 
-// Solve constants, in the order of kernels/auv_mppi.py AuvConsts.packed.
-struct AuvConsts {
+// Solve constants, in the order of kernels/auv_mppi.py AuvConsts.packed;
+// W is the type of the rollout's constants (the host's BF16_FIELDS): float,
+// or in the pair build the bf16x2 word (w, w) of each.
+template <typename W>
+struct AuvConstsT {
   float dt;
   float lam;
   float nc_half;
-  float buoyancy;          // rho V g
-  float lin_damp[36];      // L, row-major
-  float lin_damp_fwd[36];  // L_fwd
-  float quad_damp[6];      // diag(Q_d)
-  float cog[3];
-  float cob[3];
-  float scale[36];         // upsilon sigma
-  float mz[36];            // scale^T Sigma^-1 scale
+  W buoyancy;          // rho V g
+  W lin_damp[36];      // L, row-major
+  W lin_damp_fwd[36];  // L_fwd
+  W quad_damp[6];      // diag(Q_d)
+  W cog[3];
+  W cob[3];
+  W scale[36];         // upsilon sigma
+  W mz[36];            // scale^T Sigma^-1 scale
   union {
-    float q[100];          // 10x10 cost weight (the quaternion costs)
-    Elipse3D el;           // kElipse3D
+    float q[100];      // 10x10 cost weight (the quaternion costs)
+    Elipse3D el;       // kElipse3D
   };
 };
+using HostConsts = AuvConstsT<float>;
+#ifdef MPPI_BF16_PAIRS
+using AuvConsts = AuvConstsT<bf16x2>;
+
+// The pair build's constants: each rollout constant (already a bf16 value,
+// packed rounded by the host) as its duplicated bf16x2 word.
+AuvConsts pair_consts(const HostConsts& f) {
+  AuvConsts c;
+  memcpy(&c, &f, sizeof(c));
+  const float* src = &f.buoyancy;
+  bf16x2* dst = &c.buoyancy;
+  for (int i = 0; i < 1 + 36 + 36 + 6 + 3 + 3 + 36 + 36; ++i)
+    dst[i] = bf16x2(src[i]);
+  return c;
+}
+#else
+using AuvConsts = HostConsts;
+#endif
 static_assert(sizeof(Elipse3D) == 25 * sizeof(float), "Elipse3D layout");
 static_assert(sizeof(AuvConsts) == 260 * sizeof(float), "AuvConsts layout");
 
@@ -139,6 +161,31 @@ __host__ __device__ constexpr int dyn_size(int tau) {
   return dyn_wblend(tau) + 2;
 }
 
+// Row i of the staged mass matrix (mat 0: M, 1: M^-1). The pair build
+// stages both as bf16x2 words, each row padded to 8 words: two 16-byte
+// broadcast loads a row.
+#ifdef MPPI_BF16_PAIRS
+constexpr int kMassWords = 2 * 6 * 8;
+__device__ __forceinline__ void mass_row(const float* s_mass, int mat, int i,
+                                         Val* r) {
+  const uint4* p = reinterpret_cast<const uint4*>(s_mass) + mat * 12 + 2 * i;
+  const uint4 a = p[0], b = p[1];
+  r[0] = bf16x2::bits(a.x);
+  r[1] = bf16x2::bits(a.y);
+  r[2] = bf16x2::bits(a.z);
+  r[3] = bf16x2::bits(a.w);
+  r[4] = bf16x2::bits(b.x);
+  r[5] = bf16x2::bits(b.y);
+}
+#else
+constexpr int kMassWords = 0;
+__device__ __forceinline__ void mass_row(const float* s_dyn, int mat, int i,
+                                         Val* r) {
+#pragma unroll
+  for (int j = 0; j < 6; ++j) r[j] = s_dyn[(mat ? kInvM : kMTot) + i * 6 + j];
+}
+#endif
+
 // u: Vals, or solve constants (packed rounded at bf16)
 template <typename U>
 __device__ __forceinline__ void cross3(const U* u, const Val* v, Val* out) {
@@ -147,16 +194,15 @@ __device__ __forceinline__ void cross3(const U* u, const Val* v, Val* out) {
   out[2] = exact_val(u[0]) * v[1] - exact_val(u[1]) * v[0];
 }
 
-// x_dot = f(x, gen_force) of models/auv.py::AUVModel.state_dot.
+// x_dot = f(x, gen_force) of models/auv.py::AUVModel.state_dot; s_mass:
+// the staged mass matrices (mass_row). kRows: the unroll of the 6x6
+// products' rows (the pair build's rk4 runs them one row at a time: fully
+// unrolled its four-stage step spills).
+template <int kRows = 6>
 __device__ __forceinline__ void state_dot(const AuvConsts& c,
-                                          const float* s_dyn, Val fng,
+                                          const float* s_mass, Val fng,
                                           const Val* x, const Val* gf,
                                           Val* xd) {
-#ifdef MPPI_BF16
-  // M and M^-1 are reloaded from shared memory at every stage, not held
-  // in registers across the rk stages (a spill otherwise)
-  asm volatile("" ::: "memory");
-#endif
   const Val qx = x[3], qy = x[4], qz = x[5], qw = x[6];
   const Val* nu = x + 7;
   const Val* v = x + 7;
@@ -196,12 +242,13 @@ __device__ __forceinline__ void state_dot(const AuvConsts& c,
   }
   // C nu = [-a1 x w ; -a1 x v - a2 x w], [a1; a2] = M nu
   Val a[6];
-  MPPI_ROWS_UNROLL
+#pragma unroll (kRows)
   for (int i = 0; i < 6; ++i) {
+    Val mr[6];
+    mass_row(s_mass, 0, i, mr);
     Val s = 0.0f;
 #pragma unroll
-    for (int j = 0; j < 6; ++j)
-      s = fma_r(exact_val(s_dyn[kMTot + i * 6 + j]), nu[j], s);
+    for (int j = 0; j < 6; ++j) s = fma_r(mr[j], nu[j], s);
     a[i] = s;
   }
   Val c1[3], c2[3], c3[3];
@@ -226,12 +273,13 @@ __device__ __forceinline__ void state_dot(const AuvConsts& c,
     rhs[3 + i] += mbg[i] + mbb[i];
   }
   // nu_dot = M^-1 rhs
-  MPPI_ROWS_UNROLL
+#pragma unroll (kRows)
   for (int i = 0; i < 6; ++i) {
+    Val mr[6];
+    mass_row(s_mass, 1, i, mr);
     Val s = 0.0f;
 #pragma unroll
-    for (int j = 0; j < 6; ++j)
-      s = fma_r(exact_val(s_dyn[kInvM + i * 6 + j]), rhs[j], s);
+    for (int j = 0; j < 6; ++j) s = fma_r(mr[j], rhs[j], s);
     xd[7 + i] = s;
   }
 }
@@ -306,17 +354,18 @@ __device__ __forceinline__ float auv_state_cost(const AuvConsts& c,
   }
 }
 
-// The state cost of a rollout state: at bf16 on the state widened to f32
-// (the TPU kernel's :433-443), with the goals and blend weights rounded
-// at staging.
+// The state cost of lane l of a rollout state: at bf16 on the state
+// widened to f32 (the TPU kernel's :433-443), with the goals and blend
+// weights rounded at staging.
 template <int COST>
 __device__ __forceinline__ float rollout_state_cost(const AuvConsts& c,
                                                    const float* s_dyn,
-                                                   int tau, const Val* x) {
+                                                   int tau, const Val* x,
+                                                   int l) {
 #ifdef MPPI_BF16
   float xf[13];
 #pragma unroll
-  for (int i = 0; i < 13; ++i) xf[i] = widen(x[i]);
+  for (int i = 0; i < 13; ++i) xf[i] = widen(x[i], l);
   return auv_state_cost<COST>(c, s_dyn, tau, xf);
 #else
   return auv_state_cost<COST>(c, s_dyn, tau, x);
@@ -324,70 +373,85 @@ __device__ __forceinline__ float rollout_state_cost(const AuvConsts& c,
 }
 
 #ifdef MPPI_BF16
-// dyn entries a bf16 kernel rounds as it stages them (the TPU kernel's
-// d_() reads): the mass matrices, the goals and the waypoint blend
-__device__ __forceinline__ bool staged_bf16(int i, int tau) {
-  return i < kMass || (i >= kGoal && i < kGoal + 13) ||
-         (i >= dyn_goal2(tau) && i < dyn_size(tau));
+// How a bf16 kernel stages dyn entry i (the TPU kernel's d_() reads): x0,
+// useq and rhs_z as bf16x2 words (the rollout's operands; the mass
+// matrices go to their padded rows, mass_row); the goals and the waypoint
+// blend rounded, in f32 (the state cost's); the mass, u_half and the
+// schedule's c_t as they are.
+__device__ __forceinline__ float stage_dyn(float f, int i, int tau) {
+  if (i >= kX0 && i < dyn_u_half(tau)) return stage_word(f);
+  if ((i >= kGoal && i < kGoal + 13) ||
+      (i >= dyn_goal2(tau) && i < dyn_size(tau)))
+    return round_bf16(f);
+  return f;
 }
 #endif
 
-// The bf16 build gives ptxas a floor of one block an SM: left to itself
-// it caps some instantiations at 128 registers and spills.
-#ifdef MPPI_BF16
-#define AUV_LAUNCH_BOUNDS __launch_bounds__(kBlock, 1)
-#else
-#define AUV_LAUNCH_BOUNDS __launch_bounds__(kBlock)
-#endif
-
 template <int RK, int MODE, int COST>
-__global__ void AUV_LAUNCH_BOUNDS
+__global__ void __launch_bounds__(kThreads)
     MPPI_KERNEL(auv_fused_solve)(const AuvConsts c,
                                  const float* __restrict__ dyn, int n_dyn,
                                  int sched_off, const float* __restrict__ z,
                                  float* __restrict__ costs,
                                  float* __restrict__ partials, int k_total,
                                  int tau, Seeds sd) {
+#ifdef MPPI_BF16_PAIRS
+  extern __shared__ __align__(16) float smem[];
+  float* s_dyn = smem;  // n_dyn = dyn_size(tau) (+ tau scheduled)
+  float* s_mass = smem + ((n_dyn + 3) & ~3);  // kMassWords, 16-byte aligned
+  float* s_red = s_mass + kMassWords;          // kWarps * n_z
+  for (int i = threadIdx.x; i < n_dyn; i += kThreads)
+    s_dyn[i] = stage_dyn(dyn[i], i, tau);
+  for (int w = threadIdx.x; w < kMassWords; w += kThreads) {
+    const int col = w & 7, row = w >> 3;  // rows 0-5: M, 6-11: M^-1
+    s_mass[w] = col < 6 ? stage_word(dyn[kMTot + row * 6 + col]) : 0.0f;
+  }
+#else
   extern __shared__ float smem[];
   float* s_dyn = smem;          // n_dyn = dyn_size(tau) (+ tau scheduled)
+  float* s_mass = s_dyn;        // M and M^-1 at kMTot, kInvM
   float* s_red = smem + n_dyn;  // kWarps * n_z: pass-two warp sums
-
-  for (int i = threadIdx.x; i < n_dyn; i += kBlock) {
-#ifdef MPPI_BF16
-    s_dyn[i] = staged_bf16(i, tau) ? round_bf16(dyn[i]) : dyn[i];
-#else
-    s_dyn[i] = dyn[i];
+  for (int i = threadIdx.x; i < n_dyn; i += kThreads) s_dyn[i] = dyn[i];
 #endif
-  }
   __syncthreads();
 
   const float* useq = s_dyn + kUseq;
   const float* rhs_z = useq + 6 * tau;
   const float u_half = s_dyn[dyn_u_half(tau)];
-  const Val fng = -s_dyn[kMass] * kGravity;
+  const Val fng = to_val(-s_dyn[kMass] * kGravity);
+  // the rk factors dt, dt / 2 and dt / 6, formed in f32
+  const Val dt = to_val(c.dt), h = to_val(0.5f * c.dt),
+            h6 = to_val(c.dt / 6.0f);
 
-  const int k = blockIdx.x * kBlock + threadIdx.x;
-  const bool valid = k < k_total;
-  NoiseStream ns;
-  ns.init(z, k_total, k, sd);
+  // block b: partial row b; lane l of thread t: sample b kBlock +
+  // l kThreads + t
+  int k[kLanes];
+  bool valid[kLanes];
+  NoiseStream ns[kLanes];
+  float cost[kLanes];
+#pragma unroll
+  for (int l = 0; l < kLanes; ++l) {
+    k[l] = blockIdx.x * kBlock + l * kThreads + threadIdx.x;
+    valid[l] = k[l] < k_total;
+    ns[l].init(z, k_total, k[l], sd);
+    cost[l] = 0.0f;
+  }
 
-  float cost = 0.0f;
   Val x[13];
 #pragma unroll
-  for (int i = 0; i < 13; ++i) x[i] = s_dyn[kX0 + i];
+  for (int i = 0; i < 13; ++i) x[i] = exact_val(s_dyn[kX0 + i]);
+  constexpr int kRows = kLanes == 2 && RK == 4 ? 1 : 6;
   int n = 0;
   for (int t = 0; t < tau; ++t) {
-#ifdef MPPI_BF16
-    // the mass matrices are reloaded from shared memory every step, not
-    // hoisted into registers over the horizon (a spill otherwise)
-    asm volatile("" ::: "memory");
-#endif
     const float ct = sched_factor(s_dyn, sched_off, t);
     Val zt[6], gf[6];
 #pragma unroll
-    for (int j = 0; j < 6; ++j) zt[j] = exact_val(ns.next(n++));
+    for (int j = 0; j < 6; ++j) zt[j] = draw(ns, n++);
     // gen_force = u_t + scale (c_t z_t); at bf16 u_t + c_t (scale z_t),
     // the TPU kernel's order (:447-463)
+#ifdef MPPI_BF16
+    const Val ct_v = to_val(ct);
+#endif
 #pragma unroll
     for (int i = 0; i < 6; ++i) {
 #ifdef MPPI_BF16
@@ -395,7 +459,7 @@ __global__ void AUV_LAUNCH_BOUNDS
 #pragma unroll
       for (int j = 0; j < 6; ++j)
         sz = fma_r(exact_val(c.scale[i * 6 + j]), zt[j], sz);
-      gf[i] = Val(useq[t * 6 + i]) + Val(ct) * sz;
+      gf[i] = exact_val(useq[t * 6 + i]) + ct_v * sz;
 #else
       float s = useq[t * 6 + i];
 #pragma unroll
@@ -405,58 +469,60 @@ __global__ void AUV_LAUNCH_BOUNDS
     }
 
     Val k1[13], xs[13];
-    state_dot(c, s_dyn, fng, x, gf, k1);
+    state_dot<kRows>(c, s_mass, fng, x, gf, k1);
     if (RK == 1) {
 #pragma unroll
-      for (int i = 0; i < 13; ++i) x[i] = fma_r(c.dt, k1[i], x[i]);
+      for (int i = 0; i < 13; ++i) x[i] = fma_r(dt, k1[i], x[i]);
     } else if (RK == 2) {
       Val k2[13];
 #pragma unroll
-      for (int i = 0; i < 13; ++i) xs[i] = fma_r(c.dt, k1[i], x[i]);
-      state_dot(c, s_dyn, fng, xs, gf, k2);
-      const float h = 0.5f * c.dt;
+      for (int i = 0; i < 13; ++i) xs[i] = fma_r(dt, k1[i], x[i]);
+      state_dot<kRows>(c, s_mass, fng, xs, gf, k2);
 #pragma unroll
       for (int i = 0; i < 13; ++i) x[i] = fma_r(h, k1[i] + k2[i], x[i]);
     } else {
       // acc = k1 + 2 k2 + 2 k3 + k4, x += dt/6 acc (models/auv.py:316-320)
       Val acc[13], kk[13];
-      const float h = 0.5f * c.dt;
 #pragma unroll
       for (int i = 0; i < 13; ++i) {
         acc[i] = k1[i];
         xs[i] = fma_r(h, k1[i], x[i]);
       }
-      state_dot(c, s_dyn, fng, xs, gf, kk);
+      state_dot<kRows>(c, s_mass, fng, xs, gf, kk);
 #pragma unroll
       for (int i = 0; i < 13; ++i) {
         acc[i] = fma_r(2.0f, kk[i], acc[i]);
         xs[i] = fma_r(h, kk[i], x[i]);
       }
-      state_dot(c, s_dyn, fng, xs, gf, kk);
+      state_dot<kRows>(c, s_mass, fng, xs, gf, kk);
 #pragma unroll
       for (int i = 0; i < 13; ++i) {
         acc[i] = fma_r(2.0f, kk[i], acc[i]);
-        xs[i] = fma_r(c.dt, kk[i], x[i]);
+        xs[i] = fma_r(dt, kk[i], x[i]);
       }
-      state_dot(c, s_dyn, fng, xs, gf, kk);
-      const float h6 = c.dt / 6.0f;
+      state_dot<kRows>(c, s_mass, fng, xs, gf, kk);
 #pragma unroll
       for (int i = 0; i < 13; ++i) x[i] = fma_r(h6, acc[i] + kk[i], x[i]);
     }
-    // quaternion renormalisation (the rsqrt in f32)
+    // quaternion renormalisation (the rsqrt in f32, per lane)
     const Val s2 = x[3] * x[3] + x[4] * x[4] + x[5] * x[5] + x[6] * x[6];
-    const Val inv = rsqrtf(fmaxf(widen(s2), 1e-24f));
+    const Val inv =
+        per_lane(s2, [](float v) { return rsqrtf(fmaxf(v, 1e-24f)); });
 #pragma unroll
     for (int i = 3; i < 7; ++i) x[i] *= inv;
 
-    cost += rollout_state_cost<COST>(c, s_dyn, tau, x);
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l)
+      cost[l] += rollout_state_cost<COST>(c, s_dyn, tau, x, l);
     Val quad = 0.0f;
 #pragma unroll
     for (int j = 0; j < 6; ++j) {
 #ifdef MPPI_BF16
-      cost += widen(Val(rhs_z[t * 6 + j]) * zt[j]);
+      const Val rz = exact_val(rhs_z[t * 6 + j]) * zt[j];
+#pragma unroll
+      for (int l = 0; l < kLanes; ++l) cost[l] += widen(rz, l);
 #else
-      cost = fmaf(rhs_z[t * 6 + j], zt[j], cost);
+      cost[0] = fmaf(rhs_z[t * 6 + j], zt[j], cost[0]);
 #endif
       Val mz = 0.0f;
 #pragma unroll
@@ -465,29 +531,36 @@ __global__ void AUV_LAUNCH_BOUNDS
       quad = fma_r(zt[j], mz, quad);
     }
 #ifdef MPPI_BF16
-    cost += widen(Val(c.nc_half * ct) * quad);
+    const Val nq = to_val(c.nc_half * ct) * quad;
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l) cost[l] += widen(nq, l);
 #else
-    cost = fmaf(c.nc_half * sched_factor(s_dyn, sched_off, t), quad, cost);
+    cost[0] = fmaf(c.nc_half * sched_factor(s_dyn, sched_off, t), quad,
+                   cost[0]);
 #endif
   }
-  cost += rollout_state_cost<COST>(c, s_dyn, tau, x);
-  cost += u_half;
 
-  if (MODE == kFused) {
-    float* row = partials + static_cast<size_t>(blockIdx.x) *
-                                (kStats + tau * 6);
-    write_partial_row<true>(-cost / c.lam, cost, valid, ns, tau * 6, s_red,
-                            row);
-  } else {
-    if (valid) costs[k] = cost;
-    write_partial_row<false>(-INFINITY, cost, valid, ns, 0, s_red,
-                             partials + static_cast<size_t>(blockIdx.x) *
-                                            kStats);
+  float zarg[kLanes];
+#pragma unroll
+  for (int l = 0; l < kLanes; ++l) {
+    cost[l] += rollout_state_cost<COST>(c, s_dyn, tau, x, l);
+    cost[l] += u_half;
+    zarg[l] = MODE == kFused ? -cost[l] / c.lam : -INFINITY;
+    if (MODE == kCosts && valid[l]) costs[k[l]] = cost[l];
   }
+  if (MODE == kFused)
+    write_partial_row_lanes<true, kLanes>(
+        zarg, cost, valid, ns, tau * 6, s_red,
+        partials + static_cast<size_t>(blockIdx.x) * (kStats + tau * 6));
+  else
+    write_partial_row_lanes<false, kLanes>(
+        zarg, cost, valid, ns, 0, s_red,
+        partials + static_cast<size_t>(blockIdx.x) * kStats);
 }
 
 // The launch of one solve: k samples over horizon tau; scheduled (0 / 1)
-// appends the tau factors c_t to dyn.
+// appends the tau factors c_t to dyn. With occupancy set nothing launches:
+// the kernel's blocks an SM at this shared memory are written there.
 struct AuvLaunch {
   const float* dyn;
   const float* z;
@@ -496,6 +569,7 @@ struct AuvLaunch {
   int k, tau, scheduled;
   Seeds sd;
   cudaStream_t stream;
+  int* occupancy;
 };
 
 template <int RK, int MODE, int COST>
@@ -504,13 +578,19 @@ int launch_auv(const AuvConsts& c, const AuvLaunch& a) {
   const int sched_off = a.scheduled ? dyn_size(a.tau) : -1;
   size_t smem = 0;
   const cudaError_t e =
-      smem_for(MPPI_KERNEL(auv_fused_solve)<RK, MODE, COST>, n_dyn,
+      smem_for(MPPI_KERNEL(auv_fused_solve)<RK, MODE, COST>,
+               kMassWords ? ((n_dyn + 3) & ~3) + kMassWords : n_dyn,
                MODE == kFused ? a.tau * 6 : 0, &smem);
   if (e != cudaSuccess) return e;
+  if (a.occupancy != nullptr)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        a.occupancy, MPPI_KERNEL(auv_fused_solve)<RK, MODE, COST>, kThreads,
+        smem);
   const int nb = (a.k + kBlock - 1) / kBlock;
-  MPPI_KERNEL(auv_fused_solve)<RK, MODE, COST><<<nb, kBlock, smem, a.stream>>>(
-      c, a.dyn, n_dyn, sched_off, a.z, a.costs, a.partials, a.k, a.tau,
-      a.sd);
+  MPPI_KERNEL(auv_fused_solve)<RK, MODE, COST>
+      <<<nb, kThreads, smem, a.stream>>>(c, a.dyn, n_dyn, sched_off, a.z,
+                                         a.costs, a.partials, a.k, a.tau,
+                                         a.sd);
   return cudaGetLastError();
 }
 
@@ -525,8 +605,13 @@ int dispatch_rk(int rk, const AuvConsts& c, const AuvLaunch& a) {
 template <int MODE>
 int dispatch_auv(int rk, int cost, const float* consts, const AuvLaunch& a) {
   if (a.k <= 0 || a.tau <= 0) return cudaErrorInvalidValue;
-  AuvConsts c;
-  memcpy(&c, consts, sizeof(c));
+  HostConsts f;
+  memcpy(&f, consts, sizeof(f));
+#ifdef MPPI_BF16_PAIRS
+  const AuvConsts c = pair_consts(f);
+#else
+  const AuvConsts& c = f;
+#endif
   if (cost == kStaticQuat) return dispatch_rk<MODE, kStaticQuat>(rk, c, a);
   if (cost == kWaypointsQuat)
     return dispatch_rk<MODE, kWaypointsQuat>(rk, c, a);
@@ -552,7 +637,7 @@ int MPPI_ENTRY(auv_fused_solve)(int rk, int cost, const float* consts,
       rk, cost, consts,
       AuvLaunch{dyn, z, nullptr, partials, k, tau, scheduled,
                 Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
-                static_cast<cudaStream_t>(stream)});
+                static_cast<cudaStream_t>(stream), nullptr});
 }
 
 int MPPI_ENTRY(auv_fused_costs)(int rk, int cost, const float* consts,
@@ -565,7 +650,19 @@ int MPPI_ENTRY(auv_fused_costs)(int rk, int cost, const float* consts,
       rk, cost, consts,
       AuvLaunch{dyn, z, costs, partials, k, tau, scheduled,
                 Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
-                static_cast<cudaStream_t>(stream)});
+                static_cast<cudaStream_t>(stream), nullptr});
+}
+
+// out[0]: blocks an SM of the solve (mode 0) or costs (1) kernel of
+// (rk, cost) at horizon tau, unscheduled; out[1]: samples a thread.
+int MPPI_ENTRY(auv_occupancy)(int rk, int cost, int mode, int tau,
+                              int* out) {
+  static const float zeros[sizeof(HostConsts) / sizeof(float)] = {};
+  const AuvLaunch a{nullptr, nullptr, nullptr, nullptr, 1, tau, 0, Seeds{},
+                    nullptr, out};
+  out[1] = kLanes;
+  return mode ? dispatch_auv<kCosts>(rk, cost, zeros, a)
+              : dispatch_auv<kFused>(rk, cost, zeros, a);
 }
 
 #ifndef MPPI_BF16

@@ -35,6 +35,22 @@
 // pm_fused_solve_bf16), so the f32 kernels keep their names and code.
 // Every normal a bf16 kernel consumes, injected or Philox, is the f32
 // normal rounded to bf16 (NoiseStream::next), in every phase.
+//
+// Two samples a thread (auv_mppi_bf16.cu, nn_mppi_bf16.cu, which also
+// define MPPI_BF16_PAIRS): Val = bf16x2, one bf16 value of each of two
+// samples in one 32-bit register, every rollout op one native Hopper
+// add.rn / sub.rn / mul.rn.bf16x2 for both. Each rounds its exact result
+// once to bf16, the value bf16r's f32 op and round give (a product of two
+// bf16 values is exact in f32; a sum rounded to f32 and then to bf16 is
+// innocuous double rounding, 24 >= 2 * 8 + 2), so the pair build computes
+// bf16r's bits without a conversion a op. Never fused: fma.rn.bf16x2
+// rounds once and gives other bits (and mul without .rn may be contracted
+// into one). A block of kBlock / 2 = 128 threads holds one partial row of
+// kBlock samples: thread t of block b has lane 0 = sample b * kBlock + t
+// and lane 1 = sample b * kBlock + 128 + t, each lane with its own
+// NoiseStream and f32 cost; the epilogue sums a thread's two lanes before
+// the warp (write_partial_row_lanes), so the rows hold the f32 layout's
+// samples in another order of summation (the costs are bf16r's bits).
 
 #pragma once
 
@@ -55,6 +71,9 @@
 // neither include cuda_bf16.h nor see round_bf16, bf16r or a bf16 branch.
 #if defined(MPPI_BF16) || defined(MPPI_NN_BF16_PRODUCTS)
 #include <cuda_bf16.h>
+#endif
+#ifdef MPPI_BF16_PAIRS
+#include <string.h>
 #endif
 
 namespace mppi {
@@ -122,21 +141,121 @@ __device__ __forceinline__ bf16r relu_r(bf16r a) {
 __device__ __forceinline__ float widen(bf16r a) { return a.v; }
 #endif
 
+#ifdef MPPI_BF16_PAIRS
+// The bf16 bits nearest f (ties to even; NaN stays NaN): integer ops, so a
+// literal folds to its bit pattern at compile time. The host uses it to
+// pack the solve constants.
+__host__ __device__ __forceinline__ uint32_t bf16_bits_rn(float f) {
+  uint32_t u;
+#ifdef __CUDA_ARCH__
+  u = __float_as_uint(f);
+#else
+  memcpy(&u, &f, sizeof(u));
+#endif
+  if ((u & 0x7fffffffu) > 0x7f800000u) return (u >> 16) | 0x40u;
+  return (u + 0x7fffu + ((u >> 16) & 1u)) >> 16;
+}
+
+// One bf16 value of each of two samples: lane 0 in the low half, lane 1 in
+// the high half. A float converts to (f, f) rounded: meant for literals
+// (0.5f, 1.0f, 2.0f fold to constants); a value known only at run time
+// goes through pack2() (to_val), one cvt.
+struct bf16x2 {
+  uint32_t v;
+  bf16x2() = default;
+  __host__ __device__ __forceinline__ bf16x2(float f)
+      : v(bf16_bits_rn(f) * 0x00010001u) {}
+  static __host__ __device__ __forceinline__ bf16x2 bits(uint32_t w) {
+    bf16x2 r;
+    r.v = w;
+    return r;
+  }
+};
+#define MPPI_BF16X2_OP(op, ptx)                                            \
+  __device__ __forceinline__ bf16x2 operator op(bf16x2 a, bf16x2 b) {     \
+    bf16x2 r;                                                             \
+    asm(ptx " %0, %1, %2;" : "=r"(r.v) : "r"(a.v), "r"(b.v));             \
+    return r;                                                             \
+  }
+MPPI_BF16X2_OP(+, "add.rn.bf16x2")
+MPPI_BF16X2_OP(-, "sub.rn.bf16x2")
+MPPI_BF16X2_OP(*, "mul.rn.bf16x2")
+#undef MPPI_BF16X2_OP
+__device__ __forceinline__ bf16x2 operator-(bf16x2 a) {
+  return bf16x2::bits(a.v ^ 0x80008000u);
+}
+__device__ __forceinline__ bf16x2& operator+=(bf16x2& a, bf16x2 b) {
+  return a = a + b;
+}
+__device__ __forceinline__ bf16x2& operator*=(bf16x2& a, bf16x2 b) {
+  return a = a * b;
+}
+__device__ __forceinline__ bf16x2 fma_r(bf16x2 a, bf16x2 b, bf16x2 c) {
+  return c + a * b;
+}
+__device__ __forceinline__ bf16x2 abs_r(bf16x2 a) {
+  return bf16x2::bits(a.v & 0x7fff7fffu);
+}
+// max.bf16x2 against +0, as fmaxf(a, 0.0f) of bf16r: -0 and NaN give +0
+__device__ __forceinline__ bf16x2 relu_r(bf16x2 a) {
+  bf16x2 r;
+  asm("max.bf16x2 %0, %1, %2;" : "=r"(r.v) : "r"(a.v), "r"(0u));
+  return r;
+}
+// lane l of a pair in f32: a shift, not a conversion
+__device__ __forceinline__ float widen(bf16x2 a, int lane) {
+  return __uint_as_float(lane ? a.v & 0xffff0000u : a.v << 16);
+}
+// (lo, hi) rounded to bf16, one cvt for both lanes
+__device__ __forceinline__ bf16x2 pack2(float lo, float hi) {
+  bf16x2 r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r.v) : "f"(hi), "f"(lo));
+  return r;
+}
+#endif
+
 // A float that already holds a Val (a rounded normal, a staged weight, a
 // solve constant the host packed rounded to bf16) as a Val, without
 // rounding again: a constant stays an operand of the multiply, not a
-// converted value the compiler hoists into a register.
-#ifdef MPPI_BF16
+// converted value the compiler hoists into a register. In the pair builds
+// the float is a staged shared-memory word that holds a bf16x2's bits.
+#if defined(MPPI_BF16_PAIRS)
+using Val = bf16x2;
+constexpr int kLanes = 2;
+__device__ __forceinline__ Val exact_val(float f) {
+  return bf16x2::bits(__float_as_uint(f));
+}
+__device__ __forceinline__ Val exact_val(bf16x2 v) { return v; }
+// a run-time f32 scalar as a Val (rounded, both lanes)
+__device__ __forceinline__ Val to_val(float f) { return pack2(f, f); }
+// the staged word of dyn entry f: (f, f) rounded, as a float's bits
+__device__ __forceinline__ float stage_word(float f) {
+  return __uint_as_float(to_val(f).v);
+}
+// f applied to each lane of v in f32, rounded back (one cvt)
+template <typename F>
+__device__ __forceinline__ Val per_lane(Val v, F f) {
+  return pack2(f(widen(v, 0)), f(widen(v, 1)));
+}
+#elif defined(MPPI_BF16)
 using Val = bf16r;
+constexpr int kLanes = 1;
 __device__ __forceinline__ Val exact_val(float f) { return bf16r::exact(f); }
 __device__ __forceinline__ Val exact_val(bf16r v) { return v; }
 #else
 using Val = float;
+constexpr int kLanes = 1;
 __device__ __forceinline__ Val exact_val(float f) { return f; }
+__device__ __forceinline__ Val to_val(float f) { return f; }
+template <typename F>
+__device__ __forceinline__ Val per_lane(Val v, F f) {
+  return f(v);
+}
 #endif
 
 constexpr int kBlock = 256;          // samples (threads) per solve block
 constexpr int kWarps = kBlock / 32;
+constexpr int kThreads = kBlock / kLanes;  // threads of a pair build's block
 constexpr int kStats = 8;            // (m, l, cmin, cmax, csum, pad x3)
 
 // What a solve kernel writes: kFused, the block's softmax partial row;
@@ -255,6 +374,16 @@ struct NoiseStream {
   }
 };
 
+// Normal n of every lane's stream as one Val: at f32 the normal itself,
+// in the pair builds both lanes' f32 normals rounded by one cvt.
+__device__ __forceinline__ Val draw(NoiseStream* ns, int n) {
+#ifdef MPPI_BF16_PAIRS
+  return pack2(ns[0].next_f32(n), ns[1].next_f32(n));
+#else
+  return exact_val(ns[0].next(n));
+#endif
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -303,57 +432,78 @@ __device__ __forceinline__ float quat_state_cost(const float* q,
   return out;
 }
 
-// Block epilogue of every solve kernel (blockDim.x == kBlock, all threads
-// call it). Each thread brings its sample's log-weight zarg and cost;
-// padding threads (valid false) weigh exactly 0 and leave the cost stats
-// alone. kMaxShift: m_b = the block's max zarg (fused solve, unbounded
-// exponent); else m_b = 0 (phase B, exponent in [-1/lam, 0]; phase A, with
-// zarg = -inf and n_z = 0, writes the cost stats only). Pass two
-// regenerates z from ns and reduces sum_k w_k z_k per normal with warp
-// shuffles, then over the block's warps in s_red (kWarps * n_z floats).
-template <bool kMaxShift>
-__device__ __forceinline__ void write_partial_row(float zarg, float cost,
-                                                  bool valid,
-                                                  NoiseStream& ns, int n_z,
-                                                  float* s_red, float* row) {
-  __shared__ float s_stat[5][kWarps];
+// Block epilogue of every solve kernel: one partial row of kBlock samples
+// from kBlock / kL threads of kL lanes each (all threads call it). Each
+// lane brings its sample's log-weight zarg and cost; padding samples
+// (valid false) weigh exactly 0 and leave the cost stats alone. kMaxShift:
+// m_b = the block's max zarg (fused solve, unbounded exponent); else m_b =
+// 0 (phase B, exponent in [-1/lam, 0]; phase A, with zarg = -inf and n_z =
+// 0, writes the cost stats only). Pass two regenerates z from each lane's
+// stream and reduces sum_k w_k z_k per normal with warp shuffles (a
+// thread's lanes summed first), then over the block's warps in s_red
+// (kWarps * n_z floats). At kL = 1 every sum is the f32 kernels' own.
+template <bool kMaxShift, int kL>
+__device__ __forceinline__ void write_partial_row_lanes(
+    const float* zarg, const float* cost, const bool* valid, NoiseStream* ns,
+    int n_z, float* s_red, float* row) {
+  constexpr int kThreads = kBlock / kL, kRowWarps = kThreads / 32;
+  __shared__ float s_stat[5][kRowWarps];
   __shared__ float s_m;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float m_b = 0.0f;
   if (kMaxShift) {
-    const float wm = warp_max(valid ? zarg : -INFINITY);
+    float zm = valid[0] ? zarg[0] : -INFINITY;
+#pragma unroll
+    for (int l = 1; l < kL; ++l) zm = fmaxf(zm, valid[l] ? zarg[l] : -INFINITY);
+    const float wm = warp_max(zm);
     if (lane == 0) s_stat[0][warp] = wm;
     __syncthreads();
     if (threadIdx.x == 0) {
       float m = s_stat[0][0];
-      for (int w = 1; w < kWarps; ++w) m = fmaxf(m, s_stat[0][w]);
+      for (int w = 1; w < kRowWarps; ++w) m = fmaxf(m, s_stat[0][w]);
       s_m = m;
     }
     __syncthreads();
     m_b = s_m;
   }
-  const float wgt = valid ? expf(zarg - m_b) : 0.0f;
-  const float l = warp_sum(wgt);
-  const float cmin = warp_min(valid ? cost : INFINITY);
-  const float cmax = warp_max(valid ? cost : -INFINITY);
-  const float csum = warp_sum(valid ? cost : 0.0f);
+  float wgt[kL];
+  float ws = 0.0f, c_lo = INFINITY, c_hi = -INFINITY, cs = 0.0f;
+#pragma unroll
+  for (int l = 0; l < kL; ++l) {
+    wgt[l] = valid[l] ? expf(zarg[l] - m_b) : 0.0f;
+    const float lo = valid[l] ? cost[l] : INFINITY;
+    const float hi = valid[l] ? cost[l] : -INFINITY;
+    const float c = valid[l] ? cost[l] : 0.0f;
+    ws = l ? ws + wgt[l] : wgt[l];
+    c_lo = l ? fminf(c_lo, lo) : lo;
+    c_hi = l ? fmaxf(c_hi, hi) : hi;
+    cs = l ? cs + c : c;
+  }
+  const float l_w = warp_sum(ws);
+  const float cmin = warp_min(c_lo);
+  const float cmax = warp_max(c_hi);
+  const float csum = warp_sum(cs);
   if (lane == 0) {
-    s_stat[1][warp] = l;
+    s_stat[1][warp] = l_w;
     s_stat[2][warp] = cmin;
     s_stat[3][warp] = cmax;
     s_stat[4][warp] = csum;
   }
 
-  ns.reset();
+#pragma unroll
+  for (int l = 0; l < kL; ++l) ns[l].reset();
   for (int n = 0; n < n_z; ++n) {
-    const float v = warp_sum(wgt * ns.next(n));
+    float wz = wgt[0] * ns[0].next(n);
+#pragma unroll
+    for (int l = 1; l < kL; ++l) wz += wgt[l] * ns[l].next(n);
+    const float v = warp_sum(wz);
     if (lane == 0) s_red[warp * n_z + n] = v;
   }
   __syncthreads();
 
   if (threadIdx.x == 0) {
     float bl = 0.0f, bmin = INFINITY, bmax = -INFINITY, bsum = 0.0f;
-    for (int w = 0; w < kWarps; ++w) {
+    for (int w = 0; w < kRowWarps; ++w) {
       bl += s_stat[1][w];
       bmin = fminf(bmin, s_stat[2][w]);
       bmax = fmaxf(bmax, s_stat[3][w]);
@@ -366,11 +516,21 @@ __device__ __forceinline__ void write_partial_row(float zarg, float cost,
     row[4] = bsum;
     row[5] = row[6] = row[7] = 0.0f;
   }
-  for (int n = threadIdx.x; n < n_z; n += kBlock) {
+  for (int n = threadIdx.x; n < n_z; n += kThreads) {
     float s = 0.0f;
-    for (int w = 0; w < kWarps; ++w) s += s_red[w * n_z + n];
+    for (int w = 0; w < kRowWarps; ++w) s += s_red[w * n_z + n];
     row[kStats + n] = s;
   }
+}
+
+// The epilogue of a kernel with one sample a thread (blockDim.x == kBlock).
+template <bool kMaxShift>
+__device__ __forceinline__ void write_partial_row(float zarg, float cost,
+                                                  bool valid,
+                                                  NoiseStream& ns, int n_z,
+                                                  float* s_red, float* row) {
+  write_partial_row_lanes<kMaxShift, 1>(&zarg, &cost, &valid, &ns, n_z,
+                                        s_red, row);
 }
 
 // Dynamic shared memory for dyn (dyn_size floats) + s_red; raises the

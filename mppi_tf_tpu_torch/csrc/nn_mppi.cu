@@ -54,14 +54,20 @@
 //
 // Two more builds of this source, each a translation unit of its own:
 // * nn_mppi_bf16.cu, the bf16 block compute (compute_dtype "bfloat16",
-//   :148-149, :191-325): Val = bf16r (mppi_common.cuh), kernels and entry
-//   points suffixed _bf16. The folded weights and biases are rounded to
-//   bf16 as they are staged, x0, useq and the noise as they are read; the
-//   force u_t + c_t (scale z_t) in the TPU kernel's order, every MLP chain
-//   acc + w h (each product and sum rounded), the ReLU and the state update
-//   are bf16; the renormalisation's rsqrt, the StaticQuatCost (against the
-//   unrounded goal) and the cost sum are f32, the z terms bf16 values
-//   added to it (:296-325).
+//   :148-149, :191-325): Val = bf16x2 (mppi_common.cuh, MPPI_BF16_PAIRS),
+//   two samples a thread and 128 threads a block for one partial row,
+//   kernels and entry points suffixed _bf16. The folded weights and
+//   biases are staged as duplicated bf16x2 words (w, w) in place, so a
+//   float4 read of a W^T row is 4 weights a 16-byte broadcast load and 8
+//   bf16x2 instructions for the two samples; x0, useq
+//   and rhs_z are staged as words too, scale and Mz come as words in the
+//   kernel's constants (NnConstsT, packed by the entry point), and the
+//   noise is rounded as it is drawn (one cvt a normal pair). The force
+//   u_t + c_t (scale z_t) in the TPU kernel's order, every MLP chain
+//   acc + w h (each product and sum rounded), the ReLU (max.bf16x2 against
+//   +0, as fmaxf) and the state update are bf16; the renormalisation's
+//   rsqrt, the StaticQuatCost (against the unrounded goal) and each lane's
+//   cost sum are f32, the z terms bf16 values added to it (:296-325).
 // * nn_mppi_bfp.cu, the f32 kernel for a model whose compute_dtype is
 //   bf16 (suffix _bfp): the JAX XLA path's bf16 products with f32
 //   accumulation (models/nn.py mlp_apply), not the TPU kernel, which
@@ -83,16 +89,35 @@ constexpr int kFeatures = 16;  // 10 state features (x[3:13]) + 6 actions
 constexpr int kSdim = 13;
 constexpr int kAdim = 6;
 
-// Solve constants, in the order of kernels/nn_mppi.py NnConsts.packed.
-struct NnConsts {
+// Solve constants, in the order of kernels/nn_mppi.py NnConsts.packed; W:
+// float, or in the pair build the bf16x2 word (w, w) of each.
+template <typename W>
+struct NnConstsT {
   float lam;
   float nc_half;
-  float renorm;     // 1: renormalise the quaternion after each step
+  float renorm;  // 1: renormalise the quaternion after each step
   float pad;
-  float scale[36];  // upsilon sigma, row-major
-  float mz[36];     // scale^T Sigma^-1 scale
-  float q[100];     // 10x10 cost weight
+  W scale[36];   // upsilon sigma, row-major
+  W mz[36];      // scale^T Sigma^-1 scale
+  float q[100];  // 10x10 cost weight
 };
+using HostConsts = NnConstsT<float>;
+#ifdef MPPI_BF16_PAIRS
+using NnConsts = NnConstsT<bf16x2>;
+
+// scale and Mz (bf16 values, packed rounded by the host) as words
+NnConsts pair_consts(const HostConsts& f) {
+  NnConsts c;
+  memcpy(&c, &f, sizeof(c));
+  for (int i = 0; i < 36; ++i) {
+    c.scale[i] = bf16x2(f.scale[i]);
+    c.mz[i] = bf16x2(f.mz[i]);
+  }
+  return c;
+}
+#else
+using NnConsts = HostConsts;
+#endif
 static_assert(sizeof(NnConsts) == 176 * sizeof(float), "NnConsts layout");
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
@@ -170,25 +195,27 @@ __device__ __forceinline__ void mlp(const float* __restrict__ s_w,
   }
 }
 
-// StaticQuatCost of a rollout state, at bf16 on the state widened to f32
-// (the f32 builds call quat_state_cost on the state itself).
-#ifdef MPPI_BF16
+// StaticQuatCost of lane l of a rollout state, at bf16 on the state
+// widened to f32 (the f32 builds call quat_state_cost on the state).
 __device__ __forceinline__ float rollout_state_cost(const float* q,
                                                    const Val* x,
-                                                   const float* goal) {
+                                                   const float* goal,
+                                                   int l) {
+#ifdef MPPI_BF16
   float xf[kSdim];
 #pragma unroll
-  for (int i = 0; i < kSdim; ++i) xf[i] = widen(x[i]);
+  for (int i = 0; i < kSdim; ++i) xf[i] = widen(x[i], l);
   return quat_state_cost(q, xf, goal);
-}
 #else
-#define rollout_state_cost quat_state_cost
+  return quat_state_cost(q, x, goal);
 #endif
+}
 
-// The bf16 build of the two-layer (8, 8) network gives ptxas a floor of
-// one block an SM: left to itself it holds 80 registers and spills.
-#ifdef MPPI_BF16
-#define NN_LAUNCH_BOUNDS __launch_bounds__(kBlock, N3 == 0 ? 1 : 0)
+// The bf16 and bf16-products builds give the two-layer (8, 8) network a
+// floor of two blocks an SM: at ptxas's own 80-register target both
+// spill.
+#if defined(MPPI_BF16_PAIRS) || defined(MPPI_NN_BF16_PRODUCTS)
+#define NN_LAUNCH_BOUNDS __launch_bounds__(kThreads, N3 == 0 ? 2 : 0)
 #else
 #define NN_LAUNCH_BOUNDS __launch_bounds__(kBlock)
 #endif
@@ -206,9 +233,16 @@ __global__ void NN_LAUNCH_BOUNDS
   float* s_dyn = smem;                     // dyn_size
   float* s_red = smem + round4(dyn_size);  // kWarps * n_z: pass-two sums
 
-  for (int i = threadIdx.x; i < dyn_size; i += kBlock) {
+  // the bf16 build stages the layers, x0, useq and rhs_z as bf16x2 words
+  // (the rollout's operands); the goal, u_half and c_t stay f32
+  for (int i = threadIdx.x; i < dyn_size; i += kThreads) {
 #ifdef MPPI_BF16
-    s_dyn[i] = i < T::size ? round_bf16(dyn[i]) : dyn[i];
+    const int from_x0 = i - T::end;
+    const bool word = i < T::size ||
+                      (from_x0 >= 0 && from_x0 < kSdim) ||
+                      (from_x0 >= 2 * kSdim &&
+                       from_x0 < 2 * kSdim + 2 * kAdim * tau);
+    s_dyn[i] = word ? stage_word(dyn[i]) : dyn[i];
 #else
     s_dyn[i] = dyn[i];
 #endif
@@ -225,15 +259,23 @@ __global__ void NN_LAUNCH_BOUNDS
   const float* rhs_z = useq + kAdim * tau;
   const float u_half = rhs_z[kAdim * tau];
 
-  const int k = blockIdx.x * kBlock + threadIdx.x;
-  const bool valid = k < k_total;
-  NoiseStream ns;
-  ns.init(z, k_total, k, sd);
+  // block b: partial row b; lane l of thread t: sample b kBlock +
+  // l kThreads + t
+  int k[kLanes];
+  bool valid[kLanes];
+  NoiseStream ns[kLanes];
+  float cost[kLanes];
+#pragma unroll
+  for (int l = 0; l < kLanes; ++l) {
+    k[l] = blockIdx.x * kBlock + l * kThreads + threadIdx.x;
+    valid[l] = k[l] < k_total;
+    ns[l].init(z, k_total, k[l], sd);
+    cost[l] = 0.0f;
+  }
 
-  float cost = 0.0f;
   Val x[kSdim];
 #pragma unroll
-  for (int i = 0; i < kSdim; ++i) x[i] = x0[i];
+  for (int i = 0; i < kSdim; ++i) x[i] = exact_val(x0[i]);
   int n = 0;
 #pragma unroll 1
   for (int t = 0; t < tau; ++t) {
@@ -245,11 +287,14 @@ __global__ void NN_LAUNCH_BOUNDS
     const float ct = sched_factor(s_dyn, sched_off, t);
     Val zt[kAdim], feats[kFeatures];
 #pragma unroll
-    for (int j = 0; j < kAdim; ++j) zt[j] = exact_val(ns.next(n++));
+    for (int j = 0; j < kAdim; ++j) zt[j] = draw(ns, n++);
 #pragma unroll
     for (int i = 0; i < kSdim - 3; ++i) feats[i] = x[3 + i];
     // u = useq_t + scale (c_t z_t); at bf16 u_t + c_t (scale z_t), the TPU
     // kernel's order (:255-275)
+#ifdef MPPI_BF16
+    const Val ct_v = to_val(ct);
+#endif
 #pragma unroll
     for (int i = 0; i < kAdim; ++i) {
 #ifdef MPPI_BF16
@@ -257,7 +302,7 @@ __global__ void NN_LAUNCH_BOUNDS
 #pragma unroll
       for (int j = 0; j < kAdim; ++j)
         sz = fma_r(exact_val(c.scale[i * kAdim + j]), zt[j], sz);
-      feats[kSdim - 3 + i] = Val(useq[t * kAdim + i]) + Val(ct) * sz;
+      feats[kSdim - 3 + i] = exact_val(useq[t * kAdim + i]) + ct_v * sz;
 #else
       float s = useq[t * kAdim + i];
 #pragma unroll
@@ -285,19 +330,24 @@ __global__ void NN_LAUNCH_BOUNDS
     for (int i = 0; i < kSdim; ++i) x[i] += delta[i];
     if (c.renorm != 0.0f) {
       const Val s2 = x[3] * x[3] + x[4] * x[4] + x[5] * x[5] + x[6] * x[6];
-      const Val inv = rsqrtf(fmaxf(widen(s2), 1e-24f));
+      const Val inv =
+          per_lane(s2, [](float v) { return rsqrtf(fmaxf(v, 1e-24f)); });
 #pragma unroll
       for (int i = 3; i < 7; ++i) x[i] *= inv;
     }
 
-    cost += rollout_state_cost(c.q, x, goal);
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l)
+      cost[l] += rollout_state_cost(c.q, x, goal, l);
     Val quad = 0.0f;
 #pragma unroll
     for (int j = 0; j < kAdim; ++j) {
 #ifdef MPPI_BF16
-      cost += widen(Val(rhs_z[t * kAdim + j]) * zt[j]);
+      const Val rz = exact_val(rhs_z[t * kAdim + j]) * zt[j];
+#pragma unroll
+      for (int l = 0; l < kLanes; ++l) cost[l] += widen(rz, l);
 #else
-      cost = fmaf(rhs_z[t * kAdim + j], zt[j], cost);
+      cost[0] = fmaf(rhs_z[t * kAdim + j], zt[j], cost[0]);
 #endif
       Val mz = 0.0f;
 #pragma unroll
@@ -306,31 +356,38 @@ __global__ void NN_LAUNCH_BOUNDS
       quad = fma_r(zt[j], mz, quad);
     }
 #ifdef MPPI_BF16
-    cost += widen(Val(c.nc_half * ct) * quad);
+    const Val nq = to_val(c.nc_half * ct) * quad;
+#pragma unroll
+    for (int l = 0; l < kLanes; ++l) cost[l] += widen(nq, l);
 #else
-    cost = fmaf(c.nc_half * ct, quad, cost);
+    cost[0] = fmaf(c.nc_half * ct, quad, cost[0]);
 #endif
   }
-  cost += rollout_state_cost(c.q, x, goal);
-  cost += u_half;
 
-  if (MODE == kFused) {
-    float* row = partials + static_cast<size_t>(blockIdx.x) *
-                                (kStats + tau * kAdim);
-    write_partial_row<true>(-cost / c.lam, cost, valid, ns, tau * kAdim,
-                            s_red, row);
-  } else {
-    if (valid) costs[k] = cost;
-    write_partial_row<false>(-INFINITY, cost, valid, ns, 0, s_red,
-                             partials + static_cast<size_t>(blockIdx.x) *
-                                            kStats);
+  float zarg[kLanes];
+#pragma unroll
+  for (int l = 0; l < kLanes; ++l) {
+    cost[l] += rollout_state_cost(c.q, x, goal, l);
+    cost[l] += u_half;
+    zarg[l] = MODE == kFused ? -cost[l] / c.lam : -INFINITY;
+    if (MODE == kCosts && valid[l]) costs[k[l]] = cost[l];
   }
+  if (MODE == kFused)
+    write_partial_row_lanes<true, kLanes>(
+        zarg, cost, valid, ns, tau * kAdim, s_red,
+        partials + static_cast<size_t>(blockIdx.x) * (kStats + tau * kAdim));
+  else
+    write_partial_row_lanes<false, kLanes>(
+        zarg, cost, valid, ns, 0, s_red,
+        partials + static_cast<size_t>(blockIdx.x) * kStats);
 }
 
+// With occupancy set nothing launches: the kernel's blocks an SM at this
+// shared memory are written there.
 template <int N1, int N2, int N3, int MODE>
 int launch_nn(const NnConsts& c, const float* dyn, const float* z,
               float* costs, float* partials, int k, int tau, int scheduled,
-              Seeds sd, cudaStream_t stream) {
+              Seeds sd, cudaStream_t stream, int* occupancy) {
   const int base = Topo<N1, N2, N3>::end + 2 * kSdim + 2 * kAdim * tau + 1;
   const int dyn_size = scheduled ? base + tau : base;
   size_t smem = 0;
@@ -338,9 +395,13 @@ int launch_nn(const NnConsts& c, const float* dyn, const float* z,
       smem_for(MPPI_KERNEL(nn_fused_solve)<N1, N2, N3, MODE>,
                round4(dyn_size), MODE == kFused ? tau * kAdim : 0, &smem);
   if (e != cudaSuccess) return e;
+  if (occupancy != nullptr)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        occupancy, MPPI_KERNEL(nn_fused_solve)<N1, N2, N3, MODE>, kThreads,
+        smem);
   const int nb = (k + kBlock - 1) / kBlock;
   MPPI_KERNEL(nn_fused_solve)<N1, N2, N3, MODE>
-      <<<nb, kBlock, smem, stream>>>(
+      <<<nb, kThreads, smem, stream>>>(
       c, dyn, dyn_size, scheduled ? base : -1, z, costs, partials, k, tau,
       sd);
   return cudaGetLastError();
@@ -350,16 +411,21 @@ template <int MODE>
 int dispatch_nn(int n1, int n2, int n3, const float* consts,
                 const float* dyn, const float* z, float* costs,
                 float* partials, int k, int tau, int sch, Seeds sd,
-                cudaStream_t st) {
+                cudaStream_t st, int* occupancy = nullptr) {
   if (k <= 0 || tau <= 0) return cudaErrorInvalidValue;
-  NnConsts c;
-  memcpy(&c, consts, sizeof(c));
+  HostConsts f;
+  memcpy(&f, consts, sizeof(f));
+#ifdef MPPI_BF16_PAIRS
+  const NnConsts c = pair_consts(f);
+#else
+  const NnConsts& c = f;
+#endif
   if (n1 == 32 && n2 == 32 && n3 == 32)
     return launch_nn<32, 32, 32, MODE>(c, dyn, z, costs, partials, k, tau,
-                                       sch, sd, st);
+                                       sch, sd, st, occupancy);
   if (n1 == 8 && n2 == 8 && n3 == 0)
     return launch_nn<8, 8, 0, MODE>(c, dyn, z, costs, partials, k, tau, sch,
-                                    sd, st);
+                                    sd, st, occupancy);
   return cudaErrorInvalidValue;
 }
 
@@ -390,6 +456,21 @@ int MPPI_ENTRY(nn_fused_costs)(int n1, int n2, int n3, const float* consts,
                              tau, scheduled,
                              Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
                              static_cast<cudaStream_t>(stream));
+}
+
+// out[0]: blocks an SM of the solve (mode 0) or costs (1) kernel of the
+// (n1, n2, n3) network at horizon tau, unscheduled; out[1]: samples a
+// thread.
+int MPPI_ENTRY(nn_occupancy)(int n1, int n2, int n3, int mode, int tau,
+                             int* out) {
+  static const float zeros[sizeof(HostConsts) / sizeof(float)] = {};
+  out[1] = kLanes;
+  return mode ? dispatch_nn<kCosts>(n1, n2, n3, zeros, nullptr, nullptr,
+                                    nullptr, nullptr, 1, tau, 0, Seeds{},
+                                    nullptr, out)
+              : dispatch_nn<kFused>(n1, n2, n3, zeros, nullptr, nullptr,
+                                    nullptr, nullptr, 1, tau, 0, Seeds{},
+                                    nullptr, out);
 }
 
 }  // extern "C"

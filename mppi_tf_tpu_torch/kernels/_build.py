@@ -7,7 +7,8 @@ with a plain C interface, so the build compiles no PyTorch headers. The
 library goes to ``mppi_tf_tpu_torch/_build/`` under a name that carries a
 hash of every ``.cu`` and ``.cuh`` source and the flags, so an edited
 source or header never loads a stale build. ``-Xptxas -v`` output
-(registers, shared memory, spills per kernel) is kept beside the library.
+(registers, shared memory, spills per kernel) is kept beside the library;
+``sass_counts`` reads the built machine code back with ``cuobjdump``.
 """
 
 from __future__ import annotations
@@ -48,6 +49,10 @@ _SIGNATURES = {
     "nn_fused_solve": [_I, _I, _I, _P, _P, _P, _P, *_SOLVE, *_SEEDS, _P],
     "nn_fused_costs": [_I, _I, _I, _P, _P, _P, _P, _P, *_SOLVE, *_SEEDS,
                        _P],
+    # (rk, cost, mode, tau, out[2]) and (n1, n2, n3, mode, tau, out[2]):
+    # blocks an SM and samples a thread of a solve kernel
+    "auv_occupancy": [_I, _I, _I, _I, _P],
+    "nn_occupancy": [_I, _I, _I, _I, _I, _P],
 }
 # the bf16 builds of the sources (suffix _bf16, every kernel but pm_merge)
 # and the NN kernel's bf16-products build (suffix _bfp) take the same
@@ -56,7 +61,7 @@ _SIGNATURES.update(
     {f"{name}_bf16": _SIGNATURES[name] for name in (
         "pm_noise_dump", "pm_fused_solve", "pm_fused_costs", "mppi_weights",
         "auv_fused_solve", "auv_fused_costs", "nn_fused_solve",
-        "nn_fused_costs")}
+        "nn_fused_costs", "auv_occupancy", "nn_occupancy")}
     | {f"{name}_bfp": _SIGNATURES[name]
        for name in ("nn_fused_solve", "nn_fused_costs")})
 
@@ -172,3 +177,38 @@ def parse_ptxas(text: str) -> list:
             s = re.search(r"(\d+) bytes smem", line)
             cur["static_smem"] = int(s.group(1)) if s else 0
     return rows
+
+
+def _cuobjdump():
+    path = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return path if os.path.exists(path) else None
+
+
+def sass_counts(path=None):
+    """Per-kernel opcode counts of the machine code of the built library
+    (or of the library at ``path``), from ``cuobjdump -sass``: {mangled
+    kernel name: {opcode with its modifiers: count}}; None where
+    ``cuobjdump`` is missing."""
+    tool = _cuobjdump()
+    if tool is None:
+        return None
+    out = subprocess.run([tool, "-sass", str(path or build())],
+                         capture_output=True, text=True, check=True).stdout
+    return parse_sass(out)
+
+
+def parse_sass(text: str) -> dict:
+    """{function: {opcode: count}} from ``cuobjdump -sass`` output; an
+    opcode keeps its modifiers (``HFMA2.BF16_V2``), a guard predicate
+    (``@P0``, ``@!PT``) is dropped."""
+    counts, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = counts.setdefault(m.group(1), {})
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]\s+)?"
+                     r"([A-Z][A-Z0-9_]*(?:\.[A-Z0-9_]+)*)", line)
+        if m and cur is not None:
+            cur[m.group(1)] = cur.get(m.group(1), 0) + 1
+    return counts

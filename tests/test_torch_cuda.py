@@ -1022,6 +1022,70 @@ def test_bf16_kernels_match_plain(cuda_device, kind):
                                cf_plain, rtol=COST_RTOL, atol=COST_ATOL)
 
 
+# the AUV and NN bf16 builds hold two samples a thread (csrc/mppi_common.cuh,
+# MPPI_BF16_PAIRS): block b of 128 threads is partial row b, thread t
+# holds samples 256 b + t and 256 b + 128 + t
+PAIR_CASES = [("auv", rk, cost) for rk in (2, 4)
+              for cost in ("static_quat", "waypoints_quat", "elipse3d")] + [
+    ("nn", (32, 32, 32), None), ("nn", (8, 8), None)]
+
+
+@pytest.mark.parametrize("k", [700, 4097])
+@pytest.mark.parametrize("case", PAIR_CASES, ids=str)
+def test_bf16_pairs_lanes_and_tail(cuda_device, case, k):
+    """A bf16 AUV or NN kernel's costs for samples 0..K-1 equal, bit for
+    bit, the same samples' costs at K + 256 with z extended (and on the
+    Philox stream): a lane's sample does not depend on the other lane of
+    its thread, nor on where the tail falls (at K = 700 the last row's
+    second lane is all padding, at K = 4,097 its first lane holds one
+    sample). The partials have ceil(K / 256) rows, and every full row
+    equals the longer solve's."""
+    from mppi_tf_tpu_torch.kernels import nn_mppi as nnk
+
+    model_kind, arg, cost_kind = case
+    tau = 7
+    if model_kind == "auv":
+        model = get_model({**flagship.auv_params(), "rk": arg}, dt=0.1,
+                          device=cuda_device)
+        task = (flagship.auv_task() if cost_kind == "static_quat"
+                else _auv_tracking_task(cost_kind))
+        cost = get_cost(task, lam=0.5, gamma=0.2, upsilon=1.2,
+                        sigma=AUV_SIGMA, device=cuda_device)
+        b16 = auv.FusedAUVMPPI(model, cost, k=k, tau=tau, lam=0.5,
+                               upsilon=1.2, sigma=AUV_SIGMA,
+                               compute_dtype="bfloat16")
+        assert (b16.consts.rk, b16.consts.cost_kind) == (arg, cost_kind)
+        mod, prefix = auv, "auv"
+    else:
+        f32 = _nn_fused(k, tau, cuda_device, arg)
+        b16 = nnk.FusedNNMPPI(f32.model, f32.cost, k=k, tau=tau, lam=0.5,
+                              upsilon=1.2, sigma=NN_SIGMA,
+                              compute_dtype="bfloat16")
+        mod, prefix = nnk, "nn"
+    _, x0, useq, _ = _auv_inputs(b16, cuda_device, seed=k)
+    with torch.no_grad():
+        dyn = b16.pack_dyn(x0, useq)
+    costs = getattr(mod, f"{prefix}_fused_costs")
+    solve = getattr(mod, f"{prefix}_fused_solve")
+    z_long = torch.randn(tau, 6, k + 256, device=cuda_device,
+                         generator=torch.Generator(cuda_device).manual_seed(k))
+    rows_n, full = -(-k // 256), k // 256
+    for kw, kw_long in (({"z": z_long[..., :k].contiguous()},
+                         {"z": z_long}),
+                        ({"seed": 5, "solve": 3}, {"seed": 5, "solve": 3})):
+        c, srows = costs(b16.consts, dyn, k, tau, **kw)
+        c2, srows2 = costs(b16.consts, dyn, k + 256, tau, **kw_long)
+        rows = solve(b16.consts, dyn, k, tau, **kw)
+        rows2 = solve(b16.consts, dyn, k + 256, tau, **kw_long)
+        torch.cuda.synchronize()
+        assert torch.isfinite(c).all()
+        assert torch.equal(c, c2[:k])
+        assert rows.shape[0] == srows.shape[0] == rows_n
+        assert rows2.shape[0] == -(-(k + 256) // 256)
+        assert torch.equal(rows[:full], rows2[:full])
+        assert torch.equal(srows[:full], srows2[:full])
+
+
 @pytest.mark.parametrize("adim,half", [(3, 0), (6, 0), (6, 50_000)])
 def test_bf16_noise_dump_is_the_rounded_f32_dump(cuda_device, adim, half):
     """Bit for bit, on the card: the bf16 dump is the f32 dump rounded;
