@@ -57,13 +57,15 @@ port's paths through ``MPPI.next`` closed loop against the analytic plants:
 
 The build phase reports each instantiation's registers beside the count
 the f32 ones had before the bf16 builds were added (PERF.md), the static
-SASS counts of the AUV, NN and point-mass kernels (``sass``: conversions,
-bf16x2 ops, f32 ops, loads) and every AUV / NN instantiation's blocks an
-SM and waves at the flagship shapes (``occupancy``), and fails on a
-spill. With ``--parent DIR`` (a checkout of the parent commit) it also
-builds that tree's library and holds the bf16 AUV and NN kernels, the
-point mass's bf16 build and the f32 builds against it bit for bit
-(``parent_bits``) and in turns (``parent_times``). It
+SASS counts of the point-mass, AUV and NN kernels (``sass``: conversions,
+bf16x2 ops, f32 ops, loads) and every solve instantiation's blocks an SM
+and waves at the flagship shapes (``occupancy``), and fails on a spill.
+With ``--parent DIR`` (a checkout of the parent commit) it also builds
+that tree's library and holds this tree's kernels against it
+(``parent_bits``: the point mass's bf16 build, every per-sample cost bit
+for bit and the pair rows within tolerance once merged; the bf16 AUV and
+NN kernels and the f32 builds bit for bit) and times them in turns
+(``parent_times``). It
 times every kernel, each noise variant beside the same kernel without
 it, the dynamic_ab variant beside the constant-(A, B) kernel and each
 bf16 build beside its f32 build. Each phase prints one JSON line; any
@@ -1741,15 +1743,16 @@ def bf16_rollout_ops(consts, k: int, tau: int, dyn=None) -> float:
                             + (12 if consts.renorm else 0) + zq))
 
 
-#: the instantiations the sass phase reads: <RK, MODE, COST> of the AUV
-#: (rk2, static_quat) and <N1, N2, N3, MODE> of the NN (3x32), both modes,
-#: f32 and bf16 builds; the point mass's bf16 control (6, 3) beside them
+#: the instantiations the sass phase reads, f32 and bf16 builds, both
+#: modes: <S, A, MODE, COST, AB> of the point mass ((6, 3) quadratic,
+#: constant and dynamic (A, B)), <RK, MODE, COST> of the AUV (rk2,
+#: static_quat) and <N1, N2, N3, MODE> of the NN (3x32)
 SASS_KERNELS = (
+    *[(f"pm_fused_solve{b}_kernel", (6, 3, m, 0, ab)) for b in ("", "_bf16")
+      for m in (0, 1) for ab in (0, 1)],
     *[(f"auv_fused_solve{b}_kernel", (2, m, 0)) for b in ("", "_bf16")
       for m in (0, 1)],
     *[(f"nn_fused_solve{b}_kernel", (32, 32, 32, m)) for b in ("", "_bf16")
-      for m in (0, 1)],
-    *[(f"pm_fused_solve{b}_kernel", (6, 3, 0, 0, m)) for b in ("", "_bf16")
       for m in (0, 1)])
 #: the opcode families the sass phase counts
 SASS_FAMILIES = ("F2FP", "F2F", "HADD2", "HMUL2", "HFMA2", "FFMA", "FMUL",
@@ -1789,21 +1792,30 @@ def sass_phase(_build, parent_lib=None) -> None:
 
 def occupancy_phase(lib, reg_rows, n_sm: int) -> None:
     """Registers, blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor
-    at H=25) and waves at the flagship shapes (AUV K=262,144, NN K=65,536)
-    of every AUV and NN solve instantiation, f32 and bf16."""
+    at the flagship horizon, unscheduled) and waves at the flagship shapes
+    (point mass K=100,000, H=50; AUV K=262,144, H=25; NN K=65,536, H=25)
+    of every solve instantiation, f32 and bf16."""
     import ctypes
 
     regs = {(r["kernel"], tuple(r["template"])): r["registers"]
             for r in reg_rows}
     rows = []
     for sfx in ("", "_bf16"):
-        cases = [("auv", (rk, mode, cost), AUV_K)
-                 for rk in (1, 2, 4) for mode in (0, 1) for cost in (0, 1, 2)]
+        cases = [("pm", (s_, a_, mode, cost, ab), K)
+                 for s_, a_, cost in ((6, 3, 0), (2, 1, 0), (4, 2, 0),
+                                      (4, 2, 1))
+                 for mode in (0, 1) for ab in (0, 1)]
+        cases += [("auv", (rk, mode, cost), AUV_K)
+                  for rk in (1, 2, 4) for mode in (0, 1) for cost in (0, 1, 2)]
         cases += [("nn", (*hid, mode), NN_K)
                   for hid in ((32, 32, 32), (8, 8, 0)) for mode in (0, 1)]
         for model, args, k in cases:
             out = (ctypes.c_int * 2)()
-            if model == "auv":
+            if model == "pm":
+                s_, a_, mode, cost, ab = args
+                rc = getattr(lib, f"pm_occupancy{sfx}")(s_, a_, cost, mode,
+                                                         ab, H, out)
+            elif model == "auv":
                 rk, mode, cost = args
                 rc = getattr(lib, f"auv_occupancy{sfx}")(rk, cost, mode,
                                                           AUV_H, out)
@@ -1861,15 +1873,68 @@ def with_library(_build, lib, fn):
         _build._lib = saved
 
 
+#: the 2-DoF ellipse of the point-mass cases (tests/test_torch_cuda.py)
+PM_ELIPSE = {"type": "elipse", "a": 4.0, "b": 2.0, "center_x": 0.0,
+             "center_y": 0.0, "speed": 5.0, "m_state": 1.0, "m_vel": 0.1}
+
+
+def pm_object(pm, sdim: int, adim: int, elipse: bool, dyn_ab: bool, k: int,
+              tau: int, compute_dtype: str = "bfloat16", seed: int = 0,
+              **opts):
+    """A point-mass solve object on the card, (sdim, adim) at mass 1.3 and
+    upsilon 1.2 (so that the z-quadratic counts) under the static cost
+    (goal 0.5, Q 1) or the 2-DoF ellipse; with ``dyn_ab`` FusedLTIMPPI
+    over a DMDModel with a dense random (A, B) from ``seed`` (the kDynAB
+    instantiations)."""
+    from mppi_tf_tpu_torch.costs import get_cost
+    from mppi_tf_tpu_torch.models import get_model
+    from mppi_tf_tpu_torch.models.dmd import DMDModel
+
+    sigma = SIGMA[:adim, :adim]
+    model = get_model({"type": "point_mass", "mass": 1.3}, dt=DT,
+                      state_dim=sdim, action_dim=adim, device="cuda")
+    task = PM_ELIPSE if elipse else {"type": "static", "diag": True,
+                                     "goal": [0.5] * sdim, "Q": [1.0] * sdim}
+    cost = get_cost(task, lam=LAM, gamma=GAMMA, upsilon=1.2, sigma=sigma,
+                    device="cuda")
+    cls = pm.FusedPointMassMPPI
+    if dyn_ab:
+        rng = np.random.RandomState(seed)
+        model = DMDModel(sdim, adim, dt=DT,
+                         init_A=np.eye(sdim) + 0.05 * rng.randn(sdim, sdim),
+                         init_B=0.1 * rng.randn(sdim, adim), device="cuda")
+        cls = pm.FusedLTIMPPI
+    return cls(model, cost, k=k, tau=tau, lam=LAM, upsilon=1.2, sigma=sigma,
+               compute_dtype=compute_dtype, **opts)
+
+
+def pm_dyn(f, rng) -> torch.Tensor:
+    """A point-mass solve object's dyn from a random state (near the
+    ellipse for its cost) and nominal sequence."""
+    x0 = 0.3 * rng.standard_normal(f.sdim)
+    if f.consts.cost_kind == "elipse":
+        x0 += [4.0, 0.0, 0.0, 5.0]
+    return f.pack_dyn(
+        torch.as_tensor(x0, dtype=torch.float32, device="cuda"),
+        torch.as_tensor(0.1 * rng.standard_normal((f.tau, f.adim)),
+                        dtype=torch.float32, device="cuda"))
+
+
 def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
     """``--parent``: this tree's kernels against the parent's library on the
-    same inputs. The bf16 AUV and NN kernels (every rk and cost kind, both
-    networks, both modes, K=700 and 4,097 at H=7 and the flagship shapes,
-    injected z and Philox, and both noise options) and, as controls, the
-    point mass at bf16 and the f32 builds: per-sample costs and partial
-    rows bit for bit, each differing output counted; then the four
-    redesigned kernels and the point mass's bf16 control timed in turns
-    (parent, this, this, parent) beside their f32 builds."""
+    same inputs. The subject, the point mass at bf16 (every instantiation:
+    (6, 3), (2, 1), (4, 2) quadratic and the (4, 2) ellipse, constant and
+    dynamic (A, B), both modes, K=700 and 4,097 at H=7, scheduled +
+    antithetic, and the flagship K=100,000, H=50, constant and dynamic):
+    per-sample costs bit for bit, the stats and partial rows within the
+    point mass's f32 end-to-end tolerance of the parent's once merged (the
+    pair build sums a thread's two lanes first). The controls, which share
+    mppi_common.cuh: the bf16 AUV and NN kernels (every rk and cost kind,
+    both networks, K=700 and 4,097, both noise options, the flagships)
+    and the f32 builds, every output bit for bit. Injected z and Philox
+    throughout. Then the point mass's bf16 costs, solve and dynamic (A, B)
+    solve timed in turns (parent, this, this, parent) beside their f32
+    builds, and the AUV / NN bf16 flagships as controls."""
     from mppi_tf_tpu_torch.cfg import default_config
     from mppi_tf_tpu_torch.envs.runner import build_model_and_cost
 
@@ -1894,6 +1959,19 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
                                 compute_dtype=cd, **opts)
 
     for k in (700, 4097):
+        for sdim, adim, el in ((6, 3, False), (2, 1, False), (4, 2, False),
+                               (4, 2, True)):
+            for ab in (False, True):
+                f = pm_object(pm, sdim, adim, el, ab, k, 7, seed=k)
+                if f.consts.cost_kind != ("elipse" if el else "quadratic"):
+                    raise AssertionError(f"parent case pm {sdim}x{adim}")
+                cases.append((f"pm_bf16_{sdim}x{adim}_"
+                              f"{'elipse' if el else 'quad'}"
+                              f"{'_dynab' if ab else ''}_K{k}", f, kp))
+        for ab in (False, True):
+            cases.append((f"pm_bf16_sched_anti{'_dynab' if ab else ''}_K{k}",
+                          pm_object(pm, 6, 3, False, ab, k, 7, seed=k,
+                                    **FUSED_BOTH), kp))
         for rk in (1, 2, 4):
             for name in ("static_quat", "waypoints_quat", "elipse3d"):
                 f = auv_task(name, k, 7, rk, "bfloat16")
@@ -1916,21 +1994,20 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
         ("auv_f32_flagship", auv_fused(AUV_K, AUV_H), ka),
         ("nn_f32_flagship", nn_fused(NN_K, NN_H), kn)]
     model, cost = workload("cuda")
+    dmd_model, _ = workload("cuda", dmd=True)
     for cd in ("bfloat16", "float32"):
-        cases.append((f"pm_{'bf16' if cd == 'bfloat16' else 'f32'}_K100000",
-                      pm.FusedPointMassMPPI(model, cost, k=K, tau=H, lam=LAM,
-                                            upsilon=UPSILON, sigma=SIGMA,
-                                            compute_dtype=cd), kp))
+        tag = "bf16" if cd == "bfloat16" else "f32"
+        cases += [(f"pm_{tag}_K100000", pm.FusedPointMassMPPI(
+            model, cost, k=K, tau=H, lam=LAM, upsilon=UPSILON, sigma=SIGMA,
+            compute_dtype=cd), kp), (f"pm_{tag}_dynab_K100000",
+                                     pm.FusedLTIMPPI(
+            dmd_model, cost, k=K, tau=H, lam=LAM, upsilon=UPSILON,
+            sigma=SIGMA, compute_dtype=cd), kp)]
     res, dyns = {}, {}
     for label, f, kern in cases:
-        if kern is kp:
-            dyn = f.pack_dyn(torch.zeros(6, device="cuda"),
-                             torch.as_tensor(0.1 * rng.standard_normal(
-                                 (f.tau, 3)), dtype=torch.float32,
-                                 device="cuda"))
-        else:
-            dyn = auv_dyn(f, 20.0 if "elipse3d" in label else 200.0,
-                          seed=len(label))
+        dyn = (pm_dyn(f, rng) if kern is kp else
+               auv_dyn(f, 20.0 if "elipse3d" in label else 200.0,
+                       seed=len(label)))
         dyns[label] = dyn
         z = torch.as_tensor(rng.standard_normal((f.tau, f.adim, f.k),
                                                 np.float32), device="cuda")
@@ -1945,11 +2022,18 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
             got = run()
             want = with_library(_build, plib, run)
             for name, a, b in zip(("costs", "stats_rows", "rows"), got, want):
-                same = torch.equal(a, b)
-                out[f"{src}_{name}"] = True if same else {
+                if torch.equal(a, b):
+                    out[f"{src}_{name}"] = True
+                    continue
+                out[f"{src}_{name}"] = d = {
                     "differing": int((a != b).sum().item()),
                     "of": a.numel(), "max_abs_diff":
                     (a.double() - b.double()).abs().max().item()}
+                if name != "costs":   # the merged rows, against the parent's
+                    ok, err, ratio = close(merged(pm, a), merged(pm, b),
+                                           1e-3, 1e-5)
+                    d.update(merged_ok=ok, merged_max_abs_err=err,
+                             merged_tol_ratio=ratio)
         res[label] = out
         del z
     differing = {label: {o: v for o, v in out.items() if v is not True}
@@ -1957,26 +2041,30 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
     differing = {label: d for label, d in differing.items() if d}
     costs_equal = all(v is True for out in res.values()
                       for o, v in out.items() if o.endswith("_costs"))
-    others_equal = not any(label.startswith(("pm_", "auv_f32", "nn_f32"))
-                           for label in differing)
+    controls_equal = not any(not label.startswith("pm_bf16")
+                             for label in differing)
+    pm_rows_ok = all(v.get("merged_ok", False) for label, d in
+                     differing.items() for v in d.values())
     emit("parent_bits", cases=sorted(res), outputs_compared=sum(
         len(o) for o in res.values()), all_equal=not differing,
-         costs_all_equal=costs_equal, f32_and_pm_all_equal=others_equal,
-         differing=differing, note="this tree's kernels against the parent "
-         "commit's library on the same inputs, torch.equal; the bf16 AUV / "
-         "NN partial rows sum a thread's two lanes before the warp, another "
-         "order than one sample a thread")
+         costs_all_equal=costs_equal, controls_all_equal=controls_equal,
+         pm_bf16_rows_within_tol=pm_rows_ok, differing=differing,
+         note="this tree's kernels against the parent commit's library on "
+         "the same inputs, torch.equal; the point mass's bf16 pair rows sum "
+         "a thread's two lanes before the warp, another order than one "
+         "sample a thread, and are held merged (pm_merge: zsum / l, m, l, "
+         "cost min, max, sum) to the parent's at rtol 1e-3, atol 1e-5")
+    if not (costs_equal and controls_equal and pm_rows_ok):
+        raise AssertionError(f"parent_bits: {differing}")
     # times in turns, parent and this tree, beside the f32 build
     times = {}
     for label, kern_fn, f32_label in (
-            ("auv_bf16_flagship", "costs", "auv_f32_flagship"),
-            ("auv_bf16_flagship", "solve", "auv_f32_flagship"),
-            ("nn_bf16_flagship", "costs", "nn_f32_flagship"),
-            ("nn_bf16_flagship", "solve", "nn_f32_flagship"),
             ("pm_bf16_K100000", "costs", "pm_f32_K100000"),
             ("pm_bf16_K100000", "solve", "pm_f32_K100000"),
-            ("auv_f32_flagship", "costs", "auv_f32_flagship"),
-            ("nn_f32_flagship", "costs", "nn_f32_flagship")):
+            ("pm_bf16_dynab_K100000", "solve", "pm_f32_dynab_K100000"),
+            ("pm_f32_K100000", "solve", "pm_f32_K100000"),
+            ("auv_bf16_flagship", "costs", "auv_f32_flagship"),
+            ("nn_bf16_flagship", "solve", "nn_f32_flagship")):
         f = next(c[1] for c in cases if c[0] == label)
         kern = next(c[2] for c in cases if c[0] == label)
         f32 = next(c[1] for c in cases if c[0] == f32_label)
@@ -2339,11 +2427,11 @@ def bf16_loops_phase(pm, smi: str) -> dict:
             ctrl, ms, counts = pm_loop_phase(phase, normalize, H, dmd=dmd,
                                              suffix="_bf16", **bf)
             loops["dmd" if dmd else "pm", normalize] = (ms, counts)
-            if not (dmd or normalize):
+            if not normalize:
                 prof = profile_steps(ctrl)
                 emit("profile", kernel_path=ctrl.kernel_path,
-                     model="point_mass", kernel_dtype="bfloat16", card=smi,
-                     **prof)
+                     model="dmd" if dmd else "point_mass",
+                     kernel_dtype="bfloat16", card=smi, **prof)
                 check_syncs(prof)
             del ctrl
     for normalize, steps in ((True, DIVE_STEPS), (False, AUV_PLAIN_STEPS)):
@@ -3445,6 +3533,7 @@ def main() -> int:
     # count the rollout's bf16 ops at PEAK_OPS_BF16, the rest at PEAK_OPS
     bo = bf16["objs"]
     for key, kmod, pre, k_, h_ in (("pm", pm, "pm", K, H),
+                                   ("dynamic_ab", pm, "pm", K, H),
                                    ("auv_rk2", auv, "auv", AUV_K, AUV_H),
                                    ("nn", nnk, "nn", NN_K, NN_H),
                                    ("nn_bf16_products", nnk, "nn", NN_K,
@@ -3462,7 +3551,8 @@ def main() -> int:
         nz_, nb_ = h_ * b16o.adim, -(-k_ // pm.BLOCK)
         ops16 = (0.0 if key == "nn_bf16_products"
                  else bf16_rollout_ops(b16c, k_, h_, dyn_o))
-        tag = "bf16 products" if key == "nn_bf16_products" else "bf16"
+        tag = {"nn_bf16_products": "bf16 products",
+               "dynamic_ab": "dynamic_ab, bf16"}.get(key, "bf16")
         vt[f"{pre}_fused_solve[{tag}]"] = dict(variant_times(
             lambda: solve_k(f32c, dyn_32, k_, h_, seed=1, solve=1),
             lambda: solve_k(b16c, dyn_o, k_, h_, seed=1, solve=1),
@@ -3505,7 +3595,8 @@ def main() -> int:
               "schedule or antithetic at the same shapes and inputs, for "
               "dynamic_ab with the constant (A, B) of the same map, for "
               "bf16 its f32 build (bf16 products: the f32-products kernel "
-              "on the same weights), timed in turns (unvaried, variant, "
+              "on the same weights; dynamic_ab, bf16: the f32 dynamic_ab "
+              "build), timed in turns (unvaried, variant, "
               "variant, unvaried); point mass sched at K=100000, H=100, "
               "antithetic, dynamic_ab and bf16 at H=50; AUV rk2 K=262144, "
               "H=25; NN 3x32 K=65536, H=25")
@@ -3736,6 +3827,14 @@ def main() -> int:
          bl["pm", True][1]["pm_fused_costs_bf16"],
          "point_mass_bf16 closed loop, normalized",
          worst16("pm", "costs_max_abs_err"), c16.format(K, H)),
+        ("pm_fused_solve[dynamic_ab, bf16]", src, f"{pm_py}:1042",
+         bl["dmd", False][1]["pm_fused_solve_bf16"],
+         "bf16 DMDMPPI closed loop, unnormalized",
+         worst16("dynamic_ab", "wnoise_e2e_max_abs_err"), w16.format(K, H)),
+        ("pm_fused_costs[dynamic_ab, bf16]", src, f"{pm_py}:1111",
+         bl["dmd", True][1]["pm_fused_costs_bf16"],
+         "bf16 DMDMPPI closed loop, normalized",
+         worst16("dynamic_ab", "costs_max_abs_err"), c16.format(K, H)),
         ("pm_noise_dump[bf16]", src, f"{pm_py}:289",
          bf16_noise["launches"], "bf16 noise check",
          0.0, "the bf16 dump against the f32 dump rounded to bf16, bit for "

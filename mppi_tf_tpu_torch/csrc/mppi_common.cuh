@@ -27,30 +27,29 @@
 //
 // Block compute type. Each kernel source is compiled twice: as itself
 // (Val = float, the f32 kernels) and through its *_bf16.cu wrapper, which
-// defines MPPI_BF16 and MPPI_SUFFIX before including it (Val = bf16r, the
-// bf16 block compute of the TPU kernels' compute_dtype="bfloat16": every
-// rollout op rounds to bf16, the cost accumulator, softmax, stats and
-// Box-Muller stay f32). MPPI_KERNEL / MPPI_ENTRY name a source's kernels
-// and C entry points with the suffix (pm_fused_solve_bf16_kernel,
+// defines MPPI_BF16, MPPI_BF16_PAIRS and MPPI_SUFFIX before including it
+// (the bf16 block compute of the TPU kernels' compute_dtype="bfloat16":
+// every rollout op rounds to bf16, the cost accumulator, softmax, stats
+// and Box-Muller stay f32). MPPI_KERNEL / MPPI_ENTRY name a source's
+// kernels and C entry points with the suffix (pm_fused_solve_bf16_kernel,
 // pm_fused_solve_bf16), so the f32 kernels keep their names and code.
 // Every normal a bf16 kernel consumes, injected or Philox, is the f32
 // normal rounded to bf16 (NoiseStream::next), in every phase.
 //
-// Two samples a thread (auv_mppi_bf16.cu, nn_mppi_bf16.cu, which also
-// define MPPI_BF16_PAIRS): Val = bf16x2, one bf16 value of each of two
-// samples in one 32-bit register, every rollout op one native Hopper
-// add.rn / sub.rn / mul.rn.bf16x2 for both. Each rounds its exact result
-// once to bf16, the value bf16r's f32 op and round give (a product of two
-// bf16 values is exact in f32; a sum rounded to f32 and then to bf16 is
-// innocuous double rounding, 24 >= 2 * 8 + 2), so the pair build computes
-// bf16r's bits without a conversion a op. Never fused: fma.rn.bf16x2
-// rounds once and gives other bits (and mul without .rn may be contracted
-// into one). A block of kBlock / 2 = 128 threads holds one partial row of
-// kBlock samples: thread t of block b has lane 0 = sample b * kBlock + t
-// and lane 1 = sample b * kBlock + 128 + t, each lane with its own
-// NoiseStream and f32 cost; the epilogue sums a thread's two lanes before
-// the warp (write_partial_row_lanes), so the rows hold the f32 layout's
-// samples in another order of summation (the costs are bf16r's bits).
+// Two samples a thread (MPPI_BF16_PAIRS): Val = bf16x2, one bf16 value of
+// each of two samples in one 32-bit register, every rollout op one native
+// Hopper add.rn / sub.rn / mul.rn.bf16x2 for both. Each rounds its exact
+// result once to bf16: the value of the f32 op rounded to bf16 (a product
+// of two bf16 values is exact in f32; a sum rounded to f32 and then to
+// bf16 is innocuous double rounding, 24 >= 2 * 8 + 2), which is what
+// PyTorch's bf16 ops and the plain versions compute, without a conversion
+// a op. Never fused: fma.rn.bf16x2 rounds once and gives other bits (and
+// mul without .rn may be contracted into one). A block of kBlock / 2 = 128
+// threads holds one partial row of kBlock samples: thread t of block b
+// has lane 0 = sample b * kBlock + t and lane 1 = sample b * kBlock + 128
+// + t, each lane with its own NoiseStream and f32 cost; the epilogue sums
+// a thread's two lanes before the warp (write_partial_row_lanes), so the
+// rows hold the f32 layout's samples in another order of summation.
 
 #pragma once
 
@@ -68,7 +67,7 @@
 
 // The bf16 builds alone hold bf16 code (#if on MPPI_BF16, and
 // MPPI_NN_BF16_PRODUCTS for nn_mppi_bfp.cu): the f32 translation units
-// neither include cuda_bf16.h nor see round_bf16, bf16r or a bf16 branch.
+// neither include cuda_bf16.h nor see round_bf16, bf16x2 or a bf16 branch.
 #if defined(MPPI_BF16) || defined(MPPI_NN_BF16_PRODUCTS)
 #include <cuda_bf16.h>
 #endif
@@ -85,60 +84,12 @@ __device__ __forceinline__ float fma_r(float a, float b, float c) {
 }
 __device__ __forceinline__ float abs_r(float a) { return fabsf(a); }
 __device__ __forceinline__ float relu_r(float a) { return fmaxf(a, 0.0f); }
-__device__ __forceinline__ float widen(float a) { return a; }
 
 #if defined(MPPI_BF16) || defined(MPPI_NN_BF16_PRODUCTS)
 // f rounded to the nearest bf16 (ties to even), held in f32.
 __device__ __forceinline__ float round_bf16(float f) {
   return __bfloat162float(__float2bfloat16_rn(f));
 }
-#endif
-
-#ifdef MPPI_BF16
-// A bf16 value in an f32 register. Every operation computes in f32 from
-// bf16 operands and rounds once to bf16, as PyTorch's bf16 elementwise ops
-// do (the product of two bf16 values is exact in f32); a multiply and an
-// add round twice, never fused. A float converts implicitly and rounds:
-// the JAX kernels' weakly typed constants and d_() reads of dyn.
-struct bf16r {
-  float v;
-  bf16r() = default;
-  __device__ __forceinline__ bf16r(float f) : v(round_bf16(f)) {}
-  // f already holds a bf16 value: no rounding
-  static __device__ __forceinline__ bf16r exact(float f) {
-    bf16r r;
-    r.v = f;
-    return r;
-  }
-};
-__device__ __forceinline__ bf16r operator+(bf16r a, bf16r b) {
-  return bf16r(a.v + b.v);
-}
-__device__ __forceinline__ bf16r operator-(bf16r a, bf16r b) {
-  return bf16r(a.v - b.v);
-}
-__device__ __forceinline__ bf16r operator*(bf16r a, bf16r b) {
-  return bf16r(a.v * b.v);
-}
-__device__ __forceinline__ bf16r operator-(bf16r a) {
-  return bf16r::exact(-a.v);
-}
-__device__ __forceinline__ bf16r& operator+=(bf16r& a, bf16r b) {
-  return a = a + b;
-}
-__device__ __forceinline__ bf16r& operator*=(bf16r& a, bf16r b) {
-  return a = a * b;
-}
-__device__ __forceinline__ bf16r fma_r(bf16r a, bf16r b, bf16r c) {
-  return c + a * b;
-}
-__device__ __forceinline__ bf16r abs_r(bf16r a) {
-  return bf16r::exact(fabsf(a.v));
-}
-__device__ __forceinline__ bf16r relu_r(bf16r a) {
-  return bf16r::exact(fmaxf(a.v, 0.0f));
-}
-__device__ __forceinline__ float widen(bf16r a) { return a.v; }
 #endif
 
 #ifdef MPPI_BF16_PAIRS
@@ -196,7 +147,7 @@ __device__ __forceinline__ bf16x2 fma_r(bf16x2 a, bf16x2 b, bf16x2 c) {
 __device__ __forceinline__ bf16x2 abs_r(bf16x2 a) {
   return bf16x2::bits(a.v & 0x7fff7fffu);
 }
-// max.bf16x2 against +0, as fmaxf(a, 0.0f) of bf16r: -0 and NaN give +0
+// max.bf16x2 against +0, as fmaxf(a, 0.0f) rounded: -0 and NaN give +0
 __device__ __forceinline__ bf16x2 relu_r(bf16x2 a) {
   bf16x2 r;
   asm("max.bf16x2 %0, %1, %2;" : "=r"(r.v) : "r"(a.v), "r"(0u));
@@ -238,10 +189,7 @@ __device__ __forceinline__ Val per_lane(Val v, F f) {
   return pack2(f(widen(v, 0)), f(widen(v, 1)));
 }
 #elif defined(MPPI_BF16)
-using Val = bf16r;
-constexpr int kLanes = 1;
-__device__ __forceinline__ Val exact_val(float f) { return bf16r::exact(f); }
-__device__ __forceinline__ Val exact_val(bf16r v) { return v; }
+#error "a bf16 build computes in bf16x2 pairs: define MPPI_BF16_PAIRS"
 #else
 using Val = float;
 constexpr int kLanes = 1;
@@ -351,20 +299,25 @@ struct NoiseStream {
     blk = 0;
     lane = 4;
   }
-#ifdef MPPI_BF16
-  __device__ __forceinline__ float next(int n) {
-    return round_bf16(next_f32(n));
-  }
+  // normal n in f32: injected, or the next of the buffered Philox block
+  // (drawn when the buffer is empty)
   __device__ __forceinline__ float next_f32(int n) {
-#else
+    if (z != nullptr) return injected(n);
+    if (lane == 4) refill();
+    return take();
+  }
+  // normal n as the kernels read it
   __device__ __forceinline__ float next(int n) {
-#endif
-    if (z != nullptr)
-      return valid ? z[static_cast<size_t>(n) * k_total + sample] : 0.0f;
-    if (lane == 4) {
-      philox_normals(source, blk++, sd, sign, buf);
-      lane = 0;
-    }
+    return read_normal(next_f32(n));
+  }
+  __device__ __forceinline__ float injected(int n) const {
+    return valid ? z[static_cast<size_t>(n) * k_total + sample] : 0.0f;
+  }
+  __device__ __forceinline__ void refill() {
+    philox_normals(source, blk++, sd, sign, buf);
+    lane = 0;
+  }
+  __device__ __forceinline__ float take() {
     const float v = lane == 0 ? buf[0]
                   : lane == 1 ? buf[1]
                   : lane == 2 ? buf[2]
@@ -372,13 +325,45 @@ struct NoiseStream {
     ++lane;
     return v;
   }
+  // a normal as the kernels read it: rounded to bf16 in the bf16 builds
+  static __device__ __forceinline__ float read_normal(float f) {
+#ifdef MPPI_BF16
+    return round_bf16(f);
+#else
+    return f;
+#endif
+  }
 };
+
+// Normal n of each of kL lanes' streams, in f32. The lanes read in step,
+// so their Philox blocks run out together: one branch refills them all,
+// and their chains interleave in one basic block (with one lane, the
+// stream's own next_f32).
+template <int kL>
+__device__ __forceinline__ void next_lanes_f32(NoiseStream* ns, int n,
+                                               float* v) {
+  if constexpr (kL == 1) {
+    v[0] = ns[0].next_f32(n);
+  } else if (ns[0].z != nullptr) {  // injected z: every lane's
+#pragma unroll
+    for (int l = 0; l < kL; ++l) v[l] = ns[l].injected(n);
+  } else {
+    if (ns[0].lane == 4) {
+#pragma unroll
+      for (int l = 0; l < kL; ++l) ns[l].refill();
+    }
+#pragma unroll
+    for (int l = 0; l < kL; ++l) v[l] = ns[l].take();
+  }
+}
 
 // Normal n of every lane's stream as one Val: at f32 the normal itself,
 // in the pair builds both lanes' f32 normals rounded by one cvt.
 __device__ __forceinline__ Val draw(NoiseStream* ns, int n) {
 #ifdef MPPI_BF16_PAIRS
-  return pack2(ns[0].next_f32(n), ns[1].next_f32(n));
+  float v[2];
+  next_lanes_f32<2>(ns, n, v);
+  return pack2(v[0], v[1]);
 #else
   return exact_val(ns[0].next(n));
 #endif
@@ -493,9 +478,12 @@ __device__ __forceinline__ void write_partial_row_lanes(
 #pragma unroll
   for (int l = 0; l < kL; ++l) ns[l].reset();
   for (int n = 0; n < n_z; ++n) {
-    float wz = wgt[0] * ns[0].next(n);
+    float zl[kL];
+    next_lanes_f32<kL>(ns, n, zl);
+    float wz = wgt[0] * NoiseStream::read_normal(zl[0]);
 #pragma unroll
-    for (int l = 1; l < kL; ++l) wz += wgt[l] * ns[l].next(n);
+    for (int l = 1; l < kL; ++l)
+      wz += wgt[l] * NoiseStream::read_normal(zl[l]);
     const float v = warp_sum(wz);
     if (lane == 0) s_red[warp * n_z + n] = v;
   }

@@ -26,8 +26,9 @@
 //   constant back, kernels/pm_mppi.py); kElipse, the 2D ellipse cost over
 //   [x, vx, y, vy] (cost_kind "elipse", :474-485), built for (S, A) = (4, 2)
 //   only, with native sqrtf in place of the TPU's vector sqrt. One
-//   thread owns one sample; the state stays in registers over the horizon,
-//   the per-solve dyn array sits in shared memory. Bound by operations: the
+//   thread owns one sample (two in the bf16 build, below); the state
+//   stays in registers over the horizon, the per-solve dyn array sits in
+//   shared memory. Bound by operations: the
 //   Philox + Box-Muller passes (~32 ops a normal each; two in kFused, one in
 //   kCosts) and the rollout/cost FMA chains; kCosts also writes 4 bytes a
 //   sample. Design:
@@ -63,17 +64,32 @@
 //   * the TPU's sin polynomial and mantissa-stuffing uniform worked around
 //     Mosaic; here logf / sqrtf / sincospif are used directly;
 //   * the bf16 block compute (compute_dtype "bfloat16", :363-368 and the
-//     casts of :417-428, :459-560) is this source compiled at Val = bf16r
-//     through pm_mppi_bf16.cu (mppi_common.cuh): the state, x0, goal, the
-//     rollout and cost chains round at every op in the TPU kernel's order
-//     (the dense chains here equal its sparse_dot, whose skipped zeros and
-//     unmultiplied ones are exact), x' = ax + inv_m (bu + bz), or with a
-//     schedule ax + (r(inv_m bu) + r(inv_m c_t) bz) with the scalar
-//     products formed in f32 and rounded once (:497-531); each step cost,
-//     rhs_z . z and nc_half z^T Mz z term is a bf16 value added to the f32
-//     cost; the softmax, stats and Box-Muller stay f32. Its kernels and
-//     entry points carry a _bf16 suffix and read bf16-rounded normals in
-//     every phase, the weights and noise dump included.
+//     casts of :417-428, :459-560) is this source compiled at Val = bf16x2
+//     through pm_mppi_bf16.cu (mppi_common.cuh, MPPI_BF16_PAIRS): two
+//     samples a thread, 128 threads a block for one partial row, each
+//     rollout op one native add.rn / sub.rn / mul.rn.bf16x2 for both. The
+//     state, x0, goal, the rollout and cost chains round at every op in
+//     the TPU kernel's order (the dense chains here equal its sparse_dot,
+//     whose skipped zeros and unmultiplied ones are exact),
+//     x' = ax + inv_m (bu + bz), or with a schedule
+//     ax + (r(inv_m bu) + r(inv_m c_t) bz) with the scalar products formed
+//     in f32 and rounded once (:497-531); each step cost, rhs_z . z and
+//     nc_half z^T Mz z term is a bf16 value added to each lane's f32 cost;
+//     the softmax, stats and Box-Muller stay f32. Every runtime operand is
+//     rounded once: the constants reach the kernel as duplicated bf16x2
+//     words (pair_consts); x0, the goal, bu (r(inv_m bu) scheduled) and
+//     rhs_z are staged as words in shared memory (stage_dyn); A, B scale
+//     (kDynAB: dyn's, rounded), Q and Mz are staged likewise and then held
+//     in registers over the solve (Mats: a bf16x2 op takes no
+//     constant-bank operand, so the f32 build's FFMA operands would
+//     become an LDC or LDS a use a step); inv_m, the ellipse's constants
+//     and the step's inv_m c_t and nc_half c_t take one cvt each; the
+//     ellipse's sqrt runs per lane in f32. Both lanes' Philox blocks are
+//     drawn in one branch (mppi_common.cuh next_lanes_f32), so the two
+//     chains interleave. At K=100,000 the 391 blocks of 128 threads fit
+//     one wave at 3 blocks an SM. Its kernels and entry points carry a
+//     _bf16 suffix and read bf16-rounded normals in every phase; the
+//     weights and noise dump stay one sample a thread.
 //
 // mppi_weights_kernel -- replaces make_weights_kernel (fused_pm_weights and
 //   auv_mppi._fused_auv_weights, phase B of the normalized solve, for both
@@ -105,50 +121,171 @@ enum PmCost { kQuadratic = 0, kElipse = 1 };
 // Where the solve reads A and B scale: the by-value constants, or dyn.
 enum PmAB { kConstAB = 0, kDynAB = 1 };
 
-// Solve constants, in the order of kernels/pm_mppi.py PmConsts.packed.
-template <int S, int A>
-struct Consts {
-  float a[S * S];   // A
-  float bs[S * A];  // B @ scale (mass free)
-  float q[S * S];   // Q (zero for kElipse)
-  float mz[A * A];  // scale^T Sigma^-1 scale
+// Solve constants, in the order of kernels/pm_mppi.py PmConsts.packed; W
+// is the type of the rollout's constants: float, or in the pair build the
+// duplicated bf16x2 word (w, w) of each (the host packs them rounded).
+template <int S, int A, typename W>
+struct ConstsT {
+  W a[S * S];   // A
+  W bs[S * A];  // B @ scale (mass free)
+  W q[S * S];   // Q (zero for kElipse)
+  W mz[A * A];  // scale^T Sigma^-1 scale
   float lam;
   float nc_half;
-  float el[7];      // kElipse: a, b, cx, cy, gv, m_state, m_vel
+  float el[7];  // kElipse: a, b, cx, cy, gv, m_state, m_vel
+};
+template <int S, int A>
+using HostConsts = ConstsT<S, A, float>;
+#ifdef MPPI_BF16
+template <int S, int A>
+using Consts = ConstsT<S, A, bf16x2>;
+
+// The pair build's constants: A, B scale, Q and Mz (each already a bf16
+// value) as duplicated bf16x2 words, the scalars as they are.
+template <int S, int A>
+Consts<S, A> pair_consts(const HostConsts<S, A>& f) {
+  static_assert(sizeof(Consts<S, A>) == sizeof(HostConsts<S, A>),
+                "Consts layout");
+  Consts<S, A> c;
+  memcpy(&c, &f, sizeof(c));
+  auto words = [](bf16x2* dst, const float* src, int n) {
+    for (int i = 0; i < n; ++i) dst[i] = bf16x2(src[i]);
+  };
+  words(c.a, f.a, S * S);
+  words(c.bs, f.bs, S * A);
+  words(c.q, f.q, S * S);
+  words(c.mz, f.mz, A * A);
+  return c;
+}
+
+// The ellipse's constants as the pair build's cost reads them, one word
+// each, converted once a solve: 1/a and 1/b formed in f32 and rounded
+// once (the TPU kernel's bf16 form, :474-485), the rest rounded.
+struct ElipseVals {
+  Val inv_a, inv_b, cx, cy, gv, ms, mv;
+};
+__device__ __forceinline__ ElipseVals elipse_vals(const float* el) {
+  return {to_val(1.0f / el[0]), to_val(1.0f / el[1]), to_val(el[2]),
+          to_val(el[3]),        to_val(el[4]),        to_val(el[5]),
+          to_val(el[6])};
+}
+
+// How the pair build stages dyn entry i (the TPU kernel's d_() reads):
+// x0, the goal, bu and rhs_z as duplicated bf16x2 words, each rounded
+// once from f32, with a schedule bu as r(inv_m bu), the product formed in
+// f32 (:519-527); inv_mass, u_half, the schedule's c_t (and kDynAB's A
+// and B scale, which the rollout reads through Mats) as they are.
+template <int S, int A>
+__device__ __forceinline__ float stage_dyn(const float* dyn, int i, int tau,
+                                           int sched_off) {
+  const int bu = 1 + 2 * S, rhs_z = bu + tau * S, u_half = rhs_z + tau * A;
+  if (i == 0 || i >= u_half) return dyn[i];
+  if (sched_off >= 0 && i >= bu && i < rhs_z)
+    return stage_word(dyn[0] * dyn[i]);
+  return stage_word(dyn[i]);
+}
+#else
+template <int S, int A>
+using Consts = HostConsts<S, A>;
+struct ElipseVals {};  // the f32 cost reads c.el
+#endif
+
+// cost[l] += lane l of v: each lane's own f32 cost
+__device__ __forceinline__ void add_lanes(float* cost, Val v) {
+#ifdef MPPI_BF16
+#pragma unroll
+  for (int l = 0; l < kLanes; ++l) cost[l] += widen(v, l);
+#else
+  cost[0] += v;
+#endif
+}
+
+// The rollout's matrices, entry i of each: A (row-major), B scale (mass
+// free), Q and Mz.
+#ifdef MPPI_BF16
+// In the pair build every entry is a word held in a register over the
+// solve, loaded once from its copy in shared memory (stage_mats): a bf16x2
+// op takes no constant-bank operand, and read at every use each entry
+// would cost an LDC (ptxas rematerialises constant-bank loads) or, with
+// kDynAB, an LDS (NVVM moves no load across the ops' inline asm) a use a
+// step.
+template <int S, int A, int AB>
+struct Mats {
+  static constexpr int kN = 2 * S * S + S * A + A * A;
+  Val w[kN];
+  __device__ __forceinline__ Val a(int i) const { return w[i]; }
+  __device__ __forceinline__ Val bs(int i) const { return w[S * S + i]; }
+  __device__ __forceinline__ Val q(int i) const { return w[S * (S + A) + i]; }
+  __device__ __forceinline__ Val mz(int i) const {
+    return w[S * (2 * S + A) + i];
+  }
 };
 
-// Entry i of A (row-major) and of B scale, from the constants or, with
-// kDynAB, from dyn's blocks in shared memory (ab: A, then B scale). The
-// bf16 build's constants come rounded from the host (PmConsts.packed);
-// the runtime blocks round here.
-template <int S, int A, int AB>
-__device__ __forceinline__ Val mat_a(const Consts<S, A>& c, const float* ab,
-                                     int i) {
-  if constexpr (AB == kDynAB) return Val(ab[i]);
-  else return exact_val(c.a[i]);
+// Word i of Mats from the constants (a compile-time i: a kernel parameter
+// indexed at run time would be copied to local memory).
+template <int S, int A>
+__device__ __forceinline__ uint32_t const_word(const Consts<S, A>& c,
+                                               int i) {
+  if (i < S * S) return c.a[i].v;
+  if (i < S * (S + A)) return c.bs[i - S * S].v;
+  if (i < S * (2 * S + A)) return c.q[i - S * (S + A)].v;
+  return c.mz[i - S * (2 * S + A)].v;
 }
 
+// Stage Mats' words in s_mat (all threads call it): the constants', or
+// with kDynAB dyn's A and B scale (ab, in device memory) rounded once.
 template <int S, int A, int AB>
-__device__ __forceinline__ Val mat_bs(const Consts<S, A>& c, const float* ab,
-                                      int i) {
-  if constexpr (AB == kDynAB) return Val(ab[S * S + i]);
-  else return exact_val(c.bs[i]);
+__device__ __forceinline__ void stage_mats(const Consts<S, A>& c,
+                                           const float* ab,
+                                           uint32_t* s_mat) {
+  constexpr int kDyn = AB == kDynAB ? S * (S + A) : 0;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < kDyn; i += kThreads)
+    s_mat[i] = to_val(ab[i]).v;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int i = kDyn; i < Mats<S, A, AB>::kN; ++i)
+      s_mat[i] = const_word(c, i);
+  }
 }
+#else
+// At f32 the chains read them as FFMA operands: the constants from the
+// constant bank or, with kDynAB, A and B scale from dyn's blocks in
+// shared memory (ab: A, then B scale).
+template <int S, int A, int AB>
+struct Mats {
+  const Consts<S, A>& c;
+  const float* ab;
+  __device__ __forceinline__ Val a(int i) const {
+    if constexpr (AB == kDynAB) return ab[i];
+    else return c.a[i];
+  }
+  __device__ __forceinline__ Val bs(int i) const {
+    if constexpr (AB == kDynAB) return ab[S * S + i];
+    else return c.bs[i];
+  }
+  __device__ __forceinline__ Val q(int i) const { return c.q[i]; }
+  __device__ __forceinline__ Val mz(int i) const { return c.mz[i]; }
+};
+#endif
 
-template <int S, int A, int COST>
-__device__ __forceinline__ Val state_cost(const Consts<S, A>& c,
-                                          const Val* x, const float* goal) {
+// goal: the staged goal (words in the pair build)
+template <int S, int A, int COST, typename M>
+__device__ __forceinline__ Val state_cost(const Consts<S, A>& c, const M& m,
+                                          const ElipseVals& e, const Val* x,
+                                          const float* goal) {
   if constexpr (COST == kElipse) {
     static_assert(S == 4 && A == 2, "the ellipse cost is 2D: [x, vx, y, vy]");
     // m_state |((x-cx)/a)^2 + ((y-cy)/b)^2 - 1| + m_vel (|v| - gv)^2
 #ifdef MPPI_BF16
-    // the TPU kernel's bf16 form (:474-485): scaled by 1/a, a bf16 sqrt
-    const Val ex = (x[0] - Val(c.el[2])) * Val(1.0f / c.el[0]);
-    const Val ey = (x[2] - Val(c.el[3])) * Val(1.0f / c.el[1]);
+    // the TPU kernel's bf16 form (:474-485): scaled by 1/a, the sqrt per
+    // lane in f32
+    const Val ex = (x[0] - e.cx) * e.inv_a;
+    const Val ey = (x[2] - e.cy) * e.inv_b;
     const Val d = abs_r(ex * ex + ey * ey - Val(1.0f));
-    const Val dv = Val(sqrtf(widen(x[1] * x[1] + x[3] * x[3]))) -
-                   Val(c.el[4]);
-    return Val(c.el[5]) * d + Val(c.el[6]) * (dv * dv);
+    const Val dv = per_lane(x[1] * x[1] + x[3] * x[3],
+                            [](float v) { return sqrtf(v); }) - e.gv;
+    return e.ms * d + e.mv * (dv * dv);
 #else
     const float ex = (x[0] - c.el[2]) / c.el[0];
     const float ey = (x[2] - c.el[3]) / c.el[1];
@@ -158,14 +295,14 @@ __device__ __forceinline__ Val state_cost(const Consts<S, A>& c,
   } else {
     Val d[S];
 #pragma unroll
-    for (int i = 0; i < S; ++i) d[i] = x[i] - Val(goal[i]);
+    for (int i = 0; i < S; ++i) d[i] = x[i] - exact_val(goal[i]);
     Val out = 0.0f;
 #pragma unroll
     for (int i = 0; i < S; ++i) {
       Val qd = 0.0f;
 #pragma unroll
       for (int j = 0; j < S; ++j)
-        qd = fma_r(exact_val(c.q[i * S + j]), d[j], qd);
+        qd = fma_r(m.q(i * S + j), d[j], qd);
       out = fma_r(d[i], qd, out);
     }
     return out;
@@ -173,7 +310,7 @@ __device__ __forceinline__ Val state_cost(const Consts<S, A>& c,
 }
 
 template <int S, int A, int MODE, int COST, int AB>
-__global__ void __launch_bounds__(kBlock)
+__global__ void __launch_bounds__(kThreads)
     MPPI_KERNEL(pm_fused_solve)(const Consts<S, A> c,
                                 const float* __restrict__ dyn, int dyn_size,
                                 int sched_off, const float* __restrict__ z,
@@ -184,7 +321,17 @@ __global__ void __launch_bounds__(kBlock)
   float* s_dyn = smem;             // dyn_size
   float* s_red = smem + dyn_size;  // kWarps * n_z: pass-two warp sums
 
-  for (int i = threadIdx.x; i < dyn_size; i += kBlock) s_dyn[i] = dyn[i];
+#ifdef MPPI_BF16
+  using M = Mats<S, A, AB>;
+  __shared__ uint32_t s_mat[M::kN];
+  stage_mats<S, A, AB>(c, dyn + 1 + 2 * S + tau * (S + A) + 1, s_mat);
+  // a few passes a block: no unrolled copies of the staging's cvts
+#pragma unroll 1
+  for (int i = threadIdx.x; i < dyn_size; i += kThreads)
+    s_dyn[i] = stage_dyn<S, A>(dyn, i, tau, sched_off);
+#else
+  for (int i = threadIdx.x; i < dyn_size; i += kThreads) s_dyn[i] = dyn[i];
+#endif
   __syncthreads();
 
   // dyn layout (kernels/pm_mppi.py Dyn): inv_mass, x0, goal, bu, rhs_z,
@@ -195,86 +342,113 @@ __global__ void __launch_bounds__(kBlock)
   const float* bu = s_dyn + 1 + 2 * S;
   const float* rhs_z = bu + tau * S;
   const float u_half = rhs_z[tau * A];
-  const float* ab = rhs_z + tau * A + 1;
   const float inv_m = s_dyn[0];
+#ifdef MPPI_BF16
+  M m;
+#pragma unroll
+  for (int i = 0; i < M::kN; ++i) m.w[i] = bf16x2::bits(s_mat[i]);
+  const Val inv_m_v = to_val(inv_m);
+  ElipseVals e{};
+  if constexpr (COST == kElipse) e = elipse_vals(c.el);
+#else
+  const Mats<S, A, AB> m{c, rhs_z + tau * A + 1};  // kDynAB: A, B scale
+  const ElipseVals e{};
+#endif
 
-  const int k = blockIdx.x * kBlock + threadIdx.x;
-  const bool valid = k < k_total;
-  NoiseStream ns;
-  ns.init(z, k_total, k, sd);
+  // block b: partial row b; lane l of thread t: sample b kBlock +
+  // l kThreads + t
+  int k[kLanes];
+  bool valid[kLanes];
+  NoiseStream ns[kLanes];
+  float cost[kLanes];
+#pragma unroll
+  for (int l = 0; l < kLanes; ++l) {
+    k[l] = blockIdx.x * kBlock + l * kThreads + threadIdx.x;
+    valid[l] = k[l] < k_total;
+    ns[l].init(z, k_total, k[l], sd);
+    cost[l] = 0.0f;
+  }
 
   // ---- pass one: rollout + cost ------------------------------------------
-  float cost = 0.0f;
   {
     Val x[S];
 #pragma unroll
-    for (int i = 0; i < S; ++i) x[i] = x0[i];
+    for (int i = 0; i < S; ++i) x[i] = exact_val(x0[i]);
     int n = 0;
     for (int t = 0; t < tau; ++t) {
       const float ct = sched_factor(s_dyn, sched_off, t);
       Val zt[A];
 #pragma unroll
-      for (int j = 0; j < A; ++j) zt[j] = exact_val(ns.next(n++));
+      for (int j = 0; j < A; ++j) zt[j] = draw(ns, n++);
+#ifdef MPPI_BF16
+      // the step's scalars, formed in f32 and rounded once
+      const Val ct_m = to_val(inv_m * ct);
+      const Val nq_c = to_val(c.nc_half * ct);
+#endif
       Val xn[S];
 #pragma unroll
       for (int i = 0; i < S; ++i) {
         Val ax = 0.0f;
 #pragma unroll
         for (int j = 0; j < S; ++j)
-          ax = fma_r(mat_a<S, A, AB>(c, ab, i * S + j), x[j], ax);
+          ax = fma_r(m.a(i * S + j), x[j], ax);
         Val bz = 0.0f;
 #pragma unroll
         for (int j = 0; j < A; ++j)
-          bz = fma_r(mat_bs<S, A, AB>(c, ab, i * A + j), zt[j], bz);
-        // x' = A x + inv_m (B u_t + c_t B scale z_t)
+          bz = fma_r(m.bs(i * A + j), zt[j], bz);
+        // x' = A x + inv_m (B u_t + c_t B scale z_t); at bf16
+        // ax + r(inv_m) (r(bu) + bz), scheduled ax + (r(inv_m bu) +
+        // r(inv_m c_t) bz) (:497-531)
 #ifdef MPPI_BF16
-        if (sched_off >= 0)
-          xn[i] = ax + (Val(inv_m * bu[t * S + i]) + Val(inv_m * ct) * bz);
-        else
-          xn[i] = ax + Val(inv_m) * (Val(bu[t * S + i]) + bz);
+        const Val b = exact_val(bu[t * S + i]);
+        xn[i] = sched_off >= 0 ? ax + (b + ct_m * bz)
+                               : ax + inv_m_v * (b + bz);
 #else
         xn[i] = fmaf(inv_m, bu[t * S + i] + ct * bz, ax);
 #endif
       }
 #pragma unroll
       for (int i = 0; i < S; ++i) x[i] = xn[i];
-      cost += widen(state_cost<S, A, COST>(c, x, goal));
+      add_lanes(cost, state_cost<S, A, COST>(c, m, e, x, goal));
       Val quad = 0.0f;
 #pragma unroll
       for (int j = 0; j < A; ++j) {
 #ifdef MPPI_BF16
-        cost += widen(Val(rhs_z[t * A + j]) * zt[j]);
+        add_lanes(cost, exact_val(rhs_z[t * A + j]) * zt[j]);
 #else
-        cost = fmaf(rhs_z[t * A + j], zt[j], cost);
+        cost[0] = fmaf(rhs_z[t * A + j], zt[j], cost[0]);
 #endif
         Val mz = 0.0f;
 #pragma unroll
         for (int i = 0; i < A; ++i)
-          mz = fma_r(exact_val(c.mz[j * A + i]), zt[i], mz);
+          mz = fma_r(m.mz(j * A + i), zt[i], mz);
         quad = fma_r(zt[j], mz, quad);
       }
       // eps^T Sigma_t^-1 eps = c_t z^T Mz z
 #ifdef MPPI_BF16
-      cost += widen(Val(c.nc_half * ct) * quad);
+      add_lanes(cost, nq_c * quad);
 #else
-      cost = fmaf(c.nc_half * ct, quad, cost);
+      cost[0] = fmaf(c.nc_half * ct, quad, cost[0]);
 #endif
     }
-    cost += widen(state_cost<S, A, COST>(c, x, goal));
-    cost += u_half;
+    add_lanes(cost, state_cost<S, A, COST>(c, m, e, x, goal));
   }
 
-  if (MODE == kFused) {
-    float* row = partials + static_cast<size_t>(blockIdx.x) *
-                                (kStats + tau * A);
-    write_partial_row<true>(-cost / c.lam, cost, valid, ns, tau * A, s_red,
-                            row);
-  } else {
-    if (valid) costs[k] = cost;
-    write_partial_row<false>(-INFINITY, cost, valid, ns, 0, s_red,
-                             partials + static_cast<size_t>(blockIdx.x) *
-                                            kStats);
+  float zarg[kLanes];
+#pragma unroll
+  for (int l = 0; l < kLanes; ++l) {
+    cost[l] += u_half;
+    zarg[l] = MODE == kFused ? -cost[l] / c.lam : -INFINITY;
+    if (MODE == kCosts && valid[l]) costs[k[l]] = cost[l];
   }
+  if (MODE == kFused)
+    write_partial_row_lanes<true, kLanes>(
+        zarg, cost, valid, ns, tau * A, s_red,
+        partials + static_cast<size_t>(blockIdx.x) * (kStats + tau * A));
+  else
+    write_partial_row_lanes<false, kLanes>(
+        zarg, cost, valid, ns, 0, s_red,
+        partials + static_cast<size_t>(blockIdx.x) * kStats);
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -390,63 +564,74 @@ __global__ void __launch_bounds__(kMergeThreads)
 }
 #endif  // MPPI_BF16: pm_merge reads f32 partial rows only
 
+// The launch of one solve: k samples over horizon tau; scheduled (0 / 1)
+// appends the tau factors c_t to dyn. With occupancy set nothing launches:
+// the kernel's blocks an SM at this shared memory are written there.
+struct PmLaunch {
+  const float* consts;  // PmConsts.packed
+  const float* dyn;
+  const float* z;
+  float* costs;
+  float* partials;
+  int k, tau, scheduled;
+  Seeds sd;
+  cudaStream_t stream;
+  int* occupancy;
+};
+
 template <int S, int A, int MODE, int COST, int AB>
-int launch_solve(const float* consts, const float* dyn, const float* z,
-                 float* costs, float* partials, int k, int tau,
-                 int scheduled, Seeds sd, cudaStream_t stream) {
-  Consts<S, A> c;
-  memcpy(&c, consts, sizeof(c));
-  const int base = 1 + 2 * S + tau * (S + A) + 1 +
+int launch_solve(const PmLaunch& a) {
+  HostConsts<S, A> f;
+  memcpy(&f, a.consts, sizeof(f));
+#ifdef MPPI_BF16
+  const Consts<S, A> c = pair_consts(f);
+#else
+  const Consts<S, A>& c = f;
+#endif
+  const int base = 1 + 2 * S + a.tau * (S + A) + 1 +
                    (AB == kDynAB ? S * S + S * A : 0);
-  const int sched_off = scheduled ? base : -1;
-  const int dyn_size = scheduled ? base + tau : base;
+  const int sched_off = a.scheduled ? base : -1;
+  const int dyn_size = a.scheduled ? base + a.tau : base;
   size_t smem = 0;
   const cudaError_t e =
       smem_for(MPPI_KERNEL(pm_fused_solve)<S, A, MODE, COST, AB>, dyn_size,
-               MODE == kFused ? tau * A : 0, &smem);
+               MODE == kFused ? a.tau * A : 0, &smem);
   if (e != cudaSuccess) return e;
-  const int nb = (k + kBlock - 1) / kBlock;
+  if (a.occupancy != nullptr)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        a.occupancy, MPPI_KERNEL(pm_fused_solve)<S, A, MODE, COST, AB>,
+        kThreads, smem);
+  const int nb = (a.k + kBlock - 1) / kBlock;
   MPPI_KERNEL(pm_fused_solve)<S, A, MODE, COST, AB>
-      <<<nb, kBlock, smem, stream>>>(c, dyn, dyn_size, sched_off, z, costs,
-                                     partials, k, tau, sd);
+      <<<nb, kThreads, smem, a.stream>>>(c, a.dyn, dyn_size, sched_off, a.z,
+                                         a.costs, a.partials, a.k, a.tau,
+                                         a.sd);
   return cudaGetLastError();
 }
 
 template <int MODE, int AB>
-int dispatch_dims(int sdim, int adim, int cost, const float* consts,
-                  const float* dyn, const float* z, float* costs,
-                  float* partials, int k, int tau, int sch, Seeds sd,
-                  cudaStream_t st) {
+int dispatch_dims(int sdim, int adim, int cost, const PmLaunch& a) {
   if (cost == kElipse) {
     if (sdim == 4 && adim == 2)
-      return launch_solve<4, 2, MODE, kElipse, AB>(
-          consts, dyn, z, costs, partials, k, tau, sch, sd, st);
+      return launch_solve<4, 2, MODE, kElipse, AB>(a);
     return cudaErrorInvalidValue;
   }
   if (cost != kQuadratic) return cudaErrorInvalidValue;
   if (sdim == 6 && adim == 3)
-    return launch_solve<6, 3, MODE, kQuadratic, AB>(
-        consts, dyn, z, costs, partials, k, tau, sch, sd, st);
+    return launch_solve<6, 3, MODE, kQuadratic, AB>(a);
   if (sdim == 2 && adim == 1)
-    return launch_solve<2, 1, MODE, kQuadratic, AB>(
-        consts, dyn, z, costs, partials, k, tau, sch, sd, st);
+    return launch_solve<2, 1, MODE, kQuadratic, AB>(a);
   if (sdim == 4 && adim == 2)
-    return launch_solve<4, 2, MODE, kQuadratic, AB>(
-        consts, dyn, z, costs, partials, k, tau, sch, sd, st);
+    return launch_solve<4, 2, MODE, kQuadratic, AB>(a);
   return cudaErrorInvalidValue;
 }
 
 template <int MODE>
-int dispatch_solve(int sdim, int adim, int cost, const float* consts,
-                   const float* dyn, const float* z, float* costs,
-                   float* partials, int k, int tau, int sch, int dyn_ab,
-                   Seeds sd, cudaStream_t st) {
-  if (k <= 0 || tau <= 0) return cudaErrorInvalidValue;
-  if (dyn_ab)
-    return dispatch_dims<MODE, kDynAB>(sdim, adim, cost, consts, dyn, z,
-                                       costs, partials, k, tau, sch, sd, st);
-  return dispatch_dims<MODE, kConstAB>(sdim, adim, cost, consts, dyn, z,
-                                       costs, partials, k, tau, sch, sd, st);
+int dispatch_solve(int sdim, int adim, int cost, int dyn_ab,
+                   const PmLaunch& a) {
+  if (a.k <= 0 || a.tau <= 0) return cudaErrorInvalidValue;
+  if (dyn_ab) return dispatch_dims<MODE, kDynAB>(sdim, adim, cost, a);
+  return dispatch_dims<MODE, kConstAB>(sdim, adim, cost, a);
 }
 
 }  // namespace
@@ -470,17 +655,19 @@ int MPPI_ENTRY(pm_noise_dump)(float* out, int k, int n_z, uint32_t half,
   return cudaGetLastError();
 }
 
-// consts: PmConsts.packed, sizeof(Consts<sdim, adim>) bytes; cost: PmCost.
+// consts: PmConsts.packed, sizeof(HostConsts<sdim, adim>) bytes; cost:
+// PmCost.
 int MPPI_ENTRY(pm_fused_solve)(int sdim, int adim, int cost,
                                const float* consts,
                    const float* dyn, const float* z, float* partials, int k,
                    int tau, int scheduled, int dynamic_ab, uint32_t half,
                    uint32_t seed_lo, uint32_t seed_hi, uint32_t s_lo,
                    uint32_t s_hi, void* stream) {
-  return dispatch_solve<kFused>(sdim, adim, cost, consts, dyn, z, nullptr,
-                                partials, k, tau, scheduled, dynamic_ab,
-                                Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
-                                static_cast<cudaStream_t>(stream));
+  return dispatch_solve<kFused>(
+      sdim, adim, cost, dynamic_ab,
+      PmLaunch{consts, dyn, z, nullptr, partials, k, tau, scheduled,
+               Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
+               static_cast<cudaStream_t>(stream), nullptr});
 }
 
 int MPPI_ENTRY(pm_fused_costs)(int sdim, int adim, int cost,
@@ -490,10 +677,24 @@ int MPPI_ENTRY(pm_fused_costs)(int sdim, int adim, int cost,
                    int dynamic_ab, uint32_t half, uint32_t seed_lo,
                    uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
                    void* stream) {
-  return dispatch_solve<kCosts>(sdim, adim, cost, consts, dyn, z, costs,
-                                partials, k, tau, scheduled, dynamic_ab,
-                                Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
-                                static_cast<cudaStream_t>(stream));
+  return dispatch_solve<kCosts>(
+      sdim, adim, cost, dynamic_ab,
+      PmLaunch{consts, dyn, z, costs, partials, k, tau, scheduled,
+               Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
+               static_cast<cudaStream_t>(stream), nullptr});
+}
+
+// out[0]: blocks an SM of the solve (mode 0) or costs (1) kernel of
+// (sdim, adim, cost, dynamic_ab) at horizon tau, unscheduled; out[1]:
+// samples a thread.
+int MPPI_ENTRY(pm_occupancy)(int sdim, int adim, int cost, int mode,
+                             int dynamic_ab, int tau, int* out) {
+  static const float zeros[sizeof(HostConsts<6, 3>) / sizeof(float)] = {};
+  const PmLaunch a{zeros, nullptr, nullptr, nullptr, nullptr, 1, tau, 0,
+                   Seeds{}, nullptr, out};
+  out[1] = kLanes;
+  return mode ? dispatch_solve<kCosts>(sdim, adim, cost, dynamic_ab, a)
+              : dispatch_solve<kFused>(sdim, adim, cost, dynamic_ab, a);
 }
 
 int MPPI_ENTRY(mppi_weights)(const float* nrm, const float* costs,

@@ -49,8 +49,10 @@ _SIGNATURES = {
     "nn_fused_solve": [_I, _I, _I, _P, _P, _P, _P, *_SOLVE, *_SEEDS, _P],
     "nn_fused_costs": [_I, _I, _I, _P, _P, _P, _P, _P, *_SOLVE, *_SEEDS,
                        _P],
-    # (rk, cost, mode, tau, out[2]) and (n1, n2, n3, mode, tau, out[2]):
-    # blocks an SM and samples a thread of a solve kernel
+    # (sdim, adim, cost, mode, dynamic_ab, tau, out[2]), (rk, cost, mode,
+    # tau, out[2]) and (n1, n2, n3, mode, tau, out[2]): blocks an SM and
+    # samples a thread of a solve kernel
+    "pm_occupancy": [_I, _I, _I, _I, _I, _I, _P],
     "auv_occupancy": [_I, _I, _I, _I, _P],
     "nn_occupancy": [_I, _I, _I, _I, _I, _P],
 }
@@ -61,7 +63,7 @@ _SIGNATURES.update(
     {f"{name}_bf16": _SIGNATURES[name] for name in (
         "pm_noise_dump", "pm_fused_solve", "pm_fused_costs", "mppi_weights",
         "auv_fused_solve", "auv_fused_costs", "nn_fused_solve",
-        "nn_fused_costs", "auv_occupancy", "nn_occupancy")}
+        "nn_fused_costs", "pm_occupancy", "auv_occupancy", "nn_occupancy")}
     | {f"{name}_bfp": _SIGNATURES[name]
        for name in ("nn_fused_solve", "nn_fused_costs")})
 

@@ -316,7 +316,7 @@ def _state_dot_bf16(cb: dict, fng, x: list, gf: list) -> list:
 def _sample_costs_bf16(consts: AuvConsts, dyn: torch.Tensor,
                        z: torch.Tensor) -> torch.Tensor:
     """The bf16 kernel's per-sample costs [k], op for op (auv_mppi.cu at
-    Val = bf16r): bf16 state columns, the rk step of ``consts.rk``, the f32
+    Val = bf16x2): bf16 state columns, the rk step of ``consts.rk``, the f32
     rsqrt and state cost on the widened state, the z terms as bf16
     values summed in f32."""
     tau, _, k = z.shape

@@ -205,7 +205,7 @@ def sample_costs_plain(consts: NnConsts, dyn: torch.Tensor,
 def _sample_costs_bf16(consts: NnConsts, dyn: torch.Tensor,
                        z: torch.Tensor) -> torch.Tensor:
     """The bf16 kernel's per-sample costs [k], op for op (nn_mppi.cu at
-    Val = bf16r): bf16 state columns, each layer's chains run over its
+    Val = bf16x2): bf16 state columns, each layer's chains run over its
     inputs in order for all outputs at once, the f32 rsqrt and
     ``StaticQuatCost`` on the widened state, the z terms as bf16 values
     summed in f32."""

@@ -56,9 +56,10 @@ bu the true B u_t, so that an identified linear model
 
 The bf16 block compute (``compute_dtype="bfloat16"``, the JAX kernels'
 ``compute_dtype``): the ``*_bf16`` kernels, pm_mppi.cu compiled at the
-block type bf16 (``csrc/pm_mppi_bf16.cu``). The state, x0, goal and every
-rollout and cost op round to bf16 (round to nearest even) after each op,
-in the JAX kernel's order: x' = ax + inv_m (bu + bz), or with a schedule
+block type bf16 (``csrc/pm_mppi_bf16.cu``: two samples a thread in native
+bf16x2 arithmetic, the same partial rows of ``BLOCK`` samples). The
+state, x0, goal and every rollout and cost op round to bf16 (round to
+nearest even) after each op, in the JAX kernel's order: x' = ax + inv_m (bu + bz), or with a schedule
 ax + (r(inv_m bu) + r(inv_m c_t) bz) with the scalar products formed in f32
 and rounded once; each step's state cost, rhs_z . z and nc_half z^T Mz z
 is a bf16 value added to the f32 cost. The softmax, the partial rows,
@@ -358,9 +359,11 @@ def sample_costs_plain(consts: PmConsts, dyn: torch.Tensor,
 def _sample_costs_bf16(consts: PmConsts, dyn: torch.Tensor,
                        z: torch.Tensor) -> torch.Tensor:
     """The bf16 kernel's per-sample costs [k], op for op (pm_mppi.cu at
-    Val = bf16r): the state as bf16 columns, each op rounded, in the JAX
-    kernel's order; the state cost and the z terms bf16 values summed in
-    f32. Not the f32 path's matrix products, which round once."""
+    Val = bf16x2): the state as bf16 columns, each op rounded, in the JAX
+    kernel's order, every runtime operand (x0, goal, bu or r(inv_m bu),
+    rhs_z, A and B scale, the scalars) rounded once; the state cost and
+    the z terms bf16 values summed in f32. Not the f32 path's matrix
+    products, which round once."""
     tau, adim, k = z.shape
     sdim = consts.A.shape[0]
     lay = Dyn(tau, sdim, adim, consts.dynamic_ab, consts.scheduled)

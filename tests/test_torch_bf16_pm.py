@@ -46,6 +46,12 @@ TASK = {"type": "static", "diag": True,
 MODEL = {"type": "point_mass", "mass": 1.3}
 ELIPSE = {"type": "elipse", "a": 2.0, "b": 1.5, "center_x": 0.25,
           "center_y": -0.25, "speed": 1.25, "m_state": 4.0, "m_vel": 0.5}
+# three legs of the 3-DoF point mass (the waypoint blend of the kernels'
+# effective goal, tests/test_torch_tracking_kernels.py)
+WAYPOINTS = {"type": "waypoints", "diag": True, "alpha": 0.2,
+             "Q": [6.0, 0.6, 6.0, 0.6, 6.0, 0.6],
+             "waypoints": [[0.8, 0, 0, 0, 0, 0], [0.8, 0, -0.7, 0, 0, 0],
+                           [0.0, 0, -0.7, 0, 0.4, 0]]}
 # tests/test_bf16_kernel.py's family: K=160, H=3 at tile 32
 K, TAU, TILE = 160, 3, 32
 # the criterion's limits (the costs below measure 0 and 1: bit parity)
@@ -177,13 +183,28 @@ def _assert_costs(out):
                                   out["jax", "bfloat16"])
 
 
-@pytest.mark.parametrize("k,tau", [(K, TAU), (256, 10)])
-def test_plain_bf16_costs_match_pallas_bf16(exact_jax, k, tau):
+def _static_task(sdim):
+    """TASK at (6, 3); a static cost of its kind at the smaller dims."""
+    return TASK if sdim == 6 else {"type": "static", "diag": True,
+                                   "goal": [0.5, 0.0, -0.25, 0.0][:sdim],
+                                   "Q": [5.0, 1.0, 3.0, 0.5][:sdim]}
+
+
+@pytest.mark.parametrize("k,tau,sdim,adim", [
+    pytest.param(K, TAU, 6, 3, id="160-3"),
+    pytest.param(256, 10, 6, 3, id="256-10"),
+    pytest.param(K, TAU, 2, 1, id="2x1"),
+    pytest.param(K, TAU, 4, 2, id="4x2")])
+def test_plain_bf16_costs_match_pallas_bf16(exact_jax, k, tau, sdim, adim):
     """The static cost at (6, 3), at the JAX bf16 test's shapes and at
-    K=256, H=10; the f32 plain version fails the criterion."""
-    z, x0, useq = _inputs(k, tau)
-    out = _costs_both(lambda cd: _jax(cd, k, tau),
-                      lambda cd: _port(cd, k, tau), z, x0, useq)
+    K=256, H=10, and at the kernels' other quadratic dims (2, 1) and
+    (4, 2); the f32 plain version fails the criterion."""
+    task = _static_task(sdim)
+    z, x0, useq = _inputs(k, tau, adim,
+                          x0=(0.2, 0.0, -0.1, 0.0, 0.3, 0.0)[:sdim])
+    out = _costs_both(lambda cd: _jax(cd, k, tau, task, sdim, adim),
+                      lambda cd: _port(cd, k, tau, task, sdim, adim), z, x0,
+                      useq)
     _assert_costs(out)
     # the f32 versions agree as before: rounding only
     np.testing.assert_allclose(out["port", "float32"], out["jax", "float32"],
@@ -237,30 +258,117 @@ def test_plain_bf16_scheduled_normalized(exact_jax):
     assert np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b)) > 0.7
 
 
-def test_plain_bf16_dynamic_ab_matches_pallas_bf16(exact_jax):
-    """The dense smem_dot rollout of FusedLTIMPPI at bf16 over a dense
-    random (A, B) (tests/test_pallas_kernel.py:386-408)."""
-    rng = np.random.RandomState(5)
+def _lti_pair(k, tau, seed, **kw):
+    """(make_jax, make_port) of FusedLTIMPPI over a dense random (A, B)."""
+    rng = np.random.RandomState(seed)
     A = np.eye(6) + 0.05 * rng.randn(6, 6)
     B = 0.1 * rng.randn(6, 3)
-    z, x0, useq = _inputs(K, TAU, seed=11)
 
     def make_jax(cd):
         model = JDMDModel(6, 3, init_A=A, init_B=B, dtype=jnp.float32)
         cost = jget_cost(TASK, lam=LAM, gamma=GAMMA, upsilon=UPS,
                          sigma=SIGMA)
-        return (JLTI(model, cost, k=K, tau=TAU, lam=LAM, upsilon=UPS,
+        return (JLTI(model, cost, k=k, tau=tau, lam=LAM, upsilon=UPS,
                      sigma=SIGMA, tile=TILE, interpret=True,
-                     compute_dtype=cd),
+                     compute_dtype=cd, **kw),
                 model.init_params(), cost.init_params())
 
     def make_port(cd):
         cost = get_cost(TASK, lam=LAM, gamma=GAMMA, upsilon=UPS, sigma=SIGMA)
         return pm.FusedLTIMPPI(DMDModel(6, 3, init_A=A, init_B=B), cost,
-                               k=K, tau=TAU, lam=LAM, upsilon=UPS,
-                               sigma=SIGMA, compute_dtype=cd)
+                               k=k, tau=tau, lam=LAM, upsilon=UPS,
+                               sigma=SIGMA, compute_dtype=cd, **kw)
 
+    return make_jax, make_port
+
+
+def test_plain_bf16_dynamic_ab_matches_pallas_bf16(exact_jax):
+    """The dense smem_dot rollout of FusedLTIMPPI at bf16 over a dense
+    random (A, B) (tests/test_pallas_kernel.py:386-408)."""
+    z, x0, useq = _inputs(K, TAU, seed=11)
+    _assert_costs(_costs_both(*_lti_pair(K, TAU, 5), z, x0, useq))
+
+
+def test_plain_bf16_dynamic_ab_scheduled_matches_pallas_bf16(exact_jax):
+    """FusedLTIMPPI at bf16 with a noise schedule: the staged r(inv_m bu)
+    at inv_mass = 1 and r(inv_m c_t) of the scheduled step (the JAX
+    kernel's drive32), per-sample costs bit for bit; then the two-phase
+    normalized solve's stats at the JAX bf16 test's rtol."""
+    k, c = 128, np.linspace(1.0, 0.4, TAU)
+    z, x0, useq = _inputs(k, TAU, seed=13)
+    make_jax, make_port = _lti_pair(k, TAU, 6, schedule=c)
     _assert_costs(_costs_both(make_jax, make_port, z, x0, useq))
+    jf, mp, cp = make_jax("bfloat16")
+    _, st_j = jf.solve(0, x0, useq, mp, cp,
+                       z=jnp.asarray(chunk_noise(z, TILE)), use_prng=False,
+                       normalize=True)
+    _, st = make_port("bfloat16").solve(
+        torch.as_tensor(x0), torch.as_tensor(useq), z=torch.as_tensor(z),
+        normalize=True)
+    for key in ("cost_min", "cost_max", "cost_mean"):
+        np.testing.assert_allclose(float(st[key]), float(st_j[key]),
+                                   rtol=1e-6)
+
+
+def test_plain_bf16_antithetic_solve_matches_pallas_bf16(exact_jax):
+    """An antithetic bf16 solve on the port's Philox stream (sample
+    half + i reads -z of sample i, the XLA layout) against the JAX bf16
+    solve fed those normals as injected z (its kernel mirrors in-tile
+    lane pairs, another layout): the stats and the weighted noise. The
+    port's solve on that stream equals its solve on the same normals
+    injected, bit for bit."""
+    k = 2 * K + 1
+    _, x0, useq = _inputs(k, TAU, seed=17)
+    args = (torch.as_tensor(x0), torch.as_tensor(useq))
+    half = pm.antithetic_half(k)
+    z = pm.noise_plain(3, 8, k, TAU, 3, half=half)
+    assert torch.equal(z[..., half:], -z[..., :k - half])
+    port = _port("bfloat16", k, antithetic=True)
+    wn, st = port.solve(*args, seed=3, solve=8)
+    wn_z, st_z = port.solve(*args, z=z)
+    assert torch.equal(wn, wn_z)
+    for key in st:
+        assert torch.equal(st[key], st_z[key]), key
+    jf, mp, cp = _jax("bfloat16", k)
+    wn_j, st_j = jf.solve(0, x0, useq, mp, cp,
+                          z=jnp.asarray(chunk_noise(z.numpy(), TILE)),
+                          use_prng=False)
+    for key in ("cost_min", "cost_max"):
+        assert float(st[key]) == float(st_j[key]), key
+    np.testing.assert_allclose(float(st["cost_mean"]),
+                               float(st_j["cost_mean"]), rtol=1e-6)
+    np.testing.assert_allclose(wn.numpy(), np.asarray(wn_j), rtol=1e-4,
+                               atol=1e-6)
+    wn32, _ = _port("float32", k, antithetic=True).solve(*args, seed=3,
+                                                          solve=8)
+    assert not np.allclose(wn32.numpy(), np.asarray(wn_j), rtol=1e-4,
+                           atol=1e-6)
+
+
+def test_plain_bf16_waypoints_match_pallas_bf16(exact_jax):
+    """The point-mass waypoint cost at bf16: the quadratic around the
+    queue's effective goal, rounded to bf16 as the kernel stages it, with
+    the dropped constant added back in f32; again after a pop. Bit for bit
+    for the queue as given; after the pop the two packages' f32 offsets
+    part by an ulp (rtol 1e-6)."""
+    z, x0, useq = _inputs(K, TAU, seed=19, x0=(0.25, 0.0, -0.125, 0.0,
+                                                0.375, 0.0))
+    ports = {cd: _port(cd, task=WAYPOINTS) for cd in ("float32", "bfloat16")}
+    jaxs = {cd: _jax(cd, task=WAYPOINTS) for cd in ("float32", "bfloat16")}
+    for popped in (False, True):   # the queue as given, then after a pop
+        out = _costs_both(lambda cd: jaxs[cd], lambda cd: ports[cd], z, x0,
+                          useq)
+        if popped:
+            assert_bf16_side(out["port", "bfloat16"], out["port", "float32"],
+                             out["jax", "bfloat16"], out["jax", "float32"])
+            np.testing.assert_allclose(out["port", "bfloat16"],
+                                       out["jax", "bfloat16"], rtol=1e-6)
+        else:
+            _assert_costs(out)
+        for cd in ports:
+            ports[cd].cost.pop()
+            f, mp, cp = jaxs[cd]
+            jaxs[cd] = (f, mp, f.cost.pop(cp))
 
 
 def test_plain_bf16_elipse_matches_pallas_bf16(exact_jax):

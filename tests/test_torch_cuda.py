@@ -6,6 +6,8 @@ This file imports neither JAX nor the JAX package, so that it runs on a
 machine without JAX:  python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -66,6 +68,23 @@ def test_build_reports_every_kernel(cuda_device):
     assert sum("pm_fused_solve_kernel" in r["kernel"] for r in rows) == 16
     assert not [r for r in rows if r.get("spill_stores")
                 or r.get("spill_loads")]
+
+
+@pytest.mark.parametrize("sfx,lanes", [("", 1), ("_bf16", 2)])
+def test_pm_occupancy_entry_point(cuda_device, sfx, lanes):
+    """pm_occupancy reports the samples a thread of its build and at least
+    one block an SM for every point-mass solve instantiation, and refuses
+    dims the kernel is not built for."""
+    import ctypes
+
+    fn = getattr(_build.load_library(), f"pm_occupancy{sfx}")
+    for sdim, adim, cost in ((6, 3, 0), (2, 1, 0), (4, 2, 0), (4, 2, 1)):
+        for mode in (0, 1):
+            for dyn_ab in (0, 1):
+                out = (ctypes.c_int * 2)()
+                assert fn(sdim, adim, cost, mode, dyn_ab, 50, out) == 0
+                assert out[1] == lanes and out[0] >= 1
+    assert fn(5, 3, 0, 0, 0, 50, (ctypes.c_int * 2)()) != 0
 
 
 @pytest.mark.parametrize("k,tau,adim", [(700, 7, 3), (5000, 20, 3),
@@ -871,9 +890,15 @@ def test_lti_refit_builds_nothing_and_launches_the_same_symbol(
 BF16_GAP_SHARE = 1e-2
 WNOISE_RTOL, WNOISE_ATOL = 1e-3, 1e-5
 
-BF16_KINDS = ["pm", "pm21", "pm42", "pm_elipse", "pm_sched_anti", "lti",
-              "auv1", "auv2", "auv4", "auv_waypoints_quat", "auv_elipse3d",
-              "auv_sched_anti", "nn8", "nn32", "nn_sched_anti", "nn_bfp"]
+BF16_KINDS = ["pm", "pm21", "pm42", "pm_elipse", "pm_sched_anti",
+              "pm_elipse_sched_anti", "pm_waypoints", "lti", "lti21",
+              "lti42", "lti_elipse", "lti_sched_anti", "auv1", "auv2",
+              "auv4", "auv_waypoints_quat", "auv_elipse3d", "auv_sched_anti",
+              "nn8", "nn32", "nn_sched_anti", "nn_bfp"]
+#: the point mass's dims of a kind
+PM_KIND_DIMS = {"pm21": (2, 1), "lti21": (2, 1), "pm42": (4, 2),
+                "lti42": (4, 2), "pm_elipse": (4, 2), "lti_elipse": (4, 2),
+                "pm_elipse_sched_anti": (4, 2)}
 
 
 def _bf16_pair(kind, k, tau, device):
@@ -886,25 +911,26 @@ def _bf16_pair(kind, k, tau, device):
     both = ({"schedule": SCHED, "antithetic": True}
             if kind.endswith("sched_anti") else {})
     if kind.startswith(("pm", "lti")):
-        if kind == "lti":
-            f32 = _lti(k, tau, device)[0]
-            make = (lambda cd: pm.FusedLTIMPPI(
-                f32.model, f32.cost, k=k, tau=tau, lam=LAM, upsilon=UPS,
-                sigma=SIGMA, compute_dtype=cd))
+        dims = PM_KIND_DIMS.get(kind, (6, 3))
+        elipse = "elipse" in kind
+        sigma = SIGMA[:dims[1], :dims[1]]
+        if kind.startswith("lti"):
+            f32 = _lti(k, tau, device, dims, elipse)[0]
+            model, cost = f32.model, f32.cost
+            cls = pm.FusedLTIMPPI
         else:
-            dims = {"pm21": (2, 1), "pm42": (4, 2),
-                    "pm_elipse": (4, 2)}.get(kind, (6, 3))
             model, cost = _modules(device, sdim=dims[0], adim=dims[1])
-            if kind == "pm_elipse":
-                cost = get_cost(PM_ELIPSE, lam=LAM, gamma=GAMMA, upsilon=UPS,
-                                sigma=SIGMA[:2, :2], device=device)
-            make = (lambda cd: pm.FusedPointMassMPPI(
-                model, cost, k=k, tau=tau, lam=LAM, upsilon=UPS,
-                sigma=SIGMA[:dims[1], :dims[1]], compute_dtype=cd, **both))
+            cls = pm.FusedPointMassMPPI
+            if elipse or kind == "pm_waypoints":
+                cost = get_cost(PM_ELIPSE if elipse else PM_WAYPOINTS,
+                                lam=LAM, gamma=GAMMA, upsilon=UPS,
+                                sigma=sigma, device=device)
+        make = (lambda cd: cls(model, cost, k=k, tau=tau, lam=LAM,
+                               upsilon=UPS, sigma=sigma, compute_dtype=cd,
+                               **both))
         f32, b16 = make("float32"), make("bfloat16")
         x0 = torch.as_tensor(rng.normal(size=f32.sdim) * 0.3 + (
-            3.0 if kind == "pm_elipse" else 0.0), dtype=torch.float32,
-            device=device)
+            3.0 if elipse else 0.0), dtype=torch.float32, device=device)
         useq = torch.as_tensor(rng.normal(size=(tau, f32.adim)) * 0.1,
                                dtype=torch.float32, device=device)
         mod = pm
@@ -1022,29 +1048,36 @@ def test_bf16_kernels_match_plain(cuda_device, kind):
                                cf_plain, rtol=COST_RTOL, atol=COST_ATOL)
 
 
-# the AUV and NN bf16 builds hold two samples a thread (csrc/mppi_common.cuh,
+# the bf16 builds hold two samples a thread (csrc/mppi_common.cuh,
 # MPPI_BF16_PAIRS): block b of 128 threads is partial row b, thread t
 # holds samples 256 b + t and 256 b + 128 + t
 PAIR_CASES = [("auv", rk, cost) for rk in (2, 4)
               for cost in ("static_quat", "waypoints_quat", "elipse3d")] + [
-    ("nn", (32, 32, 32), None), ("nn", (8, 8), None)]
+    ("nn", (32, 32, 32), None), ("nn", (8, 8), None)] + [
+    ("pm", kind, None) for kind in ("pm", "pm21", "pm42", "pm_elipse",
+                                    "pm_sched_anti", "lti", "lti21", "lti42",
+                                    "lti_elipse", "lti_sched_anti")]
 
 
 @pytest.mark.parametrize("k", [700, 4097])
 @pytest.mark.parametrize("case", PAIR_CASES, ids=str)
 def test_bf16_pairs_lanes_and_tail(cuda_device, case, k):
-    """A bf16 AUV or NN kernel's costs for samples 0..K-1 equal, bit for
-    bit, the same samples' costs at K + 256 with z extended (and on the
-    Philox stream): a lane's sample does not depend on the other lane of
-    its thread, nor on where the tail falls (at K = 700 the last row's
-    second lane is all padding, at K = 4,097 its first lane holds one
-    sample). The partials have ceil(K / 256) rows, and every full row
-    equals the longer solve's."""
+    """A bf16 point-mass, AUV or NN kernel's costs for samples 0..K-1
+    equal, bit for bit, the same samples' costs at K + 256 with z extended
+    (and on the Philox stream, not antithetic, whose mirror moves with K):
+    a lane's sample does not depend on the other lane of its thread, nor
+    on where the tail falls (at K = 700 the last row's second lane is all
+    padding, at K = 4,097 its first lane holds one sample). The partials
+    have ceil(K / 256) rows, and every full row equals the longer
+    solve's."""
     from mppi_tf_tpu_torch.kernels import nn_mppi as nnk
 
     model_kind, arg, cost_kind = case
     tau = 7
-    if model_kind == "auv":
+    if model_kind == "pm":
+        _, _, b16, dyn, mod = _bf16_pair(arg, k, tau, cuda_device)
+        prefix = "pm"
+    elif model_kind == "auv":
         model = get_model({**flagship.auv_params(), "rk": arg}, dt=0.1,
                           device=cuda_device)
         task = (flagship.auv_task() if cost_kind == "static_quat"
@@ -1062,21 +1095,23 @@ def test_bf16_pairs_lanes_and_tail(cuda_device, case, k):
                               upsilon=1.2, sigma=NN_SIGMA,
                               compute_dtype="bfloat16")
         mod, prefix = nnk, "nn"
-    _, x0, useq, _ = _auv_inputs(b16, cuda_device, seed=k)
-    with torch.no_grad():
-        dyn = b16.pack_dyn(x0, useq)
+    if model_kind != "pm":
+        _, x0, useq, _ = _auv_inputs(b16, cuda_device, seed=k)
+        with torch.no_grad():
+            dyn = b16.pack_dyn(x0, useq)
     costs = getattr(mod, f"{prefix}_fused_costs")
     solve = getattr(mod, f"{prefix}_fused_solve")
-    z_long = torch.randn(tau, 6, k + 256, device=cuda_device,
+    consts = dataclasses.replace(b16.consts, antithetic=False)
+    z_long = torch.randn(tau, b16.adim, k + 256, device=cuda_device,
                          generator=torch.Generator(cuda_device).manual_seed(k))
     rows_n, full = -(-k // 256), k // 256
     for kw, kw_long in (({"z": z_long[..., :k].contiguous()},
                          {"z": z_long}),
                         ({"seed": 5, "solve": 3}, {"seed": 5, "solve": 3})):
-        c, srows = costs(b16.consts, dyn, k, tau, **kw)
-        c2, srows2 = costs(b16.consts, dyn, k + 256, tau, **kw_long)
-        rows = solve(b16.consts, dyn, k, tau, **kw)
-        rows2 = solve(b16.consts, dyn, k + 256, tau, **kw_long)
+        c, srows = costs(consts, dyn, k, tau, **kw)
+        c2, srows2 = costs(consts, dyn, k + 256, tau, **kw_long)
+        rows = solve(consts, dyn, k, tau, **kw)
+        rows2 = solve(consts, dyn, k + 256, tau, **kw_long)
         torch.cuda.synchronize()
         assert torch.isfinite(c).all()
         assert torch.equal(c, c2[:k])
