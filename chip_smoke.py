@@ -12,7 +12,10 @@ port's paths through ``MPPI.next`` closed loop against the analytic plants:
   fused solve; then the two-phase normalized solve);
 - the rexrov2 AUV flagship with the static quaternion cost at K=262,144,
   H=25: the normalized dive (the two-phase solve: auv_fused_costs, then
-  mppi_weights) and the unnormalized fused solve;
+  mppi_weights) and the unnormalized fused solve, both on the kernels'
+  diagonal-constant instantiations (kDiag); a dense-constant vehicle (6x6
+  damping, nonzero cog, full sigma and Q) holds the kDense ones against
+  their plain versions and drives them in short loops;
 - the learned NNAUVModel (3x32 MLP) with the static quaternion cost at
   K=65,536, H=25: its kernels against their plain versions, then a dive
   through the NN kernels (kernel="cuda") and the torch route, with a
@@ -62,10 +65,10 @@ bf16x2 ops, f32 ops, loads) and every solve instantiation's blocks an SM
 and waves at the flagship shapes (``occupancy``), and fails on a spill.
 With ``--parent DIR`` (a checkout of the parent commit) it also builds
 that tree's library and holds this tree's kernels against it
-(``parent_bits``: the point mass's bf16 build, every per-sample cost bit
-for bit and the pair rows within tolerance once merged; the bf16 AUV and
-NN kernels and the f32 builds bit for bit) and times them in turns
-(``parent_times``). It
+(``parent_bits``: the f32 AUV body in both structures, every per-sample
+cost bit for bit or within 1e-6 and the rows within tolerance once
+merged; the bf16 builds and the f32 point-mass and NN flagships bit for
+bit) and times them in turns (``parent_times``). It
 times every kernel, each noise variant beside the same kernel without
 it, the dynamic_ab variant beside the constant-(A, B) kernel and each
 bf16 build beside its f32 build. Each phase prints one JSON line; any
@@ -120,6 +123,9 @@ DIVE_Q = [60.0, 60.0, 60.0, 10.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0]
 DIVE_STEPS, DIVE_SUBSTEPS, DIVE_TOL = 160, 5, 0.2
 # the unnormalized flagship loop: a path for auv_fused_solve
 AUV_PLAIN_STEPS = 40
+# the dense-constant vehicle's loops (a path for the kDense kernels, each
+# mode; gated on finite states and the quaternion's norm)
+DENSE_STEPS = 20
 # per-sample AUV costs of O(1e4-1e5) in f32, summed in another order:
 # rtol 1e-4; the theta term 2 acos(dot) carries ~3e-4 rad of rounding near
 # dot = 1, where acos is steep, hence a small absolute floor
@@ -183,9 +189,10 @@ SCHED_WINDOW, SCHED_MEAN_TOL = 100, 0.2
 # earlier auv_mppi.cu itself, compiled from another directory, reads
 # another count for the instantiation that moves here; PERF.md), so a
 # spill is the gate and the f32 kernels' checks against their plain
-# versions hold their arithmetic
+# versions hold their arithmetic. The AUV's are its kDense instantiations
+# (the fourth template argument 0, added with kDiag)
 BASE_REGISTERS = {
-    **{("auv_fused_solve_kernel", a): r for a, r in (
+    **{("auv_fused_solve_kernel", (*a, 0)): r for a, r in (
         ((1, 0, 0), 170), ((1, 0, 1), 163), ((1, 0, 2), 164),
         ((1, 1, 0), 171), ((1, 1, 1), 163), ((1, 1, 2), 162),
         ((2, 0, 0), 195), ((2, 0, 1), 205), ((2, 0, 2), 203),
@@ -414,7 +421,9 @@ def auv_solve_ops(consts, dyn, k: int, tau: int, prng: bool,
     + 2 nnz(cob)), the force sum (6) and M^-1 rhs (2 nnz(M^-1)); a step adds
     the generalised force, rk stages, the quaternion norm, the state cost
     (the 10-dim quadratic; twice for "waypoints_quat", with |dot| and the
-    blend; ``ELIPSE3D_OPS`` for "elipse3d") and the action-cost terms."""
+    blend; ``ELIPSE3D_OPS`` for "elipse3d") and the action-cost terms, the
+    z-quadratic only where nc_half is not 0. The kDiag kernels run this
+    count but for cob's zeros and M's; kDense runs the matrices dense."""
     m_tot = dyn[:36].cpu().numpy()
     inv_m = dyn[36:72].cpu().numpy()
     sd = (36 + 18 + 24 + 2 * nnz(consts.lin_damp)
@@ -426,8 +435,9 @@ def auv_solve_ops(consts, dyn, k: int, tau: int, prng: bool,
              "waypoints_quat": 2 * (3 + 7 + 3 + 10 + 2 + 6
                                     + 2 * nnz(consts.Q) + 20) + 3,
              "elipse3d": ELIPSE3D_OPS}[consts.cost_kind]
+    quad = 2 * nnz(consts.Mz) + 12 + 2 if consts.nc_half != 0.0 else 0
     step = (6 + 2 * nnz(consts.scale) + stages[consts.rk] + 13 + q_ops
-            + 12 + 2 * nnz(consts.Mz) + 12 + 2)
+            + 12 + quad)
     return _rollout_ops(k, tau, 6, step, q_ops, prng, costs_only)
 
 
@@ -652,25 +662,74 @@ def rest_state() -> np.ndarray:
     return x
 
 
-def auv_modules(device, task, sigma, lam=AUV_LAM, rk=2):
+def dense_constants(params: dict, sigma, task: dict):
+    """(params, sigma, task) of the dense-constant vehicle, whose solves run
+    the kDense kernels: the rexrov2 ``params`` with 6x6 linear damping (its
+    diagonal plus off-diagonal terms), 6x6 forward-speed damping and a
+    nonzero cog; ``sigma`` with correlations of 0.02; a quaternion
+    ``task``'s Q with off-diagonal terms of 0.2 (tests/test_torch_cuda.py
+    holds the same vehicle)."""
+    rng = np.random.RandomState(7)
+    params = {**params, "cog": [0.01, -0.02, 0.05],
+              "linear_damping": (np.diag(params["linear_damping"])
+                                 + 5.0 * rng.randn(6, 6)).tolist(),
+              "linear_damping_forward_speed": (20.0 * rng.randn(6, 6)
+                                               ).tolist()}
+    sd = np.sqrt(np.diag(sigma))
+    sigma = np.diag(np.diag(sigma)) + 0.02 * np.outer(sd, sd) * (
+        1.0 - np.eye(6))
+    if task["type"] != "elipse3d":
+        task = {**task, "diag": False, "Q": (np.diag(task["Q"]) + 0.2 * (
+            np.ones((10, 10)) - np.eye(10))).tolist()}
+    return params, sigma, task
+
+
+#: the dense-constant vehicle's upsilon: the z-quadratic runs
+DENSE_UPSILON = 1.2
+
+
+def auv_modules(device, task, sigma, lam=AUV_LAM, rk=2, dense=False,
+                upsilon=None):
+    """The rexrov2 model at ``rk`` and the cost of ``task`` at ``sigma``,
+    ``lam`` and AUV_UPSILON, or with ``dense`` those of the dense-constant
+    vehicle (dense_constants) at DENSE_UPSILON; ``upsilon`` overrides
+    either: (model, cost, sigma, upsilon)."""
     from mppi_tf_tpu_torch import flagship
     from mppi_tf_tpu_torch.costs import get_cost
     from mppi_tf_tpu_torch.models import get_model
 
-    model = get_model({**flagship.auv_params(), "rk": rk}, dt=0.1,
-                      device=device)
-    cost = get_cost(task, lam=lam, gamma=AUV_GAMMA, upsilon=AUV_UPSILON,
+    params, ups = flagship.auv_params(), AUV_UPSILON
+    if dense:
+        params, sigma, task = dense_constants(params, sigma, task)
+        ups = DENSE_UPSILON
+    ups = ups if upsilon is None else upsilon
+    model = get_model({**params, "rk": rk}, dt=0.1, device=device)
+    cost = get_cost(task, lam=lam, gamma=AUV_GAMMA, upsilon=ups,
                     sigma=sigma, device=device)
-    return model, cost
+    return model, cost, sigma, ups
 
 
-def auv_fused(k, tau, rk=2, sigma=AUV_SIGMA, **opts):
+def auv_fused(k, tau, rk=2, sigma=AUV_SIGMA, kind="static_quat",
+              dense=False, upsilon=None, **opts):
+    """FusedAUVMPPI over rexrov2 at ``rk``: the flagship task at ``sigma``
+    ("static_quat"), or the bundled tasks/waypoints_quat_task on
+    envs/uuv_sim and tasks/elipse3d_task on envs/bluerov at their sigma
+    and lambda; ``dense``: the dense-constant vehicle; ``upsilon`` as in
+    auv_modules."""
     from mppi_tf_tpu_torch import flagship
+    from mppi_tf_tpu_torch.cfg import default_config
     from mppi_tf_tpu_torch.kernels import auv_mppi as auv
 
-    model, cost = auv_modules("cuda", flagship.auv_task(), sigma, rk=rk)
-    return auv.FusedAUVMPPI(model, cost, k=k, tau=tau, lam=AUV_LAM,
-                            upsilon=AUV_UPSILON, sigma=sigma, **opts)
+    task, lam = flagship.auv_task(), AUV_LAM
+    if kind != "static_quat":
+        env = default_config("envs/uuv_sim" if kind == "waypoints_quat"
+                             else "envs/bluerov")
+        task = dict(default_config(f"tasks/{kind}_task"))
+        sigma, lam = np.asarray(env["noise"], np.float64), env["lambda"]
+    model, cost, sigma, ups = auv_modules("cuda", task, sigma, lam=lam,
+                                          rk=rk, dense=dense, upsilon=upsilon)
+    return auv.FusedAUVMPPI(model, cost, k=k, tau=tau, lam=lam, upsilon=ups,
+                            sigma=sigma, **opts)
 
 
 def auv_dyn(fused, useq_scale: float, seed: int, x0=None):
@@ -819,10 +878,11 @@ def check_weights(pm, fused, label: str) -> dict:
 
 
 def auv_loop(kernel: str, normalize: bool, steps: int, k: int = AUV_K,
-             **opts):
+             dense: bool = False, **opts):
     """AUV closed loop through MPPI.next against the analytic plant (rest
     start), with MPPI keywords ``opts``. Normalized: the dive to z = -1;
-    unnormalized: the flagship task (z = -5, sigma = 1500 I). Returns
+    unnormalized: the flagship task (z = -5, sigma = 1500 I); ``dense``:
+    the dense-constant vehicle as the controller's model. Returns
     (controller, states, host ms per step, launch counts)."""
     from mppi_tf_tpu_torch import flagship
     from mppi_tf_tpu_torch.controller import MPPI
@@ -837,9 +897,9 @@ def auv_loop(kernel: str, normalize: bool, steps: int, k: int = AUV_K,
         sigma = DIVE_SIGMA
     else:
         task, sigma = flagship.auv_task(), AUV_SIGMA
-    model, cost = auv_modules("cuda", task, sigma)
+    model, cost, sigma, ups = auv_modules("cuda", task, sigma, dense=dense)
     ctrl = MPPI(model, cost, k=k, tau=AUV_H, lam=AUV_LAM,
-                upsilon=AUV_UPSILON, sigma=sigma, seed=3,
+                upsilon=ups, sigma=sigma, seed=3,
                 normalize_cost=normalize, kernel=kernel, **opts)
     x0 = torch.as_tensor(rest_state(), dtype=torch.float32, device="cuda")
     if ctrl.kernel_path == "cuda":   # warm-up without touching its state
@@ -1120,7 +1180,7 @@ def auv_mission_loop(steps: int = AUV_WP_STEPS):
     wps[0][2], wps[1][2] = -1.0, -2.0
     task = {"type": "waypoints_quat", "diag": True, "Q": DIVE_Q,
             "waypoints": [wps[0].tolist()], "alpha": 0.2}
-    model, cost = auv_modules("cuda", task, DIVE_SIGMA)
+    model, cost, _, _ = auv_modules("cuda", task, DIVE_SIGMA)
     ctrl = MPPI(model, cost, k=AUV_K, tau=AUV_H, lam=AUV_LAM,
                 upsilon=AUV_UPSILON, sigma=DIVE_SIGMA, seed=3,
                 normalize_cost=True, kernel="auto")
@@ -1745,13 +1805,15 @@ def bf16_rollout_ops(consts, k: int, tau: int, dyn=None) -> float:
 
 #: the instantiations the sass phase reads, f32 and bf16 builds, both
 #: modes: <S, A, MODE, COST, AB> of the point mass ((6, 3) quadratic,
-#: constant and dynamic (A, B)), <RK, MODE, COST> of the AUV (rk2,
-#: static_quat) and <N1, N2, N3, MODE> of the NN (3x32)
+#: constant and dynamic (A, B)), <RK, MODE, COST, STRUCT> of the AUV (rk2,
+#: static_quat; f32 kDense and kDiag, bf16 kDense; <RK, MODE, COST> in a
+#: library from before STRUCT) and <N1, N2, N3, MODE> of the NN (3x32)
 SASS_KERNELS = (
     *[(f"pm_fused_solve{b}_kernel", (6, 3, m, 0, ab)) for b in ("", "_bf16")
       for m in (0, 1) for ab in (0, 1)],
-    *[(f"auv_fused_solve{b}_kernel", (2, m, 0)) for b in ("", "_bf16")
-      for m in (0, 1)],
+    *[(f"auv_fused_solve{b}_kernel", (2, m, 0, *st)) for b in ("", "_bf16")
+      for m in (0, 1) for st in ((), (0,), (1,))
+      if not (b and st == (1,))],
     *[(f"nn_fused_solve{b}_kernel", (32, 32, 32, m)) for b in ("", "_bf16")
       for m in (0, 1)])
 #: the opcode families the sass phase counts
@@ -1792,9 +1854,11 @@ def sass_phase(_build, parent_lib=None) -> None:
 
 def occupancy_phase(lib, reg_rows, n_sm: int) -> None:
     """Registers, blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor
-    at the flagship horizon, unscheduled) and waves at the flagship shapes
-    (point mass K=100,000, H=50; AUV K=262,144, H=25; NN K=65,536, H=25)
-    of every solve instantiation, f32 and bf16."""
+    at the flagship horizon, unscheduled), warps an SM and waves at the
+    flagship shapes (point mass K=100,000, H=50; AUV K=262,144, H=25; NN
+    K=65,536, H=25) of every solve instantiation, f32 and bf16 (the AUV's
+    f32 build in both structures). ``auv_f32_diag_rk12_min_warps``: the
+    fewest warps an SM of the kDiag instantiations at rk 1 and 2."""
     import ctypes
 
     regs = {(r["kernel"], tuple(r["template"])): r["registers"]
@@ -1805,8 +1869,9 @@ def occupancy_phase(lib, reg_rows, n_sm: int) -> None:
                  for s_, a_, cost in ((6, 3, 0), (2, 1, 0), (4, 2, 0),
                                       (4, 2, 1))
                  for mode in (0, 1) for ab in (0, 1)]
-        cases += [("auv", (rk, mode, cost), AUV_K)
-                  for rk in (1, 2, 4) for mode in (0, 1) for cost in (0, 1, 2)]
+        cases += [("auv", (rk, mode, cost, st), AUV_K)
+                  for rk in (1, 2, 4) for mode in (0, 1) for cost in (0, 1, 2)
+                  for st in ((0, 1) if sfx == "" else (0,))]
         cases += [("nn", (*hid, mode), NN_K)
                   for hid in ((32, 32, 32), (8, 8, 0)) for mode in (0, 1)]
         for model, args, k in cases:
@@ -1816,8 +1881,8 @@ def occupancy_phase(lib, reg_rows, n_sm: int) -> None:
                 rc = getattr(lib, f"pm_occupancy{sfx}")(s_, a_, cost, mode,
                                                          ab, H, out)
             elif model == "auv":
-                rk, mode, cost = args
-                rc = getattr(lib, f"auv_occupancy{sfx}")(rk, cost, mode,
+                rk, mode, cost, st = args
+                rc = getattr(lib, f"auv_occupancy{sfx}")(rk, cost, st, mode,
                                                           AUV_H, out)
             else:
                 rc = getattr(lib, f"nn_occupancy{sfx}")(*args, AUV_H, out)
@@ -1829,38 +1894,64 @@ def occupancy_phase(lib, reg_rows, n_sm: int) -> None:
                 list(args), "registers": regs.get(
                     (f"{model}_fused_solve{sfx}_kernel", args)),
                 "samples_a_thread": out[1], "threads_a_block": 256 // out[1],
-                "blocks_an_sm": out[0], "k": k, "grid": blocks,
+                "blocks_an_sm": out[0],
+                "warps_an_sm": out[0] * 256 // out[1] // 32, "k": k,
+                "grid": blocks,
                 "waves": blocks / (out[0] * n_sm) if out[0] else None})
-    emit("occupancy", sms=n_sm, rows=rows)
+    emit("occupancy", sms=n_sm, rows=rows, auv_f32_diag_rk12_min_warps=min(
+        r["warps_an_sm"] for r in rows
+        if r["kernel"] == "auv_fused_solve_kernel"
+        and r["template"][0] in (1, 2) and r["template"][3] == 1))
 
 
 def build_parent(parent: str) -> subprocess.Popen:
     """Start building the kernels' library of the checkout at ``parent``
-    (its own kernels/_build.py, in a process of its own)."""
+    (its own kernels/_build.py, in a process of its own); it prints the
+    library's path and its entry points' signatures."""
     return subprocess.Popen(
-        [sys.executable, "-c", "from mppi_tf_tpu_torch.kernels import "
-         "_build; print(_build.build())"], cwd=parent,
-        env={**os.environ, "PYTHONPATH": os.path.abspath(parent)},
+        [sys.executable, "-c", "import json; from mppi_tf_tpu_torch.kernels "
+         "import _build; print(_build.build()); print(json.dumps({n: [t."
+         "__name__ for t in a] for n, a in _build._SIGNATURES.items()}))"],
+        cwd=parent, env={**os.environ, "PYTHONPATH": os.path.abspath(parent)},
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
 
+class ParentLibrary:
+    """The parent's library behind this tree's entry-point signatures: an
+    AUV entry point that lacks this tree's structure argument (the third:
+    a library from before kDiag) is called without it, so it runs the
+    parent's dense kernels on the same inputs."""
+
+    def __init__(self, lib, arity: dict, signatures: dict):
+        self._lib = lib
+        self._drop = {n for n, a in arity.items() if n.startswith("auv_")
+                      and len(signatures.get(n, ())) == a + 1}
+
+    def __getattr__(self, name):
+        fn = getattr(self._lib, name)
+        if name in self._drop:
+            return lambda *a: fn(*a[:2], *a[3:])
+        return fn
+
+
 def load_parent(proc: subprocess.Popen, _build):
-    """The library ``build_parent`` built, bound with this tree's
-    signatures (the entry points it has)."""
+    """The library ``build_parent`` built, bound with its own signatures,
+    behind this tree's (``ParentLibrary``), and its path."""
     import ctypes
 
     out, err = proc.communicate()
     if proc.returncode != 0:
         raise AssertionError(f"parent build failed: {err[-4000:]}")
-    path = out.strip().splitlines()[-1]
+    path, sigs = out.strip().splitlines()[-2:]
     lib = ctypes.CDLL(path)
-    for name, argtypes in _build._SIGNATURES.items():
-        if hasattr(lib, name):
-            getattr(lib, name).argtypes = argtypes
-            getattr(lib, name).restype = ctypes.c_int
+    sigs = json.loads(sigs)
+    for name, argtypes in sigs.items():
+        getattr(lib, name).argtypes = [getattr(ctypes, t) for t in argtypes]
+        getattr(lib, name).restype = ctypes.c_int
     lib.pm_error_string.argtypes = [ctypes.c_int]
     lib.pm_error_string.restype = ctypes.c_char_p
-    return lib, path
+    return ParentLibrary(lib, {n: len(a) for n, a in sigs.items()},
+                         _build._SIGNATURES), path
 
 
 def with_library(_build, lib, fn):
@@ -1920,45 +2011,58 @@ def pm_dyn(f, rng) -> torch.Tensor:
                         dtype=torch.float32, device="cuda"))
 
 
+#: the per-sample costs of the subject against the parent's where kDiag's
+#: elision moves which product ptxas contracts into an FMA: the rtol
+#: allowed, the largest difference printed
+PARENT_COST_RTOL = 1e-6
+
+
 def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
     """``--parent``: this tree's kernels against the parent's library on the
-    same inputs. The subject, the point mass at bf16 (every instantiation:
-    (6, 3), (2, 1), (4, 2) quadratic and the (4, 2) ellipse, constant and
-    dynamic (A, B), both modes, K=700 and 4,097 at H=7, scheduled +
-    antithetic, and the flagship K=100,000, H=50, constant and dynamic):
-    per-sample costs bit for bit, the stats and partial rows within the
-    point mass's f32 end-to-end tolerance of the parent's once merged (the
-    pair build sums a thread's two lanes first). The controls, which share
-    mppi_common.cuh: the bf16 AUV and NN kernels (every rk and cost kind,
-    both networks, K=700 and 4,097, both noise options, the flagships)
-    and the f32 builds, every output bit for bit. Injected z and Philox
-    throughout. Then the point mass's bf16 costs, solve and dynamic (A, B)
-    solve timed in turns (parent, this, this, parent) beside their f32
-    builds, and the AUV / NN bf16 flagships as controls."""
-    from mppi_tf_tpu_torch.cfg import default_config
-    from mppi_tf_tpu_torch.envs.runner import build_model_and_cost
-
+    same inputs. The subject, the f32 AUV body (auv_fused_costs and
+    auv_fused_solve, every rk and cost kind in both structures: the
+    rexrov2 vehicle's diagonal constants, kDiag, and the dense-constant
+    vehicle, kDense, against the parent's one dense body; K=700 and 4,097
+    at H=7, scheduled + antithetic, and the flagships at K=262,144, H=25,
+    injected z and Philox): per-sample costs bit for bit, or within
+    PARENT_COST_RTOL with the largest difference printed, and the stats
+    and partial rows bit for bit, or within rtol 1e-3, atol 1e-5 once
+    merged (pm_merge) where the costs moved. The controls, which share
+    mppi_common.cuh and the AUV source: the bf16 builds of the point mass
+    (every instantiation), the AUV (every rk and cost kind) and the NN
+    (both networks), K=700 and 4,097 and the flagships, and the f32 point
+    mass and NN flagships, every output bit for bit. Then the f32 AUV
+    kernels timed in turns (parent, this, this, parent) at the flagship
+    shapes, auv_fused_costs and auv_fused_solve of each cost kind,
+    scheduled + antithetic and the dense vehicle; and the controls'
+    flagships."""
     rng = np.random.default_rng(21)
     ka, kn = quat_kernels(auv, "auv"), quat_kernels(nnk, "nn")
     kp = SimpleNamespace(costs=pm.pm_fused_costs, solve=pm.pm_fused_solve)
     cases = []
-
-    def auv_task(name, k, tau, rk, cd, **opts):
-        if name == "static_quat":
-            return auv_fused(k, tau, rk=rk, compute_dtype=cd, **opts)
-        env = default_config("envs/uuv_sim" if name == "waypoints_quat"
-                             else "envs/bluerov")
-        task = default_config("tasks/waypoints_quat_task"
-                              if name == "waypoints_quat"
-                              else "tasks/elipse3d_task")
-        model, cost, sigma = build_model_and_cost(
-            env, task, {**default_config("models/rexrov2"), "rk": rk},
-            device="cuda")
-        return auv.FusedAUVMPPI(model, cost, k=k, tau=tau, lam=env["lambda"],
-                                upsilon=env["upsilon"], sigma=sigma,
-                                compute_dtype=cd, **opts)
-
+    kinds = ("static_quat", "waypoints_quat", "elipse3d")
     for k in (700, 4097):
+        for rk in (1, 2, 4):
+            for kind in kinds:
+                for dense in (False, True):
+                    f = auv_fused(k, 7, rk=rk, kind=kind, dense=dense)
+                    st = "dense" if dense else "diagonal"
+                    if (f.consts.rk, f.consts.cost_kind,
+                            f.consts.structure) != (rk, kind, st):
+                        raise AssertionError(f"parent case {kind} rk{rk} "
+                                             f"{st}")
+                    cases.append((f"auv_f32_{kind}_rk{rk}_{st}_K{k}", f, ka))
+            # kDiag with the z-quadratic (upsilon 1.2: Mz's diagonal)
+            cases.append((f"auv_f32_static_quat_rk{rk}_diagonal_ups1.2_K{k}",
+                          auv_fused(k, 7, rk=rk, upsilon=DENSE_UPSILON), ka))
+            for kind in kinds:
+                f = auv_fused(k, 7, rk=rk, kind=kind,
+                              compute_dtype="bfloat16")
+                cases.append((f"auv_bf16_{kind}_rk{rk}_K{k}", f, ka))
+        for dense in (False, True):
+            st = "dense" if dense else "diagonal"
+            cases.append((f"auv_f32_sched_anti_{st}_K{k}",
+                          auv_fused(k, 7, dense=dense, **FUSED_BOTH), ka))
         for sdim, adim, el in ((6, 3, False), (2, 1, False), (4, 2, False),
                                (4, 2, True)):
             for ab in (False, True):
@@ -1972,12 +2076,6 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
             cases.append((f"pm_bf16_sched_anti{'_dynab' if ab else ''}_K{k}",
                           pm_object(pm, 6, 3, False, ab, k, 7, seed=k,
                                     **FUSED_BOTH), kp))
-        for rk in (1, 2, 4):
-            for name in ("static_quat", "waypoints_quat", "elipse3d"):
-                f = auv_task(name, k, 7, rk, "bfloat16")
-                if (f.consts.rk, f.consts.cost_kind) != (rk, name):
-                    raise AssertionError(f"parent case {name} rk{rk}")
-                cases.append((f"auv_bf16_{name}_rk{rk}_K{k}", f, ka))
         for hid in ((32, 32, 32), (8, 8)):
             cases.append((f"nn_bf16_{'x'.join(map(str, hid))}_K{k}",
                           nn_fused(k, 7, hidden=hid,
@@ -1987,11 +2085,18 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
                                                "bfloat16", **FUSED_BOTH), ka),
         ("nn_bf16_sched_anti_K700", nn_fused(700, 7, compute_dtype=
                                              "bfloat16", **FUSED_BOTH), kn),
+        ("auv_f32_static_quat_flagship", auv_fused(AUV_K, AUV_H), ka),
+        ("auv_f32_waypoints_quat_flagship",
+         auv_fused(AUV_K, AUV_H, kind="waypoints_quat"), ka),
+        ("auv_f32_elipse3d_flagship", auv_fused(AUV_K, AUV_H, kind="elipse3d"),
+         ka),
+        ("auv_f32_sched_anti_flagship", auv_fused(AUV_K, AUV_H, **FUSED_BOTH),
+         ka),
+        ("auv_f32_dense_flagship", auv_fused(AUV_K, AUV_H, dense=True), ka),
         ("auv_bf16_flagship", auv_fused(AUV_K, AUV_H,
                                         compute_dtype="bfloat16"), ka),
         ("nn_bf16_flagship", nn_fused(NN_K, NN_H, compute_dtype="bfloat16"),
          kn),
-        ("auv_f32_flagship", auv_fused(AUV_K, AUV_H), ka),
         ("nn_f32_flagship", nn_fused(NN_K, NN_H), kn)]
     model, cost = workload("cuda")
     dmd_model, _ = workload("cuda", dmd=True)
@@ -2007,7 +2112,9 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
     for label, f, kern in cases:
         dyn = (pm_dyn(f, rng) if kern is kp else
                auv_dyn(f, 20.0 if "elipse3d" in label else 200.0,
-                       seed=len(label)))
+                       seed=len(label),
+                       x0=[4.0, 0, -3.0, 0, 0, 0, 1.0] + [0.0] * 6
+                       if "elipse3d" in label else None))
         dyns[label] = dyn
         z = torch.as_tensor(rng.standard_normal((f.tau, f.adim, f.k),
                                                 np.float32), device="cuda")
@@ -2025,11 +2132,14 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
                 if torch.equal(a, b):
                     out[f"{src}_{name}"] = True
                     continue
+                diff = (a.double() - b.double()).abs()
                 out[f"{src}_{name}"] = d = {
                     "differing": int((a != b).sum().item()),
-                    "of": a.numel(), "max_abs_diff":
-                    (a.double() - b.double()).abs().max().item()}
-                if name != "costs":   # the merged rows, against the parent's
+                    "of": a.numel(), "max_abs_diff": diff.max().item()}
+                if name == "costs":
+                    d["max_rel_diff"] = (diff / b.double().abs()).max().item()
+                    d["within_rtol"] = d["max_rel_diff"] <= PARENT_COST_RTOL
+                else:
                     ok, err, ratio = close(merged(pm, a), merged(pm, b),
                                            1e-3, 1e-5)
                     d.update(merged_ok=ok, merged_max_abs_err=err,
@@ -2039,37 +2149,45 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
     differing = {label: {o: v for o, v in out.items() if v is not True}
                  for label, out in res.items()}
     differing = {label: d for label, d in differing.items() if d}
-    costs_equal = all(v is True for out in res.values()
-                      for o, v in out.items() if o.endswith("_costs"))
-    controls_equal = not any(not label.startswith("pm_bf16")
-                             for label in differing)
-    pm_rows_ok = all(v.get("merged_ok", False) for label, d in
-                     differing.items() for v in d.values())
-    emit("parent_bits", cases=sorted(res), outputs_compared=sum(
-        len(o) for o in res.values()), all_equal=not differing,
-         costs_all_equal=costs_equal, controls_all_equal=controls_equal,
-         pm_bf16_rows_within_tol=pm_rows_ok, differing=differing,
+    subject = {label for label in res if label.startswith("auv_f32")}
+    controls_equal = not any(label not in subject for label in differing)
+    subject_ok = all(v.get("within_rtol", v.get("merged_ok", False))
+                     for label, d in differing.items() for v in d.values())
+    costs_moved = {label: max(v["max_rel_diff"] for o, v in d.items()
+                              if o.endswith("_costs"))
+                   for label, d in differing.items()
+                   if any(o.endswith("_costs") for o in d)}
+    emit("parent_bits", cases=sorted(res), subject=sorted(subject),
+         outputs_compared=sum(len(o) for o in res.values()),
+         all_equal=not differing,
+         subject_costs_all_equal=not costs_moved,
+         subject_costs_max_rel_diff=costs_moved,
+         subject_within_tol=subject_ok, controls_all_equal=controls_equal,
+         differing=differing, cost_rtol=PARENT_COST_RTOL,
          note="this tree's kernels against the parent commit's library on "
-         "the same inputs, torch.equal; the point mass's bf16 pair rows sum "
-         "a thread's two lanes before the warp, another order than one "
-         "sample a thread, and are held merged (pm_merge: zsum / l, m, l, "
-         "cost min, max, sum) to the parent's at rtol 1e-3, atol 1e-5")
-    if not (costs_equal and controls_equal and pm_rows_ok):
+         "the same inputs, torch.equal; the subject (f32 AUV, kDiag and "
+         "kDense against the parent's dense body) may move a cost by an "
+         "ulp where the elision changes which product is contracted into "
+         "an FMA (rtol cost_rtol), its rows then held merged at rtol 1e-3, "
+         "atol 1e-5; every control bit for bit")
+    if not (controls_equal and subject_ok):
         raise AssertionError(f"parent_bits: {differing}")
-    # times in turns, parent and this tree, beside the f32 build
+    # times in turns, parent and this tree
     times = {}
-    for label, kern_fn, f32_label in (
-            ("pm_bf16_K100000", "costs", "pm_f32_K100000"),
-            ("pm_bf16_K100000", "solve", "pm_f32_K100000"),
-            ("pm_bf16_dynab_K100000", "solve", "pm_f32_dynab_K100000"),
-            ("pm_f32_K100000", "solve", "pm_f32_K100000"),
-            ("auv_bf16_flagship", "costs", "auv_f32_flagship"),
-            ("nn_bf16_flagship", "solve", "nn_f32_flagship")):
+    for label, kern_fn in (
+            *[(f"auv_f32_{name}_flagship", fn)
+              for fn in ("costs", "solve")
+              for name in ("static_quat", "waypoints_quat", "elipse3d",
+                           "sched_anti", "dense")],
+            ("auv_bf16_flagship", "costs"),
+            ("pm_f32_K100000", "solve"),
+            ("pm_bf16_K100000", "costs"),
+            ("pm_bf16_K100000", "solve"),
+            ("nn_f32_flagship", "solve"),
+            ("nn_bf16_flagship", "solve")):
         f = next(c[1] for c in cases if c[0] == label)
-        kern = next(c[2] for c in cases if c[0] == label)
-        f32 = next(c[1] for c in cases if c[0] == f32_label)
-        fn = getattr(kern, kern_fn)
-        dyn, dyn32 = dyns[label], dyns[f32_label]
+        fn = getattr(next(c[2] for c in cases if c[0] == label), kern_fn)
+        dyn = dyns[label]
 
         def this():
             return fn(f.consts, dyn, f.k, f.tau, seed=1, solve=1)
@@ -2080,16 +2198,17 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
         t = [cuda_ms(parent, 100), cuda_ms(this, 100), cuda_ms(this, 100),
              cuda_ms(parent, 100)]
         d = [with_library(_build, plib, lambda: device_ms(this)),
-             device_ms(this)]
+             device_ms(this), device_ms(this),
+             with_library(_build, plib, lambda: device_ms(this))]
         times[f"{label}_{kern_fn}"] = {
             "parent_ms": [t[0], t[3]], "ms": [t[1], t[2]],
-            "parent_device_ms": d[0], "device_ms": d[1],
-            "f32_device_ms": device_ms(lambda: fn(
-                f32.consts, dyn32, f32.k, f32.tau, seed=1, solve=1))}
+            "parent_device_ms": [d[0], d[3]], "device_ms": [d[1], d[2]],
+            "events_vs_parent": (t[1] + t[2]) / (t[0] + t[3]),
+            "device_vs_parent": (d[1] + d[2]) / (d[0] + d[3])}
     emit("parent_times", card=smi, **times,
-         note="CUDA events over 100 launches in turns (parent, this, this, "
-              "parent) and profiler device time; f32_device_ms: the f32 "
-              "build of the same kernel on its own dyn")
+         note="CUDA events over 100 launches and profiler device time, "
+              "each in turns (parent, this, this, parent); *_vs_parent: "
+              "this tree's ms over the parent's")
 
 
 def bf16_wnoise(pm, b16, rows_k, costs_k, z, plain_rows) -> dict:
@@ -2649,18 +2768,37 @@ def main() -> int:
     auv_k = quat_kernels(auv, "auv")
     auv_chk = check_auv(auv_k, pm, flag, z_auv, "K262144_H25_rk2",
                         useq_scale=200.0)
+    # the kDense instantiations: the dense-constant vehicle
+    dense_flag = auv_fused(AUV_K, AUV_H, dense=True)
+    if (flag.consts.structure, dense_flag.consts.structure) != (
+            "diagonal", "dense"):
+        raise AssertionError("AUV structures: flagship "
+                             f"{flag.consts.structure}, dense vehicle "
+                             f"{dense_flag.consts.structure}")
+    dense_chk = check_auv(auv_k, pm, dense_flag, z_auv,
+                          "dense_K262144_H25_rk2", useq_scale=200.0)
     del z_auv
     x_dive = rest_state()
     x_dive[2] = -1.0
     rng_b = np.random.default_rng(2)   # a second draw of z for each rk
+    rng_d = np.random.default_rng(5)   # the dense vehicle's draws
+    small_sigma = np.diag([40.0] * 3 + [5.0] * 3)
     for rk in (1, 2, 4):
-        sm = auv_fused(700, 7, rk=rk,
-                       sigma=np.diag([40.0] * 3 + [5.0] * 3))
+        sm = auv_fused(700, 7, rk=rk, sigma=small_sigma)
         for draw, r in (("a", rng), ("b", rng_b)):
             z_s = torch.as_tensor(r.standard_normal((7, 6, 700), np.float32),
                                   device="cuda")
             check_auv(auv_k, pm, sm, z_s, f"K700_H7_rk{rk}_ragged_{draw}",
                       useq_scale=5.0, x0=x_dive, end_to_end=True)
+        z_s = torch.as_tensor(rng_d.standard_normal((7, 6, 700), np.float32),
+                              device="cuda")
+        for cost_kind in ("static_quat", "waypoints_quat", "elipse3d"):
+            sm = auv_fused(700, 7, rk=rk, sigma=small_sigma, kind=cost_kind,
+                           dense=True)
+            check_auv(auv_k, pm, sm, z_s,
+                      f"dense_{cost_kind}_K700_H7_rk{rk}", useq_scale=5.0,
+                      x0=([4.0, 0, -3.0, 0, 0, 0, 1.0] + [0.0] * 6
+                          if cost_kind == "elipse3d" else x_dive))
 
     # ---- 10. the AUV Philox solve consumes pm_noise_dump(adim=6) ------------
     dyn_f = auv_dyn(flag, 200.0, seed=5)
@@ -2698,9 +2836,11 @@ def main() -> int:
          launches=dive_counts, step_ms_median=float(np.median(step_ms_a)),
          step_ms_p90=float(np.percentile(step_ms_a, 90)),
          z_every_20=states[::20, 2].tolist())
-    if ctrl_a.kernel_path != "cuda":
+    if (ctrl_a.kernel_path, ctrl_a._fused.consts.structure) != (
+            "cuda", "diagonal"):
         raise AssertionError(f"AUV kernel='auto' resolved to "
-                             f"{ctrl_a.kernel_path}")
+                             f"{ctrl_a.kernel_path}, "
+                             f"{ctrl_a._fused.consts.structure}")
     if not (dive_counts["auv_fused_costs"] == DIVE_STEPS
             and dive_counts["mppi_weights"] == DIVE_STEPS
             and dive_counts["pm_merge"] == 2 * DIVE_STEPS
@@ -2748,6 +2888,7 @@ def main() -> int:
          step_ms_p90=float(np.percentile(step_ms_u, 90)),
          z_every_10=states_u[::10, 2].tolist())
     if not (ctrl_u.kernel_path == "cuda"
+            and ctrl_u._fused.consts.structure == "diagonal"
             and unnorm_counts["auv_fused_solve"] == AUV_PLAIN_STEPS
             and unnorm_counts["pm_merge"] == AUV_PLAIN_STEPS
             and np.all(np.isfinite(states_u))
@@ -2757,6 +2898,34 @@ def main() -> int:
     emit("profile", kernel_path="cuda", model="auv", normalize=False,
          card=smi, **profile_steps(ctrl_u, x=rest_state()))
     del ctrl_u
+
+    # ---- 12b. the dense-constant vehicle's loops (the kDense kernels) -------
+    dense_loops = {}
+    for normalize in (False, True):
+        ctrl_d, states_d, ms_d, counts_d = auv_loop(
+            "auto", normalize, DENSE_STEPS, dense=True)
+        drift = float(np.abs(np.linalg.norm(states_d[:, 3:7], axis=1)
+                             - 1.0).max())
+        want = {n: 0 for n in counts_d}
+        want.update({"auv_fused_costs": DENSE_STEPS,
+                     "mppi_weights": DENSE_STEPS,
+                     "pm_merge": 2 * DENSE_STEPS} if normalize else
+                    {"auv_fused_solve": DENSE_STEPS,
+                     "pm_merge": DENSE_STEPS})
+        emit("auv_dense_closed_loop", normalize=normalize,
+             kernel_path=ctrl_d.kernel_path,
+             structure=ctrl_d._fused.consts.structure, K=AUV_K, H=AUV_H,
+             steps=DENSE_STEPS, z_every_5=states_d[::5, 2].tolist(),
+             q_drift=drift, launches=counts_d,
+             step_ms_median=float(np.median(ms_d)))
+        if not (ctrl_d.kernel_path == "cuda"
+                and ctrl_d._fused.consts.structure == "dense"
+                and counts_d == want and np.all(np.isfinite(states_d))
+                and drift < 1e-3):
+            raise AssertionError(f"dense AUV loop (normalize={normalize}): "
+                                 f"{counts_d}, drift {drift}")
+        dense_loops[normalize] = counts_d
+        del ctrl_d
 
     # ---- 13. the NN kernels against plain versions (the learned slice) -------
     nn_flag = nn_fused(NN_K, NN_H)
@@ -2876,7 +3045,7 @@ def main() -> int:
     wq_legs = [rest_state(), rest_state()]
     wq_legs[0][2] = -5.0
     wq_legs[1][[0, 2, 3, 6]] = [4.0, -8.0, np.sin(0.4), np.cos(0.4)]
-    wq_model, wq_cost = auv_modules(
+    wq_model, wq_cost, _, _ = auv_modules(
         "cuda", {"type": "waypoints_quat", "diag": True, "alpha": 0.2,
                  "waypoints": [w.tolist() for w in wq_legs],
                  "Q": [100.0, 100.0, 100.0, 10.0] + [1.0] * 6}, AUV_SIGMA)
@@ -3209,6 +3378,26 @@ def main() -> int:
     b_w6 = bound_ms(4.0 * AUV_K + 8.0 + a_part_bytes,
                     weights_ops(AUV_K, a_nz, True))
     del a_part
+    # the kDense kernels on the dense-constant vehicle at the same shapes
+    dd, dyn_d = dense_flag.consts, auv_dyn(dense_flag, 200.0, seed=5)
+    dense_t = {
+        "solve": dict(kernel_time(
+            lambda: auv.auv_fused_solve(dd, dyn_d, AUV_K, AUV_H, seed=1,
+                                        solve=1),
+            lambda: auv.fused_solve_plain(dd, dyn_d, AUV_K, AUV_H, seed=1,
+                                          solve=1)),
+            bound=bound_ms(4.0 * dyn_d.numel() + a_part_bytes,
+                           auv_solve_ops(dd, dyn_d, AUV_K, AUV_H,
+                                         prng=True))),
+        "costs": dict(kernel_time(
+            lambda: auv.auv_fused_costs(dd, dyn_d, AUV_K, AUV_H, seed=1,
+                                        solve=1),
+            lambda: auv.fused_costs_plain(dd, dyn_d, AUV_K, AUV_H, seed=1,
+                                          solve=1)),
+            bound=bound_ms(4.0 * dyn_d.numel() + 4.0 * AUV_K
+                           + 4.0 * a_nb * pm.STATS,
+                           auv_solve_ops(dd, dyn_d, AUV_K, AUV_H, prng=True,
+                                         costs_only=True)))}
 
     # the unnormalized solve without the fused mode: phase A, its stats
     # merge, phase B with nrm = (cmin, 1/lam) (the same softmax, weights in
@@ -3377,7 +3566,8 @@ def main() -> int:
               "plain_solve_ms": p_asolve, "plain_costs_ms": p_acosts,
               "plain_weights_adim6_ms": p_w6,
               "bound_solve": b_asolve, "bound_costs": b_acosts,
-              "bound_weights": b_w6,
+              "bound_weights": b_w6, "structure": ac.structure,
+              "dense_vehicle": dense_t,
               "dive_mppi_next_ms_median": float(np.median(step_ms_a)),
               "unnormalized_mppi_next_ms_median": float(
                   np.median(step_ms_u))},
@@ -3643,7 +3833,7 @@ def main() -> int:
         {"name": "auv_fused_solve", "route": "cuda", "source": asrc,
          "replaces": "mppi_tf_tpu/kernels/auv_mppi.py:804",
          "launches": unnorm_counts["auv_fused_solve"],
-         "path": "AUV unnormalized closed loop",
+         "path": "AUV unnormalized closed loop", "structure": ac.structure,
          "max_abs_err": auv_chk["fused_cost_stats_max_abs_err"],
          "max_abs_err_of": "merged cost min, max, mean of the fused rows "
                            "against the plain costs, K=262144, H=25",
@@ -3653,11 +3843,29 @@ def main() -> int:
         {"name": "auv_fused_costs", "route": "cuda", "source": asrc,
          "replaces": "mppi_tf_tpu/kernels/auv_mppi.py:872",
          "launches": dive_counts["auv_fused_costs"],
-         "path": "AUV normalized closed loop",
+         "path": "AUV normalized closed loop", "structure": ac.structure,
          "max_abs_err": auv_chk["costs_max_abs_err"],
          "ms": t_acosts, "plain_ms": p_acosts, "bound_ms": b_acosts[0],
          "bound_by": b_acosts[1], "library_ms": None},
     ]
+    for name, mode, err, err_of in (
+            ("solve", False, dense_chk["fused_cost_stats_max_abs_err"],
+             "merged cost min, max, mean of the fused rows against the "
+             "plain costs, K=262144, H=25"),
+            ("costs", True, dense_chk["costs_max_abs_err"],
+             "per-sample costs against the plain version, K=262144, H=25")):
+        t = dense_t[name]
+        kernels.append({
+            "name": f"auv_fused_{name}[dense]", "route": "cuda",
+            "source": asrc, "replaces": "mppi_tf_tpu/kernels/auv_mppi.py:"
+            + ("872" if mode else "804"), "structure": dd.structure,
+            "launches": dense_loops[mode][f"auv_fused_{name}"],
+            "path": f"dense-constant AUV loop, "
+                    f"{'normalized' if mode else 'unnormalized'}",
+            "max_abs_err": err, "max_abs_err_of": err_of, "ms": t["ms"],
+            "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": None})
     nsrc = "mppi_tf_tpu_torch/csrc/nn_mppi.cu"
     kernels += [
         {"name": "nn_fused_solve", "route": "cuda", "source": nsrc,

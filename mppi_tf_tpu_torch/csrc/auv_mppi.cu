@@ -1,21 +1,22 @@
 // Fused AUV (Fossen 6-DoF) MPPI solve for Hopper (sm_90a), plain C
 // interface; built with pm_mppi.cu into one library by kernels/_build.py.
 //
-// auv_fused_solve_kernel<RK, MODE, COST> -- MODE kFused replaces
+// auv_fused_solve_kernel<RK, MODE, COST, STRUCT> -- MODE kFused replaces
 //   mppi_tf_tpu/kernels/auv_mppi.py::_fused_auv_call (_make_kernel mode
 //   "fused"); MODE kCosts replaces _fused_auv_costs (mode "costs", phase A
 //   of the normalized solve). Phase B is mppi_weights in pm_mppi.cu,
 //   shared with the point mass. COST is _make_kernel's cost_kind:
 //   kStaticQuat (:321-359), kWaypointsQuat (:360-368) and kElipse3D
-//   (:369-431).
+//   (:369-431). STRUCT is the structure of the solve constants (below).
 //
 //   One thread owns one sample and keeps its 13-state in registers over the
 //   horizon; the per-solve dyn array (mass matrix and inverse, mass, goal,
 //   x0, the nominal sequence and its folded action-cost terms, ~400 floats
-//   at H=25) sits in shared memory; the solve constants (damping, cog/cob,
-//   buoyancy, noise scale, Mz, Q: 260 floats) come as a kernel parameter,
-//   read from the constant bank. Per step t, with the normals z_t (6) and
-//   the schedule's factor c_t (1 unscheduled; :447-463 and :493-497):
+//   at H=25) sits in shared memory, the mass matrices once more as padded
+//   rows (mass_row); the solve constants (damping, cog/cob, buoyancy, noise
+//   scale, Mz, Q: 260 floats) come as a kernel parameter, read from the
+//   constant bank. Per step t, with the normals z_t (6) and the schedule's
+//   factor c_t (1 unscheduled; :447-463 and :493-497):
 //     gen_force = u_t + scale (c_t z_t)
 //     rk step of state_dot: rotation, quaternion rates, D nu, C nu from
 //       M nu, restoring forces, nu_dot = M^-1 rhs (models/auv.py:254-295,
@@ -24,7 +25,7 @@
 //     cost += q(x) + rhs_z_t . z_t + nc_half c_t z_t^T Mz z_t
 //   The schedule and the antithetic mirror are runtime arguments (the c_t
 //   at the end of dyn, `half` in Seeds; mppi_common.cuh), not more
-//   instantiations of the 18.
+//   instantiations.
 //   then + q(x_H) + u_half, where q is
 //   * kStaticQuat: the 10-dim StaticQuatCost with the signed dot, clamped,
 //     under the native acosf (mppi_common.cuh quat_state_cost; the TPU
@@ -44,21 +45,49 @@
 //   RK is 1, 2 or 4, each integrated as models/auv.py::AUVModel.step does;
 //   the TPU kernel runs every rk != 1 as rk2, a fault not copied here.
 //
-//   Bound by operations: ~0.3 kFLOP a state_dot (two a step at rk2, four at
-//   rk4), ~0.2 kFLOP of cost and force a step, and the Philox + Box-Muller
-//   passes (~32 ops a normal; two in kFused, one in kCosts); kCosts writes 4
-//   bytes a sample. The matrices are dense loops (no compile-time zero
-//   elision yet). The softmax epilogue, the regenerated-z zsum pass and the
-//   block partial rows are those of pm_mppi.cu (mppi_common.cuh), so
-//   pm_merge merges them unchanged; the TPU grid's pid == 0 initialisation
-//   and read-modify-write carry are not copied.
+//   STRUCT, the TPU kernel's compile-time zero elision (its constants are
+//   Python floats and "zero entries generate NO code", :15-20, :235, :248,
+//   :346, :459, :478, :484) as a template argument the host picks exactly
+//   (kernels/auv_mppi.py structure): kDiag reads L, scale = upsilon sigma,
+//   Mz and Q as their diagonals and takes L_fwd and cog as zero, and emits
+//   no instruction for the entries it leaves out; kDense runs every matrix
+//   dense, for any other model. Both drop the z-quadratic when nc_half is
+//   0 (upsilon 1; a uniform branch). An FMA by an exact 0.0 adds +-0, so
+//   kDiag gives kDense's bits: each product a dense chain would start from
+//   0 is rounded alone (mul_r), as the chain's first nonzero FMA rounds it,
+//   and so are the restoring forces, whose products the compiler would
+//   otherwise fuse into their sum once cog's use of them is elided.
+//   The rexrov2 flagship and its tasks at a diagonal sigma are kDiag: a
+//   rk2 step's FMAs on constants fall from 316 to 34 (the damping
+//   matrices' 72 a state_dot to 6, scale's and Mz's 36 each to 6, Q's 100
+//   to 10; kWaypointsQuat 416 to 44), the z-quadratic goes at upsilon 1.
+//
+//   Bound by operations: ~0.2 kFLOP a state_dot at kDiag (two a step at
+//   rk2, four at rk4), ~0.1 kFLOP of cost and force a step, and the Philox
+//   + Box-Muller passes (~32 ops a normal; two in kFused, one in kCosts);
+//   kCosts writes 4 bytes a sample. The op count leaves the latency of the
+//   dependent FMA chains, the mass-row loads and the MUFU ops (acosf,
+//   rsqrtf) to be hidden by warps: the kDiag build asks ptxas for two
+//   blocks of 256 an SM at rk 1 and 2 (__launch_bounds__ minimum, so at
+//   most 128 registers a thread: 16 warps an SM, against one block at the
+//   160-225 registers the dense body held); kDense and rk4 keep one. The
+//   budget holds because M and M^-1 (the model's, dense and dynamic, as in
+//   the TPU kernel) are read at each use from padded 8-float rows in shared
+//   memory through volatile loads, one LDS.128 and one LDS.64 a row: plain
+//   loads of loop-invariant addresses are hoisted out of the horizon loop
+//   into 72 registers, as kDense keeps them (its rk2 costs mode spills at
+//   128 registers, and at one block the loads cost it 3%). The softmax
+//   epilogue, the regenerated-z zsum pass and the block partial rows are
+//   those of pm_mppi.cu (mppi_common.cuh), so pm_merge merges them
+//   unchanged; the TPU grid's pid == 0 initialisation and
+//   read-modify-write carry are not copied.
 //
 //   The bf16 block compute (compute_dtype "bfloat16", :132-133, :189-199,
 //   :433-443) is this source at Val = bf16x2 through auv_mppi_bf16.cu
-//   (mppi_common.cuh, MPPI_BF16_PAIRS): two samples a thread, 128 threads
-//   a block for one partial row, each rollout op one native bf16x2
-//   instruction for both samples. The 13-state, the force u_t + c_t
-//   (scale z_t) in the TPU kernel's order, every op of state_dot,
+//   (mppi_common.cuh, MPPI_BF16_PAIRS), at kDense alone: two samples a
+//   thread, 128 threads a block for one partial row, each rollout op one
+//   native bf16x2 instruction for both samples. The 13-state, the force
+//   u_t + c_t (scale z_t) in the TPU kernel's order, every op of state_dot,
 //   the rk stages and the renormalisation round to bf16, with the dyn
 //   reads the TPU kernel casts (mass matrices, x0, useq, goals, blend
 //   weights) rounded and -m g formed in f32 and rounded once; state_dot
@@ -88,6 +117,9 @@ constexpr float kGravity = 9.81f;
 
 // State costs (kernels/auv_mppi.py COST_KINDS).
 enum AuvCost { kStaticQuat = 0, kWaypointsQuat = 1, kElipse3D = 2 };
+// Structure of the solve constants (kernels/auv_mppi.py STRUCTURES): kDiag
+// reads L, scale, Mz and Q as diagonals and L_fwd, cog as zero.
+enum AuvStruct { kDense = 0, kDiag = 1 };
 
 // kElipse3D constants (kernels/auv_mppi.py AuvConsts.packed), 25 floats.
 struct Elipse3D {
@@ -161,11 +193,15 @@ __host__ __device__ constexpr int dyn_size(int tau) {
   return dyn_wblend(tau) + 2;
 }
 
-// Row i of the staged mass matrix (mat 0: M, 1: M^-1). The pair build
-// stages both as bf16x2 words, each row padded to 8 words: two 16-byte
-// broadcast loads a row.
-#ifdef MPPI_BF16_PAIRS
+// Row i of the staged mass matrix (mat 0: M, 1: M^-1), each row padded to
+// 8 words in shared memory. The pair build stages both as bf16x2 words:
+// two 16-byte broadcast loads a row. The f32 kDiag build reads the floats
+// at each use through volatile loads (16 and 8 bytes), which no compiler
+// pass hoists out of the horizon loop into registers; kDense, at one block
+// an SM, reads them with plain loads, which are hoisted (72 registers).
 constexpr int kMassWords = 2 * 6 * 8;
+#ifdef MPPI_BF16_PAIRS
+template <int STRUCT>
 __device__ __forceinline__ void mass_row(const float* s_mass, int mat, int i,
                                          Val* r) {
   const uint4* p = reinterpret_cast<const uint4*>(s_mass) + mat * 12 + 2 * i;
@@ -178,11 +214,22 @@ __device__ __forceinline__ void mass_row(const float* s_mass, int mat, int i,
   r[5] = bf16x2::bits(b.y);
 }
 #else
-constexpr int kMassWords = 0;
-__device__ __forceinline__ void mass_row(const float* s_dyn, int mat, int i,
+template <int STRUCT>
+__device__ __forceinline__ void mass_row(const float* s_mass, int mat, int i,
                                          Val* r) {
+  const float* p = s_mass + (mat * 6 + i) * 8;
+  if constexpr (STRUCT == kDense) {
 #pragma unroll
-  for (int j = 0; j < 6; ++j) r[j] = s_dyn[(mat ? kInvM : kMTot) + i * 6 + j];
+    for (int j = 0; j < 6; ++j) r[j] = p[j];
+  } else {
+    const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+    asm volatile("ld.volatile.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(r[0]), "=f"(r[1]), "=f"(r[2]), "=f"(r[3])
+                 : "r"(a));
+    asm volatile("ld.volatile.shared.v2.f32 {%0, %1}, [%2+16];"
+                 : "=f"(r[4]), "=f"(r[5])
+                 : "r"(a));
+  }
 }
 #endif
 
@@ -198,7 +245,7 @@ __device__ __forceinline__ void cross3(const U* u, const Val* v, Val* out) {
 // the staged mass matrices (mass_row). kRows: the unroll of the 6x6
 // products' rows (the pair build's rk4 runs them one row at a time: fully
 // unrolled its four-stage step spills).
-template <int kRows = 6>
+template <int STRUCT, int kRows>
 __device__ __forceinline__ void state_dot(const AuvConsts& c,
                                           const float* s_mass, Val fng,
                                           const Val* x, const Val* gf,
@@ -227,17 +274,25 @@ __device__ __forceinline__ void state_dot(const AuvConsts& c,
   xd[6] = 0.5f * (-qx * w[0] - qy * w[1] - qz * w[2]);
 
   Val rhs[6];
-  // D nu = -L nu - u (L_fwd nu) - Q_d (|nu| . nu)
+  // D nu = -L nu - u (L_fwd nu) - Q_d (|nu| . nu); kDiag: -L_ii nu_i -
+  // Q_d,i |nu_i| nu_i, the dense row's value (its zero products add +-0,
+  // and -ld - nu_0 lf contracts to -ld there)
 #pragma unroll
   for (int i = 0; i < 6; ++i) {
-    Val ld = 0.0f, lf = 0.0f;
+    Val dv;
+    if constexpr (STRUCT == kDiag) {
+      dv = -mul_r(exact_val(c.lin_damp[i * 7]), nu[i]) -
+           exact_val(c.quad_damp[i]) * (abs_r(nu[i]) * nu[i]);
+    } else {
+      Val ld = 0.0f, lf = 0.0f;
 #pragma unroll
-    for (int j = 0; j < 6; ++j) {
-      ld = fma_r(exact_val(c.lin_damp[i * 6 + j]), nu[j], ld);
-      lf = fma_r(exact_val(c.lin_damp_fwd[i * 6 + j]), nu[j], lf);
+      for (int j = 0; j < 6; ++j) {
+        ld = fma_r(exact_val(c.lin_damp[i * 6 + j]), nu[j], ld);
+        lf = fma_r(exact_val(c.lin_damp_fwd[i * 6 + j]), nu[j], lf);
+      }
+      dv = -ld - nu[0] * lf -
+           exact_val(c.quad_damp[i]) * (abs_r(nu[i]) * nu[i]);
     }
-    const Val dv = -ld - nu[0] * lf -
-                   exact_val(c.quad_damp[i]) * (abs_r(nu[i]) * nu[i]);
     rhs[i] = gf[i] - dv;
   }
   // C nu = [-a1 x w ; -a1 x v - a2 x w], [a1; a2] = M nu
@@ -245,7 +300,7 @@ __device__ __forceinline__ void state_dot(const AuvConsts& c,
 #pragma unroll (kRows)
   for (int i = 0; i < 6; ++i) {
     Val mr[6];
-    mass_row(s_mass, 0, i, mr);
+    mass_row<STRUCT>(s_mass, 0, i, mr);
     Val s = 0.0f;
 #pragma unroll
     for (int j = 0; j < 6; ++j) s = fma_r(mr[j], nu[j], s);
@@ -260,23 +315,30 @@ __device__ __forceinline__ void state_dot(const AuvConsts& c,
     rhs[i] += c1[i];
     rhs[3 + i] += c2[i] + c3[i];
   }
-  // restoring g = -[fbg + fbb ; cog x fbg + cob x fbb], f = R^T (0, 0, f_z)
-  const Val fbg[3] = {r31 * fng, r32 * fng, r33 * fng};
+  // restoring g = -[fbg + fbb ; cog x fbg + cob x fbb], f = R^T (0, 0, f_z);
+  // the forces rounded alone (mul_r): with cog x fbg elided, a plain
+  // product fbg would have one use left and be fused into fbg + fbb
+  const Val fbg[3] = {mul_r(r31, fng), mul_r(r32, fng), mul_r(r33, fng)};
   const Val buoy = exact_val(c.buoyancy);
-  const Val fbb[3] = {r31 * buoy, r32 * buoy, r33 * buoy};
-  Val mbg[3], mbb[3];
-  cross3(c.cog, fbg, mbg);
-  cross3(c.cob, fbb, mbb);
+  const Val fbb[3] = {mul_r(r31, buoy), mul_r(r32, buoy), mul_r(r33, buoy)};
+  Val mb[3];  // cog x fbg + cob x fbb; kDiag: cob x fbb (cog = 0)
+  cross3(c.cob, fbb, mb);
+  if constexpr (STRUCT == kDense) {
+    Val mbg[3];
+    cross3(c.cog, fbg, mbg);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) mb[i] = mbg[i] + mb[i];
+  }
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     rhs[i] += fbg[i] + fbb[i];
-    rhs[3 + i] += mbg[i] + mbb[i];
+    rhs[3 + i] += mb[i];
   }
   // nu_dot = M^-1 rhs
 #pragma unroll (kRows)
   for (int i = 0; i < 6; ++i) {
     Val mr[6];
-    mass_row(s_mass, 1, i, mr);
+    mass_row<STRUCT>(s_mass, 1, i, mr);
     Val s = 0.0f;
 #pragma unroll
     for (int j = 0; j < 6; ++j) s = fma_r(mr[j], rhs[j], s);
@@ -334,19 +396,20 @@ __device__ __forceinline__ float elipse3d_cost(const Elipse3D& e,
   return e.ms * p_err + e.ms * o_err + e.mv * v_err;
 }
 
-template <int COST>
+template <int COST, int STRUCT>
 __device__ __forceinline__ float auv_state_cost(const AuvConsts& c,
                                                 const float* s_dyn, int tau,
                                                 const float* x) {
+  constexpr bool kDiagQ = STRUCT == kDiag;
   if constexpr (COST == kStaticQuat) {
-    return quat_state_cost(c.q, x, s_dyn + kGoal);
+    return quat_state_cost<false, kDiagQ>(c.q, x, s_dyn + kGoal);
   } else if constexpr (COST == kWaypointsQuat) {
     const float* wb = s_dyn + dyn_wblend(tau);
     float out = 0.0f;
 #pragma unroll 1
     for (int g = 0; g < 2; ++g) {
       const float* goal = s_dyn + (g == 0 ? kGoal : dyn_goal2(tau));
-      out = fmaf(wb[g], quat_state_cost<true>(c.q, x, goal), out);
+      out = fmaf(wb[g], quat_state_cost<true, kDiagQ>(c.q, x, goal), out);
     }
     return out;
   } else {
@@ -357,7 +420,7 @@ __device__ __forceinline__ float auv_state_cost(const AuvConsts& c,
 // The state cost of lane l of a rollout state: at bf16 on the state
 // widened to f32 (the TPU kernel's :433-443), with the goals and blend
 // weights rounded at staging.
-template <int COST>
+template <int COST, int STRUCT>
 __device__ __forceinline__ float rollout_state_cost(const AuvConsts& c,
                                                    const float* s_dyn,
                                                    int tau, const Val* x,
@@ -366,9 +429,9 @@ __device__ __forceinline__ float rollout_state_cost(const AuvConsts& c,
   float xf[13];
 #pragma unroll
   for (int i = 0; i < 13; ++i) xf[i] = widen(x[i], l);
-  return auv_state_cost<COST>(c, s_dyn, tau, xf);
+  return auv_state_cost<COST, STRUCT>(c, s_dyn, tau, xf);
 #else
-  return auv_state_cost<COST>(c, s_dyn, tau, x);
+  return auv_state_cost<COST, STRUCT>(c, s_dyn, tau, x);
 #endif
 }
 
@@ -385,17 +448,31 @@ __device__ __forceinline__ float stage_dyn(float f, int i, int tau) {
     return round_bf16(f);
   return f;
 }
+#else
+// The f32 build stages dyn and the mass rows as they are.
+__device__ __forceinline__ float stage_dyn(float f, int, int) { return f; }
+__device__ __forceinline__ float stage_word(float f) { return f; }
 #endif
 
-template <int RK, int MODE, int COST>
-__global__ void __launch_bounds__(kThreads)
+// The f32 kDiag build asks ptxas for two blocks of 256 threads an SM at
+// rk 1 and 2 (at most 128 registers a thread); kDense (whose rk2 costs
+// mode spills at 128), rk4 and the pair build ask for one.
+#ifdef MPPI_BF16_PAIRS
+#define AUV_LAUNCH_BOUNDS __launch_bounds__(kThreads)
+#else
+#define AUV_LAUNCH_BOUNDS \
+  __launch_bounds__(kThreads, STRUCT == kDiag && RK <= 2 ? 2 : 1)
+#endif
+
+template <int RK, int MODE, int COST, int STRUCT>
+__global__ void AUV_LAUNCH_BOUNDS
     MPPI_KERNEL(auv_fused_solve)(const AuvConsts c,
                                  const float* __restrict__ dyn, int n_dyn,
                                  int sched_off, const float* __restrict__ z,
                                  float* __restrict__ costs,
                                  float* __restrict__ partials, int k_total,
                                  int tau, Seeds sd) {
-#ifdef MPPI_BF16_PAIRS
+  static_assert(STRUCT == kDense || kLanes == 1, "kDiag is an f32 build");
   extern __shared__ __align__(16) float smem[];
   float* s_dyn = smem;  // n_dyn = dyn_size(tau) (+ tau scheduled)
   float* s_mass = smem + ((n_dyn + 3) & ~3);  // kMassWords, 16-byte aligned
@@ -406,13 +483,6 @@ __global__ void __launch_bounds__(kThreads)
     const int col = w & 7, row = w >> 3;  // rows 0-5: M, 6-11: M^-1
     s_mass[w] = col < 6 ? stage_word(dyn[kMTot + row * 6 + col]) : 0.0f;
   }
-#else
-  extern __shared__ float smem[];
-  float* s_dyn = smem;          // n_dyn = dyn_size(tau) (+ tau scheduled)
-  float* s_mass = s_dyn;        // M and M^-1 at kMTot, kInvM
-  float* s_red = smem + n_dyn;  // kWarps * n_z: pass-two warp sums
-  for (int i = threadIdx.x; i < n_dyn; i += kThreads) s_dyn[i] = dyn[i];
-#endif
   __syncthreads();
 
   const float* useq = s_dyn + kUseq;
@@ -462,14 +532,19 @@ __global__ void __launch_bounds__(kThreads)
       gf[i] = exact_val(useq[t * 6 + i]) + ct_v * sz;
 #else
       float s = useq[t * 6 + i];
+      if constexpr (STRUCT == kDiag) {  // the dense chain's one nonzero FMA
+        s = fmaf(c.scale[i * 7], ct * zt[i], s);
+      } else {
 #pragma unroll
-      for (int j = 0; j < 6; ++j) s = fmaf(c.scale[i * 6 + j], ct * zt[j], s);
+        for (int j = 0; j < 6; ++j)
+          s = fmaf(c.scale[i * 6 + j], ct * zt[j], s);
+      }
       gf[i] = s;
 #endif
     }
 
     Val k1[13], xs[13];
-    state_dot<kRows>(c, s_mass, fng, x, gf, k1);
+    state_dot<STRUCT, kRows>(c, s_mass, fng, x, gf, k1);
     if (RK == 1) {
 #pragma unroll
       for (int i = 0; i < 13; ++i) x[i] = fma_r(dt, k1[i], x[i]);
@@ -477,7 +552,7 @@ __global__ void __launch_bounds__(kThreads)
       Val k2[13];
 #pragma unroll
       for (int i = 0; i < 13; ++i) xs[i] = fma_r(dt, k1[i], x[i]);
-      state_dot<kRows>(c, s_mass, fng, xs, gf, k2);
+      state_dot<STRUCT, kRows>(c, s_mass, fng, xs, gf, k2);
 #pragma unroll
       for (int i = 0; i < 13; ++i) x[i] = fma_r(h, k1[i] + k2[i], x[i]);
     } else {
@@ -488,19 +563,19 @@ __global__ void __launch_bounds__(kThreads)
         acc[i] = k1[i];
         xs[i] = fma_r(h, k1[i], x[i]);
       }
-      state_dot<kRows>(c, s_mass, fng, xs, gf, kk);
+      state_dot<STRUCT, kRows>(c, s_mass, fng, xs, gf, kk);
 #pragma unroll
       for (int i = 0; i < 13; ++i) {
         acc[i] = fma_r(2.0f, kk[i], acc[i]);
         xs[i] = fma_r(h, kk[i], x[i]);
       }
-      state_dot<kRows>(c, s_mass, fng, xs, gf, kk);
+      state_dot<STRUCT, kRows>(c, s_mass, fng, xs, gf, kk);
 #pragma unroll
       for (int i = 0; i < 13; ++i) {
         acc[i] = fma_r(2.0f, kk[i], acc[i]);
         xs[i] = fma_r(dt, kk[i], x[i]);
       }
-      state_dot<kRows>(c, s_mass, fng, xs, gf, kk);
+      state_dot<STRUCT, kRows>(c, s_mass, fng, xs, gf, kk);
 #pragma unroll
       for (int i = 0; i < 13; ++i) x[i] = fma_r(h6, acc[i] + kk[i], x[i]);
     }
@@ -513,37 +588,50 @@ __global__ void __launch_bounds__(kThreads)
 
 #pragma unroll
     for (int l = 0; l < kLanes; ++l)
-      cost[l] += rollout_state_cost<COST>(c, s_dyn, tau, x, l);
+      cost[l] += rollout_state_cost<COST, STRUCT>(c, s_dyn, tau, x, l);
+#ifdef MPPI_BF16
     Val quad = 0.0f;
 #pragma unroll
     for (int j = 0; j < 6; ++j) {
-#ifdef MPPI_BF16
       const Val rz = exact_val(rhs_z[t * 6 + j]) * zt[j];
 #pragma unroll
       for (int l = 0; l < kLanes; ++l) cost[l] += widen(rz, l);
-#else
-      cost[0] = fmaf(rhs_z[t * 6 + j], zt[j], cost[0]);
-#endif
       Val mz = 0.0f;
 #pragma unroll
       for (int i = 0; i < 6; ++i)
         mz = fma_r(exact_val(c.mz[j * 6 + i]), zt[i], mz);
       quad = fma_r(zt[j], mz, quad);
     }
-#ifdef MPPI_BF16
     const Val nq = to_val(c.nc_half * ct) * quad;
 #pragma unroll
     for (int l = 0; l < kLanes; ++l) cost[l] += widen(nq, l);
 #else
-    cost[0] = fmaf(c.nc_half * sched_factor(s_dyn, sched_off, t), quad,
-                   cost[0]);
+#pragma unroll
+    for (int j = 0; j < 6; ++j)
+      cost[0] = fmaf(rhs_z[t * 6 + j], zt[j], cost[0]);
+    // nc_half c_t z^T Mz z: adds +-0 at nc_half = 0, a uniform branch
+    if (c.nc_half != 0.0f) {
+      float quad = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 6; ++j) {
+        float mz = 0.0f;
+        if constexpr (STRUCT == kDiag) {
+          mz = mul_r(c.mz[j * 7], zt[j]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 6; ++i) mz = fmaf(c.mz[j * 6 + i], zt[i], mz);
+        }
+        quad = fmaf(zt[j], mz, quad);
+      }
+      cost[0] = fmaf(c.nc_half * ct, quad, cost[0]);
+    }
 #endif
   }
 
   float zarg[kLanes];
 #pragma unroll
   for (int l = 0; l < kLanes; ++l) {
-    cost[l] += rollout_state_cost<COST>(c, s_dyn, tau, x, l);
+    cost[l] += rollout_state_cost<COST, STRUCT>(c, s_dyn, tau, x, l);
     cost[l] += u_half;
     zarg[l] = MODE == kFused ? -cost[l] / c.lam : -INFINITY;
     if (MODE == kCosts && valid[l]) costs[k[l]] = cost[l];
@@ -572,38 +660,49 @@ struct AuvLaunch {
   int* occupancy;
 };
 
-template <int RK, int MODE, int COST>
+template <int RK, int MODE, int COST, int STRUCT>
 int launch_auv(const AuvConsts& c, const AuvLaunch& a) {
   const int n_dyn = dyn_size(a.tau) + (a.scheduled ? a.tau : 0);
   const int sched_off = a.scheduled ? dyn_size(a.tau) : -1;
   size_t smem = 0;
   const cudaError_t e =
-      smem_for(MPPI_KERNEL(auv_fused_solve)<RK, MODE, COST>,
-               kMassWords ? ((n_dyn + 3) & ~3) + kMassWords : n_dyn,
+      smem_for(MPPI_KERNEL(auv_fused_solve)<RK, MODE, COST, STRUCT>,
+               ((n_dyn + 3) & ~3) + kMassWords,
                MODE == kFused ? a.tau * 6 : 0, &smem);
   if (e != cudaSuccess) return e;
   if (a.occupancy != nullptr)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        a.occupancy, MPPI_KERNEL(auv_fused_solve)<RK, MODE, COST>, kThreads,
-        smem);
+        a.occupancy, MPPI_KERNEL(auv_fused_solve)<RK, MODE, COST, STRUCT>,
+        kThreads, smem);
   const int nb = (a.k + kBlock - 1) / kBlock;
-  MPPI_KERNEL(auv_fused_solve)<RK, MODE, COST>
+  MPPI_KERNEL(auv_fused_solve)<RK, MODE, COST, STRUCT>
       <<<nb, kThreads, smem, a.stream>>>(c, a.dyn, n_dyn, sched_off, a.z,
                                          a.costs, a.partials, a.k, a.tau,
                                          a.sd);
   return cudaGetLastError();
 }
 
-template <int MODE, int COST>
+template <int MODE, int COST, int STRUCT>
 int dispatch_rk(int rk, const AuvConsts& c, const AuvLaunch& a) {
-  if (rk == 1) return launch_auv<1, MODE, COST>(c, a);
-  if (rk == 2) return launch_auv<2, MODE, COST>(c, a);
-  if (rk == 4) return launch_auv<4, MODE, COST>(c, a);
+  if (rk == 1) return launch_auv<1, MODE, COST, STRUCT>(c, a);
+  if (rk == 2) return launch_auv<2, MODE, COST, STRUCT>(c, a);
+  if (rk == 4) return launch_auv<4, MODE, COST, STRUCT>(c, a);
+  return cudaErrorInvalidValue;
+}
+
+// kDiag exists in the f32 build alone.
+template <int MODE, int COST>
+int dispatch_struct(int rk, int st, const AuvConsts& c, const AuvLaunch& a) {
+  if (st == kDense) return dispatch_rk<MODE, COST, kDense>(rk, c, a);
+#ifndef MPPI_BF16
+  if (st == kDiag) return dispatch_rk<MODE, COST, kDiag>(rk, c, a);
+#endif
   return cudaErrorInvalidValue;
 }
 
 template <int MODE>
-int dispatch_auv(int rk, int cost, const float* consts, const AuvLaunch& a) {
+int dispatch_auv(int rk, int cost, int st, const float* consts,
+                 const AuvLaunch& a) {
   if (a.k <= 0 || a.tau <= 0) return cudaErrorInvalidValue;
   HostConsts f;
   memcpy(&f, consts, sizeof(f));
@@ -612,10 +711,11 @@ int dispatch_auv(int rk, int cost, const float* consts, const AuvLaunch& a) {
 #else
   const AuvConsts& c = f;
 #endif
-  if (cost == kStaticQuat) return dispatch_rk<MODE, kStaticQuat>(rk, c, a);
+  if (cost == kStaticQuat)
+    return dispatch_struct<MODE, kStaticQuat>(rk, st, c, a);
   if (cost == kWaypointsQuat)
-    return dispatch_rk<MODE, kWaypointsQuat>(rk, c, a);
-  if (cost == kElipse3D) return dispatch_rk<MODE, kElipse3D>(rk, c, a);
+    return dispatch_struct<MODE, kWaypointsQuat>(rk, st, c, a);
+  if (cost == kElipse3D) return dispatch_struct<MODE, kElipse3D>(rk, st, c, a);
   return cudaErrorInvalidValue;
 }
 
@@ -623,46 +723,49 @@ int dispatch_auv(int rk, int cost, const float* consts, const AuvLaunch& a) {
 
 extern "C" {
 
-// consts: AuvConsts.packed (260 floats); cost: AuvCost; dyn: dyn_size(tau)
-// floats, then tau factors c_t when scheduled; half: the antithetic
-// solve's first mirrored sample, 0 for none (mppi_common.cuh).
-// auv_mppi_bf16.cu defines both solves with a _bf16 suffix.
-int MPPI_ENTRY(auv_fused_solve)(int rk, int cost, const float* consts,
-                                const float* dyn,
-                    const float* z, float* partials, int k, int tau,
-                    int scheduled, uint32_t half, uint32_t seed_lo,
-                    uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
-                    void* stream) {
+// consts: AuvConsts.packed (260 floats); cost: AuvCost; structure:
+// AuvStruct (kDense alone in the bf16 build); dyn: dyn_size(tau) floats,
+// then tau factors c_t when scheduled; half: the antithetic solve's first
+// mirrored sample, 0 for none (mppi_common.cuh). auv_mppi_bf16.cu defines
+// both solves with a _bf16 suffix.
+int MPPI_ENTRY(auv_fused_solve)(int rk, int cost, int structure,
+                                const float* consts, const float* dyn,
+                                const float* z, float* partials, int k,
+                                int tau, int scheduled, uint32_t half,
+                                uint32_t seed_lo, uint32_t seed_hi,
+                                uint32_t s_lo, uint32_t s_hi, void* stream) {
   return dispatch_auv<kFused>(
-      rk, cost, consts,
+      rk, cost, structure, consts,
       AuvLaunch{dyn, z, nullptr, partials, k, tau, scheduled,
                 Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
                 static_cast<cudaStream_t>(stream), nullptr});
 }
 
-int MPPI_ENTRY(auv_fused_costs)(int rk, int cost, const float* consts,
-                                const float* dyn,
-                    const float* z, float* costs, float* partials, int k,
-                    int tau, int scheduled, uint32_t half, uint32_t seed_lo,
-                    uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
-                    void* stream) {
+int MPPI_ENTRY(auv_fused_costs)(int rk, int cost, int structure,
+                                const float* consts, const float* dyn,
+                                const float* z, float* costs,
+                                float* partials, int k, int tau,
+                                int scheduled, uint32_t half,
+                                uint32_t seed_lo, uint32_t seed_hi,
+                                uint32_t s_lo, uint32_t s_hi, void* stream) {
   return dispatch_auv<kCosts>(
-      rk, cost, consts,
+      rk, cost, structure, consts,
       AuvLaunch{dyn, z, costs, partials, k, tau, scheduled,
                 Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
                 static_cast<cudaStream_t>(stream), nullptr});
 }
 
 // out[0]: blocks an SM of the solve (mode 0) or costs (1) kernel of
-// (rk, cost) at horizon tau, unscheduled; out[1]: samples a thread.
-int MPPI_ENTRY(auv_occupancy)(int rk, int cost, int mode, int tau,
-                              int* out) {
+// (rk, cost, structure) at horizon tau, unscheduled; out[1]: samples a
+// thread.
+int MPPI_ENTRY(auv_occupancy)(int rk, int cost, int structure, int mode,
+                              int tau, int* out) {
   static const float zeros[sizeof(HostConsts) / sizeof(float)] = {};
   const AuvLaunch a{nullptr, nullptr, nullptr, nullptr, 1, tau, 0, Seeds{},
                     nullptr, out};
   out[1] = kLanes;
-  return mode ? dispatch_auv<kCosts>(rk, cost, zeros, a)
-              : dispatch_auv<kFused>(rk, cost, zeros, a);
+  return mode ? dispatch_auv<kCosts>(rk, cost, structure, zeros, a)
+              : dispatch_auv<kFused>(rk, cost, structure, zeros, a);
 }
 
 #ifndef MPPI_BF16

@@ -83,6 +83,10 @@ __device__ __forceinline__ float fma_r(float a, float b, float c) {
   return fmaf(a, b, c);
 }
 __device__ __forceinline__ float abs_r(float a) { return fabsf(a); }
+// a product rounded alone: never contracted into an FMA
+__device__ __forceinline__ float mul_r(float a, float b) {
+  return __fmul_rn(a, b);
+}
 __device__ __forceinline__ float relu_r(float a) { return fmaxf(a, 0.0f); }
 
 #if defined(MPPI_BF16) || defined(MPPI_NN_BF16_PRODUCTS)
@@ -144,6 +148,7 @@ __device__ __forceinline__ bf16x2& operator*=(bf16x2& a, bf16x2 b) {
 __device__ __forceinline__ bf16x2 fma_r(bf16x2 a, bf16x2 b, bf16x2 c) {
   return c + a * b;
 }
+__device__ __forceinline__ bf16x2 mul_r(bf16x2 a, bf16x2 b) { return a * b; }
 __device__ __forceinline__ bf16x2 abs_r(bf16x2 a) {
   return bf16x2::bits(a.v & 0x7fff7fffu);
 }
@@ -392,8 +397,10 @@ __device__ __forceinline__ float warp_min(float v) {
 // the signed dot (costs/static.py) and Q the 10x10 row-major weight; with
 // kAbsDot the geodesic |q.g_q| of WayPointsQuatCost (costs/waypoints.py).
 // The native acosf: the TPU kernels' polynomial _acos only worked around
-// Mosaic.
-template <bool kAbsDot = false>
+// Mosaic. kDiagQ reads Q's diagonal alone (its other entries exactly 0):
+// d_i (Q_ii d_i) with the product rounded alone, the dense row's value
+// (fma(0, d_j, s) adds +-0).
+template <bool kAbsDot = false, bool kDiagQ = false>
 __device__ __forceinline__ float quat_state_cost(const float* q,
                                                  const float* x,
                                                  const float* goal) {
@@ -410,8 +417,12 @@ __device__ __forceinline__ float quat_state_cost(const float* q,
 #pragma unroll
   for (int i = 0; i < 10; ++i) {
     float qd = 0.0f;
+    if (kDiagQ) {
+      qd = mul_r(q[i * 11], d[i]);
+    } else {
 #pragma unroll
-    for (int j = 0; j < 10; ++j) qd = fmaf(q[i * 10 + j], d[j], qd);
+      for (int j = 0; j < 10; ++j) qd = fmaf(q[i * 10 + j], d[j], qd);
+    }
     out = fmaf(d[i], qd, out);
   }
   return out;

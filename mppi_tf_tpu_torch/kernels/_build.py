@@ -43,17 +43,19 @@ _SIGNATURES = {
                        *_SEEDS, _P],
     "mppi_weights": [_P, _P, _P, _P, _I, _I, *_SEEDS, _P],
     "pm_merge": [_P, _I, _I, _P, _P, _P],
-    "auv_fused_solve": [_I, _I, _P, _P, _P, _P, *_SOLVE, *_SEEDS, _P],
-    "auv_fused_costs": [_I, _I, _P, _P, _P, _P, _P, *_SOLVE, *_SEEDS, _P],
+    # the AUV solves take (rk, cost, structure) first
+    "auv_fused_solve": [_I, _I, _I, _P, _P, _P, _P, *_SOLVE, *_SEEDS, _P],
+    "auv_fused_costs": [_I, _I, _I, _P, _P, _P, _P, _P, *_SOLVE, *_SEEDS,
+                        _P],
     "auv_dyn_size": [_I],
     "nn_fused_solve": [_I, _I, _I, _P, _P, _P, _P, *_SOLVE, *_SEEDS, _P],
     "nn_fused_costs": [_I, _I, _I, _P, _P, _P, _P, _P, *_SOLVE, *_SEEDS,
                        _P],
-    # (sdim, adim, cost, mode, dynamic_ab, tau, out[2]), (rk, cost, mode,
-    # tau, out[2]) and (n1, n2, n3, mode, tau, out[2]): blocks an SM and
-    # samples a thread of a solve kernel
+    # (sdim, adim, cost, mode, dynamic_ab, tau, out[2]), (rk, cost,
+    # structure, mode, tau, out[2]) and (n1, n2, n3, mode, tau, out[2]):
+    # blocks an SM and samples a thread of a solve kernel
     "pm_occupancy": [_I, _I, _I, _I, _I, _I, _P],
-    "auv_occupancy": [_I, _I, _I, _I, _P],
+    "auv_occupancy": [_I, _I, _I, _I, _I, _P],
     "nn_occupancy": [_I, _I, _I, _I, _I, _P],
 }
 # the bf16 builds of the sources (suffix _bf16, every kernel but pm_merge)

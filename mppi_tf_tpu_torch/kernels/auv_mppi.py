@@ -30,6 +30,15 @@ shaped differently), with the force in the JAX kernel's order u_t + c_t
 the widened state (goals and blend weights rounded, as the JAX kernel
 reads them); the z terms are bf16 values added to the f32 cost.
 ``_sample_costs_bf16`` is the plain version, op for op.
+
+The f32 kernels come in two structures of the solve constants
+(``STRUCTURES``, the ``AuvStruct`` template argument): "diagonal" reads the
+linear damping, the noise scale, Mz and Q as their diagonals and takes the
+forward-speed damping and cog as zero, emitting no instruction for the
+entries it leaves out, as the JAX kernel's trace drops zero constants;
+"dense" runs every matrix dense. ``AuvConsts.structure`` is "diagonal" when
+each entry it leaves out is exactly 0.0, so both give the same costs; the
+plain versions are dense for both.
 """
 
 from __future__ import annotations
@@ -54,6 +63,8 @@ GRAVITY = 9.81
 SDIM, ADIM = 13, 6
 #: state costs of the kernel (``AuvCost`` in auv_mppi.cu)
 COST_KINDS = {"static_quat": 0, "waypoints_quat": 1, "elipse3d": 2}
+#: structures of the solve constants (``AuvStruct`` in auv_mppi.cu)
+STRUCTURES = {"dense": 0, "diagonal": 1}
 
 
 class Dyn:
@@ -85,7 +96,8 @@ class AuvConsts:
     Mz = scale^T Sigma^-1 scale, the 10x10 cost weight Q (the quaternion
     costs), the cost kind and, for "elipse3d", the ellipse's R_plane,
     q_plane, center, axis3, mapping, gv, mS and mV; ``scheduled`` and
-    ``antithetic`` are the runtime variants (launch arguments)."""
+    ``antithetic`` are the runtime variants (launch arguments).
+    ``structure`` picks the f32 kernels' instantiation from these."""
 
     dt: float
     rk: int
@@ -114,6 +126,27 @@ class AuvConsts:
     #: the ellipse constants, in the order of ``Elipse3D`` in auv_mppi.cu
     ELIPSE3D = ("R_plane", "q_plane", "center", "axis3", "mapping", "gv",
                 "mS", "mV")
+
+    @functools.cached_property
+    def structure(self) -> str:
+        """The kernels' ``STRUCTURES`` entry: "diagonal" when every constant
+        the kDiag kernels leave out is exactly 0.0 (lin_damp, scale and Mz
+        off their diagonals, Q off its diagonal for the quaternion costs,
+        all of lin_damp_fwd and cog) and the build is f32, else "dense"
+        (the bf16 build has kDense alone). kDiag reads the diagonals where
+        ``packed`` holds the dense arrays."""
+        def off_diagonal(m):
+            m = np.asarray(m)
+            return m[~np.eye(m.shape[0], dtype=bool)]
+
+        left_out = [off_diagonal(self.lin_damp), off_diagonal(self.scale),
+                    off_diagonal(self.Mz), np.ravel(self.lin_damp_fwd),
+                    np.ravel(self.cog)]
+        if self.cost_kind != "elipse3d":
+            left_out.append(off_diagonal(self.Q))
+        diagonal = (self.compute_dtype == "float32"
+                    and not any(np.count_nonzero(a) for a in left_out))
+        return "diagonal" if diagonal else "dense"
 
     @functools.cached_property
     def packed(self) -> np.ndarray:
@@ -454,8 +487,9 @@ def auv_fused_solve(consts: AuvConsts, dyn: torch.Tensor, k: int, tau: int,
     partials = torch.empty((-(-k // BLOCK), STATS + tau * ADIM),
                            dtype=torch.float32, device=dyn.device)
     launch(entry("auv_fused_solve", consts.compute_dtype), dyn.device,
-           consts.rk,
-           COST_KINDS[consts.cost_kind], consts.packed.ctypes.data, dyn.data_ptr(),
+           consts.rk, COST_KINDS[consts.cost_kind],
+           STRUCTURES[consts.structure], consts.packed.ctypes.data,
+           dyn.data_ptr(),
            None if z is None else z.data_ptr(), partials.data_ptr(), k, tau,
            *variant_args(consts, k), *split64(seed), *split64(solve))
     return partials
@@ -471,8 +505,9 @@ def auv_fused_costs(consts: AuvConsts, dyn: torch.Tensor, k: int, tau: int,
     partials = torch.empty((-(-k // BLOCK), STATS), dtype=torch.float32,
                            device=dyn.device)
     launch(entry("auv_fused_costs", consts.compute_dtype), dyn.device,
-           consts.rk,
-           COST_KINDS[consts.cost_kind], consts.packed.ctypes.data, dyn.data_ptr(),
+           consts.rk, COST_KINDS[consts.cost_kind],
+           STRUCTURES[consts.structure], consts.packed.ctypes.data,
+           dyn.data_ptr(),
            None if z is None else z.data_ptr(), costs.data_ptr(),
            partials.data_ptr(), k, tau, *variant_args(consts, k),
            *split64(seed), *split64(solve))
@@ -594,8 +629,9 @@ class FusedAUVMPPI(TwoPhaseSolve):
             goals[13:], *self._sched_tail()])
 
     def _template_args(self, mode: int) -> tuple:
-        """<RK, MODE, COST> of auv_fused_solve_kernel."""
-        return (self.consts.rk, mode, COST_KINDS[self.consts.cost_kind])
+        """<RK, MODE, COST, STRUCT> of auv_fused_solve_kernel."""
+        c = self.consts
+        return (c.rk, mode, COST_KINDS[c.cost_kind], STRUCTURES[c.structure])
 
     def _fused(self, dyn, seed, solve, z):
         return auv_fused_solve(self.consts, dyn, self.k, self.tau, seed=seed,

@@ -4,7 +4,11 @@ phase-B weights: their plain versions against the JAX package's XLA path
 normals, for rk 1, 2 and 4. The XLA path is the yardstick because the JAX
 AUV Pallas kernel runs every rk != 1 as rk2 and its interpret mode is
 minutes long. The CUDA kernels are held against these plain versions on
-the card by tests/test_torch_cuda.py.
+the card by tests/test_torch_cuda.py. Besides the diagonal vehicle of the
+JAX kernel tests, a vehicle whose constants are dense (6x6 linear and
+forward-speed damping, nonzero cog, full sigma and Q) holds the reference
+of the dense kernel instantiation, and upsilon = 1 the dropped
+z-quadratic; ``AuvConsts.structure`` picks the instantiation.
 """
 
 import jax.numpy as jnp
@@ -15,6 +19,7 @@ import torch
 from mppi_tf_tpu.controller.mppi import MPPI as JMPPI
 from mppi_tf_tpu.costs import get_cost as jget_cost
 from mppi_tf_tpu.models import get_model as jget_model
+from mppi_tf_tpu_torch import flagship
 from mppi_tf_tpu_torch.costs import get_cost
 from mppi_tf_tpu_torch.kernels import auv_mppi as auv
 from mppi_tf_tpu_torch.kernels import pm_mppi as pm
@@ -25,6 +30,34 @@ from tests.test_auv_kernel import _auv_cfg, _task
 
 SIGMA = np.diag([40.0, 40.0, 40.0, 5.0, 5.0, 5.0])
 LAM, GAMMA, UPS = 0.5, 0.2, 1.2
+# a full sigma and Q (each positive definite: the off-diagonal part moves
+# no eigenvalue by more than its 0.5 / 0.2)
+DENSE_SIGMA = SIGMA + 0.5 * (np.ones((6, 6)) - np.eye(6))
+DENSE_Q = np.diag(_task()["Q"]) + 0.2 * (np.ones((10, 10)) - np.eye(10))
+
+
+def _dense_cfg():
+    """The test vehicle with dense constants: 6x6 linear damping (the
+    diagonal plus off-diagonal terms), 6x6 forward-speed damping, a
+    nonzero cog."""
+    rng = np.random.RandomState(7)
+    cfg = _auv_cfg()
+    cfg.update(
+        linear_damping=(np.diag(cfg["linear_damping"])
+                        + 5.0 * rng.randn(6, 6)).tolist(),
+        linear_damping_forward_speed=(20.0 * rng.randn(6, 6)).tolist(),
+        cog=[0.01, -0.02, 0.05])
+    return cfg
+
+
+def _case(case):
+    """(vehicle, task, sigma, upsilon) of a constants case: "rexrov2" the
+    JAX kernel tests' diagonal vehicle, "dense" every constant dense,
+    "upsilon1" the diagonal vehicle at upsilon 1 (nc_half = 0)."""
+    if case == "dense":
+        task = {**_task(), "diag": False, "Q": DENSE_Q.tolist()}
+        return _dense_cfg(), task, DENSE_SIGMA, UPS
+    return _auv_cfg(), _task(), SIGMA, 1.0 if case == "upsilon1" else UPS
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -32,30 +65,32 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-def _port(k, tau, rk=2, dtype=torch.float64):
-    cfg = {**_auv_cfg(), "rk": rk}
-    model = get_model(cfg, dt=0.1, action_dim=6, dtype=dtype)
-    cost = get_cost(_task(), lam=LAM, gamma=GAMMA, upsilon=UPS, sigma=SIGMA,
+def _port(k, tau, rk=2, dtype=torch.float64, case="rexrov2"):
+    cfg, task, sigma, ups = _case(case)
+    model = get_model({**cfg, "rk": rk}, dt=0.1, action_dim=6, dtype=dtype)
+    cost = get_cost(task, lam=LAM, gamma=GAMMA, upsilon=ups, sigma=sigma,
                     dtype=dtype)
-    return auv.FusedAUVMPPI(model, cost, k=k, tau=tau, lam=LAM, upsilon=UPS,
-                            sigma=SIGMA)
+    return auv.FusedAUVMPPI(model, cost, k=k, tau=tau, lam=LAM, upsilon=ups,
+                            sigma=sigma)
 
 
-def _jax(k, tau, rk=2, normalize=False):
-    cfg = {**_auv_cfg(), "rk": rk}
-    model = jget_model(cfg, dt=0.1, action_dim=6, dtype=jnp.float64)
-    cost = jget_cost(_task(), lam=LAM, gamma=GAMMA, upsilon=UPS, sigma=SIGMA,
+def _jax(k, tau, rk=2, normalize=False, case="rexrov2"):
+    cfg, task, sigma, ups = _case(case)
+    model = jget_model({**cfg, "rk": rk}, dt=0.1, action_dim=6,
+                       dtype=jnp.float64)
+    cost = jget_cost(task, lam=LAM, gamma=GAMMA, upsilon=ups, sigma=sigma,
                      dtype=jnp.float64)
-    return JMPPI(model, cost, k=k, tau=tau, lam=LAM, upsilon=UPS,
-                 sigma=SIGMA, normalize_cost=normalize)
+    return JMPPI(model, cost, k=k, tau=tau, lam=LAM, upsilon=ups,
+                 sigma=sigma, normalize_cost=normalize)
 
 
-def _inputs(k, tau, seed=0):
+def _inputs(k, tau, seed=0, case="rexrov2"):
     """Normals z [tau, 6, k], eps = scale z as [k, tau, 6], x0, useq (the
     regime of tests/test_auv_kernel.py: z = -1, qw = 1, useq ~ 5 N(0, 1))."""
+    _, _, sigma, ups = _case(case)
     rng = np.random.RandomState(seed)
     z = rng.randn(tau, 6, k)
-    eps = np.einsum("ij,tjk->kti", UPS * SIGMA, z)
+    eps = np.einsum("ij,tjk->kti", ups * sigma, z)
     x0 = np.zeros(13)
     x0[[2, 6]] = [-1.0, 1.0]
     return z, eps, x0, 5.0 * rng.randn(tau, 6)
@@ -79,13 +114,26 @@ def _t(a):
 RTOL = 1e-9
 
 
-@pytest.mark.parametrize("rk", [1, 2, 4])
-@pytest.mark.parametrize("k", [80, 333])
-def test_plain_costs_match_jax_rollout(rk, k):
+def _cases(base, extra):
+    """pytest params of (*base, case): the rexrov2 case under the ids the
+    tests had before the constants cases, then ``extra`` (case, base)."""
+    return ([pytest.param(*b, "rexrov2", id="-".join(map(str, b)))
+             for b in base]
+            + [pytest.param(*b, case, id="-".join(map(str, (*b, case))))
+               for case, bs in extra for b in bs])
+
+
+@pytest.mark.parametrize("k,rk,case", _cases(
+    [(k, rk) for k in (80, 333) for rk in (1, 2, 4)],
+    [("dense", [(333, rk) for rk in (1, 2, 4)]),
+     ("upsilon1", [(80, 2)])]))
+def test_plain_costs_match_jax_rollout(rk, k, case):
     tau = 3
-    z, eps, x0, useq = _inputs(k, tau, seed=rk)
-    _, costs_j = _jax_solve(_jax(k, tau, rk), eps, x0, useq)
-    fused = _port(k, tau, rk)
+    z, eps, x0, useq = _inputs(k, tau, seed=rk, case=case)
+    _, costs_j = _jax_solve(_jax(k, tau, rk, case=case), eps, x0, useq)
+    fused = _port(k, tau, rk, case=case)
+    assert fused.consts.structure == (
+        "dense" if case == "dense" else "diagonal")
     dyn = fused.pack_dyn(_t(x0), _t(useq))
     np.testing.assert_allclose(
         auv.sample_costs_plain(fused.consts, dyn, _t(z)).numpy(), costs_j,
@@ -99,15 +147,18 @@ def test_plain_costs_match_jax_rollout(rk, k):
                             costs_j.sum()], rtol=RTOL)
 
 
-@pytest.mark.parametrize("rk", [1, 2, 4])
-@pytest.mark.parametrize("k,block", [(80, 32), (333, 256)])
-def test_plain_fused_solve_matches_jax_xla(rk, k, block):
+@pytest.mark.parametrize("k,block,rk,case", _cases(
+    [(k, block, rk) for k, block in ((80, 32), (333, 256))
+     for rk in (1, 2, 4)],
+    [("dense", [(333, 256, rk) for rk in (1, 2, 4)]),
+     ("upsilon1", [(80, 32, 2)])]))
+def test_plain_fused_solve_matches_jax_xla(rk, k, block, case):
     """Block partials + merge == the XLA solve; k=80 over blocks of 32 and
     k=333 over 256 leave a ragged last block."""
     tau = 3
-    z, eps, x0, useq = _inputs(k, tau, seed=10 + rk)
-    wn_j, costs_j = _jax_solve(_jax(k, tau, rk), eps, x0, useq)
-    fused = _port(k, tau, rk)
+    z, eps, x0, useq = _inputs(k, tau, seed=10 + rk, case=case)
+    wn_j, costs_j = _jax_solve(_jax(k, tau, rk, case=case), eps, x0, useq)
+    fused = _port(k, tau, rk, case=case)
     dyn = fused.pack_dyn(_t(x0), _t(useq))
     zsum, stats = pm.merge_plain(auv.fused_solve_plain(
         fused.consts, dyn, k, tau, z=_t(z), block=block))
@@ -239,6 +290,44 @@ def test_consts_packing_order():
     np.testing.assert_allclose(p[85:88], [0, 0, 0.3], rtol=1e-7)
     np.testing.assert_allclose(p[88:124], (UPS * SIGMA).ravel(), rtol=1e-7)
     np.testing.assert_allclose(p[-100:], np.diag(_task()["Q"]).ravel())
+
+
+@pytest.mark.parametrize("change,structure", [
+    ("none", "diagonal"), ("linear_damping", "dense"),
+    ("forward_speed_damping", "dense"), ("sigma", "dense"), ("Q", "dense"),
+    ("cog", "dense"), ("bfloat16", "dense")])
+def test_structure_is_diagonal_only_when_left_out_entries_are_zero(
+        change, structure):
+    """The rexrov2 flagship (vehicle, task, sigma 1500 I) runs the kDiag
+    kernels; one nonzero entry that kDiag leaves out (an off-diagonal linear
+    damping term, a forward-speed damping term, an off-diagonal sigma or Q
+    term, a cog component), or the bf16 build, makes the solve dense."""
+    params, task = flagship.auv_params(), flagship.auv_task()
+    sigma, dtype = 1500.0 * np.eye(6), "float32"
+    if change == "linear_damping":
+        lin = np.diag(params["linear_damping"])
+        lin[1, 0] = 1e-3
+        params["linear_damping"] = lin.tolist()
+    elif change == "forward_speed_damping":
+        params["linear_damping_forward_speed"] = [0.0] * 5 + [1e-3]
+    elif change == "sigma":
+        sigma[0, 1] = sigma[1, 0] = 1.0
+    elif change == "Q":
+        q = np.diag(task["Q"])
+        q[3, 4] = q[4, 3] = 0.5
+        task = {**task, "diag": False, "Q": q.tolist()}
+    elif change == "cog":
+        params["cog"] = [0.0, 0.0, 0.01]
+    elif change == "bfloat16":
+        dtype = "bfloat16"
+    model = get_model(params, dt=0.1, dtype=torch.float32)
+    cost = get_cost(task, lam=0.5, gamma=0.2, upsilon=1.0, sigma=sigma,
+                    dtype=torch.float32)
+    fused = auv.FusedAUVMPPI(model, cost, k=10, tau=3, lam=0.5, upsilon=1.0,
+                             sigma=sigma, compute_dtype=dtype)
+    assert fused.consts.structure == structure
+    assert fused.template_args("auv_fused_costs") == (
+        2, 1, auv.COST_KINDS["static_quat"], auv.STRUCTURES[structure])
 
 
 def test_cpu_wrappers_run_plain_and_count_nothing():

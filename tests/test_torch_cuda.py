@@ -62,7 +62,8 @@ def test_build_reports_every_kernel(cuda_device):
                    "auv_fused_solve_kernel"):
         assert kernel in names
     # RK 1, 2, 4 x (fused, costs) x (static_quat, waypoints_quat, elipse3d)
-    assert sum("auv_fused_solve_kernel" in r["kernel"] for r in rows) == 18
+    # x (dense, diagonal constants)
+    assert sum("auv_fused_solve_kernel" in r["kernel"] for r in rows) == 36
     # (fused, costs) x (three quadratic dims + the (4, 2) ellipse) x
     # (constant, dynamic (A, B))
     assert sum("pm_fused_solve_kernel" in r["kernel"] for r in rows) == 16
@@ -214,13 +215,36 @@ def test_cuda_closed_loop_reaches_goal(cuda_device):
 AUV_SIGMA = np.diag([40.0, 40.0, 40.0, 5.0, 5.0, 5.0])
 
 
-def _auv_fused(k, tau, device, rk=2, sigma=AUV_SIGMA):
-    model = get_model({**flagship.auv_params(), "rk": rk}, dt=0.1,
-                      device=device)
-    cost = get_cost(flagship.auv_task(), lam=0.5, gamma=0.2, upsilon=1.2,
-                    sigma=sigma, device=device)
-    return auv.FusedAUVMPPI(model, cost, k=k, tau=tau, lam=0.5, upsilon=1.2,
-                            sigma=sigma)
+def _dense_constants(params, sigma, task):
+    """The vehicle of tests/test_torch_auv_kernel.py's dense case, whose
+    solves run the kDense kernels: 6x6 linear damping (the diagonal plus
+    off-diagonal terms), 6x6 forward-speed damping, a nonzero cog, sigma
+    and a quaternion task's Q with off-diagonal terms."""
+    rng = np.random.RandomState(7)
+    params = {**params, "cog": [0.01, -0.02, 0.05],
+              "linear_damping": (np.diag(params["linear_damping"])
+                                 + 5.0 * rng.randn(6, 6)).tolist(),
+              "linear_damping_forward_speed": (20.0 * rng.randn(6, 6)
+                                               ).tolist()}
+    sigma = sigma + 0.5 * (np.ones((6, 6)) - np.eye(6))
+    if task["type"] != "elipse3d":
+        task = {**task, "diag": False, "Q": (np.diag(task["Q"]) + 0.2 * (
+            np.ones((10, 10)) - np.eye(10))).tolist()}
+    return params, sigma, task
+
+
+def _auv_fused(k, tau, device, rk=2, sigma=AUV_SIGMA, structure="diagonal",
+               task=None):
+    params, task = flagship.auv_params(), task or flagship.auv_task()
+    if structure == "dense":
+        params, sigma, task = _dense_constants(params, sigma, task)
+    model = get_model({**params, "rk": rk}, dt=0.1, device=device)
+    cost = get_cost(task, lam=0.5, gamma=0.2, upsilon=1.2, sigma=sigma,
+                    device=device)
+    fused = auv.FusedAUVMPPI(model, cost, k=k, tau=tau, lam=0.5, upsilon=1.2,
+                             sigma=sigma)
+    assert fused.consts.structure == structure
+    return fused
 
 
 def _auv_inputs(fused, device, seed=0):
@@ -242,10 +266,11 @@ def _auv_inputs(fused, device, seed=0):
 COST_RTOL, COST_ATOL = 1e-4, 1e-2
 
 
+@pytest.mark.parametrize("structure", ["diagonal", "dense"])
 @pytest.mark.parametrize("rk", [1, 2, 4])
 @pytest.mark.parametrize("k,tau", [(700, 7), (4096, 25)])
-def test_auv_kernels_match_plain(cuda_device, rk, k, tau):
-    fused = _auv_fused(k, tau, cuda_device, rk)
+def test_auv_kernels_match_plain(cuda_device, rk, k, tau, structure):
+    fused = _auv_fused(k, tau, cuda_device, rk, structure=structure)
     z, _, _, dyn = _auv_inputs(fused, cuda_device, seed=rk)
     c = fused.consts
     costs_k, rows_k = auv.auv_fused_costs(c, dyn, k, tau, z=z)
@@ -538,16 +563,14 @@ def test_pm_tracking_kernels_match_plain(cuda_device, kind, k, tau):
             cost.pop()
 
 
+@pytest.mark.parametrize("structure", ["diagonal", "dense"])
 @pytest.mark.parametrize("kind", ["waypoints_quat", "elipse3d"])
 @pytest.mark.parametrize("rk", [1, 2, 4])
-def test_auv_tracking_kernels_match_plain(cuda_device, kind, rk):
+def test_auv_tracking_kernels_match_plain(cuda_device, kind, rk, structure):
     k, tau = 4096, 25
-    model = get_model({**flagship.auv_params(), "rk": rk}, dt=0.1,
-                      device=cuda_device)
-    cost = get_cost(_auv_tracking_task(kind), lam=0.5, gamma=0.2,
-                    upsilon=1.2, sigma=AUV_SIGMA, device=cuda_device)
-    fused = auv.FusedAUVMPPI(model, cost, k=k, tau=tau, lam=0.5, upsilon=1.2,
-                             sigma=AUV_SIGMA)
+    fused = _auv_fused(k, tau, cuda_device, rk, structure=structure,
+                       task=_auv_tracking_task(kind))
+    cost = fused.cost
     z, x0, useq, dyn = _auv_inputs(fused, cuda_device, seed=rk)
     if kind == "elipse3d":
         # start on the ellipse: near the plane normal through its center
@@ -570,6 +593,44 @@ def test_auv_tracking_kernels_match_plain(cuda_device, kind, rk):
             break
         cost.pop()
         _, _, _, dyn = _auv_inputs(fused, cuda_device, seed=rk)
+
+
+def test_auv_structure_picks_the_instantiation(cuda_device):
+    """The rexrov2 flagship launches the kDiag instantiation and the dense
+    vehicle the kDense one (the ptxas report names the template arguments
+    ``_template_args`` gives, and their costs agree with the plain
+    version), the bf16 build kDense alone; auv_occupancy takes the
+    structure and refuses kDiag at bf16."""
+    import ctypes
+
+    from mppi_tf_tpu_torch.kernels import _launch
+
+    names = " ".join(r["kernel"] for r in _build.ptxas_report())
+    for structure in ("diagonal", "dense"):
+        fused = _auv_fused(700, 7, cuda_device, structure=structure)
+        args = fused.template_args("auv_fused_costs")
+        assert args == (2, 1, 0, auv.STRUCTURES[structure])
+        assert _launch.kernel_symbol("auv_fused_costs", args) in names
+        z, _, _, dyn = _auv_inputs(fused, cuda_device)
+        before = pm.launch_counts["auv_fused_costs"]
+        costs_k, _ = auv.auv_fused_costs(fused.consts, dyn, 700, 7, z=z)
+        assert pm.launch_counts["auv_fused_costs"] == before + 1
+        torch.testing.assert_close(
+            costs_k, auv.sample_costs_plain(fused.consts, dyn, z),
+            rtol=COST_RTOL, atol=COST_ATOL)
+    lib = _build.load_library()
+    for sfx, lanes, structures in (("", 1, (0, 1)), ("_bf16", 2, (0,))):
+        fn = getattr(lib, f"auv_occupancy{sfx}")
+        for rk in (1, 2, 4):
+            for cost in (0, 1, 2):
+                for st in structures:
+                    for mode in (0, 1):
+                        out = (ctypes.c_int * 2)()
+                        assert fn(rk, cost, st, mode, 25, out) == 0
+                        assert out[1] == lanes and out[0] >= 1
+    assert lib.auv_occupancy_bf16(2, 0, 1, 0, 25,
+                                  (ctypes.c_int * 2)()) != 0
+    assert lib.auv_occupancy(2, 0, 2, 0, 25, (ctypes.c_int * 2)()) != 0
 
 
 def test_auv_dyn_size_is_the_kernels(cuda_device):
