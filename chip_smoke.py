@@ -9,7 +9,10 @@ plain PyTorch version, checks the in-kernel noise stream, and drives the
 port's paths through ``MPPI.next`` closed loop against the analytic plants:
 
 - the point mass with the static cost at K=100,000 samples, H=50 (the
-  fused solve; then the two-phase normalized solve);
+  fused solve; then the two-phase normalized solve), on the kernels'
+  integrator instantiations; a dense-constant point mass (full sigma and
+  Q) holds the dense ones against their plain versions and drives them in
+  short loops;
 - the rexrov2 AUV flagship with the static quaternion cost at K=262,144,
   H=25: the normalized dive (the two-phase solve: auv_fused_costs, then
   mppi_weights) and the unnormalized fused solve, both on the kernels'
@@ -62,13 +65,15 @@ The build phase reports each instantiation's registers beside the count
 the f32 ones had before the bf16 builds were added (PERF.md), the static
 SASS counts of the point-mass, AUV and NN kernels (``sass``: conversions,
 bf16x2 ops, f32 ops, loads) and every solve instantiation's blocks an SM
-and waves at the flagship shapes (``occupancy``), and fails on a spill.
+and waves at the flagship shapes (``occupancy``), and fails on a spill
+or on an f32 point-mass instantiation that needs more than one wave at
+K=100,000.
 With ``--parent DIR`` (a checkout of the parent commit) it also builds
 that tree's library and holds this tree's kernels against it
-(``parent_bits``: the f32 AUV body in both structures, every per-sample
-cost bit for bit or within 1e-6 and the rows within tolerance once
-merged; the bf16 builds and the f32 point-mass and NN flagships bit for
-bit) and times them in turns (``parent_times``). It
+(``parent_bits``: the f32 point-mass body in both structures, every
+per-sample cost bit for bit or within 1e-6 and the rows within tolerance
+once merged; the f32 AUV body, the bf16 builds and the NN flagships bit
+for bit) and times them in turns (``parent_times``). It
 times every kernel, each noise variant beside the same kernel without
 it, the dynamic_ab variant beside the constant-(A, B) kernel and each
 bf16 build beside its f32 build. Each phase prints one JSON line; any
@@ -190,7 +195,8 @@ SCHED_WINDOW, SCHED_MEAN_TOL = 100, 0.2
 # another count for the instantiation that moves here; PERF.md), so a
 # spill is the gate and the f32 kernels' checks against their plain
 # versions hold their arithmetic. The AUV's are its kDense instantiations
-# (the fourth template argument 0, added with kDiag)
+# (the fourth template argument 0, added with kDiag), the point mass's its
+# dense ones (the sixth, STRUCT 0, added with kIntegrator)
 BASE_REGISTERS = {
     **{("auv_fused_solve_kernel", (*a, 0)): r for a, r in (
         ((1, 0, 0), 170), ((1, 0, 1), 163), ((1, 0, 2), 164),
@@ -203,7 +209,7 @@ BASE_REGISTERS = {
     **{("nn_fused_solve_kernel", a): r for a, r in (
         ((8, 8, 0, 0), 78), ((8, 8, 0, 1), 80), ((32, 32, 32, 0), 174),
         ((32, 32, 32, 1), 180))},
-    **{("pm_fused_solve_kernel", a): r for a, r in (
+    **{("pm_fused_solve_kernel", (*a, 0)): r for a, r in (
         ((2, 1, 0, 0, 0), 32), ((2, 1, 0, 0, 1), 40), ((2, 1, 1, 0, 0), 32),
         ((2, 1, 1, 0, 1), 40), ((4, 2, 0, 0, 0), 40), ((4, 2, 0, 0, 1), 63),
         ((4, 2, 0, 1, 0), 40), ((4, 2, 0, 1, 1), 60), ((4, 2, 1, 0, 0), 40),
@@ -302,9 +308,25 @@ def registers_vs_base(ptxas: list) -> list:
     return rows
 
 
-def workload(device, dmd: bool = False):
+def dense_pm_constants(sigma, q):
+    """(sigma, Q) of the dense-constant point mass, whose solves run the
+    dense kernels: ``sigma`` with correlations of 0.01 and the diagonal
+    ``q`` with off-diagonal terms of 0.1, so that B scale, Mz and Q are
+    full (tests/test_torch_cuda.py holds the same kind of point mass)."""
+    adim, sdim = np.shape(sigma)[0], len(q)
+    return (np.asarray(sigma) + 0.01 * (1.0 - np.eye(adim)),
+            np.diag(q) + 0.1 * (1.0 - np.eye(sdim)))
+
+
+#: the dense-constant point mass's sigma and Q at the workload's widths
+PM_DENSE_SIGMA, PM_DENSE_Q = dense_pm_constants(SIGMA, Q)
+
+
+def workload(device, dmd: bool = False, dense: bool = False):
     """The point-mass workload's model and cost; with ``dmd``, the JAX
-    bench's dmd row: a DMDModel seeded with the point mass's (A, B)."""
+    bench's dmd row: a DMDModel seeded with the point mass's (A, B); with
+    ``dense``, the cost of the dense-constant point mass (PM_DENSE_Q, at
+    PM_DENSE_SIGMA)."""
     from mppi_tf_tpu_torch.costs import get_cost
     from mppi_tf_tpu_torch.models import get_model
     from mppi_tf_tpu_torch.models.dmd import DMDModel
@@ -314,9 +336,11 @@ def workload(device, dmd: bool = False):
     if dmd:
         model = DMDModel(6, 3, dt=DT, init_A=model.A.cpu().numpy(),
                          init_B=model.B.cpu().numpy() / MASS, device=device)
-    cost = get_cost({"type": "static", "diag": True, "goal": GOAL, "Q": Q},
-                    lam=LAM, gamma=GAMMA, upsilon=UPSILON, sigma=SIGMA,
-                    device=device)
+    task = ({"type": "static", "diag": False, "goal": GOAL,
+             "Q": PM_DENSE_Q.tolist()} if dense else
+            {"type": "static", "diag": True, "goal": GOAL, "Q": Q})
+    cost = get_cost(task, lam=LAM, gamma=GAMMA, upsilon=UPSILON,
+                    sigma=PM_DENSE_SIGMA if dense else SIGMA, device=device)
     return model, cost
 
 
@@ -391,14 +415,16 @@ def solve_ops(consts, k: int, tau: int, prng: bool,
     softmax or w*z. The state cost is the quadratic around dyn's goal or,
     for the "elipse" kind, ``ELIPSE_OPS``. A dynamic_ab solve's A and B
     scale are runtime data: counted dense, as JAX roofline.py:231-232
-    counts them."""
+    counts them. The z-quadratic (Mz z, z . Mz z and its scaled add)
+    counts only where nc_half is not 0: at upsilon 1 the function has no
+    such term, and the kernels skip it."""
     sdim, adim = consts.dims
     q_ops = (ELIPSE_OPS if consts.cost_kind == "elipse"
              else sdim + 2 * nnz(consts.Q) + 2 * sdim)
     ab = (sdim * (sdim + adim) if consts.dynamic_ab
           else nnz(consts.A) + nnz(consts.Bs))
-    step = (2 * ab + 2 * sdim + q_ops
-            + 2 * adim + 2 * nnz(consts.Mz) + 2 * adim + 2)
+    quad = 2 * nnz(consts.Mz) + 2 * adim + 2 if consts.nc_half != 0.0 else 0
+    step = 2 * ab + 2 * sdim + q_ops + 2 * adim + quad
     return _rollout_ops(k, tau, adim, step, q_ops, prng, costs_only)
 
 
@@ -565,31 +591,49 @@ def noise_phase(pm, seed: int, solve: int) -> dict:
 
 
 def pm_controller(kernel: str = "auto", normalize: bool = False,
-                  tau: int = H, dmd: bool = False, **extra):
+                  tau: int = H, dmd: bool = False, dense: bool = False,
+                  **extra):
     """The point-mass workload's controller (``dmd``: the DMD row's, a
-    DMDMPPI) through get_controller at K and horizon ``tau``, with
-    env-config keys ``extra``."""
+    DMDMPPI; ``dense``: the dense-constant point mass's) through
+    get_controller at K and horizon ``tau``, with env-config keys
+    ``extra``."""
     from mppi_tf_tpu_torch.controller import get_controller
 
-    model, cost = workload("cuda", dmd)
+    model, cost = workload("cuda", dmd, dense)
     cfg = {"samples": K, "horizon": tau, "lambda": LAM, "upsilon": UPSILON,
-           "noise": SIGMA.tolist(), "kernel": kernel,
-           "normalize": normalize, **extra}
+           "noise": (PM_DENSE_SIGMA if dense else SIGMA).tolist(),
+           "kernel": kernel, "normalize": normalize, **extra}
     return get_controller(model, cost, cfg)
+
+
+def check_pm_structure(ctrl, want: str, label: str) -> None:
+    """A point-mass controller on the kernels runs the ``want`` structure
+    (integrator: the point mass's own constants at f32; dense: a full
+    sigma or Q, dynamic (A, B), bf16)."""
+    got = ctrl._fused.consts.structure if ctrl.kernel_path == "cuda" else None
+    if got != want:
+        raise AssertionError(f"{label}: structure {got}, want {want}")
 
 
 def closed_loop(kernel: str, normalize: bool = False,
                 steps: int = LOOP_STEPS, tau: int = H, errs=None,
-                dmd: bool = False, **extra):
+                dmd: bool = False, dense: bool = False, **extra):
     """K=100k closed loop (H=50, or ``tau``) through the factories against
     the analytic plant, with env-config keys ``extra`` ("noise-schedule",
     "antithetic"); returns (controller, final goal error, per-step host
     ms, launch counts), and appends each step's goal error to ``errs``
-    when given."""
+    when given. On the kernels, the solve's structure is held to the
+    integrator for the point mass at f32 and to dense for ``dmd``,
+    ``dense`` or bf16 (check_pm_structure)."""
     from mppi_tf_tpu_torch.envs import PointMassEnv
     from mppi_tf_tpu_torch.kernels import pm_mppi as pm
 
-    ctrl = pm_controller(kernel, normalize, tau, dmd, **extra)
+    ctrl = pm_controller(kernel, normalize, tau, dmd, dense, **extra)
+    if ctrl.kernel_path == "cuda":
+        check_pm_structure(
+            ctrl, "dense" if dmd or dense
+            or ctrl._fused.compute_dtype == "bfloat16" else "integrator",
+            f"point-mass loop (dmd={dmd}, dense={dense}, {extra})")
     ctrl.trace()  # builds and warms up; restores the controller's state
     env = PointMassEnv(n_dof=3, mass=MASS, dt=DT)
     x = env.reset()
@@ -686,6 +730,17 @@ def dense_constants(params: dict, sigma, task: dict):
 
 #: the dense-constant vehicle's upsilon: the z-quadratic runs
 DENSE_UPSILON = 1.2
+#: its end-to-end case at K=700, H=7 (the kDense solve's wnoise against
+#: the plain solve): a sigma a hundredth of the small cases' and lambda 50,
+#: so that the softmax is not degenerate. The plain costs of this case on
+#: the CPU give an ESS of ~634 of 700 at rk 1, 2 and 4 (the small cases':
+#: ~2-3, where a cost's last ulp moves the wnoise past 1e-3); gated at
+#: DENSE_E2E_MIN_ESS. At lambda 5 (ESS 144-204) the fused rows stood 1e-5
+#: to 2.5e-5 (z units) from block_partials of the costs kernel's costs,
+#: past that check's atol of 1e-5: kDense's fused and costs builds round
+#: some per-sample costs differently (PERF.md §6, ROADMAP §3)
+DENSE_E2E_SIGMA = np.diag([0.4] * 3 + [0.05] * 3)
+DENSE_E2E_LAM, DENSE_E2E_MIN_ESS = 50.0, 50.0
 
 
 def auv_modules(device, task, sigma, lam=AUV_LAM, rk=2, dense=False,
@@ -710,22 +765,23 @@ def auv_modules(device, task, sigma, lam=AUV_LAM, rk=2, dense=False,
 
 
 def auv_fused(k, tau, rk=2, sigma=AUV_SIGMA, kind="static_quat",
-              dense=False, upsilon=None, **opts):
+              dense=False, upsilon=None, lam=None, **opts):
     """FusedAUVMPPI over rexrov2 at ``rk``: the flagship task at ``sigma``
     ("static_quat"), or the bundled tasks/waypoints_quat_task on
     envs/uuv_sim and tasks/elipse3d_task on envs/bluerov at their sigma
     and lambda; ``dense``: the dense-constant vehicle; ``upsilon`` as in
-    auv_modules."""
+    auv_modules; ``lam`` overrides the lambda."""
     from mppi_tf_tpu_torch import flagship
     from mppi_tf_tpu_torch.cfg import default_config
     from mppi_tf_tpu_torch.kernels import auv_mppi as auv
 
-    task, lam = flagship.auv_task(), AUV_LAM
+    task, lam_kind = flagship.auv_task(), AUV_LAM
     if kind != "static_quat":
         env = default_config("envs/uuv_sim" if kind == "waypoints_quat"
                              else "envs/bluerov")
         task = dict(default_config(f"tasks/{kind}_task"))
-        sigma, lam = np.asarray(env["noise"], np.float64), env["lambda"]
+        sigma, lam_kind = np.asarray(env["noise"], np.float64), env["lambda"]
+    lam = lam_kind if lam is None else lam
     model, cost, sigma, ups = auv_modules("cuda", task, sigma, lam=lam,
                                           rk=rk, dense=dense, upsilon=upsilon)
     return auv.FusedAUVMPPI(model, cost, k=k, tau=tau, lam=lam, upsilon=ups,
@@ -1150,6 +1206,7 @@ def elipse_loop(kernel: str, normalize: bool, steps: int):
     ctrl = get_controller(model, cost, env, seed=0)
     x0 = torch.as_tensor(EL_X0, dtype=torch.float32, device="cuda")
     if ctrl.kernel_path == "cuda":   # warm-up without touching its state
+        check_pm_structure(ctrl, "integrator", "ellipse loop")
         ctrl._fused.solve(x0, ctrl.useq, normalize=normalize)
     else:
         ctrl._solve(x0, ctrl.useq)
@@ -1791,6 +1848,8 @@ def bf16_rollout_ops(consts, k: int, tau: int, dyn=None) -> float:
                  else sdim + 2 * nnz(consts.Q) + 2 * sdim)
         ab = (sdim * (sdim + adim) if consts.dynamic_ab
               else nnz(consts.A) + nnz(consts.Bs))
+        if consts.nc_half == 0.0:    # as solve_ops: no z-quadratic
+            zq = adim
         return float(k * (tau * (2 * ab + 2 * sdim + q_ops + zq) + q_ops))
     if hasattr(consts, "rk"):                         # the AUV
         full = auv_solve_ops(consts, dyn, 1, 1, prng=False, costs_only=True)
@@ -1804,13 +1863,17 @@ def bf16_rollout_ops(consts, k: int, tau: int, dyn=None) -> float:
 
 
 #: the instantiations the sass phase reads, f32 and bf16 builds, both
-#: modes: <S, A, MODE, COST, AB> of the point mass ((6, 3) quadratic,
-#: constant and dynamic (A, B)), <RK, MODE, COST, STRUCT> of the AUV (rk2,
-#: static_quat; f32 kDense and kDiag, bf16 kDense; <RK, MODE, COST> in a
-#: library from before STRUCT) and <N1, N2, N3, MODE> of the NN (3x32)
+#: modes: <S, A, MODE, COST, AB, STRUCT> of the point mass ((6, 3)
+#: quadratic; f32 kIntegrator, kDense and kDense with dynamic (A, B),
+#: bf16 kDense with constant and dynamic (A, B); <S, A, MODE, COST, AB> in
+#: a library from before STRUCT), <RK, MODE, COST, STRUCT> of the AUV
+#: (rk2, static_quat; f32 kDense and kDiag, bf16 kDense; <RK, MODE, COST>
+#: in a library from before STRUCT) and <N1, N2, N3, MODE> of the NN
+#: (3x32)
 SASS_KERNELS = (
-    *[(f"pm_fused_solve{b}_kernel", (6, 3, m, 0, ab)) for b in ("", "_bf16")
-      for m in (0, 1) for ab in (0, 1)],
+    *[(f"pm_fused_solve{b}_kernel", (6, 3, m, 0, ab, *st))
+      for b in ("", "_bf16") for m in (0, 1) for ab in (0, 1)
+      for st in ((), (0,), (1,)) if not ((b or ab) and st == (1,))],
     *[(f"auv_fused_solve{b}_kernel", (2, m, 0, *st)) for b in ("", "_bf16")
       for m in (0, 1) for st in ((), (0,), (1,))
       if not (b and st == (1,))],
@@ -1856,19 +1919,24 @@ def occupancy_phase(lib, reg_rows, n_sm: int) -> None:
     """Registers, blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor
     at the flagship horizon, unscheduled), warps an SM and waves at the
     flagship shapes (point mass K=100,000, H=50; AUV K=262,144, H=25; NN
-    K=65,536, H=25) of every solve instantiation, f32 and bf16 (the AUV's
-    f32 build in both structures). ``auv_f32_diag_rk12_min_warps``: the
-    fewest warps an SM of the kDiag instantiations at rk 1 and 2."""
+    K=65,536, H=25) of every solve instantiation, f32 and bf16 (the f32
+    builds in both structures). ``auv_f32_diag_rk12_min_warps``: the
+    fewest warps an SM of the kDiag instantiations at rk 1 and 2;
+    ``pm_f32_max_waves``: the most waves of an f32 point-mass
+    instantiation, which must be one (a gate: kDynAB held two blocks an SM
+    and ran 1.48 waves before)."""
     import ctypes
 
     regs = {(r["kernel"], tuple(r["template"])): r["registers"]
             for r in reg_rows}
     rows = []
     for sfx in ("", "_bf16"):
-        cases = [("pm", (s_, a_, mode, cost, ab), K)
+        # (STRUCT, AB): kIntegrator with constant (A, B), f32 alone
+        combos = ((1, 0), (0, 0), (0, 1)) if sfx == "" else ((0, 0), (0, 1))
+        cases = [("pm", (s_, a_, mode, cost, ab, st), K)
                  for s_, a_, cost in ((6, 3, 0), (2, 1, 0), (4, 2, 0),
                                       (4, 2, 1))
-                 for mode in (0, 1) for ab in (0, 1)]
+                 for mode in (0, 1) for st, ab in combos]
         cases += [("auv", (rk, mode, cost, st), AUV_K)
                   for rk in (1, 2, 4) for mode in (0, 1) for cost in (0, 1, 2)
                   for st in ((0, 1) if sfx == "" else (0,))]
@@ -1877,9 +1945,9 @@ def occupancy_phase(lib, reg_rows, n_sm: int) -> None:
         for model, args, k in cases:
             out = (ctypes.c_int * 2)()
             if model == "pm":
-                s_, a_, mode, cost, ab = args
-                rc = getattr(lib, f"pm_occupancy{sfx}")(s_, a_, cost, mode,
-                                                         ab, H, out)
+                s_, a_, mode, cost, ab, st = args
+                rc = getattr(lib, f"pm_occupancy{sfx}")(s_, a_, cost, st,
+                                                         mode, ab, H, out)
             elif model == "auv":
                 rk, mode, cost, st = args
                 rc = getattr(lib, f"auv_occupancy{sfx}")(rk, cost, st, mode,
@@ -1898,10 +1966,16 @@ def occupancy_phase(lib, reg_rows, n_sm: int) -> None:
                 "warps_an_sm": out[0] * 256 // out[1] // 32, "k": k,
                 "grid": blocks,
                 "waves": blocks / (out[0] * n_sm) if out[0] else None})
+    pm_waves = max(r["waves"] or float("inf") for r in rows
+                   if r["kernel"] == "pm_fused_solve_kernel")
     emit("occupancy", sms=n_sm, rows=rows, auv_f32_diag_rk12_min_warps=min(
         r["warps_an_sm"] for r in rows
         if r["kernel"] == "auv_fused_solve_kernel"
-        and r["template"][0] in (1, 2) and r["template"][3] == 1))
+        and r["template"][0] in (1, 2) and r["template"][3] == 1),
+        pm_f32_max_waves=pm_waves)
+    if not pm_waves <= 1.0:
+        raise AssertionError(f"an f32 point-mass instantiation runs "
+                             f"{pm_waves} waves at K={K}")
 
 
 def build_parent(parent: str) -> subprocess.Popen:
@@ -1918,19 +1992,26 @@ def build_parent(parent: str) -> subprocess.Popen:
 
 class ParentLibrary:
     """The parent's library behind this tree's entry-point signatures: an
-    AUV entry point that lacks this tree's structure argument (the third:
-    a library from before kDiag) is called without it, so it runs the
-    parent's dense kernels on the same inputs."""
+    entry point that lacks this tree's structure argument (the AUV's third,
+    from before kDiag; the point mass's fourth, from before kIntegrator) is
+    called without it, so it runs the parent's dense kernels on the same
+    inputs."""
+
+    #: the structure argument's place, by entry-point prefix
+    STRUCTURE_ARG = {"auv_": 2, "pm_": 3}
 
     def __init__(self, lib, arity: dict, signatures: dict):
         self._lib = lib
-        self._drop = {n for n, a in arity.items() if n.startswith("auv_")
+        self._drop = {n: i for n, a in arity.items()
+                      for pre, i in self.STRUCTURE_ARG.items()
+                      if n.startswith(pre)
                       and len(signatures.get(n, ())) == a + 1}
 
     def __getattr__(self, name):
         fn = getattr(self._lib, name)
         if name in self._drop:
-            return lambda *a: fn(*a[:2], *a[3:])
+            i = self._drop[name]
+            return lambda *a: fn(*a[:i], *a[i + 1:])
         return fn
 
 
@@ -1971,22 +2052,25 @@ PM_ELIPSE = {"type": "elipse", "a": 4.0, "b": 2.0, "center_x": 0.0,
 
 def pm_object(pm, sdim: int, adim: int, elipse: bool, dyn_ab: bool, k: int,
               tau: int, compute_dtype: str = "bfloat16", seed: int = 0,
-              **opts):
+              dense: bool = False, upsilon: float = 1.2, **opts):
     """A point-mass solve object on the card, (sdim, adim) at mass 1.3 and
-    upsilon 1.2 (so that the z-quadratic counts) under the static cost
-    (goal 0.5, Q 1) or the 2-DoF ellipse; with ``dyn_ab`` FusedLTIMPPI
-    over a DMDModel with a dense random (A, B) from ``seed`` (the kDynAB
-    instantiations)."""
+    ``upsilon`` (1.2: the z-quadratic counts) under the static cost (goal
+    0.5, Q 1) or the 2-DoF ellipse; with ``dense`` sigma and Q get
+    off-diagonal terms (dense_pm_constants: the dense kernels); with
+    ``dyn_ab`` FusedLTIMPPI over a DMDModel with a dense random (A, B)
+    from ``seed`` (the kDynAB instantiations)."""
     from mppi_tf_tpu_torch.costs import get_cost
     from mppi_tf_tpu_torch.models import get_model
     from mppi_tf_tpu_torch.models.dmd import DMDModel
 
-    sigma = SIGMA[:adim, :adim]
+    sigma, q = SIGMA[:adim, :adim], np.diag([1.0] * sdim)
+    if dense:
+        sigma, q = dense_pm_constants(sigma, [1.0] * sdim)
     model = get_model({"type": "point_mass", "mass": 1.3}, dt=DT,
                       state_dim=sdim, action_dim=adim, device="cuda")
-    task = PM_ELIPSE if elipse else {"type": "static", "diag": True,
-                                     "goal": [0.5] * sdim, "Q": [1.0] * sdim}
-    cost = get_cost(task, lam=LAM, gamma=GAMMA, upsilon=1.2, sigma=sigma,
+    task = PM_ELIPSE if elipse else {"type": "static", "diag": False,
+                                     "goal": [0.5] * sdim, "Q": q.tolist()}
+    cost = get_cost(task, lam=LAM, gamma=GAMMA, upsilon=upsilon, sigma=sigma,
                     device="cuda")
     cls = pm.FusedPointMassMPPI
     if dyn_ab:
@@ -1995,8 +2079,8 @@ def pm_object(pm, sdim: int, adim: int, elipse: bool, dyn_ab: bool, k: int,
                          init_A=np.eye(sdim) + 0.05 * rng.randn(sdim, sdim),
                          init_B=0.1 * rng.randn(sdim, adim), device="cuda")
         cls = pm.FusedLTIMPPI
-    return cls(model, cost, k=k, tau=tau, lam=LAM, upsilon=1.2, sigma=sigma,
-               compute_dtype=compute_dtype, **opts)
+    return cls(model, cost, k=k, tau=tau, lam=LAM, upsilon=upsilon,
+               sigma=sigma, compute_dtype=compute_dtype, **opts)
 
 
 def pm_dyn(f, rng) -> torch.Tensor:
@@ -2011,64 +2095,94 @@ def pm_dyn(f, rng) -> torch.Tensor:
                         dtype=torch.float32, device="cuda"))
 
 
-#: the per-sample costs of the subject against the parent's where kDiag's
+#: the per-sample costs of the subject against the parent's where the
 #: elision moves which product ptxas contracts into an FMA: the rtol
 #: allowed, the largest difference printed
 PARENT_COST_RTOL = 1e-6
 
 
-def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
-    """``--parent``: this tree's kernels against the parent's library on the
-    same inputs. The subject, the f32 AUV body (auv_fused_costs and
-    auv_fused_solve, every rk and cost kind in both structures: the
-    rexrov2 vehicle's diagonal constants, kDiag, and the dense-constant
-    vehicle, kDense, against the parent's one dense body; K=700 and 4,097
-    at H=7, scheduled + antithetic, and the flagships at K=262,144, H=25,
-    injected z and Philox): per-sample costs bit for bit, or within
-    PARENT_COST_RTOL with the largest difference printed, and the stats
-    and partial rows bit for bit, or within rtol 1e-3, atol 1e-5 once
-    merged (pm_merge) where the costs moved. The controls, which share
-    mppi_common.cuh and the AUV source: the bf16 builds of the point mass
-    (every instantiation), the AUV (every rk and cost kind) and the NN
-    (both networks), K=700 and 4,097 and the flagships, and the f32 point
-    mass and NN flagships, every output bit for bit. Then the f32 AUV
-    kernels timed in turns (parent, this, this, parent) at the flagship
-    shapes, auv_fused_costs and auv_fused_solve of each cost kind,
-    scheduled + antithetic and the dense vehicle; and the controls'
-    flagships."""
-    rng = np.random.default_rng(21)
+def parent_cases(pm, auv, nnk) -> list:
+    """(label, solve object, kernels) of parent_phase: the subject, every
+    f32 point-mass instantiation ("pm_f32_*"), then the controls."""
     ka, kn = quat_kernels(auv, "auv"), quat_kernels(nnk, "nn")
     kp = SimpleNamespace(costs=pm.pm_fused_costs, solve=pm.pm_fused_solve)
     cases = []
+    dims = ((6, 3, False), (2, 1, False), (4, 2, False), (4, 2, True))
+    for k in (700, 4097):
+        for sdim, adim, el in dims:
+            kind = f"{sdim}x{adim}_{'elipse' if el else 'quad'}"
+            for st in ("integrator", "dense"):
+                for ups in (1.0, 1.2):
+                    f = pm_object(pm, sdim, adim, el, False, k, 7,
+                                  compute_dtype="float32",
+                                  dense=st == "dense", upsilon=ups)
+                    if f.consts.structure != st:
+                        raise AssertionError(f"parent case pm {kind} {st}")
+                    cases.append((f"pm_f32_{kind}_{st}_ups{ups}_K{k}", f,
+                                  kp))
+            cases.append((f"pm_f32_{kind}_dynab_K{k}",
+                          pm_object(pm, sdim, adim, el, True, k, 7,
+                                    compute_dtype="float32", seed=k), kp))
+        for st in ("integrator", "dense"):
+            cases.append((f"pm_f32_sched_anti_{st}_K{k}",
+                          pm_object(pm, 6, 3, False, False, k, 7,
+                                    compute_dtype="float32",
+                                    dense=st == "dense", **FUSED_BOTH), kp))
+        cases.append((f"pm_f32_sched_anti_dynab_K{k}",
+                      pm_object(pm, 6, 3, False, True, k, 7,
+                                compute_dtype="float32", seed=k,
+                                **FUSED_BOTH), kp))
+    model, cost = workload("cuda")
+    dmd_model, _ = workload("cuda", dmd=True)
+    dense_model, dense_cost = workload("cuda", dense=True)
+    flag = {"lam": LAM, "upsilon": UPSILON}
+    cases += [
+        ("pm_f32_K100000", pm.FusedPointMassMPPI(
+            model, cost, k=K, tau=H, sigma=SIGMA, **flag), kp),
+        ("pm_f32_sched_H100", pm.FusedPointMassMPPI(
+            model, cost, k=K, tau=H100, sigma=SIGMA, schedule=SCHED,
+            **flag), kp),
+        ("pm_f32_antithetic_K100000", pm.FusedPointMassMPPI(
+            model, cost, k=K, tau=H, sigma=SIGMA, antithetic=True, **flag),
+         kp),
+        ("pm_f32_dynab_K100000", pm.FusedLTIMPPI(
+            dmd_model, cost, k=K, tau=H, sigma=SIGMA, **flag), kp),
+        ("pm_f32_elipse_K100000", tracking_fused(
+            pm_env(4), "tasks/elipse_task", "models/point_mass_model", K,
+            H)[2], kp),
+        ("pm_f32_dense_K100000", pm.FusedPointMassMPPI(
+            dense_model, dense_cost, k=K, tau=H, sigma=PM_DENSE_SIGMA,
+            **flag), kp)]
+    for label, want in (("pm_f32_K100000", "integrator"),
+                        ("pm_f32_sched_H100", "integrator"),
+                        ("pm_f32_antithetic_K100000", "integrator"),
+                        ("pm_f32_elipse_K100000", "integrator"),
+                        ("pm_f32_dynab_K100000", "dense"),
+                        ("pm_f32_dense_K100000", "dense")):
+        got = next(c[1] for c in cases if c[0] == label).consts.structure
+        if got != want:
+            raise AssertionError(f"parent case {label}: {got}, want {want}")
+    # the controls: the f32 AUV body in both structures, the bf16 builds,
+    # the NN
     kinds = ("static_quat", "waypoints_quat", "elipse3d")
     for k in (700, 4097):
         for rk in (1, 2, 4):
             for kind in kinds:
                 for dense in (False, True):
-                    f = auv_fused(k, 7, rk=rk, kind=kind, dense=dense)
                     st = "dense" if dense else "diagonal"
-                    if (f.consts.rk, f.consts.cost_kind,
-                            f.consts.structure) != (rk, kind, st):
-                        raise AssertionError(f"parent case {kind} rk{rk} "
-                                             f"{st}")
-                    cases.append((f"auv_f32_{kind}_rk{rk}_{st}_K{k}", f, ka))
-            # kDiag with the z-quadratic (upsilon 1.2: Mz's diagonal)
-            cases.append((f"auv_f32_static_quat_rk{rk}_diagonal_ups1.2_K{k}",
-                          auv_fused(k, 7, rk=rk, upsilon=DENSE_UPSILON), ka))
-            for kind in kinds:
-                f = auv_fused(k, 7, rk=rk, kind=kind,
-                              compute_dtype="bfloat16")
-                cases.append((f"auv_bf16_{kind}_rk{rk}_K{k}", f, ka))
+                    cases.append((f"auv_f32_{kind}_rk{rk}_{st}_K{k}",
+                                  auv_fused(k, 7, rk=rk, kind=kind,
+                                            dense=dense), ka))
+                cases.append((f"auv_bf16_{kind}_rk{rk}_K{k}",
+                              auv_fused(k, 7, rk=rk, kind=kind,
+                                        compute_dtype="bfloat16"), ka))
         for dense in (False, True):
             st = "dense" if dense else "diagonal"
             cases.append((f"auv_f32_sched_anti_{st}_K{k}",
                           auv_fused(k, 7, dense=dense, **FUSED_BOTH), ka))
-        for sdim, adim, el in ((6, 3, False), (2, 1, False), (4, 2, False),
-                               (4, 2, True)):
+        for sdim, adim, el in dims:
             for ab in (False, True):
                 f = pm_object(pm, sdim, adim, el, ab, k, 7, seed=k)
-                if f.consts.cost_kind != ("elipse" if el else "quadratic"):
-                    raise AssertionError(f"parent case pm {sdim}x{adim}")
                 cases.append((f"pm_bf16_{sdim}x{adim}_"
                               f"{'elipse' if el else 'quad'}"
                               f"{'_dynab' if ab else ''}_K{k}", f, kp))
@@ -2086,28 +2200,43 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
         ("nn_bf16_sched_anti_K700", nn_fused(700, 7, compute_dtype=
                                              "bfloat16", **FUSED_BOTH), kn),
         ("auv_f32_static_quat_flagship", auv_fused(AUV_K, AUV_H), ka),
-        ("auv_f32_waypoints_quat_flagship",
-         auv_fused(AUV_K, AUV_H, kind="waypoints_quat"), ka),
-        ("auv_f32_elipse3d_flagship", auv_fused(AUV_K, AUV_H, kind="elipse3d"),
-         ka),
-        ("auv_f32_sched_anti_flagship", auv_fused(AUV_K, AUV_H, **FUSED_BOTH),
-         ka),
         ("auv_f32_dense_flagship", auv_fused(AUV_K, AUV_H, dense=True), ka),
         ("auv_bf16_flagship", auv_fused(AUV_K, AUV_H,
                                         compute_dtype="bfloat16"), ka),
         ("nn_bf16_flagship", nn_fused(NN_K, NN_H, compute_dtype="bfloat16"),
          kn),
-        ("nn_f32_flagship", nn_fused(NN_K, NN_H), kn)]
-    model, cost = workload("cuda")
-    dmd_model, _ = workload("cuda", dmd=True)
-    for cd in ("bfloat16", "float32"):
-        tag = "bf16" if cd == "bfloat16" else "f32"
-        cases += [(f"pm_{tag}_K100000", pm.FusedPointMassMPPI(
-            model, cost, k=K, tau=H, lam=LAM, upsilon=UPSILON, sigma=SIGMA,
-            compute_dtype=cd), kp), (f"pm_{tag}_dynab_K100000",
-                                     pm.FusedLTIMPPI(
-            dmd_model, cost, k=K, tau=H, lam=LAM, upsilon=UPSILON,
-            sigma=SIGMA, compute_dtype=cd), kp)]
+        ("nn_f32_flagship", nn_fused(NN_K, NN_H), kn),
+        ("pm_bf16_K100000", pm.FusedPointMassMPPI(
+            model, cost, k=K, tau=H, sigma=SIGMA, compute_dtype="bfloat16",
+            **flag), kp),
+        ("pm_bf16_dynab_K100000", pm.FusedLTIMPPI(
+            dmd_model, cost, k=K, tau=H, sigma=SIGMA,
+            compute_dtype="bfloat16", **flag), kp)]
+    return cases
+
+
+def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
+    """``--parent``: this tree's kernels against the parent's library on the
+    same inputs. The subject, the f32 point-mass body (pm_fused_costs and
+    pm_fused_solve, every f32 instantiation: (6, 3), (2, 1) and (4, 2)
+    quadratic and the (4, 2) ellipse in both structures, the diagonal task
+    (integrator) and a full sigma and Q (dense), at upsilon 1 and 1.2,
+    and dynamic (A, B), at K=700 and 4,097, H=7, scheduled + antithetic,
+    and the flagships: K=100,000 H=50, point_mass_h100, antithetic, the
+    dmd row, the ellipse and the dense-constant point mass; injected z and
+    Philox), against the parent's one dense body: per-sample costs bit
+    for bit, or within PARENT_COST_RTOL with the largest difference
+    printed, and the stats and partial rows bit for bit, or within rtol
+    1e-3, atol 1e-5 once merged (pm_merge). The controls, which share
+    mppi_common.cuh or the point mass's source: the f32 AUV body (every
+    rk and cost kind in both structures, K=700 and 4,097, and two
+    flagships) and the bf16 builds of the point mass, the AUV and the NN,
+    and the NN's f32 flagship, every output bit for bit. Then the
+    point-mass f32 flagships timed in turns (parent, this, this, parent),
+    pm_fused_solve and pm_fused_costs each, and the controls' flagships."""
+    rng = np.random.default_rng(21)
+    cases = parent_cases(pm, auv, nnk)
+    kp = cases[0][2]
     res, dyns = {}, {}
     for label, f, kern in cases:
         dyn = (pm_dyn(f, rng) if kern is kp else
@@ -2149,7 +2278,7 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
     differing = {label: {o: v for o, v in out.items() if v is not True}
                  for label, out in res.items()}
     differing = {label: d for label, d in differing.items() if d}
-    subject = {label for label in res if label.startswith("auv_f32")}
+    subject = {label for label in res if label.startswith("pm_f32")}
     controls_equal = not any(label not in subject for label in differing)
     subject_ok = all(v.get("within_rtol", v.get("merged_ok", False))
                      for label, d in differing.items() for v in d.values())
@@ -2157,30 +2286,33 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
                               if o.endswith("_costs"))
                    for label, d in differing.items()
                    if any(o.endswith("_costs") for o in d)}
+    rows_moved = sorted(label for label, d in differing.items()
+                        if any(o.endswith("rows") for o in d))
     emit("parent_bits", cases=sorted(res), subject=sorted(subject),
          outputs_compared=sum(len(o) for o in res.values()),
          all_equal=not differing,
          subject_costs_all_equal=not costs_moved,
          subject_costs_max_rel_diff=costs_moved,
+         subject_rows_moved=rows_moved,
          subject_within_tol=subject_ok, controls_all_equal=controls_equal,
          differing=differing, cost_rtol=PARENT_COST_RTOL,
          note="this tree's kernels against the parent commit's library on "
-         "the same inputs, torch.equal; the subject (f32 AUV, kDiag and "
-         "kDense against the parent's dense body) may move a cost by an "
-         "ulp where the elision changes which product is contracted into "
-         "an FMA (rtol cost_rtol), its rows then held merged at rtol 1e-3, "
-         "atol 1e-5; every control bit for bit")
+         "the same inputs, torch.equal; the subject (f32 point mass, "
+         "integrator and dense against the parent's dense body) may move "
+         "a cost by an ulp where the elision changes which product is "
+         "contracted into an FMA (rtol cost_rtol), its rows then held "
+         "merged at rtol 1e-3, atol 1e-5; every control bit for bit")
     if not (controls_equal and subject_ok):
         raise AssertionError(f"parent_bits: {differing}")
     # times in turns, parent and this tree
     times = {}
     for label, kern_fn in (
-            *[(f"auv_f32_{name}_flagship", fn)
-              for fn in ("costs", "solve")
-              for name in ("static_quat", "waypoints_quat", "elipse3d",
-                           "sched_anti", "dense")],
-            ("auv_bf16_flagship", "costs"),
-            ("pm_f32_K100000", "solve"),
+            *[(f"pm_f32_{name}", fn) for fn in ("solve", "costs")
+              for name in ("K100000", "sched_H100", "antithetic_K100000",
+                           "dynab_K100000", "elipse_K100000",
+                           "dense_K100000")],
+            ("auv_f32_static_quat_flagship", "costs"),
+            ("auv_f32_static_quat_flagship", "solve"),
             ("pm_bf16_K100000", "costs"),
             ("pm_bf16_K100000", "solve"),
             ("nn_f32_flagship", "solve"),
@@ -2662,6 +2794,12 @@ def main() -> int:
     if f32 != len(BASE_REGISTERS):
         raise AssertionError(f"{f32} of {len(BASE_REGISTERS)} f32 "
                              f"instantiations built")
+    # the point mass's f32 body: (fused, costs) x four (dims, cost) x
+    # (integrator, dense, dense with dynamic (A, B))
+    pm_f32 = sum(r["kernel"] == "pm_fused_solve_kernel" for r in reg_rows)
+    if pm_f32 != 24:
+        raise AssertionError(f"{pm_f32} of 24 f32 point-mass "
+                             f"instantiations built")
     if parent_lib is not None:
         parent_phase(_build, parent_lib, pm, auv, nnk, smi)
 
@@ -2678,6 +2816,18 @@ def main() -> int:
     z_small = torch.as_tensor(rng.standard_normal((7, 3, 700), np.float32),
                               device="cuda")
     check_solve(pm, small, z_small, "K700_H7_ragged")
+    # the dense instantiations at the same shapes: the dense-constant point
+    # mass (full sigma and Q); the workload itself runs the integrator
+    dense_model, dense_cost = workload("cuda", dense=True)
+    pm_dense = pm.FusedPointMassMPPI(dense_model, dense_cost, k=K, tau=H,
+                                     lam=LAM, upsilon=UPSILON,
+                                     sigma=PM_DENSE_SIGMA)
+    if (fused.consts.structure, pm_dense.consts.structure) != (
+            "integrator", "dense"):
+        raise AssertionError(f"point-mass structures: workload "
+                             f"{fused.consts.structure}, dense-constant "
+                             f"{pm_dense.consts.structure}")
+    dense_pm_chk = check_solve(pm, pm_dense, z_big, "dense_K100000_H50")
 
     # ---- 4. noise -----------------------------------------------------------
     noise = noise_phase(pm, seed=1234, solve=5)
@@ -2746,6 +2896,28 @@ def main() -> int:
                              f"(normalized cuda path)")
     del ctrl_n
 
+    # ---- 7b. the dense-constant point mass's loops (the dense kernels) -------
+    pm_dense_loops = {}
+    for normalize in (False, True):
+        ctrl_dp, err_dp, ms_dp, counts_dp = closed_loop(
+            "auto", normalize, steps=DENSE_STEPS, dense=True)
+        want = {n: 0 for n in counts_dp}
+        want.update({"pm_fused_costs": DENSE_STEPS,
+                     "mppi_weights": DENSE_STEPS,
+                     "pm_merge": 2 * DENSE_STEPS} if normalize else
+                    {"pm_fused_solve": DENSE_STEPS,
+                     "pm_merge": DENSE_STEPS})
+        emit("pm_dense_closed_loop", normalize=normalize,
+             kernel_path=ctrl_dp.kernel_path,
+             structure=ctrl_dp._fused.consts.structure, K=K, H=H,
+             steps=DENSE_STEPS, goal_err=err_dp, launches=counts_dp,
+             step_ms_median=float(np.median(ms_dp)))
+        if not (counts_dp == want and np.isfinite(err_dp)):
+            raise AssertionError(f"dense point-mass loop (normalize="
+                                 f"{normalize}): {counts_dp}, err {err_dp}")
+        pm_dense_loops[normalize] = counts_dp
+        del ctrl_dp
+
     # ---- 8. phase B against its plain version, adim 3 and 6 ------------------
     pm_costs_k, _ = pm.pm_fused_costs(fused.consts, fused.pack_dyn(
         x0, torch.zeros(H, 3, device="cuda")), K, H, z=z_big)
@@ -2757,6 +2929,16 @@ def main() -> int:
          ratio=ratio_pc, rtol=PM_COST_RTOL, atol=PM_COST_ATOL)
     if not ok_pc:
         raise AssertionError(f"pm_fused_costs disagrees: {err_pc}")
+    dense_dyn = pm_dense.pack_dyn(x0, torch.zeros(H, 3, device="cuda"))
+    ok_dc, err_dc, ratio_dc = close(
+        pm.pm_fused_costs(pm_dense.consts, dense_dyn, K, H, z=z_big)[0],
+        pm.fused_costs_plain(pm_dense.consts, dense_dyn, K, H, z=z_big)[0],
+        PM_COST_RTOL, PM_COST_ATOL)
+    emit("pm_costs_vs_plain_dense", k=K, tau=H, ok=ok_dc,
+         max_abs_err=err_dc, ratio=ratio_dc, rtol=PM_COST_RTOL,
+         atol=PM_COST_ATOL)
+    if not ok_dc:
+        raise AssertionError(f"dense pm_fused_costs disagrees: {err_dc}")
     w3 = check_weights(pm, fused, "adim3_K100000_H50")
     flag = auv_fused(AUV_K, AUV_H)
     w6 = check_weights(pm, flag, "adim6_K262144_H25")
@@ -2799,6 +2981,14 @@ def main() -> int:
                       f"dense_{cost_kind}_K700_H7_rk{rk}", useq_scale=5.0,
                       x0=([4.0, 0, -3.0, 0, 0, 0, 1.0] + [0.0] * 6
                           if cost_kind == "elipse3d" else x_dive))
+        # the kDense solve end to end, on a softmax that is not degenerate
+        sm = auv_fused(700, 7, rk=rk, sigma=DENSE_E2E_SIGMA, dense=True,
+                       lam=DENSE_E2E_LAM)
+        e2e = check_auv(auv_k, pm, sm, z_s, f"dense_e2e_K700_H7_rk{rk}",
+                        useq_scale=5.0, x0=x_dive, end_to_end=True)
+        if not e2e["ess"] >= DENSE_E2E_MIN_ESS:
+            raise AssertionError(f"dense end-to-end case rk{rk}: ESS "
+                                 f"{e2e['ess']} < {DENSE_E2E_MIN_ESS}")
 
     # ---- 10. the AUV Philox solve consumes pm_noise_dump(adim=6) ------------
     dyn_f = auv_dyn(flag, 200.0, seed=5)
@@ -3093,6 +3283,7 @@ def main() -> int:
          avg_solve_ms=1e3 * ctrl_w.timing["total"] / ctrl_w.timing["calls"])
     want = {n: 0 for n in wp_counts}
     want.update(pm_fused_solve=PM_WP_STEPS, pm_merge=PM_WP_STEPS)
+    check_pm_structure(ctrl_w, "integrator", "point-mass mission")
     if not (ctrl_w.kernel_path == "cuda" and wp_counts == want
             and pops_w == 2 and wp_err < PM_WP_TOL):
         raise AssertionError(f"point-mass mission: {ctrl_w.kernel_path}, "
@@ -3398,6 +3589,23 @@ def main() -> int:
                            + 4.0 * a_nb * pm.STATS,
                            auv_solve_ops(dd, dyn_d, AUV_K, AUV_H, prng=True,
                                          costs_only=True)))}
+
+    # the dense kernels on the dense-constant point mass at the same shapes
+    pd, dyn_pd = pm_dense.consts, pm_dense.pack_dyn(x0, useq)
+    pm_dense_t = {
+        "solve": dict(kernel_time(
+            lambda: pm.pm_fused_solve(pd, dyn_pd, K, H, seed=1, solve=1),
+            lambda: pm.fused_solve_plain(pd, dyn_pd, K, H, seed=1,
+                                         solve=1)),
+            bound=bound_ms(4.0 * dyn_pd.numel() + part_bytes,
+                           solve_ops(pd, K, H, prng=True))),
+        "costs": dict(kernel_time(
+            lambda: pm.pm_fused_costs(pd, dyn_pd, K, H, seed=1, solve=1),
+            lambda: pm.fused_costs_plain(pd, dyn_pd, K, H, seed=1,
+                                         solve=1)),
+            bound=bound_ms(4.0 * dyn_pd.numel() + 4.0 * K + rows_b,
+                           solve_ops(pd, K, H, prng=True,
+                                     costs_only=True)))}
 
     # the unnormalized solve without the fused mode: phase A, its stats
     # merge, phase B with nrm = (cmin, 1/lam) (the same softmax, weights in
@@ -3796,6 +4004,7 @@ def main() -> int:
     kernels = [
         {"name": "pm_fused_solve", "route": "cuda", "source": src,
          "replaces": "mppi_tf_tpu/kernels/pm_mppi.py:1000",
+         "structure": consts.structure,
          "launches": main_counts["pm_fused_solve"],
          "max_abs_err": main_chk["solve_only_max_abs_err"],
          "ms": t_solve, "plain_ms": p_solve, "bound_ms": b_solve[0],
@@ -3814,6 +4023,7 @@ def main() -> int:
          "bound_by": b_dump[1], "library_ms": None},
         {"name": "pm_fused_costs", "route": "cuda", "source": src,
          "replaces": "mppi_tf_tpu/kernels/pm_mppi.py:1073",
+         "structure": consts.structure,
          "launches": pm_norm_counts["pm_fused_costs"],
          "path": "point-mass normalized closed loop",
          "max_abs_err": err_pc,
@@ -3861,6 +4071,24 @@ def main() -> int:
             + ("872" if mode else "804"), "structure": dd.structure,
             "launches": dense_loops[mode][f"auv_fused_{name}"],
             "path": f"dense-constant AUV loop, "
+                    f"{'normalized' if mode else 'unnormalized'}",
+            "max_abs_err": err, "max_abs_err_of": err_of, "ms": t["ms"],
+            "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            "library_ms": None})
+    for name, mode, err, err_of in (
+            ("solve", False, dense_pm_chk["solve_only_max_abs_err"],
+             "weighted noise of the solve's rows (plain merge) against the "
+             "plain solve, K=100000, H=50"),
+            ("costs", True, err_dc,
+             "per-sample costs against the plain version, K=100000, H=50")):
+        t = pm_dense_t[name]
+        kernels.append({
+            "name": f"pm_fused_{name}[dense]", "route": "cuda",
+            "source": src, "replaces": "mppi_tf_tpu/kernels/pm_mppi.py:"
+            + ("1073" if mode else "1000"), "structure": pd.structure,
+            "launches": pm_dense_loops[mode][f"pm_fused_{name}"],
+            "path": f"dense-constant point-mass loop, "
                     f"{'normalized' if mode else 'unnormalized'}",
             "max_abs_err": err, "max_abs_err_of": err_of, "ms": t["ms"],
             "device_ms": t["device_ms"], "plain_ms": t["plain_ms"],

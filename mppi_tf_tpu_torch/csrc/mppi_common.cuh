@@ -330,6 +330,23 @@ struct NoiseStream {
     ++lane;
     return v;
   }
+  // Normals 4 b0 .. 4 b0 + count - 1 (count <= 4 NB) into v[0 .. count - 1],
+  // in f32: injected z[n][k], or the Philox blocks b0, b0 + 1, ... that
+  // hold them, drawn as independent chains (no buffer, no refill branch).
+  template <int NB>
+  __device__ __forceinline__ void blocks(int b0, int count, float* v) const {
+    if (z != nullptr) {
+#pragma unroll
+      for (int i = 0; i < 4 * NB; ++i)
+        if (i < count) v[i] = injected(4 * b0 + i);
+    } else {
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        if (4 * b < count)
+          philox_normals(source, static_cast<uint32_t>(b0 + b), sd, sign,
+                         v + 4 * b);
+    }
+  }
   // a normal as the kernels read it: rounded to bf16 in the bf16 builds
   static __device__ __forceinline__ float read_normal(float f) {
 #ifdef MPPI_BF16
@@ -392,6 +409,34 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
+// warp_sum of each of v[0 .. N - 1] (N a power of two <= 32) at once, a
+// transposed butterfly: at offset O each lane keeps the half of its N
+// partial sums that its lane bit O selects and adds the partner's copy of
+// that half, one SHFL a kept sum, until one is left (then plain warp_sum
+// levels). Lane l ends with the sum of v[l / (32 / N)]: N - 1 + 5 - log2 N
+// SHFL for N sums, against 5 N. The lanes pair at xor 16, 8, 4, 2, 1 as in
+// warp_sum and each level adds the same two partial sums (in either
+// order: IEEE addition commutes), so every sum is warp_sum's bits.
+template <int N, int O = 16>
+__device__ __forceinline__ float warp_sum_each(float* v, int lane) {
+  if constexpr (N > 1) {
+    constexpr int h = N / 2;
+    const bool up = (lane & O) != 0;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const float keep = up ? v[i + h] : v[i];
+      const float send = up ? v[i] : v[i + h];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
+    }
+  } else {
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
+  }
+  if constexpr (O > 1)
+    return warp_sum_each<(N > 1 ? N / 2 : 1), O / 2>(v, lane);
+  else
+    return v[0];
+}
+
 // StaticQuatCost.state_cost of a 13-dim AUV state (auv_mppi.cu,
 // nn_mppi.cu): d^T Q d, d = [p - g_p, 2 acos(clamp(q.g_q)), nu - g_nu] with
 // the signed dot (costs/static.py) and Q the 10x10 row-major weight; with
@@ -438,7 +483,13 @@ __device__ __forceinline__ float quat_state_cost(const float* q,
 // stream and reduces sum_k w_k z_k per normal with warp shuffles (a
 // thread's lanes summed first), then over the block's warps in s_red
 // (kWarps * n_z floats). At kL = 1 every sum is the f32 kernels' own.
-template <bool kMaxShift, int kL>
+// kZBlocks > 0 (one lane, the point-mass f32 body): pass two regenerates
+// kZBlocks Philox blocks at a time (NoiseStream::blocks, independent
+// chains) and reduces their 4 kZBlocks products w_k z_k across the warp
+// together (warp_sum_each), each lane writing one sum: the same sums (the
+// product rounded alone, as the per-normal loop's is: it multiplies, then
+// shuffles, then adds).
+template <bool kMaxShift, int kL, int kZBlocks = 0>
 __device__ __forceinline__ void write_partial_row_lanes(
     const float* zarg, const float* cost, const bool* valid, NoiseStream* ns,
     int n_z, float* s_red, float* row) {
@@ -486,17 +537,34 @@ __device__ __forceinline__ void write_partial_row_lanes(
     s_stat[4][warp] = csum;
   }
 
+  if constexpr (kZBlocks == 0) {
 #pragma unroll
-  for (int l = 0; l < kL; ++l) ns[l].reset();
-  for (int n = 0; n < n_z; ++n) {
-    float zl[kL];
-    next_lanes_f32<kL>(ns, n, zl);
-    float wz = wgt[0] * NoiseStream::read_normal(zl[0]);
+    for (int l = 0; l < kL; ++l) ns[l].reset();
+    for (int n = 0; n < n_z; ++n) {
+      float zl[kL];
+      next_lanes_f32<kL>(ns, n, zl);
+      float wz = wgt[0] * NoiseStream::read_normal(zl[0]);
 #pragma unroll
-    for (int l = 1; l < kL; ++l)
-      wz += wgt[l] * NoiseStream::read_normal(zl[l]);
-    const float v = warp_sum(wz);
-    if (lane == 0) s_red[warp * n_z + n] = v;
+      for (int l = 1; l < kL; ++l)
+        wz += wgt[l] * NoiseStream::read_normal(zl[l]);
+      const float v = warp_sum(wz);
+      if (lane == 0) s_red[warp * n_z + n] = v;
+    }
+  } else {
+    static_assert(kL == 1, "grouped regeneration: one sample a thread");
+    constexpr int kN = 4 * kZBlocks, kCopies = 32 / kN;
+#pragma unroll 1
+    for (int n0 = 0; n0 < n_z; n0 += kN) {
+      const int count = min(kN, n_z - n0);
+      float v[kN];
+      ns[0].template blocks<kZBlocks>(n0 / 4, count, v);
+#pragma unroll
+      for (int i = 0; i < kN; ++i)
+        v[i] = i < count ? mul_r(wgt[0], v[i]) : 0.0f;
+      const float s = warp_sum_each<kN>(v, lane);
+      const int n = n0 + lane / kCopies;
+      if (lane % kCopies == 0 && n < n_z) s_red[warp * n_z + n] = s;
+    }
   }
   __syncthreads();
 

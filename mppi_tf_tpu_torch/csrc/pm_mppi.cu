@@ -17,7 +17,7 @@
 //   it writes (4 per normal); Philox and Box-Muller are ~32 operations per
 //   normal, below that.
 //
-// pm_fused_solve_kernel<S, A, MODE, COST, AB> -- MODE kFused replaces
+// pm_fused_solve_kernel<S, A, MODE, COST, AB, STRUCT> -- MODE kFused replaces
 //   fused_pm_call (_make_kernel in mode "fused" + _fill_noise); MODE kCosts
 //   replaces fused_pm_costs (mode "costs", phase A of the normalized
 //   solve). COST is the state cost of _make_kernel's cost_kind:
@@ -52,20 +52,44 @@
 //     grid's second half;
 //   * AB kDynAB replaces _make_kernel's `dynamic_ab` variant (the _Dyn A /
 //     Bs blocks of :140-143, smem_dot of :444-456, the step of :497-508):
-//     A and B scale come from the dyn array staged in shared memory
-//     (kernels/pm_mppi.py Dyn.A, Dyn.Bs, after u_half) instead of the
-//     by-value constants, so an identified linear model (FusedLTIMPPI)
-//     changes them as data, with no rebuild and no host repack. The host
-//     packs inv_mass = 1 and bu = the true B u_t, so the step
-//     fmaf(1, bu + c_t bz, ax) is the TPU's ax + (bu + c_t bz). Every
-//     thread reads the same address: broadcast loads, no bank conflicts.
-//     Both variants run dense FMA chains over runtime operands (constant
-//     bank or shared memory); neither elides zeros;
+//     A and B scale come from the dyn array (kernels/pm_mppi.py Dyn.A,
+//     Dyn.Bs, after u_half) instead of the by-value constants, so an
+//     identified linear model (FusedLTIMPPI) changes them as data, with no
+//     rebuild and no host repack. The host packs inv_mass = 1 and bu = the
+//     true B u_t, so the step fmaf(1, bu + c_t bz, ax) is the TPU's ax +
+//     (bu + c_t bz);
+//   * STRUCT is the TPU kernel's compile-time zero elision (sparse_dot,
+//     :430-442, over its constants; kernels/pm_mppi.py PmConsts.structure
+//     picks it exactly). kIntegrator (f32, constant (A, B): every bundled
+//     point-mass task at a diagonal sigma) emits no instruction for the
+//     zeros of A, B scale, Q and Mz and no multiply for A's unit
+//     diagonal: a step is A(2d, 2d+1) x_(2d+1) + x_2d, B scale's one
+//     product a row, Q_ii d_i, and the z-quadratic only where nc_half is
+//     not 0 (a uniform branch, the TPU's `if nc_half != 0.0`); the values
+//     stay runtime data in the constants. Its per-sample costs are
+//     kDense's bits: the one product a dense chain would round in its
+//     first FMA is rounded alone (mul_r), so ptxas cannot contract it
+//     into the next add. kDense runs every matrix dense, for any other
+//     constants, dynamic_ab and the bf16 build;
+//   * the f32 body (one sample a thread) draws its normals a group of
+//     steps at a time: lcm(A, 4) / A steps read lcm(A, 4) / 4 whole
+//     Philox blocks, drawn as independent chains ahead of the group's
+//     steps (A = 3: 4 steps, 3 blocks), then a tail of H mod that; normal
+//     t A + j is still block (t A + j) / 4, word (t A + j) % 4, and
+//     injected z is read as z[t A + j][k]. Pass two regenerates 4 blocks
+//     at a time and reduces their 16 products w_k z_k over the warp at
+//     once (mppi_common.cuh warp_sum_each: 16 SHFL for 16 normals against
+//     5 a normal, each sum warp_sum's bits). It asks for three blocks of
+//     256 an SM (at most 80 registers): the 391 blocks of K=100,000 fit
+//     one wave on 132 SMs. kDense reads A and B scale at each use from
+//     rows padded in shared memory (volatile loads, AbRows): hoisted
+//     into registers, they spill at that bound;
 //   * the TPU's sin polynomial and mantissa-stuffing uniform worked around
 //     Mosaic; here logf / sqrtf / sincospif are used directly;
 //   * the bf16 block compute (compute_dtype "bfloat16", :363-368 and the
 //     casts of :417-428, :459-560) is this source compiled at Val = bf16x2
-//     through pm_mppi_bf16.cu (mppi_common.cuh, MPPI_BF16_PAIRS): two
+//     through pm_mppi_bf16.cu (mppi_common.cuh, MPPI_BF16_PAIRS), with a
+//     body of its own (kDense alone): two
 //     samples a thread, 128 threads a block for one partial row, each
 //     rollout op one native add.rn / sub.rn / mul.rn.bf16x2 for both. The
 //     state, x0, goal, the rollout and cost chains round at every op in
@@ -121,6 +145,13 @@ enum PmCost { kQuadratic = 0, kElipse = 1 };
 // Where the solve reads A and B scale: the by-value constants, or dyn.
 enum PmAB { kConstAB = 0, kDynAB = 1 };
 
+// Structure of the solve constants (kernels/pm_mppi.py STRUCTURES):
+// kIntegrator takes A as the per-DoF double integrator (a unit diagonal,
+// A(2d, 2d+1) its only other nonzeros), B scale's nonzeros at (2d, d) and
+// (2d+1, d), and Q and Mz diagonal; kDense runs every matrix dense. The
+// f32 build alone has kIntegrator.
+enum PmStruct { kDense = 0, kIntegrator = 1 };
+
 // Solve constants, in the order of kernels/pm_mppi.py PmConsts.packed; W
 // is the type of the rollout's constants: float, or in the pair build the
 // duplicated bf16x2 word (w, w) of each (the host packs them rounded).
@@ -136,6 +167,7 @@ struct ConstsT {
 };
 template <int S, int A>
 using HostConsts = ConstsT<S, A, float>;
+
 #ifdef MPPI_BF16
 template <int S, int A>
 using Consts = ConstsT<S, A, bf16x2>;
@@ -184,31 +216,20 @@ __device__ __forceinline__ float stage_dyn(const float* dyn, int i, int tau,
     return stage_word(dyn[0] * dyn[i]);
   return stage_word(dyn[i]);
 }
-#else
-template <int S, int A>
-using Consts = HostConsts<S, A>;
-struct ElipseVals {};  // the f32 cost reads c.el
-#endif
 
 // cost[l] += lane l of v: each lane's own f32 cost
 __device__ __forceinline__ void add_lanes(float* cost, Val v) {
-#ifdef MPPI_BF16
 #pragma unroll
   for (int l = 0; l < kLanes; ++l) cost[l] += widen(v, l);
-#else
-  cost[0] += v;
-#endif
 }
 
 // The rollout's matrices, entry i of each: A (row-major), B scale (mass
-// free), Q and Mz.
-#ifdef MPPI_BF16
-// In the pair build every entry is a word held in a register over the
-// solve, loaded once from its copy in shared memory (stage_mats): a bf16x2
-// op takes no constant-bank operand, and read at every use each entry
-// would cost an LDC (ptxas rematerialises constant-bank loads) or, with
-// kDynAB, an LDS (NVVM moves no load across the ops' inline asm) a use a
-// step.
+// free), Q and Mz. In the pair build every entry is a word held in a
+// register over the solve, loaded once from its copy in shared memory
+// (stage_mats): a bf16x2 op takes no constant-bank operand, and read at
+// every use each entry would cost an LDC (ptxas rematerialises
+// constant-bank loads) or, with kDynAB, an LDS (NVVM moves no load across
+// the ops' inline asm) a use a step.
 template <int S, int A, int AB>
 struct Mats {
   static constexpr int kN = 2 * S * S + S * A + A * A;
@@ -248,36 +269,15 @@ __device__ __forceinline__ void stage_mats(const Consts<S, A>& c,
       s_mat[i] = const_word(c, i);
   }
 }
-#else
-// At f32 the chains read them as FFMA operands: the constants from the
-// constant bank or, with kDynAB, A and B scale from dyn's blocks in
-// shared memory (ab: A, then B scale).
-template <int S, int A, int AB>
-struct Mats {
-  const Consts<S, A>& c;
-  const float* ab;
-  __device__ __forceinline__ Val a(int i) const {
-    if constexpr (AB == kDynAB) return ab[i];
-    else return c.a[i];
-  }
-  __device__ __forceinline__ Val bs(int i) const {
-    if constexpr (AB == kDynAB) return ab[S * S + i];
-    else return c.bs[i];
-  }
-  __device__ __forceinline__ Val q(int i) const { return c.q[i]; }
-  __device__ __forceinline__ Val mz(int i) const { return c.mz[i]; }
-};
-#endif
 
-// goal: the staged goal (words in the pair build)
+// goal: the staged goal words
 template <int S, int A, int COST, typename M>
 __device__ __forceinline__ Val state_cost(const Consts<S, A>& c, const M& m,
                                           const ElipseVals& e, const Val* x,
                                           const float* goal) {
   if constexpr (COST == kElipse) {
     static_assert(S == 4 && A == 2, "the ellipse cost is 2D: [x, vx, y, vy]");
-    // m_state |((x-cx)/a)^2 + ((y-cy)/b)^2 - 1| + m_vel (|v| - gv)^2
-#ifdef MPPI_BF16
+    // m_state |((x-cx)/a)^2 + ((y-cy)/b)^2 - 1| + m_vel (|v| - gv)^2 in
     // the TPU kernel's bf16 form (:474-485): scaled by 1/a, the sqrt per
     // lane in f32
     const Val ex = (x[0] - e.cx) * e.inv_a;
@@ -286,12 +286,6 @@ __device__ __forceinline__ Val state_cost(const Consts<S, A>& c, const M& m,
     const Val dv = per_lane(x[1] * x[1] + x[3] * x[3],
                             [](float v) { return sqrtf(v); }) - e.gv;
     return e.ms * d + e.mv * (dv * dv);
-#else
-    const float ex = (x[0] - c.el[2]) / c.el[0];
-    const float ey = (x[2] - c.el[3]) / c.el[1];
-    const float dv = sqrtf(x[1] * x[1] + x[3] * x[3]) - c.el[4];
-    return c.el[5] * fabsf(ex * ex + ey * ey - 1.0f) + c.el[6] * dv * dv;
-#endif
   } else {
     Val d[S];
 #pragma unroll
@@ -309,7 +303,8 @@ __device__ __forceinline__ Val state_cost(const Consts<S, A>& c, const M& m,
   }
 }
 
-template <int S, int A, int MODE, int COST, int AB>
+// The pair build's body (PR 9's form): two samples a thread, kDense alone.
+template <int S, int A, int MODE, int COST, int AB, int STRUCT>
 __global__ void __launch_bounds__(kThreads)
     MPPI_KERNEL(pm_fused_solve)(const Consts<S, A> c,
                                 const float* __restrict__ dyn, int dyn_size,
@@ -317,11 +312,11 @@ __global__ void __launch_bounds__(kThreads)
                                 float* __restrict__ costs,
                                 float* __restrict__ partials, int k_total,
                                 int tau, Seeds sd) {
+  static_assert(STRUCT == kDense, "the pair build has kDense alone");
   extern __shared__ float smem[];
   float* s_dyn = smem;             // dyn_size
   float* s_red = smem + dyn_size;  // kWarps * n_z: pass-two warp sums
 
-#ifdef MPPI_BF16
   using M = Mats<S, A, AB>;
   __shared__ uint32_t s_mat[M::kN];
   stage_mats<S, A, AB>(c, dyn + 1 + 2 * S + tau * (S + A) + 1, s_mat);
@@ -329,9 +324,6 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll 1
   for (int i = threadIdx.x; i < dyn_size; i += kThreads)
     s_dyn[i] = stage_dyn<S, A>(dyn, i, tau, sched_off);
-#else
-  for (int i = threadIdx.x; i < dyn_size; i += kThreads) s_dyn[i] = dyn[i];
-#endif
   __syncthreads();
 
   // dyn layout (kernels/pm_mppi.py Dyn): inv_mass, x0, goal, bu, rhs_z,
@@ -343,17 +335,12 @@ __global__ void __launch_bounds__(kThreads)
   const float* rhs_z = bu + tau * S;
   const float u_half = rhs_z[tau * A];
   const float inv_m = s_dyn[0];
-#ifdef MPPI_BF16
   M m;
 #pragma unroll
   for (int i = 0; i < M::kN; ++i) m.w[i] = bf16x2::bits(s_mat[i]);
   const Val inv_m_v = to_val(inv_m);
   ElipseVals e{};
   if constexpr (COST == kElipse) e = elipse_vals(c.el);
-#else
-  const Mats<S, A, AB> m{c, rhs_z + tau * A + 1};  // kDynAB: A, B scale
-  const ElipseVals e{};
-#endif
 
   // block b: partial row b; lane l of thread t: sample b kBlock +
   // l kThreads + t
@@ -380,11 +367,9 @@ __global__ void __launch_bounds__(kThreads)
       Val zt[A];
 #pragma unroll
       for (int j = 0; j < A; ++j) zt[j] = draw(ns, n++);
-#ifdef MPPI_BF16
       // the step's scalars, formed in f32 and rounded once
       const Val ct_m = to_val(inv_m * ct);
       const Val nq_c = to_val(c.nc_half * ct);
-#endif
       Val xn[S];
 #pragma unroll
       for (int i = 0; i < S; ++i) {
@@ -396,16 +381,11 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int j = 0; j < A; ++j)
           bz = fma_r(m.bs(i * A + j), zt[j], bz);
-        // x' = A x + inv_m (B u_t + c_t B scale z_t); at bf16
         // ax + r(inv_m) (r(bu) + bz), scheduled ax + (r(inv_m bu) +
         // r(inv_m c_t) bz) (:497-531)
-#ifdef MPPI_BF16
         const Val b = exact_val(bu[t * S + i]);
         xn[i] = sched_off >= 0 ? ax + (b + ct_m * bz)
                                : ax + inv_m_v * (b + bz);
-#else
-        xn[i] = fmaf(inv_m, bu[t * S + i] + ct * bz, ax);
-#endif
       }
 #pragma unroll
       for (int i = 0; i < S; ++i) x[i] = xn[i];
@@ -413,11 +393,7 @@ __global__ void __launch_bounds__(kThreads)
       Val quad = 0.0f;
 #pragma unroll
       for (int j = 0; j < A; ++j) {
-#ifdef MPPI_BF16
         add_lanes(cost, exact_val(rhs_z[t * A + j]) * zt[j]);
-#else
-        cost[0] = fmaf(rhs_z[t * A + j], zt[j], cost[0]);
-#endif
         Val mz = 0.0f;
 #pragma unroll
         for (int i = 0; i < A; ++i)
@@ -425,11 +401,7 @@ __global__ void __launch_bounds__(kThreads)
         quad = fma_r(zt[j], mz, quad);
       }
       // eps^T Sigma_t^-1 eps = c_t z^T Mz z
-#ifdef MPPI_BF16
       add_lanes(cost, nq_c * quad);
-#else
-      cost[0] = fmaf(c.nc_half * ct, quad, cost[0]);
-#endif
     }
     add_lanes(cost, state_cost<S, A, COST>(c, m, e, x, goal));
   }
@@ -450,6 +422,248 @@ __global__ void __launch_bounds__(kThreads)
         zarg, cost, valid, ns, 0, s_red,
         partials + static_cast<size_t>(blockIdx.x) * kStats);
 }
+
+// Shared memory of the pair build ahead of s_red: dyn.
+template <int S, int A, int STRUCT>
+constexpr int smem_lead(int dyn_size) {
+  return dyn_size;
+}
+#else
+template <int S, int A>
+using Consts = HostConsts<S, A>;
+
+// kDense's A and B scale in shared memory, rows padded to 16- (8-) byte
+// loads (A: 8, 4 or 2 words; B scale: 4, 2 or 1), read at each use
+// through volatile loads, which no pass hoists out of the horizon loop:
+// hoisted (from dyn with kDynAB, from the constant bank as FFMA operands
+// held in registers across the unrolled group), the 54 floats of (6, 3)
+// spilled at three blocks an SM, and held 98 registers at two.
+template <int S, int A, int STRUCT>
+struct AbRows {
+  static constexpr int kRA = S == 6 ? 8 : S, kRB = A == 3 ? 4 : A;
+  static constexpr int kWords = STRUCT == kDense ? S * (kRA + kRB) : 0;
+  // word w of the rows from A (row-major) and B scale
+  static __device__ __forceinline__ float word(int w, const float* a,
+                                               const float* bs) {
+    if (w < S * kRA) return w % kRA < S ? a[w / kRA * S + w % kRA] : 0.0f;
+    const int v = w - S * kRA;
+    return v % kRB < A ? bs[v / kRB * A + v % kRB] : 0.0f;
+  }
+  // all threads: from dyn's blocks (kDynAB; ab: A, then B scale) or, by
+  // thread 0 at compile-time offsets, from the constants
+  template <int AB>
+  static __device__ __forceinline__ void stage(const Consts<S, A>& c,
+                                               const float* ab, float* s) {
+    if constexpr (kWords == 0) {
+      return;
+    } else if constexpr (AB == kDynAB) {
+#pragma unroll 1
+      for (int w = threadIdx.x; w < kWords; w += kThreads)
+        s[w] = word(w, ab, ab + S * S);
+    } else if (threadIdx.x == 0) {
+#pragma unroll
+      for (int w = 0; w < kWords; ++w) s[w] = word(w, c.a, c.bs);
+    }
+  }
+};
+
+// N floats of a padded row in shared memory, v4 / v2 / v1 volatile loads
+template <int N>
+__device__ __forceinline__ void load_row(const float* p, float* r) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+#pragma unroll
+  for (int j = 0; j + 4 <= N; j += 4)
+    asm volatile("ld.volatile.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(r[j]), "=f"(r[j + 1]), "=f"(r[j + 2]), "=f"(r[j + 3])
+                 : "r"(a + 4 * j));
+  constexpr int j2 = N / 4 * 4;
+  if constexpr (N % 4 >= 2)
+    asm volatile("ld.volatile.shared.v2.f32 {%0, %1}, [%2];"
+                 : "=f"(r[j2]), "=f"(r[j2 + 1])
+                 : "r"(a + 4 * j2));
+  if constexpr (N % 2 == 1)
+    asm volatile("ld.volatile.shared.f32 %0, [%1];"
+                 : "=f"(r[N - 1])
+                 : "r"(a + 4 * (N - 1)));
+}
+
+// The f32 state cost; kIntegrator reads Q's diagonal alone, each Q_ii d_i
+// rounded alone (mul_r): the dense row's value, whose other terms add +-0
+// (contracted into the next FMA, the product would move its bits).
+template <int S, int A, int COST, int STRUCT>
+__device__ __forceinline__ float state_cost(const Consts<S, A>& c,
+                                            const float* x,
+                                            const float* goal) {
+  if constexpr (COST == kElipse) {
+    static_assert(S == 4 && A == 2, "the ellipse cost is 2D: [x, vx, y, vy]");
+    // m_state |((x-cx)/a)^2 + ((y-cy)/b)^2 - 1| + m_vel (|v| - gv)^2
+    const float ex = (x[0] - c.el[2]) / c.el[0];
+    const float ey = (x[2] - c.el[3]) / c.el[1];
+    const float dv = sqrtf(x[1] * x[1] + x[3] * x[3]) - c.el[4];
+    return c.el[5] * fabsf(ex * ex + ey * ey - 1.0f) + c.el[6] * dv * dv;
+  } else {
+    float d[S];
+#pragma unroll
+    for (int i = 0; i < S; ++i) d[i] = x[i] - goal[i];
+    float out = 0.0f;
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      float qd = 0.0f;
+      if constexpr (STRUCT == kIntegrator) {
+        qd = mul_r(c.q[i * S + i], d[i]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < S; ++j) qd = fmaf(c.q[i * S + j], d[j], qd);
+      }
+      out = fmaf(d[i], qd, out);
+    }
+    return out;
+  }
+}
+
+// Steps of one noise group: lcm(A, 4) / A steps read lcm(A, 4) / 4 whole
+// Philox blocks (A = 3: 4 steps, 3 blocks; A = 2: 2 steps, 1 block; A = 1:
+// 4 steps, 1 block).
+__host__ __device__ constexpr int group_steps(int a) {
+  return a % 4 == 0 ? 1 : a % 2 == 0 ? 2 : 4;
+}
+// Philox blocks that pass two regenerates together (16 normals, 16 SHFL).
+constexpr int kPassTwoBlocks = 4;
+
+// The f32 body. Each thread owns one sample; its normals come a group of
+// steps at a time (NoiseStream::blocks), the horizon loop runs whole
+// groups, then a tail of the last H mod group_steps(A) steps. ptxas is
+// asked for three blocks of 256 an SM (at most 80 registers): the 391
+// blocks of K=100,000 then fit one wave on 132 SMs.
+template <int S, int A, int MODE, int COST, int AB, int STRUCT>
+__global__ void __launch_bounds__(kThreads, 3)
+    MPPI_KERNEL(pm_fused_solve)(const Consts<S, A> c,
+                                const float* __restrict__ dyn, int dyn_size,
+                                int sched_off, const float* __restrict__ z,
+                                float* __restrict__ costs,
+                                float* __restrict__ partials, int k_total,
+                                int tau, Seeds sd) {
+  static_assert(STRUCT == kDense || AB == kConstAB,
+                "kIntegrator reads A and B scale from the constants");
+  using R = AbRows<S, A, STRUCT>;
+  extern __shared__ __align__(16) float smem[];
+  float* s_dyn = smem;                          // dyn_size
+  float* s_ab = smem + ((dyn_size + 3) & ~3);   // R::kWords, 16-byte aligned
+  float* s_red = s_ab + R::kWords;              // kWarps * n_z
+  for (int i = threadIdx.x; i < dyn_size; i += kThreads) s_dyn[i] = dyn[i];
+  R::template stage<AB>(c, dyn + 1 + 2 * S + tau * (S + A) + 1, s_ab);
+  __syncthreads();
+
+  // dyn layout (kernels/pm_mppi.py Dyn): inv_mass, x0, goal, bu, rhs_z,
+  // u_half, with kDynAB A and B scale, then the schedule's c_t at
+  // sched_off when scheduled
+  const float* goal = s_dyn + 1 + S;
+  const float* bu = s_dyn + 1 + 2 * S;
+  const float* rhs_z = bu + tau * S;
+  const float u_half = rhs_z[tau * A];
+  const float inv_m = s_dyn[0];
+
+  const int k = blockIdx.x * kBlock + threadIdx.x;
+  const bool valid = k < k_total;
+  NoiseStream ns;
+  ns.init(z, k_total, k, sd);
+  float cost = 0.0f;
+  float x[S];
+#pragma unroll
+  for (int i = 0; i < S; ++i) x[i] = s_dyn[1 + i];
+
+  // one step t over its normals zt: x' = A x + inv_m (B u_t + c_t B scale
+  // z_t), cost += q(x') + rhs_z_t . z_t + nc_half c_t z_t^T Mz z_t
+  auto step = [&](int t, const float* zt) {
+    const float ct = sched_factor(s_dyn, sched_off, t);
+    float xn[S];
+#pragma unroll
+    for (int i = 0; i < S; ++i) {
+      float ax, bz;
+      if constexpr (STRUCT == kIntegrator) {
+        // the dense chains' bits: 1 x is exact, a zero adds +-0, and the
+        // one product of B scale's row is rounded alone as the chain's
+        // first FMA rounds it
+        ax = i % 2 == 0 ? fmaf(c.a[i * S + i + 1], x[i + 1], x[i]) : x[i];
+        bz = mul_r(c.bs[i * A + i / 2], zt[i / 2]);
+      } else {
+        float ar[S], br[A];
+        load_row<S>(s_ab + i * R::kRA, ar);
+        load_row<A>(s_ab + S * R::kRA + i * R::kRB, br);
+        ax = 0.0f;
+#pragma unroll
+        for (int j = 0; j < S; ++j) ax = fmaf(ar[j], x[j], ax);
+        bz = 0.0f;
+#pragma unroll
+        for (int j = 0; j < A; ++j) bz = fmaf(br[j], zt[j], bz);
+      }
+      xn[i] = fmaf(inv_m, bu[t * S + i] + ct * bz, ax);
+    }
+#pragma unroll
+    for (int i = 0; i < S; ++i) x[i] = xn[i];
+    cost += state_cost<S, A, COST, STRUCT>(c, x, goal);
+#pragma unroll
+    for (int j = 0; j < A; ++j) cost = fmaf(rhs_z[t * A + j], zt[j], cost);
+    // eps^T Sigma_t^-1 eps = c_t z^T Mz z: adds +-0 at nc_half = 0 (the
+    // TPU kernel's `if nc_half != 0.0`), a uniform branch
+    if (c.nc_half != 0.0f) {
+      float quad = 0.0f;
+#pragma unroll
+      for (int j = 0; j < A; ++j) {
+        float mz = 0.0f;
+        if constexpr (STRUCT == kIntegrator) {
+          mz = mul_r(c.mz[j * A + j], zt[j]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < A; ++i) mz = fmaf(c.mz[j * A + i], zt[i], mz);
+        }
+        quad = fmaf(zt[j], mz, quad);
+      }
+      cost = fmaf(c.nc_half * ct, quad, cost);
+    }
+  };
+
+  // ---- pass one: rollout + cost, a group of steps a Philox block set -----
+  constexpr int kG = group_steps(A), kNB = kG * A / 4;
+  {
+    float zz[4 * kNB];
+    int t0 = 0;
+#pragma unroll 1
+    for (; t0 + kG <= tau; t0 += kG) {
+      ns.blocks<kNB>(t0 * A / 4, 4 * kNB, zz);
+#pragma unroll
+      for (int s = 0; s < kG; ++s) step(t0 + s, zz + s * A);
+    }
+    if (t0 < tau) {  // the tail, H mod kG steps
+      const int rem = tau - t0;
+      ns.blocks<kNB>(t0 * A / 4, rem * A, zz);
+#pragma unroll
+      for (int s = 0; s + 1 < kG; ++s)
+        if (s < rem) step(t0 + s, zz + s * A);
+    }
+  }
+  cost += state_cost<S, A, COST, STRUCT>(c, x, goal);
+  cost += u_half;
+
+  const float zarg = MODE == kFused ? -cost / c.lam : -INFINITY;
+  if (MODE == kCosts && valid) costs[k] = cost;
+  if (MODE == kFused)
+    write_partial_row_lanes<true, 1, kPassTwoBlocks>(
+        &zarg, &cost, &valid, &ns, tau * A, s_red,
+        partials + static_cast<size_t>(blockIdx.x) * (kStats + tau * A));
+  else
+    write_partial_row_lanes<false, 1>(
+        &zarg, &cost, &valid, &ns, 0, s_red,
+        partials + static_cast<size_t>(blockIdx.x) * kStats);
+}
+
+// Shared memory of the f32 build ahead of s_red: dyn, padded to 16 bytes,
+// and kDense's rows.
+template <int S, int A, int STRUCT>
+constexpr int smem_lead(int dyn_size) {
+  return ((dyn_size + 3) & ~3) + AbRows<S, A, STRUCT>::kWords;
+}
+#endif
 
 __global__ void __launch_bounds__(kBlock)
     MPPI_KERNEL(mppi_weights)(const float* __restrict__ nrm,
@@ -579,7 +793,7 @@ struct PmLaunch {
   int* occupancy;
 };
 
-template <int S, int A, int MODE, int COST, int AB>
+template <int S, int A, int MODE, int COST, int AB, int STRUCT>
 int launch_solve(const PmLaunch& a) {
   HostConsts<S, A> f;
   memcpy(&f, a.consts, sizeof(f));
@@ -592,46 +806,54 @@ int launch_solve(const PmLaunch& a) {
                    (AB == kDynAB ? S * S + S * A : 0);
   const int sched_off = a.scheduled ? base : -1;
   const int dyn_size = a.scheduled ? base + a.tau : base;
+  auto kernel = MPPI_KERNEL(pm_fused_solve)<S, A, MODE, COST, AB, STRUCT>;
   size_t smem = 0;
-  const cudaError_t e =
-      smem_for(MPPI_KERNEL(pm_fused_solve)<S, A, MODE, COST, AB>, dyn_size,
-               MODE == kFused ? a.tau * A : 0, &smem);
+  const cudaError_t e = smem_for(kernel, smem_lead<S, A, STRUCT>(dyn_size),
+                                 MODE == kFused ? a.tau * A : 0, &smem);
   if (e != cudaSuccess) return e;
   if (a.occupancy != nullptr)
-    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        a.occupancy, MPPI_KERNEL(pm_fused_solve)<S, A, MODE, COST, AB>,
-        kThreads, smem);
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.occupancy, kernel,
+                                                         kThreads, smem);
   const int nb = (a.k + kBlock - 1) / kBlock;
-  MPPI_KERNEL(pm_fused_solve)<S, A, MODE, COST, AB>
+  MPPI_KERNEL(pm_fused_solve)<S, A, MODE, COST, AB, STRUCT>
       <<<nb, kThreads, smem, a.stream>>>(c, a.dyn, dyn_size, sched_off, a.z,
                                          a.costs, a.partials, a.k, a.tau,
                                          a.sd);
   return cudaGetLastError();
 }
 
-template <int MODE, int AB>
+template <int MODE, int AB, int STRUCT>
 int dispatch_dims(int sdim, int adim, int cost, const PmLaunch& a) {
   if (cost == kElipse) {
     if (sdim == 4 && adim == 2)
-      return launch_solve<4, 2, MODE, kElipse, AB>(a);
+      return launch_solve<4, 2, MODE, kElipse, AB, STRUCT>(a);
     return cudaErrorInvalidValue;
   }
   if (cost != kQuadratic) return cudaErrorInvalidValue;
   if (sdim == 6 && adim == 3)
-    return launch_solve<6, 3, MODE, kQuadratic, AB>(a);
+    return launch_solve<6, 3, MODE, kQuadratic, AB, STRUCT>(a);
   if (sdim == 2 && adim == 1)
-    return launch_solve<2, 1, MODE, kQuadratic, AB>(a);
+    return launch_solve<2, 1, MODE, kQuadratic, AB, STRUCT>(a);
   if (sdim == 4 && adim == 2)
-    return launch_solve<4, 2, MODE, kQuadratic, AB>(a);
+    return launch_solve<4, 2, MODE, kQuadratic, AB, STRUCT>(a);
   return cudaErrorInvalidValue;
 }
 
+// kIntegrator exists in the f32 build alone, with constant (A, B).
 template <int MODE>
-int dispatch_solve(int sdim, int adim, int cost, int dyn_ab,
+int dispatch_solve(int sdim, int adim, int cost, int structure, int dyn_ab,
                    const PmLaunch& a) {
   if (a.k <= 0 || a.tau <= 0) return cudaErrorInvalidValue;
-  if (dyn_ab) return dispatch_dims<MODE, kDynAB>(sdim, adim, cost, a);
-  return dispatch_dims<MODE, kConstAB>(sdim, adim, cost, a);
+  if (structure == kDense) {
+    if (dyn_ab)
+      return dispatch_dims<MODE, kDynAB, kDense>(sdim, adim, cost, a);
+    return dispatch_dims<MODE, kConstAB, kDense>(sdim, adim, cost, a);
+  }
+#ifndef MPPI_BF16
+  if (structure == kIntegrator && !dyn_ab)
+    return dispatch_dims<MODE, kConstAB, kIntegrator>(sdim, adim, cost, a);
+#endif
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -656,21 +878,22 @@ int MPPI_ENTRY(pm_noise_dump)(float* out, int k, int n_z, uint32_t half,
 }
 
 // consts: PmConsts.packed, sizeof(HostConsts<sdim, adim>) bytes; cost:
-// PmCost.
-int MPPI_ENTRY(pm_fused_solve)(int sdim, int adim, int cost,
+// PmCost; structure: PmStruct (kDense alone in the bf16 build and with
+// dynamic_ab).
+int MPPI_ENTRY(pm_fused_solve)(int sdim, int adim, int cost, int structure,
                                const float* consts,
                    const float* dyn, const float* z, float* partials, int k,
                    int tau, int scheduled, int dynamic_ab, uint32_t half,
                    uint32_t seed_lo, uint32_t seed_hi, uint32_t s_lo,
                    uint32_t s_hi, void* stream) {
   return dispatch_solve<kFused>(
-      sdim, adim, cost, dynamic_ab,
+      sdim, adim, cost, structure, dynamic_ab,
       PmLaunch{consts, dyn, z, nullptr, partials, k, tau, scheduled,
                Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
                static_cast<cudaStream_t>(stream), nullptr});
 }
 
-int MPPI_ENTRY(pm_fused_costs)(int sdim, int adim, int cost,
+int MPPI_ENTRY(pm_fused_costs)(int sdim, int adim, int cost, int structure,
                                const float* consts,
                    const float* dyn, const float* z, float* costs,
                    float* partials, int k, int tau, int scheduled,
@@ -678,23 +901,25 @@ int MPPI_ENTRY(pm_fused_costs)(int sdim, int adim, int cost,
                    uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
                    void* stream) {
   return dispatch_solve<kCosts>(
-      sdim, adim, cost, dynamic_ab,
+      sdim, adim, cost, structure, dynamic_ab,
       PmLaunch{consts, dyn, z, costs, partials, k, tau, scheduled,
                Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
                static_cast<cudaStream_t>(stream), nullptr});
 }
 
 // out[0]: blocks an SM of the solve (mode 0) or costs (1) kernel of
-// (sdim, adim, cost, dynamic_ab) at horizon tau, unscheduled; out[1]:
-// samples a thread.
-int MPPI_ENTRY(pm_occupancy)(int sdim, int adim, int cost, int mode,
-                             int dynamic_ab, int tau, int* out) {
+// (sdim, adim, cost, structure, dynamic_ab) at horizon tau, unscheduled;
+// out[1]: samples a thread.
+int MPPI_ENTRY(pm_occupancy)(int sdim, int adim, int cost, int structure,
+                             int mode, int dynamic_ab, int tau, int* out) {
   static const float zeros[sizeof(HostConsts<6, 3>) / sizeof(float)] = {};
   const PmLaunch a{zeros, nullptr, nullptr, nullptr, nullptr, 1, tau, 0,
                    Seeds{}, nullptr, out};
   out[1] = kLanes;
-  return mode ? dispatch_solve<kCosts>(sdim, adim, cost, dynamic_ab, a)
-              : dispatch_solve<kFused>(sdim, adim, cost, dynamic_ab, a);
+  return mode ? dispatch_solve<kCosts>(sdim, adim, cost, structure,
+                                       dynamic_ab, a)
+              : dispatch_solve<kFused>(sdim, adim, cost, structure,
+                                       dynamic_ab, a);
 }
 
 int MPPI_ENTRY(mppi_weights)(const float* nrm, const float* costs,

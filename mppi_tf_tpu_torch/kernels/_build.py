@@ -36,10 +36,11 @@ _SEEDS = [_U, _U, _U, _U, _U]
 _SOLVE = [_I, _I, _I]
 _SIGNATURES = {
     "pm_noise_dump": [_P, _I, _I, *_SEEDS, _P],
-    # the point-mass solves add dynamic_ab after scheduled
-    "pm_fused_solve": [_I, _I, _I, _P, _P, _P, _P, *_SOLVE, _I, *_SEEDS,
-                       _P],
-    "pm_fused_costs": [_I, _I, _I, _P, _P, _P, _P, _P, *_SOLVE, _I,
+    # the point-mass solves take (sdim, adim, cost, structure) first and
+    # add dynamic_ab after scheduled
+    "pm_fused_solve": [_I, _I, _I, _I, _P, _P, _P, _P, *_SOLVE, _I,
+                       *_SEEDS, _P],
+    "pm_fused_costs": [_I, _I, _I, _I, _P, _P, _P, _P, _P, *_SOLVE, _I,
                        *_SEEDS, _P],
     "mppi_weights": [_P, _P, _P, _P, _I, _I, *_SEEDS, _P],
     "pm_merge": [_P, _I, _I, _P, _P, _P],
@@ -51,10 +52,10 @@ _SIGNATURES = {
     "nn_fused_solve": [_I, _I, _I, _P, _P, _P, _P, *_SOLVE, *_SEEDS, _P],
     "nn_fused_costs": [_I, _I, _I, _P, _P, _P, _P, _P, *_SOLVE, *_SEEDS,
                        _P],
-    # (sdim, adim, cost, mode, dynamic_ab, tau, out[2]), (rk, cost,
-    # structure, mode, tau, out[2]) and (n1, n2, n3, mode, tau, out[2]):
-    # blocks an SM and samples a thread of a solve kernel
-    "pm_occupancy": [_I, _I, _I, _I, _I, _I, _P],
+    # (sdim, adim, cost, structure, mode, dynamic_ab, tau, out[2]), (rk,
+    # cost, structure, mode, tau, out[2]) and (n1, n2, n3, mode, tau,
+    # out[2]): blocks an SM and samples a thread of a solve kernel
+    "pm_occupancy": [_I, _I, _I, _I, _I, _I, _I, _P],
     "auv_occupancy": [_I, _I, _I, _I, _I, _P],
     "nn_occupancy": [_I, _I, _I, _I, _I, _P],
 }

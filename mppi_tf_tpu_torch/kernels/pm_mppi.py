@@ -54,6 +54,17 @@ argument AB = kDynAB in pm_mppi.cu): A and B scale are read from ``dyn``
 bu the true B u_t, so that an identified linear model
 (``FusedLTIMPPI``) changes them as data.
 
+The f32 solves come in two structures of the constants (``STRUCTURES``,
+template argument STRUCT): "integrator" takes A as the per-DoF double
+integrator of ``PointMassModel`` (a unit diagonal and A[2d, 2d+1] its
+only other nonzeros), B scale's nonzeros at [2d, d] and [2d+1, d], and Q
+and Mz diagonal, and emits no instruction for the rest (the TPU kernel's
+``sparse_dot`` elision, with the values still runtime data); "dense" runs
+every matrix dense. ``PmConsts.structure`` picks "integrator" exactly:
+where every entry it leaves out is 0.0 and every one it takes as 1 is 1.0
+in the packed f32 constants, at f32 and without dynamic_ab. Both give the
+same per-sample costs bit for bit.
+
 The bf16 block compute (``compute_dtype="bfloat16"``, the JAX kernels'
 ``compute_dtype``): the ``*_bf16`` kernels, pm_mppi.cu compiled at the
 block type bf16 (``csrc/pm_mppi_bf16.cu``: two samples a thread in native
@@ -101,6 +112,8 @@ SUPPORTED_DIMS = ((6, 3), (2, 1), (4, 2))
 COST_KINDS = {"quadratic": 0, "elipse": 1}
 #: block compute types of the kernels (the JAX kernels' ``compute_dtype``)
 COMPUTE_DTYPES = ("float32", "bfloat16")
+#: structures of the solve constants (``PmStruct`` in pm_mppi.cu)
+STRUCTURES = {"dense": 0, "integrator": 1}
 
 
 def check_compute_dtype(compute_dtype: str) -> str:
@@ -222,6 +235,34 @@ class PmConsts:
     @property
     def dims(self):
         return self.Bs.shape
+
+    @functools.cached_property
+    def structure(self) -> str:
+        """The kernels' ``STRUCTURES`` entry: "integrator" when, in the
+        packed f32 constants, A's diagonal is 1.0 and its only other
+        nonzeros lie at [2d, 2d+1], B scale's nonzeros at [2d, d] and
+        [2d+1, d], Q (the quadratic cost's; the ellipse reads none) and Mz
+        are diagonal, the state is 2 adim, and the build is f32 without
+        dynamic_ab; else "dense" (the bf16 build and dynamic_ab have
+        kDense alone)."""
+        sdim, adim = self.dims
+        if (self.compute_dtype != "float32" or self.dynamic_ab
+                or sdim != 2 * adim):
+            return "dense"
+        A, Bs, Q, Mz = (np.asarray(m, np.float32)
+                        for m in (self.A, self.Bs, self.Q, self.Mz))
+        d = np.arange(adim)
+        kept_a = np.eye(sdim, dtype=bool)
+        kept_a[2 * d, 2 * d + 1] = True
+        kept_b = np.zeros((sdim, adim), dtype=bool)
+        kept_b[2 * d, d] = kept_b[2 * d + 1, d] = True
+        left_out = [A[~kept_a], Bs[~kept_b],
+                    Mz[~np.eye(adim, dtype=bool)]]
+        if self.cost_kind == "quadratic":
+            left_out.append(Q[~np.eye(sdim, dtype=bool)])
+        integrator = (np.all(np.diag(A) == 1.0)
+                      and not any(np.count_nonzero(a) for a in left_out))
+        return "integrator" if integrator else "dense"
 
     @functools.cached_property
     def packed(self) -> np.ndarray:
@@ -626,8 +667,8 @@ def pm_fused_solve(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
     partials = torch.empty((-(-k // BLOCK), STATS + tau * adim),
                            dtype=torch.float32, device=dyn.device)
     launch(entry("pm_fused_solve", consts.compute_dtype), dyn.device, sdim,
-           adim,
-           COST_KINDS[consts.cost_kind], consts.packed.ctypes.data, dyn.data_ptr(),
+           adim, COST_KINDS[consts.cost_kind], STRUCTURES[consts.structure],
+           consts.packed.ctypes.data, dyn.data_ptr(),
            None if z is None else z.data_ptr(), partials.data_ptr(), k, tau,
            *_pm_launch_args(consts, k, seed, solve))
     return partials
@@ -645,8 +686,8 @@ def pm_fused_costs(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
     partials = torch.empty((-(-k // BLOCK), STATS), dtype=torch.float32,
                            device=dyn.device)
     launch(entry("pm_fused_costs", consts.compute_dtype), dyn.device, sdim,
-           adim,
-           COST_KINDS[consts.cost_kind], consts.packed.ctypes.data, dyn.data_ptr(),
+           adim, COST_KINDS[consts.cost_kind], STRUCTURES[consts.structure],
+           consts.packed.ctypes.data, dyn.data_ptr(),
            None if z is None else z.data_ptr(), costs.data_ptr(),
            partials.data_ptr(), k, tau,
            *_pm_launch_args(consts, k, seed, solve))
@@ -1014,9 +1055,10 @@ class FusedPointMassMPPI(TwoPhaseSolve):
             *ab, *self._sched_tail()])
 
     def _template_args(self, mode: int) -> tuple:
-        """<S, A, MODE, COST, AB> of pm_fused_solve_kernel."""
-        return (self.sdim, self.adim, mode, COST_KINDS[self.consts.cost_kind],
-                int(self.dynamic_ab))
+        """<S, A, MODE, COST, AB, STRUCT> of pm_fused_solve_kernel."""
+        c = self.consts
+        return (self.sdim, self.adim, mode, COST_KINDS[c.cost_kind],
+                int(self.dynamic_ab), STRUCTURES[c.structure])
 
     def _fused(self, dyn, seed, solve, z):
         return pm_fused_solve(self.consts, dyn, self.k, self.tau, seed=seed,

@@ -65,8 +65,8 @@ def test_build_reports_every_kernel(cuda_device):
     # x (dense, diagonal constants)
     assert sum("auv_fused_solve_kernel" in r["kernel"] for r in rows) == 36
     # (fused, costs) x (three quadratic dims + the (4, 2) ellipse) x
-    # (constant, dynamic (A, B))
-    assert sum("pm_fused_solve_kernel" in r["kernel"] for r in rows) == 16
+    # (integrator, dense, dense with dynamic (A, B))
+    assert sum("pm_fused_solve_kernel" in r["kernel"] for r in rows) == 24
     assert not [r for r in rows if r.get("spill_stores")
                 or r.get("spill_loads")]
 
@@ -74,18 +74,26 @@ def test_build_reports_every_kernel(cuda_device):
 @pytest.mark.parametrize("sfx,lanes", [("", 1), ("_bf16", 2)])
 def test_pm_occupancy_entry_point(cuda_device, sfx, lanes):
     """pm_occupancy reports the samples a thread of its build and at least
-    one block an SM for every point-mass solve instantiation, and refuses
-    dims the kernel is not built for."""
+    one block an SM for every point-mass solve instantiation (the f32
+    build in both structures, the integrator with constant (A, B) alone;
+    the bf16 build dense alone), three for every f32 one (the 391 blocks
+    of K=100,000 in one wave), and refuses dims the kernel is not built
+    for and the structures it does not hold."""
     import ctypes
 
     fn = getattr(_build.load_library(), f"pm_occupancy{sfx}")
+    combos = ((0, 0), (0, 1), (1, 0)) if sfx == "" else ((0, 0), (0, 1))
     for sdim, adim, cost in ((6, 3, 0), (2, 1, 0), (4, 2, 0), (4, 2, 1)):
         for mode in (0, 1):
-            for dyn_ab in (0, 1):
+            for st, dyn_ab in combos:
                 out = (ctypes.c_int * 2)()
-                assert fn(sdim, adim, cost, mode, dyn_ab, 50, out) == 0
-                assert out[1] == lanes and out[0] >= 1
-    assert fn(5, 3, 0, 0, 0, 50, (ctypes.c_int * 2)()) != 0
+                assert fn(sdim, adim, cost, st, mode, dyn_ab, 50, out) == 0
+                assert out[1] == lanes and out[0] >= (3 if sfx == "" else 1)
+    out = (ctypes.c_int * 2)()
+    assert fn(5, 3, 0, 0, 0, 0, 50, out) != 0
+    assert fn(6, 3, 0, 1, 0, 1, 50, out) != 0      # integrator, dynamic_ab
+    if sfx:
+        assert fn(6, 3, 0, 1, 0, 0, 50, out) != 0  # integrator at bf16
 
 
 @pytest.mark.parametrize("k,tau,adim", [(700, 7, 3), (5000, 20, 3),
@@ -119,6 +127,110 @@ def test_fused_solve_and_merge_match_plain(cuda_device, k, tau, sdim, adim):
     torch.testing.assert_close(zs_m / st_m[1], zs_p / st_p[1], rtol=1e-5,
                                atol=1e-6)
     torch.testing.assert_close(st_m, st_p, rtol=1e-5, atol=0)
+
+
+def _pm_case(k, tau, device, sdim, adim, elipse, dense, **opts):
+    """A point-mass solve object at (sdim, adim) under the static cost or
+    the ellipse; with ``dense`` sigma and Q get off-diagonal terms (as
+    tests/test_torch_pm_kernel.py DENSE_SIGMA, DENSE_TASK), so that it
+    runs the dense kernels."""
+    sigma = SIGMA[:adim, :adim] + (0.01 * (1.0 - np.eye(adim)) if dense
+                                   else 0.0)
+    if elipse:
+        task = PM_ELIPSE
+    else:
+        q = np.diag([5.0, 1.0] * adim) + (0.1 * (1.0 - np.eye(sdim))
+                                           if dense else 0.0)
+        task = {"type": "static", "diag": False, "goal": [0.5] * sdim,
+                "Q": q.tolist()}
+    model = get_model({"type": "point_mass", "mass": 1.3}, dt=0.1,
+                      state_dim=sdim, action_dim=adim, device=device)
+    cost = get_cost(task, lam=LAM, gamma=GAMMA, upsilon=UPS, sigma=sigma,
+                    device=device)
+    fused = pm.FusedPointMassMPPI(model, cost, k=k, tau=tau, lam=LAM,
+                                  upsilon=UPS, sigma=sigma, **opts)
+    # the ellipse reads no Q: a full sigma makes it dense
+    assert fused.consts.structure == ("dense" if dense else "integrator")
+    return fused
+
+
+@pytest.mark.parametrize("structure", ["integrator", "dense"])
+@pytest.mark.parametrize("dims,elipse", [((6, 3), False), ((2, 1), False),
+                                         ((4, 2), False), ((4, 2), True)])
+@pytest.mark.parametrize("k,tau", [(701, 7), (4096, 9)])
+def test_pm_structures_match_plain(cuda_device, dims, elipse, structure, k,
+                                   tau):
+    """Both structures of the f32 solve and costs against their plain
+    versions at every (S, A) and cost kind, on injected z and on the
+    Philox stream, scheduled + antithetic too: H = 7 and 9 leave a tail of
+    steps past the last whole noise group at every adim (groups of 4, 2,
+    4 steps at adim 3, 2, 1), K = 701 a ragged block."""
+    sdim, adim = dims
+    rng = np.random.default_rng(k + sdim)
+    x0 = torch.as_tensor(rng.normal(size=sdim) * 0.3 + (
+        [3.0, 1.0, 0.5, 1.0] if elipse else 0.0), dtype=torch.float32,
+        device=cuda_device)
+    useq = torch.as_tensor(rng.normal(size=(tau, adim)) * 0.1,
+                           dtype=torch.float32, device=cuda_device)
+    z = torch.as_tensor(rng.standard_normal((tau, adim, k), np.float32),
+                        device=cuda_device)
+    for opts in ({}, {"schedule": SCHED, "antithetic": True}):
+        fused = _pm_case(k, tau, cuda_device, sdim, adim, elipse,
+                         structure == "dense", **opts)
+        c = fused.consts
+        dyn = fused.pack_dyn(x0, useq)
+        for kw in ({"z": z}, {"seed": 4, "solve": 3}):
+            costs_k, _ = pm.pm_fused_costs(c, dyn, k, tau, **kw)
+            costs_p, _ = pm.fused_costs_plain(c, dyn, k, tau, **kw)
+            torch.testing.assert_close(costs_k, costs_p, rtol=1e-4,
+                                       atol=1e-4)
+            zs_k, st_k = pm.merge_plain(pm.pm_fused_solve(c, dyn, k, tau,
+                                                          **kw))
+            zs_p, st_p = pm.merge_plain(pm.fused_solve_plain(c, dyn, k, tau,
+                                                             **kw))
+            torch.testing.assert_close(zs_k / st_k[1], zs_p / st_p[1],
+                                       rtol=1e-3, atol=1e-5)
+            torch.testing.assert_close(st_k[2:5], st_p[2:5], rtol=1e-4,
+                                       atol=0)
+
+
+def test_pm_structure_picks_the_instantiation(cuda_device):
+    """The diagonal task launches the integrator instantiation and the
+    dense-constant point mass the dense one (the ptxas report names the
+    template arguments ``template_args`` gives), and the two give the
+    same per-sample costs bit for bit on the same map: the dense chains'
+    zeros add +-0 and their ones multiply exactly."""
+    from mppi_tf_tpu_torch.kernels import _launch
+
+    names = " ".join(r["kernel"] for r in _build.ptxas_report())
+    k, tau = 4097, 9
+    rng = np.random.default_rng(2)
+    z = torch.as_tensor(rng.standard_normal((tau, 3, k), np.float32),
+                        device=cuda_device)
+    x0 = torch.as_tensor(rng.normal(size=6) * 0.3, dtype=torch.float32,
+                         device=cuda_device)
+    useq = torch.as_tensor(rng.normal(size=(tau, 3)) * 0.1,
+                           dtype=torch.float32, device=cuda_device)
+    costs = {}
+    for structure in ("integrator", "dense"):
+        fused = _pm_case(k, tau, cuda_device, 6, 3, False,
+                         structure == "dense")
+        args = fused.template_args("pm_fused_costs")
+        assert args == (6, 3, 1, 0, 0, pm.STRUCTURES[structure])
+        assert _launch.kernel_symbol("pm_fused_costs", args) in names
+        before = pm.launch_counts["pm_fused_costs"]
+        costs[structure], _ = pm.pm_fused_costs(fused.consts,
+                                                fused.pack_dyn(x0, useq), k,
+                                                tau, z=z)
+        assert pm.launch_counts["pm_fused_costs"] == before + 1
+    # the same constants run through the dense body: equal bits
+    integ = _pm_case(k, tau, cuda_device, 6, 3, False, False)
+    forced = dataclasses.replace(integ.consts)
+    forced.__dict__["structure"] = "dense"
+    dyn = integ.pack_dyn(x0, useq)
+    a, _ = pm.pm_fused_costs(integ.consts, dyn, k, tau, z=z)
+    b, _ = pm.pm_fused_costs(forced, dyn, k, tau, z=z)
+    assert torch.equal(a, b)
 
 
 def test_prng_solve_consumes_dump(cuda_device):
@@ -913,7 +1025,7 @@ def test_lti_refit_builds_nothing_and_launches_the_same_symbol(
     assert type(ctrl._fused) is pm.FusedLTIMPPI
     sym = _launch.kernel_symbol("pm_fused_solve",
                                 ctrl._fused.template_args("pm_fused_solve"))
-    assert sym == "pm_fused_solve_kernelILi6ELi3ELi0ELi0ELi1E"
+    assert sym == "pm_fused_solve_kernelILi6ELi3ELi0ELi0ELi1ELi0E"
     hlo = ctrl.dump_hlo()
     assert f"pm_fused_solve x1: {sym}" in hlo and "registers" in hlo
     lib = _build.load_library()

@@ -169,8 +169,8 @@ def test_model_domain_guards():
         pm.FusedLTIMPPI(DMDModel(6, 3, dtype=torch.float64), cost, **kw)
     lti = pm.FusedLTIMPPI(DMDModel(6, 3), cost, **kw)
     assert lti.consts.dynamic_ab and not lti.consts.A.any()
-    assert lti.template_args("pm_fused_solve") == (6, 3, 0, 0, 1)
-    assert lti.template_args("pm_fused_costs") == (6, 3, 1, 0, 1)
+    assert lti.template_args("pm_fused_solve") == (6, 3, 0, 0, 1, 0)
+    assert lti.template_args("pm_fused_costs") == (6, 3, 1, 0, 1, 0)
     # the card's input check wants the larger dyn of the variant
     with pytest.raises(ValueError, match="dyn"):
         pm._check_solve_inputs("pm_fused_solve", lti.consts,

@@ -601,5 +601,5 @@ def test_variant_launch_arguments():
     fused = _pm_port(701, 4, antithetic=True, schedule=SCHED)
     assert pm.variant_args(fused.consts, 701) == (1, 351)
     assert pm.variant_args(_pm_port(701, 4).consts, 701) == (0, 0)
-    assert fused.template_args("pm_fused_costs") == (6, 3, 1, 0, 0)
+    assert fused.template_args("pm_fused_costs") == (6, 3, 1, 0, 0, 1)
     assert fused.template_args("mppi_weights") == ()

@@ -5,6 +5,8 @@ against Random123's known answers. The CUDA kernels themselves are held
 against these plain versions on the card by tests/test_torch_cuda.py.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -34,20 +36,30 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-def _port(k, tau, dtype=torch.float32, device=None):
+#: the dense-constant point mass: SIGMA with correlations and TASK's Q
+#: with off-diagonal terms, so that B scale, Mz and Q are full and the
+#: kernels run their dense structure
+DENSE_SIGMA = SIGMA + 0.01 * (1.0 - np.eye(3))
+DENSE_TASK = {**TASK, "diag": False,
+              "Q": (np.diag(TASK["Q"]) + 0.1 * (1.0 - np.eye(6))).tolist()}
+
+
+def _port(k, tau, dtype=torch.float32, device=None, dense=False):
+    task, sigma = (DENSE_TASK, DENSE_SIGMA) if dense else (TASK, SIGMA)
     model = get_model(MODEL, dt=0.1, state_dim=6, action_dim=3, dtype=dtype,
                       device=device)
-    cost = get_cost(TASK, lam=LAM, gamma=GAMMA, upsilon=UPS, sigma=SIGMA,
+    cost = get_cost(task, lam=LAM, gamma=GAMMA, upsilon=UPS, sigma=sigma,
                     dtype=dtype, device=device)
     return pm.FusedPointMassMPPI(model, cost, k=k, tau=tau, lam=LAM,
-                                 upsilon=UPS, sigma=SIGMA), model, cost
+                                 upsilon=UPS, sigma=sigma), model, cost
 
 
-def _jax(k, tau, tile=256):
+def _jax(k, tau, tile=256, dense=False):
+    task, sigma = (DENSE_TASK, DENSE_SIGMA) if dense else (TASK, SIGMA)
     model = jget_model(MODEL, dt=0.1, state_dim=6, action_dim=3)
-    cost = jget_cost(TASK, lam=LAM, gamma=GAMMA, upsilon=UPS, sigma=SIGMA)
+    cost = jget_cost(task, lam=LAM, gamma=GAMMA, upsilon=UPS, sigma=sigma)
     fused = JFused(model, cost, k=k, tau=tau, lam=LAM, upsilon=UPS,
-                   sigma=SIGMA, tile=tile, interpret=True)
+                   sigma=sigma, tile=tile, interpret=True)
     return fused, model.init_params(), cost.init_params()
 
 
@@ -59,16 +71,20 @@ def _inputs(k, tau, seed=3):
     return z_std, x0, useq
 
 
+@pytest.mark.parametrize("dense", [False, True])
 @pytest.mark.parametrize("k,tau", [(700, 7), (512, 10)])
-def test_plain_fused_solve_matches_pallas_interpret(k, tau):
+def test_plain_fused_solve_matches_pallas_interpret(k, tau, dense):
     """Port's plain fused solve + merge == the JAX Pallas kernel (interpret
     mode, injected normals, tile 256) at f32 tolerance; k=700 leaves a
-    ragged last block on both sides."""
+    ragged last block on both sides. Both structures of the constants:
+    the diagonal task (the JAX kernel's sparse trace; the port's
+    "integrator") and a full sigma and Q (its dense trace; "dense")."""
     z_std, x0, useq = _inputs(k, tau)
-    jf, mp, cp = _jax(k, tau)
+    jf, mp, cp = _jax(k, tau, dense=dense)
     wn_j, st_j = jf.solve(0, x0, useq, mp, cp, z=jnp.asarray(
         chunk_noise(z_std, 256)), use_prng=False)
-    fused, _, _ = _port(k, tau)
+    fused, _, _ = _port(k, tau, dense=dense)
+    assert fused.consts.structure == ("dense" if dense else "integrator")
     wn_p, st_p = fused.solve(torch.as_tensor(x0), torch.as_tensor(useq),
                              z=torch.as_tensor(z_std))
     np.testing.assert_allclose(wn_p.numpy(), np.asarray(wn_j), rtol=2e-3,
@@ -391,3 +407,84 @@ def test_library_hash_covers_every_source_and_header(tmp_path, monkeypatch):
     assert len(names) == 4
     (tmp_path / "notes.txt").write_text("not a source")
     assert _build.library_path() in names
+
+
+def _structure_case(case):
+    """The consts of a point-mass solve object of ``case`` on the CPU."""
+    from mppi_tf_tpu_torch.models.dmd import DMDModel
+
+    sdim, adim, task, sigma = 6, 3, TASK, SIGMA
+    if case in ("1dof", "2dof", "elipse"):
+        adim = 1 if case == "1dof" else 2
+        sdim, sigma = 2 * adim, SIGMA[:adim, :adim]
+        task = ({"type": "elipse", "a": 4.0, "b": 2.0, "center_x": 0.0,
+                 "center_y": 0.0, "speed": 5.0, "m_state": 1.0,
+                 "m_vel": 0.1} if case == "elipse" else
+                {"type": "static", "diag": True, "goal": [0.5] * sdim,
+                 "Q": [1.0] * sdim})
+    elif case == "sigma_off_diagonal":
+        sigma = SIGMA.copy()
+        sigma[0, 1] = sigma[1, 0] = 0.01
+    elif case == "q_off_diagonal":
+        q = np.diag(TASK["Q"])
+        q[2, 3] = q[3, 2] = 0.1
+        task = {**TASK, "diag": False, "Q": q.tolist()}
+    model = get_model(MODEL, dt=0.1, state_dim=sdim, action_dim=adim)
+    cost = get_cost(task, lam=LAM, gamma=GAMMA, upsilon=UPS, sigma=sigma)
+    kw = {"k": 10, "tau": 3, "lam": LAM, "upsilon": UPS, "sigma": sigma}
+    if case == "dynamic_ab":
+        dmd = DMDModel(6, 3, dt=0.1, init_A=model.A.numpy(),
+                       init_B=model.B.numpy() / 1.3)
+        return pm.FusedLTIMPPI(dmd, cost, **kw).consts
+    if case == "bfloat16":
+        return pm.FusedPointMassMPPI(model, cost, compute_dtype="bfloat16",
+                                     **kw).consts
+    consts = pm.FusedPointMassMPPI(model, cost, **kw).consts
+    if case == "dmd_fit_A":
+        # a DMDModel fitted to the point mass's own transitions: A's
+        # diagonal lies within rounding of 1, not at it
+        rng = np.random.default_rng(0)
+        A, B = consts.A, model.B.numpy() / 1.3
+        xs = rng.standard_normal((40, 6))
+        us = rng.standard_normal((40, 3))
+        xn = xs @ A.T + us @ B.T + 1e-6 * rng.standard_normal((40, 6))
+        fit_A = DMDModel(6, 3, dt=0.1).fit(
+            torch.as_tensor(xs), torch.as_tensor(us),
+            torch.as_tensor(xn))["A"].double().numpy()
+        assert np.any(np.float32(np.diag(fit_A)) != 1.0)
+        consts = dataclasses.replace(consts, A=fit_A)
+    return consts
+
+
+@pytest.mark.parametrize("case,structure", [
+    ("main", "integrator"), ("elipse", "integrator"),
+    ("1dof", "integrator"), ("2dof", "integrator"),
+    ("sigma_off_diagonal", "dense"), ("q_off_diagonal", "dense"),
+    ("dmd_fit_A", "dense"), ("dynamic_ab", "dense"), ("bfloat16", "dense")])
+def test_structure_is_integrator_exactly(case, structure):
+    """PmConsts.structure is "integrator" only where every entry the
+    kernels' integrator instantiation leaves out is exactly 0.0 and every
+    one it takes as 1 is exactly 1.0 (the point mass's A, B scale at a
+    diagonal sigma, diagonal Q and Mz), at f32 without dynamic_ab; one
+    off-diagonal sigma or Q entry, an A whose diagonal is not exactly 1,
+    dynamic (A, B) or the bf16 build give "dense"."""
+    assert _structure_case(case).structure == structure
+
+
+def test_template_args_carry_the_structure():
+    """template_args ends in the structure's STRUCT: the diagonal task's
+    solve launches <6, 3, MODE, 0, 0, 1>, the dense-constant one <..., 0,
+    0, 0> and FusedLTIMPPI <..., 0, 1, 0>."""
+    from mppi_tf_tpu_torch.models.dmd import DMDModel
+
+    fused, model, cost = _port(10, 3)
+    assert fused.template_args("pm_fused_solve") == (6, 3, 0, 0, 0, 1)
+    assert fused.template_args("pm_fused_costs") == (6, 3, 1, 0, 0, 1)
+    assert fused.template_args("mppi_weights") == ()
+    dense, _, _ = _port(10, 3, dense=True)
+    assert dense.template_args("pm_fused_solve") == (6, 3, 0, 0, 0, 0)
+    lti = pm.FusedLTIMPPI(DMDModel(6, 3, dt=0.1, init_A=model.A.numpy(),
+                                   init_B=model.B.numpy()), cost, k=10,
+                          tau=3, lam=LAM, upsilon=UPS, sigma=SIGMA)
+    assert lti.template_args("pm_fused_costs") == (6, 3, 1, 0, 1, 0)
+    assert pm.STRUCTURES == {"dense": 0, "integrator": 1}
