@@ -20,7 +20,9 @@ port's paths through ``MPPI.next`` closed loop against the analytic plants:
   damping, nonzero cog, full sigma and Q) holds the kDense ones against
   their plain versions and drives them in short loops;
 - the learned NNAUVModel (3x32 MLP) with the static quaternion cost at
-  K=65,536, H=25: its kernels against their plain versions, then a dive
+  K=65,536, H=25: its kernels (the MLP on the tensor cores: 3xTF32, and
+  bf16 products for a bf16-compute model) against their plain versions,
+  then a dive
   through the NN kernels (kernel="cuda") and the torch route, with a
   network built to compute a known plant, in both solve modes;
 - the tracking slice: the point-mass waypoint and 2D ellipse costs and the
@@ -63,17 +65,20 @@ port's paths through ``MPPI.next`` closed loop against the analytic plants:
 
 The build phase reports each instantiation's registers beside the count
 the f32 ones had before the bf16 builds were added (PERF.md), the static
-SASS counts of the point-mass, AUV and NN kernels (``sass``: conversions,
-bf16x2 ops, f32 ops, loads) and every solve instantiation's blocks an SM
-and waves at the flagship shapes (``occupancy``), and fails on a spill
-or on an f32 point-mass instantiation that needs more than one wave at
-K=100,000.
+SASS counts of the point-mass, AUV and NN kernels (``sass``: tensor-core
+HMMA, conversions, bf16x2 ops, f32 ops, loads) and every solve
+instantiation's blocks an SM and waves at the flagship shapes
+(``occupancy``), and fails on a spill, on an f32 point-mass
+instantiation that needs more than one wave at K=100,000, or on an f32
+or bf16-products NN instantiation without HMMA in its SASS.
 With ``--parent DIR`` (a checkout of the parent commit) it also builds
 that tree's library and holds this tree's kernels against it
-(``parent_bits``: the f32 point-mass body in both structures, every
-per-sample cost bit for bit or within 1e-6 and the rows within tolerance
-once merged; the f32 AUV body, the bf16 builds and the NN flagships bit
-for bit) and times them in turns (``parent_times``). It
+(``parent_bits``: the f32 NN body and its bf16-products build, whose
+tensor-core sums round apart from the parent's FMA chains, per-sample
+costs within COST_RTOL / COST_ATOL with the largest relative difference
+printed and the rows within tolerance once merged; every other kernel,
+the f32 point mass and AUV and every bf16 build, bit for bit) and times
+them in turns (``parent_times``). It
 times every kernel, each noise variant beside the same kernel without
 it, the dynamic_ab variant beside the constant-(A, B) kernel and each
 bf16 build beside its f32 build. Each phase prints one JSON line; any
@@ -482,6 +487,35 @@ def nn_solve_ops(consts, k: int, tau: int, prng: bool,
             + (12 if consts.renorm else 0) + q_ops + 12 + 2 * nnz(consts.Mz)
             + 12 + 2)
     return _rollout_ops(k, tau, 6, step, q_ops, prng, costs_only)
+
+
+#: H100 SXM dense tensor-core peaks (NVIDIA datasheet): TF32 and bf16
+PEAK_TF32, PEAK_BF16_MMA = 495e12, 989e12
+
+
+def nn_tc_bound(consts, n_bytes: float, k: int, tau: int, prng: bool,
+                costs_only: bool = False, extra: float = 0.0):
+    """bound_ms of the NN body in the form nn_mppi.cu computes it: the
+    MLP's mma flops (2 x fan_in x fan_out a layer and sample-step, fan_in
+    padded to the mma's k, fan_out to whole n tiles of 8) at the TF32 peak,
+    three products each (3xTF32), or at the bf16 peak for the
+    bf16-products build, plus the rest of nn_solve_ops (its MLP
+    multiply-adds taken out, the ReLUs kept) and the activations' splits
+    (3 ops an A value a layer, 0.5 a value packed to bf16) and ``extra``
+    operations (a noise variant's) at PEAK_OPS."""
+    sizes, bfp = consts.sizes, consts.bf16_products
+    kk = 16 if bfp else 8
+    pairs = list(zip(sizes[:-1], sizes[1:]))
+    mma = 2.0 * k * tau * sum(-(-i // kk) * kk * -(-o // 8) * 8
+                              for i, o in pairs)
+    t_mma = mma / PEAK_BF16_MMA if bfp else 3.0 * mma / PEAK_TF32
+    split = (0.5 if bfp else 3.0) * sum(sizes[:-1])
+    rest = (nn_solve_ops(consts, k, tau, prng, costs_only) + extra
+            - k * tau * (sum(2 * i * o for i, o in pairs) - split))
+    t_o, t_b = t_mma + rest / PEAK_OPS, n_bytes / PEAK_BYTES
+    return max(t_o, t_b) * 1e3, ("bytes" if t_b >= t_o else
+                                 "operations (mma at the tensor-core peak, "
+                                 "the rest at 67 TFLOP/s)")
 
 
 def weights_ops(k: int, n_z: int, prng: bool) -> float:
@@ -1868,8 +1902,9 @@ def bf16_rollout_ops(consts, k: int, tau: int, dyn=None) -> float:
 #: bf16 kDense with constant and dynamic (A, B); <S, A, MODE, COST, AB> in
 #: a library from before STRUCT), <RK, MODE, COST, STRUCT> of the AUV
 #: (rk2, static_quat; f32 kDense and kDiag, bf16 kDense; <RK, MODE, COST>
-#: in a library from before STRUCT) and <N1, N2, N3, MODE> of the NN
-#: (3x32)
+#: in a library from before STRUCT) and <N1, N2, N3, MODE> of the NN (the
+#: f32 and bf16-products builds at 3x32 and (8, 8), the bf16 pair build at
+#: 3x32)
 SASS_KERNELS = (
     *[(f"pm_fused_solve{b}_kernel", (6, 3, m, 0, ab, *st))
       for b in ("", "_bf16") for m in (0, 1) for ab in (0, 1)
@@ -1877,17 +1912,25 @@ SASS_KERNELS = (
     *[(f"auv_fused_solve{b}_kernel", (2, m, 0, *st)) for b in ("", "_bf16")
       for m in (0, 1) for st in ((), (0,), (1,))
       if not (b and st == (1,))],
-    *[(f"nn_fused_solve{b}_kernel", (32, 32, 32, m)) for b in ("", "_bf16")
-      for m in (0, 1)])
+    *[(f"nn_fused_solve{b}_kernel", (*hid, m))
+      for b in ("", "_bfp", "_bf16") for m in (0, 1)
+      for hid in ((32, 32, 32), (8, 8, 0)) if b != "_bf16" or hid[2]])
+#: the NN instantiations whose MLP runs on the tensor cores: the f32 and
+#: bf16-products builds (the sass phase fails unless each holds HMMA and
+#: no LDL / STL)
+NN_MMA_KERNELS = tuple(key for key in SASS_KERNELS
+                       if key[0] in ("nn_fused_solve_kernel",
+                                     "nn_fused_solve_bfp_kernel"))
 #: the opcode families the sass phase counts
-SASS_FAMILIES = ("F2FP", "F2F", "HADD2", "HMUL2", "HFMA2", "FFMA", "FMUL",
-                 "FADD", "LDS", "LDC", "LDL", "STL")
+SASS_FAMILIES = ("HMMA", "F2FP", "F2F", "HADD2", "HMUL2", "HFMA2", "FFMA",
+                 "FMUL", "FADD", "LDS", "LDC", "LDL", "STL")
 
 
 def sass_table(counts) -> dict:
     """The SASS_FAMILIES counts (static instructions in the binary) of the
     SASS_KERNELS in ``_build.sass_counts`` output; ``bf16x2`` counts every
-    opcode with a BF16_V2 modifier (HADD2, HMUL2, HFMA2)."""
+    opcode with a BF16_V2 modifier (HADD2, HMUL2, HFMA2); HMMA the
+    tensor-core products (HMMA.1688.F32.TF32, HMMA.16816.F32.BF16)."""
     out = {}
     for mangled, ops in counts.items():
         key = kernel_key(mangled)
@@ -1903,16 +1946,29 @@ def sass_table(counts) -> dict:
 
 def sass_phase(_build, parent_lib=None) -> None:
     """Static SASS counts of the SASS_KERNELS (``cuobjdump -sass``), and of
-    the parent's library where one is given: a diagnostic, not a gate."""
+    the parent's library where one is given; fails unless every
+    NN_MMA_KERNELS instantiation holds HMMA (the tensor cores carry its
+    MLP) and no LDL / STL, or where cuobjdump is missing and that cannot
+    be shown."""
     counts = _build.sass_counts()
     if counts is None:
         emit("sass", cuobjdump=None, note="cuobjdump is missing: no counts")
-        return
+        raise AssertionError("cuobjdump is missing: the NN kernels' HMMA "
+                             "cannot be read")
     out = {"this": sass_table(counts)}
     if parent_lib is not None:
         out["parent"] = sass_table(_build.sass_counts(parent_lib))
-    emit("sass", **out, note="static instructions in the library; F2FP / "
-         "F2F are conversions, bf16x2 the BF16_V2 ops")
+    mma = {f"{n}<{', '.join(map(str, a))}>": out["this"].get(
+        f"{n}<{', '.join(map(str, a))}>") for n, a in NN_MMA_KERNELS}
+    mma_ok = all(v is not None and v["HMMA"] > 0 and v["LDL"] == 0
+                 and v["STL"] == 0 for v in mma.values())
+    emit("sass", **out, nn_mma={k: v and v["HMMA"] for k, v in mma.items()},
+         nn_mma_ok=mma_ok,
+         note="static instructions in the library; HMMA the tensor-core "
+              "products, F2FP / F2F conversions, bf16x2 the BF16_V2 ops")
+    if not mma_ok:
+        raise AssertionError(f"an NN instantiation lacks HMMA or holds "
+                             f"LDL / STL: {mma}")
 
 
 def occupancy_phase(lib, reg_rows, n_sm: int) -> None:
@@ -1920,7 +1976,9 @@ def occupancy_phase(lib, reg_rows, n_sm: int) -> None:
     at the flagship horizon, unscheduled), warps an SM and waves at the
     flagship shapes (point mass K=100,000, H=50; AUV K=262,144, H=25; NN
     K=65,536, H=25) of every solve instantiation, f32 and bf16 (the f32
-    builds in both structures). ``auv_f32_diag_rk12_min_warps``: the
+    builds in both structures; the NN's bf16-products build too).
+    ``nn_mma_max_waves``: the most waves of an f32 or bf16-products NN
+    instantiation (a reading). ``auv_f32_diag_rk12_min_warps``: the
     fewest warps an SM of the kDiag instantiations at rk 1 and 2;
     ``pm_f32_max_waves``: the most waves of an f32 point-mass
     instantiation, which must be one (a gate: kDynAB held two blocks an SM
@@ -1930,18 +1988,20 @@ def occupancy_phase(lib, reg_rows, n_sm: int) -> None:
     regs = {(r["kernel"], tuple(r["template"])): r["registers"]
             for r in reg_rows}
     rows = []
-    for sfx in ("", "_bf16"):
+    for sfx in ("", "_bf16", "_bfp"):
         # (STRUCT, AB): kIntegrator with constant (A, B), f32 alone
         combos = ((1, 0), (0, 0), (0, 1)) if sfx == "" else ((0, 0), (0, 1))
-        cases = [("pm", (s_, a_, mode, cost, ab, st), K)
-                 for s_, a_, cost in ((6, 3, 0), (2, 1, 0), (4, 2, 0),
-                                      (4, 2, 1))
-                 for mode in (0, 1) for st, ab in combos]
-        cases += [("auv", (rk, mode, cost, st), AUV_K)
-                  for rk in (1, 2, 4) for mode in (0, 1) for cost in (0, 1, 2)
-                  for st in ((0, 1) if sfx == "" else (0,))]
-        cases += [("nn", (*hid, mode), NN_K)
-                  for hid in ((32, 32, 32), (8, 8, 0)) for mode in (0, 1)]
+        cases = [("nn", (*hid, mode), NN_K)
+                 for hid in ((32, 32, 32), (8, 8, 0)) for mode in (0, 1)]
+        if sfx != "_bfp":     # the bf16-products build is the NN's alone
+            cases += [("pm", (s_, a_, mode, cost, ab, st), K)
+                      for s_, a_, cost in ((6, 3, 0), (2, 1, 0), (4, 2, 0),
+                                           (4, 2, 1))
+                      for mode in (0, 1) for st, ab in combos]
+            cases += [("auv", (rk, mode, cost, st), AUV_K)
+                      for rk in (1, 2, 4) for mode in (0, 1)
+                      for cost in (0, 1, 2)
+                      for st in ((0, 1) if sfx == "" else (0,))]
         for model, args, k in cases:
             out = (ctypes.c_int * 2)()
             if model == "pm":
@@ -1972,7 +2032,10 @@ def occupancy_phase(lib, reg_rows, n_sm: int) -> None:
         r["warps_an_sm"] for r in rows
         if r["kernel"] == "auv_fused_solve_kernel"
         and r["template"][0] in (1, 2) and r["template"][3] == 1),
-        pm_f32_max_waves=pm_waves)
+        pm_f32_max_waves=pm_waves, nn_mma_max_waves=max(
+            r["waves"] or float("inf") for r in rows
+            if r["kernel"] in ("nn_fused_solve_kernel",
+                               "nn_fused_solve_bfp_kernel")))
     if not pm_waves <= 1.0:
         raise AssertionError(f"an f32 point-mass instantiation runs "
                              f"{pm_waves} waves at K={K}")
@@ -2095,18 +2158,40 @@ def pm_dyn(f, rng) -> torch.Tensor:
                         dtype=torch.float32, device="cuda"))
 
 
-#: the per-sample costs of the subject against the parent's where the
-#: elision moves which product ptxas contracts into an FMA: the rtol
-#: allowed, the largest difference printed
-PARENT_COST_RTOL = 1e-6
+#: the labels of parent_phase's subject: the f32 NN body and its
+#: bf16-products build
+PARENT_SUBJECT = ("nn_f32", "nn_bfp")
+#: the subject's merged rows against the parent's: check_auv's end-to-end
+#: tolerance of the NN (rtol, atol). A cost that moves by d moves its
+#: exponent by d / lam: at lam 0.5 the f32 body's ~3e-7 of a ~1e4 cost
+#: shifts a weight by ~0.6%, past the rtol 1e-3 the rows meet where the
+#: costs are equal (its ratio is printed as strict_tol_ratio)
+PARENT_ROWS_TOL = (1e-2, 1e-3)
 
 
 def parent_cases(pm, auv, nnk) -> list:
-    """(label, solve object, kernels) of parent_phase: the subject, every
-    f32 point-mass instantiation ("pm_f32_*"), then the controls."""
+    """(label, solve object, kernels) of parent_phase: the subject (the f32
+    NN body, "nn_f32_*", and its bf16-products build, "nn_bfp_*"), then the
+    controls: every f32 point-mass instantiation, the f32 AUV, the bf16
+    builds."""
     ka, kn = quat_kernels(auv, "auv"), quat_kernels(nnk, "nn")
     kp = SimpleNamespace(costs=pm.pm_fused_costs, solve=pm.pm_fused_solve)
     cases = []
+    bfp = {"model_compute_dtype": torch.bfloat16}
+    for k in (700, 4097):
+        for hid in ((8, 8), (32, 32, 32)):
+            name = "x".join(map(str, hid))
+            cases += [(f"nn_f32_{name}_K{k}", nn_fused(k, 7, hid), kn),
+                      (f"nn_f32_sched_anti_{name}_K{k}",
+                       nn_fused(k, 7, hid, **FUSED_BOTH), kn),
+                      (f"nn_bfp_{name}_K{k}", nn_fused(k, 7, hid, **bfp),
+                       kn)]
+    cases += [("nn_f32_flagship", nn_fused(NN_K, NN_H), kn),
+              ("nn_f32_sched_anti_flagship",
+               nn_fused(NN_K, NN_H, **FUSED_BOTH), kn),
+              ("nn_bfp_flagship", nn_fused(NN_K, NN_H, **bfp), kn)]
+    # the controls: the f32 point-mass body in both structures, the f32
+    # AUV body in both structures, the bf16 builds
     dims = ((6, 3, False), (2, 1, False), (4, 2, False), (4, 2, True))
     for k in (700, 4097):
         for sdim, adim, el in dims:
@@ -2162,8 +2247,6 @@ def parent_cases(pm, auv, nnk) -> list:
         got = next(c[1] for c in cases if c[0] == label).consts.structure
         if got != want:
             raise AssertionError(f"parent case {label}: {got}, want {want}")
-    # the controls: the f32 AUV body in both structures, the bf16 builds,
-    # the NN
     kinds = ("static_quat", "waypoints_quat", "elipse3d")
     for k in (700, 4097):
         for rk in (1, 2, 4):
@@ -2205,7 +2288,6 @@ def parent_cases(pm, auv, nnk) -> list:
                                         compute_dtype="bfloat16"), ka),
         ("nn_bf16_flagship", nn_fused(NN_K, NN_H, compute_dtype="bfloat16"),
          kn),
-        ("nn_f32_flagship", nn_fused(NN_K, NN_H), kn),
         ("pm_bf16_K100000", pm.FusedPointMassMPPI(
             model, cost, k=K, tau=H, sigma=SIGMA, compute_dtype="bfloat16",
             **flag), kp),
@@ -2217,29 +2299,33 @@ def parent_cases(pm, auv, nnk) -> list:
 
 def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
     """``--parent``: this tree's kernels against the parent's library on the
-    same inputs. The subject, the f32 point-mass body (pm_fused_costs and
-    pm_fused_solve, every f32 instantiation: (6, 3), (2, 1) and (4, 2)
-    quadratic and the (4, 2) ellipse in both structures, the diagonal task
-    (integrator) and a full sigma and Q (dense), at upsilon 1 and 1.2,
-    and dynamic (A, B), at K=700 and 4,097, H=7, scheduled + antithetic,
-    and the flagships: K=100,000 H=50, point_mass_h100, antithetic, the
-    dmd row, the ellipse and the dense-constant point mass; injected z and
-    Philox), against the parent's one dense body: per-sample costs bit
-    for bit, or within PARENT_COST_RTOL with the largest difference
-    printed, and the stats and partial rows bit for bit, or within rtol
-    1e-3, atol 1e-5 once merged (pm_merge). The controls, which share
-    mppi_common.cuh or the point mass's source: the f32 AUV body (every
-    rk and cost kind in both structures, K=700 and 4,097, and two
-    flagships) and the bf16 builds of the point mass, the AUV and the NN,
-    and the NN's f32 flagship, every output bit for bit. Then the
-    point-mass f32 flagships timed in turns (parent, this, this, parent),
-    pm_fused_solve and pm_fused_costs each, and the controls' flagships."""
+    same inputs. The subject, the f32 NN body (nn_fused_costs and
+    nn_fused_solve: (8, 8) and 3x32 at K=700 and 4,097, H=7, plain and
+    scheduled + antithetic, and the flagship K=65,536, H=25 plain and
+    scheduled + antithetic) and its bf16-products build (both topologies
+    at K=700 and 4,097, H=7, and the flagship), on injected z and Philox,
+    against the parent's FMA chains: the tensor cores sum the MLP in
+    another order, so each is held to its kernels' own gate against their
+    plain versions, the largest relative difference printed: the f32
+    per-sample costs within COST_RTOL / COST_ATOL, the bf16-products
+    costs within BF16_GAP_SHARE of the mean distance of the same weights'
+    f32 products (a hidden output's bf16 rounding flips now and then), the
+    stats and partial rows within PARENT_ROWS_TOL once merged (pm_merge;
+    the reading against rtol 1e-3, atol 1e-5 printed beside). The controls,
+    which share mppi_common.cuh or the NN's source: the f32 point-mass
+    body (every f32 instantiation in both structures, upsilon 1 and 1.2,
+    dynamic (A, B), K=700 and 4,097, H=7, scheduled + antithetic, and six
+    flagships), the f32 AUV body (every rk and cost kind in both
+    structures, K=700 and 4,097, and two flagships) and the bf16 builds of
+    the point mass, the AUV and the NN (the pair build of the NN's
+    source), every output bit for bit. Then the subject's flagships timed
+    in turns (parent, this, this, parent), nn_fused_solve and
+    nn_fused_costs each, and the controls' flagships."""
     rng = np.random.default_rng(21)
     cases = parent_cases(pm, auv, nnk)
-    kp = cases[0][2]
     res, dyns = {}, {}
     for label, f, kern in cases:
-        dyn = (pm_dyn(f, rng) if kern is kp else
+        dyn = (pm_dyn(f, rng) if kern.costs is pm.pm_fused_costs else
                auv_dyn(f, 20.0 if "elipse3d" in label else 200.0,
                        seed=len(label),
                        x0=[4.0, 0, -3.0, 0, 0, 0, 1.0] + [0.0] * 6
@@ -2247,6 +2333,11 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
         dyns[label] = dyn
         z = torch.as_tensor(rng.standard_normal((f.tau, f.adim, f.k),
                                                 np.float32), device="cuda")
+        twin = None
+        if label.startswith("nn_bfp"):   # the same weights, f32 products
+            twin = nn_fused(f.k, f.tau, f.consts.hidden)
+            twin.model.load_state_dict(f.model.state_dict())
+            twin_dyn = auv_dyn(twin, 200.0, seed=len(label))
         out = {}
         for src, kw in (("injected", {"z": z}), ("philox", {"seed": 9,
                                                            "solve": 2})):
@@ -2267,10 +2358,21 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
                     "of": a.numel(), "max_abs_diff": diff.max().item()}
                 if name == "costs":
                     d["max_rel_diff"] = (diff / b.double().abs()).max().item()
-                    d["within_rtol"] = d["max_rel_diff"] <= PARENT_COST_RTOL
+                    d["within_tol"], _, d["cost_tol_ratio"] = close(
+                        a, b, COST_RTOL, COST_ATOL)
+                    if twin is not None:
+                        gap = (kern.costs(twin.consts, twin_dyn, f.k, f.tau,
+                                          **kw)[0].double()
+                               - b.double()).abs().mean().item()
+                        d.update(mean_abs_diff=diff.mean().item(),
+                                 f32_gap_mean=gap, within_tol=gap > 0
+                                 and diff.mean().item()
+                                 <= BF16_GAP_SHARE * gap)
                 else:
-                    ok, err, ratio = close(merged(pm, a), merged(pm, b),
-                                           1e-3, 1e-5)
+                    ma, mb = merged(pm, a), merged(pm, b)
+                    d["strict_ok"], _, d["strict_tol_ratio"] = close(
+                        ma, mb, 1e-3, 1e-5)
+                    ok, err, ratio = close(ma, mb, *PARENT_ROWS_TOL)
                     d.update(merged_ok=ok, merged_max_abs_err=err,
                              merged_tol_ratio=ratio)
         res[label] = out
@@ -2278,9 +2380,9 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
     differing = {label: {o: v for o, v in out.items() if v is not True}
                  for label, out in res.items()}
     differing = {label: d for label, d in differing.items() if d}
-    subject = {label for label in res if label.startswith("pm_f32")}
+    subject = {label for label in res if label.startswith(PARENT_SUBJECT)}
     controls_equal = not any(label not in subject for label in differing)
-    subject_ok = all(v.get("within_rtol", v.get("merged_ok", False))
+    subject_ok = all(v.get("within_tol", v.get("merged_ok", False))
                      for label, d in differing.items() for v in d.values())
     costs_moved = {label: max(v["max_rel_diff"] for o, v in d.items()
                               if o.endswith("_costs"))
@@ -2291,31 +2393,34 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
     emit("parent_bits", cases=sorted(res), subject=sorted(subject),
          outputs_compared=sum(len(o) for o in res.values()),
          all_equal=not differing,
-         subject_costs_all_equal=not costs_moved,
          subject_costs_max_rel_diff=costs_moved,
+         subject_costs_largest_rel_diff=max(costs_moved.values(),
+                                            default=0.0),
          subject_rows_moved=rows_moved,
          subject_within_tol=subject_ok, controls_all_equal=controls_equal,
-         differing=differing, cost_rtol=PARENT_COST_RTOL,
+         differing=differing, cost_rtol=COST_RTOL, cost_atol=COST_ATOL,
+         bfp_gap_share=BF16_GAP_SHARE, rows_tol=PARENT_ROWS_TOL,
          note="this tree's kernels against the parent commit's library on "
-         "the same inputs, torch.equal; the subject (f32 point mass, "
-         "integrator and dense against the parent's dense body) may move "
-         "a cost by an ulp where the elision changes which product is "
-         "contracted into an FMA (rtol cost_rtol), its rows then held "
-         "merged at rtol 1e-3, atol 1e-5; every control bit for bit")
+         "the same inputs, torch.equal; the subject (the f32 NN body and "
+         "its bf16-products build: the MLP on the tensor cores against the "
+         "parent's FMA chains): f32 costs within cost_rtol / cost_atol, "
+         "bf16-products costs within bfp_gap_share of the f32 products' "
+         "mean distance (that build's gate against its plain version: a "
+         "hidden output's bf16 rounding flips now and then), rows within "
+         "rows_tol once merged (strict_tol_ratio: against rtol 1e-3, atol "
+         "1e-5); every control bit for bit")
     if not (controls_equal and subject_ok):
         raise AssertionError(f"parent_bits: {differing}")
     # times in turns, parent and this tree
     times = {}
     for label, kern_fn in (
-            *[(f"pm_f32_{name}", fn) for fn in ("solve", "costs")
-              for name in ("K100000", "sched_H100", "antithetic_K100000",
-                           "dynab_K100000", "elipse_K100000",
-                           "dense_K100000")],
+            *[(f"nn_{name}_flagship", fn) for name in ("f32", "f32_sched_anti",
+                                                        "bfp")
+              for fn in ("solve", "costs")],
+            ("pm_f32_K100000", "solve"),
+            ("pm_f32_K100000", "costs"),
             ("auv_f32_static_quat_flagship", "costs"),
-            ("auv_f32_static_quat_flagship", "solve"),
-            ("pm_bf16_K100000", "costs"),
             ("pm_bf16_K100000", "solve"),
-            ("nn_f32_flagship", "solve"),
             ("nn_bf16_flagship", "solve")):
         f = next(c[1] for c in cases if c[0] == label)
         fn = getattr(next(c[2] for c in cases if c[0] == label), kern_fn)
@@ -3684,6 +3789,12 @@ def main() -> int:
                                      costs_only=True))
     b_nw6 = bound_ms(4.0 * NN_K + 8.0 + n_part_bytes,
                      weights_ops(NN_K, n_nz, True))
+    # the bounds of the tensor-core form the kernels compute (nn_tc_bound)
+    tc_nsolve = nn_tc_bound(nc, 4.0 * dyn_n.numel() + n_part_bytes, NN_K,
+                            NN_H, prng=True)
+    tc_ncosts = nn_tc_bound(nc, 4.0 * dyn_n.numel() + 4.0 * NN_K
+                            + 4.0 * n_nb * pm.STATS, NN_K, NN_H, prng=True,
+                            costs_only=True)
     # a reading never called by the port: the MLP's four products over the
     # K*H rows of a horizon as torch.matmul (cuBLAS, f32, no TF32), the
     # work the torch route does a step beside its elementwise ops
@@ -3784,6 +3895,7 @@ def main() -> int:
              "weights_adim6_ms": t_nw6, "plain_solve_ms": p_nsolve,
              "plain_costs_ms": p_ncosts, "plain_weights_adim6_ms": p_nw6,
              "bound_solve": b_nsolve, "bound_costs": b_ncosts,
+             "tc_bound_solve": tc_nsolve, "tc_bound_costs": tc_ncosts,
              "bound_weights": b_nw6, "mlp_matmuls_ms": t_mlp,
              "mppi_next_ms": nn_next,
              "mlp_matmuls_note": "four torch.matmul of the folded MLP over "
@@ -3907,6 +4019,13 @@ def main() -> int:
                                            solve=1)),
             bound=bound_ms(4.0 * dyn_v.numel() + 4.0 * k_
                            + 4.0 * nb_ * pm.STATS, ops_c + extra))
+        if key == "nn":
+            vt["nn_fused_solve[sched, antithetic]"]["tc_bound"] = nn_tc_bound(
+                vc, 4.0 * dyn_v.numel() + 4.0 * nb_ * (pm.STATS + nz_), k_,
+                h_, prng=True, extra=extra)
+            vt["nn_fused_costs[sched, antithetic]"]["tc_bound"] = nn_tc_bound(
+                vc, 4.0 * dyn_v.numel() + 4.0 * k_ + 4.0 * nb_ * pm.STATS,
+                k_, h_, prng=True, costs_only=True, extra=extra)
     # dynamic_ab beside the constant-(A, B) kernel on the same map (the
     # seeded DMD and the point mass at mass 1): the cost of runtime
     # dynamics on this card; the bounds count dense A and B scale
@@ -3967,6 +4086,13 @@ def main() -> int:
             bound=bf16_bound(4.0 * dyn_o.numel() + 4.0 * k_
                              + 4.0 * nb_ * pm.STATS,
                              ops_fn(b16c, costs_only=True), ops16))
+        if key == "nn_bf16_products":
+            vt[f"nn_fused_solve[{tag}]"]["tc_bound"] = nn_tc_bound(
+                b16c, 4.0 * dyn_o.numel() + 4.0 * nb_ * (pm.STATS + nz_),
+                k_, h_, prng=True)
+            vt[f"nn_fused_costs[{tag}]"]["tc_bound"] = nn_tc_bound(
+                b16c, 4.0 * dyn_o.numel() + 4.0 * k_ + 4.0 * nb_ * pm.STATS,
+                k_, h_, prng=True, costs_only=True)
     bf = "bfloat16"
     vt["pm_noise_dump[bf16]"] = dict(variant_times(
         lambda: pm.pm_noise_dump(1, 1, K, H, 3, "cuda"),
@@ -4105,14 +4231,16 @@ def main() -> int:
                            "against the plain costs, K=65536, H=25, 3x32",
          "softmax_vs_own_costs_max_abs_err": nn_chk["fused_max_abs_err"],
          "ms": t_nsolve, "plain_ms": p_nsolve, "bound_ms": b_nsolve[0],
-         "bound_by": b_nsolve[1], "library_ms": None},
+         "bound_by": b_nsolve[1], "tc_bound_ms": tc_nsolve[0],
+         "library_ms": None},
         {"name": "nn_fused_costs", "route": "cuda", "source": nsrc,
          "replaces": "mppi_tf_tpu/kernels/nn_mppi.py:647",
          "launches": nn_norm_counts["nn_fused_costs"],
          "path": "NN known-plant closed loop, normalized",
          "max_abs_err": nn_chk["costs_max_abs_err"],
          "ms": t_ncosts, "plain_ms": p_ncosts, "bound_ms": b_ncosts[0],
-         "bound_by": b_ncosts[1], "library_ms": None},
+         "bound_by": b_ncosts[1], "tc_bound_ms": tc_ncosts[0],
+         "library_ms": None},
     ]
     tracking_rows = (
         ("pm_fused_solve[elipse]", src, "mppi_tf_tpu/kernels/pm_mppi.py:1000",
@@ -4323,6 +4451,8 @@ def main() -> int:
             "unvaried_device_ms": t["unvaried_device_ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+            **({"tc_bound_ms": t["tc_bound"][0]} if "tc_bound" in t
+               else {}),
             "library_ms": None})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

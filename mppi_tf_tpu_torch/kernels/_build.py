@@ -68,7 +68,7 @@ _SIGNATURES.update(
         "auv_fused_solve", "auv_fused_costs", "nn_fused_solve",
         "nn_fused_costs", "pm_occupancy", "auv_occupancy", "nn_occupancy")}
     | {f"{name}_bfp": _SIGNATURES[name]
-       for name in ("nn_fused_solve", "nn_fused_costs")})
+       for name in ("nn_fused_solve", "nn_fused_costs", "nn_occupancy")})
 
 _lib = None
 

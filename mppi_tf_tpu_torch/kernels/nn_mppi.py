@@ -9,7 +9,9 @@ Replaces the Pallas kernel of ``mppi_tf_tpu/kernels/nn_mppi.py``
   per sample rolls x += MLP([x[3:13], useq_t + scale z_t]) (quaternion
   renormalised) over the horizon, sums the cost
   sum_t [q(x_{t+1}) + rhs_z_t . z_t + nc_half z_t^T Mz z_t] + q(x_H) + u_half
-  and writes the block's softmax partial row, merged by ``pm_merge``;
+  and writes the block's softmax partial row, merged by ``pm_merge``; each
+  warp runs the MLP of its 32 samples on the tensor cores (``mma.sync``,
+  3xTF32: the f32 products to a few ulps);
 - ``nn_fused_costs`` replaces ``_fused_nn_costs`` (mode "costs", phase A
   of the normalized solve): costs[k] and a stats-only row per block.
 
@@ -31,7 +33,8 @@ Two more builds of that source:
   ``StaticQuatCost`` (against the unrounded goal) and the cost sum in f32,
   the z terms bf16 values added to it;
 - a model whose ``compute_dtype`` is bf16 at ``compute_dtype="float32"``,
-  the ``*_bfp`` kernels: bf16 products with f32 accumulation, as the JAX
+  the ``*_bfp`` kernels: bf16 products with f32 accumulation (bf16
+  ``mma.sync`` on the tensor cores), as the JAX
   XLA path computes that model (``models/nn.py::mlp_apply``), not as the
   JAX kernel does, which ignores the model's compute_dtype (ROADMAP §3).
   The normalisers ride unfolded in ``dyn`` (``NNDyn.norm``); the features

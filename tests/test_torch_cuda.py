@@ -525,11 +525,12 @@ def test_auv_normalized_closed_loop_on_the_kernel_path(cuda_device):
 NN_SIGMA = np.diag([50.0, 50.0, 50.0, 20.0, 20.0, 20.0])
 
 
-def _nn_fused(k, tau, device, hidden):
+def _nn_fused(k, tau, device, hidden, model_compute_dtype=None):
     from mppi_tf_tpu_torch.kernels import nn_mppi as nnk
     from mppi_tf_tpu_torch.models.nn import NNAUVModel
 
-    model = NNAUVModel(hidden=hidden, seed=4, device=device)
+    model = NNAUVModel(hidden=hidden, seed=4, device=device,
+                       compute_dtype=model_compute_dtype)
     n_in, n_out = model.input_dim(), model.output_dim()
     model.set_normalization(0.1 * np.arange(n_in), 1.0 + 0.05 * np.arange(
         n_in), 0.01 * np.arange(n_out), 0.05 + 0.002 * np.arange(n_out))
@@ -539,18 +540,43 @@ def _nn_fused(k, tau, device, hidden):
                            sigma=NN_SIGMA)
 
 
+@pytest.mark.parametrize("build", ["f32", "bfp"])
 @pytest.mark.parametrize("hidden", [(8, 8), (32, 32, 32)])
-@pytest.mark.parametrize("k,tau", [(700, 7), (4097, 25)])
-def test_nn_kernels_match_plain(cuda_device, hidden, k, tau):
+@pytest.mark.parametrize("k,tau", [(700, 7), (4097, 25), (17, 7), (33, 7)])
+def test_nn_kernels_match_plain(cuda_device, hidden, k, tau, build):
+    """The f32 NN kernels (``build`` "f32") and the bf16-products build
+    ("bfp", a bf16-compute model) against their plain versions: K=17 and
+    33 leave a warp and an m16 tile of its MLP partly filled, 4,097 a last
+    block of one sample. The f32 costs within COST_RTOL / COST_ATOL; the
+    bf16-products costs within BF16_GAP_SHARE of the f32 products'
+    distance from that plain version (its gate in
+    test_bf16_kernels_match_plain: rounding each hidden output to bf16
+    turns an f32 ulp of another summation order into a bf16 step now and
+    then); the fused rows against the softmax of each kernel's own
+    costs."""
     from mppi_tf_tpu_torch.kernels import nn_mppi as nnk
 
     fused = _nn_fused(k, tau, cuda_device, hidden)
-    z, _, _, dyn = _auv_inputs(fused, cuda_device, seed=len(hidden))
+    z, x0, useq, dyn = _auv_inputs(fused, cuda_device, seed=len(hidden))
+    f32, dyn32 = fused.consts, dyn
+    if build == "bfp":   # the same weights, products at bf16
+        weights = fused.model.state_dict()
+        fused = _nn_fused(k, tau, cuda_device, hidden, torch.bfloat16)
+        fused.model.load_state_dict(weights)
+        with torch.no_grad():
+            dyn = fused.pack_dyn(x0, useq)
+        assert fused.consts.bf16_products
     c = fused.consts
     costs_k, rows_k = nnk.nn_fused_costs(c, dyn, k, tau, z=z)
     costs_p = nnk.sample_costs_plain(c, dyn, z)
-    torch.testing.assert_close(costs_k, costs_p, rtol=COST_RTOL,
-                               atol=COST_ATOL)
+    if build == "f32":
+        torch.testing.assert_close(costs_k, costs_p, rtol=COST_RTOL,
+                                   atol=COST_ATOL)
+    else:
+        err = (costs_k - costs_p).abs().mean().item()
+        gap = (nnk.nn_fused_costs(f32, dyn32, k, tau, z=z)[0]
+               - costs_p).abs().mean().item()
+        assert gap > 0 and err <= BF16_GAP_SHARE * gap, (err, gap)
     _, st = pm.merge_plain(rows_k)
     torch.testing.assert_close(
         st[2:5], torch.stack([costs_k.min(), costs_k.max(), costs_k.sum()]),
@@ -563,6 +589,24 @@ def test_nn_kernels_match_plain(cuda_device, hidden, k, tau):
     zs_p, st_p = pm.merge_plain(part_p)
     torch.testing.assert_close(zs_k / st_k[1], zs_p / st_p[1], rtol=1e-3,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("sfx,lanes,blocks", [("", 1, 2), ("_bfp", 1, 2),
+                                               ("_bf16", 2, 1)])
+def test_nn_occupancy_entry_point(cuda_device, sfx, lanes, blocks):
+    """nn_occupancy of each build: the tensor-core bodies (f32 and bf16
+    products) hold two blocks of 256 an SM at both topologies and modes
+    (K=65,536 in one wave), the bf16 pair build at least one; other
+    topologies are refused."""
+    import ctypes
+
+    fn = getattr(_build.load_library(), f"nn_occupancy{sfx}")
+    for hid in ((32, 32, 32), (8, 8, 0)):
+        for mode in (0, 1):
+            out = (ctypes.c_int * 2)()
+            assert fn(*hid, mode, 25, out) == 0
+            assert out[1] == lanes and out[0] >= blocks
+    assert fn(16, 16, 16, 0, 25, (ctypes.c_int * 2)()) != 0
 
 
 @pytest.mark.parametrize("normalize", [False, True])

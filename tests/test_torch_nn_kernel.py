@@ -267,3 +267,139 @@ def test_consts_packing_order():
     np.testing.assert_allclose(p[4:40], (UPS * SIGMA).ravel(), rtol=1e-7)
     np.testing.assert_allclose(p[-100:], np.diag(TASK["Q"]).ravel())
     assert fused.consts.sizes == (16, 8, 8, 13)
+
+
+# ---------------------------------------------------------------------------
+# the f32 kernel's tensor-core arithmetic (csrc/nn_mppi.cu, 3xTF32)
+# ---------------------------------------------------------------------------
+
+#: the card's gate on the NN kernels' per-sample costs (chip_smoke.py,
+#: tests/test_torch_cuda.py)
+COST_RTOL, COST_ATOL = 1e-4, 1e-2
+#: the chip's NN flagship (chip_smoke.py nn_fused, check_auv): sigma,
+#: lambda, upsilon, the depth task, useq of scale 200 from rest
+FLAG_SIGMA = 1500.0 * np.eye(6)
+FLAG_LAM, FLAG_UPS = 0.5, 1.0
+FLAG_TASK = {"type": "static_quat", "diag": True,
+             "goal": [0.0, 0.0, -5.0, 0.0, 0.0, 0.0, 1.0] + [0.0] * 6,
+             "Q": [100.0, 100.0, 100.0, 10.0] + [1.0] * 6}
+
+
+def _tf32_rna(a):
+    """f32 ``a`` rounded to TF32 as cvt.rna.tf32.f32 rounds it: to nearest
+    on the 13 dropped mantissa bits, ties away from zero, by integer
+    operations on the f32 bits (nn_mppi.cu tf32_rna)."""
+    return ((a.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mlp_3xtf32(layers, h):
+    """The f32 kernel's MLP: every activation and weight split into a_hi =
+    rna(a) and a_lo = rna(a - a_hi); C starts at the bias and adds, a k
+    block of 8 at a time, a_lo b_hi, then a_hi b_lo, then a_hi b_hi (the
+    products of TF32 values are exact in f32; the sums f32)."""
+    for n, (w, b) in enumerate(layers):
+        ah = _tf32_rna(h)
+        al = _tf32_rna(h - ah)
+        wh = _tf32_rna(w)
+        wl = _tf32_rna(w - wh)
+        y = b.expand(h.shape[0], -1)
+        for j in range(0, w.shape[0], 8):
+            blk = slice(j, j + 8)
+            y = y + al[:, blk] @ wh[blk]
+            y = y + ah[:, blk] @ wl[blk]
+            y = y + ah[:, blk] @ wh[blk]
+        h = torch.relu(y) if n < len(layers) - 1 else y
+    return h
+
+
+def _costs_3xtf32(consts, dyn, z):
+    """nnk.sample_costs_plain's f32 rollout with the kernel's MLP."""
+    from mppi_tf_tpu_torch.kernels.auv_mppi import _quat_cost
+
+    tau, _, k = z.shape
+    lay = consts.layout(tau)
+    ct = pm.sched_factors(dyn, lay, tau)
+    scale, Mz, Q = (torch.as_tensor(np.asarray(a), dtype=torch.float32)
+                    for a in (consts.scale, consts.Mz, consts.Q))
+    layers = [(dyn[w:b].reshape(o, i).T, dyn[b:b + o])
+              for w, b, i, o in lay.layers]
+    goal = dyn[lay.goal:lay.useq]
+    useq = dyn[lay.useq:lay.rhs_z].reshape(tau, 6)
+    rhs_z = dyn[lay.rhs_z:lay.u_half].reshape(tau, 6)
+    x = dyn[lay.x0:lay.goal].expand(k, 13)
+    cost = torch.zeros(k)
+    for t in range(tau):
+        zt = z[t].T
+        h = torch.cat([x[:, 3:], useq[t] + (ct[t] * zt) @ scale.T], dim=-1)
+        x = x + _mlp_3xtf32(layers, h)
+        qn = torch.rsqrt(torch.clamp(torch.sum(x[:, 3:7] ** 2, dim=-1,
+                                               keepdim=True), min=1e-24))
+        x = torch.cat([x[:, :3], x[:, 3:7] * qn, x[:, 7:]], dim=-1)
+        cost = (cost + _quat_cost(Q, goal, x) + zt @ rhs_z[t]
+                + consts.nc_half * ct[t]
+                * torch.sum((zt @ Mz.T) * zt, dim=-1))
+    return cost + _quat_cost(Q, goal, x) + dyn[lay.u_half]
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    a = torch.tensor([1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -11,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -11 - 2.0 ** -23,
+                      2.0 - 2.0 ** -12, 3.0e-3], dtype=torch.float32)
+    want = [1.0 + 2.0 ** -10, 1.0 + 2 * 2.0 ** -10, -(1.0 + 2.0 ** -10),
+            1.0, 2.0]
+    np.testing.assert_array_equal(_tf32_rna(a)[:5].numpy(), want)
+    r = _tf32_rna(a)
+    assert torch.all((r.view(torch.int32) & 0x1fff) == 0)
+    assert abs(r[5].item() - 3.0e-3) <= 2.0 ** -11 * 3.0e-3
+
+
+@pytest.mark.parametrize("hidden", HIDDEN)
+def test_3xtf32_rollout_meets_the_cost_gate(hidden):
+    """The f32 kernel's arithmetic, emulated in torch, inside the full f32
+    rollout at the chip's NN flagship scaled down (K 512, H 25, trained
+    normalisers, sigma 1500, useq of scale 200), against the f64 JAX XLA
+    rollout: within COST_RTOL 1e-4 / COST_ATOL 1e-2, the gate the card
+    holds the kernel's costs to against the plain f32 version. Three TF32
+    products (a_lo b_hi + a_hi b_lo + a_hi b_hi) leave ~2^-22 of each
+    product, a few f32 ulps, so they meet it as the f32 FMAs did."""
+    k, tau = 512, 25
+    model = JNNAUVModel(action_dim=6, dt=0.1, hidden=hidden, seed=4,
+                        dtype=jnp.float64)
+    cost = jget_cost(FLAG_TASK, lam=FLAG_LAM, gamma=0.2, upsilon=FLAG_UPS,
+                     sigma=FLAG_SIGMA, dtype=jnp.float64)
+    ctrl = JMPPI(model, cost, k=k, tau=tau, lam=FLAG_LAM, upsilon=FLAG_UPS,
+                 sigma=FLAG_SIGMA)
+    x_mean = np.zeros(16)
+    x_mean[3] = 0.9
+    x_std = np.concatenate([[0.3] * 4, [0.5] * 6, np.diag(FLAG_SIGMA)])
+    y_std = np.array([0.05] * 3 + [0.01] * 4 + [0.05] * 6)
+    ctrl.model_params = model.set_normalization(
+        model.init_params(), x_mean, x_std, np.zeros(13), y_std)
+    rng = np.random.RandomState(6)
+    z = rng.randn(tau, 6, k).astype(np.float32)
+    x0 = np.zeros(13)
+    x0[6] = 1.0
+    useq = (200.0 * rng.randn(tau, 6)).astype(np.float32)
+    eps = np.einsum("ij,tjk->kti", FLAG_UPS * FLAG_SIGMA,
+                    z.astype(np.float64))
+    costs_j = np.asarray(ctrl._rollout(
+        jnp.asarray(x0), jnp.asarray(useq, jnp.float64), jnp.asarray(eps),
+        ctrl.model_params, ctrl._cparams))
+
+    port_cost = get_cost(FLAG_TASK, lam=FLAG_LAM, gamma=0.2,
+                         upsilon=FLAG_UPS, sigma=FLAG_SIGMA)
+    fused = nnk.FusedNNMPPI(_port_model(ctrl, torch.float32), port_cost,
+                            k=k, tau=tau, lam=FLAG_LAM, upsilon=FLAG_UPS,
+                            sigma=FLAG_SIGMA)
+    dyn = fused.pack_dyn(torch.tensor(x0, dtype=torch.float32),
+                         torch.tensor(useq))
+    zt = torch.tensor(z)
+    costs_tc = _costs_3xtf32(fused.consts, dyn, zt).double().numpy()
+    costs_f32 = nnk.sample_costs_plain(fused.consts, dyn, zt).double().numpy()
+    rel_tc = np.max(np.abs(costs_tc - costs_j) / np.abs(costs_j))
+    rel_f32 = np.max(np.abs(costs_f32 - costs_j) / np.abs(costs_j))
+    print(f"{hidden}: max rel err against f64 JAX: 3xTF32 {rel_tc:.3e}, "
+          f"plain f32 {rel_f32:.3e}; costs {np.abs(costs_j).min():.4g} .. "
+          f"{np.abs(costs_j).max():.4g}")
+    np.testing.assert_allclose(costs_tc, costs_j, rtol=COST_RTOL,
+                               atol=COST_ATOL)
