@@ -73,12 +73,14 @@ instantiation that needs more than one wave at K=100,000, or on an f32
 or bf16-products NN instantiation without HMMA in its SASS.
 With ``--parent DIR`` (a checkout of the parent commit) it also builds
 that tree's library and holds this tree's kernels against it
-(``parent_bits``: the f32 NN body and its bf16-products build, whose
-tensor-core sums round apart from the parent's FMA chains, per-sample
-costs within COST_RTOL / COST_ATOL with the largest relative difference
-printed and the rows within tolerance once merged; every other kernel,
-the f32 point mass and AUV and every bf16 build, bit for bit) and times
-them in turns (``parent_times``). It
+(``parent_bits``: phase B, f32 and bf16, bit for bit; pm_merge against
+an f64 merge of the same rows, m and the cost min / max exact and the
+sums within MERGE_L1_TOL of each column's l1 mass, the parent's merge
+beside, two merges equal; every solve, costs and noise-dump kernel bit
+for bit), times the two in turns (``parent_times``, beside an empty
+kernel's launch floor) and the wall time of MPPI.next in the headline
+point mass, ``point_mass_h100`` and the AUV dive on either library in
+turns (``parent_loops``). It
 times every kernel, each noise variant beside the same kernel without
 it, the dynamic_ab variant beside the constant-(A, B) kernel and each
 bf16 build beside its f32 build. Each phase prints one JSON line; any
@@ -1914,16 +1916,19 @@ SASS_KERNELS = (
       if not (b and st == (1,))],
     *[(f"nn_fused_solve{b}_kernel", (*hid, m))
       for b in ("", "_bfp", "_bf16") for m in (0, 1)
-      for hid in ((32, 32, 32), (8, 8, 0)) if b != "_bf16" or hid[2]])
+      for hid in ((32, 32, 32), (8, 8, 0)) if b != "_bf16" or hid[2]],
+    ("mppi_weights_kernel", ()), ("mppi_weights_bf16_kernel", ()),
+    ("pm_merge_kernel", ()))
 #: the NN instantiations whose MLP runs on the tensor cores: the f32 and
 #: bf16-products builds (the sass phase fails unless each holds HMMA and
 #: no LDL / STL)
 NN_MMA_KERNELS = tuple(key for key in SASS_KERNELS
                        if key[0] in ("nn_fused_solve_kernel",
                                      "nn_fused_solve_bfp_kernel"))
-#: the opcode families the sass phase counts
+#: the opcode families the sass phase counts (SHFL: phase B's
+#: butterflies: about one a normal, where a warp_sum a normal took five)
 SASS_FAMILIES = ("HMMA", "F2FP", "F2F", "HADD2", "HMUL2", "HFMA2", "FFMA",
-                 "FMUL", "FADD", "LDS", "LDC", "LDL", "STL")
+                 "FMUL", "FADD", "LDS", "LDC", "LDL", "STL", "SHFL")
 
 
 def sass_table(counts) -> dict:
@@ -1962,8 +1967,11 @@ def sass_phase(_build, parent_lib=None) -> None:
         f"{n}<{', '.join(map(str, a))}>") for n, a in NN_MMA_KERNELS}
     mma_ok = all(v is not None and v["HMMA"] > 0 and v["LDL"] == 0
                  and v["STL"] == 0 for v in mma.values())
+    shfl = {side: {key: v["SHFL"] for key, v in table.items()
+                   if "weights" in key or "merge" in key}
+            for side, table in out.items()}
     emit("sass", **out, nn_mma={k: v and v["HMMA"] for k, v in mma.items()},
-         nn_mma_ok=mma_ok,
+         nn_mma_ok=mma_ok, shfl=shfl,
          note="static instructions in the library; HMMA the tensor-core "
               "products, F2FP / F2F conversions, bf16x2 the BF16_V2 ops")
     if not mma_ok:
@@ -2026,6 +2034,23 @@ def occupancy_phase(lib, reg_rows, n_sm: int) -> None:
                 "warps_an_sm": out[0] * 256 // out[1] // 32, "k": k,
                 "grid": blocks,
                 "waves": blocks / (out[0] * n_sm) if out[0] else None})
+    # phase B at its flagship shapes: one partial row's samples a block
+    # column, the host's groups over blockIdx.y
+    for sfx in ("", "_bf16"):
+        for name, k, tau, adim in WEIGHT_FLAGSHIPS:
+            out = (ctypes.c_int * 2)()
+            if getattr(lib, f"mppi_weights_occupancy{sfx}")(
+                    tau * adim, out) != 0:
+                raise AssertionError(f"mppi_weights_occupancy{sfx}")
+            grid = -(-k // 256) * out[1]
+            rows.append({
+                "kernel": f"mppi_weights{sfx}_kernel", "shape": name,
+                "template": [], "registers": regs.get(
+                    (f"mppi_weights{sfx}_kernel", ())),
+                "samples_a_thread": 1, "threads_a_block": 256,
+                "blocks_an_sm": out[0], "warps_an_sm": out[0] * 8, "k": k,
+                "n_z": tau * adim, "groups": out[1], "grid": grid,
+                "waves": grid / (out[0] * n_sm)})
     pm_waves = max(r["waves"] or float("inf") for r in rows
                    if r["kernel"] == "pm_fused_solve_kernel")
     emit("occupancy", sms=n_sm, rows=rows, auv_f32_diag_rk12_min_warps=min(
@@ -2055,12 +2080,12 @@ def build_parent(parent: str) -> subprocess.Popen:
 
 class ParentLibrary:
     """The parent's library behind this tree's entry-point signatures: an
-    entry point that lacks this tree's structure argument (the AUV's third,
-    from before kDiag; the point mass's fourth, from before kIntegrator) is
-    called without it, so it runs the parent's dense kernels on the same
-    inputs."""
+    entry point that lacks one of this tree's arguments (the AUV's
+    structure, third, from before kDiag; the point mass's, fourth, from
+    before kIntegrator) is called without it, so it runs the parent's
+    kernels on the same inputs."""
 
-    #: the structure argument's place, by entry-point prefix
+    #: the place of the argument a parent may lack, by entry-point prefix
     STRUCTURE_ARG = {"auv_": 2, "pm_": 3}
 
     def __init__(self, lib, arity: dict, signatures: dict):
@@ -2158,22 +2183,60 @@ def pm_dyn(f, rng) -> torch.Tensor:
                         dtype=torch.float32, device="cuda"))
 
 
-#: the labels of parent_phase's subject: the f32 NN body and its
-#: bf16-products build
-PARENT_SUBJECT = ("nn_f32", "nn_bfp")
-#: the subject's merged rows against the parent's: check_auv's end-to-end
-#: tolerance of the NN (rtol, atol). A cost that moves by d moves its
-#: exponent by d / lam: at lam 0.5 the f32 body's ~3e-7 of a ~1e4 cost
-#: shifts a weight by ~0.6%, past the rtol 1e-3 the rows meet where the
-#: costs are equal (its ratio is printed as strict_tol_ratio)
-PARENT_ROWS_TOL = (1e-2, 1e-3)
+#: parent_phase's subject: phase B and the cross-block merge
+PARENT_SUBJECT = ("mppi_weights", "pm_merge")
+#: pm_merge against merge_plain in f64 on the same rows: l, the cost sum
+#: and each zsum[n] within this share of the column's l1 mass
+#: sum_b f_b |x_b| (zsum entries cancel towards 0, so a bound relative to
+#: the entry itself would be meaningless); m, cost min and max exactly
+MERGE_L1_TOL = 1e-5
+#: phase B's flagship shapes (label, k, tau, adim): the NN dive, the point
+#: mass at H=50 and H=100, the AUV dive
+WEIGHT_FLAGSHIPS = (("nn", NN_K, NN_H, 6), ("pm", K, H, 3),
+                    ("pm_h100", K, H100, 3), ("auv", AUV_K, AUV_H, 6))
+#: the merge's synthetic rows: blocks (1 at K <= 256, 12 for the CLI's
+#: K=3,000, the flagships' 391 and 1,024, 5,000) and normals (stats-only,
+#: H=50 x 3 or 25 x 6, H=100 x 3, H=100 x 6)
+MERGE_NB, MERGE_NZ = (1, 12, 391, 1024, 5000), (0, 150, 300, 600)
+
+
+def synthetic_rows(nb: int, n_z: int, rng) -> torch.Tensor:
+    """Partial rows on the card: spread maxima m_b <= 0, positive l_b,
+    cost stats, zsum_b of both signs."""
+    r = np.zeros((nb, 8 + n_z), np.float32)
+    r[:, 0] = -np.abs(rng.normal(0.0, 3.0, nb))
+    r[:, 1] = rng.uniform(1.0, 256.0, nb)
+    c = rng.uniform(1e3, 5e4, (nb, 2))
+    r[:, 2], r[:, 3] = c.min(axis=1), c.max(axis=1)
+    r[:, 4] = rng.uniform(1e5, 1e7, nb)
+    r[:, 8:] = rng.normal(0.0, 30.0, (nb, n_z))
+    return torch.as_tensor(r, device="cuda")
+
+
+def merge_gate(pm, rows: torch.Tensor, zsum, stats) -> dict:
+    """A merge of ``rows`` against merge_plain in f64: m, cost min and max
+    equal (``exact``), and the largest error of l, the cost sum and each
+    zsum[n] over its column's l1 mass (``rel_l1``)."""
+    r = rows.double()
+    ref_z, ref_st = pm.merge_plain(r)
+    f = torch.exp(r[:, 0] - ref_st[0])
+    l1 = torch.cat([torch.stack([(f * r[:, 1].abs()).sum(),
+                                 r[:, 4].abs().sum()]),
+                    f @ r[:, 8:].abs()])
+    err = (torch.cat([stats[[1, 4]], zsum]).double()
+           - torch.cat([ref_st[[1, 4]], ref_z])).abs()
+    exact = all(stats[i].double().item() == ref_st[i].item()
+                for i in (0, 2, 3))
+    rel = (err / torch.where(l1 > 0, l1, 1.0)).max().item()
+    return {"exact": exact, "rel_l1": rel,
+            "ok": exact and rel <= MERGE_L1_TOL}
 
 
 def parent_cases(pm, auv, nnk) -> list:
-    """(label, solve object, kernels) of parent_phase: the subject (the f32
-    NN body, "nn_f32_*", and its bf16-products build, "nn_bfp_*"), then the
-    controls: every f32 point-mass instantiation, the f32 AUV, the bf16
-    builds."""
+    """(label, solve object, kernels) of parent_phase's controls: the f32
+    NN body and its bf16-products build, every f32 point-mass
+    instantiation, the f32 AUV, the bf16 builds; their rows also feed the
+    merge."""
     ka, kn = quat_kernels(auv, "auv"), quat_kernels(nnk, "nn")
     kp = SimpleNamespace(costs=pm.pm_fused_costs, solve=pm.pm_fused_solve)
     cases = []
@@ -2299,45 +2362,45 @@ def parent_cases(pm, auv, nnk) -> list:
 
 def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
     """``--parent``: this tree's kernels against the parent's library on the
-    same inputs. The subject, the f32 NN body (nn_fused_costs and
-    nn_fused_solve: (8, 8) and 3x32 at K=700 and 4,097, H=7, plain and
-    scheduled + antithetic, and the flagship K=65,536, H=25 plain and
-    scheduled + antithetic) and its bf16-products build (both topologies
-    at K=700 and 4,097, H=7, and the flagship), on injected z and Philox,
-    against the parent's FMA chains: the tensor cores sum the MLP in
-    another order, so each is held to its kernels' own gate against their
-    plain versions, the largest relative difference printed: the f32
-    per-sample costs within COST_RTOL / COST_ATOL, the bf16-products
-    costs within BF16_GAP_SHARE of the mean distance of the same weights'
-    f32 products (a hidden output's bf16 rounding flips now and then), the
-    stats and partial rows within PARENT_ROWS_TOL once merged (pm_merge;
-    the reading against rtol 1e-3, atol 1e-5 printed beside). The controls,
-    which share mppi_common.cuh or the NN's source: the f32 point-mass
-    body (every f32 instantiation in both structures, upsilon 1 and 1.2,
-    dynamic (A, B), K=700 and 4,097, H=7, scheduled + antithetic, and six
-    flagships), the f32 AUV body (every rk and cost kind in both
-    structures, K=700 and 4,097, and two flagships) and the bf16 builds of
-    the point mass, the AUV and the NN (the pair build of the NN's
-    source), every output bit for bit. Then the subject's flagships timed
-    in turns (parent, this, this, parent), nn_fused_solve and
-    nn_fused_costs each, and the controls' flagships."""
+    same inputs. The subject: phase B (mppi_weights, f32 and bf16, adim 3
+    and 6, plain and antithetic, injected z and Philox, K=700 and 4,097 at
+    H=7 and the four flagship shapes of WEIGHT_FLAGSHIPS), its rows bit
+    for bit (the grouped regeneration sums in the parent's order); and
+    pm_merge on the rows of every control's solve and costs kernel, the
+    phase-B rows and synthetic rows (MERGE_NB x MERGE_NZ), each against
+    merge_plain in f64 (merge_gate: m, cost min and max exact, the sums
+    within MERGE_L1_TOL of their columns' l1 mass), the parent's merge of
+    the same rows (run on its own library) printed beside, and two merges
+    of the same rows equal bit for bit. The controls, every output bit for
+    bit: the solve and costs kernels of parent_cases (f32 and bf16, point
+    mass, AUV, NN) and the noise dump (f32, bf16, antithetic). Then the
+    subject timed in turns (parent, this, this, parent) at each flagship
+    shape, and an empty kernel's device time, the launch floor."""
     rng = np.random.default_rng(21)
     cases = parent_cases(pm, auv, nnk)
-    res, dyns = {}, {}
+    res, rows_for_merge = {}, {}
+
+    def compare(fn) -> dict:
+        """{output: True, or how it differs} of fn() here and in the
+        parent's library; fn returns a tuple of tensors."""
+        got = fn()
+        want = with_library(_build, plib, fn)
+        out = {}
+        for i, (a, b) in enumerate(zip(got, want)):
+            out[i] = True if torch.equal(a, b) else {
+                "differing": int((a != b).sum().item()), "of": a.numel(),
+                "max_abs_diff": (a.double() - b.double()).abs().max().item()}
+        return out, got
+
+    # ---- controls: the solve and costs kernels, the noise dump ------------
     for label, f, kern in cases:
         dyn = (pm_dyn(f, rng) if kern.costs is pm.pm_fused_costs else
                auv_dyn(f, 20.0 if "elipse3d" in label else 200.0,
                        seed=len(label),
                        x0=[4.0, 0, -3.0, 0, 0, 0, 1.0] + [0.0] * 6
                        if "elipse3d" in label else None))
-        dyns[label] = dyn
         z = torch.as_tensor(rng.standard_normal((f.tau, f.adim, f.k),
                                                 np.float32), device="cuda")
-        twin = None
-        if label.startswith("nn_bfp"):   # the same weights, f32 products
-            twin = nn_fused(f.k, f.tau, f.consts.hidden)
-            twin.model.load_state_dict(f.model.state_dict())
-            twin_dyn = auv_dyn(twin, 200.0, seed=len(label))
         out = {}
         for src, kw in (("injected", {"z": z}), ("philox", {"seed": 9,
                                                            "solve": 2})):
@@ -2346,106 +2409,193 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
                 rows = kern.solve(f.consts, dyn, f.k, f.tau, **kw)
                 torch.cuda.synchronize()
                 return c, srows, rows
-            got = run()
-            want = with_library(_build, plib, run)
-            for name, a, b in zip(("costs", "stats_rows", "rows"), got, want):
-                if torch.equal(a, b):
-                    out[f"{src}_{name}"] = True
-                    continue
-                diff = (a.double() - b.double()).abs()
-                out[f"{src}_{name}"] = d = {
-                    "differing": int((a != b).sum().item()),
-                    "of": a.numel(), "max_abs_diff": diff.max().item()}
-                if name == "costs":
-                    d["max_rel_diff"] = (diff / b.double().abs()).max().item()
-                    d["within_tol"], _, d["cost_tol_ratio"] = close(
-                        a, b, COST_RTOL, COST_ATOL)
-                    if twin is not None:
-                        gap = (kern.costs(twin.consts, twin_dyn, f.k, f.tau,
-                                          **kw)[0].double()
-                               - b.double()).abs().mean().item()
-                        d.update(mean_abs_diff=diff.mean().item(),
-                                 f32_gap_mean=gap, within_tol=gap > 0
-                                 and diff.mean().item()
-                                 <= BF16_GAP_SHARE * gap)
-                else:
-                    ma, mb = merged(pm, a), merged(pm, b)
-                    d["strict_ok"], _, d["strict_tol_ratio"] = close(
-                        ma, mb, 1e-3, 1e-5)
-                    ok, err, ratio = close(ma, mb, *PARENT_ROWS_TOL)
-                    d.update(merged_ok=ok, merged_max_abs_err=err,
-                             merged_tol_ratio=ratio)
+            cmp, got = compare(run)
+            out.update({f"{src}_{name}": cmp[i] for i, name in enumerate(
+                ("costs", "stats_rows", "rows"))})
+            if src == "philox":
+                rows_for_merge[f"{label}_rows"] = got[2]
+                rows_for_merge[f"{label}_stats_rows"] = got[1]
         res[label] = out
         del z
-    differing = {label: {o: v for o, v in out.items() if v is not True}
-                 for label, out in res.items()}
-    differing = {label: d for label, d in differing.items() if d}
-    subject = {label for label in res if label.startswith(PARENT_SUBJECT)}
-    controls_equal = not any(label not in subject for label in differing)
-    subject_ok = all(v.get("within_tol", v.get("merged_ok", False))
-                     for label, d in differing.items() for v in d.values())
-    costs_moved = {label: max(v["max_rel_diff"] for o, v in d.items()
-                              if o.endswith("_costs"))
-                   for label, d in differing.items()
-                   if any(o.endswith("_costs") for o in d)}
-    rows_moved = sorted(label for label, d in differing.items()
-                        if any(o.endswith("rows") for o in d))
-    emit("parent_bits", cases=sorted(res), subject=sorted(subject),
-         outputs_compared=sum(len(o) for o in res.values()),
-         all_equal=not differing,
-         subject_costs_max_rel_diff=costs_moved,
-         subject_costs_largest_rel_diff=max(costs_moved.values(),
-                                            default=0.0),
-         subject_rows_moved=rows_moved,
-         subject_within_tol=subject_ok, controls_all_equal=controls_equal,
-         differing=differing, cost_rtol=COST_RTOL, cost_atol=COST_ATOL,
-         bfp_gap_share=BF16_GAP_SHARE, rows_tol=PARENT_ROWS_TOL,
+    for cd in ("float32", "bfloat16"):
+        for k, tau, adim, half in ((4097, 7, 3, 0), (4097, 7, 6, 2049),
+                                   (K, H, 3, 0), (AUV_K, AUV_H, 6, 0)):
+            cmp, _ = compare(lambda: (pm.pm_noise_dump(
+                9, 2, k, tau, adim, "cuda", half=half, compute_dtype=cd),))
+            res[f"pm_noise_dump_{cd}_K{k}_adim{adim}_half{half}"] = {
+                "dump": cmp[0]}
+    control_diffs = {label: {o: v for o, v in out.items() if v is not True}
+                     for label, out in res.items()}
+    control_diffs = {label: d for label, d in control_diffs.items() if d}
+
+    # ---- the subject: phase B, bit for bit --------------------------------
+    wres, w_inputs = {}, {}
+    shapes = [(f"K{k}_adim{adim}", k, 7, adim) for k in (700, 4097)
+              for adim in (3, 6)] + list(WEIGHT_FLAGSHIPS)
+    for name, k, tau, adim in shapes:
+        costs = torch.as_tensor(rng.uniform(1e3, 6e4, k), dtype=torch.float32,
+                                device="cuda")
+        nrm = torch.stack([costs.min(),
+                           1.0 / ((costs.max() - costs.min()) * 0.5)])
+        w_inputs[name] = (nrm, costs, tau, adim)
+        z = torch.as_tensor(rng.standard_normal((tau, adim, k), np.float32),
+                            device="cuda")
+        for cd in ("float32", "bfloat16"):
+            for src, anti, kw in (("philox", False, {"seed": 9, "solve": 2}),
+                                  ("philox", True, {"seed": 9, "solve": 2}),
+                                  ("injected", False, {"z": z})):
+                label = (f"weights_{cd}_{name}_{src}"
+                         f"{'_antithetic' if anti else ''}")
+                cmp, got = compare(lambda: (pm.mppi_weights(
+                    nrm, costs, tau, adim, antithetic=anti,
+                    compute_dtype=cd, **kw),))
+                wres[label] = cmp[0]
+                if not name.startswith("K700") and cd == "float32":
+                    rows_for_merge[label] = got[0]
+        del z
+    w_diffs = {label: v for label, v in wres.items() if v is not True}
+
+    # ---- the subject: the merge against f64, the parent's beside ----------
+    for nb in MERGE_NB:
+        for n_z in MERGE_NZ:
+            rows_for_merge[f"synthetic_nb{nb}_nz{n_z}"] = synthetic_rows(
+                nb, n_z, rng)
+    mres = {}
+    for label, rows in rows_for_merge.items():
+        zs, st = pm.pm_merge(rows)
+        zs2, st2 = pm.pm_merge(rows)
+        zp, sp = with_library(_build, plib, lambda: pm.pm_merge(rows))
+        mres[label] = {"nb": rows.shape[0], "n_z": rows.shape[1] - 8,
+                       **merge_gate(pm, rows, zs, st),
+                       "repeat_equal": bool(torch.equal(zs, zs2)
+                                            and torch.equal(st, st2)),
+                       "parent": merge_gate(pm, rows, zp, sp)}
+    merge_bad = {label: r for label, r in mres.items()
+                 if not (r["ok"] and r["repeat_equal"])}
+    worst = max(mres.values(), key=lambda r: r["rel_l1"])
+    worst_p = max(mres.values(), key=lambda r: r["parent"]["rel_l1"])
+    emit("parent_bits", subject=list(PARENT_SUBJECT),
+         control_cases=sorted(res), weights_cases=sorted(wres),
+         merge_cases=len(mres),
+         outputs_compared=sum(len(o) for o in res.values()) + len(wres),
+         controls_all_equal=not control_diffs,
+         weights_all_equal=not w_diffs,
+         merge_all_ok=not merge_bad, merge_l1_tol=MERGE_L1_TOL,
+         merge_max_rel_l1=worst["rel_l1"],
+         merge_max_rel_l1_at=[worst["nb"], worst["n_z"]],
+         parent_merge_max_rel_l1=worst_p["parent"]["rel_l1"],
+         parent_merge_max_rel_l1_at=[worst_p["nb"], worst_p["n_z"]],
+         parent_merge_all_exact=all(r["parent"]["exact"]
+                                    for r in mres.values()),
+         merge_rel_l1={label: [r["rel_l1"], r["parent"]["rel_l1"]]
+                       for label, r in mres.items()
+                       if label.startswith("synthetic")},
+         control_diffs=control_diffs, weights_diffs=w_diffs,
+         merge_bad=merge_bad,
          note="this tree's kernels against the parent commit's library on "
-         "the same inputs, torch.equal; the subject (the f32 NN body and "
-         "its bf16-products build: the MLP on the tensor cores against the "
-         "parent's FMA chains): f32 costs within cost_rtol / cost_atol, "
-         "bf16-products costs within bfp_gap_share of the f32 products' "
-         "mean distance (that build's gate against its plain version: a "
-         "hidden output's bf16 rounding flips now and then), rows within "
-         "rows_tol once merged (strict_tol_ratio: against rtol 1e-3, atol "
-         "1e-5); every control bit for bit")
-    if not (controls_equal and subject_ok):
-        raise AssertionError(f"parent_bits: {differing}")
-    # times in turns, parent and this tree
+         "the same inputs: the controls (every solve and costs kernel, the "
+         "noise dump) and phase B torch.equal; pm_merge against merge_plain "
+         "in f64 (m, cost min / max exact, sums within merge_l1_tol of the "
+         "column's l1 mass; merge_rel_l1: [this, parent] on the synthetic "
+         "rows), two merges of the same rows equal bit for bit")
+    if control_diffs or w_diffs or merge_bad:
+        raise AssertionError(f"parent_bits: controls {control_diffs}, "
+                             f"weights {w_diffs}, merge {merge_bad}")
+
+    # ---- times in turns, the launch floor ----------------------------------
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def turns(fn) -> dict:
+        """fn's events and device ms in turns: parent, this, this, parent."""
+        t = [with_library(_build, plib, lambda: cuda_ms(fn, 100)),
+             cuda_ms(fn, 100), cuda_ms(fn, 100),
+             with_library(_build, plib, lambda: cuda_ms(fn, 100))]
+        d = [with_library(_build, plib, lambda: device_ms(fn)),
+             device_ms(fn), device_ms(fn),
+             with_library(_build, plib, lambda: device_ms(fn))]
+        return {"parent_ms": [t[0], t[3]], "ms": [t[1], t[2]],
+                "parent_device_ms": [d[0], d[3]], "device_ms": [d[1], d[2]],
+                "events_vs_parent": (t[1] + t[2]) / (t[0] + t[3]),
+                "device_vs_parent": (d[1] + d[2]) / (d[0] + d[3])}
+
     times = {}
-    for label, kern_fn in (
-            *[(f"nn_{name}_flagship", fn) for name in ("f32", "f32_sched_anti",
-                                                        "bfp")
-              for fn in ("solve", "costs")],
-            ("pm_f32_K100000", "solve"),
-            ("pm_f32_K100000", "costs"),
-            ("auv_f32_static_quat_flagship", "costs"),
-            ("pm_bf16_K100000", "solve"),
-            ("nn_bf16_flagship", "solve")):
-        f = next(c[1] for c in cases if c[0] == label)
-        fn = getattr(next(c[2] for c in cases if c[0] == label), kern_fn)
-        dyn = dyns[label]
-
-        def this():
-            return fn(f.consts, dyn, f.k, f.tau, seed=1, solve=1)
-
-        def parent():
-            return with_library(_build, plib, this)
-
-        t = [cuda_ms(parent, 100), cuda_ms(this, 100), cuda_ms(this, 100),
-             cuda_ms(parent, 100)]
-        d = [with_library(_build, plib, lambda: device_ms(this)),
-             device_ms(this), device_ms(this),
-             with_library(_build, plib, lambda: device_ms(this))]
-        times[f"{label}_{kern_fn}"] = {
-            "parent_ms": [t[0], t[3]], "ms": [t[1], t[2]],
-            "parent_device_ms": [d[0], d[3]], "device_ms": [d[1], d[2]],
-            "events_vs_parent": (t[1] + t[2]) / (t[0] + t[3]),
-            "device_vs_parent": (d[1] + d[2]) / (d[0] + d[3])}
-    emit("parent_times", card=smi, **times,
+    for name, k, tau, adim in WEIGHT_FLAGSHIPS:
+        nrm, costs, _, _ = w_inputs[name]
+        for cd, anti in (("float32", False), ("float32", True),
+                         ("bfloat16", False)):
+            times[f"mppi_weights_{name}_{cd}"
+                  f"{'_antithetic' if anti else ''}"] = turns(
+                lambda: pm.mppi_weights(nrm, costs, tau, adim, seed=1,
+                                        solve=1, antithetic=anti,
+                                        compute_dtype=cd))
+    lib = _build.load_library()
+    empty = [device_ms(lambda: lib.pm_empty(stream)) for _ in range(2)]
+    for label, case in (("pm", "pm_f32_K100000"),
+                        ("pm_h100", "pm_f32_sched_H100"),
+                        ("auv", "auv_f32_static_quat_flagship"),
+                        ("nn", "nn_f32_flagship")):
+        for kind in ("rows", "stats_rows"):
+            rows = rows_for_merge[f"{case}_{kind}"]
+            key = f"pm_merge_{label}_{kind}"
+            times[key] = turns(lambda: pm.pm_merge(rows))
+            times[key]["nb_nz"] = [rows.shape[0], rows.shape[1] - 8]
+    for nb, n_z in ((5000, 600), (1024, 600), (12, 150)):
+        rows = rows_for_merge[f"synthetic_nb{nb}_nz{n_z}"]
+        times[f"pm_merge_synthetic_nb{nb}_nz{n_z}"] = turns(
+            lambda: pm.pm_merge(rows))
+    slower = sorted(key for key, t in times.items()
+                    if t["device_vs_parent"] > 1.0)
+    emit("parent_times", card=smi, **times, empty_kernel_device_ms=empty,
+         slower_than_parent=slower,
          note="CUDA events over 100 launches and profiler device time, "
               "each in turns (parent, this, this, parent); *_vs_parent: "
-              "this tree's ms over the parent's")
+              "this tree's ms over the parent's; empty_kernel_device_ms: "
+              "pm_empty, the launch floor")
+
+
+def parent_loops(_build, plib, smi: str) -> None:
+    """``--parent``: MPPI.next on the parent's library and on this tree's,
+    in turns (parent, this, this, parent), in the headline point mass
+    (K=100,000, H=50), ``point_mass_h100`` (H=100, scheduled) and the
+    normalized AUV dive: each turn's median and p90 host ms a step over
+    the whole loop, and its wall and device ms a step under
+    torch.profiler (profile_steps, 20 steps: PERF.md's section 5). Both
+    turns run this tree's Python; only the kernels' library differs."""
+    loops = {
+        "point_mass": (lambda: closed_loop("auto"), np.zeros(6)),
+        "point_mass_h100": (lambda: closed_loop(
+            "auto", tau=H100, **{"noise-schedule": SCHED}), np.zeros(6)),
+        "auv_dive": (lambda: auv_loop("auto", True, DIVE_STEPS),
+                     rest_state())}
+    out = {}
+    for name, (loop, x) in loops.items():
+        def turn():
+            ctrl, _, ms, counts = loop()
+            prof = profile_steps(ctrl, x=x)
+            return {"median": float(np.median(ms)),
+                    "p90": float(np.percentile(ms, 90)),
+                    "wall": prof["wall_us_per_step"] / 1e3,
+                    "device": prof["device_us_per_step"] / 1e3,
+                    "launches": counts}
+        runs = [with_library(_build, plib, turn), turn(), turn(),
+                with_library(_build, plib, turn)]
+        if len({json.dumps(r["launches"], sort_keys=True)
+                for r in runs}) != 1:
+            raise AssertionError(f"parent_loops {name}: the launches "
+                                 f"differ: {[r['launches'] for r in runs]}")
+        par, this = (runs[0], runs[3]), (runs[1], runs[2])
+        out[name] = {
+            f"{who}_{key}_ms": [r[key] for r in rs]
+            for who, rs in (("parent", par), ("this", this))
+            for key in ("median", "p90", "wall", "device")}
+        for key in ("median", "wall", "device"):
+            out[name][f"{key}_vs_parent"] = (
+                sum(r[key] for r in this) / sum(r[key] for r in par))
+    emit("parent_loops", card=smi, **out,
+         note="MPPI.next in turns (parent, this, this, parent): median / "
+              "p90 host ms a step over the loop, wall / device ms a step "
+              "under torch.profiler over 20 steps; *_vs_parent: this "
+              "tree's over the parent's")
 
 
 def bf16_wnoise(pm, b16, rows_k, costs_k, z, plain_rows) -> dict:
@@ -2907,6 +3057,7 @@ def main() -> int:
                              f"instantiations built")
     if parent_lib is not None:
         parent_phase(_build, parent_lib, pm, auv, nnk, smi)
+        parent_loops(_build, parent_lib, smi)
 
     # ---- 3. kernels against plain versions on injected z --------------------
     model, cost = workload("cuda")
@@ -3612,6 +3763,8 @@ def main() -> int:
                                                 solve=1), 200)
     t_merge = cuda_ms(lambda: pm.pm_merge(part), 200)
     d_merge = device_ms(lambda: pm.pm_merge(part))
+    stream = torch.cuda.current_stream().cuda_stream
+    d_empty = device_ms(lambda: _build.load_library().pm_empty(stream))
     d_dump = device_ms(lambda: pm.pm_noise_dump(1, 1, K, H, 3, "cuda"))
     t_dump = cuda_ms(lambda: pm.pm_noise_dump(1, 1, K, H, 3, "cuda"), 200)
     p_solve = cuda_ms(lambda: pm.fused_solve_plain(consts, dyn, K, H,
@@ -3626,13 +3779,15 @@ def main() -> int:
                        nb * (2.0 * n_z + 6))
     b_dump = bound_ms(4.0 * K * n_z, K * n_z * OPS_PER_NORMAL)
     # phase A / phase B of the point mass
-    pm_c, _ = pm.pm_fused_costs(consts, dyn, K, H, seed=1, solve=1)
+    pm_c, pm_srows = pm.pm_fused_costs(consts, dyn, K, H, seed=1, solve=1)
     pm_nrm = torch.stack([pm_c.min(), 1.0 / ((pm_c.max() - pm_c.min())
                                              * LAM)])
     t_pmc = cuda_ms(lambda: pm.pm_fused_costs(consts, dyn, K, H, seed=1,
                                               solve=1), 200)
     t_w3 = cuda_ms(lambda: pm.mppi_weights(pm_nrm, pm_c, H, 3, seed=1,
                                            solve=1), 200)
+    d_w3 = device_ms(lambda: pm.mppi_weights(pm_nrm, pm_c, H, 3, seed=1,
+                                             solve=1))
     p_pmc = cuda_ms(lambda: pm.fused_costs_plain(consts, dyn, K, H, seed=1,
                                                  solve=1), 5, 1)
     p_w3 = cuda_ms(lambda: pm.weights_plain(pm_nrm, pm_c, H, 3, seed=1,
@@ -3641,6 +3796,18 @@ def main() -> int:
     b_pmc = bound_ms(4.0 * dyn.numel() + 4.0 * K + rows_b,
                      solve_ops(consts, K, H, prng=True, costs_only=True))
     b_w3 = bound_ms(4.0 * K + 8.0 + part_bytes, weights_ops(K, n_z, True))
+    # the stats-only merge after phase A (pm_merge_stats_kernel), against
+    # an f64 merge of the same rows (merge_gate)
+    zs_s, st_s = pm.pm_merge(pm_srows)
+    g_stats = merge_gate(pm, pm_srows, zs_s, st_s)
+    if not g_stats["ok"]:
+        raise AssertionError(f"stats-only pm_merge: {g_stats}")
+    err_stats = (st_s[:5].double() - pm.merge_plain(
+        pm_srows.double())[1][:5]).abs().max().item()
+    t_stats = cuda_ms(lambda: pm.pm_merge(pm_srows), 200)
+    d_stats = device_ms(lambda: pm.pm_merge(pm_srows))
+    p_stats = cuda_ms(lambda: pm.merge_plain(pm_srows), 50)
+    b_stats = bound_ms(rows_b + 4.0 * pm.STATS, nb * 6.0)
     # the AUV flagship
     ac = flag.consts
     a_nb, a_nz = -(-AUV_K // pm.BLOCK), AUV_H * 6
@@ -3658,6 +3825,9 @@ def main() -> int:
     t_w6 = cuda_ms(lambda: pm.mppi_weights(a_nrm, a_c, AUV_H, 6, seed=1,
                                            solve=1), 200)
     t_amerge = cuda_ms(lambda: pm.pm_merge(a_wrows), 200)
+    d_w6 = device_ms(lambda: pm.mppi_weights(a_nrm, a_c, AUV_H, 6, seed=1,
+                                             solve=1))
+    d_amerge = device_ms(lambda: pm.pm_merge(a_wrows))
     p_asolve = cuda_ms(lambda: auv.fused_solve_plain(
         ac, dyn_f, AUV_K, AUV_H, seed=1, solve=1), 3, 1)
     p_acosts = cuda_ms(lambda: auv.fused_costs_plain(
@@ -3774,6 +3944,8 @@ def main() -> int:
                                                   seed=1, solve=1), 200)
     t_nw6 = cuda_ms(lambda: pm.mppi_weights(n_nrm, n_c, NN_H, 6, seed=1,
                                             solve=1), 200)
+    d_nw6 = device_ms(lambda: pm.mppi_weights(n_nrm, n_c, NN_H, 6, seed=1,
+                                              solve=1))
     p_nsolve = cuda_ms(lambda: nnk.fused_solve_plain(
         nc, dyn_n, NN_K, NN_H, seed=1, solve=1), 3, 1)
     p_ncosts = cuda_ms(lambda: nnk.fused_costs_plain(
@@ -3872,6 +4044,7 @@ def main() -> int:
     emit("times", card=smi, K=K, H=H,
          solve_plus_merge_ms=t_pair, solve_ms=t_solve, merge_ms=t_merge,
          noise_dump_ms=t_dump, merge_device_ms=d_merge,
+         empty_kernel_device_ms=d_empty, weights_adim3_device_ms=d_w3,
          noise_dump_device_ms=d_dump,
          mppi_next_ms_median=float(np.median(step_ms)),
          plain_solve_ms=p_solve, plain_merge_ms=p_merge,
@@ -3882,6 +4055,8 @@ def main() -> int:
               "solve_plus_merge_ms": t_apair, "solve_ms": t_asolve,
               "costs_ms": t_acosts, "weights_adim6_ms": t_w6,
               "merge_weights_rows_ms": t_amerge,
+              "weights_adim6_device_ms": d_w6,
+              "merge_weights_rows_device_ms": d_amerge,
               "plain_solve_ms": p_asolve, "plain_costs_ms": p_acosts,
               "plain_weights_adim6_ms": p_w6,
               "bound_solve": b_asolve, "bound_costs": b_acosts,
@@ -3892,7 +4067,8 @@ def main() -> int:
                   np.median(step_ms_u))},
          nn={"K": NN_K, "H": NN_H, "sizes": list(nc.sizes),
              "solve_ms": t_nsolve, "costs_ms": t_ncosts,
-             "weights_adim6_ms": t_nw6, "plain_solve_ms": p_nsolve,
+             "weights_adim6_ms": t_nw6, "weights_adim6_device_ms": d_nw6,
+             "plain_solve_ms": p_nsolve,
              "plain_costs_ms": p_ncosts, "plain_weights_adim6_ms": p_nw6,
              "bound_solve": b_nsolve, "bound_costs": b_ncosts,
              "tc_bound_solve": tc_nsolve, "tc_bound_costs": tc_ncosts,
@@ -4139,8 +4315,26 @@ def main() -> int:
          "replaces": "mppi_tf_tpu/kernels/pm_mppi.py:1000",
          "launches": main_counts["pm_merge"],
          "max_abs_err": main_chk["merge_only_max_abs_err"],
-         "ms": t_merge, "plain_ms": p_merge, "bound_ms": b_merge[0],
-         "bound_by": b_merge[1], "library_ms": None},
+         "ms": t_merge, "device_ms": d_merge,
+         "empty_kernel_device_ms": d_empty, "plain_ms": p_merge,
+         "bound_ms": b_merge[0], "bound_by": b_merge[1], "library_ms": None,
+         "redesigned": "column tiles, a cluster of row slices from 640 "
+                       "rows"},
+        {"name": "pm_merge[stats]", "route": "cuda", "source": src,
+         "replaces": "mppi_tf_tpu/kernels/pm_mppi.py:1000",
+         "kernel": "pm_merge_stats_kernel",
+         "launches": pm_norm_counts["pm_fused_costs"],
+         "launches_of": "pm_merge on stats-only rows, one after each "
+                        "phase A (pm_fused_costs) of the point-mass "
+                        "normalized closed loop",
+         "max_abs_err": err_stats,
+         "max_abs_err_of": "m, l, cost min, max, sum against an f64 merge "
+                           "of the same rows, K=100000",
+         "rel_l1": g_stats["rel_l1"],
+         "ms": t_stats, "device_ms": d_stats,
+         "empty_kernel_device_ms": d_empty, "plain_ms": p_stats,
+         "bound_ms": b_stats[0], "bound_by": b_stats[1],
+         "library_ms": None},
         {"name": "pm_noise_dump", "route": "cuda", "source": src,
          "replaces": "mppi_tf_tpu/kernels/pm_mppi.py:274",
          "launches": noise["launches"], "path": "noise statistics check",
@@ -4163,9 +4357,12 @@ def main() -> int:
          "launches_adim3": pm_norm_counts["mppi_weights"],
          "max_abs_err": w6["wnoise_max_abs_err"],
          "max_abs_err_adim3": w3["wnoise_max_abs_err"],
-         "ms": t_w6, "plain_ms": p_w6, "bound_ms": b_w6[0],
-         "bound_by": b_w6[1], "ms_adim3": t_w3, "plain_ms_adim3": p_w3,
-         "bound_ms_adim3": b_w3[0], "library_ms": None},
+         "ms": t_w6, "device_ms": d_w6, "plain_ms": p_w6,
+         "bound_ms": b_w6[0], "bound_by": b_w6[1], "ms_adim3": t_w3,
+         "device_ms_adim3": d_w3, "plain_ms_adim3": p_w3,
+         "bound_ms_adim3": b_w3[0], "library_ms": None,
+         "redesigned": "grouped regeneration, groups of Philox blocks "
+                       "over blockIdx.y"},
         {"name": "auv_fused_solve", "route": "cuda", "source": asrc,
          "replaces": "mppi_tf_tpu/kernels/auv_mppi.py:804",
          "launches": unnorm_counts["auv_fused_solve"],

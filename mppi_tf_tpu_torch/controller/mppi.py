@@ -426,9 +426,11 @@ class MPPI(MissionMixin):
                  f"normalize={self._normalize_cost}"]
         rows = _build.ptxas_report() if launched else []
         for name, count in launched.items():
-            sym = _launch.kernel_symbol(name, self._fused.template_args(name))
-            lines.append(f"{name} x{count}: {sym}")
-            lines += [f"  {r}" for r in rows if sym in r["kernel"]]
+            syms = _launch.kernel_symbols(name,
+                                          self._fused.template_args(name))
+            lines.append(f"{name} x{count}: {', '.join(syms)}")
+            lines += [f"  {r}" for r in rows
+                      if any(s in r["kernel"] for s in syms)]
         return "\n".join(lines)
 
     def save_state(self, path: str) -> None:

@@ -123,15 +123,43 @@
 //   antithetic, :222 of the TPU kernel) and writes partial
 //   rows with m_b = 0: w = exp(-(c - beta) * nrm[1]) lies in
 //   [exp(-1/lam), 1], so no max shift is needed. Bound by operations (one
-//   Philox + Box-Muller pass); it reads 4 bytes a sample.
+//   Philox + Box-Muller pass, ~32 a normal, part of them on the half-rate
+//   integer multiplier and the quarter-rate MUFU and I2F units); it reads
+//   4 bytes a sample. Design:
+//   * pass two draws kWeightBlocks Philox blocks at a time as independent
+//     chains (NoiseStream::blocks) and reduces their 16 products w_k z_k
+//     across the warp at once (warp_sum_each: 16 SHFL where the per-normal
+//     warp_sum took 80), each sum the per-normal loop's bits; the bf16
+//     build rounds each normal to bf16 before its product (read_normal);
+//   * the normals are split into G groups of Philox blocks over
+//     blockIdx.y: a sample's normals are addressed by (sample, Philox
+//     block), so a group regenerates its own and writes its own columns
+//     of the tile's row, and group 0 alone its stats; the host picks G from
+//     n_z (mppi_weights below): three 16-normal chunks a group, which
+//     gives the flagships 1.3-5.2 waves of blocks, so that a partial
+//     wave's tail is a group's work, not a whole row's. No G moves a bit.
 //
-// pm_merge_kernel -- the cross-block step: one block applies the shard-merge
-//   algebra of mppi_tf_tpu/parallel/fused.py (m = max m_b, f_b = exp(m_b - m),
-//   l = sum f_b l_b, zsum = sum f_b zsum_b, cost min/max/sum); n_z = 0 merges
-//   stats-only rows. Bound by the bytes of the partials it reads (~250 KB
-//   at K=100k, H=50): launch latency and one block's serial walk dominate it.
+// pm_merge_kernel -- the cross-block step, the shard-merge algebra of
+//   mppi_tf_tpu/parallel/fused.py (m = max m_b, f_b = exp(m_b - m),
+//   l = sum f_b l_b, zsum = sum f_b zsum_b, cost min/max/sum); n_z = 0
+//   merges stats-only rows. Bound by the bytes of the rows it reads (~250
+//   KB at K=100k, H=50: 0.0001 ms at 3.35 TB/s); launch latency is its
+//   floor. Design: column tiles of 32 (a lane a column) x 8 row
+//   slices (a warp a slice), f_b once a row into shared memory (not once
+//   a (row, column) pair); from 640 rows on (the AUV's 1,024) each tile is
+//   a thread-block cluster of 8 blocks over slices of the rows, m reduced
+//   across the cluster through distributed shared memory and rank 0
+//   adding the ranks in order (below that, as for the point mass's 391
+//   rows, one block a tile). Every sum runs in a fixed order: no atomics,
+//   the same bits on every call.
 
 #include <string.h>
+
+#include <algorithm>
+
+#ifndef MPPI_BF16
+#include <cooperative_groups.h>
+#endif
 
 #include "mppi_common.cuh"
 
@@ -665,22 +693,90 @@ constexpr int smem_lead(int dyn_size) {
 }
 #endif
 
+// Philox blocks that phase B's pass two regenerates together: 16 normals
+// a warp_sum_each, 16 SHFL where a per-normal warp_sum takes 80.
+constexpr int kWeightBlocks = 4;
+constexpr int kWeightNormals = 4 * kWeightBlocks;
+
+// Phase B: the partial row of samples blockIdx.x * kBlock .. + kBlock, its
+// normals split over gridDim.y groups of group_blocks Philox blocks each
+// (normals 4 group_blocks blockIdx.y .. + 4 group_blocks). Every block
+// computes its samples' w_k; group 0 alone writes the stats columns
+// (m_b = 0, l_b, cost min / max / sum). Each group regenerates its
+// normals kWeightBlocks Philox blocks at a time (NoiseStream::blocks,
+// independent chains), multiplies each by w_k rounded alone (in the bf16
+// build the normal rounded to bf16 first, NoiseStream::read_normal), and
+// reduces the 16 products across the warp at once (warp_sum_each, each
+// sum warp_sum's bits), then over the block's warps in order: every
+// column is the per-normal loop's sum, bit for bit, at any group count.
 __global__ void __launch_bounds__(kBlock)
     MPPI_KERNEL(mppi_weights)(const float* __restrict__ nrm,
                               const float* __restrict__ costs,
                               const float* __restrict__ z,
                               float* __restrict__ partials, int k_total,
-                              int n_z, Seeds sd) {
-  extern __shared__ float s_red[];  // kWarps * n_z
+                              int n_z, int group_blocks, Seeds sd) {
+  extern __shared__ float s_red[];  // kWarps * the group's normals
+  __shared__ float s_stat[4][kWarps];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int k = blockIdx.x * kBlock + threadIdx.x;
   const bool valid = k < k_total;
+  const float cost = valid ? costs[k] : 0.0f;
+  const float zarg = -(cost - nrm[0]) * nrm[1];
+  const float m_b = 0.0f;  // zarg lies in [-1/lam, 0]
+  const float w = valid ? expf(zarg - m_b) : 0.0f;
+  float* row = partials + static_cast<size_t>(blockIdx.x) * (kStats + n_z);
+  if (blockIdx.y == 0) {
+    const float l_w = warp_sum(w);
+    const float cmin = warp_min(valid ? cost : INFINITY);
+    const float cmax = warp_max(valid ? cost : -INFINITY);
+    const float csum = warp_sum(valid ? cost : 0.0f);
+    if (lane == 0) {
+      s_stat[0][warp] = l_w;
+      s_stat[1][warp] = cmin;
+      s_stat[2][warp] = cmax;
+      s_stat[3][warp] = csum;
+    }
+  }
+
+  const int n0 = blockIdx.y * group_blocks * 4;
+  const int n_loc = min(n_z - n0, group_blocks * 4);
   NoiseStream ns;
   ns.init(z, k_total, k, sd);
-  const float cost = valid ? costs[k] : 0.0f;
-  write_partial_row<false>(-(cost - nrm[0]) * nrm[1], cost, valid, ns, n_z,
-                           s_red,
-                           partials + static_cast<size_t>(blockIdx.x) *
-                                          (kStats + n_z));
+  constexpr int kCopies = 32 / kWeightNormals;
+#pragma unroll 1
+  for (int c0 = 0; c0 < n_loc; c0 += kWeightNormals) {
+    const int count = min(kWeightNormals, n_loc - c0);
+    float v[kWeightNormals];
+    ns.blocks<kWeightBlocks>((n0 + c0) / 4, count, v);
+#pragma unroll
+    for (int i = 0; i < kWeightNormals; ++i)
+      v[i] = i < count ? mul_r(w, NoiseStream::read_normal(v[i])) : 0.0f;
+    const float s = warp_sum_each<kWeightNormals>(v, lane);
+    const int n = c0 + lane / kCopies;
+    if (lane % kCopies == 0 && n < n_loc) s_red[warp * n_loc + n] = s;
+  }
+  __syncthreads();
+
+  if (blockIdx.y == 0 && threadIdx.x == 0) {
+    float bl = 0.0f, bmin = INFINITY, bmax = -INFINITY, bsum = 0.0f;
+    for (int i = 0; i < kWarps; ++i) {
+      bl += s_stat[0][i];
+      bmin = fminf(bmin, s_stat[1][i]);
+      bmax = fmaxf(bmax, s_stat[2][i]);
+      bsum += s_stat[3][i];
+    }
+    row[0] = m_b;
+    row[1] = bl;
+    row[2] = bmin;
+    row[3] = bmax;
+    row[4] = bsum;
+    row[5] = row[6] = row[7] = 0.0f;
+  }
+  for (int n = threadIdx.x; n < n_loc; n += kBlock) {
+    float s = 0.0f;
+    for (int i = 0; i < kWarps; ++i) s += s_red[i * n_loc + n];
+    row[kStats + n0 + n] = s;
+  }
 }
 
 __global__ void MPPI_KERNEL(pm_noise_dump)(float* __restrict__ out,
@@ -707,44 +803,72 @@ __global__ void MPPI_KERNEL(pm_noise_dump)(float* __restrict__ out,
 }
 
 #ifndef MPPI_BF16
-constexpr int kMergeThreads = 256;
+constexpr int kMergeCols = 32;    // zsum columns of a block: one a lane
+constexpr int kMergeSlices = 8;   // row slices of a block: one a warp
+constexpr int kMergeThreads = kMergeCols * kMergeSlices;
+constexpr int kMergeChunk = 4096;  // rows whose f_b shared memory holds
+constexpr int kMergeRanks = 8;     // most blocks a cluster (row slices)
 
-__global__ void __launch_bounds__(kMergeThreads)
-    pm_merge_kernel(const float* __restrict__ p, int nb, int n_z,
-                    float* __restrict__ zsum, float* __restrict__ stats) {
-  constexpr int warps = kMergeThreads / 32;
-  __shared__ float s_red[4][warps];
-  __shared__ float s_m;
-  const int width = kStats + n_z;
+// m = max_b m_b over rows [b0, b1), by every thread of the block: exact in
+// any order.
+__device__ __forceinline__ float block_max_m(const float* __restrict__ p,
+                                             int width, int b0, int b1,
+                                             float* s_w) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
   float m = -INFINITY;
-  for (int b = threadIdx.x; b < nb; b += kMergeThreads)
+  for (int b = b0 + threadIdx.x; b < b1; b += kMergeThreads)
     m = fmaxf(m, p[static_cast<size_t>(b) * width]);
   m = warp_max(m);
-  if (lane == 0) s_red[0][warp] = m;
+  if (lane == 0) s_w[warp] = m;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float mm = s_red[0][0];
-    for (int w = 1; w < warps; ++w) mm = fmaxf(mm, s_red[0][w]);
-    s_m = mm;
-  }
-  __syncthreads();
-  const float mg = s_m;
-  __syncthreads();  // s_red is reused below
+  float mm = s_w[0];
+  for (int w = 1; w < kMergeSlices; ++w) mm = fmaxf(mm, s_w[w]);
+  __syncthreads();  // s_w is reused
+  return mm;
+}
 
-  float l = 0.0f, cmin = INFINITY, cmax = -INFINITY, csum = 0.0f;
-  for (int b = threadIdx.x; b < nb; b += kMergeThreads) {
-    const float* r = p + static_cast<size_t>(b) * width;
-    l = fmaf(expf(r[0] - mg), r[1], l);
-    cmin = fminf(cmin, r[2]);
-    cmax = fmaxf(cmax, r[3]);
-    csum += r[4];
+// Rows [b0, b1) against m: f_b = exp(m_b - m) once a row into shared
+// memory (kMergeChunk rows at a time); with `stats` the row stats (l =
+// sum f_b l_b, cost min / max / sum) of thread t's rows b0 + t + 256 i;
+// column `col` (lane) summed over the warp's rows b0 + warp + 8 i. Every
+// sum runs in a fixed order.
+__device__ __forceinline__ void merge_rows(const float* __restrict__ p,
+                                           int width, int n_z, int b0,
+                                           int b1, float mg, bool stats,
+                                           int col, float* s_f, float st[4],
+                                           float* acc) {
+  const int warp = threadIdx.x >> 5;
+  for (int c0 = b0; c0 < b1; c0 += kMergeChunk) {
+    const int c1 = min(b1, c0 + kMergeChunk);
+    for (int b = c0 + threadIdx.x; b < c1; b += kMergeThreads) {
+      const float* r = p + static_cast<size_t>(b) * width;
+      const float f = expf(r[0] - mg);
+      s_f[b - c0] = f;
+      if (stats) {
+        st[0] = fmaf(f, r[1], st[0]);
+        st[1] = fminf(st[1], r[2]);
+        st[2] = fmaxf(st[2], r[3]);
+        st[3] += r[4];
+      }
+    }
+    __syncthreads();
+    if (col < n_z) {
+      const float* x = p + kStats + col;
+#pragma unroll 8
+      for (int b = c0 + warp; b < c1; b += kMergeSlices)
+        *acc = fmaf(s_f[b - c0], x[static_cast<size_t>(b) * width], *acc);
+    }
+    __syncthreads();  // s_f is rewritten by the next chunk
   }
-  l = warp_sum(l);
-  cmin = warp_min(cmin);
-  cmax = warp_max(cmax);
-  csum = warp_sum(csum);
+}
+
+// The block's stats (thread t's partial st) reduced over the warps in
+// order into out[0 .. 3] by thread 0.
+__device__ __forceinline__ void block_stats(float st[4], float (*s_red)[8],
+                                            float* out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float l = warp_sum(st[0]), cmin = warp_min(st[1]),
+              cmax = warp_max(st[2]), csum = warp_sum(st[3]);
   if (lane == 0) {
     s_red[0][warp] = l;
     s_red[1][warp] = cmin;
@@ -754,28 +878,138 @@ __global__ void __launch_bounds__(kMergeThreads)
   __syncthreads();
   if (threadIdx.x == 0) {
     float tl = 0.0f, tmin = INFINITY, tmax = -INFINITY, tsum = 0.0f;
-    for (int w = 0; w < warps; ++w) {
+    for (int w = 0; w < kMergeSlices; ++w) {
       tl += s_red[0][w];
       tmin = fminf(tmin, s_red[1][w]);
       tmax = fmaxf(tmax, s_red[2][w]);
       tsum += s_red[3][w];
     }
-    stats[0] = mg;
-    stats[1] = tl;
-    stats[2] = tmin;
-    stats[3] = tmax;
-    stats[4] = tsum;
-    stats[5] = stats[6] = stats[7] = 0.0f;
-  }
-  for (int n = threadIdx.x; n < n_z; n += kMergeThreads) {
-    float s = 0.0f;
-    for (int b = 0; b < nb; ++b) {
-      const float* r = p + static_cast<size_t>(b) * width;
-      s = fmaf(expf(r[0] - mg), r[kStats + n], s);
-    }
-    zsum[n] = s;
+    out[0] = tl;
+    out[1] = tmin;
+    out[2] = tmax;
+    out[3] = tsum;
   }
 }
+
+// The 8 slices' column sums of a block, a fixed-order tree.
+__device__ __forceinline__ float slice_tree(float (*s_part)[kMergeCols],
+                                            int lane) {
+  const float* c = &s_part[0][lane];
+  constexpr int L = kMergeCols;
+  return ((c[0] + c[L]) + (c[2 * L] + c[3 * L])) +
+         ((c[4 * L] + c[5 * L]) + (c[6 * L] + c[7 * L]));
+}
+
+// The merge: a cluster of R blocks (cluster.num_blocks(): 1, or
+// kMergeRanks from kMergeClusterRows rows on) for each tile of kMergeCols
+// columns. Rank r takes rows [r per, (r + 1) per), per = ceil(nb / R):
+// its m_r, then (R > 1) m = max_r m_r through distributed shared memory
+// after a cluster barrier; f_b, its slices' column sums and, in tile 0,
+// its stats partial; the rank-0 block adds the ranks' partials in rank
+// order. At R = 1 each block is a column tile alone, with no cluster
+// barrier. n_z > 0 (stats-only rows: pm_merge_stats_kernel). The bound's
+// minimum of one block an SM lets ptxas (CUDA 12.9) past the 32
+// registers at which it spilled this kernel without one.
+__global__ void __launch_bounds__(kMergeThreads, 1)
+    pm_merge_kernel(const float* __restrict__ p, int nb, int n_z,
+                    float* __restrict__ zsum, float* __restrict__ stats) {
+  namespace cg = cooperative_groups;
+  const cg::cluster_group cluster = cg::this_cluster();
+  extern __shared__ float s_f[];  // f_b of up to kMergeChunk rows
+  __shared__ float s_part[kMergeSlices][kMergeCols];
+  __shared__ float s_red[4][kMergeSlices];
+  __shared__ float s_out[5 + kMergeCols];  // m_r, stats, column partials
+  const int width = kStats + n_z;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  int tile = blockIdx.x, b0 = 0, b1 = nb;
+  if (ranks > 1) {
+    const int rank = static_cast<int>(cluster.block_rank());
+    const int per = (nb + ranks - 1) / ranks;
+    tile = blockIdx.x / ranks;
+    b0 = min(nb, rank * per);
+    b1 = min(nb, b0 + per);
+  }
+  float mg = block_max_m(p, width, b0, b1, s_red[0]);
+  if (ranks > 1) {
+    if (threadIdx.x == 0) s_out[0] = mg;
+    cluster.sync();
+    mg = -INFINITY;
+    for (int r = 0; r < ranks; ++r)
+      mg = fmaxf(mg, *cluster.map_shared_rank(&s_out[0], r));
+  }
+  const bool with_stats = tile == 0;
+  const int col = tile * kMergeCols + lane;
+  float st[4] = {0.0f, INFINITY, -INFINITY, 0.0f}, acc = 0.0f;
+  merge_rows(p, width, n_z, b0, b1, mg, with_stats, col, s_f, st, &acc);
+  s_part[warp][lane] = acc;
+  if (ranks == 1) {  // a tile alone: the outputs straight from the block
+    if (with_stats) {
+      block_stats(st, s_red, stats + 1);
+      if (threadIdx.x == 0) {
+        stats[0] = mg;
+        stats[5] = stats[6] = stats[7] = 0.0f;
+      }
+    }
+    __syncthreads();
+    if (warp == 0 && col < n_z) zsum[col] = slice_tree(s_part, lane);
+    return;
+  }
+  if (with_stats) block_stats(st, s_red, s_out + 1);
+  __syncthreads();
+  if (warp == 0) s_out[5 + lane] = slice_tree(s_part, lane);
+  cluster.sync();
+  if (cluster.block_rank() == 0) {
+    if (warp == 0 && col < n_z) {
+      float s = 0.0f;
+      for (int r = 0; r < ranks; ++r)
+        s += cluster.map_shared_rank(s_out, r)[5 + lane];
+      zsum[col] = s;
+    }
+    if (with_stats && threadIdx.x == 0) {
+      float tl = 0.0f, tmin = INFINITY, tmax = -INFINITY, tsum = 0.0f;
+      for (int r = 0; r < ranks; ++r) {
+        const float* o = cluster.map_shared_rank(s_out, r);
+        tl += o[1];
+        tmin = fminf(tmin, o[2]);
+        tmax = fmaxf(tmax, o[3]);
+        tsum += o[4];
+      }
+      stats[0] = mg;
+      stats[1] = tl;
+      stats[2] = tmin;
+      stats[3] = tmax;
+      stats[4] = tsum;
+      stats[5] = stats[6] = stats[7] = 0.0f;
+    }
+  }
+  cluster.sync();  // the ranks' shared memory outlives rank 0's reads
+}
+
+// Stats-only rows (n_z = 0, after phase A): one block, each thread over
+// rows t, t + 256, ..., its stats reduced over the warps in order.
+__global__ void __launch_bounds__(kMergeThreads, 1)
+    pm_merge_stats_kernel(const float* __restrict__ p, int nb,
+                          float* __restrict__ stats) {
+  __shared__ float s_red[4][kMergeSlices];
+  const float mg = block_max_m(p, kStats, 0, nb, s_red[0]);
+  float st[4] = {0.0f, INFINITY, -INFINITY, 0.0f};
+  for (int b = threadIdx.x; b < nb; b += kMergeThreads) {
+    const float* r = p + static_cast<size_t>(b) * kStats;
+    st[0] = fmaf(expf(r[0] - mg), r[1], st[0]);
+    st[1] = fminf(st[1], r[2]);
+    st[2] = fmaxf(st[2], r[3]);
+    st[3] += r[4];
+  }
+  block_stats(st, s_red, stats + 1);
+  if (threadIdx.x == 0) {
+    stats[0] = mg;
+    stats[5] = stats[6] = stats[7] = 0.0f;
+  }
+}
+
+// The launch floor: a kernel that does nothing.
+__global__ void pm_empty_kernel() {}
 #endif  // MPPI_BF16: pm_merge reads f32 partial rows only
 
 // The launch of one solve: k samples over horizon tau; scheduled (0 / 1)
@@ -922,30 +1156,102 @@ int MPPI_ENTRY(pm_occupancy)(int sdim, int adim, int cost, int structure,
                                        dynamic_ab, a);
 }
 
+// mppi_weights launches a grid of (ceil(k / 256), G): G groups of the
+// n_z normals' Philox blocks, each group a whole number of kWeightBlocks
+// chunks, kWeightGroupChunks (48 normals) a group as near as the chunks
+// divide: G = ceil(chunks / 3). A sweep of G on the H100 put this rule at
+// or next to the fastest G at every flagship shape (K=65,536 to 262,144,
+// n_z = 150 and 300); one group (the whole row a block) and one chunk a
+// group both ran slower. The grid then holds 1.3-5.2 waves of the
+// kernel's six blocks an SM: a partial wave's tail is a group's work, and
+// a group's fixed work (its w_k, its share of the row) stays small beside
+// its three chunks. No G changes a bit of the rows.
+constexpr int kWeightGroupChunks = 3;
+
+// (G, Philox blocks a group) of a phase B over n_z normals.
+static void weights_groups(int n_z, int* gy, int* group_blocks) {
+  const int chunks = ((n_z + 3) / 4 + kWeightBlocks - 1) / kWeightBlocks;
+  const int groups = (chunks + kWeightGroupChunks - 1) / kWeightGroupChunks;
+  const int per = (chunks + groups - 1) / groups;
+  *group_blocks = per * kWeightBlocks;
+  *gy = (chunks + per - 1) / per;
+}
+
 int MPPI_ENTRY(mppi_weights)(const float* nrm, const float* costs,
-                             const float* z,
-                 float* partials, int k, int n_z, uint32_t half,
-                 uint32_t seed_lo, uint32_t seed_hi, uint32_t s_lo,
-                 uint32_t s_hi, void* stream) {
+                             const float* z, float* partials, int k,
+                             int n_z, uint32_t half, uint32_t seed_lo,
+                             uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
+                             void* stream) {
   if (k <= 0 || n_z <= 0) return cudaErrorInvalidValue;
+  int gy = 1, group_blocks = 0;
+  weights_groups(n_z, &gy, &group_blocks);
   size_t smem = 0;
-  const cudaError_t e =
-      smem_for(MPPI_KERNEL(mppi_weights), 0, n_z, &smem);
+  const cudaError_t e = smem_for(MPPI_KERNEL(mppi_weights), 0,
+               std::min(n_z, 4 * group_blocks), &smem);
   if (e != cudaSuccess) return e;
-  const int nb = (k + kBlock - 1) / kBlock;
-  MPPI_KERNEL(mppi_weights)<<<nb, kBlock, smem,
+  const dim3 grid((k + kBlock - 1) / kBlock, gy);
+  MPPI_KERNEL(mppi_weights)<<<grid, kBlock, smem,
                               static_cast<cudaStream_t>(stream)>>>(
-      nrm, costs, z, partials, k, n_z,
+      nrm, costs, z, partials, k, n_z, group_blocks,
       Seeds{seed_lo, seed_hi, s_lo, s_hi, half});
   return cudaGetLastError();
 }
 
+// out[0]: blocks an SM of the phase-B kernel, out[1]: the G the rule picks
+// for n_z normals.
+int MPPI_ENTRY(mppi_weights_occupancy)(int n_z, int* out) {
+  if (n_z <= 0) return cudaErrorInvalidValue;
+  int group_blocks = 0;
+  weights_groups(n_z, &out[1], &group_blocks);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &out[0], MPPI_KERNEL(mppi_weights), kBlock, 0);
+}
+
 #ifndef MPPI_BF16
+// pm_merge launches one block of pm_merge_stats_kernel for stats-only
+// rows (n_z = 0), else ceil(n_z / 32) column tiles of pm_merge_kernel:
+// from kMergeClusterRows rows on a cluster of kMergeRanks blocks a tile,
+// below that one block a tile, launched without a cluster. A sweep of
+// the cluster size on the H100 found one block a tile fastest at the
+// point mass's 391 rows and eight the fastest at the AUV's 1,024.
+constexpr int kMergeClusterRows = 640;
 int pm_merge(const float* partials, int nb, int n_z, float* zsum,
              float* stats, void* stream) {
   if (nb <= 0 || n_z < 0) return cudaErrorInvalidValue;
-  pm_merge_kernel<<<1, kMergeThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      partials, nb, n_z, zsum, stats);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_z == 0) {
+    pm_merge_stats_kernel<<<1, kMergeThreads, 0, st>>>(partials, nb, stats);
+    return cudaGetLastError();
+  }
+  const int ranks = nb >= kMergeClusterRows ? kMergeRanks : 1;
+  const int tiles = (n_z + kMergeCols - 1) / kMergeCols;
+  const size_t smem =
+      std::min((nb + ranks - 1) / ranks, kMergeChunk) * sizeof(float);
+  if (ranks == 1) {
+    pm_merge_kernel<<<tiles, kMergeThreads, smem, st>>>(partials, nb, n_z,
+                                                        zsum, stats);
+    return cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * ranks);
+  cfg.blockDim = dim3(kMergeThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = ranks;
+  attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, pm_merge_kernel, partials, nb, n_z, zsum,
+                         stats);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+// the launch floor pm_merge is measured against (chip_smoke.py)
+int pm_empty(void* stream) {
+  pm_empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return cudaGetLastError();
 }
 

@@ -43,7 +43,11 @@ _SIGNATURES = {
     "pm_fused_costs": [_I, _I, _I, _I, _P, _P, _P, _P, _P, *_SOLVE, _I,
                        *_SEEDS, _P],
     "mppi_weights": [_P, _P, _P, _P, _I, _I, *_SEEDS, _P],
+    # (n_z, out[2]): phase B's blocks an SM and the rule's groups
+    "mppi_weights_occupancy": [_I, _P],
     "pm_merge": [_P, _I, _I, _P, _P, _P],
+    # an empty kernel: the launch floor chip_smoke.py times pm_merge against
+    "pm_empty": [_P],
     # the AUV solves take (rk, cost, structure) first
     "auv_fused_solve": [_I, _I, _I, _P, _P, _P, _P, *_SOLVE, *_SEEDS, _P],
     "auv_fused_costs": [_I, _I, _I, _P, _P, _P, _P, _P, *_SOLVE, *_SEEDS,
@@ -65,6 +69,7 @@ _SIGNATURES = {
 _SIGNATURES.update(
     {f"{name}_bf16": _SIGNATURES[name] for name in (
         "pm_noise_dump", "pm_fused_solve", "pm_fused_costs", "mppi_weights",
+        "mppi_weights_occupancy",
         "auv_fused_solve", "auv_fused_costs", "nn_fused_solve",
         "nn_fused_costs", "pm_occupancy", "auv_occupancy", "nn_occupancy")}
     | {f"{name}_bfp": _SIGNATURES[name]

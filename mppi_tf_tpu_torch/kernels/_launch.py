@@ -31,6 +31,10 @@ KERNELS.update(
     | {f"{e}_bfp": k.replace("_kernel", "_bfp_kernel")
        for e, k in KERNELS.items() if e.startswith("nn_")})
 
+#: the other __global__ functions an entry point launches: pm_merge runs
+#: stats-only rows (n_z = 0) through a kernel of their own
+EXTRA_KERNELS = {"pm_merge": ("pm_merge_stats_kernel",)}
+
 launch_counts = dict.fromkeys(KERNELS, 0)
 
 
@@ -40,6 +44,12 @@ def kernel_symbol(entry: str, args=()) -> str:
     ``pm_fused_solve_kernelILi6ELi3ELi0ELi0E`` for <6, 3, 0, 0>."""
     sym = KERNELS[entry]
     return sym + "I" + "".join(f"Li{int(a)}E" for a in args) if args else sym
+
+
+def kernel_symbols(entry: str, args=()) -> tuple:
+    """Every symbol ``entry`` may launch: ``kernel_symbol`` and its
+    EXTRA_KERNELS."""
+    return (kernel_symbol(entry, args), *EXTRA_KERNELS.get(entry, ()))
 
 
 def reset_launch_counts() -> None:

@@ -19,10 +19,15 @@ Replaces the Pallas kernels of ``mppi_tf_tpu/kernels/pm_mppi.py``:
 - ``mppi_weights`` replaces ``make_weights_kernel`` (``fused_pm_weights``
   and ``auv_mppi._fused_auv_weights``, phase B, for any action dim): it
   regenerates the normals of the solve and writes rows with
-  w = exp(-(c - beta) / ((max - beta) lam)) and m_b = 0;
+  w = exp(-(c - beta) / ((max - beta) lam)) and m_b = 0, the normals
+  split into groups of Philox blocks across the grid's second axis (the
+  same rows at any group count);
 - ``pm_merge`` merges the per-block rows with the shard-merge algebra of
   ``mppi_tf_tpu/parallel/fused.py`` (m = max m_b, f_b = exp(m_b - m),
-  l = sum f_b l_b, zsum = sum f_b zsum_b);
+  l = sum f_b l_b, zsum = sum f_b zsum_b), in column tiles of 32 and, from
+  640 rows on, a thread-block cluster a tile over slices of the rows:
+  sums in a fixed order, so two merges of the same rows give the same
+  bits, within float rounding of ``merge_plain``;
 - ``pm_noise_dump`` replaces ``fused_noise_dump``: it writes the exact
   normals the solves consume, for the statistics check, the log-mode noise
   sample and tests.
@@ -723,7 +728,8 @@ def mppi_weights(nrm: torch.Tensor, costs: torch.Tensor, tau: int,
 
 def pm_merge(partials: torch.Tensor):
     """Merge block partials -> (zsum [n_z], stats [8]); see ``merge_plain``.
-    Stats-only rows (n_z = 0) give an empty zsum."""
+    Stats-only rows (n_z = 0) give an empty zsum; on the card they run a
+    kernel of their own (``_launch.EXTRA_KERNELS``)."""
     if not on_card(partials):
         return merge_plain(partials)
     nb, width = partials.shape

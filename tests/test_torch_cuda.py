@@ -58,6 +58,7 @@ def test_build_reports_every_kernel(cuda_device):
     rows = _build.ptxas_report()
     names = " ".join(r["kernel"] for r in rows)
     for kernel in ("pm_fused_solve_kernel", "pm_merge_kernel",
+                   "pm_merge_stats_kernel",
                    "pm_noise_dump_kernel", "mppi_weights_kernel",
                    "auv_fused_solve_kernel"):
         assert kernel in names
@@ -428,6 +429,84 @@ def test_mppi_weights_matches_plain(cuda_device, adim, k, tau):
         torch.testing.assert_close(zs_k / st_k[1], zs_p / st_p[1],
                                    rtol=1e-4, atol=1e-6)
         torch.testing.assert_close(st_k, st_p, rtol=1e-5, atol=0)
+
+
+#: the flagship shapes of phase B (k, tau, adim): the NN and AUV dives,
+#: the point mass at H=50 and H=100
+WEIGHT_SHAPES = [(65_536, 25, 6), (100_000, 50, 3), (100_000, 100, 3),
+                 (262_144, 25, 6)]
+
+
+@pytest.mark.parametrize("k,tau,adim", WEIGHT_SHAPES)
+def test_mppi_weights_rule_matches_plain(cuda_device, k, tau, adim):
+    """Phase B at each flagship shape, at the groups the host rule picks
+    (mppi_weights_occupancy: 1 to the shape's 16-normal chunks), on the
+    antithetic Philox stream against weights_plain: the f32 rows within
+    the plain version's tolerance, the bf16 build's merged weighted noise
+    within the f32 tolerance of the plain bf16 version's."""
+    import ctypes
+
+    rng = np.random.default_rng(k + tau)
+    costs = torch.as_tensor(rng.uniform(1e3, 6e4, size=k),
+                            dtype=torch.float32, device=cuda_device)
+    nrm = torch.stack([costs.min(), 1.0 / ((costs.max() - costs.min())
+                                           * 0.5)])
+    out = (ctypes.c_int * 2)()
+    assert _build.load_library().mppi_weights_occupancy(tau * adim, out) == 0
+    chunks = -(-(-(-(tau * adim) // 4)) // 4)
+    assert out[0] >= 1 and 1 <= out[1] <= chunks
+    kw = {"seed": 3, "solve": 4, "antithetic": True}
+    rows = pm.mppi_weights(nrm, costs, tau, adim, **kw)
+    plain = pm.weights_plain(nrm, costs, tau, adim, **kw)
+    torch.testing.assert_close(rows, plain, rtol=1e-4, atol=1e-4)
+    rows = pm.mppi_weights(nrm, costs, tau, adim, compute_dtype="bfloat16",
+                           **kw)
+    plain = pm.weights_plain(nrm, costs, tau, adim, compute_dtype="bfloat16",
+                             **kw)
+    torch.testing.assert_close(_wnoise(rows, pm.pm_merge),
+                               _wnoise(plain, pm.merge_plain),
+                               rtol=WNOISE_RTOL, atol=WNOISE_ATOL)
+
+
+def _merge_rows(nb, n_z, device, seed):
+    """Partial rows with spread maxima, positive l_b and zsum_b of both
+    signs (f32)."""
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((nb, pm.STATS + n_z), np.float32)
+    rows[:, 0] = -np.abs(rng.normal(0.0, 3.0, nb))
+    rows[:, 1] = rng.uniform(1.0, 256.0, nb)
+    c = rng.uniform(1e3, 5e4, (nb, 2))
+    rows[:, 2], rows[:, 3] = c.min(axis=1), c.max(axis=1)
+    rows[:, 4] = rng.uniform(1e5, 1e7, nb)
+    rows[:, pm.STATS:] = rng.normal(0.0, 30.0, (nb, n_z))
+    return torch.as_tensor(rows, device=device)
+
+
+@pytest.mark.parametrize("n_z", [0, 150, 300, 600])
+@pytest.mark.parametrize("nb", [1, 12, 391, 1024, 5000, 40_000])
+def test_pm_merge_matches_f64_merge(cuda_device, nb, n_z):
+    """pm_merge against merge_plain in f64 on the same rows: m, cost min
+    and cost max equal bit for bit (no order moves a max or min); l, the
+    cost sum and every zsum[n] within 1e-5 of that column's l1 mass
+    sum_b f_b |x_b| (zsum entries cancel towards 0); two merges of the
+    same rows give the same bits. One block a tile below 640 rows, a
+    cluster of 8 from there; at 40,000 rows each rank's 5,000 walk f_b
+    in two chunks of shared memory (4,096 rows a chunk)."""
+    rows = _merge_rows(nb, n_z, cuda_device, seed=nb + n_z)
+    zs, st = pm.pm_merge(rows)
+    zs2, st2 = pm.pm_merge(rows)
+    assert torch.equal(zs, zs2) and torch.equal(st, st2)
+    r = rows.double()
+    ref_z, ref_st = pm.merge_plain(r)
+    f = torch.exp(r[:, 0] - ref_st[0])
+    assert zs.shape == (n_z,) and st.shape == (pm.STATS,)
+    for i in (0, 2, 3):
+        assert st[i].double() == ref_st[i]
+    l1 = torch.cat([torch.stack([(f * r[:, 1]).sum(), r[:, 4].abs().sum()]),
+                    f @ r[:, pm.STATS:].abs()])
+    err = (torch.cat([st[[1, 4]], zs]).double()
+           - torch.cat([ref_st[[1, 4]], ref_z])).abs()
+    assert torch.all(err <= 1e-5 * l1), (err / l1).max().item()
 
 
 def test_pm_fused_costs_matches_plain(cuda_device):
@@ -1095,6 +1174,21 @@ def test_lti_refit_builds_nothing_and_launches_the_same_symbol(
                                rtol=0, atol=1e-4)
     assert f"pm_fused_solve x1: {sym}" in ctrl.dump_hlo()
     assert np.all(np.isfinite(ctrl.next(x)))
+
+
+def test_dump_hlo_names_both_merge_kernels(cuda_device):
+    """A normalized point-mass step merges twice through pm_merge: the
+    stats-only rows of phase A (pm_merge_stats_kernel) and phase B's rows
+    (pm_merge_kernel). dump_hlo names both and prints each one's ptxas
+    row."""
+    model, cost = _modules(cuda_device)
+    ctrl = MPPI(model, cost, k=4096, tau=20, lam=LAM, sigma=SIGMA,
+                normalize_cost=True, kernel="cuda", device=cuda_device)
+    hlo = ctrl.dump_hlo()
+    assert "pm_merge x2: pm_merge_kernel, pm_merge_stats_kernel" in hlo
+    for sym in ("pm_merge_kernel", "pm_merge_stats_kernel"):
+        assert any(line.startswith("  ") and sym in line and "registers"
+                   in line for line in hlo.splitlines()), sym
 
 
 # ---- the bf16 block compute (compute_dtype="bfloat16") --------------------

@@ -230,6 +230,10 @@ def test_kernel_symbol_names_the_instantiation():
     assert _launch.kernel_symbol("pm_fused_costs", (6, 3, 1, 0)) == \
         "pm_fused_solve_kernelILi6ELi3ELi1ELi0E"
     assert _launch.kernel_symbol("pm_merge") == "pm_merge_kernel"
+    assert _launch.kernel_symbols("pm_merge") == (
+        "pm_merge_kernel", "pm_merge_stats_kernel")
+    assert _launch.kernel_symbols("pm_fused_costs", (6, 3, 1, 0)) == (
+        "pm_fused_solve_kernelILi6ELi3ELi1ELi0E",)
     mangled = ("_ZN12_GLOBAL__N_121pm_fused_solve_kernelILi6ELi3ELi1ELi0EEE"
                "vNS_6ConstsIXT_EXT0_EEEPKfiiS4_PfS5_ii5Seeds")
     assert _launch.kernel_symbol("pm_fused_costs", (6, 3, 1, 0)) in mangled

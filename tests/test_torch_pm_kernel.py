@@ -250,6 +250,115 @@ def test_block_partials_pad_with_neg_inf_sentinel():
     np.testing.assert_allclose((zsum / stats[1]).numpy(), [1.0, 1.0])
 
 
+def _seeded_rows(nb, n_z, seed):
+    """Partial rows (m_b, l_b, cost min, max, sum, 0, 0, 0, zsum_b) in f64:
+    spread maxima, positive l_b, zsum_b of both signs."""
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((nb, pm.STATS + n_z))
+    rows[:, 0] = -np.abs(rng.normal(0.0, 3.0, nb))
+    rows[:, 1] = rng.uniform(1.0, 256.0, nb)
+    c = rng.uniform(1e3, 5e4, (nb, 2))
+    rows[:, 2], rows[:, 3] = c.min(axis=1), c.max(axis=1)
+    rows[:, 4] = rng.uniform(1e5, 1e7, nb)
+    rows[:, pm.STATS:] = rng.normal(0.0, 30.0, (nb, n_z))
+    return rows
+
+
+class _MergedShard:
+    """The per-shard solve that mppi_tf_tpu/parallel/fused.py's
+    build_sharded_fused_solve runs on each device, standing in with a
+    merged row: its raw pieces (m, l, zsum, cost stats) are the row that
+    solve_with_noise hands it as its shard of z, so the factory's own
+    _shard_reduce (pmax of m, f = exp(m - m_g), psum of l f and zsum f,
+    pmin / pmax / psum of the cost stats) merges the given rows."""
+
+    k = tile = adim = 1
+    _scale = np.eye(1)
+
+    def __init__(self, width: int):
+        self.tau = width - pm.STATS
+
+    def solve(self, seed, state, useq, mparams, cparams, z=None, **kw):
+        r = z[0, 0]
+        return {"m": r[0], "l": r[1], "cost_min": r[2], "cost_max": r[3],
+                "cost_sum": r[4], "zsum": r[pm.STATS:]}
+
+    def unfold_wnoise(self, zsum):
+        return zsum.reshape(self.tau, 1)
+
+
+def _jax_shard_merge(merged):
+    """(l, cost min, max, sum, zsum) of the reference's shard merge over
+    the rows ``merged`` (at most 8, one a device of the 8-device CPU mesh;
+    the others hold no samples: m = -inf, l = 0), run through
+    build_sharded_fused_solve's solve_with_noise. Its outputs give back
+    zsum = wnoise l (the action and the shifted sequence) and the cost
+    sum = cost_mean k (k = 8)."""
+    from mppi_tf_tpu.parallel import make_mesh
+    from mppi_tf_tpu.parallel.fused import build_sharded_fused_solve
+
+    n = 8
+    width = pm.STATS + max(merged.shape[1] - pm.STATS, 1)
+    rows = np.zeros((n, width))
+    rows[:, 0], rows[:, 2], rows[:, 3] = -np.inf, np.inf, -np.inf
+    rows[:len(merged), :merged.shape[1]] = merged
+    _, solve = build_sharded_fused_solve(_MergedShard(width),
+                                         make_mesh(n), k_global=n)
+    tau = width - pm.STATS
+    one = jnp.zeros(1)
+    action, shifted, info = solve(jnp.asarray(rows.reshape(1, 1, -1)), one,
+                                  jnp.zeros((tau, 1)), one, one)
+    wnoise = np.concatenate([np.asarray(action), np.asarray(shifted)[:-1,
+                                                                       0]])
+    l = float(info["nabla"])
+    return (l, float(info["cost_min"]), float(info["cost_max"]),
+            float(info["cost_mean"]) * n,
+            wnoise[:merged.shape[1] - pm.STATS] * l)
+
+
+@pytest.mark.parametrize("n_z", [0, 150, 300])
+@pytest.mark.parametrize("nb", [1, 3, 391])
+def test_merge_of_slice_merges_equals_one_merge(nb, n_z):
+    """The two-level merge pm_merge's parallel forms rest on, in f64:
+    merge_plain of all rows equals merge_plain over the merges of any
+    partition of the rows into slices (the kernel's 8 interleaved row
+    slices, 8 contiguous ranks, slices of one row), and equals the JAX
+    reference's shard merge (parallel/fused.py, on the 8-device CPU
+    mesh) over the same slices wherever they number at most 8. m, cost
+    min and cost max are equal exactly; the sums within 1e-12 of each
+    column's l1 mass."""
+    rows = _seeded_rows(nb, n_z, seed=nb * 1000 + n_z)
+    zsum, st = (t.numpy() for t in pm.merge_plain(torch.as_tensor(rows)))
+    f = np.exp(rows[:, 0] - st[0])
+    l1 = np.concatenate([[(f * rows[:, 1]).sum(), np.abs(rows[:, 4]).sum()],
+                         f @ np.abs(rows[:, pm.STATS:])])
+    per = -(-nb // 8)
+    partitions = {"interleaved": [np.arange(s, nb, 8) for s in range(8)],
+                  "contiguous": [np.arange(r * per, min(nb, (r + 1) * per))
+                                 for r in range(8)],
+                  "rows": [np.array([b]) for b in range(nb)]}
+    for name, slices in partitions.items():
+        slices = [s for s in slices if s.size]
+        merged = []
+        for s in slices:
+            z_s, st_s = (t.numpy() for t in pm.merge_plain(
+                torch.as_tensor(rows[s])))
+            merged.append(np.concatenate([st_s, z_s]))
+        merged = np.stack(merged)
+        z2, st2 = (t.numpy() for t in pm.merge_plain(
+            torch.as_tensor(merged)))
+        assert (st2[0], st2[2], st2[3]) == (st[0], st[2], st[3]), name
+        got = [(st2[1], st2[4], z2)]
+        if len(slices) <= 8:
+            l_j, cmin, cmax, csum, z_j = _jax_shard_merge(merged)
+            assert (cmin, cmax) == (st[2], st[3]), name
+            got.append((l_j, csum, z_j))
+        for l_g, csum_g, z_g in got:
+            err = np.abs(np.concatenate([[l_g - st[1], csum_g - st[4]],
+                                         z_g - zsum]))
+            assert np.all(err <= 1e-12 * l1), (name, (err / l1).max())
+
+
 @pytest.mark.parametrize("counter,key,expect", [
     ([0, 0, 0, 0], [0, 0],
      [0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8]),
