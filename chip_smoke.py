@@ -51,6 +51,17 @@ port's paths through ``MPPI.next`` closed loop against the analytic plants:
   from ``save`` through ``ClosedLoopRunner``) held to its identification,
   its goal, one sync a step and no rebuild; the CLI with
   ``--model models/dmd_model``;
+- the model-based RL loop (``mbrl``): 264 random-action transitions of
+  the known-plant network (12 episodes from random attitudes) into the
+  learner's native replay buffer, a 3x32 NNAUVModel learned from them on
+  the card (held below a tenth of the stay-put error), the NN kernels at
+  K=65,536, H=25 against their plain versions on the learned weights
+  written through ``MPPI.model_params`` and again after a rewrite, the
+  80-step dive with a refit every 20 steps in each solve mode (solve steps
+  held to one sync a step, refits profiled apart), ``run_experiment(
+  train_every=10)`` on the point mass at K=100,000, H=50 with the live mass
+  and the solve's 1/mass held to the learner's at every refit, and the
+  CLI with ``-t``;
 - the bf16 block compute (``kernel_dtype="bfloat16"``): every bf16 kernel
   against its plain bf16 version on injected z and the Philox stream
   (point mass K=100,000, H=50 with constant and dynamic (A, B), the (4, 2)
@@ -159,6 +170,30 @@ NN_LOOP_SIGMA = np.diag([5.0] * 3 + [2.0] * 3)
 NN_LOOP_Q = [60.0, 60.0, 60.0, 10.0] + [1.0] * 6
 NN_LOOP_STEPS, NN_LOOP_TOL = 80, 0.2
 NN_CLI_STEPS = 5
+# the model-based RL loop (mbrl): the JAX Learner's buffer of 264
+# transitions from the known plant, uniform random actions in
+# [-MBRL_ACT_MAX, MBRL_ACT_MAX]^6, in MBRL_EPISODES episodes from rest at
+# random attitudes (quaternion vector part N(0, MBRL_ATTITUDE^2) before
+# normalising): from one attitude the quaternion features are constant,
+# stats() leaves their std at 1e-8, and the fused NN kernels' fold of the
+# normalisers cancels them (ROADMAP §3); a 3x32 NNAUVModel (seed
+# MBRL_SEED) learned with MBRL_EPOCHS of Adam at MBRL_LR; the refits at the
+# Learner's defaults (100 epochs at 1e-3), as MBRL_REWRITE_EPOCHS more
+# before the rewrite check; the dive with refits every MBRL_TRAIN_EVERY
+# steps, unnormalized, then normalized with the same learner. Gates:
+# one-step MSE on the buffer below MBRL_MSE_SHARE of the stay-put baseline
+# (tests/test_mbrl_e2e.py:47-54); |z + 1| below MBRL_LOOP_TOL after each
+# dive, the known-plant dive's gate: the same loops at K=1,024 on the CPU
+# end 0.093 / 0.123 (port) and 0.066 / 0.134 (JAX) from z = -1
+# (tests/test_torch_mbrl.py::test_mbrl_dives_in_both_packages)
+MBRL_BUFFER, MBRL_EPISODES, MBRL_ACT_MAX, MBRL_ATTITUDE = 264, 12, 10.0, 0.2
+MBRL_SEED, MBRL_EPOCHS, MBRL_LR, MBRL_REWRITE_EPOCHS = 5, 300, 1e-2, 100
+MBRL_TRAIN_EVERY, MBRL_MSE_SHARE, MBRL_LOOP_TOL = 20, 0.1, NN_LOOP_TOL
+# the analytic learner at the headline width: run_experiment on the
+# bundled point mass (model mass 5, plant mass 1) at K, H, a refit every
+# MBRL_PM_TRAIN_EVERY steps; the CLI with -t MBRL_CLI_TRAIN at K=3,000
+MBRL_PM_STEPS, MBRL_PM_TRAIN_EVERY = 50, 10
+MBRL_CLI_STEPS, MBRL_CLI_TRAIN = 20, 5
 
 # the tracking slice. Point-mass mission: the bundled envs/point_mass (lambda
 # 1, gamma 1, sigma 0.25 I) and tasks/waypoints_task (3 legs, radius 0.3) at
@@ -282,6 +317,61 @@ def known_plant_task() -> dict:
     goal[[2, 6]] = [-1.0, 1.0]
     return {"type": "static_quat", "diag": True, "goal": goal.tolist(),
             "Q": NN_LOOP_Q}
+
+
+class KnownPlant:
+    """The known-plant network (``known_plant_params``) at f64 on the CPU
+    as an env: ``getState`` / ``getTime`` / ``getGoal`` / ``step`` /
+    ``reset``, one step of ``dt`` a control step."""
+
+    def __init__(self, dt: float = 0.1):
+        from mppi_tf_tpu_torch.interop import from_jax_params
+        from mppi_tf_tpu_torch.models.nn import NNAUVModel
+
+        self.dt = float(dt)
+        self.model = NNAUVModel(dt=dt, dtype=torch.float64)
+        from_jax_params(known_plant_params(dt), None, self.model)
+        self.reset()
+
+    def reset(self, x0=None) -> np.ndarray:
+        self._x = (rest_state() if x0 is None
+                   else np.asarray(x0, np.float64).reshape(-1).copy())
+        self._t = 0.0
+        return self.getState()
+
+    def getState(self) -> np.ndarray:
+        return self._x.reshape(-1, 1).copy()
+
+    def getTime(self) -> float:
+        return self._t
+
+    def getGoal(self):
+        return None
+
+    def step(self, u, goal=None) -> np.ndarray:
+        with torch.no_grad():
+            self._x = self.model.predict(
+                torch.from_numpy(self._x),
+                torch.as_tensor(np.ravel(u), dtype=torch.float64)).numpy()
+        self._t += self.dt
+        return self.getState()
+
+
+def mbrl_collect(collect, plant, buffer, seed: int = 0):
+    """MBRL_BUFFER transitions of ``plant`` into ``buffer`` through
+    ``collect`` (either package's ``collect_transitions``): MBRL_EPISODES
+    episodes from rest at a random attitude, the actions of episode e from
+    ``np.random.default_rng(seed + 1 + e)``."""
+    rng = np.random.default_rng(seed)
+    lim = MBRL_ACT_MAX * np.ones(6)
+    for ep in range(MBRL_EPISODES):
+        x0 = rest_state()
+        q = np.append(MBRL_ATTITUDE * rng.standard_normal(3), 1.0)
+        x0[3:7] = q / np.linalg.norm(q)
+        plant.reset(x0)
+        collect(plant, buffer, MBRL_BUFFER // MBRL_EPISODES, 6, -lim, lim,
+                seed=seed + 1 + ep, control_dt=plant.dt)
+    return buffer
 
 
 def emit(phase: str, **kw) -> None:
@@ -719,7 +809,11 @@ def profile_run(run, steps: int) -> dict:
         run()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = prof.key_averages()
-    kern = [e for e in events if e.device_type == DeviceType.CUDA]
+    # a range a host function annotates (Adam's "Optimizer.step#Adam.step")
+    # is listed on the device too, spanning its kernels: not a kernel
+    host = {e.key for e in events if e.device_type == DeviceType.CPU}
+    kern = [e for e in events
+            if e.device_type == DeviceType.CUDA and e.key not in host]
     dev_us = sum(e.self_device_time_total for e in kern)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
     syncs = {e.key: e.count / steps for e in events
@@ -1056,11 +1150,9 @@ def nn_loop(kernel: str, normalize: bool, steps: int = NN_LOOP_STEPS,
     from mppi_tf_tpu_torch.kernels import pm_mppi as pm
     from mppi_tf_tpu_torch.models.nn import NNAUVModel
 
-    params = known_plant_params()
     model = NNAUVModel(device="cuda", compute_dtype=model_compute_dtype)
-    plant = NNAUVModel(dtype=torch.float64)
-    for m in (model, plant):
-        from_jax_params(params, None, m)
+    from_jax_params(known_plant_params(), None, model)
+    plant = KnownPlant()
     cost = get_cost(known_plant_task(), lam=AUV_LAM, gamma=AUV_GAMMA,
                     upsilon=AUV_UPSILON, sigma=NN_LOOP_SIGMA, device="cuda")
     ctrl = MPPI(model, cost, k=k, tau=NN_H, lam=AUV_LAM, upsilon=AUV_UPSILON,
@@ -1079,9 +1171,7 @@ def nn_loop(kernel: str, normalize: bool, steps: int = NN_LOOP_STEPS,
         t0 = time.perf_counter()
         u = ctrl.next(x)
         step_ms.append((time.perf_counter() - t0) * 1e3)
-        with torch.no_grad():
-            x = plant.predict(torch.tensor(x), torch.tensor(
-                u, dtype=torch.float64)).numpy()
+        x = plant.step(u).ravel()
         states.append(x)
     return ctrl, np.asarray(states), step_ms, dict(pm.launch_counts)
 
@@ -2991,6 +3081,256 @@ def bf16_loops_phase(pm, smi: str) -> dict:
     return loops
 
 
+def one_step_errors(model, data) -> tuple:
+    """(one-step MSE of ``model`` on the transitions ``data``, the MSE of
+    predicting no change), in f64 on the host."""
+    dev = model.device
+    with torch.no_grad():
+        pred = model.step(
+            torch.as_tensor(data["obs"], dtype=model.dtype, device=dev),
+            torch.as_tensor(data["act"], dtype=model.dtype, device=dev))
+    pred = pred.double().cpu().numpy()
+    return (float(np.mean((pred - data["next_obs"]) ** 2)),
+            float(np.mean((data["obs"] - data["next_obs"]) ** 2)))
+
+
+def mbrl_dive(learner, plant, cost, normalize: bool, smi: str):
+    """One dive of the mbrl phase: MPPI on the NN kernels (K=NN_K,
+    H=NN_H) over the learner's weights, ClosedLoopRunner against the known
+    plant with a refit every MBRL_TRAIN_EVERY steps, launch counts reset
+    just before it; then 20 solve steps profiled (one sync a step).
+    Returns (its readings, the runner)."""
+    from mppi_tf_tpu_torch.controller import MPPI
+    from mppi_tf_tpu_torch.envs.runner import ClosedLoopRunner
+    from mppi_tf_tpu_torch.kernels import pm_mppi as pm
+    from mppi_tf_tpu_torch.models.nn import NNAUVModel
+
+    ctrl = MPPI(NNAUVModel(device="cuda"), cost, k=NN_K, tau=NN_H,
+                lam=AUV_LAM, upsilon=AUV_UPSILON, sigma=NN_LOOP_SIGMA,
+                seed=3, normalize_cost=normalize, kernel="cuda",
+                device="cuda")
+    ctrl.model_params = learner.params
+    runner = ClosedLoopRunner(plant, ctrl, control_dt=plant.dt,
+                              learner=learner,
+                              train_every=MBRL_TRAIN_EVERY)
+    solve_ms, train_ms, train_dev = [], [], []
+    next_fn, train_fn = ctrl.next, runner.train_step
+
+    def timed_next(x):
+        t0 = time.perf_counter()
+        u = next_fn(x)
+        solve_ms.append((time.perf_counter() - t0) * 1e3)
+        return u
+
+    def timed_train():
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        train_fn()
+        end.record()
+        torch.cuda.synchronize()
+        train_ms.append((time.perf_counter() - t0) * 1e3)
+        train_dev.append(start.elapsed_time(end))
+
+    ctrl.next, runner.train_step = timed_next, timed_train
+    plant.reset()
+    pm.reset_launch_counts()
+    t0 = time.perf_counter()
+    states, _ = runner.run(NN_LOOP_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = dict(pm.launch_counts)
+    del ctrl.next, runner.train_step
+    z_end = float(states[-1, 2])
+    drift = float(np.abs(np.linalg.norm(states[:, 3:7], axis=1) - 1).max())
+    prof = profile_steps(ctrl, x=rest_state())
+    emit("profile", kernel_path=ctrl.kernel_path, model="mbrl",
+         normalize=normalize, card=smi, **prof)
+    check_syncs(prof)
+    out = {"normalize": normalize, "K": NN_K, "H": NN_H,
+           "steps": NN_LOOP_STEPS, "train_every": MBRL_TRAIN_EVERY,
+           "refits": len(train_ms), "z_final": z_end,
+           "z_err": abs(z_end + 1.0), "tol": MBRL_LOOP_TOL, "q_drift": drift,
+           "launches": counts, "seconds": seconds,
+           "solve_step_ms_median": float(np.median(solve_ms)),
+           "solve_step_ms_p90": float(np.percentile(solve_ms, 90)),
+           "train_step_ms": train_ms, "train_step_event_ms": train_dev,
+           "ms_an_epoch_in_refits": float(np.mean(train_dev))
+           / learner.num_epochs,
+           "ms_a_step_with_refits": 1e3 * seconds / NN_LOOP_STEPS,
+           "z_every_10": states[::10, 2].tolist(),
+           "solve_profile": {k: prof[k] for k in (
+               "wall_us_per_step", "device_us_per_step",
+               "kernel_launches_per_step", "syncs_per_step")}}
+    emit("mbrl_dive", card=smi, **out)
+    want = ({"nn_fused_costs": NN_LOOP_STEPS, "mppi_weights": NN_LOOP_STEPS,
+             "pm_merge": 2 * NN_LOOP_STEPS} if normalize else
+            {"nn_fused_solve": NN_LOOP_STEPS, "pm_merge": NN_LOOP_STEPS})
+    want = {n: want.get(n, 0) for n in counts}
+    if not (ctrl.kernel_path == "cuda" and counts == want
+            and len(train_ms) == NN_LOOP_STEPS // MBRL_TRAIN_EVERY
+            and abs(z_end + 1.0) < MBRL_LOOP_TOL and drift < 1e-3
+            and np.all(np.isfinite(states))):
+        raise AssertionError(f"mbrl dive (normalize={normalize}): {out}, "
+                             f"launches want {want}")
+    return out, runner
+
+
+def mbrl_phase(pm, nnk, nn_k, smi: str, workdir: str) -> dict:
+    """The model-based RL loop through the NN kernels at full width: (a)
+    MBRL_BUFFER transitions of the known plant into the learner's native
+    replay buffer; (b) a 3x32 NNAUVModel learned from them on the card
+    (ms an epoch with CUDA events; gates: one-step MSE below MBRL_MSE_SHARE
+    of the stay-put error, the last loss below the first); (c) the NN
+    kernels against their plain versions on the learned weights written
+    through ``MPPI.model_params``, then again after a further training and
+    write, whose costs must move; (d) the dive with online refits in each
+    solve mode (``mbrl_dive``); (e) the analytic learner at the headline
+    width: ``run_experiment(train_every=)`` on the bundled point mass
+    through pm_fused_solve, the controller's live mass and the solve's dyn
+    held to the learner's after every refit, and the CLI with -t."""
+    from mppi_tf_tpu_torch.cfg import default_config
+    from mppi_tf_tpu_torch.collect import collect_transitions
+    from mppi_tf_tpu_torch.controller import MPPI
+    from mppi_tf_tpu_torch.costs import get_cost
+    from mppi_tf_tpu_torch.envs import run_experiment
+    from mppi_tf_tpu_torch.envs.runner import ClosedLoopRunner
+    from mppi_tf_tpu_torch.learning import Learner
+    from mppi_tf_tpu_torch.models.nn import NNAUVModel
+
+    out = {}
+    # (a) collect
+    learner = Learner(NNAUVModel(hidden=(32, 32, 32), seed=MBRL_SEED,
+                                 device="cuda"))
+    plant = KnownPlant()
+    t0 = time.perf_counter()
+    mbrl_collect(collect_transitions, plant, learner.rb)
+    out["collect"] = {"transitions": len(learner.rb),
+                      "backend": learner.rb.backend,
+                      "seconds": time.perf_counter() - t0}
+    if learner.rb.backend != "native" or len(learner.rb) != MBRL_BUFFER:
+        raise AssertionError(f"mbrl collection: {out['collect']}")
+    data = learner.rb_trans()
+    # (b) learn on the card
+    learner.stats()
+    X, Y = learner._prepare(data)
+    with torch.no_grad():
+        loss0 = float(learner._loss(X, Y))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    last = learner.train_all(epoch=MBRL_EPOCHS, learning_rate=MBRL_LR)
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with torch.no_grad():
+        loss1 = float(learner._loss(X, Y))
+    mse, base = one_step_errors(learner.model, data)
+    epoch_ms = start.elapsed_time(end) / MBRL_EPOCHS
+    out["learn"] = {"epochs": MBRL_EPOCHS, "lr": MBRL_LR,
+                    "loss_first": loss0, "loss_last_epoch": last,
+                    "loss_final": loss1, "one_step_mse": mse,
+                    "stay_put_mse": base, "mse_share": mse / base,
+                    "gate_share": MBRL_MSE_SHARE,
+                    "ms_an_epoch": epoch_ms, "wall_s": wall}
+    if not (mse < MBRL_MSE_SHARE * base and loss1 < loss0):
+        raise AssertionError(f"mbrl learning: {out['learn']}")
+    # (c) the kernels on learned weights, before and after a rewrite
+    cost = get_cost(known_plant_task(), lam=AUV_LAM, gamma=AUV_GAMMA,
+                    upsilon=AUV_UPSILON, sigma=NN_LOOP_SIGMA, device="cuda")
+    ctrl = MPPI(NNAUVModel(device="cuda"), cost, k=NN_K, tau=NN_H,
+                lam=AUV_LAM, upsilon=AUV_UPSILON, sigma=NN_LOOP_SIGMA,
+                seed=3, kernel="cuda", device="cuda")
+    fused = ctrl._fused
+    ctrl.model_params = learner.params
+    z = torch.as_tensor(np.random.default_rng(13).standard_normal(
+        (NN_H, 6, NN_K), np.float32), device="cuda")
+    chk_a = check_auv(nn_k, pm, fused, z, "mbrl_learned_K65536_H25",
+                      useq_scale=5.0, end_to_end=True)
+    costs_a = nnk.nn_fused_costs(fused.consts, auv_dyn(fused, 5.0, seed=11),
+                                 NN_K, NN_H, z=z)[0]
+    learner.train_all(epoch=MBRL_REWRITE_EPOCHS)
+    ctrl.model_params = learner.params
+    chk_b = check_auv(nn_k, pm, fused, z, "mbrl_rewritten_K65536_H25",
+                      useq_scale=5.0, end_to_end=True)
+    costs_b = nnk.nn_fused_costs(fused.consts, auv_dyn(fused, 5.0, seed=11),
+                                 NN_K, NN_H, z=z)[0]
+    same, moved_abs, _ = close(costs_b, costs_a, COST_RTOL, COST_ATOL)
+    out["kernels"] = {"learned": chk_a, "rewritten": chk_b,
+                      "costs_moved_max_abs": moved_abs,
+                      "costs_moved_beyond_tolerance": not same}
+    if same:
+        raise AssertionError(f"the rewrite did not reach the kernels: "
+                             f"costs moved {moved_abs}")
+    del z, ctrl, fused
+    # (d) the dives with online refits, each solve mode; then two refits
+    # profiled apart from the solve steps
+    out["dives"], runners = zip(*[
+        mbrl_dive(learner, plant, cost, normalize, smi)
+        for normalize in (False, True)])
+    prof_t = profile_run(lambda: [runners[-1].train_step()
+                                  for _ in range(2)], 2)
+    emit("profile", kernel_path="cuda", model="mbrl_train_step", card=smi,
+         epochs_a_step=learner.num_epochs, **prof_t)
+    out["train_step_profile"] = {k: prof_t[k] for k in (
+        "wall_us_per_step", "device_us_per_step", "kernel_launches_per_step",
+        "syncs_per_step", "top_kernels_us_per_step")}
+    del runners
+    # (e) the analytic learner at the headline width, and the CLI's -t
+    refits = []
+    train_step = ClosedLoopRunner.train_step
+
+    def checked(runner):
+        train_step(runner)
+        c = runner.controller
+        with torch.no_grad():
+            dyn = c._fused.pack_dyn(torch.zeros(6, device="cuda"), c.useq)
+        learned = runner.learner.params["mass"]
+        refits.append({"live": c._model.mass.item(), "learned":
+                       float(learned), "dyn_inv_mass": float(dyn[0]),
+                       "inv_learned": float((1.0 / learned).float())})
+
+    ClosedLoopRunner.train_step = checked
+    pm.reset_launch_counts()
+    try:
+        res = run_experiment(pm_env(), default_config("tasks/static_cost"),
+                             default_config("models/point_mass_model"),
+                             steps=MBRL_PM_STEPS,
+                             train_every=MBRL_PM_TRAIN_EVERY)
+    finally:
+        ClosedLoopRunner.train_step = train_step
+    counts = dict(pm.launch_counts)
+    ctrl_pm = res["controller"]
+    want = {n: 0 for n in counts}
+    want.update(pm_fused_solve=MBRL_PM_STEPS, pm_merge=MBRL_PM_STEPS)
+    out["point_mass"] = {"K": K, "H": H, "steps": MBRL_PM_STEPS,
+                         "train_every": MBRL_PM_TRAIN_EVERY,
+                         "kernel_path": ctrl_pm.kernel_path,
+                         "structure": ctrl_pm._fused.consts.structure,
+                         "refits": refits, "launches": counts}
+    if not (ctrl_pm.kernel_path == "cuda" and counts == want
+            and len(refits) == MBRL_PM_STEPS // MBRL_PM_TRAIN_EVERY
+            and all(r["live"] == r["learned"]
+                    and r["dyn_inv_mass"] == r["inv_learned"]
+                    for r in refits)
+            and refits[-1]["learned"] < 5.0):
+        raise AssertionError(f"mbrl point mass: {out['point_mass']}")
+    cli_out, cli_counts = run_cli(
+        workdir, "pm_train", default_config("envs/point_mass"),
+        "tasks/static_cost", "models/point_mass_model", MBRL_CLI_STEPS,
+        "-t", str(MBRL_CLI_TRAIN))
+    out["cli"] = dict(cli_out, launches=cli_counts)
+    if not (cli_out["kernel_path"] == "cuda"
+            and cli_counts["pm_fused_solve"] == MBRL_CLI_STEPS
+            and np.all(np.isfinite(cli_out["final_state"]))):
+        raise AssertionError(f"mbrl cli -t: {out['cli']}")
+    emit("mbrl", card=smi, **out)
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -3753,6 +4093,17 @@ def main() -> int:
     bf16_noise = bf16_noise_phase(pm)
     bf16_loops = bf16_loops_phase(pm, smi)
 
+    # ---- 27b. the model-based RL loop: collect, learn, the NN kernels on --
+    # ---- learned weights, the dives with refits, the analytic learner ------
+    with tempfile.TemporaryDirectory() as workdir:
+        mbrl = mbrl_phase(pm, nnk, nn_k, smi, workdir)
+    mbrl_launches = {
+        name: sum(d["launches"].get(name, 0) for d in mbrl["dives"])
+        for name in ("nn_fused_solve", "nn_fused_costs", "mppi_weights",
+                     "pm_merge")}
+    mbrl_launches["pm_fused_solve"] = mbrl["point_mass"]["launches"][
+        "pm_fused_solve"]
+
     # ---- 28. times -------------------------------------------------------------
     consts, nb = fused.consts, -(-K // pm.BLOCK)
     n_z = H * 3
@@ -4308,12 +4659,14 @@ def main() -> int:
          "replaces": "mppi_tf_tpu/kernels/pm_mppi.py:1000",
          "structure": consts.structure,
          "launches": main_counts["pm_fused_solve"],
+         "launches_mbrl": mbrl_launches["pm_fused_solve"],
          "max_abs_err": main_chk["solve_only_max_abs_err"],
          "ms": t_solve, "plain_ms": p_solve, "bound_ms": b_solve[0],
          "bound_by": b_solve[1], "library_ms": None},
         {"name": "pm_merge", "route": "cuda", "source": src,
          "replaces": "mppi_tf_tpu/kernels/pm_mppi.py:1000",
          "launches": main_counts["pm_merge"],
+         "launches_mbrl": mbrl_launches["pm_merge"],
          "max_abs_err": main_chk["merge_only_max_abs_err"],
          "ms": t_merge, "device_ms": d_merge,
          "empty_kernel_device_ms": d_empty, "plain_ms": p_merge,
@@ -4355,6 +4708,7 @@ def main() -> int:
          "path": "AUV normalized closed loop (adim 6); adim 3 on the "
                  "point-mass normalized loop",
          "launches_adim3": pm_norm_counts["mppi_weights"],
+         "launches_mbrl": mbrl_launches["mppi_weights"],
          "max_abs_err": w6["wnoise_max_abs_err"],
          "max_abs_err_adim3": w3["wnoise_max_abs_err"],
          "ms": t_w6, "device_ms": d_w6, "plain_ms": p_w6,
@@ -4423,6 +4777,10 @@ def main() -> int:
          "replaces": "mppi_tf_tpu/kernels/nn_mppi.py:631",
          "launches": nn_unnorm_counts["nn_fused_solve"],
          "path": "NN known-plant closed loop, unnormalized",
+         "launches_mbrl": mbrl_launches["nn_fused_solve"],
+         "max_abs_err_mbrl": max(mbrl["kernels"][n][
+             "fused_cost_stats_max_abs_err"] for n in ("learned",
+                                                        "rewritten")),
          "max_abs_err": nn_chk["fused_cost_stats_max_abs_err"],
          "max_abs_err_of": "merged cost min, max, mean of the fused rows "
                            "against the plain costs, K=65536, H=25, 3x32",
@@ -4434,6 +4792,9 @@ def main() -> int:
          "replaces": "mppi_tf_tpu/kernels/nn_mppi.py:647",
          "launches": nn_norm_counts["nn_fused_costs"],
          "path": "NN known-plant closed loop, normalized",
+         "launches_mbrl": mbrl_launches["nn_fused_costs"],
+         "max_abs_err_mbrl": max(mbrl["kernels"][n]["costs_max_abs_err"]
+                                 for n in ("learned", "rewritten")),
          "max_abs_err": nn_chk["costs_max_abs_err"],
          "ms": t_ncosts, "plain_ms": p_ncosts, "bound_ms": b_ncosts[0],
          "bound_by": b_ncosts[1], "tc_bound_ms": tc_ncosts[0],

@@ -5,9 +5,10 @@ experiment (``--config`` / ``--task`` / ``--model``), or replay one from the
 config snapshots of a directory (``--replay --log-dir``). It runs on the
 card unless ``--cpu`` (or ``--f64``, float64 on the CPU) is given. ``-l``
 writes metrics and config snapshots into a stamped directory under
-``--log-dir`` (observer/). GIFs (``-g``), training (``-t``) and the
-on-device loop (``--on-device``) are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP items.
+``--log-dir`` (observer/); ``-t N`` trains the model from the run's
+transitions every N steps (``learning/learner.py``) and hands it to the
+controller. GIFs (``-g``) and the on-device loop (``--on-device``) are not
+ported yet and raise ``NotImplementedError`` naming their ROADMAP items.
 
 Usage:
     python -m mppi_tf_tpu_torch.cli --config envs/point_mass \\
@@ -28,7 +29,6 @@ import sys
 #: flags of the JAX CLI whose machinery is not ported yet
 _NOT_PORTED = (
     ("gif", "-g/--gif: GIF plotting is not ported yet: ROADMAP item 15"),
-    ("train", "-t/--train: the learner is not ported yet: ROADMAP item 11"),
     ("on_device", "--on-device: the on-device closed loop is not ported "
                   "yet: ROADMAP item 13"),
 )
@@ -47,7 +47,7 @@ def parse_args(argv=None):
     p.add_argument("-s", "--steps", type=int, default=100,
                    help="number of control steps")
     p.add_argument("-t", "--train", type=int, default=0,
-                   help="train the model every N steps (not ported yet)")
+                   help="train the model every N steps (0 = never)")
     p.add_argument("-l", "--log", action="store_true",
                    help="write TensorBoard/JSONL metrics and config "
                         "snapshots")
@@ -97,7 +97,7 @@ def main(argv=None):
     result = run_experiment(
         env_cfg, task_cfg, model_cfg, steps=args.steps, log=args.log,
         log_path=None if args.replay else args.log_dir, render=args.render,
-        seed=args.seed,
+        seed=args.seed, train_every=args.train,
         dtype=torch.float64 if args.f64 else torch.float32,
         device="cpu" if (args.cpu or args.f64) else "cuda")
     ctrl, observer = result["controller"], result["observer"]

@@ -3,9 +3,11 @@
 Reference: scripts/main.py:94-106 (the intended flow): each control step
 reads the state, solves MPPI, then steps the plant at its own (finer)
 physics dt until one controller dt has elapsed, and logs the transition
-to the controller's observer. The JAX package's learner hook
-(``train_every``) and on-device loop are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP items.
+to the controller's observer; with a learner it stores the transition
+and refits the model every ``train_every`` steps, handing the learned
+parameters to the controller (the JAX package's learner hook,
+``mppi_tf_tpu/envs/runner.py:54-65``). The on-device loop is not ported
+yet and raises ``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -18,13 +20,20 @@ import torch
 
 class ClosedLoopRunner:
     """Drives a controller against an env at the control dt; the
-    controller's ``save`` logs each transition to its observer."""
+    controller's ``save`` logs each transition to its observer, and an
+    optional learner (``learning.Learner``) stores it and, every
+    ``train_every`` steps, refreshes its normalisers, trains on its
+    buffer and writes its parameters into the controller's model
+    (``MPPI.model_params``: in place, no host sync)."""
 
     def __init__(self, env, controller, control_dt: float,
+                 learner=None, train_every: int = 0,
                  waypoint_radius: float = 0.0):
         self.env = env
         self.controller = controller
         self.control_dt = float(control_dt)
+        self.learner = learner
+        self.train_every = int(train_every)
         # > 0 pops the leading waypoint of a WayPointsCost once the plant
         # is within this distance of it (controller/missions.py; the wiring
         # the reference's waypoint draft never got, cost_base.py:210-284)
@@ -37,7 +46,7 @@ class ClosedLoopRunner:
             self.env.reset(x0)
         states, actions = [], []
         x = self.env.getState()
-        for _ in range(steps):
+        for step in range(steps):
             u = self.controller.next(x)
             prev = self.env.getTime()
             x_next = x
@@ -47,6 +56,12 @@ class ClosedLoopRunner:
                                        goal=self.env.getGoal())
             if hasattr(self.controller, "save"):
                 self.controller.save(x, np.reshape(u, (-1, 1)), x_next)
+            if self.learner is not None:
+                self.learner.add_rb(np.reshape(x, (-1, 1)),
+                                    np.reshape(u, (-1, 1)),
+                                    np.reshape(x_next, (-1, 1)))
+                if self.train_every and (step + 1) % self.train_every == 0:
+                    self.train_step()
             states.append(np.reshape(x, (-1,)).copy())
             actions.append(np.reshape(u, (-1,)).copy())
             x = x_next
@@ -54,6 +69,14 @@ class ClosedLoopRunner:
                 self._advance_waypoints(x)
         states.append(np.reshape(x, (-1,)).copy())
         return np.asarray(states), np.asarray(actions)
+
+    def train_step(self):
+        """One refit: normalisers from the grown buffer (a no-op for
+        analytic models), ``train_all``, and the learner's parameters
+        written into the controller's model."""
+        self.learner.stats()
+        self.learner.train_all()
+        self.controller.model_params = self.learner.params
 
     def _advance_waypoints(self, x):
         """Pop the leading waypoint once the plant state is inside
@@ -99,16 +122,16 @@ def run_experiment(env_cfg, task_cfg, model_cfg, steps: int = 100,
     attaches an ``Observer`` writing under ``log_path`` (default "logs"):
     config snapshots, per-solve metrics and one-step prediction errors.
 
+    ``train_every`` > 0 builds a ``Learner`` over a copy of the model on
+    the experiment's observer and refits every ``train_every`` steps.
+
     Returns {"states", "actions", "controller", "env", "observer",
-    "learner"} (learner None; observer None without ``log``). The caller
-    closes the observer.
+    "learner"} (learner None without ``train_every``; observer None
+    without ``log``). The caller closes the observer.
     """
     from ..controller import get_controller
     from . import get_env
 
-    if train_every:
-        raise NotImplementedError(
-            "train_every: the learner is not ported yet: ROADMAP item 11")
     if on_device:
         raise NotImplementedError(
             "on_device: the on-device closed loop is not ported yet: "
@@ -129,9 +152,16 @@ def run_experiment(env_cfg, task_cfg, model_cfg, steps: int = 100,
                             task_cfg=task_cfg, model_cfg=model_cfg)
     controller = get_controller(model, cost, env_cfg, observer=observer,
                                 seed=seed, device=device)
+    learner = None
+    if train_every:
+        from ..learning import Learner
+
+        # the experiment's observer: training curves beside the snapshots
+        learner = Learner(model, observer=observer)
     runner = ClosedLoopRunner(env, controller,
                               control_dt=env_cfg.get("dt", 0.1),
+                              learner=learner, train_every=train_every,
                               waypoint_radius=task_cfg.get("radius", 0.0))
     states, actions = runner.run(steps)
     return {"states": states, "actions": actions, "controller": controller,
-            "env": env, "observer": observer, "learner": None}
+            "env": env, "observer": observer, "learner": learner}

@@ -1,13 +1,14 @@
-"""Transition replay buffer: a preallocated numpy ring on the host.
+"""Transition replay buffer on the host.
 
 Reference: the cpprb ``ReplayBuffer`` of LearnerBase
 (scripts/src/learners/learner_base.py:33-64) with obs / act / next_obs,
 and the C++ ``DataBase`` CSV transition store (src/data_base.cpp:52-71).
-The JAX package's copy (``mppi_tf_tpu/learning/replay.py``) also offers a
-native C++ datastore backend; this port keeps the numpy ring only
-(``backend`` is always "numpy") and accepts ``use_native`` so that the
-constructor has the same signature. Transitions arrive from the plant on
-the host, so the buffer imports no torch.
+As in the JAX package (``mppi_tf_tpu/learning/replay.py``), storage is the
+native C++ datastore (``datastore.py``, built with g++ at first use) with
+``use_native=True`` where it builds, else a preallocated numpy ring; the
+surface is the same either way and ``backend`` says which it is.
+Transitions arrive from the plant on the host, so the buffer imports no
+torch.
 """
 
 from __future__ import annotations
@@ -23,32 +24,48 @@ class ReplayBuffer:
 
     def __init__(self, capacity: int, s_dim: int, a_dim: int,
                  use_native: bool = True):
-        del use_native  # the native datastore is not ported: ROADMAP item 11
         self.capacity = int(capacity)
         self.s_dim = int(s_dim)
         self.a_dim = int(a_dim)
         # monotonic adds counter: len() saturates at capacity
         self.total_added = 0
-        self._obs = np.zeros((self.capacity, self.s_dim))
-        self._act = np.zeros((self.capacity, self.a_dim))
-        self._next = np.zeros((self.capacity, self.s_dim))
-        self._idx = 0
-        self._size = 0
+        self._native = None
+        if use_native:
+            try:   # as the JAX buffer: no compiler, no build -> numpy
+                from .datastore import NativeDataStore
+
+                self._native = NativeDataStore(capacity, s_dim, a_dim)
+            except Exception:
+                self._native = None
+        if self._native is None:
+            self._obs = np.zeros((self.capacity, self.s_dim))
+            self._act = np.zeros((self.capacity, self.a_dim))
+            self._next = np.zeros((self.capacity, self.s_dim))
+            self._idx = 0
+            self._size = 0
 
     def __len__(self) -> int:
+        if self._native is not None:
+            return len(self._native)
         return self._size
 
     @property
     def backend(self) -> str:
-        return "numpy"
+        return "native" if self._native is not None else "numpy"
 
     def add(self, obs, act, next_obs) -> None:
         """Append one transition (learner_base.py:57-58, add_rb)."""
-        i = self._idx
-        self._obs[i] = np.asarray(obs, np.float64).reshape(-1)
-        self._act[i] = np.asarray(act, np.float64).reshape(-1)
-        self._next[i] = np.asarray(next_obs, np.float64).reshape(-1)
+        obs = np.asarray(obs, np.float64).reshape(-1)
+        act = np.asarray(act, np.float64).reshape(-1)
+        next_obs = np.asarray(next_obs, np.float64).reshape(-1)
         self.total_added += 1
+        if self._native is not None:
+            self._native.add(obs, act, next_obs)
+            return
+        i = self._idx
+        self._obs[i] = obs
+        self._act[i] = act
+        self._next[i] = next_obs
         self._idx = (i + 1) % self.capacity
         self._size = min(self._size + 1, self.capacity)
 
@@ -58,6 +75,8 @@ class ReplayBuffer:
 
     def get_all_transitions(self) -> Dict[str, np.ndarray]:
         """All stored transitions, oldest first (learner_base.py:60-61)."""
+        if self._native is not None:
+            return self._native.get_all()
         if self._size < self.capacity:
             return self._rows(slice(0, self._size))
         return self._rows(np.roll(np.arange(self.capacity), -self._idx))
@@ -66,10 +85,13 @@ class ReplayBuffer:
         """Uniform random minibatch by index into the ring; raises on an
         empty buffer."""
         rng = rng or np.random.default_rng()
-        if self._size == 0:
+        n = len(self)
+        if n == 0:
             raise ValueError(
                 "replay buffer is empty — add transitions before sampling")
-        idx = rng.integers(0, self._size, size=batch)
+        idx = rng.integers(0, n, size=batch)
+        if self._native is not None:   # the store has no ring view
+            return {k: v[idx] for k, v in self.get_all_transitions().items()}
         if self._size >= self.capacity:  # ring full: physical = logical+idx
             idx = (idx + self._idx) % self.capacity
         return self._rows(idx)

@@ -124,6 +124,8 @@ class AUVModel(ModelBase):
         self.inertial = nn.Parameter(torch.tensor(
             [float(inertial_cfg[k]) for k in keys], dtype=dtype,
             device=device))
+        self._configured = {"mass": mass, "inertial": [
+            float(inertial_cfg[k]) for k in keys]}
         self._mats = None
         self._mats_key = None
 

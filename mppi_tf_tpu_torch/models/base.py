@@ -3,11 +3,14 @@
 A model is an ``nn.Module`` that holds its own parameters; ``step`` is
 batched over the leading axis. The controller only needs ``step``;
 ``predict`` and ``run_model`` are the reference's parity wrappers
-(model_base.py:59-100).
+(model_base.py:59-100). ``trainable`` / ``with_trainable`` /
+``trainable_init`` are the surface the learner trains through (the JAX
+package's ``models/base.py:72-88``).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -36,12 +39,53 @@ class ModelBase(nn.Module):
         self.register_buffer("act_max_", limit(act_max, one))
         self.register_buffer("act_min_", limit(act_min, -one))
 
+        # the configured values of the parameters (``trainable_init``),
+        # set by each model that has parameters
+        self._configured = {}
+
     def step(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """One-step prediction f(x, u). x: [k, sDim], u: [k, aDim] -> [k, sDim].
 
         Reference: model_base.py:41-57.
         """
         raise NotImplementedError
+
+    # --- trainable surface ------------------------------------------------
+    # The reference gives every model an Adam handle and trains whatever
+    # variables it holds (model_base.py:30-39; the point-mass mass fit is
+    # scripts/test.py:220). For an analytic model the trainable parameters
+    # are its physical ones (the point mass's mass, the AUV's mass and
+    # inertial, DMD's A and B); NN models override these to expose the
+    # network alone (models/nn.py).
+    def trainable(self) -> dict:
+        """The parameters gradients flow through, by name: every
+        ``nn.Parameter`` of the model."""
+        return dict(self.named_parameters())
+
+    def with_trainable(self, tr) -> "ModelBase":
+        """Copy ``tr`` (tensors or arrays under the names of
+        ``trainable()``) into the parameters in place. Returns the model."""
+        params = self.trainable()
+        if set(tr) != set(params):
+            raise KeyError(f"trainable values {sorted(tr)} != the model's "
+                           f"{sorted(params)}")
+        with torch.no_grad():
+            for name, p in params.items():
+                v = tr[name]
+                src = (v.detach() if isinstance(v, torch.Tensor)
+                       else torch.as_tensor(np.asarray(v, np.float64)))
+                p.copy_(src.to(p.dtype).reshape(p.shape))
+        return self
+
+    def trainable_init(self, generator=None) -> dict:
+        """A fresh trainable init for k-fold clones (reference
+        ``copy_model``, scripts/src/model.py:70-78): an analytic model is
+        deterministic, so the configured values of its parameters (NN
+        models draw fresh weights from ``generator``)."""
+        del generator
+        return {name: torch.as_tensor(v, dtype=self.dtype,
+                                      device=self.device)
+                for name, v in self._configured.items()}
 
     def predict(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """Single-sample prediction. x: [sDim], u: [aDim] -> [sDim]."""

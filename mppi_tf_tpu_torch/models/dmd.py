@@ -64,6 +64,7 @@ class DMDModel(ModelBase):
                              f"got {B.shape}")
         self.A = nn.Parameter(torch.as_tensor(A, dtype=dtype, device=device))
         self.B = nn.Parameter(torch.as_tensor(B, dtype=dtype, device=device))
+        self._configured = {"A": A, "B": B}
 
     def step(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         return x @ self.A.T + u @ self.B.T

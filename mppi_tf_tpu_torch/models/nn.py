@@ -134,14 +134,15 @@ class NNModel(ModelBase):
 
     # --- params ----------------------------------------------------------
     def set_normalization(self, x_mean, x_std, y_mean, y_std) -> None:
-        """Write the normalisers in place (the learner's ``stats()``)."""
+        """Write the normalisers in place (the learner's ``stats()``):
+        arrays, scalars or tensors on any device."""
         with torch.no_grad():
             for name_, value in (("x_mean", x_mean), ("x_std", x_std),
                                  ("y_mean", y_mean), ("y_std", y_std)):
                 buf = getattr(self, name_)
-                buf.copy_(torch.as_tensor(
-                    np.asarray(value, np.float64), dtype=buf.dtype).reshape(
-                        -1).expand(buf.shape))
+                src = (value.detach() if isinstance(value, torch.Tensor)
+                       else torch.as_tensor(np.asarray(value, np.float64)))
+                buf.copy_(src.to(buf.dtype).reshape(-1).expand(buf.shape))
 
     def reset_parameters(self) -> None:
         """The weights of the model's seed and identity normalisers: the

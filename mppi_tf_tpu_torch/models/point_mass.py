@@ -34,6 +34,7 @@ class PointMassModel(ModelBase):
                          device=device)
         self.mass = nn.Parameter(
             torch.tensor(float(mass), dtype=dtype, device=device))
+        self._configured = {"mass": float(mass)}
         a = np.array([[1.0, dt], [0.0, 1.0]])
         b = np.array([[dt * dt / 2.0], [dt]])
         self.register_buffer("A", torch.as_tensor(

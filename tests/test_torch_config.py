@@ -215,8 +215,8 @@ def test_cli_requires_the_three_configs(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["-l", "-g"], "item 15"), (["-g"], "item 15"), (["-t", "5"], "item 11"),
-    (["--on-device"], "item 13")])
+    (["-l", "-g"], "item 15"), (["-g"], "item 15"),
+    (["-t", "5", "--on-device"], "item 13"), (["--on-device"], "item 13")])
 def test_cli_unported_flags_raise(flag, item):
     with pytest.raises(NotImplementedError, match=item):
         cli.main(["--config", "envs/point_mass", "--task",
@@ -225,12 +225,34 @@ def test_cli_unported_flags_raise(flag, item):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"train_every": 5}, "item 11"), ({"on_device": True}, "item 13")])
+    ({"train_every": 5, "on_device": True}, "item 13"),
+    ({"on_device": True}, "item 13")])
 def test_run_experiment_unported_options(kw, item):
     cfgs = [config.default_config(n) for n in (
         "envs/point_mass", "tasks/static_cost", "models/point_mass_model")]
     with pytest.raises(NotImplementedError, match=item):
         run_experiment(*cfgs, steps=1, device="cpu", **kw)
+
+
+def test_cli_train_flag_runs_the_learner(tmp_path, capsys):
+    """-t 5 (the learner, ROADMAP item 11) on the CPU: two refits of the
+    point mass's mass over ten steps."""
+    out = _run(cli.main, ["--config", _small_point_mass(tmp_path, 32, 5),
+                          "--task", "tasks/static_cost", "--model",
+                          "models/point_mass_model", "-s", "10", "-t", "5",
+                          "--cpu"], capsys)
+    assert out["steps"] == 10 and np.all(np.isfinite(out["final_state"]))
+
+
+def test_run_experiment_train_every_hands_the_mass_over():
+    cfgs = [config.default_config(n) for n in (
+        "envs/point_mass", "tasks/static_cost", "models/point_mass_model")]
+    cfgs[0] = dict(cfgs[0], samples=32, horizon=5)
+    out = run_experiment(*cfgs, steps=10, device="cpu", train_every=5)
+    learner, ctrl = out["learner"], out["controller"]
+    assert len(learner.rb) == 10 and learner.rb.backend == "native"
+    mass = float(learner.params["mass"])
+    assert mass != 5.0 and float(ctrl.model_params["mass"]) == mass
 
 
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path):

@@ -1521,3 +1521,117 @@ def test_bf16_controllers_run_the_bf16_kernels(cuda_device, kind):
     with pytest.raises(ValueError, match="fused kernel path only"):
         cls(model, cost, k=100, tau=6, sigma=sigma, kernel="torch",
             kernel_dtype="bfloat16", device=cuda_device)
+
+
+# ---------------------------------------------------------------------------
+# the learner (learning/learner.py) and its hand-over to the NN kernels
+# ---------------------------------------------------------------------------
+def _learner_rows(n=96, seed=21):
+    """(x, u, x') of a 13-state linear map from numpy: rest at a random
+    attitude, random velocities and actions."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n):
+        x = np.zeros(13)
+        q = np.append(0.2 * rng.standard_normal(3), 1.0)
+        x[3:7] = q / np.linalg.norm(q)
+        x[7:] = 0.5 * rng.standard_normal(6)
+        u = 5.0 * rng.standard_normal(6)
+        x1 = x.copy()
+        x1[:3] += 0.1 * x[7:10]
+        x1[7:] += 0.01 * u
+        rows.append((x, u, x1))
+    return rows
+
+
+def _filled_learner(device, rows):
+    from mppi_tf_tpu_torch.learning import Learner
+    from mppi_tf_tpu_torch.models.nn import NNAUVModel
+
+    learner = Learner(NNAUVModel(seed=6), device=device, learning_rate=1e-2)
+    for x, u, x1 in rows:
+        learner.add_rb(x, u, x1)
+    learner.stats()
+    return learner
+
+
+def test_learner_trains_on_the_card(cuda_device):
+    """A Learner on the card trains its own copy of the model there: the
+    loss falls, and 20 epochs without augmentation stay within f32
+    rounding of the same learner on the CPU."""
+    rows = _learner_rows()
+    learner, cpu = _filled_learner(cuda_device, rows), _filled_learner(
+        "cpu", rows)
+    assert learner.model.device.type == "cuda"
+    assert learner.rb.backend == "native"
+    X, Y = learner._prepare(learner.rb_trans())
+    with torch.no_grad():
+        l0 = float(learner._loss(X, Y))
+    learner.train_all(epoch=20, augment=False)
+    cpu.train_all(epoch=20, augment=False)
+    for name, t in learner.params["net"][0].items():
+        assert t.device.type == "cuda"
+        torch.testing.assert_close(t.cpu(), cpu.params["net"][0][name],
+                                   rtol=1e-4, atol=1e-5)
+    learner.train_all(epoch=200)
+    with torch.no_grad():
+        assert float(learner._loss(X, Y)) < 0.1 * l0
+
+
+def test_model_params_write_reaches_nn_fused_solve(cuda_device):
+    """controller.model_params = learner.params writes the learned weights
+    in place: the next dyn packs them, the kernels match their plain
+    versions on them, and their costs move from the pre-write ones."""
+    from mppi_tf_tpu_torch.kernels import nn_mppi as nnk
+    from mppi_tf_tpu_torch.models.nn import NNAUVModel
+
+    learner = _filled_learner(cuda_device, _learner_rows())
+    learner.train_all(epoch=100)
+    cost = get_cost(flagship.auv_task(), lam=0.5, gamma=0.2, upsilon=1.0,
+                    sigma=NN_SIGMA, device=cuda_device)
+    ctrl = MPPI(NNAUVModel(device=cuda_device), cost, k=4097, tau=12,
+                lam=0.5, upsilon=1.0, sigma=NN_SIGMA, kernel="cuda",
+                device=cuda_device)
+    fused = ctrl._fused
+    z, x0, useq, dyn0 = _auv_inputs(fused, cuda_device, seed=5)
+    ctrl.model_params = learner.params
+    assert fused.model is ctrl._model
+    for name, t in ctrl.model_params["net"][1].items():
+        torch.testing.assert_close(t, learner.params["net"][1][name],
+                                   rtol=0, atol=0)
+    with torch.no_grad():
+        dyn = fused.pack_dyn(x0, useq)
+    c, k, tau = fused.consts, fused.k, fused.tau
+    before = pm.launch_counts["nn_fused_costs"]
+    costs_k, _ = nnk.nn_fused_costs(c, dyn, k, tau, z=z)
+    assert pm.launch_counts["nn_fused_costs"] == before + 1
+    costs_p = nnk.sample_costs_plain(c, dyn, z)
+    torch.testing.assert_close(costs_k, costs_p, rtol=COST_RTOL,
+                               atol=COST_ATOL)
+    stale = nnk.nn_fused_costs(c, dyn0, k, tau, z=z)[0]
+    assert not torch.allclose(costs_k, stale, rtol=COST_RTOL,
+                              atol=COST_ATOL)
+    zs_k, st_k = pm.merge_plain(nnk.nn_fused_solve(c, dyn, k, tau, z=z))
+    zs_p, st_p = pm.merge_plain(nnk.fused_solve_plain(c, dyn, k, tau, z=z))
+    torch.testing.assert_close(zs_k / st_k[1], zs_p / st_p[1], rtol=1e-2,
+                               atol=1e-3)
+
+
+def test_native_replay_buffer_on_the_card_machine(cuda_device, tmp_path):
+    """g++ builds the port's datastore on the card's machine: the replay
+    buffer's backend is native, its ring and CSV as the numpy ring's."""
+    from mppi_tf_tpu_torch.learning import ReplayBuffer, datastore
+
+    rb = ReplayBuffer(4, 2, 1)
+    ring = ReplayBuffer(4, 2, 1, use_native=False)
+    assert rb.backend == "native" and ring.backend == "numpy"
+    assert datastore.library_path().exists()
+    for i in range(6):
+        for b in (rb, ring):
+            b.add([i, i], [i], [i + 1, i + 1])
+    for key, v in ring.get_all_transitions().items():
+        np.testing.assert_array_equal(rb.get_all_transitions()[key], v)
+    rb._native.to_csv(str(tmp_path / "native.csv"))
+    loaded = np.loadtxt(tmp_path / "native.csv", delimiter=",", skiprows=1)
+    np.testing.assert_array_equal(loaded[:, :2],
+                                  ring.get_all_transitions()["obs"])

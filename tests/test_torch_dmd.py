@@ -94,7 +94,7 @@ def test_replay_ring_order_matches_jax(n):
     tr, jtr = rb.get_all_transitions(), jrb.get_all_transitions()
     keep = rows[-5:]
     assert len(rb) == len(jrb) == min(n, 5) and rb.total_added == n
-    assert rb.backend == "numpy"
+    assert rb.backend == "native"
     for i, key in enumerate(("obs", "act", "next_obs")):
         np.testing.assert_array_equal(tr[key], jtr[key])
         np.testing.assert_array_equal(tr[key],

@@ -38,7 +38,11 @@ def test_import_leaves_no_jax_modules():
         " mppi_tf_tpu_torch.controller.missions,"
         " mppi_tf_tpu_torch.observer, mppi_tf_tpu_torch.observer.observer,"
         " mppi_tf_tpu_torch.learning, mppi_tf_tpu_torch.learning.replay,"
-        " mppi_tf_tpu_torch.models.dmd, mppi_tf_tpu_torch.controller.dmd\n"
+        " mppi_tf_tpu_torch.models.dmd, mppi_tf_tpu_torch.controller.dmd,"
+        " mppi_tf_tpu_torch.learning.learner,"
+        " mppi_tf_tpu_torch.learning.checkpoint,"
+        " mppi_tf_tpu_torch.learning.datastore, mppi_tf_tpu_torch.collect,"
+        " mppi_tf_tpu_torch.verify_models\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mppi_tf_tpu', 'triton'))\n"
         "print(','.join(bad))\n")
@@ -107,13 +111,34 @@ def test_sources_cover_the_dmd_slice():
             "mppi_tf_tpu_torch/controller/dmd.py"} <= names
 
 
+def test_sources_cover_the_learner():
+    names = {p.relative_to(REPO).as_posix() for p in _sources()}
+    assert {"mppi_tf_tpu_torch/learning/learner.py",
+            "mppi_tf_tpu_torch/learning/checkpoint.py",
+            "mppi_tf_tpu_torch/learning/datastore.py",
+            "mppi_tf_tpu_torch/collect.py",
+            "mppi_tf_tpu_torch/verify_models.py"} <= names
+
+
+def test_native_datastore_is_the_ports_own_source():
+    """The datastore binding builds the port's copy of the C++ source, in
+    the port's build directory, and names no path of the JAX package."""
+    text = (PORT / "learning" / "datastore.py").read_text()
+    assert "mppi_tf_tpu/native" not in text.replace(
+        "mppi_tf_tpu/learning/datastore.py", "")
+    assert (PORT / "native" / "src" / "datastore.cpp").exists()
+
+
 def test_replay_buffer_imports_no_torch():
     """The replay buffer is host numpy, as in the JAX package: importing
     it alone loads no torch."""
     path = PORT / "learning" / "replay.py"
+    store = PORT / "learning" / "datastore.py"
     code = ("import runpy, sys\n"
             f"ns = runpy.run_path({str(path)!r})\n"
             "ns['ReplayBuffer'](4, 2, 1).add([0, 1], [2], [3, 4])\n"
+            f"ds = runpy.run_path({str(store)!r})\n"
+            "ds['NativeDataStore'](4, 2, 1).add([0, 1], [2], [3, 4])\n"
             "print('torch' in sys.modules)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
