@@ -61,7 +61,18 @@ port's paths through ``MPPI.next`` closed loop against the analytic plants:
   held to one sync a step, refits profiled apart), ``run_experiment(
   train_every=10)`` on the point mass at K=100,000, H=50 with the live mass
   and the solve's 1/mass held to the learner's at every refit, and the
-  CLI with ``-t``;
+  CLI with ``-t``; and the NN kernels against their plain versions on
+  weights learned from one episode (a constant feature, x_std 1e-8: the
+  case the kernels' former fold of the normalisers cancelled);
+- the on-device loop (``envs/mjx_env.py``): the JAX bench's three
+  on-device rows at full width, each control period one captured CUDA
+  graph replayed (the point mass at K=100,000, H=50, 500 periods of 10
+  plant steps; the adaptive DMD with its refit captured too, 200 periods;
+  the rexrov2 two-leg mission at K=65,536, H=15, 200 periods, the pops on
+  the device), each held to its gates, to the eager periods bit for bit,
+  to one host sync a run, to a host ``next`` drawing the next solve index,
+  and its kernels' device solve index to the int's bits (below and past
+  2^32), and timed beside the host-driven loop of the same cell;
 - the bf16 block compute (``kernel_dtype="bfloat16"``): every bf16 kernel
   against its plain bf16 version on injected z and the Philox stream
   (point mass K=100,000, H=50 with constant and dynamic (A, B), the (4, 2)
@@ -107,6 +118,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -174,9 +186,11 @@ NN_CLI_STEPS = 5
 # transitions from the known plant, uniform random actions in
 # [-MBRL_ACT_MAX, MBRL_ACT_MAX]^6, in MBRL_EPISODES episodes from rest at
 # random attitudes (quaternion vector part N(0, MBRL_ATTITUDE^2) before
-# normalising): from one attitude the quaternion features are constant,
-# stats() leaves their std at 1e-8, and the fused NN kernels' fold of the
-# normalisers cancels them (ROADMAP §3); a 3x32 NNAUVModel (seed
+# normalising): from one attitude the quaternion features are constant
+# and stats() leaves their std at 1e-8, which a fold of the normalisers
+# into the first layer cancels (ROADMAP §3; the kernels normalise in f32,
+# held on one episode's weights too, MBRL_ONE_EPISODE_SEED);
+# a 3x32 NNAUVModel (seed
 # MBRL_SEED) learned with MBRL_EPOCHS of Adam at MBRL_LR; the refits at the
 # Learner's defaults (100 epochs at 1e-3), as MBRL_REWRITE_EPOCHS more
 # before the rewrite check; the dive with refits every MBRL_TRAIN_EVERY
@@ -189,11 +203,43 @@ NN_CLI_STEPS = 5
 MBRL_BUFFER, MBRL_EPISODES, MBRL_ACT_MAX, MBRL_ATTITUDE = 264, 12, 10.0, 0.2
 MBRL_SEED, MBRL_EPOCHS, MBRL_LR, MBRL_REWRITE_EPOCHS = 5, 300, 1e-2, 100
 MBRL_TRAIN_EVERY, MBRL_MSE_SHARE, MBRL_LOOP_TOL = 20, 0.1, NN_LOOP_TOL
+# the constant-feature case: MBRL_BUFFER transitions of one episode from
+# rest (one attitude), actions in +-MBRL_ACT_MAX, collection seed 1
+MBRL_ONE_EPISODE_SEED = 1
 # the analytic learner at the headline width: run_experiment on the
 # bundled point mass (model mass 5, plant mass 1) at K, H, a refit every
 # MBRL_PM_TRAIN_EVERY steps; the CLI with -t MBRL_CLI_TRAIN at K=3,000
 MBRL_PM_STEPS, MBRL_PM_TRAIN_EVERY = 50, 10
 MBRL_CLI_STEPS, MBRL_CLI_TRAIN = 20, 5
+# the on-device loop (ROADMAP item 13): the JAX bench's three on-device rows
+# at full width (mppi_tf_tpu/bench.py:418-560, 722-790), one captured CUDA
+# graph a control period. on_device_loop: the point mass at K, H, OD_STEPS
+# periods of OD_SUBSTEPS plant steps at dt 0.01 (gate: GOAL_TOL);
+# on_device_adaptive_dmd: K, H, DMD_ADAPT_STEPS periods, a refit every
+# DMD_REFIT, a mass-1 prior against the mass-DMD_PLANT_MASS plant, reg
+# DMD_REG (gates: DMD_B_TOL, DMD_GOAL_TOL); on_device_auv_mission: rexrov2
+# at OD_AUV_K, OD_AUV_H, OD_AUV_STEPS periods of DIVE_SUBSTEPS at dt 0.02,
+# the two legs at z = -1, -2, radius AUV_WP_RADIUS, normalized (gates: one
+# pop; after it the dive comes within AUV_WP_TOL of z = -2, and again
+# within the last OD_AUV_SETTLE periods: the vehicle overshoots the last
+# leg near period 200, in the JAX package too, so the final state alone is
+# not the gate). Each row beside OD_TWIN_STEPS profiled steps of its
+# host-driven loop (MPPI.next and the host plant); the kernels' device
+# solve index held to the int at 5 and OD_HIGH_SOLVE (past 2^32); the
+# row's kernels against their plain versions at its own K and H. A row's
+# launches are read from the profiler by kernel name (OD_KERNEL_RX: the
+# solve kernels by their MODE template argument, 0 fused, 1 costs). At
+# these rates (~0.5-0.7 M kernels/s) the profiler lost up to 5 of a run's
+# 500 solve kernels in about one run of four on the H100, so a row is
+# profiled again while its count falls short, up to OD_PROFILE_TRIES
+OD_STEPS, OD_SUBSTEPS = 500, 10
+OD_AUV_K, OD_AUV_H, OD_AUV_STEPS, OD_AUV_SETTLE = 65_536, 15, 200, 50
+OD_TWIN_STEPS, OD_STEP0, OD_HIGH_SOLVE = 20, 1000, 2 ** 32 + 12_345
+OD_PROFILE_TRIES = 3
+OD_KERNEL_RX = {"pm_fused_solve": r"\bpm_fused_solve_kernel<\d+, \d+, 0,",
+                "auv_fused_costs": r"\bauv_fused_solve_kernel<\d+, 1,",
+                "mppi_weights": r"\bmppi_weights_kernel\b",
+                "pm_merge": r"\bpm_merge(_stats)?_kernel\b"}
 
 # the tracking slice. Point-mass mission: the bundled envs/point_mass (lambda
 # 1, gamma 1, sigma 0.25 I) and tasks/waypoints_task (3 legs, radius 0.3) at
@@ -795,11 +841,14 @@ def profile_steps(ctrl, steps: int = 20, x=None, radius=None) -> dict:
     return dict(profile_run(run, steps), pops=sum(pops))
 
 
-def profile_run(run, steps: int) -> dict:
+def profile_run(run, steps: int, count=None) -> dict:
     """``torch.profiler`` over ``run()``, ``steps`` control steps: device
     busy share = summed kernel time / wall time (one stream, so kernels do
     not overlap); synchronising CUDA runtime calls per step (the action's
-    copy to the host is one)."""
+    copy to the host is one); the host µs of a ``cudaGraphLaunch`` where
+    ``run`` replays graphs (profiled, so an upper bound). ``count``
+    ({label: regex}): also the number of kernels the device ran whose
+    names match each regex, in all."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -818,6 +867,8 @@ def profile_run(run, steps: int) -> dict:
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
     syncs = {e.key: e.count / steps for e in events
              if e.device_type == DeviceType.CPU and "Synchronize" in e.key}
+    graph = [e for e in events if e.device_type == DeviceType.CPU
+             and e.key == "cudaGraphLaunch"]
     return {
         "steps": steps, "wall_us_per_step": wall_us / steps,
         "device_us_per_step": dev_us / steps,
@@ -826,6 +877,11 @@ def profile_run(run, steps: int) -> dict:
         "syncs_per_step": syncs,
         "top_kernels_us_per_step": {
             e.key[:60]: e.self_device_time_total / steps for e in top},
+        **({"graph_launch_host_us": graph[0].cpu_time_total
+            / graph[0].count} if graph else {}),
+        **({"kernel_counts": {
+            label: sum(e.count for e in kern if re.search(rx, e.key))
+            for label, rx in count.items()}} if count else {}),
     }
 
 
@@ -1060,6 +1116,79 @@ def check_weights(pm, fused, label: str) -> dict:
     if not (ok_w and ok_s and l_rel <= 1e-5):
         raise AssertionError(f"mppi_weights disagrees with its plain "
                              f"version ({label}): {out}")
+    return out
+
+
+def check_two_phase(kern, pm, fused, z, label: str, x0, useq) -> dict:
+    """The normalized two-phase solve of a 13-state solve object as the
+    controller runs it (``fused.costs_phase``: ``kern.costs`` and the
+    stats-only pm_merge; ``fused.weights_phase``: mppi_weights and
+    pm_merge) on injected z, from state ``x0`` and nominal ``useq``,
+    against its plain version: the costs at COST_RTOL / COST_ATOL and
+    their merged min, max and mean at 1e-4; phase B alone (the plain
+    weights over the kernel's own costs, rtol 1e-4, as check_weights);
+    the merge alone (pm_merge against merge_plain on the plain rows: zsum
+    / l at check_solve's 1e-5 / 1e-6, its stats at 1e-5); the merged weighted noise (z units, zsum / l) end to
+    end at check_auv's 1e-2 / 1e-3, beside its first-order reading."""
+    k, tau, adim, c = fused.k, fused.tau, fused.adim, fused.consts
+    with torch.no_grad():
+        dyn = fused.pack_dyn(x0, useq)
+        costs_k, cst = fused.costs_phase(x0, useq, z=z)
+        zs_k, l_k = fused.weights_phase(costs_k, cst["cost_min"],
+                                        cst["cost_max"], z=z)
+    costs_p = kern.sample_costs_plain(c, dyn, z)
+
+    def rows_plain(costs):
+        beta, cmax = costs.min(), costs.max()
+        denom = torch.where(cmax > beta, cmax - beta, torch.ones_like(beta))
+        nrm = torch.stack([beta, 1.0 / (denom * fused.lam)])
+        return pm.weights_plain(nrm, costs, tau, adim, z=z,
+                                antithetic=fused.antithetic)
+
+    rows_p = rows_plain(costs_p)
+    zs_p, st_p = pm.merge_plain(rows_p)
+    zs_b, st_b = pm.merge_plain(rows_plain(costs_k))
+    zs_m, st_m = pm.pm_merge(rows_p)
+    torch.cuda.synchronize()
+    wn_k = zs_k.reshape(-1) / l_k
+    out = {"k": k, "tau": tau, "adim": adim, "cost_rtol": COST_RTOL,
+           "cost_atol": COST_ATOL}
+    ok_c, err_c, ratio_c = close(costs_k, costs_p, COST_RTOL, COST_ATOL)
+    got = torch.stack([cst["cost_min"], cst["cost_max"],
+                       cst["cost_sum"] / k]).double()
+    ref = torch.stack([costs_p.min(), costs_p.max(),
+                       costs_p.sum() / k]).double()
+    stats_rel = ((got - ref).abs() / ref.abs()).max().item()
+    ok_b, err_b, _ = close(wn_k, zs_b / st_b[1], 1e-4, 1e-6)
+    ok_m, err_m, _ = close(zs_m / st_m[1], zs_p / st_p[1], 1e-5, 1e-6)
+    m_rel = ((st_m[:5].double() - st_p[:5].double()).abs()
+             / st_p[:5].double().abs().clamp_min(1e-30)).max().item()
+    ok_e, err_e, ratio_e = close(wn_k, zs_p / st_p[1], 1e-2, 1e-3)
+    # the exponent errors d = (c_kernel - c_plain) / ((max - min) lam)
+    # move the normalized weights p by p (mean_p(d) - d)
+    span = (costs_p.max() - costs_p.min()).double() * fused.lam
+    e = -(costs_p.double() - costs_p.min().double()) / span
+    p = torch.softmax(e, 0)
+    d = (costs_k.double() - costs_p.double()) / span
+    pred = ((p * ((p * d).sum() - d))
+            @ z.reshape(tau * adim, k).double().T).abs().max().item()
+    out.update(costs_ok=ok_c, costs_max_abs_err=err_c, costs_ratio=ratio_c,
+               cost_stats_max_rel_err=stats_rel, cost_stats_rtol=1e-4,
+               cost_stats_max_abs_err=(got - ref).abs().max().item(),
+               weights_ok=ok_b, weights_max_abs_err=err_b,
+               weights_rtol=1e-4, weights_atol=1e-6, merge_ok=ok_m,
+               merge_max_abs_err=err_m, merge_rtol=1e-5, merge_atol=1e-6,
+               merge_stats_max_rel_err=m_rel,
+               wnoise_ok=ok_e, wnoise_max_abs_err=err_e,
+               wnoise_ratio=ratio_e, wnoise_rtol=1e-2, wnoise_atol=1e-3,
+               wnoise_first_order=pred,
+               exponent_err_max=d.abs().max().item(),
+               ess=(1.0 / (p * p).sum()).item())
+    emit(f"{kern.phase}_two_phase_vs_plain_{label}", **out)
+    if not (ok_c and stats_rel <= 1e-4 and ok_b and ok_m and m_rel <= 1e-5
+            and ok_e):
+        raise AssertionError(f"{kern.phase} two-phase solve disagrees with "
+                             f"its plain version ({label}): {out}")
     return out
 
 
@@ -3259,13 +3388,30 @@ def mbrl_phase(pm, nnk, nn_k, smi: str, workdir: str) -> dict:
     costs_b = nnk.nn_fused_costs(fused.consts, auv_dyn(fused, 5.0, seed=11),
                                  NN_K, NN_H, z=z)[0]
     same, moved_abs, _ = close(costs_b, costs_a, COST_RTOL, COST_ATOL)
+    # the constant-feature case: weights learned from one episode, whose
+    # quaternion features stay at rest (x_std 1e-8)
+    one = Learner(NNAUVModel(hidden=(32, 32, 32), seed=MBRL_SEED,
+                             device="cuda"))
+    lim = MBRL_ACT_MAX * np.ones(6)
+    collect_transitions(KnownPlant(), one.rb, MBRL_BUFFER, 6, -lim, lim,
+                        seed=MBRL_ONE_EPISODE_SEED, control_dt=plant.dt)
+    one.stats()
+    one.train_all(epoch=MBRL_EPOCHS, learning_rate=MBRL_LR)
+    ctrl.model_params = one.params
+    chk_one = check_auv(nn_k, pm, fused, z, "mbrl_one_episode_K65536_H25",
+                        useq_scale=5.0, end_to_end=True)
+    chk_one["min_x_std"] = float(ctrl._model.x_std.min())
     out["kernels"] = {"learned": chk_a, "rewritten": chk_b,
+                      "one_episode": chk_one,
                       "costs_moved_max_abs": moved_abs,
                       "costs_moved_beyond_tolerance": not same}
     if same:
         raise AssertionError(f"the rewrite did not reach the kernels: "
                              f"costs moved {moved_abs}")
-    del z, ctrl, fused
+    if not chk_one["min_x_std"] < 1e-7:
+        raise AssertionError(f"one episode left no constant feature: "
+                             f"{chk_one['min_x_std']}")
+    del z, ctrl, fused, one
     # (d) the dives with online refits, each solve mode; then two refits
     # profiled apart from the solve steps
     out["dives"], runners = zip(*[
@@ -3329,6 +3475,312 @@ def mbrl_phase(pm, nnk, nn_k, smi: str, workdir: str) -> dict:
         raise AssertionError(f"mbrl cli -t: {out['cli']}")
     emit("mbrl", card=smi, **out)
     return out
+
+
+def od_rows(pm):
+    """The on-device phase's three rows: name -> a function building
+    (controller, plant, steps, substeps, radius, x0, re-arm, host plant,
+    gate) afresh; each controller on the kernels (kernel="cuda")."""
+    from mppi_tf_tpu_torch import flagship
+    from mppi_tf_tpu_torch.controller import MPPI
+    from mppi_tf_tpu_torch.controller.dmd import DMDMPPI
+    from mppi_tf_tpu_torch.envs import (AUVEnv, DevicePointMassEnv,
+                                        PointMassEnv)
+    from mppi_tf_tpu_torch.models.dmd import DMDModel
+
+    def point_mass():
+        model, cost = workload("cuda")
+        ctrl = MPPI(model, cost, k=K, tau=H, lam=LAM, upsilon=UPSILON,
+                    sigma=SIGMA, kernel="cuda")
+
+        def gate(states, _):
+            err = float(np.linalg.norm(states[-1] - np.asarray(GOAL)))
+            return {"goal_err": err, "goal_tol": GOAL_TOL}, err < GOAL_TOL
+
+        return (ctrl, DevicePointMassEnv(n_dof=3, dt=0.01), OD_STEPS,
+                OD_SUBSTEPS, None, np.zeros(6), None,
+                PointMassEnv(n_dof=3, dt=0.01), gate)
+
+    def adaptive():
+        prior, cost = workload("cuda")
+        A1, B1 = prior.A.cpu().numpy(), prior.B.cpu().numpy()
+        model = DMDModel(6, 3, dt=DT, init_A=A1, init_B=B1, reg=DMD_REG,
+                         device="cuda")
+        ctrl = DMDMPPI(model, cost, k=K, tau=H, lam=LAM, upsilon=UPSILON,
+                       sigma=SIGMA, kernel="cuda", refit_every=DMD_REFIT)
+
+        def gate(states, fitted):
+            err = float(np.linalg.norm(states[-1] - np.asarray(GOAL)))
+            b_err = float(np.abs(fitted["B"].cpu().numpy()
+                                 - B1 / DMD_PLANT_MASS).max())
+            return ({"goal_err": err, "goal_tol": DMD_GOAL_TOL,
+                     "B_max_abs_err": b_err, "B_tol": DMD_B_TOL},
+                    err < DMD_GOAL_TOL and b_err < DMD_B_TOL)
+
+        return (ctrl, DevicePointMassEnv(n_dof=3, mass=DMD_PLANT_MASS,
+                                         dt=0.01), DMD_ADAPT_STEPS,
+                OD_SUBSTEPS, None, np.zeros(6), None,
+                PointMassEnv(n_dof=3, mass=DMD_PLANT_MASS, dt=0.01), gate)
+
+    def auv_mission():
+        wps = [rest_state(), rest_state()]
+        wps[0][2], wps[1][2] = -1.0, -2.0
+        task = {"type": "waypoints_quat", "diag": True, "Q": DIVE_Q,
+                "waypoints": [w.tolist() for w in wps], "alpha": 0.2}
+        model, cost, _, _ = auv_modules("cuda", task, DIVE_SIGMA)
+        ctrl = MPPI(model, cost, k=OD_AUV_K, tau=OD_AUV_H, lam=AUV_LAM,
+                    upsilon=AUV_UPSILON, sigma=DIVE_SIGMA, seed=3,
+                    normalize_cost=True, kernel="cuda")
+
+        def gate(states, _):
+            depth = np.abs(states[:, 2] + 2.0)
+            # the periods after the pop: within the radius of leg one
+            closest = float(depth[np.argmax(states[:, 2] < -1.0):].min())
+            settle = depth[-OD_AUV_SETTLE:]
+            drift = float(np.abs(np.linalg.norm(states[:, 3:7], axis=1)
+                                 - 1.0).max())
+            left = ctrl.waypoints_remaining()
+            return ({"z_err": float(depth[-1]),
+                     "z_err_closest_after_leg_one": closest,
+                     "z_err_closest_last_periods": float(settle.min()),
+                     "z_err_farthest_last_periods": float(settle.max()),
+                     "last_periods": OD_AUV_SETTLE, "z_tol": AUV_WP_TOL,
+                     "z_every_10_periods": states[9::10, 2].tolist(),
+                     "legs_remaining": left, "quat_drift": drift},
+                    closest < AUV_WP_TOL and settle.min() < AUV_WP_TOL
+                    and left == 1 and drift < 1e-3)
+
+        return (ctrl, AUVEnv(flagship.auv_params(), dt=0.02), OD_AUV_STEPS,
+                DIVE_SUBSTEPS, AUV_WP_RADIUS, rest_state(),
+                lambda c: c.set_waypoints(wps),
+                AUVEnv(flagship.auv_params(), dt=0.02), gate)
+
+    return {"on_device_loop": point_mass,
+            "on_device_adaptive_dmd": adaptive,
+            "on_device_auv_mission": auv_mission}
+
+
+def plant_ms(step_fn, x, u, substeps: int, reps: int = 200) -> float:
+    """Device ms of ``substeps`` plant steps, captured as a graph of their
+    own and replayed ``reps`` times between CUDA events."""
+    x, u = x.clone(), u.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        y = x
+        for _ in range(substeps):
+            y = step_fn(y, u)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        y = x
+        for _ in range(substeps):
+            y = step_fn(y, u)
+    return cuda_ms(g.replay, reps)
+
+
+def od_device_index(pm, fused, adim: int, x0) -> dict:
+    """A row's kernels with the solve index as a device tensor against
+    the int, bit for bit, at 5 and past 2^32: the solve and costs kernels
+    of its solve object, phase B and the noise dump."""
+    useq = torch.zeros(fused.tau, adim, device="cuda")
+    dyn = fused.pack_dyn(x0, useq)
+    k, tau = fused.k, fused.tau
+    out = {}
+    for s in (5, OD_HIGH_SOLVE):
+        dev = torch.tensor([s], dtype=torch.int64, device="cuda")
+        same = {}
+        for name, fn in (("solve", fused._fused), ("costs", fused._costs)):
+            a, b = fn(dyn, 3, s, None), fn(dyn, 3, dev, None)
+            a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+            same[name] = all(torch.equal(p, q) for p, q in zip(a, b))
+        costs = fused._costs(dyn, 3, s, None)[0]
+        nrm = torch.stack([costs.min(), 1.0 / ((costs.max() - costs.min())
+                                               * fused.lam)]).float()
+        same["weights"] = torch.equal(
+            pm.mppi_weights(nrm, costs, tau, adim, 3, s),
+            pm.mppi_weights(nrm, costs, tau, adim, 3, dev))
+        same["noise_dump"] = torch.equal(
+            pm.pm_noise_dump(3, s, k, tau, adim, "cuda"),
+            pm.pm_noise_dump(3, dev, k, tau, adim, "cuda"))
+        out[str(s)] = same
+    return out
+
+
+def od_row(pm, name: str, make, smi: str) -> dict:
+    """One on-device row: the first run (capture), the noise hand-over to
+    a host next, three timed runs (host clock, the sync included, and
+    CUDA events), one profiled (its kernels counted by name against
+    the captured launches times the periods), the eager periods at the
+    same solve indices (bit for bit), the row's kernels against their
+    plain versions at its K and H, the plant's own graph, the device solve
+    index, and the host-driven loop of the same cell."""
+    from mppi_tf_tpu_torch.envs import build_on_device_loop
+    from mppi_tf_tpu_torch.envs.runner import ClosedLoopRunner
+    from mppi_tf_tpu_torch.kernels import auv_mppi as auv
+
+    ctrl, plant, steps, substeps, radius, x0, arm, host_env, gate = make()
+    loop = build_on_device_loop(ctrl, plant.step_fn, steps, substeps,
+                                waypoint_radius=radius)
+    adim = ctrl._adim
+
+    def run(fn=loop, step0=OD_STEP0):
+        if arm is not None:
+            arm(ctrl)
+        return fn(x0, step0=step0)
+
+    out = {"steps": steps, "substeps": substeps, "k": ctrl._k,
+           "tau": ctrl._tau, "card": smi}
+    t0 = time.perf_counter()
+    first = run(step0=None)
+    out["first_run_s"] = time.perf_counter() - t0
+    out["capture_s"] = loop.capture_s
+    # a host next after the run draws solve step0 + steps
+    xd = torch.as_tensor(x0, dtype=torch.float32, device="cuda")
+    want = ctrl._fused_step(xd, ctrl.useq, solve=steps)[0].cpu().numpy()
+    steps_after = ctrl._steps
+    got = ctrl.next(x0)
+    noise_ok = (steps_after == steps and ctrl._steps == steps + 1
+                and np.array_equal(got, want))
+    out["noise"] = {"steps_after_run": steps_after, "next_equals_solve":
+                    bool(np.array_equal(got, want)), "ok": noise_ok}
+    # three timed runs, each on the host clock and between CUDA events
+    # (the mission's re-arm outside both)
+    walls, events = [], []
+    for _ in range(3):
+        if arm is not None:
+            arm(ctrl)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        loop(x0, step0=OD_STEP0)
+        walls.append(time.perf_counter() - t0)
+        end.record()
+        torch.cuda.synchronize()
+        events.append(start.elapsed_time(end) / steps)
+    events_ms = float(np.median(events))
+    pm.reset_launch_counts()
+    graph = run()
+    counts = {n: c for n, c in pm.launch_counts.items() if c}
+    useq_g = loop.useq
+    queue_g = (ctrl._cost.count.clone(), ctrl._cost.waypoints.clone()) \
+        if radius is not None else ()
+    # the profiler's count of the row's kernels by name; a run that lost
+    # records (fewer than the captured launches x periods) is profiled
+    # again, up to OD_PROFILE_TRIES; more than those never passes
+    expected = {n: c * steps for n, c in loop.nodes.items()}
+    tries = []
+    while len(tries) < OD_PROFILE_TRIES:
+        if arm is not None:
+            arm(ctrl)
+        prof = profile_run(lambda: loop(x0, step0=OD_STEP0), steps,
+                           count={n: OD_KERNEL_RX[n] for n in loop.nodes})
+        profiled = prof["kernel_counts"]
+        tries.append(profiled)
+        if profiled == expected or any(profiled[n] > c
+                                       for n, c in expected.items()):
+            break
+    syncs = {k: v * steps for k, v in prof["syncs_per_step"].items()}
+    eager = run(loop.eager)
+    useq_e = loop.useq
+    queue_e = (ctrl._cost.count.clone(), ctrl._cost.waypoints.clone()) \
+        if radius is not None else ()
+    pairs = [("states", graph[0], eager[0]),
+             ("actions", graph[1], eager[1]), ("useq", useq_g, useq_e),
+             *[(n, a, b) for n, a, b in zip(("count", "waypoints"),
+                                              queue_g, queue_e)]]
+    if len(graph) == 3:
+        pairs += [(n, graph[2][n], eager[2][n]) for n in ("A", "B")]
+    bits = {n: bool(torch.equal(a, b)) for n, a, b in pairs}
+    p_ms = plant_ms(plant.step_fn, xd, graph[1][-1], substeps)
+    states = graph[0].cpu().double().numpy()
+    readings, gate_ok = gate(states, graph[2] if len(graph) == 3 else None)
+    # the row's kernels against their plain versions at its K and H on
+    # injected z: the point mass's fused solve and merge (check_solve);
+    # the mission's two-phase solve from the run's last state and nominal
+    # sequence, with the queue the run left (one leg) and re-armed (the
+    # blend of two)
+    k, tau = ctrl._k, ctrl._tau
+    z = torch.as_tensor(np.random.default_rng(13).standard_normal(
+        (tau, adim, k), np.float32), device="cuda")
+    tag = f"{name}_K{k}_H{tau}"
+    if radius is None:
+        chk = check_solve(pm, ctrl._fused, z, tag)
+        errs = {"pm_fused_solve": chk["solve_only_max_abs_err"],
+                "pm_merge": chk["merge_only_max_abs_err"]}
+    else:
+        kern = quat_kernels(auv, "auv")
+        chks = [check_two_phase(kern, pm, ctrl._fused, z, f"{tag}_final",
+                                graph[0][-1], useq_e)]
+        arm(ctrl)
+        chks.append(check_two_phase(kern, pm, ctrl._fused, z,
+                                    f"{tag}_armed", graph[0][-1], useq_e))
+        errs = {n: max(c[f"{key}_max_abs_err"] for c in chks)
+                for n, key in (("auv_fused_costs", "costs"),
+                               ("mppi_weights", "weights"),
+                               ("pm_merge", "merge"))}
+    del z
+    index = od_device_index(pm, ctrl._fused, adim, xd)
+    # the host-driven loop of the same cell, a fresh controller
+    twin, *_ = make()
+    if arm is not None:
+        arm(twin)
+    runner = ClosedLoopRunner(host_env, twin, control_dt=DT,
+                              waypoint_radius=radius or 0.0)
+    host_env.reset(x0)
+    runner.run(2)
+    t0 = time.perf_counter()
+    runner.run(OD_TWIN_STEPS)
+    twin_wall = (time.perf_counter() - t0) * 1e3 / OD_TWIN_STEPS
+    twin_prof = profile_run(lambda: runner.run(OD_TWIN_STEPS),
+                            OD_TWIN_STEPS)
+    dev_ms = prof["device_us_per_step"] / 1e3
+    out.update(
+        readings, gate_ok=bool(gate_ok), launches=counts,
+        launches_profiled=profiled, profiled_runs=tries,
+        launches_a_period=loop.nodes,
+        captures=loop.captures, max_abs_err_vs_plain=errs,
+        wall_ms_a_period=float(np.median(walls)) * 1e3 / steps,
+        wall_ms_runs=[w * 1e3 for w in walls],
+        events_ms_a_period=events_ms, events_ms_runs=events,
+        profiler_device_ms_a_period=dev_ms,
+        profiler_kernels_a_period=prof["kernel_launches_per_step"],
+        graph_launch_host_us=prof.get("graph_launch_host_us"),
+        device_busy_share=prof["device_busy_share"],
+        top_kernels_us_a_period=prof["top_kernels_us_per_step"],
+        syncs_a_run=syncs, replay_equals_eager=bits,
+        plant_ms_a_period=p_ms, plant_share_of_events=p_ms / events_ms,
+        device_solve_index=index,
+        profiled_wall_ms_a_period=dev_ms / prof["device_busy_share"],
+        host_driven={"steps": OD_TWIN_STEPS, "wall_ms_a_step": twin_wall,
+                     "profiled_wall_ms_a_step":
+                         twin_prof["wall_us_per_step"] / 1e3,
+                     "device_ms_a_step": twin_prof["device_us_per_step"]
+                     / 1e3,
+                     "device_busy_share": twin_prof["device_busy_share"],
+                     "launches_a_step":
+                         twin_prof["kernel_launches_per_step"],
+                     "syncs_a_step": twin_prof["syncs_per_step"]})
+    emit(name, **out)
+    index_ok = all(all(v.values()) for v in index.values())
+    one_sync = (syncs.get("cudaStreamSynchronize", 0.0) == 1.0
+                and syncs.get("cudaDeviceSynchronize", 0.0) <= 1.0)
+    solve = "auv_fused_costs" if radius is not None else "pm_fused_solve"
+    if not (gate_ok and noise_ok and all(bits.values()) and index_ok
+            and one_sync and loop.captures == 1 and first is not None
+            and expected.get(solve) == steps and counts == expected
+            and profiled == expected):
+        raise AssertionError(f"{name}: {out}")
+    return out
+
+
+def on_device_phase(pm, smi: str) -> dict:
+    """The on-device loop at the JAX bench's three on-device rows
+    (``od_rows``), each through ``od_row``."""
+    return {name: od_row(pm, name, make, smi)
+            for name, make in od_rows(pm).items()}
 
 
 def main() -> int:
@@ -4104,6 +4556,25 @@ def main() -> int:
     mbrl_launches["pm_fused_solve"] = mbrl["point_mass"]["launches"][
         "pm_fused_solve"]
 
+    # ---- 27c. the on-device loop: the bench's three rows as replayed ------
+    # ---- CUDA graphs, each beside its host-driven loop ----------------------
+    on_device = on_device_phase(pm, smi)
+    # each kernel row's launches in the on-device runs (the profiler's
+    # count by kernel name) and its largest error against the plain
+    # version at those runs' shapes, from the rows that launch it
+    od_rows_of = {
+        "pm_fused_solve": (("on_device_loop", "pm_fused_solve"),),
+        "pm_fused_solve[dynamic_ab]": (("on_device_adaptive_dmd",
+                                        "pm_fused_solve"),),
+        "pm_merge": tuple((r, "pm_merge") for r in on_device),
+        "auv_fused_costs[waypoints_quat]": (("on_device_auv_mission",
+                                             "auv_fused_costs"),),
+        "mppi_weights": (("on_device_auv_mission", "mppi_weights"),)}
+    od_launches = {
+        row: (sum(on_device[r]["launches_profiled"][n] for r, n in of),
+              max(on_device[r]["max_abs_err_vs_plain"][n] for r, n in of))
+        for row, of in od_rows_of.items()}
+
     # ---- 28. times -------------------------------------------------------------
     consts, nb = fused.consts, -(-K // pm.BLOCK)
     n_z = H * 3
@@ -4321,7 +4792,8 @@ def main() -> int:
     # a reading never called by the port: the MLP's four products over the
     # K*H rows of a horizon as torch.matmul (cuBLAS, f32, no TF32), the
     # work the torch route does a step beside its elementwise ops
-    layers = nnk.fold_layers(nn_flag.model)
+    layers = [(layer.w.detach(), layer.b.detach())
+              for layer in nn_flag.model.net]
     feats = torch.randn(NN_K * NN_H, nnk.FEATURES, device="cuda")
 
     def mlp_matmuls():
@@ -4779,8 +5251,8 @@ def main() -> int:
          "path": "NN known-plant closed loop, unnormalized",
          "launches_mbrl": mbrl_launches["nn_fused_solve"],
          "max_abs_err_mbrl": max(mbrl["kernels"][n][
-             "fused_cost_stats_max_abs_err"] for n in ("learned",
-                                                        "rewritten")),
+             "fused_cost_stats_max_abs_err"] for n in (
+                 "learned", "rewritten", "one_episode")),
          "max_abs_err": nn_chk["fused_cost_stats_max_abs_err"],
          "max_abs_err_of": "merged cost min, max, mean of the fused rows "
                            "against the plain costs, K=65536, H=25, 3x32",
@@ -4794,7 +5266,8 @@ def main() -> int:
          "path": "NN known-plant closed loop, normalized",
          "launches_mbrl": mbrl_launches["nn_fused_costs"],
          "max_abs_err_mbrl": max(mbrl["kernels"][n]["costs_max_abs_err"]
-                                 for n in ("learned", "rewritten")),
+                                 for n in ("learned", "rewritten",
+                                           "one_episode")),
          "max_abs_err": nn_chk["costs_max_abs_err"],
          "ms": t_ncosts, "plain_ms": p_ncosts, "bound_ms": b_ncosts[0],
          "bound_by": b_ncosts[1], "tc_bound_ms": tc_ncosts[0],
@@ -5012,6 +5485,16 @@ def main() -> int:
             **({"tc_bound_ms": t["tc_bound"][0]} if "tc_bound" in t
                else {}),
             "library_ms": None})
+    for row in kernels:
+        if row["name"] in od_launches:
+            # launched by the on-device phase's replayed graphs, as the
+            # profiler counted them, and checked at their shapes there
+            (row["launches_on_device"],
+             row["max_abs_err_on_device"]) = od_launches[row["name"]]
+            row["max_abs_err_on_device_of"] = (
+                "kernel vs plain at the on-device rows' K and H, injected "
+                "z: the solve's wnoise (action units), the costs, phase "
+                "B's and the merge's zsum / l")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,17 +7,21 @@ card unless ``--cpu`` (or ``--f64``, float64 on the CPU) is given. ``-l``
 writes metrics and config snapshots into a stamped directory under
 ``--log-dir`` (observer/); ``-t N`` trains the model from the run's
 transitions every N steps (``learning/learner.py``) and hands it to the
-controller. GIFs (``-g``) and the on-device loop (``--on-device``) are not
-ported yet and raise ``NotImplementedError`` naming their ROADMAP items.
+controller; ``--on-device`` runs the whole experiment in the on-device
+loop (``envs/mjx_env.py``; a ``jax:point_mass`` or analytic AUV plant, no
+``-t``). GIFs (``-g``) are not ported yet and raise
+``NotImplementedError`` naming their ROADMAP item.
 
 Usage:
     python -m mppi_tf_tpu_torch.cli --config envs/point_mass \\
         --task tasks/static_cost --model models/point_mass_model -s 100
     python -m mppi_tf_tpu_torch.cli --replay --log-dir <dir with config.yaml>
 
-Prints one JSON line: steps, final_state, logdir, avg_solve_ms, the
-kernel path the controller resolved to and, for the adaptive DMD
-controller (``--model models/dmd_model``), its refit count n_fits.
+Prints one JSON line: steps, final_state, logdir, avg_solve_ms (with
+``--on-device``, on_device_ms_per_step instead: the host-side solve timer
+never ticks), the kernel path the controller resolved to and, for the
+adaptive DMD controller (``--model models/dmd_model``), its refit count
+n_fits.
 """
 
 from __future__ import annotations
@@ -29,8 +33,6 @@ import sys
 #: flags of the JAX CLI whose machinery is not ported yet
 _NOT_PORTED = (
     ("gif", "-g/--gif: GIF plotting is not ported yet: ROADMAP item 15"),
-    ("on_device", "--on-device: the on-device closed loop is not ported "
-                  "yet: ROADMAP item 13"),
 )
 
 
@@ -60,8 +62,10 @@ def parse_args(argv=None):
                    help="Savitzky-Golay smooth the action sequence "
                         "('filter: true' in the env config)")
     p.add_argument("--on-device", action="store_true",
-                   help="one device program for the whole experiment "
-                        "(not ported yet)")
+                   help="run the whole experiment (solve + plant) on the "
+                        "device, one CUDA graph a control period on the "
+                        "card (needs a jax:/analytic-AUV plant; excludes "
+                        "-t)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--f64", action="store_true",
                    help="run in float64 on the CPU (parity mode)")
@@ -99,17 +103,23 @@ def main(argv=None):
         log_path=None if args.replay else args.log_dir, render=args.render,
         seed=args.seed, train_every=args.train,
         dtype=torch.float64 if args.f64 else torch.float32,
+        on_device=args.on_device,
         device="cpu" if (args.cpu or args.f64) else "cuda")
     ctrl, observer = result["controller"], result["observer"]
     timing = ctrl.timing
     if observer is not None:
         observer.close()
+    if "on_device_ms_per_step" in result:
+        speed = {"on_device_ms_per_step": round(
+            result["on_device_ms_per_step"], 3)}
+    else:
+        speed = {"avg_solve_ms": round(1e3 * timing["total"]
+                                       / max(timing["calls"], 1), 3)}
     print(json.dumps({
         "steps": int(args.steps),
         "final_state": [round(float(v), 4) for v in result["states"][-1]],
         "logdir": observer.get_logdir() if observer is not None else None,
-        "avg_solve_ms": round(1e3 * timing["total"]
-                              / max(timing["calls"], 1), 3),
+        **speed,
         "kernel_path": ctrl.kernel_path,
         **({"n_fits": ctrl.n_fits} if hasattr(ctrl, "n_fits") else {}),
     }))

@@ -254,14 +254,18 @@ class MPPI(MissionMixin):
         return self._update_and_shift(useq, costs, eps)
 
     @torch.no_grad()
-    def _fused_step(self, state, useq):
+    def _fused_step(self, state, useq, solve=None):
         """Fused-kernel solve + sequence update. The noise of solve s is
-        Philox counter block s under the controller's seed. Log mode adds
+        Philox counter block s under the controller's seed; s is the
+        controller's step count, or ``solve`` (an int, or a one-element
+        int64 tensor on the device that the kernels read, as the on-device
+        loop's counter, envs/mjx_env.py). Log mode adds
         the plain path's info keys (JAX controller/mppi.py:257-318): the
         normalized solve reuses its phase-A costs, the unnormalized one runs
         one extra costs phase, and ``noise`` is the first 512 samples of the
         solve's own noise."""
-        fused, seed, solve = self._fused, self._base_seed, self._steps
+        fused, seed = self._fused, self._base_seed
+        solve = self._steps if solve is None else solve
         wnoise, info = fused.solve(state, useq, seed=seed, solve=solve,
                                    normalize=self._normalize_cost)
         action, shifted, new_useq = self._postprocess(useq, wnoise)

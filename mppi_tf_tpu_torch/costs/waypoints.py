@@ -9,9 +9,12 @@ package's sign fix of the reference's (alpha - 1) d(w0) + alpha d(w1).
 The queue is two buffers, ``waypoints`` [max_waypoints, dim] and ``count``
 (int32), so a pop or an added waypoint changes data and never rebuilds a
 solve, and ``params()`` gives the JAX package's pytree leaves in its order.
-Every mutation enters through a host call, so the cost keeps a host copy
-of the queue: a mission's pop is decided on the host, without reading the
-device, and the new queue is uploaded with a pinned, non-blocking copy.
+Every host mutation keeps a host copy of the queue: a host-driven mission's
+pop is decided on the host, without reading the device, and the new queue
+is uploaded with a pinned, non-blocking copy. The on-device loop
+(``envs/mjx_env.py``) pops on the device with ``pop_queue``, the JAX
+package's ``WayPointsCost.pop`` on the buffers, and refreshes the host
+copy once a run (``sync_host``).
 """
 
 from __future__ import annotations
@@ -20,6 +23,15 @@ import numpy as np
 import torch
 
 from .base import CostBase
+
+
+def pop_queue(cp: dict) -> dict:
+    """The queue ``cp`` ({"count", "waypoints"} tensors) with its leading
+    waypoint dropped: the rows rolled up by one, count = max(count - 1, 1)
+    (the JAX package's ``WayPointsCost.pop``, costs/waypoints.py:116-122).
+    Torch ops on the buffers' device, no host sync."""
+    return {"count": torch.clamp(cp["count"] - 1, min=1),
+            "waypoints": torch.roll(cp["waypoints"], -1, dims=0)}
 
 
 class WayPointsCost(CostBase):
@@ -90,11 +102,15 @@ class WayPointsCost(CostBase):
             self.waypoints.copy_(wps, non_blocking=True)
             self.count.copy_(cnt, non_blocking=True)
 
-    def sync_host(self) -> None:
+    def sync_host(self, waypoints=None, count=None) -> None:
         """Re-read the host copy from the buffers, after they were written
-        directly (a checkpoint, ``interop.from_jax_params``)."""
-        self._host = self.waypoints.detach().cpu().double().numpy().copy()
-        self._host_count = int(self.count.item())
+        directly (a checkpoint, ``interop.from_jax_params``, the on-device
+        loop's pops), or take it from ``waypoints`` and ``count``, host
+        copies of the buffers the caller already fetched."""
+        if waypoints is None:
+            waypoints, count = self.waypoints.detach().cpu(), self.count
+        self._host = torch.as_tensor(waypoints).double().numpy().copy()
+        self._host_count = int(count)
 
     def queue_key(self) -> tuple:
         """Changes whenever the queue's buffers do (their version counters

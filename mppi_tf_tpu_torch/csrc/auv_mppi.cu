@@ -726,18 +726,21 @@ extern "C" {
 // consts: AuvConsts.packed (260 floats); cost: AuvCost; structure:
 // AuvStruct (kDense alone in the bf16 build); dyn: dyn_size(tau) floats,
 // then tau factors c_t when scheduled; half: the antithetic solve's first
-// mirrored sample, 0 for none (mppi_common.cuh). auv_mppi_bf16.cu defines
+// mirrored sample, 0 for none; solve: the solve index on the device, or
+// null for (s_lo, s_hi) (mppi_common.cuh). auv_mppi_bf16.cu defines
 // both solves with a _bf16 suffix.
 int MPPI_ENTRY(auv_fused_solve)(int rk, int cost, int structure,
                                 const float* consts, const float* dyn,
                                 const float* z, float* partials, int k,
                                 int tau, int scheduled, uint32_t half,
                                 uint32_t seed_lo, uint32_t seed_hi,
-                                uint32_t s_lo, uint32_t s_hi, void* stream) {
+                                uint32_t s_lo, uint32_t s_hi,
+                                const unsigned long long* solve,
+                                void* stream) {
   return dispatch_auv<kFused>(
       rk, cost, structure, consts,
       AuvLaunch{dyn, z, nullptr, partials, k, tau, scheduled,
-                Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
+                Seeds{seed_lo, seed_hi, s_lo, s_hi, half, solve},
                 static_cast<cudaStream_t>(stream), nullptr});
 }
 
@@ -747,11 +750,13 @@ int MPPI_ENTRY(auv_fused_costs)(int rk, int cost, int structure,
                                 float* partials, int k, int tau,
                                 int scheduled, uint32_t half,
                                 uint32_t seed_lo, uint32_t seed_hi,
-                                uint32_t s_lo, uint32_t s_hi, void* stream) {
+                                uint32_t s_lo, uint32_t s_hi,
+                                const unsigned long long* solve,
+                                void* stream) {
   return dispatch_auv<kCosts>(
       rk, cost, structure, consts,
       AuvLaunch{dyn, z, costs, partials, k, tau, scheduled,
-                Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
+                Seeds{seed_lo, seed_hi, s_lo, s_hi, half, solve},
                 static_cast<cudaStream_t>(stream), nullptr});
 }
 

@@ -245,9 +245,18 @@ __device__ __forceinline__ void box_muller(uint32_t a, uint32_t b, float sign,
   zb = r * s;
 }
 
+// The solve index (s_lo, s_hi) comes by value, or, where `solve` is not
+// null, from device memory: a replayed CUDA graph freezes its kernels'
+// arguments, so the loop of envs/mjx_env.py advances a device counter that
+// the kernels read (philox_normals, through the read-only path). The bits
+// are the same either way. Read where the words are used, not once into
+// the struct: ptxas then keeps the by-value words as constant operands,
+// and no instantiation gains registers (a copy at kernel start spilled
+// the (4, 2) bf16 pair solves).
 struct Seeds {
   uint32_t seed_lo, seed_hi, s_lo, s_hi;
   uint32_t half;  // first mirrored sample of an antithetic solve, 0: none
+  const unsigned long long* solve;  // the solve index on the device, or null
 };
 
 // The Philox sample whose normals sample k reads, and their sign.
@@ -267,8 +276,14 @@ __device__ __forceinline__ float sched_factor(const float* s_dyn,
 __device__ __forceinline__ void philox_normals(uint32_t sample, uint32_t blk,
                                                const Seeds& sd, float sign,
                                                float v[4]) {
+  uint32_t s_lo = sd.s_lo, s_hi = sd.s_hi;
+  if (sd.solve != nullptr) {
+    const unsigned long long s = __ldg(sd.solve);
+    s_lo = static_cast<uint32_t>(s);
+    s_hi = static_cast<uint32_t>(s >> 32);
+  }
   const uint4 w =
-      philox4x32_10(make_uint4(sample, blk, sd.s_lo, sd.s_hi), sd.seed_lo,
+      philox4x32_10(make_uint4(sample, blk, s_lo, s_hi), sd.seed_lo,
                     sd.seed_hi);
   box_muller(w.x, w.y, sign, v[0], v[1]);
   box_muller(w.z, w.w, sign, v[2], v[3]);

@@ -13,9 +13,11 @@
 //   Per step t of sample k, with the normals z_t (6) of the port's one
 //   Philox stream (mppi_common.cuh NoiseStream, normal n = t*6 + j):
 //     u = useq_t + scale (c_t z_t)     (c_t: the schedule, 1 unscheduled)
-//     h = [x[3:13], u] (16 features, position dropped)
-//     h = relu(W1' h + b1'), ..., delta = W_L' h + b_L'   (ReLU hidden, linear out)
-//     x += delta; quaternion renormalised (rsqrt, floor 1e-24 on |q|^2)
+//     f = [x[3:13], u] (16 features, position dropped)
+//     h = (f - x_mean) / x_std         (models/nn.py normalize_x, f32)
+//     h = relu(W1 h + b1), ..., y = W_L h + b_L   (ReLU hidden, linear out)
+//     x += y y_std + y_mean            (denormalize_y, f32, two roundings)
+//     quaternion renormalised (rsqrt, floor 1e-24 on |q|^2)
 //     cost += q(x) + rhs_z_t . z_t + nc_half c_t z_t^T Mz z_t
 //   (the TPU kernel's :255-275 and :323), then + q(x_H) + u_half, with q
 //   the StaticQuatCost (mppi_common.cuh). The schedule (c_t at the end of
@@ -23,13 +25,17 @@
 //   mppi_common.cuh, not _fill_noise_steps' :110-114) are runtime
 //   arguments, not instantiations.
 //
-//   Weights are runtime data. kernels/nn_mppi.py FusedNNMPPI.pack_dyn folds
-//   the X/Y normalisers into layers 1 and L on the device with torch ops
-//   (W1' = W1 / x_std, b1' = b1 - (x_mean / x_std) W1; W_L' = W_L y_std,
-//   b_L' = b_L y_std + y_mean) and writes every layer as W^T rows (one row
-//   of fan_in floats an output) and its biases, each layer's block padded to
-//   a multiple of 4 floats, ahead of the per-solve scalars in dyn. A weight
-//   update (a learner step) reaches the kernel as data: nothing rebuilds.
+//   Weights are runtime data. kernels/nn_mppi.py FusedNNMPPI.pack_dyn
+//   writes every layer as W^T rows (one row of fan_in floats an output) and
+//   its biases, each layer's block padded to a multiple of 4 floats, then
+//   the normalisers x_mean, x_std, y_mean, y_std (padded), ahead of the
+//   per-solve scalars in dyn. A weight update (a learner step) reaches the
+//   kernel as data: nothing rebuilds. The normalisers are not folded into
+//   the first layer (W1 / x_std, as the TPU kernel does, :498-509 of its
+//   wrapper): a feature that is constant over the learner's buffer has
+//   x_std = 1e-8, its folded weights are 1e8 W1, and the first layer's f32
+//   sum cancels (ROADMAP, the fold of a constant feature). The features are
+//   normalised in f32 in the XLA route's order instead.
 //   The widths are template parameters: (32, 32, 32), the reference
 //   topology 16->32->32->32->13, and (8, 8), the test topology. The wrapper
 //   raises on any other.
@@ -96,7 +102,8 @@
 //   at most 128 registers a thread): K=65,536 is one wave of 256 blocks in
 //   264 slots.
 //
-//   The TPU kernel's folded (8, L) layout, its per-step noise scratch, its
+//   The TPU kernel's folded (8, L) layout, its fold of the normalisers, its
+//   per-step noise scratch, its
 //   pid == 0 initialisation and its read-modify-write carry across the grid
 //   are not copied: each block writes its partial row (mppi_common.cuh),
 //   merged by pm_merge as for the other models.
@@ -109,10 +116,12 @@
 //   bf16x2 FMA chains: the TPU kernel's bf16 blocks round every product
 //   and every sum of the MLP chains to bf16 (acc + w h, in the order of
 //   fan_in), which no tensor-core product with f32 accumulation computes.
-//   The folded weights and biases are staged as duplicated bf16x2 words
+//   The weights and biases are staged as duplicated bf16x2 words
 //   (w, w) in place, so a float4 read of a W^T row is 4 weights a 16-byte
 //   broadcast load and 8 bf16x2 instructions for the two samples; x0,
-//   useq and rhs_z are staged as words too, scale and Mz come as words in
+//   useq and rhs_z are staged as words too (the normalisers stay f32: the
+//   features are normalised per lane in f32 and rounded, the outputs
+//   denormalised in f32 and rounded), scale and Mz come as words in
 //   the kernel's constants (NnConstsT, packed by the entry point), and the
 //   noise is rounded as it is drawn (one cvt a normal pair). The force
 //   u_t + c_t (scale z_t) in the TPU kernel's order, every MLP chain
@@ -123,9 +132,9 @@
 // * nn_mppi_bfp.cu, the f32 body for a model whose compute_dtype is bf16
 //   (suffix _bfp): the JAX XLA path's bf16 products with f32 accumulation
 //   (models/nn.py mlp_apply), not the TPU kernel, which ignores the
-//   model's compute_dtype. The normalisers are not folded: they sit after
-//   the layers in dyn (x_mean, x_std, y_mean, y_std), the features are
-//   normalised in f32 and rounded, the weights come rounded from the host,
+//   model's compute_dtype. As in every build the normalisers sit after
+//   the layers in dyn; the normalised features are rounded, the weights
+//   come rounded from the host,
 //   each hidden layer's output is rounded as the next layer's input, the
 //   biases and the output's denormalisation stay f32.
 
@@ -179,15 +188,10 @@ __host__ __device__ constexpr int layer_floats(int i, int o) {
   return round4(o * i + o);
 }
 
-// The bf16-products build puts the normalisers (x mean, x std, y mean,
-// y std) after the layers.
-#ifdef MPPI_NN_BF16_PRODUCTS
+// The normalisers (x mean, x std, y mean, y std), after the layers.
 constexpr int kNormFloats = round4(2 * kFeatures + 2 * kSdim);
-#else
-constexpr int kNormFloats = 0;
-#endif
 
-// Offsets of the folded layers in dyn for hidden widths (N1, N2, N3);
+// Offsets of the layers in dyn for hidden widths (N1, N2, N3);
 // N3 == 0: two hidden layers. kernels/nn_mppi.py NNDyn is the same layout.
 template <int N1, int N2, int N3>
 struct Topo {
@@ -227,7 +231,7 @@ __device__ __forceinline__ void dense(const float* __restrict__ w,
   }
 }
 
-// delta = MLP(features) over the folded weights at s_w.
+// delta = MLP(features) over the weights at s_w.
 template <int N1, int N2, int N3>
 __device__ __forceinline__ void mlp(const float* __restrict__ s_w,
                                     const Val* feats, Val* delta) {
@@ -279,7 +283,7 @@ __global__ void __launch_bounds__(kThreads, N3 == 0 ? 2 : 0)
   float* s_red = smem + round4(dyn_size);  // kWarps * n_z: pass-two sums
 
   // the layers, x0, useq and rhs_z staged as bf16x2 words (the rollout's
-  // operands); the goal, u_half and c_t stay f32
+  // operands); the normalisers, the goal, u_half and c_t stay f32
   for (int i = threadIdx.x; i < dyn_size; i += kThreads) {
     const int from_x0 = i - T::end;
     const bool word = i < T::size ||
@@ -290,8 +294,10 @@ __global__ void __launch_bounds__(kThreads, N3 == 0 ? 2 : 0)
   }
   __syncthreads();
 
-  // dyn layout (kernels/nn_mppi.py NNDyn): layers, x0, goal, useq, rhs_z,
-  // u_half, then the schedule's c_t at sched_off when scheduled
+  // dyn layout (kernels/nn_mppi.py NNDyn): layers, normalisers, x0, goal,
+  // useq, rhs_z, u_half, then the schedule's c_t at sched_off when
+  // scheduled
+  const float* norm = s_dyn + T::norm;
   const float* x0 = s_dyn + T::end;
   const float* goal = x0 + kSdim;
   const float* useq = goal + kSdim;
@@ -339,10 +345,21 @@ __global__ void __launch_bounds__(kThreads, N3 == 0 ? 2 : 0)
         sz = fma_r(exact_val(c.scale[i * kAdim + j]), zt[j], sz);
       feats[kSdim - 3 + i] = exact_val(useq[t * kAdim + i]) + ct_v * sz;
     }
+    // models/nn.py normalize_x per lane in f32, rounded to the operand
+#pragma unroll
+    for (int i = 0; i < kFeatures; ++i)
+      feats[i] = per_lane(feats[i], [&](float v) {
+        return (v - norm[i]) / norm[kFeatures + i];
+      });
     Val delta[kSdim];
     mlp<N1, N2, N3>(s_dyn, feats, delta);
+    // denormalize_y per lane in f32 (two roundings), rounded
 #pragma unroll
-    for (int i = 0; i < kSdim; ++i) x[i] += delta[i];
+    for (int i = 0; i < kSdim; ++i)
+      x[i] += per_lane(delta[i], [&](float v) {
+        return __fadd_rn(__fmul_rn(v, norm[2 * kFeatures + kSdim + i]),
+                         norm[2 * kFeatures + i]);
+      });
     if (c.renorm != 0.0f) {
       const Val s2 = x[3] * x[3] + x[4] * x[4] + x[5] * x[5] + x[6] * x[6];
       const Val inv =
@@ -742,12 +759,10 @@ __global__ void __launch_bounds__(kBlock, 2)
     s_dyn[i] = dyn[T::size + i];
   __syncthreads();
 
-  // dyn layout (kernels/nn_mppi.py NNDyn): layers (and the normalisers of
-  // the bf16-products build), x0, goal, useq, rhs_z, u_half, then the
-  // schedule's c_t at sched_off when scheduled
-#ifdef MPPI_NN_BF16_PRODUCTS
+  // dyn layout (kernels/nn_mppi.py NNDyn): layers, normalisers, x0, goal,
+  // useq, rhs_z, u_half, then the schedule's c_t at sched_off when
+  // scheduled
   const float* norm = s_dyn;
-#endif
   const float* x0 = s_dyn + kNormFloats;
   const float* goal = x0 + kSdim;
   const float* useq = goal + kSdim;
@@ -786,12 +801,15 @@ __global__ void __launch_bounds__(kBlock, 2)
         s = fmaf(c.scale[i * kAdim + j], ct * zt[j], s);
       feats[kSdim - 3 + i] = s;
     }
-#ifdef MPPI_NN_BF16_PRODUCTS
-    // models/nn.py normalize_x, then the products' bf16 operand
+    // models/nn.py normalize_x in f32 (the bf16-products build then rounds
+    // the products' bf16 operand)
 #pragma unroll
-    for (int i = 0; i < kFeatures; ++i)
-      feats[i] = round_bf16((feats[i] - norm[i]) / norm[kFeatures + i]);
+    for (int i = 0; i < kFeatures; ++i) {
+      feats[i] = (feats[i] - norm[i]) / norm[kFeatures + i];
+#ifdef MPPI_NN_BF16_PRODUCTS
+      feats[i] = round_bf16(feats[i]);
 #endif
+    }
 #pragma unroll
     for (int q = 0; q < kFeatures / 4; ++q)
       *reinterpret_cast<float4*>(row + 4 * q) = make_float4(
@@ -809,13 +827,12 @@ __global__ void __launch_bounds__(kBlock, 2)
       delta[4 * q + 2] = v.z;
       delta[4 * q + 3] = v.w;
     }
-#ifdef MPPI_NN_BF16_PRODUCTS
-    // denormalize_y: y y_std + y_mean
+    // denormalize_y: y y_std + y_mean, the product rounded alone
 #pragma unroll
     for (int i = 0; i < kSdim; ++i)
-      delta[i] = delta[i] * norm[2 * kFeatures + kSdim + i] +
-                 norm[2 * kFeatures + i];
-#endif
+      delta[i] = __fadd_rn(
+          __fmul_rn(delta[i], norm[2 * kFeatures + kSdim + i]),
+          norm[2 * kFeatures + i]);
 #pragma unroll
     for (int i = 0; i < kSdim; ++i) x[i] += delta[i];
     if (c.renorm != 0.0f) {
@@ -908,16 +925,17 @@ int dispatch_nn(int n1, int n2, int n3, const float* consts,
 extern "C" {
 
 // scheduled: dyn ends in the tau factors c_t; half: the antithetic solve's
-// first mirrored sample, 0 for none (mppi_common.cuh). nn_mppi_bf16.cu and
+// first mirrored sample, 0 for none; solve: the solve index on the device,
+// or null for (s_lo, s_hi) (mppi_common.cuh). nn_mppi_bf16.cu and
 // nn_mppi_bfp.cu define both solves with their suffixes.
 int MPPI_ENTRY(nn_fused_solve)(int n1, int n2, int n3, const float* consts,
                    const float* dyn, const float* z, float* partials, int k,
                    int tau, int scheduled, uint32_t half, uint32_t seed_lo,
                    uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
-                   void* stream) {
+                   const unsigned long long* solve, void* stream) {
   return dispatch_nn<kFused>(n1, n2, n3, consts, dyn, z, nullptr, partials,
                              k, tau, scheduled,
-                             Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
+                             Seeds{seed_lo, seed_hi, s_lo, s_hi, half, solve},
                              static_cast<cudaStream_t>(stream));
 }
 
@@ -925,10 +943,11 @@ int MPPI_ENTRY(nn_fused_costs)(int n1, int n2, int n3, const float* consts,
                    const float* dyn, const float* z, float* costs,
                    float* partials, int k, int tau, int scheduled,
                    uint32_t half, uint32_t seed_lo, uint32_t seed_hi,
-                   uint32_t s_lo, uint32_t s_hi, void* stream) {
+                   uint32_t s_lo, uint32_t s_hi,
+                   const unsigned long long* solve, void* stream) {
   return dispatch_nn<kCosts>(n1, n2, n3, consts, dyn, z, costs, partials, k,
                              tau, scheduled,
-                             Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
+                             Seeds{seed_lo, seed_hi, s_lo, s_hi, half, solve},
                              static_cast<cudaStream_t>(stream));
 }
 

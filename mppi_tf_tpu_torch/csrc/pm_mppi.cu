@@ -1095,15 +1095,18 @@ int dispatch_solve(int sdim, int adim, int cost, int structure, int dyn_ab,
 extern "C" {
 
 // Every entry point that reads the noise takes `half`, the first mirrored
-// sample of an antithetic solve (0: none; mppi_common.cuh), and the solves
+// sample of an antithetic solve (0: none; mppi_common.cuh), and the solve
+// index as two words or, where `solve` is not null, at that device
+// address (Seeds in mppi_common.cuh), and the solves
 // take `scheduled` (1: dyn ends in the tau factors c_t) and `dynamic_ab`
 // (1: A and B scale are read from dyn, PmAB kDynAB). pm_mppi_bf16.cu
 // defines the same entry points with a _bf16 suffix (not pm_merge).
 int MPPI_ENTRY(pm_noise_dump)(float* out, int k, int n_z, uint32_t half,
                   uint32_t seed_lo, uint32_t seed_hi, uint32_t s_lo,
-                  uint32_t s_hi, void* stream) {
+                  uint32_t s_hi, const unsigned long long* solve,
+                  void* stream) {
   if (k <= 0 || n_z <= 0) return cudaErrorInvalidValue;
-  const Seeds sd{seed_lo, seed_hi, s_lo, s_hi, half};
+  const Seeds sd{seed_lo, seed_hi, s_lo, s_hi, half, solve};
   const dim3 grid((k + 255) / 256, (n_z + 3) / 4);
   MPPI_KERNEL(pm_noise_dump)<<<grid, 256, 0,
                                static_cast<cudaStream_t>(stream)>>>(
@@ -1119,11 +1122,12 @@ int MPPI_ENTRY(pm_fused_solve)(int sdim, int adim, int cost, int structure,
                    const float* dyn, const float* z, float* partials, int k,
                    int tau, int scheduled, int dynamic_ab, uint32_t half,
                    uint32_t seed_lo, uint32_t seed_hi, uint32_t s_lo,
-                   uint32_t s_hi, void* stream) {
+                   uint32_t s_hi, const unsigned long long* solve,
+                   void* stream) {
   return dispatch_solve<kFused>(
       sdim, adim, cost, structure, dynamic_ab,
       PmLaunch{consts, dyn, z, nullptr, partials, k, tau, scheduled,
-               Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
+               Seeds{seed_lo, seed_hi, s_lo, s_hi, half, solve},
                static_cast<cudaStream_t>(stream), nullptr});
 }
 
@@ -1133,11 +1137,11 @@ int MPPI_ENTRY(pm_fused_costs)(int sdim, int adim, int cost, int structure,
                    float* partials, int k, int tau, int scheduled,
                    int dynamic_ab, uint32_t half, uint32_t seed_lo,
                    uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
-                   void* stream) {
+                   const unsigned long long* solve, void* stream) {
   return dispatch_solve<kCosts>(
       sdim, adim, cost, structure, dynamic_ab,
       PmLaunch{consts, dyn, z, costs, partials, k, tau, scheduled,
-               Seeds{seed_lo, seed_hi, s_lo, s_hi, half},
+               Seeds{seed_lo, seed_hi, s_lo, s_hi, half, solve},
                static_cast<cudaStream_t>(stream), nullptr});
 }
 
@@ -1181,6 +1185,7 @@ int MPPI_ENTRY(mppi_weights)(const float* nrm, const float* costs,
                              const float* z, float* partials, int k,
                              int n_z, uint32_t half, uint32_t seed_lo,
                              uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
+                             const unsigned long long* solve,
                              void* stream) {
   if (k <= 0 || n_z <= 0) return cudaErrorInvalidValue;
   int gy = 1, group_blocks = 0;
@@ -1193,7 +1198,7 @@ int MPPI_ENTRY(mppi_weights)(const float* nrm, const float* costs,
   MPPI_KERNEL(mppi_weights)<<<grid, kBlock, smem,
                               static_cast<cudaStream_t>(stream)>>>(
       nrm, costs, z, partials, k, n_z, group_blocks,
-      Seeds{seed_lo, seed_hi, s_lo, s_hi, half});
+      Seeds{seed_lo, seed_hi, s_lo, s_hi, half, solve});
   return cudaGetLastError();
 }
 

@@ -1,8 +1,12 @@
 from .analytic import AUVEnv, PointMassEnv
+from .mjx_env import (DevicePointMassEnv, build_on_device_loop,
+                      on_device_closed_loop)
 from .runner import ClosedLoopRunner, build_model_and_cost, run_experiment
 
 __all__ = ["AUVEnv", "PointMassEnv", "ClosedLoopRunner",
-           "build_model_and_cost", "get_env", "run_experiment"]
+           "build_model_and_cost", "get_env", "run_experiment",
+           "DevicePointMassEnv", "on_device_closed_loop",
+           "build_on_device_loop"]
 
 
 def get_env(env_cfg, render: bool = False, model_cfg=None):
@@ -10,11 +14,13 @@ def get_env(env_cfg, render: bool = False, model_cfg=None):
 
     Reference: scripts/src/mujoco/simulation.py, the env named by the
     config's ``env`` key. ``analytic:point_mass`` (or a missing ``env``
-    key) selects the exact point-mass plant; ``analytic:auv`` (or a
-    missing ``env`` key with a 13-dim state) the Fossen AUV plant, with the
-    vehicle parameters from the env config's ``plant`` sub-dict or
-    ``model_cfg``. MuJoCo ``.xml`` scenes (ROADMAP item 15) and the
-    on-device ``jax:`` plant (ROADMAP item 13) are not ported yet.
+    key) selects the exact point-mass plant; ``jax:point_mass`` (the JAX
+    package's key, kept: the configs are shared) the same plant with a
+    pure ``step_fn`` for the on-device loop (``DevicePointMassEnv``);
+    ``analytic:auv`` (or a missing ``env`` key with a 13-dim state) the
+    Fossen AUV plant, with the vehicle parameters from the env config's
+    ``plant`` sub-dict or ``model_cfg``. MuJoCo ``.xml`` scenes are not
+    ported yet (ROADMAP item 15).
     """
     sdim = env_cfg.get("state-dim", 2)
     adim = env_cfg.get("action-dim", 1)
@@ -26,11 +32,9 @@ def get_env(env_cfg, render: bool = False, model_cfg=None):
     if name.startswith("mjx:"):
         raise ValueError(
             "the 'mjx:' plant was removed from the JAX package; use "
-            "'analytic:point_mass' (identical semantics for this scene)")
+            "'jax:point_mass' (identical semantics for this scene)")
     if name.startswith("jax:"):
-        raise NotImplementedError(
-            f"plant {name!r}: the on-device closed loop is not ported yet: "
-            f"ROADMAP item 13")
+        return DevicePointMassEnv(n_dof=adim, render=render)
     if name == "analytic:auv" or sdim == AUVEnv.STATE_DIM:
         plant_cfg = env_cfg.get("plant") or model_cfg
         if plant_cfg is None:

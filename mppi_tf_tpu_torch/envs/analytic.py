@@ -6,10 +6,13 @@
   LTI plant), the interleaved state [q0, v0, q1, v1, ...] and a goal site
   (reference: scripts/src/mujoco/simulation.py);
 - ``AUVEnv``: the Fossen dynamics of ``models/auv.py`` stepped at a fine
-  dt in float64 on the CPU.
+  dt in float64 on the CPU; its ``step_fn`` also steps a state on the card
+  (the on-device loop, envs/mjx_env.py).
 """
 
 from __future__ import annotations
+
+import copy
 
 import numpy as np
 import torch
@@ -76,6 +79,8 @@ class AUVEnv:
     ``AUVModel`` as the plant, stepped at a finer dt than the controller,
     in float64 on the CPU whatever device the controller uses. The 13-dim
     state is not interleaved: [x y z | qx qy qz qw | u v w p q r].
+    ``step_fn`` is pure on tensors and steps one on its own device in its
+    own dtype (the JAX package's AUVEnv.step_fn surface).
     """
 
     STATE_DIM = 13
@@ -90,6 +95,7 @@ class AUVEnv:
         self._model = get_model(cfg, dt=self.dt, action_dim=6,
                                 dtype=torch.float64, device="cpu")
         self._model.requires_grad_(False)
+        self._models = {(self._model.device, self._model.dtype): self._model}
         self._t = 0.0
         if goal is None:
             goal = np.zeros(self.STATE_DIM)
@@ -104,10 +110,22 @@ class AUVEnv:
         x[6] = 1.0
         return x
 
+    def _model_on(self, device, dtype):
+        """The plant's model on ``device`` in ``dtype``: a copy made at
+        first use and kept (an on-device loop makes it in its warm-up,
+        before a capture)."""
+        key = (torch.device(device), dtype)
+        if key not in self._models:
+            self._models[key] = copy.deepcopy(self._model).to(
+                device=key[0], dtype=dtype)
+        return self._models[key]
+
     @torch.no_grad()
     def step_fn(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-        """One plant step at the plant dt. x: [13], u: [6] -> [13]."""
-        return self._model.step(x[None, :], u[None, :])[0]
+        """One plant step at the plant dt, on x's device in x's dtype.
+        x: [13], u: [6] -> [13]."""
+        model = self._model_on(x.device, x.dtype)
+        return model.step(x[None, :], u[None, :].to(x.dtype))[0]
 
     def getTime(self) -> float:
         return self._t

@@ -6,8 +6,8 @@ physics dt until one controller dt has elapsed, and logs the transition
 to the controller's observer; with a learner it stores the transition
 and refits the model every ``train_every`` steps, handing the learned
 parameters to the controller (the JAX package's learner hook,
-``mppi_tf_tpu/envs/runner.py:54-65``). The on-device loop is not ported
-yet and raises ``NotImplementedError`` naming its ROADMAP item.
+``mppi_tf_tpu/envs/runner.py:54-65``). ``run_experiment(on_device=True)``
+runs the whole experiment in the on-device loop (``envs/mjx_env.py``).
 """
 
 from __future__ import annotations
@@ -125,6 +125,17 @@ def run_experiment(env_cfg, task_cfg, model_cfg, steps: int = 100,
     ``train_every`` > 0 builds a ``Learner`` over a copy of the model on
     the experiment's observer and refits every ``train_every`` steps.
 
+    ``on_device=True`` runs the whole experiment (solve, plant substeps,
+    pops, DMD refits) in the on-device loop (``envs/mjx_env.py``: on the
+    card's kernel route one captured CUDA graph a control period): it
+    needs a plant with a pure ``step_fn`` (env ``jax:point_mass``, the
+    analytic AUV) and no ``train_every``; substeps = round(dt / plant dt);
+    a waypoint task pops at its ``radius``; an adaptive DMD controller's
+    identified params are written back into it; the observer gets the
+    state and action rows after the run. The result then also holds
+    ``fitted_model_params`` and ``on_device_ms_per_step`` (host clock
+    around the loop, its capture and its one sync included).
+
     Returns {"states", "actions", "controller", "env", "observer",
     "learner"} (learner None without ``train_every``; observer None
     without ``log``). The caller closes the observer.
@@ -132,10 +143,6 @@ def run_experiment(env_cfg, task_cfg, model_cfg, steps: int = 100,
     from ..controller import get_controller
     from . import get_env
 
-    if on_device:
-        raise NotImplementedError(
-            "on_device: the on-device closed loop is not ported yet: "
-            "ROADMAP item 13")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -152,6 +159,9 @@ def run_experiment(env_cfg, task_cfg, model_cfg, steps: int = 100,
                             task_cfg=task_cfg, model_cfg=model_cfg)
     controller = get_controller(model, cost, env_cfg, observer=observer,
                                 seed=seed, device=device)
+    if on_device:
+        return _run_on_device(env, controller, cost, observer, env_cfg,
+                              task_cfg, steps, train_every)
     learner = None
     if train_every:
         from ..learning import Learner
@@ -165,3 +175,52 @@ def run_experiment(env_cfg, task_cfg, model_cfg, steps: int = 100,
     states, actions = runner.run(steps)
     return {"states": states, "actions": actions, "controller": controller,
             "env": env, "observer": observer, "learner": learner}
+
+
+def _run_on_device(env, controller, cost, observer, env_cfg, task_cfg,
+                   steps: int, train_every: int) -> dict:
+    """``run_experiment``'s on-device branch (the JAX package's
+    ``envs/runner.py:149-211``)."""
+    import time
+
+    from ..costs.waypoints import WayPointsCost
+    from .mjx_env import on_device_closed_loop
+
+    if train_every:
+        raise ValueError(
+            "on_device=True does not compose with train_every: the "
+            "experiment runs on the device with no host loop to train in; "
+            "run training experiments host-driven")
+    if not hasattr(env, "step_fn"):
+        raise ValueError(
+            f"{type(env).__name__} has no step_fn; --on-device needs a "
+            "device plant (env 'jax:point_mass', or the analytic AUV plant)")
+    substeps = max(1, int(round(env_cfg.get("dt", 0.1) / env.dt)))
+    x0 = np.reshape(env.getState(), (-1,))
+    # a config's waypoint mission pops on the device as the host runner
+    # pops it: at the task's 'radius' (0 or absent: no pops)
+    radius = (task_cfg.get("radius", 0.0)
+              if isinstance(cost, WayPointsCost) else 0.0) or None
+    start = time.perf_counter()
+    out = on_device_closed_loop(controller, env.step_fn, x0, steps,
+                                substeps=substeps, waypoint_radius=radius)
+    elapsed = time.perf_counter() - start
+    fitted = None
+    if len(out) == 3:
+        # the identification ran on the device: the identified (A, B)
+        # become the controller's, as a host refit's would
+        fitted = out[2]
+        controller.model_params = fitted
+    states = np.concatenate([x0[None, :],
+                             out[0].cpu().double().numpy()], axis=0)
+    actions = out[1].cpu().double().numpy()
+    if observer is not None:
+        # the rows the host loop logs, after the run: each action beside
+        # the state its solve started from (MPPI.next logs its input)
+        for s, a in zip(states[:-1], actions):
+            observer.write_control(state=s, action=a)
+            observer.advance()
+    return {"states": states, "actions": actions, "controller": controller,
+            "env": env, "observer": observer, "learner": None,
+            "fitted_model_params": fitted,
+            "on_device_ms_per_step": 1e3 * elapsed / steps}

@@ -30,8 +30,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-# the antithetic half, then (seed, solve) as 32-bit words
-_SEEDS = [_U, _U, _U, _U, _U]
+# the antithetic half, (seed, solve) as 32-bit words, then the solve index's
+# device address or null (mppi_common.cuh Seeds)
+_SEEDS = [_U, _U, _U, _U, _U, _P]
 # k, tau, scheduled
 _SOLVE = [_I, _I, _I]
 _SIGNATURES = {

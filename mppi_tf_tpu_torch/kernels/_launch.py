@@ -3,7 +3,10 @@ launch through the ctypes library and the launch counts.
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. Each launch adds one to
-``launch_counts[name]``, and nothing else does.
+``launch_counts[name]``, and nothing else does. A call made while the
+stream is being captured into a CUDA graph launches nothing: it adds one
+to ``captured_counts[name]`` instead, and the code that replays the graph
+adds its launches (``count_replays``).
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ KERNELS.update(
 EXTRA_KERNELS = {"pm_merge": ("pm_merge_stats_kernel",)}
 
 launch_counts = dict.fromkeys(KERNELS, 0)
+#: kernel nodes recorded into CUDA graphs, by entry point
+captured_counts = dict.fromkeys(KERNELS, 0)
 
 
 def kernel_symbol(entry: str, args=()) -> str:
@@ -82,9 +87,26 @@ def check(t: torch.Tensor, name: str, shape) -> None:
 
 
 def split64(v: int):
-    """(low, high) 32-bit words of a 64-bit seed or solve index."""
+    """(low, high) 32-bit words of a 64-bit seed or solve index (an int,
+    or a one-element tensor on the CPU)."""
     v = int(v) & 0xFFFFFFFFFFFFFFFF
     return v & 0xFFFFFFFF, v >> 32
+
+
+def solve_words(solve, device) -> tuple:
+    """(s_lo, s_hi, address) of a kernel's solve index: an int by value
+    (address None), or a one-element int64 tensor on ``device`` that the
+    kernel reads when it draws (words 0): what a replayed CUDA graph needs,
+    whose by-value arguments are frozen at capture."""
+    if not isinstance(solve, torch.Tensor):
+        return (*split64(solve), None)
+    if solve.dtype != torch.int64 or solve.numel() != 1:
+        raise ValueError(f"a solve index tensor must hold one int64, got "
+                         f"{solve.dtype} {tuple(solve.shape)}")
+    if solve.device != torch.device(device):
+        raise ValueError(f"the solve index lies on {solve.device}, the "
+                         f"kernel runs on {device}")
+    return 0, 0, solve.data_ptr()
 
 
 def launch(name: str, device, *args) -> None:
@@ -97,4 +119,14 @@ def launch(name: str, device, *args) -> None:
         rc = getattr(lib, name)(*args, stream)
     if rc != 0:
         raise KernelLaunchError(f"{name} failed: {_build.error_string(rc)}")
-    launch_counts[name] += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured_counts[name] += 1
+    else:
+        launch_counts[name] += 1
+
+
+def count_replays(nodes: dict, replays: int) -> None:
+    """Add the launches of ``replays`` replays of a graph whose capture
+    recorded ``nodes`` ({entry point: kernel nodes})."""
+    for name, n in nodes.items():
+        launch_counts[name] += n * replays

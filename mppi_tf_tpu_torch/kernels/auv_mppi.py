@@ -51,7 +51,7 @@ import torch
 
 from ..ops import quaternion as quat
 from . import _build
-from ._launch import check, launch, on_card, split64
+from ._launch import check, launch, on_card, solve_words, split64
 from .errors import KernelUnsupportedError
 from .pm_mppi import (BLOCK, STATS, TwoPhaseSolve, _sched_block,
                       bf16_const, bf16_dot, block_partials,
@@ -491,7 +491,8 @@ def auv_fused_solve(consts: AuvConsts, dyn: torch.Tensor, k: int, tau: int,
            STRUCTURES[consts.structure], consts.packed.ctypes.data,
            dyn.data_ptr(),
            None if z is None else z.data_ptr(), partials.data_ptr(), k, tau,
-           *variant_args(consts, k), *split64(seed), *split64(solve))
+           *variant_args(consts, k), *split64(seed),
+           *solve_words(solve, dyn.device))
     return partials
 
 
@@ -510,7 +511,7 @@ def auv_fused_costs(consts: AuvConsts, dyn: torch.Tensor, k: int, tau: int,
            dyn.data_ptr(),
            None if z is None else z.data_ptr(), costs.data_ptr(),
            partials.data_ptr(), k, tau, *variant_args(consts, k),
-           *split64(seed), *split64(solve))
+           *split64(seed), *solve_words(solve, dyn.device))
     return costs, partials
 
 

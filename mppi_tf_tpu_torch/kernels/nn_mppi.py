@@ -18,18 +18,26 @@ Replaces the Pallas kernel of ``mppi_tf_tpu/kernels/nn_mppi.py``
 Phase B (``_fused_nn_weights``) is ``pm_mppi.mppi_weights`` at adim 6, and
 the noise is pm_mppi's Philox stream at adim 6: ``pm_noise_dump(seed,
 solve, k, tau, 6)`` is exactly what these kernels consume. The TPU
-kernel's per-step noise layout is not copied. The MLP weights are runtime
-data with the X/Y normalisers folded in on the device (``pack_dyn``), so a
-weight update reaches the kernel with no rebuild. Source:
-``csrc/nn_mppi.cu``.
+kernel's per-step noise layout is not copied. The MLP weights and the X/Y
+normalisers are runtime data in ``dyn`` (``pack_dyn``), so a weight update
+reaches the kernel with no rebuild. Source: ``csrc/nn_mppi.cu``.
+
+The normalisers are not folded into the first layer, as the TPU kernel
+folds them (W1 / x_std, ``mppi_tf_tpu/kernels/nn_mppi.py:498-509``): a
+feature that is constant over the learner's buffer has x_std = 1e-8, its
+folded weights are 1e8 W1, and the first layer's f32 sum cancels. Every
+build normalises the features in f32 as the XLA route does,
+(f - x_mean) / x_std, and denormalises the output as y y_std + y_mean
+(``models/nn.py``), which the port is held against (ROADMAP §3).
 
 Two more builds of that source:
 
 - ``compute_dtype="bfloat16"``, the ``*_bf16`` kernels (the JAX kernel's
-  bf16 blocks, :148-149, :191-325): the folded weights and biases, x0,
-  useq and the normals rounded to bf16; the force u_t + c_t (scale z_t),
-  every MLP chain acc + w h (each product and sum rounded), the ReLU and
-  the state update in bf16; the renormalisation's rsqrt, the
+  bf16 blocks, :148-149, :191-325): the weights and biases, x0, useq and
+  the normals rounded to bf16; the force u_t + c_t (scale z_t), every MLP
+  chain acc + w h (each product and sum rounded), the ReLU and the state
+  update in bf16; the normalisation of the features and of the output in
+  f32, each rounded to bf16; the renormalisation's rsqrt, the
   ``StaticQuatCost`` (against the unrounded goal) and the cost sum in f32,
   the z terms bf16 values added to it;
 - a model whose ``compute_dtype`` is bf16 at ``compute_dtype="float32"``,
@@ -37,9 +45,8 @@ Two more builds of that source:
   ``mma.sync`` on the tensor cores), as the JAX
   XLA path computes that model (``models/nn.py::mlp_apply``), not as the
   JAX kernel does, which ignores the model's compute_dtype (ROADMAP §3).
-  The normalisers ride unfolded in ``dyn`` (``NNDyn.norm``); the features
-  are normalised in f32 and rounded, the weights are packed rounded, each
-  hidden output is rounded as the next layer's input.
+  The normalised features are rounded, the weights are packed rounded,
+  each hidden output is rounded as the next layer's input.
 """
 
 from __future__ import annotations
@@ -50,7 +57,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ._launch import check, launch, on_card, split64
+from ._launch import check, launch, on_card, solve_words, split64
 from .auv_mppi import _quat_cost
 from .errors import KernelUnsupportedError
 from .pm_mppi import (BLOCK, STATS, TwoPhaseSolve, _sched_block,
@@ -74,23 +81,19 @@ class NNDyn:
     """Layout of the per-solve array ``dyn`` (csrc/nn_mppi.cu ``Topo``):
     each layer as W^T rows [fan_out, fan_in] and its biases, the block
     padded to a multiple of 4 floats (16-byte aligned for the kernel's
-    float4 loads), then x0, goal, useq, rhs_z and u_half; a scheduled
-    solve appends the tau factors c_t. The bf16-products kernels
-    (``bf16_products``) read the normalisers x_mean, x_std, y_mean and
-    y_std, padded, between the layers and x0 (``norm``)."""
+    float4 loads), the normalisers x_mean, x_std, y_mean and y_std, padded
+    (``norm``), then x0, goal, useq, rhs_z and u_half; a scheduled solve
+    appends the tau factors c_t."""
 
-    def __init__(self, tau: int, sizes, scheduled: bool = False,
-                 bf16_products: bool = False):
+    def __init__(self, tau: int, sizes, scheduled: bool = False):
         self.sizes = tuple(int(s) for s in sizes)
         self.layers = []                 # (w_at, b_at, fan_in, fan_out)
         off = 0
         for fan_in, fan_out in zip(self.sizes[:-1], self.sizes[1:]):
             self.layers.append((off, off + fan_out * fan_in, fan_in, fan_out))
             off += _round4(fan_out * fan_in + fan_out)
-        self.norm = None
-        if bf16_products:
-            self.norm = off
-            off += _round4(2 * self.sizes[0] + 2 * self.sizes[-1])
+        self.norm = off
+        off += _round4(2 * self.sizes[0] + 2 * self.sizes[-1])
         self.weights = off
         self.x0 = off                    # 13
         self.goal = off + SDIM           # 13
@@ -129,7 +132,7 @@ class NnConsts:
             name, self.compute_dtype)
 
     def layout(self, tau: int) -> NNDyn:
-        return NNDyn(tau, self.sizes, self.scheduled, self.bf16_products)
+        return NNDyn(tau, self.sizes, self.scheduled)
 
     @property
     def hidden(self) -> tuple:
@@ -151,14 +154,22 @@ class NnConsts:
 # plain versions
 # ---------------------------------------------------------------------------
 
+def _normalisers(dyn: torch.Tensor, lay: NNDyn) -> tuple:
+    """(x_mean, x_std, y_mean, y_std) from ``dyn``'s normaliser block."""
+    nf, ns = lay.sizes[0], lay.sizes[-1]
+    return tuple(dyn[lay.norm + o:lay.norm + o + n] for o, n in (
+        (0, nf), (nf, nf), (2 * nf, ns), (2 * nf + ns, ns)))
+
+
 def sample_costs_plain(consts: NnConsts, dyn: torch.Tensor,
                        z: torch.Tensor) -> torch.Tensor:
-    """Per-sample rollout costs [k] in the kernel's algebra: the folded MLP
-    of ``NNAUVModel.step`` and the ``StaticQuatCost`` over
+    """Per-sample rollout costs [k] in the kernel's algebra: the MLP of
+    ``NNAUVModel.step`` between the normalisation of its features and the
+    denormalisation of its output, and the ``StaticQuatCost`` over
     eps = c_t scale @ z, with Sigma^-1, u and the schedule folded into
     dyn; at bf16 ``_sample_costs_bf16``. The bf16-products build rounds the
     normalised features and each hidden output to bf16 (its weights come
-    rounded in ``dyn``) and denormalises the output."""
+    rounded in ``dyn``)."""
     if consts.compute_dtype == "bfloat16":
         return _sample_costs_bf16(consts, dyn, z)
     tau, _, k = z.shape
@@ -177,24 +188,21 @@ def sample_costs_plain(consts: NnConsts, dyn: torch.Tensor,
     rhs_z = dyn[lay.rhs_z:lay.u_half].reshape(tau, ADIM)
 
     bfp = consts.bf16_products
-    if bfp:
-        nf, ns = consts.sizes[0], consts.sizes[-1]
-        x_mean, x_std, y_mean, y_std = (
-            dyn[lay.norm + o:lay.norm + o + n] for o, n in (
-                (0, nf), (nf, nf), (2 * nf, ns), (2 * nf + ns, ns)))
+    x_mean, x_std, y_mean, y_std = _normalisers(dyn, lay)
     x = dyn[lay.x0:lay.goal].expand(k, SDIM)
     cost = torch.zeros(k, dtype=dyn.dtype, device=dyn.device)
     for t in range(tau):
         zt = z[t].T                                     # [k, 6]
         h = torch.cat([x[:, 3:], useq[t] + (ct[t] * zt) @ scale.T], dim=-1)
+        h = (h - x_mean) / x_std
         if bfp:
-            h = round_bf16((h - x_mean) / x_std)
+            h = round_bf16(h)
         for w, b in layers[:-1]:
             h = torch.relu(h @ w + b)
             if bfp:
                 h = round_bf16(h)
         y = h @ layers[-1][0] + layers[-1][1]
-        x = x + (y * y_std + y_mean if bfp else y)
+        x = x + (y * y_std + y_mean)
         if consts.renorm:
             qn = torch.rsqrt(torch.clamp(torch.sum(
                 x[:, 3:7] ** 2, dim=-1, keepdim=True), min=1e-24))
@@ -208,10 +216,11 @@ def sample_costs_plain(consts: NnConsts, dyn: torch.Tensor,
 def _sample_costs_bf16(consts: NnConsts, dyn: torch.Tensor,
                        z: torch.Tensor) -> torch.Tensor:
     """The bf16 kernel's per-sample costs [k], op for op (nn_mppi.cu at
-    Val = bf16x2): bf16 state columns, each layer's chains run over its
-    inputs in order for all outputs at once, the f32 rsqrt and
-    ``StaticQuatCost`` on the widened state, the z terms as bf16 values
-    summed in f32."""
+    Val = bf16x2): bf16 state columns, the features normalised in f32 and
+    rounded, each layer's chains run over its inputs in order for all
+    outputs at once, the output denormalised in f32 and rounded, the f32
+    rsqrt and ``StaticQuatCost`` on the widened state, the z terms as bf16
+    values summed in f32."""
     tau, _, k = z.shape
     lay = consts.layout(tau)
     d = dyn.to(torch.float32)
@@ -231,6 +240,7 @@ def _sample_costs_bf16(consts: NnConsts, dyn: torch.Tensor,
     rhs_z = r(d[lay.rhs_z:lay.u_half]).reshape(tau, ADIM)
     ct = sched_factors(d, lay, tau)
     nc_half = torch.as_tensor(np.float32(consts.nc_half), device=dev)
+    x_mean, x_std, y_mean, y_std = _normalisers(d, lay)
 
     def q(x):
         return _quat_cost(Q, goal, torch.stack(x, dim=-1).float())
@@ -243,12 +253,14 @@ def _sample_costs_bf16(consts: NnConsts, dyn: torch.Tensor,
         c_t = r(torch.as_tensor(ct[t], dtype=torch.float32, device=dev))
         u = [useq[t, i] + c_t * bf16_dot(scale[i], zt) for i in range(ADIM)]
         h = torch.stack(x[3:] + u, dim=-1)                  # [k, 16] bf16
+        h = r((h.float() - x_mean) / x_std)
         for li, (w, b) in enumerate(layers):
             acc = b.expand(k, -1)
             for i in range(w.shape[0]):
                 acc = acc + h[:, i:i + 1] * w[i]
             h = torch.relu(acc) if li < len(layers) - 1 else acc
-        x = [xi + h[:, i] for i, xi in enumerate(x)]
+        y = r(h.float() * y_std + y_mean)
+        x = [xi + y[:, i] for i, xi in enumerate(x)]
         if consts.renorm:
             s2 = x[3] * x[3] + x[4] * x[4] + x[5] * x[5] + x[6] * x[6]
             inv = r(torch.rsqrt(torch.clamp(s2.float(), min=1e-24)))
@@ -321,7 +333,7 @@ def nn_fused_solve(consts: NnConsts, dyn: torch.Tensor, k: int, tau: int,
            consts.packed.ctypes.data,
            dyn.data_ptr(), None if z is None else z.data_ptr(),
            partials.data_ptr(), k, tau, *variant_args(consts, k),
-           *split64(seed), *split64(solve))
+           *split64(seed), *solve_words(solve, dyn.device))
     return partials
 
 
@@ -338,7 +350,8 @@ def nn_fused_costs(consts: NnConsts, dyn: torch.Tensor, k: int, tau: int,
            consts.packed.ctypes.data,
            dyn.data_ptr(), None if z is None else z.data_ptr(),
            costs.data_ptr(), partials.data_ptr(), k, tau,
-           *variant_args(consts, k), *split64(seed), *split64(solve))
+           *variant_args(consts, k), *split64(seed),
+           *solve_words(solve, dyn.device))
     return costs, partials
 
 
@@ -346,30 +359,10 @@ def nn_fused_costs(consts: NnConsts, dyn: torch.Tensor, k: int, tau: int,
 # solve object
 # ---------------------------------------------------------------------------
 
-def fold_layers(model) -> list:
-    """The model's layers as (W [fan_in, fan_out], b) with the X/Y
-    normalisers folded into the first and last (JAX
-    ``FusedNNMPPI.pack_dyn``): W1' = W1 / x_std, b1' = b1 - (x_mean /
-    x_std) W1; W_L' = W_L y_std, b_L' = b_L y_std + y_mean. Torch ops on
-    the model's device, no host sync."""
-    out = []
-    last = len(model.net) - 1
-    for i, layer in enumerate(model.net):
-        w, b = layer.w.detach(), layer.b.detach()
-        if i == 0:
-            b = b - (model.x_mean / model.x_std) @ w
-            w = w / model.x_std[:, None]
-        if i == last:
-            w = w * model.y_std[None, :]
-            b = b * model.y_std + model.y_mean
-        out.append((w, b))
-    return out
-
-
 class FusedNNMPPI(TwoPhaseSolve):
     """Fused solve for MPPI over NNAUVModel + StaticQuatCost: packs ``dyn``
-    (the folded MLP weights, the state, the live goal and the nominal
-    sequence's action-cost terms), runs ``nn_fused_solve`` + ``pm_merge``,
+    (the MLP weights and normalisers, the state, the live goal and the
+    nominal sequence's action-cost terms), runs ``nn_fused_solve`` + ``pm_merge``,
     or the two phases ``nn_fused_costs`` and ``mppi_weights``, and un-folds
     the weighted normals to action units.
 
@@ -429,29 +422,23 @@ class FusedNNMPPI(TwoPhaseSolve):
 
     def pack_dyn(self, x0: torch.Tensor, useq: torch.Tensor) -> torch.Tensor:
         """The per-solve ``dyn`` array ([NNDyn.size], the model's dtype):
-        the live weights folded with the normalisers (``fold_layers``; for
-        the bf16-products build the weights rounded to bf16 and the
-        normalisers after them), then the state, goal, nominal sequence,
+        the live weights (rounded to bf16 for the bf16-products build) and
+        biases, the normalisers, then the state, goal, nominal sequence,
         its action-cost terms and the schedule."""
-        dtype = self.model.dtype
+        dtype, m = self.model.dtype, self.model
         useq = useq.to(dtype).reshape(self.tau, ADIM)
         rhs_z, u_half = self._action_terms(useq)
         parts = []
-        if self.consts.bf16_products:    # rounded weights, normalisers
-            m = self.model
-            layers = [(round_bf16(layer.w.detach()), layer.b.detach())
-                      for layer in m.net]
-            norm = [m.x_mean, m.x_std, m.y_mean, m.y_std]
-        else:
-            layers, norm = fold_layers(self.model), []
-        for w, b in layers:
+        for layer in m.net:
+            w, b = layer.w.detach(), layer.b.detach()
+            if self.consts.bf16_products:
+                w = round_bf16(w)
             n = w.numel() + b.numel()
-            parts += [w.T.reshape(-1), b,
-                      w.new_zeros(_round4(n) - n)]
-        if norm:
-            n = sum(v.numel() for v in norm)
-            parts += [v.to(dtype).reshape(-1) for v in norm] + [
-                norm[0].new_zeros(_round4(n) - n, dtype=dtype)]
+            parts += [w.T.reshape(-1), b, w.new_zeros(_round4(n) - n)]
+        norm = [m.x_mean, m.x_std, m.y_mean, m.y_std]
+        n = sum(v.numel() for v in norm)
+        parts += [v.to(dtype).reshape(-1) for v in norm] + [
+            norm[0].new_zeros(_round4(n) - n, dtype=dtype)]
         return torch.cat(parts + [
             x0.to(dtype).reshape(SDIM), self.cost.goal.reshape(-1),
             useq.reshape(-1), rhs_z.reshape(-1), u_half.reshape(1),

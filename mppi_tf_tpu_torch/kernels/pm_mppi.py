@@ -85,6 +85,11 @@ writes is the f32 normal rounded to bf16. The plain bf16 versions run the
 same ops on ``torch.bfloat16`` tensors (PyTorch computes a bf16 op in f32
 and rounds once, as the kernels do).
 
+The solve index s of every wrapper that reads the noise is an int or a
+one-element int64 tensor on the kernel's device, which the kernel reads
+when it draws (``_launch.solve_words``): the same bits either way, and the
+form a replayed CUDA graph needs (``envs/mjx_env.py``).
+
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises. Each launch adds one to
 ``launch_counts[name]`` (``kernels/_launch.py``).
@@ -100,7 +105,7 @@ import numpy as np
 import torch
 
 from ._launch import (check, launch, launch_counts, on_card,
-                      reset_launch_counts, split64)
+                      reset_launch_counts, solve_words, split64)
 from .errors import KernelUnsupportedError
 
 # launch_counts and reset_launch_counts are re-exported for callers of
@@ -625,7 +630,7 @@ def pm_noise_dump(seed: int, solve: int, k: int, tau: int, adim: int,
         raise ValueError(f"unsupported device {device}")
     out = torch.empty((tau, adim, k), dtype=torch.float32, device=device)
     launch(name, device, out.data_ptr(), k, tau * adim, half,
-           *split64(seed), *split64(solve))
+           *split64(seed), *solve_words(solve, out.device))
     return out
 
 
@@ -651,12 +656,12 @@ def variant_args(consts, k: int):
     return int(consts.scheduled), antithetic_half(k, consts.antithetic)
 
 
-def _pm_launch_args(consts, k: int, seed: int, solve: int) -> tuple:
+def _pm_launch_args(consts, k: int, seed: int, solve, device) -> tuple:
     """scheduled, dynamic_ab, half, seed and solve words of a point-mass
-    solve's launch."""
+    solve's launch (``_launch.solve_words``)."""
     scheduled, half = variant_args(consts, k)
     return (scheduled, int(consts.dynamic_ab), half, *split64(seed),
-            *split64(solve))
+            *solve_words(solve, device))
 
 
 def pm_fused_solve(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
@@ -675,7 +680,7 @@ def pm_fused_solve(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
            adim, COST_KINDS[consts.cost_kind], STRUCTURES[consts.structure],
            consts.packed.ctypes.data, dyn.data_ptr(),
            None if z is None else z.data_ptr(), partials.data_ptr(), k, tau,
-           *_pm_launch_args(consts, k, seed, solve))
+           *_pm_launch_args(consts, k, seed, solve, dyn.device))
     return partials
 
 
@@ -695,7 +700,7 @@ def pm_fused_costs(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
            consts.packed.ctypes.data, dyn.data_ptr(),
            None if z is None else z.data_ptr(), costs.data_ptr(),
            partials.data_ptr(), k, tau,
-           *_pm_launch_args(consts, k, seed, solve))
+           *_pm_launch_args(consts, k, seed, solve, dyn.device))
     return costs, partials
 
 
@@ -722,7 +727,7 @@ def mppi_weights(nrm: torch.Tensor, costs: torch.Tensor, tau: int,
     launch(name, costs.device, nrm.data_ptr(), costs.data_ptr(),
            None if z is None else z.data_ptr(), partials.data_ptr(), k,
            tau * adim, antithetic_half(k, antithetic), *split64(seed),
-           *split64(solve))
+           *solve_words(solve, costs.device))
     return partials
 
 
@@ -817,6 +822,13 @@ class TwoPhaseSolve:
     def _cost_offset(self):
         """The constant the kernel's costs lack, or None."""
         return None
+
+    def forget_cached_terms(self) -> None:
+        """Drop whatever the solve derived from the cost's buffers and
+        keyed on their host-side versions, so that the next solve derives
+        it from the buffers again: a CUDA graph that changes the buffers
+        (the on-device loop's pops) bumps no version, and one captured
+        from a cached value would replay it stale."""
 
     def template_args(self, entry: str) -> tuple:
         """The integer template arguments of the kernel that entry point
@@ -1026,6 +1038,9 @@ class FusedPointMassMPPI(TwoPhaseSolve):
                                           (self.tau + 1) * c))
             self._wp_key = key
         return self._wp_terms
+
+    def forget_cached_terms(self) -> None:
+        self._wp_key = None
 
     def _goal(self) -> torch.Tensor:
         """dyn's goal: the static goal, the waypoint queue's effective goal,

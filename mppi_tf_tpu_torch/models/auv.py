@@ -119,6 +119,10 @@ class AUVModel(ModelBase):
         buf("lin_damp", lin_damp)
         buf("lin_damp_fwd", lin_damp_fwd)
         buf("quad_damp", np.diag(quad_damp))
+        # the world z axis, kept on the model's device: built per call it
+        # would be a host-to-device copy, which a CUDA graph cannot capture
+        self.register_buffer("unit_z", torch.tensor(
+            [0.0, 0.0, 1.0], dtype=dtype, device=device), persistent=False)
         self.mass = nn.Parameter(torch.tensor(mass, dtype=dtype,
                                               device=device))
         self.inertial = nn.Parameter(torch.tensor(
@@ -199,7 +203,7 @@ class AUVModel(ModelBase):
     def restoring_forces(self, rot_btoi: torch.Tensor) -> torch.Tensor:
         """Gravity and buoyancy wrench in the body frame.
         rot: [k, 3, 3] -> [k, 6]. Reference: auv_model.py:450-476."""
-        unit_z = rot_btoi.new_tensor([0.0, 0.0, 1.0])
+        unit_z = self.unit_z.to(rot_btoi.dtype)
         rot_itob = rot_btoi.transpose(-1, -2)
         fbg = rot_itob @ (-self.mass * GRAVITY * unit_z)
         fbb = rot_itob @ (self.buoyancy * unit_z)

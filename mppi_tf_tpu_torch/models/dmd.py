@@ -3,7 +3,7 @@
 A discrete linear model x' = A x + B u identified from observed
 transitions by DMDc (Proctor, Brunton & Kutz, SIAM J. Appl. Dyn. Syst.
 15(1), 2016): stack the snapshot matrix Omega = [X | U] (one transition a
-row), take its thin SVD, and read the operator off the pseudo-inverse,
+row) and read the operator off its pseudo-inverse,
 
     [A B] = Xn^T pinv(Omega)^T,  pinv by the rank-r truncated SVD with
     Tikhonov-damped singular values s / (s^2 + reg).
@@ -16,9 +16,20 @@ new ``{"A", "B"}`` tensors and leaves the model as it is; the controller
 the kernel path the (A, B) ride in the solve's ``dyn`` array
 (``kernels/pm_mppi.FusedLTIMPPI``), so a refit is new data for the same
 kernel.
+
+Without truncation (``rank`` None) the damped-SVD solution
+V diag(s / (s^2 + reg)) U^T Xn is the ridge solution
+(Omega^T Omega + reg I)^-1 Omega^T Xn, and ``fit`` computes it by a
+Householder QR of the stacked [Omega; sqrt(reg) I]: without forming
+Omega^T Omega (so the condition number is not squared), and without the
+host sync of ``torch.linalg.svd`` on the card, so that the on-device loop
+(``envs/mjx_env.py``) captures the refit into a CUDA graph. Only a
+truncated fit (``rank`` set) takes the SVD.
 """
 
 from __future__ import annotations
+
+import math
 
 from typing import Optional
 
@@ -78,12 +89,13 @@ class DMDModel(ModelBase):
 
     @torch.no_grad()
     def fit(self, X, U, Xn) -> dict:
-        """Identify (A, B) from transitions by truncated-SVD DMDc.
+        """Identify (A, B) from transitions by DMDc: the ridge least
+        squares by QR at full rank, the truncated SVD at ``rank``.
 
         X: [n, sDim] states, U: [n, aDim] actions, Xn: [n, sDim] successor
         states (the replay buffer's layout). Runs in the model's dtype on
         the device of the inputs; returns {"A", "B"} and leaves the model
-        as it is.
+        as it is. At full rank it neither syncs nor allocates on the host.
         """
         X, U, Xn = self._as(X), self._as(U), self._as(Xn)
         sdim, adim = self._state_dim, self._action_dim
@@ -95,14 +107,43 @@ class DMDModel(ModelBase):
             raise ValueError(f"Xn {tuple(Xn.shape)} must match X "
                              f"{tuple(X.shape)}")
         omega = torch.cat([X, U], dim=1)                 # [n, s+a]
-        u_svd, s, vt = torch.linalg.svd(omega, full_matrices=False)
-        if self._rank is not None:
-            u_svd, s, vt = (u_svd[:, :self._rank], s[:self._rank],
-                            vt[:self._rank])
-        s_inv = s / (s * s + self._reg)                  # damped 1/s
-        # G = [A B]:  G^T = pinv(Omega) @ Xn = V s^-1 U^T Xn
-        g = ((vt.T * s_inv) @ (u_svd.T @ Xn)).T
+        g = (self._ridge(omega, Xn) if self._rank is None
+             else self._truncated(omega, Xn))            # G = [A B]
         return {"A": g[:, :sdim], "B": g[:, sdim:]}
+
+    def _truncated(self, omega, Xn) -> torch.Tensor:
+        """G from the rank-truncated SVD: G^T = V s^-1 U^T Xn with the
+        damped 1/s."""
+        u_svd, s, vt = torch.linalg.svd(omega, full_matrices=False)
+        u_svd, s, vt = (u_svd[:, :self._rank], s[:self._rank],
+                        vt[:self._rank])
+        s_inv = s / (s * s + self._reg)
+        return ((vt.T * s_inv) @ (u_svd.T @ Xn)).T
+
+    def _ridge(self, omega, Xn) -> torch.Tensor:
+        """G from the ridge least squares: d = sDim + aDim Householder
+        reflections of M = [Omega; sqrt(reg) I] ([n + d, d], applied to
+        [Xn; 0] too), then R G^T = Q^T [Xn; 0] by ``solve_triangular``."""
+        sdim = self._state_dim
+        d = omega.shape[1]
+        eye = torch.eye(d, dtype=omega.dtype, device=omega.device)
+        m = torch.cat([omega, math.sqrt(self._reg) * eye])
+        y = torch.cat([Xn, Xn.new_zeros(d, sdim)])
+        for j in range(d):
+            x = m[j:, j]
+            norm = torch.linalg.vector_norm(x)
+            v = x.clone()
+            v[0] = v[0] + torch.where(x[0] >= 0, norm, -norm)
+            beta = 2.0 / (v @ v)
+            m[j:, j:] -= (beta * v)[:, None] * (v @ m[j:, j:])[None, :]
+            y[j:] -= (beta * v)[:, None] * (v @ y[j:])[None, :]
+        return torch.linalg.solve_triangular(torch.triu(m[:d]), y[:d],
+                                             upper=True).T
+
+    @property
+    def rank(self):
+        """The SVD truncation, or None (full rank: ``fit`` takes the QR)."""
+        return self._rank
 
     def fit_from_buffer(self, rb) -> dict:
         """``fit`` over everything in a ``learning.ReplayBuffer``, on the

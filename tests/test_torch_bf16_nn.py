@@ -59,14 +59,18 @@ def _port_model(mp, hidden, compute_dtype=None):
 
 
 def test_plain_bf16_costs_match_pallas_bf16(exact_jax):
-    """(8, 8) MLP at K=64, H=3, with non-trivial normalisers folded into
-    the weights: the criterion, agreement to f32 rounding of the cost, and
-    the f32 version failing the criterion."""
+    """(8, 8) MLP at K=64, H=3: the criterion, agreement to f32 rounding
+    of the cost, and the f32 version failing the criterion. The port's
+    kernels normalise the features in f32 where the JAX kernel folds the
+    normalisers into the weights (ROADMAP §3), so the two compute the same
+    bf16 rollout at unit normalisers, where the fold is exact; non-trivial
+    normalisers are held against the XLA route by
+    test_bf16_normalisers_track_the_f32_rollout."""
     hidden, k, tau = (8, 8), 64, 3
     z, x0, useq = _inputs(k, tau)
     jmodel = JNNAUVModel(action_dim=6, dt=0.1, hidden=hidden, seed=4)
     jcost = jget_cost(TASK, lam=LAM, gamma=GAMMA, upsilon=UPS, sigma=SIGMA)
-    mp = _mp_with_stats(jmodel)
+    mp = jmodel.init_params()
     model = _port_model(mp, hidden)
     cost = get_cost(TASK, lam=LAM, gamma=GAMMA, upsilon=UPS, sigma=SIGMA)
     out = {}
@@ -89,6 +93,46 @@ def test_plain_bf16_costs_match_pallas_bf16(exact_jax):
                      out["jax", "bfloat16"], out["jax", "float32"])
     np.testing.assert_allclose(out["port", "bfloat16"],
                                out["jax", "bfloat16"], rtol=COST_RTOL)
+
+
+def test_bf16_normalisers_track_the_f32_rollout(exact_jax):
+    """With non-trivial normalisers the port's bf16 costs (features
+    normalised in f32, then rounded) stand no farther from the f32 XLA
+    rollout of the same model than the JAX bf16 kernel's (normalisers
+    folded into the weights) do, within a factor of 2, and differ from
+    it by bf16 rounding alone."""
+    hidden, k, tau = (8, 8), 64, 3
+    z, x0, useq = _inputs(k, tau)
+    jmodel = JNNAUVModel(action_dim=6, dt=0.1, hidden=hidden, seed=4)
+    jcost = jget_cost(TASK, lam=LAM, gamma=GAMMA, upsilon=UPS, sigma=SIGMA)
+    mp = _mp_with_stats(jmodel)
+    ctrl = JMPPI(jmodel, jcost, k=k, tau=tau, lam=LAM, upsilon=UPS,
+                 sigma=SIGMA)
+    eps = np.einsum("ij,tjk->kti", UPS * SIGMA, z).astype(np.float32)
+    xla = np.asarray(ctrl._rollout(
+        jnp.asarray(x0, jnp.float32), jnp.asarray(useq), jnp.asarray(eps),
+        mp, ctrl._cparams), np.float64)
+    jf = jnn.FusedNNMPPI(jmodel, jcost, k=k, tau=tau, lam=LAM, upsilon=UPS,
+                         sigma=SIGMA, tile=TILE, interpret=True,
+                         compute_dtype="bfloat16")
+    c, _ = jf.costs_phase(0, x0, useq, mp, jcost.init_params(),
+                          z=jnp.asarray(jnn.chunk_noise_nn(z, TILE)),
+                          use_prng=False)
+    jax16 = np.asarray(c, np.float64).reshape(-1)[:k]
+    f = nnk.FusedNNMPPI(_port_model(mp, hidden),
+                        get_cost(TASK, lam=LAM, gamma=GAMMA, upsilon=UPS,
+                                 sigma=SIGMA),
+                        k=k, tau=tau, lam=LAM, upsilon=UPS, sigma=SIGMA,
+                        compute_dtype="bfloat16")
+    c, _ = f.costs_phase(torch.tensor(x0, dtype=torch.float32),
+                         torch.as_tensor(useq), z=torch.as_tensor(z))
+    port16 = c.double().numpy()
+    gap_port = np.abs(port16 - xla).mean()
+    gap_jax = np.abs(jax16 - xla).mean()
+    print(f"mean |bf16 - f32 XLA|: port {gap_port:.4g}, JAX kernel "
+          f"{gap_jax:.4g}")
+    assert 0.0 < gap_port <= 2.0 * gap_jax
+    np.testing.assert_allclose(port16, xla, rtol=5e-2)
 
 
 @pytest.mark.parametrize("hidden", [(8, 8), (32, 32, 32)])
@@ -137,7 +181,7 @@ def test_bf16_products_model_matches_jax_xla(hidden):
 def test_bf16_products_layout_and_weights():
     """The bf16-products dyn: the unfolded weights rounded to bf16, the f32
     biases, then x_mean, x_std, y_mean, y_std padded to 4 floats before
-    x0; the bf16 build still folds its f32 weights."""
+    x0; the bf16 build has the same layout with its weights unrounded."""
     model = pnn.NNAUVModel(hidden=(8, 8), compute_dtype=torch.bfloat16)
     model.set_normalization(0.1, 2.0, 0.05, 0.5)
     cost = get_cost(TASK, lam=LAM, gamma=GAMMA, upsilon=UPS, sigma=SIGMA)
@@ -155,7 +199,11 @@ def test_bf16_products_layout_and_weights():
     torch.testing.assert_close(norm[:58], torch.cat([
         model.x_mean, model.x_std, model.y_mean, model.y_std]))
     b16 = nnk.FusedNNMPPI(model, cost, compute_dtype="bfloat16", **kw)
-    assert not b16.consts.bf16_products and b16.consts.layout(2).norm is None
+    assert not b16.consts.bf16_products and b16.consts.layout(2).norm == \
+        lay.norm
+    dyn16 = b16.pack_dyn(torch.zeros(13), torch.zeros(2, 6))
+    assert torch.equal(dyn16[w_at:b_at].reshape(fan_out, fan_in).T, w)
+    assert torch.equal(dyn16[lay.norm:], dyn[lay.norm:])
     assert b16.consts.entry("nn_fused_solve") == "nn_fused_solve_bf16"
 
 

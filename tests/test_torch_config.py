@@ -17,8 +17,8 @@ from mppi_tf_tpu.cfg import config as jconfig
 from mppi_tf_tpu.envs.runner import build_model_and_cost as jbuild
 from mppi_tf_tpu_torch import cli
 from mppi_tf_tpu_torch.cfg import config
-from mppi_tf_tpu_torch.envs import (AUVEnv, PointMassEnv, get_env,
-                                    run_experiment)
+from mppi_tf_tpu_torch.envs import (AUVEnv, DevicePointMassEnv,
+                                    PointMassEnv, get_env, run_experiment)
 from mppi_tf_tpu_torch.envs.runner import build_model_and_cost
 from mppi_tf_tpu_torch.interop import to_jax_params
 
@@ -115,8 +115,8 @@ def test_get_env_builds_and_refuses():
         get_env(uuv)
     with pytest.raises(NotImplementedError, match="item 15"):
         get_env({"env": "../envs/point_mass3d.xml"})
-    with pytest.raises(NotImplementedError, match="item 13"):
-        get_env({"env": "jax:point_mass"})
+    jax_env = get_env({"env": "jax:point_mass", "action-dim": 3})
+    assert isinstance(jax_env, DevicePointMassEnv) and jax_env.n_dof == 3
     with pytest.raises(ValueError, match="mjx"):
         get_env({"env": "mjx:point_mass"})
 
@@ -214,23 +214,31 @@ def test_cli_requires_the_three_configs(capsys):
     assert cli.main(["--config", "envs/point_mass", "--cpu"]) == 2
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["-l", "-g"], "item 15"), (["-g"], "item 15"),
-    (["-t", "5", "--on-device"], "item 13"), (["--on-device"], "item 13")])
-def test_cli_unported_flags_raise(flag, item):
-    with pytest.raises(NotImplementedError, match=item):
+@pytest.mark.parametrize("flag,error,item", [
+    (["-l", "-g"], NotImplementedError, "item 15"),
+    (["-g"], NotImplementedError, "item 15"),
+    (["-t", "5", "--on-device"], ValueError, "train_every"),
+    (["--on-device"], ValueError, "step_fn")])
+def test_cli_unported_flags_raise(flag, error, item):
+    """-g is not ported (item 15); --on-device is (item 13) and refuses
+    what the JAX CLI refuses: -t with it, and a host plant
+    (envs/point_mass is the analytic one)."""
+    with pytest.raises(error, match=item):
         cli.main(["--config", "envs/point_mass", "--task",
                   "tasks/static_cost", "--model", "models/point_mass_model",
                   "--cpu", *flag])
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"train_every": 5, "on_device": True}, "item 13"),
-    ({"on_device": True}, "item 13")])
+    ({"train_every": 5, "on_device": True}, "train_every"),
+    ({"on_device": True}, "step_fn")])
 def test_run_experiment_unported_options(kw, item):
+    """on_device runs (item 13; tests/test_torch_on_device.py) and raises
+    ValueError as the JAX runner does: with train_every, and for a plant
+    without step_fn (envs/point_mass is the analytic one)."""
     cfgs = [config.default_config(n) for n in (
         "envs/point_mass", "tasks/static_cost", "models/point_mass_model")]
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         run_experiment(*cfgs, steps=1, device="cpu", **kw)
 
 

@@ -1635,3 +1635,107 @@ def test_native_replay_buffer_on_the_card_machine(cuda_device, tmp_path):
     loaded = np.loadtxt(tmp_path / "native.csv", delimiter=",", skiprows=1)
     np.testing.assert_array_equal(loaded[:, :2],
                                   ring.get_all_transitions()["obs"])
+
+
+@pytest.mark.parametrize("kind", ["pm", "pm_sched_anti", "lti", "auv2",
+                                  "auv_sched_anti", "nn", "nn_bfp"])
+@pytest.mark.parametrize("solve", [5, 2 ** 32 + 7], ids=["low", "high"])
+def test_device_solve_index_equals_host_index(cuda_device, kind, solve):
+    """Every entry point that takes (seed, solve) reads the solve index
+    from a one-element int64 tensor on the card (what a replayed graph
+    needs) and then writes the bits it writes for the int: the solve and
+    costs kernels of the f32 and bf16 (or bf16-products) builds, phase B
+    and the noise dump, below and above 2^32."""
+    k, tau = 700, 7
+    f32, dyn32, b16, dyn16, _ = _bf16_pair(kind, k, tau, cuda_device)
+    dev = torch.tensor([solve], dtype=torch.int64, device=cuda_device)
+    for obj, dyn in ((f32, dyn32), (b16, dyn16)):
+        for fn in (obj._fused, obj._costs):
+            a, b = fn(dyn, 11, solve, None), fn(dyn, 11, dev, None)
+            a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), fn
+        costs = obj._costs(dyn, 11, solve, None)[0]
+        nrm = torch.stack([costs.min(), 1.0 / (costs.max() - costs.min())
+                           / obj.lam]).float()
+        kw = dict(antithetic=obj.antithetic,
+                  compute_dtype=obj.compute_dtype)
+        assert torch.equal(
+            pm.mppi_weights(nrm, costs, tau, obj.adim, 11, solve, **kw),
+            pm.mppi_weights(nrm, costs, tau, obj.adim, 11, dev, **kw))
+        half = pm.antithetic_half(k, obj.antithetic)
+        assert torch.equal(
+            pm.pm_noise_dump(11, solve, k, tau, obj.adim, cuda_device,
+                             half=half, compute_dtype=obj.compute_dtype),
+            pm.pm_noise_dump(11, dev, k, tau, obj.adim, cuda_device,
+                             half=half, compute_dtype=obj.compute_dtype))
+    with pytest.raises(ValueError, match="int64"):
+        f32._fused(dyn32, 11, dev.int(), None)
+
+
+@pytest.mark.parametrize("case", ["point_mass", "dmd", "dmd_svd",
+                                  "mission", "torch_route"])
+def test_on_device_loop_replay_equals_eager(cuda_device, case):
+    """One period captured as a CUDA graph and replayed equals the eager
+    periods bit for bit (states, actions, the final sequence, the fitted
+    (A, B), the final queue); the capture is reused across runs; the
+    launches are the captured ones times the replays. A model with rank
+    set refits by the SVD between the replays; the torch route runs its
+    periods eagerly on the card, its noise from the generator given."""
+    from mppi_tf_tpu_torch.controller.dmd import DMDMPPI
+    from mppi_tf_tpu_torch.envs import (DevicePointMassEnv,
+                                        build_on_device_loop)
+    from mppi_tf_tpu_torch.models.dmd import DMDModel
+
+    steps, sigma = 12, SIGMA
+    model, cost = _modules(cuda_device, mass=1.0, ups=1.0)
+    kw = dict(k=1000, tau=10, lam=LAM, upsilon=1.0, sigma=sigma, seed=3,
+              kernel="cuda", device=cuda_device)
+    radius = None
+    if case.startswith("dmd"):
+        ctrl = DMDMPPI(DMDModel(6, 3, init_A=model.A.cpu().numpy(),
+                                init_B=model.B.cpu().numpy(),
+                                rank=8 if case == "dmd_svd" else None,
+                                device=cuda_device), cost, refit_every=4,
+                       min_samples=4, **kw)
+    elif case == "torch_route":
+        ctrl = MPPI(model, cost, **dict(kw, kernel="torch"))
+    else:
+        if case == "mission":
+            cost = get_cost(PM_WAYPOINTS, lam=LAM, gamma=GAMMA, upsilon=1.0,
+                            sigma=sigma, device=cuda_device)
+            radius = 0.5
+        ctrl = MPPI(model, cost, **kw)
+    env = DevicePointMassEnv(n_dof=3, mass=2.0, dt=0.01)
+    loop = build_on_device_loop(ctrl, env.step_fn, steps, substeps=3,
+                                waypoint_radius=radius)
+    x0 = np.array([0.7, 0.0, 0.0, 0.0, 0.0, 0.0])
+    outs = []
+    for run in (loop, loop.eager, loop):
+        if case == "mission":
+            ctrl.set_waypoints(PM_WAYPOINTS["waypoints"])
+        pm.reset_launch_counts()
+        gen = torch.Generator(device=cuda_device).manual_seed(5)
+        out = run(x0, step0=40, generator=gen)
+        assert out[0].device.type == "cuda"
+        counts = dict(pm.launch_counts)
+        queue = (ctrl._cost.count.clone(), ctrl._cost.waypoints.clone()) \
+            if case == "mission" else ()
+        outs.append((out, loop.useq, queue, counts))
+    (g, ug, qg, cg), (e, ue, qe, ce), (g2, _, _, cg2) = outs
+    if case == "torch_route":
+        assert loop.captures == 0 and not any(cg.values())
+        assert all(torch.equal(a, b) for a, b in zip(g, e))
+        assert torch.isfinite(g[0]).all()
+        return
+    assert loop.captures == 1 and loop.capture_s > 0
+    for a, b in zip((*g[:2], ug, *qg), (*e[:2], ue, *qe)):
+        assert torch.equal(a, b)
+    if case.startswith("dmd"):
+        for name in ("A", "B"):
+            assert torch.equal(g[2][name], e[2][name])
+            assert torch.equal(g2[2][name], g[2][name])
+    assert torch.equal(g2[0], g[0])
+    # the capturing run also launched its warm-up period eagerly
+    assert cg2["pm_fused_solve"] == ce["pm_fused_solve"] == steps
+    assert cg["pm_fused_solve"] == steps + 1
+    assert cg2 == ce

@@ -42,7 +42,7 @@ def test_import_leaves_no_jax_modules():
         " mppi_tf_tpu_torch.learning.learner,"
         " mppi_tf_tpu_torch.learning.checkpoint,"
         " mppi_tf_tpu_torch.learning.datastore, mppi_tf_tpu_torch.collect,"
-        " mppi_tf_tpu_torch.verify_models\n"
+        " mppi_tf_tpu_torch.verify_models, mppi_tf_tpu_torch.envs.mjx_env\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mppi_tf_tpu', 'triton'))\n"
         "print(','.join(bad))\n")
@@ -118,6 +118,13 @@ def test_sources_cover_the_learner():
             "mppi_tf_tpu_torch/learning/datastore.py",
             "mppi_tf_tpu_torch/collect.py",
             "mppi_tf_tpu_torch/verify_models.py"} <= names
+
+
+def test_sources_cover_the_on_device_loop():
+    names = {p.relative_to(REPO).as_posix() for p in _sources()}
+    assert {"mppi_tf_tpu_torch/envs/mjx_env.py",
+            "mppi_tf_tpu_torch/envs/__init__.py",
+            "mppi_tf_tpu_torch/envs/runner.py"} <= names
 
 
 def test_native_datastore_is_the_ports_own_source():

@@ -1,7 +1,8 @@
 """The fused NN solve of the port (kernels/nn_mppi.py): its plain versions
 against the JAX package's XLA path (``MPPI._solve_with_noise`` /
 ``_rollout``) at f64 on the same injected normals, with non-trivial X/Y
-normalisers so that the fold of ``pack_dyn`` is exercised. The XLA path is
+normalisers, which ``pack_dyn`` carries unfolded and the kernels apply in
+the XLA route's order. The XLA path is
 the yardstick the JAX Pallas NN kernel is itself held to
 (tests/test_nn_kernel.py, whose interpret mode takes minutes). The CUDA
 kernels are held against these plain versions on the card by
@@ -32,8 +33,8 @@ LAM, GAMMA, UPS = 0.5, 0.2, 1.2
 TASK = {"type": "static_quat", "diag": True,
         "goal": [0.0, 0.0, -2.0, 0.0, 0.0, 0.0, 1.0] + [0.0] * 6,
         "Q": [10.0, 10.0, 10.0, 5.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0]}
-# f64 on both sides: the folded algebra against normalize -> MLP ->
-# denormalize, agreeing to rounding
+# f64 on both sides: normalize -> MLP -> denormalize in both, agreeing to
+# rounding
 RTOL = 1e-9
 
 
@@ -140,26 +141,45 @@ def test_plain_solve_matches_jax_xla(hidden, normalize, k, block):
 
 
 def test_fold_matches_jax_pack_dyn():
-    """The folded weights of pack_dyn == the JAX FusedNNMPPI.pack_dyn's."""
+    """pack_dyn's unfolded network computes what the JAX
+    FusedNNMPPI.pack_dyn's folded one does: the model's weights and
+    normalisers as they are, and the MLP between normalize_x and
+    denormalize_y equal to the JAX folded layers' MLP on the same features
+    (f32 sums, to rounding); the rest of the layout equal."""
     k, tau = 64, 4
     ctrl = _jax((32, 32, 32), k, tau)
     jf = JFusedNNMPPI(ctrl._model, ctrl._cost, k=k, tau=tau, lam=LAM,
                       upsilon=UPS, sigma=SIGMA, tile=32, interpret=True)
     z, _, x0, useq = _inputs(k, tau)
-    jd = np.asarray(jf.pack_dyn(ctrl.model_params, ctrl._cparams, x0, useq))
+    jd = np.asarray(jf.pack_dyn(ctrl.model_params, ctrl._cparams, x0, useq),
+                    np.float64)
     fused = _port(ctrl)
-    dyn = fused.pack_dyn(_t(x0), _t(useq)).numpy()
+    dyn = fused.pack_dyn(_t(x0), _t(useq)).double()
     lay = nnk.NNDyn(tau, fused.consts.sizes)
     jlay = _DynNN(tau, list(fused.consts.sizes))
-    assert lay.size == dyn.size
-    for (w_at, b_at, fi, fo), (jw, jb) in zip(lay.layers, jlay.w_off):
-        # the JAX layout is W row-major [fan_in, fan_out], f32
-        np.testing.assert_allclose(dyn[w_at:b_at].reshape(fo, fi).T,
-                                   jd[jw:jw + fi * fo].reshape(fi, fo),
-                                   rtol=1e-6, atol=1e-6)
-        np.testing.assert_allclose(dyn[b_at:b_at + fo], jd[jb:jb + fo],
-                                   rtol=1e-6, atol=1e-6)
+    assert lay.size == dyn.numel()
+    feats = torch.as_tensor(np.random.default_rng(9).normal(
+        size=(k, nnk.FEATURES)) * 3.0)
+    h, hj = (feats - dyn[lay.norm:lay.norm + 16]) / dyn[
+        lay.norm + 16:lay.norm + 32], feats
+    for n, ((w_at, b_at, fi, fo), (jw, jb)) in enumerate(
+            zip(lay.layers, jlay.w_off)):
         assert w_at % 4 == 0
+        layer = fused.model.net[n]
+        assert torch.equal(dyn[w_at:b_at].reshape(fo, fi).T,
+                           layer.w.detach().double())
+        assert torch.equal(dyn[b_at:b_at + fo], layer.b.detach().double())
+        # the JAX layout is W row-major [fan_in, fan_out], f32
+        w = dyn[w_at:b_at].reshape(fo, fi).T
+        wj = torch.as_tensor(jd[jw:jw + fi * fo].reshape(fi, fo))
+        h = h @ w + dyn[b_at:b_at + fo]
+        hj = hj @ wj + torch.as_tensor(jd[jb:jb + fo])
+        if n < len(lay.layers) - 1:
+            h, hj = torch.relu(h), torch.relu(hj)
+    y = h * dyn[lay.norm + 45:lay.norm + 58] + dyn[lay.norm + 32:
+                                                     lay.norm + 45]
+    torch.testing.assert_close(y, hj, rtol=1e-5, atol=1e-5)
+    dyn = dyn.numpy()
     for name in ("x0", "goal", "useq", "rhs_z"):
         a, b = getattr(lay, name), getattr(jlay, name)
         n = 13 if name in ("x0", "goal") else 6 * tau
@@ -326,12 +346,13 @@ def _costs_3xtf32(consts, dyn, z):
     goal = dyn[lay.goal:lay.useq]
     useq = dyn[lay.useq:lay.rhs_z].reshape(tau, 6)
     rhs_z = dyn[lay.rhs_z:lay.u_half].reshape(tau, 6)
+    x_mean, x_std, y_mean, y_std = nnk._normalisers(dyn, lay)
     x = dyn[lay.x0:lay.goal].expand(k, 13)
     cost = torch.zeros(k)
     for t in range(tau):
         zt = z[t].T
         h = torch.cat([x[:, 3:], useq[t] + (ct[t] * zt) @ scale.T], dim=-1)
-        x = x + _mlp_3xtf32(layers, h)
+        x = x + (_mlp_3xtf32(layers, (h - x_mean) / x_std) * y_std + y_mean)
         qn = torch.rsqrt(torch.clamp(torch.sum(x[:, 3:7] ** 2, dim=-1,
                                                keepdim=True), min=1e-24))
         x = torch.cat([x[:, :3], x[:, 3:7] * qn, x[:, 7:]], dim=-1)
