@@ -73,6 +73,17 @@ port's paths through ``MPPI.next`` closed loop against the analytic plants:
   to one host sync a run, to a host ``next`` drawing the next solve index,
   and its kernels' device solve index to the int's bits (below and past
   2^32), and timed beside the host-driven loop of the same cell;
+- the fleet (``controller/fleet.py``): the JAX bench's two fleet rows at
+  full width, 32 point masses and 16 rexrov2s at K=8,192, H=25, each in
+  the bench's solve mode and normalized: every kernel with a vehicle axis
+  (the solve and costs, phase B, the merge) in one launch over all
+  vehicles against n one-vehicle launches with solve s n + v and at n = 1
+  against the one-vehicle entry, bit for bit, and against its plain
+  version; 300 host-driven steps (one sync a step, the solve launched
+  once a step for the whole fleet, timed in turns against n one-vehicle
+  launches) and the on-device fleet loop (one captured graph a period,
+  replayed == eager, a re-task between runs without a recapture), each
+  held to its vehicles' goals;
 - the bf16 block compute (``kernel_dtype="bfloat16"``): every bf16 kernel
   against its plain bf16 version on injected z and the Philox stream
   (point mass K=100,000, H=50 with constant and dynamic (A, B), the (4, 2)
@@ -240,6 +251,39 @@ OD_KERNEL_RX = {"pm_fused_solve": r"\bpm_fused_solve_kernel<\d+, \d+, 0,",
                 "auv_fused_costs": r"\bauv_fused_solve_kernel<\d+, 1,",
                 "mppi_weights": r"\bmppi_weights_kernel\b",
                 "pm_merge": r"\bpm_merge(_stats)?_kernel\b"}
+
+# the fleet (controller/fleet.py): the JAX bench's two fleet rows
+# (mppi_tf_tpu/bench.py:786-830, 1300-1312) at full width, 32 point masses
+# (the point-mass workload, goals[:, 0::2] = uniform(-1, 1)) and 16
+# rexrov2s (the flagship task at AUV_SIGMA, lam 0.5, depths uniform(-2,
+# 0)), both from default_rng(0), K=8,192, H=25, FLEET_STEPS chained steps
+# with the model itself as the plant (one step of dt a period), as the
+# bench chains them; each row in the bench's solve mode (unnormalized)
+# and normalized (the costs and phase-B kernels), host-driven and as the
+# on-device fleet loop. Gates (PERF.md, stated before the first run): each
+# point mass within FLEET_PM_TOL of its goal (the headline's GOAL_TOL;
+# <= 0.004 after 50 steps at K=8,192 on the CPU), each normalized rexrov2
+# within FLEET_AUV_TOL of its depth (the dive's DIVE_TOL) with |q| = 1
+# within 1e-3; the unnormalized rexrov2 swings +-1 m about its depth at
+# this K on the CPU, so its gate is |q| and finite states. Vehicle 0 of
+# each point-mass row is re-tasked to FLEET_RETASK between two on-device
+# runs and must reach it with no recapture. A step's solve kernel runs
+# once for the whole fleet (the profiler's count by kernel name,
+# FLEET_KERNEL_RX); FLEET_TWIN_STEPS host steps are timed in turns as the
+# fleet launch and as n one-vehicle launches
+FLEET_K, FLEET_H, FLEET_STEPS, FLEET_TWIN_STEPS = 8192, 25, 300, 20
+FLEET_PM_N, FLEET_AUV_N = 32, 16
+FLEET_PM_TOL, FLEET_AUV_TOL = GOAL_TOL, DIVE_TOL
+FLEET_RETASK = [-0.6, 0.0, 0.3, 0.0, 0.8, 0.0]
+# the host-driven profile's count of the solve kernel may fall short of
+# the launches by one record: on the H100 the profiler has missed exactly
+# one auv_fused_costs record in each of three profiles of the normalized
+# rexrov2 fleet, in both modes (19 of 20, 319 of 320; PERF.md), while the
+# wrappers counted every launch; a count above never passes
+FLEET_PROFILE_SLACK = 1
+FLEET_KERNEL_RX = {**OD_KERNEL_RX,
+                   "pm_fused_costs": r"\bpm_fused_solve_kernel<\d+, \d+, 1,",
+                   "auv_fused_solve": r"\bauv_fused_solve_kernel<\d+, 0,"}
 
 # the tracking slice. Point-mass mission: the bundled envs/point_mass (lambda
 # 1, gamma 1, sigma 0.25 I) and tasks/waypoints_task (3 legs, radius 0.3) at
@@ -503,12 +547,13 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 50) -> float:
+def device_ms(fn, reps: int = 50, rx=None) -> float:
     """The device time of one launch of ``fn``'s kernel (``fn`` launches
-    one), from ``torch.profiler`` over ``reps`` calls: without the host's
-    launch cost, which back-to-back CUDA-event timing includes where a
-    kernel is shorter than its launch. The mean is over the launches the
-    profiler recorded, which may be fewer than ``reps``."""
+    one; with ``rx``, of the kernel whose name matches it among those
+    ``fn`` launches), from ``torch.profiler`` over ``reps`` calls: without
+    the host's launch cost, which back-to-back CUDA-event timing includes
+    where a kernel is shorter than its launch. The mean is over the
+    launches the profiler recorded, which may be fewer than ``reps``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -520,7 +565,8 @@ def device_ms(fn, reps: int = 50) -> float:
             fn()
         torch.cuda.synchronize()
     kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA
+            and (rx is None or re.search(rx, e.key))]
     return (sum(e.self_device_time_total for e in kern)
             / max(sum(e.count for e in kern), 1) / 1e3)
 
@@ -2299,26 +2345,38 @@ def build_parent(parent: str) -> subprocess.Popen:
 
 class ParentLibrary:
     """The parent's library behind this tree's entry-point signatures: an
-    entry point that lacks one of this tree's arguments (the AUV's
-    structure, third, from before kDiag; the point mass's, fourth, from
-    before kIntegrator) is called without it, so it runs the parent's
-    kernels on the same inputs."""
+    entry point that lacks one of this tree's arguments is called without
+    it, so it runs the parent's kernels on the same inputs: the vehicles
+    of a fleet launch (last before the stream, from before the fleet; the
+    parent is called at n = 1 alone), the AUV's structure (third, from
+    before kDiag) and the point mass's (fourth, from before kIntegrator)."""
 
-    #: the place of the argument a parent may lack, by entry-point prefix
+    #: the place of the structure argument a parent may lack, by prefix
     STRUCTURE_ARG = {"auv_": 2, "pm_": 3}
+    #: the entry points that take the vehicles of a fleet launch
+    VEHICLE_ENTRIES = ("pm_fused_solve", "pm_fused_costs", "mppi_weights",
+                       "pm_merge", "auv_fused_solve", "auv_fused_costs")
 
     def __init__(self, lib, arity: dict, signatures: dict):
         self._lib = lib
-        self._drop = {n: i for n, a in arity.items()
-                      for pre, i in self.STRUCTURE_ARG.items()
-                      if n.startswith(pre)
-                      and len(signatures.get(n, ())) == a + 1}
+        self._drop = {}
+        for n, a in arity.items():
+            ours = len(signatures.get(n, ()))
+            drop = []
+            if ours > a and n.removesuffix("_bf16") in self.VEHICLE_ENTRIES:
+                drop.append(ours - 2)
+            if ours - len(drop) == a + 1:
+                drop += [i for pre, i in self.STRUCTURE_ARG.items()
+                         if n.startswith(pre)]
+            if drop:
+                self._drop[n] = drop
 
     def __getattr__(self, name):
         fn = getattr(self._lib, name)
         if name in self._drop:
-            i = self._drop[name]
-            return lambda *a: fn(*a[:i], *a[i + 1:])
+            drop = self._drop[name]
+            return lambda *a: fn(*(x for i, x in enumerate(a)
+                                   if i not in drop))
         return fn
 
 
@@ -2411,6 +2469,9 @@ PARENT_SUBJECT = ("mppi_weights", "pm_merge")
 MERGE_L1_TOL = 1e-5
 #: phase B's flagship shapes (label, k, tau, adim): the NN dive, the point
 #: mass at H=50 and H=100, the AUV dive
+#: the controls of parent_phase whose solve and costs are timed in turns
+PARENT_TIMED = ("pm_f32_K100000", "pm_f32_sched_H100",
+                "auv_f32_static_quat_flagship", "nn_f32_flagship")
 WEIGHT_FLAGSHIPS = (("nn", NN_K, NN_H, 6), ("pm", K, H, 3),
                     ("pm_h100", K, H100, 3), ("auv", AUV_K, AUV_H, 6))
 #: the merge's synthetic rows: blocks (1 at K <= 256, 12 for the CLI's
@@ -2612,12 +2673,15 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
         return out, got
 
     # ---- controls: the solve and costs kernels, the noise dump ------------
+    timed = {}
     for label, f, kern in cases:
         dyn = (pm_dyn(f, rng) if kern.costs is pm.pm_fused_costs else
                auv_dyn(f, 20.0 if "elipse3d" in label else 200.0,
                        seed=len(label),
                        x0=[4.0, 0, -3.0, 0, 0, 0, 1.0] + [0.0] * 6
                        if "elipse3d" in label else None))
+        if label in PARENT_TIMED:
+            timed[label] = (f, kern, dyn)
         z = torch.as_tensor(rng.standard_normal((f.tau, f.adim, f.k),
                                                 np.float32), device="cuda")
         out = {}
@@ -2747,6 +2811,13 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
                 lambda: pm.mppi_weights(nrm, costs, tau, adim, seed=1,
                                         solve=1, antithetic=anti,
                                         compute_dtype=cd))
+    # the flagship controls' solve and costs kernels (Philox), in turns:
+    # the one-vehicle launches of the kernels that took the fleet's axis
+    for label, (f, kern, dyn) in timed.items():
+        for mode in ("solve", "costs"):
+            fn = getattr(kern, mode)
+            times[f"{mode}_{label}"] = turns(
+                lambda: fn(f.consts, dyn, f.k, f.tau, seed=1, solve=1))
     lib = _build.load_library()
     empty = [device_ms(lambda: lib.pm_empty(stream)) for _ in range(2)]
     for label, case in (("pm", "pm_f32_K100000"),
@@ -3723,6 +3794,23 @@ def od_row(pm, name: str, make, smi: str) -> dict:
                                ("pm_merge", "merge"))}
     del z
     index = od_device_index(pm, ctrl._fused, adim, xd)
+    refit = None
+    if loop.adaptive:
+        # one refit of the loop's window (DMDModel.fit: the QR in f64 at
+        # the window's W rows), profiled over 20 calls; the model is put
+        # back as it was
+        model = ctrl._model
+        saved = (model.A.detach().clone(), model.B.detach().clone())
+        b = loop._bufs
+        rp = profile_run(lambda: [loop._fit(b) for _ in range(20)], 20)
+        with torch.no_grad():
+            model.A.copy_(saved[0])
+            model.B.copy_(saved[1])
+        refit = {"window_rows": loop.W, "device_us": rp["device_us_per_step"],
+                 "wall_us": rp["wall_us_per_step"],
+                 "kernels": rp["kernel_launches_per_step"],
+                 "syncs": rp["syncs_per_step"],
+                 "fit_dtype": "float64 reflections, cast to float32"}
     # the host-driven loop of the same cell, a fresh controller
     twin, *_ = make()
     if arm is not None:
@@ -3752,7 +3840,7 @@ def od_row(pm, name: str, make, smi: str) -> dict:
         top_kernels_us_a_period=prof["top_kernels_us_per_step"],
         syncs_a_run=syncs, replay_equals_eager=bits,
         plant_ms_a_period=p_ms, plant_share_of_events=p_ms / events_ms,
-        device_solve_index=index,
+        device_solve_index=index, refit=refit,
         profiled_wall_ms_a_period=dev_ms / prof["device_busy_share"],
         host_driven={"steps": OD_TWIN_STEPS, "wall_ms_a_step": twin_wall,
                      "profiled_wall_ms_a_step":
@@ -3781,6 +3869,445 @@ def on_device_phase(pm, smi: str) -> dict:
     (``od_rows``), each through ``od_row``."""
     return {name: od_row(pm, name, make, smi)
             for name, make in od_rows(pm).items()}
+
+
+# ---- the fleet (controller/fleet.py): one launch over all vehicles --------
+
+def solve_name(kind: str, normalize: bool) -> str:
+    """The entry point of a fleet row's solve kernel."""
+    return ("pm" if kind == "point_mass" else "auv") + (
+        "_fused_costs" if normalize else "_fused_solve")
+
+
+def fleet_goals(kind: str, goal0) -> np.ndarray:
+    """The JAX bench's fleet goals (mppi_tf_tpu/bench.py:805-811): the
+    point masses' positions uniform(-1, 1), the rexrov2s' depths
+    uniform(-2, 0) about the task's goal, from default_rng(0)."""
+    rng = np.random.default_rng(0)
+    if kind == "point_mass":
+        goals = np.zeros((FLEET_PM_N, 6))
+        goals[:, 0::2] = rng.uniform(-1.0, 1.0, (FLEET_PM_N, 3))
+        return goals
+    goals = np.tile(np.asarray(goal0, np.float64), (FLEET_AUV_N, 1))
+    goals[:, 2] = rng.uniform(-2.0, 0.0, FLEET_AUV_N)
+    return goals
+
+
+def fleet_build(kind: str, normalize: bool):
+    """(fleet on the kernels, its goals, the host plant's model on the CPU,
+    x0): the bench's fleet row of ``kind`` (point_mass: the point-mass
+    workload; auv: the rexrov2 flagship at AUV_SIGMA, lam 0.5)."""
+    from mppi_tf_tpu_torch import flagship
+    from mppi_tf_tpu_torch.controller import FleetMPPI
+    from mppi_tf_tpu_torch.costs import get_cost
+    from mppi_tf_tpu_torch.models import get_model
+
+    if kind == "point_mass":
+        model, cost = workload("cuda")
+        host, _ = workload("cpu")
+        sigma, lam, n, x0 = SIGMA, LAM, FLEET_PM_N, np.zeros(6)
+    else:
+        model = get_model(flagship.auv_params(), dt=DT, action_dim=6,
+                          device="cuda")
+        host = get_model(flagship.auv_params(), dt=DT, action_dim=6)
+        cost = get_cost(flagship.auv_task(), lam=AUV_LAM, gamma=AUV_GAMMA,
+                        upsilon=AUV_UPSILON, sigma=AUV_SIGMA, device="cuda")
+        sigma, lam, n, x0 = AUV_SIGMA, AUV_LAM, FLEET_AUV_N, rest_state()
+    goals = fleet_goals(kind, cost.goal.cpu().numpy())
+    fleet = FleetMPPI(model, cost, n, k=FLEET_K, tau=FLEET_H, lam=lam,
+                      upsilon=UPSILON, sigma=sigma, goals=goals,
+                      normalize_cost=normalize, kernel="cuda")
+    host.requires_grad_(False)
+    return fleet, goals, host, np.tile(x0, (n, 1))
+
+
+def fleet_gate(kind: str, normalize: bool, states, goals) -> tuple:
+    """Every vehicle near its own goal at the end of a run: the point
+    masses' position error, the AUVs' depth error and |q| = 1. The
+    unnormalized rexrov2 row (the bench's solve mode) swings about its
+    depths at this K (PERF.md): its gate is |q| = 1 and finite states, its
+    depth errors are readings."""
+    if not np.all(np.isfinite(states)):
+        return {"finite": False}, False
+    if kind == "point_mass":
+        err = np.linalg.norm(states[-1][:, 0::2] - goals[:, 0::2], axis=1)
+        return ({"goal_err_max": float(err.max()),
+                 "goal_err_mean": float(err.mean()),
+                 "goal_tol": FLEET_PM_TOL}, bool(err.max() < FLEET_PM_TOL))
+    err = np.abs(states[-1][:, 2] - goals[:, 2])
+    drift = float(np.abs(np.linalg.norm(states[..., 3:7], axis=-1)
+                         - 1.0).max())
+    near = bool(err.max() < FLEET_AUV_TOL) or not normalize
+    return ({"z_err_max": float(err.max()), "z_err_mean": float(err.mean()),
+             "z_tol": FLEET_AUV_TOL if normalize else None,
+             "quat_drift": drift}, near and drift < 1e-3)
+
+
+def fleet_kernel_outputs(pm, fused, dyn, z, solve) -> tuple:
+    """Every kernel with a vehicle axis of a fleet solve object on ``dyn``
+    ([n, size], or one vehicle's [size]): the fused rows, the costs and
+    their rows, phase B's rows and the three merges."""
+    part = fused._fused(dyn, 11, solve, z)
+    costs, crows = fused._costs(dyn, 11, solve, z)
+    lo, hi = costs.min(-1).values, costs.max(-1).values
+    nrm = torch.stack([lo, 1.0 / ((hi - lo) * fused.lam)], dim=-1)
+    wrows = pm.mppi_weights(nrm, costs, fused.tau, fused.adim, 11, solve, z,
+                            antithetic=fused.antithetic)
+    return (part, costs, crows, wrows, *pm.pm_merge(part),
+            *pm.pm_merge(crows), *pm.pm_merge(wrows))
+
+
+def fleet_bits(pm, fused, dyn, z, solve: int) -> dict:
+    """The fleet launch of each kernel against n one-vehicle launches with
+    solve s n + v, bit for bit (Philox by value and on the device, and
+    injected z), and at n = 1 against the one-vehicle entry."""
+    n = dyn.shape[0]
+    dev = torch.tensor([solve], dtype=torch.int64, device="cuda")
+    names = ("solve", "costs", "costs_rows", "weights", "merge_zsum",
+             "merge_stats", "stats_merge_zsum", "stats_merge",
+             "weights_merge_zsum", "weights_merge_stats")
+    out = {}
+    for label, zz, s in (("philox", None, solve), ("philox_device", None,
+                                                   dev), ("injected", z,
+                                                          solve)):
+        fleet = fleet_kernel_outputs(pm, fused, dyn, zz, s)
+        same = dict.fromkeys(names, True)
+        for v in range(n):
+            one = fleet_kernel_outputs(pm, fused, dyn[v],
+                                       None if zz is None else zz[v],
+                                       solve * n + v)
+            for name, a, b in zip(names, fleet, one):
+                same[name] &= bool(torch.equal(a[v], b))
+        out[label] = same
+    n1 = fleet_kernel_outputs(pm, fused, dyn[:1], None, solve)
+    out["n1"] = {name: bool(torch.equal(a[0], b)) for name, a, b in zip(
+        names, n1, fleet_kernel_outputs(pm, fused, dyn[0], None, solve))}
+    return out
+
+
+def fleet_vs_plain(pm, kern, fused, dyn, z, cost_tol) -> dict:
+    """The fleet launch of each kernel against its plain version on
+    injected z, vehicle by vehicle, at the tolerances of check_solve,
+    check_auv and check_two_phase: the per-sample costs (``cost_tol``),
+    the fused rows' cost stats (rtol 1e-4) and softmax against
+    block_partials of the kernel's own costs (zsum / l at 1e-3 / 1e-5, m
+    at 1e-6, l at 1e-3), phase B against weights_plain on the kernel's
+    costs (1e-4 / 1e-6), the merge against merge_plain on the plain rows
+    (zsum / l at 1e-5 / 1e-6, stats at 1e-5). Max errors over vehicles."""
+    n, k, tau, adim, c = (dyn.shape[0], fused.k, fused.tau, fused.adim,
+                          fused.consts)
+    costs_k, _ = kern.costs(c, dyn, k, tau, z=z)
+    part_k = kern.solve(c, dyn, k, tau, z=z)
+    lo, hi = costs_k.min(-1).values, costs_k.max(-1).values
+    nrm = torch.stack([lo, 1.0 / ((hi - lo) * fused.lam)], dim=-1)
+    wrows_k = pm.mppi_weights(nrm, costs_k, tau, adim, z=z)
+    rows_p = torch.stack([pm.weights_plain(nrm[v], costs_k[v], tau, adim,
+                                           z=z[v]) for v in range(n)])
+    zm, stm = pm.pm_merge(rows_p)
+    err = dict.fromkeys(("costs", "cost_stats_rel", "fused_wnoise",
+                         "fused_m_rel", "fused_l_rel", "weights", "merge",
+                         "merge_stats_rel"), 0.0)
+    ok = True
+    for v in range(n):
+        costs_p = kern.sample_costs_plain(c, dyn[v], z[v])
+        ok_c, e_c, _ = close(costs_k[v], costs_p, *cost_tol)
+        ref = torch.stack([costs_p.min(), costs_p.max(), costs_p.sum()])
+        zs_k, sk = pm.merge_plain(part_k[v])
+        zs_o, so = pm.merge_plain(pm.block_partials(
+            costs_k[v], z[v].reshape(tau * adim, k), c.lam))
+        ok_f, e_f, _ = close(zs_k / sk[1], zs_o / so[1], 1e-3, 1e-5)
+        zs_w, sw = pm.merge_plain(wrows_k[v])
+        zs_p, sp = pm.merge_plain(rows_p[v])
+        ok_w, e_w, _ = close(zs_w / sw[1], zs_p / sp[1], 1e-4, 1e-6)
+        ok_m, e_m, _ = close(zm[v] / stm[v, 1], zs_p / sp[1], 1e-5, 1e-6)
+        vals = {"costs": e_c,
+                "cost_stats_rel": ((sk[2:5] - ref).abs()
+                                   / ref.abs()).max().item(),
+                "fused_wnoise": e_f,
+                "fused_m_rel": abs(sk[0].item() - so[0].item())
+                / abs(so[0].item()),
+                "fused_l_rel": abs(sk[1].item() - so[1].item())
+                / so[1].item(),
+                "weights": e_w, "merge": e_m,
+                "merge_stats_rel": ((stm[v, :5].double() - sp[:5].double())
+                                    .abs() / sp[:5].double().abs()
+                                    .clamp_min(1e-30)).max().item()}
+        for key, val in vals.items():
+            err[key] = max(err[key], val)
+        ok &= ok_c and ok_f and ok_w and ok_m
+    ok &= (err["cost_stats_rel"] <= 1e-4 and err["fused_m_rel"] <= 1e-6
+           and err["fused_l_rel"] <= 1e-3 and err["merge_stats_rel"] <= 1e-5)
+    return {"ok": bool(ok), "max_errs": err, "cost_rtol": cost_tol[0],
+            "cost_atol": cost_tol[1]}
+
+
+def fleet_host_run(fleet, host, x0, steps: int):
+    """``steps`` host-driven fleet steps (FleetMPPI.next, the model as the
+    plant on the host): states [steps, n, sdim] and the wall ms a step."""
+    x = torch.as_tensor(x0, dtype=torch.float32)
+    out, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        a = fleet.next(x.numpy())
+        ms.append((time.perf_counter() - t0) * 1e3)
+        with torch.no_grad():
+            x = host.step(x, torch.as_tensor(a))
+        out.append(x.numpy().copy())
+    return np.stack(out), ms
+
+
+def fleet_host_profile(fleet, x0, expected: dict,
+                       steps: int = FLEET_TWIN_STEPS) -> dict:
+    """``profile_run`` over ``steps`` fleet.next calls at x0, the kernels
+    counted by name; profiled again while a count of ``expected`` ({entry:
+    launches}) falls short, up to OD_PROFILE_TRIES (the profiler loses a
+    few records at times, PERF.md), never past a count above it."""
+    fleet.next(x0)
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(steps):
+            fleet.next(x0)
+
+    tries = []
+    while len(tries) < OD_PROFILE_TRIES:
+        prof = profile_run(run, steps, count=FLEET_KERNEL_RX)
+        got = {e: prof["kernel_counts"][e] for e in expected}
+        tries.append(got)
+        if got == expected or any(got[e] > c for e, c in expected.items()):
+            break
+    return dict(prof, profiled_runs=tries)
+
+
+def fleet_row(pm, kind: str, normalize: bool, smi: str) -> dict:
+    """One fleet row: its kernels (bits against one-vehicle launches,
+    against the plain versions), FLEET_STEPS host-driven steps, the same
+    fleet as n one-vehicle launches a step (timed in turns), the on-device
+    fleet loop (captured once, replayed; eager bit for bit; one sync a
+    run; the profiler's launches; a re-task between two runs), each run
+    held to ``fleet_gate``."""
+    from mppi_tf_tpu_torch.kernels import auv_mppi as auv
+
+    t_row = time.perf_counter()
+    fleet, goals, host, x0 = fleet_build(kind, normalize)
+    fused = fleet._tpl._fused
+    n, tau, adim = fleet.n_vehicles, FLEET_H, fleet._adim
+    if not (fleet.kernel_path == "cuda" and fused.fleet_axis):
+        raise AssertionError(f"fleet {kind}: {fleet.kernel_path}")
+    label = f"fleet_{kind}{'_normalized' if normalize else ''}"
+    out = {"n": n, "k": FLEET_K, "tau": tau, "normalize": normalize,
+           "card": smi}
+    # the kernels at the row's K and H
+    rng = np.random.default_rng(21)
+    xs = torch.as_tensor(x0 + 0.05 * rng.standard_normal(x0.shape),
+                         dtype=torch.float32, device="cuda")
+    if kind != "point_mass":
+        xs[:, 3:7] /= torch.linalg.vector_norm(xs[:, 3:7], dim=1,
+                                               keepdim=True)
+    scale = 0.1 if kind == "point_mass" else 200.0
+    us = torch.as_tensor(scale * rng.standard_normal((n, tau, adim)),
+                         dtype=torch.float32, device="cuda")
+    with torch.no_grad():
+        dyn = fused.pack_dyn(xs, us, fleet.cost_params)
+    z = torch.as_tensor(rng.standard_normal((n, tau, adim, FLEET_K),
+                                            np.float32), device="cuda")
+    out["bits"] = fleet_bits(pm, fused, dyn, z, solve=7)
+    kern = (SimpleNamespace(solve=pm.pm_fused_solve,
+                            costs=pm.pm_fused_costs,
+                            sample_costs_plain=pm.sample_costs_plain,
+                            fused_solve_plain=pm.fused_solve_plain,
+                            fused_costs_plain=pm.fused_costs_plain)
+            if kind == "point_mass" else quat_kernels(auv, "auv"))
+    out["vs_plain"] = fleet_vs_plain(
+        pm, kern, fused, dyn, z,
+        (PM_COST_RTOL, PM_COST_ATOL) if kind == "point_mass"
+        else (COST_RTOL, COST_ATOL))
+    # the kernels' times at the row's inputs: the fleet launch (with the
+    # small op that writes the vehicles' solve indices), n one-vehicle
+    # launches, the plain version (a vehicle at a time)
+    c = fused.consts
+    costs, srows = fused._costs(dyn, 11, 3, None)
+    lo, hi = costs.min(-1).values, costs.max(-1).values
+    nrm = torch.stack([lo, 1.0 / ((hi - lo) * fused.lam)], dim=-1)
+    part = fused._fused(dyn, 11, 3, None)
+    calls = {
+        "solve": (lambda: fused._fused(dyn, 11, 3, None),
+                  lambda: [fused._fused(dyn[v], 11, 3 * n + v, None)
+                           for v in range(n)],
+                  lambda: [kern.fused_solve_plain(c, dyn[v], FLEET_K, tau,
+                                                  11, 3 * n + v)
+                           for v in range(n)]),
+        "costs": (lambda: fused._costs(dyn, 11, 3, None),
+                  lambda: [fused._costs(dyn[v], 11, 3 * n + v, None)
+                           for v in range(n)],
+                  lambda: [kern.fused_costs_plain(c, dyn[v], FLEET_K, tau,
+                                                  11, 3 * n + v)
+                           for v in range(n)]),
+        "weights": (lambda: pm.mppi_weights(nrm, costs, tau, adim, 11, 3),
+                    lambda: [pm.mppi_weights(nrm[v], costs[v], tau, adim,
+                                             11, 3 * n + v)
+                             for v in range(n)],
+                    lambda: [pm.weights_plain(nrm[v], costs[v], tau, adim,
+                                              11, 3 * n + v)
+                             for v in range(n)]),
+        "merge": (lambda: pm.pm_merge(part),
+                  lambda: [pm.pm_merge(part[v]) for v in range(n)],
+                  lambda: [pm.merge_plain(part[v]) for v in range(n)])}
+    nb, n_z = -(-FLEET_K // pm.BLOCK), tau * adim
+    part_bytes = 4.0 * n * nb * (pm.STATS + n_z)
+    ops = (solve_ops(c, FLEET_K, tau, prng=True),
+           solve_ops(c, FLEET_K, tau, prng=True, costs_only=True)) \
+        if kind == "point_mass" else (
+        auv_solve_ops(c, dyn[0], FLEET_K, tau, prng=True),
+        auv_solve_ops(c, dyn[0], FLEET_K, tau, prng=True, costs_only=True))
+    bounds = {
+        "solve": bound_ms(4.0 * dyn.numel() + part_bytes, n * ops[0]),
+        "costs": bound_ms(4.0 * dyn.numel() + 4.0 * n * FLEET_K
+                          + 4.0 * n * nb * pm.STATS, n * ops[1]),
+        "weights": bound_ms(n * (4.0 * FLEET_K + 8.0) + part_bytes,
+                            n * weights_ops(FLEET_K, n_z, True)),
+        "merge": bound_ms(part_bytes + 4.0 * n * (n_z + pm.STATS),
+                          n * nb * (2.0 * n_z + 6))}
+    times = {}
+    for name, (fleet_fn, one_fn, plain_fn) in calls.items():
+        times[name] = {
+            "ms": cuda_ms(fleet_fn, 50),
+            # the kernel's own: a fleet launch also runs the small op of
+            # its solve indices
+            "device_ms": device_ms(fleet_fn, rx=FLEET_KERNEL_RX[
+                {"solve": solve_name(kind, False),
+                 "costs": solve_name(kind, True), "weights": "mppi_weights",
+                 "merge": "pm_merge"}[name]]),
+            "per_vehicle_ms": cuda_ms(one_fn, 10),
+            "plain_ms": cuda_ms(plain_fn, 1, 1),
+            "bound_ms": bounds[name][0], "bound_by": bounds[name][1]}
+    del part, costs, srows
+    del z
+    # host-driven, FLEET_STEPS steps
+    pm.reset_launch_counts()
+    states_h, ms_h = fleet_host_run(fleet, host, x0, FLEET_STEPS)
+    counts_h = {e: c for e, c in pm.launch_counts.items() if c}
+    host_read, host_ok = fleet_gate(kind, normalize, states_h, goals)
+    solve = solve_name(kind, normalize)
+    prof_f = fleet_host_profile(fleet, x0, {solve: FLEET_TWIN_STEPS})
+    # the same fleet as n one-vehicle launches a step, in turns with the
+    # fleet launch (fleet, one-vehicle, one-vehicle, fleet)
+    turns = {"fleet": [], "per_vehicle": []}
+    for mode in ("fleet", "per_vehicle", "per_vehicle", "fleet"):
+        fused.fleet_axis = mode == "fleet"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FLEET_TWIN_STEPS):
+            fleet.next(x0)
+        turns[mode].append((time.perf_counter() - t0) * 1e3
+                           / FLEET_TWIN_STEPS)
+    fused.fleet_axis = False
+    prof_v = fleet_host_profile(fleet, x0, {solve: n * FLEET_TWIN_STEPS})
+    fused.fleet_axis = True
+    out["host_driven"] = {
+        "steps": FLEET_STEPS, **host_read, "gate_ok": host_ok,
+        "launches": counts_h,
+        "wall_ms_a_step_median": float(np.median(ms_h)),
+        "wall_ms_a_step_p90": float(np.percentile(ms_h, 90)),
+        "vehicle_solves_per_s": 1e3 * n / float(np.median(ms_h)),
+        "profile": prof_f,
+        "turns_wall_ms_a_step": turns,
+        "per_vehicle_profile": prof_v}
+    # the on-device fleet loop: the model as the plant, one step a period
+    model = fleet._model
+
+    def plant(x, u):
+        return model.step(x, u)
+
+    loop = fleet.build_on_device_loop(plant, FLEET_STEPS, substeps=1)
+    t0 = time.perf_counter()
+    first = loop(x0)
+    first_s = time.perf_counter() - t0
+    read_d, ok_d = fleet_gate(kind, normalize,
+                              first[0].cpu().double().numpy(), goals)
+    walls, events = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        loop(x0, step0=OD_STEP0)
+        walls.append((time.perf_counter() - t0) * 1e3 / FLEET_STEPS)
+        end.record()
+        torch.cuda.synchronize()
+        events.append(start.elapsed_time(end) / FLEET_STEPS)
+    pm.reset_launch_counts()
+    graph = loop(x0, step0=OD_STEP0)
+    counts_d = {e: c for e, c in pm.launch_counts.items() if c}
+    expected = {e: c * FLEET_STEPS for e, c in loop.nodes.items()}
+    tries = []
+    while len(tries) < OD_PROFILE_TRIES:
+        prof = profile_run(lambda: loop(x0, step0=OD_STEP0), FLEET_STEPS,
+                           count={e: FLEET_KERNEL_RX[e]
+                                  for e in loop.nodes})
+        tries.append(prof["kernel_counts"])
+        if tries[-1] == expected or any(tries[-1][e] > c
+                                        for e, c in expected.items()):
+            break
+    syncs = {e: v * FLEET_STEPS for e, v in prof["syncs_per_step"].items()}
+    eager = loop.eager(x0, step0=OD_STEP0)
+    bits = {name: bool(torch.equal(a, b))
+            for name, a, b in zip(("states", "actions"), graph, eager)}
+    # re-task: vehicle 0 to a new goal, a second run from where the first
+    # ended; the same graph steers it there
+    retask = None
+    if kind == "point_mass":
+        fleet.set_vehicle_goal(0, FLEET_RETASK)
+        second = loop(first[0][-1].cpu().numpy())
+        err0 = float(np.linalg.norm(second[0][-1, 0, 0::2].cpu().numpy()
+                                    - np.asarray(FLEET_RETASK)[0::2]))
+        retask = {"vehicle": 0, "goal": FLEET_RETASK, "goal_err": err0,
+                  "goal_tol": FLEET_PM_TOL, "captures": loop.captures,
+                  "ok": bool(err0 < FLEET_PM_TOL and loop.captures == 1)}
+    out["on_device"] = {
+        "steps": FLEET_STEPS, **read_d, "gate_ok": ok_d,
+        "first_run_s": first_s, "capture_s": loop.capture_s,
+        "captures": loop.captures, "launches_a_period": loop.nodes,
+        "launches": counts_d, "launches_profiled": tries[-1],
+        "profiled_runs": tries, "syncs_a_run": syncs,
+        "wall_ms_a_period": float(np.median(walls)),
+        "events_ms_a_period": float(np.median(events)),
+        "events_ms_runs": events,
+        "profiler_device_ms_a_period": prof["device_us_per_step"] / 1e3,
+        "device_busy_share": prof["device_busy_share"],
+        "graph_launch_host_us": prof.get("graph_launch_host_us"),
+        "top_kernels_us_a_period": prof["top_kernels_us_per_step"],
+        "vehicle_solves_per_s": 1e3 * n / float(np.median(events)),
+        "replay_equals_eager": bits, "retask": retask}
+    out["kernel_times"] = times
+    out["seconds"] = time.perf_counter() - t_row
+    emit(label, **out)
+    bits_ok = all(all(v.values()) for v in out["bits"].values())
+    def counted(prof, want):   # the profiler's count, FLEET_PROFILE_SLACK
+        got = prof["kernel_counts"].get(solve, 0)
+        return want - FLEET_PROFILE_SLACK <= got <= want
+
+    one_launch = (counted(prof_f, FLEET_TWIN_STEPS)
+                  and counted(prof_v, n * FLEET_TWIN_STEPS))
+    host_syncs = prof_f["syncs_per_step"]
+    one_sync = (syncs.get("cudaStreamSynchronize", 0.0) == 1.0
+                and host_syncs.get("cudaStreamSynchronize", 0.0) <= 1.0)
+    if not (bits_ok and out["vs_plain"]["ok"] and host_ok and ok_d
+            and all(bits.values()) and loop.captures == 1 and one_launch
+            and one_sync and counts_h.get(solve) == FLEET_STEPS
+            and counts_d == expected and tries[-1] == expected
+            and expected.get(solve) == FLEET_STEPS
+            and (retask is None or retask["ok"])):
+        raise AssertionError(f"{label}: {out}")
+    return out
+
+
+def fleet_phase(pm, smi: str) -> dict:
+    """The JAX bench's two fleet rows, each in its solve mode
+    (unnormalized) and normalized, through ``fleet_row``."""
+    return {(kind, normalize): fleet_row(pm, kind, normalize, smi)
+            for kind in ("point_mass", "auv") for normalize in (False, True)}
 
 
 def main() -> int:
@@ -4559,6 +5086,10 @@ def main() -> int:
     # ---- 27c. the on-device loop: the bench's three rows as replayed ------
     # ---- CUDA graphs, each beside its host-driven loop ----------------------
     on_device = on_device_phase(pm, smi)
+
+    # ---- 27d. the fleet: the bench's two fleet rows, one launch of each ----
+    # ---- kernel over all vehicles, host-driven and on the device ------------
+    fleet = fleet_phase(pm, smi)
     # each kernel row's launches in the on-device runs (the profiler's
     # count by kernel name) and its largest error against the plain
     # version at those runs' shapes, from the rows that launch it
@@ -5484,6 +6015,58 @@ def main() -> int:
             "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
             **({"tc_bound_ms": t["tc_bound"][0]} if "tc_bound" in t
                else {}),
+            "library_ms": None})
+    # the fleet launches: one launch of each kernel over all vehicles of a
+    # fleet step, its bound n times one vehicle's work
+    fleet_rows = (
+        ("pm_fused_solve[fleet]", src, f"{pm_py}:1042", ("point_mass",
+                                                         False), "solve"),
+        ("pm_fused_costs[fleet]", src, f"{pm_py}:1111", ("point_mass", True),
+         "costs"),
+        ("mppi_weights[fleet]", src, f"{pm_py}:1169", ("point_mass", True),
+         "weights"),
+        ("pm_merge[fleet]", src, "mppi_tf_tpu/parallel/fused.py:90",
+         ("point_mass", False), "merge"),
+        ("auv_fused_solve[fleet]", asrc, f"{auv_py}:841", ("auv", False),
+         "solve"),
+        ("auv_fused_costs[fleet]", asrc, f"{auv_py}:910", ("auv", True),
+         "costs"),
+        ("mppi_weights[fleet, adim 6]", src, f"{auv_py}:967",
+         ("auv", True), "weights"))
+    errs_of = {"solve": ("fused_wnoise", "the fused rows' zsum / l (z units) "
+                         "against block_partials of the kernel's own costs"),
+               "costs": ("costs", "per-sample costs against the plain "
+                         "version"),
+               "weights": ("weights", "phase B's zsum / l (z units) against "
+                           "weights_plain on the kernel's costs"),
+               "merge": ("merge", "zsum / l against merge_plain on the "
+                         "plain rows")}
+    for name, source, replaces, key, which in fleet_rows:
+        row = fleet[key]
+        entry = {"solve": solve_name(key[0], False),
+                 "costs": solve_name(key[0], True),
+                 "weights": "mppi_weights", "merge": "pm_merge"}[which]
+        runs = [fleet[r] for r in fleet] if which == "merge" else [row]
+        t = row["kernel_times"][which]
+        err_key, err_of = errs_of[which]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces,
+            "launches": sum(r[part]["launches"].get(entry, 0) for r in runs
+                            for part in ("host_driven", "on_device")),
+            "path": (f"the fleet of {row['n']} ({key[0]}, K={FLEET_K}, "
+                     f"H={FLEET_H}{', normalized' if key[1] else ''}): "
+                     f"{FLEET_STEPS} host-driven steps and {FLEET_STEPS} "
+                     "on-device periods" + (", every fleet row"
+                                            if which == "merge" else "")),
+            "vehicles": row["n"],
+            "max_abs_err": max(fleet[r]["vs_plain"]["max_errs"][err_key]
+                               for r in fleet if r[0] == key[0]),
+            "max_abs_err_of": f"{err_of}, vehicle by vehicle, injected z, "
+                              f"K={FLEET_K}, H={FLEET_H}",
+            "ms": t["ms"], "device_ms": t["device_ms"],
+            "per_vehicle_ms": t["per_vehicle_ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
     for row in kernels:
         if row["name"] in od_launches:

@@ -1,8 +1,10 @@
 from ..models.dmd import DMDModel
 from .dmd import DMDMPPI
+from .fleet import FleetMPPI
 from .mppi import MPPI, savgol_matrix
 
-__all__ = ["DMDMPPI", "MPPI", "savgol_matrix", "get_controller"]
+__all__ = ["DMDMPPI", "FleetMPPI", "MPPI", "savgol_matrix",
+           "get_controller"]
 
 #: env-config keys of the adaptive DMD family and their keywords
 _DMD_KEYS = (("refit-every", "refit_every"), ("min-samples", "min_samples"),
@@ -18,15 +20,16 @@ def get_controller(model, cost, config_dict, observer=None, mesh=None,
     init-act, normalize, filter, kernel, antithetic, noise-schedule,
     kernel-dtype. A ``DMDModel`` gets the adaptive ``DMDMPPI`` with
     refit-every, min-samples and buffer-capacity (explicit ``overrides``
-    win); other models ignore those keys, as in the JAX package. Fleets
-    and meshes are not ported yet and raise ``NotImplementedError``
-    naming their ROADMAP item.
+    win); other models ignore those keys, as in the JAX package. A
+    ``fleet: N`` key builds a ``FleetMPPI`` of N vehicles with the
+    per-vehicle ``goals`` key (JAX controller/__init__.py:60-80); a DMD
+    model or an observer is refused there with ``ValueError``. Meshes are
+    not ported yet and raise ``NotImplementedError`` naming ROADMAP item
+    14.
     """
     import numpy as np
 
-    if overrides.pop("fleet", config_dict.get("fleet", 0)):
-        raise NotImplementedError(
-            "fleet controllers are not ported yet: ROADMAP item 12")
+    n_fleet = int(overrides.pop("fleet", config_dict.get("fleet", 0)) or 0)
     if mesh is not None:
         raise NotImplementedError(
             "mesh-sharded controllers are not ported yet: ROADMAP item 14")
@@ -48,6 +51,19 @@ def get_controller(model, cost, config_dict, observer=None, mesh=None,
         kwargs["init_seq"] = np.tile(ia, (kwargs["tau"], 1))
     kwargs["log"] = observer is not None
     kwargs.update(overrides)
+    if n_fleet:
+        if isinstance(model, DMDModel):
+            raise ValueError(
+                "fleet does not compose with the adaptive DMD family: "
+                "build FleetMPPI over an identified DMDModel directly")
+        if observer is not None:
+            raise ValueError(
+                "fleet controllers have no observer surface (log mode is a "
+                "single-vehicle debugging tool); drop the observer or the "
+                "fleet key")
+        kwargs.pop("log")
+        kwargs.setdefault("goals", config_dict.get("goals"))
+        return FleetMPPI(model, cost, n_vehicles=n_fleet, **kwargs)
     if isinstance(model, DMDModel):
         for key, kw in _DMD_KEYS:
             if key in config_dict:

@@ -207,14 +207,18 @@ class MPPI(MissionMixin):
             x0=state, useq=useq, noises=eps, sched=sched)
 
     def _postprocess(self, useq, wnoise):
-        """Sequence update, clip, filter; emit U[0] and the shifted sequence."""
+        """Sequence update, clip, filter; emit U[0] and the shifted sequence
+        (of each vehicle, for a fleet's [n, tau, aDim])."""
         new_useq = useq + wnoise.to(useq.dtype)
         if self._clip_actions:
             new_useq = torch.clamp(new_useq, self._model.min_act(),
                                    self._model.max_act())
         if self._S is not None:
-            new_useq = self._S @ new_useq
-        action = upd.get_next(new_useq, 1)[0]
+            # S @ new_useq as a product and a sum over the steps: each
+            # vehicle of a fleet gets a one-vehicle filter's bits
+            new_useq = (self._S[:, :, None] * new_useq[..., None, :, :]).sum(
+                dim=-2)
+        action = upd.get_next(new_useq, 1)[..., 0, :]
         init = upd.init_zeros(1, self._adim, dtype=new_useq.dtype,
                               device=new_useq.device)
         return action, upd.shift(new_useq, init, 1), new_useq

@@ -473,6 +473,7 @@ __global__ void AUV_LAUNCH_BOUNDS
                                  float* __restrict__ partials, int k_total,
                                  int tau, Seeds sd) {
   static_assert(STRUCT == kDense || kLanes == 1, "kDiag is an f32 build");
+  dyn += static_cast<size_t>(blockIdx.z) * n_dyn;  // vehicle's (fleets)
   extern __shared__ __align__(16) float smem[];
   float* s_dyn = smem;  // n_dyn = dyn_size(tau) (+ tau scheduled)
   float* s_mass = smem + ((n_dyn + 3) & ~3);  // kMassWords, 16-byte aligned
@@ -503,7 +504,7 @@ __global__ void AUV_LAUNCH_BOUNDS
   for (int l = 0; l < kLanes; ++l) {
     k[l] = blockIdx.x * kBlock + l * kThreads + threadIdx.x;
     valid[l] = k[l] < k_total;
-    ns[l].init(z, k_total, k[l], sd);
+    ns[l].init(vehicle_z(z, tau * 6, k_total), k_total, k[l], sd);
     cost[l] = 0.0f;
   }
 
@@ -634,16 +635,17 @@ __global__ void AUV_LAUNCH_BOUNDS
     cost[l] += rollout_state_cost<COST, STRUCT>(c, s_dyn, tau, x, l);
     cost[l] += u_half;
     zarg[l] = MODE == kFused ? -cost[l] / c.lam : -INFINITY;
-    if (MODE == kCosts && valid[l]) costs[k[l]] = cost[l];
+    if (MODE == kCosts && valid[l])
+      costs[vehicle_row(k[l], k_total)] = cost[l];
   }
   if (MODE == kFused)
     write_partial_row_lanes<true, kLanes>(
         zarg, cost, valid, ns, tau * 6, s_red,
-        partials + static_cast<size_t>(blockIdx.x) * (kStats + tau * 6));
+        partials + vehicle_row(blockIdx.x, gridDim.x) * (kStats + tau * 6));
   else
     write_partial_row_lanes<false, kLanes>(
         zarg, cost, valid, ns, 0, s_red,
-        partials + static_cast<size_t>(blockIdx.x) * kStats);
+        partials + vehicle_row(blockIdx.x, gridDim.x) * kStats);
 }
 
 // The launch of one solve: k samples over horizon tau; scheduled (0 / 1)
@@ -658,6 +660,7 @@ struct AuvLaunch {
   Seeds sd;
   cudaStream_t stream;
   int* occupancy;
+  int n;  // vehicles: the grid's third axis
 };
 
 template <int RK, int MODE, int COST, int STRUCT>
@@ -674,9 +677,9 @@ int launch_auv(const AuvConsts& c, const AuvLaunch& a) {
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
         a.occupancy, MPPI_KERNEL(auv_fused_solve)<RK, MODE, COST, STRUCT>,
         kThreads, smem);
-  const int nb = (a.k + kBlock - 1) / kBlock;
+  const dim3 grid((a.k + kBlock - 1) / kBlock, 1, a.n);
   MPPI_KERNEL(auv_fused_solve)<RK, MODE, COST, STRUCT>
-      <<<nb, kThreads, smem, a.stream>>>(c, a.dyn, n_dyn, sched_off, a.z,
+      <<<grid, kThreads, smem, a.stream>>>(c, a.dyn, n_dyn, sched_off, a.z,
                                          a.costs, a.partials, a.k, a.tau,
                                          a.sd);
   return cudaGetLastError();
@@ -703,7 +706,9 @@ int dispatch_struct(int rk, int st, const AuvConsts& c, const AuvLaunch& a) {
 template <int MODE>
 int dispatch_auv(int rk, int cost, int st, const float* consts,
                  const AuvLaunch& a) {
-  if (a.k <= 0 || a.tau <= 0) return cudaErrorInvalidValue;
+  if (a.k <= 0 || a.tau <= 0 || a.n <= 0 || a.n > 65535 ||
+      (a.n > 1 && a.sd.solve == nullptr))
+    return cudaErrorInvalidValue;
   HostConsts f;
   memcpy(&f, consts, sizeof(f));
 #ifdef MPPI_BF16_PAIRS
@@ -727,21 +732,23 @@ extern "C" {
 // AuvStruct (kDense alone in the bf16 build); dyn: dyn_size(tau) floats,
 // then tau factors c_t when scheduled; half: the antithetic solve's first
 // mirrored sample, 0 for none; solve: the solve index on the device, or
-// null for (s_lo, s_hi) (mppi_common.cuh). auv_mppi_bf16.cu defines
-// both solves with a _bf16 suffix.
+// null for (s_lo, s_hi) (mppi_common.cuh); n: the vehicles of a fleet
+// launch (dyn, z, costs and partials hold n vehicles' rows, `solve` their
+// n solve indices on the device; mppi_common.cuh). auv_mppi_bf16.cu
+// defines both solves with a _bf16 suffix.
 int MPPI_ENTRY(auv_fused_solve)(int rk, int cost, int structure,
                                 const float* consts, const float* dyn,
                                 const float* z, float* partials, int k,
                                 int tau, int scheduled, uint32_t half,
                                 uint32_t seed_lo, uint32_t seed_hi,
                                 uint32_t s_lo, uint32_t s_hi,
-                                const unsigned long long* solve,
+                                const unsigned long long* solve, int n,
                                 void* stream) {
   return dispatch_auv<kFused>(
       rk, cost, structure, consts,
       AuvLaunch{dyn, z, nullptr, partials, k, tau, scheduled,
                 Seeds{seed_lo, seed_hi, s_lo, s_hi, half, solve},
-                static_cast<cudaStream_t>(stream), nullptr});
+                static_cast<cudaStream_t>(stream), nullptr, n});
 }
 
 int MPPI_ENTRY(auv_fused_costs)(int rk, int cost, int structure,
@@ -751,13 +758,13 @@ int MPPI_ENTRY(auv_fused_costs)(int rk, int cost, int structure,
                                 int scheduled, uint32_t half,
                                 uint32_t seed_lo, uint32_t seed_hi,
                                 uint32_t s_lo, uint32_t s_hi,
-                                const unsigned long long* solve,
+                                const unsigned long long* solve, int n,
                                 void* stream) {
   return dispatch_auv<kCosts>(
       rk, cost, structure, consts,
       AuvLaunch{dyn, z, costs, partials, k, tau, scheduled,
                 Seeds{seed_lo, seed_hi, s_lo, s_hi, half, solve},
-                static_cast<cudaStream_t>(stream), nullptr});
+                static_cast<cudaStream_t>(stream), nullptr, n});
 }
 
 // out[0]: blocks an SM of the solve (mode 0) or costs (1) kernel of
@@ -767,7 +774,7 @@ int MPPI_ENTRY(auv_occupancy)(int rk, int cost, int structure, int mode,
                               int tau, int* out) {
   static const float zeros[sizeof(HostConsts) / sizeof(float)] = {};
   const AuvLaunch a{nullptr, nullptr, nullptr, nullptr, 1, tau, 0, Seeds{},
-                    nullptr, out};
+                    nullptr, out, 1};
   out[1] = kLanes;
   return mode ? dispatch_auv<kCosts>(rk, cost, structure, zeros, a)
               : dispatch_auv<kFused>(rk, cost, structure, zeros, a);

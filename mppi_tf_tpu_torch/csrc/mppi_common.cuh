@@ -16,6 +16,14 @@
 // z[half + i] = -z[i] for i < K - half (for odd K sample half - 1 has no
 // mirror). half = 0 turns it off. Injected z is data and is never mirrored.
 //
+// Fleets: a kernel that takes a vehicle axis runs n vehicles' solves in one
+// launch, vehicle v in the blocks of blockIdx.z = v (gridDim.z = n), each
+// reading and writing its own rows of the [n, ...] inputs and outputs and
+// drawing the normals of the solve index at solve[v] on the device (the
+// wrappers write s n + v there for fleet step s, kernels/_launch.py), so
+// that the launch equals n launches of one vehicle with those indices, bit
+// for bit. A launch of one vehicle (n = 1) reads its index as before.
+//
 // Noise schedule: the per-step factors c_t ride at the end of each solve's
 // dyn array (sched_off >= 0, else c_t = 1); the kernels scale the noise
 // drive and the z-quadratic by c_t so that c_t = 1 is the unscheduled
@@ -249,7 +257,8 @@ __device__ __forceinline__ void box_muller(uint32_t a, uint32_t b, float sign,
 // null, from device memory: a replayed CUDA graph freezes its kernels'
 // arguments, so the loop of envs/mjx_env.py advances a device counter that
 // the kernels read (philox_normals, through the read-only path). The bits
-// are the same either way. Read where the words are used, not once into
+// are the same either way. A fleet launch reads vehicle v's index at
+// solve[v] (device memory only). Read where the words are used, not once into
 // the struct: ptxas then keeps the by-value words as constant operands,
 // and no instantiation gains registers (a copy at kernel start spilled
 // the (4, 2) bf16 pair solves).
@@ -258,6 +267,20 @@ struct Seeds {
   uint32_t half;  // first mirrored sample of an antithetic solve, 0: none
   const unsigned long long* solve;  // the solve index on the device, or null
 };
+
+// A fleet launch's rows of vehicle blockIdx.z (fleets, above): its
+// injected z of n_z normals a sample (null stays null), and the index of
+// its row `row` of `rows` rows a vehicle. Taken where each is used, so
+// that no offset pointer stays live in a register over the horizon.
+__device__ __forceinline__ const float* vehicle_z(const float* z, int n_z,
+                                                  int k_total) {
+  return z == nullptr
+             ? z
+             : z + static_cast<size_t>(blockIdx.z) * n_z * k_total;
+}
+__device__ __forceinline__ size_t vehicle_row(int row, int rows) {
+  return static_cast<size_t>(blockIdx.z) * rows + row;
+}
 
 // The Philox sample whose normals sample k reads, and their sign.
 __device__ __forceinline__ uint32_t noise_source(uint32_t k, const Seeds& sd,
@@ -277,8 +300,8 @@ __device__ __forceinline__ void philox_normals(uint32_t sample, uint32_t blk,
                                                const Seeds& sd, float sign,
                                                float v[4]) {
   uint32_t s_lo = sd.s_lo, s_hi = sd.s_hi;
-  if (sd.solve != nullptr) {
-    const unsigned long long s = __ldg(sd.solve);
+  if (sd.solve != nullptr) {  // vehicle blockIdx.z's index (fleets)
+    const unsigned long long s = __ldg(sd.solve + blockIdx.z);
     s_lo = static_cast<uint32_t>(s);
     s_hi = static_cast<uint32_t>(s >> 32);
   }

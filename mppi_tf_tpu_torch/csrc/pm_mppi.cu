@@ -341,6 +341,7 @@ __global__ void __launch_bounds__(kThreads)
                                 float* __restrict__ partials, int k_total,
                                 int tau, Seeds sd) {
   static_assert(STRUCT == kDense, "the pair build has kDense alone");
+  dyn += static_cast<size_t>(blockIdx.z) * dyn_size;  // vehicle's (fleets)
   extern __shared__ float smem[];
   float* s_dyn = smem;             // dyn_size
   float* s_red = smem + dyn_size;  // kWarps * n_z: pass-two warp sums
@@ -380,7 +381,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int l = 0; l < kLanes; ++l) {
     k[l] = blockIdx.x * kBlock + l * kThreads + threadIdx.x;
     valid[l] = k[l] < k_total;
-    ns[l].init(z, k_total, k[l], sd);
+    ns[l].init(vehicle_z(z, tau * A, k_total), k_total, k[l], sd);
     cost[l] = 0.0f;
   }
 
@@ -439,16 +440,17 @@ __global__ void __launch_bounds__(kThreads)
   for (int l = 0; l < kLanes; ++l) {
     cost[l] += u_half;
     zarg[l] = MODE == kFused ? -cost[l] / c.lam : -INFINITY;
-    if (MODE == kCosts && valid[l]) costs[k[l]] = cost[l];
+    if (MODE == kCosts && valid[l])
+      costs[vehicle_row(k[l], k_total)] = cost[l];
   }
   if (MODE == kFused)
     write_partial_row_lanes<true, kLanes>(
         zarg, cost, valid, ns, tau * A, s_red,
-        partials + static_cast<size_t>(blockIdx.x) * (kStats + tau * A));
+        partials + vehicle_row(blockIdx.x, gridDim.x) * (kStats + tau * A));
   else
     write_partial_row_lanes<false, kLanes>(
         zarg, cost, valid, ns, 0, s_red,
-        partials + static_cast<size_t>(blockIdx.x) * kStats);
+        partials + vehicle_row(blockIdx.x, gridDim.x) * kStats);
 }
 
 // Shared memory of the pair build ahead of s_red: dyn.
@@ -573,6 +575,7 @@ __global__ void __launch_bounds__(kThreads, 3)
                                 int tau, Seeds sd) {
   static_assert(STRUCT == kDense || AB == kConstAB,
                 "kIntegrator reads A and B scale from the constants");
+  dyn += static_cast<size_t>(blockIdx.z) * dyn_size;  // vehicle's (fleets)
   using R = AbRows<S, A, STRUCT>;
   extern __shared__ __align__(16) float smem[];
   float* s_dyn = smem;                          // dyn_size
@@ -594,7 +597,7 @@ __global__ void __launch_bounds__(kThreads, 3)
   const int k = blockIdx.x * kBlock + threadIdx.x;
   const bool valid = k < k_total;
   NoiseStream ns;
-  ns.init(z, k_total, k, sd);
+  ns.init(vehicle_z(z, tau * A, k_total), k_total, k, sd);
   float cost = 0.0f;
   float x[S];
 #pragma unroll
@@ -674,15 +677,15 @@ __global__ void __launch_bounds__(kThreads, 3)
   cost += u_half;
 
   const float zarg = MODE == kFused ? -cost / c.lam : -INFINITY;
-  if (MODE == kCosts && valid) costs[k] = cost;
+  if (MODE == kCosts && valid) costs[vehicle_row(k, k_total)] = cost;
   if (MODE == kFused)
     write_partial_row_lanes<true, 1, kPassTwoBlocks>(
         &zarg, &cost, &valid, &ns, tau * A, s_red,
-        partials + static_cast<size_t>(blockIdx.x) * (kStats + tau * A));
+        partials + vehicle_row(blockIdx.x, gridDim.x) * (kStats + tau * A));
   else
     write_partial_row_lanes<false, 1>(
         &zarg, &cost, &valid, &ns, 0, s_red,
-        partials + static_cast<size_t>(blockIdx.x) * kStats);
+        partials + vehicle_row(blockIdx.x, gridDim.x) * kStats);
 }
 
 // Shared memory of the f32 build ahead of s_red: dyn, padded to 16 bytes,
@@ -720,11 +723,13 @@ __global__ void __launch_bounds__(kBlock)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int k = blockIdx.x * kBlock + threadIdx.x;
   const bool valid = k < k_total;
-  const float cost = valid ? costs[k] : 0.0f;
+  // vehicle blockIdx.z's costs, nrm, z and row (mppi_common.cuh, fleets)
+  const float cost = valid ? costs[vehicle_row(k, k_total)] : 0.0f;
+  nrm += 2 * blockIdx.z;
   const float zarg = -(cost - nrm[0]) * nrm[1];
   const float m_b = 0.0f;  // zarg lies in [-1/lam, 0]
   const float w = valid ? expf(zarg - m_b) : 0.0f;
-  float* row = partials + static_cast<size_t>(blockIdx.x) * (kStats + n_z);
+  float* row = partials + vehicle_row(blockIdx.x, gridDim.x) * (kStats + n_z);
   if (blockIdx.y == 0) {
     const float l_w = warp_sum(w);
     const float cmin = warp_min(valid ? cost : INFINITY);
@@ -741,7 +746,7 @@ __global__ void __launch_bounds__(kBlock)
   const int n0 = blockIdx.y * group_blocks * 4;
   const int n_loc = min(n_z - n0, group_blocks * 4);
   NoiseStream ns;
-  ns.init(z, k_total, k, sd);
+  ns.init(vehicle_z(z, n_z, k_total), k_total, k, sd);
   constexpr int kCopies = 32 / kWeightNormals;
 #pragma unroll 1
   for (int c0 = 0; c0 < n_loc; c0 += kWeightNormals) {
@@ -920,6 +925,12 @@ __global__ void __launch_bounds__(kMergeThreads, 1)
   __shared__ float s_red[4][kMergeSlices];
   __shared__ float s_out[5 + kMergeCols];  // m_r, stats, column partials
   const int width = kStats + n_z;
+  {  // vehicle blockIdx.z's rows (mppi_common.cuh, fleets)
+    const size_t v = blockIdx.z;
+    p += v * nb * width;
+    zsum += v * n_z;
+    stats += v * kStats;
+  }
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int ranks = static_cast<int>(cluster.num_blocks());
   int tile = blockIdx.x, b0 = 0, b1 = nb;
@@ -992,6 +1003,8 @@ __global__ void __launch_bounds__(kMergeThreads, 1)
     pm_merge_stats_kernel(const float* __restrict__ p, int nb,
                           float* __restrict__ stats) {
   __shared__ float s_red[4][kMergeSlices];
+  p += static_cast<size_t>(blockIdx.z) * nb * kStats;  // vehicle's rows
+  stats += static_cast<size_t>(blockIdx.z) * kStats;
   const float mg = block_max_m(p, kStats, 0, nb, s_red[0]);
   float st[4] = {0.0f, INFINITY, -INFINITY, 0.0f};
   for (int b = threadIdx.x; b < nb; b += kMergeThreads) {
@@ -1025,6 +1038,7 @@ struct PmLaunch {
   Seeds sd;
   cudaStream_t stream;
   int* occupancy;
+  int n;  // vehicles: the grid's third axis
 };
 
 template <int S, int A, int MODE, int COST, int AB, int STRUCT>
@@ -1048,9 +1062,9 @@ int launch_solve(const PmLaunch& a) {
   if (a.occupancy != nullptr)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.occupancy, kernel,
                                                          kThreads, smem);
-  const int nb = (a.k + kBlock - 1) / kBlock;
+  const dim3 grid((a.k + kBlock - 1) / kBlock, 1, a.n);
   MPPI_KERNEL(pm_fused_solve)<S, A, MODE, COST, AB, STRUCT>
-      <<<nb, kThreads, smem, a.stream>>>(c, a.dyn, dyn_size, sched_off, a.z,
+      <<<grid, kThreads, smem, a.stream>>>(c, a.dyn, dyn_size, sched_off, a.z,
                                          a.costs, a.partials, a.k, a.tau,
                                          a.sd);
   return cudaGetLastError();
@@ -1077,7 +1091,9 @@ int dispatch_dims(int sdim, int adim, int cost, const PmLaunch& a) {
 template <int MODE>
 int dispatch_solve(int sdim, int adim, int cost, int structure, int dyn_ab,
                    const PmLaunch& a) {
-  if (a.k <= 0 || a.tau <= 0) return cudaErrorInvalidValue;
+  if (a.k <= 0 || a.tau <= 0 || a.n <= 0 || a.n > 65535 ||
+      (a.n > 1 && a.sd.solve == nullptr))
+    return cudaErrorInvalidValue;
   if (structure == kDense) {
     if (dyn_ab)
       return dispatch_dims<MODE, kDynAB, kDense>(sdim, adim, cost, a);
@@ -1094,6 +1110,12 @@ int dispatch_solve(int sdim, int adim, int cost, int structure, int dyn_ab,
 
 extern "C" {
 
+// The solves, mppi_weights and pm_merge take `n`, the vehicles of a fleet
+// launch (mppi_common.cuh), last before the stream: every array they read
+// or write then holds n vehicles' rows, one after another, and at n > 1
+// `solve` holds the n vehicles' solve indices on the device; n = 1 is the
+// one-vehicle launch.
+//
 // Every entry point that reads the noise takes `half`, the first mirrored
 // sample of an antithetic solve (0: none; mppi_common.cuh), and the solve
 // index as two words or, where `solve` is not null, at that device
@@ -1122,13 +1144,13 @@ int MPPI_ENTRY(pm_fused_solve)(int sdim, int adim, int cost, int structure,
                    const float* dyn, const float* z, float* partials, int k,
                    int tau, int scheduled, int dynamic_ab, uint32_t half,
                    uint32_t seed_lo, uint32_t seed_hi, uint32_t s_lo,
-                   uint32_t s_hi, const unsigned long long* solve,
+                   uint32_t s_hi, const unsigned long long* solve, int n,
                    void* stream) {
   return dispatch_solve<kFused>(
       sdim, adim, cost, structure, dynamic_ab,
       PmLaunch{consts, dyn, z, nullptr, partials, k, tau, scheduled,
                Seeds{seed_lo, seed_hi, s_lo, s_hi, half, solve},
-               static_cast<cudaStream_t>(stream), nullptr});
+               static_cast<cudaStream_t>(stream), nullptr, n});
 }
 
 int MPPI_ENTRY(pm_fused_costs)(int sdim, int adim, int cost, int structure,
@@ -1137,12 +1159,12 @@ int MPPI_ENTRY(pm_fused_costs)(int sdim, int adim, int cost, int structure,
                    float* partials, int k, int tau, int scheduled,
                    int dynamic_ab, uint32_t half, uint32_t seed_lo,
                    uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
-                   const unsigned long long* solve, void* stream) {
+                   const unsigned long long* solve, int n, void* stream) {
   return dispatch_solve<kCosts>(
       sdim, adim, cost, structure, dynamic_ab,
       PmLaunch{consts, dyn, z, costs, partials, k, tau, scheduled,
                Seeds{seed_lo, seed_hi, s_lo, s_hi, half, solve},
-               static_cast<cudaStream_t>(stream), nullptr});
+               static_cast<cudaStream_t>(stream), nullptr, n});
 }
 
 // out[0]: blocks an SM of the solve (mode 0) or costs (1) kernel of
@@ -1152,7 +1174,7 @@ int MPPI_ENTRY(pm_occupancy)(int sdim, int adim, int cost, int structure,
                              int mode, int dynamic_ab, int tau, int* out) {
   static const float zeros[sizeof(HostConsts<6, 3>) / sizeof(float)] = {};
   const PmLaunch a{zeros, nullptr, nullptr, nullptr, nullptr, 1, tau, 0,
-                   Seeds{}, nullptr, out};
+                   Seeds{}, nullptr, out, 1};
   out[1] = kLanes;
   return mode ? dispatch_solve<kCosts>(sdim, adim, cost, structure,
                                        dynamic_ab, a)
@@ -1185,16 +1207,18 @@ int MPPI_ENTRY(mppi_weights)(const float* nrm, const float* costs,
                              const float* z, float* partials, int k,
                              int n_z, uint32_t half, uint32_t seed_lo,
                              uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
-                             const unsigned long long* solve,
+                             const unsigned long long* solve, int n,
                              void* stream) {
-  if (k <= 0 || n_z <= 0) return cudaErrorInvalidValue;
+  if (k <= 0 || n_z <= 0 || n <= 0 || n > 65535 ||
+      (n > 1 && solve == nullptr))
+    return cudaErrorInvalidValue;
   int gy = 1, group_blocks = 0;
   weights_groups(n_z, &gy, &group_blocks);
   size_t smem = 0;
   const cudaError_t e = smem_for(MPPI_KERNEL(mppi_weights), 0,
                std::min(n_z, 4 * group_blocks), &smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((k + kBlock - 1) / kBlock, gy);
+  const dim3 grid((k + kBlock - 1) / kBlock, gy, n);
   MPPI_KERNEL(mppi_weights)<<<grid, kBlock, smem,
                               static_cast<cudaStream_t>(stream)>>>(
       nrm, costs, z, partials, k, n_z, group_blocks,
@@ -1221,11 +1245,12 @@ int MPPI_ENTRY(mppi_weights_occupancy)(int n_z, int* out) {
 // point mass's 391 rows and eight the fastest at the AUV's 1,024.
 constexpr int kMergeClusterRows = 640;
 int pm_merge(const float* partials, int nb, int n_z, float* zsum,
-             float* stats, void* stream) {
-  if (nb <= 0 || n_z < 0) return cudaErrorInvalidValue;
+             float* stats, int n, void* stream) {
+  if (nb <= 0 || n_z < 0 || n <= 0 || n > 65535) return cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_z == 0) {
-    pm_merge_stats_kernel<<<1, kMergeThreads, 0, st>>>(partials, nb, stats);
+    pm_merge_stats_kernel<<<dim3(1, 1, n), kMergeThreads, 0, st>>>(
+        partials, nb, stats);
     return cudaGetLastError();
   }
   const int ranks = nb >= kMergeClusterRows ? kMergeRanks : 1;
@@ -1233,12 +1258,12 @@ int pm_merge(const float* partials, int nb, int n_z, float* zsum,
   const size_t smem =
       std::min((nb + ranks - 1) / ranks, kMergeChunk) * sizeof(float);
   if (ranks == 1) {
-    pm_merge_kernel<<<tiles, kMergeThreads, smem, st>>>(partials, nb, n_z,
-                                                        zsum, stats);
+    pm_merge_kernel<<<dim3(tiles, 1, n), kMergeThreads, smem, st>>>(
+        partials, nb, n_z, zsum, stats);
     return cudaGetLastError();
   }
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles * ranks);
+  cfg.gridDim = dim3(tiles * ranks, 1, n);
   cfg.blockDim = dim3(kMergeThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = st;

@@ -123,9 +123,12 @@ class AUVEnv:
     @torch.no_grad()
     def step_fn(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """One plant step at the plant dt, on x's device in x's dtype.
-        x: [13], u: [6] -> [13]."""
+        x: [13], u: [6] -> [13], or a fleet's [n, 13] and [n, 6] -> [n, 13]
+        (the model's batched step, a row a vehicle)."""
         model = self._model_on(x.device, x.dtype)
-        return model.step(x[None, :], u[None, :].to(x.dtype))[0]
+        xb = x.reshape(-1, x.shape[-1])
+        ub = u.reshape(-1, u.shape[-1]).to(x.dtype)
+        return model.step(xb, ub).reshape(x.shape)
 
     def getTime(self) -> float:
         return self._t

@@ -58,13 +58,14 @@ class DevicePointMassEnv:
     # --- on-device surface ----------------------------------------------
     def step_fn(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         """One physics step, pure, on x's device: x [2n] interleaved,
-        u [n] -> [2n]. The exact LTI update (RK4 for this plant), in the
-        JAX package's order of operations (mjx_env.py:57-70)."""
-        q, v = x[0::2], x[1::2]
-        a = u[: self.n_dof] / self.mass
+        u [n] -> [2n], or a fleet's [V, 2n] and [V, n] -> [V, 2n]. The
+        exact LTI update (RK4 for this plant), in the JAX package's order
+        of operations (mjx_env.py:57-70), vehicle by vehicle."""
+        q, v = x[..., 0::2], x[..., 1::2]
+        a = u[..., : self.n_dof] / self.mass
         q = q + v * self.dt + 0.5 * a * self.dt * self.dt
         v = v + a * self.dt
-        return torch.stack([q, v], dim=-1).reshape(-1)
+        return torch.stack([q, v], dim=-1).reshape(x.shape)
 
     # --- host Simulation API (reference simulation.py:26-55) -------------
     def getTime(self) -> float:
@@ -526,6 +527,145 @@ class OnDeviceLoop:
             ctrl._cost.sync_host(*queue)
         if self.adaptive:
             return states, actions, fitted
+        return states, actions
+
+
+class _FleetBuffers:
+    """A fleet loop's tensors (``_Buffers``, a row a vehicle), with the
+    loop's own copy of the stacked cost params, which the period reads and
+    its pops write."""
+
+    def __init__(self, fleet, steps: int):
+        like = {"dtype": fleet._dtype, "device": fleet._device}
+        n, sdim, adim = fleet._n, fleet._sdim, fleet._adim
+        self.state = torch.zeros(n, sdim, **like)
+        self.useq = torch.zeros(tuple(fleet.useq.shape), **like)
+        self.states = torch.zeros(steps, n, sdim, **like)
+        self.actions = torch.zeros(steps, n, adim, **like)
+        idx = {"dtype": torch.int64, "device": fleet._device}
+        self.solve = torch.zeros(1, **idx)   # the period's fleet step
+        self.row = torch.zeros(1, **idx)
+        self.cp = {name: torch.zeros_like(t)
+                   for name, t in fleet.cost_params.items()}
+
+
+class FleetLoop(OnDeviceLoop):
+    """The ``run`` of ``FleetMPPI.build_on_device_loop``: ``OnDeviceLoop``'s
+    capture and replay over a fleet's period (the fleet solve, the
+    batched plant, every vehicle's pop). ``nodes``, ``capture_s`` and
+    ``captures`` as there."""
+
+    def __init__(self, fleet, plant_step, steps: int, substeps: int,
+                 waypoint_radius):
+        from ..controller.fleet import _fleet_pop
+
+        self.fleet, self.ctrl = fleet, fleet._tpl
+        self.plant_step = plant_step
+        self.steps, self.substeps = int(steps), int(substeps)
+        self.adaptive, self.W = False, None
+        self.pop = self.r2 = None
+        if waypoint_radius is not None:
+            self.pop = _fleet_pop(fleet._cost)
+            self.r2 = float(waypoint_radius) ** 2
+        self._bufs = None
+        self._graphs = None
+        self._frozen = None
+        self._gens = None
+        self.nodes, self.capture_s, self.captures = {}, None, 0
+
+    @torch.no_grad()
+    def _period(self, b) -> None:
+        actions, shifted, _ = self.fleet._step(b.state, b.useq, b.cp,
+                                               solve=b.solve, gens=self._gens)
+        x = b.state
+        for _ in range(self.substeps):
+            x = self.plant_step(x, actions)
+        if self.pop is not None:
+            cp = self.pop(b.cp, x, self.r2)
+            for name, t in cp.items():
+                b.cp[name].copy_(t)
+        b.states.index_copy_(0, b.row, x[None].to(b.states.dtype))
+        b.actions.index_copy_(0, b.row, actions[None].to(b.actions.dtype))
+        b.row.add_(1)
+        b.solve.add_(1)
+        b.state.copy_(x)
+        b.useq.copy_(shifted)
+
+    def __call__(self, states0, generators=None, useq0=None, mparams=None,
+                 cparams=None, step0=None):
+        return self._run_fleet(states0, generators, useq0, mparams, cparams,
+                               step0, graph=self._graphed())
+
+    def eager(self, states0, generators=None, useq0=None, mparams=None,
+              cparams=None, step0=None):
+        """``run`` with every period executed eagerly (no graph)."""
+        return self._run_fleet(states0, generators, useq0, mparams, cparams,
+                               step0, graph=False)
+
+    @torch.no_grad()
+    def _run_fleet(self, states0, generators, useq0, mparams, cparams,
+                   step0, graph: bool):
+        from ..interop import _model_tensors
+
+        fleet, ctrl, steps = self.fleet, self.ctrl, self.steps
+        self._staged = []
+        x0 = self._upload(states0).reshape(fleet._n, fleet._sdim)
+        useq0 = (torch.zeros_like(fleet.useq) if useq0 is None
+                 else self._upload(useq0).reshape(fleet.useq.shape))
+        if step0 is None:
+            step0 = fleet._steps
+            fleet._steps = step0 + steps
+        model_t = _model_tensors(ctrl._model)
+        orig_m = None
+        if mparams is not None:
+            orig_m = {n: t.detach().clone() for n, t in model_t.items()}
+            ctrl.model_params = mparams
+        src = fleet.cost_params
+        if cparams is not None:
+            src = {name: self._upload(cparams[name]).to(t.dtype).reshape(
+                t.shape) for name, t in src.items()}
+        if self._bufs is None:
+            self._bufs = _FleetBuffers(fleet, steps)
+        b = self._bufs
+
+        def load():
+            b.state.copy_(x0)
+            b.useq.copy_(useq0)
+            b.solve.fill_(step0)
+            b.row.zero_()
+            for name, t in b.cp.items():
+                t.copy_(src[name])
+
+        self._gens = generators
+        try:
+            if graph:
+                key = self._freeze_key()
+                if key != self._frozen:
+                    load()
+                    self._capture(b, with_fit=False)
+                    self._frozen = key
+                load()
+                period, _ = self._graphs
+                for _ in range(steps):
+                    period.replay()
+                _launch.count_replays(self.nodes, steps)
+            else:
+                load()
+                for _ in range(steps):
+                    self._period(b)
+        finally:
+            self._gens = None
+        states, actions = b.states.clone(), b.actions.clone()
+        if orig_m is not None:
+            for n, t in model_t.items():
+                t.copy_(orig_m[n])
+        if self.pop is not None and cparams is None:
+            # the mission goes on from the run's final queues
+            for name, t in fleet.cost_params.items():
+                t.copy_(b.cp[name])
+        if ctrl._device.type == "cuda":
+            torch.cuda.current_stream(ctrl._device).synchronize()
+        self._staged = []
         return states, actions
 
 

@@ -58,37 +58,48 @@ def _model_tensors(model) -> dict:
     return out
 
 
+def _cost_tensors(cost) -> dict:
+    """The cost params a cost carries, or a ``FleetMPPI``'s stacked ones
+    ([n, ...], the JAX fleet's ``_cparams`` layout)."""
+    if cost is None:
+        return {}
+    stacked = getattr(cost, "cost_params", None)
+    return cost.params() if stacked is None else stacked
+
+
 def from_jax_params(mparams: dict, cparams, model, cost=None):
     """Load the JAX package's model and cost params (numpy arrays, or
     anything ``np.asarray`` takes) into ``model`` and ``cost`` in place;
-    ``cost=None`` (with ``cparams=None``) loads the model alone. Returns
-    ``(model, cost)``."""
+    ``cost=None`` (with ``cparams=None``) loads the model alone. ``cost``
+    may be a ``FleetMPPI``: ``cparams`` is then the JAX fleet's stacked
+    pytree ([n, ...] leaves). Returns ``(model, cost)``."""
     cparams = {} if cost is None else cparams
     flat = _flatten(mparams)
     targets = _model_tensors(model)
     if set(flat) != set(targets):
         raise KeyError(f"model params {sorted(flat)} != the model's "
                        f"parameters {sorted(targets)}")
-    if cost is not None and set(cparams) != set(cost.param_names):
+    bufs = _cost_tensors(cost)
+    if cost is not None and set(cparams) != set(bufs):
         raise KeyError(f"cost params {sorted(cparams)} != the cost's "
-                       f"params {sorted(cost.param_names)}")
+                       f"params {sorted(bufs)}")
     with torch.no_grad():
         for name, t in targets.items():
             value = np.asarray(flat[name], np.float64).reshape(t.shape)
             t.copy_(torch.tensor(value, dtype=t.dtype))
-        for name, buf in ({} if cost is None else cost.params()).items():
+        for name, buf in bufs.items():
             value = np.asarray(cparams[name], np.float64).reshape(buf.shape)
             buf.copy_(torch.tensor(value, dtype=buf.dtype))
-    if cost is not None:
+    if cost is not None and bufs is not getattr(cost, "cost_params", None):
         cost.sync_host()
     return model, cost
 
 
 def to_jax_params(model, cost=None):
     """The port's params as the JAX package's pytrees of numpy arrays
-    (cparams {} without a cost)."""
+    (cparams {} without a cost; a ``FleetMPPI``'s stacked [n, ...])."""
     mparams = _unflatten({n: t.detach().cpu().numpy()
                           for n, t in _model_tensors(model).items()})
     cparams = {n: b.detach().cpu().numpy()
-               for n, b in ({} if cost is None else cost.params()).items()}
+               for n, b in _cost_tensors(cost).items()}
     return mparams, cparams

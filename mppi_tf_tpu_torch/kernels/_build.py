@@ -35,24 +35,27 @@ _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 _SEEDS = [_U, _U, _U, _U, _U, _P]
 # k, tau, scheduled
 _SOLVE = [_I, _I, _I]
+# the kernels with a vehicle axis take the fleet's n before the stream
+_N = [_I]
 _SIGNATURES = {
     "pm_noise_dump": [_P, _I, _I, *_SEEDS, _P],
     # the point-mass solves take (sdim, adim, cost, structure) first and
     # add dynamic_ab after scheduled
     "pm_fused_solve": [_I, _I, _I, _I, _P, _P, _P, _P, *_SOLVE, _I,
-                       *_SEEDS, _P],
+                       *_SEEDS, *_N, _P],
     "pm_fused_costs": [_I, _I, _I, _I, _P, _P, _P, _P, _P, *_SOLVE, _I,
-                       *_SEEDS, _P],
-    "mppi_weights": [_P, _P, _P, _P, _I, _I, *_SEEDS, _P],
+                       *_SEEDS, *_N, _P],
+    "mppi_weights": [_P, _P, _P, _P, _I, _I, *_SEEDS, *_N, _P],
     # (n_z, out[2]): phase B's blocks an SM and the rule's groups
     "mppi_weights_occupancy": [_I, _P],
-    "pm_merge": [_P, _I, _I, _P, _P, _P],
+    "pm_merge": [_P, _I, _I, _P, _P, *_N, _P],
     # an empty kernel: the launch floor chip_smoke.py times pm_merge against
     "pm_empty": [_P],
     # the AUV solves take (rk, cost, structure) first
-    "auv_fused_solve": [_I, _I, _I, _P, _P, _P, _P, *_SOLVE, *_SEEDS, _P],
-    "auv_fused_costs": [_I, _I, _I, _P, _P, _P, _P, _P, *_SOLVE, *_SEEDS,
+    "auv_fused_solve": [_I, _I, _I, _P, _P, _P, _P, *_SOLVE, *_SEEDS, *_N,
                         _P],
+    "auv_fused_costs": [_I, _I, _I, _P, _P, _P, _P, _P, *_SOLVE, *_SEEDS,
+                        *_N, _P],
     "auv_dyn_size": [_I],
     "nn_fused_solve": [_I, _I, _I, _P, _P, _P, _P, *_SOLVE, *_SEEDS, _P],
     "nn_fused_costs": [_I, _I, _I, _P, _P, _P, _P, _P, *_SOLVE, *_SEEDS,

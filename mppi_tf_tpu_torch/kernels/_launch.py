@@ -39,6 +39,8 @@ KERNELS.update(
 EXTRA_KERNELS = {"pm_merge": ("pm_merge_stats_kernel",)}
 
 launch_counts = dict.fromkeys(KERNELS, 0)
+#: the vehicles' solve indices of the last fleet launch (solve_words)
+_fleet_index = None
 #: kernel nodes recorded into CUDA graphs, by entry point
 captured_counts = dict.fromkeys(KERNELS, 0)
 
@@ -93,20 +95,34 @@ def split64(v: int):
     return v & 0xFFFFFFFF, v >> 32
 
 
-def solve_words(solve, device) -> tuple:
+def solve_words(solve, device, n: int = 1) -> tuple:
     """(s_lo, s_hi, address) of a kernel's solve index: an int by value
     (address None), or a one-element int64 tensor on ``device`` that the
     kernel reads when it draws (words 0): what a replayed CUDA graph needs,
-    whose by-value arguments are frozen at capture."""
+    whose by-value arguments are frozen at capture. A fleet launch of
+    ``n`` > 1 vehicles at fleet solve s reads vehicle v's index s n + v
+    from an [n] int64 tensor on the device, written here by one small
+    device op (no host sync) and kept until the next call, past the
+    launch that reads it."""
+    global _fleet_index
     if not isinstance(solve, torch.Tensor):
-        return (*split64(solve), None)
+        if n == 1:
+            return (*split64(solve), None)
+        s = int(solve) * n
+        _fleet_index = torch.arange(s, s + n, dtype=torch.int64,
+                                    device=device)
+        return 0, 0, _fleet_index.data_ptr()
     if solve.dtype != torch.int64 or solve.numel() != 1:
         raise ValueError(f"a solve index tensor must hold one int64, got "
                          f"{solve.dtype} {tuple(solve.shape)}")
     if solve.device != torch.device(device):
         raise ValueError(f"the solve index lies on {solve.device}, the "
                          f"kernel runs on {device}")
-    return 0, 0, solve.data_ptr()
+    if n == 1:
+        return 0, 0, solve.data_ptr()
+    _fleet_index = torch.add(
+        torch.arange(n, dtype=torch.int64, device=device), solve, alpha=n)
+    return 0, 0, _fleet_index.data_ptr()
 
 
 def launch(name: str, device, *args) -> None:

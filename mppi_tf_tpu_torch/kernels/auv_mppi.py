@@ -55,9 +55,9 @@ from ._launch import check, launch, on_card, solve_words, split64
 from .errors import KernelUnsupportedError
 from .pm_mppi import (BLOCK, STATS, TwoPhaseSolve, _sched_block,
                       bf16_const, bf16_dot, block_partials,
-                      check_compute_dtype, cost_partials, entry,
-                      round_bf16_np, sched_factors, solve_noise,
-                      variant_args)
+                      check_compute_dtype, cost_partials, entry, fleet_dims,
+                      n_vehicles, per_vehicle, round_bf16_np, sched_factors,
+                      solve_noise, variant_args)
 
 GRAVITY = 9.81
 SDIM, ADIM = 13, 6
@@ -465,26 +465,34 @@ def kernel_dyn_size(tau: int) -> int:
 
 
 def _check_inputs(consts, dyn, z, k, tau):
+    """The vehicle axis ((), or (n,) for a fleet) of a solve's inputs."""
     if consts.rk not in (1, 2, 4):
         raise KernelUnsupportedError(f"rk must be 1, 2 or 4, got {consts.rk}")
     if kernel_dyn_size(tau) != Dyn(tau).size:
         raise RuntimeError(
             f"dyn layout mismatch: the kernels stage {kernel_dyn_size(tau)} "
             f"floats at tau={tau}, Dyn packs {Dyn(tau).size}")
-    check(dyn, "dyn", (Dyn(tau, consts.scheduled).size,))
+    lead = fleet_dims(dyn, 1)
+    check(dyn, "dyn", (*lead, Dyn(tau, consts.scheduled).size))
     if z is not None:
-        check(z, "z", (tau, ADIM, k))
+        check(z, "z", (*lead, tau, ADIM, k))
+    return lead
 
 
 def auv_fused_solve(consts: AuvConsts, dyn: torch.Tensor, k: int, tau: int,
                     seed: int = 0, solve: int = 0, z=None) -> torch.Tensor:
     """Fused Fossen rollout + block softmax partials
     [n_blocks, STATS + tau*6]; ``z`` (f32 [tau, 6, k]) injects the normals
-    in place of the Philox stream of (seed, solve)."""
+    in place of the Philox stream of (seed, solve). A fleet's ``dyn``
+    [n, size] (z [n, tau, 6, k]) runs in one launch, vehicle v drawing
+    solve solve * n + v: partials [n, n_blocks, ...]."""
     if not on_card(dyn, z):
+        if dyn.dim() == 2:
+            return per_vehicle(lambda s, d, zv: fused_solve_plain(
+                consts, d, k, tau, seed, s, zv), dyn.shape[0], solve, dyn, z)
         return fused_solve_plain(consts, dyn, k, tau, seed, solve, z)
-    _check_inputs(consts, dyn, z, k, tau)
-    partials = torch.empty((-(-k // BLOCK), STATS + tau * ADIM),
+    lead = _check_inputs(consts, dyn, z, k, tau)
+    partials = torch.empty((*lead, -(-k // BLOCK), STATS + tau * ADIM),
                            dtype=torch.float32, device=dyn.device)
     launch(entry("auv_fused_solve", consts.compute_dtype), dyn.device,
            consts.rk, COST_KINDS[consts.cost_kind],
@@ -492,26 +500,33 @@ def auv_fused_solve(consts: AuvConsts, dyn: torch.Tensor, k: int, tau: int,
            dyn.data_ptr(),
            None if z is None else z.data_ptr(), partials.data_ptr(), k, tau,
            *variant_args(consts, k), *split64(seed),
-           *solve_words(solve, dyn.device))
+           *solve_words(solve, dyn.device, n_vehicles(lead)),
+           n_vehicles(lead))
     return partials
 
 
 def auv_fused_costs(consts: AuvConsts, dyn: torch.Tensor, k: int, tau: int,
                     seed: int = 0, solve: int = 0, z=None):
-    """Phase A: per-sample costs [k] and stats-only rows [n_blocks, STATS]."""
+    """Phase A: per-sample costs [k] and stats-only rows [n_blocks, STATS]
+    (a fleet's: [n, k] and [n, n_blocks, STATS], one launch)."""
     if not on_card(dyn, z):
+        if dyn.dim() == 2:
+            return per_vehicle(lambda s, d, zv: fused_costs_plain(
+                consts, d, k, tau, seed, s, zv), dyn.shape[0], solve, dyn, z)
         return fused_costs_plain(consts, dyn, k, tau, seed, solve, z)
-    _check_inputs(consts, dyn, z, k, tau)
-    costs = torch.empty(k, dtype=torch.float32, device=dyn.device)
-    partials = torch.empty((-(-k // BLOCK), STATS), dtype=torch.float32,
-                           device=dyn.device)
+    lead = _check_inputs(consts, dyn, z, k, tau)
+    costs = torch.empty((*lead, k), dtype=torch.float32, device=dyn.device)
+    partials = torch.empty((*lead, -(-k // BLOCK), STATS),
+                           dtype=torch.float32, device=dyn.device)
     launch(entry("auv_fused_costs", consts.compute_dtype), dyn.device,
            consts.rk, COST_KINDS[consts.cost_kind],
            STRUCTURES[consts.structure], consts.packed.ctypes.data,
            dyn.data_ptr(),
            None if z is None else z.data_ptr(), costs.data_ptr(),
            partials.data_ptr(), k, tau, *variant_args(consts, k),
-           *split64(seed), *solve_words(solve, dyn.device))
+           *split64(seed),
+           *solve_words(solve, dyn.device, n_vehicles(lead)),
+           n_vehicles(lead))
     return costs, partials
 
 
@@ -597,37 +612,51 @@ class FusedAUVMPPI(TwoPhaseSolve):
         self._scale = torch.as_tensor(scale, **like)
         self._inv_sigma = torch.as_tensor(inv_sigma, **like)
 
-    def _goals(self, dtype) -> torch.Tensor:
+    fleet_axis = True
+
+    def _goals(self, dtype, cp, lead: tuple) -> torch.Tensor:
         """dyn's goal (13), then goal2 (13) and wblend (2) of the waypoint
         blend: the static goal and zeros; the queue's w0, w1 and (1-a, a),
         or (1, 0) while one waypoint remains (chosen on the device); zeros
-        for the ellipse, which reads none of them."""
+        for the ellipse, which reads none of them. From the cost's params,
+        or a fleet's stacked ``cp`` ([n, 28] for vehicle axis ``lead``)."""
         kind = self.consts.cost_kind
+        if cp is None:
+            cp = self.cost.params()
         if kind == "waypoints_quat":
-            wps = self.cost.waypoints.to(dtype)
-            a = (self.cost.count >= 2).to(dtype) * self.cost.alpha
-            return torch.cat([wps[0], wps[1], torch.stack([1.0 - a, a])])
-        out = torch.zeros(28, dtype=dtype, device=self.model.device)
+            wps = cp["waypoints"].to(dtype)
+            a = (cp["count"] >= 2).to(dtype) * self.cost.alpha
+            return torch.cat([wps[..., 0, :], wps[..., 1, :],
+                              torch.stack([1.0 - a, a], dim=-1)], dim=-1)
+        out = torch.zeros((*lead, 28), dtype=dtype, device=self.model.device)
         if kind == "static_quat":
-            out[:13] = self.cost.goal.to(dtype)
+            out[..., :13] = cp["goal"].to(dtype)
         return out
 
-    def pack_dyn(self, x0: torch.Tensor, useq: torch.Tensor) -> torch.Tensor:
+    def pack_dyn(self, x0: torch.Tensor, useq: torch.Tensor,
+                 cp=None) -> torch.Tensor:
         """The per-solve ``dyn`` array ([Dyn.size], the model's dtype) from
         the state, the nominal sequence, the model's mass matrices (cached
         on the model until its parameters change), the live goals and the
-        schedule."""
+        schedule; a fleet's [n, Dyn.size] from states [n, 13], sequences
+        [n, tau, 6] and stacked cost params ``cp``."""
         m_tot, inv_m = self.model.precompute()
         dtype = self.model.dtype
-        useq = useq.to(dtype).reshape(self.tau, ADIM)
+        lead = tuple(x0.shape[:-1]) if x0.dim() == 2 else ()
+        useq = useq.to(dtype).reshape(*lead, self.tau, ADIM)
         rhs_z, u_half = self._action_terms(useq)
-        goals = self._goals(dtype)
+        goals = self._goals(dtype, cp, lead)
+
+        def row(t):   # a shared entry, repeated a vehicle
+            return t.reshape(-1).expand(*lead, t.numel())
+
         return torch.cat([
-            m_tot.detach().reshape(-1), inv_m.detach().reshape(-1),
-            self.model.mass.detach().reshape(1), goals[:13],
-            x0.to(dtype).reshape(SDIM),
-            useq.reshape(-1), rhs_z.reshape(-1), u_half.reshape(1),
-            goals[13:], *self._sched_tail()])
+            row(m_tot.detach()), row(inv_m.detach()),
+            row(self.model.mass.detach()), goals[..., :13],
+            x0.to(dtype).reshape(*lead, SDIM),
+            useq.reshape(*lead, -1), rhs_z.reshape(*lead, -1),
+            u_half.reshape(*lead, 1), goals[..., 13:],
+            *map(row, self._sched_tail())], dim=-1)
 
     def _template_args(self, mode: int) -> tuple:
         """<RK, MODE, COST, STRUCT> of auv_fused_solve_kernel."""

@@ -634,7 +634,31 @@ def pm_noise_dump(seed: int, solve: int, k: int, tau: int, adim: int,
     return out
 
 
+def fleet_dims(t: torch.Tensor, ndim: int) -> tuple:
+    """The leading vehicle axis of a wrapper's input ``t`` whose one-vehicle
+    form has ``ndim`` dims: () for one vehicle, (n,) for a fleet of n."""
+    lead = tuple(t.shape[:t.dim() - ndim])
+    if len(lead) > 1:
+        raise ValueError(f"expected {ndim} dims or a vehicle axis before "
+                         f"them, got shape {tuple(t.shape)}")
+    return lead
+
+
+def per_vehicle(fn, n: int, solve, *rows):
+    """The plain version of a fleet launch: ``fn(solve * n + v, *rows[v])``
+    for each vehicle v (the index vehicle v of a fleet launch draws,
+    mppi_common.cuh; ``solve`` an int or a one-element tensor on the CPU;
+    rows of None stay None), stacked output by output."""
+    outs = [fn(int(solve) * n + v,
+               *(None if r is None else r[v] for r in rows))
+            for v in range(n)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(o) for o in zip(*outs))
+    return torch.stack(outs)
+
+
 def _check_solve_inputs(name, consts, dyn, z, k, tau):
+    """The vehicle axis ((), or (n,) for a fleet) of a solve's inputs."""
     sdim, adim = consts.dims
     if (sdim, adim) not in SUPPORTED_DIMS:
         raise KernelUnsupportedError(
@@ -644,10 +668,17 @@ def _check_solve_inputs(name, consts, dyn, z, k, tau):
         raise KernelUnsupportedError(
             f"{name}: the ellipse cost is built for (4, 2), got "
             f"{(sdim, adim)}")
-    check(dyn, "dyn", (Dyn(tau, sdim, adim, consts.dynamic_ab,
-                           consts.scheduled).size,))
+    lead = fleet_dims(dyn, 1)
+    check(dyn, "dyn", (*lead, Dyn(tau, sdim, adim, consts.dynamic_ab,
+                                  consts.scheduled).size))
     if z is not None:
-        check(z, "z", (tau, adim, k))
+        check(z, "z", (*lead, tau, adim, k))
+    return lead
+
+
+def n_vehicles(lead: tuple) -> int:
+    """The ``n`` a launch passes for vehicle axis ``lead``."""
+    return lead[0] if lead else 1
 
 
 def variant_args(consts, k: int):
@@ -656,12 +687,13 @@ def variant_args(consts, k: int):
     return int(consts.scheduled), antithetic_half(k, consts.antithetic)
 
 
-def _pm_launch_args(consts, k: int, seed: int, solve, device) -> tuple:
-    """scheduled, dynamic_ab, half, seed and solve words of a point-mass
-    solve's launch (``_launch.solve_words``)."""
+def _pm_launch_args(consts, k: int, seed: int, solve, device,
+                    n: int) -> tuple:
+    """scheduled, dynamic_ab, half, seed and solve words and the vehicles
+    of a point-mass solve's launch (``_launch.solve_words``)."""
     scheduled, half = variant_args(consts, k)
     return (scheduled, int(consts.dynamic_ab), half, *split64(seed),
-            *solve_words(solve, device))
+            *solve_words(solve, device, n), n)
 
 
 def pm_fused_solve(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
@@ -669,38 +701,50 @@ def pm_fused_solve(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
     """Fused rollout + block softmax partials [n_blocks, STATS + tau*adim].
 
     ``z`` (f32 [tau, adim, k]) injects the normals in place of the
-    in-kernel Philox stream of (seed, solve)."""
+    in-kernel Philox stream of (seed, solve). A fleet's ``dyn`` [n, size]
+    (and z [n, tau, adim, k]) runs n vehicles in one launch, vehicle v
+    drawing solve solve * n + v: partials [n, n_blocks, ...]."""
     if not on_card(dyn, z):
+        if dyn.dim() == 2:
+            return per_vehicle(lambda s, d, zv: fused_solve_plain(
+                consts, d, k, tau, seed, s, zv), dyn.shape[0], solve, dyn, z)
         return fused_solve_plain(consts, dyn, k, tau, seed, solve, z)
-    _check_solve_inputs("pm_fused_solve", consts, dyn, z, k, tau)
+    lead = _check_solve_inputs("pm_fused_solve", consts, dyn, z, k, tau)
     sdim, adim = consts.dims
-    partials = torch.empty((-(-k // BLOCK), STATS + tau * adim),
+    partials = torch.empty((*lead, -(-k // BLOCK), STATS + tau * adim),
                            dtype=torch.float32, device=dyn.device)
     launch(entry("pm_fused_solve", consts.compute_dtype), dyn.device, sdim,
            adim, COST_KINDS[consts.cost_kind], STRUCTURES[consts.structure],
            consts.packed.ctypes.data, dyn.data_ptr(),
            None if z is None else z.data_ptr(), partials.data_ptr(), k, tau,
-           *_pm_launch_args(consts, k, seed, solve, dyn.device))
+           *_pm_launch_args(consts, k, seed, solve, dyn.device,
+                            n_vehicles(lead)))
     return partials
 
 
 def pm_fused_costs(consts: PmConsts, dyn: torch.Tensor, k: int, tau: int,
                    seed: int = 0, solve: int = 0, z=None):
     """Phase A: the fused rollout's per-sample costs [k] and stats-only
-    rows [n_blocks, STATS] (``pm_merge`` gives cost min / max / sum)."""
+    rows [n_blocks, STATS] (``pm_merge`` gives cost min / max / sum); for
+    a fleet's ``dyn`` [n, size], [n, k] and [n, n_blocks, STATS] from one
+    launch (``pm_fused_solve``)."""
     if not on_card(dyn, z):
+        if dyn.dim() == 2:
+            return per_vehicle(lambda s, d, zv: fused_costs_plain(
+                consts, d, k, tau, seed, s, zv), dyn.shape[0], solve, dyn, z)
         return fused_costs_plain(consts, dyn, k, tau, seed, solve, z)
-    _check_solve_inputs("pm_fused_costs", consts, dyn, z, k, tau)
+    lead = _check_solve_inputs("pm_fused_costs", consts, dyn, z, k, tau)
     sdim, adim = consts.dims
-    costs = torch.empty(k, dtype=torch.float32, device=dyn.device)
-    partials = torch.empty((-(-k // BLOCK), STATS), dtype=torch.float32,
-                           device=dyn.device)
+    costs = torch.empty((*lead, k), dtype=torch.float32, device=dyn.device)
+    partials = torch.empty((*lead, -(-k // BLOCK), STATS),
+                           dtype=torch.float32, device=dyn.device)
     launch(entry("pm_fused_costs", consts.compute_dtype), dyn.device, sdim,
            adim, COST_KINDS[consts.cost_kind], STRUCTURES[consts.structure],
            consts.packed.ctypes.data, dyn.data_ptr(),
            None if z is None else z.data_ptr(), costs.data_ptr(),
            partials.data_ptr(), k, tau,
-           *_pm_launch_args(consts, k, seed, solve, dyn.device))
+           *_pm_launch_args(consts, k, seed, solve, dyn.device,
+                            n_vehicles(lead)))
     return costs, partials
 
 
@@ -711,39 +755,57 @@ def mppi_weights(nrm: torch.Tensor, costs: torch.Tensor, tau: int,
     """Phase B over phase-A ``costs`` [k] with nrm = (beta, 1/(denom lam))
     (f32 [2], on the device): rows [n_blocks, STATS + tau*adim] of the
     normalized weights over the normals of (seed, solve), mirrored when
-    ``antithetic``, or ``z``; rounded to bf16 at ``compute_dtype`` bf16."""
+    ``antithetic``, or ``z``; rounded to bf16 at ``compute_dtype`` bf16.
+    A fleet's nrm [n, 2] and costs [n, k] (z [n, tau, adim, k]) run in one
+    launch, vehicle v over the normals of solve solve * n + v: rows
+    [n, n_blocks, ...]."""
     name = entry("mppi_weights", compute_dtype)
     if not on_card(nrm, costs, z):
+        if costs.dim() == 2:
+            return per_vehicle(lambda s, nv, cv, zv: weights_plain(
+                nv, cv, tau, adim, seed, s, zv, antithetic=antithetic,
+                compute_dtype=compute_dtype), costs.shape[0], solve, nrm,
+                costs, z)
         return weights_plain(nrm, costs, tau, adim, seed, solve, z,
                              antithetic=antithetic,
                              compute_dtype=compute_dtype)
-    k = costs.shape[0]
-    check(nrm, "nrm", (2,))
-    check(costs, "costs", (k,))
+    lead = fleet_dims(costs, 1)
+    k = costs.shape[-1]
+    check(nrm, "nrm", (*lead, 2))
+    check(costs, "costs", (*lead, k))
     if z is not None:
-        check(z, "z", (tau, adim, k))
-    partials = torch.empty((-(-k // BLOCK), STATS + tau * adim),
+        check(z, "z", (*lead, tau, adim, k))
+    partials = torch.empty((*lead, -(-k // BLOCK), STATS + tau * adim),
                            dtype=torch.float32, device=costs.device)
     launch(name, costs.device, nrm.data_ptr(), costs.data_ptr(),
            None if z is None else z.data_ptr(), partials.data_ptr(), k,
            tau * adim, antithetic_half(k, antithetic), *split64(seed),
-           *solve_words(solve, costs.device))
+           *solve_words(solve, costs.device, n_vehicles(lead)),
+           n_vehicles(lead))
     return partials
 
 
 def pm_merge(partials: torch.Tensor):
     """Merge block partials -> (zsum [n_z], stats [8]); see ``merge_plain``.
     Stats-only rows (n_z = 0) give an empty zsum; on the card they run a
-    kernel of their own (``_launch.EXTRA_KERNELS``)."""
+    kernel of their own (``_launch.EXTRA_KERNELS``). A fleet's rows
+    [n, nb, width] merge vehicle by vehicle in one launch: zsum [n, n_z],
+    stats [n, 8]."""
     if not on_card(partials):
+        if partials.dim() == 3:
+            return tuple(torch.stack(o) for o in
+                         zip(*(merge_plain(p) for p in partials)))
         return merge_plain(partials)
-    nb, width = partials.shape
-    check(partials, "partials", (nb, width))
+    lead = fleet_dims(partials, 2)
+    nb, width = partials.shape[-2:]
+    check(partials, "partials", (*lead, nb, width))
     n_z = width - STATS
-    zsum = torch.empty(n_z, dtype=torch.float32, device=partials.device)
-    stats = torch.empty(STATS, dtype=torch.float32, device=partials.device)
+    zsum = torch.empty((*lead, n_z), dtype=torch.float32,
+                       device=partials.device)
+    stats = torch.empty((*lead, STATS), dtype=torch.float32,
+                        device=partials.device)
     launch("pm_merge", partials.device, partials.data_ptr(), nb, n_z,
-           zsum.data_ptr(), stats.data_ptr())
+           zsum.data_ptr(), stats.data_ptr(), n_vehicles(lead))
     return zsum, stats
 
 
@@ -773,9 +835,19 @@ class TwoPhaseSolve:
     ([tau], appended to ``dyn``), which ``set_schedule`` replaces as data.
     ``compute_dtype`` ("float32" or "bfloat16") picks the kernels' build
     in every phase, the weights and the noise sample included.
+
+    Fleets: where ``fleet_axis`` is True, ``solve`` also takes the states
+    [n, sdim] and sequences [n, tau, adim] of n vehicles with their cost
+    params ``cp`` (the cost's ``params()`` stacked [n, ...]), and runs
+    every phase as one launch over all vehicles (vehicle v draws solve
+    solve * n + v); wnoise and every info entry then lead with [n]. With
+    ``cp`` None the cost's own params are read.
     """
 
     compute_dtype = "float32"
+    #: the solve packs and launches a vehicle axis (``pack_dyn`` takes
+    #: ``cp``); else a fleet runs one solve a vehicle
+    fleet_axis = False
 
     def _noise_options(self, antithetic: bool, schedule, like: dict) -> None:
         """Set ``antithetic`` and ``sched`` (a spec of
@@ -802,25 +874,27 @@ class TwoPhaseSolve:
             dtype=self.sched.dtype, device=self.sched.device)
 
     def _action_terms(self, useq: torch.Tensor):
-        """(rhs_z [tau, adim], u_half) of the nominal sequence folded into
-        dyn: rhs_z_t = scale^T gamma Sigma^-1 u_t (schedule-invariant) and
-        u_half = sum_t 0.5 gamma u_t^T Sigma^-1 u_t / c_t."""
+        """(rhs_z [..., tau, adim], u_half [...]) of the nominal sequence
+        folded into dyn: rhs_z_t = scale^T gamma Sigma^-1 u_t
+        (schedule-invariant) and u_half = sum_t 0.5 gamma u_t^T Sigma^-1
+        u_t / c_t; a leading vehicle axis of ``useq`` carries through."""
         rhs_z = (self.gamma * (useq @ self._inv_sigma.T)) @ self._scale
         if self.sched is None:
             u_half = 0.5 * self.gamma * torch.einsum(
-                "ti,ij,tj->", useq, self._inv_sigma, useq)
+                "...ti,ij,...tj->...", useq, self._inv_sigma, useq)
         else:
             u_half = (0.5 * self.gamma * torch.einsum(
-                "ti,ij,tj->t", useq, self._inv_sigma, useq)
-                / self.sched).sum()
+                "...ti,ij,...tj->...t", useq, self._inv_sigma, useq)
+                / self.sched).sum(-1)
         return rhs_z, u_half
 
     def _sched_tail(self) -> list:
         """dyn's trailing schedule block: [c_t] when scheduled."""
         return [] if self.sched is None else [self.sched]
 
-    def _cost_offset(self):
-        """The constant the kernel's costs lack, or None."""
+    def _cost_offset(self, cp=None):
+        """The constant the kernel's costs lack (for the cost params
+        ``cp``), or None."""
         return None
 
     def forget_cached_terms(self) -> None:
@@ -839,64 +913,84 @@ class TwoPhaseSolve:
         return self._template_args(1 if base.endswith("_costs") else 0)
 
     def unfold_wnoise(self, zsum: torch.Tensor) -> torch.Tensor:
-        """Weighted standard-normal sums [tau*adim] -> action units
-        [tau, adim]: wnoise_t = c_t scale @ zsum_t."""
-        w = zsum.reshape(self.tau, self.adim) @ self._scale.T
+        """One vehicle's weighted standard-normal sums [tau*adim] (or
+        [tau, adim]) -> action units [tau, adim]: wnoise_t = c_t scale @
+        zsum_t."""
+        return self._unfold(zsum.reshape(self.tau * self.adim))
+
+    def _unfold(self, zsum: torch.Tensor) -> torch.Tensor:
+        """``unfold_wnoise`` of sums [..., tau*adim] -> [..., tau, adim]."""
+        w = zsum.reshape(*zsum.shape[:-1], self.tau, self.adim) \
+            @ self._scale.T
         return w if self.sched is None else w * self.sched[:, None]
 
+    def _pack_cp(self, x0, useq, cp):
+        """``pack_dyn`` with the fleet's cost params ``cp`` (None: the
+        cost's own)."""
+        return (self.pack_dyn(x0, useq) if cp is None
+                else self.pack_dyn(x0, useq, cp))
+
     def solve(self, x0, useq, seed: int = 0, solve: int = 0, z=None,
-              normalize: bool = False):
+              normalize: bool = False, cp=None):
         """One MPPI solve -> (wnoise [tau, adim], info); ``normalize`` runs
         the two-phase normalized variant, whose info also carries the
-        phase-A ``sample_costs``."""
+        phase-A ``sample_costs``. A fleet's states [n, sdim] (``cp``: its
+        stacked cost params) give wnoise [n, tau, adim] and [n]-leading
+        info."""
         if normalize:
-            costs, cst = self.costs_phase(x0, useq, seed, solve, z)
+            costs, cst = self.costs_phase(x0, useq, seed, solve, z, cp)
             zsum, l = self.weights_phase(costs, cst["cost_min"],
                                          cst["cost_max"], seed, solve, z)
             info = {"cost_min": cst["cost_min"], "cost_max": cst["cost_max"],
                     "cost_mean": cst["cost_sum"] / self.k, "nabla": l,
                     "sample_costs": costs}
-            return self.unfold_wnoise(zsum) / l, info
-        zsum, stats = pm_merge(self._fused(self.pack_dyn(x0, useq), seed,
+            return (self._unfold(zsum.flatten(-2)) / l[..., None, None],
+                    info)
+        zsum, stats = pm_merge(self._fused(self._pack_cp(x0, useq, cp), seed,
                                            solve, z))
-        l = stats[1]
-        cst = self._with_offset(stats)
+        l = stats[..., 1]
+        cst = self._with_offset(stats, cp=cp)
         info = {"cost_min": cst["cost_min"], "cost_max": cst["cost_max"],
                 "cost_mean": cst["cost_sum"] / self.k, "nabla": l}
-        return self.unfold_wnoise(zsum) / l, info
+        return self._unfold(zsum) / l[..., None, None], info
 
-    def _with_offset(self, stats, costs=None):
+    def _with_offset(self, stats, costs=None, cp=None):
         """{cost_min, cost_max, cost_sum} of merged ``stats`` (and the
-        per-sample ``costs``) with ``_cost_offset()`` added back."""
-        cst = {"cost_min": stats[2], "cost_max": stats[3],
-               "cost_sum": stats[4]}
-        off = self._cost_offset()
+        per-sample ``costs``) with ``_cost_offset(cp)`` added back."""
+        cst = {"cost_min": stats[..., 2], "cost_max": stats[..., 3],
+               "cost_sum": stats[..., 4]}
+        off = self._cost_offset(cp)
         if off is None:
             return cst if costs is None else (costs, cst)
         cst = {"cost_min": cst["cost_min"] + off,
                "cost_max": cst["cost_max"] + off,
                "cost_sum": cst["cost_sum"] + self.k * off}
-        return cst if costs is None else (costs + off, cst)
+        return cst if costs is None else (costs + off[..., None], cst)
 
-    def costs_phase(self, x0, useq, seed: int = 0, solve: int = 0, z=None):
-        """Phase A: per-sample costs [k] and {cost_min, cost_max, cost_sum}."""
-        costs, rows = self._costs(self.pack_dyn(x0, useq), seed, solve, z)
+    def costs_phase(self, x0, useq, seed: int = 0, solve: int = 0, z=None,
+                    cp=None):
+        """Phase A: per-sample costs [k] and {cost_min, cost_max, cost_sum}
+        (a fleet's: [n, k] and [n] each)."""
+        costs, rows = self._costs(self._pack_cp(x0, useq, cp), seed, solve,
+                                  z)
         _, stats = pm_merge(rows)
-        return self._with_offset(stats, costs)
+        return self._with_offset(stats, costs, cp)
 
     def weights_phase(self, costs, beta, cmax, seed: int = 0, solve: int = 0,
                       z=None):
-        """Phase B over phase-A costs -> (zsum [tau, adim], l). The guard
-        against all-equal costs matches ops/update.norm_arg (denom = 1 when
-        max - beta == 0)."""
+        """Phase B over phase-A costs -> (zsum [tau, adim], l) (a fleet's
+        costs [n, k]: [n, tau, adim] and [n]). The guard against all-equal
+        costs matches ops/update.norm_arg (denom = 1 when max - beta ==
+        0)."""
         denom = cmax - beta
         denom = torch.where(denom > 0, denom, torch.ones_like(denom))
-        nrm = torch.stack([beta, 1.0 / (denom * self.lam)])
+        nrm = torch.stack([beta, 1.0 / (denom * self.lam)], dim=-1)
         zsum, stats = pm_merge(mppi_weights(nrm, costs, self.tau, self.adim,
                                             seed, solve, z,
                                             antithetic=self.antithetic,
                                             compute_dtype=self.compute_dtype))
-        return zsum.reshape(self.tau, self.adim), stats[1]
+        return (zsum.reshape(*zsum.shape[:-1], self.tau, self.adim),
+                stats[..., 1])
 
     def noise_sample(self, seed: int, solve: int,
                      max_samples: int = 512) -> torch.Tensor:
@@ -936,6 +1030,7 @@ class FusedPointMassMPPI(TwoPhaseSolve):
     #: True where the kernel reads (A, B scale) from ``dyn``
     #: (``FusedLTIMPPI``) instead of the solve's constants
     dynamic_ab = False
+    fleet_axis = True
 
     def _check_model(self, model) -> None:
         from ..models.point_mass import PointMassModel
@@ -1012,68 +1107,88 @@ class FusedPointMassMPPI(TwoPhaseSolve):
         self._Q = f32(Q)
         self._wp_key, self._wp_terms = None, None
 
-    def _waypoint_terms(self):
+    def _waypoint_terms(self, cp=None):
         """(dyn's goal, the cost offset) of the waypoint queue, computed on
-        the device with ``torch.where`` on the count (no host sync), and
-        again only when the queue's buffers change (a pop, a new mission).
+        the device with ``torch.where`` on the count (no host sync): for
+        the cost's own queue again only when its buffers change (a pop, a
+        new mission), for a fleet's stacked queues ``cp`` ([n, ...]) every
+        time, for all vehicles at once.
 
         The goal is g = (1-a) w0 + a w1, or w0 while one waypoint remains.
         The offset is the constant the quadratic around g drops from each
         sample's cost: (tau+1) evaluations (tau steps and the terminal) of
         (1-a) w0'Qw0 + a w1'Qw1 - g'Qg (>= 0 by convexity), zero while one
         waypoint remains."""
+        if cp is not None:
+            return self._queue_terms(cp["waypoints"], cp["count"])
         key = self.cost.queue_key()
         if key != self._wp_key:
-            wps = self.cost.waypoints.to(torch.float32)
-            w0, w1, a = wps[0], wps[1], self.cost.alpha
-            g = (1.0 - a) * w0 + a * w1
-
-            def q(w):
-                return torch.sum((w @ self._Q.T) * w)
-
-            c = (1.0 - a) * q(w0) + a * q(w1) - q(g)
-            one = self.cost.count < 2
-            self._wp_terms = (torch.where(one, w0, g),
-                              torch.where(one, torch.zeros_like(c),
-                                          (self.tau + 1) * c))
+            self._wp_terms = self._queue_terms(self.cost.waypoints,
+                                               self.cost.count)
             self._wp_key = key
         return self._wp_terms
+
+    def _queue_terms(self, waypoints, count):
+        wps = waypoints.to(torch.float32)
+        w0, w1, a = wps[..., 0, :], wps[..., 1, :], self.cost.alpha
+        g = (1.0 - a) * w0 + a * w1
+
+        def q(w):
+            return torch.sum((w @ self._Q.T) * w, dim=-1)
+
+        c = (1.0 - a) * q(w0) + a * q(w1) - q(g)
+        one = count < 2
+        return (torch.where(one[..., None], w0, g),
+                torch.where(one, torch.zeros_like(c), (self.tau + 1) * c))
 
     def forget_cached_terms(self) -> None:
         self._wp_key = None
 
-    def _goal(self) -> torch.Tensor:
+    def _goal(self, cp, lead: tuple) -> torch.Tensor:
         """dyn's goal: the static goal, the waypoint queue's effective goal,
-        or zeros for the ellipse, which reads no goal."""
+        or zeros for the ellipse, which reads no goal (``lead``: the
+        vehicle axis)."""
         if self._waypoints:
-            return self._waypoint_terms()[0]
+            return self._waypoint_terms(cp)[0]
         if self.consts.cost_kind == "elipse":
-            return torch.zeros(self.sdim, dtype=torch.float32,
+            return torch.zeros((*lead, self.sdim), dtype=torch.float32,
                                device=self._scale.device)
-        return self.cost.goal.to(torch.float32)
+        goal = self.cost.goal if cp is None else cp["goal"]
+        return goal.to(torch.float32)
 
-    def _cost_offset(self):
+    def _cost_offset(self, cp=None):
         """The waypoint cost's offset (``_waypoint_terms``), else None."""
-        return self._waypoint_terms()[1] if self._waypoints else None
+        return self._waypoint_terms(cp)[1] if self._waypoints else None
 
-    def pack_dyn(self, x0: torch.Tensor, useq: torch.Tensor) -> torch.Tensor:
+    def pack_dyn(self, x0: torch.Tensor, useq: torch.Tensor,
+                 cp=None) -> torch.Tensor:
         """The per-solve ``dyn`` array (f32 [Dyn.size]) from the state, the
-        nominal sequence, the live mass and goal, and the schedule."""
+        nominal sequence, the live mass and goal, and the schedule; a
+        fleet's [n, Dyn.size] from states [n, sdim], sequences
+        [n, tau, adim] and stacked cost params ``cp``."""
         return self._pack(
             x0, useq,
             (1.0 / self.model.mass.detach()).to(torch.float32).reshape(1),
-            self._B, [])
+            self._B, [], cp)
 
-    def _pack(self, x0, useq, inv_mass, B, ab: list) -> torch.Tensor:
+    def _pack(self, x0, useq, inv_mass, B, ab: list, cp) -> torch.Tensor:
         """``dyn`` in the order of ``Dyn``: inv_mass, x0, goal, bu = u_t
         B^T, rhs_z, u_half, the (A, B scale) blocks ``ab`` of a
-        dynamic_ab solve, then the schedule."""
-        useq = useq.to(torch.float32).reshape(self.tau, self.adim)
+        dynamic_ab solve, then the schedule; rows [n, Dyn.size] for the
+        states x0 [n, sdim] of a fleet (the shared entries repeated)."""
+        lead = tuple(x0.shape[:-1]) if x0.dim() == 2 else ()
+        useq = useq.to(torch.float32).reshape(*lead, self.tau, self.adim)
         rhs_z, u_half = self._action_terms(useq)
+
+        def row(t):   # a shared entry, repeated a vehicle
+            return t.expand(*lead, t.shape[-1])
+
         return torch.cat([
-            inv_mass, x0.to(torch.float32).reshape(self.sdim), self._goal(),
-            (useq @ B.T).reshape(-1), rhs_z.reshape(-1), u_half.reshape(1),
-            *ab, *self._sched_tail()])
+            row(inv_mass), x0.to(torch.float32).reshape(*lead, self.sdim),
+            self._goal(cp, lead),
+            (useq @ B.T).reshape(*lead, -1), rhs_z.reshape(*lead, -1),
+            u_half.reshape(*lead, 1), *map(row, ab),
+            *map(row, self._sched_tail())], dim=-1)
 
     def _template_args(self, mode: int) -> tuple:
         """<S, A, MODE, COST, AB, STRUCT> of pm_fused_solve_kernel."""
@@ -1113,10 +1228,11 @@ class FusedLTIMPPI(FusedPointMassMPPI):
                 "fused LTI kernel supports DMDModel only (PointMassModel "
                 "uses FusedPointMassMPPI)")
 
-    def pack_dyn(self, x0: torch.Tensor, useq: torch.Tensor) -> torch.Tensor:
+    def pack_dyn(self, x0: torch.Tensor, useq: torch.Tensor,
+                 cp=None) -> torch.Tensor:
         """``dyn`` with inv_mass = 1, bu = u_t B^T (the true B u_t) and the
         A and B scale blocks, all from the model's live (A, B)."""
         A = self.model.A.detach().to(torch.float32)
         B = self.model.B.detach().to(torch.float32)
         return self._pack(x0, useq, torch.ones_like(A[0, :1]), B,
-                          [A.reshape(-1), (B @ self._scale).reshape(-1)])
+                          [A.reshape(-1), (B @ self._scale).reshape(-1)], cp)

@@ -20,11 +20,11 @@ kernel.
 Without truncation (``rank`` None) the damped-SVD solution
 V diag(s / (s^2 + reg)) U^T Xn is the ridge solution
 (Omega^T Omega + reg I)^-1 Omega^T Xn, and ``fit`` computes it by a
-Householder QR of the stacked [Omega; sqrt(reg) I]: without forming
-Omega^T Omega (so the condition number is not squared), and without the
-host sync of ``torch.linalg.svd`` on the card, so that the on-device loop
-(``envs/mjx_env.py``) captures the refit into a CUDA graph. Only a
-truncated fit (``rank`` set) takes the SVD.
+Householder QR of the stacked [Omega; sqrt(reg) I], in f64 whatever the
+model's dtype: without forming Omega^T Omega (so the condition number is
+not squared), and without the host sync of ``torch.linalg.svd`` on the
+card, so that the on-device loop (``envs/mjx_env.py``) captures the refit
+into a CUDA graph. Only a truncated fit (``rank`` set) takes the SVD.
 """
 
 from __future__ import annotations
@@ -123,7 +123,16 @@ class DMDModel(ModelBase):
     def _ridge(self, omega, Xn) -> torch.Tensor:
         """G from the ridge least squares: d = sDim + aDim Householder
         reflections of M = [Omega; sqrt(reg) I] ([n + d, d], applied to
-        [Xn; 0] too), then R G^T = Q^T [Xn; 0] by ``solve_triangular``."""
+        [Xn; 0] too), then R G^T = Q^T [Xn; 0] by ``solve_triangular``.
+        The reflections run in f64 and G is cast back to the model's
+        dtype: at f32 the rounding of the reflections leaves the rank-
+        deficient directions of one trajectory segment (a constant state
+        component, an unused action) with spurious small pivots that the
+        sqrt(reg) rows cannot damp, and the fitted A stood up to 33x
+        farther from the f64 ridge solution than the reference's f32
+        damped SVD (tests/test_torch_dmd_fit.py)."""
+        dtype = omega.dtype
+        omega, Xn = omega.double(), Xn.double()
         sdim = self._state_dim
         d = omega.shape[1]
         eye = torch.eye(d, dtype=omega.dtype, device=omega.device)
@@ -138,7 +147,7 @@ class DMDModel(ModelBase):
             m[j:, j:] -= (beta * v)[:, None] * (v @ m[j:, j:])[None, :]
             y[j:] -= (beta * v)[:, None] * (v @ y[j:])[None, :]
         return torch.linalg.solve_triangular(torch.triu(m[:d]), y[:d],
-                                             upper=True).T
+                                             upper=True).T.to(dtype)
 
     @property
     def rank(self):

@@ -99,18 +99,21 @@ def shift(useq: torch.Tensor, init: torch.Tensor,
           length: int = 1) -> torch.Tensor:
     """Receding-horizon shift: drop the first ``length`` actions, append init.
 
-    useq: [tau, aDim], init: [length, aDim] -> [tau, aDim].
+    useq: [tau, aDim], init: [length, aDim] -> [tau, aDim]; a fleet's
+    leading vehicle axis [n, tau, aDim] carries through (init repeated).
     Reference: controller_base.py:547-552.
     """
-    return torch.cat([useq[length:], init], dim=0)
+    init = init.expand(*useq.shape[:-2], *init.shape[-2:])
+    return torch.cat([useq[..., length:, :], init], dim=-2)
 
 
 def get_next(useq: torch.Tensor, length: int = 1) -> torch.Tensor:
-    """First ``length`` actions of the sequence. [tau, aDim] -> [length, aDim].
+    """First ``length`` actions of the sequence. [tau, aDim] -> [length, aDim]
+    (a fleet's [n, tau, aDim] -> [n, length, aDim]).
 
     Reference: controller_base.py:554-556.
     """
-    return useq[:length]
+    return useq[..., :length, :]
 
 
 def init_zeros(length: int, adim: int, dtype=torch.float32,

@@ -211,11 +211,12 @@ def test_get_controller_single():
 
 
 @pytest.mark.parametrize("cfg,kw,item", [
-    ({"fleet": 4}, {}, "item 12"),
+    ({"fleet": 4}, {"mesh": object()}, "item 14"),
     ({}, {"mesh": object()}, "item 14"),
     ({"kernel-dtype": "bfloat16"}, {}, "fused kernel path only")])
 def test_get_controller_not_ported(cfg, kw, item):
-    """Fleets and meshes are not ported; kernel-dtype is, and reaches the
+    """Meshes (a fleet's too) are not ported; fleets are
+    (tests/test_torch_fleet.py); kernel-dtype is, and reaches the
     controller, which refuses bf16 on the torch path as JAX does."""
     (pm, pc), _ = _modules()
     base = {"samples": 10, "horizon": 4, "noise": SIGMA.tolist()}

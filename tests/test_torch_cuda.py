@@ -1739,3 +1739,135 @@ def test_on_device_loop_replay_equals_eager(cuda_device, case):
     assert cg2["pm_fused_solve"] == ce["pm_fused_solve"] == steps
     assert cg["pm_fused_solve"] == steps + 1
     assert cg2 == ce
+
+
+# ---- the fleet: a vehicle axis in one launch --------------------------------
+
+FLEET_KINDS = ["pm", "pm_waypoints", "pm_sched_anti", "lti", "auv2",
+               "auv_waypoints_quat", "auv_sched_anti"]
+
+
+def _fleet_rows(obj, dyn, n):
+    """n vehicles' dyn rows: ``dyn`` with each vehicle's first three state
+    entries moved by 0.05 v."""
+    x0 = auv.Dyn(obj.tau).x0 if obj.sdim == 13 else pm.Dyn(
+        obj.tau, obj.sdim, obj.adim).x0
+    rows = dyn.repeat(n, 1)
+    rows[:, x0:x0 + 3] += 0.05 * torch.arange(
+        n, dtype=rows.dtype, device=rows.device)[:, None]
+    return rows
+
+
+def _fleet_outputs(obj, rows, z, solve):
+    """Every kernel with a vehicle axis of one solve object on ``rows``
+    ([n, size], or [size] for one vehicle): fused partials, costs, their
+    rows, phase B's rows and the merges."""
+    part = obj._fused(rows, 11, solve, z)
+    costs, crows = obj._costs(rows, 11, solve, z)
+    lo, hi = costs.min(-1).values, costs.max(-1).values
+    nrm = torch.stack([lo, 1.0 / ((hi - lo) * obj.lam)], dim=-1)
+    wrows = pm.mppi_weights(nrm, costs, obj.tau, obj.adim, 11, solve, z,
+                            antithetic=obj.antithetic,
+                            compute_dtype=obj.compute_dtype)
+    return (part, costs, crows, wrows, *pm.pm_merge(part),
+            *pm.pm_merge(crows), *pm.pm_merge(wrows))
+
+
+@pytest.mark.parametrize("build", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", FLEET_KINDS)
+def test_fleet_launch_equals_vehicle_launches(cuda_device, kind, build):
+    """A fleet launch of each kernel with a vehicle axis (the solve and
+    costs of the point mass, LTI and AUV, phase B, the merge) == n
+    one-vehicle launches with solve s n + v, bit for bit, on the Philox
+    stream (by value and on the device) and on injected z; one launch an
+    entry point for the whole fleet; at n = 1 the one-vehicle entry's
+    bits."""
+    n, k, tau, s = 5, 700, 7, 3
+    f32, dyn32, b16, dyn16, _ = _bf16_pair(kind, k, tau, cuda_device)
+    obj, dyn = (f32, dyn32) if build == "float32" else (b16, dyn16)
+    rows = _fleet_rows(obj, dyn, n)
+    z = torch.as_tensor(np.random.default_rng(n).standard_normal(
+        (n, tau, obj.adim, k), np.float32), device=cuda_device)
+    dev = torch.tensor([s], dtype=torch.int64, device=cuda_device)
+    for zz in (None, z):
+        pm.reset_launch_counts()
+        fleet = _fleet_outputs(obj, rows, zz, s)
+        launched = {e: c for e, c in pm.launch_counts.items() if c}
+        # solve, costs, phase B once each; the three merges
+        assert len(launched) == 4 and launched.pop("pm_merge") == 3
+        assert set(launched.values()) == {1}, launched
+        for v in range(n):
+            one = _fleet_outputs(obj, rows[v], None if zz is None else zz[v],
+                                 s * n + v)
+            for a, b in zip(fleet, one):
+                assert torch.equal(a[v], b)
+        if zz is None:
+            for a, b in zip(fleet, _fleet_outputs(obj, rows, None, dev)):
+                assert torch.equal(a, b)
+    for a, b in zip(_fleet_outputs(obj, rows[:1], None, s),
+                    _fleet_outputs(obj, rows[0], None, s)):
+        assert torch.equal(a[0], b)
+
+
+@pytest.mark.parametrize("n_z", [0, 150])
+@pytest.mark.parametrize("nb", [12, 391, 1024])
+def test_pm_merge_fleet_rows(cuda_device, nb, n_z):
+    """pm_merge over [n, nb, w] in one launch (a cluster of 8 a tile from
+    640 rows, one block below) == n merges of one vehicle's rows, bit for
+    bit, and each within the f64 merge's gate."""
+    n = 4
+    rows = torch.stack([_merge_rows(nb, n_z, cuda_device, seed=nb + v)
+                        for v in range(n)])
+    zs, st = pm.pm_merge(rows)
+    assert zs.shape == (n, n_z) and st.shape == (n, pm.STATS)
+    for v in range(n):
+        zv, sv = pm.pm_merge(rows[v])
+        assert torch.equal(zs[v], zv) and torch.equal(st[v], sv)
+        _, ref_st = pm.merge_plain(rows[v].double())
+        assert st[v, 0].double() == ref_st[0]
+
+
+@pytest.mark.parametrize("case", ["static", "mission"])
+def test_fleet_on_device_loop_replay_equals_eager(cuda_device, case):
+    """The fleet's period captured as one CUDA graph and replayed == the
+    eager periods bit for bit (states, actions, the final queues); a
+    re-goal between runs recaptures nothing; each period launches the
+    solve and the merge once for the whole fleet."""
+    from mppi_tf_tpu_torch.controller import FleetMPPI
+    from mppi_tf_tpu_torch.envs import DevicePointMassEnv
+
+    n, steps = 4, 12
+    model, cost = _modules(cuda_device, mass=1.0, ups=1.0)
+    radius = None
+    if case == "mission":
+        cost = get_cost(PM_WAYPOINTS, lam=LAM, gamma=GAMMA, upsilon=1.0,
+                        sigma=SIGMA, device=cuda_device)
+        radius = 0.5
+    fleet = FleetMPPI(model, cost, n, k=1000, tau=10, lam=LAM, upsilon=1.0,
+                      sigma=SIGMA, seed=3, kernel="cuda",
+                      device=cuda_device)
+    env = DevicePointMassEnv(n_dof=3, mass=2.0, dt=0.01)
+    loop = fleet.build_on_device_loop(env.step_fn, steps, substeps=3,
+                                      waypoint_radius=radius)
+    x0 = np.zeros((n, 6))
+    x0[:, 0] = 0.7 - 0.2 * np.arange(n)
+    outs = []
+    for run in (loop, loop.eager, loop):
+        if case == "mission":
+            for v in range(n):
+                fleet.set_vehicle_waypoints(v, PM_WAYPOINTS["waypoints"])
+        else:   # the third run re-tasks vehicle 1
+            fleet.set_vehicle_goal(1, [0.4 if len(outs) == 2 else 0.0] * 6)
+        pm.reset_launch_counts()
+        out = run(x0, step0=40)
+        outs.append((out, {k: t.clone() for k, t in
+                           fleet.cost_params.items()},
+                     dict(pm.launch_counts)))
+    (g, qg, cg), (e, qe, ce), (g2, _, cg2) = outs
+    assert loop.captures == 1
+    for a, b in zip((*g, *qg.values()), (*e, *qe.values())):
+        assert torch.equal(a, b)
+    if case == "static":   # the re-goal reached the replay
+        assert not torch.equal(g2[0][:, 1], g[0][:, 1])
+        assert torch.equal(g2[0][:, 0], g[0][:, 0])
+    assert cg2 == ce and ce["pm_fused_solve"] == ce["pm_merge"] == steps
