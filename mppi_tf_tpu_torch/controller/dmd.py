@@ -17,8 +17,10 @@ reach the model in place through ``MPPI.model_params`` (a pinned,
 non-blocking upload on the card): on the kernel path
 (``kernels/pm_mppi.FusedLTIMPPI``) the next solve reads them from its
 ``dyn`` array, with no rebuild and no host sync. The mesh-sharded
-counterparts (``ShardedDMDMPPI``, ``ShardedFusedDMDMPPI``) are ROADMAP
-item 14.
+counterparts, ``ShardedDMDMPPI`` (torch route) and ``ShardedFusedDMDMPPI``
+(``FusedLTIMPPI`` on every shard), refit the same way: every rank holds
+the replicated replay buffer, so every rank's refit gives the same (A, B)
+bits.
 """
 
 from __future__ import annotations
@@ -27,6 +29,8 @@ import numpy as np
 
 from ..learning.replay import ReplayBuffer
 from ..models.dmd import DMDModel
+from ..parallel.fused import ShardedFusedMPPI
+from ..parallel.sharded import ShardedMPPI
 from .mppi import MPPI
 
 
@@ -119,3 +123,16 @@ class DMDMPPI(DMDAdaptiveMixin, MPPI):
     """Single-device MPPI with online DMDc identification. On the card
     ``kernel="auto"`` (or ``"cuda"``) runs ``FusedLTIMPPI``: a refit is
     new data for the same kernel."""
+
+
+
+class ShardedDMDMPPI(DMDAdaptiveMixin, ShardedMPPI):
+    """Mesh-sharded (torch route) MPPI with online DMDc identification: a
+    refit writes the new (A, B) in place, the sharded solve is not
+    rebuilt."""
+
+
+class ShardedFusedDMDMPPI(DMDAdaptiveMixin, ShardedFusedMPPI):
+    """Mesh-sharded fused-kernel MPPI with online DMDc identification:
+    every shard runs the dynamic-(A, B) kernels (``FusedLTIMPPI``) on its
+    K/n samples."""

@@ -24,8 +24,15 @@ Two routes, as for ``MPPI``:
   without the axis (the NN kernels) runs one launch a vehicle, with the
   same solve indices.
 
-Fleets have no observer or log mode (JAX fleet.py:70-72), and
-``mesh=`` (the fleet axis sharded over devices) is ROADMAP item 14.
+Fleets have no observer or log mode (JAX fleet.py:70-72).
+
+``mesh=`` (a ``parallel.mesh.Mesh``) splits the fleet axis over the mesh's
+shards, n / (mesh size) vehicles a shard, on the torch route (JAX
+fleet.py:86-181): each vehicle's solve is local to its shard, so the solve
+needs no collective. Across ranks every rank solves its own vehicles and
+the ranks exchange the rows (``Mesh.all_gather``: a zeroed [n, ...] buffer
+in which each rank writes its rows, summed, which is exact), so ``next``
+returns every vehicle's action on every rank.
 """
 
 from __future__ import annotations
@@ -109,7 +116,11 @@ class FleetMPPI:
     hold per vehicle. ``goals``: optional [n, goal_dim] per-vehicle goals
     applied through ``cost.set_goal`` (default: the cost's own goal for
     every vehicle). ``init_seq``: [tau, aDim] (shared) or [n, tau, aDim].
-    ``device``: as for ``MPPI`` (the card unless ``"cpu"``).
+    ``device``: as for ``MPPI`` (the card unless ``"cpu"``). ``mesh``:
+    the fleet axis split over the mesh's shards (module docstring), whose
+    device it runs on; n must be divisible by the mesh size, and
+    ``kernel="cuda"`` raises ``ValueError`` (``"auto"`` takes the torch
+    route).
     """
 
     def __init__(self, model, cost, n_vehicles: int, k: int, tau: int,
@@ -123,10 +134,28 @@ class FleetMPPI:
         n = int(n_vehicles)
         if n < 1:
             raise ValueError(f"n_vehicles must be >= 1, got {n}")
+        self._mesh = mesh
         if mesh is not None:
-            raise NotImplementedError(
-                "fleet-sharded controllers (FleetMPPI(mesh=)) are not "
-                "ported yet: ROADMAP item 14")
+            from .mppi import _KERNEL_ALIASES
+
+            if _KERNEL_ALIASES.get(kernel, kernel) == "cuda":
+                # an explicit kernel cannot be honoured on a fleet mesh (JAX
+                # fleet.py:107-116); "auto" takes the torch route quietly
+                raise ValueError(
+                    "kernel='cuda' (the JAX package's 'pallas') does not "
+                    "compose with mesh=: the mesh splits the fleet over its "
+                    "shards on the torch route; use kernel='auto' or "
+                    "'torch' with mesh, or drop mesh")
+            kernel = "torch"
+            device = mesh.one_device("FleetMPPI")
+            axis = mesh.axis_names[0]
+            if mesh.shape[axis] != mesh.size:
+                raise ValueError(f"the fleet axis {axis!r} holds "
+                                 f"{mesh.shape[axis]} of the mesh's "
+                                 f"{mesh.size} shards")
+            if n % mesh.size != 0:
+                raise ValueError(f"n_vehicles={n} not divisible by mesh "
+                                 f"axis {axis}={mesh.size}")
         self._tpl = MPPI(model, cost, k=k, tau=tau, lam=lam, upsilon=upsilon,
                          sigma=sigma, normalize_cost=normalize_cost,
                          filter_seq=filter_seq, filter_window=filter_window,
@@ -202,8 +231,9 @@ class FleetMPPI:
         gens = self._gens if gens is None else gens
         outs = []
         gen_saved = tpl._gen
+        vehicles = self._local_vehicles()
         try:
-            for v in range(n):
+            for v in vehicles:
                 with bound_params(self._cost, self._row(cp, v)):
                     if fused is not None:   # one launch a vehicle
                         outs.append(tpl._fused_step(
@@ -214,12 +244,39 @@ class FleetMPPI:
                                                tpl._sched))
         finally:
             tpl._gen = gen_saved
-        actions = torch.stack([o[0] for o in outs])
-        shifted = torch.stack([o[1] for o in outs])
-        info = {key: torch.stack([o[2][key] for o in outs])
-                for key in ("cost_min", "cost_mean", "cost_max",
-                            "weighted_noise", "useq")}
-        return actions, shifted, info
+        keys = ("cost_min", "cost_mean", "cost_max", "weighted_noise",
+                "useq")
+        parts = [torch.stack([o[0] for o in outs]),
+                 torch.stack([o[1] for o in outs]),
+                 *(torch.stack([o[2][key] for o in outs]) for key in keys)]
+        if len(vehicles) < n:
+            parts = self._gather(parts)
+        actions, shifted, *rest = parts
+        return actions, shifted, dict(zip(keys, rest))
+
+    def _local_vehicles(self) -> list:
+        """The vehicles this process solves: all of them, or over a mesh
+        the n / size of each of its local shards."""
+        if self._mesh is None:
+            return list(range(self._n))
+        nl = self._n // self._mesh.size
+        return [v for g in self._mesh.local_indices
+                for v in range(g * nl, (g + 1) * nl)]
+
+    def _gather(self, parts: list) -> list:
+        """Every vehicle's rows of ``parts`` (each [local vehicles, ...])
+        from every rank: one ``Mesh.all_gather`` of the packed rows."""
+        mesh = self._mesh
+        nl = self._n // mesh.size
+        shapes = [p.shape[1:] for p in parts]
+        rows = torch.cat([p.reshape(p.shape[0], -1) for p in parts], dim=1)
+        g = mesh.all_gather(list(rows.split(nl))).reshape(self._n, -1)
+        out, start = [], 0
+        for shape in shapes:
+            width = int(np.prod(shape, dtype=np.int64))
+            out.append(g[:, start:start + width].reshape(self._n, *shape))
+            start += width
+        return out
 
     def _states(self, states) -> torch.Tensor:
         """Host states [n, sDim] on the fleet's device: pinned and

@@ -175,24 +175,32 @@ class MPPI(MissionMixin):
             from ..kernels.nn_mppi import FusedNNMPPI
 
             classes += (FusedNNMPPI,)
+        try:
+            self._fused = self._make_fused(classes, self._k, sigma_np,
+                                           sched_np)
+        except KernelUnsupportedError:
+            if kernel == "cuda":
+                raise
+            return
+        self.kernel_path = "cuda"
+
+    def _make_fused(self, classes, k: int, sigma_np, sched_np):
+        """The first of the fused solve classes ``classes`` that supports
+        the model and cost, at ``k`` samples with the controller's
+        options; raises ``KernelUnsupportedError`` when none does."""
         err = None
         for cls in classes:
             try:
-                self._fused = cls(
-                    self._model, self._cost, k=self._k, tau=self._tau,
-                    lam=self._lam, upsilon=self._upsilon, sigma=sigma_np,
-                    antithetic=self._antithetic, schedule=sched_np,
-                    compute_dtype=self._kernel_dtype)
-                break
+                return cls(self._model, self._cost, k=k, tau=self._tau,
+                           lam=self._lam, upsilon=self._upsilon,
+                           sigma=sigma_np, antithetic=self._antithetic,
+                           schedule=sched_np,
+                           compute_dtype=self._kernel_dtype)
             except KernelUnsupportedError as e:
                 err = e
-        if self._fused is None:
-            if kernel == "cuda":
-                raise KernelUnsupportedError(
-                    f"no fused kernel supports {type(self._model).__name__} "
-                    f"+ {type(self._cost).__name__}: {err}") from err
-            return
-        self.kernel_path = "cuda"
+        raise KernelUnsupportedError(
+            f"no fused kernel supports {type(self._model).__name__} "
+            f"+ {type(self._cost).__name__}: {err}") from err
 
     # ------------------------------------------------------------------
     # pure core
@@ -363,13 +371,20 @@ class MPPI(MissionMixin):
             fake[6] = 1.0
         return fake
 
+    def _rng_state(self):
+        """The torch route's generator state (``_set_rng_state``)."""
+        return self._gen.get_state()
+
+    def _set_rng_state(self, state) -> None:
+        self._gen.set_state(state)
+
     def trace(self) -> None:
         """Warm up the solve (kernel build included) with a fake state, then
         restore the controller's state. Reference: controller_base.py:562-585."""
-        gen_state = self._gen.get_state()
+        gen_state = self._rng_state()
         useq = self._useq.clone()
         self.next(self._fake_state())
-        self._gen.set_state(gen_state)
+        self._set_rng_state(gen_state)
         self._useq = useq
         self._steps = 0
         self._timing = {"total": 0.0, "calls": 0}
@@ -408,10 +423,10 @@ class MPPI(MissionMixin):
                                 device=self._device)
         useq = self._useq.clone()
         if self._fused is None:
-            gen_state = self._gen.get_state()
+            gen_state = self._rng_state()
             with self._profiler() as prof:
                 self._solve(state, useq, self._sched)
-            self._gen.set_state(gen_state)
+            self._set_rng_state(gen_state)
             return prof.key_averages().table(sort_by="self_cpu_time_total",
                                              row_limit=40)
         from ..kernels import _build
@@ -447,12 +462,19 @@ class MPPI(MissionMixin):
         np.savez(
             path,
             useq=self._useq.cpu().numpy(),
-            gen_state=self._gen.get_state().numpy(),
+            **self._rng_entries(),
             steps=self._steps,
             timing_total=self._timing["total"],
             timing_calls=self._timing["calls"],
             **cparams_entries(self._cost.params()),
         )
+
+    def _rng_entries(self) -> dict:
+        """The checkpoint's generator entries."""
+        return {"gen_state": self._gen.get_state().numpy()}
+
+    def _load_rng(self, d) -> None:
+        self._gen.set_state(torch.from_numpy(d["gen_state"]))
 
     def load_state(self, path: str) -> None:
         """Restore state written by :meth:`save_state`."""
@@ -463,7 +485,7 @@ class MPPI(MissionMixin):
                 f"{tuple(self._useq.shape)}")
         self._useq = torch.as_tensor(d["useq"], dtype=self._dtype,
                                      device=self._device)
-        self._gen.set_state(torch.from_numpy(d["gen_state"]))
+        self._load_rng(d)
         self._steps = int(d["steps"])
         self._timing = {"total": float(d["timing_total"]),
                         "calls": int(d["timing_calls"])}

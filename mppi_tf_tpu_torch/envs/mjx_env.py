@@ -211,15 +211,22 @@ def build_on_device_loop(ctrl, plant_step, steps: int, substeps: int = 10,
     values (``AUVModel.precompute``). Parameters written in place
     (``MPPI.model_params``, ``set_goal``, a mission) are read live.
 
-    Mesh-sharded controllers are not ported (ROADMAP item 14).
+    **Mesh-sharded controllers** (``ShardedMPPI``, ``ShardedFusedMPPI``
+    and their DMD classes; JAX mjx_env.py:233-260) run the same period:
+    every shard's launches and the collectives. On a local mesh the
+    graph holds every shard's launches and the local reductions; over an
+    NCCL group it holds the all-reduces too (the capture's warm-up runs
+    the first collective outside it). A gloo group reduces on the host,
+    which a graph cannot hold: ``run(...)`` raises ``ValueError`` there
+    and ``run.eager(...)`` runs the periods. A torch-route sharded
+    controller's ``generator`` is a list, one a local shard.
     """
     from ..controller.mppi import MPPI
 
     if not isinstance(ctrl, MPPI):
-        raise NotImplementedError(
-            f"{type(ctrl).__name__}: the on-device loop runs the "
-            "single-device MPPI controllers; mesh-sharded controllers are "
-            "not ported yet: ROADMAP item 14")
+        raise TypeError(
+            f"{type(ctrl).__name__}: the on-device loop runs the MPPI "
+            "controllers (single-device or mesh-sharded)")
     return OnDeviceLoop(ctrl, plant_step, steps, substeps, refit_window,
                         waypoint_radius)
 
@@ -339,6 +346,15 @@ class OnDeviceLoop:
         return self.ctrl._fused is not None and self.ctrl._device.type == \
             "cuda"
 
+    def _check_capturable(self) -> None:
+        """A mesh over a gloo group reduces on the host: no graph."""
+        mesh = getattr(self.ctrl, "_mesh", None)
+        if mesh is not None and mesh.backend == "gloo":
+            raise ValueError(
+                "the controller's mesh reduces over a gloo group, on the "
+                "host, which a CUDA graph cannot capture: use run.eager(...) "
+                "(or an NCCL group, one GPU a rank)")
+
     def _freeze_key(self) -> tuple:
         """What a captured period froze into its graph: the solve object
         and its constants (by-value kernel arguments), the schedule
@@ -393,8 +409,11 @@ class OnDeviceLoop:
     # --- run --------------------------------------------------------------
     def __call__(self, x0, generator=None, useq0=None, mparams=None,
                  cparams=None, window=None, step0=None):
+        graph = self._graphed()
+        if graph:
+            self._check_capturable()
         return self._run(x0, generator, useq0, mparams, cparams, window,
-                         step0, graph=self._graphed())
+                         step0, graph=graph)
 
     def eager(self, x0, generator=None, useq0=None, mparams=None,
               cparams=None, window=None, step0=None):

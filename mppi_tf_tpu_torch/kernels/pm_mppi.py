@@ -946,13 +946,31 @@ class TwoPhaseSolve:
                     "sample_costs": costs}
             return (self._unfold(zsum.flatten(-2)) / l[..., None, None],
                     info)
-        zsum, stats = pm_merge(self._fused(self._pack_cp(x0, useq, cp), seed,
-                                           solve, z))
+        zsum, stats = self.solve_raw(x0, useq, seed, solve, z, cp)
         l = stats[..., 1]
-        cst = self._with_offset(stats, cp=cp)
-        info = {"cost_min": cst["cost_min"], "cost_max": cst["cost_max"],
-                "cost_mean": cst["cost_sum"] / self.k, "nabla": l}
+        info = {"cost_min": stats[..., 2], "cost_max": stats[..., 3],
+                "cost_mean": stats[..., 4] / self.k, "nabla": l}
         return self._unfold(zsum) / l[..., None, None], info
+
+    def solve_raw(self, x0, useq, seed: int = 0, solve: int = 0, z=None,
+                  cp=None, dyn=None):
+        """The unnormalized solve's merged block rows before the division
+        by l (the JAX package's ``return_raw=True``): (zsum [tau*adim],
+        stats [STATS]) of ``pm_merge``, (m, l, cost min, max, sum, ...),
+        with ``_cost_offset`` added to the cost min / max / sum (a fleet's:
+        [n]-leading). A shard merge (``parallel/fused.py``) combines such
+        pieces with the merge's algebra; its shards share one ``dyn``
+        (``pack_dyn`` of x0 and useq), packed once."""
+        if dyn is None:
+            dyn = self._pack_cp(x0, useq, cp)
+        zsum, stats = pm_merge(self._fused(dyn, seed, solve, z))
+        if self._cost_offset(cp) is None:
+            return zsum, stats
+        cst = self._with_offset(stats, cp=cp)
+        return zsum, torch.cat([
+            stats[..., :2], torch.stack([cst["cost_min"], cst["cost_max"],
+                                         cst["cost_sum"]], dim=-1),
+            stats[..., 5:]], dim=-1)
 
     def _with_offset(self, stats, costs=None, cp=None):
         """{cost_min, cost_max, cost_sum} of merged ``stats`` (and the
@@ -968,23 +986,31 @@ class TwoPhaseSolve:
         return cst if costs is None else (costs + off[..., None], cst)
 
     def costs_phase(self, x0, useq, seed: int = 0, solve: int = 0, z=None,
-                    cp=None):
+                    cp=None, dyn=None):
         """Phase A: per-sample costs [k] and {cost_min, cost_max, cost_sum}
-        (a fleet's: [n, k] and [n] each)."""
-        costs, rows = self._costs(self._pack_cp(x0, useq, cp), seed, solve,
-                                  z)
+        (a fleet's: [n, k] and [n] each); ``dyn`` as for ``solve_raw``."""
+        if dyn is None:
+            dyn = self._pack_cp(x0, useq, cp)
+        costs, rows = self._costs(dyn, seed, solve, z)
         _, stats = pm_merge(rows)
         return self._with_offset(stats, costs, cp)
 
-    def weights_phase(self, costs, beta, cmax, seed: int = 0, solve: int = 0,
-                      z=None):
-        """Phase B over phase-A costs -> (zsum [tau, adim], l) (a fleet's
-        costs [n, k]: [n, tau, adim] and [n]). The guard against all-equal
+    def weights_nrm(self, beta, cmax) -> torch.Tensor:
+        """Phase B's (beta, 1 / (denom lam)); the guard against all-equal
         costs matches ops/update.norm_arg (denom = 1 when max - beta ==
         0)."""
         denom = cmax - beta
         denom = torch.where(denom > 0, denom, torch.ones_like(denom))
-        nrm = torch.stack([beta, 1.0 / (denom * self.lam)], dim=-1)
+        return torch.stack([beta, 1.0 / (denom * self.lam)], dim=-1)
+
+    def weights_phase(self, costs, beta, cmax, seed: int = 0, solve: int = 0,
+                      z=None, nrm=None):
+        """Phase B over phase-A costs -> (zsum [tau, adim], l) (a fleet's
+        costs [n, k]: [n, tau, adim] and [n]); ``nrm``: ``weights_nrm``
+        of (beta, cmax) when the caller has it (a shard merge's shards
+        share it)."""
+        if nrm is None:
+            nrm = self.weights_nrm(beta, cmax)
         zsum, stats = pm_merge(mppi_weights(nrm, costs, self.tau, self.adim,
                                             seed, solve, z,
                                             antithetic=self.antithetic,

@@ -211,18 +211,35 @@ def test_get_controller_single():
 
 
 @pytest.mark.parametrize("cfg,kw,item", [
-    ({"fleet": 4}, {"mesh": object()}, "item 14"),
-    ({}, {"mesh": object()}, "item 14"),
-    ({"kernel-dtype": "bfloat16"}, {}, "fused kernel path only")])
+    pytest.param({"fleet": 4}, {"mesh": 2}, "FleetMPPI",
+                 id="cfg0-kw0-item 14"),
+    pytest.param({}, {"mesh": 2}, "ShardedMPPI", id="cfg1-kw1-item 14"),
+    pytest.param({"kernel-dtype": "bfloat16"}, {}, "fused kernel path only",
+                 id="cfg2-kw2-fused kernel path only")])
 def test_get_controller_not_ported(cfg, kw, item):
-    """Meshes (a fleet's too) are not ported; fleets are
-    (tests/test_torch_fleet.py); kernel-dtype is, and reaches the
-    controller, which refuses bf16 on the torch path as JAX does."""
+    """Meshes (a fleet's too) build the mesh-sharded controllers since
+    ROADMAP item 14 (a fleet split over the shards, the torch-route
+    sharded solve; tests/test_torch_sharded.py holds them against JAX);
+    kernel-dtype reaches the controller, which refuses bf16 on the torch
+    path as JAX does."""
+    from mppi_tf_tpu_torch.parallel import make_mesh
+
     (pm, pc), _ = _modules()
     base = {"samples": 10, "horizon": 4, "noise": SIGMA.tolist()}
-    err = ValueError if "kernel-dtype" in cfg else NotImplementedError
-    with pytest.raises(err, match=item):
-        get_controller(pm, pc, {**base, **cfg}, device="cpu", **kw)
+    if "mesh" not in kw:
+        with pytest.raises(ValueError, match=item):
+            get_controller(pm, pc, {**base, **cfg}, device="cpu", **kw)
+        return
+    mesh = make_mesh(devices=["cpu"] * kw["mesh"])
+    ctrl = get_controller(pm, pc, {**base, **cfg}, mesh=mesh)
+    assert type(ctrl).__name__ == item
+    if cfg:
+        a = ctrl.next(np.zeros((4, 6)))
+        assert a.shape == (4, 3) and ctrl._local_vehicles() == [0, 1, 2, 3]
+    else:
+        a = ctrl.next(np.zeros(6))
+        assert a.shape == (3,) and ctrl._k_local == 5
+    assert np.all(np.isfinite(a))
 
 
 # ---------------------------------------------------------------------------

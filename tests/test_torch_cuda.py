@@ -1871,3 +1871,69 @@ def test_fleet_on_device_loop_replay_equals_eager(cuda_device, case):
         assert not torch.equal(g2[0][:, 1], g[0][:, 1])
         assert torch.equal(g2[0][:, 0], g[0][:, 0])
     assert cg2 == ce and ce["pm_fused_solve"] == ce["pm_merge"] == steps
+
+
+# ---------------------------------------------------------------------------
+# the mesh-sharded fused solve on the card (parallel/fused.py)
+# ---------------------------------------------------------------------------
+def _sharded(device, n, k, tau, **kw):
+    from mppi_tf_tpu_torch.parallel import make_mesh
+    from mppi_tf_tpu_torch.parallel.fused import ShardedFusedMPPI
+
+    model, cost = _modules(device)
+    return ShardedFusedMPPI(model, cost, make_mesh(devices=[device] * n),
+                            k=k, tau=tau, lam=LAM, upsilon=UPS, sigma=SIGMA,
+                            **kw)
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+def test_one_shard_mesh_is_the_fused_step_on_the_card(cuda_device,
+                                                      normalize):
+    """A mesh of one shard launches the kernels of the single-device
+    solve with the same solve index: the same bits, int or device
+    index."""
+    k, tau = 4096, 12
+    ctrl = _sharded(cuda_device, 1, k, tau, normalize_cost=normalize, seed=5)
+    single = _fused(k, tau, cuda_device)
+    x0 = torch.zeros(6, device=cuda_device)
+    useq = 0.1 * torch.ones(tau, 3, device=cuda_device)
+    want, _ = single.solve(x0, useq, seed=5, solve=7, normalize=normalize)
+    for solve in (7, torch.tensor([7], device=cuda_device)):
+        got, _ = ctrl._fused.solve(x0, useq, seed=5, solve=solve,
+                                   normalize=normalize)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+def test_four_shards_hold_the_single_device_solve(cuda_device, normalize):
+    """Four shards on one card, injected z: within the f32 merge tolerance
+    of the single-device solve; the kernels launch once a shard."""
+    k, tau = 8192, 12
+    ctrl = _sharded(cuda_device, 4, k, tau, normalize_cost=normalize)
+    single = _fused(k, tau, cuda_device)
+    z = torch.randn(tau, 3, k, generator=torch.Generator().manual_seed(1)
+                    ).to(cuda_device)
+    x0 = torch.zeros(6, device=cuda_device)
+    useq = 0.1 * torch.ones(tau, 3, device=cuda_device)
+    want, _ = single.solve(x0, useq, z=z, normalize=normalize)
+    pm.reset_launch_counts()
+    got, _ = ctrl._fused.solve(x0, useq, z=z, normalize=normalize)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6)
+    entry = "pm_fused_costs" if normalize else "pm_fused_solve"
+    assert pm.launch_counts[entry] == 4
+
+
+def test_sharded_loop_graph_replays_its_eager_periods(cuda_device):
+    """The on-device loop over a local mesh of 4 shards: one captured
+    graph holding every shard's launches, replayed == eager."""
+    from mppi_tf_tpu_torch.envs import DevicePointMassEnv
+    from mppi_tf_tpu_torch.envs.mjx_env import build_on_device_loop
+
+    ctrl = _sharded(cuda_device, 4, 4096, 12, seed=3)
+    run = build_on_device_loop(ctrl, DevicePointMassEnv(n_dof=3,
+                                                        dt=0.01).step_fn,
+                               steps=20, substeps=5)
+    s_g, a_g = run(np.zeros(6), step0=0)
+    s_e, a_e = run.eager(np.zeros(6), step0=0)
+    assert run.nodes["pm_fused_solve"] == 4 and run.nodes["pm_merge"] == 4
+    assert torch.equal(s_g, s_e) and torch.equal(a_g, a_e)

@@ -7,9 +7,9 @@ kernel route (its plain versions here) against n one-vehicle fused solves
 with solve s n + v and against JAX's XLA solve on the same normals over
 the option matrix, closed loops to distinct goals, re-tasking and
 checkpoints, the factory, missions, validation, the on-device fleet loop
-and an AUV fleet. The sharded fleet (tests/test_fleet.py:86) is ROADMAP
-item 14. The kernels' vehicle axis on the card is held by
-tests/test_torch_cuda.py.
+and an AUV fleet. The sharded fleet (tests/test_fleet.py:86, 246) is
+held by tests/test_torch_sharded_loop.py. The kernels' vehicle axis on
+the card is held by tests/test_torch_cuda.py.
 """
 
 import jax
@@ -391,9 +391,13 @@ def test_factory_dispatch():
         get_controller(DMDModel(4, 2), cost, cfg, device="cpu")
     with pytest.raises(ValueError, match="observer"):
         get_controller(model, cost, cfg, observer=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        FleetMPPI(model, cost, 2, k=8, tau=3, lam=LAM, upsilon=1.0,
-                  sigma=SIGMA, mesh=object(), device="cpu")
+    # a mesh (ROADMAP item 14) splits the fleet over its shards
+    from mppi_tf_tpu_torch.parallel import make_mesh
+
+    sharded = get_controller(model, cost, cfg,
+                             mesh=make_mesh(devices=["cpu"] * 3))
+    assert isinstance(sharded, FleetMPPI) and sharded.kernel_path == "torch"
+    np.testing.assert_array_equal(sharded.next(np.zeros((3, 4))), a)
 
 
 def test_validates_construction():

@@ -42,7 +42,14 @@ def test_import_leaves_no_jax_modules():
         " mppi_tf_tpu_torch.learning.learner,"
         " mppi_tf_tpu_torch.learning.checkpoint,"
         " mppi_tf_tpu_torch.learning.datastore, mppi_tf_tpu_torch.collect,"
-        " mppi_tf_tpu_torch.verify_models, mppi_tf_tpu_torch.envs.mjx_env\n"
+        " mppi_tf_tpu_torch.verify_models, mppi_tf_tpu_torch.envs.mjx_env,"
+        " mppi_tf_tpu_torch.parallel, mppi_tf_tpu_torch.parallel.mesh,"
+        " mppi_tf_tpu_torch.parallel.sharded,"
+        " mppi_tf_tpu_torch.parallel.fused,"
+        " mppi_tf_tpu_torch.parallel.launch,"
+        " mppi_tf_tpu_torch.parallel.cluster,"
+        " mppi_tf_tpu_torch.parallel._mp_worker,"
+        " mppi_tf_tpu_torch.parallel.train\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mppi_tf_tpu', 'triton'))\n"
         "print(','.join(bad))\n")

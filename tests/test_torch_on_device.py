@@ -517,8 +517,23 @@ class TestOnDeviceAdaptiveDMD:
 
 
 def test_sharded_controllers_name_their_item():
-    with pytest.raises(NotImplementedError, match="item 14"):
+    """A non-controller is refused; a mesh-sharded controller (ROADMAP item
+    14) builds the loop and runs it (tests/test_torch_sharded_loop.py
+    holds its gates)."""
+    from mppi_tf_tpu_torch.parallel import ShardedMPPI, make_mesh
+
+    with pytest.raises(TypeError, match="MPPI controllers"):
         build_on_device_loop(object(), lambda x, u: x, steps=2)
+    model = get_model({"type": "point_mass", "mass": 1.0}, dt=0.1,
+                      state_dim=4, action_dim=2)
+    cost = get_cost(STATIC, lam=LAM, gamma=GAMMA, upsilon=1.0, sigma=SIGMA)
+    ctrl = ShardedMPPI(model, cost, make_mesh(devices=["cpu"] * 2), k=32,
+                       tau=5, lam=LAM, upsilon=1.0, sigma=SIGMA)
+    states, actions = build_on_device_loop(
+        ctrl, DevicePointMassEnv(n_dof=2, dt=0.01).step_fn, steps=2)(
+            np.zeros(4))
+    assert states.shape == (2, 4) and actions.shape == (2, 2)
+    assert torch.all(torch.isfinite(states))
 
 
 def test_cli_on_device_runs(tmp_path, capsys):
