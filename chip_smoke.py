@@ -97,6 +97,18 @@ port's paths through ``MPPI.next`` closed loop against the analytic plants:
   the all-reduce in the graph; the ``on_device_loop`` row on 4 shards
   (replay == eager, one sync a run); the 32-point-mass fleet split over 4
   shards on the torch route;
+- serving and tooling (ROADMAP item 15): the headline controller behind
+  the port's ``ControlServer`` driven 300 closed-loop steps by a
+  ``ControlClient`` (held to the goal, to one launch of the solve and the
+  merge a request, and bit for bit to a twin controller driven directly),
+  100 m-step requests and an over-long one refused (``serve``); the
+  32-point-mass fleet behind the coalescer, one client thread a vehicle,
+  100 lockstep rounds, each reply its dispatch's row bit for bit and one
+  launch a dispatch (``serve_fleet``); the headline kernel solve and the
+  plain f32 path against the native f64 core (``native_golden``); the
+  card's ceilings from the microbenchmarks of ``csrc/roofline.cu`` beside
+  the datasheet peaks and the headline's share of its roofline
+  (``roofline``); ``sweep.main`` over two lambdas on the card (``sweep``);
 - the bf16 block compute (``kernel_dtype="bfloat16"``): every bf16 kernel
   against its plain bf16 version on injected z and the Philox stream
   (point mass K=100,000, H=50 with constant and dynamic (A, B), the (4, 2)
@@ -129,7 +141,8 @@ point mass, ``point_mass_h100`` and the AUV dive on either library in
 turns (``parent_loops``). It
 times every kernel, each noise variant beside the same kernel without
 it, the dynamic_ab variant beside the constant-(A, B) kernel and each
-bf16 build beside its f32 build. Each phase prints one JSON line; any
+bf16 build beside its f32 build, and ``torch.randn`` at the noise dump's
+shape as the dump's ``library_ms``. Each phase prints one JSON line; any
 failed check raises and the script exits non-zero. Without a CUDA device
 it exits non-zero before printing any result.
 
@@ -151,6 +164,16 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+# the counts of the kernels' work and their datasheet bounds (H100 SXM:
+# PEAK_OPS f32, PEAK_BYTES HBM, the tensor-core peaks; OPS_PER_NORMAL a
+# generated normal): one count, in the port's roofline module
+from mppi_tf_tpu_torch.roofline import (OPS_PER_NORMAL, PEAK_BYTES,
+                                        PEAK_OPS, auv_solve_ops, bf16_bound,
+                                        bf16_rollout_ops, bound_ms,
+                                        mirror_saving, nn_solve_ops,
+                                        nn_tc_bound, sched_ops, solve_ops,
+                                        weights_ops)
+
 # the workload of the main path (mppi_tf_tpu/bench.py::_build_workload,
 # "point_mass"): 3-DoF point mass, state 6, action 3
 K, H = 100_000, 50
@@ -160,15 +183,6 @@ GOAL = [1.0, 0.0, 0.5, 0.0, -0.5, 0.0]
 Q = [5.0, 1.0, 5.0, 1.0, 5.0, 1.0]
 LOOP_STEPS = 300
 GOAL_TOL = 0.05
-# H100 SXM published peaks (NVIDIA datasheet): HBM bytes/s and
-# f32 operations/s outside the tensor cores
-PEAK_BYTES = 3.35e12
-PEAK_OPS = 67e12
-# operations per generated normal: Philox4x32-10 is 98 integer ops per 4
-# words (10 rounds of 2 mul-hi, 2 mul-lo, 4 xor; 9 key bumps of 2 adds);
-# Box-Muller ~15 per pair (2 uniforms of 4 ops, log, mul, sqrt, sin, cos,
-# 2 muls); every op counted at the f32 rate, so the bound is a floor
-OPS_PER_NORMAL = 98 / 4 + 15 / 2
 
 # the AUV flagship (mppi_tf_tpu/bench.py "auv_rexrov2" row): rexrov2, rk2,
 # state 13, action 6, K=262,144, H=25
@@ -593,141 +607,6 @@ def close(a: torch.Tensor, b: torch.Tensor, rtol: float, atol: float):
     err = (a.double() - b.double()).abs()
     ratio = (err / (atol + rtol * b.double().abs())).max().item()
     return ratio <= 1.0, err.max().item(), ratio
-
-
-def nnz(a) -> int:
-    return int(np.count_nonzero(a))
-
-
-#: operations of one 2D ellipse cost (pm_mppi.cu state_cost<kElipse>): two
-#: centred, scaled coordinates (4), their squares summed (3), |. - 1| (2),
-#: the speed (3 + sqrt 1), its error squared (2), the weighted sum (3)
-ELIPSE_OPS = 18
-#: operations of one 3D ellipse cost (auv_mppi.cu elipse3d_cost, FMA = 2,
-#: acos 10, rsqrt 1): centring (3), R_plane (18), the scaled squares and
-#: |. - 1| (11), q_plane (x) q (28), the tangent and its norm (13),
-#: between_two_vectors and its norm (12), the dot, |.| and acos (19), the
-#: speed error (7), the weighted sum (4)
-ELIPSE3D_OPS = 115
-
-
-def solve_ops(consts, k: int, tau: int, prng: bool,
-              costs_only: bool = False) -> float:
-    """Operations of one fused solve, from the nonzeros of this run's
-    matrices (FMA = 2): rollout and cost per sample-step, the terminal
-    cost, the softmax, the w*z reduction, and one noise pass (the function
-    needs each normal once; the kernel's regeneration in its second pass
-    is its own choice and not counted). With ``costs_only`` (phase A): no
-    softmax or w*z. The state cost is the quadratic around dyn's goal or,
-    for the "elipse" kind, ``ELIPSE_OPS``. A dynamic_ab solve's A and B
-    scale are runtime data: counted dense, as JAX roofline.py:231-232
-    counts them. The z-quadratic (Mz z, z . Mz z and its scaled add)
-    counts only where nc_half is not 0: at upsilon 1 the function has no
-    such term, and the kernels skip it."""
-    sdim, adim = consts.dims
-    q_ops = (ELIPSE_OPS if consts.cost_kind == "elipse"
-             else sdim + 2 * nnz(consts.Q) + 2 * sdim)
-    ab = (sdim * (sdim + adim) if consts.dynamic_ab
-          else nnz(consts.A) + nnz(consts.Bs))
-    quad = 2 * nnz(consts.Mz) + 2 * adim + 2 if consts.nc_half != 0.0 else 0
-    step = 2 * ab + 2 * sdim + q_ops + 2 * adim + quad
-    return _rollout_ops(k, tau, adim, step, q_ops, prng, costs_only)
-
-
-def _rollout_ops(k, tau, adim, step, q_ops, prng, costs_only):
-    n_normals = k * tau * adim
-    if costs_only:
-        ops = k * (tau * step + q_ops + 1)
-    else:
-        ops = k * (tau * step + q_ops + 6) + 2 * n_normals
-    return float(ops + (n_normals * OPS_PER_NORMAL if prng else 0))
-
-
-def auv_solve_ops(consts, dyn, k: int, tau: int, prng: bool,
-                  costs_only: bool = False) -> float:
-    """Operations of one fused AUV solve, counted from auv_mppi.cu with the
-    nonzeros of this run's matrices (FMA = 2; acos, rsqrt counted as 10 and
-    1): a state_dot is the rotation (36), pose rates (18), quaternion rates
-    (24), damping (2 nnz(L) + 2 nnz(L_fwd) + 36), M nu (2 nnz(M)), three
-    cross products and their sums (36), restoring forces (24 + 2 nnz(cog)
-    + 2 nnz(cob)), the force sum (6) and M^-1 rhs (2 nnz(M^-1)); a step adds
-    the generalised force, rk stages, the quaternion norm, the state cost
-    (the 10-dim quadratic; twice for "waypoints_quat", with |dot| and the
-    blend; ``ELIPSE3D_OPS`` for "elipse3d") and the action-cost terms, the
-    z-quadratic only where nc_half is not 0. The kDiag kernels run this
-    count but for cob's zeros and M's; kDense runs the matrices dense."""
-    m_tot = dyn[:36].cpu().numpy()
-    inv_m = dyn[36:72].cpu().numpy()
-    sd = (36 + 18 + 24 + 2 * nnz(consts.lin_damp)
-          + 2 * nnz(consts.lin_damp_fwd) + 36 + 2 * nnz(m_tot) + 36
-          + 24 + 2 * nnz(consts.cog) + 2 * nnz(consts.cob) + 6
-          + 2 * nnz(inv_m))
-    stages = {1: sd + 26, 2: 2 * sd + 26 + 39, 4: 4 * sd + 3 * 52 + 39}
-    q_ops = {"static_quat": 3 + 7 + 2 + 10 + 2 + 6 + 2 * nnz(consts.Q) + 20,
-             "waypoints_quat": 2 * (3 + 7 + 3 + 10 + 2 + 6
-                                    + 2 * nnz(consts.Q) + 20) + 3,
-             "elipse3d": ELIPSE3D_OPS}[consts.cost_kind]
-    quad = 2 * nnz(consts.Mz) + 12 + 2 if consts.nc_half != 0.0 else 0
-    step = (6 + 2 * nnz(consts.scale) + stages[consts.rk] + 13 + q_ops
-            + 12 + quad)
-    return _rollout_ops(k, tau, 6, step, q_ops, prng, costs_only)
-
-
-def nn_solve_ops(consts, k: int, tau: int, prng: bool,
-                 costs_only: bool = False) -> float:
-    """Operations of one fused NN solve, counted from nn_mppi.cu (FMA = 2;
-    acos, rsqrt as 10 and 1): a step is the action u = useq + scale z, the
-    MLP (2 fan_in fan_out a layer, a ReLU per hidden unit), the delta, the
-    quaternion renormalisation, the 10-dim cost and the action-cost
-    terms."""
-    sizes = consts.sizes
-    mlp = sum(2 * i * o for i, o in zip(sizes[:-1], sizes[1:])) + sum(
-        sizes[1:-1])
-    q_ops = 3 + 7 + 2 + 10 + 2 + 6 + 2 * nnz(consts.Q) + 20
-    step = (6 + 2 * nnz(consts.scale) + mlp + 13
-            + (12 if consts.renorm else 0) + q_ops + 12 + 2 * nnz(consts.Mz)
-            + 12 + 2)
-    return _rollout_ops(k, tau, 6, step, q_ops, prng, costs_only)
-
-
-#: H100 SXM dense tensor-core peaks (NVIDIA datasheet): TF32 and bf16
-PEAK_TF32, PEAK_BF16_MMA = 495e12, 989e12
-
-
-def nn_tc_bound(consts, n_bytes: float, k: int, tau: int, prng: bool,
-                costs_only: bool = False, extra: float = 0.0):
-    """bound_ms of the NN body in the form nn_mppi.cu computes it: the
-    MLP's mma flops (2 x fan_in x fan_out a layer and sample-step, fan_in
-    padded to the mma's k, fan_out to whole n tiles of 8) at the TF32 peak,
-    three products each (3xTF32), or at the bf16 peak for the
-    bf16-products build, plus the rest of nn_solve_ops (its MLP
-    multiply-adds taken out, the ReLUs kept) and the activations' splits
-    (3 ops an A value a layer, 0.5 a value packed to bf16) and ``extra``
-    operations (a noise variant's) at PEAK_OPS."""
-    sizes, bfp = consts.sizes, consts.bf16_products
-    kk = 16 if bfp else 8
-    pairs = list(zip(sizes[:-1], sizes[1:]))
-    mma = 2.0 * k * tau * sum(-(-i // kk) * kk * -(-o // 8) * 8
-                              for i, o in pairs)
-    t_mma = mma / PEAK_BF16_MMA if bfp else 3.0 * mma / PEAK_TF32
-    split = (0.5 if bfp else 3.0) * sum(sizes[:-1])
-    rest = (nn_solve_ops(consts, k, tau, prng, costs_only) + extra
-            - k * tau * (sum(2 * i * o for i, o in pairs) - split))
-    t_o, t_b = t_mma + rest / PEAK_OPS, n_bytes / PEAK_BYTES
-    return max(t_o, t_b) * 1e3, ("bytes" if t_b >= t_o else
-                                 "operations (mma at the tensor-core peak, "
-                                 "the rest at 67 TFLOP/s)")
-
-
-def weights_ops(k: int, n_z: int, prng: bool) -> float:
-    """Phase B: the bounded exponent (4 a sample), one noise pass and the
-    w*z reduction (2 a normal)."""
-    return float(k * 4 + k * n_z * (2 + (OPS_PER_NORMAL if prng else 0)))
-
-
-def bound_ms(n_bytes: float, ops: float):
-    t_b, t_o = n_bytes / PEAK_BYTES, ops / PEAK_OPS
-    return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
 def check_solve(pm, fused, z, label: str) -> dict:
@@ -1806,18 +1685,6 @@ def variant_times(base_fn, var_fn, plain_fn, reps: int = 200) -> dict:
             "plain_ms": cuda_ms(plain_fn, 3, 1)}
 
 
-def mirror_saving(k: int, n_z: int) -> float:
-    """The normals an antithetic solve of k samples need not draw: the
-    mirrored k - ceil(k/2) samples' n_z each, at OPS_PER_NORMAL."""
-    return (k - (k + 1) // 2) * n_z * OPS_PER_NORMAL
-
-
-def sched_ops(k: int, tau: int, dims: int) -> float:
-    """What the schedule adds to a solve: c_t times the noise drive of
-    ``dims`` dimensions and times the z-quadratic, a sample and a step."""
-    return float(k * tau * (dims + 1))
-
-
 def pm_loop_phase(phase: str, normalize: bool, tau: int, tol=GOAL_TOL,
                   mean_tol=None, dmd: bool = False, suffix: str = "",
                   **extra) -> tuple:
@@ -2150,11 +2017,6 @@ def kernel_time(fn, plain_fn, reps: int = 200) -> dict:
 
 # ---- the bf16 block compute (compute_dtype="bfloat16") --------------------
 
-#: the rate of a bf16 rollout op in the bounds: the kernels' bf16 order
-#: rounds every multiply and every add (never fused), so each mul.rn or
-#: add.rn.bf16x2 does one op in each of its two lanes, the 2 ops an
-#: instruction of an FFMA: the f32 rate, not the packed-FMA 134 TFLOP/s
-PEAK_OPS_BF16 = PEAK_OPS
 #: a bf16 kernel against its plain bf16 version: mean |kernel - plain| over
 #: the per-sample costs at most this share of the same kernel's f32 build
 #: against that plain version (the kernel computes the bf16 arithmetic,
@@ -2165,44 +2027,6 @@ BF16_GAP_SHARE = 1e-2
 #: the weighted noise (z units) of a bf16 kernel against the softmax of
 #: its own costs: the tolerance of the f32 kernels' (check_solve)
 BF16_WNOISE_RTOL, BF16_WNOISE_ATOL = 1e-3, 1e-5
-
-
-def bf16_bound(n_bytes: float, ops: float, ops_bf16: float):
-    """bound_ms with ``ops_bf16`` of the ``ops`` at the bf16 rate and the
-    rest at the f32 rate."""
-    t_b = n_bytes / PEAK_BYTES
-    t_o = ops_bf16 / PEAK_OPS_BF16 + (ops - ops_bf16) / PEAK_OPS
-    return (max(t_b, t_o) * 1e3,
-            "bytes" if t_b >= t_o else
-            "operations (unfused bf16 rollout and f32 both at 67 TFLOP/s)")
-
-
-def bf16_rollout_ops(consts, k: int, tau: int, dyn=None) -> float:
-    """The bf16 share of a solve's operations, from the step formulas of
-    solve_ops, auv_solve_ops and nn_solve_ops: the dynamics, the
-    z-quadratic and the rhs_z products of every sample-step, and the point
-    mass's state cost (bf16 there); the noise, the cost sums, the softmax
-    and the AUV's and NN's f32 state costs are the f32 rest."""
-    adim = consts.Mz.shape[0]
-    zq = 2 * nnz(consts.Mz) + 2 * adim + adim
-    if hasattr(consts, "dims"):                       # the point mass
-        sdim = consts.dims[0]
-        q_ops = (ELIPSE_OPS if consts.cost_kind == "elipse"
-                 else sdim + 2 * nnz(consts.Q) + 2 * sdim)
-        ab = (sdim * (sdim + adim) if consts.dynamic_ab
-              else nnz(consts.A) + nnz(consts.Bs))
-        if consts.nc_half == 0.0:    # as solve_ops: no z-quadratic
-            zq = adim
-        return float(k * (tau * (2 * ab + 2 * sdim + q_ops + zq) + q_ops))
-    if hasattr(consts, "rk"):                         # the AUV
-        full = auv_solve_ops(consts, dyn, 1, 1, prng=False, costs_only=True)
-        q_ops = 3 + 7 + 2 + 10 + 2 + 6 + 2 * nnz(consts.Q) + 20
-        return float(k * tau * (full - 2 * q_ops - 1 - 2 - 12 + zq))
-    sizes = consts.sizes                              # the NN
-    mlp = sum(2 * i * o for i, o in zip(sizes[:-1], sizes[1:])) + sum(
-        sizes[1:-1])
-    return float(k * tau * (6 + 2 * nnz(consts.scale) + mlp + 13
-                            + (12 if consts.renorm else 0) + zq))
 
 
 #: the instantiations the sass phase reads, f32 and bf16 builds, both
@@ -4865,6 +4689,402 @@ def sharded_phase(pm, smi: str, on_device) -> dict:
     return out
 
 
+# ---- serving and tooling (ROADMAP item 15): serve.py, the coalescer, ------
+# ---- the native f64 golden model, the card's ceilings, sweeps ----------------
+
+#: the served headline loop (serve): the point mass at K, H through a
+#: ControlServer on 127.0.0.1 and a ControlClient, LOOP_STEPS steps gated on
+#: GOAL_TOL; then SERVE_MSTEP_ROUNDS m-step requests at m = SERVE_M from
+#: rest, gated on JAX's SERVE_MSTEP_TOL (tests/test_serve.py:370)
+SERVE_M, SERVE_MSTEP_ROUNDS, SERVE_MSTEP_TOL = 3, 100, 0.3
+#: the coalesced fleet (serve_fleet): the point-mass fleet row (FLEET_PM_N
+#: vehicles, FLEET_K, FLEET_H, unnormalized) behind the coalescer, one
+#: client thread and socket a vehicle, SERVE_FLEET_ROUNDS lockstep rounds
+SERVE_FLEET_ROUNDS = 100
+#: the native golden model (native_golden): the kernel's distance from the
+#: f64 core at most NATIVE_SHARE times the plain f32 path's, over max
+#: |wnoise| and for each cost stat relative to the f64 stat. A cost stat
+#: is one sample's cost (or their mean), a sum of H f32 terms: a kernel
+#: stat within NATIVE_STAT_FLOOR = H f32 half-ulps of f64, the bound of
+#: that sum's rounding, also passes (twice a plain distance that happens
+#: to land near 0 is no gate)
+NATIVE_SHARE, NATIVE_STAT_FLOOR = 2.0, H * 2.0 ** -24
+#: the ceilings (roofline): a measured FMA or HBM rate above
+#: CEILING_SHARE of its datasheet peak is a broken microbenchmark
+CEILING_SHARE = 1.05
+#: the sweep: two combos of SWEEP_STEPS on the bundled point-mass configs
+SWEEP_STEPS = 50
+
+
+def serve_phase(pm, smi: str) -> dict:
+    """The headline controller behind the port's ControlServer: LOOP_STEPS
+    closed-loop steps from a ControlClient (the plant on the client's
+    side), held to GOAL_TOL, to one launch of pm_fused_solve and pm_merge
+    a request, and bit for bit to a twin controller of the same seed
+    driven directly on the same states; then SERVE_MSTEP_ROUNDS m-step
+    requests (SERVE_M) from rest, and m = H + 2 refused. Times: the
+    client's round trip, the server's solve_ms, the twin's MPPI.next."""
+    from mppi_tf_tpu_torch.envs import PointMassEnv
+    from mppi_tf_tpu_torch.serve import ControlClient, ControlServer
+
+    ctrl, twin = pm_controller("auto"), pm_controller("auto")
+    if (ctrl.kernel_path, twin.kernel_path) != ("cuda", "cuda"):
+        raise AssertionError(f"served kernel='auto' resolved to "
+                             f"{ctrl.kernel_path}")
+    ctrl.trace()
+    twin.trace()
+    server = ControlServer(ctrl)
+    host, port = server.serve_background()
+    client = ControlClient(host, port)
+    env = PointMassEnv(n_dof=3, mass=MASS, dt=DT)
+    try:
+        info = client.info()
+        x = np.asarray(env.reset(), np.float64).ravel()
+        states, served, rtt, solve_ms = [], [], [], []
+        pm.reset_launch_counts()
+        for _ in range(LOOP_STEPS):
+            states.append(x.copy())
+            t0 = time.perf_counter()
+            resp = client.request(op="next", state=x.tolist())
+            rtt.append((time.perf_counter() - t0) * 1e3)
+            if "error" in resp:
+                raise AssertionError(f"served next: {resp['error']}")
+            served.append(resp["action"])
+            solve_ms.append(resp["solve_ms"])
+            x = np.asarray(env.step(np.asarray(resp["action"])),
+                           np.float64).ravel()
+        counts = dict(pm.launch_counts)
+        err = float(np.linalg.norm(x - np.asarray(GOAL)))
+        # m-step replies from rest: the plan advances by m a request
+        x = np.asarray(env.reset(), np.float64).ravel()
+        pm.reset_launch_counts()
+        for _ in range(SERVE_MSTEP_ROUNDS):
+            for u in client.next_plan(x, m=SERVE_M):
+                x = np.asarray(env.step(u), np.float64).ravel()
+        m_counts = dict(pm.launch_counts)
+        m_err = float(np.linalg.norm(x - np.asarray(GOAL)))
+        too_long = client.request(op="next", state=x.tolist(), m=H + 2)
+        refused_launches = {n: pm.launch_counts[n] - m_counts[n]
+                            for n in m_counts}
+    finally:
+        client.close()
+        server.close()
+    # the twin, driven directly on the served run's states
+    twin_ms, twin_actions = [], []
+    for s in states:
+        t0 = time.perf_counter()
+        twin_actions.append(twin.next(s))
+        twin_ms.append((time.perf_counter() - t0) * 1e3)
+    same = np.array_equal(np.asarray(served, np.float32),
+                          np.asarray(twin_actions))
+    want = {n: 0 for n in counts}
+    want.update(pm_fused_solve=LOOP_STEPS, pm_merge=LOOP_STEPS)
+    m_want = {n: 0 for n in m_counts}
+    m_want.update(pm_fused_solve=SERVE_MSTEP_ROUNDS,
+                  pm_merge=SERVE_MSTEP_ROUNDS)
+    out = {"kernel": info["kernel"], "K": K, "H": H, "steps": LOOP_STEPS,
+           "goal_err": err, "launches": counts, "bits_equal_twin": same,
+           "round_trip_ms_median": float(np.median(rtt)),
+           "round_trip_ms_p90": float(np.percentile(rtt, 90)),
+           "solve_ms_median": float(np.median(solve_ms)),
+           "solve_ms_p90": float(np.percentile(solve_ms, 90)),
+           "twin_next_ms_median": float(np.median(twin_ms)),
+           "twin_next_ms_p90": float(np.percentile(twin_ms, 90)),
+           "mstep": {"m": SERVE_M, "rounds": SERVE_MSTEP_ROUNDS,
+                     "goal_err": m_err, "tol": SERVE_MSTEP_TOL,
+                     "launches": m_counts,
+                     "m_tau_plus_2": too_long,
+                     "launches_of_refused": refused_launches}}
+    emit("serve", card=smi, **out)
+    if not (info["kernel"] == "cuda" and counts == want and same
+            and err < GOAL_TOL):
+        raise AssertionError(f"served loop: kernel {info['kernel']}, "
+                             f"launches {counts}, twin bits {same}, "
+                             f"goal error {err}")
+    if not (m_counts == m_want and m_err < SERVE_MSTEP_TOL
+            and "error" in too_long and not any(refused_launches.values())):
+        raise AssertionError(f"served m-step replies: {out['mstep']}")
+    return out
+
+
+def serve_fleet_phase(pm, smi: str) -> dict:
+    """The point-mass fleet row behind the coalescer: one client thread
+    and socket a vehicle, SERVE_FLEET_ROUNDS lockstep rounds. Gates: no
+    error reply; each reply is its dispatch's row bit for bit (the
+    fleet's next and the dispatcher wrapped to record each dispatch's
+    states, actions and batch); the batches hold every request once; one
+    launch of pm_fused_solve and of pm_merge a dispatch; fewer dispatches
+    than requests. No goal gate: a vehicle answered in a round's first
+    batch is replanned again from its cached state in the next (the JAX
+    server's semantics); the final errors are reported."""
+    import threading
+
+    from mppi_tf_tpu_torch.envs import PointMassEnv
+    from mppi_tf_tpu_torch.serve import ControlClient, ControlServer
+
+    fleet, goals, _host, x0 = fleet_build("point_mass", False)
+    n = fleet.n_vehicles
+    fleet.next(x0)     # warm-up: the first call builds the solve's buffers
+    dispatches, batches = [], []
+    fleet_next = fleet.next
+
+    def recorded_next(states):
+        actions = fleet_next(states)
+        dispatches.append((np.array(states), actions.copy()))
+        return actions
+
+    fleet.next = recorded_next
+    server = ControlServer(fleet)
+    coalescer = server._coalescer
+    dispatch = coalescer._dispatch
+
+    def recorded_dispatch(batch):
+        dispatch(batch)
+        batches.append([(v, s.copy(), box["resp"])
+                        for v, s, _m, box, _ev in batch])
+
+    coalescer._dispatch = recorded_dispatch
+    host, port = server.serve_background()
+    start = threading.Barrier(n + 1, timeout=300)
+    done = threading.Barrier(n + 1, timeout=300)
+    finals, errors = {}, []
+
+    def vehicle(v):
+        env = PointMassEnv(n_dof=3, mass=MASS, dt=DT)
+        x = np.asarray(env.reset(), np.float64).ravel()
+        client = ControlClient(host, port)
+        try:
+            for _ in range(SERVE_FLEET_ROUNDS):
+                start.wait()
+                resp = client.request(op="next", vehicle=v,
+                                      state=x.tolist())
+                if "error" in resp:
+                    errors.append((v, resp["error"]))
+                else:
+                    x = np.asarray(env.step(np.asarray(resp["action"])),
+                                   np.float64).ravel()
+                done.wait()
+        finally:
+            client.close()
+            finals[v] = x
+
+    threads = [threading.Thread(target=vehicle, args=(v,), daemon=True)
+               for v in range(n)]
+    for t in threads:
+        t.start()
+    pm.reset_launch_counts()
+    walls = []
+    try:
+        for _ in range(SERVE_FLEET_ROUNDS):
+            start.wait()
+            t0 = time.perf_counter()
+            done.wait()
+            walls.append((time.perf_counter() - t0) * 1e3)
+    finally:
+        for t in threads:
+            t.join(timeout=60)
+        server.close()
+    counts = dict(pm.launch_counts)
+    rows_equal = len(batches) == len(dispatches) and all(
+        resp.get("batched") == len(batch)
+        and np.array_equal(states[v], s)
+        and resp["action"] == actions[v].tolist()
+        for batch, (states, actions) in zip(batches, dispatches)
+        for v, s, resp in batch)
+    requests = n * SERVE_FLEET_ROUNDS
+    answered = sum(len(b) for b in batches)
+    err = np.linalg.norm(np.stack([finals[v] for v in range(n)])[:, 0::2]
+                         - goals[:, 0::2], axis=1)
+    total_s = sum(walls) / 1e3
+    out = {"vehicles": n, "K": FLEET_K, "H": FLEET_H,
+           "rounds": SERVE_FLEET_ROUNDS, "requests": requests,
+           "answered_in_batches": answered, "dispatches": len(dispatches),
+           "dispatches_per_round": len(dispatches) / SERVE_FLEET_ROUNDS,
+           "batch_sizes": sorted({len(b) for b in batches}),
+           "launches": counts, "error_replies": errors[:5],
+           "rows_equal_dispatch": rows_equal,
+           "wall_ms_per_round_median": float(np.median(walls)),
+           "wall_ms_per_round_p90": float(np.percentile(walls, 90)),
+           "answered_vehicle_solves_per_s": requests / total_s,
+           "dispatched_vehicle_solves_per_s": n * len(dispatches) / total_s,
+           "host_driven_vehicle_solves_per_s_perf_md": 20397,
+           "final_goal_err_max": float(err.max()),
+           "final_goal_err_median": float(np.median(err))}
+    emit("serve_fleet", card=smi, **out)
+    if not (not errors and rows_equal and answered == requests
+            and counts["pm_fused_solve"] == len(dispatches)
+            and counts["pm_merge"] == len(dispatches)
+            and len(dispatches) < requests):
+        raise AssertionError(f"coalesced fleet: {out}")
+    return out
+
+
+def native_golden_phase(pm, fused, z_big) -> dict:
+    """The headline kernel solve (pm_fused_solve + pm_merge) on the
+    injected z_big and check_solve's inputs against the native f64 core
+    (``native/core.py``: pm_rollout + update at f64 on the same normals,
+    eps = upsilon sigma z as [K, H, 3], the f64 model's A and B / mass),
+    and the plain f32 path (fused_solve_plain + merge_plain on the card)
+    against the same reference. Distances: max |wnoise - f64| / max |f64
+    wnoise| (action units), and each cost stat's relative error. Gate: the
+    kernel's at most NATIVE_SHARE times the plain path's (a stat: or
+    within NATIVE_STAT_FLOOR)."""
+    from mppi_tf_tpu_torch.models import get_model
+    from mppi_tf_tpu_torch.native import core as native
+
+    k, tau = fused.k, fused.tau
+    rng = np.random.default_rng(7)          # check_solve's inputs
+    x0 = torch.zeros(6, device="cuda")
+    useq = torch.as_tensor(0.1 * rng.standard_normal((tau, 3)),
+                           dtype=torch.float32, device="cuda")
+    dyn = fused.pack_dyn(x0, useq)
+    t0 = time.perf_counter()
+    zs_k, st_k = pm.pm_merge(pm.pm_fused_solve(fused.consts, dyn, k, tau,
+                                               z=z_big))
+    zs_p, st_p = pm.merge_plain(pm.fused_solve_plain(fused.consts, dyn, k,
+                                                     tau, z=z_big))
+    wn = {"kernel": (fused.unfold_wnoise(zs_k) / st_k[1]).double(),
+          "plain": (fused.unfold_wnoise(zs_p) / st_p[1]).double()}
+    stats = {"kernel": st_k, "plain": st_p}
+    model64 = get_model({"type": "point_mass", "mass": MASS}, dt=DT,
+                        state_dim=6, action_dim=3, dtype=torch.float64)
+    z64 = z_big.double().cpu().numpy()                     # [H, 3, K]
+    eps = np.ascontiguousarray(np.einsum("ij,tjk->ktj", UPSILON * SIGMA,
+                                         z64))
+    args = (model64.A.detach().numpy(),
+            model64.B.detach().numpy() / MASS, np.zeros(6),
+            useq.double().cpu().numpy(), eps, np.diag(Q), np.asarray(GOAL),
+            np.linalg.inv(SIGMA))
+    costs = native.pm_rollout(*args, lam=LAM, gamma=GAMMA, upsilon=UPSILON)
+    wn_ref, st_ref = native.update(costs, eps, LAM)
+    native_s = time.perf_counter() - t0
+    ref_stats = {"cost_min": st_ref["beta"], "cost_max": st_ref["cost_max"],
+                 "cost_mean": st_ref["cost_mean"]}
+    scale = float(np.abs(wn_ref).max())
+    dist = {}
+    for side in ("kernel", "plain"):
+        st = stats[side].double().cpu().numpy()
+        got = {"cost_min": st[2], "cost_max": st[3], "cost_mean": st[4] / k}
+        dist[side] = {
+            "wnoise": float(np.abs(wn[side].cpu().numpy() - wn_ref).max())
+            / scale,
+            **{name: abs(got[name] - v) / abs(v)
+               for name, v in ref_stats.items()}}
+    ok = {name: bool(dist["kernel"][name]
+                     <= NATIVE_SHARE * dist["plain"][name]
+                     or (name != "wnoise"
+                         and dist["kernel"][name] <= NATIVE_STAT_FLOOR))
+          for name in dist["kernel"]}
+    out = {"K": k, "H": tau, "distance": dist, "ok": ok,
+           "share": NATIVE_SHARE, "stat_floor": NATIVE_STAT_FLOOR,
+           "max_abs_wnoise_f64": scale, "f64_cost_stats": ref_stats,
+           "native_library": native.library_path().name,
+           "seconds": native_s}
+    emit("native_golden", **out)
+    if not all(ok.values()):
+        raise AssertionError(f"kernel farther from the f64 core than "
+                             f"{NATIVE_SHARE} x the plain path: {out}")
+    return out
+
+
+def roofline_phase(_build, pm, fused, dyn, smi: str) -> dict:
+    """The card's ceilings from the microbenchmarks of csrc/roofline.cu
+    (``roofline.measure_ceilings``) beside the datasheet peaks the kernel
+    table's bounds use; a measured FMA or HBM rate above CEILING_SHARE of
+    its peak fails (a broken microbenchmark). The headline solve's own
+    device ms (``pm_fused_solve``, the work ``pm_work`` counts: no merge,
+    no glue) classified against them, beside its datasheet ``bound_ms``
+    (the bound that governs), and the f32 operations a normal costs at
+    the measured pair rate (against OPS_PER_NORMAL)."""
+    from mppi_tf_tpu_torch import roofline
+
+    t0 = time.perf_counter()
+    ceil = roofline.measure_ceilings()
+    seconds = time.perf_counter() - t0
+    regs = [r for r in _build.ptxas_report() if "roofline" in r["kernel"]]
+    k, tau, n_z = fused.k, fused.tau, fused.tau * fused.adim
+    solve_ms = device_ms(lambda: pm.pm_fused_solve(fused.consts, dyn, k, tau,
+                                                   seed=1, solve=1))
+    row = roofline.classify(roofline.pm_work(fused), ceil, solve_ms)
+    datasheet_ms, _by = bound_ms(
+        4.0 * dyn.numel() + 4.0 * -(-k // pm.BLOCK) * (pm.STATS + n_z),
+        solve_ops(fused.consts, k, tau, prng=True))
+    share = {"fma_of_peak": ceil["vpu_flops"] / PEAK_OPS,
+             "hbm_of_peak": ceil["hbm_bytes_per_s"] / PEAK_BYTES}
+    out = {"ceilings": ceil, "datasheet": {"f32_flops": PEAK_OPS,
+                                           "hbm_bytes_per_s": PEAK_BYTES},
+           **share, "share_gate": CEILING_SHARE, "seconds": seconds,
+           "microbenchmark_ptxas": regs,
+           "headline_solve_device_ms": solve_ms,
+           "headline_classify": row, "pct_of_bound": row["pct_of_bound"],
+           "headline_bound_ms": datasheet_ms,
+           "pct_of_datasheet_bound": datasheet_ms / solve_ms,
+           "ops_per_normal": OPS_PER_NORMAL,
+           "ops_per_normal_at_pair_ceiling":
+               PEAK_OPS / (2.0 * ceil["bm_pairs_per_s"])}
+    emit("roofline", card=smi, **out)
+    if not all(v <= CEILING_SHARE for v in share.values()):
+        raise AssertionError(f"a measured ceiling above {CEILING_SHARE} x "
+                             f"its peak: {share}")
+    return out
+
+
+def sweep_phase(pm, workdir: str) -> dict:
+    """``sweep.main`` over lambda in {0.5, 1.0} on the bundled point-mass
+    configs, SWEEP_STEPS each, on the card: two records with finite costs,
+    each combo's controller on the kernels (its kernel_path, and one
+    launch of pm_fused_solve and pm_merge a step)."""
+    from mppi_tf_tpu_torch import sweep
+    from mppi_tf_tpu_torch.envs import runner
+
+    paths, run = [], runner.run_experiment
+
+    def recorded(*a, **kw):
+        result = run(*a, **kw)
+        paths.append(result["controller"].kernel_path)
+        return result
+
+    out_path = os.path.join(workdir, "sweep_results.jsonl")
+    runner.run_experiment = recorded
+    pm.reset_launch_counts()
+    try:
+        rc = sweep.main(["--config", "envs/point_mass", "--task",
+                         "tasks/static_cost", "--model",
+                         "models/point_mass_model", "--set",
+                         "lambda=0.5,1.0", "-s", str(SWEEP_STEPS), "--out",
+                         out_path])
+    finally:
+        runner.run_experiment = run
+    counts = dict(pm.launch_counts)
+    with open(out_path) as f:
+        records = [json.loads(line) for line in f]
+    finite = all(np.isfinite([r["final_cost"], r["mean_cost"]]).all()
+                 for r in records)
+    out = {"rc": rc, "records": records, "kernel_paths": paths,
+           "launches": counts}
+    emit("sweep", **out)
+    if not (rc == 0 and len(records) == 2 and finite
+            and paths == ["cuda", "cuda"]
+            and counts["pm_fused_solve"] == 2 * SWEEP_STEPS
+            and counts["pm_merge"] == 2 * SWEEP_STEPS):
+        raise AssertionError(f"sweep: {out}")
+    return out
+
+
+def library_randn(shapes: dict) -> dict:
+    """The PyTorch call that computes the noise dump's function, a fill of
+    [H, adim, K] with standard normals (another stream, the same job),
+    timed as the kernels are (kernel_time): {row: ms, device ms}."""
+    out = {}
+    for row, (shape, dtype) in shapes.items():
+        t = kernel_time(lambda: torch.randn(shape, dtype=dtype,
+                                            device="cuda"),
+                        lambda: None, reps=200)
+        out[row] = {"ms": t["ms"], "device_ms": t["device_ms"],
+                    "shape": list(shape), "dtype": str(dtype)}
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -4941,6 +5161,8 @@ def main() -> int:
     z_big = torch.as_tensor(rng.standard_normal((H, 3, K), np.float32),
                             device="cuda")
     main_chk = check_solve(pm, fused, z_big, "K100000_H50")
+    # the same solve against the native f64 golden model (item 15)
+    native_golden_phase(pm, fused, z_big)
     small = pm.FusedPointMassMPPI(model, cost, k=700, tau=7, lam=LAM,
                                   upsilon=UPSILON, sigma=SIGMA)
     z_small = torch.as_tensor(rng.standard_normal((7, 3, 700), np.float32),
@@ -4992,8 +5214,8 @@ def main() -> int:
     if not err < GOAL_TOL:
         raise AssertionError(f"goal error {err} >= {GOAL_TOL} (cuda path)")
     main_counts = counts
-    emit("profile", kernel_path=ctrl.kernel_path, card=smi,
-         **profile_steps(ctrl))
+    prof_main = profile_steps(ctrl)
+    emit("profile", kernel_path=ctrl.kernel_path, card=smi, **prof_main)
     ctrl_t, err_t, step_ms_t, _ = closed_loop("torch")
     emit("closed_loop", kernel="torch", kernel_path=ctrl_t.kernel_path, K=K,
          H=H, steps=LOOP_STEPS, goal_err=err_t,
@@ -5650,6 +5872,15 @@ def main() -> int:
     # ---- DMD and the on-device row over a local mesh, ranks on the card, --
     # ---- a one-rank NCCL group, the dp x tp step, the fleet mesh ---------
     sharded = sharded_phase(pm, smi, on_device)
+
+    # ---- 27f. serving and tooling: the served headline loop and m-step ----
+    # ---- replies, the coalesced fleet, the card's ceilings and the --------
+    # ---- headline's roofline share, a sweep (native_golden: section 3) ----
+    serve = serve_phase(pm, smi)
+    serve_fleet = serve_fleet_phase(pm, smi)
+    roofline_phase(_build, pm, fused, dyn, smi)
+    with tempfile.TemporaryDirectory() as workdir:
+        sweep_phase(pm, workdir)
     # each kernel row's launches in the on-device runs (the profiler's
     # count by kernel name) and its largest error against the plain
     # version at those runs' shapes, from the rows that launch it
@@ -6628,8 +6859,27 @@ def main() -> int:
             "per_vehicle_ms": t["per_vehicle_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
+    # one PyTorch call computes the noise dump's function (another stream):
+    # torch.randn at the dump's shape; the serving phases' launches
+    lib_ms = library_randn({
+        "pm_noise_dump": ((H, 3, K), torch.float32),
+        "pm_noise_dump[antithetic]": ((H, 3, K), torch.float32),
+        "pm_noise_dump[bf16]": ((H, 3, K), torch.bfloat16)})
+    served = {n: serve["launches"][n] + serve["mstep"]["launches"][n]
+              for n in ("pm_fused_solve", "pm_merge")}
+    served.update({f"{n}[fleet]": serve_fleet["launches"][n]
+                   for n in ("pm_fused_solve", "pm_merge")})
     sh_launches = sharded_launches(sharded)
     for row in kernels:
+        if row["name"] in lib_ms:
+            row["library_ms"] = lib_ms[row["name"]]["ms"]
+            row["library_device_ms"] = lib_ms[row["name"]]["device_ms"]
+            row["library_call"] = (f"torch.randn({lib_ms[row['name']]['shape']}"
+                                   f", dtype={lib_ms[row['name']]['dtype']})")
+        if row["name"] in served:
+            # launched by the serve phases: the served headline loop and
+            # its m-step requests, or the coalescer's dispatches
+            row["launches_serve"] = served[row["name"]]
         if row["name"] in sh_launches:
             # launched once a shard by the sharded phase's runs
             row["launches_sharded"] = sh_launches[row["name"]]

@@ -9,8 +9,9 @@ writes metrics and config snapshots into a stamped directory under
 transitions every N steps (``learning/learner.py``) and hands it to the
 controller; ``--on-device`` runs the whole experiment in the on-device
 loop (``envs/mjx_env.py``; a ``jax:point_mass`` or analytic AUV plant, no
-``-t``). GIFs (``-g``) are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+``-t``). ``-g`` writes an animated GIF of the run, ``run.gif`` in the
+run's log directory (``-l``) or the working directory
+(``utils/plotting.py``; matplotlib and imageio on the host).
 
 Usage:
     python -m mppi_tf_tpu_torch.cli --config envs/point_mass \\
@@ -19,21 +20,17 @@ Usage:
 
 Prints one JSON line: steps, final_state, logdir, avg_solve_ms (with
 ``--on-device``, on_device_ms_per_step instead: the host-side solve timer
-never ticks), the kernel path the controller resolved to and, for the
-adaptive DMD controller (``--model models/dmd_model``), its refit count
-n_fits.
+never ticks), the kernel path the controller resolved to, with ``-g`` the
+GIF's path and, for the adaptive DMD controller (``--model
+models/dmd_model``), its refit count n_fits.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
-
-#: flags of the JAX CLI whose machinery is not ported yet
-_NOT_PORTED = (
-    ("gif", "-g/--gif: GIF plotting is not ported yet: ROADMAP item 15"),
-)
 
 
 def parse_args(argv=None):
@@ -57,7 +54,7 @@ def parse_args(argv=None):
                    help="render the simulation (the analytic plants draw "
                         "nothing)")
     p.add_argument("-g", "--gif", action="store_true",
-                   help="write an animated GIF of the run (not ported yet)")
+                   help="write an animated GIF of the run (run.gif)")
     p.add_argument("-f", "--filter", action="store_true",
                    help="Savitzky-Golay smooth the action sequence "
                         "('filter: true' in the env config)")
@@ -76,9 +73,6 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag, message in _NOT_PORTED:
-        if getattr(args, flag):
-            raise NotImplementedError(message)
 
     import torch
 
@@ -107,6 +101,13 @@ def main(argv=None):
         device="cpu" if (args.cpu or args.f64) else "cuda")
     ctrl, observer = result["controller"], result["observer"]
     timing = ctrl.timing
+    gif = None
+    if args.gif:
+        from .utils.plotting import run_to_gif
+
+        out = os.path.join(observer.get_logdir() if observer is not None
+                           else ".", "run.gif")
+        gif = run_to_gif(result["states"], out, goal=task_cfg.get("goal"))
     if observer is not None:
         observer.close()
     if "on_device_ms_per_step" in result:
@@ -121,6 +122,7 @@ def main(argv=None):
         "logdir": observer.get_logdir() if observer is not None else None,
         **speed,
         "kernel_path": ctrl.kernel_path,
+        **({"gif": gif} if args.gif else {}),
         **({"n_fits": ctrl.n_fits} if hasattr(ctrl, "n_fits") else {}),
     }))
     return 0

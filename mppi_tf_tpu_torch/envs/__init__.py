@@ -19,16 +19,17 @@ def get_env(env_cfg, render: bool = False, model_cfg=None):
     pure ``step_fn`` for the on-device loop (``DevicePointMassEnv``);
     ``analytic:auv`` (or a missing ``env`` key with a 13-dim state) the
     Fossen AUV plant, with the vehicle parameters from the env config's
-    ``plant`` sub-dict or ``model_cfg``. MuJoCo ``.xml`` scenes are not
-    ported yet (ROADMAP item 15).
+    ``plant`` sub-dict or ``model_cfg``. An ``.xml`` scene loads through
+    the MuJoCo bindings (``envs/mujoco_env.py``: the plant steps on the
+    host, as in the JAX package).
     """
     sdim = env_cfg.get("state-dim", 2)
     adim = env_cfg.get("action-dim", 1)
     name = str(env_cfg.get("env", "analytic:point_mass"))
     if name.endswith(".xml"):
-        raise NotImplementedError(
-            f"MuJoCo scene {name!r}: the MuJoCo plant is not ported yet: "
-            f"ROADMAP item 15")
+        from .mujoco_env import MujocoEnv
+
+        return MujocoEnv(name, sdim, adim, render=render)
     if name.startswith("mjx:"):
         raise ValueError(
             "the 'mjx:' plant was removed from the JAX package; use "

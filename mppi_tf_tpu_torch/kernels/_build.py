@@ -66,6 +66,14 @@ _SIGNATURES = {
     "pm_occupancy": [_I, _I, _I, _I, _I, _I, _I, _P],
     "auv_occupancy": [_I, _I, _I, _I, _I, _P],
     "nn_occupancy": [_I, _I, _I, _I, _I, _P],
+    # the ceilings' microbenchmarks (csrc/roofline.cu, roofline.py):
+    # (out, blocks, iters, ...) and the stream's (in, n4, out, blocks)
+    "roofline_threads": [],
+    "roofline_chains": [],
+    "roofline_fma": [_P, _I, _I, ctypes.c_float, _P],
+    "roofline_expf": [_P, _I, _I, _P],
+    "roofline_bm": [_P, _I, _I, _U, _P],
+    "roofline_stream": [_P, ctypes.c_longlong, _P, _I, _P],
 }
 # the bf16 builds of the sources (suffix _bf16, every kernel but pm_merge)
 # and the NN kernel's bf16-products build (suffix _bfp) take the same

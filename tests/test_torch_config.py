@@ -100,7 +100,7 @@ def test_build_model_and_cost_matches_jax(env, task, model):
     assert (pc.lam, pc.gamma, pc.upsilon) == (jc.lam, jc.gamma, jc.upsilon)
 
 
-def test_get_env_builds_and_refuses():
+def test_get_env_builds_and_refuses(tmp_path):
     env = get_env(config.default_config("envs/point_mass"))
     assert isinstance(env, PointMassEnv) and env.n_dof == 3
     rexrov2 = config.default_config("models/rexrov2")
@@ -113,8 +113,16 @@ def test_get_env_builds_and_refuses():
         get_env(uuv, model_cfg=nn_cfg)
     with pytest.raises(ValueError, match="vehicle parameters"):
         get_env(uuv)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        get_env({"env": "../envs/point_mass3d.xml"})
+    # an .xml scene is the MuJoCo plant (item 15), here from the generated
+    # MJCF of the reference's envs/point_mass3d.xml
+    from mppi_tf_tpu_torch.envs.mujoco_env import MujocoEnv, point_mass_xml
+
+    scene = tmp_path / "point_mass3d.xml"
+    scene.write_text(point_mass_xml(3, goal=(0.4, -0.2, 0.7)))
+    mj = get_env({"env": str(scene), "state-dim": 6, "action-dim": 3})
+    assert isinstance(mj, MujocoEnv) and (mj.s_dim, mj.a_dim) == (6, 3)
+    np.testing.assert_array_equal(mj.getGoal().ravel(),
+                                  [0.4, 0.0, -0.2, 0.0, 0.7, 0.0])
     jax_env = get_env({"env": "jax:point_mass", "action-dim": 3})
     assert isinstance(jax_env, DevicePointMassEnv) and jax_env.n_dof == 3
     with pytest.raises(ValueError, match="mjx"):
@@ -215,18 +223,35 @@ def test_cli_requires_the_three_configs(capsys):
 
 
 @pytest.mark.parametrize("flag,error,item", [
-    (["-l", "-g"], NotImplementedError, "item 15"),
-    (["-g"], NotImplementedError, "item 15"),
+    (["-l", "-g"], None, "run.gif"),
+    (["-g"], None, "run.gif"),
     (["-t", "5", "--on-device"], ValueError, "train_every"),
     (["--on-device"], ValueError, "step_fn")])
-def test_cli_unported_flags_raise(flag, error, item):
-    """-g is not ported (item 15); --on-device is (item 13) and refuses
-    what the JAX CLI refuses: -t with it, and a host plant
-    (envs/point_mass is the analytic one)."""
-    with pytest.raises(error, match=item):
-        cli.main(["--config", "envs/point_mass", "--task",
-                  "tasks/static_cost", "--model", "models/point_mass_model",
-                  "--cpu", *flag])
+def test_cli_unported_flags_raise(flag, error, item, tmp_path, monkeypatch,
+                                  capsys):
+    """-g is ported (item 15): it writes the run's GIF, run.gif, in the
+    run's log directory with -l and in the working directory without, as
+    the JAX CLI does; --on-device is ported (item 13) and refuses what the
+    JAX CLI refuses: -t with it, and a host plant (envs/point_mass is the
+    analytic one)."""
+    if error is not None:
+        with pytest.raises(error, match=item):
+            cli.main(["--config", "envs/point_mass", "--task",
+                      "tasks/static_cost", "--model",
+                      "models/point_mass_model", "--cpu", *flag])
+        return
+    monkeypatch.chdir(tmp_path)
+    env = _small_point_mass(tmp_path, k=64, tau=10)
+    out = _run(cli.main, ["--config", env, "--task", "tasks/static_cost",
+                          "--model", "models/point_mass_model", "-s", "4",
+                          "--cpu", "--log-dir", str(tmp_path / "logs"),
+                          *flag], capsys)
+    gif = Path(out["gif"])
+    assert gif.name == item and gif.stat().st_size > 1000
+    if "-l" in flag:
+        assert gif.parent == Path(out["logdir"])
+    else:
+        assert gif.resolve() == tmp_path / item and out["logdir"] is None
 
 
 @pytest.mark.parametrize("kw,item", [

@@ -1937,3 +1937,56 @@ def test_sharded_loop_graph_replays_its_eager_periods(cuda_device):
     s_e, a_e = run.eager(np.zeros(6), step0=0)
     assert run.nodes["pm_fused_solve"] == 4 and run.nodes["pm_merge"] == 4
     assert torch.equal(s_g, s_e) and torch.equal(a_g, a_e)
+
+
+def test_roofline_microbenchmarks_within_the_peaks(cuda_device):
+    """The ceilings' microbenchmarks (csrc/roofline.cu) build without a
+    spill, launch, and read rates no higher than 1.05 x the datasheet
+    peaks (above that the microbenchmark is broken)."""
+    from mppi_tf_tpu_torch import roofline
+
+    ceil = roofline.measure_ceilings(cuda_device, reps=1)
+    assert ceil["backend"] == "cuda"
+    for key in ("vpu_flops", "transcendental_per_s", "bm_pairs_per_s",
+                "hbm_bytes_per_s"):
+        assert np.isfinite(ceil[key]) and ceil[key] > 0, key
+    assert ceil["vpu_flops"] <= 1.05 * roofline.PEAK_OPS
+    assert ceil["hbm_bytes_per_s"] <= 1.05 * roofline.PEAK_BYTES
+    rows = [r for r in _build.ptxas_report() if "roofline" in r["kernel"]]
+    assert len(rows) == 4
+    assert not any(r.get("spill_stores") or r.get("spill_loads")
+                   for r in rows)
+
+
+def test_served_loop_on_the_card(cuda_device):
+    """Five steps of a served point mass on the kernels: info names the
+    kernel path, each request launches the solve and the merge once, and
+    the m-step reply advances the stored plan by m."""
+    from mppi_tf_tpu_torch.serve import ControlClient, ControlServer
+
+    model, cost = _modules(cuda_device)
+    ctrl = MPPI(model, cost, k=4096, tau=20, lam=LAM, upsilon=UPS,
+                sigma=SIGMA, kernel="cuda", device=cuda_device)
+    server = ControlServer(ctrl)
+    host, port = server.serve_background()
+    client = ControlClient(host, port)
+    try:
+        assert client.info()["kernel"] == "cuda"
+        pm.reset_launch_counts()
+        x = np.zeros(6)
+        for _ in range(5):
+            u = client.next(x)
+            assert u.shape == (3,) and np.all(np.isfinite(u))
+            x = model.predict(torch.as_tensor(x, dtype=torch.float32,
+                                              device=cuda_device),
+                              torch.as_tensor(u, dtype=torch.float32,
+                                              device=cuda_device)
+                              ).detach().cpu().numpy()
+        assert pm.launch_counts["pm_fused_solve"] == 5
+        assert pm.launch_counts["pm_merge"] == 5
+        plan = client.next_plan(x, m=4)
+        assert plan.shape == (4, 3)
+        assert torch.equal(ctrl.useq[-4:], torch.zeros_like(ctrl.useq[-4:]))
+    finally:
+        client.close()
+        server.close()

@@ -49,7 +49,10 @@ def test_import_leaves_no_jax_modules():
         " mppi_tf_tpu_torch.parallel.launch,"
         " mppi_tf_tpu_torch.parallel.cluster,"
         " mppi_tf_tpu_torch.parallel._mp_worker,"
-        " mppi_tf_tpu_torch.parallel.train\n"
+        " mppi_tf_tpu_torch.parallel.train, mppi_tf_tpu_torch.serve,"
+        " mppi_tf_tpu_torch.sweep, mppi_tf_tpu_torch.roofline,"
+        " mppi_tf_tpu_torch.native.core, mppi_tf_tpu_torch.envs.mujoco_env,"
+        " mppi_tf_tpu_torch.utils.plotting\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'mppi_tf_tpu', 'triton'))\n"
         "print(','.join(bad))\n")
@@ -132,6 +135,34 @@ def test_sources_cover_the_on_device_loop():
     assert {"mppi_tf_tpu_torch/envs/mjx_env.py",
             "mppi_tf_tpu_torch/envs/__init__.py",
             "mppi_tf_tpu_torch/envs/runner.py"} <= names
+
+
+def test_sources_cover_serving_and_tooling():
+    names = {p.relative_to(REPO).as_posix() for p in _sources()}
+    assert {"mppi_tf_tpu_torch/serve.py", "mppi_tf_tpu_torch/sweep.py",
+            "mppi_tf_tpu_torch/roofline.py",
+            "mppi_tf_tpu_torch/native/core.py",
+            "mppi_tf_tpu_torch/envs/mujoco_env.py",
+            "mppi_tf_tpu_torch/utils/plotting.py"} <= names
+
+
+def test_native_core_is_the_ports_own_source():
+    """The golden model builds the port's copy of the C++ source, in the
+    port's build directory, and names no path of the JAX package."""
+    text = (PORT / "native" / "core.py").read_text()
+    assert "mppi_tf_tpu/native" not in text
+    assert (PORT / "native" / "src" / "mppi_core.cpp").exists()
+
+
+def test_no_refusal_names_a_roadmap_item():
+    """Every module of the JAX package has its counterpart: no
+    NotImplementedError of the port cites a ROADMAP item."""
+    for path in sorted(PORT.rglob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if (isinstance(node, ast.Raise) and node.exc is not None
+                    and "NotImplementedError" in ast.unparse(node.exc)):
+                assert "item" not in ast.unparse(node.exc), (
+                    f"{path.name}:{node.lineno}")
 
 
 def test_native_datastore_is_the_ports_own_source():
