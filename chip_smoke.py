@@ -131,12 +131,15 @@ instantiation that needs more than one wave at K=100,000, or on an f32
 or bf16-products NN instantiation without HMMA in its SASS.
 With ``--parent DIR`` (a checkout of the parent commit) it also builds
 that tree's library and holds this tree's kernels against it
-(``parent_bits``: phase B, f32 and bf16, bit for bit; pm_merge against
+(``parent_bits``: the noise dump, f32 and bf16, plain and antithetic, at
+PARENT_DUMP_SHAPES and with the solve index on the device, bit for bit;
+phase B and every solve and costs kernel bit for bit; pm_merge against
 an f64 merge of the same rows, m and the cost min / max exact and the
 sums within MERGE_L1_TOL of each column's l1 mass, the parent's merge
-beside, two merges equal; every solve, costs and noise-dump kernel bit
-for bit), times the two in turns (``parent_times``, beside an empty
-kernel's launch floor) and the wall time of MPPI.next in the headline
+beside, two merges equal), times the two in turns (``parent_times``,
+beside an empty kernel's launch floor; it fails unless the dump beats
+the parent's at the headline shape and stays within DUMP_LOG_SLACK_MS of
+it at the log shape) and the wall time of MPPI.next in the headline
 point mass, ``point_mass_h100`` and the AUV dive on either library in
 turns (``parent_loops``). It
 times every kernel, each noise variant beside the same kernel without
@@ -359,7 +362,8 @@ SCHED_WINDOW, SCHED_MEAN_TOL = 100, 0.2
 # spill is the gate and the f32 kernels' checks against their plain
 # versions hold their arithmetic. The AUV's are its kDense instantiations
 # (the fourth template argument 0, added with kDiag), the point mass's its
-# dense ones (the sixth, STRUCT 0, added with kIntegrator)
+# dense ones (the sixth, STRUCT 0, added with kIntegrator); the noise
+# dump's are those of its redesign (<CH>: one and two chains a pass)
 BASE_REGISTERS = {
     **{("auv_fused_solve_kernel", (*a, 0)): r for a, r in (
         ((1, 0, 0), 170), ((1, 0, 1), 163), ((1, 0, 2), 164),
@@ -380,7 +384,8 @@ BASE_REGISTERS = {
         ((6, 3, 0, 0, 0), 48), ((6, 3, 0, 0, 1), 99), ((6, 3, 1, 0, 0), 48),
         ((6, 3, 1, 0, 1), 98))},
     ("pm_merge_kernel", ()): 35,
-    ("pm_noise_dump_kernel", ()): 26,
+    ("pm_noise_dump_kernel", (1,)): 40,
+    ("pm_noise_dump_kernel", (2,)): 40,
 }
 # both noise options, as MPPI keywords (the AUV dive, the NN dive) and as
 # solve-object keywords
@@ -584,22 +589,28 @@ def device_ms(fn, reps: int = 50, rx=None) -> float:
     ``fn`` launches), from ``torch.profiler`` over ``reps`` calls: without
     the host's launch cost, which back-to-back CUDA-event timing includes
     where a kernel is shorter than its launch. The mean is over the
-    launches the profiler recorded, which may be fewer than ``reps``."""
+    launches the profiler recorded, which may be fewer than ``reps``; a
+    window in which it recorded none of them is profiled again, up to
+    OD_PROFILE_TRIES windows (the profiler loses records, PROFILE_LOSS),
+    and after that reads 0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA
-            and (rx is None or re.search(rx, e.key))]
-    return (sum(e.self_device_time_total for e in kern)
-            / max(sum(e.count for e in kern), 1) / 1e3)
+    for _ in range(OD_PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and (rx is None or re.search(rx, e.key))]
+        count = sum(e.count for e in kern)
+        if count:
+            return sum(e.self_device_time_total for e in kern) / count / 1e3
+    return 0.0
 
 
 def close(a: torch.Tensor, b: torch.Tensor, rtol: float, atol: float):
@@ -883,17 +894,19 @@ def dense_constants(params: dict, sigma, task: dict):
 
 #: the dense-constant vehicle's upsilon: the z-quadratic runs
 DENSE_UPSILON = 1.2
-#: its end-to-end case at K=700, H=7 (the kDense solve's wnoise against
-#: the plain solve): a sigma a hundredth of the small cases' and lambda 50,
-#: so that the softmax is not degenerate. The plain costs of this case on
-#: the CPU give an ESS of ~634 of 700 at rk 1, 2 and 4 (the small cases':
-#: ~2-3, where a cost's last ulp moves the wnoise past 1e-3); gated at
-#: DENSE_E2E_MIN_ESS. At lambda 5 (ESS 144-204) the fused rows stood 1e-5
-#: to 2.5e-5 (z units) from block_partials of the costs kernel's costs,
-#: past that check's atol of 1e-5: kDense's fused and costs builds round
-#: some per-sample costs differently (PERF.md §6, ROADMAP §3)
+#: its end-to-end cases at K=700, H=7 (the kDense solve's wnoise against
+#: the plain solve): a sigma a hundredth of the small cases' and lambda 50
+#: and 5, so that the softmax is not degenerate. This case's costs give an
+#: ESS of ~634 of 700 at lambda 50 and ~204 at lambda 5, at rk 1, 2 and 4
+#: (the small cases': ~2-3, where a cost's last ulp moves the wnoise past
+#: 1e-3); gated at DENSE_E2E_MIN_ESS. check_auv holds the fused rows to
+#: block_partials of the costs kernel's costs at an atol of 1e-5 (z
+#: units): the two modes give every sample the same cost and exponent bits
+#: (mode_bits), and block_partials divides by lambda as the kernels do (on
+#: the card a Python-scalar divisor is a product with its rounded
+#: reciprocal, an ulp off for ~1 exponent in 5: 1e-5 to 2.5e-5 at lambda 5)
 DENSE_E2E_SIGMA = np.diag([0.4] * 3 + [0.05] * 3)
-DENSE_E2E_LAM, DENSE_E2E_MIN_ESS = 50.0, 50.0
+DENSE_E2E_LAMS, DENSE_E2E_MIN_ESS = (50.0, 5.0), 50.0
 
 
 def auv_modules(device, task, sigma, lam=AUV_LAM, rk=2, dense=False,
@@ -1034,6 +1047,35 @@ def check_auv(kern, pm, fused, z, label: str, useq_scale: float,
     if not ok:
         raise AssertionError(f"{kern.phase} kernel disagrees with its plain "
                              f"version ({label}): {out}")
+    return out
+
+
+def mode_bits(auv, fused, dyn, z, label: str) -> dict:
+    """The AUV fused kernel's per-sample costs and exponents against the
+    costs kernel's, bit for bit, on injected z: each sample's z repeated
+    over a block of 256 (a fused solve of k * 256 samples), so that block
+    b's cost min and max are sample b's cost in the fused mode and its m_b
+    is that sample's -cost / lam; fails on any difference."""
+    k, tau, c = fused.k, fused.tau, fused.consts
+    costs, _ = auv.auv_fused_costs(c, dyn, k, tau, z=z)
+    rows = auv.auv_fused_solve(c, dyn, k * 256, tau,
+                               z=z.repeat_interleave(256, dim=2).contiguous())
+    zarg = -costs / torch.as_tensor(c.lam, dtype=costs.dtype,
+                                    device=costs.device)
+    out = {"k": k, "structure": c.structure, "lam": c.lam,
+           "cost_min_differ": int((rows[:, 2] != costs).sum().item()),
+           "cost_max_differ": int((rows[:, 3] != costs).sum().item()),
+           "exponent_differ": int((rows[:, 0] != zarg).sum().item()),
+           # not gated: PyTorch's CUDA division by a Python scalar (a
+           # product with its rounded reciprocal) against the kernel's
+           "scalar_division_differ": int((rows[:, 0] != -costs / c.lam
+                                          ).sum().item())}
+    out["ok"] = not (out["cost_min_differ"] or out["cost_max_differ"]
+                     or out["exponent_differ"])
+    emit(f"auv_mode_bits_{label}", **out)
+    if not out["ok"]:
+        raise AssertionError(f"AUV fused and costs modes differ ({label}): "
+                             f"{out}")
     return out
 
 
@@ -2326,8 +2368,18 @@ def pm_dyn(f, rng) -> torch.Tensor:
                         dtype=torch.float32, device="cuda"))
 
 
-#: parent_phase's subject: phase B and the cross-block merge
-PARENT_SUBJECT = ("mppi_weights", "pm_merge")
+#: parent_phase's subject: the noise dump, redesigned for Hopper
+PARENT_SUBJECT = ("pm_noise_dump",)
+#: the dump's shapes in parent_phase (k, tau, adim, half): K=4,097 (rows
+#: off the 16-byte grid) at adim 3 and at adim 6 with an odd half, the
+#: headline point mass plain and antithetic, the AUV flagship, and log
+#: mode's [H, 3, min(512, K)] (MPPI.next's noise_sample on a logged step)
+PARENT_DUMP_SHAPES = ((4097, 7, 3, 0), (4097, 7, 6, 2049), (K, H, 3, 0),
+                      (K, H, 3, K // 2), (AUV_K, AUV_H, 6, 0),
+                      (512, H, 3, 0))
+#: the dump against the parent in turns: faster at the headline shape,
+#: and at most this many ms slower at the log shape
+DUMP_LOG_SLACK_MS = 1e-3
 #: pm_merge against merge_plain in f64 on the same rows: l, the cost sum
 #: and each zsum[n] within this share of the column's l1 mass
 #: sum_b f_b |x_b| (zsum entries cancel towards 0, so a bound relative to
@@ -2508,20 +2560,24 @@ def parent_cases(pm, auv, nnk) -> list:
 
 def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
     """``--parent``: this tree's kernels against the parent's library on the
-    same inputs. The subject: phase B (mppi_weights, f32 and bf16, adim 3
-    and 6, plain and antithetic, injected z and Philox, K=700 and 4,097 at
-    H=7 and the four flagship shapes of WEIGHT_FLAGSHIPS), its rows bit
-    for bit (the grouped regeneration sums in the parent's order); and
-    pm_merge on the rows of every control's solve and costs kernel, the
-    phase-B rows and synthetic rows (MERGE_NB x MERGE_NZ), each against
-    merge_plain in f64 (merge_gate: m, cost min and max exact, the sums
-    within MERGE_L1_TOL of their columns' l1 mass), the parent's merge of
-    the same rows (run on its own library) printed beside, and two merges
-    of the same rows equal bit for bit. The controls, every output bit for
-    bit: the solve and costs kernels of parent_cases (f32 and bf16, point
-    mass, AUV, NN) and the noise dump (f32, bf16, antithetic). Then the
-    subject timed in turns (parent, this, this, parent) at each flagship
-    shape, and an empty kernel's device time, the launch floor."""
+    same inputs. The subject: the noise dump (f32 and bf16, plain and
+    antithetic, at every shape of PARENT_DUMP_SHAPES, and the solve index
+    read from the device), bit for bit. The controls: phase B
+    (mppi_weights, f32 and bf16, adim 3 and 6, plain and antithetic,
+    injected z and Philox, K=700 and 4,097 at H=7 and the four flagship
+    shapes of WEIGHT_FLAGSHIPS), its rows bit for bit; pm_merge on the
+    rows of every control's solve and costs kernel, the phase-B rows and
+    synthetic rows (MERGE_NB x MERGE_NZ), each against merge_plain in f64
+    (merge_gate: m, cost min and max exact, the sums within MERGE_L1_TOL
+    of their columns' l1 mass), the parent's merge of the same rows (run
+    on its own library) printed beside, and two merges of the same rows
+    equal bit for bit; the solve and costs kernels of parent_cases (f32
+    and bf16, point mass, AUV, NN), every output bit for bit. Then the
+    dump timed in turns (parent, this, this, parent) at each of its
+    shapes, beside phase B, the flagship controls and the merge, and an
+    empty kernel's device time, the launch floor; it fails unless the
+    dump is faster than the parent's at the headline shape and within
+    DUMP_LOG_SLACK_MS of it at the log shape."""
     rng = np.random.default_rng(21)
     cases = parent_cases(pm, auv, nnk)
     res, rows_for_merge = {}, {}
@@ -2566,18 +2622,30 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
                 rows_for_merge[f"{label}_stats_rows"] = got[1]
         res[label] = out
         del z
-    for cd in ("float32", "bfloat16"):
-        for k, tau, adim, half in ((4097, 7, 3, 0), (4097, 7, 6, 2049),
-                                   (K, H, 3, 0), (AUV_K, AUV_H, 6, 0)):
-            cmp, _ = compare(lambda: (pm.pm_noise_dump(
-                9, 2, k, tau, adim, "cuda", half=half, compute_dtype=cd),))
-            res[f"pm_noise_dump_{cd}_K{k}_adim{adim}_half{half}"] = {
-                "dump": cmp[0]}
     control_diffs = {label: {o: v for o, v in out.items() if v is not True}
                      for label, out in res.items()}
     control_diffs = {label: d for label, d in control_diffs.items() if d}
 
-    # ---- the subject: phase B, bit for bit --------------------------------
+    # ---- the subject: the noise dump, bit for bit -------------------------
+    dres = {}
+    for cd in ("float32", "bfloat16"):
+        for k, tau, adim, half in PARENT_DUMP_SHAPES:
+            cmp, _ = compare(lambda: (pm.pm_noise_dump(
+                9, 2, k, tau, adim, "cuda", half=half, compute_dtype=cd),))
+            dres[f"pm_noise_dump_{cd}_K{k}_H{tau}_adim{adim}_half{half}"] = (
+                cmp[0])
+        # the solve index read from the device, past 2^32, and by value
+        dev = torch.tensor([(1 << 32) + 5], dtype=torch.int64, device="cuda")
+        cmp, got = compare(lambda: (pm.pm_noise_dump(
+            9, dev, 4097, 7, 6, "cuda", compute_dtype=cd),))
+        dres[f"pm_noise_dump_{cd}_device_solve"] = cmp[0]
+        dres[f"pm_noise_dump_{cd}_device_solve_by_value"] = (
+            True if torch.equal(got[0], pm.pm_noise_dump(
+                9, (1 << 32) + 5, 4097, 7, 6, "cuda", compute_dtype=cd))
+            else "differs")
+    d_diffs = {label: v for label, v in dres.items() if v is not True}
+
+    # ---- a control: phase B, bit for bit ----------------------------------
     wres, w_inputs = {}, {}
     shapes = [(f"K{k}_adim{adim}", k, 7, adim) for k in (700, 4097)
               for adim in (3, 6)] + list(WEIGHT_FLAGSHIPS)
@@ -2624,9 +2692,12 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
     worst = max(mres.values(), key=lambda r: r["rel_l1"])
     worst_p = max(mres.values(), key=lambda r: r["parent"]["rel_l1"])
     emit("parent_bits", subject=list(PARENT_SUBJECT),
+         dump_cases=sorted(dres), dump_all_equal=not d_diffs,
+         dump_diffs=d_diffs,
          control_cases=sorted(res), weights_cases=sorted(wres),
          merge_cases=len(mres),
-         outputs_compared=sum(len(o) for o in res.values()) + len(wres),
+         outputs_compared=(sum(len(o) for o in res.values()) + len(wres)
+                           + len(dres)),
          controls_all_equal=not control_diffs,
          weights_all_equal=not w_diffs,
          merge_all_ok=not merge_bad, merge_l1_tol=MERGE_L1_TOL,
@@ -2642,14 +2713,16 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
          control_diffs=control_diffs, weights_diffs=w_diffs,
          merge_bad=merge_bad,
          note="this tree's kernels against the parent commit's library on "
-         "the same inputs: the controls (every solve and costs kernel, the "
-         "noise dump) and phase B torch.equal; pm_merge against merge_plain "
+         "the same inputs: the subject (the noise dump), the controls "
+         "(every solve and costs kernel) and phase B torch.equal; pm_merge "
+         "against merge_plain "
          "in f64 (m, cost min / max exact, sums within merge_l1_tol of the "
          "column's l1 mass; merge_rel_l1: [this, parent] on the synthetic "
          "rows), two merges of the same rows equal bit for bit")
-    if control_diffs or w_diffs or merge_bad:
-        raise AssertionError(f"parent_bits: controls {control_diffs}, "
-                             f"weights {w_diffs}, merge {merge_bad}")
+    if d_diffs or control_diffs or w_diffs or merge_bad:
+        raise AssertionError(f"parent_bits: dump {d_diffs}, controls "
+                             f"{control_diffs}, weights {w_diffs}, merge "
+                             f"{merge_bad}")
 
     # ---- times in turns, the launch floor ----------------------------------
     stream = torch.cuda.current_stream().cuda_stream
@@ -2668,6 +2741,11 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
                 "device_vs_parent": (d[1] + d[2]) / (d[0] + d[3])}
 
     times = {}
+    for k, tau, adim, half in PARENT_DUMP_SHAPES:
+        for cd in ("float32", "bfloat16"):
+            times[f"pm_noise_dump_{cd}_K{k}_H{tau}_adim{adim}_half{half}"] = (
+                turns(lambda: pm.pm_noise_dump(1, 1, k, tau, adim, "cuda",
+                                               half=half, compute_dtype=cd)))
     for name, k, tau, adim in WEIGHT_FLAGSHIPS:
         nrm, costs, _, _ = w_inputs[name]
         for cd, anti in (("float32", False), ("float32", True),
@@ -2701,12 +2779,24 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
             lambda: pm.pm_merge(rows))
     slower = sorted(key for key, t in times.items()
                     if t["device_vs_parent"] > 1.0)
+    head = times[f"pm_noise_dump_float32_K{K}_H{H}_adim3_half0"]
+    log = times[f"pm_noise_dump_float32_K512_H{H}_adim3_half0"]
+    log_excess = (sum(log["device_ms"]) - sum(log["parent_device_ms"])) / 2
+    dump_gate = {"headline_device_vs_parent": head["device_vs_parent"],
+                 "log_device_ms_over_parent": log_excess,
+                 "log_slack_ms": DUMP_LOG_SLACK_MS,
+                 "ok": (head["device_vs_parent"] < 1.0
+                        and log_excess <= DUMP_LOG_SLACK_MS)}
     emit("parent_times", card=smi, **times, empty_kernel_device_ms=empty,
-         slower_than_parent=slower,
+         slower_than_parent=slower, dump_gate=dump_gate,
          note="CUDA events over 100 launches and profiler device time, "
               "each in turns (parent, this, this, parent); *_vs_parent: "
               "this tree's ms over the parent's; empty_kernel_device_ms: "
-              "pm_empty, the launch floor")
+              "pm_empty, the launch floor; dump_gate: the dump faster than "
+              "the parent's at the headline shape, within log_slack_ms of "
+              "it at the log shape")
+    if not dump_gate["ok"]:
+        raise AssertionError(f"parent_times: the noise dump {dump_gate}")
 
 
 def parent_loops(_build, plib, smi: str) -> None:
@@ -5333,14 +5423,25 @@ def main() -> int:
                       f"dense_{cost_kind}_K700_H7_rk{rk}", useq_scale=5.0,
                       x0=([4.0, 0, -3.0, 0, 0, 0, 1.0] + [0.0] * 6
                           if cost_kind == "elipse3d" else x_dive))
-        # the kDense solve end to end, on a softmax that is not degenerate
-        sm = auv_fused(700, 7, rk=rk, sigma=DENSE_E2E_SIGMA, dense=True,
-                       lam=DENSE_E2E_LAM)
-        e2e = check_auv(auv_k, pm, sm, z_s, f"dense_e2e_K700_H7_rk{rk}",
-                        useq_scale=5.0, x0=x_dive, end_to_end=True)
-        if not e2e["ess"] >= DENSE_E2E_MIN_ESS:
-            raise AssertionError(f"dense end-to-end case rk{rk}: ESS "
-                                 f"{e2e['ess']} < {DENSE_E2E_MIN_ESS}")
+        # the kDense solve end to end, on a softmax that is not degenerate,
+        # and both structures' fused costs and exponents against the costs
+        # mode's, bit for bit
+        for lam in DENSE_E2E_LAMS:
+            tag = "" if lam == DENSE_E2E_LAMS[0] else f"lam{lam:g}_"
+            sm = auv_fused(700, 7, rk=rk, sigma=DENSE_E2E_SIGMA, dense=True,
+                           lam=lam)
+            e2e = check_auv(auv_k, pm, sm, z_s,
+                            f"dense_e2e_{tag}K700_H7_rk{rk}", useq_scale=5.0,
+                            x0=x_dive, end_to_end=True)
+            if not e2e["ess"] >= DENSE_E2E_MIN_ESS:
+                raise AssertionError(f"dense end-to-end case rk{rk} lambda "
+                                     f"{lam}: ESS {e2e['ess']} < "
+                                     f"{DENSE_E2E_MIN_ESS}")
+            for dense in (True, False):
+                f = sm if dense else auv_fused(
+                    700, 7, rk=rk, sigma=DENSE_E2E_SIGMA, lam=lam)
+                mode_bits(auv, f, auv_dyn(f, 5.0, seed=11, x0=x_dive), z_s,
+                          f"{f.consts.structure}_{tag}K700_H7_rk{rk}")
 
     # ---- 10. the AUV Philox solve consumes pm_noise_dump(adim=6) ------------
     dyn_f = auv_dyn(flag, 200.0, seed=5)
@@ -6876,6 +6977,10 @@ def main() -> int:
             row["library_device_ms"] = lib_ms[row["name"]]["device_ms"]
             row["library_call"] = (f"torch.randn({lib_ms[row['name']]['shape']}"
                                    f", dtype={lib_ms[row['name']]['dtype']})")
+            if row["name"] == "pm_noise_dump[bf16]":
+                # the dump writes bf16 values held in f32, 4 bytes a normal
+                row["library_note"] = ("torch.randn at bf16 writes 2 bytes "
+                                       "a normal, the dump 4")
         if row["name"] in served:
             # launched by the serve phases: the served headline loop and
             # its m-step requests, or the coalescer's dispatches

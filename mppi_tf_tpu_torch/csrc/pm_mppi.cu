@@ -10,12 +10,23 @@
 //
 // Kernels, and the TPU kernels of mppi_tf_tpu/kernels/pm_mppi.py they replace:
 //
-// pm_noise_dump_kernel -- replaces fused_noise_dump (make_noise_kernel +
+// pm_noise_dump_kernel<CH> -- replaces fused_noise_dump (make_noise_kernel +
 //   _fill_noise). Writes the exact normals the solves consume, z[n][k] with
 //   n = t*adim + j, for any adim (the AUV's 6 as well), mirrored past
-//   `half` as an antithetic solve reads them. Bound by the bytes
-//   it writes (4 per normal); Philox and Box-Muller are ~32 operations per
-//   normal, below that.
+//   `half` as an antithetic solve reads them: the solves' Philox counters,
+//   key and Box-Muller (mppi_common.cuh) bit for bit, rounded to bf16 in
+//   the bf16 build. Bound by operations: a Philox4x32-10 and two
+//   Box-Muller transforms a 4 normals issue at ~2.5e11 pairs a second
+//   (roofline.cu's bm ceiling), 0.030 ms at [50, 3, 100,000], above the
+//   0.018 ms its 4 bytes a normal take at 3.35 TB/s. Design: one sample a
+//   thread and a run of its Philox blocks, so that the setup and the
+//   solve index's read are paid once a run; CH = 2 independent chains a
+//   pass at scale, 1 where one chain a pass fits a wave of blocks (there
+//   a chain's latency bounds the dump, as at log mode's [H, adim, 512]);
+//   each warp stages a pass's normals in shared memory and writes every
+//   row as 16-byte streaming stores of 4 samples (a row off the 16-byte
+//   grid: shifted windows, its head and tail sample by sample); about two
+//   waves of blocks, the passes split evenly over blockIdx.y.
 //
 // pm_fused_solve_kernel<S, A, MODE, COST, AB, STRUCT> -- MODE kFused replaces
 //   fused_pm_call (_make_kernel in mode "fused" + _fill_noise); MODE kCosts
@@ -784,27 +795,136 @@ __global__ void __launch_bounds__(kBlock)
   }
 }
 
-__global__ void MPPI_KERNEL(pm_noise_dump)(float* __restrict__ out,
-                                          int k_total, int n_z, Seeds sd) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= k_total) return;
-  const int blk = blockIdx.y;
+// The dump's geometry: one sample a thread, kDumpThreads threads a block;
+// a pass of a thread draws CH Philox blocks of its sample (CH independent
+// chains), and each warp stores them through a tile of its normals in
+// shared memory.
+constexpr int kDumpThreads = 128;
+constexpr int kDumpWarps = kDumpThreads / 32;
+
+// One row (normal) of a warp's tile t, its samples kw .. kw + 31, stored
+// by the row's eight lanes: lane q (0-7) stores samples kw + 4q + h .. + 3
+// as one 16-byte streaming store. h (0-3): the samples of the row before its
+// first 16-byte boundary past kw, 0 where the row starts on one (k_total
+// a multiple of 4, as at every flagship shape). At h > 0 group 7's window
+// would reach the next warp's samples: it stores its last 4 - h samples
+// alone, and group 0 the warp's first h. A window past k_total (the row's
+// tail) goes sample by sample.
+__device__ __forceinline__ void dump_row(float* row, const float* t, int kw,
+                                         int k_total, int h, int q) {
+  if (h == 0) {
+    const int s = kw + 4 * q;
+    if (s + 3 < k_total) {
+      __stcs(reinterpret_cast<float4*>(row + s),
+             *reinterpret_cast<const float4*>(t + 4 * q));
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (s + i < k_total) __stcs(row + s + i, t[4 * q + i]);
+    }
+    return;
+  }
+  if (q == 0) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      if (i < h && kw + i < k_total) __stcs(row + kw + i, t[i]);
+  }
+  if (q == 7) {
+#pragma unroll
+    for (int i = 1; i < 4; ++i)
+      if (i >= h && kw + 28 + i < k_total)
+        __stcs(row + kw + 28 + i, t[28 + i]);
+    return;
+  }
+  const int s = kw + 4 * q + h;
+  const float* w = t + 4 * q + h;
+  if (s + 3 < k_total) {
+    __stcs(reinterpret_cast<float4*>(row + s),
+           make_float4(w[0], w[1], w[2], w[3]));
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (s + i < k_total) __stcs(row + s + i, w[i]);
+  }
+}
+
+template <int CH>
+__global__ void __launch_bounds__(kDumpThreads)
+    MPPI_KERNEL(pm_noise_dump)(float* __restrict__ out, int k_total, int n_z,
+                               Seeds sd) {
+  __shared__ __align__(16) float tile[kDumpWarps][CH * 4][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k = blockIdx.x * kDumpThreads + threadIdx.x;
+  const int kw = k - lane;  // the warp's first sample
+  if (kw >= k_total) return;  // a whole warp past the end
   float sign;
   const uint32_t src = noise_source(static_cast<uint32_t>(k), sd, &sign);
-  float v[4];
-  philox_normals(src, static_cast<uint32_t>(blk), sd, sign, v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = blk * 4 + i;
-    if (n < n_z) {
-      float* o = out + static_cast<size_t>(n) * k_total + k;
-#ifdef MPPI_BF16
-      *o = round_bf16(v[i]);
-#else
-      *o = v[i];
-#endif
-    }
+  uint32_t s_lo = sd.s_lo, s_hi = sd.s_hi;
+  if (sd.solve != nullptr) {  // philox_normals' read of the solve index
+    const unsigned long long s = __ldg(sd.solve);
+    s_lo = static_cast<uint32_t>(s);
+    s_hi = static_cast<uint32_t>(s >> 32);
   }
+  // the words of out before its first 16-byte boundary, mod 4
+  const int base = static_cast<int>(
+      (reinterpret_cast<uintptr_t>(out) >> 2) & 3);
+  const int q = lane & 7, rs = lane >> 3;  // this lane's store: group, row
+  const int n_blk = (n_z + 3) / 4;
+#pragma unroll 1
+  for (int b0 = blockIdx.y * CH; b0 < n_blk; b0 += gridDim.y * CH) {
+    uint4 c[CH];  // philox_normals of blocks b0 .. b0 + CH - 1
+#pragma unroll
+    for (int j = 0; j < CH; ++j)
+      c[j] = philox4x32_10(
+          make_uint4(src, static_cast<uint32_t>(b0 + j), s_lo, s_hi),
+          sd.seed_lo, sd.seed_hi);
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      float v[4];
+      box_muller(c[j].x, c[j].y, sign, v[0], v[1]);
+      box_muller(c[j].z, c[j].w, sign, v[2], v[3]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#ifdef MPPI_BF16
+        v[i] = round_bf16(v[i]);
+#endif
+        tile[warp][j * 4 + i][lane] = v[i];
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const int n = (b0 + j) * 4 + rs;
+      if (n < n_z) {
+        const size_t r = static_cast<size_t>(n) * k_total;
+        dump_row(out + r, tile[warp][j * 4 + rs], kw, k_total,
+                 static_cast<int>((4 - ((base + r) & 3)) & 3), q);
+      }
+    }
+    __syncwarp();  // the tile is read before the next pass writes it
+  }
+}
+
+// Launch the dump at CH chains a pass: blocks of kDumpThreads samples
+// along k, and along blockIdx.y about two waves of blocks (the blocks an
+// SM at CH times the SMs, twice), the passes split evenly over them.
+template <int CH>
+cudaError_t launch_dump(float* out, int k, int n_z, const Seeds& sd,
+                        int sms, cudaStream_t stream) {
+  static int per_sm = 0;  // blocks an SM at CH, the same on every call
+  if (per_sm == 0) {
+    const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, MPPI_KERNEL(pm_noise_dump)<CH>, kDumpThreads, 0);
+    if (e != cudaSuccess) return e;
+  }
+  const int gx = (k + kDumpThreads - 1) / kDumpThreads;
+  const int passes = ((n_z + 3) / 4 + CH - 1) / CH;
+  const int fit = std::max(1, std::min(passes, 2 * sms * per_sm / gx));
+  const int per = (passes + fit - 1) / fit;  // passes a thread
+  const dim3 grid(gx, (passes + per - 1) / per);
+  MPPI_KERNEL(pm_noise_dump)<CH><<<grid, kDumpThreads, 0, stream>>>(
+      out, k, n_z, sd);
+  return cudaGetLastError();
 }
 
 #ifndef MPPI_BF16
@@ -1129,11 +1249,20 @@ int MPPI_ENTRY(pm_noise_dump)(float* out, int k, int n_z, uint32_t half,
                   void* stream) {
   if (k <= 0 || n_z <= 0) return cudaErrorInvalidValue;
   const Seeds sd{seed_lo, seed_hi, s_lo, s_hi, half, solve};
-  const dim3 grid((k + 255) / 256, (n_z + 3) / 4);
-  MPPI_KERNEL(pm_noise_dump)<<<grid, 256, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      out, k, n_z, sd);
-  return cudaGetLastError();
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return e;
+  // two chains a pass once one a pass would take more than a wave of
+  // blocks; below that (log mode's [H, adim, 512]) the latency of one
+  // chain, over the most SMs, bounds the dump
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long blocks = static_cast<long long>(
+      (k + kDumpThreads - 1) / kDumpThreads) * ((n_z + 3) / 4);
+  return blocks > static_cast<long long>(sms) * (2048 / kDumpThreads)
+             ? launch_dump<2>(out, k, n_z, sd, sms, st)
+             : launch_dump<1>(out, k, n_z, sd, sms, st);
 }
 
 // consts: PmConsts.packed, sizeof(HostConsts<sdim, adim>) bytes; cost:

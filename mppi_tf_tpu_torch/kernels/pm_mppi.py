@@ -529,8 +529,14 @@ def block_partials(costs: torch.Tensor, zf: torch.Tensor, lam: float,
 
     costs [k], zf [n_z, k] -> [n_blocks, STATS + n_z] rows
     (m_b, l_b, cmin_b, cmax_b, csum_b, 0, 0, 0, zsum_b).
+
+    -costs / lam is the kernels' quotient, correctly rounded, on every
+    device: lam is divided by as a tensor, because PyTorch's CUDA division
+    by a Python scalar multiplies by the scalar's rounded reciprocal, one
+    ulp of -cost/lam off for many costs.
     """
-    return _partial_rows(costs, -costs / lam, zf, block, max_shift=True)
+    lam_t = torch.as_tensor(lam, dtype=costs.dtype, device=costs.device)
+    return _partial_rows(costs, -costs / lam_t, zf, block, max_shift=True)
 
 
 def weight_partials(costs: torch.Tensor, nrm: torch.Tensor,

@@ -105,6 +105,59 @@ def test_noise_dump_matches_plain(cuda_device, k, tau, adim):
     torch.testing.assert_close(z, ref, rtol=0, atol=1e-5)
 
 
+@pytest.mark.parametrize("k,k_short,tau,adim", [(4097, 4096, 7, 3),
+                                                (100_000, 512, 50, 3),
+                                                (701, 3, 7, 6)])
+def test_noise_dump_prefix_equals_narrower_dump(cuda_device, k, k_short,
+                                                tau, adim):
+    """The first k_short columns of a dump of k are the dump of k_short, bit
+    for bit: rows of k = 4,097 start off the 16-byte grid (the shifted
+    vector stores and their head and tail), those of 4,096 on it."""
+    wide = pm.pm_noise_dump(31, 4, k, tau, adim, cuda_device)
+    assert torch.equal(wide[..., :k_short], pm.pm_noise_dump(
+        31, 4, k_short, tau, adim, cuda_device))
+
+
+@pytest.mark.parametrize("k,half,adim", [(4097, 2049, 6), (701, 351, 3),
+                                         (5, 3, 3), (100_000, 50_000, 3)])
+def test_noise_dump_mirrored_columns_are_exact_negatives(cuda_device, k,
+                                                         half, adim):
+    """From an odd (or even) ``half`` on each column is the exact negative
+    of column k - half, and the columns before it are the plain dump's."""
+    z = pm.pm_noise_dump(5, 8, k, 7, adim, cuda_device, half=half)
+    plain = pm.pm_noise_dump(5, 8, k, 7, adim, cuda_device)
+    assert torch.equal(z[..., :half], plain[..., :half])
+    assert torch.equal(z[..., half:], -plain[..., :k - half])
+
+
+@pytest.mark.parametrize("k,tau,adim", [(700, 7, 3), (4097, 5, 1),
+                                        (513, 3, 2), (3, 1, 6)])
+def test_noise_dump_ragged_philox_block(cuda_device, k, tau, adim):
+    """n_z = tau adim not a multiple of 4: the rows are the first n_z rows of
+    a dump whose n_z is the next multiple of 4, and equal the plain
+    version's within its 1e-5."""
+    n_z = tau * adim
+    z = pm.pm_noise_dump(2, 11, k, tau, adim, cuda_device)
+    full = pm.pm_noise_dump(2, 11, k, -(-n_z // 4) * 4, 1, cuda_device)
+    assert torch.equal(z.reshape(n_z, k), full.reshape(-1, k)[:n_z])
+    torch.testing.assert_close(z, pm.noise_plain(
+        2, 11, k, tau, adim, device=cuda_device), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("k,tau,adim,half", [(100_000, 50, 3, 0),
+                                             (4097, 7, 6, 2049),
+                                             (512, 50, 3, 0)])
+def test_noise_dump_bf16_is_the_f32_dump_rounded(cuda_device, k, tau, adim,
+                                                 half):
+    """The bf16 build's dump is round_bf16 of the f32 build's, bit for bit,
+    held in f32."""
+    f32 = pm.pm_noise_dump(7, 3, k, tau, adim, cuda_device, half=half)
+    bf = pm.pm_noise_dump(7, 3, k, tau, adim, cuda_device, half=half,
+                          compute_dtype="bfloat16")
+    assert bf.dtype == torch.float32
+    assert torch.equal(bf, pm.round_bf16(f32))
+
+
 @pytest.mark.parametrize("k,tau,sdim,adim", [
     (700, 7, 6, 3), (4096, 25, 6, 3), (1000, 9, 2, 1), (1000, 9, 4, 2)])
 def test_fused_solve_and_merge_match_plain(cuda_device, k, tau, sdim, adim):

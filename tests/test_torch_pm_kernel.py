@@ -404,6 +404,67 @@ def test_noise_stream_indexing():
     assert not torch.equal(pm.noise_plain(5, 2 + (1 << 32), 600, 7, 3), big)
 
 
+@pytest.mark.parametrize("k,k_short", [(4097, 4096), (1500, 512), (701, 3)])
+def test_noise_columns_do_not_depend_on_k(k, k_short):
+    """Sample k's normals are the same whatever the draw's width: the first
+    k_short columns of a draw of k equal a draw of k_short, bit for bit
+    (the card's dump is held to the same, tests/test_torch_cuda.py)."""
+    wide = pm.noise_plain(4, 6, k, 5, 3)
+    assert torch.equal(wide[..., :k_short], pm.noise_plain(4, 6, k_short,
+                                                           5, 3))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3])
+def test_noise_fewer_samples_than_a_vector(k):
+    """k < 4: as many columns as samples, finite, the first columns of a
+    wider draw."""
+    z = pm.noise_plain(8, 1, k, 7, 3)
+    assert z.shape == (7, 3, k) and bool(torch.isfinite(z).all())
+    assert torch.equal(z, pm.noise_plain(8, 1, 64, 7, 3)[..., :k])
+
+
+@pytest.mark.parametrize("tau,adim", [(7, 3), (5, 1), (3, 2), (1, 6)])
+def test_noise_ragged_last_philox_block(tau, adim):
+    """n_z = tau adim not a multiple of 4: normal n is word n % 4 of Philox
+    block n // 4 whatever n_z is, so the rows equal the first n_z rows of a
+    draw whose n_z is the next multiple of 4."""
+    n_z = tau * adim
+    z = pm.noise_plain(3, 9, 300, tau, adim).reshape(n_z, 300)
+    full = pm.noise_plain(3, 9, 300, -(-n_z // 4) * 4, 1).reshape(-1, 300)
+    assert torch.equal(z, full[:n_z])
+
+
+@pytest.mark.parametrize("k,half", [(4097, 2049), (701, 351), (5, 3),
+                                    (130, 65), (128, 64)])
+def test_noise_antithetic_odd_half_mirrors_exactly(k, half):
+    """From sample ``half`` on each column is the exact negative of column
+    k - half, and the columns before it are the plain draw's, at an odd
+    half and at the even half of an even k."""
+    z = pm.noise_plain(2, 5, k, 7, 3, half=half)
+    plain = pm.noise_plain(2, 5, k, 7, 3)
+    assert torch.equal(z[..., :half], plain[..., :half])
+    n = k - half
+    assert torch.equal(z[..., half:], -plain[..., :n])
+    assert torch.equal(z[..., half:] + z[..., :n], torch.zeros_like(
+        z[..., :n]))
+
+
+@pytest.mark.parametrize("k,tau,adim,half", [(700, 7, 3, 0), (513, 5, 6, 257),
+                                             (3, 7, 3, 0)])
+def test_noise_dump_bf16_is_the_f32_dump_rounded(k, tau, adim, half):
+    """The bf16 dump (the CPU wrapper's plain version) is the f32 dump
+    rounded to bf16 and held in f32: every value is a bf16 value, and the
+    mirrored columns stay exact negatives."""
+    f32 = pm.pm_noise_dump(6, 2, k, tau, adim, "cpu", half=half)
+    bf = pm.pm_noise_dump(6, 2, k, tau, adim, "cpu", half=half,
+                          compute_dtype="bfloat16")
+    assert bf.dtype == torch.float32 and bf.shape == f32.shape
+    assert torch.equal(bf, f32.to(torch.bfloat16).float())
+    assert torch.equal(bf, bf.to(torch.bfloat16).float())
+    if half:
+        assert torch.equal(bf[..., half:], -bf[..., :k - half])
+
+
 def test_prng_mode_equals_injected_dump_on_cpu():
     fused, _, _ = _port(300, 5)
     x0, useq = torch.zeros(6), torch.zeros(5, 3)
