@@ -44,6 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from .mppi import MPPI
 
 
@@ -296,15 +297,19 @@ class FleetMPPI:
         """Replan the whole fleet: states [n, sDim] -> actions [n, aDim]
         (numpy), with one host sync (the actions' copy); the nominal
         sequences, the noise streams and the step count advance."""
-        x = self._states(states)
-        start = time.perf_counter()
-        actions, self._useq, info = self._step(x, self._useq, self._cparams)
-        actions = actions.cpu().numpy()
-        self._timing["total"] += time.perf_counter() - start
-        self._timing["calls"] += 1
-        self._steps += 1
-        self._last_info = info
-        return actions
+        with tracing.span("mppi.fleet.next", self._steps):
+            with tracing.span("mppi.fleet.upload"):
+                x = self._states(states)
+            start = time.perf_counter()
+            actions, self._useq, info = self._step(x, self._useq,
+                                                   self._cparams)
+            with tracing.span("mppi.fleet.actions"):
+                actions = actions.cpu().numpy()
+            self._timing["total"] += time.perf_counter() - start
+            self._timing["calls"] += 1
+            self._steps += 1
+            self._last_info = info
+            return actions
 
     def _goal_rows(self, cp: dict, goal) -> None:
         """Apply ``cost.set_goal(goal)`` to one vehicle's params ``cp``

@@ -38,6 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import tracing
 from ..kernels.errors import KernelUnsupportedError
 from ..ops import noise as noise_ops
 from ..ops import update as upd
@@ -217,19 +218,20 @@ class MPPI(MissionMixin):
     def _postprocess(self, useq, wnoise):
         """Sequence update, clip, filter; emit U[0] and the shifted sequence
         (of each vehicle, for a fleet's [n, tau, aDim])."""
-        new_useq = useq + wnoise.to(useq.dtype)
-        if self._clip_actions:
-            new_useq = torch.clamp(new_useq, self._model.min_act(),
-                                   self._model.max_act())
-        if self._S is not None:
-            # S @ new_useq as a product and a sum over the steps: each
-            # vehicle of a fleet gets a one-vehicle filter's bits
-            new_useq = (self._S[:, :, None] * new_useq[..., None, :, :]).sum(
-                dim=-2)
-        action = upd.get_next(new_useq, 1)[..., 0, :]
-        init = upd.init_zeros(1, self._adim, dtype=new_useq.dtype,
-                              device=new_useq.device)
-        return action, upd.shift(new_useq, init, 1), new_useq
+        with tracing.span("mppi.post"):
+            new_useq = useq + wnoise.to(useq.dtype)
+            if self._clip_actions:
+                new_useq = torch.clamp(new_useq, self._model.min_act(),
+                                       self._model.max_act())
+            if self._S is not None:
+                # S @ new_useq as a product and a sum over the steps: each
+                # vehicle of a fleet gets a one-vehicle filter's bits
+                new_useq = (self._S[:, :, None]
+                            * new_useq[..., None, :, :]).sum(dim=-2)
+            action = upd.get_next(new_useq, 1)[..., 0, :]
+            init = upd.init_zeros(1, self._adim, dtype=new_useq.dtype,
+                                  device=new_useq.device)
+            return action, upd.shift(new_useq, init, 1), new_useq
 
     def _update_and_shift(self, useq, costs, eps):
         """Softmax update, emit U[0], shift. Reference: controller_base.py:436-462."""
@@ -303,28 +305,35 @@ class MPPI(MissionMixin):
 
         Reference: controller_base.py:251-297. state: [sDim] -> action [aDim].
         """
-        state = torch.as_tensor(np.asarray(state, np.float64).reshape(-1),
-                                dtype=self._dtype)
-        if self._device.type == "cuda":
-            # a pageable upload syncs the host; a pinned one does not, so
-            # the action's copy below stays the step's one sync
-            state = state.pin_memory().to(self._device, non_blocking=True)
-        else:
-            state = state.to(self._device)
-        start = time.perf_counter()
-        if self._fused is not None:
-            action, self._useq, _info = self._fused_step(state, self._useq)
-        else:
-            action, self._useq, _info = self._solve(state, self._useq,
-                                                    self._sched)
-        action_np = action.cpu().numpy()
-        self._timing["total"] += time.perf_counter() - start
-        self._timing["calls"] += 1
-        if self._observer is not None:
-            self._observer.write_control(state=state, action=action_np,
-                                         info=_info)
-        self._steps += 1
-        return action_np
+        with tracing.span("mppi.next", self._steps):
+            with tracing.span("mppi.upload"):
+                state = torch.as_tensor(
+                    np.asarray(state, np.float64).reshape(-1),
+                    dtype=self._dtype)
+                if self._device.type == "cuda":
+                    # a pageable upload syncs the host; a pinned one does
+                    # not, so the action's copy below stays the step's one
+                    # sync
+                    state = state.pin_memory().to(self._device,
+                                                  non_blocking=True)
+                else:
+                    state = state.to(self._device)
+            start = time.perf_counter()
+            if self._fused is not None:
+                action, self._useq, _info = self._fused_step(state,
+                                                             self._useq)
+            else:
+                action, self._useq, _info = self._solve(state, self._useq,
+                                                        self._sched)
+            with tracing.span("mppi.actions"):
+                action_np = action.cpu().numpy()
+            self._timing["total"] += time.perf_counter() - start
+            self._timing["calls"] += 1
+            if self._observer is not None:
+                self._observer.write_control(state=state, action=action_np,
+                                             info=_info)
+            self._steps += 1
+            return action_np
 
     @torch.no_grad()
     def save(self, x, u, x_next) -> None:

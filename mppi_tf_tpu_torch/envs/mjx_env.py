@@ -28,12 +28,17 @@ getGoal / reset) for the generic runner. The analytic AUV plant
 
 from __future__ import annotations
 
-import time
+import ctypes
 
 import numpy as np
 import torch
 
+from .. import tracing
 from ..kernels import _launch
+
+#: the CUDA graph node types (CUgraphNodeType, cudaGraphNodeType) that
+#: ``graph_node_kinds`` names; every other type counts as "other"
+_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
 
 
 class DevicePointMassEnv:
@@ -253,12 +258,40 @@ class _Buffers:
             self.cnt = torch.zeros(1, **idx)
 
 
+def graph_node_kinds(graph) -> dict:
+    """The nodes of a captured ``CUDAGraph(keep_graph=True)``, by kind:
+    {kernel, memcpy, memset, other: count}, read from the graph itself
+    through ``libcuda`` (``cuGraphGetNodes``, ``cuGraphNodeGetType``: what
+    the runtime's ``cudaGraphGetNodes`` and ``cudaGraphNodeGetType`` call
+    on the same handle)."""
+    drv = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc: int) -> None:
+        if rc != 0:
+            raise RuntimeError(f"reading a CUDA graph's nodes: CUresult {rc}")
+
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(drv.cuGraphGetNodes(raw, None, ctypes.byref(n)))
+    nodes = (ctypes.c_void_p * n.value)()
+    check(drv.cuGraphGetNodes(raw, nodes, ctypes.byref(n)))
+    out = dict.fromkeys(("kernel", "memcpy", "memset", "other"), 0)
+    kind = ctypes.c_int(0)
+    for node in nodes:
+        check(drv.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                     ctypes.byref(kind)))
+        out[_NODE_KINDS.get(kind.value, "other")] += 1
+    return out
+
+
 class OnDeviceLoop:
     """The ``run`` of ``build_on_device_loop``. After a captured run,
     ``nodes`` holds the kernel launches of one captured period by entry
-    point, ``capture_s`` the warm-up and capture time of the last capture
-    (None before one), ``captures`` how many there were; ``useq`` is the
-    nominal sequence the last run ended with."""
+    point, ``graph_nodes`` the period graph's nodes by kind (kernel,
+    memcpy, memset, other), ``capture_s`` the warm-up and capture time of
+    the last capture on the ``mppi.loop.capture`` span's clock (None
+    before one), ``captures`` how many there were; ``useq`` is the nominal
+    sequence the last run ended with."""
 
     def __init__(self, ctrl, plant_step, steps: int, substeps: int,
                  refit_window, waypoint_radius):
@@ -283,6 +316,7 @@ class OnDeviceLoop:
         self._graphs = None      # (period graph, refit graph or None)
         self._frozen = None      # what the graphs froze (_freeze_key)
         self.nodes, self.capture_s, self.captures = {}, None, 0
+        self.graph_nodes = {}
 
     @property
     def useq(self) -> torch.Tensor:
@@ -381,29 +415,33 @@ class OnDeviceLoop:
         """Warm up one period (and the refit) on a side stream, then
         capture each as a graph; the warm-up's writes are undone by the
         caller's load."""
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(device=self.ctrl._device)
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            self._period(b)
+        with tracing.timed("mppi.loop.capture") as span:
+            side = torch.cuda.Stream(device=self.ctrl._device)
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                self._period(b)
+                if with_fit:
+                    self._fit(b)
+            torch.cuda.current_stream().wait_stream(side)
+            before = dict(_launch.captured_counts)
+            # kept after its capture, so that its nodes can be read, and
+            # instantiated here, not at its first replay
+            period = torch.cuda.CUDAGraph(keep_graph=True)
+            with torch.cuda.graph(period):
+                self._period(b)
+            fit = None
             if with_fit:
-                self._fit(b)
-        torch.cuda.current_stream().wait_stream(side)
-        before = dict(_launch.captured_counts)
-        period = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(period):
-            self._period(b)
-        fit = None
-        if with_fit:
-            fit = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(fit, pool=period.pool()):
-                self._fit(b)
-        self.nodes = {n: c - before[n]
-                      for n, c in _launch.captured_counts.items()
-                      if c > before[n]}
-        self._graphs = (period, fit)
-        torch.cuda.current_stream().synchronize()
-        self.capture_s = time.perf_counter() - t0
+                fit = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(fit, pool=period.pool()):
+                    self._fit(b)
+            self.nodes = {n: c - before[n]
+                          for n, c in _launch.captured_counts.items()
+                          if c > before[n]}
+            self.graph_nodes = graph_node_kinds(period)
+            period.instantiate()
+            self._graphs = (period, fit)
+            torch.cuda.current_stream().synchronize()
+        self.capture_s = span.seconds
         self.captures += 1
 
     # --- run --------------------------------------------------------------
@@ -440,110 +478,118 @@ class OnDeviceLoop:
 
         ctrl = self.ctrl
         steps = self.steps
-        self._staged = []
-        x0 = self._upload(x0).reshape(-1)
-        useq0 = (torch.zeros_like(ctrl.useq) if useq0 is None
-                 else self._upload(useq0).reshape(ctrl.useq.shape))
         if step0 is None:
             step0 = ctrl._steps
             ctrl._steps = step0 + steps
-        model_t = _model_tensors(ctrl._model)
-        cost_t = ctrl._cost.params()
-        keep_m = mparams is not None or self.adaptive
-        orig_m = ({n: t.detach().clone() for n, t in model_t.items()}
-                  if keep_m else None)
-        orig_c = ({n: t.detach().clone() for n, t in cost_t.items()}
-                  if cparams is not None else None)
-        if mparams is not None:
-            ctrl.model_params = mparams
-        if cparams is not None:
-            for name, v in cparams.items():
-                cost_t[name].copy_(self._upload(v).to(cost_t[name].dtype)
-                                   .reshape(cost_t[name].shape))
-        # what each run starts from, after the overrides: the warm-up of a
-        # capture writes the model (a refit) and the queue (a pop)
-        init_m = ({n: t.detach().clone() for n, t in model_t.items()}
-                  if self.adaptive else None)
-        init_c = ({n: t.detach().clone() for n, t in cost_t.items()}
-                  if self.pop is not None else None)
-        win = None
-        if self.adaptive:
-            win = _dmd_window(ctrl, self.W) if window is None else window
-        n0 = int(win[3]) if win is not None else 0
-        if self._bufs is None:
-            self._bufs = _Buffers(ctrl, steps, self.W)
-        b = self._bufs
+        with tracing.span("mppi.loop.run", step0):
+            with tracing.span("mppi.loop.load"):
+                self._staged = []
+                x0 = self._upload(x0).reshape(-1)
+                useq0 = (torch.zeros_like(ctrl.useq) if useq0 is None
+                         else self._upload(useq0).reshape(ctrl.useq.shape))
+                model_t = _model_tensors(ctrl._model)
+                cost_t = ctrl._cost.params()
+                keep_m = mparams is not None or self.adaptive
+                orig_m = ({n: t.detach().clone() for n, t in model_t.items()}
+                          if keep_m else None)
+                orig_c = ({n: t.detach().clone() for n, t in cost_t.items()}
+                          if cparams is not None else None)
+                if mparams is not None:
+                    ctrl.model_params = mparams
+                if cparams is not None:
+                    for name, v in cparams.items():
+                        cost_t[name].copy_(
+                            self._upload(v).to(cost_t[name].dtype)
+                            .reshape(cost_t[name].shape))
+                # what each run starts from, after the overrides: the
+                # warm-up of a capture writes the model (a refit) and the
+                # queue (a pop)
+                init_m = ({n: t.detach().clone() for n, t in model_t.items()}
+                          if self.adaptive else None)
+                init_c = ({n: t.detach().clone() for n, t in cost_t.items()}
+                          if self.pop is not None else None)
+                win = None
+                if self.adaptive:
+                    win = (_dmd_window(ctrl, self.W) if window is None
+                           else window)
+                n0 = int(win[3]) if win is not None else 0
+                if self._bufs is None:
+                    self._bufs = _Buffers(ctrl, steps, self.W)
+                b = self._bufs
 
-        def load():
-            b.state.copy_(x0)
-            b.useq.copy_(useq0)
-            b.solve.fill_(step0)
-            b.row.zero_()
-            if win is not None:
-                for buf, src in zip((b.obs, b.act, b.nxt), win[:3]):
-                    buf.copy_(self._upload(src))
-                b.cnt.fill_(n0)
-            if init_m is not None:
-                for n, t in model_t.items():
-                    t.copy_(init_m[n])
-            if init_c is not None:
-                for n, t in cost_t.items():
-                    t.copy_(init_c[n])
+            def load():
+                with tracing.span("mppi.loop.load"):
+                    b.state.copy_(x0)
+                    b.useq.copy_(useq0)
+                    b.solve.fill_(step0)
+                    b.row.zero_()
+                    if win is not None:
+                        for buf, src in zip((b.obs, b.act, b.nxt), win[:3]):
+                            buf.copy_(self._upload(src))
+                        b.cnt.fill_(n0)
+                    if init_m is not None:
+                        for n, t in model_t.items():
+                            t.copy_(init_m[n])
+                    if init_c is not None:
+                        for n, t in cost_t.items():
+                            t.copy_(init_c[n])
 
-        refits = self._refits(step0, n0)
-        ridge = self.adaptive and ctrl._model.rank is None
-        gen_saved = ctrl._gen
-        if generator is not None:
-            ctrl._gen = generator
-        try:
-            if graph:
-                key = self._freeze_key()
-                if key != self._frozen:
+            refits = self._refits(step0, n0)
+            ridge = self.adaptive and ctrl._model.rank is None
+            gen_saved = ctrl._gen
+            if generator is not None:
+                ctrl._gen = generator
+            try:
+                if graph:
+                    key = self._freeze_key()
+                    if key != self._frozen:
+                        load()
+                        self._capture(b, with_fit=ridge)
+                        self._frozen = key
                     load()
-                    self._capture(b, with_fit=ridge)
-                    self._frozen = key
-                load()
-                period, fit = self._graphs
-                for j in range(steps):
-                    period.replay()
-                    if j in refits:
-                        if ridge:
-                            fit.replay()
-                        else:
+                    period, fit = self._graphs
+                    with tracing.span("mppi.loop.replay"):
+                        for j in range(steps):
+                            period.replay()
+                            if j in refits:
+                                if ridge:
+                                    fit.replay()
+                                else:
+                                    self._fit(b)
+                        _launch.count_replays(self.nodes, steps)
+                else:
+                    load()
+                    for j in range(steps):
+                        self._period(b)
+                        if j in refits:
                             self._fit(b)
-                _launch.count_replays(self.nodes, steps)
-            else:
-                load()
-                for j in range(steps):
-                    self._period(b)
-                    if j in refits:
-                        self._fit(b)
-        finally:
-            ctrl._gen = gen_saved
-            if ctrl._fused is not None:
-                ctrl._fused.forget_cached_terms()
-        states, actions = b.states.clone(), b.actions.clone()
-        fitted = None
-        if self.adaptive:
-            fitted = {"A": ctrl._model.A.detach().clone(),
-                      "B": ctrl._model.B.detach().clone()}
-        if orig_m is not None:
-            for n, t in model_t.items():
-                t.copy_(orig_m[n])
-        if orig_c is not None:
-            for n, t in cost_t.items():
-                t.copy_(orig_c[n])
-        queue = None
-        if self.pop is not None and cparams is None:
-            cost = ctrl._cost
-            queue = (cost.waypoints.to("cpu", non_blocking=True),
-                     cost.count.to("cpu", non_blocking=True))
-        if ctrl._device.type == "cuda":
-            # the run's one host sync
-            torch.cuda.current_stream(ctrl._device).synchronize()
-        self._staged = []
-        if queue is not None:
-            ctrl._cost.sync_host(*queue)
+            finally:
+                ctrl._gen = gen_saved
+                if ctrl._fused is not None:
+                    ctrl._fused.forget_cached_terms()
+            with tracing.span("mppi.loop.sync"):
+                states, actions = b.states.clone(), b.actions.clone()
+                fitted = None
+                if self.adaptive:
+                    fitted = {"A": ctrl._model.A.detach().clone(),
+                              "B": ctrl._model.B.detach().clone()}
+                if orig_m is not None:
+                    for n, t in model_t.items():
+                        t.copy_(orig_m[n])
+                if orig_c is not None:
+                    for n, t in cost_t.items():
+                        t.copy_(orig_c[n])
+                queue = None
+                if self.pop is not None and cparams is None:
+                    cost = ctrl._cost
+                    queue = (cost.waypoints.to("cpu", non_blocking=True),
+                             cost.count.to("cpu", non_blocking=True))
+                if ctrl._device.type == "cuda":
+                    # the run's one host sync
+                    torch.cuda.current_stream(ctrl._device).synchronize()
+                self._staged = []
+                if queue is not None:
+                    ctrl._cost.sync_host(*queue)
         if self.adaptive:
             return states, actions, fitted
         return states, actions
@@ -571,8 +617,8 @@ class _FleetBuffers:
 class FleetLoop(OnDeviceLoop):
     """The ``run`` of ``FleetMPPI.build_on_device_loop``: ``OnDeviceLoop``'s
     capture and replay over a fleet's period (the fleet solve, the
-    batched plant, every vehicle's pop). ``nodes``, ``capture_s`` and
-    ``captures`` as there."""
+    batched plant, every vehicle's pop). ``nodes``, ``graph_nodes``,
+    ``capture_s`` and ``captures`` as there."""
 
     def __init__(self, fleet, plant_step, steps: int, substeps: int,
                  waypoint_radius):
@@ -591,6 +637,7 @@ class FleetLoop(OnDeviceLoop):
         self._frozen = None
         self._gens = None
         self.nodes, self.capture_s, self.captures = {}, None, 0
+        self.graph_nodes = {}
 
     @torch.no_grad()
     def _period(self, b) -> None:
@@ -627,64 +674,70 @@ class FleetLoop(OnDeviceLoop):
         from ..interop import _model_tensors
 
         fleet, ctrl, steps = self.fleet, self.ctrl, self.steps
-        self._staged = []
-        x0 = self._upload(states0).reshape(fleet._n, fleet._sdim)
-        useq0 = (torch.zeros_like(fleet.useq) if useq0 is None
-                 else self._upload(useq0).reshape(fleet.useq.shape))
         if step0 is None:
             step0 = fleet._steps
             fleet._steps = step0 + steps
-        model_t = _model_tensors(ctrl._model)
-        orig_m = None
-        if mparams is not None:
-            orig_m = {n: t.detach().clone() for n, t in model_t.items()}
-            ctrl.model_params = mparams
-        src = fleet.cost_params
-        if cparams is not None:
-            src = {name: self._upload(cparams[name]).to(t.dtype).reshape(
-                t.shape) for name, t in src.items()}
-        if self._bufs is None:
-            self._bufs = _FleetBuffers(fleet, steps)
-        b = self._bufs
+        with tracing.span("mppi.loop.run", step0):
+            with tracing.span("mppi.loop.load"):
+                self._staged = []
+                x0 = self._upload(states0).reshape(fleet._n, fleet._sdim)
+                useq0 = (torch.zeros_like(fleet.useq) if useq0 is None
+                         else self._upload(useq0).reshape(fleet.useq.shape))
+                model_t = _model_tensors(ctrl._model)
+                orig_m = None
+                if mparams is not None:
+                    orig_m = {n: t.detach().clone()
+                              for n, t in model_t.items()}
+                    ctrl.model_params = mparams
+                src = fleet.cost_params
+                if cparams is not None:
+                    src = {name: self._upload(cparams[name]).to(t.dtype)
+                           .reshape(t.shape) for name, t in src.items()}
+                if self._bufs is None:
+                    self._bufs = _FleetBuffers(fleet, steps)
+                b = self._bufs
 
-        def load():
-            b.state.copy_(x0)
-            b.useq.copy_(useq0)
-            b.solve.fill_(step0)
-            b.row.zero_()
-            for name, t in b.cp.items():
-                t.copy_(src[name])
+            def load():
+                with tracing.span("mppi.loop.load"):
+                    b.state.copy_(x0)
+                    b.useq.copy_(useq0)
+                    b.solve.fill_(step0)
+                    b.row.zero_()
+                    for name, t in b.cp.items():
+                        t.copy_(src[name])
 
-        self._gens = generators
-        try:
-            if graph:
-                key = self._freeze_key()
-                if key != self._frozen:
+            self._gens = generators
+            try:
+                if graph:
+                    key = self._freeze_key()
+                    if key != self._frozen:
+                        load()
+                        self._capture(b, with_fit=False)
+                        self._frozen = key
                     load()
-                    self._capture(b, with_fit=False)
-                    self._frozen = key
-                load()
-                period, _ = self._graphs
-                for _ in range(steps):
-                    period.replay()
-                _launch.count_replays(self.nodes, steps)
-            else:
-                load()
-                for _ in range(steps):
-                    self._period(b)
-        finally:
-            self._gens = None
-        states, actions = b.states.clone(), b.actions.clone()
-        if orig_m is not None:
-            for n, t in model_t.items():
-                t.copy_(orig_m[n])
-        if self.pop is not None and cparams is None:
-            # the mission goes on from the run's final queues
-            for name, t in fleet.cost_params.items():
-                t.copy_(b.cp[name])
-        if ctrl._device.type == "cuda":
-            torch.cuda.current_stream(ctrl._device).synchronize()
-        self._staged = []
+                    period, _ = self._graphs
+                    with tracing.span("mppi.loop.replay"):
+                        for _ in range(steps):
+                            period.replay()
+                        _launch.count_replays(self.nodes, steps)
+                else:
+                    load()
+                    for _ in range(steps):
+                        self._period(b)
+            finally:
+                self._gens = None
+            with tracing.span("mppi.loop.sync"):
+                states, actions = b.states.clone(), b.actions.clone()
+                if orig_m is not None:
+                    for n, t in model_t.items():
+                        t.copy_(orig_m[n])
+                if self.pop is not None and cparams is None:
+                    # the mission goes on from the run's final queues
+                    for name, t in fleet.cost_params.items():
+                        t.copy_(b.cp[name])
+                if ctrl._device.type == "cuda":
+                    torch.cuda.current_stream(ctrl._device).synchronize()
+                self._staged = []
         return states, actions
 
 

@@ -21,6 +21,7 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from .. import tracing
 from .errors import KernelLaunchError
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -88,6 +89,9 @@ _SIGNATURES.update(
        for name in ("nn_fused_solve", "nn_fused_costs", "nn_occupancy")})
 
 _lib = None
+#: the nvcc builds of the library in this process (set-up a later run of
+#: the same sources skips)
+library_builds = 0
 
 
 def _nvcc() -> str:
@@ -114,9 +118,19 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the library unless this exact build exists; returns its path."""
+    global library_builds
     out = library_path()
     if out.exists():
         return out
+    with tracing.span("mppi.library.build"):
+        _compile(out)
+    library_builds += 1
+    return out
+
+
+def _compile(out: Path) -> None:
+    """Build the library at ``out``: every source by its own nvcc, then
+    one link."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{out.stem}.{os.getpid()}"
     objs, procs = [], []
@@ -145,21 +159,21 @@ def build() -> Path:
             f"nvcc link failed ({link.returncode}):\n{link.stderr[-4000:]}")
     out.with_suffix(".ptxas.txt").write_text("".join(logs))
     os.replace(tmp, out)
-    return out
 
 
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels' library, once per process."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.pm_error_string.argtypes = [ctypes.c_int]
-        lib.pm_error_string.restype = ctypes.c_char_p
-        _lib = lib
+        with tracing.span("mppi.library.load"):
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.pm_error_string.argtypes = [ctypes.c_int]
+            lib.pm_error_string.restype = ctypes.c_char_p
+            _lib = lib
     return _lib
 
 

@@ -104,6 +104,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import tracing
 from ._launch import (check, launch, launch_counts, on_card,
                       reset_launch_counts, solve_words, split64)
 from .errors import KernelUnsupportedError
@@ -933,8 +934,9 @@ class TwoPhaseSolve:
     def _pack_cp(self, x0, useq, cp):
         """``pack_dyn`` with the fleet's cost params ``cp`` (None: the
         cost's own)."""
-        return (self.pack_dyn(x0, useq) if cp is None
-                else self.pack_dyn(x0, useq, cp))
+        with tracing.span("mppi.solve.pack"):
+            return (self.pack_dyn(x0, useq) if cp is None
+                    else self.pack_dyn(x0, useq, cp))
 
     def solve(self, x0, useq, seed: int = 0, solve: int = 0, z=None,
               normalize: bool = False, cp=None):
@@ -950,13 +952,14 @@ class TwoPhaseSolve:
             info = {"cost_min": cst["cost_min"], "cost_max": cst["cost_max"],
                     "cost_mean": cst["cost_sum"] / self.k, "nabla": l,
                     "sample_costs": costs}
-            return (self._unfold(zsum.flatten(-2)) / l[..., None, None],
-                    info)
-        zsum, stats = self.solve_raw(x0, useq, seed, solve, z, cp)
-        l = stats[..., 1]
-        info = {"cost_min": stats[..., 2], "cost_max": stats[..., 3],
-                "cost_mean": stats[..., 4] / self.k, "nabla": l}
-        return self._unfold(zsum) / l[..., None, None], info
+            zsum = zsum.flatten(-2)
+        else:
+            zsum, stats = self.solve_raw(x0, useq, seed, solve, z, cp)
+            l = stats[..., 1]
+            info = {"cost_min": stats[..., 2], "cost_max": stats[..., 3],
+                    "cost_mean": stats[..., 4] / self.k, "nabla": l}
+        with tracing.span("mppi.solve.unfold"):
+            return self._unfold(zsum) / l[..., None, None], info
 
     def solve_raw(self, x0, useq, seed: int = 0, solve: int = 0, z=None,
                   cp=None, dyn=None):
@@ -969,7 +972,10 @@ class TwoPhaseSolve:
         (``pack_dyn`` of x0 and useq), packed once."""
         if dyn is None:
             dyn = self._pack_cp(x0, useq, cp)
-        zsum, stats = pm_merge(self._fused(dyn, seed, solve, z))
+        with tracing.span("mppi.solve.rollout"):
+            rows = self._fused(dyn, seed, solve, z)
+        with tracing.span("mppi.solve.merge"):
+            zsum, stats = pm_merge(rows)
         if self._cost_offset(cp) is None:
             return zsum, stats
         cst = self._with_offset(stats, cp=cp)
@@ -997,8 +1003,10 @@ class TwoPhaseSolve:
         (a fleet's: [n, k] and [n] each); ``dyn`` as for ``solve_raw``."""
         if dyn is None:
             dyn = self._pack_cp(x0, useq, cp)
-        costs, rows = self._costs(dyn, seed, solve, z)
-        _, stats = pm_merge(rows)
+        with tracing.span("mppi.solve.rollout"):
+            costs, rows = self._costs(dyn, seed, solve, z)
+        with tracing.span("mppi.solve.merge"):
+            _, stats = pm_merge(rows)
         return self._with_offset(stats, costs, cp)
 
     def weights_nrm(self, beta, cmax) -> torch.Tensor:
@@ -1015,12 +1023,14 @@ class TwoPhaseSolve:
         costs [n, k]: [n, tau, adim] and [n]); ``nrm``: ``weights_nrm``
         of (beta, cmax) when the caller has it (a shard merge's shards
         share it)."""
-        if nrm is None:
-            nrm = self.weights_nrm(beta, cmax)
-        zsum, stats = pm_merge(mppi_weights(nrm, costs, self.tau, self.adim,
-                                            seed, solve, z,
-                                            antithetic=self.antithetic,
-                                            compute_dtype=self.compute_dtype))
+        with tracing.span("mppi.solve.weights"):
+            if nrm is None:
+                nrm = self.weights_nrm(beta, cmax)
+            rows = mppi_weights(nrm, costs, self.tau, self.adim, seed, solve,
+                                z, antithetic=self.antithetic,
+                                compute_dtype=self.compute_dtype)
+        with tracing.span("mppi.solve.merge"):
+            zsum, stats = pm_merge(rows)
         return (zsum.reshape(*zsum.shape[:-1], self.tau, self.adim),
                 stats[..., 1])
 
