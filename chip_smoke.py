@@ -72,7 +72,9 @@ port's paths through ``MPPI.next`` closed loop against the analytic plants:
   the device), each held to its gates, to the eager periods bit for bit,
   to one host sync a run, to a host ``next`` drawing the next solve index,
   and its kernels' device solve index to the int's bits (below and past
-  2^32), and timed beside the host-driven loop of the same cell;
+  2^32), its plant kernel (``csrc/plant.cu``, one node a period) to its
+  plain torch steps on the card and its launches to the replays, and
+  timed beside the host-driven loop of the same cell;
 - the fleet (``controller/fleet.py``): the JAX bench's two fleet rows at
   full width, 32 point masses and 16 rexrov2s at K=8,192, H=25, each in
   the bench's solve mode and normalized: every kernel with a vehicle axis
@@ -269,7 +271,8 @@ MBRL_CLI_STEPS, MBRL_CLI_TRAIN = 20, 5
 # solve index held to the int at 5 and OD_HIGH_SOLVE (past 2^32); the
 # row's kernels against their plain versions at its own K and H. A row's
 # launches are read from the profiler by kernel name (OD_KERNEL_RX: the
-# solve kernels by their MODE template argument, 0 fused, 1 costs). At
+# solve kernels by their MODE template argument, 0 fused, 1 costs; the
+# plant kernel by its name). At
 # these rates (~0.5-0.7 M kernels/s) the profiler lost up to 5 of a run's
 # 500 solve kernels in about one run of four on the H100, so a row is
 # profiled again while its count falls short, up to OD_PROFILE_TRIES
@@ -290,7 +293,12 @@ OD_PROFILE_TRIES, PROFILE_LOSS = 3, 0.01
 OD_KERNEL_RX = {"pm_fused_solve": r"\bpm_fused_solve_kernel<\d+, \d+, 0,",
                 "auv_fused_costs": r"\bauv_fused_solve_kernel<\d+, 1,",
                 "mppi_weights": r"\bmppi_weights_kernel\b",
-                "pm_merge": r"\bpm_merge(_stats)?_kernel\b"}
+                "pm_merge": r"\bpm_merge(_stats)?_kernel\b",
+                "auv_plant": r"\bauv_plant_kernel\b",
+                "pm_plant": r"\bpm_plant_kernel\b"}
+#: the AUV plant kernel against the torch step on the card, relative to
+#: 1 + |x| (its sums run in another order than cuBLAS's)
+OD_AUV_PLANT_TOL = 1e-6
 
 # the fleet (controller/fleet.py): the JAX bench's two fleet rows
 # (mppi_tf_tpu/bench.py:786-830, 1300-1312) at full width, 32 point masses
@@ -3587,23 +3595,65 @@ def od_rows(pm):
             "on_device_auv_mission": auv_mission}
 
 
-def plant_ms(step_fn, x, u, substeps: int, reps: int = 200) -> float:
-    """Device ms of ``substeps`` plant steps, captured as a graph of their
-    own and replayed ``reps`` times between CUDA events."""
+def plant_ms(period, x, u, reps: int = 200) -> float:
+    """Device ms of ``period(x, u)``, a period's plant steps, captured as a
+    graph of its own and replayed ``reps`` times between CUDA events."""
     x, u = x.clone(), u.clone()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        y = x
-        for _ in range(substeps):
-            y = step_fn(y, u)
+        period(x, u)
     torch.cuda.current_stream().wait_stream(side)
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
-        y = x
-        for _ in range(substeps):
-            y = step_fn(y, u)
+        period(x, u)
     return cuda_ms(g.replay, reps)
+
+
+def od_plant(loop, env, name: str, xs, u) -> dict:
+    """The row's plant kernel (``name``: auv_plant or pm_plant) as the loop
+    calls it (``loop._plant``) against its plain version on the card: on
+    each state of ``xs`` under the held action ``u``, the point mass bit
+    for bit, the AUV within OD_AUV_PLANT_TOL relative to 1 + |x|; its
+    device ms (``device_ms``, one launch), the plain torch steps' ms as a
+    graph of their own, and the datasheet bound of one launch."""
+    from mppi_tf_tpu_torch import roofline
+    from mppi_tf_tpu_torch.kernels import plant as plant_k
+
+    n = loop.substeps
+    if name == "auv_plant":
+        model, _ = env._model_on(u.device, u.dtype)
+
+        def plain(x, a):
+            return plant_k.auv_step_plain(model, x[None], a[None], n)[0]
+
+        work = (roofline.plant_bytes(1, 13, 6, u.element_size(),
+                                     plant_k.AUV_CONSTS_SIZE),
+                roofline.auv_plant_ops(model, n))
+    else:
+        def plain(x, a):
+            return plant_k.pm_step_plain(x, a, env.n_dof, env.mass, env.dt,
+                                         n)
+
+        work = (roofline.plant_bytes(1, 2 * env.n_dof, env.n_dof,
+                                     u.element_size()),
+                roofline.pm_plant_ops(env.n_dof, n))
+    gaps = []
+    for x in xs:
+        got, want = loop._plant(x, u), plain(x, u)
+        gaps.append(((got.double() - want.double()).abs()
+                     / (1.0 + want.double().abs())).max().item())
+        if name == "pm_plant" and not torch.equal(got, want):
+            gaps[-1] = float("inf")
+    tol = OD_AUV_PLANT_TOL if name == "auv_plant" else 0.0
+    bound = roofline.bound_ms(*work)
+    return {"name": name, "substeps": n, "rel_err_vs_plain": max(gaps),
+            "tol": tol, "ok": max(gaps) <= tol,
+            "ms": plant_ms(loop._plant, xs[0], u),
+            "device_ms": device_ms(lambda: loop._plant(xs[0], u),
+                                   rx=OD_KERNEL_RX[name]),
+            "plain_ms": plant_ms(plain, xs[0], u),
+            "bound_ms": bound[0], "bound_by": bound[1]}
 
 
 def od_device_index(pm, fused, adim: int, x0) -> dict:
@@ -3640,13 +3690,16 @@ def od_row(pm, name: str, make, smi: str, shards: int = 1) -> dict:
     CUDA events), one profiled (its kernels counted by name against
     the captured launches times the periods), the eager periods at the
     same solve indices (bit for bit), the row's kernels against their
-    plain versions at its K and H, the plant's own graph, the device solve
-    index, and the host-driven loop of the same cell. A controller over a
+    plain versions at its K and H, the plant kernel against its plain
+    version (``od_plant``: one plant node a period, launched once a
+    replay), the device solve index, and the host-driven loop of the same
+    cell. A controller over a
     mesh of ``shards`` shards (``parallel/fused.py``) launches its solve
     kernel once a shard a period; its kernels are checked at K / shards."""
     from mppi_tf_tpu_torch.envs import build_on_device_loop
     from mppi_tf_tpu_torch.envs.runner import ClosedLoopRunner
     from mppi_tf_tpu_torch.kernels import auv_mppi as auv
+    from mppi_tf_tpu_torch.kernels import plant as plant_k
 
     ctrl, plant, steps, substeps, radius, x0, arm, host_env, gate = make()
     loop = build_on_device_loop(ctrl, plant.step_fn, steps, substeps,
@@ -3691,14 +3744,20 @@ def od_row(pm, name: str, make, smi: str, shards: int = 1) -> dict:
         events.append(start.elapsed_time(end) / steps)
     events_ms = float(np.median(events))
     pm.reset_launch_counts()
+    plant_k.reset_launch_counts()
     graph = run()
-    counts = {n: c for n, c in pm.launch_counts.items() if c}
+    # the solve's launches and the plant kernel's, each counted by its
+    # wrapper (the plant's apart, kernels/plant.py)
+    counts = {n: c for n, c in (*pm.launch_counts.items(),
+                                *plant_k.launch_counts.items()) if c}
     useq_g = loop.useq
     queue_g = (ctrl._cost.count.clone(), ctrl._cost.waypoints.clone()) \
         if radius is not None else ()
     # the profiler's count of the row's kernels by name against the
     # captured launches x periods (``profiled_counts``, ``profile_ok``)
-    expected = {n: c * steps for n, c in loop.nodes.items()}
+    entry = "auv_plant" if radius is not None else "pm_plant"
+    expected = {n: c * steps
+                for n, c in {**loop.nodes, **loop.plant_nodes}.items()}
     prof, tries = profiled_counts(lambda: run(loop), steps, expected,
                                   OD_KERNEL_RX)
     profiled = tries[-1]
@@ -3714,7 +3773,10 @@ def od_row(pm, name: str, make, smi: str, shards: int = 1) -> dict:
     if len(graph) == 3:
         pairs += [(n, graph[2][n], eager[2][n]) for n in ("A", "B")]
     bits = {n: bool(torch.equal(a, b)) for n, a, b in pairs}
-    p_ms = plant_ms(plant.step_fn, xd, graph[1][-1], substeps)
+    # the plant kernel on the row's start and last state under its last
+    # action, against its plain version on the card
+    plant_row = od_plant(loop, plant, entry, (xd, graph[0][-1]),
+                         graph[1][-1])
     states = graph[0].cpu().double().numpy()
     readings, gate_ok = gate(states, graph[2] if len(graph) == 3 else None)
     # the row's kernels against their plain versions at its K and H on
@@ -3778,7 +3840,8 @@ def od_row(pm, name: str, make, smi: str, shards: int = 1) -> dict:
     out.update(
         readings, gate_ok=bool(gate_ok), launches=counts,
         launches_profiled=profiled, profiled_runs=tries,
-        launches_a_period=loop.nodes,
+        launches_a_period=loop.nodes, plant_nodes=loop.plant_nodes,
+        plant_calls=loop.plant_calls, plant_kernel=plant_row,
         captures=loop.captures, max_abs_err_vs_plain=errs,
         wall_ms_a_period=float(np.median(walls)) * 1e3 / steps,
         wall_ms_runs=[w * 1e3 for w in walls],
@@ -3789,7 +3852,8 @@ def od_row(pm, name: str, make, smi: str, shards: int = 1) -> dict:
         device_busy_share=prof["device_busy_share"],
         top_kernels_us_a_period=prof["top_kernels_us_per_step"],
         syncs_a_run=syncs, replay_equals_eager=bits,
-        plant_ms_a_period=p_ms, plant_share_of_events=p_ms / events_ms,
+        plant_ms_a_period=plant_row["ms"],
+        plant_share_of_events=plant_row["ms"] / events_ms,
         device_solve_index=index, refit=refit,
         profiled_wall_ms_a_period=dev_ms / prof["device_busy_share"],
         host_driven={"steps": OD_TWIN_STEPS, "wall_ms_a_step": twin_wall,
@@ -3809,7 +3873,8 @@ def od_row(pm, name: str, make, smi: str, shards: int = 1) -> dict:
     if not (gate_ok and noise_ok and all(bits.values()) and index_ok
             and one_sync and loop.captures == 1 and first is not None
             and expected.get(solve) == shards * steps
-            and counts == expected
+            and loop.plant_nodes == {entry: 1} and loop.plant_calls == 1
+            and plant_row["ok"] and counts == expected
             and profile_ok(tries, expected)):
         raise AssertionError(f"{name}: {out}")
     return out
@@ -6959,6 +7024,30 @@ def main() -> int:
             "ms": t["ms"], "device_ms": t["device_ms"],
             "per_vehicle_ms": t["per_vehicle_ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None})
+    # the plant kernels (csrc/plant.cu), one launch a period of each
+    # on-device row, timed and checked at the mission's and the point-mass
+    # loop's shapes (``od_plant``); they replace no TPU kernel
+    psrc = "mppi_tf_tpu_torch/csrc/plant.cu"
+    for row, path in (
+            ("on_device_auv_mission", "rexrov2 mission plant, one vehicle, "
+             f"rk 2, {DIVE_SUBSTEPS} substeps of 0.02 s a period"),
+            ("on_device_loop", "point-mass loop plant, one vehicle, "
+             f"{OD_SUBSTEPS} substeps of 0.01 s a period")):
+        pk = on_device[row]["plant_kernel"]
+        kernels.append({
+            "name": pk["name"], "route": "cuda", "source": psrc,
+            "replaces": None,
+            "launches": sum(r["launches"].get(pk["name"], 0)
+                            for r in on_device.values()),
+            "path": path, "max_abs_err": pk["rel_err_vs_plain"],
+            "max_abs_err_of": "kernel vs the plain torch steps on the card, "
+                              "relative to 1 + |x|, at the row's start and "
+                              "last state under its last action",
+            "ms": pk["ms"], "device_ms": pk["device_ms"],
+            "plain_ms": pk["plain_ms"],
+            "plain_of": "the plain torch steps as a graph of their own",
+            "bound_ms": pk["bound_ms"], "bound_by": pk["bound_by"],
             "library_ms": None})
     # one PyTorch call computes the noise dump's function (another stream):
     # torch.randn at the dump's shape; the serving phases' launches

@@ -7,7 +7,8 @@
   (reference: scripts/src/mujoco/simulation.py);
 - ``AUVEnv``: the Fossen dynamics of ``models/auv.py`` stepped at a fine
   dt in float64 on the CPU; its ``step_fn`` also steps a state on the card
-  (the on-device loop, envs/mjx_env.py).
+  (the on-device loop, envs/mjx_env.py), all of a period's substeps in one
+  launch of ``kernels/plant.py``'s kernel.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ import copy
 
 import numpy as np
 import torch
+
+from ..kernels import plant
 
 
 class PointMassEnv:
@@ -95,7 +98,8 @@ class AUVEnv:
         self._model = get_model(cfg, dt=self.dt, action_dim=6,
                                 dtype=torch.float64, device="cpu")
         self._model.requires_grad_(False)
-        self._models = {(self._model.device, self._model.dtype): self._model}
+        self._models = {(self._model.device, self._model.dtype):
+                        (self._model, None)}
         self._t = 0.0
         if goal is None:
             goal = np.zeros(self.STATE_DIM)
@@ -111,24 +115,32 @@ class AUVEnv:
         return x
 
     def _model_on(self, device, dtype):
-        """The plant's model on ``device`` in ``dtype``: a copy made at
-        first use and kept (an on-device loop makes it in its warm-up,
-        before a capture)."""
+        """The plant's model on ``device`` in ``dtype`` and, on the card,
+        its constants packed for the plant kernel
+        (``kernels/plant.auv_constants``): made at first use and kept. An
+        on-device loop makes them in its warm-up, before a capture, so a
+        graph never reads a buffer made during its capture."""
         key = (torch.device(device), dtype)
         if key not in self._models:
-            self._models[key] = copy.deepcopy(self._model).to(
-                device=key[0], dtype=dtype)
+            model = copy.deepcopy(self._model).to(device=key[0], dtype=dtype)
+            consts = (plant.auv_constants(model) if key[0].type == "cuda"
+                      else None)
+            self._models[key] = (model, consts)
         return self._models[key]
 
     @torch.no_grad()
-    def step_fn(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-        """One plant step at the plant dt, on x's device in x's dtype.
-        x: [13], u: [6] -> [13], or a fleet's [n, 13] and [n, 6] -> [n, 13]
-        (the model's batched step, a row a vehicle)."""
-        model = self._model_on(x.device, x.dtype)
+    def step_fn(self, x: torch.Tensor, u: torch.Tensor,
+                substeps: int = 1) -> torch.Tensor:
+        """``substeps`` plant steps at the plant dt under the held force u,
+        on x's device in x's dtype. x: [13], u: [6] -> [13], or a fleet's
+        [n, 13] and [n, 6] -> [n, 13] (the model's batched step, a row a
+        vehicle). On the card one launch of the plant kernel
+        (``kernels/plant.auv_step``); on the CPU ``substeps`` torch steps."""
+        model, consts = self._model_on(x.device, x.dtype)
         xb = x.reshape(-1, x.shape[-1])
         ub = u.reshape(-1, u.shape[-1]).to(x.dtype)
-        return model.step(xb, ub).reshape(x.shape)
+        return plant.auv_step(model, xb, ub, substeps,
+                              consts).reshape(x.shape)
 
     def getTime(self) -> float:
         return self._t

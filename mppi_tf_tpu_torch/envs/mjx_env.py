@@ -29,12 +29,13 @@ getGoal / reset) for the generic runner. The analytic AUV plant
 from __future__ import annotations
 
 import ctypes
+import inspect
 
 import numpy as np
 import torch
 
 from .. import tracing
-from ..kernels import _launch
+from ..kernels import _launch, plant
 
 #: the CUDA graph node types (CUgraphNodeType, cudaGraphNodeType) that
 #: ``graph_node_kinds`` names; every other type counts as "other"
@@ -61,16 +62,15 @@ class DevicePointMassEnv:
         self._x = torch.zeros(2 * self.n_dof, dtype=dtype)
 
     # --- on-device surface ----------------------------------------------
-    def step_fn(self, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
-        """One physics step, pure, on x's device: x [2n] interleaved,
-        u [n] -> [2n], or a fleet's [V, 2n] and [V, n] -> [V, 2n]. The
-        exact LTI update (RK4 for this plant), in the JAX package's order
-        of operations (mjx_env.py:57-70), vehicle by vehicle."""
-        q, v = x[..., 0::2], x[..., 1::2]
-        a = u[..., : self.n_dof] / self.mass
-        q = q + v * self.dt + 0.5 * a * self.dt * self.dt
-        v = v + a * self.dt
-        return torch.stack([q, v], dim=-1).reshape(x.shape)
+    def step_fn(self, x: torch.Tensor, u: torch.Tensor,
+                substeps: int = 1) -> torch.Tensor:
+        """``substeps`` physics steps under the held force u, pure, on x's
+        device: x [2n] interleaved, u [n] -> [2n], or a fleet's [V, 2n] and
+        [V, n] -> [V, 2n]. The exact LTI update (RK4 for this plant), in
+        the JAX package's order of operations (mjx_env.py:57-70), vehicle
+        by vehicle: on the card one launch of the plant kernel
+        (``kernels/plant.pm_step``), on the CPU ``substeps`` torch steps."""
+        return plant.pm_step(x, u, self.n_dof, self.mass, self.dt, substeps)
 
     # --- host Simulation API (reference simulation.py:26-55) -------------
     def getTime(self) -> float:
@@ -187,7 +187,11 @@ def build_on_device_loop(ctrl, plant_step, steps: int, substeps: int = 10,
     ``run.eager(...)`` runs the same periods without a graph.
 
     ``plant_step`` is a pure (x, u) -> x_next at the physics dt
-    (``DevicePointMassEnv.step_fn``, ``AUVEnv.step_fn``).
+    (``DevicePointMassEnv.step_fn``, ``AUVEnv.step_fn``). A plant that
+    declares a ``substeps`` parameter is called once a period,
+    ``plant_step(x, u, substeps=substeps)`` (on the card the two plants
+    then step all the substeps in one kernel); any other is called
+    ``substeps`` times.
 
     **Adaptive DMD** (``controller.dmd.DMDAdaptiveMixin``): each period
     also writes its (x, u, x') into a ring window of ``refit_window`` rows
@@ -287,19 +291,22 @@ def graph_node_kinds(graph) -> dict:
 class OnDeviceLoop:
     """The ``run`` of ``build_on_device_loop``. After a captured run,
     ``nodes`` holds the kernel launches of one captured period by entry
-    point, ``graph_nodes`` the period graph's nodes by kind (kernel,
-    memcpy, memset, other), ``capture_s`` the warm-up and capture time of
-    the last capture on the ``mppi.loop.capture`` span's clock (None
-    before one), ``captures`` how many there were; ``useq`` is the nominal
-    sequence the last run ended with."""
+    point (the solve's, ``_launch``), ``plant_nodes`` the plant kernel's
+    (``kernels/plant.py``), ``graph_nodes`` the period graph's nodes by
+    kind (kernel, memcpy, memset, other), ``capture_s`` the warm-up and
+    capture time of the last capture on the ``mppi.loop.capture`` span's
+    clock (None before one), ``captures`` how many there were; ``useq`` is
+    the nominal sequence the last run ended with. ``plant_calls`` is the
+    plant calls of one period: 1 where the plant steps every substep in
+    one call, else ``substeps``."""
 
     def __init__(self, ctrl, plant_step, steps: int, substeps: int,
                  refit_window, waypoint_radius):
         from ..controller.dmd import DMDAdaptiveMixin
         from ..costs.waypoints import WayPointsCost
 
-        self.ctrl, self.plant_step = ctrl, plant_step
-        self.steps, self.substeps = int(steps), int(substeps)
+        self.ctrl = ctrl
+        self._set_plant(plant_step, steps, substeps)
         self.adaptive = isinstance(ctrl, DMDAdaptiveMixin)
         self.W = None
         if self.adaptive:
@@ -316,11 +323,28 @@ class OnDeviceLoop:
         self._graphs = None      # (period graph, refit graph or None)
         self._frozen = None      # what the graphs froze (_freeze_key)
         self.nodes, self.capture_s, self.captures = {}, None, 0
-        self.graph_nodes = {}
+        self.plant_nodes, self.graph_nodes = {}, {}
+
+    def _set_plant(self, plant_step, steps: int, substeps: int) -> None:
+        """The plant, the period's shape and how a period calls the plant
+        (``plant_calls``), read once from the plant's signature."""
+        self.plant_step = plant_step
+        self.steps, self.substeps = int(steps), int(substeps)
+        self._fused_plant = (self.substeps > 1 and "substeps" in
+                             inspect.signature(plant_step).parameters)
+        self.plant_calls = 1 if self._fused_plant else self.substeps
 
     @property
     def useq(self) -> torch.Tensor:
         return self._bufs.useq.clone()
+
+    def _plant(self, x: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
+        """The period's substeps of the plant under the held action."""
+        if self._fused_plant:
+            return self.plant_step(x, action, substeps=self.substeps)
+        for _ in range(self.substeps):
+            x = self.plant_step(x, action)
+        return x
 
     # --- the period -------------------------------------------------------
     @torch.no_grad()
@@ -334,9 +358,7 @@ class OnDeviceLoop:
                                                   solve=b.solve)
         else:
             action, shifted, _ = ctrl._solve(b.state, b.useq, ctrl._sched)
-        x = b.state
-        for _ in range(self.substeps):
-            x = self.plant_step(x, action)
+        x = self._plant(b.state, action)
         if self.pop is not None:
             cost = ctrl._cost
             cp = self.pop({"count": cost.count,
@@ -424,6 +446,7 @@ class OnDeviceLoop:
                     self._fit(b)
             torch.cuda.current_stream().wait_stream(side)
             before = dict(_launch.captured_counts)
+            before_plant = dict(plant.captured_counts)
             # kept after its capture, so that its nodes can be read, and
             # instantiated here, not at its first replay
             period = torch.cuda.CUDAGraph(keep_graph=True)
@@ -437,6 +460,9 @@ class OnDeviceLoop:
             self.nodes = {n: c - before[n]
                           for n, c in _launch.captured_counts.items()
                           if c > before[n]}
+            self.plant_nodes = {n: c - before_plant[n]
+                                for n, c in plant.captured_counts.items()
+                                if c > before_plant[n]}
             self.graph_nodes = graph_node_kinds(period)
             period.instantiate()
             self._graphs = (period, fit)
@@ -557,6 +583,8 @@ class OnDeviceLoop:
                                 else:
                                     self._fit(b)
                         _launch.count_replays(self.nodes, steps)
+                        _launch.count_replays(self.plant_nodes, steps,
+                                              plant.launch_counts)
                 else:
                     load()
                     for j in range(steps):
@@ -617,16 +645,16 @@ class _FleetBuffers:
 class FleetLoop(OnDeviceLoop):
     """The ``run`` of ``FleetMPPI.build_on_device_loop``: ``OnDeviceLoop``'s
     capture and replay over a fleet's period (the fleet solve, the
-    batched plant, every vehicle's pop). ``nodes``, ``graph_nodes``,
-    ``capture_s`` and ``captures`` as there."""
+    batched plant, every vehicle's pop). ``nodes``, ``plant_nodes``,
+    ``graph_nodes``, ``capture_s``, ``captures`` and ``plant_calls`` as
+    there."""
 
     def __init__(self, fleet, plant_step, steps: int, substeps: int,
                  waypoint_radius):
         from ..controller.fleet import _fleet_pop
 
         self.fleet, self.ctrl = fleet, fleet._tpl
-        self.plant_step = plant_step
-        self.steps, self.substeps = int(steps), int(substeps)
+        self._set_plant(plant_step, steps, substeps)
         self.adaptive, self.W = False, None
         self.pop = self.r2 = None
         if waypoint_radius is not None:
@@ -637,15 +665,13 @@ class FleetLoop(OnDeviceLoop):
         self._frozen = None
         self._gens = None
         self.nodes, self.capture_s, self.captures = {}, None, 0
-        self.graph_nodes = {}
+        self.plant_nodes, self.graph_nodes = {}, {}
 
     @torch.no_grad()
     def _period(self, b) -> None:
         actions, shifted, _ = self.fleet._step(b.state, b.useq, b.cp,
                                                solve=b.solve, gens=self._gens)
-        x = b.state
-        for _ in range(self.substeps):
-            x = self.plant_step(x, actions)
+        x = self._plant(b.state, actions)
         if self.pop is not None:
             cp = self.pop(b.cp, x, self.r2)
             for name, t in cp.items():
@@ -720,6 +746,8 @@ class FleetLoop(OnDeviceLoop):
                         for _ in range(steps):
                             period.replay()
                         _launch.count_replays(self.nodes, steps)
+                        _launch.count_replays(self.plant_nodes, steps,
+                                              plant.launch_counts)
                 else:
                     load()
                     for _ in range(steps):

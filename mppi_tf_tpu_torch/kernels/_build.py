@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+_D = ctypes.c_double
 # the antithetic half, (seed, solve) as 32-bit words, then the solve index's
 # device address or null (mppi_common.cuh Seeds)
 _SEEDS = [_U, _U, _U, _U, _U, _P]
@@ -75,6 +76,11 @@ _SIGNATURES = {
     "roofline_expf": [_P, _I, _I, _P],
     "roofline_bm": [_P, _I, _I, _U, _P],
     "roofline_stream": [_P, ctypes.c_longlong, _P, _I, _P],
+    # the plants' steps (csrc/plant.cu, kernels/plant.py): (x, u, out,
+    # consts, n, rk, substeps, dt, dt / 2, dt / 6, f64) and (x, u, out, n,
+    # n_dof, u_stride, substeps, 1 / m, dt, f64)
+    "auv_plant": [_P, _P, _P, _P, _I, _I, _I, _D, _D, _D, _I, _P],
+    "pm_plant": [_P, _P, _P, _I, _I, _I, _I, _D, _D, _I, _P],
 }
 # the bf16 builds of the sources (suffix _bf16, every kernel but pm_merge)
 # and the NN kernel's bf16-products build (suffix _bfp) take the same

@@ -6,7 +6,8 @@ launches its kernel or raises. Each launch adds one to
 ``launch_counts[name]``, and nothing else does. A call made while the
 stream is being captured into a CUDA graph launches nothing: it adds one
 to ``captured_counts[name]`` instead, and the code that replays the graph
-adds its launches (``count_replays``).
+adds its launches (``count_replays``). The plant kernels keep the same two
+counts of their own (``kernels/plant.py``): these are the solve's.
 """
 
 from __future__ import annotations
@@ -125,10 +126,13 @@ def solve_words(solve, device, n: int = 1) -> tuple:
     return 0, 0, _fleet_index.data_ptr()
 
 
-def launch(name: str, device, *args) -> None:
-    """Launch C entry point ``name`` on the current stream of ``device``."""
+def launch(name: str, device, *args, counts=None) -> None:
+    """Launch C entry point ``name`` on the current stream of ``device``.
+    ``counts``: the (launches, captured) dicts it adds to, by default this
+    module's ``launch_counts`` and ``captured_counts``."""
     from . import _build
 
+    launched, captured = counts or (launch_counts, captured_counts)
     lib = _build.load_library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -136,13 +140,15 @@ def launch(name: str, device, *args) -> None:
     if rc != 0:
         raise KernelLaunchError(f"{name} failed: {_build.error_string(rc)}")
     if torch.cuda.is_current_stream_capturing():
-        captured_counts[name] += 1
+        captured[name] += 1
     else:
-        launch_counts[name] += 1
+        launched[name] += 1
 
 
-def count_replays(nodes: dict, replays: int) -> None:
+def count_replays(nodes: dict, replays: int, launched=None) -> None:
     """Add the launches of ``replays`` replays of a graph whose capture
-    recorded ``nodes`` ({entry point: kernel nodes})."""
+    recorded ``nodes`` ({entry point: kernel nodes}) to ``launched``
+    (default ``launch_counts``)."""
+    launched = launch_counts if launched is None else launched
     for name, n in nodes.items():
-        launch_counts[name] += n * replays
+        launched[name] += n * replays

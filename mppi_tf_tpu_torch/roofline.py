@@ -127,13 +127,9 @@ def auv_solve_ops(consts, dyn, k: int, tau: int, prng: bool,
     blend; ``ELIPSE3D_OPS`` for "elipse3d") and the action-cost terms, the
     z-quadratic only where nc_half is not 0. The kDiag kernels run this
     count but for cob's zeros and M's; kDense runs the matrices dense."""
-    m_tot = dyn[:36].cpu().numpy()
-    inv_m = dyn[36:72].cpu().numpy()
-    sd = (36 + 18 + 24 + 2 * nnz(consts.lin_damp)
-          + 2 * nnz(consts.lin_damp_fwd) + 36 + 2 * nnz(m_tot) + 36
-          + 24 + 2 * nnz(consts.cog) + 2 * nnz(consts.cob) + 6
-          + 2 * nnz(inv_m))
-    stages = {1: sd + 26, 2: 2 * sd + 26 + 39, 4: 4 * sd + 3 * 52 + 39}
+    stages = _auv_stage_ops(consts.lin_damp, consts.lin_damp_fwd,
+                            dyn[:36].cpu().numpy(), consts.cog, consts.cob,
+                            dyn[36:72].cpu().numpy())
     q_ops = {"static_quat": 3 + 7 + 2 + 10 + 2 + 6 + 2 * nnz(consts.Q) + 20,
              "waypoints_quat": 2 * (3 + 7 + 3 + 10 + 2 + 6
                                     + 2 * nnz(consts.Q) + 20) + 3,
@@ -142,6 +138,41 @@ def auv_solve_ops(consts, dyn, k: int, tau: int, prng: bool,
     step = (6 + 2 * nnz(consts.scale) + stages[consts.rk] + 13 + q_ops
             + 12 + quad)
     return _rollout_ops(k, tau, 6, step, q_ops, prng, costs_only)
+
+
+def _auv_stage_ops(lin_damp, lin_damp_fwd, m_tot, cog, cob, inv_m) -> dict:
+    """{rk: operations of one AUV step's state derivatives and rk stages},
+    the state derivative counted as ``auv_solve_ops`` says."""
+    sd = (36 + 18 + 24 + 2 * nnz(lin_damp) + 2 * nnz(lin_damp_fwd) + 36
+          + 2 * nnz(m_tot) + 36 + 24 + 2 * nnz(cog) + 2 * nnz(cob) + 6
+          + 2 * nnz(inv_m))
+    return {1: sd + 26, 2: 2 * sd + 26 + 39, 4: 4 * sd + 3 * 52 + 39}
+
+
+def auv_plant_ops(model, substeps: int) -> float:
+    """Operations of one launch of the AUV plant kernel (csrc/plant.cu)
+    for one vehicle: ``substeps`` steps of ``model`` (an ``AUVModel``), each
+    its rk stages and the quaternion's renormalisation (13), counted from
+    the model's own nonzeros as ``auv_solve_ops`` counts a step."""
+    m_tot, inv_m = (t.detach().cpu().numpy() for t in model.precompute())
+    stages = _auv_stage_ops(*(t.detach().cpu().numpy() for t in (
+        model.lin_damp, model.lin_damp_fwd)), m_tot,
+        *(t.detach().cpu().numpy() for t in (model.cog, model.cob)), inv_m)
+    return float(int(substeps) * (stages[int(model.rk)] + 13))
+
+
+def pm_plant_ops(n_dof: int, substeps: int) -> float:
+    """Operations of one launch of the point-mass plant kernel for one
+    vehicle: a = u / m, q + v dt + 0.5 a dt^2 and v + a dt on each of the
+    ``n_dof`` axes, ``substeps`` times."""
+    return float(int(substeps) * 9 * int(n_dof))
+
+
+def plant_bytes(vehicles: int, sdim: int, adim: int, itemsize: int,
+                consts: int = 0) -> float:
+    """Bytes of one plant launch: each vehicle's state read and written
+    and its action read once, and ``consts`` constants."""
+    return float(itemsize * (vehicles * (2 * sdim + adim) + consts))
 
 
 def nn_solve_ops(consts, k: int, tau: int, prng: bool,

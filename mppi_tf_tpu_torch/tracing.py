@@ -27,9 +27,11 @@ total less that of its direct children) and the median and 95th
 percentile; ``export(path)`` writes the ring as a Chrome trace to lay over
 the profiler's. ``counters(*loops)`` reads the port's counters where they
 are kept: the kernel launches by entry point, the launches recorded into
-CUDA graphs, the library builds of this process and, for each on-device
-loop given, its captured period's kernel launches (``nodes``), its graph's
-nodes by kind (``graph_nodes``), its captures and the last one's seconds.
+CUDA graphs, the plant kernels' own two counts, the library builds of this
+process and, for each on-device loop given, its captured period's kernel
+launches (``nodes``, the plant's ``plant_nodes``), its graph's nodes by
+kind (``graph_nodes``), its captures, the last one's seconds and its plant
+calls a period.
 """
 
 from __future__ import annotations
@@ -208,19 +210,25 @@ def export(path) -> None:
 
 
 def counters(*loops) -> dict:
-    """The port's counters as they stand: kernel launches by entry point
-    (``launch_counts``), launches recorded into CUDA graphs
-    (``captured_counts``), nvcc builds in this process
+    """The port's counters as they stand: the solve's kernel launches by
+    entry point (``launch_counts``), its launches recorded into CUDA
+    graphs (``captured_counts``), the plant kernels' two counts
+    (``plant_counts``: ``kernels/plant.py``), nvcc builds in this process
     (``library_builds``) and, for each loop of ``loops``, its ``nodes``,
-    ``graph_nodes``, ``captures`` and ``capture_s``."""
-    from .kernels import _build, _launch
+    ``plant_nodes``, ``graph_nodes``, ``captures``, ``capture_s`` and
+    ``plant_calls``."""
+    from .kernels import _build, _launch, plant
 
     out = {"launch_counts": dict(_launch.launch_counts),
            "captured_counts": dict(_launch.captured_counts),
+           "plant_counts": {"launch_counts": dict(plant.launch_counts),
+                            "captured_counts": dict(plant.captured_counts)},
            "library_builds": _build.library_builds}
     if loops:
         out["loops"] = [{"nodes": dict(lp.nodes),
+                         "plant_nodes": dict(lp.plant_nodes),
                          "graph_nodes": dict(lp.graph_nodes),
                          "captures": lp.captures,
-                         "capture_s": lp.capture_s} for lp in loops]
+                         "capture_s": lp.capture_s,
+                         "plant_calls": lp.plant_calls} for lp in loops]
     return out

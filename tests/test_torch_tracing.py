@@ -308,7 +308,7 @@ def test_the_ring_keeps_the_last_capacity_spans():
 
 
 def test_counters_read_the_ports_counters_in_place():
-    from mppi_tf_tpu_torch.kernels import _build, _launch
+    from mppi_tf_tpu_torch.kernels import _build, _launch, plant
 
     ctrl = _controller()
     env = DevicePointMassEnv(n_dof=2, dt=0.01)
@@ -317,9 +317,12 @@ def test_counters_read_the_ports_counters_in_place():
     got = tracing.counters(loop)
     assert got["launch_counts"] == _launch.launch_counts
     assert got["captured_counts"] == _launch.captured_counts
+    assert got["plant_counts"] == {"launch_counts": plant.launch_counts,
+                                   "captured_counts": plant.captured_counts}
     assert got["library_builds"] == _build.library_builds
-    assert got["loops"] == [{"nodes": {}, "graph_nodes": {}, "captures": 0,
-                             "capture_s": None}]
+    assert got["loops"] == [{"nodes": {}, "plant_nodes": {},
+                             "graph_nodes": {}, "captures": 0,
+                             "capture_s": None, "plant_calls": 1}]
     assert "loops" not in tracing.counters()
 
 
