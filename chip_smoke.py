@@ -325,7 +325,19 @@ FLEET_PM_TOL, FLEET_AUV_TOL = GOAL_TOL, DIVE_TOL
 FLEET_RETASK = [-0.6, 0.0, 0.3, 0.0, 0.8, 0.0]
 FLEET_KERNEL_RX = {**OD_KERNEL_RX,
                    "pm_fused_costs": r"\bpm_fused_solve_kernel<\d+, \d+, 1,",
-                   "auv_fused_solve": r"\bauv_fused_solve_kernel<\d+, 0,"}
+                   "auv_fused_solve": r"\bauv_fused_solve_kernel<\d+, 0,",
+                   "nn_fused_solve":
+                       r"\bnn_fused_solve_kernel<\d+, \d+, \d+, 0>",
+                   "nn_fused_costs":
+                       r"\bnn_fused_solve_kernel<\d+, \d+, \d+, 1>"}
+# the NN fleet: FLEET_AUV_N NNAUVModels (nn_fused's 3 x 32 network and
+# trained normalisers) at the benchmark cell's K and FLEET_H on the
+# flagship task, depths uniform(-2, 0): both NN kernels' fleet launch over
+# one weight segment against n one-vehicle launches bit for bit (Philox by
+# value and on the device, injected z), FLEET_TWIN_STEPS host steps holding
+# one launch of each phase a step, and the same steps timed in turns as
+# the fleet launch and as n one-vehicle launches
+FLEET_NN_K = 65_536
 
 # the tracking slice. Point-mass mission: the bundled envs/point_mass (lambda
 # 1, gamma 1, sigma 0.25 I) and tasks/waypoints_task (3 legs, radius 0.3) at
@@ -2265,13 +2277,18 @@ class ParentLibrary:
     it, so it runs the parent's kernels on the same inputs: the vehicles
     of a fleet launch (last before the stream, from before the fleet; the
     parent is called at n = 1 alone), the AUV's structure (third, from
-    before kDiag) and the point mass's (fourth, from before kIntegrator)."""
+    before kDiag), the point mass's (fourth, from before kIntegrator) and
+    the NN solves' rows (sixth, from before the weight segment: a parent
+    reads one vehicle's dyn at the segment's address, where its row
+    follows)."""
 
-    #: the place of the structure argument a parent may lack, by prefix
-    STRUCTURE_ARG = {"auv_": 2, "pm_": 3}
+    #: the place of the argument a parent may lack beside the vehicles
+    #: (the structure; the NN's rows), by prefix
+    STRUCTURE_ARG = {"auv_": 2, "pm_": 3, "nn_": 5}
     #: the entry points that take the vehicles of a fleet launch
     VEHICLE_ENTRIES = ("pm_fused_solve", "pm_fused_costs", "mppi_weights",
-                       "pm_merge", "auv_fused_solve", "auv_fused_costs")
+                       "pm_merge", "auv_fused_solve", "auv_fused_costs",
+                       "nn_fused_solve", "nn_fused_costs")
 
     def __init__(self, lib, arity: dict, signatures: dict):
         self._lib = lib
@@ -2279,7 +2296,8 @@ class ParentLibrary:
         for n, a in arity.items():
             ours = len(signatures.get(n, ()))
             drop = []
-            if ours > a and n.removesuffix("_bf16") in self.VEHICLE_ENTRIES:
+            if ours > a and n.removesuffix("_bf16").removesuffix(
+                    "_bfp") in self.VEHICLE_ENTRIES:
                 drop.append(ours - 2)
             if ours - len(drop) == a + 1:
                 drop += [i for pre, i in self.STRUCTURE_ARG.items()
@@ -4299,6 +4317,125 @@ def fleet_row(pm, kind: str, normalize: bool, smi: str) -> dict:
     return out
 
 
+def fleet_nn_row(pm, normalize: bool, smi: str) -> dict:
+    """One NN fleet row (FLEET_NN_K above); fails unless every bit holds,
+    the fleet launch's costs on the injected normals meet each vehicle's
+    plain version (COST_RTOL, COST_ATOL), every host step launched each
+    phase once and the profiler counts one NN kernel a step."""
+    from mppi_tf_tpu_torch.controller import FleetMPPI
+    from mppi_tf_tpu_torch.kernels import nn_mppi as nnk
+
+    t_row = time.perf_counter()
+    proto = nn_fused(FLEET_NN_K, FLEET_H)
+    n = FLEET_AUV_N
+    goals = fleet_goals("auv", proto.cost.goal.cpu().numpy())
+    fleet = FleetMPPI(proto.model, proto.cost, n, k=FLEET_NN_K, tau=FLEET_H,
+                      lam=AUV_LAM, upsilon=AUV_UPSILON, sigma=AUV_SIGMA,
+                      goals=goals, normalize_cost=normalize, kernel="auto")
+    fused = fleet._tpl._fused
+    label = f"fleet_nn{'_normalized' if normalize else ''}"
+    if not (fleet.kernel_path == "cuda" and fused.fleet_axis):
+        raise AssertionError(f"{label}: {fleet.kernel_path}")
+    rng = np.random.default_rng(23)
+    x0 = np.tile(rest_state(), (n, 1))
+    xs = torch.as_tensor(x0 + 0.05 * rng.standard_normal(x0.shape),
+                         dtype=torch.float32, device="cuda")
+    xs[:, 3:7] /= torch.linalg.vector_norm(xs[:, 3:7], dim=1, keepdim=True)
+    us = torch.as_tensor(200.0 * rng.standard_normal((n, FLEET_H, 6)),
+                         dtype=torch.float32, device="cuda")
+    with torch.no_grad():
+        weights, rows = fused.pack_dyn(xs, us, fleet.cost_params)
+    z = torch.as_tensor(rng.standard_normal((n, FLEET_H, 6, FLEET_NN_K),
+                                            np.float32), device="cuda")
+    fleet_dyn = (weights, rows)
+
+    def one(v):
+        return torch.cat([weights, rows[v]])
+
+    bits = {}
+    dev = torch.tensor([7], dtype=torch.int64, device="cuda")
+    for case, zz, s in (("philox", None, 7), ("philox_device", None, dev),
+                        ("injected", z, 7)):
+        part = fused._fused(fleet_dyn, 11, s, zz)
+        costs, crows = fused._costs(fleet_dyn, 11, s, zz)
+        same = {"solve": True, "costs": True, "costs_rows": True}
+        for v in range(n):
+            zv = None if zz is None else zz[v]
+            same["solve"] &= bool(torch.equal(
+                part[v], fused._fused(one(v), 11, 7 * n + v, zv)))
+            c1, r1 = fused._costs(one(v), 11, 7 * n + v, zv)
+            same["costs"] &= bool(torch.equal(costs[v], c1))
+            same["costs_rows"] &= bool(torch.equal(crows[v], r1))
+        bits[case] = same
+    # the injected case's fleet costs against each vehicle's plain version
+    # (torch ops on the card, TF32 off) on the same normals
+    vs_plain = {"cost_rtol": COST_RTOL, "cost_atol": COST_ATOL, "ok": True,
+                "max_abs_err": 0.0, "max_ratio": 0.0}
+    for v in range(n):
+        plain, _ = nnk.fused_costs_plain(fused.consts, one(v), FLEET_NN_K,
+                                         FLEET_H, z=z[v])
+        ok_v, err_v, ratio_v = close(costs[v], plain, COST_RTOL, COST_ATOL)
+        vs_plain["ok"] &= ok_v
+        vs_plain["max_abs_err"] = max(vs_plain["max_abs_err"], err_v)
+        vs_plain["max_ratio"] = max(vs_plain["max_ratio"], ratio_v)
+    del z, part, costs, crows, plain
+    times = {}
+    for name, call in (("solve", fused._fused), ("costs", fused._costs)):
+        times[name] = {
+            "ms": cuda_ms(lambda: call(fleet_dyn, 11, 3, None), 20),
+            "device_ms": device_ms(lambda: call(fleet_dyn, 11, 3, None), 20,
+                                   rx=FLEET_KERNEL_RX[f"nn_fused_{name}"]),
+            "per_vehicle_ms": cuda_ms(lambda: [
+                call(one(v), 11, 3 * n + v, None) for v in range(n)], 5)}
+    solve = "nn_fused_costs" if normalize else "nn_fused_solve"
+    fleet.next(x0)
+    torch.cuda.synchronize()
+    pm.reset_launch_counts()
+    ms, actions = [], None
+    for _ in range(FLEET_TWIN_STEPS):
+        t0 = time.perf_counter()
+        actions = fleet.next(x0)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = {e: c for e, c in pm.launch_counts.items() if c}
+    want = ({solve: FLEET_TWIN_STEPS, "mppi_weights": FLEET_TWIN_STEPS,
+             "pm_merge": 2 * FLEET_TWIN_STEPS} if normalize else
+            {solve: FLEET_TWIN_STEPS, "pm_merge": FLEET_TWIN_STEPS})
+    prof_f = fleet_host_profile(fleet, x0, {solve: FLEET_TWIN_STEPS})
+    turns = {"fleet": [], "per_vehicle": []}
+    for mode in ("fleet", "per_vehicle", "per_vehicle", "fleet"):
+        fused.fleet_axis = mode == "fleet"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(FLEET_TWIN_STEPS):
+            fleet.next(x0)
+        turns[mode].append((time.perf_counter() - t0) * 1e3
+                           / FLEET_TWIN_STEPS)
+    fused.fleet_axis = True
+    out = {"n": n, "k": FLEET_NN_K, "tau": FLEET_H, "normalize": normalize,
+           "card": smi, "bits": bits, "vs_plain": vs_plain,
+           "kernel_times": times,
+           "host_driven": {"steps": FLEET_TWIN_STEPS, "launches": counts,
+                           "launches_expected": want,
+                           "wall_ms_a_step_median": float(np.median(ms)),
+                           "vehicle_solves_per_s":
+                               1e3 * n / float(np.median(ms)),
+                           "profile": prof_f,
+                           "turns_wall_ms_a_step": turns},
+           "finite": bool(np.all(np.isfinite(actions))),
+           "seconds": time.perf_counter() - t_row}
+    emit(label, **out)
+    if not (all(all(v.values()) for v in bits.values()) and counts == want
+            and vs_plain["ok"] and prof_f["ok"] and out["finite"]):
+        raise AssertionError(f"{label}: {out}")
+    return out
+
+
+def fleet_nn_phase(pm, smi: str) -> dict:
+    """The NN fleet rows, in the solve mode and normalized."""
+    return {normalize: fleet_nn_row(pm, normalize, smi)
+            for normalize in (False, True)}
+
+
 def fleet_phase(pm, smi: str) -> dict:
     """The JAX bench's two fleet rows, each in its solve mode
     (unnormalized) and normalized, through ``fleet_row``."""
@@ -6033,6 +6170,7 @@ def main() -> int:
     # ---- 27d. the fleet: the bench's two fleet rows, one launch of each ----
     # ---- kernel over all vehicles, host-driven and on the device ------------
     fleet = fleet_phase(pm, smi)
+    fleet_nn_phase(pm, smi)
 
     # ---- 27e. multi-GPU and sharding: the headline, the dive, adaptive ----
     # ---- DMD and the on-device row over a local mesh, ranks on the card, --

@@ -20,9 +20,10 @@ Two routes, as for ``MPPI``:
   vehicle is a grid axis, ``mppi_common.cuh``); at fleet step s vehicle v
   draws the single-vehicle Philox stream of solve s * n + v (the port's
   counterpart of JAX's disjoint seed blocks seed + (s n + v) n_tiles), so a
-  fleet launch equals n one-vehicle launches bit for bit. A solve object
-  without the axis (the NN kernels) runs one launch a vehicle, with the
-  same solve indices.
+  fleet launch equals n one-vehicle launches bit for bit. Every kernel
+  family (point mass, AUV, NN) has the axis; a solve object with
+  ``fleet_axis`` False runs one launch a vehicle, with the same solve
+  indices (``chip_smoke.py`` times a fleet that way beside its launch).
 
 Fleets have no observer or log mode (JAX fleet.py:70-72).
 
@@ -112,7 +113,7 @@ class FleetMPPI:
 
     Same per-vehicle semantics as :class:`MPPI` (the template that carries
     the validated options and resolves the kernel as a single controller
-    does: ``kernel="auto"`` keeps NN models on the torch route); the
+    does: ``kernel="auto"`` runs ``NNAUVModel`` on the NN kernels too); the
     options normalize, antithetic, clip, filter and the noise schedule
     hold per vehicle. ``goals``: optional [n, goal_dim] per-vehicle goals
     applied through ``cost.set_goal`` (default: the cost's own goal for

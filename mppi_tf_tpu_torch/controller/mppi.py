@@ -9,8 +9,8 @@ weights them, updates the nominal sequence and shifts it. Two paths:
   ``FusedLTIMPPI``) with the static, waypoint or (4-dim) ellipse cost,
   ``kernels/auv_mppi.py`` for the AUV with the static quaternion,
   quaternion waypoint or 3D ellipse cost, and ``kernels/nn_mppi.py`` for
-  the learned ``NNAUVModel`` with the static quaternion cost (only when
-  asked for by name); ``normalize_cost`` runs as the two-phase costs /
+  the learned ``NNAUVModel`` with the static quaternion cost (tried last
+  under ``"auto"``); ``normalize_cost`` runs as the two-phase costs /
   weights solve, ``antithetic`` and ``noise_schedule`` as runtime
   variants of the same kernels, ``kernel_dtype="bfloat16"`` as their bf16
   block-compute build, and the sequence update and shift as torch ops on
@@ -164,18 +164,21 @@ class MPPI(MissionMixin):
     def _resolve_kernel(self, kernel: str, sigma_np, sched_np) -> None:
         """The fused solve object, tried in the JAX package's order
         (controller/mppi.py:222), with the antithetic, schedule and
-        compute-dtype options passed on as it does (:226-236)."""
+        compute-dtype options passed on as it does (:226-236).
+
+        The NN kernel is tried last under ``"auto"`` too, where the JAX
+        package keeps NN models on its XLA path (controller/mppi.py:
+        217-224, from a TPU measurement): on the H100 an NN step takes
+        23.57 ms of wall time on the torch route against 1.865 ms on the
+        kernels (PERF.md, where the time goes). A port deviation by design
+        (ROADMAP.md section 3); the NN models the kernel does not run
+        (``NNAUVModelSpeed``, ``NNModel``) stay on the torch route."""
         from ..kernels.auv_mppi import FusedAUVMPPI
+        from ..kernels.nn_mppi import FusedNNMPPI
         from ..kernels.pm_mppi import FusedLTIMPPI, FusedPointMassMPPI
 
-        classes = (FusedPointMassMPPI, FusedLTIMPPI, FusedAUVMPPI)
-        if kernel == "cuda":
-            # the NN kernel is explicit-only, as in the JAX package
-            # (controller/mppi.py:217-224): "auto" keeps NN models on the
-            # plain path, whose MLP runs as GEMMs over the K samples
-            from ..kernels.nn_mppi import FusedNNMPPI
-
-            classes += (FusedNNMPPI,)
+        classes = (FusedPointMassMPPI, FusedLTIMPPI, FusedAUVMPPI,
+                   FusedNNMPPI)
         try:
             self._fused = self._make_fused(classes, self._k, sigma_np,
                                            sched_np)

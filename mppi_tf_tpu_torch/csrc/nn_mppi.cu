@@ -28,8 +28,13 @@
 //   Weights are runtime data. kernels/nn_mppi.py FusedNNMPPI.pack_dyn
 //   writes every layer as W^T rows (one row of fan_in floats an output) and
 //   its biases, each layer's block padded to a multiple of 4 floats, then
-//   the normalisers x_mean, x_std, y_mean, y_std (padded), ahead of the
-//   per-solve scalars in dyn. A weight update (a learner step) reaches the
+//   the normalisers x_mean, x_std, y_mean, y_std (padded): the weight
+//   segment, `w`. The per-solve scalars (x0, goal, useq, rhs_z, u_half, the
+//   schedule) are the solve's row, `dyn`. One vehicle's dyn array holds the
+//   segment and its row back to back, and the entry points take the two
+//   pointers into it; a fleet launch (mppi_common.cuh, fleets) takes one
+//   segment, shared by all its vehicles, and n rows, vehicle blockIdx.z
+//   reading row blockIdx.z. A weight update (a learner step) reaches the
 //   kernel as data: nothing rebuilds. The normalisers are not folded into
 //   the first layer (W1 / x_std, as the TPU kernel does, :498-509 of its
 //   wrapper): a feature that is constant over the learner's buffer has
@@ -272,15 +277,18 @@ __host__ __device__ constexpr int staged_floats(int dyn_size) {
 template <int N1, int N2, int N3, int MODE>
 __global__ void __launch_bounds__(kThreads, N3 == 0 ? 2 : 0)
     MPPI_KERNEL(nn_fused_solve)(const NnConsts c,
-                                const float* __restrict__ dyn, int dyn_size,
+                                const float* __restrict__ w,
+                                const float* __restrict__ dyn, int row_size,
                                 int sched_off, const float* __restrict__ z,
                                 float* __restrict__ costs,
                                 float* __restrict__ partials, int k_total,
                                 int tau, Seeds sd) {
   using T = Topo<N1, N2, N3>;
   extern __shared__ __align__(16) float smem[];
-  float* s_dyn = smem;                     // dyn_size
+  const int dyn_size = T::end + row_size;
+  float* s_dyn = smem;                     // the segment, then the row
   float* s_red = smem + round4(dyn_size);  // kWarps * n_z: pass-two sums
+  dyn += static_cast<size_t>(blockIdx.z) * row_size;  // vehicle's (fleets)
 
   // the layers, x0, useq and rhs_z staged as bf16x2 words (the rollout's
   // operands); the normalisers, the goal, u_half and c_t stay f32
@@ -290,12 +298,14 @@ __global__ void __launch_bounds__(kThreads, N3 == 0 ? 2 : 0)
                       (from_x0 >= 0 && from_x0 < kSdim) ||
                       (from_x0 >= 2 * kSdim &&
                        from_x0 < 2 * kSdim + 2 * kAdim * tau);
-    s_dyn[i] = word ? stage_word(dyn[i]) : dyn[i];
+    const float v = from_x0 < 0 ? w[i] : dyn[from_x0];
+    s_dyn[i] = word ? stage_word(v) : v;
   }
   __syncthreads();
+  const int s_off = sched_off < 0 ? -1 : T::end + sched_off;
 
   // dyn layout (kernels/nn_mppi.py NNDyn): layers, normalisers, x0, goal,
-  // useq, rhs_z, u_half, then the schedule's c_t at sched_off when
+  // useq, rhs_z, u_half, then the schedule's c_t at s_off when
   // scheduled
   const float* norm = s_dyn + T::norm;
   const float* x0 = s_dyn + T::end;
@@ -314,7 +324,7 @@ __global__ void __launch_bounds__(kThreads, N3 == 0 ? 2 : 0)
   for (int l = 0; l < kLanes; ++l) {
     k[l] = blockIdx.x * kBlock + l * kThreads + threadIdx.x;
     valid[l] = k[l] < k_total;
-    ns[l].init(z, k_total, k[l], sd);
+    ns[l].init(vehicle_z(z, tau * kAdim, k_total), k_total, k[l], sd);
     cost[l] = 0.0f;
   }
 
@@ -329,7 +339,7 @@ __global__ void __launch_bounds__(kThreads, N3 == 0 ? 2 : 0)
     // horizon loop into registers and spills; each step reloads them from
     // shared memory instead
     asm volatile("" ::: "memory");
-    const float ct = sched_factor(s_dyn, sched_off, t);
+    const float ct = sched_factor(s_dyn, s_off, t);
     Val zt[kAdim], feats[kFeatures];
 #pragma unroll
     for (int j = 0; j < kAdim; ++j) zt[j] = draw(ns, n++);
@@ -394,16 +404,16 @@ __global__ void __launch_bounds__(kThreads, N3 == 0 ? 2 : 0)
     cost[l] += rollout_state_cost(c.q, x, goal, l);
     cost[l] += u_half;
     zarg[l] = MODE == kFused ? -cost[l] / c.lam : -INFINITY;
-    if (MODE == kCosts && valid[l]) costs[k[l]] = cost[l];
+    if (MODE == kCosts && valid[l]) costs[vehicle_row(k[l], k_total)] = cost[l];
   }
   if (MODE == kFused)
     write_partial_row_lanes<true, kLanes>(
         zarg, cost, valid, ns, tau * kAdim, s_red,
-        partials + static_cast<size_t>(blockIdx.x) * (kStats + tau * kAdim));
+        partials + vehicle_row(blockIdx.x, gridDim.x) * (kStats + tau * kAdim));
   else
     write_partial_row_lanes<false, kLanes>(
         zarg, cost, valid, ns, 0, s_red,
-        partials + static_cast<size_t>(blockIdx.x) * kStats);
+        partials + vehicle_row(blockIdx.x, gridDim.x) * kStats);
 }
 
 #else
@@ -743,7 +753,8 @@ __device__ __forceinline__ void mlp_warp(const float* smem, float* tile,
 template <int N1, int N2, int N3, int MODE>
 __global__ void __launch_bounds__(kBlock, 2)
     MPPI_KERNEL(nn_fused_solve)(const NnConsts c,
-                                const float* __restrict__ dyn, int dyn_size,
+                                const float* __restrict__ w,
+                                const float* __restrict__ dyn, int row_size,
                                 int sched_off, const float* __restrict__ z,
                                 float* __restrict__ costs,
                                 float* __restrict__ partials, int k_total,
@@ -751,23 +762,25 @@ __global__ void __launch_bounds__(kBlock, 2)
   using T = Topo<N1, N2, N3>;
   using S = Smem<N1, N2, N3>;
   extern __shared__ __align__(16) float smem[];
-  // dyn from its normalisers on; the pass-two sums (kWarps * n_z) after it
+  // the segment's normalisers, then the row; the pass-two sums (kWarps *
+  // n_z) after them
   float* s_dyn = smem + S::rest;
-  float* s_red = smem + staged_floats<N1, N2, N3>(dyn_size);
-  stage_mlp<N1, N2, N3>(dyn, smem);
-  for (int i = threadIdx.x; i < dyn_size - T::size; i += kBlock)
-    s_dyn[i] = dyn[T::size + i];
+  float* s_red = smem + staged_floats<N1, N2, N3>(T::end + row_size);
+  dyn += static_cast<size_t>(blockIdx.z) * row_size;  // vehicle's (fleets)
+  stage_mlp<N1, N2, N3>(w, smem);
+  for (int i = threadIdx.x; i < kNormFloats + row_size; i += kBlock)
+    s_dyn[i] = i < kNormFloats ? w[T::size + i] : dyn[i - kNormFloats];
   __syncthreads();
 
   // dyn layout (kernels/nn_mppi.py NNDyn): layers, normalisers, x0, goal,
-  // useq, rhs_z, u_half, then the schedule's c_t at sched_off when
+  // useq, rhs_z, u_half, then the schedule's c_t at s_off when
   // scheduled
   const float* norm = s_dyn;
   const float* x0 = s_dyn + kNormFloats;
   const float* goal = x0 + kSdim;
   const float* useq = goal + kSdim;
   const float* rhs_z = useq + kAdim * tau;
-  const int s_off = sched_off < 0 ? -1 : sched_off - T::size;
+  const int s_off = sched_off < 0 ? -1 : kNormFloats + sched_off;
 
   // block b: partial row b; thread i: sample b kBlock + i, row i % 32 of
   // its warp's tile
@@ -777,7 +790,7 @@ __global__ void __launch_bounds__(kBlock, 2)
   const int k = blockIdx.x * kBlock + threadIdx.x;
   const bool valid = k < k_total;
   NoiseStream ns;
-  ns.init(z, k_total, k, sd);
+  ns.init(vehicle_z(z, tau * kAdim, k_total), k_total, k, sd);
   float cost = 0.0f;
 
   float x[kSdim];
@@ -860,50 +873,63 @@ __global__ void __launch_bounds__(kBlock, 2)
   // read here, not held in a register through the horizon loop
   cost += rhs_z[kAdim * tau];  // u_half
   const float zarg = MODE == kFused ? -cost / c.lam : -INFINITY;
-  if (MODE == kCosts && valid) costs[k] = cost;
+  if (MODE == kCosts && valid) costs[vehicle_row(k, k_total)] = cost;
   if (MODE == kFused)
     write_partial_row_lanes<true, 1>(
         &zarg, &cost, &valid, &ns, tau * kAdim, s_red,
-        partials + static_cast<size_t>(blockIdx.x) * (kStats + tau * kAdim));
+        partials + vehicle_row(blockIdx.x, gridDim.x) * (kStats + tau * kAdim));
   else
     write_partial_row_lanes<false, 1>(
         &zarg, &cost, &valid, &ns, 0, s_red,
-        partials + static_cast<size_t>(blockIdx.x) * kStats);
+        partials + vehicle_row(blockIdx.x, gridDim.x) * kStats);
 }
 #endif
 
-// With occupancy set nothing launches: the kernel's blocks an SM at this
-// shared memory are written there.
+// The launch of n vehicles' solves over one weight segment w; dyn: their
+// rows. With occupancy set nothing launches: the kernel's blocks an SM at
+// this shared memory are written there.
+struct NnLaunch {
+  const float* w;
+  const float* dyn;
+  const float* z;
+  float* costs;
+  float* partials;
+  int k, tau, scheduled;
+  Seeds sd;
+  cudaStream_t stream;
+  int* occupancy;
+  int n;  // vehicles: the grid's third axis
+};
+
 template <int N1, int N2, int N3, int MODE>
-int launch_nn(const NnConsts& c, const float* dyn, const float* z,
-              float* costs, float* partials, int k, int tau, int scheduled,
-              Seeds sd, cudaStream_t stream, int* occupancy) {
-  const int base = Topo<N1, N2, N3>::end + 2 * kSdim + 2 * kAdim * tau + 1;
-  const int dyn_size = scheduled ? base + tau : base;
+int launch_nn(const NnConsts& c, const NnLaunch& a) {
+  // a row: x0, goal, useq, rhs_z, u_half, then c_t when scheduled
+  const int base = 2 * kSdim + 2 * kAdim * a.tau + 1;
+  const int row_size = a.scheduled ? base + a.tau : base;
   size_t smem = 0;
   const cudaError_t e =
       smem_for(MPPI_KERNEL(nn_fused_solve)<N1, N2, N3, MODE>,
-               staged_floats<N1, N2, N3>(dyn_size),
-               MODE == kFused ? tau * kAdim : 0, &smem);
+               staged_floats<N1, N2, N3>(Topo<N1, N2, N3>::end + row_size),
+               MODE == kFused ? a.tau * kAdim : 0, &smem);
   if (e != cudaSuccess) return e;
-  if (occupancy != nullptr)
+  if (a.occupancy != nullptr)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        occupancy, MPPI_KERNEL(nn_fused_solve)<N1, N2, N3, MODE>, kThreads,
+        a.occupancy, MPPI_KERNEL(nn_fused_solve)<N1, N2, N3, MODE>, kThreads,
         smem);
-  const int nb = (k + kBlock - 1) / kBlock;
+  const dim3 grid((a.k + kBlock - 1) / kBlock, 1, a.n);
   MPPI_KERNEL(nn_fused_solve)<N1, N2, N3, MODE>
-      <<<nb, kThreads, smem, stream>>>(
-      c, dyn, dyn_size, scheduled ? base : -1, z, costs, partials, k, tau,
-      sd);
+      <<<grid, kThreads, smem, a.stream>>>(
+      c, a.w, a.dyn, row_size, a.scheduled ? base : -1, a.z, a.costs,
+      a.partials, a.k, a.tau, a.sd);
   return cudaGetLastError();
 }
 
 template <int MODE>
 int dispatch_nn(int n1, int n2, int n3, const float* consts,
-                const float* dyn, const float* z, float* costs,
-                float* partials, int k, int tau, int sch, Seeds sd,
-                cudaStream_t st, int* occupancy = nullptr) {
-  if (k <= 0 || tau <= 0) return cudaErrorInvalidValue;
+                const NnLaunch& a) {
+  if (a.k <= 0 || a.tau <= 0 || a.n <= 0 || a.n > 65535 ||
+      (a.n > 1 && a.sd.solve == nullptr))
+    return cudaErrorInvalidValue;
   HostConsts f;
   memcpy(&f, consts, sizeof(f));
 #ifdef MPPI_BF16_PAIRS
@@ -912,11 +938,8 @@ int dispatch_nn(int n1, int n2, int n3, const float* consts,
   const NnConsts& c = f;
 #endif
   if (n1 == 32 && n2 == 32 && n3 == 32)
-    return launch_nn<32, 32, 32, MODE>(c, dyn, z, costs, partials, k, tau,
-                                       sch, sd, st, occupancy);
-  if (n1 == 8 && n2 == 8 && n3 == 0)
-    return launch_nn<8, 8, 0, MODE>(c, dyn, z, costs, partials, k, tau, sch,
-                                    sd, st, occupancy);
+    return launch_nn<32, 32, 32, MODE>(c, a);
+  if (n1 == 8 && n2 == 8 && n3 == 0) return launch_nn<8, 8, 0, MODE>(c, a);
   return cudaErrorInvalidValue;
 }
 
@@ -924,31 +947,40 @@ int dispatch_nn(int n1, int n2, int n3, const float* consts,
 
 extern "C" {
 
-// scheduled: dyn ends in the tau factors c_t; half: the antithetic solve's
-// first mirrored sample, 0 for none; solve: the solve index on the device,
-// or null for (s_lo, s_hi) (mppi_common.cuh). nn_mppi_bf16.cu and
-// nn_mppi_bfp.cu define both solves with their suffixes.
+// weights: the weight segment (the layers and the normalisers, NNDyn's
+// first `weights` floats); dyn: the solves' rows (x0, goal, useq, rhs_z,
+// u_half, then the tau factors c_t when scheduled), n of them for a fleet
+// launch (z, costs and partials hold n vehicles' rows, `solve` their n
+// solve indices on the device; mppi_common.cuh), all vehicles over the one
+// segment; one vehicle's dyn array is its segment followed by its row.
+// half: the antithetic solve's first mirrored sample, 0 for none; solve:
+// the solve index on the device, or null for (s_lo, s_hi)
+// (mppi_common.cuh). nn_mppi_bf16.cu and nn_mppi_bfp.cu define both solves
+// with their suffixes.
 int MPPI_ENTRY(nn_fused_solve)(int n1, int n2, int n3, const float* consts,
-                   const float* dyn, const float* z, float* partials, int k,
-                   int tau, int scheduled, uint32_t half, uint32_t seed_lo,
-                   uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
-                   const unsigned long long* solve, void* stream) {
-  return dispatch_nn<kFused>(n1, n2, n3, consts, dyn, z, nullptr, partials,
-                             k, tau, scheduled,
-                             Seeds{seed_lo, seed_hi, s_lo, s_hi, half, solve},
-                             static_cast<cudaStream_t>(stream));
-}
-
-int MPPI_ENTRY(nn_fused_costs)(int n1, int n2, int n3, const float* consts,
-                   const float* dyn, const float* z, float* costs,
+                   const float* weights, const float* dyn, const float* z,
                    float* partials, int k, int tau, int scheduled,
                    uint32_t half, uint32_t seed_lo, uint32_t seed_hi,
                    uint32_t s_lo, uint32_t s_hi,
-                   const unsigned long long* solve, void* stream) {
-  return dispatch_nn<kCosts>(n1, n2, n3, consts, dyn, z, costs, partials, k,
-                             tau, scheduled,
-                             Seeds{seed_lo, seed_hi, s_lo, s_hi, half, solve},
-                             static_cast<cudaStream_t>(stream));
+                   const unsigned long long* solve, int n, void* stream) {
+  return dispatch_nn<kFused>(
+      n1, n2, n3, consts,
+      NnLaunch{weights, dyn, z, nullptr, partials, k, tau, scheduled,
+               Seeds{seed_lo, seed_hi, s_lo, s_hi, half, solve},
+               static_cast<cudaStream_t>(stream), nullptr, n});
+}
+
+int MPPI_ENTRY(nn_fused_costs)(int n1, int n2, int n3, const float* consts,
+                   const float* weights, const float* dyn, const float* z,
+                   float* costs, float* partials, int k, int tau,
+                   int scheduled, uint32_t half, uint32_t seed_lo,
+                   uint32_t seed_hi, uint32_t s_lo, uint32_t s_hi,
+                   const unsigned long long* solve, int n, void* stream) {
+  return dispatch_nn<kCosts>(
+      n1, n2, n3, consts,
+      NnLaunch{weights, dyn, z, costs, partials, k, tau, scheduled,
+               Seeds{seed_lo, seed_hi, s_lo, s_hi, half, solve},
+               static_cast<cudaStream_t>(stream), nullptr, n});
 }
 
 // out[0]: blocks an SM of the solve (mode 0) or costs (1) kernel of the
@@ -957,13 +989,11 @@ int MPPI_ENTRY(nn_fused_costs)(int n1, int n2, int n3, const float* consts,
 int MPPI_ENTRY(nn_occupancy)(int n1, int n2, int n3, int mode, int tau,
                              int* out) {
   static const float zeros[sizeof(HostConsts) / sizeof(float)] = {};
+  const NnLaunch a{nullptr, nullptr, nullptr, nullptr, nullptr, 1, tau, 0,
+                   Seeds{}, nullptr, out, 1};
   out[1] = kLanes;
-  return mode ? dispatch_nn<kCosts>(n1, n2, n3, zeros, nullptr, nullptr,
-                                    nullptr, nullptr, 1, tau, 0, Seeds{},
-                                    nullptr, out)
-              : dispatch_nn<kFused>(n1, n2, n3, zeros, nullptr, nullptr,
-                                    nullptr, nullptr, 1, tau, 0, Seeds{},
-                                    nullptr, out);
+  return mode ? dispatch_nn<kCosts>(n1, n2, n3, zeros, a)
+              : dispatch_nn<kFused>(n1, n2, n3, zeros, a);
 }
 
 }  // extern "C"

@@ -59,9 +59,12 @@ _SIGNATURES = {
     "auv_fused_costs": [_I, _I, _I, _P, _P, _P, _P, _P, *_SOLVE, *_SEEDS,
                         *_N, _P],
     "auv_dyn_size": [_I],
-    "nn_fused_solve": [_I, _I, _I, _P, _P, _P, _P, *_SOLVE, *_SEEDS, _P],
-    "nn_fused_costs": [_I, _I, _I, _P, _P, _P, _P, _P, *_SOLVE, *_SEEDS,
-                       _P],
+    # the NN solves take (n1, n2, n3) first, the weight segment before the
+    # solves' rows
+    "nn_fused_solve": [_I, _I, _I, _P, _P, _P, _P, _P, *_SOLVE, *_SEEDS,
+                       *_N, _P],
+    "nn_fused_costs": [_I, _I, _I, _P, _P, _P, _P, _P, _P, *_SOLVE,
+                       *_SEEDS, *_N, _P],
     # (sdim, adim, cost, structure, mode, dynamic_ab, tau, out[2]), (rk,
     # cost, structure, mode, tau, out[2]) and (n1, n2, n3, mode, tau,
     # out[2]): blocks an SM and samples a thread of a solve kernel

@@ -19,8 +19,17 @@ Phase B (``_fused_nn_weights``) is ``pm_mppi.mppi_weights`` at adim 6, and
 the noise is pm_mppi's Philox stream at adim 6: ``pm_noise_dump(seed,
 solve, k, tau, 6)`` is exactly what these kernels consume. The TPU
 kernel's per-step noise layout is not copied. The MLP weights and the X/Y
-normalisers are runtime data in ``dyn`` (``pack_dyn``), so a weight update
-reaches the kernel with no rebuild. Source: ``csrc/nn_mppi.cu``.
+normalisers are runtime data, the weight segment at the head of ``dyn``
+(``pack_dyn``), so a weight update reaches the kernel with no rebuild.
+Source: ``csrc/nn_mppi.cu``.
+
+Fleets: a fleet's solve is one launch of each kernel over all its
+vehicles (``FusedNNMPPI.fleet_axis``): the weight segment once, shared by
+the vehicles, and a row a vehicle (state, goal, sequence, action-cost
+terms), vehicle v drawing solve s n + v, so that the launch equals n
+one-vehicle launches bit for bit (``mppi_common.cuh``, fleets). The
+segment is packed once a solve, from the live parameters, by one gather
+(``pack_weights``, counted in ``weight_packs``).
 
 The normalisers are not folded into the first layer, as the TPU kernel
 folds them (W1 / x_std, ``mppi_tf_tpu/kernels/nn_mppi.py:498-509``): a
@@ -57,20 +66,24 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import tracing
 from ._launch import check, launch, on_card, solve_words, split64
 from .auv_mppi import _quat_cost
 from .errors import KernelUnsupportedError
 from .pm_mppi import (BLOCK, STATS, TwoPhaseSolve, _sched_block,
                       bf16_dot, block_partials,
-                      check_compute_dtype, cost_partials, entry,
-                      round_bf16, round_bf16_np, sched_factors, solve_noise,
-                      variant_args)
+                      check_compute_dtype, cost_partials, entry, fleet_dims,
+                      n_vehicles, per_vehicle, round_bf16, round_bf16_np,
+                      sched_factors, solve_noise, variant_args)
 
 SDIM, ADIM = 13, 6
 #: network input: the 10 state features x[3:13] and the 6 actions
 FEATURES = SDIM - 3 + ADIM
 #: hidden widths the CUDA kernel is instantiated for
 SUPPORTED_HIDDEN = ((32, 32, 32), (8, 8))
+#: weight segments packed in this process (``FusedNNMPPI.pack_weights``;
+#: ``tracing.counters()["nn_weight_packs"]``)
+weight_packs = 0
 
 
 def _round4(n: int) -> int:
@@ -82,8 +95,10 @@ class NNDyn:
     each layer as W^T rows [fan_out, fan_in] and its biases, the block
     padded to a multiple of 4 floats (16-byte aligned for the kernel's
     float4 loads), the normalisers x_mean, x_std, y_mean and y_std, padded
-    (``norm``), then x0, goal, useq, rhs_z and u_half; a scheduled solve
-    appends the tau factors c_t."""
+    (``norm``): the weight segment, its first ``weights`` floats; then the
+    solve's row, x0, goal, useq, rhs_z and u_half; a scheduled solve
+    appends the tau factors c_t. ``row`` is the row's length (a fleet's
+    rows are [n, row] over one segment)."""
 
     def __init__(self, tau: int, sizes, scheduled: bool = False):
         self.sizes = tuple(int(s) for s in sizes)
@@ -102,6 +117,26 @@ class NNDyn:
         self.u_half = self.rhs_z + ADIM * tau
         self.size = self.u_half + 1
         self.sched = _sched_block(self, tau, scheduled)
+        self.row = self.size - self.weights
+
+
+def segment_index(lay: NNDyn) -> np.ndarray:
+    """Where each float of the weight segment comes from in the parameters
+    laid end to end (each layer's w [fan_in, fan_out] and b, then x_mean,
+    x_std, y_mean, y_std, then a zero that the pads read)."""
+    src = np.full(lay.weights, -1, np.int64)
+    at = 0
+    for w_at, b_at, fan_in, fan_out in lay.layers:
+        # W^T[o, i] = w[i, o]
+        src[w_at:b_at] = (at + np.arange(fan_in * fan_out)
+                          .reshape(fan_in, fan_out).T.ravel())
+        at += fan_in * fan_out
+        src[b_at:b_at + fan_out] = at + np.arange(fan_out)
+        at += fan_out
+    n_norm = 2 * lay.sizes[0] + 2 * lay.sizes[-1]
+    src[lay.norm:lay.norm + n_norm] = at + np.arange(n_norm)
+    src[src < 0] = at + n_norm
+    return src
 
 
 @dataclass
@@ -311,47 +346,83 @@ def _hidden_args(consts: NnConsts):
     return (*consts.hidden, 0)[:3]
 
 
-def _check_inputs(consts, dyn, z, k, tau):
+def _check_inputs(consts, dyn, z, k, tau, weights):
+    """(kernel widths, segment address, rows address, vehicle axis) of a
+    launch: one vehicle's whole ``dyn`` [size] (its segment and row), or
+    rows [row] / [n, row] over the segment ``weights``."""
     args = _hidden_args(consts)
-    check(dyn, "dyn", (consts.layout(tau).size,))
+    lay = consts.layout(tau)
+    if weights is None:
+        check(dyn, "dyn", (lay.size,))
+        lead = ()
+        w_at = dyn.data_ptr()
+        rows_at = w_at + 4 * lay.weights
+    else:
+        check(weights, "weights", (lay.weights,))
+        lead = fleet_dims(dyn, 1)
+        check(dyn, "dyn", (*lead, lay.row))
+        w_at, rows_at = weights.data_ptr(), dyn.data_ptr()
     if z is not None:
-        check(z, "z", (tau, ADIM, k))
-    return args
+        check(z, "z", (*lead, tau, ADIM, k))
+    return args, w_at, rows_at, lead
+
+
+def _plain(fn, dyn, solve, z, weights):
+    """A wrapper's plain version ``fn(solve, dyn, z)`` over one vehicle's
+    whole dyn, or each vehicle's segment and row (``per_vehicle``)."""
+    if weights is None:
+        return fn(solve, dyn, z)
+    if dyn.dim() == 1:
+        return fn(solve, torch.cat([weights, dyn]), z)
+    return per_vehicle(lambda s, d, zv: fn(s, torch.cat([weights, d]), zv),
+                       dyn.shape[0], solve, dyn, z)
 
 
 def nn_fused_solve(consts: NnConsts, dyn: torch.Tensor, k: int, tau: int,
-                   seed: int = 0, solve: int = 0, z=None) -> torch.Tensor:
+                   seed: int = 0, solve: int = 0, z=None,
+                   weights=None) -> torch.Tensor:
     """Fused MLP rollout + block softmax partials [n_blocks, STATS + tau*6];
     ``z`` (f32 [tau, 6, k]) injects the normals in place of the Philox
-    stream of (seed, solve)."""
-    if not on_card(dyn, z):
-        return fused_solve_plain(consts, dyn, k, tau, seed, solve, z)
-    widths = _check_inputs(consts, dyn, z, k, tau)
-    partials = torch.empty((-(-k // BLOCK), STATS + tau * ADIM),
+    stream of (seed, solve). ``dyn``: one vehicle's [NNDyn.size]; or, with
+    the weight segment ``weights`` [NNDyn.weights], a fleet's rows
+    [n, NNDyn.row] (z [n, tau, 6, k]) in one launch, vehicle v drawing
+    solve solve * n + v: partials [n, n_blocks, ...]."""
+    if not on_card(dyn, z, weights):
+        return _plain(lambda s, d, zv: fused_solve_plain(
+            consts, d, k, tau, seed, s, zv), dyn, solve, z, weights)
+    widths, w_at, rows_at, lead = _check_inputs(consts, dyn, z, k, tau,
+                                                weights)
+    partials = torch.empty((*lead, -(-k // BLOCK), STATS + tau * ADIM),
                            dtype=torch.float32, device=dyn.device)
     launch(consts.entry("nn_fused_solve"), dyn.device, *widths,
-           consts.packed.ctypes.data,
-           dyn.data_ptr(), None if z is None else z.data_ptr(),
-           partials.data_ptr(), k, tau, *variant_args(consts, k),
-           *split64(seed), *solve_words(solve, dyn.device))
+           consts.packed.ctypes.data, w_at, rows_at,
+           None if z is None else z.data_ptr(), partials.data_ptr(), k, tau,
+           *variant_args(consts, k), *split64(seed),
+           *solve_words(solve, dyn.device, n_vehicles(lead)),
+           n_vehicles(lead))
     return partials
 
 
 def nn_fused_costs(consts: NnConsts, dyn: torch.Tensor, k: int, tau: int,
-                   seed: int = 0, solve: int = 0, z=None):
-    """Phase A: per-sample costs [k] and stats-only rows [n_blocks, STATS]."""
-    if not on_card(dyn, z):
-        return fused_costs_plain(consts, dyn, k, tau, seed, solve, z)
-    widths = _check_inputs(consts, dyn, z, k, tau)
-    costs = torch.empty(k, dtype=torch.float32, device=dyn.device)
-    partials = torch.empty((-(-k // BLOCK), STATS), dtype=torch.float32,
-                           device=dyn.device)
+                   seed: int = 0, solve: int = 0, z=None, weights=None):
+    """Phase A: per-sample costs [k] and stats-only rows [n_blocks, STATS]
+    (a fleet's rows over ``weights``, as ``nn_fused_solve``: [n, k] and
+    [n, n_blocks, STATS] from one launch)."""
+    if not on_card(dyn, z, weights):
+        return _plain(lambda s, d, zv: fused_costs_plain(
+            consts, d, k, tau, seed, s, zv), dyn, solve, z, weights)
+    widths, w_at, rows_at, lead = _check_inputs(consts, dyn, z, k, tau,
+                                                weights)
+    costs = torch.empty((*lead, k), dtype=torch.float32, device=dyn.device)
+    partials = torch.empty((*lead, -(-k // BLOCK), STATS),
+                           dtype=torch.float32, device=dyn.device)
     launch(consts.entry("nn_fused_costs"), dyn.device, *widths,
-           consts.packed.ctypes.data,
-           dyn.data_ptr(), None if z is None else z.data_ptr(),
-           costs.data_ptr(), partials.data_ptr(), k, tau,
-           *variant_args(consts, k), *split64(seed),
-           *solve_words(solve, dyn.device))
+           consts.packed.ctypes.data, w_at, rows_at,
+           None if z is None else z.data_ptr(), costs.data_ptr(),
+           partials.data_ptr(), k, tau, *variant_args(consts, k),
+           *split64(seed),
+           *solve_words(solve, dyn.device, n_vehicles(lead)),
+           n_vehicles(lead))
     return costs, partials
 
 
@@ -364,7 +435,8 @@ class FusedNNMPPI(TwoPhaseSolve):
     (the MLP weights and normalisers, the state, the live goal and the
     nominal sequence's action-cost terms), runs ``nn_fused_solve`` + ``pm_merge``,
     or the two phases ``nn_fused_costs`` and ``mppi_weights``, and un-folds
-    the weighted normals to action units.
+    the weighted normals to action units. A fleet runs every phase as one
+    launch over its vehicles, on one weight segment (``fleet_axis``).
 
     Counterpart of the JAX package's ``FusedNNMPPI``; ``antithetic`` and
     ``schedule`` are its runtime variants, ``compute_dtype`` ("float32" or
@@ -419,39 +491,67 @@ class FusedNNMPPI(TwoPhaseSolve):
         _hidden_args(self.consts)
         self._scale = torch.as_tensor(scale, **like)
         self._inv_sigma = torch.as_tensor(inv_sigma, **like)
+        self._index = torch.as_tensor(
+            segment_index(self.consts.layout(self.tau)), device=model.device)
 
-    def pack_dyn(self, x0: torch.Tensor, useq: torch.Tensor) -> torch.Tensor:
-        """The per-solve ``dyn`` array ([NNDyn.size], the model's dtype):
-        the live weights (rounded to bf16 for the bf16-products build) and
-        biases, the normalisers, then the state, goal, nominal sequence,
-        its action-cost terms and the schedule."""
-        dtype, m = self.model.dtype, self.model
-        useq = useq.to(dtype).reshape(self.tau, ADIM)
+    fleet_axis = True
+
+    def pack_weights(self) -> torch.Tensor:
+        """The weight segment ([NNDyn.weights], the model's dtype): the
+        live weights (rounded to bf16 for the bf16-products build) and
+        biases as W^T rows, then the normalisers, padded; one gather of
+        the parameters laid end to end."""
+        global weight_packs
+        with tracing.span("mppi.solve.pack.weights"):
+            m = self.model
+            parts = []
+            for layer in m.net:
+                w = layer.w.detach()
+                if self.consts.bf16_products:
+                    w = round_bf16(w)
+                parts += [w.reshape(-1), layer.b.detach()]
+            parts += [m.x_mean, m.x_std, m.y_mean, m.y_std]
+            flat = torch.cat(parts + [parts[-1].new_zeros(1)])
+            weight_packs += 1
+            return flat[self._index]
+
+    def _rows(self, x0, useq, cp, lead: tuple) -> torch.Tensor:
+        """The solves' rows ([*lead, NNDyn.row]): the state, goal, nominal
+        sequence, its action-cost terms and the schedule, of one vehicle
+        (``lead`` ()) or of a fleet's (lead (n,), goals from ``cp``)."""
+        dtype = self.model.dtype
+        useq = useq.to(dtype).reshape(*lead, self.tau, ADIM)
         rhs_z, u_half = self._action_terms(useq)
-        parts = []
-        for layer in m.net:
-            w, b = layer.w.detach(), layer.b.detach()
-            if self.consts.bf16_products:
-                w = round_bf16(w)
-            n = w.numel() + b.numel()
-            parts += [w.T.reshape(-1), b, w.new_zeros(_round4(n) - n)]
-        norm = [m.x_mean, m.x_std, m.y_mean, m.y_std]
-        n = sum(v.numel() for v in norm)
-        parts += [v.to(dtype).reshape(-1) for v in norm] + [
-            norm[0].new_zeros(_round4(n) - n, dtype=dtype)]
-        return torch.cat(parts + [
-            x0.to(dtype).reshape(SDIM), self.cost.goal.reshape(-1),
-            useq.reshape(-1), rhs_z.reshape(-1), u_half.reshape(1),
-            *self._sched_tail()])
+        goal = self.cost.goal if cp is None else cp["goal"]
+
+        def row(t):   # a shared entry, repeated a vehicle
+            return t.reshape(-1).expand(*lead, t.numel())
+
+        return torch.cat([
+            x0.to(dtype).reshape(*lead, SDIM), goal.reshape(*lead, SDIM),
+            useq.reshape(*lead, -1), rhs_z.reshape(*lead, -1),
+            u_half.reshape(*lead, 1), *map(row, self._sched_tail())], dim=-1)
+
+    def pack_dyn(self, x0: torch.Tensor, useq: torch.Tensor, cp=None):
+        """One vehicle's ``dyn`` array ([NNDyn.size], the model's dtype):
+        the weight segment (``pack_weights``) and the solve's row; a
+        fleet's states [n, 13], sequences [n, tau, 6] and stacked cost
+        params ``cp`` give (segment, rows [n, NNDyn.row])."""
+        lead = tuple(x0.shape[:-1]) if x0.dim() == 2 else ()
+        weights = self.pack_weights()
+        rows = self._rows(x0, useq, cp, lead)
+        return (weights, rows) if lead else torch.cat([weights, rows])
 
     def _template_args(self, mode: int) -> tuple:
         """<N1, N2, N3, MODE> of nn_fused_solve_kernel."""
         return (*_hidden_args(self.consts), mode)
 
     def _fused(self, dyn, seed, solve, z):
-        return nn_fused_solve(self.consts, dyn, self.k, self.tau, seed=seed,
-                              solve=solve, z=z)
+        weights, rows = dyn if isinstance(dyn, tuple) else (None, dyn)
+        return nn_fused_solve(self.consts, rows, self.k, self.tau, seed=seed,
+                              solve=solve, z=z, weights=weights)
 
     def _costs(self, dyn, seed, solve, z):
-        return nn_fused_costs(self.consts, dyn, self.k, self.tau, seed=seed,
-                              solve=solve, z=z)
+        weights, rows = dyn if isinstance(dyn, tuple) else (None, dyn)
+        return nn_fused_costs(self.consts, rows, self.k, self.tau, seed=seed,
+                              solve=solve, z=z, weights=weights)

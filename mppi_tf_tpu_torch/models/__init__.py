@@ -27,7 +27,10 @@ def get_model(model_dict, dt=0.1, state_dim=2, action_dim=None, name=None,
     ``auv_nn_speed`` and ``dmd`` (``rank``, ``reg``). ``action_dim=None``
     keeps each family's default (1 for the point mass, the generic NN and
     DMD, 6 for the AUV families). ``kwargs`` (``hidden``, ``seed``,
-    ``compute_dtype``) go to the NN families.
+    ``compute_dtype``) go to the NN families, which also read ``hidden``,
+    ``seed`` and ``normalisers`` ({``x_mean``, ``x_std``, ``y_mean``,
+    ``y_std``}: vectors or scalars, ``NNModel.set_normalization``) from
+    ``model_dict``; an explicit kwarg wins over the dict's key.
     """
     mtype = model_dict.get("type", "point_mass")
     limits = dict(act_max=model_dict.get("limMax"),
@@ -57,9 +60,17 @@ def get_model(model_dict, dt=0.1, state_dim=2, action_dim=None, name=None,
         cls, default_adim, default_name = _NN_FAMILIES[mtype]
         if cls is NNModel:
             kwargs["state_dim"] = state_dim
-        return cls(action_dim=action_dim if action_dim else default_adim,
-                   dt=dt, name=name or default_name, dtype=dtype,
-                   device=device, **limits, **kwargs)
+        for key in ("hidden", "seed"):
+            if key in model_dict:
+                kwargs.setdefault(key, model_dict[key])
+        model = cls(action_dim=action_dim if action_dim else default_adim,
+                    dt=dt, name=name or default_name, dtype=dtype,
+                    device=device, **limits, **kwargs)
+        norm = model_dict.get("normalisers")
+        if norm is not None:
+            model.set_normalization(**{k: norm[k] for k in (
+                "x_mean", "x_std", "y_mean", "y_std")})
+        return model
     if mtype == "dmd":
         return DMDModel(
             state_dim=state_dim,

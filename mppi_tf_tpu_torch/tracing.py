@@ -2,7 +2,8 @@
 on the profiler's clock.
 
 ``span(name, id=None)`` marks a stage of the port (a fleet step, the
-two-phase solve's pack, rollout, merge, weights and unfold, the on-device
+two-phase solve's pack (and in it the NN weight segment's,
+``mppi.solve.pack.weights``), rollout, merge, weights and unfold, the on-device
 loop's load, capture, replay and sync, the library's load and build).
 Tracing is on after ``enable()`` (until ``disable()``) or while a
 ``torch.profiler`` records; otherwise ``span`` returns one shared no-op
@@ -27,8 +28,8 @@ total less that of its direct children) and the median and 95th
 percentile; ``export(path)`` writes the ring as a Chrome trace to lay over
 the profiler's. ``counters(*loops)`` reads the port's counters where they
 are kept: the kernel launches by entry point, the launches recorded into
-CUDA graphs, the plant kernels' own two counts, the library builds of this
-process and, for each on-device loop given, its captured period's kernel
+CUDA graphs, the plant kernels' own two counts, the NN solves' weight
+segments packed, the library builds of this process and, for each on-device loop given, its captured period's kernel
 launches (``nodes``, the plant's ``plant_nodes``), its graph's nodes by
 kind (``graph_nodes``), its captures, the last one's seconds and its plant
 calls a period.
@@ -213,16 +214,18 @@ def counters(*loops) -> dict:
     """The port's counters as they stand: the solve's kernel launches by
     entry point (``launch_counts``), its launches recorded into CUDA
     graphs (``captured_counts``), the plant kernels' two counts
-    (``plant_counts``: ``kernels/plant.py``), nvcc builds in this process
-    (``library_builds``) and, for each loop of ``loops``, its ``nodes``,
+    (``plant_counts``: ``kernels/plant.py``), the NN solves' weight
+    segments packed (``nn_weight_packs``: ``kernels/nn_mppi.py``), nvcc
+    builds in this process (``library_builds``) and, for each loop of ``loops``, its ``nodes``,
     ``plant_nodes``, ``graph_nodes``, ``captures``, ``capture_s`` and
     ``plant_calls``."""
-    from .kernels import _build, _launch, plant
+    from .kernels import _build, _launch, nn_mppi, plant
 
     out = {"launch_counts": dict(_launch.launch_counts),
            "captured_counts": dict(_launch.captured_counts),
            "plant_counts": {"launch_counts": dict(plant.launch_counts),
                             "captured_counts": dict(plant.captured_counts)},
+           "nn_weight_packs": nn_mppi.weight_packs,
            "library_builds": _build.library_builds}
     if loops:
         out["loops"] = [{"nodes": dict(lp.nodes),

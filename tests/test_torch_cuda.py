@@ -769,8 +769,10 @@ def test_nn_controller_resolves_the_kernel(cuda_device):
     x[6] = 1.0
     assert np.all(np.isfinite(ctrl.next(x)))
     assert pm.launch_counts["nn_fused_solve"] == before["nn_fused_solve"] + 1
-    assert MPPI(NNAUVModel(), cost, kernel="auto", **kw).kernel_path == \
-        "torch"
+    auto = MPPI(NNAUVModel(), cost, kernel="auto", **kw)
+    assert auto.kernel_path == "cuda" and type(auto._fused) is FusedNNMPPI
+    assert MPPI(NNAUVModelSpeed(), cost, kernel="auto", **kw).kernel_path \
+        == "torch"
     with pytest.raises(KernelUnsupportedError):
         MPPI(NNAUVModelSpeed(), cost, kernel="cuda", **kw)
     with pytest.raises(KernelUnsupportedError):
@@ -1091,7 +1093,7 @@ def test_nn_variants_match_plain(cuda_device):
                                         "auv4", "nn"])
 def test_variants_resolve_the_kernels(cuda_device, model_kind):
     """MPPI(kernel='cuda'|'auto', antithetic=True, noise_schedule=...)
-    runs on the kernels (NN under 'cuda' only) and steps finitely."""
+    runs on the kernels and steps finitely."""
     from mppi_tf_tpu_torch.models.nn import NNAUVModel
 
     if model_kind == "point_mass":
@@ -1109,8 +1111,7 @@ def test_variants_resolve_the_kernels(cuda_device, model_kind):
         ctrl = MPPI(model, cost, k=1000, tau=6, lam=0.5, sigma=sigma,
                     kernel=kernel, antithetic=True, noise_schedule=SCHED,
                     device=cuda_device)
-        want = "torch" if (model_kind, kernel) == ("nn", "auto") else "cuda"
-        assert ctrl.kernel_path == want
+        assert ctrl.kernel_path == "cuda"
         assert np.all(np.isfinite(ctrl.next(x)))
         ctrl.set_noise_schedule({"type": "linear", "start": 1.0, "end": 0.5})
         assert np.all(np.isfinite(ctrl.next(x)))
@@ -1860,6 +1861,84 @@ def test_fleet_launch_equals_vehicle_launches(cuda_device, kind, build):
     for a, b in zip(_fleet_outputs(obj, rows[:1], None, s),
                     _fleet_outputs(obj, rows[0], None, s)):
         assert torch.equal(a[0], b)
+
+
+def _nn_fleet(n, k, tau, device, build, normalize, seed=3):
+    """A fleet of ``n`` NN AUVs on the kernels (``build``: "f32", the bf16
+    block compute "bf16", or a bf16-products model "bfp"), the learned
+    model and normalisers of ``_nn_fused``, depth goals apart."""
+    from mppi_tf_tpu_torch.controller import FleetMPPI
+
+    fused = _nn_fused(k, tau, device, (32, 32, 32),
+                      torch.bfloat16 if build == "bfp" else None)
+    goals = np.tile(np.asarray(fused.cost.goal.cpu(), np.float64), (n, 1))
+    goals[:, 2] = -np.linspace(0.2, 2.0, n)
+    return FleetMPPI(fused.model, fused.cost, n, k=k, tau=tau, lam=0.5,
+                     upsilon=1.2, sigma=NN_SIGMA, goals=goals, seed=seed,
+                     normalize_cost=normalize, kernel="cuda",
+                     kernel_dtype="bfloat16" if build == "bf16"
+                     else "float32", device=device)
+
+
+@pytest.mark.parametrize("normalize", [False, True])
+@pytest.mark.parametrize("build", ["f32", "bf16", "bfp"])
+def test_nn_fleet_launch_equals_vehicle_launches(cuda_device, build,
+                                                 normalize):
+    """A 16-vehicle NN fleet on the kernels: each NN kernel's fleet launch
+    over one weight segment and a row a vehicle == 16 one-vehicle launches
+    on the segment and that row, with solve s n + v, bit for bit (Philox
+    and injected z); a fleet step launches each phase once for all
+    vehicles and equals 16 one-vehicle controllers' steps bit for bit."""
+    from mppi_tf_tpu_torch.kernels import nn_mppi as nnk
+
+    n, k, tau, s = 16, 4096, 10, 3
+    fleet = _nn_fleet(n, k, tau, cuda_device, build, normalize)
+    fused = fleet._tpl._fused
+    assert type(fused) is nnk.FusedNNMPPI and fused.fleet_axis
+    rng = np.random.default_rng(7)
+    x = np.zeros((n, 13))
+    x[:, 6] = 1.0
+    x[:, :3] = 0.3 * rng.standard_normal((n, 3))
+    x[:, 7:] = 0.1 * rng.standard_normal((n, 6))
+    xs = torch.as_tensor(x, dtype=torch.float32, device=cuda_device)
+    us = torch.as_tensor(30.0 * rng.standard_normal((n, tau, 6)),
+                         dtype=torch.float32, device=cuda_device)
+    with torch.no_grad():
+        weights, rows = fused.pack_dyn(xs, us, fleet.cost_params)
+    z = torch.as_tensor(rng.standard_normal((n, tau, 6, k), np.float32),
+                        device=cuda_device)
+    for zz in (None, z):
+        pm.reset_launch_counts()
+        part = fused._fused((weights, rows), 11, s, zz)
+        costs, crows = fused._costs((weights, rows), 11, s, zz)
+        assert set(c for c in pm.launch_counts.values() if c) == {1}
+        for v in range(n):
+            one = torch.cat([weights, rows[v]])
+            zv = None if zz is None else zz[v]
+            assert torch.equal(part[v], fused._fused(one, 11, s * n + v, zv))
+            c1, r1 = fused._costs(one, 11, s * n + v, zv)
+            assert torch.equal(costs[v], c1) and torch.equal(crows[v], r1)
+    singles = []
+    for v in range(n):
+        one = _nn_fleet(1, k, tau, cuda_device, build, normalize)._tpl
+        one.set_goal(fleet.cost_params["goal"][v].cpu().numpy())
+        singles.append(one)
+    useq = [c.useq for c in singles]
+    for step in range(2):
+        pm.reset_launch_counts()
+        actions = fleet.next(x)
+        launched = {e: c for e, c in pm.launch_counts.items() if c}
+        assert launched.pop("pm_merge") == (2 if normalize else 1)
+        assert sorted(launched) == sorted(
+            (fused.consts.entry("nn_fused_costs"),
+             pm.entry("mppi_weights", fused.compute_dtype)) if normalize
+            else (fused.consts.entry("nn_fused_solve"),))
+        assert set(launched.values()) == {1}
+        for v, c in enumerate(singles):
+            act, useq[v], _ = c._fused_step(xs[v], useq[v],
+                                            solve=step * n + v)
+            assert torch.equal(torch.as_tensor(actions[v]), act.cpu())
+            assert torch.equal(fleet.useq[v], useq[v])
 
 
 @pytest.mark.parametrize("n_z", [0, 150])
