@@ -85,7 +85,12 @@ port's paths through ``MPPI.next`` closed loop against the analytic plants:
   once a step for the whole fleet, timed in turns against n one-vehicle
   launches) and the on-device fleet loop (one captured graph a period,
   replayed == eager, a re-task between runs without a recapture), each
-  held to its vehicles' goals;
+  held to its vehicles' goals; ``fleet_graph``: the benchmark's three
+  fleet cells (K, H, n and goals of ``portbench/``), ``FleetMPPI.next``
+  replaying its captured step against ``next_eager``, bit for bit over
+  FLEET_GRAPH_BITS steps, then FLEET_GRAPH_STEPS steps of each in turns
+  (host ms a step, and the host's ms outside the step's one sync), one
+  capture a cell (``fleet_steps``);
 - multi-GPU and sharding (``parallel/``, the ``sharded`` phase; n shards
   or ranks on ONE card, the sharding's overhead, not multi-GPU scaling):
   a mesh of one shard against the single-device kernels bit for bit; 4
@@ -4436,6 +4441,95 @@ def fleet_nn_phase(pm, smi: str) -> dict:
             for normalize in (False, True)}
 
 
+#: the fleet_graph row: steps held bit for bit, then steps timed a turn
+#: (graphed, eager, eager, graphed), at the benchmark cells' sizes
+FLEET_GRAPH_BITS, FLEET_GRAPH_STEPS = 6, 50
+FLEET_GRAPH_CELLS = ("rexrov2.fleet16", "nn_auv.fleet16",
+                     "point_mass3d.fleet32")
+
+
+def fleet_graph_row(cell: str, smi: str) -> dict:
+    """``FleetMPPI.next`` (one replay of the captured step) against
+    ``next_eager`` on a benchmark cell's fleet: bits over FLEET_GRAPH_BITS
+    steps against an eager twin, then host ms a step of both modes on one
+    fleet in turns (tracing off), and over as many traced steps the
+    host's ms a step outside the step's sync (the ``mppi.fleet.next``
+    spans less their ``mppi.fleet.actions``).
+    Fails unless every bit holds and the cell captured once."""
+    from mppi_tf_tpu_torch import tracing
+    from mppi_tf_tpu_torch.controller import fleet as fleet_mod
+    from portbench import program
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "portbench")
+    with open(os.path.join(root, "workloads", f"{cell}.json")) as f:
+        spec = json.load(f)
+    with open(os.path.join(root, "configs", f"{spec['config']}.json")) as f:
+        config = json.load(f)
+    traffic = spec["params"]
+    n = int(traffic["vehicles"])
+    draw = traffic["goal_draw"]   # the cell's goals, drawn from seed 7
+    goals = np.tile(np.asarray(traffic["goal_base"], np.float64), (n, 1))
+    goals[:, draw["indices"]] = np.random.default_rng(7).uniform(
+        draw["low"], draw["high"], (n, len(draw["indices"])))
+    before = dict(fleet_mod.fleet_steps)
+    graphed, twin = (program.fleet(config, traffic, 7, "cuda", goals)
+                     for _ in range(2))
+    x = np.tile(np.asarray(traffic["start"], np.float64), (n, 1))
+    rng = np.random.default_rng(7)
+    bits = True
+    for _ in range(FLEET_GRAPH_BITS):
+        a, b = graphed.next(x), twin.next_eager(x)
+        bits &= bool(np.array_equal(a, b)
+                     and torch.equal(graphed.useq, twin.useq))
+        x = x + 0.01 * rng.standard_normal(x.shape)
+        if x.shape[1] == 13:
+            x[:, 3:7] /= np.linalg.norm(x[:, 3:7], axis=1, keepdims=True)
+    del twin
+    turns = {"graphed": [], "eager": []}
+    outside = []
+    for mode in ("graphed", "eager", "eager", "graphed"):
+        step = graphed.next if mode == "graphed" else graphed.next_eager
+        step(x)
+        ms = []
+        for _ in range(FLEET_GRAPH_STEPS):
+            t0 = time.perf_counter()
+            step(x)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        tracing.clear()
+        tracing.enable()
+        for _ in range(FLEET_GRAPH_STEPS):
+            step(x)
+        tracing.disable()
+        spans = tracing.summary()
+        tracing.clear()
+        outside.append((mode, (spans["mppi.fleet.next"]["total_ms"]
+                               - spans["mppi.fleet.actions"]["total_ms"])
+                        / FLEET_GRAPH_STEPS))
+        turns[mode].append(float(np.median(ms)))
+    counted = {k: fleet_mod.fleet_steps[k] - before[k] for k in before}
+    out = {"cell": cell, "n": n, "k": traffic["k"], "tau": traffic["tau"],
+           "normalize": traffic["normalize"], "card": smi,
+           "bits_equal": bits, "host_ms_a_step": turns,
+           "host_ms_outside_sync": {
+               mode: [v for m, v in outside if m == mode]
+               for mode in turns},
+           "fleet_steps": counted,
+           "capture_s": graphed._graph.capture_s,
+           "graph_kernels_a_step": graphed._graph.nodes}
+    emit("fleet_graph", **out)
+    if not (bits and counted["captures"] == 1
+            and counted["replayed"] == FLEET_GRAPH_BITS - 1
+            + 2 * (2 * FLEET_GRAPH_STEPS + 1)):
+        raise AssertionError(f"fleet_graph: {out}")
+    return out
+
+
+def fleet_graph_phase(smi: str) -> dict:
+    """The fleet_graph row of each of FLEET_GRAPH_CELLS, one at a time."""
+    return {cell: fleet_graph_row(cell, smi) for cell in FLEET_GRAPH_CELLS}
+
+
 def fleet_phase(pm, smi: str) -> dict:
     """The JAX bench's two fleet rows, each in its solve mode
     (unnormalized) and normalized, through ``fleet_row``."""
@@ -6171,6 +6265,7 @@ def main() -> int:
     # ---- kernel over all vehicles, host-driven and on the device ------------
     fleet = fleet_phase(pm, smi)
     fleet_nn_phase(pm, smi)
+    fleet_graph_phase(smi)
 
     # ---- 27e. multi-GPU and sharding: the headline, the dive, adaptive ----
     # ---- DMD and the on-device row over a local mesh, ranks on the card, --

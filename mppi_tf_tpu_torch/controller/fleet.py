@@ -25,6 +25,22 @@ Two routes, as for ``MPPI``:
   ``fleet_axis`` False runs one launch a vehicle, with the same solve
   indices (``chip_smoke.py`` times a fleet that way beside its launch).
 
+On the kernel route on the card, with the vehicle axis, ``next`` replays
+one captured CUDA graph of the whole step (``_StepGraph``): the states'
+and the step index's uploads from pinned host buffers, the fleet solve
+and the update over static buffers and the live cost params, the shifted
+sequences kept for the next step, the actions' copy into a pinned host
+buffer. The host writes the inputs, tests the freeze key
+(``envs/mjx_env.freeze_key``), replays and synchronises once. The first
+such step captures the graph (its warm-up computes that step), and so
+does the first after something the graph froze changes: the solve object
+or its constants, the schedule tensor, the seed and flags, a model or
+cost tensor rebound, the AUV's cached mass matrices (a ``model_params``
+write of its mass), or ``load_state``. Goals, missions and parameters
+written in place are read live. Every other fleet (the torch route, the
+CPU, ``mesh=``, a solve object without the vehicle axis) steps eagerly,
+as ``next_eager`` does. ``fleet_steps`` counts the steps of each kind.
+
 Fleets have no observer or log mode (JAX fleet.py:70-72).
 
 ``mesh=`` (a ``parallel.mesh.Mesh``) splits the fleet axis over the mesh's
@@ -46,7 +62,13 @@ import numpy as np
 import torch
 
 from .. import tracing
+from ..kernels import _launch
 from .mppi import MPPI
+
+#: ``FleetMPPI.next`` calls by how they ran, in the process (read by
+#: ``tracing.counters()``): replayed from a captured graph, eager, or the
+#: step that captured one (its warm-up computes it)
+fleet_steps = dict.fromkeys(("replayed", "eager", "captures"), 0)
 
 
 def _validated_goals(cost, goals, n: int) -> np.ndarray:
@@ -201,6 +223,7 @@ class FleetMPPI:
         self._steps = 0
         self._timing = {"total": 0.0, "calls": 0}
         self._last_info = None   # per-vehicle solve info after each next()
+        self._graph = None       # the captured step (_StepGraph)
 
     # ------------------------------------------------------------------
     # the whole-fleet solve
@@ -297,19 +320,43 @@ class FleetMPPI:
     def next(self, states) -> np.ndarray:
         """Replan the whole fleet: states [n, sDim] -> actions [n, aDim]
         (numpy), with one host sync (the actions' copy); the nominal
-        sequences, the noise streams and the step count advance."""
+        sequences, the noise streams and the step count advance. On the
+        kernel route on the card one replay of the captured step (module
+        docstring); ``_last_info`` then holds the graph's outputs, which
+        the next step overwrites."""
+        return self._next(states, self._graphed())
+
+    def next_eager(self, states) -> np.ndarray:
+        """``next`` with the step's operations enqueued one by one, never
+        from a graph: the same bits."""
+        return self._next(states, False)
+
+    def _graphed(self) -> bool:
+        """Whether ``next`` replays a graph: the kernel route on the card
+        with the vehicle axis, and no mesh."""
+        fused = self._tpl._fused
+        return (self._device.type == "cuda" and self._mesh is None
+                and fused is not None and fused.fleet_axis)
+
+    def _next(self, states, graph: bool) -> np.ndarray:
         with tracing.span("mppi.fleet.next", self._steps):
-            with tracing.span("mppi.fleet.upload"):
-                x = self._states(states)
-            start = time.perf_counter()
-            actions, self._useq, info = self._step(x, self._useq,
-                                                   self._cparams)
-            with tracing.span("mppi.fleet.actions"):
-                actions = actions.cpu().numpy()
-            self._timing["total"] += time.perf_counter() - start
+            if graph:
+                if self._graph is None:
+                    self._graph = _StepGraph(self)
+                actions = self._graph.step(states)
+            else:
+                with tracing.span("mppi.fleet.upload"):
+                    x = self._states(states)
+                start = time.perf_counter()
+                actions, self._useq, info = self._step(x, self._useq,
+                                                       self._cparams)
+                with tracing.span("mppi.fleet.actions"):
+                    actions = actions.cpu().numpy()
+                self._timing["total"] += time.perf_counter() - start
+                self._last_info = info
+                fleet_steps["eager"] += 1
             self._timing["calls"] += 1
             self._steps += 1
-            self._last_info = info
             return actions
 
     def _goal_rows(self, cp: dict, goal) -> None:
@@ -405,6 +452,9 @@ class FleetMPPI:
         self._timing = {"total": float(d["timing_total"]),
                         "calls": int(d["timing_calls"])}
         load_cparams(d, self._cparams)
+        # the captured step's buffers held the state left behind: the next
+        # step captures anew from the restored fleet
+        self._graph = None
 
     # on-device fleet experiment -----------------------------------------
     def build_on_device_loop(self, plant_step, steps: int,
@@ -462,3 +512,98 @@ class FleetMPPI:
     def model_params(self, params) -> None:
         self._tpl.model_params = params
 
+
+class _StepGraph:
+    """``FleetMPPI.next`` as one captured CUDA graph (module docstring).
+    The graph's inputs are the pinned host buffers of the states and the
+    step index, and ``useq``, the sequences the step starts from, which
+    the graph overwrites with the shifted ones; its outputs are the pinned
+    actions and ``info``. ``nodes`` holds the kernel launches of one step
+    by entry point, ``capture_s`` the last capture's seconds (span
+    ``mppi.fleet.capture``)."""
+
+    def __init__(self, fleet: FleetMPPI):
+        n, sdim, adim = fleet._n, fleet._sdim, fleet._adim
+        self.fleet = fleet
+        like = {"dtype": fleet._dtype, "device": fleet._device}
+        self.x_host = torch.zeros((n, sdim), dtype=fleet._dtype).pin_memory()
+        self.step_host = torch.zeros(1, dtype=torch.int64).pin_memory()
+        self.a_host = torch.zeros((n, adim), dtype=fleet._dtype).pin_memory()
+        self.x_np, self.step_np, self.a_np = (
+            t.numpy() for t in (self.x_host, self.step_host, self.a_host))
+        self.state = torch.zeros((n, sdim), **like)
+        self.useq = torch.zeros(tuple(fleet._useq.shape), **like)
+        self.solve = torch.zeros(1, dtype=torch.int64, device=fleet._device)
+        self.graph, self.key, self.info = None, None, None
+        self.nodes, self.capture_s = {}, None
+        # the sequence tensor ``useq`` was last loaded from or handed out
+        # as, and its version: anything else is copied in before a step
+        self.fed = (None, None)
+
+    def _body(self) -> dict:
+        """The step on the static buffers; returns its info."""
+        fleet = self.fleet
+        self.state.copy_(self.x_host, non_blocking=True)
+        self.solve.copy_(self.step_host, non_blocking=True)
+        actions, shifted, info = fleet._step(self.state, self.useq,
+                                             fleet._cparams, solve=self.solve)
+        self.useq.copy_(shifted)
+        self.a_host.copy_(actions, non_blocking=True)
+        return info
+
+    def _capture(self) -> dict:
+        """Warm up the step on a side stream (it computes this step), then
+        capture it; returns the warm-up's info."""
+        fleet = self.fleet
+        self.graph = self.info = None   # the old graph's pool goes first
+        with tracing.timed("mppi.fleet.capture") as span, \
+                torch.cuda.device(fleet._device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                info = self._body()
+            torch.cuda.current_stream().wait_stream(side)
+            before = dict(_launch.captured_counts)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                self.info = self._body()
+            self.nodes = {name: c - before[name]
+                          for name, c in _launch.captured_counts.items()
+                          if c > before[name]}
+            self.graph = graph
+        self.capture_s = span.seconds
+        return info
+
+    def step(self, states) -> np.ndarray:
+        from ..envs.mjx_env import freeze_key
+
+        fleet = self.fleet
+        with tracing.span("mppi.fleet.upload"):
+            self.x_np[...] = np.asarray(states, np.float64).reshape(
+                fleet._n, fleet._sdim)
+            self.step_np[0] = fleet._steps
+        start = time.perf_counter()
+        useq = fleet._useq
+        if self.fed[0] is not useq or self.fed[1] != useq._version:
+            self.useq.copy_(useq)
+        key = freeze_key(fleet._tpl, fleet._cparams.values())
+        if key != self.key:
+            info = self._capture()
+            self.key = key
+            fleet_steps["captures"] += 1
+        else:
+            with tracing.span("mppi.fleet.replay"):
+                self.graph.replay()
+            _launch.count_replays(self.nodes, 1)
+            info = self.info
+            fleet_steps["replayed"] += 1
+        # a tensor of its own a step: no later step writes what was handed
+        # out
+        out = self.useq.clone()
+        with tracing.span("mppi.fleet.actions"):
+            torch.cuda.current_stream(fleet._device).synchronize()
+            actions = self.a_np.copy()
+        fleet._timing["total"] += time.perf_counter() - start
+        fleet._useq, fleet._last_info = out, info
+        self.fed = (out, out._version)
+        return actions

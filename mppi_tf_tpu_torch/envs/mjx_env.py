@@ -288,6 +288,38 @@ def graph_node_kinds(graph) -> dict:
     return out
 
 
+def freeze_key(ctrl, cost_tensors) -> tuple:
+    """What a CUDA graph of ``ctrl``'s fused solve froze: the solve object
+    and its constants (by-value kernel arguments), the schedule tensor,
+    the seed and flags, the addresses of the model's parameters and
+    buffers and of ``cost_tensors`` (the cost params the graph reads), and
+    the key of a model's cached derived values (``AUVModel.mats_key``).
+    Ints and addresses only, cheap enough to test before every replay: a
+    graph is captured again when it changes, while parameters written in
+    place are read live."""
+    model, fused = ctrl._model, ctrl._fused
+    mats_key = getattr(model, "mats_key", None)
+    return (id(fused), id(fused.consts),
+            None if fused.sched is None else fused.sched.data_ptr(),
+            ctrl._base_seed, ctrl._normalize_cost, ctrl._log,
+            ctrl._clip_actions, id(ctrl._S), _addresses(model),
+            tuple(t.data_ptr() for t in cost_tensors),
+            None if mats_key is None else mats_key())
+
+
+def _addresses(module) -> tuple:
+    """The addresses of every parameter and buffer of ``module`` and its
+    submodules, read from the modules' own dicts (a fraction of the cost
+    of ``named_parameters``)."""
+    out, stack = [], [module]
+    while stack:
+        mod = stack.pop()
+        for tensors in (mod._parameters, mod._buffers):
+            out += [t.data_ptr() for t in tensors.values() if t is not None]
+        stack += [m for m in mod._modules.values() if m is not None]
+    return tuple(out)
+
+
 class OnDeviceLoop:
     """The ``run`` of ``build_on_device_loop``. After a captured run,
     ``nodes`` holds the kernel launches of one captured period by entry
@@ -412,26 +444,7 @@ class OnDeviceLoop:
                 "(or an NCCL group, one GPU a rank)")
 
     def _freeze_key(self) -> tuple:
-        """What a captured period froze into its graph: the solve object
-        and its constants (by-value kernel arguments), the schedule
-        tensor, the seed and flags, the addresses of the model's and the
-        cost's tensors, and a model's cached derived values."""
-        from ..interop import _model_tensors
-
-        ctrl = self.ctrl
-        model, fused = ctrl._model, ctrl._fused
-        tensors = (list(_model_tensors(model).values())
-                   + list(ctrl._cost.params().values()))
-        cache = None
-        if hasattr(model, "precompute"):   # AUVModel's mass matrices
-            with torch.no_grad():
-                model.precompute()
-            cache = model._mats_key
-        return (id(fused), id(fused.consts),
-                None if fused.sched is None else fused.sched.data_ptr(),
-                ctrl._base_seed, ctrl._normalize_cost, ctrl._log,
-                ctrl._clip_actions, id(ctrl._S),
-                tuple(t.data_ptr() for t in tensors), cache)
+        return freeze_key(self.ctrl, self.ctrl._cost.params().values())
 
     def _capture(self, b: _Buffers, with_fit: bool) -> None:
         """Warm up one period (and the refit) on a side stream, then

@@ -42,6 +42,9 @@ EXTRA_KERNELS = {"pm_merge": ("pm_merge_stats_kernel",)}
 launch_counts = dict.fromkeys(KERNELS, 0)
 #: the vehicles' solve indices of the last fleet launch (solve_words)
 _fleet_index = None
+#: the vehicles' offsets 0..n-1 on a device, by (device, n), made outside
+#: any capture (solve_words)
+_offsets = {}
 #: kernel nodes recorded into CUDA graphs, by entry point
 captured_counts = dict.fromkeys(KERNELS, 0)
 
@@ -104,7 +107,8 @@ def solve_words(solve, device, n: int = 1) -> tuple:
     ``n`` > 1 vehicles at fleet solve s reads vehicle v's index s n + v
     from an [n] int64 tensor on the device, written here by one small
     device op (no host sync) and kept until the next call, past the
-    launch that reads it."""
+    launch that reads it: an arange from an int, the offsets 0..n-1
+    (kept a device) plus n times the device index from a tensor."""
     global _fleet_index
     if not isinstance(solve, torch.Tensor):
         if n == 1:
@@ -121,8 +125,13 @@ def solve_words(solve, device, n: int = 1) -> tuple:
                          f"kernel runs on {device}")
     if n == 1:
         return 0, 0, solve.data_ptr()
-    _fleet_index = torch.add(
-        torch.arange(n, dtype=torch.int64, device=device), solve, alpha=n)
+    key = (str(device), n)
+    offsets = _offsets.get(key)
+    if offsets is None:
+        offsets = torch.arange(n, dtype=torch.int64, device=device)
+        if not torch.cuda.is_current_stream_capturing():
+            _offsets[key] = offsets
+    _fleet_index = torch.add(offsets, solve, alpha=n)
     return 0, 0, _fleet_index.data_ptr()
 
 

@@ -168,13 +168,19 @@ class AUVModel(ModelBase):
         if torch.is_grad_enabled() and (self.mass.requires_grad
                                         or self.inertial.requires_grad):
             return self._mass_matrices()
-        key = tuple((p._version, p.data_ptr(), p.dtype, p.device)
-                    for p in (self.mass, self.inertial))
+        key = self.mats_key()
         if key != self._mats_key:
             with torch.no_grad():
                 self._mats = self._mass_matrices()
             self._mats_key = key
         return self._mats
+
+    def mats_key(self) -> tuple:
+        """What ``precompute``'s cache is keyed on: ``mass`` and
+        ``inertial``'s version counters and storage. A CUDA graph that read
+        the cached matrices holds them while this key stands."""
+        return tuple((p._version, p.data_ptr(), p.dtype, p.device)
+                     for p in (self.mass, self.inertial))
 
     # ------------------------------------------------------------------
     # dynamics terms, batched over a leading k

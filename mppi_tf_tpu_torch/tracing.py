@@ -1,8 +1,8 @@
 """The port's spans and counters: which stage of a step the host is in,
 on the profiler's clock.
 
-``span(name, id=None)`` marks a stage of the port (a fleet step, the
-two-phase solve's pack (and in it the NN weight segment's,
+``span(name, id=None)`` marks a stage of the port (a fleet step and its
+graph's capture and replay, the two-phase solve's pack (and in it the NN weight segment's,
 ``mppi.solve.pack.weights``), rollout, merge, weights and unfold, the on-device
 loop's load, capture, replay and sync, the library's load and build).
 Tracing is on after ``enable()`` (until ``disable()``) or while a
@@ -29,9 +29,11 @@ percentile; ``export(path)`` writes the ring as a Chrome trace to lay over
 the profiler's. ``counters(*loops)`` reads the port's counters where they
 are kept: the kernel launches by entry point, the launches recorded into
 CUDA graphs, the plant kernels' own two counts, the NN solves' weight
-segments packed, the library builds of this process and, for each on-device loop given, its captured period's kernel
-launches (``nodes``, the plant's ``plant_nodes``), its graph's nodes by
-kind (``graph_nodes``), its captures, the last one's seconds and its plant
+segments packed, the library builds of this process, ``FleetMPPI.next``'s
+steps by how they ran (replayed, eager, capturing) and, for each
+on-device loop given, its captured period's kernel launches (``nodes``,
+the plant's ``plant_nodes``), its graph's nodes by kind
+(``graph_nodes``), its captures, the last one's seconds and its plant
 calls a period.
 """
 
@@ -216,9 +218,12 @@ def counters(*loops) -> dict:
     graphs (``captured_counts``), the plant kernels' two counts
     (``plant_counts``: ``kernels/plant.py``), the NN solves' weight
     segments packed (``nn_weight_packs``: ``kernels/nn_mppi.py``), nvcc
-    builds in this process (``library_builds``) and, for each loop of ``loops``, its ``nodes``,
+    builds in this process (``library_builds``), the fleet steps by how
+    they ran (``fleet_steps``: ``controller/fleet.py``) and, for each loop
+    of ``loops``, its ``nodes``,
     ``plant_nodes``, ``graph_nodes``, ``captures``, ``capture_s`` and
     ``plant_calls``."""
+    from .controller import fleet
     from .kernels import _build, _launch, nn_mppi, plant
 
     out = {"launch_counts": dict(_launch.launch_counts),
@@ -226,7 +231,8 @@ def counters(*loops) -> dict:
            "plant_counts": {"launch_counts": dict(plant.launch_counts),
                             "captured_counts": dict(plant.captured_counts)},
            "nn_weight_packs": nn_mppi.weight_packs,
-           "library_builds": _build.library_builds}
+           "library_builds": _build.library_builds,
+           "fleet_steps": dict(fleet.fleet_steps)}
     if loops:
         out["loops"] = [{"nodes": dict(lp.nodes),
                          "plant_nodes": dict(lp.plant_nodes),
