@@ -82,8 +82,7 @@ port's paths through ``MPPI.next`` closed loop against the analytic plants:
   vehicles against n one-vehicle launches with solve s n + v and at n = 1
   against the one-vehicle entry, bit for bit, and against its plain
   version; 300 host-driven steps (one sync a step, the solve launched
-  once a step for the whole fleet, timed in turns against n one-vehicle
-  launches) and the on-device fleet loop (one captured graph a period,
+  once a step for the whole fleet) and the on-device fleet loop (one captured graph a period,
   replayed == eager, a re-task between runs without a recapture), each
   held to its vehicles' goals; ``fleet_graph``: the benchmark's three
   fleet cells (K, H, n and goals of ``portbench/``), ``FleetMPPI.next``
@@ -322,8 +321,7 @@ OD_AUV_PLANT_TOL = 1e-6
 # each point-mass row is re-tasked to FLEET_RETASK between two on-device
 # runs and must reach it with no recapture. A step's solve kernel runs
 # once for the whole fleet (the profiler's count by kernel name,
-# FLEET_KERNEL_RX); FLEET_TWIN_STEPS host steps are timed in turns as the
-# fleet launch and as n one-vehicle launches
+# FLEET_KERNEL_RX, over FLEET_TWIN_STEPS host steps)
 FLEET_K, FLEET_H, FLEET_STEPS, FLEET_TWIN_STEPS = 8192, 25, 300, 20
 FLEET_PM_N, FLEET_AUV_N = 32, 16
 FLEET_PM_TOL, FLEET_AUV_TOL = GOAL_TOL, DIVE_TOL
@@ -339,9 +337,8 @@ FLEET_KERNEL_RX = {**OD_KERNEL_RX,
 # trained normalisers) at the benchmark cell's K and FLEET_H on the
 # flagship task, depths uniform(-2, 0): both NN kernels' fleet launch over
 # one weight segment against n one-vehicle launches bit for bit (Philox by
-# value and on the device, injected z), FLEET_TWIN_STEPS host steps holding
-# one launch of each phase a step, and the same steps timed in turns as
-# the fleet launch and as n one-vehicle launches
+# value and on the device, injected z) and FLEET_TWIN_STEPS host steps
+# holding one launch of each phase a step
 FLEET_NN_K = 65_536
 
 # the tracking slice. Point-mass mission: the bundled envs/point_mass (lambda
@@ -4112,8 +4109,7 @@ def fleet_host_profile(fleet, x0, expected: dict,
 
 def fleet_row(pm, kind: str, normalize: bool, smi: str) -> dict:
     """One fleet row: its kernels (bits against one-vehicle launches,
-    against the plain versions), FLEET_STEPS host-driven steps, the same
-    fleet as n one-vehicle launches a step (timed in turns), the on-device
+    against the plain versions), FLEET_STEPS host-driven steps, the on-device
     fleet loop (captured once, replayed; eager bit for bit; one sync a
     run; the profiler's launches; a re-task between two runs), each run
     held to ``fleet_gate``."""
@@ -4123,7 +4119,7 @@ def fleet_row(pm, kind: str, normalize: bool, smi: str) -> dict:
     fleet, goals, host, x0 = fleet_build(kind, normalize)
     fused = fleet._tpl._fused
     n, tau, adim = fleet.n_vehicles, FLEET_H, fleet._adim
-    if not (fleet.kernel_path == "cuda" and fused.fleet_axis):
+    if not (fleet.kernel_path == "cuda" and fused is not None):
         raise AssertionError(f"fleet {kind}: {fleet.kernel_path}")
     label = f"fleet_{kind}{'_normalized' if normalize else ''}"
     out = {"n": n, "k": FLEET_K, "tau": tau, "normalize": normalize,
@@ -4221,29 +4217,13 @@ def fleet_row(pm, kind: str, normalize: bool, smi: str) -> dict:
     host_read, host_ok = fleet_gate(kind, normalize, states_h, goals)
     solve = solve_name(kind, normalize)
     prof_f = fleet_host_profile(fleet, x0, {solve: FLEET_TWIN_STEPS})
-    # the same fleet as n one-vehicle launches a step, in turns with the
-    # fleet launch (fleet, one-vehicle, one-vehicle, fleet)
-    turns = {"fleet": [], "per_vehicle": []}
-    for mode in ("fleet", "per_vehicle", "per_vehicle", "fleet"):
-        fused.fleet_axis = mode == "fleet"
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(FLEET_TWIN_STEPS):
-            fleet.next(x0)
-        turns[mode].append((time.perf_counter() - t0) * 1e3
-                           / FLEET_TWIN_STEPS)
-    fused.fleet_axis = False
-    prof_v = fleet_host_profile(fleet, x0, {solve: n * FLEET_TWIN_STEPS})
-    fused.fleet_axis = True
     out["host_driven"] = {
         "steps": FLEET_STEPS, **host_read, "gate_ok": host_ok,
         "launches": counts_h,
         "wall_ms_a_step_median": float(np.median(ms_h)),
         "wall_ms_a_step_p90": float(np.percentile(ms_h, 90)),
         "vehicle_solves_per_s": 1e3 * n / float(np.median(ms_h)),
-        "profile": prof_f,
-        "turns_wall_ms_a_step": turns,
-        "per_vehicle_profile": prof_v}
+        "profile": prof_f}
     # the on-device fleet loop: the model as the plant, one step a period
     model = fleet._model
 
@@ -4308,7 +4288,7 @@ def fleet_row(pm, kind: str, normalize: bool, smi: str) -> dict:
     out["seconds"] = time.perf_counter() - t_row
     emit(label, **out)
     bits_ok = all(all(v.values()) for v in out["bits"].values())
-    one_launch = prof_f["ok"] and prof_v["ok"]
+    one_launch = prof_f["ok"]
     host_syncs = prof_f["syncs_per_step"]
     one_sync = (syncs.get("cudaStreamSynchronize", 0.0) == 1.0
                 and host_syncs.get("cudaStreamSynchronize", 0.0) <= 1.0)
@@ -4339,7 +4319,7 @@ def fleet_nn_row(pm, normalize: bool, smi: str) -> dict:
                       goals=goals, normalize_cost=normalize, kernel="auto")
     fused = fleet._tpl._fused
     label = f"fleet_nn{'_normalized' if normalize else ''}"
-    if not (fleet.kernel_path == "cuda" and fused.fleet_axis):
+    if not (fleet.kernel_path == "cuda" and fused is not None):
         raise AssertionError(f"{label}: {fleet.kernel_path}")
     rng = np.random.default_rng(23)
     x0 = np.tile(rest_state(), (n, 1))
@@ -4406,16 +4386,6 @@ def fleet_nn_row(pm, normalize: bool, smi: str) -> dict:
              "pm_merge": 2 * FLEET_TWIN_STEPS} if normalize else
             {solve: FLEET_TWIN_STEPS, "pm_merge": FLEET_TWIN_STEPS})
     prof_f = fleet_host_profile(fleet, x0, {solve: FLEET_TWIN_STEPS})
-    turns = {"fleet": [], "per_vehicle": []}
-    for mode in ("fleet", "per_vehicle", "per_vehicle", "fleet"):
-        fused.fleet_axis = mode == "fleet"
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(FLEET_TWIN_STEPS):
-            fleet.next(x0)
-        turns[mode].append((time.perf_counter() - t0) * 1e3
-                           / FLEET_TWIN_STEPS)
-    fused.fleet_axis = True
     out = {"n": n, "k": FLEET_NN_K, "tau": FLEET_H, "normalize": normalize,
            "card": smi, "bits": bits, "vs_plain": vs_plain,
            "kernel_times": times,
@@ -4424,8 +4394,7 @@ def fleet_nn_row(pm, normalize: bool, smi: str) -> dict:
                            "wall_ms_a_step_median": float(np.median(ms)),
                            "vehicle_solves_per_s":
                                1e3 * n / float(np.median(ms)),
-                           "profile": prof_f,
-                           "turns_wall_ms_a_step": turns},
+                           "profile": prof_f},
            "finite": bool(np.all(np.isfinite(actions))),
            "seconds": time.perf_counter() - t_row}
     emit(label, **out)

@@ -15,31 +15,28 @@ Two routes, as for ``MPPI``:
 - the torch route (the counterpart of the JAX package's vmapped XLA
   solve): each vehicle's plain solve over its own ``torch.Generator``,
   seeded from (seed, v);
-- the kernel route: the fused solve objects of ``kernels/`` run the whole
-  fleet as one launch of each kernel (``TwoPhaseSolve.fleet_axis``: the
-  vehicle is a grid axis, ``mppi_common.cuh``); at fleet step s vehicle v
-  draws the single-vehicle Philox stream of solve s * n + v (the port's
+- the kernel route: the fused solve objects of ``kernels/`` (point mass,
+  AUV, NN) run the whole fleet as one launch of each kernel (the vehicle
+  is a grid axis, ``mppi_common.cuh``); at fleet step s vehicle v draws
+  the single-vehicle Philox stream of solve s * n + v (the port's
   counterpart of JAX's disjoint seed blocks seed + (s n + v) n_tiles), so a
-  fleet launch equals n one-vehicle launches bit for bit. Every kernel
-  family (point mass, AUV, NN) has the axis; a solve object with
-  ``fleet_axis`` False runs one launch a vehicle, with the same solve
-  indices (``chip_smoke.py`` times a fleet that way beside its launch).
+  fleet launch equals n one-vehicle launches bit for bit.
 
-On the kernel route on the card, with the vehicle axis, ``next`` replays
-one captured CUDA graph of the whole step (``_StepGraph``): the states'
-and the step index's uploads from pinned host buffers, the fleet solve
-and the update over static buffers and the live cost params, the shifted
-sequences kept for the next step, the actions' copy into a pinned host
-buffer. The host writes the inputs, tests the freeze key
-(``envs/mjx_env.freeze_key``), replays and synchronises once. The first
-such step captures the graph (its warm-up computes that step), and so
-does the first after something the graph froze changes: the solve object
-or its constants, the schedule tensor, the seed and flags, a model or
-cost tensor rebound, the AUV's cached mass matrices (a ``model_params``
-write of its mass), or ``load_state``. Goals, missions and parameters
-written in place are read live. Every other fleet (the torch route, the
-CPU, ``mesh=``, a solve object without the vehicle axis) steps eagerly,
-as ``next_eager`` does. ``fleet_steps`` counts the steps of each kind.
+On the kernel route on the card ``next`` replays one captured CUDA graph
+of the whole step (``_StepGraph``): the states' and the step index's
+uploads from pinned host buffers, the fleet solve and the update over
+static buffers and the live cost params, the shifted sequences kept for
+the next step, the actions' copy into a pinned host buffer. The host
+writes the inputs, tests the freeze key (``controller/graph.freeze_key``),
+replays and synchronises once. The first such step captures the graph
+(its warm-up computes that step), and so does the first after something
+the graph froze changes: the solve object or its constants, the schedule
+tensor, the seed and flags, a model or cost tensor rebound, the AUV's
+cached mass matrices (a ``model_params`` write of its mass), or
+``load_state``. Goals, missions and parameters written in place are read
+live. Every other fleet (the torch route, the CPU, ``mesh=``) steps
+eagerly, as ``next_eager`` does. ``fleet_steps`` counts the steps of each
+kind.
 
 Fleets have no observer or log mode (JAX fleet.py:70-72).
 
@@ -62,7 +59,7 @@ import numpy as np
 import torch
 
 from .. import tracing
-from ..kernels import _launch
+from .graph import add_replays, capture, freeze_key
 from .mppi import MPPI
 
 #: ``FleetMPPI.next`` calls by how they ran, in the process (read by
@@ -232,18 +229,19 @@ class FleetMPPI:
         return {name: t[v] for name, t in cp.items()}
 
     @torch.no_grad()
-    def _step(self, states, useq, cp, solve=None, gens=None):
+    def _step(self, states, useq, cp, solve=None):
         """One fleet solve: states [n, sdim], sequences [n, tau, aDim],
         stacked cost params ``cp`` -> (actions [n, aDim], shifted
         sequences, info with [n]-leading cost_min / cost_mean / cost_max,
-        weighted_noise and useq). ``solve``: the fleet step (an int, or a
-        one-element int64 tensor on the device, as the on-device loop's
-        counter; default the fleet's step count); ``gens``: the torch
-        route's generators (default the fleet's)."""
+        weighted_noise and useq): on the kernel route one launch of each
+        kernel for the fleet, else each vehicle's plain solve over its own
+        generator. ``solve``: the fleet step (an int, or a one-element
+        int64 tensor on the device, as the on-device loop's counter;
+        default the fleet's step count)."""
         tpl, n = self._tpl, self._n
-        solve = self._steps if solve is None else solve
         fused = tpl._fused
-        if fused is not None and fused.fleet_axis:
+        if fused is not None:
+            solve = self._steps if solve is None else solve
             wnoise, info = fused.solve(states, useq, seed=tpl._base_seed,
                                        solve=solve,
                                        normalize=tpl._normalize_cost, cp=cp)
@@ -253,20 +251,14 @@ class FleetMPPI:
                     "cost_max": info["cost_max"],
                     "weighted_noise": wnoise, "useq": new_useq}
             return actions, shifted, info
-        gens = self._gens if gens is None else gens
         outs = []
         gen_saved = tpl._gen
         vehicles = self._local_vehicles()
         try:
             for v in vehicles:
                 with bound_params(self._cost, self._row(cp, v)):
-                    if fused is not None:   # one launch a vehicle
-                        outs.append(tpl._fused_step(
-                            states[v], useq[v], solve=solve * n + v))
-                    else:
-                        tpl._gen = gens[v]
-                        outs.append(tpl._solve(states[v], useq[v],
-                                               tpl._sched))
+                    tpl._gen = self._gens[v]
+                    outs.append(tpl._solve(states[v], useq[v], tpl._sched))
         finally:
             tpl._gen = gen_saved
         keys = ("cost_min", "cost_mean", "cost_max", "weighted_noise",
@@ -332,11 +324,10 @@ class FleetMPPI:
         return self._next(states, False)
 
     def _graphed(self) -> bool:
-        """Whether ``next`` replays a graph: the kernel route on the card
-        with the vehicle axis, and no mesh."""
-        fused = self._tpl._fused
+        """Whether ``next`` replays a graph: the card, no mesh, and the
+        kernel route."""
         return (self._device.type == "cuda" and self._mesh is None
-                and fused is not None and fused.fleet_axis)
+                and self._tpl._fused is not None)
 
     def _next(self, states, graph: bool) -> np.ndarray:
         with tracing.span("mppi.fleet.next", self._steps):
@@ -465,7 +456,7 @@ class FleetMPPI:
         and, with a WayPointsCost and ``waypoint_radius``, every vehicle's
         pop) as one control period, on the device: on the kernel route on
         the card one captured CUDA graph, replayed ``steps`` times with one
-        host sync a run (``envs/mjx_env.py``'s machinery). Returns
+        host sync a run (``envs/mjx_env.py``'s loop). Returns
         ``run(states0, generators=None, useq0=None, mparams=None,
         cparams=None, step0=None) -> (states [steps, n, sDim], actions
         [steps, n, aDim])``.
@@ -519,8 +510,9 @@ class _StepGraph:
     step index, and ``useq``, the sequences the step starts from, which
     the graph overwrites with the shifted ones; its outputs are the pinned
     actions and ``info``. ``nodes`` holds the kernel launches of one step
-    by entry point, ``capture_s`` the last capture's seconds (span
-    ``mppi.fleet.capture``)."""
+    by entry point, ``graph_nodes`` its graph's nodes by kind and
+    ``capture_s`` the last capture's seconds (span ``mppi.fleet.capture``;
+    ``controller/graph.capture``)."""
 
     def __init__(self, fleet: FleetMPPI):
         n, sdim, adim = fleet._n, fleet._sdim, fleet._adim
@@ -535,7 +527,8 @@ class _StepGraph:
         self.useq = torch.zeros(tuple(fleet._useq.shape), **like)
         self.solve = torch.zeros(1, dtype=torch.int64, device=fleet._device)
         self.graph, self.key, self.info = None, None, None
-        self.nodes, self.capture_s = {}, None
+        self.nodes, self.plant_nodes, self.graph_nodes = {}, {}, {}
+        self.capture_s = None
         # the sequence tensor ``useq`` was last loaded from or handed out
         # as, and its version: anything else is copied in before a step
         self.fed = (None, None)
@@ -552,31 +545,16 @@ class _StepGraph:
         return info
 
     def _capture(self) -> dict:
-        """Warm up the step on a side stream (it computes this step), then
-        capture it; returns the warm-up's info."""
-        fleet = self.fleet
+        """Capture the step (``controller/graph.capture``); returns the
+        warm-up's info: the warm-up computes this step."""
         self.graph = self.info = None   # the old graph's pool goes first
-        with tracing.timed("mppi.fleet.capture") as span, \
-                torch.cuda.device(fleet._device):
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                info = self._body()
-            torch.cuda.current_stream().wait_stream(side)
-            before = dict(_launch.captured_counts)
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                self.info = self._body()
-            self.nodes = {name: c - before[name]
-                          for name, c in _launch.captured_counts.items()
-                          if c > before[name]}
-            self.graph = graph
-        self.capture_s = span.seconds
-        return info
+        cap = capture("mppi.fleet.capture", self.fleet._device, self._body)
+        self.graph, self.info = cap.graph, cap.out
+        self.nodes, self.plant_nodes = cap.nodes, cap.plant_nodes
+        self.graph_nodes, self.capture_s = cap.graph_nodes, cap.capture_s
+        return cap.warm
 
     def step(self, states) -> np.ndarray:
-        from ..envs.mjx_env import freeze_key
-
         fleet = self.fleet
         with tracing.span("mppi.fleet.upload"):
             self.x_np[...] = np.asarray(states, np.float64).reshape(
@@ -594,7 +572,7 @@ class _StepGraph:
         else:
             with tracing.span("mppi.fleet.replay"):
                 self.graph.replay()
-            _launch.count_replays(self.nodes, 1)
+            add_replays(self.nodes, self.plant_nodes, 1)
             info = self.info
             fleet_steps["replayed"] += 1
         # a tensor of its own a step: no later step writes what was handed

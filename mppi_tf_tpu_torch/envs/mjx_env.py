@@ -9,10 +9,11 @@ steps, the waypoint pop and the DMD window write and refit) runs on the
 device:
 
 - on the card, on the kernel route (``kernel="cuda"``), one control period
-  is captured as a ``torch.cuda.CUDAGraph`` and replayed ``steps`` times;
-  the host synchronises once, at the end of ``run``. The kernels read the
-  Philox solve index from a device counter that the period advances
-  (``_launch.solve_words``), so every replay draws the next solve's noise;
+  is captured as a CUDA graph (``controller/graph.py``) and replayed
+  ``steps`` times; the host synchronises once, at the end of ``run``. The
+  kernels read the Philox solve index from a device counter that the
+  period advances (``_launch.solve_words``), so every replay draws the
+  next solve's noise;
 - on the card, on the torch route (``kernel="torch"``), the period runs
   eagerly, with no host sync until the end of ``run``: it draws its noise
   from the controller's own ``torch.Generator``, which this loop does not
@@ -28,18 +29,14 @@ getGoal / reset) for the generic runner. The analytic AUV plant
 
 from __future__ import annotations
 
-import ctypes
 import inspect
 
 import numpy as np
 import torch
 
 from .. import tracing
-from ..kernels import _launch, plant
-
-#: the CUDA graph node types (CUgraphNodeType, cudaGraphNodeType) that
-#: ``graph_node_kinds`` names; every other type counts as "other"
-_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
+from ..controller.graph import add_replays, capture, freeze_key
+from ..kernels import plant
 
 
 class DevicePointMassEnv:
@@ -242,82 +239,46 @@ def build_on_device_loop(ctrl, plant_step, steps: int, substeps: int = 10,
 
 class _Buffers:
     """The tensors a period reads and writes, owned by the loop, so that
-    a captured graph's addresses stay valid across runs."""
+    a captured graph's addresses stay valid across runs: a row a vehicle
+    where ``owner`` is a fleet (its sequences lead with [n]), and the DMD
+    ring window where ``W`` is given."""
 
-    def __init__(self, ctrl, steps: int, W):
-        like = {"dtype": ctrl._dtype, "device": ctrl._device}
-        sdim, adim = ctrl._sdim, ctrl._adim
-        self.state = torch.zeros(sdim, **like)
-        self.useq = torch.zeros(tuple(ctrl.useq.shape), **like)
-        self.states = torch.zeros(steps, sdim, **like)
-        self.actions = torch.zeros(steps, adim, **like)
-        idx = {"dtype": torch.int64, "device": ctrl._device}
+    def __init__(self, owner, steps: int, W=None):
+        like = {"dtype": owner._dtype, "device": owner._device}
+        lead = tuple(owner.useq.shape[:-2])
+        sdim, adim = owner._sdim, owner._adim
+        self.state = torch.zeros(*lead, sdim, **like)
+        self.useq = torch.zeros(tuple(owner.useq.shape), **like)
+        self.states = torch.zeros(steps, *lead, sdim, **like)
+        self.actions = torch.zeros(steps, *lead, adim, **like)
+        idx = {"dtype": torch.int64, "device": owner._device}
         self.solve = torch.zeros(1, **idx)   # the period's solve index
         self.row = torch.zeros(1, **idx)     # the period's output row
         if W is not None:
-            ma = ctrl._model.get_action_dim()
+            ma = owner._model.get_action_dim()
             self.obs = torch.zeros(W, sdim, **like)
             self.act = torch.zeros(W, ma, **like)
             self.nxt = torch.zeros(W, sdim, **like)
             self.cnt = torch.zeros(1, **idx)
 
 
-def graph_node_kinds(graph) -> dict:
-    """The nodes of a captured ``CUDAGraph(keep_graph=True)``, by kind:
-    {kernel, memcpy, memset, other: count}, read from the graph itself
-    through ``libcuda`` (``cuGraphGetNodes``, ``cuGraphNodeGetType``: what
-    the runtime's ``cudaGraphGetNodes`` and ``cudaGraphNodeGetType`` call
-    on the same handle)."""
-    drv = ctypes.CDLL("libcuda.so.1")
+class _FleetBuffers(_Buffers):
+    """A fleet loop's tensors, with the loop's own copy of the stacked
+    cost params, which the period reads and its pops write."""
 
-    def check(rc: int) -> None:
-        if rc != 0:
-            raise RuntimeError(f"reading a CUDA graph's nodes: CUresult {rc}")
-
-    raw = ctypes.c_void_p(graph.raw_cuda_graph())
-    n = ctypes.c_size_t(0)
-    check(drv.cuGraphGetNodes(raw, None, ctypes.byref(n)))
-    nodes = (ctypes.c_void_p * n.value)()
-    check(drv.cuGraphGetNodes(raw, nodes, ctypes.byref(n)))
-    out = dict.fromkeys(("kernel", "memcpy", "memset", "other"), 0)
-    kind = ctypes.c_int(0)
-    for node in nodes:
-        check(drv.cuGraphNodeGetType(ctypes.c_void_p(node),
-                                     ctypes.byref(kind)))
-        out[_NODE_KINDS.get(kind.value, "other")] += 1
-    return out
+    def __init__(self, fleet, steps: int):
+        super().__init__(fleet, steps)
+        self.cp = {name: torch.zeros_like(t)
+                   for name, t in fleet.cost_params.items()}
 
 
-def freeze_key(ctrl, cost_tensors) -> tuple:
-    """What a CUDA graph of ``ctrl``'s fused solve froze: the solve object
-    and its constants (by-value kernel arguments), the schedule tensor,
-    the seed and flags, the addresses of the model's parameters and
-    buffers and of ``cost_tensors`` (the cost params the graph reads), and
-    the key of a model's cached derived values (``AUVModel.mats_key``).
-    Ints and addresses only, cheap enough to test before every replay: a
-    graph is captured again when it changes, while parameters written in
-    place are read live."""
-    model, fused = ctrl._model, ctrl._fused
-    mats_key = getattr(model, "mats_key", None)
-    return (id(fused), id(fused.consts),
-            None if fused.sched is None else fused.sched.data_ptr(),
-            ctrl._base_seed, ctrl._normalize_cost, ctrl._log,
-            ctrl._clip_actions, id(ctrl._S), _addresses(model),
-            tuple(t.data_ptr() for t in cost_tensors),
-            None if mats_key is None else mats_key())
+def _clone(tensors: dict) -> dict:
+    return {n: t.detach().clone() for n, t in tensors.items()}
 
 
-def _addresses(module) -> tuple:
-    """The addresses of every parameter and buffer of ``module`` and its
-    submodules, read from the modules' own dicts (a fraction of the cost
-    of ``named_parameters``)."""
-    out, stack = [], [module]
-    while stack:
-        mod = stack.pop()
-        for tensors in (mod._parameters, mod._buffers):
-            out += [t.data_ptr() for t in tensors.values() if t is not None]
-        stack += [m for m in mod._modules.values() if m is not None]
-    return tuple(out)
+def _copy(dst: dict, src: dict) -> None:
+    for n, t in dst.items():
+        t.copy_(src[n])
 
 
 class OnDeviceLoop:
@@ -332,13 +293,18 @@ class OnDeviceLoop:
     plant calls of one period: 1 where the plant steps every substep in
     one call, else ``substeps``."""
 
+    #: the attribute of ``owner`` (whose step count a run advances) that
+    #: holds the torch route's generator, which ``run(generator=)``
+    #: replaces for the run
+    _GEN = "_gen"
+
     def __init__(self, ctrl, plant_step, steps: int, substeps: int,
                  refit_window, waypoint_radius):
         from ..controller.dmd import DMDAdaptiveMixin
         from ..costs.waypoints import WayPointsCost
 
-        self.ctrl = ctrl
-        self._set_plant(plant_step, steps, substeps)
+        self.ctrl = self.owner = ctrl
+        self._setup(plant_step, steps, substeps)
         self.adaptive = isinstance(ctrl, DMDAdaptiveMixin)
         self.W = None
         if self.adaptive:
@@ -351,20 +317,21 @@ class OnDeviceLoop:
                     "waypoint_radius needs a WayPointsCost controller, got "
                     f"{type(ctrl._cost).__name__}")
             self.pop = waypoint_pop_fn(ctrl._cost, waypoint_radius)
-        self._bufs = None
-        self._graphs = None      # (period graph, refit graph or None)
-        self._frozen = None      # what the graphs froze (_freeze_key)
-        self.nodes, self.capture_s, self.captures = {}, None, 0
-        self.plant_nodes, self.graph_nodes = {}, {}
 
-    def _set_plant(self, plant_step, steps: int, substeps: int) -> None:
+    def _setup(self, plant_step, steps: int, substeps: int) -> None:
         """The plant, the period's shape and how a period calls the plant
-        (``plant_calls``), read once from the plant's signature."""
+        (``plant_calls``, read once from the plant's signature); no
+        buffers or graph yet."""
         self.plant_step = plant_step
         self.steps, self.substeps = int(steps), int(substeps)
         self._fused_plant = (self.substeps > 1 and "substeps" in
                              inspect.signature(plant_step).parameters)
         self.plant_calls = 1 if self._fused_plant else self.substeps
+        self._bufs = None
+        self._graphs = None      # (period graph, refit graph or None)
+        self._frozen = None      # what the graphs froze (freeze_key)
+        self.nodes, self.capture_s, self.captures = {}, None, 0
+        self.plant_nodes, self.graph_nodes = {}, {}
 
     @property
     def useq(self) -> torch.Tensor:
@@ -447,40 +414,15 @@ class OnDeviceLoop:
         return freeze_key(self.ctrl, self.ctrl._cost.params().values())
 
     def _capture(self, b: _Buffers, with_fit: bool) -> None:
-        """Warm up one period (and the refit) on a side stream, then
-        capture each as a graph; the warm-up's writes are undone by the
-        caller's load."""
-        with tracing.timed("mppi.loop.capture") as span:
-            side = torch.cuda.Stream(device=self.ctrl._device)
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side):
-                self._period(b)
-                if with_fit:
-                    self._fit(b)
-            torch.cuda.current_stream().wait_stream(side)
-            before = dict(_launch.captured_counts)
-            before_plant = dict(plant.captured_counts)
-            # kept after its capture, so that its nodes can be read, and
-            # instantiated here, not at its first replay
-            period = torch.cuda.CUDAGraph(keep_graph=True)
-            with torch.cuda.graph(period):
-                self._period(b)
-            fit = None
-            if with_fit:
-                fit = torch.cuda.CUDAGraph()
-                with torch.cuda.graph(fit, pool=period.pool()):
-                    self._fit(b)
-            self.nodes = {n: c - before[n]
-                          for n, c in _launch.captured_counts.items()
-                          if c > before[n]}
-            self.plant_nodes = {n: c - before_plant[n]
-                                for n, c in plant.captured_counts.items()
-                                if c > before_plant[n]}
-            self.graph_nodes = graph_node_kinds(period)
-            period.instantiate()
-            self._graphs = (period, fit)
-            torch.cuda.current_stream().synchronize()
-        self.capture_s = span.seconds
+        """Capture one period (and the refit) as graphs
+        (``controller/graph.capture``); the warm-up's writes are undone by
+        the caller's load."""
+        cap = capture("mppi.loop.capture", self.ctrl._device,
+                      lambda: self._period(b),
+                      (lambda: self._fit(b)) if with_fit else None)
+        self._graphs = (cap.graph, cap.second)
+        self.nodes, self.plant_nodes = cap.nodes, cap.plant_nodes
+        self.graph_nodes, self.capture_s = cap.graph_nodes, cap.capture_s
         self.captures += 1
 
     # --- run --------------------------------------------------------------
@@ -510,51 +452,72 @@ class OnDeviceLoop:
         return t.to(device=ctrl._device, dtype=ctrl._dtype,
                     non_blocking=True)
 
+    def _new_buffers(self) -> _Buffers:
+        return _Buffers(self.ctrl, self.steps, self.W)
+
+    def _cost_params(self, cparams):
+        """The run's cost params, as ``(load, end)``: ``cparams`` written
+        over the cost's own for this run alone (``end`` restores them); on
+        a mission the queue rewound by each ``load`` (a capture's warm-up
+        pops it) and, at ``end``, its copy to the host started. ``end``
+        returns what refreshes the cost's host copy of the queue once the
+        run has synchronised, or None."""
+        cost = self.ctrl._cost
+        cost_t = cost.params()
+        orig = _clone(cost_t) if cparams is not None else None
+        if cparams is not None:
+            for name, v in cparams.items():
+                cost_t[name].copy_(self._upload(v).to(cost_t[name].dtype)
+                                   .reshape(cost_t[name].shape))
+        init = _clone(cost_t) if self.pop is not None else None
+
+        def load():
+            if init is not None:
+                _copy(cost_t, init)
+
+        def end():
+            if orig is not None:
+                _copy(cost_t, orig)
+            if self.pop is None or cparams is not None:
+                return None
+            queue = (cost.waypoints.to("cpu", non_blocking=True),
+                     cost.count.to("cpu", non_blocking=True))
+            return lambda: cost.sync_host(*queue)
+
+        return load, end
+
     @torch.no_grad()
     def _run(self, x0, generator, useq0, mparams, cparams, window, step0,
              graph: bool):
         from ..interop import _model_tensors
 
-        ctrl = self.ctrl
-        steps = self.steps
+        ctrl, owner, steps = self.ctrl, self.owner, self.steps
         if step0 is None:
-            step0 = ctrl._steps
-            ctrl._steps = step0 + steps
+            step0 = owner._steps
+            owner._steps = step0 + steps
         with tracing.span("mppi.loop.run", step0):
             with tracing.span("mppi.loop.load"):
                 self._staged = []
-                x0 = self._upload(x0).reshape(-1)
-                useq0 = (torch.zeros_like(ctrl.useq) if useq0 is None
-                         else self._upload(useq0).reshape(ctrl.useq.shape))
+                if self._bufs is None:
+                    self._bufs = self._new_buffers()
+                b = self._bufs
+                x0 = self._upload(x0).reshape(b.state.shape)
+                useq0 = (torch.zeros_like(b.useq) if useq0 is None
+                         else self._upload(useq0).reshape(b.useq.shape))
                 model_t = _model_tensors(ctrl._model)
-                cost_t = ctrl._cost.params()
-                keep_m = mparams is not None or self.adaptive
-                orig_m = ({n: t.detach().clone() for n, t in model_t.items()}
-                          if keep_m else None)
-                orig_c = ({n: t.detach().clone() for n, t in cost_t.items()}
-                          if cparams is not None else None)
+                orig_m = (_clone(model_t)
+                          if mparams is not None or self.adaptive else None)
                 if mparams is not None:
                     ctrl.model_params = mparams
-                if cparams is not None:
-                    for name, v in cparams.items():
-                        cost_t[name].copy_(
-                            self._upload(v).to(cost_t[name].dtype)
-                            .reshape(cost_t[name].shape))
+                load_cost, end_cost = self._cost_params(cparams)
                 # what each run starts from, after the overrides: the
-                # warm-up of a capture writes the model (a refit) and the
-                # queue (a pop)
-                init_m = ({n: t.detach().clone() for n, t in model_t.items()}
-                          if self.adaptive else None)
-                init_c = ({n: t.detach().clone() for n, t in cost_t.items()}
-                          if self.pop is not None else None)
+                # warm-up of a capture writes the model (a refit)
+                init_m = _clone(model_t) if self.adaptive else None
                 win = None
                 if self.adaptive:
                     win = (_dmd_window(ctrl, self.W) if window is None
                            else window)
                 n0 = int(win[3]) if win is not None else 0
-                if self._bufs is None:
-                    self._bufs = _Buffers(ctrl, steps, self.W)
-                b = self._bufs
 
             def load():
                 with tracing.span("mppi.loop.load"):
@@ -567,17 +530,14 @@ class OnDeviceLoop:
                             buf.copy_(self._upload(src))
                         b.cnt.fill_(n0)
                     if init_m is not None:
-                        for n, t in model_t.items():
-                            t.copy_(init_m[n])
-                    if init_c is not None:
-                        for n, t in cost_t.items():
-                            t.copy_(init_c[n])
+                        _copy(model_t, init_m)
+                    load_cost()
 
             refits = self._refits(step0, n0)
             ridge = self.adaptive and ctrl._model.rank is None
-            gen_saved = ctrl._gen
+            gen_saved = getattr(owner, self._GEN)
             if generator is not None:
-                ctrl._gen = generator
+                setattr(owner, self._GEN, generator)
             try:
                 if graph:
                     key = self._freeze_key()
@@ -595,9 +555,7 @@ class OnDeviceLoop:
                                     fit.replay()
                                 else:
                                     self._fit(b)
-                        _launch.count_replays(self.nodes, steps)
-                        _launch.count_replays(self.plant_nodes, steps,
-                                              plant.launch_counts)
+                        add_replays(self.nodes, self.plant_nodes, steps)
                 else:
                     load()
                     for j in range(steps):
@@ -605,7 +563,7 @@ class OnDeviceLoop:
                         if j in refits:
                             self._fit(b)
             finally:
-                ctrl._gen = gen_saved
+                setattr(owner, self._GEN, gen_saved)
                 if ctrl._fused is not None:
                     ctrl._fused.forget_cached_terms()
             with tracing.span("mppi.loop.sync"):
@@ -615,80 +573,48 @@ class OnDeviceLoop:
                     fitted = {"A": ctrl._model.A.detach().clone(),
                               "B": ctrl._model.B.detach().clone()}
                 if orig_m is not None:
-                    for n, t in model_t.items():
-                        t.copy_(orig_m[n])
-                if orig_c is not None:
-                    for n, t in cost_t.items():
-                        t.copy_(orig_c[n])
-                queue = None
-                if self.pop is not None and cparams is None:
-                    cost = ctrl._cost
-                    queue = (cost.waypoints.to("cpu", non_blocking=True),
-                             cost.count.to("cpu", non_blocking=True))
+                    _copy(model_t, orig_m)
+                synced = end_cost()
                 if ctrl._device.type == "cuda":
                     # the run's one host sync
                     torch.cuda.current_stream(ctrl._device).synchronize()
                 self._staged = []
-                if queue is not None:
-                    ctrl._cost.sync_host(*queue)
+                if synced is not None:
+                    synced()
         if self.adaptive:
             return states, actions, fitted
         return states, actions
 
 
-class _FleetBuffers:
-    """A fleet loop's tensors (``_Buffers``, a row a vehicle), with the
-    loop's own copy of the stacked cost params, which the period reads and
-    its pops write."""
-
-    def __init__(self, fleet, steps: int):
-        like = {"dtype": fleet._dtype, "device": fleet._device}
-        n, sdim, adim = fleet._n, fleet._sdim, fleet._adim
-        self.state = torch.zeros(n, sdim, **like)
-        self.useq = torch.zeros(tuple(fleet.useq.shape), **like)
-        self.states = torch.zeros(steps, n, sdim, **like)
-        self.actions = torch.zeros(steps, n, adim, **like)
-        idx = {"dtype": torch.int64, "device": fleet._device}
-        self.solve = torch.zeros(1, **idx)   # the period's fleet step
-        self.row = torch.zeros(1, **idx)
-        self.cp = {name: torch.zeros_like(t)
-                   for name, t in fleet.cost_params.items()}
-
-
 class FleetLoop(OnDeviceLoop):
     """The ``run`` of ``FleetMPPI.build_on_device_loop``: ``OnDeviceLoop``'s
-    capture and replay over a fleet's period (the fleet solve, the
-    batched plant, every vehicle's pop). ``nodes``, ``plant_nodes``,
-    ``graph_nodes``, ``capture_s``, ``captures`` and ``plant_calls`` as
-    there."""
+    run over a fleet's period (the fleet solve, the batched plant, every
+    vehicle's pop), the fleet's step count and generators in the
+    controller's place. ``nodes``, ``plant_nodes``, ``graph_nodes``,
+    ``capture_s``, ``captures`` and ``plant_calls`` as there."""
+
+    _GEN = "_gens"
 
     def __init__(self, fleet, plant_step, steps: int, substeps: int,
                  waypoint_radius):
         from ..controller.fleet import _fleet_pop
 
-        self.fleet, self.ctrl = fleet, fleet._tpl
-        self._set_plant(plant_step, steps, substeps)
+        self.fleet = self.owner = fleet
+        self.ctrl = fleet._tpl
+        self._setup(plant_step, steps, substeps)
         self.adaptive, self.W = False, None
         self.pop = self.r2 = None
         if waypoint_radius is not None:
             self.pop = _fleet_pop(fleet._cost)
             self.r2 = float(waypoint_radius) ** 2
-        self._bufs = None
-        self._graphs = None
-        self._frozen = None
-        self._gens = None
-        self.nodes, self.capture_s, self.captures = {}, None, 0
-        self.plant_nodes, self.graph_nodes = {}, {}
 
     @torch.no_grad()
     def _period(self, b) -> None:
         actions, shifted, _ = self.fleet._step(b.state, b.useq, b.cp,
-                                               solve=b.solve, gens=self._gens)
+                                               solve=b.solve)
         x = self._plant(b.state, actions)
         if self.pop is not None:
-            cp = self.pop(b.cp, x, self.r2)
-            for name, t in cp.items():
-                b.cp[name].copy_(t)
+            _copy(b.cp, self.pop(b.cp, x, self.r2))
         b.states.index_copy_(0, b.row, x[None].to(b.states.dtype))
         b.actions.index_copy_(0, b.row, actions[None].to(b.actions.dtype))
         b.row.add_(1)
@@ -696,90 +622,35 @@ class FleetLoop(OnDeviceLoop):
         b.state.copy_(x)
         b.useq.copy_(shifted)
 
+    def _new_buffers(self) -> _FleetBuffers:
+        return _FleetBuffers(self.fleet, self.steps)
+
+    def _cost_params(self, cparams):
+        """The loop's own stacked cost params, loaded from the fleet's, or
+        from ``cparams`` for a what-if run; at ``end`` a mission goes on
+        from the run's final queues."""
+        fleet, cp = self.fleet, self._bufs.cp
+        src = fleet.cost_params
+        if cparams is not None:
+            src = {name: self._upload(cparams[name]).to(t.dtype)
+                   .reshape(t.shape) for name, t in src.items()}
+
+        def end():
+            if self.pop is not None and cparams is None:
+                _copy(fleet.cost_params, cp)
+
+        return (lambda: _copy(cp, src)), end
+
     def __call__(self, states0, generators=None, useq0=None, mparams=None,
                  cparams=None, step0=None):
-        return self._run_fleet(states0, generators, useq0, mparams, cparams,
-                               step0, graph=self._graphed())
+        return self._run(states0, generators, useq0, mparams, cparams, None,
+                         step0, graph=self._graphed())
 
     def eager(self, states0, generators=None, useq0=None, mparams=None,
               cparams=None, step0=None):
         """``run`` with every period executed eagerly (no graph)."""
-        return self._run_fleet(states0, generators, useq0, mparams, cparams,
-                               step0, graph=False)
-
-    @torch.no_grad()
-    def _run_fleet(self, states0, generators, useq0, mparams, cparams,
-                   step0, graph: bool):
-        from ..interop import _model_tensors
-
-        fleet, ctrl, steps = self.fleet, self.ctrl, self.steps
-        if step0 is None:
-            step0 = fleet._steps
-            fleet._steps = step0 + steps
-        with tracing.span("mppi.loop.run", step0):
-            with tracing.span("mppi.loop.load"):
-                self._staged = []
-                x0 = self._upload(states0).reshape(fleet._n, fleet._sdim)
-                useq0 = (torch.zeros_like(fleet.useq) if useq0 is None
-                         else self._upload(useq0).reshape(fleet.useq.shape))
-                model_t = _model_tensors(ctrl._model)
-                orig_m = None
-                if mparams is not None:
-                    orig_m = {n: t.detach().clone()
-                              for n, t in model_t.items()}
-                    ctrl.model_params = mparams
-                src = fleet.cost_params
-                if cparams is not None:
-                    src = {name: self._upload(cparams[name]).to(t.dtype)
-                           .reshape(t.shape) for name, t in src.items()}
-                if self._bufs is None:
-                    self._bufs = _FleetBuffers(fleet, steps)
-                b = self._bufs
-
-            def load():
-                with tracing.span("mppi.loop.load"):
-                    b.state.copy_(x0)
-                    b.useq.copy_(useq0)
-                    b.solve.fill_(step0)
-                    b.row.zero_()
-                    for name, t in b.cp.items():
-                        t.copy_(src[name])
-
-            self._gens = generators
-            try:
-                if graph:
-                    key = self._freeze_key()
-                    if key != self._frozen:
-                        load()
-                        self._capture(b, with_fit=False)
-                        self._frozen = key
-                    load()
-                    period, _ = self._graphs
-                    with tracing.span("mppi.loop.replay"):
-                        for _ in range(steps):
-                            period.replay()
-                        _launch.count_replays(self.nodes, steps)
-                        _launch.count_replays(self.plant_nodes, steps,
-                                              plant.launch_counts)
-                else:
-                    load()
-                    for _ in range(steps):
-                        self._period(b)
-            finally:
-                self._gens = None
-            with tracing.span("mppi.loop.sync"):
-                states, actions = b.states.clone(), b.actions.clone()
-                if orig_m is not None:
-                    for n, t in model_t.items():
-                        t.copy_(orig_m[n])
-                if self.pop is not None and cparams is None:
-                    # the mission goes on from the run's final queues
-                    for name, t in fleet.cost_params.items():
-                        t.copy_(b.cp[name])
-                if ctrl._device.type == "cuda":
-                    torch.cuda.current_stream(ctrl._device).synchronize()
-                self._staged = []
-        return states, actions
+        return self._run(states0, generators, useq0, mparams, cparams, None,
+                         step0, graph=False)
 
 
 def on_device_closed_loop(ctrl, plant_step, x0, steps: int,

@@ -612,8 +612,6 @@ class FusedAUVMPPI(TwoPhaseSolve):
         self._scale = torch.as_tensor(scale, **like)
         self._inv_sigma = torch.as_tensor(inv_sigma, **like)
 
-    fleet_axis = True
-
     def _goals(self, dtype, cp, lead: tuple) -> torch.Tensor:
         """dyn's goal (13), then goal2 (13) and wblend (2) of the waypoint
         blend: the static goal and zeros; the queue's w0, w1 and (1-a, a),

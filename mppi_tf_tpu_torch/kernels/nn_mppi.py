@@ -24,12 +24,12 @@ normalisers are runtime data, the weight segment at the head of ``dyn``
 Source: ``csrc/nn_mppi.cu``.
 
 Fleets: a fleet's solve is one launch of each kernel over all its
-vehicles (``FusedNNMPPI.fleet_axis``): the weight segment once, shared by
-the vehicles, and a row a vehicle (state, goal, sequence, action-cost
-terms), vehicle v drawing solve s n + v, so that the launch equals n
-one-vehicle launches bit for bit (``mppi_common.cuh``, fleets). The
-segment is packed once a solve, from the live parameters, by one gather
-(``pack_weights``, counted in ``weight_packs``).
+vehicles: the weight segment once, shared by the vehicles, and a row a
+vehicle (state, goal, sequence, action-cost terms), vehicle v drawing
+solve s n + v, so that the launch equals n one-vehicle launches bit for
+bit (``mppi_common.cuh``, fleets). The segment is packed once a solve,
+from the live parameters, by one gather (``pack_weights``, counted in
+``weight_packs``).
 
 The normalisers are not folded into the first layer, as the TPU kernel
 folds them (W1 / x_std, ``mppi_tf_tpu/kernels/nn_mppi.py:498-509``): a
@@ -436,7 +436,7 @@ class FusedNNMPPI(TwoPhaseSolve):
     nominal sequence's action-cost terms), runs ``nn_fused_solve`` + ``pm_merge``,
     or the two phases ``nn_fused_costs`` and ``mppi_weights``, and un-folds
     the weighted normals to action units. A fleet runs every phase as one
-    launch over its vehicles, on one weight segment (``fleet_axis``).
+    launch over its vehicles, on one weight segment.
 
     Counterpart of the JAX package's ``FusedNNMPPI``; ``antithetic`` and
     ``schedule`` are its runtime variants, ``compute_dtype`` ("float32" or
@@ -493,8 +493,6 @@ class FusedNNMPPI(TwoPhaseSolve):
         self._inv_sigma = torch.as_tensor(inv_sigma, **like)
         self._index = torch.as_tensor(
             segment_index(self.consts.layout(self.tau)), device=model.device)
-
-    fleet_axis = True
 
     def pack_weights(self) -> torch.Tensor:
         """The weight segment ([NNDyn.weights], the model's dtype): the

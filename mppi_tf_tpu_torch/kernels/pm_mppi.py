@@ -843,18 +843,15 @@ class TwoPhaseSolve:
     ``compute_dtype`` ("float32" or "bfloat16") picks the kernels' build
     in every phase, the weights and the noise sample included.
 
-    Fleets: where ``fleet_axis`` is True, ``solve`` also takes the states
-    [n, sdim] and sequences [n, tau, adim] of n vehicles with their cost
-    params ``cp`` (the cost's ``params()`` stacked [n, ...]), and runs
-    every phase as one launch over all vehicles (vehicle v draws solve
-    solve * n + v); wnoise and every info entry then lead with [n]. With
-    ``cp`` None the cost's own params are read.
+    Fleets: ``solve`` also takes the states [n, sdim] and sequences [n,
+    tau, adim] of n vehicles with their cost params ``cp`` (the cost's
+    ``params()`` stacked [n, ...]), and runs every phase as one launch
+    over all vehicles (vehicle v draws solve solve * n + v); wnoise and
+    every info entry then lead with [n]. With ``cp`` None the cost's own
+    params are read.
     """
 
     compute_dtype = "float32"
-    #: the solve packs and launches a vehicle axis (``pack_dyn`` takes
-    #: ``cp``); else a fleet runs one solve a vehicle
-    fleet_axis = False
 
     def _noise_options(self, antithetic: bool, schedule, like: dict) -> None:
         """Set ``antithetic`` and ``sched`` (a spec of
@@ -1072,7 +1069,6 @@ class FusedPointMassMPPI(TwoPhaseSolve):
     #: True where the kernel reads (A, B scale) from ``dyn``
     #: (``FusedLTIMPPI``) instead of the solve's constants
     dynamic_ab = False
-    fleet_axis = True
 
     def _check_model(self, model) -> None:
         from ..models.point_mass import PointMassModel

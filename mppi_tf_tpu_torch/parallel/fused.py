@@ -49,8 +49,6 @@ class ShardedFusedSolve:
     ``sched``, ``antithetic`` and ``compute_dtype``. ``k`` is the global
     sample count."""
 
-    fleet_axis = False
-
     def __init__(self, shards: list, mesh, k: int):
         self.shards, self.mesh = list(shards), mesh
         lead = self.shards[0]

@@ -1894,7 +1894,8 @@ def test_nn_fleet_launch_equals_vehicle_launches(cuda_device, build,
     n, k, tau, s = 16, 4096, 10, 3
     fleet = _nn_fleet(n, k, tau, cuda_device, build, normalize)
     fused = fleet._tpl._fused
-    assert type(fused) is nnk.FusedNNMPPI and fused.fleet_axis
+    assert type(fused) is nnk.FusedNNMPPI
+    assert fleet._tpl.kernel_path == "cuda"
     rng = np.random.default_rng(7)
     x = np.zeros((n, 13))
     x[:, 6] = 1.0

@@ -88,7 +88,8 @@ def _fleet(n, k, tau, task=STATIC, dtype=F64, kernel=False, **kw):
                       upsilon=1.0, sigma=SIGMA, device="cpu", **kw)
     if kernel:
         fleet._tpl._resolve_kernel("auto", SIGMA, None)
-        assert fleet._tpl._fused.fleet_axis
+        assert (fleet._tpl.kernel_path == "cuda"
+                and fleet._tpl._fused is not None)
     return fleet
 
 
@@ -572,7 +573,8 @@ def test_fused_quat_missions_match_single_fused_solves():
     fleet = FleetMPPI(*build(), n_vehicles=n, k=k, tau=tau, lam=0.5,
                       upsilon=1.0, sigma=sigma, seed=7, device="cpu")
     fleet._tpl._resolve_kernel("auto", sigma, None)
-    assert fleet._tpl._fused.fleet_axis
+    assert (fleet._tpl.kernel_path == "cuda"
+            and fleet._tpl._fused is not None)
     for v, m in enumerate(missions):
         fleet.set_vehicle_waypoints(v, m)
     singles = []

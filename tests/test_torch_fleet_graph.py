@@ -1,6 +1,6 @@
 """``FleetMPPI.next`` as one captured CUDA graph (controller/fleet.py
 ``_StepGraph``) and the freeze key it shares with the on-device loop
-(envs/mjx_env.py ``freeze_key``).
+(controller/graph.py ``freeze_key``).
 
 On the CPU: the key changes under each mutation that makes a graph
 capture again (a new schedule, a model or cost tensor rebound, a write of
@@ -27,9 +27,9 @@ import torch
 from mppi_tf_tpu_torch import flagship, tracing
 from mppi_tf_tpu_torch.controller import FleetMPPI
 from mppi_tf_tpu_torch.controller import fleet as fleet_mod
+from mppi_tf_tpu_torch.controller.graph import freeze_key
 from mppi_tf_tpu_torch.costs import get_cost
 from mppi_tf_tpu_torch.envs import DevicePointMassEnv
-from mppi_tf_tpu_torch.envs.mjx_env import freeze_key
 from mppi_tf_tpu_torch.kernels import _launch
 from mppi_tf_tpu_torch.models import get_model
 from mppi_tf_tpu_torch.models.dmd import DMDModel
@@ -112,7 +112,8 @@ def _fleet(kind: str, device, k: int = 256, kernel_dtype="float32",
         tpl._kernel_dtype = kernel_dtype
         tpl._resolve_kernel("auto", sigma, None if tpl._sched is None
                             else tpl._sched.cpu().numpy())
-    assert fleet._tpl.kernel_path == "cuda" and fleet._tpl._fused.fleet_axis
+    assert (fleet._tpl.kernel_path == "cuda"
+            and fleet._tpl._fused is not None)
     return fleet
 
 

@@ -80,6 +80,29 @@ def test_source_imports_no_jax(path):
         assert not bad, f"{path.name}:{node.lineno} imports {bad}"
 
 
+#: the port's modules that may name each piece of the CUDA-graph
+#: machinery: the graph module alone captures; it, the launch counts'
+#: owners and the counters' report name the counts
+_GRAPH_HOMES = {"controller/graph.py"}
+_COUNT_HOMES = _GRAPH_HOMES | {"kernels/_launch.py", "kernels/plant.py",
+                               "tracing.py"}
+
+
+@pytest.mark.parametrize("name, homes", [
+    ("torch.cuda.CUDAGraph", _GRAPH_HOMES),
+    ("torch.cuda.graph(", _GRAPH_HOMES),
+    ("captured_counts", _COUNT_HOMES),
+    ("count_replays", _COUNT_HOMES)])
+def test_cuda_graphs_have_one_home(name, homes):
+    """Every CUDA graph of the port is captured, and its launches counted,
+    through ``controller/graph.py``: no other module names the graph API
+    or the capture and replay counts."""
+    names = {p.relative_to(PORT).as_posix() for p in PORT.rglob("*.py")
+             if name in p.read_text()}
+    assert names <= homes, sorted(names - homes)
+    assert names & _GRAPH_HOMES
+
+
 def test_sources_cover_the_auv_slice():
     names = {p.relative_to(REPO).as_posix() for p in _sources()}
     assert {"chip_smoke.py", "mppi_tf_tpu_torch/flagship.py",

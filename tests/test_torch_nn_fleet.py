@@ -66,7 +66,8 @@ def _fleet(kernel_dtype="float32", **options):
                       upsilon=1.0, sigma=SIGMA, goals=GOALS, seed=11,
                       device="cpu", **options)
     _kernel_route(fleet._tpl, kernel_dtype)
-    assert fleet._tpl._fused.fleet_axis
+    assert (fleet._tpl.kernel_path == "cuda"
+            and fleet._tpl._fused is not None)
     return fleet
 
 
