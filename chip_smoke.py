@@ -89,7 +89,9 @@ port's paths through ``MPPI.next`` closed loop against the analytic plants:
   replaying its captured step against ``next_eager``, bit for bit over
   FLEET_GRAPH_BITS steps, then FLEET_GRAPH_STEPS steps of each in turns
   (host ms a step, and the host's ms outside the step's one sync), one
-  capture a cell (``fleet_steps``);
+  capture a cell (``fleet_steps``); ``z_held``: the two point-mass cells'
+  solves as the benchmark builds them, the normals they held in shared
+  memory and drew again (``pm_z_held``) and its engage share, the rule's;
 - multi-GPU and sharding (``parallel/``, the ``sharded`` phase; n shards
   or ranks on ONE card, the sharding's overhead, not multi-GPU scaling):
   a mesh of one shard against the single-device kernels bit for bit; 4
@@ -132,9 +134,11 @@ the f32 ones had before the bf16 builds were added (PERF.md), the static
 SASS counts of the point-mass, AUV and NN kernels (``sass``: tensor-core
 HMMA, conversions, bf16x2 ops, f32 ops, loads) and every solve
 instantiation's blocks an SM and waves at the flagship shapes
-(``occupancy``), and fails on a spill, on an f32 point-mass
-instantiation that needs more than one wave at K=100,000, or on an f32
-or bf16-products NN instantiation without HMMA in its SASS.
+(``occupancy``), and fails on a spill, on an f32 point-mass costs
+instantiation that needs more than one wave at K=100,000 or solve
+instantiation below two blocks an SM at the prefix of its normals it
+holds, or on an f32 or bf16-products NN instantiation without HMMA in its
+SASS.
 With ``--parent DIR`` (a checkout of the parent commit) it also builds
 that tree's library and holds this tree's kernels against it
 (``parent_bits``: the noise dump, f32 and bf16, plain and antithetic, at
@@ -143,11 +147,12 @@ phase B and every solve and costs kernel bit for bit; pm_merge against
 an f64 merge of the same rows, m and the cost min / max exact and the
 sums within MERGE_L1_TOL of each column's l1 mass, the parent's merge
 beside, two merges equal), times the two in turns (``parent_times``,
-beside an empty kernel's launch floor; it fails unless the dump beats
-the parent's at the headline shape and stays within DUMP_LOG_SLACK_MS of
-it at the log shape) and the wall time of MPPI.next in the headline
-point mass, ``point_mass_h100`` and the AUV dive on either library in
-turns (``parent_loops``). It
+beside an empty kernel's launch floor; it fails unless the unnormalised
+point-mass solve, which holds its normals in shared memory, beats the
+parent's at the headline shape and at the fleet's, and the dump stays
+within DUMP_LOG_SLACK_MS of it at the log shape) and the wall time of
+MPPI.next in the headline point mass, ``point_mass_h100`` and the AUV
+dive on either library in turns (``parent_loops``). It
 times every kernel, each noise variant beside the same kernel without
 it, the dynamic_ab variant beside the constant-(A, B) kernel and each
 bf16 build beside its f32 build, and ``torch.randn`` at the noise dump's
@@ -2184,9 +2189,15 @@ def occupancy_phase(lib, reg_rows, n_sm: int) -> None:
     instantiation (a reading). ``auv_f32_diag_rk12_min_warps``: the
     fewest warps an SM of the kDiag instantiations at rk 1 and 2;
     ``pm_f32_max_waves``: the most waves of an f32 point-mass
-    instantiation, which must be one (a gate: kDynAB held two blocks an SM
-    and ran 1.48 waves before)."""
+    instantiation. The point-mass solves hold the prefix of their normals
+    that ``pm_mppi.held_normals`` gives (``held`` in their rows), the costs
+    kernels none; a gate: every f32 costs kernel in one wave and every f32
+    solve at ``HOLD_BLOCKS`` (two) blocks an SM or more."""
     import ctypes
+
+    from mppi_tf_tpu_torch.kernels import pm_mppi as pm
+
+    limits = pm.smem_limits("cuda")
 
     regs = {(r["kernel"], tuple(r["template"])): r["registers"]
             for r in reg_rows}
@@ -2207,10 +2218,16 @@ def occupancy_phase(lib, reg_rows, n_sm: int) -> None:
                       for st in ((0, 1) if sfx == "" else (0,))]
         for model, args, k in cases:
             out = (ctypes.c_int * 2)()
+            held = None
             if model == "pm":
                 s_, a_, mode, cost, ab, st = args
+                held = (pm.held_normals(
+                    s_, a_, H, "integrator" if st else "dense",
+                    pm.Dyn(H, s_, a_, bool(ab)).size, limits)
+                        if mode == 0 and sfx == "" else 0)
                 rc = getattr(lib, f"pm_occupancy{sfx}")(s_, a_, cost, st,
-                                                         mode, ab, H, out)
+                                                         mode, ab, H, held,
+                                                         out)
             elif model == "auv":
                 rk, mode, cost, st = args
                 rc = getattr(lib, f"auv_occupancy{sfx}")(rk, cost, st, mode,
@@ -2228,7 +2245,8 @@ def occupancy_phase(lib, reg_rows, n_sm: int) -> None:
                 "blocks_an_sm": out[0],
                 "warps_an_sm": out[0] * 256 // out[1] // 32, "k": k,
                 "grid": blocks,
-                "waves": blocks / (out[0] * n_sm) if out[0] else None})
+                "waves": blocks / (out[0] * n_sm) if out[0] else None,
+                **({} if held is None else {"held": held})})
     # phase B at its flagship shapes: one partial row's samples a block
     # column, the host's groups over blockIdx.y
     for sfx in ("", "_bf16"):
@@ -2256,9 +2274,14 @@ def occupancy_phase(lib, reg_rows, n_sm: int) -> None:
             r["waves"] or float("inf") for r in rows
             if r["kernel"] in ("nn_fused_solve_kernel",
                                "nn_fused_solve_bfp_kernel")))
-    if not pm_waves <= 1.0:
-        raise AssertionError(f"an f32 point-mass instantiation runs "
-                             f"{pm_waves} waves at K={K}")
+    short = [r["template"] for r in rows
+             if r["kernel"] == "pm_fused_solve_kernel"
+             and r["blocks_an_sm"] < (pm.HOLD_BLOCKS if r["template"][2] == 0
+                                      else 3)]
+    if short:
+        raise AssertionError(f"f32 point-mass instantiations below their "
+                             f"blocks an SM (solves {pm.HOLD_BLOCKS}, costs "
+                             f"3): {short}")
 
 
 def build_parent(parent: str) -> subprocess.Popen:
@@ -2396,8 +2419,10 @@ def pm_dyn(f, rng) -> torch.Tensor:
                         dtype=torch.float32, device="cuda"))
 
 
-#: parent_phase's subject: the noise dump, redesigned for Hopper
-PARENT_SUBJECT = ("pm_noise_dump",)
+#: parent_phase's subject: the unnormalised point-mass solve, which holds
+#: the prefix of its normals that pm_mppi.held_normals gives in shared
+#: memory from its rollout to its weighted sum
+PARENT_SUBJECT = ("pm_fused_solve",)
 #: the dump's shapes in parent_phase (k, tau, adim, half): K=4,097 (rows
 #: off the 16-byte grid) at adim 3 and at adim 6 with an odd half, the
 #: headline point mass plain and antithetic, the AUV flagship, and log
@@ -2405,14 +2430,16 @@ PARENT_SUBJECT = ("pm_noise_dump",)
 PARENT_DUMP_SHAPES = ((4097, 7, 3, 0), (4097, 7, 6, 2049), (K, H, 3, 0),
                       (K, H, 3, K // 2), (AUV_K, AUV_H, 6, 0),
                       (512, H, 3, 0))
-#: the dump against the parent in turns: faster at the headline shape,
-#: and at most this many ms slower at the log shape
+#: the dump against the parent in turns: at most this many ms slower at
+#: the log shape
 DUMP_LOG_SLACK_MS = 1e-3
 #: pm_merge against merge_plain in f64 on the same rows: l, the cost sum
 #: and each zsum[n] within this share of the column's l1 mass
 #: sum_b f_b |x_b| (zsum entries cancel towards 0, so a bound relative to
 #: the entry itself would be meaningless); m, cost min and max exactly
 MERGE_L1_TOL = 1e-5
+#: vehicles of parent_phase's fleet-shape solve (point_mass3d.fleet32's)
+PARENT_FLEET_N = 32
 #: phase B's flagship shapes (label, k, tau, adim): the NN dive, the point
 #: mass at H=50 and H=100, the AUV dive
 #: the controls of parent_phase whose solve and costs are timed in turns
@@ -2602,10 +2629,12 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
     equal bit for bit; the solve and costs kernels of parent_cases (f32
     and bf16, point mass, AUV, NN), every output bit for bit. Then the
     dump timed in turns (parent, this, this, parent) at each of its
-    shapes, beside phase B, the flagship controls and the merge, and an
-    empty kernel's device time, the launch floor; it fails unless the
-    dump is faster than the parent's at the headline shape and within
-    DUMP_LOG_SLACK_MS of it at the log shape."""
+    shapes, beside phase B, the flagship controls (the subject's solve at
+    the headline shape, at H=100 and at the fleet's shape of
+    PARENT_FLEET_N vehicles among them) and the merge, and an empty
+    kernel's device time, the launch floor; it fails unless the subject
+    is faster than the parent's at the headline and the fleet shapes and
+    the dump within DUMP_LOG_SLACK_MS of it at the log shape."""
     rng = np.random.default_rng(21)
     cases = parent_cases(pm, auv, nnk)
     res, rows_for_merge = {}, {}
@@ -2650,6 +2679,20 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
                 rows_for_merge[f"{label}_stats_rows"] = got[1]
         res[label] = out
         del z
+    # the fleet's shape: PARENT_FLEET_N headline point masses in one
+    # launch, its rows and their merge
+    fleet_f = next(case[1] for case in cases
+                   if case[0] == "pm_f32_K100000")
+    fleet_dyn = torch.stack([pm_dyn(fleet_f, rng)
+                             for _ in range(PARENT_FLEET_N)])
+    def fleet_solve():
+        rows = pm.pm_fused_solve(fleet_f.consts, fleet_dyn, K, H, seed=9,
+                                 solve=2)
+        return (rows, *pm.pm_merge(rows))
+
+    cmp, _ = compare(fleet_solve)
+    res[f"pm_f32_fleet{PARENT_FLEET_N}_K100000"] = {
+        "philox_rows": cmp[0], "philox_zsum": cmp[1], "philox_stats": cmp[2]}
     control_diffs = {label: {o: v for o, v in out.items() if v is not True}
                      for label, out in res.items()}
     control_diffs = {label: d for label, d in control_diffs.items() if d}
@@ -2755,14 +2798,15 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
     # ---- times in turns, the launch floor ----------------------------------
     stream = torch.cuda.current_stream().cuda_stream
 
-    def turns(fn) -> dict:
-        """fn's events and device ms in turns: parent, this, this, parent."""
+    def turns(fn, rx=None) -> dict:
+        """fn's events and device ms (of the kernel ``rx`` names, where
+        given) in turns: parent, this, this, parent."""
         t = [with_library(_build, plib, lambda: cuda_ms(fn, 100)),
              cuda_ms(fn, 100), cuda_ms(fn, 100),
              with_library(_build, plib, lambda: cuda_ms(fn, 100))]
-        d = [with_library(_build, plib, lambda: device_ms(fn)),
-             device_ms(fn), device_ms(fn),
-             with_library(_build, plib, lambda: device_ms(fn))]
+        d = [with_library(_build, plib, lambda: device_ms(fn, rx=rx)),
+             device_ms(fn, rx=rx), device_ms(fn, rx=rx),
+             with_library(_build, plib, lambda: device_ms(fn, rx=rx))]
         return {"parent_ms": [t[0], t[3]], "ms": [t[1], t[2]],
                 "parent_device_ms": [d[0], d[3]], "device_ms": [d[1], d[2]],
                 "events_vs_parent": (t[1] + t[2]) / (t[0] + t[3]),
@@ -2790,6 +2834,12 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
             fn = getattr(kern, mode)
             times[f"{mode}_{label}"] = turns(
                 lambda: fn(f.consts, dyn, f.k, f.tau, seed=1, solve=1))
+    fleet_key = f"solve_pm_f32_fleet{PARENT_FLEET_N}_K100000"
+    # the solve kernel alone: a fleet launch also writes its vehicles'
+    # solve indices (kernels/_launch.py solve_words)
+    times[fleet_key] = turns(lambda: pm.pm_fused_solve(
+        fleet_f.consts, fleet_dyn, K, H, seed=1, solve=1),
+        rx=r"pm_fused_solve_kernel")
     lib = _build.load_library()
     empty = [device_ms(lambda: lib.pm_empty(stream)) for _ in range(2)]
     for label, case in (("pm", "pm_f32_K100000"),
@@ -2813,18 +2863,27 @@ def parent_phase(_build, plib, pm, auv, nnk, smi: str) -> None:
     dump_gate = {"headline_device_vs_parent": head["device_vs_parent"],
                  "log_device_ms_over_parent": log_excess,
                  "log_slack_ms": DUMP_LOG_SLACK_MS,
-                 "ok": (head["device_vs_parent"] < 1.0
-                        and log_excess <= DUMP_LOG_SLACK_MS)}
+                 "ok": log_excess <= DUMP_LOG_SLACK_MS}
+    subject_gate = {
+        key: times[key]["device_vs_parent"]
+        for key in ("solve_pm_f32_K100000", fleet_key,
+                    "solve_pm_f32_sched_H100")}
+    subject_gate["ok"] = (subject_gate["solve_pm_f32_K100000"] < 1.0
+                          and subject_gate[fleet_key] < 1.0)
     emit("parent_times", card=smi, **times, empty_kernel_device_ms=empty,
          slower_than_parent=slower, dump_gate=dump_gate,
+         subject_gate=subject_gate,
          note="CUDA events over 100 launches and profiler device time, "
               "each in turns (parent, this, this, parent); *_vs_parent: "
               "this tree's ms over the parent's; empty_kernel_device_ms: "
-              "pm_empty, the launch floor; dump_gate: the dump faster than "
-              "the parent's at the headline shape, within log_slack_ms of "
-              "it at the log shape")
+              "pm_empty, the launch floor; dump_gate: the dump within "
+              "log_slack_ms of the parent's at the log shape; "
+              "subject_gate: the solve's device time over the parent's, "
+              "faster at the headline and the fleet shapes")
     if not dump_gate["ok"]:
         raise AssertionError(f"parent_times: the noise dump {dump_gate}")
+    if not subject_gate["ok"]:
+        raise AssertionError(f"parent_times: the solve {subject_gate}")
 
 
 def parent_loops(_build, plib, smi: str) -> None:
@@ -4491,6 +4550,79 @@ def fleet_graph_row(cell: str, smi: str) -> dict:
             and counted["replayed"] == FLEET_GRAPH_BITS - 1
             + 2 * (2 * FLEET_GRAPH_STEPS + 1)):
         raise AssertionError(f"fleet_graph: {out}")
+    return out
+
+
+#: the point-mass cells whose solves z_held_phase reads, and the fleet
+#: steps (captured once, then replayed) or loop runs it takes of each
+Z_HELD_CELLS = (("point_mass3d.fleet32", 6), ("point_mass3d.on_device_loop",
+                                              3))
+
+
+def z_held_phase(smi: str) -> dict:
+    """``tracing.counters()["pm_z_held"]`` over each point-mass cell's
+    configuration (``portbench/program.py``, as the benchmark builds it):
+    the normals its solves held in shared memory and drew again, captured
+    launches counted at their replays, and the engage share held / (held
+    + redrawn). Fails unless the held and redrawn normals add up to every
+    launch's samples times tau adim and the share is the one
+    ``pm_mppi.held_normals`` gives the cell."""
+    from mppi_tf_tpu_torch import tracing
+    from mppi_tf_tpu_torch.kernels import pm_mppi as pm
+    from portbench import program
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "portbench")
+    out = {}
+    for cell, runs in Z_HELD_CELLS:
+        with open(os.path.join(root, "workloads", f"{cell}.json")) as f:
+            spec = json.load(f)
+        with open(os.path.join(root, "configs",
+                               f"{spec['config']}.json")) as f:
+            config = json.load(f)
+        traffic = spec["params"]
+        k, tau, adim = traffic["k"], traffic["tau"], config["action_dim"]
+        before = tracing.counters()
+        if "vehicles" in traffic:
+            n = int(traffic["vehicles"])
+            goals = np.tile(np.asarray(traffic["goal_base"], np.float64),
+                            (n, 1))
+            ctrl = program.fleet(config, traffic, 7, "cuda", goals)
+            x = np.tile(np.asarray(traffic["start"], np.float64), (n, 1))
+            for _ in range(runs):
+                ctrl.next(x)
+            fused = ctrl._tpl._fused
+        else:
+            n = 1
+            ctrl = program.controller(config, traffic, 7, "cuda")
+            loop = program.on_device_loop(
+                ctrl, program.device_plant(config, traffic), traffic)
+            for _ in range(runs):
+                loop(np.asarray(traffic["start"], np.float64))
+            fused = ctrl._fused
+        torch.cuda.synchronize()
+        after = tracing.counters()
+        z = {key: after["pm_z_held"][key] - before["pm_z_held"][key]
+             for key in ("held", "redrawn")}
+        launches = (after["launch_counts"]["pm_fused_solve"]
+                    - before["launch_counts"]["pm_fused_solve"])
+        rule = pm.solve_held(fused.consts, tau,
+                             pm.Dyn(tau, 2 * adim, adim).size, "cuda")
+        share = z["held"] / (z["held"] + z["redrawn"])
+        out[cell] = {"pm_z_held": z, "engage_share": share,
+                     "launches": launches, "held_a_sample": rule,
+                     "n_z": tau * adim,
+                     "ok": (z["held"] + z["redrawn"]
+                            == launches * n * k * tau * adim
+                            and share == rule / (tau * adim))}
+        del ctrl
+    emit("z_held", card=smi, cells=out,
+         note="pm_z_held deltas over each cell's solves (replays counted "
+              "by graph.add_replays); engage_share = held / (held + "
+              "redrawn), the rule's held_a_sample / n_z")
+    bad = {cell: r for cell, r in out.items() if not r["ok"]}
+    if bad:
+        raise AssertionError(f"z_held: {bad}")
     return out
 
 
@@ -6235,6 +6367,7 @@ def main() -> int:
     fleet = fleet_phase(pm, smi)
     fleet_nn_phase(pm, smi)
     fleet_graph_phase(smi)
+    z_held_phase(smi)
 
     # ---- 27e. multi-GPU and sharding: the headline, the dive, adaptive ----
     # ---- DMD and the on-device row over a local mesh, ranks on the card, --

@@ -528,7 +528,7 @@ class _StepGraph:
         self.solve = torch.zeros(1, dtype=torch.int64, device=fleet._device)
         self.graph, self.key, self.info = None, None, None
         self.nodes, self.plant_nodes, self.graph_nodes = {}, {}, {}
-        self.capture_s = None
+        self.capture_s, self.z_held = None, {}
         # the sequence tensor ``useq`` was last loaded from or handed out
         # as, and its version: anything else is copied in before a step
         self.fed = (None, None)
@@ -552,6 +552,7 @@ class _StepGraph:
         self.graph, self.info = cap.graph, cap.out
         self.nodes, self.plant_nodes = cap.nodes, cap.plant_nodes
         self.graph_nodes, self.capture_s = cap.graph_nodes, cap.capture_s
+        self.z_held = cap.z_held
         return cap.warm
 
     def step(self, states) -> np.ndarray:
@@ -572,7 +573,7 @@ class _StepGraph:
         else:
             with tracing.span("mppi.fleet.replay"):
                 self.graph.replay()
-            add_replays(self.nodes, self.plant_nodes, 1)
+            add_replays(self.nodes, self.plant_nodes, 1, self.z_held)
             info = self.info
             fleet_steps["replayed"] += 1
         # a tensor of its own a step: no later step writes what was handed

@@ -7,13 +7,15 @@ step (``controller/fleet.py`` ``_StepGraph``). Both test ``freeze_key``
 before a replay and capture again where it moved, capture through
 ``capture`` and count the launches of their replays with
 ``add_replays``, so that ``kernels/_launch.py``'s and
-``kernels/plant.py``'s ``launch_counts`` hold what ran on the card,
-graphed or not.
+``kernels/plant.py``'s ``launch_counts`` (and ``_launch.z_held``) hold
+what ran on the card, graphed or not.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import gc
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -89,7 +91,8 @@ class Capture(NamedTuple):
     captured call's (``out``, the graph's static outputs), the graph and
     the second body's (None without one), the solve's and the plant's
     kernel launches the capture recorded ({entry point: nodes}), the
-    graph's nodes by kind and the capture's seconds."""
+    graph's nodes by kind, the capture's seconds and the held and redrawn
+    normals of the solves it recorded (``_launch.z_held``'s keys)."""
     warm: object
     out: object
     graph: torch.cuda.CUDAGraph
@@ -98,11 +101,28 @@ class Capture(NamedTuple):
     plant_nodes: dict
     graph_nodes: dict
     capture_s: float
+    z_held: dict
 
 
 def _recorded(counts: dict, before: dict) -> dict:
     return {name: c - before[name] for name, c in counts.items()
             if c > before[name]}
+
+
+@contextlib.contextmanager
+def _collector_paused():
+    """Python's cyclic garbage collector off for a capture: a CUDA graph it
+    frees there (one left in a reference cycle, as a fleet and its step
+    graph are) is destroyed inside the capture, which a capture does not
+    permit: the capture ends, and its next kernel fails. The garbage waits
+    for a collection after the capture."""
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def capture(span: str, device, body: Callable,
@@ -114,7 +134,9 @@ def capture(span: str, device, body: Callable,
     same buffers, so a caller loads its inputs again after a capture.
     ``body``'s graph is kept, so that its nodes are read
     (``graph_node_kinds``), and instantiated here, not at its first
-    replay; the capture ends in one sync of the device's stream."""
+    replay; the capture ends in one sync of the device's stream. The
+    cyclic garbage collector pauses while a graph is captured
+    (``_collector_paused``)."""
     with tracing.timed(span) as timed, torch.cuda.device(device):
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -125,26 +147,34 @@ def capture(span: str, device, body: Callable,
         torch.cuda.current_stream().wait_stream(side)
         before = dict(_launch.captured_counts)
         before_plant = dict(plant.captured_counts)
+        before_z = dict(_launch.captured_z_held)
         graph = torch.cuda.CUDAGraph(keep_graph=True)
-        with torch.cuda.graph(graph):
+        with _collector_paused(), torch.cuda.graph(graph):
             out = body()
         graph2 = None
         if second is not None:
             graph2 = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph2, pool=graph.pool()):
+            with _collector_paused(), torch.cuda.graph(graph2,
+                                                       pool=graph.pool()):
                 second()
         nodes = _recorded(_launch.captured_counts, before)
         plant_nodes = _recorded(plant.captured_counts, before_plant)
+        z_held = {key: n - before_z[key]
+                  for key, n in _launch.captured_z_held.items()}
         kinds = graph_node_kinds(graph)
         graph.instantiate()
         torch.cuda.current_stream().synchronize()
     return Capture(warm, out, graph, graph2, nodes, plant_nodes, kinds,
-                   timed.seconds)
+                   timed.seconds, z_held)
 
 
-def add_replays(nodes: dict, plant_nodes: dict, replays: int) -> None:
+def add_replays(nodes: dict, plant_nodes: dict, replays: int,
+                z_held: Optional[dict] = None) -> None:
     """Add the launches of ``replays`` replays of a graph whose capture
-    recorded ``nodes`` and ``plant_nodes`` (``Capture``) to the solve's
-    and the plant's ``launch_counts``."""
+    recorded ``nodes``, ``plant_nodes`` and ``z_held`` (``Capture``) to
+    the solve's and the plant's ``launch_counts`` and to
+    ``_launch.z_held``."""
     _launch.count_replays(nodes, replays)
     _launch.count_replays(plant_nodes, replays, plant.launch_counts)
+    for key, n in (z_held or {}).items():
+        _launch.z_held[key] += n * replays

@@ -526,11 +526,15 @@ __device__ __forceinline__ float quat_state_cost(const float* q,
 // chains) and reduces their 4 kZBlocks products w_k z_k across the warp
 // together (warp_sum_each), each lane writing one sum: the same sums (the
 // product rounded alone, as the per-normal loop's is: it multiplies, then
-// shuffles, then adds).
+// shuffles, then adds). The normals below `held` (n_z, or whole Philox
+// blocks) it reads from held_z instead (row n, column threadIdx.x: what
+// pass one stored), in chunks of their own: the same values, and each
+// normal's sum is the same wherever its chunk starts, so the same bits.
 template <bool kMaxShift, int kL, int kZBlocks = 0>
 __device__ __forceinline__ void write_partial_row_lanes(
     const float* zarg, const float* cost, const bool* valid, NoiseStream* ns,
-    int n_z, float* s_red, float* row) {
+    int n_z, float* s_red, float* row, const float* held_z = nullptr,
+    int held = 0) {
   constexpr int kThreads = kBlock / kL, kRowWarps = kThreads / 32;
   __shared__ float s_stat[5][kRowWarps];
   __shared__ float s_m;
@@ -591,17 +595,30 @@ __device__ __forceinline__ void write_partial_row_lanes(
   } else {
     static_assert(kL == 1, "grouped regeneration: one sample a thread");
     constexpr int kN = 4 * kZBlocks, kCopies = 32 / kN;
-#pragma unroll 1
-    for (int n0 = 0; n0 < n_z; n0 += kN) {
-      const int count = min(kN, n_z - n0);
-      float v[kN];
-      ns[0].template blocks<kZBlocks>(n0 / 4, count, v);
+    // normals n0 .. n0 + count - 1 in v: their products and warp sums
+    auto chunk = [&](int n0, int count, float* v) {
 #pragma unroll
       for (int i = 0; i < kN; ++i)
         v[i] = i < count ? mul_r(wgt[0], v[i]) : 0.0f;
       const float s = warp_sum_each<kN>(v, lane);
       const int n = n0 + lane / kCopies;
-      if (lane % kCopies == 0 && n < n_z) s_red[warp * n_z + n] = s;
+      if (lane % kCopies == 0 && n < n0 + count) s_red[warp * n_z + n] = s;
+    };
+#pragma unroll 1
+    for (int n0 = 0; n0 < held; n0 += kN) {
+      const int count = min(kN, held - n0);
+      float v[kN];
+#pragma unroll
+      for (int i = 0; i < kN; ++i)
+        if (i < count) v[i] = held_z[(n0 + i) * kBlock + threadIdx.x];
+      chunk(n0, count, v);
+    }
+#pragma unroll 1
+    for (int n0 = held; n0 < n_z; n0 += kN) {
+      const int count = min(kN, n_z - n0);
+      float v[kN];
+      ns[0].template blocks<kZBlocks>(n0 / 4, count, v);
+      chunk(n0, count, v);
     }
   }
   __syncthreads();

@@ -40,15 +40,30 @@
 //   thread owns one sample (two in the bf16 build, below); the state
 //   stays in registers over the horizon, the per-solve dyn array sits in
 //   shared memory. Bound by operations: the
-//   Philox + Box-Muller passes (~32 ops a normal each; two in kFused, one in
-//   kCosts) and the rollout/cost FMA chains; kCosts also writes 4 bytes a
-//   sample. Design:
+//   Philox + Box-Muller passes (~32 ops a normal each; in kFused one, and a
+//   second over the normals past the held prefix, below; one in kCosts)
+//   and the rollout/cost FMA chains; kCosts also writes 4 bytes a sample.
+//   Design:
 //   * the TPU grid ran its tiles in order and carried (m, l, zsum) across
 //     grid steps; GPU blocks run concurrently, so each block writes its own
 //     partial row (mppi_common.cuh) and pm_merge_kernel combines them: no
 //     atomics, and the result is deterministic;
-//   * pass two regenerates z from the same Philox counters instead of
-//     holding tau*adim normals per thread;
+//   * kFused holds z in shared memory from pass one to pass two: pass one
+//     stores each normal it draws below `held` to s_z[n][threadIdx.x]
+//     (n = t A + j; a row of kBlock floats a normal, so that a warp's
+//     stores and loads touch 32 banks once), and pass two reads them back
+//     there instead of drawing them again; the normals from `held` on it
+//     regenerates from the same Philox counters. The same values, so the
+//     same bits at any `held`. The host sizes it (kernels/pm_mppi.py
+//     held_normals): every normal where they fit, else the longest prefix
+//     of whole Philox blocks, that leaves room for two blocks an SM. At
+//     the point mass's 150 normals (K=100,000, H=50) that is 104: a block
+//     of 256 holding all 150 takes 153.6 KB, one block an SM, and ran
+//     slower than two holding 104 at every shape of the sweep that chose
+//     the rule (NVIDIA H100 80GB HBM3, 700 W: 0.0726 against 0.0718 ms at
+//     K=100,000, 2.250 against 2.042 for 32 vehicles, 0.0895 and 2.564
+//     drawing every normal twice; three blocks holding 64, 0.0785 and
+//     2.225); at H=100 it holds 96 of 300;
 //   * kCosts writes costs[k] and a stats-only row (m_b = l_b = 0, no zsum):
 //     pm_merge with n_z = 0 gives the cost min / max / sum that phase B
 //     normalizes with;
@@ -87,12 +102,15 @@
 //     Philox blocks, drawn as independent chains ahead of the group's
 //     steps (A = 3: 4 steps, 3 blocks), then a tail of H mod that; normal
 //     t A + j is still block (t A + j) / 4, word (t A + j) % 4, and
-//     injected z is read as z[t A + j][k]. Pass two regenerates 4 blocks
-//     at a time and reduces their 16 products w_k z_k over the warp at
-//     once (mppi_common.cuh warp_sum_each: 16 SHFL for 16 normals against
-//     5 a normal, each sum warp_sum's bits). It asks for three blocks of
-//     256 an SM (at most 80 registers): the 391 blocks of K=100,000 fit
-//     one wave on 132 SMs. kDense reads A and B scale at each use from
+//     injected z is read as z[t A + j][k]. Pass two takes 16 normals at a
+//     time, read from s_z or regenerated as 4 Philox blocks, and reduces
+//     their 16 products w_k z_k over the warp at once (mppi_common.cuh
+//     warp_sum_each: 16 SHFL for 16 normals against 5 a normal, each sum
+//     warp_sum's bits). ptxas is asked for three
+//     blocks of 256 an SM (at most 80 registers): so kCosts fits the 391
+//     blocks of K=100,000 in one wave on 132 SMs, and kFused, at two
+//     blocks an SM by its held prefix's shared memory, in 1.48. kDense
+//     reads A and B scale at each use from
 //     rows padded in shared memory (volatile loads, AbRows): hoisted
 //     into registers, they spill at that bound;
 //   * the TPU's sin polynomial and mantissa-stuffing uniform worked around
@@ -183,6 +201,7 @@ enum PmCost { kQuadratic = 0, kElipse = 1 };
 
 // Where the solve reads A and B scale: the by-value constants, or dyn.
 enum PmAB { kConstAB = 0, kDynAB = 1 };
+
 
 // Structure of the solve constants (kernels/pm_mppi.py STRUCTURES):
 // kIntegrator takes A as the per-DoF double integrator (a unit diagonal,
@@ -350,7 +369,7 @@ __global__ void __launch_bounds__(kThreads)
                                 int sched_off, const float* __restrict__ z,
                                 float* __restrict__ costs,
                                 float* __restrict__ partials, int k_total,
-                                int tau, Seeds sd) {
+                                int tau, int /* held: 0 */, Seeds sd) {
   static_assert(STRUCT == kDense, "the pair build has kDense alone");
   dyn += static_cast<size_t>(blockIdx.z) * dyn_size;  // vehicle's (fleets)
   extern __shared__ float smem[];
@@ -573,9 +592,11 @@ constexpr int kPassTwoBlocks = 4;
 
 // The f32 body. Each thread owns one sample; its normals come a group of
 // steps at a time (NoiseStream::blocks), the horizon loop runs whole
-// groups, then a tail of the last H mod group_steps(A) steps. ptxas is
-// asked for three blocks of 256 an SM (at most 80 registers): the 391
-// blocks of K=100,000 then fit one wave on 132 SMs.
+// groups, then a tail of the last H mod group_steps(A) steps; kFused
+// stores the normals below `held` to s_z as they are drawn, for pass two.
+// ptxas is asked for three blocks of 256 an SM (at most 80 registers): the
+// 391 blocks of kCosts at K=100,000 fit one wave on 132 SMs; kFused's held
+// prefix leaves room for two (the head of this file).
 template <int S, int A, int MODE, int COST, int AB, int STRUCT>
 __global__ void __launch_bounds__(kThreads, 3)
     MPPI_KERNEL(pm_fused_solve)(const Consts<S, A> c,
@@ -583,7 +604,7 @@ __global__ void __launch_bounds__(kThreads, 3)
                                 int sched_off, const float* __restrict__ z,
                                 float* __restrict__ costs,
                                 float* __restrict__ partials, int k_total,
-                                int tau, Seeds sd) {
+                                int tau, int held, Seeds sd) {
   static_assert(STRUCT == kDense || AB == kConstAB,
                 "kIntegrator reads A and B scale from the constants");
   dyn += static_cast<size_t>(blockIdx.z) * dyn_size;  // vehicle's (fleets)
@@ -591,7 +612,8 @@ __global__ void __launch_bounds__(kThreads, 3)
   extern __shared__ __align__(16) float smem[];
   float* s_dyn = smem;                          // dyn_size
   float* s_ab = smem + ((dyn_size + 3) & ~3);   // R::kWords, 16-byte aligned
-  float* s_red = s_ab + R::kWords;              // kWarps * n_z
+  float* s_z = s_ab + R::kWords;                // held * kBlock: [n][thread]
+  float* s_red = s_z + held * kBlock;           // kWarps * n_z
   for (int i = threadIdx.x; i < dyn_size; i += kThreads) s_dyn[i] = dyn[i];
   R::template stage<AB>(c, dyn + 1 + 2 * S + tau * (S + A) + 1, s_ab);
   __syncthreads();
@@ -667,18 +689,28 @@ __global__ void __launch_bounds__(kThreads, 3)
 
   // ---- pass one: rollout + cost, a group of steps a Philox block set -----
   constexpr int kG = group_steps(A), kNB = kG * A / 4;
+  // normals n0 .. n0 + count - 1 of v into the held prefix (normals below
+  // `held`, zero in kCosts), column threadIdx.x of rows n
+  auto hold = [&](int n0, int count, const float* v) {
+#pragma unroll
+    for (int i = 0; i < 4 * kNB; ++i)
+      if (i < count && n0 + i < held)
+        s_z[(n0 + i) * kBlock + threadIdx.x] = v[i];
+  };
   {
     float zz[4 * kNB];
     int t0 = 0;
 #pragma unroll 1
     for (; t0 + kG <= tau; t0 += kG) {
       ns.blocks<kNB>(t0 * A / 4, 4 * kNB, zz);
+      if constexpr (MODE == kFused) hold(t0 * A, 4 * kNB, zz);
 #pragma unroll
       for (int s = 0; s < kG; ++s) step(t0 + s, zz + s * A);
     }
     if (t0 < tau) {  // the tail, H mod kG steps
       const int rem = tau - t0;
       ns.blocks<kNB>(t0 * A / 4, rem * A, zz);
+      if constexpr (MODE == kFused) hold(t0 * A, rem * A, zz);
 #pragma unroll
       for (int s = 0; s + 1 < kG; ++s)
         if (s < rem) step(t0 + s, zz + s * A);
@@ -692,7 +724,8 @@ __global__ void __launch_bounds__(kThreads, 3)
   if (MODE == kFused)
     write_partial_row_lanes<true, 1, kPassTwoBlocks>(
         &zarg, &cost, &valid, &ns, tau * A, s_red,
-        partials + vehicle_row(blockIdx.x, gridDim.x) * (kStats + tau * A));
+        partials + vehicle_row(blockIdx.x, gridDim.x) * (kStats + tau * A),
+        s_z, held);
   else
     write_partial_row_lanes<false, 1>(
         &zarg, &cost, &valid, &ns, 0, s_red,
@@ -1158,7 +1191,8 @@ struct PmLaunch {
   Seeds sd;
   cudaStream_t stream;
   int* occupancy;
-  int n;  // vehicles: the grid's third axis
+  int n;     // vehicles: the grid's third axis
+  int held;  // normals a sample held in shared memory (kFused)
 };
 
 template <int S, int A, int MODE, int COST, int AB, int STRUCT>
@@ -1176,9 +1210,20 @@ int launch_solve(const PmLaunch& a) {
   const int dyn_size = a.scheduled ? base + a.tau : base;
   auto kernel = MPPI_KERNEL(pm_fused_solve)<S, A, MODE, COST, AB, STRUCT>;
   size_t smem = 0;
-  const cudaError_t e = smem_for(kernel, smem_lead<S, A, STRUCT>(dyn_size),
-                                 MODE == kFused ? a.tau * A : 0, &smem);
-  if (e != cudaSuccess) return e;
+  // the held prefix: every normal, or whole Philox blocks; none in kCosts
+  // and in the pair build
+  const int n_z = MODE == kFused ? a.tau * A : 0;
+  const int held = MODE == kFused ? a.held : 0;
+  if (held < 0 || held > n_z || (held < n_z && held % 4 != 0) ||
+      (kLanes > 1 && held != 0))
+    return cudaErrorInvalidValue;
+  // dyn and the dense rows, the held rows, then s_red
+  const cudaError_t e = smem_for(
+      kernel, smem_lead<S, A, STRUCT>(dyn_size) + held * kBlock, n_z, &smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();  // not left to fail the next launch's check
+    return e;
+  }
   if (a.occupancy != nullptr)
     return cudaOccupancyMaxActiveBlocksPerMultiprocessor(a.occupancy, kernel,
                                                          kThreads, smem);
@@ -1186,7 +1231,7 @@ int launch_solve(const PmLaunch& a) {
   MPPI_KERNEL(pm_fused_solve)<S, A, MODE, COST, AB, STRUCT>
       <<<grid, kThreads, smem, a.stream>>>(c, a.dyn, dyn_size, sched_off, a.z,
                                          a.costs, a.partials, a.k, a.tau,
-                                         a.sd);
+                                         held, a.sd);
   return cudaGetLastError();
 }
 
@@ -1274,12 +1319,12 @@ int MPPI_ENTRY(pm_fused_solve)(int sdim, int adim, int cost, int structure,
                    int tau, int scheduled, int dynamic_ab, uint32_t half,
                    uint32_t seed_lo, uint32_t seed_hi, uint32_t s_lo,
                    uint32_t s_hi, const unsigned long long* solve, int n,
-                   void* stream) {
+                   int held, void* stream) {
   return dispatch_solve<kFused>(
       sdim, adim, cost, structure, dynamic_ab,
       PmLaunch{consts, dyn, z, nullptr, partials, k, tau, scheduled,
                Seeds{seed_lo, seed_hi, s_lo, s_hi, half, solve},
-               static_cast<cudaStream_t>(stream), nullptr, n});
+               static_cast<cudaStream_t>(stream), nullptr, n, held});
 }
 
 int MPPI_ENTRY(pm_fused_costs)(int sdim, int adim, int cost, int structure,
@@ -1293,17 +1338,18 @@ int MPPI_ENTRY(pm_fused_costs)(int sdim, int adim, int cost, int structure,
       sdim, adim, cost, structure, dynamic_ab,
       PmLaunch{consts, dyn, z, costs, partials, k, tau, scheduled,
                Seeds{seed_lo, seed_hi, s_lo, s_hi, half, solve},
-               static_cast<cudaStream_t>(stream), nullptr, n});
+               static_cast<cudaStream_t>(stream), nullptr, n, 0});
 }
 
 // out[0]: blocks an SM of the solve (mode 0) or costs (1) kernel of
-// (sdim, adim, cost, structure, dynamic_ab) at horizon tau, unscheduled;
-// out[1]: samples a thread.
+// (sdim, adim, cost, structure, dynamic_ab) at horizon tau, unscheduled,
+// the solve holding `held` normals a sample; out[1]: samples a thread.
 int MPPI_ENTRY(pm_occupancy)(int sdim, int adim, int cost, int structure,
-                             int mode, int dynamic_ab, int tau, int* out) {
+                             int mode, int dynamic_ab, int tau, int held,
+                             int* out) {
   static const float zeros[sizeof(HostConsts<6, 3>) / sizeof(float)] = {};
   const PmLaunch a{zeros, nullptr, nullptr, nullptr, nullptr, 1, tau, 0,
-                   Seeds{}, nullptr, out, 1};
+                   Seeds{}, nullptr, out, 1, held};
   out[1] = kLanes;
   return mode ? dispatch_solve<kCosts>(sdim, adim, cost, structure,
                                        dynamic_ab, a)
@@ -1412,6 +1458,24 @@ int pm_merge(const float* partials, int nb, int n_z, float* zsum,
 int pm_empty(void* stream) {
   pm_empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return cudaGetLastError();
+}
+
+// out[3]: the current card's shared memory in bytes: the most a block may
+// opt in to, an SM's, and what the system reserves a block (what the held
+// prefix of kernels/pm_mppi.py held_normals is sized from)
+int pm_smem_limits(int* out) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[0],
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(
+        &out[1], cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&out[2],
+                               cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  return e;
 }
 
 const char* pm_error_string(int code) {

@@ -286,12 +286,13 @@ class OnDeviceLoop:
     ``nodes`` holds the kernel launches of one captured period by entry
     point (the solve's, ``_launch``), ``plant_nodes`` the plant kernel's
     (``kernels/plant.py``), ``graph_nodes`` the period graph's nodes by
-    kind (kernel, memcpy, memset, other), ``capture_s`` the warm-up and
-    capture time of the last capture on the ``mppi.loop.capture`` span's
-    clock (None before one), ``captures`` how many there were; ``useq`` is
-    the nominal sequence the last run ended with. ``plant_calls`` is the
-    plant calls of one period: 1 where the plant steps every substep in
-    one call, else ``substeps``."""
+    kind (kernel, memcpy, memset, other), ``z_held`` the held and redrawn
+    normals of a period's solve (``_launch.z_held``), ``capture_s`` the
+    warm-up and capture time of the last capture on the
+    ``mppi.loop.capture`` span's clock (None before one), ``captures`` how
+    many there were; ``useq`` is the nominal sequence the last run ended
+    with. ``plant_calls`` is the plant calls of one period: 1 where the
+    plant steps every substep in one call, else ``substeps``."""
 
     #: the attribute of ``owner`` (whose step count a run advances) that
     #: holds the torch route's generator, which ``run(generator=)``
@@ -331,7 +332,7 @@ class OnDeviceLoop:
         self._graphs = None      # (period graph, refit graph or None)
         self._frozen = None      # what the graphs froze (freeze_key)
         self.nodes, self.capture_s, self.captures = {}, None, 0
-        self.plant_nodes, self.graph_nodes = {}, {}
+        self.plant_nodes, self.graph_nodes, self.z_held = {}, {}, {}
 
     @property
     def useq(self) -> torch.Tensor:
@@ -423,6 +424,7 @@ class OnDeviceLoop:
         self._graphs = (cap.graph, cap.second)
         self.nodes, self.plant_nodes = cap.nodes, cap.plant_nodes
         self.graph_nodes, self.capture_s = cap.graph_nodes, cap.capture_s
+        self.z_held = cap.z_held
         self.captures += 1
 
     # --- run --------------------------------------------------------------
@@ -555,7 +557,8 @@ class OnDeviceLoop:
                                     fit.replay()
                                 else:
                                     self._fit(b)
-                        add_replays(self.nodes, self.plant_nodes, steps)
+                        add_replays(self.nodes, self.plant_nodes, steps,
+                                    self.z_held)
                 else:
                     load()
                     for j in range(steps):

@@ -42,9 +42,10 @@ _N = [_I]
 _SIGNATURES = {
     "pm_noise_dump": [_P, _I, _I, *_SEEDS, _P],
     # the point-mass solves take (sdim, adim, cost, structure) first and
-    # add dynamic_ab after scheduled
+    # add dynamic_ab after scheduled; the unnormalised solve takes the
+    # normals a sample it holds (pm_mppi.held_normals) after the vehicles
     "pm_fused_solve": [_I, _I, _I, _I, _P, _P, _P, _P, *_SOLVE, _I,
-                       *_SEEDS, *_N, _P],
+                       *_SEEDS, *_N, _I, _P],
     "pm_fused_costs": [_I, _I, _I, _I, _P, _P, _P, _P, _P, *_SOLVE, _I,
                        *_SEEDS, *_N, _P],
     "mppi_weights": [_P, _P, _P, _P, _I, _I, *_SEEDS, *_N, _P],
@@ -65,10 +66,13 @@ _SIGNATURES = {
                        *_N, _P],
     "nn_fused_costs": [_I, _I, _I, _P, _P, _P, _P, _P, _P, *_SOLVE,
                        *_SEEDS, *_N, _P],
-    # (sdim, adim, cost, structure, mode, dynamic_ab, tau, out[2]), (rk,
-    # cost, structure, mode, tau, out[2]) and (n1, n2, n3, mode, tau,
+    # (sdim, adim, cost, structure, mode, dynamic_ab, tau, held, out[2]),
+    # (rk, cost, structure, mode, tau, out[2]) and (n1, n2, n3, mode, tau,
     # out[2]): blocks an SM and samples a thread of a solve kernel
-    "pm_occupancy": [_I, _I, _I, _I, _I, _I, _I, _P],
+    "pm_occupancy": [_I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # out[3]: the card's shared memory a block (opt-in), an SM and
+    # reserved a block, in bytes
+    "pm_smem_limits": [_P],
     "auv_occupancy": [_I, _I, _I, _I, _I, _P],
     "nn_occupancy": [_I, _I, _I, _I, _I, _P],
     # the ceilings' microbenchmarks (csrc/roofline.cu, roofline.py):

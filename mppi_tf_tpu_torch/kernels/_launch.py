@@ -8,9 +8,13 @@ stream is being captured into a CUDA graph launches nothing: it adds one
 to ``captured_counts[name]`` instead, and the code that replays the graph
 adds its launches (``count_replays``). The plant kernels keep the same two
 counts of their own (``kernels/plant.py``): these are the solve's.
+``z_held`` counts, the same two ways, the normals ``pm_fused_solve`` held
+in shared memory and those it drew again (``count_held``).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -47,6 +51,13 @@ _fleet_index = None
 _offsets = {}
 #: kernel nodes recorded into CUDA graphs, by entry point
 captured_counts = dict.fromkeys(KERNELS, 0)
+#: normals of pm_fused_solve's launches that pass two read back from
+#: shared memory ("held") and that it drew again ("redrawn"); those of
+#: launches recorded into CUDA graphs, a capture's (``captured_z_held``)
+z_held = dict.fromkeys(("held", "redrawn"), 0)
+captured_z_held = dict.fromkeys(("held", "redrawn"), 0)
+#: the shared memory of each card (``smem_limits``), by device index
+_smem_limits = {}
 
 
 def kernel_symbol(entry: str, args=()) -> str:
@@ -152,6 +163,43 @@ def launch(name: str, device, *args, counts=None) -> None:
         captured[name] += 1
     else:
         launched[name] += 1
+
+
+def count_held(held: int, redrawn: int) -> None:
+    """Add a pm_fused_solve launch's held and redrawn normals to
+    ``z_held``, or while the stream is captured to ``captured_z_held``."""
+    into = (captured_z_held if torch.cuda.is_current_stream_capturing()
+            else z_held)
+    into["held"] += held
+    into["redrawn"] += redrawn
+
+
+class SmemLimits(NamedTuple):
+    """A card's shared memory, in bytes: the most a block may opt in to,
+    an SM's, and what the system reserves a block."""
+    block_optin: int
+    sm: int
+    reserved: int
+
+
+def smem_limits(device) -> SmemLimits:
+    """``device``'s ``SmemLimits`` (read from the card once)."""
+    import ctypes
+
+    from . import _build
+
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _smem_limits:
+        out = (ctypes.c_int * 3)()
+        with torch.cuda.device(index):
+            rc = _build.load_library().pm_smem_limits(out)
+        if rc != 0:
+            raise KernelLaunchError(
+                f"pm_smem_limits failed: {_build.error_string(rc)}")
+        _smem_limits[index] = SmemLimits(*out)
+    return _smem_limits[index]
 
 
 def count_replays(nodes: dict, replays: int, launched=None) -> None:

@@ -219,7 +219,10 @@ def counters(*loops) -> dict:
     (``plant_counts``: ``kernels/plant.py``), the NN solves' weight
     segments packed (``nn_weight_packs``: ``kernels/nn_mppi.py``), nvcc
     builds in this process (``library_builds``), the fleet steps by how
-    they ran (``fleet_steps``: ``controller/fleet.py``) and, for each loop
+    they ran (``fleet_steps``: ``controller/fleet.py``), the normals the
+    unnormalised point-mass solve held in shared memory and drew again
+    (``pm_z_held``: ``kernels/_launch.py`` ``z_held``; its engage share is
+    held / (held + redrawn)) and, for each loop
     of ``loops``, its ``nodes``,
     ``plant_nodes``, ``graph_nodes``, ``captures``, ``capture_s`` and
     ``plant_calls``."""
@@ -232,7 +235,8 @@ def counters(*loops) -> dict:
                             "captured_counts": dict(plant.captured_counts)},
            "nn_weight_packs": nn_mppi.weight_packs,
            "library_builds": _build.library_builds,
-           "fleet_steps": dict(fleet.fleet_steps)}
+           "fleet_steps": dict(fleet.fleet_steps),
+           "pm_z_held": dict(_launch.z_held)}
     if loops:
         out["loops"] = [{"nodes": dict(lp.nodes),
                          "plant_nodes": dict(lp.plant_nodes),

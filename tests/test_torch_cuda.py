@@ -77,24 +77,43 @@ def test_pm_occupancy_entry_point(cuda_device, sfx, lanes):
     """pm_occupancy reports the samples a thread of its build and at least
     one block an SM for every point-mass solve instantiation (the f32
     build in both structures, the integrator with constant (A, B) alone;
-    the bf16 build dense alone), three for every f32 one (the 391 blocks
-    of K=100,000 in one wave), and refuses dims the kernel is not built
-    for and the structures it does not hold."""
+    the bf16 build dense alone). Every f32 costs kernel fits three (the
+    391 blocks of K=100,000 in one wave); every f32 solve, holding the
+    prefix of its normals that ``held_normals`` gives at H=50, fits
+    ``HOLD_BLOCKS`` (two: 1.48 waves), and holding all 150 of the (6, 3)
+    solve's, one. It refuses dims the kernel is not built for, the
+    structures it does not hold, a held count off the Philox blocks or past
+    the normals, and any held count in the bf16 build."""
     import ctypes
 
     fn = getattr(_build.load_library(), f"pm_occupancy{sfx}")
+    limits = pm.smem_limits(cuda_device)
     combos = ((0, 0), (0, 1), (1, 0)) if sfx == "" else ((0, 0), (0, 1))
     for sdim, adim, cost in ((6, 3, 0), (2, 1, 0), (4, 2, 0), (4, 2, 1)):
         for mode in (0, 1):
             for st, dyn_ab in combos:
+                size = pm.Dyn(50, sdim, adim, bool(dyn_ab)).size
+                structure = "integrator" if st else "dense"
+                held = (pm.held_normals(sdim, adim, 50, structure, size,
+                                        limits)
+                        if mode == 0 and sfx == "" else 0)
+                assert held > 0 or mode == 1 or sfx
                 out = (ctypes.c_int * 2)()
-                assert fn(sdim, adim, cost, st, mode, dyn_ab, 50, out) == 0
-                assert out[1] == lanes and out[0] >= (3 if sfx == "" else 1)
+                assert fn(sdim, adim, cost, st, mode, dyn_ab, 50, held,
+                          out) == 0
+                want = (1 if sfx else pm.HOLD_BLOCKS if mode == 0 else 3)
+                assert out[1] == lanes and out[0] >= want
     out = (ctypes.c_int * 2)()
-    assert fn(5, 3, 0, 0, 0, 0, 50, out) != 0
-    assert fn(6, 3, 0, 1, 0, 1, 50, out) != 0      # integrator, dynamic_ab
+    if not sfx:
+        assert fn(6, 3, 0, 1, 0, 0, 50, 150, out) == 0 and out[0] == 1
+        assert fn(6, 3, 0, 1, 0, 0, 50, 102, out) != 0  # off the blocks
+        assert fn(6, 3, 0, 1, 0, 0, 50, 151, out) != 0  # past the normals
+    else:
+        assert fn(6, 3, 0, 0, 0, 0, 50, 4, out) != 0   # held at bf16
+    assert fn(5, 3, 0, 0, 0, 0, 50, 0, out) != 0
+    assert fn(6, 3, 0, 1, 0, 1, 50, 0, out) != 0      # integrator, dynamic_ab
     if sfx:
-        assert fn(6, 3, 0, 1, 0, 0, 50, out) != 0  # integrator at bf16
+        assert fn(6, 3, 0, 1, 0, 0, 50, 0, out) != 0  # integrator at bf16
 
 
 @pytest.mark.parametrize("k,tau,adim", [(700, 7, 3), (5000, 20, 3),
@@ -181,6 +200,97 @@ def test_fused_solve_and_merge_match_plain(cuda_device, k, tau, sdim, adim):
     torch.testing.assert_close(zs_m / st_m[1], zs_p / st_p[1], rtol=1e-5,
                                atol=1e-6)
     torch.testing.assert_close(st_m, st_p, rtol=1e-5, atol=0)
+
+
+#: the held path's cases (dims, elipse, k, tau, options, vehicles): the
+#: flagship, held prefixes at H=100 (scheduled + antithetic too) and at a
+#: normal count off the Philox grid (H=101: 303), the ellipse at (4, 2),
+#: the dense structure, and a fleet launch's vehicle axis
+HELD_CASES = {
+    "flagship": ((6, 3), False, 100_000, 50, {}, 1),
+    "h100": ((6, 3), False, 100_000, 100, {}, 1),
+    "h100_sched_anti": ((6, 3), False, 4097, 100,
+                        {"schedule": {"type": "exp", "start": 1.0,
+                                      "end": 0.25}, "antithetic": True}, 1),
+    "h101": ((6, 3), False, 4097, 101, {}, 1),
+    "elipse": ((4, 2), True, 4097, 50, {}, 1),
+    "dense": ((6, 3), False, 4097, 50, {"dense": True}, 1),
+    "fleet": ((6, 3), False, 4097, 50, {}, 5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(HELD_CASES))
+def test_held_solve_matches_plain_and_the_redrawn_solve(cuda_device, case,
+                                                        monkeypatch):
+    """pm_fused_solve with the prefix of its normals that ``held_normals``
+    gives held in shared memory: against its plain version (and, for a
+    fleet, each vehicle's), on injected z and on the Philox stream, and
+    bit for bit the same rows as the solve that holds none and draws
+    every normal again."""
+    dims, elipse, k, tau, opts, n = HELD_CASES[case]
+    sdim, adim = dims
+    opts = dict(opts)
+    dense = opts.pop("dense", False)
+    fused = _pm_case(k, tau, cuda_device, sdim, adim, elipse, dense, **opts)
+    c = fused.consts
+    rng = np.random.default_rng(tau + k)
+    x0 = torch.as_tensor(rng.normal(size=(n, sdim)) * 0.3 + (
+        [3.0, 1.0, 0.5, 1.0] if elipse else 0.0), dtype=torch.float32,
+        device=cuda_device)
+    useq = torch.as_tensor(rng.normal(size=(n, tau, adim)) * 0.1,
+                           dtype=torch.float32, device=cuda_device)
+    dyns = [fused.pack_dyn(x0[v], useq[v]) for v in range(n)]
+    dyn = torch.stack(dyns) if n > 1 else dyns[0]
+    n_z = tau * adim
+    held = pm.solve_held(c, tau, dyn.shape[-1], cuda_device)
+    assert 0 < held <= n_z and (held == n_z or held % 4 == 0)
+    assert (held < n_z) == (case != "elipse")
+    z = torch.as_tensor(rng.standard_normal((n, tau, adim, k), np.float32),
+                        device=cuda_device)
+    for kw in ({"z": z if n > 1 else z[0]}, {"seed": 4, "solve": 3}):
+        rows = pm.pm_fused_solve(c, dyn, k, tau, **kw)
+        with monkeypatch.context() as m:
+            m.setattr(pm, "solve_held", lambda *a: 0)
+            assert torch.equal(rows, pm.pm_fused_solve(c, dyn, k, tau, **kw))
+        for v in range(n):
+            kv = ({"z": z[v]} if "z" in kw
+                  else {"seed": 4, "solve": 3 * n + v if n > 1 else 3})
+            zs_k, st_k = pm.merge_plain(rows[v] if n > 1 else rows)
+            zs_p, st_p = pm.merge_plain(pm.fused_solve_plain(
+                c, dyns[v], k, tau, **kv))
+            torch.testing.assert_close(zs_k / st_k[1], zs_p / st_p[1],
+                                       rtol=1e-3, atol=1e-5)
+            torch.testing.assert_close(st_k[2:5], st_p[2:5], rtol=1e-4,
+                                       atol=0)
+
+
+def test_held_solve_is_captured_after_a_larger_footprint(cuda_device):
+    """After a launch that raised the kernel's shared-memory limit past
+    the rule's footprint (all 150 normals held), the solve at the rule's
+    prefix launches, is captured into a CUDA graph and replays the eager
+    rows; the capture records its held and redrawn normals."""
+    import ctypes
+
+    from mppi_tf_tpu_torch.controller import graph
+
+    out = (ctypes.c_int * 2)()
+    assert _build.load_library().pm_occupancy(6, 3, 0, 1, 0, 0, 50, 150,
+                                              out) == 0 and out[0] == 1
+    k, tau = 4097, 50
+    fused = _fused(k, tau, cuda_device)
+    c = fused.consts
+    dyn = fused.pack_dyn(torch.zeros(6, device=cuda_device),
+                         torch.zeros(tau, 3, device=cuda_device))
+    held = pm.solve_held(c, tau, dyn.shape[-1], cuda_device)
+    assert 0 < held < 3 * tau
+    want = pm.pm_fused_solve(c, dyn, k, tau, seed=2, solve=1)
+    cap = graph.capture("mppi.loop.capture", cuda_device,
+                        lambda: pm.pm_fused_solve(c, dyn, k, tau, seed=2,
+                                                  solve=1))
+    cap.graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(cap.out, want)
+    assert cap.z_held == {"held": k * held, "redrawn": k * (3 * tau - held)}
 
 
 def _pm_case(k, tau, device, sdim, adim, elipse, dense, **opts):

@@ -400,3 +400,39 @@ def test_replays_count_the_launches_of_eager_steps(cuda_device, kind):
             step_fn(_states(a._sdim, step))
         counts.append(dict(_launch.launch_counts))
     assert counts[0] == counts[1] and sum(counts[0].values()) > 0
+
+
+
+@pytest.mark.cuda
+def test_a_graph_left_in_a_cycle_does_not_end_another_capture(cuda_device):
+    """A captured graph dropped in a reference cycle (as a fleet and its
+    step graph are) is garbage only the cyclic collector frees; with the
+    collector set to run at every allocation inside the next capture
+    (``graph.capture`` pauses it), that capture completes and replays."""
+    import gc
+
+    from mppi_tf_tpu_torch.controller import graph
+
+    x = torch.arange(8.0, device=cuda_device)
+
+    def body():
+        if torch.cuda.is_current_stream_capturing():
+            gc.set_threshold(1, 1, 1)
+        return x * 2.0 + torch.ones_like(x)
+
+    threshold = gc.get_threshold()
+    gc.collect()
+    gc.set_threshold(1_000_000, 1_000, 1_000)
+    try:
+        held = {}
+        held["self"] = held
+        held["capture"] = graph.capture("mppi.loop.capture", cuda_device,
+                                        lambda: x + 1.0)
+        del held
+        cap = graph.capture("mppi.loop.capture", cuda_device, body)
+    finally:
+        gc.set_threshold(*threshold)
+    gc.collect()
+    cap.graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(cap.out, x * 2.0 + 1.0)
